@@ -1,0 +1,62 @@
+"""Decoder block: layernorm + mixer + gelu FFN with residuals.
+
+Port of the decoder half of `repro/models/blocks.py` for pythia's dense
+block (rmsnorm, swiglu, MoE, encoder and cross-attention blocks come
+with their architectures).  The mixer is resolved through the backend
+registry, so blocks never branch on backend names.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.mixers import get_backend
+from repro_torch.models.common import mlp_apply, mlp_init, norm_apply, \
+    norm_init
+
+
+def _check_dense(cfg):
+    if cfg.moe is not None or cfg.mlp_act != "gelu" \
+            or cfg.norm != "layernorm":
+        raise NotImplementedError(
+            f"the port's blocks are pythia's (layernorm, gelu FFN); "
+            f"norm={cfg.norm!r}, mlp_act={cfg.mlp_act!r}, moe="
+            f"{cfg.moe is not None} come with their architectures "
+            f"(ROADMAP.md queue 1 'Remaining architectures')")
+
+
+def block_init(gen: torch.Generator, cfg, dtype=torch.float32):
+    _check_dense(cfg)
+    return {"ln1": norm_init(cfg.d_model, dtype, gen.device),
+            "mixer": get_backend(cfg).init(gen, cfg, dtype),
+            "ln2": norm_init(cfg.d_model, dtype, gen.device),
+            "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)}
+
+
+def block_init_cache(cfg, batch: int, max_len: int, device="cuda"):
+    return get_backend(cfg).init_cache(cfg, batch, max_len, device)
+
+
+def _residual(p, cfg, x, attn_out, compute_dtype):
+    """x + attn + ffn, with the parallel residual x + attn(ln1 x) +
+    mlp(ln2 x) (pythia) or the sequential one."""
+    if cfg.parallel_residual:
+        ffn_out = mlp_apply(p["ffn"], norm_apply(p["ln2"], x),
+                            compute_dtype)
+        return x + attn_out + ffn_out
+    x = x + attn_out
+    return x + mlp_apply(p["ffn"], norm_apply(p["ln2"], x), compute_dtype)
+
+
+def block_prefill(p, cfg, x, positions, cache, compute_dtype=None):
+    h = norm_apply(p["ln1"], x)
+    attn_out, cache = get_backend(cfg).prefill(p["mixer"], cfg, h,
+                                               positions, cache,
+                                               compute_dtype)
+    return _residual(p, cfg, x, attn_out, compute_dtype), cache
+
+
+def block_decode(p, cfg, x, position, cache, compute_dtype=None):
+    h = norm_apply(p["ln1"], x)
+    attn_out, cache = get_backend(cfg).decode(p["mixer"], cfg, h, position,
+                                              cache, compute_dtype)
+    return _residual(p, cfg, x, attn_out, compute_dtype), cache

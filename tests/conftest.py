@@ -5,6 +5,8 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-minute subprocess tests (dry-run meshes)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips without one)")
 
 
 @pytest.fixture(scope="session", autouse=True)
