@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving path on one CUDA card and check it.
+"""Run the PyTorch port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,11 +8,15 @@ Needs one CUDA card, nvcc (PATH or /usr/local/cuda) and the repo's
 fails the run by raising (no result line is printed then):
 
   1. device  — require CUDA; print the card and its power limit; TF32 off
-  2. build   — nvcc every kernel of the path from src/repro_torch/kernels/
-               csrc (with -Xptxas -v), print the build seconds
+  2. build   — nvcc every kernel source of the paths from
+               src/repro_torch/kernels/csrc, one process each, all started
+               together (with -Xptxas -v); print the build seconds
   3. kernel  — each kernel against its plain PyTorch version on CUDA
-               tensors at the main path's shapes (plus GQA and a zero
-               normalizer), state updated in place
+               tensors: the decode step at the serving shapes (plus GQA
+               and a zero normalizer, state in place); la_fwd, la_bwd_q
+               and la_bwd_kv at the training shapes (B=2, H=Hkv=16,
+               N=8192, D=128) in bf16 and f32, at odd N=1000 and with
+               GQA G=4
   4. serve   — the Engine at full width pythia-1.4b in bf16: 8 requests,
                512-token prompts, prefill_chunk 256, 32 new tokens,
                greedy; every decode step must go through the kernel
@@ -21,16 +25,27 @@ fails the run by raising (no result line is printed then):
                decode steps' logits of the kernel path against the plain
                path on one cloned prefilled cache; and the smoke config
                on the card against the same weights on the CPU
-  5. timing  — the kernel and its plain version with CUDA events at the
-               main path's shapes, beside the kernel's bound
-  6. result  — a JSON line with every measurement, the card's line, a
+  5. train   — full width pythia-1.4b (f32 params, bf16 compute, the
+               config's remat) on SyntheticLM batches of 2 x 8192 tokens
+               (seed 0): the first step's loss and the grads of every
+               layer's wq/wk/wv/wo, ln_f and lm_head on the kernel path
+               against the plain path from one set of weights; then 4
+               steps through the Trainer, each launching la_fwd 48 times
+               (remat runs each layer's forward twice) and la_bwd_q and
+               la_bwd_kv 24 times; step time, tokens/s, peak memory, and
+               one more step under torch.profiler
+  6. timing  — each kernel and its plain version with CUDA events at the
+               main paths' shapes, in turns, beside the kernel's bound
+  7. result  — a JSON line with every measurement, the card's line, a
                `kernels` JSON line, then {"ok": true, "device": {...}}
                as the last line
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,12 +58,26 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
 
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/la_decode_fused.cu"
-KERNEL_REPLACES = "src/repro/kernels/decode_fused.py:157"
+CSRC = "src/repro_torch/kernels/csrc"
+# kernel -> (source in the repo, the TPU kernel it replaces)
+KERNELS = {
+    "la_decode_fused": (f"{CSRC}/la_decode_fused.cu",
+                        "src/repro/kernels/decode_fused.py:157"),
+    "la_fwd": (f"{CSRC}/la_fwd.cu",
+               "src/repro/kernels/linear_attention.py:96"),
+    "la_bwd_q": (f"{CSRC}/la_bwd.cu",
+                 "src/repro/kernels/linear_attention.py:208"),
+    "la_bwd_kv": (f"{CSRC}/la_bwd.cu",
+                  "src/repro/kernels/linear_attention.py:208"),
+}
+SOURCES = ("la_decode_fused", "la_fwd", "la_bwd")
 
 # main path: pythia-1.4b at full width
 SLOTS, PROMPT_LEN, PREFILL_CHUNK, MAX_NEW = 8, 512, 256, 32
 COMPARE_STEPS = 4
+# train path: pythia-1.4b at full width, the paper's §5.2 length
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8192, 4
+LA_SHAPE = dict(b=2, h=16, hkv=16, n=8192, d=128)
 # tolerances, relative to the reference's max |value|
 F32_REL = 1e-5          # f32 state / f32 outputs: float32 rounding
 BF16_REL = 2.0 ** -7    # bf16 outputs: one bf16 rounding step
@@ -57,6 +86,16 @@ BF16_REL = 2.0 ** -7    # bf16 outputs: one bf16 rounding step
 # residual stream over 24 layers (2^-8 per rounding, compounding)
 LOGITS_REL = 2.0 ** -4
 SMOKE_REL = 1e-4        # f32 smoke logits, card vs CPU
+# la_fwd / la_bwd in f32 against their plain versions: the kernels sum
+# token by token over up to 8192 tokens, the plain scans chunk by
+# chunk, so the f32 sums round in different orders
+SEQ_F32_REL = 1e-4
+# full-width train step, kernel path vs plain path: both round o, dq,
+# dk and dv to bf16 after f32 sums in different orders, and a last-bit
+# difference reaches the loss and the grads through 24 layers of bf16
+# matmuls forward and back
+TRAIN_LOSS_REL = 2.0 ** -8
+TRAIN_GRAD_REL = 2.0 ** -4
 
 
 def log(msg: str) -> None:
@@ -106,7 +145,7 @@ def phase_device(torch):
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    logs = build.build_all(["la_decode_fused"], ptxas_verbose=True)
+    logs = build.build_all(SOURCES, ptxas_verbose=True)
     secs = time.perf_counter() - t0
     for name, text in logs.items():
         log(f"[build] {name}: {secs!r} s\n{text.strip()}")
@@ -171,6 +210,66 @@ def phase_kernel(torch):
                                  f"non-finite values")
         if zero_den and float(o_k[0, :h // hkv].abs().max()) != 0.0:
             raise AssertionError("zero normalizer did not give 0")
+    return errs
+
+
+def _la_case(torch, gen, b, h, hkv, n, d, dtype):
+    """Unit q/k rows (as the model hands them over after l2
+    normalization), normal v and upstream grad, and the plain forward's
+    o and g with the backward's Ω̂ and h prepared from them."""
+    from repro_torch.core import chunked
+    from repro_torch.kernels import linear_attention as la
+
+    def unit(*shape):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        return (x / x.norm(dim=-1, keepdim=True)).to(dtype)
+
+    q, k = unit(b, h, n, d), unit(b, hkv, n, d)
+    v = torch.randn((b, hkv, n, d), generator=gen, device="cuda").to(dtype)
+    omega = torch.randn((b, h, n, d), generator=gen, device="cuda")
+    o, g = la.la_fwd_torch(q, k, v, 1.0, 1.0)
+    om_hat, h_vec = chunked.la_bwd_prep(o, g, omega)
+    return q, k, v, om_hat, h_vec
+
+
+def phase_kernel_la(torch):
+    """la_fwd, la_bwd_q and la_bwd_kv against their plain versions."""
+    from repro_torch.kernels import linear_attention as la
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    m = LA_SHAPE
+    cases = [("main_bf16", m["b"], m["h"], m["hkv"], m["n"], torch.bfloat16),
+             ("main_f32", m["b"], m["h"], m["hkv"], m["n"], torch.float32),
+             ("odd_n_bf16", m["b"], m["h"], m["hkv"], 1000, torch.bfloat16),
+             ("gqa_f32", m["b"], m["h"], 4, 1000, torch.float32),
+             ("gqa_bf16", m["b"], m["h"], 4, 1000, torch.bfloat16)]
+    errs = {}
+    for label, b, h, hkv, n, dtype in cases:
+        q, k, v, om_hat, h_vec = _la_case(torch, gen, b, h, hkv, n,
+                                          m["d"], dtype)
+        log(f"[kernel] {label}: B={b} H={h} Hkv={hkv} N={n} D={m['d']} "
+            f"{dtype}")
+        rel = BF16_REL if dtype == torch.bfloat16 else SEQ_F32_REL
+        o_k, g_k = la.la_fwd_cuda(q, k, v, 1.0, 1.0)
+        dq_k = la.la_bwd_q_cuda(k, v, om_hat, h_vec, 1.0)
+        dk_k, dv_k = la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec, 1.0, 1.0)
+        torch.cuda.synchronize()
+        o_t, g_t = la.la_fwd_torch(q, k, v, 1.0, 1.0)
+        dq_t = la.la_bwd_q_torch(k, v, om_hat, h_vec, 1.0)
+        dk_t, dv_t = la.la_bwd_kv_torch(q, k, v, om_hat, h_vec, 1.0, 1.0)
+        e = {"la_fwd": check_close(f"{label} o", o_k, o_t, rel)}
+        check_close(f"{label} g", g_k, g_t, SEQ_F32_REL)
+        e["la_bwd_q"] = check_close(f"{label} dq", dq_k, dq_t, rel)
+        e["la_bwd_kv"] = max(check_close(f"{label} dk", dk_k, dk_t, rel),
+                             check_close(f"{label} dv", dv_k, dv_t, rel))
+        for name, t in (("o", o_k), ("dq", dq_k), ("dk", dk_k),
+                        ("dv", dv_k)):
+            if t.dtype != dtype or not torch.isfinite(t).all():
+                raise AssertionError(f"{label} {name}: dtype {t.dtype} or "
+                                     f"non-finite values")
+        errs[label] = e
+        del q, k, v, om_hat, h_vec, o_k, g_k, dq_k, dk_k, dv_k, o_t, g_t, \
+            dq_t, dk_t, dv_t
     return errs
 
 
@@ -252,7 +351,8 @@ def phase_serve(torch, np):
     step_host_ms = (time.perf_counter() - h0) * 1e3 / n_timed
     step_dev_ms = ev0.elapsed_time(ev1) / n_timed
     peak = torch.cuda.max_memory_allocated()
-    profile = _profile_decode(torch, mdl, engine, tokens)
+    profile = _profile(torch, "decode step", lambda: mdl.decode_step(
+        engine.params, engine.cfg, engine.cache, tokens), steps=5)
 
     # the first decode steps' logits, kernel path vs plain path, from one
     # prefilled cache (cloned) and the same fed tokens
@@ -295,11 +395,11 @@ def phase_serve(torch, np):
     return record, launches
 
 
-def _profile_decode(torch, mdl, engine, tokens, steps=5):
-    """torch.profiler over `steps` full-batch decode steps: the device's
-    kernel time and launches per step, its busy share of the wall time
-    and the kernels that take the most device time.  None where the
-    profiler records no device activity."""
+def _profile(torch, label, fn, steps):
+    """torch.profiler over `steps` calls of `fn` (one step each): the
+    device's kernel time and launches per step, its busy share of the
+    wall time and the kernels that take the most device time.  None
+    where the profiler records no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -308,16 +408,16 @@ def _profile_decode(torch, mdl, engine, tokens, steps=5):
                              ProfilerActivity.CUDA]) as prof:
         h0 = time.perf_counter()
         for _ in range(steps):
-            mdl.decode_step(engine.params, engine.cfg, engine.cache, tokens)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - h0) * 1e3 / steps
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     if not rows:
-        log("[profile] the profiler recorded no device activity")
+        log(f"[profile] {label}: the profiler recorded no device activity")
         return None
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / steps
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
     rec = {"steps": steps, "wall_ms_per_step": wall_ms,
            "device_busy_ms_per_step": busy_ms,
            "device_busy_share": busy_ms / wall_ms,
@@ -325,7 +425,7 @@ def _profile_decode(torch, mdl, engine, tokens, steps=5):
            "top_kernels_ms_per_step": {
                e.key[:80]: e.self_device_time_total / 1e3 / steps
                for e in top}}
-    log(f"[profile] decode step: {rec}")
+    log(f"[profile] {label}: {rec}")
     return rec
 
 
@@ -367,8 +467,150 @@ def phase_smoke_reference(torch):
 
 
 # ---------------------------------------------------------------------------
-# 5. kernel timing
+# 5. train path: the Trainer at full width
 # ---------------------------------------------------------------------------
+
+def _compared_grad(path: str) -> bool:
+    """Every layer's wq/wk/wv/wo, ln_f and lm_head."""
+    parts = path.split(".")
+    return (parts[0] in ("ln_f", "lm_head")
+            or (parts[0] == "blocks" and parts[2] == "mixer"
+                and parts[3] in ("wq", "wk", "wv", "wo")))
+
+
+def _train_compare(torch, mdl, cfg, params, batch):
+    """The first step's loss and the compared grads, kernel path against
+    plain path, from the same weights and batch."""
+    from repro_torch.tree import named_leaves
+    named = [(p, t) for p, t in named_leaves(params) if _compared_grad(p)]
+    for _, t in named:
+        t.requires_grad_(True)
+    runs = {}
+    for impl in ("cuda", "torch"):
+        loss, _ = mdl.loss_fn(params, _with_impl(cfg, impl), batch)
+        grads = torch.autograd.grad(loss, [t for _, t in named])
+        runs[impl] = (loss.detach(), grads)
+        del loss
+    (loss_k, grads_k), (loss_t, grads_t) = runs["cuda"], runs["torch"]
+    loss_err = check_close("train step 0 loss (cuda vs torch)", loss_k,
+                           loss_t, TRAIN_LOSS_REL)
+    if not (torch.isfinite(loss_k) and torch.isfinite(loss_t)):
+        raise AssertionError("non-finite first-step loss")
+    grad_errs = {}
+    for (path, _), gk, gt in zip(named, grads_k, grads_t):
+        err, scale = rel_err(gk, gt)
+        grad_errs[path] = err / scale
+        if not (err <= TRAIN_GRAD_REL * scale) or not torch.isfinite(
+                gk).all():
+            raise AssertionError(f"grad {path}: max abs err {err} > "
+                                 f"{TRAIN_GRAD_REL} * {scale}")
+    worst = max(grad_errs, key=grad_errs.get)
+    log(f"  {len(named)} grads within {TRAIN_GRAD_REL} of their max "
+        f"|value|; worst {worst} at {grad_errs[worst]!r}")
+    return {"loss_cuda": float(loss_k), "loss_torch": float(loss_t),
+            "loss_abs_err": loss_err, "grads_compared": len(named),
+            "grad_rel_err_max": grad_errs[worst], "grad_rel_err_worst":
+            worst, "grad_rel_err": grad_errs}
+
+
+def phase_train(torch):
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import linear_attention as la
+    from repro_torch.models import model as mdl
+    from repro_torch.train.loop import Trainer
+
+    cfg = get_config("pythia-1.4b")
+    if not (cfg.remat and cfg.compute_dtype == "bfloat16"
+            and cfg.param_dtype == "float32"):
+        raise AssertionError(f"pythia-1.4b is not f32 params / bf16 "
+                             f"compute / remat: {cfg}")
+    torch.cuda.empty_cache()
+    params = mdl.init_params(cfg, seed=0, device="cuda")
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batch0 = {"tokens": torch.from_numpy(data.batch_at(0)).to("cuda")}
+    compare = _train_compare(torch, mdl, cfg, params, batch0)
+    del batch0
+    torch.cuda.empty_cache()
+
+    tc = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
+    trainer = Trainer(cfg, tc, params, data)
+    del params
+    torch.cuda.reset_peak_memory_stats()
+    for name in la.launches:
+        la.launches[name] = 0
+    t0 = time.perf_counter()
+    hist = trainer.run(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(la.launches)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {"la_fwd": 2 * cfg.num_layers, "la_bwd_q": cfg.num_layers,
+                "la_bwd_kv": cfg.num_layers}
+    log(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens: launches {launches}, losses "
+        f"{[h['loss'] for h in hist]}, step s {[h['dt'] for h in hist]}")
+    if launches != {k: v * TRAIN_STEPS for k, v in per_step.items()}:
+        raise AssertionError(f"kernel launches {launches} != "
+                             f"{per_step} per step x {TRAIN_STEPS}")
+    if len(hist) != TRAIN_STEPS or not all(
+            math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"train history {hist}")
+    steady = sorted(h["dt"] for h in hist[1:])
+    step_s = steady[len(steady) // 2]
+    batch = {"tokens": torch.from_numpy(data.batch_at(TRAIN_STEPS)).to(
+        "cuda")}
+    profile = _profile(torch, "train step", lambda: trainer.step_fn(
+        trainer.params, trainer.opt_state, batch, TRAIN_STEPS), steps=1)
+    record = {"arch": cfg.name, "compute_dtype": cfg.compute_dtype,
+              "param_dtype": cfg.param_dtype, "remat": cfg.remat,
+              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+              "losses": [h["loss"] for h in hist],
+              "step_s": [h["dt"] for h in hist],
+              "step_s_median_after_first": step_s,
+              "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+              "wall_s": wall, "kernel_launches": launches,
+              "launches_per_step": per_step,
+              "max_memory_allocated_bytes": peak,
+              "train_step_profile": profile,
+              "kernel_vs_plain": compare}
+    del trainer
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+# ---------------------------------------------------------------------------
+# 6. kernel timing
+# ---------------------------------------------------------------------------
+
+def _time_pair(torch, plain, kernel, reps, warm=1):
+    """CUDA-event ms per call of `plain` and `kernel`, in turns (plain,
+    kernel, kernel, plain); each takes no arguments."""
+    def time_fn(fn):
+        for _ in range(warm):
+            fn()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        ev0.record()
+        for _ in range(reps):
+            fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        return ev0.elapsed_time(ev1) / reps
+
+    plain_a, kern_a = time_fn(plain), time_fn(kernel)
+    kern_b, plain_b = time_fn(kernel), time_fn(plain)
+    return [kern_a, kern_b], [plain_a, plain_b]
+
+
+def _bound(bytes_moved, flops):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": bytes_moved, "flops": flops}
+
 
 def phase_timing(torch):
     """Kernel and plain version at the main path's decode shapes.  The
@@ -384,23 +626,13 @@ def phase_timing(torch):
     sets = [_decode_case(torch, gen, b, h, hkv, d, dtype)
             for _ in range(n_bufs)]
 
-    def time_fn(fn, reps=200, warm=20):
-        for i in range(warm):
-            fn(*sets[i % n_bufs][:5], 1.0, 1.0)
-        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        ev0.record()
-        for i in range(reps):
-            fn(*sets[i % n_bufs][:5], 1.0, 1.0)
-        ev1.record()
-        torch.cuda.synchronize()
-        return ev0.elapsed_time(ev1) / reps
+    def rotating(fn):
+        nxt = itertools.cycle(sets).__next__
+        return lambda: fn(*nxt()[:5], 1.0, 1.0)
 
-    # plain, kernel, kernel, plain
-    plain_a = time_fn(df.la_decode_fused_torch)
-    kern_a = time_fn(df.la_decode_fused_cuda)
-    kern_b = time_fn(df.la_decode_fused_cuda)
-    plain_b = time_fn(df.la_decode_fused_torch)
+    kern, plain = _time_pair(torch, rotating(df.la_decode_fused_torch),
+                             rotating(df.la_decode_fused_cuda), reps=200,
+                             warm=20)
     g = h // hkv
     cols = d + 1
     state_elems = b * hkv * d * cols
@@ -410,20 +642,67 @@ def phase_timing(torch):
                    + b * h * d * itemsize)
     flops = (state_elems * (2 + 2 * g) + b * hkv * cols * (1 + 3 * g)
              + b * h * d)
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    rec = {"ms": min(kern_a, kern_b), "ms_runs": [kern_a, kern_b],
-           "plain_ms": min(plain_a, plain_b),
-           "plain_ms_runs": [plain_a, plain_b],
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bytes": bytes_moved, "flops": flops}
+    rec = {"ms": min(kern), "ms_runs": kern, "plain_ms": min(plain),
+           "plain_ms_runs": plain, **_bound(bytes_moved, flops)}
     log(f"[timing] la_decode_fused B={b} H={h} Hkv={hkv} D={d} {dtype}: "
         f"kernel {rec['ms_runs']} ms, plain {rec['plain_ms_runs']} ms, "
         f"bound {rec['bound_ms']!r} ms ({rec['bound_by']}: "
         f"{bytes_moved} B, {flops} flop); library_ms null: no single "
         f"PyTorch call computes this fused update + readout")
     return rec
+
+
+def phase_timing_la(torch):
+    """la_fwd, la_bwd_q and la_bwd_kv and their plain versions at the
+    train path's shapes (bf16, as the model hands them over).  Each
+    input is larger than the 50 MB L2, so every call reads it from
+    device memory."""
+    from repro_torch.kernels import linear_attention as la
+    m = LA_SHAPE
+    b, h, hkv, n, d = m["b"], m["h"], m["hkv"], m["n"], m["d"]
+    dtype = torch.bfloat16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    q, k, v, om_hat, h_vec = _la_case(torch, gen, b, h, hkv, n, d, dtype)
+    it = q.element_size()
+    q_el, kv_el = b * h * n * d, b * hkv * n * d
+    tok_q, tok_kv = b * h * n, b * hkv * n
+    work = {
+        # q, k, v read; o written in the compute dtype, g in f32
+        "la_fwd": ((q_el + 2 * kv_el) * it + q_el * it + tok_q * 4,
+                   tok_q * 4 * d * (d + 1)),
+        # k, v read; Ω̂ and h read in f32; dq written
+        "la_bwd_q": (2 * kv_el * it + q_el * 4 + tok_q * 4 + q_el * it,
+                     tok_q * 4 * d * (d + 1)),
+        # q, k, v read; Ω̂ and h read in f32; dk, dv written.  The U
+        # update per query token and head, the dk and dv readouts per
+        # KV token and head
+        "la_bwd_kv": ((q_el + 2 * kv_el) * it + q_el * 4 + tok_q * 4
+                      + 2 * kv_el * it,
+                      tok_q * 2 * (d + 1) ** 2 + tok_kv * 4 * d * (d + 1)),
+    }
+    calls = {
+        "la_fwd": (lambda: la.la_fwd_torch(q, k, v, 1.0, 1.0),
+                   lambda: la.la_fwd_cuda(q, k, v, 1.0, 1.0)),
+        "la_bwd_q": (lambda: la.la_bwd_q_torch(k, v, om_hat, h_vec, 1.0),
+                     lambda: la.la_bwd_q_cuda(k, v, om_hat, h_vec, 1.0)),
+        "la_bwd_kv": (lambda: la.la_bwd_kv_torch(q, k, v, om_hat, h_vec,
+                                                 1.0, 1.0),
+                      lambda: la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec,
+                                                1.0, 1.0)),
+    }
+    out = {}
+    for name, (plain, kernel) in calls.items():
+        kern, pl = _time_pair(torch, plain, kernel, reps=5)
+        rec = {"ms": min(kern), "ms_runs": kern, "plain_ms": min(pl),
+               "plain_ms_runs": pl, **_bound(*work[name])}
+        log(f"[timing] {name} B={b} H={h} Hkv={hkv} N={n} D={d} {dtype}: "
+            f"kernel {kern} ms, plain {pl} ms, bound {rec['bound_ms']!r} ms "
+            f"({rec['bound_by']}: {rec['bytes']} B, {rec['flops']} flop); "
+            f"library_ms null: no single PyTorch call computes normalized "
+            f"causal linear attention or its gradient (SDPA is softmax)")
+        out[name] = rec
+    return out
 
 
 def main() -> int:
@@ -433,20 +712,30 @@ def main() -> int:
     name, smi = phase_device(torch)
     build_s = phase_build()
     kernel_errs = phase_kernel(torch)
-    serve, launches = phase_serve(torch, np)
+    la_errs = phase_kernel_la(torch)
+    serve, serve_launches = phase_serve(torch, np)
     smoke_errs = phase_smoke_reference(torch)
-    timing = phase_timing(torch)
+    torch.cuda.empty_cache()
+    train, train_launches = phase_train(torch)
+    timing = {"la_decode_fused": phase_timing(torch), **phase_timing_la(
+        torch)}
 
+    launches = {"la_decode_fused": serve_launches, **train_launches}
+    max_err = {"la_decode_fused": kernel_errs["main_bf16"],
+               **la_errs["main_bf16"]}
     kernels = {"kernels": [{
-        "name": "la_decode_fused", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches, "max_abs_err": kernel_errs["main_bf16"],
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None}]}
+        "name": kname, "route": "cuda", "source": KERNELS[kname][0],
+        "replaces": KERNELS[kname][1], "launches": launches[kname],
+        "max_abs_err": max_err[kname], "ms": timing[kname]["ms"],
+        "plain_ms": timing[kname]["plain_ms"],
+        "bound_ms": timing[kname]["bound_ms"],
+        "bound_by": timing[kname]["bound_by"],
+        "library_ms": None} for kname in KERNELS]}
     serve["card"] = smi
-    print(json.dumps({"serve": serve, "build_s": build_s,
+    train["card"] = smi
+    print(json.dumps({"serve": serve, "train": train, "build_s": build_s,
                       "kernel_max_abs_err": kernel_errs,
+                      "la_kernel_max_abs_err": la_errs,
                       "smoke_logits_max_abs_err": smoke_errs,
                       "timing": timing}), flush=True)
     print(smi, flush=True)

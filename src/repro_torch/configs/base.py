@@ -1,8 +1,8 @@
 """Config schema for the port (a copy of `repro/configs/base.py`).
 
-Only what the dense linear-attention serving path reads is kept:
-`LACfg`, `ModelConfig` (its fields, `resolved_head_dim` and
-`param_count`) and the two optional blocks `ModelConfig` names.  The
+Only what the dense linear-attention path reads is kept: `LACfg`,
+`ModelConfig` (its fields, `resolved_head_dim` and `param_count`), the
+two optional blocks `ModelConfig` names, and `TrainConfig`.  The
 family extensions (MoE, MLA, SSM, hybrid, enc-dec) keep their fields so
 `param_count` matches the reference, but no module of the port reads
 them yet.
@@ -173,3 +173,24 @@ class ModelConfig:
             total += self.encoder_layers * (enc_attn + mult * d * self.d_ff)
             total += self.num_layers * enc_attn
         return total
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 1e-3       # paper §5.2
+    min_learning_rate: float = 5e-5
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    microbatch: int = 0               # 0 = no gradient accumulation
+    # the reference's sharding, compression and checkpoint fields; the
+    # multi-GPU and checkpoint slices read them (ROADMAP.md queue 1)
+    zero1: bool = True
+    grad_compression: str = "none"    # none | int8
+    seed: int = 0
+    checkpoint_every: int = 200
+    checkpoint_dir: str = "checkpoints"
+    straggler_threshold: float = 3.0  # x median step time

@@ -5,7 +5,9 @@
 `jax.tree.map(np.asarray, params)`) and returns the port's tree: the
 layer axis that the reference's `_stack_init` puts on axis 0 of every
 `blocks` leaf is unstacked into a list of per-layer dicts.  Dense
-weights keep their (d_in, d_out) layout, so each one is a copy.
+weights keep their (d_in, d_out) layout, so each one is a copy; the
+learnable coefficients `la_a` / `la_b` (one scalar per layer, stacked
+to (L,)) become one 0-d f32 tensor per layer.
 """
 from __future__ import annotations
 

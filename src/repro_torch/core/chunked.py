@@ -1,7 +1,7 @@
 """Chunked-scan formulation of the paper's linear attention (plain PyTorch).
 
-Port of `repro/core/chunked.py` (forward and decode; the analytic
-backward comes with the training path).  The sequence is processed in
+Port of `repro/core/chunked.py`: forward with state in and out, the
+analytic backward (paper Eqs. 19-21) and decode.  The sequence is processed in
 chunks of C tokens and V is augmented with a ones column, so one
 carried state gives both the numerator and the normalizer:
 
@@ -102,6 +102,110 @@ def la_fwd_chunked(q, k, v, a: float, b: float,
     g = f_all[..., dv]
     o = safe_div(f_all[..., :dv], g[..., None]).to(q.dtype)
     return o, g, LAState(s, p)
+
+
+# ---------------------------------------------------------------------------
+# Backward (causal) — paper Eqs. 19-21, chunked
+# ---------------------------------------------------------------------------
+
+def la_bwd_prep(o, g, omega):
+    """Ω̂ = safe_div(ω, g) and h = Σ o·Ω̂ (paper Eq. 20), both f32:
+    om_hat (B, H, N, Dv), h (B, H, N)."""
+    om_hat = safe_div(omega.float(), g[..., None])
+    return om_hat, (o.float() * om_hat).sum(-1)
+
+
+def _ones_col(x: torch.Tensor, value: float = 1.0) -> torch.Tensor:
+    return torch.full(x.shape[:-1] + (1,), value, dtype=F32,
+                      device=x.device)
+
+
+def la_bwd_q_chunked(k, v, om_hat, h_vec, b: float,
+                     chunk: int = DEFAULT_SCAN_CHUNK, out_dtype=None):
+    """dQ by a forward chunk scan carrying A = Σ kᵀ[v, 1] (Dk, Dv+1).
+
+    k, v: (B, Hkv, N, D); om_hat (B, H, N, Dv) and h_vec (B, H, N) f32
+    from `la_bwd_prep`.  Returns dq (B, H, N, Dk) in out_dtype (k.dtype
+    by default).
+    """
+    bsz, h, n, dv = om_hat.shape
+    hkv, dk = k.shape[1], k.shape[-1]
+    grp = h // hkv
+    c = min(chunk, n)
+    t = -(-n // c)
+    n_pad = t * c
+    kc = _pad_seq(k, n_pad).float().reshape(bsz, hkv, t, c, dk)
+    vaug = torch.cat([v.float(), _ones_col(v)], -1)
+    vaug = _pad_seq(vaug, n_pad).reshape(bsz, hkv, t, c, dv + 1)
+    # gmat = [Ω̂, -h]: padded rows are zero
+    gmat = torch.cat([om_hat, -h_vec[..., None]], -1)
+    gmat = _pad_seq(gmat, n_pad).reshape(bsz, hkv, grp, t, c, dv + 1)
+    tril = torch.tril(torch.ones((c, c), dtype=F32, device=k.device))
+    a_st = torch.zeros((bsz, hkv, dk, dv + 1), dtype=F32, device=k.device)
+    dq_chunks = []
+    for i in range(t):
+        k_i, va_i, gm_i = kc[:, :, i], vaug[:, :, i], gmat[:, :, :, i]
+        sc = torch.einsum("bhgie,bhje->bhgij", gm_i, va_i) * tril
+        dq = (torch.einsum("bhgij,bhjd->bhgid", sc, k_i)
+              + torch.einsum("bhgie,bhde->bhgid", gm_i, a_st))
+        a_st = a_st + torch.einsum("bhjd,bhje->bhde", k_i, va_i)
+        dq_chunks.append(b * dq)
+    dq = torch.stack(dq_chunks, 3).reshape(bsz, h, n_pad, dk)[:, :, :n]
+    return dq.to(out_dtype or k.dtype)
+
+
+def la_bwd_kv_chunked(q, k, v, om_hat, h_vec, a: float, b: float,
+                      chunk: int = DEFAULT_SCAN_CHUNK):
+    """dK and dV by a reverse chunk scan carrying U = Σ [q, 1]ᵀ[Ω̂, h]
+    (Dk+1, Dv+1), with the G query heads of a KV head summed into U, so
+    the grads land on the unexpanded (B, Hkv, N, D) k and v."""
+    bsz, h, n, dk = q.shape
+    hkv, dv = k.shape[1], v.shape[-1]
+    grp = h // hkv
+    c = min(chunk, n)
+    t = -(-n // c)
+    n_pad = t * c
+    qc = _pad_seq(q, n_pad).float().reshape(bsz, hkv, grp, t, c, dk)
+    qaug = torch.cat([qc, torch.ones(qc.shape[:-1] + (1,), dtype=F32,
+                                     device=q.device)], -1)
+    kc = _pad_seq(k, n_pad).float().reshape(bsz, hkv, t, c, dk)
+    vneg = torch.cat([v.float(), _ones_col(v, -1.0)], -1)
+    vneg = _pad_seq(vneg, n_pad).reshape(bsz, hkv, t, c, dv + 1)
+    # g2 = [Ω̂, +h]: padded rows are zero, so they add nothing to U
+    g2 = torch.cat([om_hat, h_vec[..., None]], -1)
+    g2 = _pad_seq(g2, n_pad).reshape(bsz, hkv, grp, t, c, dv + 1)
+    tril = torch.tril(torch.ones((c, c), dtype=F32, device=q.device))
+    u = torch.zeros((bsz, hkv, dk + 1, dv + 1), dtype=F32, device=q.device)
+    dk_chunks, dv_chunks = [None] * t, [None] * t
+    for i in reversed(range(t)):
+        q_i, qa_i, k_i = qc[:, :, :, i], qaug[:, :, :, i], kc[:, :, i]
+        vn_i, g2_i = vneg[:, :, i], g2[:, :, :, i]
+        om_i = g2_i[..., :dv]
+        # dK intra: Σ_{i >= p} q_i (Ω̂_i·v_p - h_i)
+        sc = torch.einsum("bhgie,bhpe->bhgip", g2_i, vn_i) * tril
+        dk_ = (torch.einsum("bhgip,bhgid->bhpd", sc, q_i)
+               + torch.einsum("bhpe,bhde->bhpd", vn_i, u[..., :dk, :]))
+        # dV intra: Σ_{i >= p} (a + b q_i·k_p) Ω̂_i
+        att = (a + b * torch.einsum("bhgid,bhpd->bhgip", q_i, k_i)) * tril
+        dv_ = (torch.einsum("bhgip,bhgij->bhpj", att, om_i)
+               + b * torch.einsum("bhpd,bhdj->bhpj", k_i, u[..., :dk, :dv])
+               + a * u[..., dk, :dv][:, :, None, :])
+        u = u + torch.einsum("bhgic,bhgie->bhce", qa_i, g2_i)
+        dk_chunks[i], dv_chunks[i] = b * dk_, dv_
+    dk_o = torch.stack(dk_chunks, 2).reshape(bsz, hkv, n_pad, dk)[:, :, :n]
+    dv_o = torch.stack(dv_chunks, 2).reshape(bsz, hkv, n_pad, dv)[:, :, :n]
+    return dk_o.to(k.dtype), dv_o.to(v.dtype)
+
+
+def la_bwd_chunked(q, k, v, o, g, omega, a: float, b: float,
+                   chunk: int = DEFAULT_SCAN_CHUNK):
+    """Analytic gradient from residuals {q, k, v, o, g} and upstream grad
+    omega (the plain backward).  Returns (dq, dk, dv) in the respective
+    input dtypes."""
+    om_hat, h_vec = la_bwd_prep(o, g, omega)
+    dq = la_bwd_q_chunked(k, v, om_hat, h_vec, b, chunk, out_dtype=q.dtype)
+    dk, dv = la_bwd_kv_chunked(q, k, v, om_hat, h_vec, a, b, chunk)
+    return dq, dk, dv
 
 
 def la_decode_step(state: LAState, q, k, v, a: float, b: float):

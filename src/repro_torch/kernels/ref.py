@@ -1,0 +1,53 @@
+"""Quadratic oracle of the linear-attention family (port of
+`repro/kernels/ref.py`: `expand_kv`, `la_ref`).
+
+It materializes the full N x N score matrix and is a correctness
+reference only; all accumulation is f32.  The oracle is grouped-native:
+queries are viewed as (B, Hkv, G, N, D) and contracted against the
+unexpanded (B, Hkv, N, D) keys and values.
+"""
+from __future__ import annotations
+
+import torch
+
+F32 = torch.float32
+
+
+def expand_kv(x: torch.Tensor, num_q_heads: int) -> torch.Tensor:
+    """Repeat KV heads (B, Hkv, N, D) -> (B, H, N, D): query head h reads
+    KV head h // G.  Materializes the H/Hkv-fold copy."""
+    hkv = x.shape[1]
+    if hkv == num_q_heads:
+        return x
+    if num_q_heads % hkv != 0:
+        raise ValueError(f"H={num_q_heads} is not a multiple of Hkv={hkv}")
+    return x.repeat_interleave(num_q_heads // hkv, dim=1)
+
+
+def la_weights(q, k, a: float = 1.0, b: float = 1.0, causal: bool = True):
+    """(a + b q.k) scores (B, Hkv, G, Nq, Nk) in f32, causal-masked."""
+    bq, h, nq, d = q.shape
+    hkv, nk = k.shape[1], k.shape[2]
+    qg = q.reshape(bq, hkv, h // hkv, nq, d).float()
+    w = a + b * torch.einsum("bkgid,bkjd->bkgij", qg, k.float())
+    if causal:
+        mask = torch.ones((nq, nk), dtype=torch.bool,
+                          device=q.device).tril(nk - nq)
+        w = torch.where(mask, w, torch.zeros((), dtype=F32,
+                                             device=q.device))
+    return w
+
+
+def la_ref(q, k, v, a: float = 1.0, b: float = 1.0, causal: bool = True):
+    """Normalized linear attention, paper Eq. 4:
+
+        o_ij = sum_n (a + b q_i.k_n) v_nj / sum_n (a + b q_i.k_n)
+
+    q: (B, H, Nq, D); k, v: (B, Hkv, Nk, D) with Hkv | H.  Returns
+    (B, H, Nq, Dv) in q.dtype.  O(N^2 D) time and O(N^2) memory.
+    """
+    bq, h, nq, _ = q.shape
+    w = la_weights(q, k, a, b, causal)
+    o = torch.einsum("bkgij,bkjd->bkgid", w, v.float()) \
+        / w.sum(-1, keepdim=True)
+    return o.reshape(bq, h, nq, v.shape[-1]).to(q.dtype)

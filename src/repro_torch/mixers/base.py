@@ -15,8 +15,8 @@ _BACKENDS: dict[str, "AttentionBackend"] = {}
 
 
 class AttentionBackend:
-    """One token-mixing mechanism across prefill / decode (training
-    comes with the training slice).
+    """One token-mixing mechanism across training (apply), prefill and
+    decode.
 
     Shapes (C = d_model): x: (B, N, C); positions: (B, N) absolute
     positions; decode takes x: (B, 1, C) and position: (B, 1) —

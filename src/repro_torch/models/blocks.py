@@ -1,7 +1,8 @@
 """Decoder block: layernorm + mixer + gelu FFN with residuals.
 
-Port of the decoder half of `repro/models/blocks.py` for pythia's dense
-block (rmsnorm, swiglu, MoE, encoder and cross-attention blocks come
+Port of the decoder half of `repro/models/blocks.py` (training
+`block_apply`, serving `block_prefill` / `block_decode`) for pythia's
+dense block (rmsnorm, swiglu, MoE, encoder and cross-attention blocks come
 with their architectures).  The mixer is resolved through the backend
 registry, so blocks never branch on backend names.
 """
@@ -45,6 +46,16 @@ def _residual(p, cfg, x, attn_out, compute_dtype):
         return x + attn_out + ffn_out
     x = x + attn_out
     return x + mlp_apply(p["ffn"], norm_apply(p["ln2"], x), compute_dtype)
+
+
+def block_apply(p, cfg, x, positions, compute_dtype=None):
+    """Training: the causal mixer over the whole sequence, then the
+    residuals.  The dense FFN has no aux loss (MoE comes with its
+    architectures), so this returns the block's output only."""
+    h = norm_apply(p["ln1"], x)
+    attn_out = get_backend(cfg).apply(p["mixer"], cfg, h, positions,
+                                      compute_dtype)
+    return _residual(p, cfg, x, attn_out, compute_dtype)
 
 
 def block_prefill(p, cfg, x, positions, cache, compute_dtype=None):

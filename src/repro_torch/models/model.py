@@ -1,13 +1,20 @@
-"""Dense decoder-only LM for serving: embed -> blocks -> norm -> unembed.
+"""Dense decoder-only LM: embed -> blocks -> norm -> unembed.
 
-Port of the dense-family serving path of `repro/models/model.py`:
-`init_params`, `init_cache`, `prefill` and `decode_step`.  Layers are a
+Port of the dense-family path of `repro/models/model.py`: training
+(`forward_hidden`, `chunked_cross_entropy`, `loss_fn`) and serving
+(`init_params`, `init_cache`, `prefill`, `decode_step`).  Layers are a
 Python list of per-layer param dicts (the reference stacks them on axis
 0 for lax.scan; convert.py unstacks).  Logits are computed in f32.
+
+`cfg.remat` recomputes each block in the backward
+(`torch.utils.checkpoint`, non-reentrant): the counterpart of the
+reference's `jax.checkpoint` around its scanned block body, so only the
+blocks' inputs stay alive between forward and backward.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blk
@@ -20,7 +27,7 @@ F32 = torch.float32
 def _check_family(cfg):
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; the port serves the "
+            f"family {cfg.family!r} is not ported yet; the port runs the "
             f"dense family (ROADMAP.md queue 1 'Remaining architectures')")
     if cfg.tie_embeddings or cfg.logit_softcap or \
             cfg.rope_kind not in ("standard", "partial", "none"):
@@ -69,6 +76,84 @@ def compute_params(params, cfg):
 
     return cast(params)
 
+
+# ---------------------------------------------------------------------------
+# Forward (training) — returns final hidden + aux loss
+# ---------------------------------------------------------------------------
+
+def _positions(batch, tokens):
+    if "positions" in batch:
+        return batch["positions"]
+    b, n = tokens.shape
+    return torch.arange(n, dtype=torch.int32,
+                        device=tokens.device)[None].expand(b, n)
+
+
+def forward_hidden(params, cfg, batch):
+    """batch: {"tokens": (B, N) int}.  Returns (hidden (B, N, d) in the
+    compute dtype, aux loss f32: 0 for the dense family)."""
+    _check_family(cfg)
+    cdt = dtype_of(cfg.compute_dtype)
+    tokens = batch["tokens"]
+    positions = _positions(batch, tokens)
+    x = embed_lookup(params["embed"], tokens, cdt)
+    for lp in params["blocks"]:
+        if cfg.remat:
+            x = checkpoint(blk.block_apply, lp, cfg, x, positions, cdt,
+                           use_reentrant=False)
+        else:
+            x = blk.block_apply(lp, cfg, x, positions, cdt)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    return norm_apply(params["ln_f"], x), aux
+
+
+# ---------------------------------------------------------------------------
+# Loss — sequence-chunked cross-entropy (never materializes (B, N, V))
+# ---------------------------------------------------------------------------
+
+def _ce_chunk(h, w, y, m):
+    """(sum of masked CE, mask count) of one sequence chunk, f32."""
+    logits = torch.matmul(h.float(), w)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, y[..., None].long())[..., 0]
+    return ((logz - ll) * m).sum(), m.sum()
+
+
+def chunked_cross_entropy(hidden, w, labels, mask, chunk: int = 512):
+    """hidden: (B, N, d); w: (d, V) f32; labels/mask: (B, N).
+
+    Walks N in chunks; each chunk is checkpointed, so only its inputs
+    are kept and the backward recomputes its (B, chunk, V) logits.
+    """
+    n = hidden.shape[1]
+    loss_sum = torch.zeros((), dtype=F32, device=hidden.device)
+    count = torch.zeros((), dtype=F32, device=hidden.device)
+    for s in range(0, n, chunk):
+        ls, cnt = checkpoint(_ce_chunk, hidden[:, s:s + chunk], w,
+                             labels[:, s:s + chunk], mask[:, s:s + chunk],
+                             use_reentrant=False)
+        loss_sum, count = loss_sum + ls, count + cnt
+    return loss_sum / torch.clamp(count, min=1.0)
+
+
+def loss_fn(params, cfg, batch):
+    """Next-token CE (+ the MoE aux term, 0 here).  Returns (loss,
+    {"ce": ce, "aux": aux})."""
+    hidden, aux = forward_hidden(params, cfg, batch)
+    tokens = batch["tokens"]
+    labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+    mask = torch.ones(tokens.shape, dtype=F32, device=tokens.device)
+    mask[:, -1] = 0.0
+    if "loss_mask" in batch:
+        mask = mask * batch["loss_mask"].float()
+    ce = chunked_cross_entropy(hidden, params["lm_head"]["w"].float(),
+                               labels, mask)
+    return ce, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda"):
     """Decode cache for the whole model: per-layer LAStates (f32) and the

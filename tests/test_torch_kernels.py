@@ -15,7 +15,14 @@ outputs to one bf16 rounding step (2^-7 relative).
   * l2_normalize, safe_div, partial rope, layernorm and tanh-gelu parity
   * the impl registry: unknown names, device-picked "auto", "cuda" on
     a CPU tensor
-  * a `gpu`-marked CUDA kernel-vs-plain test (skips without a card)
+  * training's causal LA (`ops.la_causal`, an autograd Function) at odd
+    N = 37, g in {1, 4} and chunk in {4, 16}: o and g against the
+    reference's `la_causal` / `la_fwd_chunked` ("xla", plus one
+    "pallas_interpret" case), and dq/dk/dv against `jax.vjp` through
+    `ops.la_causal`, each grad held to 1e-5 of its own largest |value|
+    (the gradients' magnitudes differ by orders, ROADMAP queue 3);
+    `la_causal_learnable`'s da and db; the `ref` impl against `torch`
+  * `gpu`-marked CUDA kernel-vs-plain tests (skip without a card)
 
 The machine with the card has no JAX; there the gpu test runs alone
 (README.md) and the reference tests skip.
@@ -37,7 +44,10 @@ except ImportError:  # the port alone, on the machine with the card
     jax = None
 from repro_torch.core import chunked as tchunked
 from repro_torch.core import numerics as tnum
+from repro_torch.core import linear_attention as tla
+from repro_torch.configs.base import LACfg
 from repro_torch.kernels import decode_fused as tdf
+from repro_torch.kernels import linear_attention as tkla
 from repro_torch.kernels import ops as tops
 from repro_torch.models import common as tcommon
 from repro_torch.models import rope as trope
@@ -291,3 +301,165 @@ def test_cuda_kernel_matches_plain(dtype, g):
     _assert_rel(s_k.cpu(), s_t.cpu().numpy(), F32_REL, "s")
     _assert_rel(p_k.cpu(), p_t.cpu().numpy(), F32_REL, "p")
     _assert_rel(o_k.cpu(), o_t.float().cpu().numpy(), rel, "o")
+
+
+# ---------------------------------------------------------------------------
+# Training: causal LA forward + analytic backward (ops.la_causal)
+# ---------------------------------------------------------------------------
+
+LA_N, LA_D = 37, 8          # odd N: the last chunk is ragged
+LA_CASES = [("xla", 1, 4), ("xla", 1, 16), ("xla", 4, 4), ("xla", 4, 16),
+            ("pallas_interpret", 4, 16)]
+_JAX_LA = {}
+
+
+def _la_inputs(g, seed=7):
+    rng = np.random.default_rng(seed)
+    q, k, v = _seq_inputs(rng, 2, 2 * g, 2, LA_N, LA_D)
+    omega = rng.standard_normal(q.shape).astype(np.float32)
+    return q, k, v, omega
+
+
+def _jax_la(impl, g, chunk, a=1.0, b=0.5):
+    """The reference's o, g, (dq, dk, dv) for one case (computed once)."""
+    key = (impl, g, chunk, a, b)
+    if key not in _JAX_LA:
+        fwd = jops.get_kernel("linear", impl).fwd
+
+        @jax.jit
+        def run(q_, k_, v_, om_):
+            o, vjp = jax.vjp(lambda *x: jops.la_causal(*x, a, b, chunk,
+                                                       impl), q_, k_, v_)
+            return o, fwd(q_, k_, v_, a, b, chunk)[1], vjp(om_)
+
+        o, gn, grads = run(*(jnp.asarray(x) for x in _la_inputs(g)))
+        _JAX_LA[key] = (np.asarray(o), np.asarray(gn),
+                        [np.asarray(x) for x in grads])
+    return _JAX_LA[key]
+
+
+def _port_la(backend, g, chunk, a=1.0, b=0.5):
+    q, k, v, omega = _la_inputs(g)
+    leaves = [_t(x).requires_grad_(True) for x in (q, k, v)]
+    o = tops.la_causal(*leaves, a, b, chunk, backend)
+    o.backward(_t(omega))
+    return o.detach(), [x.grad for x in leaves]
+
+
+@pytest.mark.parametrize("impl,g,chunk", LA_CASES)
+def test_la_causal_forward_matches_jax(impl, g, chunk):
+    jo, jg, _ = _jax_la(impl, g, chunk)
+    o, _ = _port_la("auto", g, chunk)
+    _assert_rel(o, jo, F32_REL, "o")
+    q, k, v, _ = _la_inputs(g)
+    _, tg = tops.get_kernel("linear", "torch").fwd(_t(q), _t(k), _t(v),
+                                                   1.0, 0.5, chunk)
+    _assert_rel(tg, jg, F32_REL, "g")
+
+
+@pytest.mark.parametrize("impl,g,chunk", LA_CASES)
+def test_la_causal_grads_match_jax(impl, g, chunk):
+    _, _, jgrads = _jax_la(impl, g, chunk)
+    _, grads = _port_la("torch", g, chunk)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, jgrads):
+        assert got.shape == want.shape, name
+        _assert_rel(got, want, F32_REL, name)
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_la_causal_learnable_grads_match_jax(g):
+    q, k, v, omega = _la_inputs(g, seed=8)
+    a0, b0 = 0.7, 1.3
+    jargs = [jnp.asarray(x) for x in (q, k, v)] + [jnp.float32(a0),
+                                                   jnp.float32(b0)]
+
+    @jax.jit
+    def run(om_, *xs):
+        o, vjp = jax.vjp(lambda *x: jops.la_causal_learnable(*x, 4, "xla"),
+                         *xs)
+        return o, vjp(om_)
+
+    jo, jgrads = run(jnp.asarray(omega), *jargs)
+    leaves = [_t(x).requires_grad_(True) for x in (q, k, v)] + [
+        torch.tensor(a0, requires_grad=True),
+        torch.tensor(b0, requires_grad=True)]
+    o = tops.la_causal_learnable(*leaves, 4, "torch")
+    o.backward(_t(omega))
+    _assert_rel(o.detach(), jo, F32_REL, "o")
+    for name, x, want in zip(("dq", "dk", "dv", "da", "db"), leaves,
+                             jgrads):
+        _assert_rel(x.grad, np.asarray(want), F32_REL, name)
+    # o depends on a/b only: a da + b db = 0
+    assert abs(a0 * float(leaves[3].grad) + b0 * float(leaves[4].grad)) \
+        <= F32_REL * abs(a0 * float(leaves[3].grad))
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_ref_impl_matches_torch_impl(g):
+    o_ref, grads_ref = _port_la("ref", g, 4)
+    o, grads = _port_la("torch", g, 4)
+    _assert_rel(o, o_ref.numpy(), F32_REL, "o")
+    q, k, v, _ = _la_inputs(g)
+    want = tops.get_kernel("linear", "ref").fwd(_t(q), _t(k), _t(v), 1.0,
+                                                0.5, 4)[1]
+    got = tops.get_kernel("linear", "torch").fwd(_t(q), _t(k), _t(v), 1.0,
+                                                 0.5, 4)[1]
+    _assert_rel(got, want.numpy(), F32_REL, "g")
+    for name, got, want in zip(("dq", "dk", "dv"), grads, grads_ref):
+        _assert_rel(got, want.numpy(), F32_REL, name)
+
+
+def test_la_attention_normalizes_and_is_causal_only():
+    q, k, v, _ = _la_inputs(1)
+    cfg = LACfg(chunk=16, backend="torch")
+    o = tla.la_attention(_t(q) * 3.0, _t(k) * 0.5, _t(v), cfg)
+    want = tops.la_causal(tnum.l2_normalize(_t(q) * 3.0),
+                          tnum.l2_normalize(_t(k) * 0.5), _t(v), cfg.a,
+                          cfg.b, cfg.chunk, "torch")
+    assert torch.equal(o, want)
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        tla.la_attention(_t(q), _t(k), _t(v), cfg, causal=False)
+
+
+def test_linear_registry_and_cuda_on_cpu_raises():
+    assert tops.kernel_names("linear") == ["cuda", "ref", "torch"]
+    assert tops.get_kernel("linear", "auto",
+                           torch.device("cpu")).name == "torch"
+    q, k, v, _ = _la_inputs(1)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tops.la_causal(_t(q), _t(k), _t(v), backend="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 4])
+def test_cuda_la_kernels_match_plain(dtype, g):
+    """la_fwd, la_bwd_q and la_bwd_kv against their plain versions at
+    odd N, D = 32: f32 to 1e-5 of each output's largest |value| (the
+    kernels sum token by token, the plain scans chunk by chunk), bf16
+    outputs to one bf16 rounding step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    rng = np.random.default_rng(9)
+    dev = torch.device("cuda")
+    q, k, v = _seq_inputs(rng, 2, 2 * g, 2, LA_N, 32)
+    omega = rng.standard_normal(q.shape).astype(np.float32)
+    q, k, v = (_t(x, dtype).to(dev) for x in (q, k, v))
+    omega = _t(omega).to(dev)
+    rel = BF16_REL if dtype == torch.bfloat16 else F32_REL
+    before = dict(tkla.launches)
+    o_k, g_k = tkla.la_fwd_cuda(q, k, v, 1.0, 0.5)
+    o_t, g_t = tkla.la_fwd_torch(q, k, v, 1.0, 0.5, 16)
+    om_hat, h_vec = tchunked.la_bwd_prep(o_t, g_t, omega)
+    dq_k = tkla.la_bwd_q_cuda(k, v, om_hat, h_vec, 0.5)
+    dk_k, dv_k = tkla.la_bwd_kv_cuda(q, k, v, om_hat, h_vec, 1.0, 0.5)
+    torch.cuda.synchronize()
+    assert {n: tkla.launches[n] - before[n] for n in before} == {
+        "la_fwd": 1, "la_bwd_q": 1, "la_bwd_kv": 1}
+    dq_t = tkla.la_bwd_q_torch(k, v, om_hat, h_vec, 0.5, 16)
+    dk_t, dv_t = tkla.la_bwd_kv_torch(q, k, v, om_hat, h_vec, 1.0, 0.5, 16)
+    for name, got, want in (("o", o_k, o_t), ("dq", dq_k, dq_t),
+                            ("dk", dk_k, dk_t), ("dv", dv_k, dv_t)):
+        assert got.dtype == dtype, name
+        _assert_rel(got.cpu(), want.float().cpu().numpy(), rel, name)
+    _assert_rel(g_k.cpu(), g_t.cpu().numpy(), F32_REL, "g")

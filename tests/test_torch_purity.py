@@ -55,6 +55,7 @@ def test_purity_check_catches_forbidden_imports():
 
 
 @pytest.mark.parametrize("entry", ["repro_torch.launch.serve",
+                                   "repro_torch.launch.train",
                                    "repro_torch.convert"])
 def test_importing_the_port_loads_no_jax(entry):
     mods = []
