@@ -12,33 +12,50 @@ fails the run by raising (no result line is printed then):
                src/repro_torch/kernels/csrc, one process each, all started
                together (with -Xptxas -v); print the build seconds
   3. kernel  — each kernel against its plain PyTorch version on CUDA
-               tensors: the decode step at the serving shapes (plus GQA
-               and a zero normalizer, state in place); la_fwd, la_bwd_q
-               and la_bwd_kv at the training shapes (B=2, H=Hkv=16,
-               N=8192, D=128) in bf16 and f32, at odd N=1000 and with
-               GQA G=4
-  4. serve   — the Engine at full width pythia-1.4b in bf16: 8 requests,
-               512-token prompts, prefill_chunk 256, 32 new tokens,
-               greedy; every decode step must go through the kernel
-               (24 launches per step); the decode step timed with CUDA
-               events and profiled with torch.profiler; the first 4
-               decode steps' logits of the kernel path against the plain
-               path on one cloned prefilled cache; and the smoke config
-               on the card against the same weights on the CPU
+               tensors: the linear decode step at the serving shapes (plus
+               GQA and a zero normalizer, state in place); la_fwd,
+               la_bwd_q and la_bwd_kv at the training shapes (B=2,
+               H=Hkv=16, N=8192, D=128) in bf16 and f32, at odd N=1000
+               and with GQA G=4; softmax_decode_fused at the serving
+               shapes (B=8, H=Hkv=16, S=544, D=128, per-slot lengths >= 1,
+               one past the cache; zeros at length 0 checked apart), GQA
+               G=4, bf16 and f32; flash_fwd and the three flash backward
+               kernels at the training shapes, odd N=1000 and GQA G=4, bf16
+               and f32, and flash_fwd on a prefill window (Nq=256,
+               Nk=544, q_offset [0, 256])
+  4. serve   — the Engine at full width pythia-1.4b in bf16, once with the
+               paper's linear attention and once with the softmax
+               baseline: 8 requests, 512-token prompts, prefill_chunk 256,
+               32 new tokens, greedy; every decode step must go through
+               the path's decode kernel (24 launches per step) and, on the
+               softmax path, every prefill window through flash_fwd (24
+               per window); the decode step timed with CUDA events and
+               profiled with torch.profiler; the first 4 decode steps'
+               logits of the kernel path against the plain path on one
+               cloned prefilled cache; and the linear smoke config on the
+               card against the same weights on the CPU
   5. train   — full width pythia-1.4b (f32 params, bf16 compute, the
                config's remat) on SyntheticLM batches of 2 x 8192 tokens
-               (seed 0): the first step's loss and the grads of every
-               layer's wq/wk/wv/wo, ln_f and lm_head on the kernel path
-               against the plain path from one set of weights; then 4
-               steps through the Trainer, each launching la_fwd 48 times
-               (remat runs each layer's forward twice) and la_bwd_q and
-               la_bwd_kv 24 times; step time, tokens/s, peak memory, and
-               one more step under torch.profiler
+               (seed 0), once per backend: the first step's loss and the
+               grads of every layer's wq/wk/wv/wo, ln_f and lm_head on the
+               kernel path against the plain path from one set of weights;
+               then 4 steps through the Trainer, each launching the
+               forward kernel 48 times (remat runs each layer's forward
+               twice) and each backward kernel 24 times (la_fwd /
+               la_bwd_q / la_bwd_kv, or flash_fwd / flash_bwd_delta /
+               flash_bwd_q / flash_bwd_kv); step time, tokens/s, peak
+               memory, and one more step under torch.profiler
   6. timing  — each kernel and its plain version with CUDA events at the
-               main paths' shapes, in turns, beside the kernel's bound
+               main paths' shapes, in turns, beside the kernel's bound and,
+               where one PyTorch call computes the same function (SDPA for
+               the softmax kernels; the port never calls it), that call
   7. result  — a JSON line with every measurement, the card's line, a
                `kernels` JSON line, then {"ok": true, "device": {...}}
                as the last line
+
+Every main-path run sets every kernel's launch count to 0 just before it
+and reads them all just after; launches made by the comparisons with
+the plain versions are not counted.
 """
 from __future__ import annotations
 
@@ -57,6 +74,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet; at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
+BF16_TC_FLOP_PER_S = 989e12     # bf16 on the tensor cores, dense
 
 CSRC = "src/repro_torch/kernels/csrc"
 # kernel -> (source in the repo, the TPU kernel it replaces)
@@ -69,11 +87,24 @@ KERNELS = {
                  "src/repro/kernels/linear_attention.py:208"),
     "la_bwd_kv": (f"{CSRC}/la_bwd.cu",
                   "src/repro/kernels/linear_attention.py:208"),
+    "softmax_decode_fused": (f"{CSRC}/softmax_decode_fused.cu",
+                             "src/repro/kernels/decode_fused.py:226"),
+    "flash_fwd": (f"{CSRC}/flash_fwd.cu",
+                  "src/repro/kernels/flash_attention.py:126"),
+    "flash_bwd_delta": (f"{CSRC}/flash_bwd.cu",
+                        "src/repro/kernels/flash_attention.py:294"),
+    "flash_bwd_q": (f"{CSRC}/flash_bwd.cu",
+                    "src/repro/kernels/flash_attention.py:294"),
+    "flash_bwd_kv": (f"{CSRC}/flash_bwd.cu",
+                     "src/repro/kernels/flash_attention.py:294"),
 }
-SOURCES = ("la_decode_fused", "la_fwd", "la_bwd")
+SOURCES = ("la_decode_fused", "la_fwd", "la_bwd", "softmax_decode_fused",
+           "flash_fwd", "flash_bwd")
+FLASH_BWD = ("flash_bwd_delta", "flash_bwd_q", "flash_bwd_kv")
 
 # main path: pythia-1.4b at full width
 SLOTS, PROMPT_LEN, PREFILL_CHUNK, MAX_NEW = 8, 512, 256, 32
+MAX_LEN = PROMPT_LEN + MAX_NEW
 COMPARE_STEPS = 4
 # train path: pythia-1.4b at full width, the paper's §5.2 length
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8192, 4
@@ -96,6 +127,14 @@ SEQ_F32_REL = 1e-4
 # matmuls forward and back
 TRAIN_LOSS_REL = 2.0 ** -8
 TRAIN_GRAD_REL = 2.0 ** -4
+# the softmax kernels against their plain versions: bf16 o within one
+# bf16 step (the kernels round P to bf16 before P V, as FlashAttention-2
+# does; the plain versions keep P in f32); bf16 dq/dk/dv within 2^-5 (P
+# and dS rounded to bf16 before the three products of the backward);
+# f32 within 1e-4 (sums over up to 8192 terms in other orders)
+SOFTMAX_BF16_O_REL = 2.0 ** -7
+SOFTMAX_BF16_GRAD_REL = 2.0 ** -5
+SOFTMAX_F32_REL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -115,6 +154,35 @@ def check_close(label, got, want, rel):
     if not (err <= rel * scale):
         raise AssertionError(f"{label}: max abs err {err} > {rel} * {scale}")
     return err
+
+
+def _counters():
+    """Every kernel wrapper's launch count dict (one per module)."""
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import linear_attention as la
+    return (df.launches, la.launches, fl.launches)
+
+
+def reset_launches() -> None:
+    for counts in _counters():
+        for name in counts:
+            counts[name] = 0
+
+
+def read_launches() -> dict:
+    out = {}
+    for counts in _counters():
+        out.update(counts)
+    return out
+
+
+def expect_launches(label, got, want) -> None:
+    """Every kernel of the path launched as often as `want` says, and no
+    other kernel at all."""
+    full = {name: want.get(name, 0) for name in got}
+    if got != full:
+        raise AssertionError(f"{label}: kernel launches {got} != {full}")
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +341,121 @@ def phase_kernel_la(torch):
     return errs
 
 
+def _softmax_rel(torch, dtype, grad=False):
+    if dtype == torch.float32:
+        return SOFTMAX_F32_REL
+    return SOFTMAX_BF16_GRAD_REL if grad else SOFTMAX_BF16_O_REL
+
+
+def _decode_softmax_case(torch, gen, b, h, hkv, s_len, d, dtype):
+    """Normal q/k/v (unnormalized, as the softmax mixer hands them over)
+    and per-slot lengths in [1, S], slot 0 one past the cache (a retired
+    slot decoding as padding)."""
+    q = torch.randn((b, h, 1, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, hkv, s_len, d), generator=gen,
+                        device="cuda").to(dtype) for _ in range(2))
+    lengths = torch.randint(1, s_len + 1, (b,), generator=gen,
+                            device="cuda").to(torch.int32)
+    lengths[0] = s_len + 1
+    return q, k, v, lengths
+
+
+def _flash_case(torch, gen, b, h, hkv, nq, d, dtype, nk=None):
+    nk = nq if nk is None else nk
+    q = torch.randn((b, h, nq, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, hkv, nk, d), generator=gen,
+                        device="cuda").to(dtype) for _ in range(2))
+    do = torch.randn((b, h, nq, d), generator=gen, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def phase_kernel_softmax(torch):
+    """softmax_decode_fused, flash_fwd and the three flash backward
+    kernels against their plain versions."""
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.kernels import flash_attention as fl
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs = {}
+    for label, b, h, hkv, s_len, d, dtype in (
+            ("decode_main_bf16", SLOTS, 16, 16, MAX_LEN, 128, bf16),
+            ("decode_main_f32", SLOTS, 16, 16, MAX_LEN, 128, f32),
+            ("decode_gqa_bf16", SLOTS, 16, 4, MAX_LEN, 128, bf16)):
+        q, k, v, lengths = _decode_softmax_case(torch, gen, b, h, hkv, s_len,
+                                                d, dtype)
+        o_k = df.softmax_decode_fused_cuda(q, k, v, lengths)
+        torch.cuda.synchronize()
+        o_t = df.softmax_decode_fused_torch(q, k, v, lengths)
+        log(f"[kernel] {label}: B={b} H={h} Hkv={hkv} S={s_len} D={d} "
+            f"{dtype}, lengths {lengths.tolist()}")
+        errs[label] = {"softmax_decode_fused": check_close(
+            f"{label} o", o_k, o_t, _softmax_rel(torch, dtype))}
+        if o_k.dtype != dtype or not torch.isfinite(o_k).all():
+            raise AssertionError(f"{label}: o dtype {o_k.dtype} or "
+                                 f"non-finite values")
+        # length 0: the kernel writes zeros (as the Pallas kernel does)
+        lengths[1] = 0
+        o_0 = df.softmax_decode_fused_cuda(q, k, v, lengths)
+        torch.cuda.synchronize()
+        if float(o_0[1].abs().max()) != 0.0:
+            raise AssertionError(f"{label}: a length-0 slot is not zeros")
+        log(f"  {label}: a length-0 slot gives zeros")
+
+    m = LA_SHAPE
+    for label, b, h, hkv, nq, nk, off, dtype in (
+            ("flash_main_bf16", m["b"], m["h"], m["hkv"], m["n"], None,
+             None, bf16),
+            ("flash_main_f32", m["b"], m["h"], m["hkv"], m["n"], None, None,
+             f32),
+            ("flash_odd_n_bf16", m["b"], m["h"], m["hkv"], 1000, None, None,
+             bf16),
+            ("flash_gqa_f32", m["b"], m["h"], 4, 1000, None, None, f32),
+            ("flash_gqa_bf16", m["b"], m["h"], 4, 1000, None, None, bf16),
+            ("flash_prefill_bf16", m["b"], m["h"], m["hkv"], PREFILL_CHUNK,
+             MAX_LEN, [0, PREFILL_CHUNK], bf16),
+            ("flash_prefill_f32", m["b"], m["h"], m["hkv"], PREFILL_CHUNK,
+             MAX_LEN, [0, PREFILL_CHUNK], f32)):
+        q, k, v, do = _flash_case(torch, gen, b, h, hkv, nq, m["d"], dtype,
+                                  nk)
+        q_off = None if off is None else torch.tensor(
+            off, dtype=torch.int32, device="cuda")
+        log(f"[kernel] {label}: B={b} H={h} Hkv={hkv} Nq={nq} "
+            f"Nk={nk or nq} D={m['d']} {dtype} q_offset={off}")
+        o_k, lse_k = fl.flash_fwd_cuda(q, k, v, q_off)
+        torch.cuda.synchronize()
+        o_t, lse_t = fl.flash_fwd_torch(q, k, v, q_off)
+        e = {"flash_fwd": check_close(f"{label} o", o_k, o_t,
+                                      _softmax_rel(torch, dtype))}
+        check_close(f"{label} lse", lse_k, lse_t, SOFTMAX_F32_REL)
+        outs = [("o", o_k)]
+        if off is None:
+            # the backward from the plain forward's residuals
+            delta_k = fl.flash_bwd_delta_cuda(o_t, do)
+            dq_k = fl.flash_bwd_q_cuda(q, k, v, do, lse_t, delta_k)
+            dk_k, dv_k = fl.flash_bwd_kv_cuda(q, k, v, do, lse_t, delta_k)
+            torch.cuda.synchronize()
+            delta_t = fl.flash_bwd_delta_torch(o_t, do)
+            dq_t = fl.flash_bwd_q_torch(q, k, v, do, lse_t, delta_t)
+            dk_t, dv_t = fl.flash_bwd_kv_torch(q, k, v, do, lse_t, delta_t)
+            grel = _softmax_rel(torch, dtype, grad=True)
+            e["flash_bwd_delta"] = check_close(f"{label} delta", delta_k,
+                                               delta_t, SOFTMAX_F32_REL)
+            e["flash_bwd_q"] = check_close(f"{label} dq", dq_k, dq_t, grel)
+            e["flash_bwd_kv"] = max(
+                check_close(f"{label} dk", dk_k, dk_t, grel),
+                check_close(f"{label} dv", dv_k, dv_t, grel))
+            outs += [("dq", dq_k), ("dk", dk_k), ("dv", dv_k)]
+        for name, t in outs:
+            if t.dtype != dtype or not torch.isfinite(t).all():
+                raise AssertionError(f"{label} {name}: dtype {t.dtype} or "
+                                     f"non-finite values")
+        errs[label] = e
+        del q, k, v, do, o_k, lse_k, o_t, lse_t, outs
+        torch.cuda.empty_cache()
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # 4. main path: the engine at full width
 # ---------------------------------------------------------------------------
@@ -288,20 +471,21 @@ def _with_impl(cfg, impl):
                                                            backend=impl))
 
 
-def phase_serve(torch, np):
+def phase_serve(torch, np, backend):
+    """The engine at full width with `backend`'s mixer; returns (record,
+    the run's launches)."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import decode_fused as df
     from repro_torch.models import model as mdl
     from repro_torch.serve.engine import Engine, Request
 
-    cfg = get_config("pythia-1.4b")
-    max_len = PROMPT_LEN + MAX_NEW
+    cfg = get_config("pythia-1.4b", attention_backend=backend)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = mdl.init_params(cfg, seed=0, device="cuda")
     # eos_id=-1: random weights give no meaningful eos, so every request
     # decodes exactly MAX_NEW tokens
-    engine = Engine(cfg, params, max_slots=SLOTS, max_len=max_len,
+    engine = Engine(cfg, params, max_slots=SLOTS, max_len=MAX_LEN,
                     prefill_chunk=PREFILL_CHUNK, eos_id=-1, device="cuda")
     del params
     torch.cuda.synchronize()
@@ -312,7 +496,7 @@ def phase_serve(torch, np):
         engine.submit(Request(rid=rid, prompt=prompts[rid].tolist(),
                               max_new_tokens=MAX_NEW))
 
-    df.launches = 0
+    reset_launches()
     t_start = time.perf_counter()
     first = {}
     for out in engine.stream():
@@ -320,15 +504,18 @@ def phase_serve(torch, np):
             first[out.rid] = out.t - t_start
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
-    launches = df.launches
+    launches = read_launches()
     steps = engine.decode_steps
-    log(f"[serve] {SLOTS} requests x {PROMPT_LEN} prompt tokens, "
-        f"{MAX_NEW} new: {steps} decode steps, {launches} kernel "
-        f"launches, wall {wall!r} s (init {init_s!r} s)")
-    if steps < MAX_NEW - 1 or launches != cfg.num_layers * steps:
-        raise AssertionError(
-            f"kernel launches {launches} != {cfg.num_layers} layers x "
-            f"{steps} decode steps")
+    windows = SLOTS * -(-PROMPT_LEN // PREFILL_CHUNK)
+    want = ({"la_decode_fused": cfg.num_layers * steps} if backend == "linear"
+            else {"softmax_decode_fused": cfg.num_layers * steps,
+                  "flash_fwd": cfg.num_layers * windows})
+    log(f"[serve {backend}] {SLOTS} requests x {PROMPT_LEN} prompt tokens, "
+        f"{MAX_NEW} new: {steps} decode steps, {windows} prefill windows, "
+        f"launches {launches}, wall {wall!r} s (init {init_s!r} s)")
+    if steps < MAX_NEW - 1:
+        raise AssertionError(f"{steps} decode steps for {MAX_NEW} tokens")
+    expect_launches(f"serve {backend}", launches, want)
     for rid in range(SLOTS):
         toks = engine.request(rid).generated
         if len(toks) != MAX_NEW or not all(0 <= t < cfg.vocab_size
@@ -351,17 +538,20 @@ def phase_serve(torch, np):
     step_host_ms = (time.perf_counter() - h0) * 1e3 / n_timed
     step_dev_ms = ev0.elapsed_time(ev1) / n_timed
     peak = torch.cuda.max_memory_allocated()
-    profile = _profile(torch, "decode step", lambda: mdl.decode_step(
-        engine.params, engine.cfg, engine.cache, tokens), steps=5)
+    profile = _profile(torch, f"decode step ({backend})",
+                       lambda: mdl.decode_step(engine.params, engine.cfg,
+                                               engine.cache, tokens),
+                       steps=5)
 
     # the first decode steps' logits, kernel path vs plain path, from one
     # prefilled cache (cloned) and the same fed tokens
     prompt_t = torch.from_numpy(prompts).to("cuda")
     logits, cache0 = mdl.prefill(engine.params, engine.cfg,
                                  {"tokens": prompt_t},
-                                 mdl.init_cache(cfg, SLOTS, max_len, "cuda"))
+                                 mdl.init_cache(cfg, SLOTS, MAX_LEN, "cuda"))
     tok = logits.argmax(-1)
     cache_k, cache_t = _clone_cache(cache0), _clone_cache(cache0)
+    del cache0
     cfg_k, cfg_t = _with_impl(engine.cfg, "cuda"), _with_impl(engine.cfg,
                                                               "torch")
     logit_errs = []
@@ -370,17 +560,19 @@ def phase_serve(torch, np):
         lt, cache_t = mdl.decode_step(engine.params, cfg_t, cache_t, tok)
         if not torch.isfinite(lk).all():
             raise AssertionError(f"decode step {i}: non-finite logits")
-        logit_errs.append(check_close(f"full-width decode step {i} logits "
-                                      f"(cuda vs torch)", lk, lt,
+        logit_errs.append(check_close(f"full-width {backend} decode step "
+                                      f"{i} logits (cuda vs torch)", lk, lt,
                                       LOGITS_REL))
         tok = lk.argmax(-1)
 
     ttft = [first[r] for r in range(SLOTS)]
     record = {
-        "arch": cfg.name, "compute_dtype": cfg.compute_dtype,
+        "arch": cfg.name, "attention_backend": backend,
+        "compute_dtype": cfg.compute_dtype,
         "slots": SLOTS, "prompt_len": PROMPT_LEN,
         "prefill_chunk": PREFILL_CHUNK, "max_new": MAX_NEW,
-        "decode_steps": steps, "kernel_launches": launches,
+        "max_len": MAX_LEN, "decode_steps": steps,
+        "prefill_windows": windows, "kernel_launches": launches,
         "wall_s": wall,
         "generated_tokens_per_s": SLOTS * MAX_NEW / wall,
         "ttft_s": ttft, "ttft_mean_s": sum(ttft) / len(ttft),
@@ -392,6 +584,8 @@ def phase_serve(torch, np):
         "max_memory_allocated_bytes": peak,
         "logits_max_abs_err": logit_errs,
     }
+    del engine, cache_k, cache_t
+    torch.cuda.empty_cache()
     return record, launches
 
 
@@ -513,15 +707,14 @@ def _train_compare(torch, mdl, cfg, params, batch):
             worst, "grad_rel_err": grad_errs}
 
 
-def phase_train(torch):
+def phase_train(torch, backend):
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.kernels import linear_attention as la
     from repro_torch.models import model as mdl
     from repro_torch.train.loop import Trainer
 
-    cfg = get_config("pythia-1.4b")
+    cfg = get_config("pythia-1.4b", attention_backend=backend)
     if not (cfg.remat and cfg.compute_dtype == "bfloat16"
             and cfg.param_dtype == "float32"):
         raise AssertionError(f"pythia-1.4b is not f32 params / bf16 "
@@ -538,22 +731,23 @@ def phase_train(torch):
     trainer = Trainer(cfg, tc, params, data)
     del params
     torch.cuda.reset_peak_memory_stats()
-    for name in la.launches:
-        la.launches[name] = 0
+    reset_launches()
     t0 = time.perf_counter()
     hist = trainer.run(TRAIN_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(la.launches)
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    per_step = {"la_fwd": 2 * cfg.num_layers, "la_bwd_q": cfg.num_layers,
-                "la_bwd_kv": cfg.num_layers}
-    log(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
-        f"tokens: launches {launches}, losses "
+    layers = cfg.num_layers
+    per_step = ({"la_fwd": 2 * layers, "la_bwd_q": layers,
+                 "la_bwd_kv": layers} if backend == "linear"
+                else {"flash_fwd": 2 * layers, "flash_bwd_delta": layers,
+                      "flash_bwd_q": layers, "flash_bwd_kv": layers})
+    log(f"[train {backend}] {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens: launches {launches}, losses "
         f"{[h['loss'] for h in hist]}, step s {[h['dt'] for h in hist]}")
-    if launches != {k: v * TRAIN_STEPS for k, v in per_step.items()}:
-        raise AssertionError(f"kernel launches {launches} != "
-                             f"{per_step} per step x {TRAIN_STEPS}")
+    expect_launches(f"train {backend}", launches,
+                    {k: v * TRAIN_STEPS for k, v in per_step.items()})
     if len(hist) != TRAIN_STEPS or not all(
             math.isfinite(h["loss"]) for h in hist):
         raise AssertionError(f"train history {hist}")
@@ -561,9 +755,12 @@ def phase_train(torch):
     step_s = steady[len(steady) // 2]
     batch = {"tokens": torch.from_numpy(data.batch_at(TRAIN_STEPS)).to(
         "cuda")}
-    profile = _profile(torch, "train step", lambda: trainer.step_fn(
-        trainer.params, trainer.opt_state, batch, TRAIN_STEPS), steps=1)
-    record = {"arch": cfg.name, "compute_dtype": cfg.compute_dtype,
+    profile = _profile(torch, f"train step ({backend})",
+                       lambda: trainer.step_fn(trainer.params,
+                                               trainer.opt_state, batch,
+                                               TRAIN_STEPS), steps=1)
+    record = {"arch": cfg.name, "attention_backend": backend,
+              "compute_dtype": cfg.compute_dtype,
               "param_dtype": cfg.param_dtype, "remat": cfg.remat,
               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
               "losses": [h["loss"] for h in hist],
@@ -604,9 +801,12 @@ def _time_pair(torch, plain, kernel, reps, warm=1):
     return [kern_a, kern_b], [plain_a, plain_b]
 
 
-def _bound(bytes_moved, flops):
+def _bound(bytes_moved, flops, flop_per_s=F32_FLOP_PER_S):
+    """The least time for the work: bytes at the HBM rate or operations
+    at `flop_per_s` (f32 CUDA cores for the linear-attention kernels,
+    which compute in f32; bf16 tensor cores for the softmax kernels)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": bytes_moved, "flops": flops}
@@ -705,6 +905,140 @@ def phase_timing_la(torch):
     return out
 
 
+def phase_timing_softmax(torch):
+    """softmax_decode_fused at the serving shapes (rotating 8 KV caches,
+    285 MB, so every call finds its cache cold in L2, as a layer's decode
+    does), flash_fwd and the three backward kernels at the training
+    shapes (every input larger than L2); each beside its plain version
+    and one PyTorch call computing the same function (SDPA), which the
+    port never calls."""
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.kernels import flash_attention as fl
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    out = {}
+
+    # decode: lengths MAX_LEN in every slot, the steady serving depth
+    b, h, hkv, d = SLOTS, 16, 16, 128
+    sets = []
+    for _ in range(8):
+        q, k, v, _ = _decode_softmax_case(torch, gen, b, h, hkv, MAX_LEN, d,
+                                          bf16)
+        lengths = torch.full((b,), MAX_LEN, dtype=torch.int32,
+                             device="cuda")
+        # SDPA's (B, 1, 1, S) mask: True where a key is live
+        mask = (torch.arange(MAX_LEN, device="cuda")[None, :]
+                < lengths[:, None])[:, None, None, :]
+        sets.append((q, k, v, lengths, mask))
+
+    def rotating(fn):
+        nxt = itertools.cycle(sets).__next__
+        return lambda: fn(*nxt())
+
+    kern, plain = _time_pair(
+        torch, rotating(lambda q, k, v, n, m: df.softmax_decode_fused_torch(
+            q, k, v, n)),
+        rotating(lambda q, k, v, n, m: df.softmax_decode_fused_cuda(
+            q, k, v, n)), reps=200, warm=20)
+    lib, _ = _time_pair(torch, rotating(
+        lambda q, k, v, n, m: sdpa(q, k, v, attn_mask=m, enable_gqa=True)),
+        rotating(lambda q, k, v, n, m: sdpa(q, k, v, attn_mask=m,
+                                            enable_gqa=True)),
+        reps=200, warm=20)
+    live = int(sets[0][3].sum())
+    it = 2
+    bytes_moved = 2 * b * h * d * it + 2 * hkv * live * d * it + 4 * b
+    flops = 4 * h * live * d
+    out["softmax_decode_fused"] = {
+        "ms": min(kern), "ms_runs": kern, "plain_ms": min(plain),
+        "plain_ms_runs": plain, "library_ms": min(lib),
+        "library_ms_runs": lib,
+        "library": "scaled_dot_product_attention(attn_mask=(B,1,1,S), "
+                   "enable_gqa=True)",
+        **_bound(bytes_moved, flops, BF16_TC_FLOP_PER_S)}
+    log(f"[timing] softmax_decode_fused B={b} H={h} Hkv={hkv} S={MAX_LEN} "
+        f"D={d} bf16: {out['softmax_decode_fused']}")
+    del sets
+
+    m = LA_SHAPE
+    b, h, hkv, n, d = m["b"], m["h"], m["hkv"], m["n"], m["d"]
+    q, k, v, do = _flash_case(torch, gen, b, h, hkv, n, d, bf16)
+    o, lse = fl.flash_fwd_cuda(q, k, v)
+    delta = fl.flash_bwd_delta_cuda(o, do)
+    q_el, kv_el, rows = b * h * n * d, b * hkv * n * d, b * h * n
+    pairs = b * h * n * (n + 1) // 2        # causal (query, key) pairs
+    work = {
+        # q, k, v read; o written in bf16, lse in f32; QK^T and PV
+        "flash_fwd": ((q_el + 2 * kv_el) * it + q_el * it + rows * 4,
+                      4 * pairs * d),
+        # o and dO read, delta written
+        "flash_bwd_delta": (2 * q_el * it + rows * 4, 2 * q_el),
+        # q, k, v, dO, lse, delta read; dq written; QK^T, dO V^T, dS K
+        "flash_bwd_q": ((2 * q_el + 2 * kv_el) * it + 2 * rows * 4
+                        + q_el * it, 6 * pairs * d),
+        # q, k, v, dO, lse, delta read; dk, dv written; QK^T, dO V^T,
+        # P^T dO, dS^T Q
+        "flash_bwd_kv": ((2 * q_el + 2 * kv_el) * it + 2 * rows * 4
+                         + 2 * kv_el * it, 8 * pairs * d),
+    }
+    calls = {
+        "flash_fwd": (lambda: fl.flash_fwd_torch(q, k, v),
+                      lambda: fl.flash_fwd_cuda(q, k, v)),
+        "flash_bwd_delta": (lambda: fl.flash_bwd_delta_torch(o, do),
+                            lambda: fl.flash_bwd_delta_cuda(o, do)),
+        "flash_bwd_q": (lambda: fl.flash_bwd_q_torch(q, k, v, do, lse,
+                                                     delta),
+                        lambda: fl.flash_bwd_q_cuda(q, k, v, do, lse,
+                                                    delta)),
+        "flash_bwd_kv": (lambda: fl.flash_bwd_kv_torch(q, k, v, do, lse,
+                                                       delta),
+                         lambda: fl.flash_bwd_kv_cuda(q, k, v, do, lse,
+                                                      delta)),
+    }
+    for name, (plain_fn, kernel_fn) in calls.items():
+        kern, plain = _time_pair(torch, plain_fn, kernel_fn, reps=5)
+        out[name] = {"ms": min(kern), "ms_runs": kern,
+                     "plain_ms": min(plain), "plain_ms_runs": plain,
+                     **_bound(*work[name], BF16_TC_FLOP_PER_S)}
+    # the library calls: SDPA forward, and SDPA's backward alone (dq, dk
+    # and dv together) on a retained graph
+    lib_fwd, _ = _time_pair(
+        torch, lambda: sdpa(q, k, v, is_causal=True),
+        lambda: sdpa(q, k, v, is_causal=True), reps=5)
+    out["flash_fwd"].update(
+        library_ms=min(lib_fwd), library_ms_runs=lib_fwd,
+        library="scaled_dot_product_attention(is_causal=True)")
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    o_lib = sdpa(*leaves, is_causal=True)
+    lib_bwd, _ = _time_pair(
+        torch, lambda: torch.autograd.grad(o_lib, leaves, do,
+                                           retain_graph=True),
+        lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True),
+        reps=5)
+    kernels_bwd = sum(out[name]["ms"] for name in FLASH_BWD)
+    bwd_flops = 10 * pairs * d
+    bwd_bytes = ((3 * q_el + 2 * kv_el) * it + rows * 4
+                 + (q_el + 2 * kv_el) * it)
+    out["flash_bwd"] = {
+        "kernels_ms_sum": kernels_bwd, "library_ms": min(lib_bwd),
+        "library_ms_runs": lib_bwd,
+        "library": "scaled_dot_product_attention(is_causal=True) "
+                   "backward (dq, dk, dv) on a retained graph",
+        **_bound(bwd_bytes, bwd_flops, BF16_TC_FLOP_PER_S)}
+    for name in FLASH_BWD:
+        out[name]["library_ms"] = None
+    for name in ("flash_fwd", *FLASH_BWD, "flash_bwd"):
+        log(f"[timing] {name} B={b} H={h} Hkv={hkv} N={n} D={d} bf16: "
+            f"{out[name]}")
+    log("[timing] flash_bwd_delta / flash_bwd_q / flash_bwd_kv: "
+        "library_ms null each: no single PyTorch call computes delta, dq "
+        "or (dk, dv) alone; the whole backward against SDPA's is under "
+        "flash_bwd")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -713,16 +1047,25 @@ def main() -> int:
     build_s = phase_build()
     kernel_errs = phase_kernel(torch)
     la_errs = phase_kernel_la(torch)
-    serve, serve_launches = phase_serve(torch, np)
+    softmax_errs = phase_kernel_softmax(torch)
+    serve, serve_launches = phase_serve(torch, np, "linear")
+    serve_sm, serve_sm_launches = phase_serve(torch, np, "softmax")
     smoke_errs = phase_smoke_reference(torch)
     torch.cuda.empty_cache()
-    train, train_launches = phase_train(torch)
+    train, train_launches = phase_train(torch, "linear")
+    train_sm, train_sm_launches = phase_train(torch, "softmax")
     timing = {"la_decode_fused": phase_timing(torch), **phase_timing_la(
-        torch)}
+        torch), **phase_timing_softmax(torch)}
 
-    launches = {"la_decode_fused": serve_launches, **train_launches}
+    # each kernel's launches summed over the main-path runs (every other
+    # run left it at 0, expect_launches checked)
+    runs = (serve_launches, serve_sm_launches, train_launches,
+            train_sm_launches)
+    launches = {k: sum(r[k] for r in runs) for k in KERNELS}
     max_err = {"la_decode_fused": kernel_errs["main_bf16"],
-               **la_errs["main_bf16"]}
+               **la_errs["main_bf16"],
+               **softmax_errs["decode_main_bf16"],
+               **softmax_errs["flash_main_bf16"]}
     kernels = {"kernels": [{
         "name": kname, "route": "cuda", "source": KERNELS[kname][0],
         "replaces": KERNELS[kname][1], "launches": launches[kname],
@@ -730,12 +1073,15 @@ def main() -> int:
         "plain_ms": timing[kname]["plain_ms"],
         "bound_ms": timing[kname]["bound_ms"],
         "bound_by": timing[kname]["bound_by"],
-        "library_ms": None} for kname in KERNELS]}
-    serve["card"] = smi
-    train["card"] = smi
-    print(json.dumps({"serve": serve, "train": train, "build_s": build_s,
+        "library_ms": timing[kname].get("library_ms")} for kname in KERNELS]}
+    for rec in (serve, serve_sm, train, train_sm):
+        rec["card"] = smi
+    print(json.dumps({"serve": serve, "serve_softmax": serve_sm,
+                      "train": train, "train_softmax": train_sm,
+                      "build_s": build_s,
                       "kernel_max_abs_err": kernel_errs,
                       "la_kernel_max_abs_err": la_errs,
+                      "softmax_kernel_max_abs_err": softmax_errs,
                       "smoke_logits_max_abs_err": smoke_errs,
                       "timing": timing}), flush=True)
     print(smi, flush=True)

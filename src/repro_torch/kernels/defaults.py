@@ -17,6 +17,24 @@ staging size, and no result depends on it.
     its block would exceed the H100's 227 KB of shared memory (large
     query groups in `la_bwd_kv`).
 
+  * `FLASH_BLOCK_Q`, `FLASH_BLOCK_K` — the tiles of the CUDA flash
+    kernels (`flash_fwd`, `flash_bwd_q`, `flash_bwd_kv`).  A block runs
+    4 warps, and a warp owns 16 query rows (or, in `flash_bwd_kv`, 16
+    key rows): the M edge of the tensor cores' m16n8k16 `mma.sync`, so
+    a block tile is 64 rows; each KV (or query) tile staged in shared
+    memory is 64 rows, which keeps a warp's (16, 64) f32 score
+    fragment at 32 registers a thread and a block's bf16 staging at
+    ~56 KB (f32: ~108 KB) at D = 128, so several blocks share an SM.
+    The reference's 128 x 128 is a VMEM tiling of the TPU's MXU.  The
+    kernels are compiled for exactly these tiles; their C entry points
+    reject any other.
+  * `SOFTMAX_DECODE_WARPS` — warps per block of `softmax_decode_fused`
+    (one block per (slot, KV head)); each warp walks every
+    `SOFTMAX_DECODE_WARPS`-th key of the slot's live prefix with its
+    own online softmax, and the block merges the warps' partial sums
+    at the end.  8 warps read 8 K/V rows at a time per block; the
+    result does not depend on it beyond f32 summation order.
+
 The CUDA decode step (`la_decode_fused`) launches one block per (slot,
 KV head) and has no tile to choose.
 """
@@ -24,3 +42,6 @@ from __future__ import annotations
 
 DEFAULT_SCAN_CHUNK = 512
 LA_STAGE_TOKENS = 32
+FLASH_BLOCK_Q = 64
+FLASH_BLOCK_K = 64
+SOFTMAX_DECODE_WARPS = 8

@@ -35,11 +35,8 @@ from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
     LA_STAGE_TOKENS
 
 F32 = torch.float32
-# C code of each compute dtype the kernels are instantiated for
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # head dims the kernels are instantiated for (a state row in registers)
 HEAD_DIMS = (32, 64, 128)
-_ALIGN = 16
 
 # kernel launches made by the wrappers, by kernel name (a run sets them
 # to 0 and reads them back to show that its steps went through the
@@ -67,36 +64,6 @@ la_bwd_torch = _chunked.la_bwd_chunked
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
-def _check(kernel: str, named: dict, compute: tuple, f32: tuple = ()):
-    """Raise on anything `kernel` does not take: device, contiguity,
-    16-byte alignment, and one dtype of `_DTYPE_CODE` shared by the
-    `compute` tensors (the `f32` ones must be float32)."""
-    first = named[compute[0]]
-    for name, t in named.items():
-        if t.device.type != "cuda":
-            raise ValueError(
-                f"{kernel}_cuda needs CUDA tensors; {name} is on {t.device} "
-                f"(the plain version is {kernel}_torch)")
-        if t.device != first.device:
-            raise ValueError(f"{name} is on {t.device}, {compute[0]} on "
-                             f"{first.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{kernel}_cuda needs contiguous tensors; "
-                             f"{name} has strides {t.stride()}")
-        if t.data_ptr() % _ALIGN:
-            # the kernels stage rows by 16-byte loads
-            raise ValueError(f"{kernel}_cuda needs {_ALIGN}-byte aligned "
-                             f"tensors; {name} starts at {t.data_ptr():#x}")
-    dtypes = [named[n].dtype for n in compute]
-    if first.dtype not in _DTYPE_CODE or len(set(dtypes)) != 1:
-        raise ValueError(f"{', '.join(compute)} must share one dtype of "
-                         f"{list(_DTYPE_CODE)}; got {dtypes}")
-    for name in f32:
-        if named[name].dtype != F32:
-            raise ValueError(f"{name} must be float32, got "
-                             f"{named[name].dtype}")
-
-
 def _dims(q, k, v):
     """(B, H, Hkv, N, D) of a (q, k, v) triple, raising on shapes the
     kernels do not take."""
@@ -116,51 +83,26 @@ def _dims(q, k, v):
     return bsz, h, hkv, n, d
 
 
-def _lib(name: str, symbols: dict) -> ctypes.CDLL:
-    """Load `name`'s library and declare its C signatures.  c_void_p for
-    every pointer and the stream: undeclared, ctypes would pass them as
-    32-bit ints and cut the address."""
-    lib = build.load(name)
-    for sym, argtypes in symbols.items():
-        fn = getattr(lib, sym)
-        if fn.argtypes is None:
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    err = getattr(lib, f"{name}_error_string")
-    err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-    return lib
-
-
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_SYMBOLS = {"la_fwd": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_I, _P]}
 _BWD_SYMBOLS = {"la_bwd_q": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
                 "la_bwd_kv": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_I, _P]}
 
 
-def _raise_on(lib, source: str, kernel: str, err: int) -> None:
-    if err != 0:
-        msg = getattr(lib, f"{source}_error_string")(err).decode()
-        raise RuntimeError(f"{kernel} launch failed: {msg} (cudaError {err})")
-
-
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def la_fwd_cuda(q, k, v, a: float, b: float):
     """Launch `la_fwd`: returns (o in q.dtype, g f32)."""
-    _check("la_fwd", {"q": q, "k": k, "v": v}, ("q", "k", "v"))
+    build.check_tensors("la_fwd", {"q": q, "k": k, "v": v}, ("q", "k", "v"))
     bsz, h, hkv, n, d = _dims(q, k, v)
-    lib = _lib("la_fwd", _FWD_SYMBOLS)
+    lib = build.bind("la_fwd", _FWD_SYMBOLS)
     o = torch.empty_like(q)
     g = torch.empty((bsz, h, n), dtype=F32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.la_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          o.data_ptr(), g.data_ptr(), bsz, h, hkv, n, d,
                          LA_STAGE_TOKENS, float(a), float(b),
-                         _DTYPE_CODE[q.dtype],
-                         _stream(q.device))
-    _raise_on(lib, "la_fwd", "la_fwd", err)
+                         build.DTYPE_CODE[q.dtype],
+                         build.current_stream(q.device))
+    build.raise_on(lib, "la_fwd", "la_fwd", err)
     launches["la_fwd"] += 1
     return o, g
 
@@ -169,20 +111,22 @@ def la_bwd_q_cuda(k, v, om_hat, h_vec, b: float):
     """Launch `la_bwd_q`: dq (B, H, N, D) in k.dtype (the dtype q shares
     with k and v) from k, v and the f32 om_hat (B, H, N, D), h (B, H, N).
     """
-    _check("la_bwd_q", {"k": k, "v": v, "om_hat": om_hat, "h": h_vec},
-           ("k", "v"), ("om_hat", "h"))
+    build.check_tensors("la_bwd_q", {"k": k, "v": v, "om_hat": om_hat,
+                                     "h": h_vec}, ("k", "v"),
+                        ("om_hat", "h"))
     bsz, h, hkv, n, d = _dims(om_hat, k, v)
     if tuple(h_vec.shape) != (bsz, h, n):
         raise ValueError(f"h {tuple(h_vec.shape)} does not match "
                          f"{(bsz, h, n)}")
-    lib = _lib("la_bwd", _BWD_SYMBOLS)
+    lib = build.bind("la_bwd", _BWD_SYMBOLS)
     dq = torch.empty((bsz, h, n, d), dtype=k.dtype, device=k.device)
     with torch.cuda.device(k.device):
         err = lib.la_bwd_q(k.data_ptr(), v.data_ptr(), om_hat.data_ptr(),
                            h_vec.data_ptr(), dq.data_ptr(), bsz, h, hkv, n,
-                           d, LA_STAGE_TOKENS, float(b), _DTYPE_CODE[k.dtype],
-                           _stream(k.device))
-    _raise_on(lib, "la_bwd", "la_bwd_q", err)
+                           d, LA_STAGE_TOKENS, float(b),
+                           build.DTYPE_CODE[k.dtype],
+                           build.current_stream(k.device))
+    build.raise_on(lib, "la_bwd", "la_bwd_q", err)
     launches["la_bwd_q"] += 1
     return dq
 
@@ -190,24 +134,25 @@ def la_bwd_q_cuda(k, v, om_hat, h_vec, b: float):
 def la_bwd_kv_cuda(q, k, v, om_hat, h_vec, a: float, b: float):
     """Launch `la_bwd_kv`: (dk, dv), each (B, Hkv, N, D) in its input's
     dtype."""
-    _check("la_bwd_kv", {"q": q, "k": k, "v": v, "om_hat": om_hat,
-                         "h": h_vec}, ("q", "k", "v"), ("om_hat", "h"))
+    build.check_tensors("la_bwd_kv", {"q": q, "k": k, "v": v,
+                                      "om_hat": om_hat, "h": h_vec},
+                        ("q", "k", "v"), ("om_hat", "h"))
     bsz, h, hkv, n, d = _dims(q, k, v)
     if tuple(om_hat.shape) != tuple(q.shape) \
             or tuple(h_vec.shape) != (bsz, h, n):
         raise ValueError(f"om_hat {tuple(om_hat.shape)} / h "
                          f"{tuple(h_vec.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    lib = _lib("la_bwd", _BWD_SYMBOLS)
+    lib = build.bind("la_bwd", _BWD_SYMBOLS)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = lib.la_bwd_kv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             om_hat.data_ptr(), h_vec.data_ptr(),
                             dk.data_ptr(), dv.data_ptr(), bsz, h, hkv, n, d,
                             LA_STAGE_TOKENS, float(a), float(b),
-                            _DTYPE_CODE[q.dtype],
-                            _stream(q.device))
-    _raise_on(lib, "la_bwd", "la_bwd_kv", err)
+                            build.DTYPE_CODE[q.dtype],
+                            build.current_stream(q.device))
+    build.raise_on(lib, "la_bwd", "la_bwd_kv", err)
     launches["la_bwd_kv"] += 1
     return dk, dv
 

@@ -1,19 +1,24 @@
 """Entry points for the port's kernels + the KernelImpl registry.
 
-Port of the linear families of `repro/kernels/ops.py`.  Each (family,
-impl) pair is a registered `KernelImpl`; impls are execution backends:
+Port of the linear and softmax families of `repro/kernels/ops.py`.  Each
+(family, impl) pair is a registered `KernelImpl`; impls are execution
+backends:
 
   "torch"  plain PyTorch (any device) — the analogue of the reference's
            "xla" impl
   "cuda"   the hand-written Hopper kernels (CUDA tensors only; a CPU
            tensor raises)
-  "ref"    the quadratic oracle (linear family; tests only)
+  "ref"    the quadratic oracles (linear and softmax families; tests
+           only)
   "auto"   picked per call by the tensors' device: CUDA tensors take
            "cuda", everything else "torch"
 
-Families: "linear" (causal training forward + analytic backward) and
-"linear_decode_fused" (one-token decode, state in place).  `get_kernel`
-raises an error listing the registered impls for unknown names.
+Families: "linear" (causal training forward + analytic backward),
+"linear_decode_fused" (one-token decode, state in place), "softmax"
+(flash forward, optional per-slot q_offset, + recomputation backward),
+"softmax_decode" (the unfused contiguous-cache decode) and
+"softmax_decode_fused" (the fused one).  `get_kernel` raises an error
+listing the registered impls for unknown names.
 
 The causal linear path is a `torch.autograd.Function` (`la_causal`)
 implementing the paper's analytic backward (Eqs. 19-21): its residuals
@@ -22,6 +27,13 @@ intermediates autograd would keep.  `la_causal_learnable` adds the
 closed-form gradients of the scalar coefficients a and b.  Serving
 prefill runs the plain chunked scan on every impl, as the reference
 does (`repro/kernels/ops.py::la_prefill`).
+
+The causal softmax path is `softmax_causal`, an autograd Function whose
+residuals are {q, k, v, o, lse}: both the `torch` and the `cuda` impl
+register a forward that returns them and a recomputation backward, so
+CPU and card training go through the same Function with O(N D)
+residuals (autograd through the chunked scan would keep every chunk's
+score block).
 """
 from __future__ import annotations
 
@@ -31,16 +43,19 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import chunked as _chunked
+from repro_torch.core import softmax as _softmax
 from repro_torch.core.chunked import LAState
 from repro_torch.core.numerics import safe_div
 from repro_torch.kernels import decode_fused as _df
+from repro_torch.kernels import flash_attention as _fl
 from repro_torch.kernels import linear_attention as _la
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK
 
 __all__ = ["KernelImpl", "register_kernel", "get_kernel", "kernel_names",
            "resolve_impl", "la_causal", "la_causal_learnable", "la_prefill",
-           "la_decode_step_fused"]
+           "la_decode_step_fused", "softmax_causal", "softmax_attention",
+           "softmax_decode", "softmax_decode_fused"]
 
 F32 = torch.float32
 
@@ -51,22 +66,30 @@ class KernelImpl:
 
     fwd: linear family: (q, k, v, a, b, chunk) -> (o, g);
          linear_decode_fused family: (state, q, k, v, a, b) ->
-         (state, o), with the state updated in place.
+         (state, o), with the state updated in place;
+         softmax family: (q, k, v, causal, chunk, q_offset) -> o;
+         softmax_decode(_fused) families: (q, k, v, lengths) -> o.
     bwd: linear family: (q, k, v, o, g, omega, a, b, chunk) ->
          (dq, dk, dv); None falls through to the plain backward.
+         softmax family: (q, k, v, o, lse, do, chunk) -> (dq, dk, dv).
+    fwd_res: softmax family: (q, k, v, chunk) -> (o, lse), the causal
+         training forward with its residual.
     """
 
     family: str
     name: str
     fwd: Callable
     bwd: Optional[Callable] = None
+    fwd_res: Optional[Callable] = None
 
 
 _KERNELS: dict[tuple[str, str], KernelImpl] = {}
 
 
-def register_kernel(family: str, name: str, *, fwd, bwd=None) -> KernelImpl:
-    impl = KernelImpl(family=family, name=name, fwd=fwd, bwd=bwd)
+def register_kernel(family: str, name: str, *, fwd, bwd=None,
+                    fwd_res=None) -> KernelImpl:
+    impl = KernelImpl(family=family, name=name, fwd=fwd, bwd=bwd,
+                      fwd_res=fwd_res)
     _KERNELS[(family, name)] = impl
     return impl
 
@@ -223,8 +246,18 @@ def _la_decode_cuda(state: LAState, q, k, v, a, b):
     return state, o
 
 
+def _la_decode_ref(state: LAState, q, k, v, a, b):
+    """The functional plain step (the reference's `_la_decode_unfused`),
+    its new state copied into the given one."""
+    new, o = _chunked.la_decode_step(state, q, k, v, a, b)
+    state.s.copy_(new.s)
+    state.p.copy_(new.p)
+    return state, o
+
+
 register_kernel("linear_decode_fused", "torch", fwd=_la_decode_torch)
 register_kernel("linear_decode_fused", "cuda", fwd=_la_decode_cuda)
+register_kernel("linear_decode_fused", "ref", fwd=_la_decode_ref)
 
 
 def la_decode_step_fused(state: LAState, q, k, v, a: float = 1.0,
@@ -247,3 +280,157 @@ def la_prefill(q, k, v, a: float = 1.0, b: float = 1.0,
     """
     o, _, st = _chunked.la_fwd_chunked(q, k, v, a, b, chunk, state=state)
     return o, st
+
+
+# ---------------------------------------------------------------------------
+# softmax: causal flash forward (+ q_offset) and recomputation backward
+# ---------------------------------------------------------------------------
+
+def _softmax_torch_fwd(q, k, v, causal, chunk, q_offset=None):
+    return _softmax.softmax_chunked(q, k, v, causal=causal, chunk=chunk,
+                                    q_offset=q_offset)
+
+
+def _softmax_torch_fwd_res(q, k, v, chunk):
+    return _fl.flash_fwd_torch(q, k, v, chunk=chunk)
+
+
+def _softmax_cuda_fwd(q, k, v, causal, chunk, q_offset=None):
+    if not causal:
+        raise NotImplementedError(
+            "non-causal softmax attention runs only on the encoder-decoder "
+            "path and comes with that slice (ROADMAP.md queue 1 "
+            "'Remaining architectures'); the flash kernel is causal")
+    # the model hands over strided head views; the kernel reads rows
+    o, _ = _fl.flash_fwd_cuda(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        None if q_offset is None else q_offset.to(torch.int32).contiguous(),
+        return_lse=False)
+    return o
+
+
+def _softmax_cuda_fwd_res(q, k, v, chunk):
+    return _fl.flash_fwd_cuda(q.contiguous(), k.contiguous(),
+                              v.contiguous(), return_lse=True)
+
+
+def _softmax_cuda_bwd(q, k, v, o, lse, do, chunk):
+    # do from autograd may be strided or expanded
+    return _fl.flash_bwd_cuda(q.contiguous(), k.contiguous(),
+                              v.contiguous(), o, lse, do.contiguous())
+
+
+def _softmax_ref_fwd(q, k, v, causal, chunk, q_offset=None):
+    if q_offset is not None:
+        return _softmax.softmax_chunked(q, k, v, causal=causal, chunk=chunk,
+                                        q_offset=q_offset)
+    return _ref.softmax_ref(q, k, v, causal=causal)
+
+
+register_kernel("softmax", "torch", fwd=_softmax_torch_fwd,
+                bwd=_fl.flash_bwd_torch, fwd_res=_softmax_torch_fwd_res)
+register_kernel("softmax", "cuda", fwd=_softmax_cuda_fwd,
+                bwd=_softmax_cuda_bwd, fwd_res=_softmax_cuda_fwd_res)
+# ref: no custom backward; softmax_attention differentiates the oracle
+register_kernel("softmax", "ref", fwd=_softmax_ref_fwd)
+
+
+class _SoftmaxCausal(torch.autograd.Function):
+    """softmax_causal with the recomputation backward; residuals {q, k, v,
+    o, lse}."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, chunk, impl_name):
+        impl = get_kernel("softmax", impl_name, q.device)
+        if impl.fwd_res is None or impl.bwd is None:
+            raise ValueError(
+                f"softmax kernel impl {impl.name!r} has no custom backward "
+                f"(fwd_res/bwd); differentiate through softmax_attention or "
+                f"pick one of {_with_bwd('softmax')}")
+        o, lse = impl.fwd_res(q, k, v, chunk)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.impl, ctx.chunk = impl, chunk
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = ctx.impl.bwd(q, k, v, o, lse, do, ctx.chunk)
+        return dq, dk, dv, None, None
+
+
+def _with_bwd(family: str) -> list[str]:
+    return sorted(n for (f, n), i in _KERNELS.items()
+                  if f == family and i.bwd is not None)
+
+
+def softmax_causal(q, k, v, chunk: int = DEFAULT_SCAN_CHUNK,
+                   backend: str = "auto"):
+    """Causal softmax attention with the flash recomputation backward (the
+    training entry).  q: (B, H, N, D); k, v: (B, Hkv, N, D), Hkv | H.
+    Only impls that registered fwd_res and bwd ("torch", "cuda")."""
+    return _SoftmaxCausal.apply(q, k, v, chunk, backend)
+
+
+def softmax_attention(q, k, v, *, causal: bool = True,
+                      chunk: int = DEFAULT_SCAN_CHUNK, backend: str = "auto",
+                      q_offset: Optional[torch.Tensor] = None):
+    """Softmax-baseline attention through the registry.
+
+    q: (B, H, Nq, D); k, v: (B, Hkv, Nk, D), Hkv | H.  Causal training
+    (no q_offset) on an impl with a backward goes through
+    `softmax_causal`; everything else calls the impl's forward, which
+    autograd differentiates where it can (the `ref` oracle).  q_offset:
+    optional (B,) global position of query 0 per sequence (serving
+    continuation prefill against a populated KV cache), forward only,
+    as in the reference.
+    """
+    impl = get_kernel("softmax", backend, q.device)
+    if causal and q_offset is None and impl.bwd is not None:
+        return _SoftmaxCausal.apply(q, k, v, chunk, impl.name)
+    return impl.fwd(q, k, v, causal, chunk, q_offset)
+
+
+# ---------------------------------------------------------------------------
+# softmax_decode (unfused) and softmax_decode_fused: one token per slot
+# against a contiguous KV cache
+# ---------------------------------------------------------------------------
+
+def _softmax_decode_cuda(q, k, v, lengths):
+    return _df.softmax_decode_fused_cuda(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        lengths.to(torch.int32).contiguous())
+
+
+register_kernel("softmax_decode", "torch", fwd=_df.softmax_decode_fused_torch)
+register_kernel("softmax_decode", "ref", fwd=_df.softmax_decode_fused_torch)
+register_kernel("softmax_decode_fused", "torch",
+                fwd=_df.softmax_decode_fused_torch)
+register_kernel("softmax_decode_fused", "ref",
+                fwd=_df.softmax_decode_fused_torch)
+register_kernel("softmax_decode_fused", "cuda", fwd=_softmax_decode_cuda)
+
+
+def softmax_decode(q, k, v, lengths, *, backend: str = "auto"):
+    """Contiguous-cache softmax decode, unfused (cfg.la.fused_decode
+    False).  q: (B, H, 1, D); k, v: (B, Hkv, S, D); lengths: (B,) valid
+    keys per slot, the just-written token included.  As in the
+    reference, the family has only plain impls: impl names without an
+    entry (the kernel's "cuda") run the plain composition; the kernel
+    path is `softmax_decode_fused`.
+    """
+    name = resolve_impl(backend, q.device)
+    impl = _KERNELS.get(("softmax_decode", name)) \
+        or get_kernel("softmax_decode", "torch")
+    return impl.fwd(q, k, v, lengths)
+
+
+def softmax_decode_fused(q, k, v, lengths, *, backend: str = "auto"):
+    """Contiguous-cache softmax decode through the fused family: on the
+    "cuda" impl one kernel does the online softmax, the GQA head-fold
+    and the divide.  A length-0 slot yields zeros on "cuda" (as the
+    Pallas kernel) and the mean of its value rows on "torch"/"ref" (as
+    the reference's xla impl); serving slots always have length >= 1.
+    """
+    return get_kernel("softmax_decode_fused", backend, q.device).fwd(
+        q, k, v, lengths)

@@ -1,7 +1,7 @@
-"""Quadratic oracle of the linear-attention family (port of
-`repro/kernels/ref.py`: `expand_kv`, `la_ref`).
+"""Quadratic oracles of the linear and softmax families (port of
+`repro/kernels/ref.py`: `expand_kv`, `la_ref`, `softmax_ref`).
 
-It materializes the full N x N score matrix and is a correctness
+Each materializes the full N x N score matrix and is a correctness
 reference only; all accumulation is f32.  The oracle is grouped-native:
 queries are viewed as (B, Hkv, G, N, D) and contracted against the
 unexpanded (B, Hkv, N, D) keys and values.
@@ -50,4 +50,25 @@ def la_ref(q, k, v, a: float = 1.0, b: float = 1.0, causal: bool = True):
     w = la_weights(q, k, a, b, causal)
     o = torch.einsum("bkgij,bkjd->bkgid", w, v.float()) \
         / w.sum(-1, keepdim=True)
+    return o.reshape(bq, h, nq, v.shape[-1]).to(q.dtype)
+
+
+def softmax_ref(q, k, v, causal: bool = True, scale: float | None = None):
+    """Regular softmax attention, paper Eq. 2/3.
+
+    q: (B, H, Nq, D); k, v: (B, Hkv, Nk, D) with Hkv | H; causal masks
+    at the training offset (query i sees keys j <= i + Nk - Nq).
+    Returns (B, H, Nq, Dv) in q.dtype.  O(N^2) memory — tests only.
+    """
+    bq, h, nq, d = q.shape
+    hkv, nk = k.shape[1], k.shape[2]
+    qg = q.reshape(bq, hkv, h // hkv, nq, d).float()
+    scale = (1.0 / d ** 0.5) if scale is None else scale
+    s = torch.einsum("bkgid,bkjd->bkgij", qg, k.float()) * scale
+    if causal:
+        mask = torch.ones((nq, nk), dtype=torch.bool,
+                          device=q.device).tril(nk - nq)
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgij,bkjd->bkgid", p, v.float())
     return o.reshape(bq, h, nq, v.shape[-1]).to(q.dtype)

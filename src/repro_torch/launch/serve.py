@@ -1,23 +1,28 @@
 """Serving launcher: batched generation through the port's engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch pythia-1.4b \
-        --requests 8 --max-new 16 [--full] [--device cuda]
+        --requests 8 --max-new 16 [--backend softmax] [--full] \
+        [--device cuda]
 
 Flag names follow `repro/launch/serve.py` for the flags kept.  Weights
 are random, drawn from seed 0; prompts are random token ids drawn from
-seed 0.  `--full` serves the full-width config instead of the smoke one;
+seed 0.  `--backend` swaps the attention backend (linear, the paper's,
+by default; softmax, the baseline).  `--full` serves the full-width
+config instead of the smoke one;
 `--device` defaults to cuda and raises without a card.  Prints one JSON
 record (and writes it to --json-out).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import numpy as np
 
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import ops as _ops
+from repro_torch.mixers import get_backend
 from repro_torch.models import model as mdl
 from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.sampling import SamplingParams
@@ -30,6 +35,9 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--backend", default=None,
+                    help="attention backend (linear: the paper's; "
+                         "softmax: the baseline)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="chunked prefill window (tokens)")
     ap.add_argument("--prompt-len", type=int, default=12)
@@ -46,6 +54,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=not args.full)
+    if args.backend:
+        cfg = dataclasses.replace(cfg, attention_backend=args.backend)
+    get_backend(cfg)  # fail fast on a bad --backend, naming the valid ones
     params = mdl.init_params(cfg, seed=0, device=args.device)
     engine = Engine(cfg, params, max_slots=args.slots, max_len=args.max_len,
                     prefill_chunk=args.prefill_chunk, device=args.device)
@@ -67,7 +78,7 @@ def main(argv=None):
         "arch": args.arch,
         "full": args.full,
         "device": str(engine.device),
-        "backend": cfg.attention_backend,
+        "backend": engine.cfg.attention_backend,
         "kernel": _ops.resolve_impl(engine.cfg.la.backend, engine.device),
         "slots": engine.num_slots,
         "requests": len(done),

@@ -1,5 +1,6 @@
 """Token-mixer backends; importing the package registers them."""
 from repro_torch.mixers import linear  # noqa: F401  (registers "linear")
+from repro_torch.mixers import softmax  # noqa: F401  (registers "softmax")
 from repro_torch.mixers.base import AttentionBackend, get_backend, \
     register_backend, registered_backends, resolve_backend_name
 

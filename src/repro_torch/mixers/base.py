@@ -4,8 +4,10 @@ Port of `repro/mixers/base.py`.  Backend resolution from a ModelConfig:
   cfg.mixer == "attention"  -> cfg.attention_backend
   otherwise                 -> cfg.mixer
 Resolution validates cfg.la: the kernel impl name must be registered in
-kernels/ops.py and the chunk size positive.  The port registers the
-`linear` backend; the others are on ROADMAP.md.
+the kernel family of the resolved backend (kernels/ops.py; `softmax` ->
+"softmax", every other backend -> "linear") and the chunk size
+positive.  The port registers the `linear` and `softmax` backends; the
+others are on ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -34,8 +36,9 @@ class AttentionBackend:
         """Causal self-attention over the full sequence (training)."""
         raise NotImplementedError
 
-    def init_cache(self, cfg, batch: int, max_len: int, device):
-        """-> per-layer decode cache."""
+    def init_cache(self, cfg, batch: int, max_len: int, device, dtype):
+        """-> per-layer decode cache; a KV cache is held in `dtype` (the
+        compute dtype), a recurrent state in f32."""
         raise NotImplementedError
 
     def prefill(self, p, cfg, x, positions, cache, compute_dtype=None):
@@ -86,9 +89,14 @@ def get_backend(cfg_or_name) -> AttentionBackend:
         if la.chunk <= 0:
             raise ValueError(f"cfg.la.chunk must be positive, got {la.chunk}")
         if la.backend != "auto":
-            _ops.get_kernel("linear_decode_fused", la.backend)
+            # each mixer keys its kernel impl off cfg.la.backend, checked
+            # against its own family (the reference's mapping)
+            family = {"softmax": "softmax", "mamba2": "ssd",
+                      "gla": "gla"}.get(name, "linear")
+            _ops.get_kernel(family, la.backend)
         if cfg.paging is not None:
             raise NotImplementedError(
-                "cfg.paging: paged serving is not ported yet "
-                "(ROADMAP.md queue 1 'Paged KV')")
+                "cfg.paging: paged serving is not ported yet; it comes "
+                "with the paged-KV slice (ROADMAP.md queue 1 item 8 "
+                "'Paged KV')")
     return backend

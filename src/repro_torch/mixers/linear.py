@@ -42,8 +42,9 @@ class LinearAttentionBackend(GQAProjectionBackend):
             o = la_attention(q, k, v, cfg.la, causal=True)
         return self.out(p, o, compute_dtype)
 
-    def init_cache(self, cfg, batch: int, max_len: int, device="cuda"):
-        # O(D^2) state, independent of max_len
+    def init_cache(self, cfg, batch: int, max_len: int, device="cuda",
+                   dtype=None):
+        # O(D^2) f32 state, independent of max_len and the compute dtype
         hd = cfg.resolved_head_dim
         return init_state(batch, cfg.num_kv_heads, hd, hd, device=device)
 

@@ -33,8 +33,9 @@ def block_init(gen: torch.Generator, cfg, dtype=torch.float32):
             "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)}
 
 
-def block_init_cache(cfg, batch: int, max_len: int, device="cuda"):
-    return get_backend(cfg).init_cache(cfg, batch, max_len, device)
+def block_init_cache(cfg, batch: int, max_len: int, device="cuda",
+                     dtype=torch.bfloat16):
+    return get_backend(cfg).init_cache(cfg, batch, max_len, device, dtype)
 
 
 def _residual(p, cfg, x, attn_out, compute_dtype):

@@ -156,11 +156,13 @@ def loss_fn(params, cfg, batch):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda"):
-    """Decode cache for the whole model: per-layer LAStates (f32) and the
+    """Decode cache for the whole model: per-layer caches (LAStates in
+    f32; KV caches in the compute dtype, as the reference's) and the
     per-slot position counter."""
     _check_family(cfg)
     dev = resolve_device(device)
-    return {"blocks": [blk.block_init_cache(cfg, batch, max_len, dev)
+    dtype = dtype_of(cfg.compute_dtype)
+    return {"blocks": [blk.block_init_cache(cfg, batch, max_len, dev, dtype)
                        for _ in range(cfg.num_layers)],
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
@@ -175,8 +177,11 @@ def prefill(params, cfg, batch, cache):
     new cache).
 
     Positions and the pos counter CONTINUE from cache["pos"], so chunked
-    prefill (window by window, carrying the recurrent state) is exact.
-    The input cache is not modified.
+    prefill (window by window, carrying the recurrent state or the KV
+    cache) is exact.  A recurrent state comes back as new tensors; a KV
+    cache (softmax) is written in place and comes back as the same
+    tensors, which saves copying max_len rows per layer and window.  The
+    input's position counter is not modified.
     """
     cdt = dtype_of(cfg.compute_dtype)
     tokens = batch["tokens"]
@@ -198,8 +203,9 @@ def decode_step(params, cfg, cache, tokens):
     cache).
 
     The cache is updated IN PLACE (the reference's engine donates it):
-    the fused decode kernel rewrites each layer's state and the position
-    counter advances; the same dict is returned.
+    the fused decode kernel rewrites each layer's state, or the token's
+    k/v land in each layer's KV cache, and the position counter
+    advances; the same dict is returned.
     """
     cdt = dtype_of(cfg.compute_dtype)
     pos = cache["pos"]                       # (B,) — per-slot depths

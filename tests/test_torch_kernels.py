@@ -260,7 +260,8 @@ def test_layernorm_and_tanh_gelu_match_jax():
 # ---------------------------------------------------------------------------
 
 def test_registry_unknown_impl_lists_registered():
-    with pytest.raises(ValueError, match=r"registered: \['cuda', 'torch'\]"):
+    with pytest.raises(ValueError,
+                       match=r"registered: \['cuda', 'ref', 'torch'\]"):
         tops.get_kernel("linear_decode_fused", "pallas")
     assert tops.resolve_impl("auto", torch.device("cpu")) == "torch"
     assert tops.resolve_impl("auto", torch.device("cuda")) == "cuda"
@@ -291,10 +292,11 @@ def test_cuda_kernel_matches_plain(dtype, g):
     args = [_t(x, dtype).to(dev) for x in (q, k, v)]
     s_k, p_k = _t(s).to(dev), _t(p).to(dev)
     s_ptr = s_k.data_ptr()
-    before = tdf.launches
+    before = tdf.launches["la_decode_fused"]
     o_k = tdf.la_decode_fused_cuda(s_k, p_k, *args, 1.0, 0.5)
     torch.cuda.synchronize()
-    assert tdf.launches == before + 1 and s_k.data_ptr() == s_ptr
+    assert tdf.launches["la_decode_fused"] == before + 1 \
+        and s_k.data_ptr() == s_ptr
     s_t, p_t = _t(s).to(dev), _t(p).to(dev)
     o_t = tdf.la_decode_fused_torch(s_t, p_t, *args, 1.0, 0.5)
     rel = BF16_REL if dtype == torch.bfloat16 else F32_REL

@@ -71,7 +71,7 @@ def test_params_from_jax_unstacks_layers(ref):
 
 
 @pytest.mark.parametrize("impl,fused", [("auto", True), ("torch", True),
-                                        ("auto", False)])
+                                        ("ref", True), ("auto", False)])
 def test_prefill_and_decode_logits_match_jax(ref, impl, fused):
     cfg, params = _port(ref)
     tokens = torch.from_numpy(ref["tokens"])

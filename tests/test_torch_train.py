@@ -244,4 +244,4 @@ def test_launch_train_main_on_cpu(capsys):
     assert rec["steps"] == 3 and math.isfinite(rec["last_loss"])
     assert '"first_loss"' in capsys.readouterr().out
     with pytest.raises(KeyError, match="registered backends"):
-        tlaunch.main(["--device", "cpu", "--backend", "softmax"])
+        tlaunch.main(["--device", "cpu", "--backend", "gla"])
