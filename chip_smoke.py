@@ -22,7 +22,12 @@ fails the run by raising (no result line is printed then):
                G=4, bf16 and f32; flash_fwd and the three flash backward
                kernels at the training shapes, odd N=1000 and GQA G=4, bf16
                and f32, and flash_fwd on a prefill window (Nq=256,
-               Nk=544, q_offset [0, 256])
+               Nk=544, q_offset [0, 256]); paged_decode_fused and
+               paged_attention at the serving shapes (B=8, H=Hkv=16, D=128,
+               page size 16, 34 table entries per slot into a shuffled
+               arena, unallocated entries at the sink page, lengths in
+               [1, 544] and one past the table) and with GQA G=4 at page
+               size 5, bf16 and f32, zeros at length 0 checked apart
   4. serve   — the Engine at full width pythia-1.4b in bf16, once with the
                paper's linear attention and once with the softmax
                baseline: 8 requests, 512-token prompts, prefill_chunk 256,
@@ -32,8 +37,15 @@ fails the run by raising (no result line is printed then):
                per window); the decode step timed with CUDA events and
                profiled with torch.profiler; the first 4 decode steps'
                logits of the kernel path against the plain path on one
-               cloned prefilled cache; and the linear smoke config on the
-               card against the same weights on the CPU
+               cloned prefilled cache; the softmax baseline again from a
+               paged KV cache (PagedAdmission, page size 16, an arena of
+               161 pages bought by its byte budget: 16 requests of 64-512
+               prompt tokens, some waiting for pages, 24 paged_decode_fused
+               launches per decode step), its logits against the plain
+               path and the contiguous kernel path, then a short pass with
+               fused_decode=False (24 paged_attention launches per step);
+               and the linear smoke config on the card against the same
+               weights on the CPU
   5. train   — full width pythia-1.4b (f32 params, bf16 compute, the
                config's remat) on SyntheticLM batches of 2 x 8192 tokens
                (seed 0), once per backend: the first step's loss and the
@@ -48,7 +60,9 @@ fails the run by raising (no result line is printed then):
   6. timing  — each kernel and its plain version with CUDA events at the
                main paths' shapes, in turns, beside the kernel's bound and,
                where one PyTorch call computes the same function (SDPA for
-               the softmax kernels; the port never calls it), that call
+               the contiguous softmax kernels; the port never calls it),
+               that call; the paged decode kernels also beside the
+               contiguous one on the same keys
   7. result  — a JSON line with every measurement, the card's line, a
                `kernels` JSON line, then {"ok": true, "device": {...}}
                as the last line
@@ -97,15 +111,27 @@ KERNELS = {
                     "src/repro/kernels/flash_attention.py:294"),
     "flash_bwd_kv": (f"{CSRC}/flash_bwd.cu",
                      "src/repro/kernels/flash_attention.py:294"),
+    "paged_decode_fused": (f"{CSRC}/paged_decode.cu",
+                           "src/repro/kernels/decode_fused.py:333"),
+    "paged_attention": (f"{CSRC}/paged_decode.cu",
+                        "src/repro/kernels/paged_attention.py:149"),
 }
 SOURCES = ("la_decode_fused", "la_fwd", "la_bwd", "softmax_decode_fused",
-           "flash_fwd", "flash_bwd")
+           "flash_fwd", "flash_bwd", "paged_decode")
 FLASH_BWD = ("flash_bwd_delta", "flash_bwd_q", "flash_bwd_kv")
 
 # main path: pythia-1.4b at full width
 SLOTS, PROMPT_LEN, PREFILL_CHUNK, MAX_NEW = 8, 512, 256, 32
 MAX_LEN = PROMPT_LEN + MAX_NEW
 COMPARE_STEPS = 4
+# paged serve path: the softmax baseline from a paged KV arena of 161
+# pages of 16 tokens (160 allocatable + the sink), ~0.51 GB at full width
+# against 0.86 GB for 8 contiguous slots of MAX_LEN
+PAGE_SIZE, PAGED_PAGES, PAGED_REQUESTS = 16, 161, 16
+PAGED_PROMPT_LENS = (64, 512)
+PMAX = -(-MAX_LEN // PAGE_SIZE)
+# the unfused pass: 8 requests of 128 prompt tokens, 8 new
+UNFUSED_PROMPT, UNFUSED_NEW = 128, 8
 # train path: pythia-1.4b at full width, the paper's §5.2 length
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8192, 4
 LA_SHAPE = dict(b=2, h=16, hkv=16, n=8192, d=128)
@@ -161,7 +187,8 @@ def _counters():
     from repro_torch.kernels import decode_fused as df
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import linear_attention as la
-    return (df.launches, la.launches, fl.launches)
+    from repro_torch.kernels import paged_attention as pg
+    return (df.launches, la.launches, fl.launches, pg.launches)
 
 
 def reset_launches() -> None:
@@ -456,6 +483,72 @@ def phase_kernel_softmax(torch):
     return errs
 
 
+def _paged_case(torch, gen, b, h, hkv, d, ps, pmax, lengths, dtype):
+    """q and arenas of B * Pmax + 1 pages in `dtype` (every row random, so
+    the rows past a slot's length are garbage its walk must not read), a
+    shuffled table naming each slot's pages for its live keys and the sink
+    (the last page) beyond them, and `lengths`."""
+    num_pages = b * pmax + 1
+    q = torch.randn((b, h, 1, d), generator=gen, device="cuda").to(dtype)
+    kp, vp = (torch.randn((num_pages, hkv, ps, d), generator=gen,
+                          device="cuda").to(dtype) for _ in range(2))
+    perm = torch.randperm(num_pages - 1, generator=gen, device="cuda").to(
+        torch.int32).reshape(b, pmax)
+    live = (lengths.clamp(max=pmax * ps) + ps - 1) // ps
+    cols = torch.arange(pmax, device="cuda")
+    table = torch.where(cols[None, :] < live[:, None], perm,
+                        num_pages - 1).to(torch.int32)
+    return q, kp, vp, table, lengths
+
+
+def phase_kernel_paged(torch):
+    """paged_decode_fused and paged_attention against their plain
+    versions."""
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.kernels import paged_attention as pg
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    kernels = (("paged_decode_fused", df.paged_decode_fused_cuda),
+               ("paged_attention", pg.paged_attention_cuda))
+    errs = {}
+    for label, hkv, ps, dtype in (
+            ("paged_main_bf16", 16, PAGE_SIZE, torch.bfloat16),
+            ("paged_main_f32", 16, PAGE_SIZE, torch.float32),
+            ("paged_gqa_ps5_bf16", 4, 5, torch.bfloat16),
+            ("paged_gqa_ps5_f32", 4, 5, torch.float32)):
+        b, h, d = SLOTS, 16, 128
+        pmax = -(-MAX_LEN // ps)
+        lengths = torch.randint(1, MAX_LEN + 1, (b,), generator=gen,
+                                device="cuda").to(torch.int32)
+        lengths[0] = pmax * ps + 1       # a retired slot past its table
+        case = _paged_case(torch, gen, b, h, hkv, d, ps, pmax, lengths,
+                           dtype)
+        want = pg.paged_attention_torch(*case)
+        rel = BF16_REL if dtype == torch.bfloat16 else F32_REL
+        log(f"[kernel] {label}: B={b} H={h} Hkv={hkv} D={d} ps={ps} "
+            f"Pmax={pmax} {dtype}, lengths {lengths.tolist()}")
+        errs[label] = {}
+        for name, kernel in kernels:
+            o = kernel(*case)
+            torch.cuda.synchronize()
+            errs[label][name] = check_close(f"{label} {name} o", o, want,
+                                            rel)
+            if o.dtype != dtype or not torch.isfinite(o).all():
+                raise AssertionError(f"{label} {name}: o dtype {o.dtype} "
+                                     f"or non-finite values")
+        # length 0: zeros on both kernels (and on the plain version)
+        lengths[1] = 0
+        for name, kernel in kernels:
+            o = kernel(*case)
+            torch.cuda.synchronize()
+            if float(o[1].abs().max()) != 0.0:
+                raise AssertionError(f"{label} {name}: a length-0 slot is "
+                                     f"not zeros")
+        log(f"  {label}: a length-0 slot gives zeros on both kernels")
+        del case, want
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # 4. main path: the engine at full width
 # ---------------------------------------------------------------------------
@@ -621,6 +714,209 @@ def _profile(torch, label, fn, steps):
                for e in top}}
     log(f"[profile] {label}: {rec}")
     return rec
+
+
+def _serve_paged_logits(torch, np, params, cfg):
+    """The first decode steps' logits of one prefilled paged batch (8
+    prompts of PROMPT_LEN, every slot's pages shuffled over an arena of
+    8 * PMAX + 1 pages): kernel path against plain path on clones of the
+    cache, and against the contiguous kernel path on the same prompts and
+    fed tokens.  Returns (errors, the kernel path's config and cache)."""
+    from repro_torch.configs.base import PagingCfg
+    from repro_torch.models import model as mdl
+
+    cfg_b = dataclasses.replace(cfg, paging=PagingCfg(PAGE_SIZE,
+                                                      SLOTS * PMAX + 1))
+    cfg_c = dataclasses.replace(cfg, paging=None)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    table = torch.randperm(SLOTS * PMAX, generator=gen, device="cuda").to(
+        torch.int32).reshape(SLOTS, PMAX)
+    cache = mdl.init_cache(cfg_b, SLOTS, MAX_LEN, "cuda")
+    for layer in cache["blocks"]:
+        layer.page_table.copy_(table)
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        3, cfg.vocab_size, size=(SLOTS, PROMPT_LEN))).to("cuda")
+    logits, cache = mdl.prefill(params, cfg_b, {"tokens": prompts}, cache)
+    logits_c, cache_c = mdl.prefill(params, cfg_c, {"tokens": prompts},
+                                    mdl.init_cache(cfg_c, SLOTS, MAX_LEN,
+                                                   "cuda"))
+    errs = {"prefill_vs_contiguous": check_close(
+        "paged prefill logits (vs contiguous)", logits, logits_c,
+        LOGITS_REL), "vs_plain": [], "vs_contiguous": []}
+    tok = logits.argmax(-1)
+    cache_t = _clone_cache(cache)
+    cfg_k, cfg_t = _with_impl(cfg_b, "cuda"), _with_impl(cfg_b, "torch")
+    for i in range(COMPARE_STEPS):
+        lk, cache = mdl.decode_step(params, cfg_k, cache, tok)
+        lt, cache_t = mdl.decode_step(params, cfg_t, cache_t, tok)
+        lc, cache_c = mdl.decode_step(params, cfg_c, cache_c, tok)
+        if not torch.isfinite(lk).all():
+            raise AssertionError(f"paged decode step {i}: non-finite logits")
+        errs["vs_plain"].append(check_close(
+            f"full-width paged decode step {i} logits (cuda vs torch)", lk,
+            lt, LOGITS_REL))
+        errs["vs_contiguous"].append(check_close(
+            f"full-width paged decode step {i} logits (vs contiguous cuda)",
+            lk, lc, LOGITS_REL))
+        tok = lk.argmax(-1)
+    del cache_t, cache_c
+    return errs, cfg_k, cache, tok
+
+
+def phase_serve_paged(torch, np):
+    """The softmax baseline served from a paged KV arena at full width;
+    returns (record, the fused run's launches, the unfused run's)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.cache import page_bytes
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.paging import PagedAdmission, pages_for
+
+    cfg = get_config("pythia-1.4b", attention_backend="softmax")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = mdl.init_params(cfg, seed=0, device="cuda")
+    # the byte budget that buys PAGED_PAGES pages at this config
+    budget = PAGED_PAGES * page_bytes(cfg, PAGE_SIZE)
+    policy = PagedAdmission(budget, page_size=PAGE_SIZE, max_slots=SLOTS)
+    engine = Engine(cfg, params, max_len=MAX_LEN, policy=policy,
+                    prefill_chunk=PREFILL_CHUNK, eos_id=-1, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if engine.page_stats()["num_pages"] != PAGED_PAGES - 1:
+        raise AssertionError(f"arena {engine.page_stats()}")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(PAGED_PROMPT_LENS[0], PAGED_PROMPT_LENS[1] + 1,
+                        size=PAGED_REQUESTS)
+    for rid, n in enumerate(lens):
+        engine.submit(Request(rid=rid, prompt=rng.integers(
+            3, cfg.vocab_size, size=int(n)).tolist(),
+            max_new_tokens=MAX_NEW))
+    reserved = sum(pages_for(int(n) + MAX_NEW - 1, PAGE_SIZE) for n in lens)
+
+    reset_launches()
+    t_start = time.perf_counter()
+    first, waited, peak_pages = {}, set(), 0
+    while engine.scheduler.has_work():
+        outs = engine.step()
+        peak_pages = max(peak_pages, engine.pool.pages_in_use)
+        if engine.scheduler.blocked == "resources":
+            waited.add(engine.scheduler.peek().rid)
+        for out in outs:
+            if out.token is not None and out.rid not in first:
+                first[out.rid] = out.t - t_start
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steps = engine.decode_steps
+    windows = sum(-(-int(n) // PREFILL_CHUNK) for n in lens)
+    stats = engine.page_stats()
+    log(f"[serve paged] {PAGED_REQUESTS} requests of {lens.tolist()} prompt "
+        f"tokens, {MAX_NEW} new, page size {PAGE_SIZE}, {stats['num_pages']} "
+        f"allocatable pages (budget {budget} B): {steps} decode steps, "
+        f"{windows} prefill windows, launches {launches}, wall {wall!r} s "
+        f"(init {init_s!r} s); {len(waited)} requests waited for pages at "
+        f"the queue head; {reserved} pages reserved in all, peak in use "
+        f"{peak_pages}; at the end {stats}")
+    expect_launches("serve paged", launches,
+                    {"paged_decode_fused": cfg.num_layers * steps,
+                     "flash_fwd": cfg.num_layers * windows})
+    for rid in range(PAGED_REQUESTS):
+        toks = engine.request(rid).generated
+        if len(toks) != MAX_NEW or not all(0 <= t < cfg.vocab_size
+                                           for t in toks):
+            raise AssertionError(f"request {rid} generated {toks}")
+    if stats["free_pages"] != stats["num_pages"] or stats["pages_in_use"] \
+            or peak_pages > PAGED_PAGES - 1 or reserved <= peak_pages:
+        raise AssertionError(f"pages: {stats}, peak {peak_pages}, "
+                             f"reserved {reserved} (freed pages reused?)")
+    if not waited:
+        raise AssertionError("no admission waited for pages")
+
+    params = engine.params
+    del engine
+    torch.cuda.empty_cache()
+    logit_errs, cfg_k, cache, tok = _serve_paged_logits(torch, np, params,
+                                                        cfg)
+    # the steady batched decode step on the prefilled paged batch (every
+    # slot past 512 keys, its pages shuffled over the arena)
+    for _ in range(3):
+        mdl.decode_step(params, cfg_k, cache, tok)
+    n_timed = 20
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    ev0.record()
+    for _ in range(n_timed):
+        mdl.decode_step(params, cfg_k, cache, tok)
+    ev1.record()
+    torch.cuda.synchronize()
+    step_host_ms = (time.perf_counter() - h0) * 1e3 / n_timed
+    step_dev_ms = ev0.elapsed_time(ev1) / n_timed
+    profile = _profile(torch, "decode step (softmax, paged)",
+                       lambda: mdl.decode_step(params, cfg_k, cache, tok),
+                       steps=5)
+    del cache
+    torch.cuda.empty_cache()
+
+    # the unfused pass: decode through paged_attention
+    engine = Engine(cfg, params, max_len=MAX_LEN, policy=policy,
+                    prefill_chunk=PREFILL_CHUNK, eos_id=-1,
+                    fused_decode=False, device="cuda")
+    for rid in range(SLOTS):
+        engine.submit(Request(rid=rid, prompt=rng.integers(
+            3, cfg.vocab_size, size=UNFUSED_PROMPT).tolist(),
+            max_new_tokens=UNFUSED_NEW))
+    reset_launches()
+    engine.run()
+    torch.cuda.synchronize()
+    launches_unfused = read_launches()
+    steps_u = engine.decode_steps
+    log(f"[serve paged, fused_decode=False] {SLOTS} requests x "
+        f"{UNFUSED_PROMPT} prompt tokens, {UNFUSED_NEW} new: {steps_u} "
+        f"decode steps, launches {launches_unfused}")
+    expect_launches("serve paged unfused", launches_unfused,
+                    {"paged_attention": cfg.num_layers * steps_u,
+                     "flash_fwd": cfg.num_layers * SLOTS})
+    for rid in range(SLOTS):
+        toks = engine.request(rid).generated
+        if len(toks) != UNFUSED_NEW or not all(0 <= t < cfg.vocab_size
+                                               for t in toks):
+            raise AssertionError(f"unfused request {rid} generated {toks}")
+    if engine.page_stats()["pages_in_use"]:
+        raise AssertionError(f"unfused pages {engine.page_stats()}")
+
+    ttft = [first[r] for r in range(PAGED_REQUESTS)]
+    record = {
+        "arch": cfg.name, "attention_backend": "softmax",
+        "compute_dtype": cfg.compute_dtype, "policy": "PagedAdmission",
+        "budget_bytes": budget, "page_size": PAGE_SIZE,
+        "allocatable_pages": PAGED_PAGES - 1, "slots": SLOTS,
+        "requests": PAGED_REQUESTS, "prompt_lens": lens.tolist(),
+        "prefill_chunk": PREFILL_CHUNK, "max_new": MAX_NEW,
+        "max_len": MAX_LEN, "decode_steps": steps,
+        "prefill_windows": windows, "kernel_launches": launches,
+        "requests_waited_for_pages": len(waited),
+        "pages_reserved_in_all": reserved, "peak_pages_in_use": peak_pages,
+        "page_stats_end": stats, "wall_s": wall,
+        "generated_tokens_per_s": PAGED_REQUESTS * MAX_NEW / wall,
+        "ttft_s": ttft, "ttft_mean_s": sum(ttft) / len(ttft),
+        "ttft_max_s": max(ttft),
+        "decode_step_ms_device": step_dev_ms,
+        "decode_step_ms_host": step_host_ms,
+        "decode_step_profile": profile,
+        "decode_tokens_per_s": SLOTS / (step_host_ms / 1e3),
+        "max_memory_allocated_bytes": peak,
+        "logits_max_abs_err": logit_errs,
+        "unfused": {"decode_steps": steps_u,
+                    "kernel_launches": launches_unfused}}
+    del engine, params
+    torch.cuda.empty_cache()
+    return record, launches, launches_unfused
 
 
 def phase_smoke_reference(torch):
@@ -1039,6 +1335,68 @@ def phase_timing_softmax(torch):
     return out
 
 
+def phase_timing_paged(torch):
+    """paged_decode_fused and paged_attention at the serving shapes (every
+    slot at MAX_LEN live keys, its pages shuffled over the arena; 8
+    rotating arenas, 286 MB, so every call finds its pages cold in L2),
+    each beside its plain version, and paged_decode_fused beside the
+    contiguous softmax_decode_fused on the same keys gathered into a
+    contiguous cache: what the page indirection costs."""
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.kernels import paged_attention as pg
+    b, h, hkv, d = SLOTS, 16, 16, 128
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    sets = []
+    for _ in range(8):
+        lengths = torch.full((b,), MAX_LEN, dtype=torch.int32, device="cuda")
+        case = _paged_case(torch, gen, b, h, hkv, d, PAGE_SIZE, PMAX,
+                           lengths, bf16)
+        sets.append(case)
+    contiguous = [(q, pg.gather_pages(kp, t), pg.gather_pages(vp, t), n)
+                  for q, kp, vp, t, n in sets]
+
+    def rotating(fn, over=sets):
+        nxt = itertools.cycle(over).__next__
+        return lambda: fn(*nxt())
+
+    live = int(sets[0][4].sum())
+    live_pages = b * -(-MAX_LEN // PAGE_SIZE)
+    it = 2
+    # q read, o written; the live keys' K and V rows; the live table
+    # entries and the lengths
+    bytes_moved = (2 * b * h * d * it + 2 * hkv * live * d * it
+                   + 4 * live_pages + 4 * b)
+    flops = 4 * h * live * d
+    out = {}
+    for name, kernel, plain in (
+            ("paged_decode_fused", df.paged_decode_fused_cuda,
+             df.paged_decode_fused_torch),
+            ("paged_attention", pg.paged_attention_cuda,
+             pg.paged_attention_torch)):
+        kern, pl = _time_pair(torch, rotating(plain), rotating(kernel),
+                              reps=200, warm=20)
+        out[name] = {"ms": min(kern), "ms_runs": kern, "plain_ms": min(pl),
+                     "plain_ms_runs": pl, "library_ms": None,
+                     **_bound(bytes_moved, flops, BF16_TC_FLOP_PER_S)}
+        log(f"[timing] {name} B={b} H={h} Hkv={hkv} D={d} ps={PAGE_SIZE} "
+            f"Pmax={PMAX} bf16, {MAX_LEN} live keys per slot: {out[name]}")
+    paged, contig = _time_pair(
+        torch, rotating(df.softmax_decode_fused_cuda, contiguous),
+        rotating(df.paged_decode_fused_cuda), reps=200, warm=20)
+    out["paged_decode_fused"].update(
+        contiguous_ms_runs=contig, paged_ms_runs_beside_contiguous=paged)
+    log(f"[timing] paged_decode_fused {paged} ms against the contiguous "
+        f"softmax_decode_fused {contig} ms on the same keys; library_ms "
+        f"null for both paged kernels: no single PyTorch call attends "
+        f"over a paged cache (a gather and SDPA are two calls, and the "
+        f"gather alone moves the whole cache)")
+    del sets, contiguous
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1048,24 +1406,28 @@ def main() -> int:
     kernel_errs = phase_kernel(torch)
     la_errs = phase_kernel_la(torch)
     softmax_errs = phase_kernel_softmax(torch)
+    paged_errs = phase_kernel_paged(torch)
     serve, serve_launches = phase_serve(torch, np, "linear")
     serve_sm, serve_sm_launches = phase_serve(torch, np, "softmax")
+    serve_pg, serve_pg_launches, serve_pgu_launches = phase_serve_paged(
+        torch, np)
     smoke_errs = phase_smoke_reference(torch)
     torch.cuda.empty_cache()
     train, train_launches = phase_train(torch, "linear")
     train_sm, train_sm_launches = phase_train(torch, "softmax")
     timing = {"la_decode_fused": phase_timing(torch), **phase_timing_la(
-        torch), **phase_timing_softmax(torch)}
+        torch), **phase_timing_softmax(torch), **phase_timing_paged(torch)}
 
     # each kernel's launches summed over the main-path runs (every other
     # run left it at 0, expect_launches checked)
-    runs = (serve_launches, serve_sm_launches, train_launches,
-            train_sm_launches)
+    runs = (serve_launches, serve_sm_launches, serve_pg_launches,
+            serve_pgu_launches, train_launches, train_sm_launches)
     launches = {k: sum(r[k] for r in runs) for k in KERNELS}
     max_err = {"la_decode_fused": kernel_errs["main_bf16"],
                **la_errs["main_bf16"],
                **softmax_errs["decode_main_bf16"],
-               **softmax_errs["flash_main_bf16"]}
+               **softmax_errs["flash_main_bf16"],
+               **paged_errs["paged_main_bf16"]}
     kernels = {"kernels": [{
         "name": kname, "route": "cuda", "source": KERNELS[kname][0],
         "replaces": KERNELS[kname][1], "launches": launches[kname],
@@ -1074,14 +1436,16 @@ def main() -> int:
         "bound_ms": timing[kname]["bound_ms"],
         "bound_by": timing[kname]["bound_by"],
         "library_ms": timing[kname].get("library_ms")} for kname in KERNELS]}
-    for rec in (serve, serve_sm, train, train_sm):
+    for rec in (serve, serve_sm, serve_pg, train, train_sm):
         rec["card"] = smi
     print(json.dumps({"serve": serve, "serve_softmax": serve_sm,
+                      "serve_softmax_paged": serve_pg,
                       "train": train, "train_softmax": train_sm,
                       "build_s": build_s,
                       "kernel_max_abs_err": kernel_errs,
                       "la_kernel_max_abs_err": la_errs,
                       "softmax_kernel_max_abs_err": softmax_errs,
+                      "paged_kernel_max_abs_err": paged_errs,
                       "smoke_logits_max_abs_err": smoke_errs,
                       "timing": timing}), flush=True)
     print(smi, flush=True)

@@ -15,6 +15,10 @@ the same feature set:
   * the f32 logsumexp m + log l of every query row when asked (the
     flash backward's residual).
 
+`softmax_decode_masked` is the one-token decode over per-slot lengths:
+the plain version of the contiguous and the paged decode kernels
+(kernels/decode_fused.py, kernels/paged_attention.py).
+
 Every product runs in f32 on f32 copies of the inputs.
 """
 from __future__ import annotations
@@ -84,3 +88,26 @@ def softmax_chunked(q, k, v, *, causal: bool = True,
     if not return_lse:
         return o
     return o, (m + torch.log(l_safe)).reshape(b, h, nq)
+
+
+def softmax_decode_masked(q, k, v, lengths, scale: Optional[float] = None):
+    """One query token per slot against the first lengths[b] keys of its
+    contiguous cache: the grouped-native masked softmax of the
+    reference's `_softmax_decode_xla`, in f32.
+
+    q: (B, H, 1, D); k, v: (B, Hkv, S, D); lengths: (B,).  Lengths past
+    S attend to all S keys; a slot of length 0 averages all S value rows
+    (a wholly masked softmax), as the reference's xla impl does.  scale
+    defaults to 1/sqrt(D).  Returns (B, H, 1, Dv) in q.dtype.
+    """
+    b, hkv, s_len, d = k.shape
+    h = q.shape[1]
+    live = torch.arange(s_len, device=k.device)[None, :] \
+        < lengths.to(k.device)[:, None]                        # (B, S)
+    qg = q.reshape(b, hkv, h // hkv, 1, d).float()
+    s_ = torch.einsum("bhgid,bhjd->bhgij", qg, k.float())
+    s_ = s_ / d ** 0.5 if scale is None else s_ * scale
+    s_ = s_.masked_fill(~live[:, None, None, None, :], NEG_INF)
+    o = torch.einsum("bhgij,bhjd->bhgid", torch.softmax(s_, dim=-1),
+                     v.float())
+    return o.reshape(b, h, 1, v.shape[-1]).to(q.dtype)

@@ -22,14 +22,12 @@
 //   * one block per (slot, KV head) holds the G query rows of the group in
 //     registers, so each K/V row is read once per KV head, not once per
 //     query head (the Pallas kernel's head-fold);
-//   * each of the block's warps walks every W-th key of the live prefix; a
-//     lane owns D/32 columns, loads its slice of 4 keys' K and V rows before
-//     it uses any (so several loads are in flight), reduces each q.k over
-//     the warp with shuffles and keeps its own online softmax (running
-//     max, sum and output slice per query row);
-//   * the warps' partial (max, sum, output) merge in shared memory and the
-//     divide runs in the kernel; an empty walk leaves sum 0, guarded to 1,
-//     so a length-0 slot writes zeros;
+//   * the walk is decode_common.cuh's `attend`: each of the block's warps
+//     walks every W-th key of the live prefix with several rows' loads in
+//     flight and its own online softmax; the warps' partial (max, sum,
+//     output) merge in shared memory and the divide runs in the kernel; an
+//     empty walk leaves sum 0, guarded to 1, so a length-0 slot writes
+//     zeros;
 //   * the walk is bounded at min(lengths[b], S): a retired slot whose
 //     position ran past the cache reads no row beyond it.
 // At B=8, Hkv=16 this is 128 blocks; splitting the walk of one (slot, KV
@@ -40,154 +38,43 @@
 
 #include <stdint.h>
 
-#include <type_traits>
+#include "decode_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kUnroll = 4;  // keys whose rows a warp loads before using
-constexpr int kMaxWarps = 16;
+using decode::kMaxWarps;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// E consecutive elements from `src` into f32 registers, by one vector load
-// where E * sizeof(T) is 4, 8 or 16 bytes
-template <typename T, int E>
-__device__ __forceinline__ void load_slice(float (&dst)[E],
-                                           const T* __restrict__ src) {
-  constexpr int kBytes = E * static_cast<int>(sizeof(T));
-  if constexpr (kBytes == 16 || kBytes == 8 || kBytes == 4) {
-    using Vec = typename std::conditional<
-        kBytes == 16, int4,
-        typename std::conditional<kBytes == 8, int2, int>::type>::type;
-    Vec raw = *reinterpret_cast<const Vec*>(src);
-    const T* vals = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int e = 0; e < E; ++e) dst[e] = to_f32(vals[e]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < E; ++e) dst[e] = to_f32(src[e]);
+// key j of a slot's contiguous cache: row j of its (S, D) block
+template <int D>
+struct ContiguousRows {
+  size_t base;
+  __device__ size_t operator()(int j) const {
+    return base + static_cast<size_t>(j) * D;
   }
-}
+};
 
 template <typename T, int D, int G>
 __global__ void softmax_decode_fused_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ lengths,
     T* __restrict__ o, int kv_heads, int s_len, float scale) {
-  constexpr int E = D / 32;  // columns a lane owns
   extern __shared__ float smem[];
-  const int warps = blockDim.x >> 5;
-  float* m_sh = smem;                  // (W, G)
-  float* l_sh = m_sh + warps * G;      // (W, G)
-  float* acc_sh = l_sh + warps * G;    // (W, G, D)
-
   const int bh = blockIdx.x;           // slot * Hkv + KV head
-  const int b = bh / kv_heads, hk = bh % kv_heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = bh / kv_heads;
   const int len = max(0, min(lengths[b], s_len));
-  const size_t heads = static_cast<size_t>(kv_heads) * G;
-  const T* kg = k + static_cast<size_t>(bh) * s_len * D + lane * E;
-  const T* vg = v + static_cast<size_t>(bh) * s_len * D + lane * E;
-
-  float qr[G][E];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    load_slice<T, E>(qr[gi],
-                     q + (b * heads + hk * G + gi) * D + lane * E);
-#pragma unroll
-    for (int e = 0; e < E; ++e) qr[gi][e] *= scale;
-  }
-  float m_run[G], l_run[G], acc[G][E];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    m_run[gi] = kNegInf;
-    l_run[gi] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[gi][e] = 0.f;
-  }
-
-  for (int j0 = warp; j0 < len; j0 += kUnroll * warps) {
-    float kr[kUnroll][E], vr[kUnroll][E];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = j0 + u * warps;
-      if (j < len) {
-        load_slice<T, E>(kr[u], kg + static_cast<size_t>(j) * D);
-        load_slice<T, E>(vr[u], vg + static_cast<size_t>(j) * D);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (j0 + u * warps >= len) break;
-#pragma unroll
-      for (int gi = 0; gi < G; ++gi) {
-        float s = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) s = fmaf(qr[gi][e], kr[u][e], s);
-#pragma unroll
-        for (int sh = 16; sh > 0; sh >>= 1)
-          s += __shfl_xor_sync(0xffffffffu, s, sh);
-        const float m_new = fmaxf(m_run[gi], s);
-        const float corr = expf(m_run[gi] - m_new);
-        const float p = expf(s - m_new);
-        l_run[gi] = corr * l_run[gi] + p;
-#pragma unroll
-        for (int e = 0; e < E; ++e)
-          acc[gi][e] = fmaf(p, vr[u][e], corr * acc[gi][e]);
-        m_run[gi] = m_new;
-      }
-    }
-  }
-
-  // merge the warps' partial softmaxes
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    if (lane == 0) {
-      m_sh[warp * G + gi] = m_run[gi];
-      l_sh[warp * G + gi] = l_run[gi];
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-      acc_sh[(warp * G + gi) * D + lane * E + e] = acc[gi][e];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
-    const int gi = idx / D, d = idx % D;
-    float m_all = kNegInf;
-    for (int w = 0; w < warps; ++w) m_all = fmaxf(m_all, m_sh[w * G + gi]);
-    float l_all = 0.f, a_all = 0.f;
-    for (int w = 0; w < warps; ++w) {
-      const float f = expf(m_sh[w * G + gi] - m_all);
-      l_all = fmaf(f, l_sh[w * G + gi], l_all);
-      a_all = fmaf(f, acc_sh[(w * G + gi) * D + d], a_all);
-    }
-    // length 0: l_all == 0 and a_all == 0, so the guarded divide gives 0
-    const float l_safe = l_all <= 0.f ? 1.f : l_all;
-    o[(b * heads + hk * G + gi) * D + d] = from_f32<T>(a_all / l_safe);
-  }
+  // the G query rows of KV head hk: heads hk * G .. hk * G + G - 1 of slot
+  // b, i.e. rows bh * G .. bh * G + G - 1 of (B * H, D)
+  const size_t rows = static_cast<size_t>(bh) * G * D;
+  const ContiguousRows<D> key_row{static_cast<size_t>(bh) * s_len * D};
+  decode::attend<T, D, G>(q + rows, k, v, len, key_row, o + rows, scale,
+                          smem);
 }
 
 template <typename T, int D, int G>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* lengths, void* o, int batch, int kv_heads,
                    int s_len, int warps, float scale, cudaStream_t stream) {
-  const size_t smem =
-      static_cast<size_t>(warps) * G * (D + 2) * sizeof(float);
+  const size_t smem = decode::merge_floats(warps, G, D) * sizeof(float);
   auto kernel = softmax_decode_fused_kernel<T, D, G>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

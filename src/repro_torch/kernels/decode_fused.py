@@ -1,7 +1,8 @@
 """Fused single-kernel decode steps: linear attention and softmax.
 
 Port of `repro/kernels/decode_fused.py::la_decode_fused_pallas` (linear
-variant) and `softmax_decode_fused_pallas` (contiguous cache).
+variant), `softmax_decode_fused_pallas` (contiguous cache) and
+`paged_decode_fused_pallas` (paged cache).
 
 Linear: one call per layer and decode step: rank-1 update of the slot's
 f32 recurrent state, the grouped q.S and normalizer dots, and the
@@ -34,6 +35,18 @@ past S attend to all S keys.  They differ on a slot of length 0: the
 kernel writes zeros, as the Pallas kernel does, while the plain version
 (like the reference's xla impl) averages all S value rows of a wholly
 masked softmax.  A live serving slot always has length >= 1.
+
+Paged softmax: the same step over a paged KV arena (the contract of
+kernels/paged_attention.py, without the scale argument: 1/sqrt(D)),
+head-folded so each page is read once per KV head:
+
+  paged_decode_fused_cuda   the hand-written Hopper kernel
+                            (csrc/paged_decode.cu, entry
+                            `paged_decode_fused`: one block per (slot,
+                            KV head) for its G query rows); CUDA only
+  paged_decode_fused_torch  its plain version, the same as
+                            `paged_attention_torch` (zeros at length 0
+                            on both, as in the reference)
 """
 from __future__ import annotations
 
@@ -41,13 +54,16 @@ import ctypes
 
 import torch
 
+from repro_torch.core import softmax as _softmax
 from repro_torch.core.numerics import safe_div
 from repro_torch.kernels import build
+from repro_torch.kernels import paged_attention as _pg
 from repro_torch.kernels.defaults import SOFTMAX_DECODE_WARPS
 
 F32 = torch.float32
 KERNEL = "la_decode_fused"
 SOFTMAX_KERNEL = "softmax_decode_fused"
+PAGED_KERNEL = "paged_decode_fused"
 # query heads per KV head the kernels are instantiated for
 GROUPS = (1, 2, 4, 8, 16)
 # head dims the softmax kernel is instantiated for
@@ -56,7 +72,7 @@ HEAD_DIMS = (32, 64, 128)
 # kernel launches made by the wrappers, by kernel name (a run sets them
 # to 0 and reads them back to show that its decode steps went through
 # the kernels)
-launches = {KERNEL: 0, SOFTMAX_KERNEL: 0}
+launches = {KERNEL: 0, SOFTMAX_KERNEL: 0, PAGED_KERNEL: 0}
 
 
 def la_decode_fused_torch(s, p, q, k, v, a: float, b: float):
@@ -126,16 +142,7 @@ def softmax_decode_fused_torch(q, k, v, lengths):
     """Plain version: grouped-native masked softmax over each slot's first
     lengths[b] keys, f32 accumulation (the reference's
     `_softmax_decode_xla`)."""
-    b, hkv, s_len, d = k.shape
-    h = q.shape[1]
-    live = torch.arange(s_len, device=k.device)[None, :] \
-        < lengths.to(k.device)[:, None]                        # (B, S)
-    qg = q.reshape(b, hkv, h // hkv, 1, d).float()
-    s_ = torch.einsum("bhgid,bhjd->bhgij", qg, k.float()) / d ** 0.5
-    s_ = s_.masked_fill(~live[:, None, None, None, :], -1e30)
-    o = torch.einsum("bhgij,bhjd->bhgid", torch.softmax(s_, dim=-1),
-                     v.float())
-    return o.reshape(b, h, 1, v.shape[-1]).to(q.dtype)
+    return _softmax.softmax_decode_masked(q, k, v, lengths)
 
 
 def _check_softmax(q, k, v, lengths) -> None:
@@ -176,4 +183,29 @@ def softmax_decode_fused_cuda(q, k, v, lengths):
             build.current_stream(q.device))
     build.raise_on(lib, SOFTMAX_KERNEL, SOFTMAX_KERNEL, err)
     launches[SOFTMAX_KERNEL] += 1
+    return o
+
+
+# ---------------------------------------------------------------------------
+# Softmax decode over a paged KV arena, head-folded
+# ---------------------------------------------------------------------------
+
+def paged_decode_fused_torch(q, k_pages, v_pages, page_table, lengths):
+    """Plain version: `paged_attention_torch` at scale 1/sqrt(D)."""
+    return _pg.paged_attention_torch(q, k_pages, v_pages, page_table,
+                                     lengths)
+
+
+def paged_decode_fused_cuda(q, k_pages, v_pages, page_table, lengths):
+    """Launch the `paged_decode_fused` kernel: o (B, H, 1, D) in
+    q.dtype."""
+    _pg.check_paged(PAGED_KERNEL, q, k_pages, v_pages, page_table, lengths)
+    h, d = q.shape[1], q.shape[3]
+    hkv = k_pages.shape[1]
+    if h // hkv not in GROUPS:
+        raise ValueError(f"H={h} over Hkv={hkv} is not a query group of "
+                         f"{GROUPS}")
+    o = _pg.launch_paged(PAGED_KERNEL, q, k_pages, v_pages, page_table,
+                         lengths, 1.0 / d ** 0.5)
+    launches[PAGED_KERNEL] += 1
     return o

@@ -28,12 +28,16 @@ staging size, and no result depends on it.
     The reference's 128 x 128 is a VMEM tiling of the TPU's MXU.  The
     kernels are compiled for exactly these tiles; their C entry points
     reject any other.
-  * `SOFTMAX_DECODE_WARPS` — warps per block of `softmax_decode_fused`
-    (one block per (slot, KV head)); each warp walks every
+  * `SOFTMAX_DECODE_WARPS` — warps per block of the softmax decode
+    kernels: `softmax_decode_fused` (one block per (slot, KV head)) and
+    the paged `paged_attention` (per (slot, query head)) and
+    `paged_decode_fused` (per (slot, KV head)); each warp walks every
     `SOFTMAX_DECODE_WARPS`-th key of the slot's live prefix with its
     own online softmax, and the block merges the warps' partial sums
     at the end.  8 warps read 8 K/V rows at a time per block; the
-    result does not depend on it beyond f32 summation order.
+    result does not depend on it beyond f32 summation order.  The
+    reference's `pages_per_block` (pages per sequential TPU grid step)
+    has no counterpart: a block walks all of its slot's pages.
 
 The CUDA decode step (`la_decode_fused`) launches one block per (slot,
 KV head) and has no tile to choose.

@@ -16,9 +16,12 @@ backends:
 Families: "linear" (causal training forward + analytic backward),
 "linear_decode_fused" (one-token decode, state in place), "softmax"
 (flash forward, optional per-slot q_offset, + recomputation backward),
-"softmax_decode" (the unfused contiguous-cache decode) and
-"softmax_decode_fused" (the fused one).  `get_kernel` raises an error
-listing the registered impls for unknown names.
+"softmax_decode" (the unfused contiguous-cache decode),
+"softmax_decode_fused" (the fused one), and "paged" and
+"paged_decode_fused" (decode over a paged KV arena: one kernel block per
+query head, or per KV head with its query group folded in).
+`get_kernel` raises an error listing the registered impls for unknown
+names.
 
 The causal linear path is a `torch.autograd.Function` (`la_causal`)
 implementing the paper's analytic backward (Eqs. 19-21): its residuals
@@ -49,13 +52,15 @@ from repro_torch.core.numerics import safe_div
 from repro_torch.kernels import decode_fused as _df
 from repro_torch.kernels import flash_attention as _fl
 from repro_torch.kernels import linear_attention as _la
+from repro_torch.kernels import paged_attention as _pg
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK
 
 __all__ = ["KernelImpl", "register_kernel", "get_kernel", "kernel_names",
            "resolve_impl", "la_causal", "la_causal_learnable", "la_prefill",
            "la_decode_step_fused", "softmax_causal", "softmax_attention",
-           "softmax_decode", "softmax_decode_fused"]
+           "softmax_decode", "softmax_decode_fused", "paged_attention",
+           "paged_attention_fused"]
 
 F32 = torch.float32
 
@@ -68,7 +73,9 @@ class KernelImpl:
          linear_decode_fused family: (state, q, k, v, a, b) ->
          (state, o), with the state updated in place;
          softmax family: (q, k, v, causal, chunk, q_offset) -> o;
-         softmax_decode(_fused) families: (q, k, v, lengths) -> o.
+         softmax_decode(_fused) families: (q, k, v, lengths) -> o;
+         paged and paged_decode_fused families: (q, k_pages, v_pages,
+         page_table, lengths) -> o.
     bwd: linear family: (q, k, v, o, g, omega, a, b, chunk) ->
          (dq, dk, dv); None falls through to the plain backward.
          softmax family: (q, k, v, o, lse, do, chunk) -> (dq, dk, dv).
@@ -434,3 +441,55 @@ def softmax_decode_fused(q, k, v, lengths, *, backend: str = "auto"):
     """
     return get_kernel("softmax_decode_fused", backend, q.device).fwd(
         q, k, v, lengths)
+
+
+# ---------------------------------------------------------------------------
+# paged and paged_decode_fused: one token per slot against a paged KV
+# arena (the page table names each slot's pages); inference only
+# ---------------------------------------------------------------------------
+
+def _paged_args(q, k_pages, v_pages, page_table, lengths):
+    # the model hands over a strided q view; the kernels read rows
+    return (q.contiguous(), k_pages, v_pages,
+            page_table.to(torch.int32).contiguous(),
+            lengths.to(torch.int32).contiguous())
+
+
+def _paged_cuda(*args):
+    return _pg.paged_attention_cuda(*_paged_args(*args))
+
+
+def _paged_fused_cuda(*args):
+    return _df.paged_decode_fused_cuda(*_paged_args(*args))
+
+
+register_kernel("paged", "torch", fwd=_pg.paged_attention_torch)
+register_kernel("paged", "ref", fwd=_pg.paged_attention_torch)
+register_kernel("paged", "cuda", fwd=_paged_cuda)
+register_kernel("paged_decode_fused", "torch",
+                fwd=_df.paged_decode_fused_torch)
+register_kernel("paged_decode_fused", "ref",
+                fwd=_df.paged_decode_fused_torch)
+register_kernel("paged_decode_fused", "cuda", fwd=_paged_fused_cuda)
+
+
+def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
+                    backend: str = "auto"):
+    """Paged-KV decode through the registry (one query token per slot;
+    cfg.la.fused_decode False).
+
+    q: (B, H, 1, D); k_pages/v_pages: (P, Hkv, ps, D) shared arenas;
+    page_table: (B, Pmax) int32; lengths: (B,) valid keys per slot.  A
+    length-0 slot yields zeros on every impl.
+    """
+    return get_kernel("paged", backend, q.device).fwd(
+        q, k_pages, v_pages, page_table, lengths)
+
+
+def paged_attention_fused(q, k_pages, v_pages, page_table, lengths, *,
+                          backend: str = "auto"):
+    """Paged-KV decode through the fused family (the GQA head-fold: on
+    "cuda" each arena page is read once per KV head, not once per query
+    head).  Same contract as `paged_attention`."""
+    return get_kernel("paged_decode_fused", backend, q.device).fwd(
+        q, k_pages, v_pages, page_table, lengths)

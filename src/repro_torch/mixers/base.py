@@ -6,8 +6,9 @@ Port of `repro/mixers/base.py`.  Backend resolution from a ModelConfig:
 Resolution validates cfg.la: the kernel impl name must be registered in
 the kernel family of the resolved backend (kernels/ops.py; `softmax` ->
 "softmax", every other backend -> "linear") and the chunk size
-positive.  The port registers the `linear` and `softmax` backends; the
-others are on ROADMAP.md.
+positive; and cfg.paging: only the softmax backend pages its cache
+(page_size >= 1, num_pages >= 2).  The port registers the `linear` and
+`softmax` backends; the others are on ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -78,6 +79,11 @@ def get_backend(cfg_or_name) -> AttentionBackend:
         name, cfg = cfg_or_name, None
     else:
         name, cfg = resolve_backend_name(cfg_or_name), cfg_or_name
+    if cfg is not None and cfg.paging is not None and name == "gla":
+        raise NotImplementedError(
+            "cfg.paging with the gla backend (paged recurrent state) is "
+            "not ported yet; it comes with the GLA slice (ROADMAP.md "
+            "queue 1 item 9)")
     backend = _BACKENDS.get(name)
     if backend is None:
         raise KeyError(
@@ -95,8 +101,17 @@ def get_backend(cfg_or_name) -> AttentionBackend:
                       "gla": "gla"}.get(name, "linear")
             _ops.get_kernel(family, la.backend)
         if cfg.paging is not None:
-            raise NotImplementedError(
-                "cfg.paging: paged serving is not ported yet; it comes "
-                "with the paged-KV slice (ROADMAP.md queue 1 item 8 "
-                "'Paged KV')")
+            if name != "softmax":
+                raise ValueError(
+                    f"cfg.paging is a serving feature of the softmax "
+                    f"(paged-KV rows) and gla (paged recurrent state) "
+                    f"backends; backend {name!r} keeps its own "
+                    f"non-paged decode cache — unset paging or switch "
+                    f"backends")
+            if cfg.paging.page_size < 1 or cfg.paging.num_pages < 2:
+                raise ValueError(
+                    f"cfg.paging needs page_size >= 1 and num_pages >= 2 "
+                    f"(one page is the engine's reserved write sink), got "
+                    f"page_size={cfg.paging.page_size} "
+                    f"num_pages={cfg.paging.num_pages}")
     return backend

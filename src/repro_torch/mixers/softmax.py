@@ -1,35 +1,46 @@
 """Softmax-attention backend — the Regular-Attention baseline.
 
-Port of the contiguous-cache path of `repro/mixers/softmax.py`.  Scores
-go through the "softmax" KernelImpl family in kernels/ops.py:
-cfg.la.backend picks the chunked online softmax ("torch"), the CUDA
-flash kernels ("cuda") or the quadratic oracle ("ref"); "auto" picks by
-the tensors' device.  Training runs the causal autograd Function with
-the flash recomputation backward; continuation prefill runs the flash
-forward with per-slot `q_offset`; decode scatters the token at each
-slot's own position and runs the fused (or, with
-`cfg.la.fused_decode=False`, the unfused) contiguous-cache decode, so
-slots at different depths decode exactly.
+Port of `repro/mixers/softmax.py`.  Scores go through the "softmax"
+KernelImpl family in kernels/ops.py: cfg.la.backend picks the chunked
+online softmax ("torch"), the CUDA flash kernels ("cuda") or the
+quadratic oracle ("ref"); "auto" picks by the tensors' device.  Training
+runs the causal autograd Function with the flash recomputation backward;
+continuation prefill runs the flash forward with per-slot `q_offset`;
+decode writes the token at each slot's own position and attends to each
+slot's own length, so slots at different depths decode exactly.  Two
+cache layouts:
 
-The KV cache is written IN PLACE by both prefill and decode: one indexed
-write per tensor per layer, instead of the O(max_len) copy per layer and
-window a functional update would cost (the reference's
-`dynamic_update_slice` returns a new array).  Writes clamp as the
-reference's `dynamic_update_slice` does: a window whose start lies past
-max_len - n is written at max_len - n, so a retired slot whose position
-keeps advancing in the batched decode writes the cache's last row, and
-its length (pos + 1) is clamped to max_len by the decode kernels.
+  contiguous  an O(S) KVCache per layer; decode through the fused (or,
+              with `cfg.la.fused_decode=False`, the unfused)
+              contiguous-cache decode
+  paged       cfg.paging set: a PagedKVCache per layer, fixed-size KV
+              pages in an arena shared by the slots, addressed by
+              per-slot page tables; prefill writes its window into the
+              slot's pages and attends to a page-table gather, decode
+              reads K/V through the table in the "paged_decode_fused"
+              (or, unfused, "paged") family's kernel
 
-Left for later slices: the paged cache (`cfg.paging`, ROADMAP.md queue
-1 item 8) and `apply_noncausal` (encoder-decoder).
+Both caches are written IN PLACE by prefill and decode: one indexed
+write per tensor per layer, instead of the copy per layer and window a
+functional update would cost (the reference's `dynamic_update_slice`
+and `.at[].set` return new arrays).  Writes clamp as the reference's
+do: a contiguous window whose start lies past max_len - n is written at
+max_len - n, and a paged write whose page index runs past the table
+uses the table's last entry, so a retired slot whose position keeps
+advancing in the batched decode writes the cache's last row (its
+paged row points at the sink page), and its length (pos + 1) is
+clamped by the decode kernels.
+
+Left for a later slice: `apply_noncausal` (encoder-decoder).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops as _ops
+from repro_torch.kernels.paged_attention import gather_pages
 from repro_torch.mixers.base import register_backend
-from repro_torch.mixers.cache import KVCache
+from repro_torch.mixers.cache import KVCache, PagedKVCache
 from repro_torch.mixers.qkv import GQAProjectionBackend
 
 
@@ -48,6 +59,25 @@ def _scatter_window(big: torch.Tensor, new: torch.Tensor,
     big[slots, :, rows] = new.transpose(1, 2).to(big.dtype)
 
 
+def _write_pages(pages: torch.Tensor, new: torch.Tensor,
+                 page_table: torch.Tensor, positions: torch.Tensor) -> None:
+    """Write `new` (B, Hkv, n, hd) into the shared (P, Hkv, ps, hd) arena
+    in place at ABSOLUTE positions (B, n), routed through the page table
+    (B, Pmax).  Slots own their pages exclusively, so the (page, offset)
+    pairs of live slots never collide across the batch."""
+    b, hkv, n, hd = new.shape
+    ps = pages.shape[2]
+    pos = positions.to(pages.device).long()
+    # clamp the table lookup: a RETIRED slot's position keeps advancing
+    # past its table (it decodes on as batch padding), and its whole row
+    # points at the engine's sink page anyway
+    idx = torch.clamp(pos // ps, max=page_table.shape[1] - 1)
+    page = torch.gather(page_table.long(), 1, idx)
+    # advanced indices around a slice put the (B * n) axis first
+    pages[page.reshape(-1), :, (pos % ps).reshape(-1)] = \
+        new.transpose(1, 2).reshape(b * n, hkv, hd).to(pages.dtype)
+
+
 @register_backend("softmax")
 class SoftmaxAttentionBackend(GQAProjectionBackend):
     def apply(self, p, cfg, x, positions, compute_dtype=None):
@@ -64,7 +94,20 @@ class SoftmaxAttentionBackend(GQAProjectionBackend):
 
     def init_cache(self, cfg, batch: int, max_len: int, device="cuda",
                    dtype=torch.bfloat16):
-        shape = (batch, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
+        hd = cfg.resolved_head_dim
+        if cfg.paging is not None:
+            pg = cfg.paging
+            arena = (pg.num_pages, cfg.num_kv_heads, pg.page_size, hd)
+            # unallocated table entries point at the LAST arena page: the
+            # engine reserves it as the write sink of padding decode, so
+            # a slot without pages never writes into a live page
+            return PagedKVCache(
+                k_pages=torch.zeros(arena, dtype=dtype, device=device),
+                v_pages=torch.zeros(arena, dtype=dtype, device=device),
+                page_table=torch.full(
+                    (batch, -(-max_len // pg.page_size)), pg.num_pages - 1,
+                    dtype=torch.int32, device=device))
+        shape = (batch, cfg.num_kv_heads, max_len, hd)
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                        v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -73,12 +116,22 @@ class SoftmaxAttentionBackend(GQAProjectionBackend):
         slot's absolute offset (in place), then the window's queries
         attend to the cached prefix plus themselves through the per-slot
         `q_offset` causal mask, the KV walk bounded at the deepest slot's
-        frontier."""
+        frontier.  A paged cache takes the window into the slot's own
+        pages and attends to a page-table gather of its context (keys
+        past the causal frontier, the sink page's included, are
+        masked)."""
         q, k, v = self.project_qkv(p, cfg, x, positions, compute_dtype)
         start = positions[:, 0]
-        _scatter_window(cache.k, k, start)
-        _scatter_window(cache.v, v, start)
-        o = _ops.softmax_attention(q, cache.k, cache.v, causal=True,
+        if isinstance(cache, PagedKVCache):
+            _write_pages(cache.k_pages, k, cache.page_table, positions)
+            _write_pages(cache.v_pages, v, cache.page_table, positions)
+            kc = gather_pages(cache.k_pages, cache.page_table)
+            vc = gather_pages(cache.v_pages, cache.page_table)
+        else:
+            _scatter_window(cache.k, k, start)
+            _scatter_window(cache.v, v, start)
+            kc, vc = cache.k, cache.v
+        o = _ops.softmax_attention(q, kc, vc, causal=True,
                                    chunk=cfg.la.chunk, backend=cfg.la.backend,
                                    q_offset=start.to(torch.int32))
         return self.out(p, o, compute_dtype), cache
@@ -87,13 +140,22 @@ class SoftmaxAttentionBackend(GQAProjectionBackend):
         """x: (B, 1, C); position: (B, 1) PER-SLOT absolute positions.
 
         The token's k/v land at each slot's position (in place), then
-        slot b attends to its first pos_b + 1 keys."""
+        slot b attends to its first pos_b + 1 keys: in its contiguous
+        cache, or through its page-table row in the paged arena."""
         q, k, v = self.project_qkv(p, cfg, x, position, compute_dtype)
         pos = position[:, 0]
-        _scatter_window(cache.k, k, pos)
-        _scatter_window(cache.v, v, pos)
-        decode = (_ops.softmax_decode_fused if cfg.la.fused_decode
-                  else _ops.softmax_decode)
-        o = decode(q, cache.k, cache.v, (pos + 1).to(torch.int32),
-                   backend=cfg.la.backend)
+        lengths = (pos + 1).to(torch.int32)
+        if isinstance(cache, PagedKVCache):
+            _write_pages(cache.k_pages, k, cache.page_table, position)
+            _write_pages(cache.v_pages, v, cache.page_table, position)
+            decode = (_ops.paged_attention_fused if cfg.la.fused_decode
+                      else _ops.paged_attention)
+            o = decode(q, cache.k_pages, cache.v_pages, cache.page_table,
+                       lengths, backend=cfg.la.backend)
+        else:
+            _scatter_window(cache.k, k, pos)
+            _scatter_window(cache.v, v, pos)
+            decode = (_ops.softmax_decode_fused if cfg.la.fused_decode
+                      else _ops.softmax_decode)
+            o = decode(q, cache.k, cache.v, lengths, backend=cfg.la.backend)
         return self.out(p, o.to(x.dtype), compute_dtype), cache

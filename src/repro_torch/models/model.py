@@ -157,8 +157,9 @@ def loss_fn(params, cfg, batch):
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda"):
     """Decode cache for the whole model: per-layer caches (LAStates in
-    f32; KV caches in the compute dtype, as the reference's) and the
-    per-slot position counter."""
+    f32; KV caches, or with cfg.paging paged KV arenas each with its
+    own page table at the sink page, in the compute dtype, as the
+    reference's) and the per-slot position counter."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.compute_dtype)
@@ -179,8 +180,9 @@ def prefill(params, cfg, batch, cache):
     Positions and the pos counter CONTINUE from cache["pos"], so chunked
     prefill (window by window, carrying the recurrent state or the KV
     cache) is exact.  A recurrent state comes back as new tensors; a KV
-    cache (softmax) is written in place and comes back as the same
-    tensors, which saves copying max_len rows per layer and window.  The
+    cache (softmax, contiguous or paged) is written in place and comes
+    back as the same tensors, which saves copying max_len rows per layer
+    and window.  The
     input's position counter is not modified.
     """
     cdt = dtype_of(cfg.compute_dtype)

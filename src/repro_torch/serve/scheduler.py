@@ -1,14 +1,18 @@
 """Request lifecycle + admission for the serving engine.
 
-Port of `repro/serve/scheduler.py` without preemption, ByteBudget
-admission and the tracer hooks (all on ROADMAP.md).  Requests move through
+Port of `repro/serve/scheduler.py` without preemption and the tracer
+hooks (both on ROADMAP.md).  Requests move through
 
   QUEUED -> PREFILLING -> DECODING -> FINISHED(finish_reason)
 
 The queue is a priority queue (higher `priority` first, strict FIFO
 within a class); each engine step spends a `TokenBudget` that mixes one
 decode token per decoding slot with chunked-prefill window tokens.
-finish_reason is "stop" (eos or a stop token) or "length".
+finish_reason is "stop" (eos or a stop token) or "length".  An
+`AdmissionPolicy` resolves the engine's slot count: `FixedSlots`, or
+`ByteBudget` from the exact per-slot decode-cache bytes
+(serve/cache.py); the paged engine's `PagedAdmission` (serve/paging.py)
+admits by the pages a request needs.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import enum
 import heapq
 from typing import Iterator, List, Optional, Tuple
 
+from repro_torch.serve.cache import per_slot_bytes
 from repro_torch.tune import timer
 
 
@@ -41,8 +46,15 @@ class StepOutput:
     t: float = dataclasses.field(default_factory=timer.now)
 
 
+class AdmissionPolicy:
+    """Resolves how many concurrent slots a (cfg, max_len) engine runs."""
+
+    def resolve_slots(self, cfg, max_len: int) -> int:
+        raise NotImplementedError
+
+
 @dataclasses.dataclass(frozen=True)
-class FixedSlots:
+class FixedSlots(AdmissionPolicy):
     """Admit up to a fixed number of concurrent sequences."""
 
     slots: int = 4
@@ -51,6 +63,30 @@ class FixedSlots:
         if self.slots < 1:
             raise ValueError(f"FixedSlots needs >= 1 slot, got {self.slots}")
         return self.slots
+
+
+@dataclasses.dataclass(frozen=True)
+class ByteBudget(AdmissionPolicy):
+    """Admit while the decode-cache cost fits a device byte budget.
+
+    A slot costs the exact marginal decode-cache bytes of one sequence
+    (serve/cache.py's `per_slot_bytes`), so the same budget admits far
+    more O(D^2)-state linear sequences than O(S)-KV softmax ones: the
+    paper's memory story as admission control.
+    """
+
+    budget_bytes: int
+    max_slots: int = 256  # batch-size guard, not a memory limit
+
+    def resolve_slots(self, cfg, max_len: int) -> int:
+        per = per_slot_bytes(cfg, max_len)
+        n = min(self.max_slots, self.budget_bytes // per)
+        if n < 1:
+            raise ValueError(
+                f"byte budget {self.budget_bytes} cannot admit even one "
+                f"sequence: one slot's decode cache at max_len={max_len} "
+                f"is {per} bytes (backend-resolved from cfg)")
+        return int(n)
 
 
 class TokenBudget:
@@ -95,6 +131,9 @@ class Scheduler:
         self._seq = 0
         self._admit_seq = 0
         self._admitted_at: dict = {}   # rid -> admission seq
+        # why the queue head still waited after the last admit():
+        # "resources" (can_admit refused it), "slots" or None
+        self.blocked: Optional[str] = None
 
     def submit(self, req) -> None:
         req.state = RequestState.QUEUED
@@ -102,16 +141,35 @@ class Scheduler:
         heapq.heappush(self.queue, (-prio, self._seq, req))
         self._seq += 1
 
-    def admit(self) -> List[Tuple[int, object]]:
-        """Fill free slots from the queue head; returns [(slot, request)]."""
+    def peek(self):
+        """The next request admission would try, or None."""
+        return self.queue[0][2] if self.queue else None
+
+    def admit(self, can_admit=None) -> List[Tuple[int, object]]:
+        """Fill free slots from the queue head; returns [(slot, request)].
+
+        `can_admit(req) -> bool` gates each admission beyond a free slot
+        (the paged engine's free-page check).  A True verdict is ALWAYS
+        followed by admission of that request, so the callback may
+        reserve resources as its answer.  The queue never skips: when
+        the head does not fit, admission stops rather than admit a later
+        request past it, so a large request is not starved by small
+        ones."""
         admitted = []
+        self.blocked = None
         for i, occupant in enumerate(self.slots):
             if occupant is None and self.queue:
-                _, _, head = heapq.heappop(self.queue)
+                head = self.queue[0][2]
+                if can_admit is not None and not can_admit(head):
+                    self.blocked = "resources"
+                    break
+                heapq.heappop(self.queue)
                 self.slots[i] = head
                 self._admitted_at[head.rid] = self._admit_seq
                 self._admit_seq += 1
                 admitted.append((i, head))
+        if self.blocked is None and self.queue:
+            self.blocked = "slots"
         return admitted
 
     def release(self, slot: int, finish_reason: Optional[str] = None

@@ -468,7 +468,9 @@ def test_softmax_registry_and_cuda_on_cpu_raises():
         get_backend("softmax").apply_noncausal(None, None, None, None)
     _, cfg = _configs()
     from repro_torch.configs.base import PagingCfg
-    with pytest.raises(NotImplementedError, match="Paged KV"):
+    # paging is served (tests/test_torch_paging.py); a config without an
+    # arena of at least 2 pages (one of them the sink) is refused
+    with pytest.raises(ValueError, match="num_pages >= 2"):
         get_backend(dataclasses.replace(cfg, paging=PagingCfg()))
 
 
