@@ -27,7 +27,15 @@ fails the run by raising (no result line is printed then):
                page size 16, 34 table entries per slot into a shuffled
                arena, unallocated entries at the sink page, lengths in
                [1, 544] and one past the table) and with GQA G=4 at page
-               size 5, bf16 and f32, zeros at length 0 checked apart
+               size 5, bf16 and f32, zeros at length 0 checked apart;
+               the GLA kernels under both decay regimes (the trained
+               gate's log_sigmoid(N(0,1) + 6) and a hard U[-5, 0]):
+               gla_decode_fused at the serving shapes and with G=4, bf16
+               and f32, state in place, a zero normalizer; gla_fwd,
+               gla_bwd_q and gla_bwd_kv at the training shapes, odd
+               N=1000 and G=4, bf16 and f32 (o, g, dq, dk, dv and dld);
+               and at log_decay = 0 each gated kernel against its linear
+               counterpart
   4. serve   — the Engine at full width pythia-1.4b in bf16, once with the
                paper's linear attention and once with the softmax
                baseline: 8 requests, 512-token prompts, prefill_chunk 256,
@@ -44,19 +52,28 @@ fails the run by raising (no result line is printed then):
                launches per decode step), its logits against the plain
                path and the contiguous kernel path, then a short pass with
                fused_decode=False (24 paged_attention launches per step);
+               the decay-gated (GLA) backend on the same traffic as the
+               linear run (gla_decode_fused 24 per step), and again from
+               a paged state arena (PagedAdmission, page size 16, a budget
+               of 5 state pages: 4 allocatable and the sink; 16 requests
+               of 64-512 prompt tokens, some waiting for pages, 24
+               gla_decode_fused launches per decode step), its logits
+               against the contiguous kernel path and the plain path;
                and the linear smoke config on the card against the same
                weights on the CPU
   5. train   — full width pythia-1.4b (f32 params, bf16 compute, the
                config's remat) on SyntheticLM batches of 2 x 8192 tokens
-               (seed 0), once per backend: the first step's loss and the
-               grads of every layer's wq/wk/wv/wo, ln_f and lm_head on the
+               (seed 0), once per backend (linear, softmax, gla): the
+               first step's loss and the grads of every layer's
+               wq/wk/wv/wo (and gla's gate wg), ln_f and lm_head on the
                kernel path against the plain path from one set of weights;
                then 4 steps through the Trainer, each launching the
                forward kernel 48 times (remat runs each layer's forward
                twice) and each backward kernel 24 times (la_fwd /
-               la_bwd_q / la_bwd_kv, or flash_fwd / flash_bwd_delta /
-               flash_bwd_q / flash_bwd_kv); step time, tokens/s, peak
-               memory, and one more step under torch.profiler
+               la_bwd_q / la_bwd_kv, flash_fwd / flash_bwd_delta /
+               flash_bwd_q / flash_bwd_kv, or gla_fwd / gla_bwd_q /
+               gla_bwd_kv); step time, tokens/s, peak memory, and one more
+               step under torch.profiler
   6. timing  — each kernel and its plain version with CUDA events at the
                main paths' shapes, in turns, beside the kernel's bound and,
                where one PyTorch call computes the same function (SDPA for
@@ -115,6 +132,11 @@ KERNELS = {
                            "src/repro/kernels/decode_fused.py:333"),
     "paged_attention": (f"{CSRC}/paged_decode.cu",
                         "src/repro/kernels/paged_attention.py:149"),
+    "gla_decode_fused": (f"{CSRC}/la_decode_fused.cu",
+                         "src/repro/kernels/decode_fused.py:169"),
+    "gla_fwd": (f"{CSRC}/la_fwd.cu", "src/repro/kernels/gla.py:118"),
+    "gla_bwd_q": (f"{CSRC}/la_bwd.cu", "src/repro/kernels/gla.py:249"),
+    "gla_bwd_kv": (f"{CSRC}/la_bwd.cu", "src/repro/kernels/gla.py:249"),
 }
 SOURCES = ("la_decode_fused", "la_fwd", "la_bwd", "softmax_decode_fused",
            "flash_fwd", "flash_bwd", "paged_decode")
@@ -132,6 +154,11 @@ PAGED_PROMPT_LENS = (64, 512)
 PMAX = -(-MAX_LEN // PAGE_SIZE)
 # the unfused pass: 8 requests of 128 prompt tokens, 8 new
 UNFUSED_PROMPT, UNFUSED_NEW = 128, 8
+# paged GLA serve path: a byte budget of 5 state pages (a page is one
+# slot's whole recurrent state, 25,560,576 B at full width) buys 4
+# allocatable pages and the sink, so at most 4 of the 8 slots decode and
+# the other requests wait for pages
+GLA_PAGED_PAGES = 5
 # train path: pythia-1.4b at full width, the paper's §5.2 length
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8192, 4
 LA_SHAPE = dict(b=2, h=16, hkv=16, n=8192, d=128)
@@ -147,12 +174,29 @@ SMOKE_REL = 1e-4        # f32 smoke logits, card vs CPU
 # token by token over up to 8192 tokens, the plain scans chunk by
 # chunk, so the f32 sums round in different orders
 SEQ_F32_REL = 1e-4
+# the GLA log-decay gradient, dld = the reverse cumsum over up to 8192
+# tokens of dcl = -[v, 1].dV', held to the magnitude of those sums: the
+# plain scans form each decay as exp of a difference of a chunk's cumsum
+# of log decays, which under strong decay reaches ~-1,300 within 512
+# tokens, where one float32 ulp is 1.2e-4, and dld sums those errors
+DLD_REL = 1e-3
+# at log_decay = 0 the gated kernels run the linear kernels' arithmetic
+# with every decay factor exactly 1: within a few float32 ulps
+LD0_REL = 1e-6
 # full-width train step, kernel path vs plain path: both round o, dq,
 # dk and dv to bf16 after f32 sums in different orders, and a last-bit
 # difference reaches the loss and the grads through 24 layers of bf16
 # matmuls forward and back
 TRAIN_LOSS_REL = 2.0 ** -8
 TRAIN_GRAD_REL = 2.0 ** -4
+# the GLA gate's grads (wg) at init: d log_sigmoid(z + 6)/dz ~ e^-6 scales
+# a sum over 16,384 tokens that mostly cancels, so in bf16 compute they are
+# at the level of the rounding noise itself: two plain runs that differ
+# only in the scan chunk (512 against 256) disagree by up to 1.39x their
+# largest |value| (NVIDIA H100 80GB HBM3, 700 W; PERF.md).  The kernel path is held to that spread: all wg grads
+# together differ from the plain path by at most GATE_NOISE_FACTOR times
+# the norm by which the two plain runs differ
+GATE_NOISE_FACTOR = 2.0
 # the softmax kernels against their plain versions: bf16 o within one
 # bf16 step (the kernels round P to bf16 before P V, as FlashAttention-2
 # does; the plain versions keep P in f32); bf16 dq/dk/dv within 2^-5 (P
@@ -186,9 +230,11 @@ def _counters():
     """Every kernel wrapper's launch count dict (one per module)."""
     from repro_torch.kernels import decode_fused as df
     from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import gla
     from repro_torch.kernels import linear_attention as la
     from repro_torch.kernels import paged_attention as pg
-    return (df.launches, la.launches, fl.launches, pg.launches)
+    return (df.launches, la.launches, fl.launches, pg.launches,
+            gla.launches)
 
 
 def reset_launches() -> None:
@@ -549,6 +595,167 @@ def phase_kernel_paged(torch):
     return errs
 
 
+def _log_decay(torch, gen, shape, regime):
+    """The trained gate's regime, log_sigmoid(N(0, 1) + 6), or a hard
+    one, U[-5, 0]: an off-by-one in the decay index passes the first and
+    fails the second."""
+    if regime == "trained":
+        return torch.nn.functional.logsigmoid(
+            torch.randn(shape, generator=gen, device="cuda") + 6.0)
+    return -5.0 * torch.rand(shape, generator=gen, device="cuda")
+
+
+def _gla_decode_case(torch, gen, b, h, hkv, d, dtype, regime):
+    """_decode_case's inputs and a log decay; slot 0, KV head 0 decays by
+    exactly 1 so that its zero normalizer survives the gate."""
+    s, p, q, k, v = _decode_case(torch, gen, b, h, hkv, d, dtype,
+                                 zero_den=True)
+    ld = _log_decay(torch, gen, (b, hkv), regime)
+    ld[0, 0] = 0.0
+    return s, p, q, k, v, ld
+
+
+def _gla_case(torch, gen, b, h, hkv, n, d, dtype, regime):
+    """_la_case's inputs with a log decay, the plain GLA forward's o and
+    g, and the backward's Ω̂ and h prepared from them."""
+    from repro_torch.core import chunked
+    from repro_torch.kernels import gla
+
+    def unit(*shape):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        return (x / x.norm(dim=-1, keepdim=True)).to(dtype)
+
+    q, k = unit(b, h, n, d), unit(b, hkv, n, d)
+    v = torch.randn((b, hkv, n, d), generator=gen, device="cuda").to(dtype)
+    ld = _log_decay(torch, gen, (b, hkv, n), regime)
+    omega = torch.randn((b, h, n, d), generator=gen, device="cuda")
+    o, g = gla.gla_fwd_torch(q, k, v, ld, 1.0, 1.0)
+    om_hat, h_vec = chunked.la_bwd_prep(o, g, omega)
+    return q, k, v, ld, om_hat, h_vec
+
+
+def phase_kernel_gla(torch):
+    """gla_decode_fused, gla_fwd, gla_bwd_q and gla_bwd_kv against their
+    plain versions, under both decay regimes; at log_decay = 0 against
+    the linear kernels."""
+    from repro_torch.core import gla as core_gla
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.kernels import gla
+    from repro_torch.kernels import linear_attention as la
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs = {}
+    for label, hkv, dtype, regime in (
+            ("decode_main_bf16", 16, bf16, "trained"),
+            ("decode_main_f32_strong", 16, f32, "strong"),
+            ("decode_main_bf16_strong", 16, bf16, "strong"),
+            ("decode_gqa_bf16_strong", 4, bf16, "strong"),
+            ("decode_gqa_f32", 4, f32, "trained")):
+        b, h, d = SLOTS, 16, 128
+        s, p, q, k, v, ld = _gla_decode_case(torch, gen, b, h, hkv, d, dtype,
+                                             regime)
+        s_k, p_k = s.clone(), p.clone()
+        ptrs = (s_k.data_ptr(), p_k.data_ptr())
+        o_k = df.gla_decode_fused_cuda(s_k, p_k, q, k, v, ld, 1.0, 1.0)
+        torch.cuda.synchronize()
+        o_t = df.gla_decode_fused_torch(s, p, q, k, v, ld, 1.0, 1.0)
+        log(f"[kernel] gla {label}: B={b} H={h} Hkv={hkv} D={d} {dtype}, "
+            f"log decay {regime}")
+        if (s_k.data_ptr(), p_k.data_ptr()) != ptrs:
+            raise AssertionError(f"{label}: state was reallocated")
+        check_close(f"gla {label} s (in place)", s_k, s, F32_REL)
+        check_close(f"gla {label} p (in place)", p_k, p, F32_REL)
+        rel = BF16_REL if dtype == bf16 else F32_REL
+        errs[label] = {"gla_decode_fused": check_close(
+            f"gla {label} o", o_k, o_t, rel)}
+        if o_k.dtype != dtype or not torch.isfinite(o_k).all():
+            raise AssertionError(f"{label}: o dtype {o_k.dtype} or "
+                                 f"non-finite values")
+        if float(o_k[0, :h // hkv].abs().max()) != 0.0:
+            raise AssertionError(f"{label}: zero normalizer did not give 0")
+
+    m = LA_SHAPE
+    for label, n, hkv, dtype, regime in (
+            ("main_bf16", m["n"], m["hkv"], bf16, "trained"),
+            ("main_bf16_strong", m["n"], m["hkv"], bf16, "strong"),
+            ("main_f32_strong", m["n"], m["hkv"], f32, "strong"),
+            ("odd_n_bf16_strong", 1000, m["hkv"], bf16, "strong"),
+            ("gqa_f32", 1000, 4, f32, "trained"),
+            ("gqa_bf16_strong", 1000, 4, bf16, "strong")):
+        b, h, d = m["b"], m["h"], m["d"]
+        q, k, v, ld, om_hat, h_vec = _gla_case(torch, gen, b, h, hkv, n, d,
+                                               dtype, regime)
+        log(f"[kernel] gla {label}: B={b} H={h} Hkv={hkv} N={n} D={d} "
+            f"{dtype}, log decay {regime}")
+        rel = BF16_REL if dtype == bf16 else SEQ_F32_REL
+        o_k, g_k = gla.gla_fwd_cuda(q, k, v, ld, 1.0, 1.0)
+        dq_k = gla.gla_bwd_q_cuda(k, v, ld, om_hat, h_vec, 1.0)
+        dk_k, dva_k = gla.gla_bwd_kv_cuda(q, k, v, ld, om_hat, h_vec, 1.0,
+                                          1.0)
+        torch.cuda.synchronize()
+        o_t, g_t = gla.gla_fwd_torch(q, k, v, ld, 1.0, 1.0)
+        dq_t = gla.gla_bwd_q_torch(k, v, ld, om_hat, h_vec, 1.0)
+        dk_t, dva_t = gla.gla_bwd_kv_torch(q, k, v, ld, om_hat, h_vec, 1.0,
+                                           1.0)
+        dv_k, dld_k = core_gla.gla_bwd_epilogue(v, dva_k, ld)
+        dv_t, dld_t = core_gla.gla_bwd_epilogue(v, dva_t, ld)
+        e = {"gla_fwd": check_close(f"gla {label} o", o_k, o_t, rel)}
+        check_close(f"gla {label} g", g_k, g_t, SEQ_F32_REL)
+        e["gla_bwd_q"] = check_close(f"gla {label} dq", dq_k, dq_t, rel)
+        e["gla_bwd_kv"] = max(
+            check_close(f"gla {label} dk", dk_k, dk_t, rel),
+            check_close(f"gla {label} dv", dv_k, dv_t, rel),
+            check_close(f"gla {label} dV' (f32)", dva_k, dva_t,
+                        SEQ_F32_REL))
+        e["dld"] = check_close(f"gla {label} dld", dld_k, dld_t, DLD_REL)
+        for name, t in (("o", o_k), ("dq", dq_k), ("dk", dk_k),
+                        ("dv", dv_k)):
+            if t.dtype != dtype or not torch.isfinite(t).all():
+                raise AssertionError(f"gla {label} {name}: dtype {t.dtype} "
+                                     f"or non-finite values")
+        if not torch.isfinite(dld_k).all():
+            raise AssertionError(f"gla {label}: non-finite dld")
+        errs[label] = e
+        del q, k, v, ld, om_hat, h_vec, o_k, g_k, dq_k, dk_k, dva_k, o_t, \
+            g_t, dq_t, dk_t, dva_t, dv_k, dld_k, dv_t, dld_t
+        torch.cuda.empty_cache()
+
+    # log_decay = 0: each gated kernel against its linear counterpart, f32
+    # at the training and serving shapes
+    ld0 = {}
+    b, h, hkv, n, d = m["b"], m["h"], m["hkv"], m["n"], m["d"]
+    q, k, v, _, om_hat, h_vec = _gla_case(torch, gen, b, h, hkv, n, d, f32,
+                                          "trained")
+    zero = torch.zeros((b, hkv, n), device="cuda")
+    o_g, g_g = gla.gla_fwd_cuda(q, k, v, zero, 1.0, 1.0)
+    o_l, g_l = la.la_fwd_cuda(q, k, v, 1.0, 1.0)
+    dk_g, dva_g = gla.gla_bwd_kv_cuda(q, k, v, zero, om_hat, h_vec, 1.0,
+                                      1.0)
+    dk_l, dv_l = la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec, 1.0, 1.0)
+    pairs = [("o", o_g, o_l), ("g", g_g, g_l),
+             ("dq", gla.gla_bwd_q_cuda(k, v, zero, om_hat, h_vec, 1.0),
+              la.la_bwd_q_cuda(k, v, om_hat, h_vec, 1.0)),
+             ("dk", dk_g, dk_l), ("dv", dva_g[..., :d], dv_l)]
+    s, p, qd, kd, vd, _ = _gla_decode_case(torch, gen, SLOTS, 16, 16, 128,
+                                           f32, "trained")
+    s2, p2 = s.clone(), p.clone()
+    pairs.append(("decode o", df.gla_decode_fused_cuda(
+        s, p, qd, kd, vd, torch.zeros((SLOTS, 16), device="cuda"), 1.0,
+        1.0), df.la_decode_fused_cuda(s2, p2, qd, kd, vd, 1.0, 1.0)))
+    pairs.append(("decode s", s, s2))
+    torch.cuda.synchronize()
+    for name, got, want in pairs:
+        ld0[name] = check_close(f"gla at log_decay = 0 vs linear, {name}",
+                                got, want, LD0_REL)
+    log(f"  log_decay = 0: bit-identical to the linear kernels: "
+        f"{[name for name, got, want in pairs if torch.equal(got, want)]}")
+    errs["ld0_vs_linear"] = ld0
+    del q, k, v, om_hat, h_vec, pairs
+    torch.cuda.empty_cache()
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # 4. main path: the engine at full width
 # ---------------------------------------------------------------------------
@@ -600,9 +807,10 @@ def phase_serve(torch, np, backend):
     launches = read_launches()
     steps = engine.decode_steps
     windows = SLOTS * -(-PROMPT_LEN // PREFILL_CHUNK)
-    want = ({"la_decode_fused": cfg.num_layers * steps} if backend == "linear"
-            else {"softmax_decode_fused": cfg.num_layers * steps,
-                  "flash_fwd": cfg.num_layers * windows})
+    want = {"linear": {"la_decode_fused": cfg.num_layers * steps},
+            "gla": {"gla_decode_fused": cfg.num_layers * steps},
+            "softmax": {"softmax_decode_fused": cfg.num_layers * steps,
+                        "flash_fwd": cfg.num_layers * windows}}[backend]
     log(f"[serve {backend}] {SLOTS} requests x {PROMPT_LEN} prompt tokens, "
         f"{MAX_NEW} new: {steps} decode steps, {windows} prefill windows, "
         f"launches {launches}, wall {wall!r} s (init {init_s!r} s)")
@@ -617,24 +825,10 @@ def phase_serve(torch, np, backend):
 
     # steady batched decode step on the engine's full-batch cache
     tokens = torch.from_numpy(engine.next_tokens).to("cuda")
-    for _ in range(3):
-        mdl.decode_step(engine.params, engine.cfg, engine.cache, tokens)
-    n_timed = 20
-    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    h0 = time.perf_counter()
-    ev0.record()
-    for _ in range(n_timed):
-        mdl.decode_step(engine.params, engine.cfg, engine.cache, tokens)
-    ev1.record()
-    torch.cuda.synchronize()
-    step_host_ms = (time.perf_counter() - h0) * 1e3 / n_timed
-    step_dev_ms = ev0.elapsed_time(ev1) / n_timed
+    step_dev_ms, step_host_ms, profile = _steady_decode(
+        torch, mdl, engine.params, engine.cfg, engine.cache, tokens,
+        f"decode step ({backend})")
     peak = torch.cuda.max_memory_allocated()
-    profile = _profile(torch, f"decode step ({backend})",
-                       lambda: mdl.decode_step(engine.params, engine.cfg,
-                                               engine.cache, tokens),
-                       steps=5)
 
     # the first decode steps' logits, kernel path vs plain path, from one
     # prefilled cache (cloned) and the same fed tokens
@@ -682,6 +876,28 @@ def phase_serve(torch, np, backend):
     return record, launches
 
 
+def _steady_decode(torch, mdl, params, cfg, cache, tokens, label):
+    """The batched decode step on `cache` (updated in place), after 3
+    warm-up steps: (device ms and host ms per step over 20 steps, the
+    profile of 5 more)."""
+    for _ in range(3):
+        mdl.decode_step(params, cfg, cache, tokens)
+    n_timed = 20
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    ev0.record()
+    for _ in range(n_timed):
+        mdl.decode_step(params, cfg, cache, tokens)
+    ev1.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - h0) * 1e3 / n_timed
+    profile = _profile(torch, label,
+                       lambda: mdl.decode_step(params, cfg, cache, tokens),
+                       steps=5)
+    return ev0.elapsed_time(ev1) / n_timed, host_ms, profile
+
+
 def _profile(torch, label, fn, steps):
     """torch.profiler over `steps` calls of `fn` (one step each): the
     device's kernel time and launches per step, its busy share of the
@@ -716,22 +932,19 @@ def _profile(torch, label, fn, steps):
     return rec
 
 
-def _serve_paged_logits(torch, np, params, cfg):
+def _serve_paged_logits(torch, np, params, cfg, table, what):
     """The first decode steps' logits of one prefilled paged batch (8
-    prompts of PROMPT_LEN, every slot's pages shuffled over an arena of
-    8 * PMAX + 1 pages): kernel path against plain path on clones of the
-    cache, and against the contiguous kernel path on the same prompts and
-    fed tokens.  Returns (errors, the kernel path's config and cache)."""
+    prompts of PROMPT_LEN, every slot's pages named by `table` in an
+    arena of table.numel() + 1 pages): kernel path against plain path on
+    clones of the cache, and against the contiguous kernel path on the
+    same prompts and fed tokens.  Returns (errors, the kernel path's
+    config and cache, the last fed tokens)."""
     from repro_torch.configs.base import PagingCfg
     from repro_torch.models import model as mdl
 
     cfg_b = dataclasses.replace(cfg, paging=PagingCfg(PAGE_SIZE,
-                                                      SLOTS * PMAX + 1))
+                                                      table.numel() + 1))
     cfg_c = dataclasses.replace(cfg, paging=None)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(8)
-    table = torch.randperm(SLOTS * PMAX, generator=gen, device="cuda").to(
-        torch.int32).reshape(SLOTS, PMAX)
     cache = mdl.init_cache(cfg_b, SLOTS, MAX_LEN, "cuda")
     for layer in cache["blocks"]:
         layer.page_table.copy_(table)
@@ -742,7 +955,7 @@ def _serve_paged_logits(torch, np, params, cfg):
                                     mdl.init_cache(cfg_c, SLOTS, MAX_LEN,
                                                    "cuda"))
     errs = {"prefill_vs_contiguous": check_close(
-        "paged prefill logits (vs contiguous)", logits, logits_c,
+        f"{what} prefill logits (vs contiguous)", logits, logits_c,
         LOGITS_REL), "vs_plain": [], "vs_contiguous": []}
     tok = logits.argmax(-1)
     cache_t = _clone_cache(cache)
@@ -752,13 +965,14 @@ def _serve_paged_logits(torch, np, params, cfg):
         lt, cache_t = mdl.decode_step(params, cfg_t, cache_t, tok)
         lc, cache_c = mdl.decode_step(params, cfg_c, cache_c, tok)
         if not torch.isfinite(lk).all():
-            raise AssertionError(f"paged decode step {i}: non-finite logits")
+            raise AssertionError(f"{what} decode step {i}: non-finite "
+                                 f"logits")
         errs["vs_plain"].append(check_close(
-            f"full-width paged decode step {i} logits (cuda vs torch)", lk,
+            f"full-width {what} decode step {i} logits (cuda vs torch)", lk,
             lt, LOGITS_REL))
         errs["vs_contiguous"].append(check_close(
-            f"full-width paged decode step {i} logits (vs contiguous cuda)",
-            lk, lc, LOGITS_REL))
+            f"full-width {what} decode step {i} logits (vs contiguous "
+            f"cuda)", lk, lc, LOGITS_REL))
         tok = lk.argmax(-1)
     del cache_t, cache_c
     return errs, cfg_k, cache, tok
@@ -840,26 +1054,16 @@ def phase_serve_paged(torch, np):
     params = engine.params
     del engine
     torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    table = torch.randperm(SLOTS * PMAX, generator=gen, device="cuda").to(
+        torch.int32).reshape(SLOTS, PMAX)
     logit_errs, cfg_k, cache, tok = _serve_paged_logits(torch, np, params,
-                                                        cfg)
+                                                        cfg, table, "paged")
     # the steady batched decode step on the prefilled paged batch (every
     # slot past 512 keys, its pages shuffled over the arena)
-    for _ in range(3):
-        mdl.decode_step(params, cfg_k, cache, tok)
-    n_timed = 20
-    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    h0 = time.perf_counter()
-    ev0.record()
-    for _ in range(n_timed):
-        mdl.decode_step(params, cfg_k, cache, tok)
-    ev1.record()
-    torch.cuda.synchronize()
-    step_host_ms = (time.perf_counter() - h0) * 1e3 / n_timed
-    step_dev_ms = ev0.elapsed_time(ev1) / n_timed
-    profile = _profile(torch, "decode step (softmax, paged)",
-                       lambda: mdl.decode_step(params, cfg_k, cache, tok),
-                       steps=5)
+    step_dev_ms, step_host_ms, profile = _steady_decode(
+        torch, mdl, params, cfg_k, cache, tok, "decode step (softmax, paged)")
     del cache
     torch.cuda.empty_cache()
 
@@ -919,6 +1123,129 @@ def phase_serve_paged(torch, np):
     return record, launches, launches_unfused
 
 
+def phase_serve_gla_paged(torch, np):
+    """The GLA backend served from a paged state arena at full width;
+    returns (record, the run's launches)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.cache import state_page_bytes
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.paging import PagedAdmission
+
+    cfg = get_config("pythia-1.4b", attention_backend="gla")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = mdl.init_params(cfg, seed=0, device="cuda")
+    page = state_page_bytes(cfg)
+    budget = GLA_PAGED_PAGES * page
+    policy = PagedAdmission(budget, page_size=PAGE_SIZE, max_slots=SLOTS)
+    engine = Engine(cfg, params, max_len=MAX_LEN, policy=policy,
+                    prefill_chunk=PREFILL_CHUNK, eos_id=-1, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if engine.page_stats()["num_pages"] != GLA_PAGED_PAGES - 1:
+        raise AssertionError(f"arena {engine.page_stats()}")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(PAGED_PROMPT_LENS[0], PAGED_PROMPT_LENS[1] + 1,
+                        size=PAGED_REQUESTS)
+    for rid, n in enumerate(lens):
+        engine.submit(Request(rid=rid, prompt=rng.integers(
+            3, cfg.vocab_size, size=int(n)).tolist(),
+            max_new_tokens=MAX_NEW))
+
+    reset_launches()
+    t_start = time.perf_counter()
+    first, waited, peak_pages, pages_of = {}, set(), 0, {}
+    while engine.scheduler.has_work():
+        outs = engine.step()
+        peak_pages = max(peak_pages, engine.pool.pages_in_use)
+        for rid in range(PAGED_REQUESTS):
+            if engine.pool.holds(rid):
+                pages_of.setdefault(rid, engine.pool.table(rid))
+        if engine.scheduler.blocked == "resources":
+            waited.add(engine.scheduler.peek().rid)
+        for out in outs:
+            if out.token is not None and out.rid not in first:
+                first[out.rid] = out.t - t_start
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steps = engine.decode_steps
+    stats = engine.page_stats()
+    reused = len({p for t in pages_of.values() for p in t})
+    log(f"[serve gla paged] {PAGED_REQUESTS} requests of {lens.tolist()} "
+        f"prompt tokens, {MAX_NEW} new, {stats['num_pages']} allocatable "
+        f"state pages of {page} B (budget {budget} B): {steps} decode "
+        f"steps, launches {launches}, wall {wall!r} s (init {init_s!r} s); "
+        f"{len(waited)} requests waited for pages at the queue head; "
+        f"pages per request {sorted({len(t) for t in pages_of.values()})}, "
+        f"{reused} distinct pages over {len(pages_of)} requests, peak in "
+        f"use {peak_pages}; at the end {stats}")
+    expect_launches("serve gla paged", launches,
+                    {"gla_decode_fused": cfg.num_layers * steps})
+    for rid in range(PAGED_REQUESTS):
+        toks = engine.request(rid).generated
+        if len(toks) != MAX_NEW or not all(0 <= t < cfg.vocab_size
+                                           for t in toks):
+            raise AssertionError(f"request {rid} generated {toks}")
+    if stats["free_pages"] != stats["num_pages"] or stats["pages_in_use"] \
+            or peak_pages > GLA_PAGED_PAGES - 1 \
+            or {len(t) for t in pages_of.values()} != {1} \
+            or reused > GLA_PAGED_PAGES - 1:
+        raise AssertionError(f"pages: {stats}, peak {peak_pages}, pages "
+                             f"{pages_of} (one per request, reused?)")
+    if not waited:
+        raise AssertionError("no admission waited for state pages")
+
+    params = engine.params
+    del engine
+    torch.cuda.empty_cache()
+    # the slots' state pages shuffled over an arena of 8 + 1 pages; the
+    # paged kernel path is the contiguous one's kernel on the same
+    # gathered values, so its logits are expected to equal them
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    table = torch.randperm(SLOTS, generator=gen, device="cuda").to(
+        torch.int32)[:, None]
+    logit_errs, cfg_k, cache, tok = _serve_paged_logits(
+        torch, np, params, cfg, table, "gla paged")
+    # the steady batched decode step on the prefilled paged batch (every
+    # slot's state gathered from and scattered back to its page)
+    step_dev_ms, step_host_ms, profile = _steady_decode(
+        torch, mdl, params, cfg_k, cache, tok,
+        "decode step (gla, paged state)")
+    del cache
+    torch.cuda.empty_cache()
+    ttft = [first[r] for r in range(PAGED_REQUESTS)]
+    record = {
+        "arch": cfg.name, "attention_backend": "gla",
+        "compute_dtype": cfg.compute_dtype, "policy": "PagedAdmission",
+        "budget_bytes": budget, "state_page_bytes": page,
+        "allocatable_pages": GLA_PAGED_PAGES - 1, "slots": SLOTS,
+        "requests": PAGED_REQUESTS, "prompt_lens": lens.tolist(),
+        "prefill_chunk": PREFILL_CHUNK, "max_new": MAX_NEW,
+        "max_len": MAX_LEN, "decode_steps": steps,
+        "kernel_launches": launches,
+        "requests_waited_for_pages": len(waited),
+        "distinct_pages_used": reused, "peak_pages_in_use": peak_pages,
+        "page_stats_end": stats, "wall_s": wall,
+        "generated_tokens_per_s": PAGED_REQUESTS * MAX_NEW / wall,
+        "ttft_s": ttft, "ttft_mean_s": sum(ttft) / len(ttft),
+        "ttft_max_s": max(ttft),
+        "decode_step_ms_device": step_dev_ms,
+        "decode_step_ms_host": step_host_ms,
+        "decode_step_profile": profile,
+        "decode_tokens_per_s": SLOTS / (step_host_ms / 1e3),
+        "max_memory_allocated_bytes": peak,
+        "logits_max_abs_err": logit_errs}
+    del params
+    torch.cuda.empty_cache()
+    return record, launches
+
+
 def phase_smoke_reference(torch):
     """The smoke config on the card (kernel path) against the same
     weights on the CPU (plain path): prefill + 4 decode steps."""
@@ -961,11 +1288,12 @@ def phase_smoke_reference(torch):
 # ---------------------------------------------------------------------------
 
 def _compared_grad(path: str) -> bool:
-    """Every layer's wq/wk/wv/wo, ln_f and lm_head."""
+    """Every layer's wq/wk/wv/wo (and gla's gate wg), ln_f and
+    lm_head."""
     parts = path.split(".")
     return (parts[0] in ("ln_f", "lm_head")
             or (parts[0] == "blocks" and parts[2] == "mixer"
-                and parts[3] in ("wq", "wk", "wv", "wo")))
+                and parts[3] in ("wq", "wk", "wv", "wo", "wg")))
 
 
 def _train_compare(torch, mdl, cfg, params, batch):
@@ -986,21 +1314,66 @@ def _train_compare(torch, mdl, cfg, params, batch):
                            loss_t, TRAIN_LOSS_REL)
     if not (torch.isfinite(loss_k) and torch.isfinite(loss_t)):
         raise AssertionError("non-finite first-step loss")
+    gate = [i for i, (path, _) in enumerate(named) if ".wg." in path]
     grad_errs = {}
-    for (path, _), gk, gt in zip(named, grads_k, grads_t):
+    for i, ((path, _), gk, gt) in enumerate(zip(named, grads_k, grads_t)):
         err, scale = rel_err(gk, gt)
         grad_errs[path] = err / scale
-        if not (err <= TRAIN_GRAD_REL * scale) or not torch.isfinite(
-                gk).all():
+        if not torch.isfinite(gk).all() or (
+                i not in gate and not err <= TRAIN_GRAD_REL * scale):
             raise AssertionError(f"grad {path}: max abs err {err} > "
                                  f"{TRAIN_GRAD_REL} * {scale}")
-    worst = max(grad_errs, key=grad_errs.get)
-    log(f"  {len(named)} grads within {TRAIN_GRAD_REL} of their max "
-        f"|value|; worst {worst} at {grad_errs[worst]!r}")
-    return {"loss_cuda": float(loss_k), "loss_torch": float(loss_t),
-            "loss_abs_err": loss_err, "grads_compared": len(named),
-            "grad_rel_err_max": grad_errs[worst], "grad_rel_err_worst":
-            worst, "grad_rel_err": grad_errs}
+    worst = max((p for i, (p, _) in enumerate(named) if i not in gate),
+                key=grad_errs.get)
+    log(f"  {len(named) - len(gate)} grads within {TRAIN_GRAD_REL} of "
+        f"their max |value|; worst {worst} at {grad_errs[worst]!r}")
+    rec = {"loss_cuda": float(loss_k), "loss_torch": float(loss_t),
+           "loss_abs_err": loss_err, "grads_compared": len(named),
+           "grad_rel_err_max": grad_errs[worst], "grad_rel_err_worst":
+           worst, "grad_rel_err": grad_errs}
+    if gate:
+        rec["gate"] = _gate_noise(torch, mdl, cfg, params, batch, named,
+                                  gate, grads_k, grads_t)
+    return rec
+
+
+def _gate_noise(torch, mdl, cfg, params, batch, named, gate, grads_k,
+                grads_t):
+    """The GLA gate's grads against the plain path, held to the plain
+    path's own spread (GATE_NOISE_FACTOR): a second plain run with half
+    the scan chunk differs from the first only in summation order."""
+    c = _with_impl(cfg, "torch")
+    c = dataclasses.replace(c, la=dataclasses.replace(c.la,
+                                                      chunk=c.la.chunk // 2))
+    loss, _ = mdl.loss_fn(params, c, batch)
+    grads_2 = torch.autograd.grad(loss, [named[i][1] for i in gate])
+    del loss
+
+    def flat(gs):
+        return torch.cat([g.float().flatten() for g in gs])
+
+    ref = flat(grads_t[i] for i in gate)
+    d_kernel = float((flat(grads_k[i] for i in gate) - ref).norm())
+    d_plain = float((flat(grads_2) - ref).norm())
+    def rel(got, want):
+        err, scale = rel_err(got, want)
+        return err / scale
+
+    per_leaf = {named[i][0]: [rel(grads_k[i], grads_t[i]),
+                              rel(g2, grads_t[i])]
+                for i, g2 in zip(gate, grads_2)}
+    log(f"  {len(gate)} gate (wg) grads: |cuda - torch| = {d_kernel!r}, "
+        f"|torch chunk {c.la.chunk} - torch| = {d_plain!r} (limit "
+        f"{GATE_NOISE_FACTOR} x), |torch| = {float(ref.norm())!r}; per "
+        f"leaf, max abs err over max |value| (cuda, torch chunk "
+        f"{c.la.chunk}): {per_leaf}")
+    if not d_kernel <= GATE_NOISE_FACTOR * d_plain:
+        raise AssertionError(f"gate grads: |cuda - torch| {d_kernel} > "
+                             f"{GATE_NOISE_FACTOR} x {d_plain}")
+    return {"norm_cuda_vs_torch": d_kernel,
+            "norm_torch_half_chunk_vs_torch": d_plain,
+            "norm_torch": float(ref.norm()),
+            "rel_err_cuda_and_half_chunk": per_leaf}
 
 
 def phase_train(torch, backend):
@@ -1035,10 +1408,14 @@ def phase_train(torch, backend):
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     layers = cfg.num_layers
-    per_step = ({"la_fwd": 2 * layers, "la_bwd_q": layers,
-                 "la_bwd_kv": layers} if backend == "linear"
-                else {"flash_fwd": 2 * layers, "flash_bwd_delta": layers,
-                      "flash_bwd_q": layers, "flash_bwd_kv": layers})
+    per_step = {"linear": {"la_fwd": 2 * layers, "la_bwd_q": layers,
+                           "la_bwd_kv": layers},
+                "gla": {"gla_fwd": 2 * layers, "gla_bwd_q": layers,
+                        "gla_bwd_kv": layers},
+                "softmax": {"flash_fwd": 2 * layers,
+                            "flash_bwd_delta": layers,
+                            "flash_bwd_q": layers,
+                            "flash_bwd_kv": layers}}[backend]
     log(f"[train {backend}] {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
         f"{TRAIN_SEQ} tokens: launches {launches}, losses "
         f"{[h['loss'] for h in hist]}, step s {[h['dt'] for h in hist]}")
@@ -1397,6 +1774,115 @@ def phase_timing_paged(torch):
     return out
 
 
+def phase_timing_gla(torch):
+    """gla_decode_fused at the serving shapes (8 rotating states, cold in
+    L2, as in phase_timing) and gla_fwd, gla_bwd_q and gla_bwd_kv at the
+    training shapes (bf16, the trained gate's decays), each beside its
+    plain version and, in turns, beside its linear counterpart on the
+    same inputs: what the gate costs."""
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.kernels import gla
+    from repro_torch.kernels import linear_attention as la
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    out = {}
+
+    b, h, hkv, d = SLOTS, 16, 16, 128
+    sets = [_gla_decode_case(torch, gen, b, h, hkv, d, bf16, "trained")
+            for _ in range(8)]
+
+    def rotating(fn, gated=True):
+        nxt = itertools.cycle(sets).__next__
+        if gated:
+            return lambda: fn(*nxt(), 1.0, 1.0)
+        return lambda: fn(*nxt()[:5], 1.0, 1.0)
+
+    kern, plain = _time_pair(torch, rotating(df.gla_decode_fused_torch),
+                             rotating(df.gla_decode_fused_cuda), reps=200,
+                             warm=20)
+    lin, kern_b = _time_pair(torch, rotating(df.gla_decode_fused_cuda),
+                             rotating(df.la_decode_fused_cuda, False),
+                             reps=200, warm=20)
+    g = h // hkv
+    cols = d + 1
+    state_elems = b * hkv * d * cols
+    it = 2
+    # state and normalizer read and written in f32; q, k, v, ld read; o
+    # written.  The linear step's flops plus the decay of every state and
+    # normalizer element
+    bytes_moved = (2 * state_elems * 4 + 2 * b * hkv * cols * 4
+                   + (b * h * d + 2 * b * hkv * d) * it + b * hkv * 4
+                   + b * h * d * it)
+    flops = (state_elems * (3 + 2 * g) + b * hkv * cols * (2 + 3 * g)
+             + b * h * d)
+    out["gla_decode_fused"] = {
+        "ms": min(kern), "ms_runs": kern, "plain_ms": min(plain),
+        "plain_ms_runs": plain, "library_ms": None,
+        "in_turns_with_la_decode_fused": {"gla_ms_runs": kern_b,
+                                          "la_ms_runs": lin},
+        **_bound(bytes_moved, flops)}
+    log(f"[timing] gla_decode_fused B={b} H={h} Hkv={hkv} D={d} bf16: "
+        f"{out['gla_decode_fused']}; library_ms null: no single PyTorch "
+        f"call computes this gated update + readout")
+    del sets
+
+    m = LA_SHAPE
+    b, h, hkv, n, d = m["b"], m["h"], m["hkv"], m["n"], m["d"]
+    q, k, v, ld, om_hat, h_vec = _gla_case(torch, gen, b, h, hkv, n, d, bf16,
+                                           "trained")
+    q_el, kv_el = b * h * n * d, b * hkv * n * d
+    tok_q, tok_kv = b * h * n, b * hkv * n
+    work = {
+        # q, k, v, ld read; o written in bf16, g in f32.  Per query token
+        # and head: the decay, the update and the readout of the state
+        "gla_fwd": ((q_el + 2 * kv_el) * it + tok_kv * 4 + q_el * it
+                    + tok_q * 4, tok_q * 5 * d * (d + 1)),
+        # k, v, ld read; Ω̂ and h read in f32; dq written
+        "gla_bwd_q": (2 * kv_el * it + tok_kv * 4 + q_el * 4 + tok_q * 4
+                      + q_el * it, tok_q * 5 * d * (d + 1)),
+        # q, k, v, ld read; Ω̂ and h read in f32; dk written in bf16 and
+        # dV' in f32.  The U update per query token and head; its decay,
+        # the dk and dV' readouts per KV token and head
+        "gla_bwd_kv": ((q_el + 2 * kv_el) * it + tok_kv * 4 + q_el * 4
+                       + tok_q * 4 + kv_el * it + tok_kv * (d + 1) * 4,
+                       tok_q * 2 * (d + 1) ** 2
+                       + tok_kv * (4 * d * (d + 1) + (d + 1) ** 2)),
+    }
+    calls = {
+        "gla_fwd": (lambda: gla.gla_fwd_torch(q, k, v, ld, 1.0, 1.0),
+                    lambda: gla.gla_fwd_cuda(q, k, v, ld, 1.0, 1.0),
+                    lambda: la.la_fwd_cuda(q, k, v, 1.0, 1.0)),
+        "gla_bwd_q": (lambda: gla.gla_bwd_q_torch(k, v, ld, om_hat, h_vec,
+                                                  1.0),
+                      lambda: gla.gla_bwd_q_cuda(k, v, ld, om_hat, h_vec,
+                                                 1.0),
+                      lambda: la.la_bwd_q_cuda(k, v, om_hat, h_vec, 1.0)),
+        "gla_bwd_kv": (lambda: gla.gla_bwd_kv_torch(q, k, v, ld, om_hat,
+                                                    h_vec, 1.0, 1.0),
+                       lambda: gla.gla_bwd_kv_cuda(q, k, v, ld, om_hat,
+                                                   h_vec, 1.0, 1.0),
+                       lambda: la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec,
+                                                 1.0, 1.0)),
+    }
+    for name, (plain_fn, kernel_fn, linear_fn) in calls.items():
+        kern, pl = _time_pair(torch, plain_fn, kernel_fn, reps=5)
+        lin, kern_b = _time_pair(torch, kernel_fn, linear_fn, reps=5)
+        out[name] = {"ms": min(kern), "ms_runs": kern, "plain_ms": min(pl),
+                     "plain_ms_runs": pl, "library_ms": None,
+                     "in_turns_with_linear": {"gla_ms_runs": kern_b,
+                                              "la_ms_runs": lin},
+                     **_bound(*work[name])}
+        log(f"[timing] {name} B={b} H={h} Hkv={hkv} N={n} D={d} bf16: "
+            f"{out[name]}")
+    log("[timing] gla_fwd / gla_bwd_q / gla_bwd_kv: library_ms null: no "
+        "single PyTorch call computes gated linear attention or its "
+        "gradient (SDPA is softmax)")
+    del q, k, v, ld, om_hat, h_vec
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1407,27 +1893,36 @@ def main() -> int:
     la_errs = phase_kernel_la(torch)
     softmax_errs = phase_kernel_softmax(torch)
     paged_errs = phase_kernel_paged(torch)
+    gla_errs = phase_kernel_gla(torch)
     serve, serve_launches = phase_serve(torch, np, "linear")
     serve_sm, serve_sm_launches = phase_serve(torch, np, "softmax")
     serve_pg, serve_pg_launches, serve_pgu_launches = phase_serve_paged(
         torch, np)
+    serve_gla, serve_gla_launches = phase_serve(torch, np, "gla")
+    serve_glp, serve_glp_launches = phase_serve_gla_paged(torch, np)
     smoke_errs = phase_smoke_reference(torch)
     torch.cuda.empty_cache()
     train, train_launches = phase_train(torch, "linear")
     train_sm, train_sm_launches = phase_train(torch, "softmax")
+    train_gla, train_gla_launches = phase_train(torch, "gla")
     timing = {"la_decode_fused": phase_timing(torch), **phase_timing_la(
-        torch), **phase_timing_softmax(torch), **phase_timing_paged(torch)}
+        torch), **phase_timing_softmax(torch), **phase_timing_paged(torch),
+        **phase_timing_gla(torch)}
 
     # each kernel's launches summed over the main-path runs (every other
     # run left it at 0, expect_launches checked)
     runs = (serve_launches, serve_sm_launches, serve_pg_launches,
-            serve_pgu_launches, train_launches, train_sm_launches)
+            serve_pgu_launches, serve_gla_launches, serve_glp_launches,
+            train_launches, train_sm_launches, train_gla_launches)
     launches = {k: sum(r[k] for r in runs) for k in KERNELS}
     max_err = {"la_decode_fused": kernel_errs["main_bf16"],
                **la_errs["main_bf16"],
                **softmax_errs["decode_main_bf16"],
                **softmax_errs["flash_main_bf16"],
-               **paged_errs["paged_main_bf16"]}
+               **paged_errs["paged_main_bf16"],
+               **gla_errs["decode_main_bf16"],
+               **{k: v for k, v in gla_errs["main_bf16"].items()
+                  if k in KERNELS}}
     kernels = {"kernels": [{
         "name": kname, "route": "cuda", "source": KERNELS[kname][0],
         "replaces": KERNELS[kname][1], "launches": launches[kname],
@@ -1436,16 +1931,20 @@ def main() -> int:
         "bound_ms": timing[kname]["bound_ms"],
         "bound_by": timing[kname]["bound_by"],
         "library_ms": timing[kname].get("library_ms")} for kname in KERNELS]}
-    for rec in (serve, serve_sm, serve_pg, train, train_sm):
+    for rec in (serve, serve_sm, serve_pg, serve_gla, serve_glp, train,
+                train_sm, train_gla):
         rec["card"] = smi
     print(json.dumps({"serve": serve, "serve_softmax": serve_sm,
                       "serve_softmax_paged": serve_pg,
+                      "serve_gla": serve_gla, "serve_gla_paged": serve_glp,
                       "train": train, "train_softmax": train_sm,
+                      "train_gla": train_gla,
                       "build_s": build_s,
                       "kernel_max_abs_err": kernel_errs,
                       "la_kernel_max_abs_err": la_errs,
                       "softmax_kernel_max_abs_err": softmax_errs,
                       "paged_kernel_max_abs_err": paged_errs,
+                      "gla_kernel_max_abs_err": gla_errs,
                       "smoke_logits_max_abs_err": smoke_errs,
                       "timing": timing}), flush=True)
     print(smi, flush=True)

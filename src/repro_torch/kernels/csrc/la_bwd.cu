@@ -1,38 +1,58 @@
-// Analytic linear-attention backward for Hopper (sm_90a): two kernels.
+// Analytic linear-attention backward, plain and decay-gated, for Hopper
+// (sm_90a): two kernels, each with a `kGated` instantiation.
 //
-// Replaces the TPU kernel `la_bwd_pallas`
+// Replaces the TPU kernels `la_bwd_pallas`
 // (src/repro/kernels/linear_attention.py:208), whose two pallas_calls are
 // `_bwd_q_kernel` (:142, grid (B, H, T)) and `_bwd_kv_kernel` (:170,
-// grid (B, Hkv, T), run in reverse).  With Ω̂ = safe_div(ω, g) and
-// h = Σ o·Ω̂ prepared by the caller in f32 (as the reference does at
-// linear_attention.py:219-223), paper Eqs. 19-21 give, token by token:
+// grid (B, Hkv, T), run in reverse), and, behind the entries `gla_bwd_q`
+// and `gla_bwd_kv`, `gla_bwd_pallas` (src/repro/kernels/gla.py:249;
+// `_gla_bwd_q_kernel` :167 and `_gla_bwd_kv_kernel` :202).  With
+// Ω̂ = safe_div(ω, g) and h = Σ o·Ω̂ prepared by the caller in f32 (as the
+// reference does at linear_attention.py:219-223 and gla.py:262-263),
+// paper Eqs. 19-21 give, token by token, with the decay γ_t = exp(ld_t)
+// (γ_t = 1 for the linear entries):
 //
-//   la_bwd_q   (forward scan, one block per (batch, query head))
-//     A_t  = A_{t-1} + k_t^T [v_t, 1]                  (Dk, Dv+1)
+//   la_bwd_q / gla_bwd_q   (forward scan, one block per (batch, query head))
+//     A_t  = γ_t A_{t-1} + k_t^T [v_t, 1]              (Dk, Dv+1)
 //     dq_t = b A_t [Ω̂_t, -h_t]                          (Dk,)
 //
-//   la_bwd_kv  (reverse scan, one block per (batch, KV head))
-//     U_p  = U_{p+1} + Σ_g [q_gp, 1]^T [Ω̂_gp, h_gp]      (Dk+1, Dv+1)
+//   la_bwd_kv / gla_bwd_kv (reverse scan, one block per (batch, KV head))
+//     U_p  = γ_{p+1} U_{p+1} + Σ_g [q_gp, 1]^T [Ω̂_gp, h_gp]  (Dk+1, Dv+1)
 //     dk_p = b U_p[:Dk] [v_p, -1]                       (Dk,)
 //     dv_p = a U_p[Dk, :Dv] + b k_p U_p[:Dk, :Dv]        (Dv,)
 //
-// where g runs over the G query heads of the KV head, so dk and dv land
-// on the unexpanded (B, Hkv, N, D) tensors with no atomics: the result
-// is deterministic.  The sums include the token itself, as the
-// reference's causal masks do.
+// The forward scan decays the state carried into t by t's own γ_t; the
+// reverse scan carries U_{p+1} into p with γ_{p+1}, the decay of the
+// token after p (the weight of query i on key p is Π_{m=p+1..i} γ_m).  g
+// runs over the G query heads of the KV head, so dk and dv land on the
+// unexpanded (B, Hkv, N, D) tensors with no atomics: the result is
+// deterministic.  The sums include the token itself, as the reference's
+// causal masks do.
+//
+// The gated dk/dV' kernel also writes the augmented column of
+// dV' = [dv, dv_1]: dv_1,p = -(b k_p · U_p[:Dk, Dv] + a U_p[Dk, Dv]) with
+// U's last column built from +h, i.e. dV' = b U^T k + a U[Dk] for the
+// reference's [Ω̂, -h].  It returns dV' (B, Hkv, N, Dv+1) in f32 for a
+// PyTorch epilogue, as the reference does (gla.py:324-331):
+// dcl = -[v, 1]·dV' and dld = the reverse cumsum of dcl.  The epilogue
+// needs a dot over Dv per token, which this kernel spreads over D
+// threads; keeping it in PyTorch costs one pass over dV' and keeps the
+// kernel free of a block reduction per token.
 //
 // Shapes (all contiguous): q (B, H, N, D), k and v (B, Hkv, N, D) in the
 // compute type T (float or bf16); om (B, H, N, D) and h (B, H, N) f32;
-// dq (B, H, N, D), dk and dv (B, Hkv, N, D) in T.  Dk = Dv = D, a
-// template parameter (32, 64 or 128) so that a state row or column lives
-// in registers.
+// ld (B, Hkv, N) f32 (gated only); dq (B, H, N, D) and dk (B, Hkv, N, D)
+// in T; dv (B, Hkv, N, D) in T, or gated dV' (B, Hkv, N, D+1) in f32.
+// Dk = Dv = D, a template parameter (32, 64 or 128) so that a state row or
+// column lives in registers.
 //
 // What bounds them (estimates from the shapes, not measurements; B=2,
 // H=Hkv=16, N=8192, D=128): la_bwd_q does 4 D (D+1) flops per token and
 // head, 17.3 GFLOP, 0.26 ms at 67 TFLOP/s f32, against 0.10 ms for its
 // 336.6 MB; la_bwd_kv needs ~6 D^2 per token and head, ~26 GFLOP,
-// 0.39 ms, against 0.14 ms for its 470.8 MB.  Both are bound by f32
-// operations on the CUDA cores.
+// 0.39 ms, against 0.14 ms for its 470.8 MB.  The gated kernels add one
+// multiply per state element and token.  All are bound by f32 operations
+// on the CUDA cores.
 //
 // Design (simple first; as in la_fwd.cu):
 //   * every state is tiled over threads in 4 x D/4 register tiles, so each
@@ -53,7 +73,16 @@
 //     by 16-byte loads, each row padded by 4 floats per row group so that
 //     the row groups of a warp read disjoint banks; la_bwd_kv stages from the end of the
 //     sequence backwards, the tail bounded by N, nothing padded in device
-//     memory.
+//     memory;
+//   * gated: the staging also holds the tokens' decays exp(ld), and every
+//     state element takes one multiply more per token (a decay of 1 leaves
+//     it exactly as ungated).  For dV''s last entry the row role already
+//     holds U's last column U[:Dk, Dv] (its u_last); each row warp sums
+//     its share of k.U[:Dk, Dv] with one warp reduction per token into
+//     shared memory, and after the stage's tokens the block adds the
+//     shares and U[Dk, Dv] (kept by every row thread).  A warp of its own
+//     for that column would make 9 warps of ~216 registers at D = 128,
+//     more than the register file of one SM's four schedulers holds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -138,9 +167,10 @@ __device__ __forceinline__ float sum4(float x) {
 // dQ: forward scan
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, bool kGated>
 __global__ void la_bwd_q_kernel(const T* __restrict__ k,
                                 const T* __restrict__ v,
+                                const float* __restrict__ ld,
                                 const float* __restrict__ om,
                                 const float* __restrict__ hv,
                                 T* __restrict__ dq, int heads, int kv_heads,
@@ -153,14 +183,15 @@ __global__ void la_bwd_q_kernel(const T* __restrict__ k,
   float* v_sh = k_sh + stage * DP;    // (stage, DP)
   float* om_sh = v_sh + stage * DP;   // (stage, DP)
   float* h_sh = om_sh + stage * DP;   // (stage,)
+  float* gam_sh = h_sh + stage;       // (stage,) decays (gated only)
 
   const int bh = blockIdx.x;  // batch * heads + query head
   const int bi = bh / heads;
   const int hi = bh - bi * heads;
   const int group = heads / kv_heads;
   const size_t q_base = static_cast<size_t>(bh) * n * D;
-  const size_t kv_base =
-      (static_cast<size_t>(bi) * kv_heads + hi / group) * n * D;
+  const size_t ld_base = (static_cast<size_t>(bi) * kv_heads + hi / group) * n;
+  const size_t kv_base = ld_base * D;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int cg = tid & 3;   // column group of the tile
@@ -182,11 +213,14 @@ __global__ void la_bwd_q_kernel(const T* __restrict__ k,
     stage_rows<D>(k_sh, k + kv_row, len, tid, nthr);
     stage_rows<D>(v_sh, v + kv_row, len, tid, nthr);
     stage_rows<D>(om_sh, om + q_row, len, tid, nthr);
-    for (int t = tid; t < len; t += nthr)
+    for (int t = tid; t < len; t += nthr) {
       h_sh[t] = hv[static_cast<size_t>(bh) * n + t0 + t];
+      if constexpr (kGated) gam_sh[t] = expf(ld[ld_base + t0 + t]);
+    }
     __syncthreads();
 
     for (int t = 0; t < len; ++t) {
+      [[maybe_unused]] const float gam = kGated ? gam_sh[t] : 1.0f;
       const float4 kk4 =
           *reinterpret_cast<const float4*>(k_sh + t * DP + L::at(4 * dg));
       const float kk[4] = {kk4.x, kk4.y, kk4.z, kk4.w};
@@ -205,7 +239,10 @@ __global__ void la_bwd_q_kernel(const T* __restrict__ k,
         for (int c = 0; c < 4; ++c) {
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
-            at_[r][4 * e4 + c] += kk[r] * vv[c];
+            if constexpr (kGated)
+              at_[r][4 * e4 + c] = fmaf(kk[r], vv[c], gam * at_[r][4 * e4 + c]);
+            else
+              at_[r][4 * e4 + c] += kk[r] * vv[c];
             acc[r] += at_[r][4 * e4 + c] * oo[c];
           }
         }
@@ -214,7 +251,10 @@ __global__ void la_bwd_q_kernel(const T* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         acc[r] = sum4(acc[r]);
-        a1[r] += kk[r];
+        if constexpr (kGated)
+          a1[r] = fmaf(gam, a1[r], kk[r]);
+        else
+          a1[r] += kk[r];
       }
       if (cg == 0) {
         T* out = dq + q_row + static_cast<size_t>(t) * D + 4 * dg;
@@ -231,26 +271,49 @@ __global__ void la_bwd_q_kernel(const T* __restrict__ k,
 // dK / dV: reverse scan, the query group folded into the block
 // ---------------------------------------------------------------------------
 
+// dv's element type and row stride: T and D, or gated dV' in f32 with its
+// augmented column
+template <typename T, int D, bool kGated>
+struct DvOut {
+  using type = T;
+  static constexpr int kStride = D;
+};
 template <typename T, int D>
+struct DvOut<T, D, true> {
+  using type = float;
+  static constexpr int kStride = D + 1;
+};
+
+template <typename T, int D, bool kGated>
 __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
                                  const T* __restrict__ k,
                                  const T* __restrict__ v,
+                                 const float* __restrict__ ld,
                                  const float* __restrict__ om,
                                  const float* __restrict__ hv,
-                                 T* __restrict__ dk, T* __restrict__ dv,
+                                 T* __restrict__ dk,
+                                 typename DvOut<T, D, kGated>::type* __restrict__ dv,
                                  int heads, int kv_heads, int n, int stage,
                                  float a, float b) {
   using L = Rows<D>;
+  using TV = typename DvOut<T, D, kGated>::type;
+  constexpr int VS = DvOut<T, D, kGated>::kStride;
   constexpr int R = L::kGroup;
   constexpr int DP = L::kPadded;
+  constexpr int kRowWarps = D / 32;
   extern __shared__ __align__(16) float smem[];  // read as float4
   const int group = heads / kv_heads;
   float* q_sh = smem;                         // (G, stage, DP)
   float* om_sh = q_sh + group * stage * DP;   // (G, stage, DP)
   float* k_sh = om_sh + group * stage * DP;   // (stage, DP)
   float* v_sh = k_sh + stage * DP;            // (stage, DP)
-  float* h_sh = v_sh + stage * DP;            // (G, stage), last: the rows
-                                              // above stay 16-byte aligned
+  float* h_sh = v_sh + stage * DP;            // (G, stage), after the rows:
+                                              // they stay 16-byte aligned
+  // gated only: the decays, each row warp's share of k.U[:Dk, Dv], and
+  // U[Dk, Dv], per staged token
+  float* gam_sh = h_sh + group * stage;       // (stage,)
+  float* kpart_sh = gam_sh + stage;           // (stage, kRowWarps)
+  float* hh_sh = kpart_sh + stage * kRowWarps;  // (stage,)
 
   const int bk = blockIdx.x;  // batch * kv_heads + KV head
   const int bi = bk / kv_heads;
@@ -276,6 +339,11 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < R; ++e) u[r][e] = 0.0f;
   }
+  // gated, row role: U[Dk, Dv] = the decayed sum of h
+  [[maybe_unused]] float u_hh = 0.0f;
+  // gated: the decay of the token after the current one (U starts at
+  // zero, so its first value is never used)
+  [[maybe_unused]] float g_next = 1.0f;
 
   for (int t_end = n; t_end > 0; t_end -= stage) {
     const int t0 = max(0, t_end - stage);
@@ -290,12 +358,29 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
       const int t = idx - gi * len;
       h_sh[gi * stage + t] = hv[(q_head0 + gi) * n + t0 + t];
     }
+    if constexpr (kGated) {
+      for (int t = tid; t < len; t += nthr)
+        gam_sh[t] = expf(ld[static_cast<size_t>(bk) * n + t0 + t]);
+    }
     const size_t kv_row = kv_base + static_cast<size_t>(t0) * D;
     stage_rows<D>(k_sh, k + kv_row, len, tid, nthr);
     stage_rows<D>(v_sh, v + kv_row, len, tid, nthr);
     __syncthreads();
 
     for (int t = len - 1; t >= 0; --t) {
+      // the token's row of dv (or dV')
+      TV* dv_row = dv + (static_cast<size_t>(bk) * n + t0 + t) * VS;
+      if constexpr (kGated) {
+        // carry U_{p+1} into p: decay by γ_{p+1}
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          u_last[r] *= g_next;
+#pragma unroll
+          for (int e = 0; e < R; ++e) u[r][e] *= g_next;
+        }
+        u_hh *= g_next;
+        g_next = gam_sh[t];
+      }
       if (row_role) {
         for (int gi = 0; gi < group; ++gi) {
           const float* base = (gi * stage + t) * DP + q_sh;
@@ -317,6 +402,7 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
           const float hg = h_sh[gi * stage + t];
 #pragma unroll
           for (int r = 0; r < 4; ++r) u_last[r] += qq[r] * hg;
+          if constexpr (kGated) u_hh += hg;
         }
         const float4* vt =
             reinterpret_cast<const float4*>(v_sh + t * DP + sub * (R + 4));
@@ -338,6 +424,22 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
 #pragma unroll
           for (int r = 0; r < 4; ++r)
             out[r] = from_f32<T>(b * (acc[r] - u_last[r]));
+        }
+        if constexpr (kGated) {
+          // this warp's share of k.U[:Dk, Dv] (rows 4grp4.. of its sub-0
+          // lanes), and U[Dk, Dv]
+          float part = 0.0f;
+          if (sub == 0) {
+            const float4 kk4 = *reinterpret_cast<const float4*>(
+                k_sh + t * DP + L::at(4 * grp4));
+            part = kk4.x * u_last[0] + kk4.y * u_last[1] +
+                   kk4.z * u_last[2] + kk4.w * u_last[3];
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            part += __shfl_xor_sync(0xffffffffu, part, off);
+          if ((tid & 31) == 0) kpart_sh[t * kRowWarps + (tid >> 5)] = part;
+          if (tid == 0) hh_sh[t] = u_hh;
         }
       } else {
         for (int gi = 0; gi < group; ++gi) {
@@ -376,14 +478,25 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[c] = sum4(acc[c]);
         if (sub == 0) {
-          T* out = dv + kv_row + static_cast<size_t>(t) * D + 4 * grp4;
+          TV* out = dv_row + 4 * grp4;
 #pragma unroll
           for (int c = 0; c < 4; ++c)
-            out[c] = from_f32<T>(a * u_last[c] + b * acc[c]);
+            out[c] = from_f32<TV>(a * u_last[c] + b * acc[c]);
         }
       }
     }
     __syncthreads();  // the next iteration overwrites the staging
+    if constexpr (kGated) {
+      // dV'[Dv] = -(b k.U[:Dk, Dv] + a U[Dk, Dv]) of the stage's tokens;
+      // the next stage writes these shares only after its staging barrier
+      for (int t = tid; t < len; t += nthr) {
+        float dot = 0.0f;
+#pragma unroll
+        for (int w = 0; w < kRowWarps; ++w) dot += kpart_sh[t * kRowWarps + w];
+        dv[(static_cast<size_t>(bk) * n + t0 + t) * VS + D] =
+            -(b * dot + a * hh_sh[t]);
+      }
+    }
   }
 }
 
@@ -396,91 +509,101 @@ int fit_stage(int stage, size_t per_token, size_t* smem) {
   return fit;
 }
 
-template <typename T, int D>
-cudaError_t launch_q(const void* k, const void* v, const void* om,
-                     const void* hv, void* dq, int blocks, int heads,
-                     int kv_heads, int n, int stage, float b,
+template <typename T, int D, bool kGated>
+cudaError_t launch_q(const void* k, const void* v, const void* ld,
+                     const void* om, const void* hv, void* dq, int blocks,
+                     int heads, int kv_heads, int n, int stage, float b,
                      cudaStream_t stream) {
-  // k, v and Ω̂ padded, and h
+  // k, v and Ω̂ padded, h, and the decay
   size_t smem;
   stage = fit_stage(
-      stage, static_cast<size_t>(3 * Rows<D>::kPadded + 1) * sizeof(float),
+      stage,
+      static_cast<size_t>(3 * Rows<D>::kPadded + 1 + (kGated ? 1 : 0)) *
+          sizeof(float),
       &smem);
   if (stage < 1) return cudaErrorInvalidValue;
-  auto kernel = la_bwd_q_kernel<T, D>;
+  auto kernel = la_bwd_q_kernel<T, D, kGated>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   kernel<<<blocks, D, smem, stream>>>(
       static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(om), static_cast<const float*>(hv),
-      static_cast<T*>(dq), heads, kv_heads, n, stage, b);
+      static_cast<const float*>(ld), static_cast<const float*>(om),
+      static_cast<const float*>(hv), static_cast<T*>(dq), heads, kv_heads, n,
+      stage, b);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kGated>
 cudaError_t launch_kv(const void* q, const void* k, const void* v,
-                      const void* om, const void* hv, void* dk, void* dv,
-                      int blocks, int heads, int kv_heads, int n, int stage,
-                      float a, float b, cudaStream_t stream) {
+                      const void* ld, const void* om, const void* hv,
+                      void* dk, void* dv, int blocks, int heads, int kv_heads,
+                      int n, int stage, float a, float b,
+                      cudaStream_t stream) {
   const int group = heads / kv_heads;
-  // q and Ω̂ of the G query heads, k and v, padded; h of the G heads
+  // q and Ω̂ of the G query heads, k and v, padded; h of the G heads;
+  // gated: the decay, the row warps' shares of k.U[:Dk, Dv] and U[Dk, Dv]
   size_t smem;
   stage = fit_stage(
       stage,
-      static_cast<size_t>((2 * group + 2) * Rows<D>::kPadded + group) *
+      static_cast<size_t>((2 * group + 2) * Rows<D>::kPadded + group +
+                          (kGated ? D / 32 + 2 : 0)) *
           sizeof(float),
       &smem);
   if (stage < 1) return cudaErrorInvalidValue;
-  auto kernel = la_bwd_kv_kernel<T, D>;
+  auto kernel = la_bwd_kv_kernel<T, D, kGated>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
+  // the row and column roles
   kernel<<<blocks, 2 * D, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(om),
-      static_cast<const float*>(hv), static_cast<T*>(dk),
-      static_cast<T*>(dv), heads, kv_heads, n, stage, a, b);
+      static_cast<const T*>(v), static_cast<const float*>(ld),
+      static_cast<const float*>(om), static_cast<const float*>(hv),
+      static_cast<T*>(dk),
+      static_cast<typename DvOut<T, D, kGated>::type*>(dv), heads, kv_heads,
+      n, stage, a, b);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_q(int d, const void* k, const void* v, const void* om,
-                       const void* hv, void* dq, int blocks, int heads,
-                       int kv_heads, int n, int stage, float b,
+template <typename T, bool kGated>
+cudaError_t dispatch_q(int d, const void* k, const void* v, const void* ld,
+                       const void* om, const void* hv, void* dq, int blocks,
+                       int heads, int kv_heads, int n, int stage, float b,
                        cudaStream_t st) {
   switch (d) {
     case 32:
-      return launch_q<T, 32>(k, v, om, hv, dq, blocks, heads, kv_heads, n,
-                             stage, b, st);
+      return launch_q<T, 32, kGated>(k, v, ld, om, hv, dq, blocks, heads,
+                                     kv_heads, n, stage, b, st);
     case 64:
-      return launch_q<T, 64>(k, v, om, hv, dq, blocks, heads, kv_heads, n,
-                             stage, b, st);
+      return launch_q<T, 64, kGated>(k, v, ld, om, hv, dq, blocks, heads,
+                                     kv_heads, n, stage, b, st);
     case 128:
-      return launch_q<T, 128>(k, v, om, hv, dq, blocks, heads, kv_heads, n,
-                              stage, b, st);
+      return launch_q<T, 128, kGated>(k, v, ld, om, hv, dq, blocks, heads,
+                                      kv_heads, n, stage, b, st);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename T, bool kGated>
 cudaError_t dispatch_kv(int d, const void* q, const void* k, const void* v,
-                        const void* om, const void* hv, void* dk, void* dv,
-                        int blocks, int heads, int kv_heads, int n, int stage,
-                        float a, float b, cudaStream_t st) {
+                        const void* ld, const void* om, const void* hv,
+                        void* dk, void* dv, int blocks, int heads,
+                        int kv_heads, int n, int stage, float a, float b,
+                        cudaStream_t st) {
   switch (d) {
     case 32:
-      return launch_kv<T, 32>(q, k, v, om, hv, dk, dv, blocks, heads,
-                              kv_heads, n, stage, a, b, st);
+      return launch_kv<T, 32, kGated>(q, k, v, ld, om, hv, dk, dv, blocks,
+                                      heads, kv_heads, n, stage, a, b, st);
     case 64:
-      return launch_kv<T, 64>(q, k, v, om, hv, dk, dv, blocks, heads,
-                              kv_heads, n, stage, a, b, st);
+      return launch_kv<T, 64, kGated>(q, k, v, ld, om, hv, dk, dv, blocks,
+                                      heads, kv_heads, n, stage, a, b, st);
     case 128:
-      return launch_kv<T, 128>(q, k, v, om, hv, dk, dv, blocks, heads,
-                               kv_heads, n, stage, a, b, st);
+      return launch_kv<T, 128, kGated>(q, k, v, ld, om, hv, dk, dv, blocks,
+                                       heads, kv_heads, n, stage, a, b, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -491,16 +614,10 @@ bool bad_shape(int batch, int heads, int kv_heads, int n, int stage) {
          heads % kv_heads != 0;
 }
 
-}  // namespace
-
-// Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16
-// (q, k, v and the grads; om and h are always float32).  Each returns the
-// cudaError_t of its launch (0 = success); launches are asynchronous on
-// `stream`.
-extern "C" int la_bwd_q(const void* k, const void* v, const void* om,
-                        const void* hv, void* dq, int batch, int heads,
-                        int kv_heads, int n, int d, int stage, float b,
-                        int dtype, void* stream) {
+template <bool kGated>
+int run_q(const void* k, const void* v, const void* ld, const void* om,
+          const void* hv, void* dq, int batch, int heads, int kv_heads,
+          int n, int d, int stage, float b, int dtype, void* stream) {
   if (bad_shape(batch, heads, kv_heads, n, stage))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
@@ -508,21 +625,21 @@ extern "C" int la_bwd_q(const void* k, const void* v, const void* om,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_q<float>(d, k, v, om, hv, dq, blocks, heads, kv_heads, n,
-                            stage, b, st);
-  else if (dtype == 1)
-    err = dispatch_q<__nv_bfloat16>(d, k, v, om, hv, dq, blocks, heads,
+    err = dispatch_q<float, kGated>(d, k, v, ld, om, hv, dq, blocks, heads,
                                     kv_heads, n, stage, b, st);
+  else if (dtype == 1)
+    err = dispatch_q<__nv_bfloat16, kGated>(d, k, v, ld, om, hv, dq, blocks,
+                                            heads, kv_heads, n, stage, b, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 
-extern "C" int la_bwd_kv(const void* q, const void* k, const void* v,
-                         const void* om, const void* hv, void* dk, void* dv,
-                         int batch, int heads, int kv_heads, int n, int d,
-                         int stage, float a, float b, int dtype,
-                         void* stream) {
+template <bool kGated>
+int run_kv(const void* q, const void* k, const void* v, const void* ld,
+           const void* om, const void* hv, void* dk, void* dv, int batch,
+           int heads, int kv_heads, int n, int d, int stage, float a, float b,
+           int dtype, void* stream) {
   if (bad_shape(batch, heads, kv_heads, n, stage))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
@@ -530,14 +647,57 @@ extern "C" int la_bwd_kv(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_kv<float>(d, q, k, v, om, hv, dk, dv, blocks, heads,
-                             kv_heads, n, stage, a, b, st);
-  else if (dtype == 1)
-    err = dispatch_kv<__nv_bfloat16>(d, q, k, v, om, hv, dk, dv, blocks,
+    err = dispatch_kv<float, kGated>(d, q, k, v, ld, om, hv, dk, dv, blocks,
                                      heads, kv_heads, n, stage, a, b, st);
+  else if (dtype == 1)
+    err = dispatch_kv<__nv_bfloat16, kGated>(d, q, k, v, ld, om, hv, dk, dv,
+                                             blocks, heads, kv_heads, n,
+                                             stage, a, b, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16
+// (q, k, v, dq, dk and the linear dv; om, h, ld and the gated dV' are
+// always float32).  Each returns the cudaError_t of its launch
+// (0 = success); launches are asynchronous on `stream`.
+extern "C" int la_bwd_q(const void* k, const void* v, const void* om,
+                        const void* hv, void* dq, int batch, int heads,
+                        int kv_heads, int n, int d, int stage, float b,
+                        int dtype, void* stream) {
+  return run_q<false>(k, v, nullptr, om, hv, dq, batch, heads, kv_heads, n,
+                      d, stage, b, dtype, stream);
+}
+
+extern "C" int la_bwd_kv(const void* q, const void* k, const void* v,
+                         const void* om, const void* hv, void* dk, void* dv,
+                         int batch, int heads, int kv_heads, int n, int d,
+                         int stage, float a, float b, int dtype,
+                         void* stream) {
+  return run_kv<false>(q, k, v, nullptr, om, hv, dk, dv, batch, heads,
+                       kv_heads, n, d, stage, a, b, dtype, stream);
+}
+
+// The gated dq: ld (B, Hkv, N) f32 is the per-token log decay.
+extern "C" int gla_bwd_q(const void* k, const void* v, const void* ld,
+                         const void* om, const void* hv, void* dq, int batch,
+                         int heads, int kv_heads, int n, int d, int stage,
+                         float b, int dtype, void* stream) {
+  return run_q<true>(k, v, ld, om, hv, dq, batch, heads, kv_heads, n, d,
+                     stage, b, dtype, stream);
+}
+
+// The gated dk and dV': dva (B, Hkv, N, D+1) f32.
+extern "C" int gla_bwd_kv(const void* q, const void* k, const void* v,
+                          const void* ld, const void* om, const void* hv,
+                          void* dk, void* dva, int batch, int heads,
+                          int kv_heads, int n, int d, int stage, float a,
+                          float b, int dtype, void* stream) {
+  return run_kv<true>(q, k, v, ld, om, hv, dk, dva, batch, heads, kv_heads,
+                      n, d, stage, a, b, dtype, stream);
 }
 
 extern "C" const char* la_bwd_error_string(int code) {

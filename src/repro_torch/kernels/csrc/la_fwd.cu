@@ -1,32 +1,42 @@
-// Causal normalized linear-attention forward for Hopper (sm_90a).
+// Causal normalized linear-attention forward, plain and decay-gated, for
+// Hopper (sm_90a).
 //
-// Replaces the TPU kernel `la_fwd_pallas`
+// Replaces the TPU kernels `la_fwd_pallas`
 // (src/repro/kernels/linear_attention.py:96; its body is `_fwd_kernel`,
-// linear_attention.py:67).  For every (batch, query head) and token t:
+// linear_attention.py:67) and, as the `kGated` instantiation behind the
+// entry `gla_fwd`, `gla_fwd_pallas` (src/repro/kernels/gla.py:118; body
+// `_gla_fwd_kernel`, gla.py:77).  For every (batch, query head) and token t:
 //
-//   S_t = S_{t-1} + k_t^T [v_t, 1]      (Dk, Dv+1), f32
-//   P_t = P_{t-1} + [v_t, 1]            (Dv+1,),    f32
+//   S_t = γ_t S_{t-1} + k_t^T [v_t, 1]  (Dk, Dv+1), f32
+//   P_t = γ_t P_{t-1} + [v_t, 1]        (Dv+1,),    f32
 //   f_t = a P_t + b q_t S_t             (the causal sum includes t)
 //   o_t = f_t[:Dv] / f_t[Dv]            safe_div semantics: |den| < 1e-30 -> 0
 //   g_t = f_t[Dv]                       the normalizer, the backward's residual
 //
-// which is the chunked form's intra-chunk (a + b q k^T)[v, 1] plus its
-// inter-chunk a P + b q S, summed token by token.  The ones column of
-// [v, 1] is implicit.  The divide follows the `xla` impl's safe_div
-// (src/repro/core/chunked.py:140); the Pallas kernel divides plainly
-// (linear_attention.py:89).  The two differ only where |g| < 1e-30.
+// with the decay γ_t = exp(ld_t) of token t applied to the state carried
+// from t-1, never to token t's own term; γ_t = 1 for `la_fwd`.  This is the
+// chunked form's intra-chunk (a + b q k^T)[v, 1] (decay-masked) plus its
+// inter-chunk a P + b q S, summed token by token.  Every factor is
+// exp(ld) <= 1, so nothing overflows and the reference's clamp of the
+// decay exponent (`_decay_tri`, gla.py:58) has no counterpart.  The ones
+// column of [v, 1] is implicit.  Both entries divide with the `xla`
+// impls' safe_div (src/repro/core/chunked.py:140, src/repro/core/gla.py:153);
+// the Pallas kernels divide plainly (linear_attention.py:89) or guard
+// only g == 0 (gla.py:107).  They differ only where |g| < 1e-30.
 //
 // Shapes (all contiguous): q (B, H, N, D), k and v (B, Hkv, N, D) in the
-// compute type T (float or bf16), o (B, H, N, D) in T, g (B, H, N) f32.
-// H = G * Hkv, and query head h reads KV head h / G.  Dk = Dv = D, a
-// template parameter (32, 64 or 128) so that a state column lives in
-// registers.
+// compute type T (float or bf16), o (B, H, N, D) in T, g (B, H, N) f32,
+// ld (B, Hkv, N) f32 (gated only: one decay per KV head, shared by its
+// query group).  H = G * Hkv, and query head h reads KV head h / G.
+// Dk = Dv = D, a template parameter (32, 64 or 128) so that a state column
+// lives in registers.
 //
 // What bounds it: the recurrent form does 4 D (D+1) flops per token and
-// head (the state update and the q.S readout), in f32 on the CUDA cores;
-// at B=2, H=16, N=8192, D=128 that is 17.3 GFLOP, 0.26 ms at 67 TFLOP/s,
-// against 0.08 ms for its 269.5 MB at 3.35 TB/s (estimates from the
-// shapes, not measurements).
+// head (the state update and the q.S readout; gated, 5 D (D+1) with the
+// decay), in f32 on the CUDA cores; at B=2, H=16, N=8192, D=128 that is
+// 17.3 GFLOP (gated 21.6), 0.26 ms (0.32) at 67 TFLOP/s, against 0.08 ms
+// for its 269.5 MB at 3.35 TB/s (estimates from the shapes, not
+// measurements).
 //
 // Design (simple first; a chunk-parallel two-pass form on wgmma is later
 // work):
@@ -46,7 +56,11 @@
 //     groups of a warp read disjoint banks; the tail iteration is bounded
 //     by N, nothing is padded in device memory;
 //   * the un-normalized f of the staged tokens lands in shared memory,
-//     so every thread sees the normalizer for the divide.
+//     so every thread sees the normalizer for the divide;
+//   * gated: the staging also holds the tokens' decays exp(ld) (one expf
+//     per token, not per thread), and every state element, P and the
+//     normalizer warp's column and count take one multiply more.  At
+//     ld = 0 each update is the ungated one exactly (1 * x is x).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,12 +135,14 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, int len,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kGated>
 __global__ void la_fwd_kernel(const T* __restrict__ q,
                               const T* __restrict__ k,
-                              const T* __restrict__ v, T* __restrict__ o,
-                              float* __restrict__ g, int heads, int kv_heads,
-                              int n, int stage, float a, float b) {
+                              const T* __restrict__ v,
+                              const float* __restrict__ ld,
+                              T* __restrict__ o, float* __restrict__ g,
+                              int heads, int kv_heads, int n, int stage,
+                              float a, float b) {
   using L = Rows<D>;
   constexpr int R = L::kGroup;    // rows of a thread's tile
   constexpr int DP = L::kPadded;
@@ -136,14 +152,15 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
   float* k_sh = q_sh + stage * DP;  // (stage, DP)
   float* v_sh = k_sh + stage * DP;  // (stage, DP)
   float* f_sh = v_sh + stage * DP;  // (stage, D+1) un-normalized output
+  float* gam_sh = f_sh + stage * (D + 1);  // (stage,) decays (gated only)
 
   const int bh = blockIdx.x;  // batch * heads + query head
   const int bi = bh / heads;
   const int hi = bh - bi * heads;
   const int group = heads / kv_heads;
   const size_t q_base = static_cast<size_t>(bh) * n * D;
-  const size_t kv_base =
-      (static_cast<size_t>(bi) * kv_heads + hi / group) * n * D;
+  const size_t ld_base = (static_cast<size_t>(bi) * kv_heads + hi / group) * n;
+  const size_t kv_base = ld_base * D;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int rg = tid & 3;   // value threads: row group
@@ -161,6 +178,7 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
   float ks[R2];   // normalizer warp: S[lane*R2 + r, D] = running sum of k
 #pragma unroll
   for (int r = 0; r < R2; ++r) ks[r] = 0.0f;
+  float count = 0.0f;  // normalizer warp, gated: P[D], the decayed count
 
   for (int t0 = 0; t0 < n; t0 += stage) {
     const int len = min(stage, n - t0);
@@ -169,10 +187,15 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
     stage_rows<D>(q_sh, q + q_row, len, tid, nthr);
     stage_rows<D>(k_sh, k + kv_row, len, tid, nthr);
     stage_rows<D>(v_sh, v + kv_row, len, tid, nthr);
+    if constexpr (kGated) {
+      for (int t = tid; t < len; t += nthr)
+        gam_sh[t] = expf(ld[ld_base + t0 + t]);
+    }
     __syncthreads();
 
     if (tid < D) {
       for (int t = 0; t < len; ++t) {
+        [[maybe_unused]] const float gam = kGated ? gam_sh[t] : 1.0f;
         const float4 vv =
             *reinterpret_cast<const float4*>(v_sh + t * DP + L::at(4 * cg));
         const float vc[4] = {vv.x, vv.y, vv.z, vv.w};
@@ -191,7 +214,10 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
           for (int r = 0; r < 4; ++r) {
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
-              s[c][4 * i4 + r] += kk[r] * vc[c];
+              if constexpr (kGated)
+                s[c][4 * i4 + r] = fmaf(kk[r], vc[c], gam * s[c][4 * i4 + r]);
+              else
+                s[c][4 * i4 + r] += kk[r] * vc[c];
               acc[c] += qq[r] * s[c][4 * i4 + r];
             }
           }
@@ -200,7 +226,10 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
         for (int c = 0; c < 4; ++c) {
           acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], 1);
           acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], 2);
-          p[c] += vc[c];
+          if constexpr (kGated)
+            p[c] = fmaf(gam, p[c], vc[c]);
+          else
+            p[c] += vc[c];
         }
         if (rg == 0) {
 #pragma unroll
@@ -210,19 +239,25 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
       }
     } else if (lane < 32) {
       for (int t = 0; t < len; ++t) {
+        [[maybe_unused]] const float gam = kGated ? gam_sh[t] : 1.0f;
         float part = 0.0f;
 #pragma unroll
         for (int r = 0; r < R2; ++r) {
           const int at = t * DP + L::at(lane * R2 + r);
-          ks[r] += k_sh[at];
+          if constexpr (kGated)
+            ks[r] = fmaf(gam, ks[r], k_sh[at]);
+          else
+            ks[r] += k_sh[at];
           part += q_sh[at] * ks[r];
         }
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
           part += __shfl_xor_sync(0xffffffffu, part, off);
-        if (lane == 0)
-          f_sh[t * (D + 1) + D] =
-              a * static_cast<float>(t0 + t + 1) + b * part;
+        if constexpr (kGated)
+          count = fmaf(gam, count, 1.0f);
+        else
+          count = static_cast<float>(t0 + t + 1);
+        if (lane == 0) f_sh[t * (D + 1) + D] = a * count + b * part;
       }
     }
     __syncthreads();
@@ -241,18 +276,20 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* g, int blocks, int heads, int kv_heads, int n,
-                   int stage, float a, float b, cudaStream_t stream) {
-  // the staging's floats per token: q, k and v padded, and f
+template <typename T, int D, bool kGated>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* ld, void* o, void* g, int blocks, int heads,
+                   int kv_heads, int n, int stage, float a, float b,
+                   cudaStream_t stream) {
+  // the staging's floats per token: q, k and v padded, f, and the decay
   const size_t per_token =
-      static_cast<size_t>(3 * Rows<D>::kPadded + D + 1) * sizeof(float);
+      static_cast<size_t>(3 * Rows<D>::kPadded + D + 1 + (kGated ? 1 : 0)) *
+      sizeof(float);
   stage = static_cast<int>(
       std::min(static_cast<size_t>(stage), kMaxSmem / per_token));
   if (stage < 1) return cudaErrorInvalidValue;
   const size_t smem = stage * per_token;
-  auto kernel = la_fwd_kernel<T, D>;
+  auto kernel = la_fwd_kernel<T, D, kGated>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -260,40 +297,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   // D value threads and the normalizer warp
   kernel<<<blocks, D + 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(g),
-      heads, kv_heads, n, stage, a, b);
+      static_cast<const T*>(v), static_cast<const float*>(ld),
+      static_cast<T*>(o), static_cast<float*>(g), heads, kv_heads, n, stage,
+      a, b);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kGated>
 cudaError_t dispatch_dim(int d, const void* q, const void* k, const void* v,
-                         void* o, void* g, int blocks, int heads,
-                         int kv_heads, int n, int stage, float a, float b,
-                         cudaStream_t st) {
+                         const void* ld, void* o, void* g, int blocks,
+                         int heads, int kv_heads, int n, int stage, float a,
+                         float b, cudaStream_t st) {
   switch (d) {
     case 32:
-      return launch<T, 32>(q, k, v, o, g, blocks, heads, kv_heads, n, stage,
-                           a, b, st);
+      return launch<T, 32, kGated>(q, k, v, ld, o, g, blocks, heads,
+                                   kv_heads, n, stage, a, b, st);
     case 64:
-      return launch<T, 64>(q, k, v, o, g, blocks, heads, kv_heads, n, stage,
-                           a, b, st);
+      return launch<T, 64, kGated>(q, k, v, ld, o, g, blocks, heads,
+                                   kv_heads, n, stage, a, b, st);
     case 128:
-      return launch<T, 128>(q, k, v, o, g, blocks, heads, kv_heads, n,
-                            stage, a, b, st);
+      return launch<T, 128, kGated>(q, k, v, ld, o, g, blocks, heads,
+                                    kv_heads, n, stage, a, b, st);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-// Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// Returns the cudaError_t of the launch (0 = success); the launch is
-// asynchronous on `stream`.
-extern "C" int la_fwd(const void* q, const void* k, const void* v, void* o,
-                      void* g, int batch, int heads, int kv_heads, int n,
-                      int d, int stage, float a, float b, int dtype,
-                      void* stream) {
+template <bool kGated>
+int run(const void* q, const void* k, const void* v, const void* ld, void* o,
+        void* g, int batch, int heads, int kv_heads, int n, int d, int stage,
+        float a, float b, int dtype, void* stream) {
   if (batch <= 0 || kv_heads <= 0 || n < 0 || stage <= 0 ||
       heads % kv_heads != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -302,14 +335,37 @@ extern "C" int la_fwd(const void* q, const void* k, const void* v, void* o,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_dim<float>(d, q, k, v, o, g, blocks, heads, kv_heads, n,
-                              stage, a, b, st);
-  else if (dtype == 1)
-    err = dispatch_dim<__nv_bfloat16>(d, q, k, v, o, g, blocks, heads,
+    err = dispatch_dim<float, kGated>(d, q, k, v, ld, o, g, blocks, heads,
                                       kv_heads, n, stage, a, b, st);
+  else if (dtype == 1)
+    err = dispatch_dim<__nv_bfloat16, kGated>(d, q, k, v, ld, o, g, blocks,
+                                              heads, kv_heads, n, stage, a, b,
+                                              st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
+// Each returns the cudaError_t of its launch (0 = success); the launch is
+// asynchronous on `stream`.
+extern "C" int la_fwd(const void* q, const void* k, const void* v, void* o,
+                      void* g, int batch, int heads, int kv_heads, int n,
+                      int d, int stage, float a, float b, int dtype,
+                      void* stream) {
+  return run<false>(q, k, v, nullptr, o, g, batch, heads, kv_heads, n, d,
+                    stage, a, b, dtype, stream);
+}
+
+// The decay-gated forward: ld (B, Hkv, N) f32 is the per-token log decay.
+extern "C" int gla_fwd(const void* q, const void* k, const void* v,
+                       const void* ld, void* o, void* g, int batch,
+                       int heads, int kv_heads, int n, int d, int stage,
+                       float a, float b, int dtype, void* stream) {
+  return run<true>(q, k, v, ld, o, g, batch, heads, kv_heads, n, d, stage, a,
+                   b, dtype, stream);
 }
 
 extern "C" const char* la_fwd_error_string(int code) {

@@ -1,7 +1,8 @@
-"""Fused single-kernel decode steps: linear attention and softmax.
+"""Fused single-kernel decode steps: linear attention, GLA and softmax.
 
 Port of `repro/kernels/decode_fused.py::la_decode_fused_pallas` (linear
-variant), `softmax_decode_fused_pallas` (contiguous cache) and
+variant), `gla_decode_fused_pallas` (decay-gated variant),
+`softmax_decode_fused_pallas` (contiguous cache) and
 `paged_decode_fused_pallas` (paged cache).
 
 Linear: one call per layer and decode step: rank-1 update of the slot's
@@ -18,6 +19,14 @@ donates it through input_output_aliases).
 Both take s (B, Hkv, Dk, Dv+1) f32, p (B, Hkv, Dv+1) f32, q (B, H, Dk),
 k (B, Hkv, Dk) and v (B, Hkv, Dv) in the compute dtype, update s and p
 in place and return o (B, H, Dv) in q.dtype.
+
+GLA: the same step with the decay gate, log_decay (B, Hkv) f32: first
+S, P <- exp(log_decay) (S, P), then the rank-1 update and the readout.
+
+  gla_decode_fused_cuda   the gated instantiation of the same kernel
+                          (csrc/la_decode_fused.cu, entry
+                          `gla_decode_fused`); CUDA only
+  gla_decode_fused_torch  its plain version, state in place
 
 Softmax: one call per layer and decode step attends each slot's query
 token to the first lengths[b] keys of its contiguous KV cache, the
@@ -62,6 +71,7 @@ from repro_torch.kernels.defaults import SOFTMAX_DECODE_WARPS
 
 F32 = torch.float32
 KERNEL = "la_decode_fused"
+GLA_KERNEL = "gla_decode_fused"
 SOFTMAX_KERNEL = "softmax_decode_fused"
 PAGED_KERNEL = "paged_decode_fused"
 # query heads per KV head the kernels are instantiated for
@@ -72,15 +82,29 @@ HEAD_DIMS = (32, 64, 128)
 # kernel launches made by the wrappers, by kernel name (a run sets them
 # to 0 and reads them back to show that its decode steps went through
 # the kernels)
-launches = {KERNEL: 0, SOFTMAX_KERNEL: 0, PAGED_KERNEL: 0}
+launches = {KERNEL: 0, GLA_KERNEL: 0, SOFTMAX_KERNEL: 0, PAGED_KERNEL: 0}
 
 
 def la_decode_fused_torch(s, p, q, k, v, a: float, b: float):
     """Plain PyTorch version of the fused step (s, p updated in place)."""
+    return _recurrent_step_torch(s, p, q, k, v, None, a, b)
+
+
+def gla_decode_fused_torch(s, p, q, k, v, log_decay, a: float, b: float):
+    """Plain PyTorch version of the fused GLA step (s, p updated in
+    place)."""
+    return _recurrent_step_torch(s, p, q, k, v, log_decay, a, b)
+
+
+def _recurrent_step_torch(s, p, q, k, v, log_decay, a, b):
     bsz, h, dk = q.shape
     hkv, dv = k.shape[1], v.shape[-1]
     vaug = torch.cat([v.float(), torch.ones((bsz, hkv, 1), dtype=F32,
                                             device=v.device)], -1)
+    if log_decay is not None:
+        gamma = torch.exp(log_decay.float())              # (B, Hkv)
+        s.mul_(gamma[..., None, None])
+        p.mul_(gamma[..., None])
     s.add_(k.float()[..., :, None] * vaug[..., None, :])
     p.add_(vaug)
     qg = q.reshape(bsz, hkv, h // hkv, dk).float()
@@ -90,14 +114,20 @@ def la_decode_fused_torch(s, p, q, k, v, a: float, b: float):
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_LA_SYMBOLS = {KERNEL: [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I, _P]}
+_LA_SYMBOLS = {KERNEL: [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I, _P],
+               GLA_KERNEL: [_P] * 7 + [_I] * 5 + [_F] * 2 + [_I, _P]}
 _SOFTMAX_SYMBOLS = {SOFTMAX_KERNEL: [_P] * 5 + [_I] * 6 + [_F, _I, _P]}
 
 
-def _check(s, p, q, k, v) -> None:
+def _check(s, p, q, k, v, log_decay=None) -> None:
     """Raise on anything the kernel does not take."""
-    build.check_tensors(KERNEL, {"s": s, "p": p, "q": q, "k": k, "v": v},
-                        ("q", "k", "v"), ("s", "p"))
+    named = {"s": s, "p": p, "q": q, "k": k, "v": v}
+    f32 = ("s", "p")
+    if log_decay is not None:
+        named["log_decay"] = log_decay
+        f32 += ("log_decay",)
+    build.check_tensors(KERNEL if log_decay is None else GLA_KERNEL, named,
+                        ("q", "k", "v"), f32)
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(f"q, k, v must be 3-D; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -114,6 +144,9 @@ def _check(s, p, q, k, v) -> None:
         raise ValueError(
             f"state shapes s {tuple(s.shape)}, p {tuple(p.shape)} do not "
             f"match (B, Hkv, Dk, Dv+1) = {(bsz, hkv, dk, dv + 1)}")
+    if log_decay is not None and tuple(log_decay.shape) != (bsz, hkv):
+        raise ValueError(f"log_decay {tuple(log_decay.shape)} does not "
+                         f"match (B, Hkv) = {(bsz, hkv)}")
 
 
 def la_decode_fused_cuda(s, p, q, k, v, a: float, b: float):
@@ -131,6 +164,24 @@ def la_decode_fused_cuda(s, p, q, k, v, a: float, b: float):
             build.current_stream(q.device))
     build.raise_on(lib, KERNEL, KERNEL, err)
     launches[KERNEL] += 1
+    return o
+
+
+def gla_decode_fused_cuda(s, p, q, k, v, log_decay, a: float, b: float):
+    """Launch the gated kernel: s and p updated in place, returns o."""
+    _check(s, p, q, k, v, log_decay)
+    bsz, h, dk = q.shape
+    hkv, dv = k.shape[1], v.shape[-1]
+    lib = build.bind(KERNEL, _LA_SYMBOLS)
+    o = torch.empty((bsz, h, dv), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.gla_decode_fused(
+            s.data_ptr(), p.data_ptr(), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), log_decay.data_ptr(), o.data_ptr(), bsz, h, hkv,
+            dk, dv, float(a), float(b), build.DTYPE_CODE[q.dtype],
+            build.current_stream(q.device))
+    build.raise_on(lib, KERNEL, GLA_KERNEL, err)
+    launches[GLA_KERNEL] += 1
     return o
 
 

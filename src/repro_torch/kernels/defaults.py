@@ -39,13 +39,22 @@ staging size, and no result depends on it.
     reference's `pages_per_block` (pages per sequential TPU grid step)
     has no counterpart: a block walks all of its slot's pages.
 
-The CUDA decode step (`la_decode_fused`) launches one block per (slot,
-KV head) and has no tile to choose.
+  * `GLA_STAGE_TOKENS` — the same staging size for the decay-gated
+    instantiations of those kernels (`gla_fwd`, `gla_bwd_q`,
+    `gla_bwd_kv`), which also stage each token's decay.  The
+    reference's `DEFAULT_TILES["gla"]["chunk"] = 128` is the VMEM tile
+    of its Pallas GLA kernels; here too the token-by-token walk makes
+    the result independent of it.  The plain GLA scans (core/gla.py)
+    take `DEFAULT_SCAN_CHUNK`, as the linear ones do.
+
+The CUDA decode steps (`la_decode_fused`, `gla_decode_fused`) launch one
+block per (slot, KV head) and have no tile to choose.
 """
 from __future__ import annotations
 
 DEFAULT_SCAN_CHUNK = 512
 LA_STAGE_TOKENS = 32
+GLA_STAGE_TOKENS = 32
 FLASH_BLOCK_Q = 64
 FLASH_BLOCK_K = 64
 SOFTMAX_DECODE_WARPS = 8

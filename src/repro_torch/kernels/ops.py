@@ -1,6 +1,6 @@
 """Entry points for the port's kernels + the KernelImpl registry.
 
-Port of the linear and softmax families of `repro/kernels/ops.py`.  Each
+Port of the linear, GLA and softmax families of `repro/kernels/ops.py`.  Each
 (family, impl) pair is a registered `KernelImpl`; impls are execution
 backends:
 
@@ -8,13 +8,14 @@ backends:
            "xla" impl
   "cuda"   the hand-written Hopper kernels (CUDA tensors only; a CPU
            tensor raises)
-  "ref"    the quadratic oracles (linear and softmax families; tests
-           only)
+  "ref"    the quadratic oracles (linear, GLA and softmax families;
+           tests only)
   "auto"   picked per call by the tensors' device: CUDA tensors take
            "cuda", everything else "torch"
 
 Families: "linear" (causal training forward + analytic backward),
-"linear_decode_fused" (one-token decode, state in place), "softmax"
+"linear_decode_fused" (one-token decode, state in place), "gla" and
+"gla_decode_fused" (the same two, decay-gated), "softmax"
 (flash forward, optional per-slot q_offset, + recomputation backward),
 "softmax_decode" (the unfused contiguous-cache decode),
 "softmax_decode_fused" (the fused one), and "paged" and
@@ -31,6 +32,11 @@ closed-form gradients of the scalar coefficients a and b.  Serving
 prefill runs the plain chunked scan on every impl, as the reference
 does (`repro/kernels/ops.py::la_prefill`).
 
+The causal GLA path is `gla_causal`, an autograd Function with residuals
+{q, k, v, log_decay, o, g} whose backward returns gradients to q, k, v
+AND log_decay (the gate trains); the `ref` impl has no backward and
+falls back to the plain one, as in the reference.
+
 The causal softmax path is `softmax_causal`, an autograd Function whose
 residuals are {q, k, v, o, lse}: both the `torch` and the `cuda` impl
 register a forward that returns them and a recomputation backward, so
@@ -46,11 +52,14 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import chunked as _chunked
+from repro_torch.core import gla as _gla
 from repro_torch.core import softmax as _softmax
 from repro_torch.core.chunked import LAState
+from repro_torch.core.gla import GLAState
 from repro_torch.core.numerics import safe_div
 from repro_torch.kernels import decode_fused as _df
 from repro_torch.kernels import flash_attention as _fl
+from repro_torch.kernels import gla as _kgla
 from repro_torch.kernels import linear_attention as _la
 from repro_torch.kernels import paged_attention as _pg
 from repro_torch.kernels import ref as _ref
@@ -58,7 +67,9 @@ from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK
 
 __all__ = ["KernelImpl", "register_kernel", "get_kernel", "kernel_names",
            "resolve_impl", "la_causal", "la_causal_learnable", "la_prefill",
-           "la_decode_step_fused", "softmax_causal", "softmax_attention",
+           "la_decode_step_fused", "gla_causal", "gla_prefill",
+           "gla_decode_step", "gla_decode_step_fused", "softmax_causal",
+           "softmax_attention",
            "softmax_decode", "softmax_decode_fused", "paged_attention",
            "paged_attention_fused"]
 
@@ -72,12 +83,17 @@ class KernelImpl:
     fwd: linear family: (q, k, v, a, b, chunk) -> (o, g);
          linear_decode_fused family: (state, q, k, v, a, b) ->
          (state, o), with the state updated in place;
+         gla family: (q, k, v, log_decay, a, b, chunk) -> (o, g);
+         gla_decode_fused family: (state, q, k, v, log_decay, a, b) ->
+         (state, o), state in place;
          softmax family: (q, k, v, causal, chunk, q_offset) -> o;
          softmax_decode(_fused) families: (q, k, v, lengths) -> o;
          paged and paged_decode_fused families: (q, k_pages, v_pages,
          page_table, lengths) -> o.
     bwd: linear family: (q, k, v, o, g, omega, a, b, chunk) ->
-         (dq, dk, dv); None falls through to the plain backward.
+         (dq, dk, dv); gla family: (q, k, v, log_decay, o, g, omega, a,
+         b, chunk) -> (dq, dk, dv, dlog_decay); None falls through to
+         the plain backward.
          softmax family: (q, k, v, o, lse, do, chunk) -> (dq, dk, dv).
     fwd_res: softmax family: (q, k, v, chunk) -> (o, lse), the causal
          training forward with its residual.
@@ -287,6 +303,129 @@ def la_prefill(q, k, v, a: float = 1.0, b: float = 1.0,
     """
     o, _, st = _chunked.la_fwd_chunked(q, k, v, a, b, chunk, state=state)
     return o, st
+
+
+# ---------------------------------------------------------------------------
+# gla: decay-gated causal training forward + analytic backward
+# ---------------------------------------------------------------------------
+
+def _gla_cuda_fwd(q, k, v, log_decay, a, b, chunk):
+    # the model hands over strided head views and a transposed gate
+    return _kgla.gla_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                              log_decay.float().contiguous(), a, b)
+
+
+def _gla_cuda_bwd(q, k, v, log_decay, o, g, omega, a, b, chunk):
+    # omega from autograd may be strided or expanded
+    return _kgla.gla_bwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                              log_decay, o, g, omega.contiguous(), a, b)
+
+
+def _gla_ref_fwd(q, k, v, log_decay, a, b, chunk):
+    # the oracle computes its own normalizer: one masking convention
+    return _ref.gla_ref(q, k, v, log_decay, a, b, return_g=True)
+
+
+register_kernel("gla", "torch", fwd=_kgla.gla_fwd_torch,
+                bwd=_kgla.gla_bwd_torch)
+register_kernel("gla", "cuda", fwd=_gla_cuda_fwd, bwd=_gla_cuda_bwd)
+register_kernel("gla", "ref", fwd=_gla_ref_fwd)  # bwd: the plain one
+
+
+class _GLACausal(torch.autograd.Function):
+    """gla_causal with the analytic backward; residuals {q, k, v,
+    log_decay, o, g}."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_decay, a, b, chunk, backend):
+        impl = get_kernel("gla", backend, q.device)
+        o, g = impl.fwd(q, k, v, log_decay, a, b, chunk)
+        ctx.save_for_backward(q, k, v, log_decay, o, g)
+        ctx.impl, ctx.a, ctx.b, ctx.chunk = impl, a, b, chunk
+        return o
+
+    @staticmethod
+    def backward(ctx, omega):
+        q, k, v, log_decay, o, g = ctx.saved_tensors
+        bwd = ctx.impl.bwd or _gla.gla_bwd_chunked
+        dq, dk, dv, dld = bwd(q, k, v, log_decay, o, g, omega, ctx.a,
+                              ctx.b, ctx.chunk)
+        return dq, dk, dv, dld, None, None, None, None
+
+
+def gla_causal(q, k, v, log_decay, a: float = 1.0, b: float = 1.0,
+               chunk: int = DEFAULT_SCAN_CHUNK, backend: str = "auto"):
+    """Causal decay-gated normalized LA (the training entry),
+    differentiable in q, k, v and log_decay through the analytic
+    backward.
+
+    q: (B, H, N, D); k, v: (B, Hkv, N, D), Hkv | H; log_decay:
+    (B, Hkv, N) <= 0.  Returns (B, H, N, D) in q.dtype.  a, b, chunk and
+    backend are not differentiated.
+    """
+    return _GLACausal.apply(q, k, v, log_decay, float(a), float(b), chunk,
+                            backend)
+
+
+def gla_prefill(q, k, v, log_decay, a: float = 1.0, b: float = 1.0,
+                chunk: int = DEFAULT_SCAN_CHUNK,
+                state: GLAState | None = None):
+    """Causal GLA that also returns the decayed recurrent state for
+    decode, through the plain chunked scan on every impl (inference
+    only).  Returns (o, GLAState)."""
+    o, _, st = _gla.gla_fwd_chunked(q, k, v, log_decay, a, b, chunk,
+                                    state=state)
+    return o, st
+
+
+def gla_decode_step(state: GLAState, q, k, v, log_decay, a: float = 1.0,
+                    b: float = 1.0):
+    """One-token GLA decode, functional (the unfused path): O(D^2), the
+    context enters only through the state."""
+    return _gla.gla_decode_step(state, q, k, v, log_decay, a, b)
+
+
+# ---------------------------------------------------------------------------
+# gla_decode_fused: one-token decode with the gate, state updated in place
+# ---------------------------------------------------------------------------
+
+def _gla_decode_torch(state: GLAState, q, k, v, log_decay, a, b):
+    return state, _df.gla_decode_fused_torch(state.s, state.p, q, k, v,
+                                             log_decay, a, b)
+
+
+def _gla_decode_cuda(state: GLAState, q, k, v, log_decay, a, b):
+    # the model hands over strided head and gate views; the kernel reads
+    # rows
+    o = _df.gla_decode_fused_cuda(state.s, state.p, q.contiguous(),
+                                  k.contiguous(), v.contiguous(),
+                                  log_decay.float().contiguous(), a, b)
+    return state, o
+
+
+def _gla_decode_ref(state: GLAState, q, k, v, log_decay, a, b):
+    """The functional plain step (the reference's `_gla_decode_unfused`),
+    its new state copied into the given one."""
+    new, o = _gla.gla_decode_step(state, q, k, v, log_decay, a, b)
+    state.s.copy_(new.s)
+    state.p.copy_(new.p)
+    return state, o
+
+
+register_kernel("gla_decode_fused", "torch", fwd=_gla_decode_torch)
+register_kernel("gla_decode_fused", "cuda", fwd=_gla_decode_cuda)
+register_kernel("gla_decode_fused", "ref", fwd=_gla_decode_ref)
+
+
+def gla_decode_step_fused(state: GLAState, q, k, v, log_decay,
+                          a: float = 1.0, b: float = 1.0, *,
+                          backend: str = "auto"):
+    """One-token GLA decode through the fused registry family: gate,
+    state update, q.S and normalizer divide in one kernel on "cuda".
+    Same contract as `gla_decode_step`, except that the state tensors are
+    updated in place and returned as the same GLAState."""
+    return get_kernel("gla_decode_fused", backend, q.device).fwd(
+        state, q, k, v, log_decay, a, b)
 
 
 # ---------------------------------------------------------------------------

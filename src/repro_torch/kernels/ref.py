@@ -1,5 +1,5 @@
-"""Quadratic oracles of the linear and softmax families (port of
-`repro/kernels/ref.py`: `expand_kv`, `la_ref`, `softmax_ref`).
+"""Quadratic oracles of the linear, GLA and softmax families (port of
+`repro/kernels/ref.py`: `expand_kv`, `la_ref`, `gla_ref`, `softmax_ref`).
 
 Each materializes the full N x N score matrix and is a correctness
 reference only; all accumulation is f32.  The oracle is grouped-native:
@@ -51,6 +51,39 @@ def la_ref(q, k, v, a: float = 1.0, b: float = 1.0, causal: bool = True):
     o = torch.einsum("bkgij,bkjd->bkgid", w, v.float()) \
         / w.sum(-1, keepdim=True)
     return o.reshape(bq, h, nq, v.shape[-1]).to(q.dtype)
+
+
+def gla_ref(q, k, v, log_decay, a: float = 1.0, b: float = 1.0,
+            return_g: bool = False):
+    """Decay-gated normalized linear attention oracle (GLA family):
+
+        o_i = sum_{n<=i} M_in (a + b q_i.k_n) v_n / sum_{n<=i} M_in (a + b
+        q_i.k_n),  M_in = prod_{m=n+1..i} exp(ld_m)
+
+    q: (B, H, N, D); k, v: (B, Hkv, N, D) with Hkv | H; log_decay:
+    (B, Hkv, N) <= 0, one decay per KV head shared by its query group.
+    log_decay == 0 is exactly `la_ref`.  Returns (B, H, N, Dv) in
+    q.dtype, and with return_g also the (B, H, N) f32 normalizer (the
+    `ref` impl's residual, so it cannot drift from the oracle's masking).
+    """
+    bq, h, n, d = q.shape
+    hkv = k.shape[1]
+    qg = q.reshape(bq, hkv, h // hkv, n, d).float()
+    cl = torch.cumsum(log_decay.float(), dim=-1)          # (B, Hkv, N)
+    diff = cl[..., :, None] - cl[..., None, :]
+    mask = torch.ones((n, n), dtype=torch.bool, device=q.device).tril()
+    zero = torch.zeros((), dtype=F32, device=q.device)
+    # double where: the masked exponents are large positive differences
+    # that overflow and would give autograd of the oracle nan grads
+    m = torch.where(mask, torch.exp(torch.where(mask, diff, zero)), zero)
+    w = (a + b * torch.einsum("bkgid,bkjd->bkgij", qg, k.float())) \
+        * m[:, :, None]
+    g = w.sum(-1, keepdim=True)
+    o = torch.einsum("bkgij,bkjd->bkgid", w, v.float()) / g
+    o = o.reshape(bq, h, n, v.shape[-1]).to(q.dtype)
+    if return_g:
+        return o, g[..., 0].reshape(bq, h, n)
+    return o
 
 
 def softmax_ref(q, k, v, causal: bool = True, scale: float | None = None):

@@ -1,21 +1,22 @@
 """Serving launcher: batched generation through the port's engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch pythia-1.4b \
-        --requests 8 --max-new 16 [--backend softmax] [--full] \
+        --requests 8 --max-new 16 [--backend softmax|gla] [--full] \
         [--device cuda]
 
 Flag names follow `repro/launch/serve.py` for the flags kept.  Weights
 are random, drawn from seed 0; prompts are random token ids drawn from
 seed 0.  `--backend` swaps the attention backend (linear, the paper's,
-by default; softmax, the baseline).  `--full` serves the full-width
-config instead of the smoke one;
+by default; gla, its decay-gated variant; softmax, the baseline).
+`--full` serves the full-width config instead of the smoke one;
 `--device` defaults to cuda and raises without a card.  Admission
 defaults to fixed slots; `--budget-mb` switches to ByteBudget (the slot
 count then resolves from the backend's exact per-slot decode-cache
-bytes).  `--page-size` switches the softmax backend to the paged KV
-cache: with `--budget-mb` the budget buys an arena of KV pages
-(PagedAdmission: requests admit by the pages they actually need),
-otherwise `--num-pages` (or a worst-case default) sizes the arena.
+bytes).  `--page-size` switches to a paged cache: KV pages of that many
+tokens for softmax, one recurrent-state page per request for gla (the
+token count is then ignored).  With `--budget-mb` the budget buys the
+arena (PagedAdmission: requests admit by the pages they actually need),
+otherwise `--num-pages` (or a worst-case default) sizes it.
 Prints one JSON record, with a `paging` record (page stats and
 `peak_pages_in_use`) when paged, and writes it to --json-out.
 """
@@ -46,15 +47,17 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--backend", default=None,
-                    help="attention backend (linear: the paper's; "
-                         "softmax: the baseline)")
+                    help="attention backend (linear: the paper's; gla: "
+                         "its decay-gated variant; softmax: the baseline)")
     ap.add_argument("--budget-mb", type=float, default=None,
                     help="ByteBudget admission instead of fixed slots "
                          "(with --page-size: PagedAdmission)")
     ap.add_argument("--page-size", type=int, default=None,
-                    help="paged KV cache: tokens per page (softmax)")
+                    help="paged cache: tokens per KV page (softmax), or "
+                         "the paged recurrent-state arena (gla: one state "
+                         "page per request, the token count is ignored)")
     ap.add_argument("--num-pages", type=int, default=None,
-                    help="paged-KV arena pages incl. the reserved sink "
+                    help="paged arena pages incl. the reserved sink "
                          "(default: worst case for every slot)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="chunked prefill window (tokens)")

@@ -34,8 +34,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--backend", default=None,
-                    help="attention backend (linear: the paper's; "
-                         "softmax: the baseline)")
+                    help="attention backend (linear: the paper's; gla: "
+                         "its decay-gated variant; softmax: the baseline)")
     ap.add_argument("--full", action="store_true",
                     help="full-width config instead of the smoke one")
     ap.add_argument("--device", default="cuda",

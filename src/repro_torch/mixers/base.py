@@ -5,10 +5,11 @@ Port of `repro/mixers/base.py`.  Backend resolution from a ModelConfig:
   otherwise                 -> cfg.mixer
 Resolution validates cfg.la: the kernel impl name must be registered in
 the kernel family of the resolved backend (kernels/ops.py; `softmax` ->
-"softmax", every other backend -> "linear") and the chunk size
-positive; and cfg.paging: only the softmax backend pages its cache
-(page_size >= 1, num_pages >= 2).  The port registers the `linear` and
-`softmax` backends; the others are on ROADMAP.md.
+"softmax", `gla` -> "gla", every other backend -> "linear") and the
+chunk size positive; and cfg.paging: only the softmax (KV pages) and gla
+(state pages) backends page their caches (page_size >= 1, num_pages >=
+2).  The port registers the `linear`, `gla` and `softmax` backends; the
+others are on ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -79,11 +80,6 @@ def get_backend(cfg_or_name) -> AttentionBackend:
         name, cfg = cfg_or_name, None
     else:
         name, cfg = resolve_backend_name(cfg_or_name), cfg_or_name
-    if cfg is not None and cfg.paging is not None and name == "gla":
-        raise NotImplementedError(
-            "cfg.paging with the gla backend (paged recurrent state) is "
-            "not ported yet; it comes with the GLA slice (ROADMAP.md "
-            "queue 1 item 9)")
     backend = _BACKENDS.get(name)
     if backend is None:
         raise KeyError(
@@ -101,7 +97,7 @@ def get_backend(cfg_or_name) -> AttentionBackend:
                       "gla": "gla"}.get(name, "linear")
             _ops.get_kernel(family, la.backend)
         if cfg.paging is not None:
-            if name != "softmax":
+            if name not in ("softmax", "gla"):
                 raise ValueError(
                     f"cfg.paging is a serving feature of the softmax "
                     f"(paged-KV rows) and gla (paged recurrent state) "

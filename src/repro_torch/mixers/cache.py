@@ -2,12 +2,15 @@
 
   LAState       linear           O(Dk·Dv) recurrent state (the
                                  paper's story)
+  GLAState      gla              the same, decay-gated (core/gla.py)
+  PagedGLAState gla (paged)      GLA states in a shared page arena: one
+                                 state page per slot
   KVCache       softmax          O(S) per layer key/value cache,
                                  contiguous
   PagedKVCache  softmax (paged)  fixed-size KV pages shared across
                                  slots + per-slot page table
 
-The GLA and SSM caches come with their backends (ROADMAP.md).
+The SSM caches come with their backend (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,8 +19,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.chunked import LAState, init_state
+from repro_torch.core.gla import GLAState, init_gla_state
 
-__all__ = ["LAState", "init_state", "KVCache", "PagedKVCache"]
+__all__ = ["LAState", "init_state", "GLAState", "init_gla_state",
+           "PagedGLAState", "KVCache", "PagedKVCache"]
 
 
 class KVCache(NamedTuple):
@@ -42,3 +47,19 @@ class PagedKVCache(NamedTuple):
     k_pages: torch.Tensor     # (num_pages, Hkv, page_size, hd)
     v_pages: torch.Tensor     # (num_pages, Hkv, page_size, hd)
     page_table: torch.Tensor  # (B, ceil(max_len / page_size)) int32
+
+
+class PagedGLAState(NamedTuple):
+    """GLA-backend paged decode cache (cfg.paging).
+
+    A page holds one slot's whole (Hkv, Dk, Dv+1) decayed recurrent state
+    (state pages, not KV-row pages), so every request needs exactly ONE
+    page whatever its token count.  `page_table[b, 0]` names the arena
+    page holding slot b's state; unassigned rows point at the engine's
+    reserved write sink (arena page num_pages - 1), where retired slots
+    keep decoding as batch padding without touching a live state.
+    """
+
+    s_pages: torch.Tensor     # (num_pages, Hkv, Dk, Dv+1) f32
+    p_pages: torch.Tensor     # (num_pages, Hkv, Dv+1) f32
+    page_table: torch.Tensor  # (B, 1) int32

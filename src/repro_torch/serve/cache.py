@@ -1,7 +1,8 @@
 """Serving-cache accounting: exact byte counts of the decode caches.
 
-Port of `repro/serve/cache.py`'s `cache_bytes`, `per_slot_bytes` and
-`page_bytes`, the units of the ByteBudget and PagedAdmission policies.
+Port of `repro/serve/cache.py`'s `cache_bytes`, `per_slot_bytes`,
+`state_page_bytes` and `page_bytes`, the units of the ByteBudget and
+PagedAdmission policies.
 For a context of length S the softmax backend needs O(S * Hkv * hd) KV
 bytes per layer and slot, the paper's linear backend an O(Hkv * Dk *
 (Dv+1)) state whatever S.  `cache_bytes` builds the model's own
@@ -31,14 +32,23 @@ def per_slot_bytes(cfg, max_len: int) -> int:
     return cache_bytes(cfg, 2, max_len) - cache_bytes(cfg, 1, max_len)
 
 
+def state_page_bytes(cfg) -> int:
+    """Bytes one GLA STATE page costs across all layers: a page holds a
+    whole (Hkv, Dk, Dv+1) + (Hkv, Dv+1) decayed recurrent state in f32
+    (mixers.cache.PagedGLAState), whatever page_size, because a state
+    page is one slot's O(D^2) state, not a run of KV rows."""
+    hd = cfg.resolved_head_dim
+    per_layer = cfg.num_kv_heads * ((hd + 1) * hd + (hd + 1))
+    return per_layer * 4 * cfg.num_layers
+
+
 def page_bytes(cfg, page_size: int) -> int:
-    """Bytes one KV page costs across all layers, the unit
-    PagedAdmission spends (page tables are int32 noise and are not
-    charged): 2 (k and v) * page_size * Hkv * hd * itemsize per layer,
-    in the compute dtype the engine allocates."""
+    """Bytes one page costs across all layers, the unit PagedAdmission
+    spends (page tables are int32 noise and are not charged).  Softmax
+    (KV pages): 2 (k and v) * page_size * Hkv * hd * itemsize per layer,
+    in the compute dtype the engine allocates.  GLA (state pages): one
+    whole recurrent state per page (`state_page_bytes`)."""
     if resolve_backend_name(cfg) == "gla":
-        raise NotImplementedError(
-            "gla pages hold one slot's recurrent state each; their price "
-            "comes with the GLA slice (ROADMAP.md queue 1 item 9)")
+        return state_page_bytes(cfg)
     return (2 * page_size * cfg.num_kv_heads * cfg.resolved_head_dim
             * dtype_of(cfg.compute_dtype).itemsize * cfg.num_layers)

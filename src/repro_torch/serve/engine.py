@@ -23,11 +23,14 @@ once, updating the batched cache in place; empty, retired and
 mid-prefill slots decode as padding, and a completing prefill overwrites
 whatever padding wrote into its rows.
 
-Paged (softmax backend; `page_size`, `num_pages` or a PagedAdmission
-policy): every layer keeps its KV in an arena of fixed-size pages shared
-by the slots.  Admission reserves the pages a request needs for its
-whole life (prompt + max_new - 1 positions) from a PagePool, strictly
-FIFO: a head whose pages are not free blocks the queue.  The carry of a
+Paged (`page_size`, `num_pages` or a PagedAdmission policy): every
+layer keeps its cache in an arena of pages shared by the slots.  The
+softmax backend pages its KV (fixed-size pages of KV rows); the gla
+backend pages its recurrent state, one page per request whatever its
+length (a page is one slot's whole O(D^2) state).  Admission reserves
+the pages a request needs for its whole life (KV: prompt + max_new - 1
+positions; state: one page) from a PagePool, strictly FIFO: a head
+whose pages are not free blocks the queue.  The carry of a
 paged prefill is not a cache of its own: it holds the engine's arena
 tensors (the windows write the request's pages in place) with the
 request's own page-table row and position, so installing it copies the
@@ -35,9 +38,11 @@ row and the position only.  The last arena page is a write sink: every
 row of a slot without pages (never admitted, mid-prefill or retired)
 points at it, so padding decode never writes into a live page; freed
 pages are reused LIFO and a new request masks the stale rows by length.
+A state page accumulates instead, so `_place` zeroes a request's state
+page before its first window.
 
-Left for later slices (ROADMAP.md): preemption, applying copy-on-write
-forks, paged GLA state and the tracer.
+Left for later slices (ROADMAP.md): preemption (with GLA's page-keep
+policy), applying copy-on-write forks and the tracer.
 """
 from __future__ import annotations
 
@@ -49,7 +54,7 @@ import torch
 
 from repro_torch.configs.base import PagingCfg
 from repro_torch.device import resolve_device
-from repro_torch.mixers import get_backend
+from repro_torch.mixers import get_backend, resolve_backend_name
 from repro_torch.models import model as mdl
 from repro_torch.serve import sampling as smp
 from repro_torch.serve.paging import PagedAdmission, PagePool
@@ -120,11 +125,17 @@ class Engine:
             raise ValueError(
                 "num_pages without page_size: set page_size to enable "
                 "the paged-KV cache")
+        # gla pages hold one slot's recurrent STATE each; softmax pages
+        # hold page_size KV rows
+        self._state_paged = (page_size is not None
+                             and resolve_backend_name(cfg) == "gla")
         if page_size is not None:
             if num_pages is None:
                 # default arena: worst case for every slot, plus the sink
+                per_seq = 1 if self._state_paged \
+                    else -(-max_len // page_size)
                 num_pages = self.policy.resolve_slots(cfg, max_len) \
-                    * -(-max_len // page_size) + 1
+                    * per_seq + 1
             cfg = dataclasses.replace(
                 cfg, paging=PagingCfg(page_size=page_size,
                                       num_pages=num_pages))
@@ -196,10 +207,14 @@ class Engine:
         if self.pool is not None \
                 and self._req_pages(req) > self.pool.num_pages:
             # would never admit: the queue would deadlock behind it
+            kind = "state" if self._state_paged else "KV"
+            detail = "a page holds one slot's whole recurrent state" \
+                if self._state_paged \
+                else f"page_size={self.pool.page_size}"
             raise ValueError(
-                f"request {req.rid} needs {self._req_pages(req)} KV pages "
-                f"but the whole arena has {self.pool.num_pages} allocatable "
-                f"pages (page_size={self.pool.page_size})")
+                f"request {req.rid} needs {self._req_pages(req)} {kind} "
+                f"pages but the whole arena has {self.pool.num_pages} "
+                f"allocatable pages ({detail})")
         if req.generated is None:
             req.generated = []
         self._requests[req.rid] = req
@@ -250,7 +265,9 @@ class Engine:
         else:
             # the engine's own arenas, written in place by the windows;
             # only the page-table row and the position are the request's
-            row = self._page_row(self.pool.table(req.rid))[None]
+            pages = self.pool.table(req.rid)
+            self._zero_state_pages(pages)
+            row = self._page_row(pages)[None]
             carry = {"blocks": [big._replace(page_table=row)
                                 for big in self.cache["blocks"]],
                      "pos": torch.zeros((1,), dtype=torch.int32,
@@ -395,7 +412,7 @@ class Engine:
         return StepOutput(req.rid, tok, req.state, finished=True,
                           finish_reason=reason, t=t_fin)
 
-    # -- paged KV --------------------------------------------------------
+    # -- paged KV and paged state ---------------------------------------
     def _page_row(self, pages: List[int]) -> torch.Tensor:
         """A (Pmax,) int32 page-table row: `pages`, then the sink page."""
         row = torch.full((self._pages_per_seq,), self._sink_page,
@@ -412,8 +429,22 @@ class Engine:
         for layer in self.cache["blocks"]:
             layer.page_table[slot] = row
 
+    def _zero_state_pages(self, pages: List[int]) -> None:
+        """A paged gla state accumulates: a page handed to a new request
+        (freed pages come back LIFO, still holding their last request's
+        state) must not seed its recurrence.  KV pages need no wipe:
+        attention masks them by length."""
+        if not self._state_paged:
+            return
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        for layer in self.cache["blocks"]:
+            layer.s_pages.index_fill_(0, idx, 0.0)
+            layer.p_pages.index_fill_(0, idx, 0.0)
+
     def _req_pages(self, req: Request) -> int:
         """Arena pages the request needs for its whole lifetime."""
+        if self._state_paged:
+            return 1   # one O(D^2) state page, whatever its tokens
         return self.pool.pages_needed(self._token_footprint(req))
 
     @staticmethod

@@ -175,8 +175,9 @@ class PagedAdmission(AdmissionPolicy):
 
     The byte budget buys `num_pages = budget // page_bytes(cfg)` arena
     pages (one of them the engine's reserved write sink).  A request is
-    admitted when ceil((prompt + max_new - 1) / page_size) pages are
-    free, its ACTUAL footprint, so at the same budget a long-context
+    admitted when ceil((prompt + max_new - 1) / page_size) KV pages (gla:
+    one state page) are free, its ACTUAL footprint, so at the same
+    budget a long-context
     request that ByteBudget's per-slot max_len charge would refuse is
     admissible as long as its tokens fit.  `max_slots` bounds the batch,
     not memory.

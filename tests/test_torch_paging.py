@@ -438,11 +438,15 @@ def _misconfiguration_case():
     with pytest.raises(ValueError, match="num_pages >= 2"):
         Engine(cfg, None, max_len=32, page_size=8, num_pages=1,
                device="cpu")
+    # the gla backend pages its recurrent state: one state page per slot
     gla = dataclasses.replace(cfg, attention_backend="gla")
-    with pytest.raises(NotImplementedError, match="GLA slice"):
-        Engine(gla, None, max_len=32, page_size=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="GLA slice"):
-        tcache.page_bytes(gla, 8)
+    eng = Engine(gla, tmdl.init_params(gla, device="cpu"), max_len=32,
+                 page_size=8, device="cpu")
+    assert eng.pool.num_pages == eng.num_slots
+    jgla = dataclasses.replace(_configs(paging=False)[0],
+                               attention_backend="gla")
+    assert tcache.page_bytes(gla, 8) == tcache.state_page_bytes(gla) \
+        == jcache.page_bytes(jgla, 8)
     assert get_backend(dataclasses.replace(
         cfg, paging=PagingCfg(1, 2))).name == "softmax"
 

@@ -484,8 +484,12 @@ def test_launchers_run_softmax_on_cpu():
                               "--steps", "2", "--batch", "2", "--seq",
                               "16"])
     assert rec["steps"] == 2 and math.isfinite(rec["last_loss"])
+    rec = tlaunch_serve.main(["--device", "cpu", "--backend", "gla",
+                              "--requests", "3", "--max-new", "3",
+                              "--slots", "2", "--prefill-chunk", "5"])
+    assert rec["backend"] == "gla" and rec["generated_tokens"] == 9
     with pytest.raises(KeyError, match="registered backends"):
-        tlaunch_serve.main(["--device", "cpu", "--backend", "gla"])
+        tlaunch_serve.main(["--device", "cpu", "--backend", "bogus"])
 
 
 # ---------------------------------------------------------------------------

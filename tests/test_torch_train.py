@@ -243,5 +243,8 @@ def test_launch_train_main_on_cpu(capsys):
     assert set(rec) == {"first_loss", "last_loss", "steps", "stragglers"}
     assert rec["steps"] == 3 and math.isfinite(rec["last_loss"])
     assert '"first_loss"' in capsys.readouterr().out
+    rec = tlaunch.main(["--device", "cpu", "--backend", "gla", "--steps",
+                        "2", "--batch", "2", "--seq", "16"])
+    assert rec["steps"] == 2 and math.isfinite(rec["last_loss"])
     with pytest.raises(KeyError, match="registered backends"):
-        tlaunch.main(["--device", "cpu", "--backend", "gla"])
+        tlaunch.main(["--device", "cpu", "--backend", "bogus"])
