@@ -35,7 +35,14 @@ fails the run by raising (no result line is printed then):
                gla_bwd_q and gla_bwd_kv at the training shapes, odd
                N=1000 and G=4, bf16 and f32 (o, g, dq, dk, dv and dld);
                and at log_decay = 0 each gated kernel against its linear
-               counterpart
+               counterpart; the SSD kernels ssd_fwd, ssd_bwd_q and
+               ssd_bwd_kv at mamba2-2.7b's training shapes (B=2, G=1,
+               H=80, N=8192, Dk=128, Dv=64), odd N=1000 and G=4 with
+               H=16, bf16 and f32, under a fresh layer's decay
+               (-softplus(N(0,1))) and the hard U[-5, 0] (o, the f32 dq
+               and dk partials, dv, and after the epilogue dq, dk, dv and
+               dld), and at log_decay = 0 the forward against
+               unnormalized causal linear attention
   4. serve   — the Engine at full width pythia-1.4b in bf16, once with the
                paper's linear attention and once with the softmax
                baseline: 8 requests, 512-token prompts, prefill_chunk 256,
@@ -59,21 +66,29 @@ fails the run by raising (no result line is printed then):
                of 64-512 prompt tokens, some waiting for pages, 24
                gla_decode_fused launches per decode step), its logits
                against the contiguous kernel path and the plain path;
-               and the linear smoke config on the card against the same
-               weights on the CPU
+               full-width mamba2-2.7b on the linear run's traffic (no
+               kernel launches: the reference serves it through the
+               plain SSD scan and step); and the pythia and mamba2 smoke
+               configs on the card against the same weights on the CPU
+               (mamba2 also its loss and every grad, through the SSD
+               kernels' smoke instantiation)
   5. train   — full width pythia-1.4b (f32 params, bf16 compute, the
                config's remat) on SyntheticLM batches of 2 x 8192 tokens
-               (seed 0), once per backend (linear, softmax, gla): the
+               (seed 0), once per backend (linear, softmax, gla), and
+               full-width mamba2-2.7b the same way: the
                first step's loss and the grads of every layer's
-               wq/wk/wv/wo (and gla's gate wg), ln_f and lm_head on the
+               wq/wk/wv/wo (and gla's gate wg), ln_f and lm_head (mamba2:
+               every grad, beside a second plain run's spread) on the
                kernel path against the plain path from one set of weights;
                then 4 steps through the Trainer, each launching the
                forward kernel 48 times (remat runs each layer's forward
                twice) and each backward kernel 24 times (la_fwd /
                la_bwd_q / la_bwd_kv, flash_fwd / flash_bwd_delta /
                flash_bwd_q / flash_bwd_kv, or gla_fwd / gla_bwd_q /
-               gla_bwd_kv); step time, tokens/s, peak memory, and one more
-               step under torch.profiler
+               gla_bwd_kv; mamba2's 64 layers: ssd_fwd 128 times,
+               ssd_bwd_q and ssd_bwd_kv 64 times each); step time,
+               tokens/s, peak memory, and one more step under
+               torch.profiler
   6. timing  — each kernel and its plain version with CUDA events at the
                main paths' shapes, in turns, beside the kernel's bound and,
                where one PyTorch call computes the same function (SDPA for
@@ -137,9 +152,10 @@ KERNELS = {
     "gla_fwd": (f"{CSRC}/la_fwd.cu", "src/repro/kernels/gla.py:118"),
     "gla_bwd_q": (f"{CSRC}/la_bwd.cu", "src/repro/kernels/gla.py:249"),
     "gla_bwd_kv": (f"{CSRC}/la_bwd.cu", "src/repro/kernels/gla.py:249"),
+    "ssd_fwd": (f"{CSRC}/ssd.cu", "src/repro/kernels/ssd.py:65"),
+    "ssd_bwd_q": (f"{CSRC}/ssd.cu", "src/repro/kernels/ssd.py:192"),
+    "ssd_bwd_kv": (f"{CSRC}/ssd.cu", "src/repro/kernels/ssd.py:192"),
 }
-SOURCES = ("la_decode_fused", "la_fwd", "la_bwd", "softmax_decode_fused",
-           "flash_fwd", "flash_bwd", "paged_decode")
 FLASH_BWD = ("flash_bwd_delta", "flash_bwd_q", "flash_bwd_kv")
 
 # main path: pythia-1.4b at full width
@@ -162,6 +178,10 @@ GLA_PAGED_PAGES = 5
 # train path: pythia-1.4b at full width, the paper's §5.2 length
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8192, 4
 LA_SHAPE = dict(b=2, h=16, hkv=16, n=8192, d=128)
+# mamba2-2.7b's training shapes: q and k (Mamba-2's C and B) shared by
+# all 80 heads (G = 1), state 128, head dim 64
+SSD_SHAPE = dict(b=2, g=1, h=80, n=8192, dk=128, dv=64)
+
 # tolerances, relative to the reference's max |value|
 F32_REL = 1e-5          # f32 state / f32 outputs: float32 rounding
 BF16_REL = 2.0 ** -7    # bf16 outputs: one bf16 rounding step
@@ -233,8 +253,9 @@ def _counters():
     from repro_torch.kernels import gla
     from repro_torch.kernels import linear_attention as la
     from repro_torch.kernels import paged_attention as pg
+    from repro_torch.kernels import ssd
     return (df.launches, la.launches, fl.launches, pg.launches,
-            gla.launches)
+            gla.launches, ssd.launches)
 
 
 def reset_launches() -> None:
@@ -286,7 +307,7 @@ def phase_device(torch):
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    logs = build.build_all(SOURCES, ptxas_verbose=True)
+    logs = build.build_all(build.SOURCES, ptxas_verbose=True)
     secs = time.perf_counter() - t0
     for name, text in logs.items():
         log(f"[build] {name}: {secs!r} s\n{text.strip()}")
@@ -756,6 +777,102 @@ def phase_kernel_gla(torch):
     return errs
 
 
+def _ssd_case(torch, gen, b, g, h, n, dk, dv, dtype, regime):
+    """Grouped q, k (B, G, N, Dk) at the scale of a conv'd silu output,
+    v and the upstream grad (B, H, N, Dv), and a log decay (B, H, N): a
+    fresh layer's, -softplus(N(0, 1)) (exp(a_log) = 1), or the hard
+    U[-5, 0], where an off-by-one in the decay index fails."""
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    if regime == "init":
+        ld = -torch.nn.functional.softplus(normal(b, h, n))
+    else:
+        ld = -5.0 * torch.rand((b, h, n), generator=gen, device="cuda")
+    return ((0.5 * normal(b, g, n, dk)).to(dtype),
+            (0.5 * normal(b, g, n, dk)).to(dtype),
+            normal(b, h, n, dv).to(dtype), ld, normal(b, h, n, dv).to(dtype))
+
+
+def phase_kernel_ssd(torch):
+    """ssd_fwd, ssd_bwd_q and ssd_bwd_kv against their plain versions at
+    mamba2-2.7b's training shapes, odd N and G > 1, bf16 and f32, under
+    both decay regimes: o, the f32 partials of dq and dk, dv, and after
+    the PyTorch epilogue (the group sums and dld, from each path's
+    partials and the same o) dq, dk, dv and dld; at log_decay = 0 the
+    forward against unnormalized causal linear attention."""
+    from repro_torch.core import ssd as core_ssd
+    from repro_torch.kernels import ssd
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    bf16, f32 = torch.bfloat16, torch.float32
+    m = SSD_SHAPE
+    dk, dv = m["dk"], m["dv"]
+    errs = {}
+    for label, n, g, h, dtype, regime in (
+            ("main_bf16", m["n"], m["g"], m["h"], bf16, "init"),
+            ("main_bf16_strong", m["n"], m["g"], m["h"], bf16, "strong"),
+            ("main_f32_strong", m["n"], m["g"], m["h"], f32, "strong"),
+            ("odd_n_bf16_strong", 1000, m["g"], m["h"], bf16, "strong"),
+            ("groups_f32", 1000, 4, 16, f32, "init"),
+            ("groups_bf16_strong", 1000, 4, 16, bf16, "strong")):
+        b = m["b"]
+        q, k, v, ld, om = _ssd_case(torch, gen, b, g, h, n, dk, dv, dtype,
+                                    regime)
+        log(f"[kernel] ssd {label}: B={b} G={g} H={h} N={n} Dk={dk} "
+            f"Dv={dv} {dtype}, log decay {regime}")
+        rel = BF16_REL if dtype == bf16 else SEQ_F32_REL
+        o_k = ssd.ssd_fwd_cuda(q, k, v, ld)
+        dq_pk = ssd.ssd_bwd_q_cuda(k, v, ld, om)
+        dk_pk, dv_k = ssd.ssd_bwd_kv_cuda(q, k, v, ld, om)
+        torch.cuda.synchronize()
+        o_t = ssd.ssd_fwd_torch(q, k, v, ld)
+        dq_pt = ssd.ssd_bwd_q_torch(k, v, ld, om)
+        dk_pt, dv_t = ssd.ssd_bwd_kv_torch(q, k, v, ld, om)
+        e = {"ssd_fwd": check_close(f"ssd {label} o", o_k, o_t, rel),
+             "ssd_bwd_q": check_close(f"ssd {label} dq partials (f32)",
+                                      dq_pk, dq_pt, SEQ_F32_REL),
+             "ssd_bwd_kv": max(
+                 check_close(f"ssd {label} dk partials (f32)", dk_pk, dk_pt,
+                             SEQ_F32_REL),
+                 check_close(f"ssd {label} dv (f32)", dv_k, dv_t,
+                             SEQ_F32_REL))}
+        fin_k = core_ssd.ssd_bwd_epilogue(q, k, v, ld, o_t, om, dq_pk, dk_pk,
+                                          dv_k)
+        fin_t = core_ssd.ssd_bwd_epilogue(q, k, v, ld, o_t, om, dq_pt, dk_pt,
+                                          dv_t)
+        for name, got, want in zip(("dq", "dk", "dv"), fin_k, fin_t):
+            e[name] = check_close(f"ssd {label} {name}", got, want, rel)
+        e["dld"] = check_close(f"ssd {label} dld", fin_k[3], fin_t[3],
+                               DLD_REL)
+        for name, t in (("o", o_k), ("dq", fin_k[0]), ("dk", fin_k[1]),
+                        ("dv", fin_k[2])):
+            if t.dtype != dtype or not torch.isfinite(t).all():
+                raise AssertionError(f"ssd {label} {name}: dtype {t.dtype} "
+                                     f"or non-finite values")
+        if not torch.isfinite(fin_k[3]).all():
+            raise AssertionError(f"ssd {label}: non-finite dld")
+        errs[label] = e
+        del q, k, v, ld, om, o_k, dq_pk, dk_pk, dv_k, o_t, dq_pt, dk_pt, \
+            dv_t, fin_k, fin_t
+        torch.cuda.empty_cache()
+
+    # log_decay = 0: unnormalized causal linear attention (the
+    # reference's tests/test_kernels_ssd.py checks its kernel so)
+    b, g, h, n = m["b"], 1, m["h"], 1000
+    q, k, v, _, _ = _ssd_case(torch, gen, b, g, h, n, dk, dv, f32, "init")
+    o_k = ssd.ssd_fwd_cuda(q, k, v, torch.zeros((b, h, n), device="cuda"))
+    scores = torch.einsum("bgid,bgjd->bgij", q, k).tril()
+    o_la = torch.einsum("bgij,bghjd->bghid", scores,
+                        v.reshape(b, g, h // g, n, dv)).reshape(b, h, n, dv)
+    errs["ld0_vs_linear"] = check_close(
+        "ssd at log_decay = 0 vs unnormalized causal linear attention", o_k,
+        o_la, SEQ_F32_REL)
+    del q, k, v, o_k, scores, o_la
+    torch.cuda.empty_cache()
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # 4. main path: the engine at full width
 # ---------------------------------------------------------------------------
@@ -771,14 +888,22 @@ def _with_impl(cfg, impl):
                                                            backend=impl))
 
 
-def phase_serve(torch, np, backend):
-    """The engine at full width with `backend`'s mixer; returns (record,
-    the run's launches)."""
+def _config(backend):
+    """Full-width pythia-1.4b with the attention backend `backend`, or
+    for "mamba2" full-width mamba2-2.7b."""
     from repro_torch.configs.registry import get_config
+    if backend == "mamba2":
+        return get_config("mamba2-2.7b")
+    return get_config("pythia-1.4b", attention_backend=backend)
+
+
+def phase_serve(torch, np, backend):
+    """The engine at full width with `backend`'s mixer (pythia-1.4b, or
+    mamba2-2.7b for "mamba2"); returns (record, the run's launches)."""
     from repro_torch.models import model as mdl
     from repro_torch.serve.engine import Engine, Request
 
-    cfg = get_config("pythia-1.4b", attention_backend=backend)
+    cfg = _config(backend)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -807,13 +932,19 @@ def phase_serve(torch, np, backend):
     launches = read_launches()
     steps = engine.decode_steps
     windows = SLOTS * -(-PROMPT_LEN // PREFILL_CHUNK)
+    # mamba2: no kernel at all; the reference serves it through the plain
+    # SSD scan (prefill) and step (decode), and has no SSD decode kernel
     want = {"linear": {"la_decode_fused": cfg.num_layers * steps},
             "gla": {"gla_decode_fused": cfg.num_layers * steps},
             "softmax": {"softmax_decode_fused": cfg.num_layers * steps,
-                        "flash_fwd": cfg.num_layers * windows}}[backend]
-    log(f"[serve {backend}] {SLOTS} requests x {PROMPT_LEN} prompt tokens, "
-        f"{MAX_NEW} new: {steps} decode steps, {windows} prefill windows, "
-        f"launches {launches}, wall {wall!r} s (init {init_s!r} s)")
+                        "flash_fwd": cfg.num_layers * windows},
+            "mamba2": {}}[backend]
+    log(f"[serve {backend}] {cfg.name}: {SLOTS} requests x {PROMPT_LEN} "
+        f"prompt tokens, {MAX_NEW} new: {steps} decode steps, {windows} "
+        f"prefill windows, launches {launches}, wall {wall!r} s (init "
+        f"{init_s!r} s)" + ("; no SSD kernel runs while serving, as in the "
+                            "reference (plain scan and step)"
+                            if backend == "mamba2" else ""))
     if steps < MAX_NEW - 1:
         raise AssertionError(f"{steps} decode steps for {MAX_NEW} tokens")
     expect_launches(f"serve {backend}", launches, want)
@@ -856,6 +987,7 @@ def phase_serve(torch, np, backend):
     record = {
         "arch": cfg.name, "attention_backend": backend,
         "compute_dtype": cfg.compute_dtype,
+        "kernels_on_path": sorted(want),
         "slots": SLOTS, "prompt_len": PROMPT_LEN,
         "prefill_chunk": PREFILL_CHUNK, "max_new": MAX_NEW,
         "max_len": MAX_LEN, "decode_steps": steps,
@@ -1246,13 +1378,16 @@ def phase_serve_gla_paged(torch, np):
     return record, launches
 
 
-def phase_smoke_reference(torch):
-    """The smoke config on the card (kernel path) against the same
-    weights on the CPU (plain path): prefill + 4 decode steps."""
+def phase_smoke_reference(torch, arch="pythia-1.4b"):
+    """The smoke config of `arch` on the card (kernel path) against the
+    same weights on the CPU (plain path): prefill + 4 decode steps; for
+    mamba2 also the loss and every grad (the SSD kernels at their smoke
+    instantiation, Dk = 16, Dv = 32)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model as mdl
+    from repro_torch.tree import named_leaves
 
-    cfg = get_config("pythia-1.4b", smoke=True)
+    cfg = get_config(arch, smoke=True)
     p_cpu = mdl.init_params(cfg, seed=0, device="cpu")
 
     def to(tree, dev):
@@ -1278,8 +1413,22 @@ def phase_smoke_reference(torch):
             out.append(lg)
         runs[dev] = [x.cpu() for x in out]
     for i, (g, c) in enumerate(zip(runs["cuda"], runs["cpu"])):
-        errs.append(check_close(f"smoke step {i} logits (cuda vs cpu)", g,
-                                c, SMOKE_REL))
+        errs.append(check_close(f"{arch} smoke step {i} logits (cuda vs "
+                                f"cpu)", g, c, SMOKE_REL))
+    if cfg.family != "ssm":
+        return errs
+    grads = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        named = named_leaves(params)
+        for _, t in named:
+            t.requires_grad_(True)
+        loss, _ = mdl.loss_fn(params, cfg, {"tokens": tokens.to(dev)})
+        grads[dev] = [loss.detach().cpu()] + [
+            g.cpu() for g in torch.autograd.grad(loss, [t for _, t in named])]
+    errs.append(max(check_close(f"{arch} smoke loss and grad {i} (cuda vs "
+                                f"cpu)", g, c, SMOKE_REL)
+                    for i, (g, c) in enumerate(zip(grads["cuda"],
+                                                   grads["cpu"]))))
     return errs
 
 
@@ -1376,23 +1525,133 @@ def _gate_noise(torch, mdl, cfg, params, batch, named, gate, grads_k,
             "rel_err_cuda_and_half_chunk": per_leaf}
 
 
+def _param_kind(path: str) -> str:
+    """A leaf's path without its layer index ("blocks.mixer.a_log")."""
+    parts = path.split(".")
+    return ".".join(parts[:1] + parts[2:]) if parts[0] == "blocks" \
+        else path
+
+
+def _train_compare_all(torch, mdl, cfg, params, batch):
+    """mamba2: the first step's loss and EVERY grad, kernel path against
+    plain path, from the same weights and batch, twice.
+
+    In the config's bf16 compute the grads at init are at the level of
+    the rounding noise itself: a second plain run with half the scan
+    chunk, which differs from the first only in summation order, differs
+    by up to 2x the max |value| of a leaf in every kind of leaf (NVIDIA
+    H100 80GB HBM3, 700 W; PERF.md).  So there the loss is held to
+    TRAIN_LOSS_REL and each kind of leaf, in norm over its 64 layers, to
+    GATE_NOISE_FACTOR times that plain spread, as GLA's gate.  In f32
+    compute the rounding is 2^16 times finer: there the loss is held to
+    SEQ_F32_REL and every grad to TRAIN_GRAD_REL of its max |value|, the
+    pythia runs' limit.  At most two grad sets are alive at once."""
+    from repro_torch.tree import named_leaves
+    named = named_leaves(params)
+    ts = [t for _, t in named]
+    for t in ts:
+        t.requires_grad_(True)
+    kinds = {}
+    for i, (path, _) in enumerate(named):
+        kinds.setdefault(_param_kind(path), []).append(i)
+
+    def run(c):
+        loss, _ = mdl.loss_fn(params, c, batch)
+        grads = torch.autograd.grad(loss, ts)
+        if not torch.isfinite(loss) or not all(
+                torch.isfinite(g).all() for g in grads):
+            raise AssertionError(f"non-finite loss or grads ({c.la.backend}"
+                                 f", {c.compute_dtype})")
+        return loss.detach(), grads
+
+    def against(grads, ref):
+        """Per leaf max abs err over max |value|; per kind of leaf the
+        norm of the differences and its share of the reference's norm."""
+        rel = [e / sc for e, sc in (rel_err(g, r)
+                                    for g, r in zip(grads, ref))]
+        norms = {}
+        for kind, idx in kinds.items():
+            d = math.sqrt(sum(float(((grads[i].float() - ref[i].float())
+                                     ** 2).sum()) for i in idx))
+            r = math.sqrt(sum(float((ref[i].float() ** 2).sum())
+                              for i in idx))
+            norms[kind] = {"norm_diff": d, "norm_rel": d / max(r, 1e-30),
+                           "max_rel": max(rel[i] for i in idx),
+                           "worst": named[max(idx, key=rel.__getitem__)][0]}
+        return rel, norms
+
+    rec = {"grads_compared": len(named)}
+    # bf16 compute (the config's): held to the plain path's own spread
+    loss_t, grads_t = run(_with_impl(cfg, "torch"))
+    loss_k, grads_k = run(_with_impl(cfg, "cuda"))
+    rec["loss_cuda"], rec["loss_torch"] = float(loss_k), float(loss_t)
+    rec["loss_abs_err"] = check_close("train step 0 loss (cuda vs torch)",
+                                      loss_k, loss_t, TRAIN_LOSS_REL)
+    _, norm_k = against(grads_k, grads_t)
+    del grads_k
+    half = _with_impl(cfg, "torch")
+    half = dataclasses.replace(half, la=dataclasses.replace(
+        half.la, chunk=half.la.chunk // 2))
+    _, grads_2 = run(half)
+    _, norm_2 = against(grads_2, grads_t)
+    del grads_2, grads_t
+    rec["bf16"] = {kind: {"cuda_vs_torch": norm_k[kind],
+                          f"torch_chunk_{half.la.chunk}_vs_torch":
+                          norm_2[kind]} for kind in kinds}
+    log(f"  bf16 grads by kind of leaf (cuda vs torch; torch chunk "
+        f"{half.la.chunk} vs torch): {rec['bf16']}")
+    bad = [kind for kind in kinds if not norm_k[kind]["norm_diff"]
+           <= GATE_NOISE_FACTOR * norm_2[kind]["norm_diff"]]
+    if bad:
+        raise AssertionError(f"bf16 grads of {bad}: |cuda - torch| > "
+                             f"{GATE_NOISE_FACTOR} x |torch chunk "
+                             f"{half.la.chunk} - torch|")
+    log(f"  bf16: every kind of leaf within {GATE_NOISE_FACTOR} x the "
+        f"plain path's spread in norm")
+
+    # f32 compute: every grad to the pythia runs' limit
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    loss_t, grads_t = run(_with_impl(f32, "torch"))
+    loss_k, grads_k = run(_with_impl(f32, "cuda"))
+    rec["f32_loss_cuda"], rec["f32_loss_torch"] = float(loss_k), \
+        float(loss_t)
+    rec["f32_loss_abs_err"] = check_close(
+        "f32 train step 0 loss (cuda vs torch)", loss_k, loss_t, SEQ_F32_REL)
+    rel_k, norm_k = against(grads_k, grads_t)
+    del grads_k, grads_t
+    rec["f32"] = norm_k
+    log(f"  f32 grads by kind of leaf (cuda vs torch): {norm_k}")
+    bad = [named[i][0] for i in range(len(named))
+           if not rel_k[i] <= TRAIN_GRAD_REL]
+    if bad:
+        raise AssertionError(f"f32 grads not within {TRAIN_GRAD_REL} of "
+                             f"their max |value|: {bad[:8]} ({len(bad)})")
+    log(f"  f32: {len(named)} grads within {TRAIN_GRAD_REL} of their max "
+        f"|value|; worst {max(rel_k)!r}")
+    for t in ts:
+        t.requires_grad_(False)
+    return rec
+
+
 def phase_train(torch, backend):
     from repro_torch.configs.base import TrainConfig
-    from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import model as mdl
     from repro_torch.train.loop import Trainer
+    from repro_torch.tree import leaves
 
-    cfg = get_config("pythia-1.4b", attention_backend=backend)
+    cfg = _config(backend)
     if not (cfg.remat and cfg.compute_dtype == "bfloat16"
             and cfg.param_dtype == "float32"):
-        raise AssertionError(f"pythia-1.4b is not f32 params / bf16 "
+        raise AssertionError(f"{cfg.name} is not f32 params / bf16 "
                              f"compute / remat: {cfg}")
     torch.cuda.empty_cache()
     params = mdl.init_params(cfg, seed=0, device="cuda")
     data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
     batch0 = {"tokens": torch.from_numpy(data.batch_at(0)).to("cuda")}
-    compare = _train_compare(torch, mdl, cfg, params, batch0)
+    compare = (_train_compare_all if backend == "mamba2"
+               else _train_compare)(torch, mdl, cfg, params, batch0)
+    n_params = sum(t.numel() for t in leaves(params))
     del batch0
     torch.cuda.empty_cache()
 
@@ -1415,7 +1674,9 @@ def phase_train(torch, backend):
                 "softmax": {"flash_fwd": 2 * layers,
                             "flash_bwd_delta": layers,
                             "flash_bwd_q": layers,
-                            "flash_bwd_kv": layers}}[backend]
+                            "flash_bwd_kv": layers},
+                "mamba2": {"ssd_fwd": 2 * layers, "ssd_bwd_q": layers,
+                           "ssd_bwd_kv": layers}}[backend]
     log(f"[train {backend}] {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
         f"{TRAIN_SEQ} tokens: launches {launches}, losses "
         f"{[h['loss'] for h in hist]}, step s {[h['dt'] for h in hist]}")
@@ -1433,7 +1694,7 @@ def phase_train(torch, backend):
                                                trainer.opt_state, batch,
                                                TRAIN_STEPS), steps=1)
     record = {"arch": cfg.name, "attention_backend": backend,
-              "compute_dtype": cfg.compute_dtype,
+              "params": n_params, "compute_dtype": cfg.compute_dtype,
               "param_dtype": cfg.param_dtype, "remat": cfg.remat,
               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
               "losses": [h["loss"] for h in hist],
@@ -1883,6 +2144,58 @@ def phase_timing_gla(torch):
     return out
 
 
+def phase_timing_ssd(torch):
+    """ssd_fwd, ssd_bwd_q and ssd_bwd_kv and their plain versions at
+    mamba2-2.7b's training shapes (bf16, as the model hands them over; a
+    fresh layer's decays), in turns, beside their bounds.  Bytes: each
+    input read once, each output written once; operations: per token and
+    head, the decayed state update (3 Dk Dv: a multiply and an FMA per
+    element) and each readout (2 Dk Dv), i.e. 5 Dk Dv for the forward and
+    for dq, 7 Dk Dv for dk and dv (the kernel's second copy of U is its
+    own choice, not counted)."""
+    from repro_torch.kernels import ssd
+    m = SSD_SHAPE
+    b, g, h, n, dk, dv = m["b"], m["g"], m["h"], m["n"], m["dk"], m["dv"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    q, k, v, ld, om = _ssd_case(torch, gen, b, g, h, n, dk, dv,
+                                torch.bfloat16, "init")
+    it = 2
+    qk_el, v_el, tok = b * g * n * dk, b * h * n * dv, b * h * n
+    work = {
+        # q, k, v, ld read; o written
+        "ssd_fwd": (2 * qk_el * it + v_el * it + tok * 4 + v_el * it,
+                    tok * 5 * dk * dv),
+        # k, v, ld, Ω read; the f32 dq partials written
+        "ssd_bwd_q": (qk_el * it + 2 * v_el * it + tok * 4 + tok * dk * 4,
+                      tok * 5 * dk * dv),
+        # q, k, v, ld, Ω read; the f32 dk partials and dv written
+        "ssd_bwd_kv": (2 * qk_el * it + 2 * v_el * it + tok * 4
+                       + tok * dk * 4 + v_el * 4, tok * 7 * dk * dv),
+    }
+    calls = {
+        "ssd_fwd": (lambda: ssd.ssd_fwd_torch(q, k, v, ld),
+                    lambda: ssd.ssd_fwd_cuda(q, k, v, ld)),
+        "ssd_bwd_q": (lambda: ssd.ssd_bwd_q_torch(k, v, ld, om),
+                      lambda: ssd.ssd_bwd_q_cuda(k, v, ld, om)),
+        "ssd_bwd_kv": (lambda: ssd.ssd_bwd_kv_torch(q, k, v, ld, om),
+                       lambda: ssd.ssd_bwd_kv_cuda(q, k, v, ld, om)),
+    }
+    out = {}
+    for name, (plain_fn, kernel_fn) in calls.items():
+        kern, pl = _time_pair(torch, plain_fn, kernel_fn, reps=5)
+        out[name] = {"ms": min(kern), "ms_runs": kern, "plain_ms": min(pl),
+                     "plain_ms_runs": pl, "library_ms": None,
+                     **_bound(*work[name])}
+        log(f"[timing] {name} B={b} G={g} H={h} N={n} Dk={dk} Dv={dv} "
+            f"bf16: {out[name]}")
+    log("[timing] ssd_fwd / ssd_bwd_q / ssd_bwd_kv: library_ms null: no "
+        "single PyTorch call computes the SSD recurrence or its gradient")
+    del q, k, v, ld, om
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1894,26 +2207,31 @@ def main() -> int:
     softmax_errs = phase_kernel_softmax(torch)
     paged_errs = phase_kernel_paged(torch)
     gla_errs = phase_kernel_gla(torch)
+    ssd_errs = phase_kernel_ssd(torch)
     serve, serve_launches = phase_serve(torch, np, "linear")
     serve_sm, serve_sm_launches = phase_serve(torch, np, "softmax")
     serve_pg, serve_pg_launches, serve_pgu_launches = phase_serve_paged(
         torch, np)
     serve_gla, serve_gla_launches = phase_serve(torch, np, "gla")
     serve_glp, serve_glp_launches = phase_serve_gla_paged(torch, np)
-    smoke_errs = phase_smoke_reference(torch)
+    serve_m2, serve_m2_launches = phase_serve(torch, np, "mamba2")
+    smoke_errs = {arch: phase_smoke_reference(torch, arch)
+                  for arch in ("pythia-1.4b", "mamba2-2.7b")}
     torch.cuda.empty_cache()
     train, train_launches = phase_train(torch, "linear")
     train_sm, train_sm_launches = phase_train(torch, "softmax")
     train_gla, train_gla_launches = phase_train(torch, "gla")
+    train_m2, train_m2_launches = phase_train(torch, "mamba2")
     timing = {"la_decode_fused": phase_timing(torch), **phase_timing_la(
         torch), **phase_timing_softmax(torch), **phase_timing_paged(torch),
-        **phase_timing_gla(torch)}
+        **phase_timing_gla(torch), **phase_timing_ssd(torch)}
 
     # each kernel's launches summed over the main-path runs (every other
     # run left it at 0, expect_launches checked)
     runs = (serve_launches, serve_sm_launches, serve_pg_launches,
             serve_pgu_launches, serve_gla_launches, serve_glp_launches,
-            train_launches, train_sm_launches, train_gla_launches)
+            serve_m2_launches, train_launches, train_sm_launches,
+            train_gla_launches, train_m2_launches)
     launches = {k: sum(r[k] for r in runs) for k in KERNELS}
     max_err = {"la_decode_fused": kernel_errs["main_bf16"],
                **la_errs["main_bf16"],
@@ -1922,6 +2240,8 @@ def main() -> int:
                **paged_errs["paged_main_bf16"],
                **gla_errs["decode_main_bf16"],
                **{k: v for k, v in gla_errs["main_bf16"].items()
+                  if k in KERNELS},
+               **{k: v for k, v in ssd_errs["main_bf16"].items()
                   if k in KERNELS}}
     kernels = {"kernels": [{
         "name": kname, "route": "cuda", "source": KERNELS[kname][0],
@@ -1931,20 +2251,22 @@ def main() -> int:
         "bound_ms": timing[kname]["bound_ms"],
         "bound_by": timing[kname]["bound_by"],
         "library_ms": timing[kname].get("library_ms")} for kname in KERNELS]}
-    for rec in (serve, serve_sm, serve_pg, serve_gla, serve_glp, train,
-                train_sm, train_gla):
+    for rec in (serve, serve_sm, serve_pg, serve_gla, serve_glp, serve_m2,
+                train, train_sm, train_gla, train_m2):
         rec["card"] = smi
     print(json.dumps({"serve": serve, "serve_softmax": serve_sm,
                       "serve_softmax_paged": serve_pg,
                       "serve_gla": serve_gla, "serve_gla_paged": serve_glp,
+                      "serve_mamba2": serve_m2,
                       "train": train, "train_softmax": train_sm,
-                      "train_gla": train_gla,
+                      "train_gla": train_gla, "train_mamba2": train_m2,
                       "build_s": build_s,
                       "kernel_max_abs_err": kernel_errs,
                       "la_kernel_max_abs_err": la_errs,
                       "softmax_kernel_max_abs_err": softmax_errs,
                       "paged_kernel_max_abs_err": paged_errs,
                       "gla_kernel_max_abs_err": gla_errs,
+                      "ssd_kernel_max_abs_err": ssd_errs,
                       "smoke_logits_max_abs_err": smoke_errs,
                       "timing": timing}), flush=True)
     print(smi, flush=True)

@@ -1,11 +1,11 @@
 """Config schema for the port (a copy of `repro/configs/base.py`).
 
-Only what the dense linear-attention path reads is kept: `LACfg`,
-`ModelConfig` (its fields, `resolved_head_dim` and `param_count`), the
-two optional blocks `ModelConfig` names, and `TrainConfig`.  The
-family extensions (MoE, MLA, SSM, hybrid, enc-dec) keep their fields so
-`param_count` matches the reference, but no module of the port reads
-them yet.
+Only what the ported paths read is kept: `LACfg`, `ModelConfig` (its
+fields, `resolved_head_dim` and `param_count`), the optional blocks
+`ModelConfig` names, and `TrainConfig`.  `SSMCfg` is read by the mamba2
+mixer; the other family extensions (MoE, MLA, hybrid, enc-dec) keep
+their fields so `param_count` matches the reference, but no module of
+the port reads them yet.
 """
 from __future__ import annotations
 

@@ -11,6 +11,7 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "pythia-1.4b": "pythia_1p4b",
+    "mamba2-2.7b": "mamba2_2p7b",
 }
 
 

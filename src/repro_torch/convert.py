@@ -7,7 +7,8 @@ layer axis that the reference's `_stack_init` puts on axis 0 of every
 `blocks` leaf is unstacked into a list of per-layer dicts.  Dense
 weights keep their (d_in, d_out) layout, so each one is a copy; the
 learnable coefficients `la_a` / `la_b` (one scalar per layer, stacked
-to (L,)) become one 0-d f32 tensor per layer.
+to (L,)) become one 0-d f32 tensor per layer.  A tree with tied
+embeddings (mamba2) has no `lm_head` and the port's has none either.
 """
 from __future__ import annotations
 
@@ -32,9 +33,10 @@ def _map(fn, tree):
 
 
 def params_from_jax(cfg, tree, device="cuda"):
-    if cfg.family != "dense" or "prefix_blocks" in tree:
+    if cfg.family not in ("dense", "ssm") or "prefix_blocks" in tree:
         raise NotImplementedError(
-            f"params_from_jax covers the dense family; got {cfg.family!r}")
+            f"params_from_jax covers the dense and ssm families; got "
+            f"{cfg.family!r}")
     dev = resolve_device(device)
     out = {k: _map(lambda a: _tensor(a, dev), v)
            for k, v in tree.items() if k != "blocks"}

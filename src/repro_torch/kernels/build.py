@@ -36,6 +36,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # prints each kernel's registers, shared memory and spills; changes no code
 PTXAS_VERBOSE = ("-Xptxas", "-v")
 
+# every kernel source of csrc/ (without the .cu), in the order of the port's
+# slices
+SOURCES = ("la_decode_fused", "la_fwd", "la_bwd", "softmax_decode_fused",
+           "flash_fwd", "flash_bwd", "paged_decode", "ssd")
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 

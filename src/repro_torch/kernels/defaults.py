@@ -47,6 +47,15 @@ staging size, and no result depends on it.
     the result independent of it.  The plain GLA scans (core/gla.py)
     take `DEFAULT_SCAN_CHUNK`, as the linear ones do.
 
+  * `SSD_STAGE_TOKENS` — the same staging size for the SSD (Mamba-2)
+    kernels (`ssd_fwd`, `ssd_bwd_q`, `ssd_bwd_kv`), which stage q, k, v
+    (and Ω in the backward) and each token's decay.  The reference's
+    `DEFAULT_TILES["ssd"]["chunk"] = 128` is the VMEM tile of its Pallas
+    SSD kernels; the token-by-token walk makes the result independent of
+    it.  At 32 tokens a block of `ssd_bwd_kv` stages ~86 KB, so two
+    blocks share an SM.  The plain SSD scans (core/ssd.py) take
+    `DEFAULT_SCAN_CHUNK`.
+
 The CUDA decode steps (`la_decode_fused`, `gla_decode_fused`) launch one
 block per (slot, KV head) and have no tile to choose.
 """
@@ -55,6 +64,7 @@ from __future__ import annotations
 DEFAULT_SCAN_CHUNK = 512
 LA_STAGE_TOKENS = 32
 GLA_STAGE_TOKENS = 32
+SSD_STAGE_TOKENS = 32
 FLASH_BLOCK_Q = 64
 FLASH_BLOCK_K = 64
 SOFTMAX_DECODE_WARPS = 8

@@ -15,7 +15,9 @@ backends:
 
 Families: "linear" (causal training forward + analytic backward),
 "linear_decode_fused" (one-token decode, state in place), "gla" and
-"gla_decode_fused" (the same two, decay-gated), "softmax"
+"gla_decode_fused" (the same two, decay-gated), "ssd" (Mamba-2's
+scalar-decay recurrence with grouped q/k: training forward + analytic
+backward), "softmax"
 (flash forward, optional per-slot q_offset, + recomputation backward),
 "softmax_decode" (the unfused contiguous-cache decode),
 "softmax_decode_fused" (the fused one), and "paged" and
@@ -37,6 +39,12 @@ The causal GLA path is `gla_causal`, an autograd Function with residuals
 AND log_decay (the gate trains); the `ref` impl has no backward and
 falls back to the plain one, as in the reference.
 
+The causal SSD path is `ssd_causal`, an autograd Function with residuals
+{q, k, v, log_decay, o} whose backward returns dq and dk summed over each
+group of heads, dv and dlog_decay; the `ref` impl has no backward.  As
+in the reference, serving prefill and decode run the plain scan and step
+of core/ssd.py on every impl.
+
 The causal softmax path is `softmax_causal`, an autograd Function whose
 residuals are {q, k, v, o, lse}: both the `torch` and the `cuda` impl
 register a forward that returns them and a recomputation backward, so
@@ -54,6 +62,7 @@ import torch
 from repro_torch.core import chunked as _chunked
 from repro_torch.core import gla as _gla
 from repro_torch.core import softmax as _softmax
+from repro_torch.core import ssd as _ssd
 from repro_torch.core.chunked import LAState
 from repro_torch.core.gla import GLAState
 from repro_torch.core.numerics import safe_div
@@ -63,12 +72,14 @@ from repro_torch.kernels import gla as _kgla
 from repro_torch.kernels import linear_attention as _la
 from repro_torch.kernels import paged_attention as _pg
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd as _kssd
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK
 
 __all__ = ["KernelImpl", "register_kernel", "get_kernel", "kernel_names",
            "resolve_impl", "la_causal", "la_causal_learnable", "la_prefill",
            "la_decode_step_fused", "gla_causal", "gla_prefill",
-           "gla_decode_step", "gla_decode_step_fused", "softmax_causal",
+           "gla_decode_step", "gla_decode_step_fused", "ssd_causal",
+           "softmax_causal",
            "softmax_attention",
            "softmax_decode", "softmax_decode_fused", "paged_attention",
            "paged_attention_fused"]
@@ -86,14 +97,16 @@ class KernelImpl:
          gla family: (q, k, v, log_decay, a, b, chunk) -> (o, g);
          gla_decode_fused family: (state, q, k, v, log_decay, a, b) ->
          (state, o), state in place;
+         ssd family: (q, k, v, log_decay, chunk) -> o;
          softmax family: (q, k, v, causal, chunk, q_offset) -> o;
          softmax_decode(_fused) families: (q, k, v, lengths) -> o;
          paged and paged_decode_fused families: (q, k_pages, v_pages,
          page_table, lengths) -> o.
     bwd: linear family: (q, k, v, o, g, omega, a, b, chunk) ->
          (dq, dk, dv); gla family: (q, k, v, log_decay, o, g, omega, a,
-         b, chunk) -> (dq, dk, dv, dlog_decay); None falls through to
-         the plain backward.
+         b, chunk) -> (dq, dk, dv, dlog_decay); ssd family: (q, k, v,
+         log_decay, o, omega, chunk) -> (dq, dk, dv, dlog_decay); None
+         falls through to the plain backward.
          softmax family: (q, k, v, o, lse, do, chunk) -> (dq, dk, dv).
     fwd_res: softmax family: (q, k, v, chunk) -> (o, lse), the causal
          training forward with its residual.
@@ -426,6 +439,67 @@ def gla_decode_step_fused(state: GLAState, q, k, v, log_decay,
     updated in place and returned as the same GLAState."""
     return get_kernel("gla_decode_fused", backend, q.device).fwd(
         state, q, k, v, log_decay, a, b)
+
+
+# ---------------------------------------------------------------------------
+# ssd: Mamba-2's scalar-decay causal forward + analytic backward
+# ---------------------------------------------------------------------------
+
+def _ssd_cuda_fwd(q, k, v, log_decay, chunk):
+    # the mixer hands over slices of its conv output (q, k) and transposes
+    # (v, log_decay); the kernel reads rows
+    return _kssd.ssd_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                              log_decay.float().contiguous())
+
+
+def _ssd_cuda_bwd(q, k, v, log_decay, o, omega, chunk):
+    # omega from autograd may be strided or expanded
+    return _kssd.ssd_bwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                              log_decay, o, omega.contiguous())
+
+
+def _ssd_ref_fwd(q, k, v, log_decay, chunk):
+    # the oracle is grouped-native: shared q/k heads stay (B, G, N, Dk)
+    return _ref.ssd_ref(q, k, v, log_decay)
+
+
+register_kernel("ssd", "torch", fwd=_kssd.ssd_fwd_torch,
+                bwd=_kssd.ssd_bwd_torch)
+register_kernel("ssd", "cuda", fwd=_ssd_cuda_fwd, bwd=_ssd_cuda_bwd)
+register_kernel("ssd", "ref", fwd=_ssd_ref_fwd)  # bwd: the plain one
+
+
+class _SSDCausal(torch.autograd.Function):
+    """ssd_causal with the analytic backward; residuals {q, k, v,
+    log_decay, o}."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_decay, chunk, backend):
+        impl = get_kernel("ssd", backend, q.device)
+        o = impl.fwd(q, k, v, log_decay, chunk)
+        ctx.save_for_backward(q, k, v, log_decay, o)
+        ctx.impl, ctx.chunk = impl, chunk
+        return o
+
+    @staticmethod
+    def backward(ctx, omega):
+        q, k, v, log_decay, o = ctx.saved_tensors
+        bwd = ctx.impl.bwd or _ssd.ssd_bwd_chunked
+        dq, dk, dv, dld = bwd(q, k, v, log_decay, o, omega, ctx.chunk)
+        return dq, dk, dv, dld, None, None
+
+
+def ssd_causal(q, k, v, log_decay, chunk: int = DEFAULT_SCAN_CHUNK,
+               backend: str = "auto"):
+    """SSD (Mamba-2) with the analytic O(N D) backward (the training
+    entry), differentiable in q, k, v and log_decay.
+
+    q, k: (B, G, N, Dk) with G | H, shared per group; v: (B, H, N, Dv);
+    log_decay: (B, H, N) <= 0.  Returns (B, H, N, Dv) in v.dtype; dq and
+    dk come back group-summed, dlog_decay in log_decay's dtype.  chunk
+    and backend are not differentiated.
+    """
+    return _SSDCausal.apply(q, k, v, log_decay, chunk, backend)
 
 
 # ---------------------------------------------------------------------------

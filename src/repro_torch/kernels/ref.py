@@ -1,5 +1,6 @@
-"""Quadratic oracles of the linear, GLA and softmax families (port of
-`repro/kernels/ref.py`: `expand_kv`, `la_ref`, `gla_ref`, `softmax_ref`).
+"""Quadratic oracles of the linear, GLA, SSD and softmax families (port of
+`repro/kernels/ref.py`: `expand_kv`, `la_ref`, `gla_ref`, `ssd_ref`,
+`softmax_ref`).
 
 Each materializes the full N x N score matrix and is a correctness
 reference only; all accumulation is f32.  The oracle is grouped-native:
@@ -84,6 +85,31 @@ def gla_ref(q, k, v, log_decay, a: float = 1.0, b: float = 1.0,
     if return_g:
         return o, g[..., 0].reshape(bq, h, n)
     return o
+
+
+def ssd_ref(q, k, v, log_decay):
+    """State-space-duality (Mamba-2) oracle: scalar-decay linear attention
+    with no normalizer,
+
+        o_i = sum_{n<=i} M_in (q_i.k_n) v_n,  M_in = prod_{m=n+1..i}
+        exp(ld_m)
+
+    q, k: (B, G, N, Dk) with G | H, shared by the H/G heads of a group
+    (not expanded); v: (B, H, N, Dv); log_decay: (B, H, N) <= 0, one
+    decay per head.  Returns (B, H, N, Dv) in v.dtype.
+    """
+    b, grp, n, _ = q.shape
+    h = v.shape[1]
+    vf = v.float().reshape(b, grp, h // grp, n, v.shape[-1])
+    cl = torch.cumsum(log_decay.float(), dim=-1).reshape(b, grp, h // grp, n)
+    diff = cl[..., :, None] - cl[..., None, :]
+    mask = torch.ones((n, n), dtype=torch.bool, device=q.device).tril()
+    zero = torch.zeros((), dtype=F32, device=q.device)
+    # double where, as in gla_ref: no overflow above the diagonal
+    m = torch.where(mask, torch.exp(torch.where(mask, diff, zero)), zero)
+    s = torch.einsum("bkid,bkjd->bkij", q.float(), k.float())  # per group
+    o = torch.einsum("bkij,bkgij,bkgjd->bkgid", s, m, vf)
+    return o.reshape(b, h, n, v.shape[-1]).to(v.dtype)
 
 
 def softmax_ref(q, k, v, causal: bool = True, scale: float | None = None):

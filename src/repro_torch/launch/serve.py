@@ -3,11 +3,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch pythia-1.4b \
         --requests 8 --max-new 16 [--backend softmax|gla] [--full] \
         [--device cuda]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --device cpu --requests 3 --max-new 4
 
 Flag names follow `repro/launch/serve.py` for the flags kept.  Weights
 are random, drawn from seed 0; prompts are random token ids drawn from
 seed 0.  `--backend` swaps the attention backend (linear, the paper's,
-by default; gla, its decay-gated variant; softmax, the baseline).
+by default; gla, its decay-gated variant; softmax, the baseline); it
+is refused for an architecture without attention (mamba2-2.7b, whose
+mixer is fixed), and so is paging there (`get_backend`).
 `--full` serves the full-width config instead of the smoke one;
 `--device` defaults to cuda and raises without a card.  Admission
 defaults to fixed slots; `--budget-mb` switches to ByteBudget (the slot
@@ -30,7 +34,7 @@ import numpy as np
 
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import ops as _ops
-from repro_torch.mixers import get_backend
+from repro_torch.mixers import get_backend, resolve_backend_name
 from repro_torch.models import model as mdl
 from repro_torch.serve.cache import per_slot_bytes
 from repro_torch.serve.engine import Engine, Request
@@ -79,6 +83,9 @@ def main(argv=None):
                  "arena; without a page size the cache stays contiguous)")
     cfg = get_config(args.arch, smoke=not args.full)
     if args.backend:
+        if cfg.mixer != "attention":
+            ap.error(f"--backend switches the attention backend; "
+                     f"{args.arch} has no attention (mixer {cfg.mixer!r})")
         cfg = dataclasses.replace(cfg, attention_backend=args.backend)
     get_backend(cfg)  # fail fast on a bad --backend, naming the valid ones
     params = mdl.init_params(cfg, seed=0, device=args.device)
@@ -120,7 +127,7 @@ def main(argv=None):
         "arch": args.arch,
         "full": args.full,
         "device": str(engine.device),
-        "backend": engine.cfg.attention_backend,
+        "backend": resolve_backend_name(engine.cfg),
         "kernel": _ops.resolve_impl(engine.cfg.la.backend, engine.device),
         "policy": type(engine.policy).__name__,
         "slots": engine.num_slots,

@@ -2,12 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch pythia-1.4b \
         --steps 50 --batch 8 --seq 128 [--full] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
+        --device cpu --steps 5 --batch 2 --seq 32
 
 Flag names follow `repro/launch/train.py` for the flags kept; the
 checkpoint (`--checkpoint-dir`, `--resume`) and autotune
 (`--autotune`, `--tune-cache`) flags wait for their slices (ROADMAP.md).
 Weights are random from the train config's seed and data is
-`SyntheticLM` from the same seed.  `--full` trains the full-width
+`SyntheticLM` from the same seed.  `--backend` swaps the attention
+backend and is refused for an architecture without attention
+(mamba2-2.7b, whose mixer is fixed).  `--full` trains the full-width
 config instead of the smoke one; `--device` defaults to cuda and raises
 without a card.  Prints one JSON record: first_loss, last_loss, steps,
 stragglers.
@@ -44,6 +48,9 @@ def main(argv=None):
 
     cfg = get_config(args.arch, smoke=not args.full)
     if args.backend:
+        if cfg.mixer != "attention":
+            ap.error(f"--backend switches the attention backend; "
+                     f"{args.arch} has no attention (mixer {cfg.mixer!r})")
         cfg = dataclasses.replace(cfg, attention_backend=args.backend)
     get_backend(cfg)  # fail fast on a bad --backend, naming the valid ones
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,

@@ -8,8 +8,8 @@ the kernel family of the resolved backend (kernels/ops.py; `softmax` ->
 "softmax", `gla` -> "gla", every other backend -> "linear") and the
 chunk size positive; and cfg.paging: only the softmax (KV pages) and gla
 (state pages) backends page their caches (page_size >= 1, num_pages >=
-2).  The port registers the `linear`, `gla` and `softmax` backends; the
-others are on ROADMAP.md.
+2).  The port registers the `linear`, `gla`, `softmax` and `mamba2`
+backends; the others are on ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -29,6 +29,9 @@ class AttentionBackend:
     """
 
     name: str = "?"
+    # the mixer is the whole block (token and channel mixing, mamba2):
+    # blocks add no FFN and no second norm around it
+    fuses_ffn: bool = False
 
     def init(self, gen, cfg, dtype):
         """-> params dict for one layer's mixer."""

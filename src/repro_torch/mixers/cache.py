@@ -9,8 +9,7 @@
                                  contiguous
   PagedKVCache  softmax (paged)  fixed-size KV pages shared across
                                  slots + per-slot page table
-
-The SSM caches come with their backend (ROADMAP.md).
+  MambaCache    mamba2           SSD state + depthwise-conv window tail
 """
 from __future__ import annotations
 
@@ -20,9 +19,11 @@ import torch
 
 from repro_torch.core.chunked import LAState, init_state
 from repro_torch.core.gla import GLAState, init_gla_state
+from repro_torch.core.ssd import SSDState, init_ssd_state
 
 __all__ = ["LAState", "init_state", "GLAState", "init_gla_state",
-           "PagedGLAState", "KVCache", "PagedKVCache"]
+           "PagedGLAState", "KVCache", "PagedKVCache", "MambaCache",
+           "SSDState", "init_ssd_state"]
 
 
 class KVCache(NamedTuple):
@@ -63,3 +64,16 @@ class PagedGLAState(NamedTuple):
     s_pages: torch.Tensor     # (num_pages, Hkv, Dk, Dv+1) f32
     p_pages: torch.Tensor     # (num_pages, Hkv, Dv+1) f32
     page_table: torch.Tensor  # (B, 1) int32
+
+
+class MambaCache(NamedTuple):
+    """Mamba-2 decode cache: O(1) in the context length.
+
+    The reference nests the state, `MambaCache(ssd=SSDState(s), conv)`;
+    the port keeps it flat, so that the engine's `_install` copies a
+    finished prefill's rows tensor by tensor as it does for every other
+    cache (`SSDState(cache.s)` is the reference's `cache.ssd`).
+    """
+
+    s: torch.Tensor     # (B, H, state, hd) f32, the SSD state
+    conv: torch.Tensor  # (B, conv_width - 1, conv_ch) in the compute dtype

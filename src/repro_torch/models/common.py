@@ -3,8 +3,9 @@
 Params are plain nested dicts of tensors; every layer is an (init,
 apply) pair.  Dense weights are (d_in, d_out) and applied as `x @ W`, so
 converting the reference's params is a copy.  Matmuls run in the
-config's compute dtype; norms always compute in f32.  Only what
-pythia's serving path runs is here: layernorm and the gelu MLP.
+config's compute dtype; norms always compute in f32.  What the ported
+paths run is here: layernorm and rmsnorm, the gelu MLP, the embedding
+and the tied unembedding.
 """
 from __future__ import annotations
 
@@ -49,19 +50,26 @@ def dense(p, x, compute_dtype=None):
 # Norms
 # ---------------------------------------------------------------------------
 
-def norm_init(d: int, dtype=F32, device="cuda"):
-    return {"scale": torch.ones((d,), dtype=dtype, device=device),
-            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+def norm_init(d: int, dtype=F32, device="cuda", kind: str = "layernorm"):
+    """Scale (and, for layernorm, bias) of a norm over d features; the
+    reference's rmsnorm has no bias."""
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
 
 
-def norm_apply(p, x, eps: float = 1e-5):
-    """Layernorm in f32, cast back (the reference's rmsnorm branch
-    comes with the architectures that use it)."""
+def norm_apply(p, x, kind: str = "layernorm", eps: float = 1e-5):
+    """Layernorm or rmsnorm (`cfg.norm`) in f32, cast back to x's dtype."""
     xf = x.float()
-    mu = xf.mean(-1, keepdim=True)
-    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    y = y * p["scale"].float() + p["bias"].float()
+    if kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:
+        ms = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
     return y.to(x.dtype)
 
 
@@ -95,3 +103,9 @@ def embed_lookup(p, tokens, compute_dtype=None):
     if compute_dtype is not None:
         t = t.to(compute_dtype)
     return F.embedding(tokens, t)
+
+
+def unembed(p, x):
+    """Logits through the (tied) embedding table in x's dtype: x @
+    table^T."""
+    return torch.matmul(x, p["table"].to(x.dtype).T)

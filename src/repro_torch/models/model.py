@@ -1,6 +1,9 @@
-"""Dense decoder-only LM: embed -> blocks -> norm -> unembed.
+"""Decoder-only LM: embed -> blocks -> norm -> unembed.
 
-Port of the dense-family path of `repro/models/model.py`: training
+Port of the dense- and ssm-family paths of `repro/models/model.py`
+(pythia; the pure Mamba-2 stack of mamba2-2.7b, whose embeddings are
+tied: no lm_head, the loss and the logits unembed through the embedding
+table in f32): training
 (`forward_hidden`, `chunked_cross_entropy`, `loss_fn`) and serving
 (`init_params`, `init_cache`, `prefill`, `decode_step`).  Layers are a
 Python list of per-layer param dicts (the reference stacks them on axis
@@ -19,22 +22,22 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import dense, dense_init, dtype_of, \
-    embed_init, embed_lookup, norm_apply, norm_init
+    embed_init, embed_lookup, norm_apply, norm_init, unembed
 
 F32 = torch.float32
 
 
 def _check_family(cfg):
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; the port runs the "
-            f"dense family (ROADMAP.md queue 1 'Remaining architectures')")
-    if cfg.tie_embeddings or cfg.logit_softcap or \
+            f"dense and ssm families (ROADMAP.md queue 1 'Remaining "
+            f"architectures')")
+    if cfg.logit_softcap or \
             cfg.rope_kind not in ("standard", "partial", "none"):
         raise NotImplementedError(
-            "tied embeddings, logit softcap and sinusoid/M-RoPE positions "
-            "are not ported yet (ROADMAP.md queue 1 'Remaining "
-            "architectures')")
+            "logit softcap and sinusoid/M-RoPE positions are not ported "
+            "yet (ROADMAP.md queue 1 'Remaining architectures')")
 
 
 def init_params(cfg, seed: int = 0, device="cuda"):
@@ -47,27 +50,30 @@ def init_params(cfg, seed: int = 0, device="cuda"):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     pd = dtype_of(cfg.param_dtype)
-    return {
-        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, pd),
-        "ln_f": norm_init(cfg.d_model, pd, dev),
-        "lm_head": dense_init(gen, cfg.d_model, cfg.vocab_size, dtype=pd),
-        "blocks": [blk.block_init(gen, cfg, pd)
-                   for _ in range(cfg.num_layers)],
-    }
+    params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, pd),
+              "ln_f": norm_init(cfg.d_model, pd, dev, cfg.norm)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                       dtype=pd)
+    params["blocks"] = [blk.block_init(gen, cfg, pd)
+                        for _ in range(cfg.num_layers)]
+    return params
 
 
 def compute_params(params, cfg):
     """Params with every matrix the compute path casts at use stored once
     in cfg.compute_dtype: the numbers equal the reference's cast at each
-    call.  The lm_head stays as it is (logits are computed in f32) and
-    so do norm params (norms compute in f32)."""
+    call.  The lm_head stays as it is (logits are computed in f32), and
+    so do norm params (norms compute in f32), a tied embedding table (it
+    also unembeds, in f32 from the param dtype) and mamba2's conv_w (its
+    decode step convolves in f32 with the weight in the param dtype)."""
     cdt = dtype_of(cfg.compute_dtype)
+    kept = ("lm_head", "ln1", "ln2", "ln_f", "conv_w") + (
+        ("embed",) if cfg.tie_embeddings else ())
 
     def cast(tree, keep=False):
         if isinstance(tree, dict):
-            return {k: cast(v, keep or k in ("lm_head", "ln1", "ln2",
-                                             "ln_f"))
-                    for k, v in tree.items()}
+            return {k: cast(v, keep or k in kept) for k, v in tree.items()}
         if isinstance(tree, list):
             return [cast(v, keep) for v in tree]
         if keep or not tree.is_floating_point() or tree.dim() < 2:
@@ -104,7 +110,7 @@ def forward_hidden(params, cfg, batch):
         else:
             x = blk.block_apply(lp, cfg, x, positions, cdt)
     aux = torch.zeros((), dtype=F32, device=x.device)
-    return norm_apply(params["ln_f"], x), aux
+    return norm_apply(params["ln_f"], x, cfg.norm), aux
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +142,14 @@ def chunked_cross_entropy(hidden, w, labels, mask, chunk: int = 512):
     return loss_sum / torch.clamp(count, min=1.0)
 
 
+def _unembed_weight(params, cfg):
+    """(d_model, vocab) in f32 for the loss: the tied embedding table
+    transposed, or the lm_head."""
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].float().T
+    return params["lm_head"]["w"].float()
+
+
 def loss_fn(params, cfg, batch):
     """Next-token CE (+ the MoE aux term, 0 here).  Returns (loss,
     {"ce": ce, "aux": aux})."""
@@ -146,8 +160,8 @@ def loss_fn(params, cfg, batch):
     mask[:, -1] = 0.0
     if "loss_mask" in batch:
         mask = mask * batch["loss_mask"].float()
-    ce = chunked_cross_entropy(hidden, params["lm_head"]["w"].float(),
-                               labels, mask)
+    ce = chunked_cross_entropy(hidden, _unembed_weight(params, cfg), labels,
+                               mask)
     return ce, {"ce": ce, "aux": aux}
 
 
@@ -156,10 +170,11 @@ def loss_fn(params, cfg, batch):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda"):
-    """Decode cache for the whole model: per-layer caches (LAStates in
-    f32; KV caches, or with cfg.paging paged KV arenas each with its
-    own page table at the sink page, in the compute dtype, as the
-    reference's) and the per-slot position counter."""
+    """Decode cache for the whole model: per-layer caches (LAStates and
+    GLAStates in f32; KV caches, or with cfg.paging paged KV arenas each
+    with its own page table at the sink page, in the compute dtype, as
+    the reference's; MambaCaches: the f32 SSD state and the conv tail in
+    the compute dtype) and the per-slot position counter."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.compute_dtype)
@@ -168,7 +183,11 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
 
-def _last_logits(params, x_last):
+def _last_logits(params, cfg, x_last):
+    """(B, V) f32 logits of the last position: through the tied
+    embedding table (param dtype, in f32) or the lm_head."""
+    if cfg.tie_embeddings:
+        return unembed(params["embed"], x_last.float())[:, 0]
     return dense(params["lm_head"], x_last, F32)[:, 0]
 
 
@@ -195,8 +214,8 @@ def prefill(params, cfg, batch, cache):
     for lp, lc in zip(params["blocks"], cache["blocks"]):
         x, nc = blk.block_prefill(lp, cfg, x, positions, lc, cdt)
         new_blocks.append(nc)
-    x = norm_apply(params["ln_f"], x[:, -1:])
-    return _last_logits(params, x), {"blocks": new_blocks,
+    x = norm_apply(params["ln_f"], x[:, -1:], cfg.norm)
+    return _last_logits(params, cfg, x), {"blocks": new_blocks,
                                           "pos": cache["pos"] + n}
 
 
@@ -206,8 +225,10 @@ def decode_step(params, cfg, cache, tokens):
 
     The cache is updated IN PLACE (the reference's engine donates it):
     the fused decode kernel rewrites each layer's state, or the token's
-    k/v land in each layer's KV cache, and the position counter
-    advances; the same dict is returned.
+    k/v land in each layer's KV cache, or (mamba2, whose decode is the
+    reference's functional plain step) the layer's new MambaCache
+    replaces its entry; the position counter advances and the same dict
+    is returned.
     """
     cdt = dtype_of(cfg.compute_dtype)
     pos = cache["pos"]                       # (B,) — per-slot depths
@@ -217,5 +238,5 @@ def decode_step(params, cfg, cache, tokens):
         x, cache["blocks"][i] = blk.block_decode(
             lp, cfg, x, position, cache["blocks"][i], cdt)
     pos += 1
-    x = norm_apply(params["ln_f"], x)
-    return _last_logits(params, x), cache
+    x = norm_apply(params["ln_f"], x, cfg.norm)
+    return _last_logits(params, cfg, x), cache

@@ -1,6 +1,7 @@
 """The port imports neither jax nor the JAX package.
 
-Every `.py` file under `src/repro_torch/` is parsed with `ast`; any
+Every `.py` file under `src/repro_torch/`, and `chip_smoke.py`, which
+drives the port on the card, is parsed with `ast`; any
 `import jax...`, `from jax...`, `import repro...` or `from repro...`
 (the `repro` package, not `repro_torch`) fails.  Then the whole package
 is imported in a fresh interpreter and no jax or repro module may be in
@@ -14,8 +15,10 @@ import sys
 
 import pytest
 
-SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
 PORT = SRC / "repro_torch"
+CHIP_SMOKE = ROOT / "chip_smoke.py"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -41,8 +44,9 @@ def _forbidden_imports(source: str):
 def test_port_sources_import_no_jax_and_no_repro():
     files = _port_files()
     assert len(files) > 20, files
-    bad = {str(f.relative_to(SRC)): _forbidden_imports(f.read_text())
-           for f in files}
+    assert PORT / "kernels" / "ssd.py" in files
+    bad = {str(f.relative_to(ROOT)): _forbidden_imports(f.read_text())
+           for f in files + [CHIP_SMOKE]}
     assert not {f: b for f, b in bad.items() if b}
 
 
