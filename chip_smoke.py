@@ -11,6 +11,18 @@ fails the run by raising (no result line is printed then):
   2. build   — nvcc every kernel source of the paths from
                src/repro_torch/kernels/csrc, one process each, all started
                together (with -Xptxas -v); print the build seconds
+     check   — the static kernel-contract checks on the card
+               (`repro_torch.check.run_all(device="cuda")`, what `python
+               -m repro_torch.check` runs): registry, lint, shared memory,
+               the autograd audits (cuda impls too) and the launch bounds
+               of all 18 model kernel entries, each Python launch plan
+               held against its launcher's C `_plan` export and each entry
+               launched under guard bands at small and full widths; no
+               finding allowed.  Then the launch-bounds fixture
+               (csrc/check_fixture.cu, `oob_blocked_sum`) must be flagged
+               exactly REPRO-B001 by its plan and by its guard band, and
+               equal its plain version on the same guarded buffer (NaN
+               positions included); its launches are the check path's
   3. kernel  — each kernel against its plain PyTorch version on CUDA
                tensors: the linear decode step at the serving shapes (plus
                GQA and a zero normalizer, state in place); la_fwd,
@@ -92,9 +104,11 @@ fails the run by raising (no result line is printed then):
   6. timing  — each kernel and its plain version with CUDA events at the
                main paths' shapes, in turns, beside the kernel's bound and,
                where one PyTorch call computes the same function (SDPA for
-               the contiguous softmax kernels; the port never calls it),
+               the contiguous softmax kernels, `Tensor.copy_` of the
+               shifted slice for the fixture; the port never calls them),
                that call; the paged decode kernels also beside the
-               contiguous one on the same keys
+               contiguous one on the same keys; the fixture at n = 2^24
+               f32, block 256
   7. result  — a JSON line with every measurement, the card's line, a
                `kernels` JSON line, then {"ok": true, "device": {...}}
                as the last line
@@ -155,6 +169,8 @@ KERNELS = {
     "ssd_fwd": (f"{CSRC}/ssd.cu", "src/repro/kernels/ssd.py:65"),
     "ssd_bwd_q": (f"{CSRC}/ssd.cu", "src/repro/kernels/ssd.py:192"),
     "ssd_bwd_kv": (f"{CSRC}/ssd.cu", "src/repro/kernels/ssd.py:192"),
+    "oob_blocked_sum": (f"{CSRC}/check_fixture.cu",
+                        "src/repro/check/fixtures.py:35"),
 }
 FLASH_BWD = ("flash_bwd_delta", "flash_bwd_q", "flash_bwd_kv")
 
@@ -254,8 +270,9 @@ def _counters():
     from repro_torch.kernels import linear_attention as la
     from repro_torch.kernels import paged_attention as pg
     from repro_torch.kernels import ssd
+    from repro_torch.check import fixtures
     return (df.launches, la.launches, fl.launches, pg.launches,
-            gla.launches, ssd.launches)
+            gla.launches, ssd.launches, fixtures.launches)
 
 
 def reset_launches() -> None:
@@ -312,6 +329,56 @@ def phase_build():
     for name, text in logs.items():
         log(f"[build] {name}: {secs!r} s\n{text.strip()}")
     return secs
+
+
+# ---------------------------------------------------------------------------
+# the static kernel-contract checks (this slice's path)
+# ---------------------------------------------------------------------------
+
+def phase_check(torch):
+    """run_all on the card, then the fixture: the check path, its launch
+    counts set to 0 just before and read just after."""
+    from repro_torch.check import fixtures, run_all
+    t0 = time.perf_counter()
+    reset_launches()
+    report = run_all(device="cuda", log=lambda s: log(f"[check] {s}"))
+    static = fixtures.audit_oob_fixture()
+    on_card = fixtures.audit_oob_fixture_on_card()
+    launches = read_launches()
+    secs = time.perf_counter() - t0
+    if report["findings"]:
+        raise AssertionError(f"check: findings on the model kernels: "
+                             f"{report['findings']}")
+    for label, found in (("plan", static), ("guard band", on_card)):
+        log(f"[check] fixture by its {label}: {[str(f) for f in found]}")
+        if sorted({f.rule for f in found}) != ["REPRO-B001"]:
+            raise AssertionError(f"check: the fixture's {label} gave "
+                                 f"{found}, not exactly REPRO-B001")
+    if launches["oob_blocked_sum"] < 1:
+        raise AssertionError(f"check: the fixture kernel never launched "
+                             f"on the check path: {launches}")
+    # the kernel against its plain version on one guarded buffer (a
+    # comparison: outside the counted path)
+    g = fixtures.guarded_oob_input(64, "cuda")
+    got = fixtures.oob_blocked_sum_cuda(g.view, 16)
+    want = fixtures.oob_blocked_sum_torch(g.buf, g.guard, 64, 16)
+    torch.cuda.synchronize()
+    live = ~torch.isnan(want)
+    err = float((got[live] - want[live]).abs().max())
+    if not torch.equal(torch.isnan(got), ~live) or err != 0.0:
+        raise AssertionError(f"check: fixture kernel {got} != plain {want}")
+    bounds = [c for c in report["coverage"] if c["pass"] == "bounds"]
+    rec = {"check_s": secs, "findings": len(report["findings"]),
+           "bounds_cases": sum(c["cases"] for c in bounds),
+           "bounds_entries": sorted({k for c in bounds
+                                     for k in c["kernels"]}),
+           "autograd_cells": sum(c["pass"] == "autograd"
+                                 for c in report["coverage"]),
+           "fixture_rules": {"plan": [f.rule for f in static],
+                             "guard_band": [f.rule for f in on_card]},
+           "fixture_max_abs_err": err}
+    log(f"[check] {rec}; launches on the check path {launches}")
+    return rec, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2196,12 +2263,41 @@ def phase_timing_ssd(torch):
     return out
 
 
+def phase_timing_fixture(torch):
+    """The fixture kernel at n = 2^24 f32, block 256, its last block
+    reading the block after x in one allocation, beside its plain version
+    and `Tensor.copy_` of the shifted slice (the one PyTorch call for the
+    same function); bound: 64 MiB read and 64 MiB written."""
+    from repro_torch.check import fixtures
+    n, block = 1 << 24, 256
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    buf = torch.randn(n + block, device="cuda", generator=gen)
+    x, out = buf[:n], torch.empty(n, device="cuda")
+    kern, plain = _time_pair(
+        torch, lambda: fixtures.oob_blocked_sum_torch(buf, 0, n, block),
+        lambda: fixtures.oob_blocked_sum_cuda(x, block), reps=50, warm=3)
+    kern2, lib = _time_pair(torch,
+                            lambda: out.copy_(buf[block:n + block]),
+                            lambda: fixtures.oob_blocked_sum_cuda(x, block),
+                            reps=50, warm=3)
+    rec = {"ms": min(kern + kern2), "ms_runs": kern + kern2,
+           "plain_ms": min(plain), "plain_ms_runs": plain,
+           "library_ms": min(lib), "library_ms_runs": lib,
+           **_bound(2 * n * 4, 0)}
+    log(f"[timing] oob_blocked_sum n={n} block={block} f32: {rec}")
+    del buf, x, out
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import numpy as np
     import torch
 
     name, smi = phase_device(torch)
     build_s = phase_build()
+    check, check_launches = phase_check(torch)
     kernel_errs = phase_kernel(torch)
     la_errs = phase_kernel_la(torch)
     softmax_errs = phase_kernel_softmax(torch)
@@ -2224,7 +2320,8 @@ def main() -> int:
     train_m2, train_m2_launches = phase_train(torch, "mamba2")
     timing = {"la_decode_fused": phase_timing(torch), **phase_timing_la(
         torch), **phase_timing_softmax(torch), **phase_timing_paged(torch),
-        **phase_timing_gla(torch), **phase_timing_ssd(torch)}
+        **phase_timing_gla(torch), **phase_timing_ssd(torch),
+        "oob_blocked_sum": phase_timing_fixture(torch)}
 
     # each kernel's launches summed over the main-path runs (every other
     # run left it at 0, expect_launches checked)
@@ -2233,6 +2330,8 @@ def main() -> int:
             serve_m2_launches, train_launches, train_sm_launches,
             train_gla_launches, train_m2_launches)
     launches = {k: sum(r[k] for r in runs) for k in KERNELS}
+    # the fixture's: those of the check path
+    launches["oob_blocked_sum"] = check_launches["oob_blocked_sum"]
     max_err = {"la_decode_fused": kernel_errs["main_bf16"],
                **la_errs["main_bf16"],
                **softmax_errs["decode_main_bf16"],
@@ -2242,7 +2341,8 @@ def main() -> int:
                **{k: v for k, v in gla_errs["main_bf16"].items()
                   if k in KERNELS},
                **{k: v for k, v in ssd_errs["main_bf16"].items()
-                  if k in KERNELS}}
+                  if k in KERNELS},
+               "oob_blocked_sum": check["fixture_max_abs_err"]}
     kernels = {"kernels": [{
         "name": kname, "route": "cuda", "source": KERNELS[kname][0],
         "replaces": KERNELS[kname][1], "launches": launches[kname],
@@ -2260,7 +2360,7 @@ def main() -> int:
                       "serve_mamba2": serve_m2,
                       "train": train, "train_softmax": train_sm,
                       "train_gla": train_gla, "train_mamba2": train_m2,
-                      "build_s": build_s,
+                      "build_s": build_s, "check": check,
                       "kernel_max_abs_err": kernel_errs,
                       "la_kernel_max_abs_err": la_errs,
                       "softmax_kernel_max_abs_err": softmax_errs,

@@ -2,7 +2,8 @@
 
 Only what the ported paths read is kept: `LACfg`, `ModelConfig` (its
 fields, `resolved_head_dim` and `param_count`), the optional blocks
-`ModelConfig` names, and `TrainConfig`.  `SSMCfg` is read by the mamba2
+`ModelConfig` names, `TrainConfig`, and the workload shapes `SHAPES`
+(read by `repro_torch.check.smem`).  `SSMCfg` is read by the mamba2
 mixer; the other family extensions (MoE, MLA, hybrid, enc-dec) keep
 their fields so `param_count` matches the reference, but no module of
 the port reads them yet.
@@ -173,6 +174,22 @@ class ModelConfig:
             total += self.encoder_layers * (enc_attn + mult * d * self.d_ff)
             total += self.num_layers * enc_attn
         return total
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str            # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
 
 
 @dataclasses.dataclass(frozen=True)

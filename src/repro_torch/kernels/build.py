@@ -9,9 +9,11 @@ never loads a stale library.  Nothing is built at
 import: the first call that needs a kernel builds it.
 
 Every source exports its kernels' launchers as plain C functions that
-return a cudaError_t, and `<name>_error_string`.  `bind` declares their
-signatures, `check_tensors` raises on tensors a kernel does not take and
-`raise_on` turns a launcher's error code into an exception.
+return a cudaError_t, `<name>_error_string`, and `<name>_plan`, which
+reports the geometry its launcher would launch (csrc/plan.cuh).  `bind`
+declares their signatures, `check_tensors` raises on tensors a kernel
+does not take and `raise_on` turns a launcher's error code into an
+exception.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
         -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
@@ -37,9 +39,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 PTXAS_VERBOSE = ("-Xptxas", "-v")
 
 # every kernel source of csrc/ (without the .cu), in the order of the port's
-# slices
+# slices; the last is the static checks' launch-bounds fixture
 SOURCES = ("la_decode_fused", "la_fwd", "la_bwd", "softmax_decode_fused",
-           "flash_fwd", "flash_bwd", "paged_decode", "ssd")
+           "flash_fwd", "flash_bwd", "paged_decode", "ssd", "check_fixture")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -43,7 +43,10 @@
 //   * the delta pass is its own kernel (one warp per row), so both product
 //     kernels read delta as they read lse.
 
+#include <string.h>
+
 #include "flash_common.cuh"
+#include "plan.cuh"
 
 namespace {
 
@@ -300,59 +303,46 @@ __global__ void __launch_bounds__(kThreads)
 // launchers
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
+enum class Kind { kDelta, kQ, kKV };
 
-template <typename T, int D>
-cudaError_t launch_delta(const void* o, const void* dout, void* delta,
-                         size_t rows, cudaStream_t stream) {
-  constexpr int kRowsPerBlock = 8;
-  const size_t blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  flash_bwd_delta_kernel<T, D><<<static_cast<unsigned>(blocks),
-                                 kRowsPerBlock * 32, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout),
-      static_cast<float*>(delta), rows);
-  return cudaGetLastError();
-}
+constexpr int kDeltaRowsPerBlock = 8;  // one warp per row
 
-template <typename T, int D>
-cudaError_t launch_q(const void* q, const void* k, const void* v,
-                     const void* dout, const void* lse, const void* delta,
-                     void* dq, int batch, int heads, int kv_heads, int n,
-                     float scale, cudaStream_t stream) {
-  const size_t smem = smem_q_bytes<T, D>();
-  auto kernel = flash_bwd_q_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + kBlockQ - 1) / kBlockQ, heads, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), heads, kv_heads, n, scale);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_kv(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dk, void* dv, int batch, int heads, int kv_heads,
-                      int n, float scale, cudaStream_t stream) {
-  const size_t smem = smem_kv_bytes<T, D>();
-  auto kernel = flash_bwd_kv_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + kBlockK - 1) / kBlockK, kv_heads, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), heads, kv_heads, n, scale);
-  return cudaGetLastError();
+// The launch of one of the three kernels, shared by the launchers and
+// `flash_bwd_plan`: f(Type<T>{}, kernel, geometry) for the instantiation a
+// call with these arguments runs.  delta: one warp per row of the
+// flattened (B * H * N) rows, 8 rows a block, no shared memory; dq: one
+// block of 4 warps per (query tile, head, slot); dk/dv: one per (KV tile,
+// KV head, slot).
+template <Kind K, typename F>
+cudaError_t with_launch(int dtype, int d, int batch, int heads, int kv_heads,
+                        int n, F&& f) {
+  return plan::with_dtype(dtype, [&](auto t) {
+    return plan::with_head_dim(d, [&](auto dc) {
+      using T = typename decltype(t)::type;
+      constexpr int D = decltype(dc)::value;
+      if constexpr (K == Kind::kDelta) {
+        const size_t rows = static_cast<size_t>(batch) * heads * n;
+        auto kernel = flash_bwd_delta_kernel<T, D>;
+        return f(t, kernel,
+                 plan::Geometry{
+                     dim3(static_cast<unsigned>(
+                         (rows + kDeltaRowsPerBlock - 1) /
+                         kDeltaRowsPerBlock)),
+                     kDeltaRowsPerBlock * 32, 0, 1});
+      } else if constexpr (K == Kind::kQ) {
+        auto kernel = flash_bwd_q_kernel<T, D>;
+        return f(t, kernel,
+                 plan::Geometry{dim3((n + kBlockQ - 1) / kBlockQ, heads, batch),
+                                kThreads, smem_q_bytes<T, D>(), 1});
+      } else {
+        auto kernel = flash_bwd_kv_kernel<T, D>;
+        return f(t, kernel,
+                 plan::Geometry{
+                     dim3((n + kBlockK - 1) / kBlockK, kv_heads, batch),
+                     kThreads, smem_kv_bytes<T, D>(), 1});
+      }
+    });
+  });
 }
 
 bool valid(int batch, int heads, int kv_heads, int n, int block_q,
@@ -362,22 +352,6 @@ bool valid(int batch, int heads, int kv_heads, int n, int block_q,
 }
 
 }  // namespace
-
-#define FLASH_DISPATCH(T_CODE, D, CALL)                               \
-  do {                                                                \
-    if ((T_CODE) == 0) {                                              \
-      using T = float;                                                \
-      if ((D) == 32) { constexpr int kD = 32; return (int)(CALL); }   \
-      if ((D) == 64) { constexpr int kD = 64; return (int)(CALL); }   \
-      if ((D) == 128) { constexpr int kD = 128; return (int)(CALL); } \
-    } else if ((T_CODE) == 1) {                                       \
-      using T = __nv_bfloat16;                                        \
-      if ((D) == 32) { constexpr int kD = 32; return (int)(CALL); }   \
-      if ((D) == 64) { constexpr int kD = 64; return (int)(CALL); }   \
-      if ((D) == 128) { constexpr int kD = 128; return (int)(CALL); } \
-    }                                                                 \
-    return static_cast<int>(cudaErrorInvalidValue);                   \
-  } while (0)
 
 // Plain C interface, loaded with ctypes.  dtype: 0 = float32,
 // 1 = bfloat16.  block_q / block_k must be the compiled tiles (64, 64).
@@ -391,8 +365,15 @@ extern "C" int flash_bwd_delta(const void* o, const void* dout, void* delta,
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t rows = static_cast<size_t>(batch) * heads * n;
   if (rows == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(dtype, d, (launch_delta<T, kD>(o, dout, delta, rows, st)));
+  return static_cast<int>(with_launch<Kind::kDelta>(
+      dtype, d, batch, heads, heads, n,
+      [&](auto t, auto kernel, const plan::Geometry& geo) {
+        using T = typename decltype(t)::type;
+        return plan::launch(kernel, geo, static_cast<cudaStream_t>(stream),
+                            static_cast<const T*>(o),
+                            static_cast<const T*>(dout),
+                            static_cast<float*>(delta), rows);
+      }));
 }
 
 extern "C" int flash_bwd_q(const void* q, const void* k, const void* v,
@@ -404,10 +385,19 @@ extern "C" int flash_bwd_q(const void* q, const void* k, const void* v,
   if (!valid(batch, heads, kv_heads, n, block_q, block_k))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(dtype, d,
-                 (launch_q<T, kD>(q, k, v, dout, lse, delta, dq, batch,
-                                  heads, kv_heads, n, scale, st)));
+  return static_cast<int>(with_launch<Kind::kQ>(
+      dtype, d, batch, heads, kv_heads, n,
+      [&](auto t, auto kernel, const plan::Geometry& geo) {
+        using T = typename decltype(t)::type;
+        return plan::launch(kernel, geo, static_cast<cudaStream_t>(stream),
+                            static_cast<const T*>(q),
+                            static_cast<const T*>(k),
+                            static_cast<const T*>(v),
+                            static_cast<const T*>(dout),
+                            static_cast<const float*>(lse),
+                            static_cast<const float*>(delta),
+                            static_cast<T*>(dq), heads, kv_heads, n, scale);
+      }));
 }
 
 extern "C" int flash_bwd_kv(const void* q, const void* k, const void* v,
@@ -419,10 +409,44 @@ extern "C" int flash_bwd_kv(const void* q, const void* k, const void* v,
   if (!valid(batch, heads, kv_heads, n, block_q, block_k))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(dtype, d,
-                 (launch_kv<T, kD>(q, k, v, dout, lse, delta, dk, dv, batch,
-                                   heads, kv_heads, n, scale, st)));
+  return static_cast<int>(with_launch<Kind::kKV>(
+      dtype, d, batch, heads, kv_heads, n,
+      [&](auto t, auto kernel, const plan::Geometry& geo) {
+        using T = typename decltype(t)::type;
+        return plan::launch(kernel, geo, static_cast<cudaStream_t>(stream),
+                            static_cast<const T*>(q),
+                            static_cast<const T*>(k),
+                            static_cast<const T*>(v),
+                            static_cast<const T*>(dout),
+                            static_cast<const float*>(lse),
+                            static_cast<const float*>(delta),
+                            static_cast<T*>(dk), static_cast<T*>(dv), heads,
+                            kv_heads, n, scale);
+      }));
+}
+
+// The geometry a call of `entry` ("flash_bwd_delta", "flash_bwd_q" or
+// "flash_bwd_kv") with these arguments launches, into out[7] (plan.cuh);
+// nothing is launched.  flash_bwd_delta reads batch, heads, n, d and dtype.
+extern "C" int flash_bwd_plan(const char* entry, int batch, int heads,
+                              int kv_heads, int n, int d, int block_q,
+                              int block_k, int dtype, int64_t* out) {
+  auto report = [&](auto, auto kernel, const plan::Geometry& geo) {
+    return plan::report(kernel, geo, out);
+  };
+  cudaError_t err = cudaErrorInvalidValue;
+  if (strcmp(entry, "flash_bwd_delta") == 0) {
+    if (batch > 0 && heads > 0 && n >= 0)
+      err = with_launch<Kind::kDelta>(dtype, d, batch, heads, heads, n,
+                                      report);
+  } else if (valid(batch, heads, kv_heads, n, block_q, block_k)) {
+    if (strcmp(entry, "flash_bwd_q") == 0)
+      err = with_launch<Kind::kQ>(dtype, d, batch, heads, kv_heads, n, report);
+    else if (strcmp(entry, "flash_bwd_kv") == 0)
+      err = with_launch<Kind::kKV>(dtype, d, batch, heads, kv_heads, n,
+                                   report);
+  }
+  return static_cast<int>(err);
 }
 
 extern "C" const char* flash_bwd_error_string(int code) {

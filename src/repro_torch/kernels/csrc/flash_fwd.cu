@@ -38,7 +38,10 @@
 //   * query tiles are issued deepest first, so the longest walks start
 //     first.
 
+#include <string.h>
+
 #include "flash_common.cuh"
+#include "plan.cuh"
 
 namespace {
 
@@ -169,43 +172,28 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, const void* q_offset, int batch, int heads,
-                   int kv_heads, int nq, int nk, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, D>();
-  auto kernel = flash_fwd_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((nq + kBlockQ - 1) / kBlockQ, heads, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      static_cast<const int*>(q_offset), heads, kv_heads, nq, nk, scale);
-  return cudaGetLastError();
+// The launch of flash_fwd, shared by the launcher and `flash_fwd_plan`:
+// f(Type<T>{}, kernel, geometry) for the instantiation a call with these
+// arguments runs.  One block of 4 warps per (query tile, head, slot).
+template <typename F>
+cudaError_t with_launch(int dtype, int d, int batch, int heads, int nq,
+                        F&& f) {
+  return plan::with_dtype(dtype, [&](auto t) {
+    return plan::with_head_dim(d, [&](auto dc) {
+      using T = typename decltype(t)::type;
+      constexpr int D = decltype(dc)::value;
+      auto kernel = flash_fwd_kernel<T, D>;
+      return f(t, kernel,
+               plan::Geometry{dim3((nq + kBlockQ - 1) / kBlockQ, heads, batch),
+                              kThreads, smem_bytes<T, D>(), 1});
+    });
+  });
 }
 
-template <typename T>
-cudaError_t dispatch_dim(int d, const void* q, const void* k, const void* v,
-                         void* o, void* lse, const void* q_offset, int batch,
-                         int heads, int kv_heads, int nq, int nk, float scale,
-                         cudaStream_t st) {
-  switch (d) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, q_offset, batch, heads,
-                           kv_heads, nq, nk, scale, st);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, q_offset, batch, heads,
-                           kv_heads, nq, nk, scale, st);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, q_offset, batch, heads,
-                            kv_heads, nq, nk, scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+bool bad_shape(int batch, int heads, int kv_heads, int nq, int nk,
+               int block_q, int block_k) {
+  return batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || nq < 0 ||
+         nk < 0 || block_q != kBlockQ || block_k != kBlockK;
 }
 
 }  // namespace
@@ -219,21 +207,37 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int heads, int kv_heads, int nq, int nk, int d,
                          int block_q, int block_k, float scale, int dtype,
                          void* stream) {
-  if (batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || nq < 0 ||
-      nk < 0 || block_q != kBlockQ || block_k != kBlockK)
+  if (bad_shape(batch, heads, kv_heads, nq, nk, block_q, block_k))
     return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_dim<float>(d, q, k, v, o, lse, q_offset, batch, heads,
-                              kv_heads, nq, nk, scale, st);
-  else if (dtype == 1)
-    err = dispatch_dim<__nv_bfloat16>(d, q, k, v, o, lse, q_offset, batch,
-                                      heads, kv_heads, nq, nk, scale, st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(with_launch(
+      dtype, d, batch, heads, nq,
+      [&](auto t, auto kernel, const plan::Geometry& geo) {
+        using T = typename decltype(t)::type;
+        return plan::launch(kernel, geo, static_cast<cudaStream_t>(stream),
+                            static_cast<const T*>(q),
+                            static_cast<const T*>(k),
+                            static_cast<const T*>(v), static_cast<T*>(o),
+                            static_cast<float*>(lse),
+                            static_cast<const int*>(q_offset), heads,
+                            kv_heads, nq, nk, scale);
+      }));
+}
+
+// The geometry a call of `entry` ("flash_fwd") with these arguments
+// launches, into out[7] (plan.cuh); nothing is launched.
+extern "C" int flash_fwd_plan(const char* entry, int batch, int heads,
+                              int kv_heads, int nq, int nk, int d,
+                              int block_q, int block_k, int dtype,
+                              int64_t* out) {
+  if (strcmp(entry, "flash_fwd") != 0 ||
+      bad_shape(batch, heads, kv_heads, nq, nk, block_q, block_k))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_launch(
+      dtype, d, batch, heads, nq,
+      [&](auto, auto kernel, const plan::Geometry& geo) {
+        return plan::report(kernel, geo, out);
+      }));
 }
 
 extern "C" const char* flash_fwd_error_string(int code) {

@@ -87,7 +87,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <algorithm>
+#include <string.h>
+
+#include <type_traits>
+
+#include "plan.cuh"
 
 namespace {
 
@@ -500,113 +504,51 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
   }
 }
 
-// The staging tokens that fit the shared memory, at most `stage`; its bytes
-// in `smem`.  0 where one token does not fit.
-int fit_stage(int stage, size_t per_token, size_t* smem) {
-  const int fit = static_cast<int>(
-      std::min(static_cast<size_t>(stage), kMaxSmem / per_token));
-  *smem = fit * per_token;
-  return fit;
+// The launches of the two kernels, shared by the launchers and
+// `la_bwd_plan`: f(Type<T>{}, kernel, geometry) for the instantiation a call
+// with these arguments runs, with `stage` shrunk to fit kMaxSmem.
+// dq: one block per (batch, query head), D threads; the staging holds k, v
+// and Ω̂ padded, h and the decay per token.
+template <bool kGated, typename F>
+cudaError_t with_launch_q(int dtype, int d, int batch, int heads, int stage,
+                          F&& f) {
+  return plan::with_dtype(dtype, [&](auto t) {
+    return plan::with_head_dim(d, [&](auto dc) {
+      using T = typename decltype(t)::type;
+      constexpr int D = decltype(dc)::value;
+      const size_t per_token =
+          static_cast<size_t>(3 * Rows<D>::kPadded + 1 + (kGated ? 1 : 0)) *
+          sizeof(float);
+      auto kernel = la_bwd_q_kernel<T, D, kGated>;
+      return f(t, kernel,
+               plan::fit({dim3(batch * heads), D, 0, 0}, stage, per_token,
+                         kMaxSmem));
+    });
+  });
 }
 
-template <typename T, int D, bool kGated>
-cudaError_t launch_q(const void* k, const void* v, const void* ld,
-                     const void* om, const void* hv, void* dq, int blocks,
-                     int heads, int kv_heads, int n, int stage, float b,
-                     cudaStream_t stream) {
-  // k, v and Ω̂ padded, h, and the decay
-  size_t smem;
-  stage = fit_stage(
-      stage,
-      static_cast<size_t>(3 * Rows<D>::kPadded + 1 + (kGated ? 1 : 0)) *
-          sizeof(float),
-      &smem);
-  if (stage < 1) return cudaErrorInvalidValue;
-  auto kernel = la_bwd_q_kernel<T, D, kGated>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<blocks, D, smem, stream>>>(
-      static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(ld), static_cast<const float*>(om),
-      static_cast<const float*>(hv), static_cast<T*>(dq), heads, kv_heads, n,
-      stage, b);
-  return cudaGetLastError();
-}
-
-template <typename T, int D, bool kGated>
-cudaError_t launch_kv(const void* q, const void* k, const void* v,
-                      const void* ld, const void* om, const void* hv,
-                      void* dk, void* dv, int blocks, int heads, int kv_heads,
-                      int n, int stage, float a, float b,
-                      cudaStream_t stream) {
+// dk, dv: one block per (batch, KV head), the row and column roles of D
+// threads each; the staging holds q and Ω̂ of the G query heads and k and v,
+// padded, h of the G heads and, gated, the decay, the row warps' shares of
+// k.U[:Dk, Dv] and U[Dk, Dv] per token, so large groups stage fewer tokens.
+template <bool kGated, typename F>
+cudaError_t with_launch_kv(int dtype, int d, int batch, int heads,
+                           int kv_heads, int stage, F&& f) {
   const int group = heads / kv_heads;
-  // q and Ω̂ of the G query heads, k and v, padded; h of the G heads;
-  // gated: the decay, the row warps' shares of k.U[:Dk, Dv] and U[Dk, Dv]
-  size_t smem;
-  stage = fit_stage(
-      stage,
-      static_cast<size_t>((2 * group + 2) * Rows<D>::kPadded + group +
-                          (kGated ? D / 32 + 2 : 0)) *
-          sizeof(float),
-      &smem);
-  if (stage < 1) return cudaErrorInvalidValue;
-  auto kernel = la_bwd_kv_kernel<T, D, kGated>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  // the row and column roles
-  kernel<<<blocks, 2 * D, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(ld),
-      static_cast<const float*>(om), static_cast<const float*>(hv),
-      static_cast<T*>(dk),
-      static_cast<typename DvOut<T, D, kGated>::type*>(dv), heads, kv_heads,
-      n, stage, a, b);
-  return cudaGetLastError();
-}
-
-template <typename T, bool kGated>
-cudaError_t dispatch_q(int d, const void* k, const void* v, const void* ld,
-                       const void* om, const void* hv, void* dq, int blocks,
-                       int heads, int kv_heads, int n, int stage, float b,
-                       cudaStream_t st) {
-  switch (d) {
-    case 32:
-      return launch_q<T, 32, kGated>(k, v, ld, om, hv, dq, blocks, heads,
-                                     kv_heads, n, stage, b, st);
-    case 64:
-      return launch_q<T, 64, kGated>(k, v, ld, om, hv, dq, blocks, heads,
-                                     kv_heads, n, stage, b, st);
-    case 128:
-      return launch_q<T, 128, kGated>(k, v, ld, om, hv, dq, blocks, heads,
-                                      kv_heads, n, stage, b, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T, bool kGated>
-cudaError_t dispatch_kv(int d, const void* q, const void* k, const void* v,
-                        const void* ld, const void* om, const void* hv,
-                        void* dk, void* dv, int blocks, int heads,
-                        int kv_heads, int n, int stage, float a, float b,
-                        cudaStream_t st) {
-  switch (d) {
-    case 32:
-      return launch_kv<T, 32, kGated>(q, k, v, ld, om, hv, dk, dv, blocks,
-                                      heads, kv_heads, n, stage, a, b, st);
-    case 64:
-      return launch_kv<T, 64, kGated>(q, k, v, ld, om, hv, dk, dv, blocks,
-                                      heads, kv_heads, n, stage, a, b, st);
-    case 128:
-      return launch_kv<T, 128, kGated>(q, k, v, ld, om, hv, dk, dv, blocks,
-                                       heads, kv_heads, n, stage, a, b, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return plan::with_dtype(dtype, [&](auto t) {
+    return plan::with_head_dim(d, [&](auto dc) {
+      using T = typename decltype(t)::type;
+      constexpr int D = decltype(dc)::value;
+      const size_t per_token =
+          static_cast<size_t>((2 * group + 2) * Rows<D>::kPadded + group +
+                              (kGated ? D / 32 + 2 : 0)) *
+          sizeof(float);
+      auto kernel = la_bwd_kv_kernel<T, D, kGated>;
+      return f(t, kernel,
+               plan::fit({dim3(batch * kv_heads), 2 * D, 0, 0}, stage,
+                         per_token, kMaxSmem));
+    });
+  });
 }
 
 bool bad_shape(int batch, int heads, int kv_heads, int n, int stage) {
@@ -621,18 +563,20 @@ int run_q(const void* k, const void* v, const void* ld, const void* om,
   if (bad_shape(batch, heads, kv_heads, n, stage))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  const int blocks = batch * heads;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_q<float, kGated>(d, k, v, ld, om, hv, dq, blocks, heads,
-                                    kv_heads, n, stage, b, st);
-  else if (dtype == 1)
-    err = dispatch_q<__nv_bfloat16, kGated>(d, k, v, ld, om, hv, dq, blocks,
-                                            heads, kv_heads, n, stage, b, st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(with_launch_q<kGated>(
+      dtype, d, batch, heads, stage,
+      [&](auto t, auto kernel, const plan::Geometry& geo) {
+        using T = typename decltype(t)::type;
+        if (geo.stage < 1) return cudaErrorInvalidValue;
+        return plan::launch(kernel, geo, static_cast<cudaStream_t>(stream),
+                            static_cast<const T*>(k),
+                            static_cast<const T*>(v),
+                            static_cast<const float*>(ld),
+                            static_cast<const float*>(om),
+                            static_cast<const float*>(hv),
+                            static_cast<T*>(dq), heads, kv_heads, n,
+                            geo.stage, b);
+      }));
 }
 
 template <bool kGated>
@@ -643,19 +587,23 @@ int run_kv(const void* q, const void* k, const void* v, const void* ld,
   if (bad_shape(batch, heads, kv_heads, n, stage))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  const int blocks = batch * kv_heads;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_kv<float, kGated>(d, q, k, v, ld, om, hv, dk, dv, blocks,
-                                     heads, kv_heads, n, stage, a, b, st);
-  else if (dtype == 1)
-    err = dispatch_kv<__nv_bfloat16, kGated>(d, q, k, v, ld, om, hv, dk, dv,
-                                             blocks, heads, kv_heads, n,
-                                             stage, a, b, st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(with_launch_kv<kGated>(
+      dtype, d, batch, heads, kv_heads, stage,
+      [&](auto t, auto kernel, const plan::Geometry& geo) {
+        using T = typename decltype(t)::type;
+        // dv's element type (DvOut): T, or f32 for the gated dV'
+        using TV = std::conditional_t<kGated, float, T>;
+        if (geo.stage < 1) return cudaErrorInvalidValue;
+        return plan::launch(kernel, geo, static_cast<cudaStream_t>(stream),
+                            static_cast<const T*>(q),
+                            static_cast<const T*>(k),
+                            static_cast<const T*>(v),
+                            static_cast<const float*>(ld),
+                            static_cast<const float*>(om),
+                            static_cast<const float*>(hv),
+                            static_cast<T*>(dk), static_cast<TV*>(dv), heads,
+                            kv_heads, n, geo.stage, a, b);
+      }));
 }
 
 }  // namespace
@@ -698,6 +646,31 @@ extern "C" int gla_bwd_kv(const void* q, const void* k, const void* v,
                           float b, int dtype, void* stream) {
   return run_kv<true>(q, k, v, ld, om, hv, dk, dva, batch, heads, kv_heads,
                       n, d, stage, a, b, dtype, stream);
+}
+
+// The geometry a call of `entry` ("la_bwd_q", "la_bwd_kv", "gla_bwd_q" or
+// "gla_bwd_kv") with these arguments launches, into out[7] (plan.cuh);
+// nothing is launched.
+extern "C" int la_bwd_plan(const char* entry, int batch, int heads,
+                           int kv_heads, int n, int d, int stage, int dtype,
+                           int64_t* out) {
+  if (bad_shape(batch, heads, kv_heads, n, stage))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto report = [&](auto, auto kernel, const plan::Geometry& geo) {
+    return plan::report(kernel, geo, out);
+  };
+  cudaError_t err = cudaErrorInvalidValue;
+  if (strcmp(entry, "la_bwd_q") == 0)
+    err = with_launch_q<false>(dtype, d, batch, heads, stage, report);
+  else if (strcmp(entry, "gla_bwd_q") == 0)
+    err = with_launch_q<true>(dtype, d, batch, heads, stage, report);
+  else if (strcmp(entry, "la_bwd_kv") == 0)
+    err = with_launch_kv<false>(dtype, d, batch, heads, kv_heads, stage,
+                                report);
+  else if (strcmp(entry, "gla_bwd_kv") == 0)
+    err = with_launch_kv<true>(dtype, d, batch, heads, kv_heads, stage,
+                               report);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* la_bwd_error_string(int code) {

@@ -46,6 +46,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <string.h>
+
+#include "plan.cuh"
+
 namespace {
 
 constexpr float kSafeEps = 1e-30f;  // core.numerics.safe_div threshold
@@ -139,59 +143,54 @@ __global__ void la_decode_fused_kernel(float* __restrict__ s,
   }
 }
 
-template <typename T, int G, bool kGated>
-cudaError_t launch(void* s, void* p, const void* q, const void* k,
-                   const void* v, const void* ld, void* o, int blocks, int dk,
-                   int dv, float a, float b, cudaStream_t stream) {
+// The launch of la_decode_fused / gla_decode_fused, shared by the launcher
+// and `la_decode_fused_plan`: f(Type<T>{}, kernel, geometry) for the
+// instantiation a call with these arguments runs.  One block per (slot, KV
+// head); threads stride over the Dv+1 columns; k, [v, 1], the group's G
+// query rows and its G un-normalized rows f in shared memory, at most
+// kMaxSmem (the launcher refuses more).
+template <bool kGated, typename F>
+cudaError_t with_launch(int dtype, int group, int batch, int kv_heads,
+                        int dk, int dv, F&& f) {
   const int dv1 = dv + 1;
-  int threads = (dv1 + 31) / 32 * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  const size_t smem =
-      static_cast<size_t>(dk + dv1 + G * dk + G * dv1) * sizeof(float);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  la_decode_fused_kernel<T, G, kGated><<<blocks, threads, smem, stream>>>(
-      static_cast<float*>(s), static_cast<float*>(p),
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(ld),
-      static_cast<T*>(o), dk, dv, a, b);
-  return cudaGetLastError();
+  const int threads = std::min((dv1 + 31) / 32 * 32, kMaxThreads);
+  return plan::with_dtype(dtype, [&](auto t) {
+    return plan::with_group(group, [&](auto gc) {
+      using T = typename decltype(t)::type;
+      constexpr int G = decltype(gc)::value;
+      const size_t smem =
+          static_cast<size_t>(dk + dv1 + G * dk + G * dv1) * sizeof(float);
+      auto kernel = la_decode_fused_kernel<T, G, kGated>;
+      return f(t, kernel,
+               plan::Geometry{dim3(batch * kv_heads), threads, smem, 1});
+    });
+  });
 }
 
-template <typename T, bool kGated>
-cudaError_t dispatch_group(int group, void* s, void* p, const void* q,
-                           const void* k, const void* v, const void* ld,
-                           void* o, int blocks, int dk, int dv, float a,
-                           float b, cudaStream_t st) {
-  switch (group) {
-    case 1: return launch<T, 1, kGated>(s, p, q, k, v, ld, o, blocks, dk, dv, a, b, st);
-    case 2: return launch<T, 2, kGated>(s, p, q, k, v, ld, o, blocks, dk, dv, a, b, st);
-    case 4: return launch<T, 4, kGated>(s, p, q, k, v, ld, o, blocks, dk, dv, a, b, st);
-    case 8: return launch<T, 8, kGated>(s, p, q, k, v, ld, o, blocks, dk, dv, a, b, st);
-    case 16: return launch<T, 16, kGated>(s, p, q, k, v, ld, o, blocks, dk, dv, a, b, st);
-    default: return cudaErrorInvalidValue;
-  }
+bool bad_shape(int batch, int heads, int kv_heads, int dk, int dv) {
+  return batch <= 0 || kv_heads <= 0 || dk <= 0 || dv <= 0 ||
+         heads % kv_heads != 0;
 }
 
 template <bool kGated>
 int run(void* s, void* p, const void* q, const void* k, const void* v,
         const void* ld, void* o, int batch, int heads, int kv_heads, int dk,
         int dv, float a, float b, int dtype, void* stream) {
-  if (batch <= 0 || kv_heads <= 0 || dk <= 0 || dv <= 0 ||
-      heads % kv_heads != 0)
+  if (bad_shape(batch, heads, kv_heads, dk, dv))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int group = heads / kv_heads;
-  const int blocks = batch * kv_heads;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_group<float, kGated>(group, s, p, q, k, v, ld, o, blocks,
-                                        dk, dv, a, b, st);
-  else if (dtype == 1)
-    err = dispatch_group<__nv_bfloat16, kGated>(group, s, p, q, k, v, ld, o,
-                                                blocks, dk, dv, a, b, st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(with_launch<kGated>(
+      dtype, heads / kv_heads, batch, kv_heads, dk, dv,
+      [&](auto t, auto kernel, const plan::Geometry& geo) {
+        using T = typename decltype(t)::type;
+        if (geo.smem > kMaxSmem) return cudaErrorInvalidValue;
+        return plan::launch(kernel, geo, static_cast<cudaStream_t>(stream),
+                            static_cast<float*>(s), static_cast<float*>(p),
+                            static_cast<const T*>(q),
+                            static_cast<const T*>(k),
+                            static_cast<const T*>(v),
+                            static_cast<const float*>(ld),
+                            static_cast<T*>(o), dk, dv, a, b);
+      }));
 }
 
 }  // namespace
@@ -215,6 +214,26 @@ extern "C" int gla_decode_fused(void* s, void* p, const void* q,
                                 void* stream) {
   return run<true>(s, p, q, k, v, ld, o, batch, heads, kv_heads, dk, dv, a,
                    b, dtype, stream);
+}
+
+// The geometry a call of `entry` ("la_decode_fused" or "gla_decode_fused")
+// with these arguments launches, into out[7] (plan.cuh); nothing is
+// launched.
+extern "C" int la_decode_fused_plan(const char* entry, int batch, int heads,
+                                    int kv_heads, int dk, int dv, int dtype,
+                                    int64_t* out) {
+  const bool gated = strcmp(entry, "gla_decode_fused") == 0;
+  if ((!gated && strcmp(entry, "la_decode_fused") != 0) ||
+      bad_shape(batch, heads, kv_heads, dk, dv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto report = [&](auto, auto kernel, const plan::Geometry& geo) {
+    return plan::report(kernel, geo, out);
+  };
+  const int group = heads / kv_heads;
+  return static_cast<int>(
+      gated ? with_launch<true>(dtype, group, batch, kv_heads, dk, dv, report)
+            : with_launch<false>(dtype, group, batch, kv_heads, dk, dv,
+                                 report));
 }
 
 extern "C" const char* la_decode_fused_error_string(int code) {

@@ -65,7 +65,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <algorithm>
+#include <string.h>
+
+#include "plan.cuh"
 
 namespace {
 
@@ -276,74 +278,56 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T, int D, bool kGated>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* ld, void* o, void* g, int blocks, int heads,
-                   int kv_heads, int n, int stage, float a, float b,
-                   cudaStream_t stream) {
-  // the staging's floats per token: q, k and v padded, f, and the decay
-  const size_t per_token =
-      static_cast<size_t>(3 * Rows<D>::kPadded + D + 1 + (kGated ? 1 : 0)) *
-      sizeof(float);
-  stage = static_cast<int>(
-      std::min(static_cast<size_t>(stage), kMaxSmem / per_token));
-  if (stage < 1) return cudaErrorInvalidValue;
-  const size_t smem = stage * per_token;
-  auto kernel = la_fwd_kernel<T, D, kGated>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  // D value threads and the normalizer warp
-  kernel<<<blocks, D + 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(ld),
-      static_cast<T*>(o), static_cast<float*>(g), heads, kv_heads, n, stage,
-      a, b);
-  return cudaGetLastError();
+// The launch of la_fwd / gla_fwd, shared by the launcher and `la_fwd_plan`:
+// f(Type<T>{}, kernel, geometry) for the instantiation a call with these
+// arguments runs.  One block per (batch, query head); D value threads and
+// the normalizer warp; `stage` tokens staged per iteration, shrunk to fit
+// kMaxSmem.
+template <bool kGated, typename F>
+cudaError_t with_launch(int dtype, int d, int batch, int heads, int stage,
+                        F&& f) {
+  return plan::with_dtype(dtype, [&](auto t) {
+    return plan::with_head_dim(d, [&](auto dc) {
+      using T = typename decltype(t)::type;
+      constexpr int D = decltype(dc)::value;
+      // the staging's floats per token: q, k and v padded, f, and the decay
+      const size_t per_token =
+          static_cast<size_t>(3 * Rows<D>::kPadded + D + 1 +
+                              (kGated ? 1 : 0)) *
+          sizeof(float);
+      auto kernel = la_fwd_kernel<T, D, kGated>;
+      return f(t, kernel,
+               plan::fit({dim3(batch * heads), D + 32, 0, 0}, stage,
+                         per_token, kMaxSmem));
+    });
+  });
 }
 
-template <typename T, bool kGated>
-cudaError_t dispatch_dim(int d, const void* q, const void* k, const void* v,
-                         const void* ld, void* o, void* g, int blocks,
-                         int heads, int kv_heads, int n, int stage, float a,
-                         float b, cudaStream_t st) {
-  switch (d) {
-    case 32:
-      return launch<T, 32, kGated>(q, k, v, ld, o, g, blocks, heads,
-                                   kv_heads, n, stage, a, b, st);
-    case 64:
-      return launch<T, 64, kGated>(q, k, v, ld, o, g, blocks, heads,
-                                   kv_heads, n, stage, a, b, st);
-    case 128:
-      return launch<T, 128, kGated>(q, k, v, ld, o, g, blocks, heads,
-                                    kv_heads, n, stage, a, b, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+bool bad_shape(int batch, int heads, int kv_heads, int n, int stage) {
+  return batch <= 0 || kv_heads <= 0 || n < 0 || stage <= 0 ||
+         heads % kv_heads != 0;
 }
 
 template <bool kGated>
 int run(const void* q, const void* k, const void* v, const void* ld, void* o,
         void* g, int batch, int heads, int kv_heads, int n, int d, int stage,
         float a, float b, int dtype, void* stream) {
-  if (batch <= 0 || kv_heads <= 0 || n < 0 || stage <= 0 ||
-      heads % kv_heads != 0)
+  if (bad_shape(batch, heads, kv_heads, n, stage))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  const int blocks = batch * heads;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_dim<float, kGated>(d, q, k, v, ld, o, g, blocks, heads,
-                                      kv_heads, n, stage, a, b, st);
-  else if (dtype == 1)
-    err = dispatch_dim<__nv_bfloat16, kGated>(d, q, k, v, ld, o, g, blocks,
-                                              heads, kv_heads, n, stage, a, b,
-                                              st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(with_launch<kGated>(
+      dtype, d, batch, heads, stage,
+      [&](auto t, auto kernel, const plan::Geometry& geo) {
+        using T = typename decltype(t)::type;
+        if (geo.stage < 1) return cudaErrorInvalidValue;
+        return plan::launch(kernel, geo, static_cast<cudaStream_t>(stream),
+                            static_cast<const T*>(q),
+                            static_cast<const T*>(k),
+                            static_cast<const T*>(v),
+                            static_cast<const float*>(ld),
+                            static_cast<T*>(o), static_cast<float*>(g),
+                            heads, kv_heads, n, geo.stage, a, b);
+      }));
 }
 
 }  // namespace
@@ -366,6 +350,23 @@ extern "C" int gla_fwd(const void* q, const void* k, const void* v,
                        float a, float b, int dtype, void* stream) {
   return run<true>(q, k, v, ld, o, g, batch, heads, kv_heads, n, d, stage, a,
                    b, dtype, stream);
+}
+
+// The geometry a call of `entry` ("la_fwd" or "gla_fwd") with these
+// arguments launches, into out[7] (plan.cuh); nothing is launched.
+extern "C" int la_fwd_plan(const char* entry, int batch, int heads,
+                           int kv_heads, int n, int d, int stage, int dtype,
+                           int64_t* out) {
+  const bool gated = strcmp(entry, "gla_fwd") == 0;
+  if ((!gated && strcmp(entry, "la_fwd") != 0) ||
+      bad_shape(batch, heads, kv_heads, n, stage))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto report = [&](auto, auto kernel, const plan::Geometry& geo) {
+    return plan::report(kernel, geo, out);
+  };
+  return static_cast<int>(
+      gated ? with_launch<true>(dtype, d, batch, heads, stage, report)
+            : with_launch<false>(dtype, d, batch, heads, stage, report));
 }
 
 extern "C" const char* la_fwd_error_string(int code) {

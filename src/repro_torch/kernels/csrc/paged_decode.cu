@@ -46,8 +46,10 @@
 #include <cuda_runtime.h>
 
 #include <stdint.h>
+#include <string.h>
 
 #include "decode_common.cuh"
+#include "plan.cuh"
 
 namespace {
 
@@ -96,63 +98,39 @@ __global__ void paged_decode_kernel(
                           o + rows, scale, smem);
 }
 
-struct Args {
-  const void *q, *k_pages, *v_pages, *page_table, *lengths;
-  void* o;
-  int batch, heads, kv_heads, num_pages, page_size, pmax, warps;
-  float scale;
-  cudaStream_t stream;
-};
-
-template <typename T, int D, int R>
-cudaError_t launch(const Args& a) {
-  const size_t smem =
-      decode::merge_floats(a.warps, R, D) * sizeof(float) +
-      static_cast<size_t>(a.pmax) * sizeof(int);
-  auto kernel = paged_decode_kernel<T, D, R>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<a.batch * (a.heads / R), a.warps * 32, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k_pages),
-      static_cast<const T*>(a.v_pages),
-      static_cast<const int*>(a.page_table),
-      static_cast<const int*>(a.lengths), static_cast<T*>(a.o), a.heads,
-      a.kv_heads, a.num_pages, a.page_size, a.pmax, a.scale);
-  return cudaGetLastError();
+// The launch of paged_attention / paged_decode_fused, shared by the
+// launcher and `paged_decode_plan`: f(Type<T>{}, kernel, geometry) for the
+// instantiation (T, D, R) a call with these arguments runs.  One block of
+// `warps` warps per (slot, R query rows): R = 1 (paged_attention) or the
+// group G (paged_decode_fused); shared memory holds the warps' merge and
+// the slot's live table entries (at most Pmax).
+template <typename F>
+cudaError_t with_launch(bool fold_heads, int dtype, int d, int batch,
+                        int heads, int kv_heads, int pmax, int warps, F&& f) {
+  const int rows = fold_heads ? heads / kv_heads : 1;
+  return plan::with_dtype(dtype, [&](auto t) {
+    return plan::with_head_dim(d, [&](auto dc) {
+      return plan::with_group(rows, [&](auto rc) {
+        using T = typename decltype(t)::type;
+        constexpr int D = decltype(dc)::value;
+        constexpr int R = decltype(rc)::value;
+        const size_t smem = decode::merge_floats(warps, R, D) * sizeof(float) +
+                            static_cast<size_t>(pmax) * sizeof(int);
+        auto kernel = paged_decode_kernel<T, D, R>;
+        return f(t, kernel,
+                 plan::Geometry{dim3(batch * (heads / R)), warps * 32, smem,
+                                1});
+      });
+    });
+  });
 }
 
-template <typename T, int D>
-cudaError_t dispatch_rows(int rows, const Args& a) {
-  switch (rows) {
-    case 1:
-      return launch<T, D, 1>(a);
-    case 2:
-      return launch<T, D, 2>(a);
-    case 4:
-      return launch<T, D, 4>(a);
-    case 8:
-      return launch<T, D, 8>(a);
-    case 16:
-      return launch<T, D, 16>(a);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t dispatch_dim(int d, int rows, const Args& a) {
-  switch (d) {
-    case 32:
-      return dispatch_rows<T, 32>(rows, a);
-    case 64:
-      return dispatch_rows<T, 64>(rows, a);
-    case 128:
-      return dispatch_rows<T, 128>(rows, a);
-    default:
-      return cudaErrorInvalidValue;
-  }
+bool bad_shape(int batch, int heads, int kv_heads, int num_pages,
+               int page_size, int pmax, int warps) {
+  return batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 ||
+         num_pages <= 0 || page_size <= 0 || pmax <= 0 || warps < 1 ||
+         warps > kMaxWarps ||
+         static_cast<int64_t>(pmax) * page_size > INT32_MAX;
 }
 
 int run(bool fold_heads, const void* q, const void* k_pages,
@@ -160,24 +138,21 @@ int run(bool fold_heads, const void* q, const void* k_pages,
         void* o, int batch, int heads, int kv_heads, int num_pages,
         int page_size, int pmax, int d, int warps, float scale, int dtype,
         void* stream) {
-  if (batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 ||
-      num_pages <= 0 || page_size <= 0 || pmax <= 0 || warps < 1 ||
-      warps > kMaxWarps ||
-      static_cast<int64_t>(pmax) * page_size > INT32_MAX)
+  if (bad_shape(batch, heads, kv_heads, num_pages, page_size, pmax, warps))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = fold_heads ? heads / kv_heads : 1;
-  const Args a{q,         k_pages,   v_pages, page_table,
-               lengths,   o,         batch,   heads,
-               kv_heads,  num_pages, page_size, pmax,
-               warps,     scale,     static_cast<cudaStream_t>(stream)};
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_dim<float>(d, rows, a);
-  else if (dtype == 1)
-    err = dispatch_dim<__nv_bfloat16>(d, rows, a);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(with_launch(
+      fold_heads, dtype, d, batch, heads, kv_heads, pmax, warps,
+      [&](auto t, auto kernel, const plan::Geometry& geo) {
+        using T = typename decltype(t)::type;
+        return plan::launch(kernel, geo, static_cast<cudaStream_t>(stream),
+                            static_cast<const T*>(q),
+                            static_cast<const T*>(k_pages),
+                            static_cast<const T*>(v_pages),
+                            static_cast<const int*>(page_table),
+                            static_cast<const int*>(lengths),
+                            static_cast<T*>(o), heads, kv_heads, num_pages,
+                            page_size, pmax, scale);
+      }));
 }
 
 }  // namespace
@@ -209,6 +184,24 @@ extern "C" int paged_decode_fused(const void* q, const void* k_pages,
   return run(true, q, k_pages, v_pages, page_table, lengths, o, batch,
              heads, kv_heads, num_pages, page_size, pmax, d, warps, scale,
              dtype, stream);
+}
+
+// The geometry a call of `entry` ("paged_attention" or
+// "paged_decode_fused") with these arguments launches, into out[7]
+// (plan.cuh); nothing is launched.
+extern "C" int paged_decode_plan(const char* entry, int batch, int heads,
+                                 int kv_heads, int num_pages, int page_size,
+                                 int pmax, int d, int warps, int dtype,
+                                 int64_t* out) {
+  const bool fold_heads = strcmp(entry, "paged_decode_fused") == 0;
+  if ((!fold_heads && strcmp(entry, "paged_attention") != 0) ||
+      bad_shape(batch, heads, kv_heads, num_pages, page_size, pmax, warps))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_launch(
+      fold_heads, dtype, d, batch, heads, kv_heads, pmax, warps,
+      [&](auto, auto kernel, const plan::Geometry& geo) {
+        return plan::report(kernel, geo, out);
+      }));
 }
 
 extern "C" const char* paged_decode_error_string(int code) {

@@ -37,8 +37,10 @@
 #include <cuda_runtime.h>
 
 #include <stdint.h>
+#include <string.h>
 
 #include "decode_common.cuh"
+#include "plan.cuh"
 
 namespace {
 
@@ -70,67 +72,32 @@ __global__ void softmax_decode_fused_kernel(
                           smem);
 }
 
-template <typename T, int D, int G>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* lengths, void* o, int batch, int kv_heads,
-                   int s_len, int warps, float scale, cudaStream_t stream) {
-  const size_t smem = decode::merge_floats(warps, G, D) * sizeof(float);
-  auto kernel = softmax_decode_fused_kernel<T, D, G>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<batch * kv_heads, warps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(lengths),
-      static_cast<T*>(o), kv_heads, s_len, scale);
-  return cudaGetLastError();
+// The launch of softmax_decode_fused, shared by the launcher and
+// `softmax_decode_fused_plan`: f(Type<T>{}, kernel, geometry) for the
+// instantiation (T, D, G) a call with these arguments runs.  One block of
+// `warps` warps per (slot, KV head); the warps' partial softmaxes merge in
+// shared memory.
+template <typename F>
+cudaError_t with_launch(int dtype, int d, int group, int batch, int kv_heads,
+                        int warps, F&& f) {
+  return plan::with_dtype(dtype, [&](auto t) {
+    return plan::with_head_dim(d, [&](auto dc) {
+      return plan::with_group(group, [&](auto gc) {
+        using T = typename decltype(t)::type;
+        constexpr int D = decltype(dc)::value;
+        constexpr int G = decltype(gc)::value;
+        const size_t smem = decode::merge_floats(warps, G, D) * sizeof(float);
+        auto kernel = softmax_decode_fused_kernel<T, D, G>;
+        return f(t, kernel,
+                 plan::Geometry{dim3(batch * kv_heads), warps * 32, smem, 1});
+      });
+    });
+  });
 }
 
-template <typename T, int D>
-cudaError_t dispatch_group(int group, const void* q, const void* k,
-                           const void* v, const void* lengths, void* o,
-                           int batch, int kv_heads, int s_len, int warps,
-                           float scale, cudaStream_t st) {
-  switch (group) {
-    case 1:
-      return launch<T, D, 1>(q, k, v, lengths, o, batch, kv_heads, s_len,
-                             warps, scale, st);
-    case 2:
-      return launch<T, D, 2>(q, k, v, lengths, o, batch, kv_heads, s_len,
-                             warps, scale, st);
-    case 4:
-      return launch<T, D, 4>(q, k, v, lengths, o, batch, kv_heads, s_len,
-                             warps, scale, st);
-    case 8:
-      return launch<T, D, 8>(q, k, v, lengths, o, batch, kv_heads, s_len,
-                             warps, scale, st);
-    case 16:
-      return launch<T, D, 16>(q, k, v, lengths, o, batch, kv_heads, s_len,
-                              warps, scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t dispatch_dim(int d, int group, const void* q, const void* k,
-                         const void* v, const void* lengths, void* o,
-                         int batch, int kv_heads, int s_len, int warps,
-                         float scale, cudaStream_t st) {
-  switch (d) {
-    case 32:
-      return dispatch_group<T, 32>(group, q, k, v, lengths, o, batch,
-                                   kv_heads, s_len, warps, scale, st);
-    case 64:
-      return dispatch_group<T, 64>(group, q, k, v, lengths, o, batch,
-                                   kv_heads, s_len, warps, scale, st);
-    case 128:
-      return dispatch_group<T, 128>(group, q, k, v, lengths, o, batch,
-                                    kv_heads, s_len, warps, scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+bool bad_shape(int batch, int heads, int kv_heads, int s_len, int warps) {
+  return batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || s_len < 0 ||
+         warps < 1 || warps > kMaxWarps;
 }
 
 }  // namespace
@@ -144,21 +111,35 @@ extern "C" int softmax_decode_fused(const void* q, const void* k,
                                     int kv_heads, int s_len, int d,
                                     int warps, float scale, int dtype,
                                     void* stream) {
-  if (batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || s_len < 0 ||
-      warps < 1 || warps > kMaxWarps)
+  if (bad_shape(batch, heads, kv_heads, s_len, warps))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int group = heads / kv_heads;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_dim<float>(d, group, q, k, v, lengths, o, batch,
-                              kv_heads, s_len, warps, scale, st);
-  else if (dtype == 1)
-    err = dispatch_dim<__nv_bfloat16>(d, group, q, k, v, lengths, o, batch,
-                                      kv_heads, s_len, warps, scale, st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(with_launch(
+      dtype, d, heads / kv_heads, batch, kv_heads, warps,
+      [&](auto t, auto kernel, const plan::Geometry& geo) {
+        using T = typename decltype(t)::type;
+        return plan::launch(kernel, geo, static_cast<cudaStream_t>(stream),
+                            static_cast<const T*>(q),
+                            static_cast<const T*>(k),
+                            static_cast<const T*>(v),
+                            static_cast<const int*>(lengths),
+                            static_cast<T*>(o), kv_heads, s_len, scale);
+      }));
+}
+
+// The geometry a call of `entry` ("softmax_decode_fused") with these
+// arguments launches, into out[7] (plan.cuh); nothing is launched.
+extern "C" int softmax_decode_fused_plan(const char* entry, int batch,
+                                         int heads, int kv_heads, int s_len,
+                                         int d, int warps, int dtype,
+                                         int64_t* out) {
+  if (strcmp(entry, "softmax_decode_fused") != 0 ||
+      bad_shape(batch, heads, kv_heads, s_len, warps))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_launch(
+      dtype, d, heads / kv_heads, batch, kv_heads, warps,
+      [&](auto, auto kernel, const plan::Geometry& geo) {
+        return plan::report(kernel, geo, out);
+      }));
 }
 
 extern "C" const char* softmax_decode_fused_error_string(int code) {

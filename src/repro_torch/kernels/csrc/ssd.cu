@@ -75,7 +75,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <algorithm>
+#include <string.h>
+
+#include "plan.cuh"
 
 namespace {
 
@@ -480,7 +482,7 @@ __global__ void __launch_bounds__(Layout<DK, DV>::kRowThreads +
 enum class Kind { kFwd, kBwdQ, kBwdKV };
 
 template <Kind K, int DK, int DV>
-struct Plan {
+struct Block {
   using L = Layout<DK, DV>;
   static constexpr int kThreads =
       K == Kind::kFwd    ? L::kColThreads
@@ -495,6 +497,41 @@ struct Plan {
           : 2 * L::PadK::kWidth + 2 * L::PadV::kWidth + DK + DV + 1;
 };
 
+// The kernel of kind K for (T, DK, DV).
+template <Kind K, typename T, int DK, int DV>
+auto kernel_of() {
+  if constexpr (K == Kind::kFwd)
+    return ssd_fwd_kernel<T, DK, DV>;
+  else if constexpr (K == Kind::kBwdQ)
+    return ssd_bwd_q_kernel<T, DK, DV>;
+  else
+    return ssd_bwd_kv_kernel<T, DK, DV>;
+}
+
+// The launch of one of the three kernels, shared by the launchers and
+// `ssd_plan`: f(Type<T>{}, kernel, geometry) for the instantiation a call
+// with these arguments runs.  One block per (batch, head); `stage` tokens
+// staged per iteration, shrunk to fit kMaxSmem.
+template <Kind K, typename F>
+cudaError_t with_launch(int dtype, int dk, int dv, int batch, int heads,
+                        int stage, F&& f) {
+  return plan::with_dtype(dtype, [&](auto t) {
+    auto go = [&](auto dkc, auto dvc) {
+      using T = typename decltype(t)::type;
+      constexpr int DK = decltype(dkc)::value;
+      constexpr int DV = decltype(dvc)::value;
+      using B = Block<K, DK, DV>;
+      auto kernel = kernel_of<K, T, DK, DV>();
+      return f(t, kernel,
+               plan::fit({dim3(batch * heads), B::kThreads, 0, 0}, stage,
+                         B::kPerToken * sizeof(float), kMaxSmem));
+    };
+    if (dk == 128 && dv == 64) return go(plan::Int<128>{}, plan::Int<64>{});
+    if (dk == 16 && dv == 32) return go(plan::Int<16>{}, plan::Int<32>{});
+    return cudaErrorInvalidValue;
+  });
+}
+
 struct Args {
   const void* q;
   const void* k;
@@ -507,74 +544,41 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <Kind K, typename T, int DK, int DV>
-cudaError_t launch(const Args& a) {
-  using P = Plan<K, DK, DV>;
-  const size_t per_token = P::kPerToken * sizeof(float);
-  const int stage = static_cast<int>(
-      std::min(static_cast<size_t>(a.stage), kMaxSmem / per_token));
-  if (stage < 1) return cudaErrorInvalidValue;
-  const size_t smem = stage * per_token;
-  const int blocks = a.batch * a.heads;
-  const int per_group = a.heads / a.groups;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const float* ld = static_cast<const float*>(a.ld);
-  const T* om = static_cast<const T*>(a.om);
-  cudaError_t err;
-  if constexpr (K == Kind::kFwd) {
-    auto kernel = ssd_fwd_kernel<T, DK, DV>;
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    kernel<<<blocks, P::kThreads, smem, a.stream>>>(
-        q, k, v, ld, static_cast<T*>(a.out0), a.heads, per_group, a.n,
-        stage);
-  } else if constexpr (K == Kind::kBwdQ) {
-    auto kernel = ssd_bwd_q_kernel<T, DK, DV>;
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    kernel<<<blocks, P::kThreads, smem, a.stream>>>(
-        k, v, ld, om, static_cast<float*>(a.out0), a.heads, per_group, a.n,
-        stage);
-  } else {
-    auto kernel = ssd_bwd_kv_kernel<T, DK, DV>;
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    kernel<<<blocks, P::kThreads, smem, a.stream>>>(
-        q, k, v, ld, om, static_cast<float*>(a.out0),
-        static_cast<float*>(a.out1), a.heads, per_group, a.n, stage);
-  }
-  return cudaGetLastError();
-}
-
-template <Kind K, typename T>
-cudaError_t dispatch_dims(int dk, int dv, const Args& a) {
-  if (dk == 128 && dv == 64) return launch<K, T, 128, 64>(a);
-  if (dk == 16 && dv == 32) return launch<K, T, 16, 32>(a);
-  return cudaErrorInvalidValue;
+bool bad_shape(int batch, int heads, int groups, int n, int stage) {
+  return batch <= 0 || groups <= 0 || heads <= 0 || n < 0 || stage <= 0 ||
+         heads % groups != 0;
 }
 
 template <Kind K>
 int run(const Args& a, int dk, int dv, int dtype) {
-  if (a.batch <= 0 || a.groups <= 0 || a.heads <= 0 || a.n < 0 ||
-      a.stage <= 0 || a.heads % a.groups != 0)
+  if (bad_shape(a.batch, a.heads, a.groups, a.n, a.stage))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.n == 0) return 0;
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_dims<K, float>(dk, dv, a);
-  else if (dtype == 1)
-    err = dispatch_dims<K, __nv_bfloat16>(dk, dv, a);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  const int per_group = a.heads / a.groups;
+  return static_cast<int>(with_launch<K>(
+      dtype, dk, dv, a.batch, a.heads, a.stage,
+      [&](auto t, auto kernel, const plan::Geometry& geo) {
+        using T = typename decltype(t)::type;
+        if (geo.stage < 1) return cudaErrorInvalidValue;
+        const T* q = static_cast<const T*>(a.q);
+        const T* k = static_cast<const T*>(a.k);
+        const T* v = static_cast<const T*>(a.v);
+        const float* ld = static_cast<const float*>(a.ld);
+        const T* om = static_cast<const T*>(a.om);
+        if constexpr (K == Kind::kFwd)
+          return plan::launch(kernel, geo, a.stream, q, k, v, ld,
+                              static_cast<T*>(a.out0), a.heads, per_group,
+                              a.n, geo.stage);
+        else if constexpr (K == Kind::kBwdQ)
+          return plan::launch(kernel, geo, a.stream, k, v, ld, om,
+                              static_cast<float*>(a.out0), a.heads,
+                              per_group, a.n, geo.stage);
+        else
+          return plan::launch(kernel, geo, a.stream, q, k, v, ld, om,
+                              static_cast<float*>(a.out0),
+                              static_cast<float*>(a.out1), a.heads,
+                              per_group, a.n, geo.stage);
+      }));
 }
 
 }  // namespace
@@ -610,6 +614,29 @@ extern "C" int ssd_bwd_kv(const void* q, const void* k, const void* v,
   const Args a{q,     k,      v, ld,    om, dk, dv_out, batch,
                heads, groups, n, stage, static_cast<cudaStream_t>(stream)};
   return run<Kind::kBwdKV>(a, dk_dim, dv_dim, dtype);
+}
+
+// The geometry a call of `entry` ("ssd_fwd", "ssd_bwd_q" or "ssd_bwd_kv")
+// with these arguments launches, into out[7] (plan.cuh); nothing is
+// launched.
+extern "C" int ssd_plan(const char* entry, int batch, int heads, int groups,
+                        int n, int dk, int dv, int stage, int dtype,
+                        int64_t* out) {
+  if (bad_shape(batch, heads, groups, n, stage))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto report = [&](auto, auto kernel, const plan::Geometry& geo) {
+    return plan::report(kernel, geo, out);
+  };
+  cudaError_t err = cudaErrorInvalidValue;
+  if (strcmp(entry, "ssd_fwd") == 0)
+    err = with_launch<Kind::kFwd>(dtype, dk, dv, batch, heads, stage, report);
+  else if (strcmp(entry, "ssd_bwd_q") == 0)
+    err = with_launch<Kind::kBwdQ>(dtype, dk, dv, batch, heads, stage,
+                                   report);
+  else if (strcmp(entry, "ssd_bwd_kv") == 0)
+    err = with_launch<Kind::kBwdKV>(dtype, dk, dv, batch, heads, stage,
+                                    report);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* ssd_error_string(int code) {

@@ -56,6 +56,9 @@ head-folded so each page is read once per KV head:
   paged_decode_fused_torch  its plain version, the same as
                             `paged_attention_torch` (zeros at length 0
                             on both, as in the reference)
+
+Beside each wrapper, `plan_<entry>` gives the entry's launch plan
+(kernels/plan.py) from the same arguments' shapes.
 """
 from __future__ import annotations
 
@@ -65,7 +68,7 @@ import torch
 
 from repro_torch.core import softmax as _softmax
 from repro_torch.core.numerics import safe_div
-from repro_torch.kernels import build
+from repro_torch.kernels import build, plan
 from repro_torch.kernels import paged_attention as _pg
 from repro_torch.kernels.defaults import SOFTMAX_DECODE_WARPS
 
@@ -119,15 +122,9 @@ _LA_SYMBOLS = {KERNEL: [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I, _P],
 _SOFTMAX_SYMBOLS = {SOFTMAX_KERNEL: [_P] * 5 + [_I] * 6 + [_F, _I, _P]}
 
 
-def _check(s, p, q, k, v, log_decay=None) -> None:
-    """Raise on anything the kernel does not take."""
-    named = {"s": s, "p": p, "q": q, "k": k, "v": v}
-    f32 = ("s", "p")
-    if log_decay is not None:
-        named["log_decay"] = log_decay
-        f32 += ("log_decay",)
-    build.check_tensors(KERNEL if log_decay is None else GLA_KERNEL, named,
-                        ("q", "k", "v"), f32)
+def _recurrent_dims(s, p, q, k, v, log_decay=None):
+    """(B, H, Hkv, Dk, Dv) of a decode step, raising on shapes the kernel
+    does not take."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(f"q, k, v must be 3-D; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -147,6 +144,19 @@ def _check(s, p, q, k, v, log_decay=None) -> None:
     if log_decay is not None and tuple(log_decay.shape) != (bsz, hkv):
         raise ValueError(f"log_decay {tuple(log_decay.shape)} does not "
                          f"match (B, Hkv) = {(bsz, hkv)}")
+    return bsz, h, hkv, dk, dv
+
+
+def _check(s, p, q, k, v, log_decay=None) -> None:
+    """Raise on anything the kernel does not take."""
+    named = {"s": s, "p": p, "q": q, "k": k, "v": v}
+    f32 = ("s", "p")
+    if log_decay is not None:
+        named["log_decay"] = log_decay
+        f32 += ("log_decay",)
+    build.check_tensors(KERNEL if log_decay is None else GLA_KERNEL, named,
+                        ("q", "k", "v"), f32)
+    _recurrent_dims(s, p, q, k, v, log_decay)
 
 
 def la_decode_fused_cuda(s, p, q, k, v, a: float, b: float):
@@ -196,11 +206,9 @@ def softmax_decode_fused_torch(q, k, v, lengths):
     return _softmax.softmax_decode_masked(q, k, v, lengths)
 
 
-def _check_softmax(q, k, v, lengths) -> None:
-    """Raise on anything the kernel does not take."""
-    build.check_tensors(SOFTMAX_KERNEL, {"q": q, "k": k, "v": v,
-                                         "lengths": lengths},
-                        ("q", "k", "v"), i32=("lengths",))
+def _softmax_dims(q, k, v, lengths):
+    """(B, H, Hkv, S, D) of a contiguous softmax decode step, raising on
+    shapes the kernel does not take."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q (B, H, 1, D), k and v (B, Hkv, S, D) expected; "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -217,6 +225,15 @@ def _check_softmax(q, k, v, lengths) -> None:
     if h % hkv != 0 or h // hkv not in GROUPS:
         raise ValueError(f"H={h} over Hkv={hkv} is not a query group of "
                          f"{GROUPS}")
+    return bsz, h, hkv, k.shape[2], d
+
+
+def _check_softmax(q, k, v, lengths) -> None:
+    """Raise on anything the kernel does not take."""
+    build.check_tensors(SOFTMAX_KERNEL, {"q": q, "k": k, "v": v,
+                                         "lengths": lengths},
+                        ("q", "k", "v"), i32=("lengths",))
+    _softmax_dims(q, k, v, lengths)
 
 
 def softmax_decode_fused_cuda(q, k, v, lengths):
@@ -247,16 +264,136 @@ def paged_decode_fused_torch(q, k_pages, v_pages, page_table, lengths):
                                      lengths)
 
 
+def _check_group(q, k_pages) -> None:
+    h, hkv = q.shape[1], k_pages.shape[1]
+    if h // hkv not in GROUPS:
+        raise ValueError(f"H={h} over Hkv={hkv} is not a query group of "
+                         f"{GROUPS}")
+
+
 def paged_decode_fused_cuda(q, k_pages, v_pages, page_table, lengths):
     """Launch the `paged_decode_fused` kernel: o (B, H, 1, D) in
     q.dtype."""
     _pg.check_paged(PAGED_KERNEL, q, k_pages, v_pages, page_table, lengths)
-    h, d = q.shape[1], q.shape[3]
-    hkv = k_pages.shape[1]
-    if h // hkv not in GROUPS:
-        raise ValueError(f"H={h} over Hkv={hkv} is not a query group of "
-                         f"{GROUPS}")
+    _check_group(q, k_pages)
+    d = q.shape[3]
     o = _pg.launch_paged(PAGED_KERNEL, q, k_pages, v_pages, page_table,
                          lengths, 1.0 / d ** 0.5)
     launches[PAGED_KERNEL] += 1
     return o
+
+
+# ---------------------------------------------------------------------------
+# Launch plans (kernels/plan.py)
+# ---------------------------------------------------------------------------
+
+# la_decode_fused.cu's limit: the launcher refuses more (it stays within the
+# shared memory every block may use without opting in)
+RECURRENT_MAX_SMEM = 48 * 1024
+
+
+def _plan_recurrent(entry, s, p, q, k, v, log_decay, a, b):
+    """la_decode_fused (log_decay None) or gla_decode_fused: one block per
+    (slot, KV head), threads over the Dv+1 state columns, walking all Dk
+    rows of its state slab."""
+    bsz, h, hkv, dk, dv = _recurrent_dims(s, p, q, k, v, log_decay)
+    group = h // hkv
+    code = plan.dtype_code(q.dtype)
+
+    def head(blk):
+        return divmod(blk[0], hkv)
+
+    def slab(blk):
+        bi, hk = head(blk)
+        return plan.box((bi, bi + 1), (hk, hk + 1), (0, dk), (0, dv + 1))
+
+    def row(width):
+        def tile(blk):
+            bi, hk = head(blk)
+            return plan.box((bi, bi + 1), (hk, hk + 1), (0, width))
+        return tile
+
+    def group_rows(width):
+        def tile(blk):
+            bi, hk = head(blk)
+            return plan.box((bi, bi + 1), (hk * group, (hk + 1) * group),
+                            (0, width))
+        return tile
+
+    def ld_cell(blk):
+        bi, hk = head(blk)
+        return plan.box((bi, bi + 1), (hk, hk + 1))
+
+    accesses = [
+        plan.Access("s", "inout", plan.shape_of(s), F32, slab),
+        plan.Access("p", "inout", plan.shape_of(p), F32, row(dv + 1)),
+        plan.Access("q", "in", plan.shape_of(q), q.dtype, group_rows(dk)),
+        plan.Access("k", "in", plan.shape_of(k), q.dtype, row(dk)),
+        plan.Access("v", "in", plan.shape_of(v), q.dtype, row(dv))]
+    if log_decay is not None:
+        accesses.append(plan.Access("log_decay", "in", (bsz, hkv), F32,
+                                    ld_cell))
+    accesses.append(plan.Access("o", "out", (bsz, h, dv), q.dtype,
+                                group_rows(dv)))
+    threads = min((dv + 1 + 31) // 32 * 32, plan.MAX_THREADS)
+    smem = (dk + dv + 1 + group * dk + group * (dv + 1)) * 4
+    return plan.make(entry, KERNEL, (bsz * hkv,), threads, smem, accesses,
+                     (bsz, h, hkv, dk, dv, float(a), float(b), code),
+                     _LA_SYMBOLS[entry], (bsz, h, hkv, dk, dv, code),
+                     smem_limit=RECURRENT_MAX_SMEM)
+
+
+def plan_la_decode_fused(s, p, q, k, v, a: float, b: float):
+    return _plan_recurrent(KERNEL, s, p, q, k, v, None, a, b)
+
+
+def plan_gla_decode_fused(s, p, q, k, v, log_decay, a: float, b: float):
+    return _plan_recurrent(GLA_KERNEL, s, p, q, k, v, log_decay, a, b)
+
+
+def plan_softmax_decode_fused(q, k, v, lengths):
+    """One block of SOFTMAX_DECODE_WARPS warps per (slot, KV head): its G
+    query rows attend to the first min(lengths[b], S) keys."""
+    bsz, h, hkv, s_len, d = _softmax_dims(q, k, v, lengths)
+    group = h // hkv
+    code = plan.dtype_code(q.dtype)
+
+    def head(blk):
+        return divmod(blk[0], hkv)
+
+    def q_rows(blk, lengths):
+        bi, hk = head(blk)
+        return plan.box((bi, bi + 1), (hk * group, (hk + 1) * group), (0, 1),
+                        (0, d))
+
+    def kv_rows(blk, lengths):
+        bi, hk = head(blk)
+        live = max(0, min(int(lengths[bi]), s_len))
+        return plan.box((bi, bi + 1), (hk, hk + 1), (0, live),
+                        (0, d)) if live else []
+
+    def length(blk, lengths):
+        bi = head(blk)[0]
+        return plan.box((bi, bi + 1))
+
+    accesses = [
+        plan.Access("q", "in", plan.shape_of(q), q.dtype, q_rows),
+        plan.Access("k", "in", plan.shape_of(k), q.dtype, kv_rows),
+        plan.Access("v", "in", plan.shape_of(v), q.dtype, kv_rows),
+        plan.Access("lengths", "in", (bsz,), plan.I32, length),
+        plan.Access("o", "out", plan.shape_of(q), q.dtype, q_rows)]
+    warps = SOFTMAX_DECODE_WARPS
+    return plan.make(
+        SOFTMAX_KERNEL, SOFTMAX_KERNEL, (bsz * hkv,), warps * 32,
+        warps * group * (d + 2) * 4, accesses,
+        (bsz, h, hkv, s_len, d, warps, 1.0 / d ** 0.5, code),
+        _SOFTMAX_SYMBOLS[SOFTMAX_KERNEL],
+        (bsz, h, hkv, s_len, d, warps, code), gathered=("lengths",))
+
+
+def plan_paged_decode_fused(q, k_pages, v_pages, page_table, lengths):
+    """One block per (slot, KV head) for its G query rows: the plan of
+    `paged_attention` with the group folded in."""
+    _check_group(q, k_pages)
+    return _pg.plan_paged(PAGED_KERNEL, q, k_pages, v_pages, page_table,
+                          lengths, 1.0 / q.shape[-1] ** 0.5)

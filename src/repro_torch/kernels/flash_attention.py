@@ -30,6 +30,9 @@ q_offset (B,) int32 or None (the training convention, query i at
 position i + Nk - Nq).  The backward is the training convention only
 (Nq = Nk).  The wrappers take contiguous CUDA tensors only and raise on
 anything else; nothing falls back to the plain version.
+
+Beside each wrapper, `plan_<entry>` gives the entry's launch plan
+(kernels/plan.py) from the same arguments' shapes.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.softmax import softmax_chunked
-from repro_torch.kernels import build
+from repro_torch.kernels import build, plan
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
     FLASH_BLOCK_K, FLASH_BLOCK_Q
 
@@ -280,3 +283,207 @@ def flash_bwd_cuda(q, k, v, o, lse, do):
     dq = flash_bwd_q_cuda(q, k, v, do, lse, delta)
     dk, dv = flash_bwd_kv_cuda(q, k, v, do, lse, delta)
     return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# Launch plans (kernels/plan.py)
+# ---------------------------------------------------------------------------
+
+# compiled into csrc/flash_common.cuh and flash_bwd.cu: 4 warps a block, 16
+# rows a warp, 32 query columns per flash_bwd_kv sub-tile, one warp per row
+# of flash_bwd_delta and 8 rows a block
+_THREADS = 128
+_WARP_ROWS = 16
+_SUB_Q = 32
+_DELTA_ROWS = 8
+
+
+def _tile_smem(dtype, d: int, rows: int, p_cols: int) -> int:
+    """Shared memory of `rows` staged rows of D and a per-warp tile of
+    p_cols columns, each row padded by 16 bytes (`flash::kPad`)."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    pad = 16 // itemsize
+    return (rows * (d + pad)
+            + _THREADS // 32 * _WARP_ROWS * (p_cols + pad)) * itemsize
+
+
+def _scale(d: int) -> float:
+    return 1.0 / d ** 0.5
+
+
+def plan_flash_fwd(q, k, v, q_offset: Optional[torch.Tensor] = None,
+                   return_lse: bool = True):
+    """One block per (query tile, head, slot), deepest tiles first; it
+    stages its Q tile and walks the KV tiles up to its causal frontier
+    min(Nk, q_offset[b] + its last row + 1).  Ragged edges are masked."""
+    bsz, h, hkv, nq, nk, d = _dims(q, k, v)
+    if q_offset is not None and tuple(q_offset.shape) != (bsz,):
+        raise ValueError(f"q_offset {tuple(q_offset.shape)} is not ({bsz},)")
+    group, code = h // hkv, plan.dtype_code(q.dtype)
+    q_tiles = -(-nq // FLASH_BLOCK_Q)
+
+    def walk(blk, *q_off):
+        x, hh, bi = blk
+        q0 = (q_tiles - 1 - x) * FLASH_BLOCK_Q
+        off = int(q_off[0][bi]) if q_off else nk - nq
+        last_key = min(nk, off + min(q0 + FLASH_BLOCK_Q, nq)) - 1
+        kv_tiles = 0 if last_key < 0 else last_key // FLASH_BLOCK_K + 1
+        return bi, hh, q0, kv_tiles
+
+    def q_rows(blk, *q_off):
+        bi, hh, q0, _ = walk(blk, *q_off)
+        return plan.box((bi, bi + 1), (hh, hh + 1),
+                        (q0, q0 + FLASH_BLOCK_Q), (0, d), masked=True)
+
+    def lse_rows(blk, *q_off):
+        bi, hh, q0, _ = walk(blk, *q_off)
+        return plan.box((bi, bi + 1), (hh, hh + 1),
+                        (q0, q0 + FLASH_BLOCK_Q), masked=True)
+
+    def kv_rows(blk, *q_off):
+        bi, hh, _, kv_tiles = walk(blk, *q_off)
+        hk = hh // group
+        return plan.box((bi, bi + 1), (hk, hk + 1),
+                        (0, kv_tiles * FLASH_BLOCK_K), (0, d),
+                        masked=True) if kv_tiles else []
+
+    def offset(blk, *q_off):
+        return plan.box((blk[2], blk[2] + 1))
+
+    accesses = [plan.Access("q", "in", plan.shape_of(q), q.dtype, q_rows),
+                plan.Access("k", "in", plan.shape_of(k), q.dtype, kv_rows),
+                plan.Access("v", "in", plan.shape_of(v), q.dtype, kv_rows),
+                plan.Access("o", "out", plan.shape_of(q), q.dtype, q_rows)]
+    if return_lse:
+        accesses.append(plan.Access("lse", "out", (bsz, h, nq), F32,
+                                    lse_rows))
+    if q_offset is not None:
+        accesses.append(plan.Access("q_offset", "in", (bsz,), plan.I32,
+                                    offset))
+    smem = _tile_smem(q.dtype, d, FLASH_BLOCK_Q + 2 * FLASH_BLOCK_K,
+                      FLASH_BLOCK_K)
+    return plan.make(
+        "flash_fwd", "flash_fwd", (q_tiles, h, bsz), _THREADS, smem,
+        accesses,
+        (bsz, h, hkv, nq, nk, d, FLASH_BLOCK_Q, FLASH_BLOCK_K, _scale(d),
+         code), _FWD_SYMBOLS["flash_fwd"],
+        (bsz, h, hkv, nq, nk, d, FLASH_BLOCK_Q, FLASH_BLOCK_K, code),
+        pointers=("q", "k", "v", "o", "lse" if return_lse else None,
+                  None if q_offset is None else "q_offset"),
+        gathered=() if q_offset is None else ("q_offset",))
+
+
+def plan_flash_bwd_delta(o, do):
+    """One warp per row of the flattened (B * H * N, D) rows, 8 rows a
+    block; rows past the end return at once."""
+    if o.dim() != 4 or do.shape != o.shape or o.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)}: "
+                         f"need equal (B, H, N, D) with D in {HEAD_DIMS}")
+    bsz, h, n, d = o.shape
+    rows = bsz * h * n
+
+    def row_block(blk):
+        return plan.box((blk[0] * _DELTA_ROWS, (blk[0] + 1) * _DELTA_ROWS),
+                        (0, d), masked=True)
+
+    def delta_rows(blk):
+        return plan.box((blk[0] * _DELTA_ROWS, (blk[0] + 1) * _DELTA_ROWS),
+                        masked=True)
+
+    code = plan.dtype_code(o.dtype)
+    accesses = [plan.Access("o", "in", (rows, d), o.dtype, row_block),
+                plan.Access("do", "in", (rows, d), o.dtype, row_block),
+                plan.Access("delta", "out", (rows,), F32, delta_rows)]
+    return plan.make(
+        "flash_bwd_delta", "flash_bwd", (-(-rows // _DELTA_ROWS),),
+        _DELTA_ROWS * 32, 0, accesses, (bsz, h, n, d, code),
+        _BWD_SYMBOLS["flash_bwd_delta"],
+        (bsz, h, h, n, d, FLASH_BLOCK_Q, FLASH_BLOCK_K, code))
+
+
+def plan_flash_bwd_q(q, k, v, do, lse, delta):
+    """One block per (query tile, head, slot), deepest first; it walks the
+    KV tiles up to its diagonal."""
+    bsz, h, hkv, n, _, d = _dims(q, k, v, same_len=True)
+    group, code = h // hkv, plan.dtype_code(q.dtype)
+    q_tiles = -(-n // FLASH_BLOCK_Q)
+
+    def walk(blk):
+        x, hh, bi = blk
+        q0 = (q_tiles - 1 - x) * FLASH_BLOCK_Q
+        kv_tiles = (min(n, q0 + FLASH_BLOCK_Q) - 1) // FLASH_BLOCK_K + 1
+        return bi, hh, q0, kv_tiles
+
+    def q_rows(blk):
+        bi, hh, q0, _ = walk(blk)
+        return plan.box((bi, bi + 1), (hh, hh + 1),
+                        (q0, q0 + FLASH_BLOCK_Q), (0, d), masked=True)
+
+    def row_stats(blk):
+        bi, hh, q0, _ = walk(blk)
+        return plan.box((bi, bi + 1), (hh, hh + 1),
+                        (q0, q0 + FLASH_BLOCK_Q), masked=True)
+
+    def kv_rows(blk):
+        bi, hh, _, kv_tiles = walk(blk)
+        return plan.box((bi, bi + 1), (hh // group, hh // group + 1),
+                        (0, kv_tiles * FLASH_BLOCK_K), (0, d), masked=True)
+
+    accesses = [plan.Access("q", "in", plan.shape_of(q), q.dtype, q_rows),
+                plan.Access("k", "in", plan.shape_of(k), q.dtype, kv_rows),
+                plan.Access("v", "in", plan.shape_of(v), q.dtype, kv_rows),
+                plan.Access("do", "in", plan.shape_of(q), q.dtype, q_rows),
+                plan.Access("lse", "in", (bsz, h, n), F32, row_stats),
+                plan.Access("delta", "in", (bsz, h, n), F32, row_stats),
+                plan.Access("dq", "out", plan.shape_of(q), q.dtype, q_rows)]
+    smem = _tile_smem(q.dtype, d, 2 * FLASH_BLOCK_Q + 2 * FLASH_BLOCK_K,
+                      FLASH_BLOCK_K)
+    return plan.make(
+        "flash_bwd_q", "flash_bwd", (q_tiles, h, bsz), _THREADS, smem,
+        accesses,
+        (bsz, h, hkv, n, d, FLASH_BLOCK_Q, FLASH_BLOCK_K, _scale(d), code),
+        _BWD_SYMBOLS["flash_bwd_q"],
+        (bsz, h, hkv, n, d, FLASH_BLOCK_Q, FLASH_BLOCK_K, code))
+
+
+def plan_flash_bwd_kv(q, k, v, do, lse, delta):
+    """One block per (KV tile, KV head, slot); it walks every query head
+    of its group and every query tile from its diagonal on."""
+    bsz, h, hkv, n, _, d = _dims(q, k, v, same_len=True)
+    group, code = h // hkv, plan.dtype_code(q.dtype)
+    q_tiles = -(-n // FLASH_BLOCK_Q)
+
+    def kv_rows(blk):
+        kt, hk, bi = blk
+        return plan.box((bi, bi + 1), (hk, hk + 1),
+                        (kt * FLASH_BLOCK_K, (kt + 1) * FLASH_BLOCK_K),
+                        (0, d), masked=True)
+
+    def q_span(blk):
+        kt, hk, bi = blk
+        q0 = kt * FLASH_BLOCK_K // FLASH_BLOCK_Q * FLASH_BLOCK_Q
+        return ((bi, bi + 1), (hk * group, (hk + 1) * group),
+                (q0, q_tiles * FLASH_BLOCK_Q))
+
+    def q_rows(blk):
+        return plan.box(*q_span(blk), (0, d), masked=True)
+
+    def row_stats(blk):
+        return plan.box(*q_span(blk), masked=True)
+
+    accesses = [plan.Access("q", "in", plan.shape_of(q), q.dtype, q_rows),
+                plan.Access("k", "in", plan.shape_of(k), q.dtype, kv_rows),
+                plan.Access("v", "in", plan.shape_of(v), q.dtype, kv_rows),
+                plan.Access("do", "in", plan.shape_of(q), q.dtype, q_rows),
+                plan.Access("lse", "in", (bsz, h, n), F32, row_stats),
+                plan.Access("delta", "in", (bsz, h, n), F32, row_stats),
+                plan.Access("dk", "out", plan.shape_of(k), q.dtype, kv_rows),
+                plan.Access("dv", "out", plan.shape_of(v), q.dtype, kv_rows)]
+    smem = (_tile_smem(q.dtype, d, 2 * FLASH_BLOCK_K + 2 * FLASH_BLOCK_Q,
+                       _SUB_Q) + 2 * FLASH_BLOCK_Q * 4)
+    return plan.make(
+        "flash_bwd_kv", "flash_bwd", (-(-n // FLASH_BLOCK_K), hkv, bsz),
+        _THREADS, smem, accesses,
+        (bsz, h, hkv, n, d, FLASH_BLOCK_Q, FLASH_BLOCK_K, _scale(d), code),
+        _BWD_SYMBOLS["flash_bwd_kv"],
+        (bsz, h, hkv, n, d, FLASH_BLOCK_Q, FLASH_BLOCK_K, code))

@@ -26,7 +26,8 @@ bfloat16, D in `HEAD_DIMS`; log_decay (B, Hkv, N) float32; o, dq, dk and
 dv come back in their inputs' dtypes, g, dV', dld (in log_decay's
 dtype), Ω̂ and h are float32.  The wrappers take contiguous CUDA tensors
 only and raise on anything else; nothing falls back to the plain
-version.
+version.  Beside each wrapper, `plan_<entry>` gives the entry's launch
+plan (kernels/plan.py), the linear entries' plans with the decay.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ import torch
 from repro_torch.core import chunked as _chunked
 from repro_torch.core import gla as _gla
 from repro_torch.kernels import build
+from repro_torch.kernels import linear_attention as _la
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
     GLA_STAGE_TOKENS
 from repro_torch.kernels.linear_attention import _dims
@@ -167,3 +169,23 @@ def gla_bwd_cuda(q, k, v, log_decay, o, g, omega, a: float, b: float):
     dk, dva = gla_bwd_kv_cuda(q, k, v, ld, om_hat, h_vec, a, b)
     dv, dld = _gla.gla_bwd_epilogue(v, dva, log_decay)
     return dq, dk, dv, dld
+
+
+# ---------------------------------------------------------------------------
+# Launch plans (kernels/plan.py): the linear entries' plans, gated
+# ---------------------------------------------------------------------------
+
+def plan_gla_fwd(q, k, v, log_decay, a: float, b: float):
+    return _la.plan_fwd("gla_fwd", q, k, v, log_decay, a, b,
+                        GLA_STAGE_TOKENS, _FWD_SYMBOLS["gla_fwd"])
+
+
+def plan_gla_bwd_q(k, v, log_decay, om_hat, h_vec, b: float):
+    return _la.plan_bwd_q("gla_bwd_q", k, v, log_decay, om_hat, h_vec, b,
+                          GLA_STAGE_TOKENS, _BWD_SYMBOLS["gla_bwd_q"])
+
+
+def plan_gla_bwd_kv(q, k, v, log_decay, om_hat, h_vec, a: float, b: float):
+    return _la.plan_bwd_kv("gla_bwd_kv", q, k, v, log_decay, om_hat, h_vec,
+                           a, b, GLA_STAGE_TOKENS,
+                           _BWD_SYMBOLS["gla_bwd_kv"])

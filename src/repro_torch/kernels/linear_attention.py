@@ -22,6 +22,9 @@ bfloat16, D in `HEAD_DIMS`; o, dq, dk and dv come back in their
 inputs' dtypes, g, Ω̂ and h are float32.  The wrappers take contiguous
 CUDA tensors only and raise on anything else; nothing falls back to the
 plain version.
+
+Beside each wrapper, `plan_<entry>` gives the entry's launch plan
+(kernels/plan.py) from the same arguments' shapes.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import ctypes
 import torch
 
 from repro_torch.core import chunked as _chunked
-from repro_torch.kernels import build
+from repro_torch.kernels import build, plan
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
     LA_STAGE_TOKENS
 
@@ -163,3 +166,174 @@ def la_bwd_cuda(q, k, v, o, g, omega, a: float, b: float):
     dq = la_bwd_q_cuda(k, v, om_hat, h_vec, b)
     dk, dv = la_bwd_kv_cuda(q, k, v, om_hat, h_vec, a, b)
     return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# Launch plans (kernels/plan.py), shared with the gated entries (gla.py)
+# ---------------------------------------------------------------------------
+
+def _padded(d: int) -> int:
+    """Floats of one staged row: D in 4 row groups, each followed by 4
+    floats of padding (`Rows<D>::kPadded`)."""
+    return d + 16
+
+
+def plan_fwd(entry, q, k, v, log_decay, a, b, stage_tokens, argtypes):
+    """la_fwd (log_decay None) or gla_fwd: one block per (batch, query
+    head) walking all N tokens of its query head and of its KV head."""
+    bsz, h, hkv, n, d = _dims(q, k, v)
+    group, gated = h // hkv, log_decay is not None
+    code = plan.dtype_code(q.dtype)
+    # the staging's floats per token: q, k and v padded, f, and the decay
+    stage, smem = plan.fit(
+        stage_tokens, (3 * _padded(d) + d + 1 + int(gated)) * 4)
+
+    def head(blk):
+        bi, hi = divmod(blk[0], h)
+        return bi, hi, hi // group
+
+    def q_rows(blk):
+        bi, hi, _ = head(blk)
+        return plan.box((bi, bi + 1), (hi, hi + 1), (0, n), (0, d))
+
+    def kv_rows(blk):
+        bi, _, hk = head(blk)
+        return plan.box((bi, bi + 1), (hk, hk + 1), (0, n), (0, d))
+
+    def ld_row(blk):
+        bi, _, hk = head(blk)
+        return plan.box((bi, bi + 1), (hk, hk + 1), (0, n))
+
+    def g_row(blk):
+        bi, hi, _ = head(blk)
+        return plan.box((bi, bi + 1), (hi, hi + 1), (0, n))
+
+    accesses = [plan.Access("q", "in", plan.shape_of(q), q.dtype, q_rows),
+                plan.Access("k", "in", plan.shape_of(k), q.dtype, kv_rows),
+                plan.Access("v", "in", plan.shape_of(v), q.dtype, kv_rows)]
+    if gated:
+        accesses.append(plan.Access("log_decay", "in", (bsz, hkv, n), F32,
+                                    ld_row))
+    accesses += [plan.Access("o", "out", plan.shape_of(q), q.dtype, q_rows),
+                 plan.Access("g", "out", (bsz, h, n), F32, g_row)]
+    return plan.make(entry, "la_fwd", (bsz * h,), d + 32, smem, accesses,
+                     (bsz, h, hkv, n, d, stage_tokens, float(a), float(b),
+                      code), argtypes,
+                     (bsz, h, hkv, n, d, stage_tokens, code), stage=stage)
+
+
+def plan_bwd_q(entry, k, v, log_decay, om_hat, h_vec, b, stage_tokens,
+               argtypes):
+    """la_bwd_q (log_decay None) or gla_bwd_q: one block per (batch, query
+    head), the forward scan over all N tokens."""
+    bsz, h, hkv, n, d = _dims(om_hat, k, v)
+    group, gated = h // hkv, log_decay is not None
+    code = plan.dtype_code(k.dtype)
+    # k, v and Ω̂ padded, h, and the decay
+    stage, smem = plan.fit(stage_tokens,
+                           (3 * _padded(d) + 1 + int(gated)) * 4)
+
+    def head(blk):
+        bi, hi = divmod(blk[0], h)
+        return bi, hi, hi // group
+
+    def q_rows(blk):
+        bi, hi, _ = head(blk)
+        return plan.box((bi, bi + 1), (hi, hi + 1), (0, n), (0, d))
+
+    def kv_rows(blk):
+        bi, _, hk = head(blk)
+        return plan.box((bi, bi + 1), (hk, hk + 1), (0, n), (0, d))
+
+    def ld_row(blk):
+        bi, _, hk = head(blk)
+        return plan.box((bi, bi + 1), (hk, hk + 1), (0, n))
+
+    def h_row(blk):
+        bi, hi, _ = head(blk)
+        return plan.box((bi, bi + 1), (hi, hi + 1), (0, n))
+
+    accesses = [plan.Access("k", "in", plan.shape_of(k), k.dtype, kv_rows),
+                plan.Access("v", "in", plan.shape_of(v), k.dtype, kv_rows)]
+    if gated:
+        accesses.append(plan.Access("log_decay", "in", (bsz, hkv, n), F32,
+                                    ld_row))
+    accesses += [
+        plan.Access("om_hat", "in", (bsz, h, n, d), F32, q_rows),
+        plan.Access("h_vec", "in", (bsz, h, n), F32, h_row),
+        plan.Access("dq", "out", (bsz, h, n, d), k.dtype, q_rows)]
+    return plan.make(entry, "la_bwd", (bsz * h,), d, smem, accesses,
+                     (bsz, h, hkv, n, d, stage_tokens, float(b), code),
+                     argtypes, (bsz, h, hkv, n, d, stage_tokens, code),
+                     stage=stage)
+
+
+def plan_bwd_kv(entry, q, k, v, log_decay, om_hat, h_vec, a, b,
+                stage_tokens, argtypes):
+    """la_bwd_kv (log_decay None) or gla_bwd_kv: one block per (batch, KV
+    head), the reverse scan over all N tokens of its G query heads.  Its
+    staging grows with G, so large groups stage fewer tokens."""
+    bsz, h, hkv, n, d = _dims(q, k, v)
+    group, gated = h // hkv, log_decay is not None
+    code = plan.dtype_code(q.dtype)
+    # q and Ω̂ of the G query heads, k and v, padded; h of the G heads;
+    # gated: the decay, the row warps' shares of k.U[:Dk, Dv] and U[Dk, Dv]
+    stage, smem = plan.fit(
+        stage_tokens, ((2 * group + 2) * _padded(d) + group
+                       + (d // 32 + 2 if gated else 0)) * 4)
+
+    def head(blk):
+        return divmod(blk[0], hkv)
+
+    def q_rows(blk):
+        bi, hk = head(blk)
+        return plan.box((bi, bi + 1), (hk * group, (hk + 1) * group),
+                        (0, n), (0, d))
+
+    def h_rows(blk):
+        bi, hk = head(blk)
+        return plan.box((bi, bi + 1), (hk * group, (hk + 1) * group), (0, n))
+
+    def kv_rows(blk, width=d):
+        bi, hk = head(blk)
+        return plan.box((bi, bi + 1), (hk, hk + 1), (0, n), (0, width))
+
+    def ld_row(blk):
+        bi, hk = head(blk)
+        return plan.box((bi, bi + 1), (hk, hk + 1), (0, n))
+
+    accesses = [plan.Access("q", "in", plan.shape_of(q), q.dtype, q_rows),
+                plan.Access("k", "in", plan.shape_of(k), q.dtype, kv_rows),
+                plan.Access("v", "in", plan.shape_of(v), q.dtype, kv_rows)]
+    if gated:
+        accesses.append(plan.Access("log_decay", "in", (bsz, hkv, n), F32,
+                                    ld_row))
+    accesses += [
+        plan.Access("om_hat", "in", (bsz, h, n, d), F32, q_rows),
+        plan.Access("h_vec", "in", (bsz, h, n), F32, h_rows),
+        plan.Access("dk", "out", plan.shape_of(k), q.dtype, kv_rows)]
+    if gated:   # dV' with its augmented column, f32
+        accesses.append(plan.Access("dva", "out", (bsz, hkv, n, d + 1), F32,
+                                    lambda blk: kv_rows(blk, d + 1)))
+    else:
+        accesses.append(plan.Access("dv", "out", plan.shape_of(v), q.dtype,
+                                    kv_rows))
+    return plan.make(entry, "la_bwd", (bsz * hkv,), 2 * d, smem, accesses,
+                     (bsz, h, hkv, n, d, stage_tokens, float(a), float(b),
+                      code), argtypes,
+                     (bsz, h, hkv, n, d, stage_tokens, code), stage=stage)
+
+
+def plan_la_fwd(q, k, v, a: float, b: float):
+    return plan_fwd("la_fwd", q, k, v, None, a, b, LA_STAGE_TOKENS,
+                    _FWD_SYMBOLS["la_fwd"])
+
+
+def plan_la_bwd_q(k, v, om_hat, h_vec, b: float):
+    return plan_bwd_q("la_bwd_q", k, v, None, om_hat, h_vec, b,
+                      LA_STAGE_TOKENS, _BWD_SYMBOLS["la_bwd_q"])
+
+
+def plan_la_bwd_kv(q, k, v, om_hat, h_vec, a: float, b: float):
+    return plan_bwd_kv("la_bwd_kv", q, k, v, None, om_hat, h_vec, a, b,
+                       LA_STAGE_TOKENS, _BWD_SYMBOLS["la_bwd_kv"])

@@ -28,7 +28,8 @@ page, and the kernel traps on an entry outside the arena.
 
 `launch_paged` is shared with the head-folded variant
 (`decode_fused.py::paged_decode_fused_cuda`, entry `paged_decode_fused`:
-one block per (slot, KV head) for its G query rows).
+one block per (slot, KV head) for its G query rows), and so is
+`plan_paged`, the launch plan (kernels/plan.py) of either entry.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ import ctypes
 import torch
 
 from repro_torch.core import softmax as _softmax
-from repro_torch.kernels import build
+from repro_torch.kernels import build, plan
 from repro_torch.kernels.defaults import SOFTMAX_DECODE_WARPS
 
 LIB = "paged_decode"
@@ -75,21 +76,15 @@ def paged_attention_torch(q, k_pages, v_pages, page_table, lengths,
                        torch.zeros((), dtype=o.dtype, device=o.device))
 
 
-def check_paged(kernel: str, q, k_pages, v_pages, page_table,
-                lengths) -> None:
-    """Raise on anything the paged kernels do not take."""
-    build.check_tensors(kernel, {"q": q, "k_pages": k_pages,
-                                 "v_pages": v_pages,
-                                 "page_table": page_table,
-                                 "lengths": lengths},
-                        ("q", "k_pages", "v_pages"),
-                        i32=("page_table", "lengths"))
+def paged_dims(q, k_pages, v_pages, page_table, lengths):
+    """(B, H, Hkv, P, ps, Pmax, D) of a paged decode step, raising on
+    shapes the paged kernels do not take."""
     if q.dim() != 4 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"q (B, H, 1, D), k_pages and v_pages (P, Hkv, ps, "
                          f"D) expected; got {tuple(q.shape)}, "
                          f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
     bsz, h, nq, d = q.shape
-    hkv = k_pages.shape[1]
+    num_pages, hkv, ps = k_pages.shape[:3]
     if nq != 1 or k_pages.shape[3] != d or page_table.dim() != 2 \
             or page_table.shape[0] != bsz or tuple(lengths.shape) != (bsz,):
         raise ValueError(f"q {tuple(q.shape)} / k_pages "
@@ -101,6 +96,19 @@ def check_paged(kernel: str, q, k_pages, v_pages, page_table,
         raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
     if h % hkv != 0:
         raise ValueError(f"H={h} is not a multiple of Hkv={hkv}")
+    return bsz, h, hkv, num_pages, ps, page_table.shape[1], d
+
+
+def check_paged(kernel: str, q, k_pages, v_pages, page_table,
+                lengths) -> None:
+    """Raise on anything the paged kernels do not take."""
+    build.check_tensors(kernel, {"q": q, "k_pages": k_pages,
+                                 "v_pages": v_pages,
+                                 "page_table": page_table,
+                                 "lengths": lengths},
+                        ("q", "k_pages", "v_pages"),
+                        i32=("page_table", "lengths"))
+    paged_dims(q, k_pages, v_pages, page_table, lengths)
 
 
 def launch_paged(symbol: str, q, k_pages, v_pages, page_table, lengths,
@@ -131,3 +139,66 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, lengths,
                      1.0 / d ** 0.5 if scale is None else scale)
     launches[KERNEL] += 1
     return o
+
+
+def plan_paged(entry, q, k_pages, v_pages, page_table, lengths,
+               scale: float):
+    """`paged_attention` (one block per (slot, query head)) or
+    `paged_decode_fused` (per (slot, KV head), its G rows): a block stages
+    the slot's live table entries, ceil(min(lengths[b], Pmax ps) / ps) of
+    them, and reads the live rows of each such page."""
+    bsz, h, hkv, num_pages, ps, pmax, d = paged_dims(q, k_pages, v_pages,
+                                                     page_table, lengths)
+    group = h // hkv
+    rows = group if entry == "paged_decode_fused" else 1
+    code = plan.dtype_code(q.dtype)
+
+    def slot(blk, lengths):
+        bi, r = divmod(blk[0], h // rows)
+        live = max(0, min(int(lengths[bi]), pmax * ps))
+        return bi, r * rows, live
+
+    def q_rows(blk, page_table, lengths):
+        bi, h0, _ = slot(blk, lengths)
+        return plan.box((bi, bi + 1), (h0, h0 + rows), (0, 1), (0, d))
+
+    def table_row(blk, page_table, lengths):
+        bi, _, live = slot(blk, lengths)
+        pages = -(-live // ps)
+        return plan.box((bi, bi + 1), (0, pages)) if pages else []
+
+    def pages(blk, page_table, lengths):
+        bi, h0, live = slot(blk, lengths)
+        hk = h0 // group
+        tiles = []
+        for i in range(-(-live // ps)):
+            page = int(page_table[bi, i])
+            tiles += plan.box((page, page + 1), (hk, hk + 1),
+                              (0, min(ps, live - i * ps)), (0, d))
+        return tiles
+
+    def length(blk, page_table, lengths):
+        bi = blk[0] // (h // rows)
+        return plan.box((bi, bi + 1))
+
+    accesses = [
+        plan.Access("q", "in", plan.shape_of(q), q.dtype, q_rows),
+        plan.Access("k_pages", "in", plan.shape_of(k_pages), q.dtype, pages),
+        plan.Access("v_pages", "in", plan.shape_of(v_pages), q.dtype, pages),
+        plan.Access("page_table", "in", plan.shape_of(page_table), plan.I32,
+                    table_row),
+        plan.Access("lengths", "in", (bsz,), plan.I32, length),
+        plan.Access("o", "out", plan.shape_of(q), q.dtype, q_rows)]
+    warps = SOFTMAX_DECODE_WARPS
+    return plan.make(
+        entry, LIB, (bsz * (h // rows),), warps * 32,
+        warps * rows * (d + 2) * 4 + pmax * 4, accesses,
+        (bsz, h, hkv, num_pages, ps, pmax, d, warps, float(scale), code),
+        _SIGNATURE, (bsz, h, hkv, num_pages, ps, pmax, d, warps, code),
+        gathered=("page_table", "lengths"))
+
+
+def plan_paged_attention(q, k_pages, v_pages, page_table, lengths,
+                         scale: float | None = None):
+    return plan_paged(KERNEL, q, k_pages, v_pages, page_table, lengths,
+                      1.0 / q.shape[-1] ** 0.5 if scale is None else scale)

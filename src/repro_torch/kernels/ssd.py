@@ -26,6 +26,9 @@ log_decay (B, H, N) float32; (Dk, Dv) one of `STATE_DIMS`.  o comes back
 in v's dtype; the partials and dv in float32.  The wrappers take
 contiguous CUDA tensors only and raise on anything else; nothing falls
 back to the plain version.
+
+Beside each wrapper, `plan_<entry>` gives the entry's launch plan
+(kernels/plan.py) from the same arguments' shapes.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ import ctypes
 import torch
 
 from repro_torch.core import ssd as _ssd
-from repro_torch.kernels import build
+from repro_torch.kernels import build, plan
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
     SSD_STAGE_TOKENS
 
@@ -171,3 +174,100 @@ def ssd_bwd_cuda(q, k, v, log_decay, o, omega):
     dk_p, dv = ssd_bwd_kv_cuda(q, k, v, ld, omega)
     return _ssd.ssd_bwd_epilogue(q, k, v, log_decay, o, omega, dq_p, dk_p,
                                  dv)
+
+
+# ---------------------------------------------------------------------------
+# Launch plans (kernels/plan.py)
+# ---------------------------------------------------------------------------
+
+# (column groups, row groups) of csrc/ssd.cu's register tilings `Tiles<Dk, Dv>`
+_TILINGS = {(128, 64): (8, 4), (16, 32): (4, 8)}
+
+
+def _block(entry, dk, dv):
+    """(threads, staged floats per token) of an entry's block at (Dk, Dv),
+    as csrc/ssd.cu's `Block<K, Dk, Dv>`: column tiles of Dk / col_groups
+    rows (the forward, dv), row tiles of Dv / row_groups columns (dq,
+    dk); staged rows padded by 4 floats after every tile-wide slice."""
+    col_groups, row_groups = _TILINGS[(dk, dv)]
+    col_threads, row_threads = dv // 4 * col_groups, dk // 4 * row_groups
+    pad_k = dk + 4 * col_groups
+    pad_v = dv + 4 * row_groups
+    if entry == "ssd_fwd":
+        return col_threads, 2 * pad_k + pad_v + dv + 1
+    if entry == "ssd_bwd_q":
+        return row_threads, pad_k + 2 * pad_v + dk + 1
+    return row_threads + col_threads, 2 * pad_k + 2 * pad_v + dk + dv + 1
+
+
+def _plan(entry, q, k, v, log_decay, omega):
+    """One block per (batch, head), walking all N tokens of its head and of
+    its group's q and k (the forward and dq forwards, dk and dv in
+    reverse)."""
+    bsz, g, h, n, dk, dv = _dims(k, v, log_decay)
+    if (q is not None and q.shape != k.shape) \
+            or (omega is not None and omega.shape != v.shape):
+        raise ValueError(f"q / k / omega / v shapes do not match: "
+                         f"{None if q is None else tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, "
+                         f"{None if omega is None else tuple(omega.shape)}, "
+                         f"{tuple(v.shape)}")
+    code = plan.dtype_code(k.dtype)
+    threads, per_token = _block(entry, dk, dv)
+    stage, smem = plan.fit(SSD_STAGE_TOKENS, per_token * 4)
+
+    def head(blk):
+        bi, hi = divmod(blk[0], h)
+        return bi, hi, hi // (h // g)
+
+    def qk_rows(blk):
+        bi, _, grp = head(blk)
+        return plan.box((bi, bi + 1), (grp, grp + 1), (0, n), (0, dk))
+
+    def head_rows(width):
+        def tile(blk):
+            bi, hi, _ = head(blk)
+            return plan.box((bi, bi + 1), (hi, hi + 1), (0, n), (0, width))
+        return tile
+
+    def ld_row(blk):
+        bi, hi, _ = head(blk)
+        return plan.box((bi, bi + 1), (hi, hi + 1), (0, n))
+
+    qk_shape, v_shape = plan.shape_of(k), plan.shape_of(v)
+    accesses = []
+    if q is not None:
+        accesses.append(plan.Access("q", "in", qk_shape, k.dtype, qk_rows))
+    accesses += [plan.Access("k", "in", qk_shape, k.dtype, qk_rows),
+                 plan.Access("v", "in", v_shape, k.dtype, head_rows(dv)),
+                 plan.Access("log_decay", "in", (bsz, h, n), F32, ld_row)]
+    if omega is not None:
+        accesses.append(plan.Access("omega", "in", v_shape, k.dtype,
+                                    head_rows(dv)))
+    partials = (bsz, h, n, dk)
+    accesses += {
+        "ssd_fwd": [plan.Access("o", "out", v_shape, k.dtype,
+                                head_rows(dv))],
+        "ssd_bwd_q": [plan.Access("dq", "out", partials, F32,
+                                  head_rows(dk))],
+        "ssd_bwd_kv": [plan.Access("dk", "out", partials, F32,
+                                   head_rows(dk)),
+                       plan.Access("dv", "out", v_shape, F32,
+                                   head_rows(dv))]}[entry]
+    return plan.make(entry, "ssd", (bsz * h,), threads, smem, accesses,
+                     (bsz, h, g, n, dk, dv, SSD_STAGE_TOKENS, code),
+                     _SYMBOLS[entry],
+                     (bsz, h, g, n, dk, dv, SSD_STAGE_TOKENS, code),
+                     stage=stage)
+
+
+def plan_ssd_fwd(q, k, v, log_decay):
+    return _plan("ssd_fwd", q, k, v, log_decay, None)
+
+
+def plan_ssd_bwd_q(k, v, log_decay, omega):
+    return _plan("ssd_bwd_q", None, k, v, log_decay, omega)
+
+
+def plan_ssd_bwd_kv(q, k, v, log_decay, omega):
+    return _plan("ssd_bwd_kv", q, k, v, log_decay, omega)
