@@ -10,7 +10,8 @@ fails the run by raising (no result line is printed then):
   1. device  — require CUDA; print the card and its power limit; TF32 off
   2. build   — nvcc every kernel source of the paths from
                src/repro_torch/kernels/csrc, one process each, all started
-               together (with -Xptxas -v); print the build seconds
+               together (with -Xptxas -v); print the build seconds, and
+               keep ptxas's registers and spill bytes per instantiation
      check   — the static kernel-contract checks on the card
                (`repro_torch.check.run_all(device="cuda")`, what `python
                -m repro_torch.check` runs): registry, lint, shared memory,
@@ -34,7 +35,9 @@ fails the run by raising (no result line is printed then):
                G=4, bf16 and f32; flash_fwd and the three flash backward
                kernels at the training shapes, odd N=1000 and GQA G=4, bf16
                and f32, and flash_fwd on a prefill window (Nq=256,
-               Nk=544, q_offset [0, 256]); paged_decode_fused and
+               Nk=544, q_offset [0, 256]); at the training shapes
+               flash_bwd_q and flash_bwd_kv run twice and must give
+               bit-equal dq, dk and dv (no atomics); paged_decode_fused and
                paged_attention at the serving shapes (B=8, H=Hkv=16, D=128,
                page size 16, 34 table entries per slot into a shuffled
                arena, unallocated entries at the sink page, lengths in
@@ -107,8 +110,10 @@ fails the run by raising (no result line is printed then):
                the contiguous softmax kernels, `Tensor.copy_` of the
                shifted slice for the fixture; the port never calls them),
                that call; the paged decode kernels also beside the
-               contiguous one on the same keys; the fixture at n = 2^24
-               f32, block 256
+               contiguous one on the same keys; flash_fwd, flash_bwd_q
+               and flash_bwd_kv also with their achieved TFLOP/s beside
+               their bounds' and the ptxas report of every flash
+               instantiation; the fixture at n = 2^24 f32, block 256
   7. result  — a JSON line with every measurement, the card's line, a
                `kernels` JSON line, then {"ok": true, "device": {...}}
                as the last line
@@ -123,6 +128,7 @@ import dataclasses
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -321,6 +327,42 @@ def phase_device(torch):
 # 2. build
 # ---------------------------------------------------------------------------
 
+def _ptxas_report(logs) -> dict:
+    """Registers and spill bytes of every kernel instantiation, by source,
+    from ptxas's -v report in the build log."""
+    fn_re = re.compile(r"Compiling entry function '([^']+)'")
+    spill_re = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+    regs_re = re.compile(r"Used (\d+) registers")
+    out = {}
+    for name, text in logs.items():
+        recs, cur = [], None
+        for line in text.splitlines():
+            m = fn_re.search(line)
+            if m:
+                cur = {"function": m.group(1)}
+                recs.append(cur)
+            elif cur is not None and spill_re.search(line):
+                st, ss, sl = spill_re.search(line).groups()
+                cur.update(stack=int(st), spill_stores=int(ss),
+                           spill_loads=int(sl))
+            elif cur is not None and regs_re.search(line):
+                cur["registers"] = int(regs_re.search(line).group(1))
+        try:
+            names = subprocess.run(
+                ["c++filt"], input="\n".join(r["function"] for r in recs),
+                capture_output=True, text=True, timeout=60,
+                check=True).stdout.splitlines()
+            for rec, full in zip(recs, names):
+                # "void (anonymous namespace)::name<T, D>(args)" -> name<T, D>
+                full = full.replace("(anonymous namespace)::", "")
+                rec["function"] = full.split("(")[0].replace("void ", "")
+        except (OSError, subprocess.SubprocessError):
+            pass  # keep the mangled names
+        out[name] = recs
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -328,7 +370,7 @@ def phase_build():
     secs = time.perf_counter() - t0
     for name, text in logs.items():
         log(f"[build] {name}: {secs!r} s\n{text.strip()}")
-    return secs
+    return secs, _ptxas_report(logs)
 
 
 # ---------------------------------------------------------------------------
@@ -607,6 +649,21 @@ def phase_kernel_softmax(torch):
                 check_close(f"{label} dk", dk_k, dk_t, grel),
                 check_close(f"{label} dv", dv_k, dv_t, grel))
             outs += [("dq", dq_k), ("dk", dk_k), ("dv", dv_k)]
+            if nq == m["n"]:
+                # the training shape: the backward is deterministic (no
+                # atomics), so a second run gives bit-equal grads
+                dq_2 = fl.flash_bwd_q_cuda(q, k, v, do, lse_t, delta_k)
+                dk_2, dv_2 = fl.flash_bwd_kv_cuda(q, k, v, do, lse_t,
+                                                  delta_k)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in (
+                    (dq_k, dq_2), (dk_k, dk_2), (dv_k, dv_2)))
+                log(f"  {label} backward run twice: bit-equal {same}")
+                if not same:
+                    raise AssertionError(f"{label}: two backward runs "
+                                         f"differ")
+                e["bwd_bit_equal"] = same
+                del dq_2, dk_2, dv_2
         for name, t in outs:
             if t.dtype != dtype or not torch.isfinite(t).all():
                 raise AssertionError(f"{label} {name}: dtype {t.dtype} or "
@@ -1906,13 +1963,15 @@ def phase_timing_la(torch):
     return out
 
 
-def phase_timing_softmax(torch):
+def phase_timing_softmax(torch, ptxas):
     """softmax_decode_fused at the serving shapes (rotating 8 KV caches,
     285 MB, so every call finds its cache cold in L2, as a layer's decode
     does), flash_fwd and the three backward kernels at the training
     shapes (every input larger than L2); each beside its plain version
     and one PyTorch call computing the same function (SDPA), which the
-    port never calls."""
+    port never calls.  The product kernels also with their achieved
+    TFLOP/s beside the bound's, and ptxas's registers and spill bytes of
+    every flash instantiation (from the build log)."""
     from repro_torch.kernels import decode_fused as df
     from repro_torch.kernels import flash_attention as fl
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2030,6 +2089,18 @@ def phase_timing_softmax(torch):
         **_bound(bwd_bytes, bwd_flops, BF16_TC_FLOP_PER_S)}
     for name in FLASH_BWD:
         out[name]["library_ms"] = None
+    for name in ("flash_fwd", "flash_bwd_q", "flash_bwd_kv"):
+        rec = out[name]
+        rec["tflop_per_s"] = rec["flops"] / rec["ms"] / 1e9
+        rec["bound_tflop_per_s"] = rec["flops"] / rec["bound_ms"] / 1e9
+        log(f"[timing] {name} bf16: {rec['tflop_per_s']!r} TFLOP/s "
+            f"achieved, {rec['bound_tflop_per_s']!r} at its bound "
+            f"({rec['bound_ms']!r} ms)")
+    for src in ("flash_fwd", "flash_bwd"):
+        for inst in ptxas.get(src, []):
+            log(f"[timing] ptxas {src}: {inst}")
+    out["flash_ptxas"] = {src: ptxas.get(src, [])
+                          for src in ("flash_fwd", "flash_bwd")}
     for name in ("flash_fwd", *FLASH_BWD, "flash_bwd"):
         log(f"[timing] {name} B={b} H={h} Hkv={hkv} N={n} D={d} bf16: "
             f"{out[name]}")
@@ -2296,7 +2367,7 @@ def main() -> int:
     import torch
 
     name, smi = phase_device(torch)
-    build_s = phase_build()
+    build_s, ptxas = phase_build()
     check, check_launches = phase_check(torch)
     kernel_errs = phase_kernel(torch)
     la_errs = phase_kernel_la(torch)
@@ -2319,7 +2390,7 @@ def main() -> int:
     train_gla, train_gla_launches = phase_train(torch, "gla")
     train_m2, train_m2_launches = phase_train(torch, "mamba2")
     timing = {"la_decode_fused": phase_timing(torch), **phase_timing_la(
-        torch), **phase_timing_softmax(torch), **phase_timing_paged(torch),
+        torch), **phase_timing_softmax(torch, ptxas), **phase_timing_paged(torch),
         **phase_timing_gla(torch), **phase_timing_ssd(torch),
         "oob_blocked_sum": phase_timing_fixture(torch)}
 
@@ -2360,7 +2431,7 @@ def main() -> int:
                       "serve_mamba2": serve_m2,
                       "train": train, "train_softmax": train_sm,
                       "train_gla": train_gla, "train_mamba2": train_m2,
-                      "build_s": build_s, "check": check,
+                      "build_s": build_s, "ptxas": ptxas, "check": check,
                       "kernel_max_abs_err": kernel_errs,
                       "la_kernel_max_abs_err": la_errs,
                       "softmax_kernel_max_abs_err": softmax_errs,

@@ -1,6 +1,17 @@
 // Shared pieces of the flash kernels (flash_fwd.cu, flash_bwd.cu).
 //
-// Every product of the flash kernels is a warp-level tile product whose
+// Each flash source holds two bodies of every product kernel:
+//
+//   * the wgmma body (bf16 at D = 128, the main path's instance): two
+//     consumer warpgroups of 64 rows each issue Hopper's `wgmma` from
+//     shared-memory tiles that TMA loads into a ring of stages
+//     (sm90.cuh); scores, probabilities and dS stay in registers and feed
+//     the next product as its register A operand.  Its constants and its
+//     epilogue store are in `flash::wg` below;
+//   * the mma.sync body (f32 at every head dim, bf16 at D = 32 and 64):
+//     4 warps of 16 rows, described next.
+//
+// Every product of the mma.sync body is a warp-level tile product whose
 // operands sit in shared memory and whose result stays in registers, laid
 // out as the f32 accumulator of the tensor cores' m16n8k16 `mma.sync`:
 // lane l holds rows g = l / 4 and g + 8 and columns 2 t, 2 t + 1 with
@@ -11,11 +22,12 @@
 // cores, so one kernel body serves both types and the f32 instance is
 // exact to float32 rounding (the exponentials use the fast `__expf`:
 // ex2.approx of a scaled argument, within a few float32 ulps here).
+// The wgmma accumulator has the same layout within each warp's 16 rows.
 //
-// Shared-memory tiles are read as `Tile`s: element (r, c) of a row-major
-// tile is p[r * ld + c], of a column-major one p[c * ld + r].  Rows are
-// padded by 16 bytes (`kPad`), so the 8 row groups of a fragment load fall
-// on distinct banks.
+// Shared-memory tiles of the mma.sync body are read as `Tile`s: element
+// (r, c) of a row-major tile is p[r * ld + c], of a column-major one
+// p[c * ld + r].  Rows are padded by 16 bytes (`kPad`), so the 8 row
+// groups of a fragment load fall on distinct banks.
 
 #pragma once
 
@@ -23,6 +35,10 @@
 #include <cuda_runtime.h>
 
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "sm90.cuh"
 
 namespace flash {
 
@@ -221,5 +237,79 @@ __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
+
+// ---------------------------------------------------------------------------
+// the wgmma bodies
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int kD = 128;         // the head dim the wgmma bodies cover
+constexpr int kThreads = 256;   // two consumer warpgroups
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// dynamic shared memory beside the tiles: the barriers, and up to 1024
+// bytes of padding to the tiles' 1024-byte alignment
+constexpr size_t kExtra = 2048;
+
+// bytes of a bf16 tile of `rows` rows of D
+constexpr size_t tile_bytes(int rows) {
+  return static_cast<size_t>(rows) * kD * 2;
+}
+
+// 2^x by one `ex2.approx.ftz` (results below 2^-126 flush to 0; -inf
+// gives 0)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// whether the instantiation (T, D) runs the wgmma body
+template <typename T, int D>
+constexpr bool covers() {
+  return std::is_same<T, __nv_bfloat16>::value && D == kD;
+}
+
+// A block's work in launch order.  Blocks start roughly in the order of
+// their linear index (x fastest), so the longest walks go first when the
+// rank of a walk's length varies slowest: the block of linear index L
+// takes rank L / (Y Z) and (head, slot) = (L % Y, L % (Y Z) / Y) of a
+// (X, Y, Z) grid.
+struct Order {
+  int rank, head, slot;
+};
+__device__ __forceinline__ Order launch_order() {
+  const int per_rank = gridDim.y * gridDim.z;
+  const int lin =
+      blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int rem = lin % per_rank;
+  return {lin / per_rank, rem % static_cast<int>(gridDim.y),
+          rem / static_cast<int>(gridDim.y)};
+}
+
+// Store a warpgroup's 64 x 128 f32 accumulator, row halves times mul0 and
+// mul1, as bf16 rows row0 .. row0 + 63 of a row-major (n, 128) matrix,
+// skipping rows >= n.
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
+                                           const float (&d)[64], int row0,
+                                           int n, float mul0, float mul1) {
+  const int t = threadIdx.x % 128, w = t / 32, l = t % 32;
+  const int g = l / 4, tq = l % 4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + 16 * w + g + 8 * half;
+    if (r >= n) continue;
+    const float mul = half ? mul1 : mul0;
+    __nv_bfloat16* row = dst + static_cast<size_t>(r) * kD;
+#pragma unroll
+    for (int nt = 0; nt < kD / 8; ++nt)
+      *reinterpret_cast<uint32_t*>(row + nt * 8 + 2 * tq) =
+          sm90::pack_bf16(d[4 * nt + 2 * half] * mul,
+                          d[4 * nt + 2 * half + 1] * mul);
+  }
+}
+
+}  // namespace wg
 
 }  // namespace flash

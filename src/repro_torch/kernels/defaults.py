@@ -17,14 +17,27 @@ staging size, and no result depends on it.
     its block would exceed the H100's 227 KB of shared memory (large
     query groups in `la_bwd_kv`).
 
-  * `FLASH_BLOCK_Q`, `FLASH_BLOCK_K` — the tiles of the CUDA flash
-    kernels (`flash_fwd`, `flash_bwd_q`, `flash_bwd_kv`).  A block runs
-    4 warps, and a warp owns 16 query rows (or, in `flash_bwd_kv`, 16
-    key rows): the M edge of the tensor cores' m16n8k16 `mma.sync`, so
-    a block tile is 64 rows; each KV (or query) tile staged in shared
-    memory is 64 rows, which keeps a warp's (16, 64) f32 score
-    fragment at 32 registers a thread and a block's bf16 staging at
-    ~56 KB (f32: ~108 KB) at D = 128, so several blocks share an SM.
+  * `FLASH_BLOCK_Q`, `FLASH_BLOCK_K` — the query and key tiles (rows)
+    of the CUDA flash kernels (`flash_fwd`, `flash_bwd_q`,
+    `flash_bwd_kv`), per body; the dtype and the head dim pick the body
+    (`flash_attention.flash_body`):
+      - "wgmma" (bf16 at D in `FLASH_WGMMA_HEAD_DIMS`, the main path):
+        a block is two warpgroups of 64 rows, the M of Hopper's `wgmma`,
+        so its resident tile is 128 rows: 128 query rows in `flash_fwd`
+        and `flash_bwd_q`, 128 keys in `flash_bwd_kv`.  The streamed
+        tiles are 128 keys in `flash_fwd` (a 64 x 128 f32 score
+        accumulator, 64 registers a thread, beside the 64 of the output)
+        and 64 rows in the backward (S and dP at 32 registers each beside
+        the 64 or 128 of the grads' accumulators).  Two stages of each
+        fit the 227 KB of shared memory: ~162 KB in `flash_fwd`, ~130 KB
+        in the backward;
+      - "mma_sync" (f32 at every head dim, bf16 at the others): a block
+        runs 4 warps, and a warp owns 16 query rows (or, in
+        `flash_bwd_kv`, 16 key rows): the M edge of the tensor cores'
+        m16n8k16 `mma.sync`, so a block tile is 64 rows; each KV (or
+        query) tile staged in shared memory is 64 rows, which keeps a
+        warp's (16, 64) f32 score fragment at 32 registers a thread and a
+        block's f32 staging at ~108 KB at D = 128.
     The reference's 128 x 128 is a VMEM tiling of the TPU's MXU.  The
     kernels are compiled for exactly these tiles; their C entry points
     reject any other.
@@ -65,6 +78,13 @@ DEFAULT_SCAN_CHUNK = 512
 LA_STAGE_TOKENS = 32
 GLA_STAGE_TOKENS = 32
 SSD_STAGE_TOKENS = 32
-FLASH_BLOCK_Q = 64
-FLASH_BLOCK_K = 64
+FLASH_BLOCK_Q = {
+    "wgmma": {"flash_fwd": 128, "flash_bwd_q": 128, "flash_bwd_kv": 64},
+    "mma_sync": {"flash_fwd": 64, "flash_bwd_q": 64, "flash_bwd_kv": 64},
+}
+FLASH_BLOCK_K = {
+    "wgmma": {"flash_fwd": 128, "flash_bwd_q": 64, "flash_bwd_kv": 128},
+    "mma_sync": {"flash_fwd": 64, "flash_bwd_q": 64, "flash_bwd_kv": 64},
+}
+FLASH_WGMMA_HEAD_DIMS = (128,)
 SOFTMAX_DECODE_WARPS = 8

@@ -22,14 +22,18 @@ plain backward is a chunked recomputation (delta, then dq over KV chunks
 at or below the diagonal, then dk/dv with the group's query heads folded
 in) that never holds an (N, N) score matrix.  Sources: csrc/flash_fwd.cu
 and csrc/flash_bwd.cu; their headers say what bounds each kernel and how
-it is laid out.
+it is laid out.  Each product kernel has two bodies: bf16 at D in
+`FLASH_WGMMA_HEAD_DIMS` runs the Hopper body (`wgmma` fed by TMA,
+csrc/sm90.cuh), everything else the `mma.sync` body; `flash_body`
+names the one a call runs and `flash_tiles` its tiles.
 
 Shapes: q (B, H, Nq, D), k and v (B, Hkv, Nk, D) with Hkv | H, float32
 or bfloat16, D in `HEAD_DIMS`; lse and delta (B, H, Nq) float32;
 q_offset (B,) int32 or None (the training convention, query i at
 position i + Nk - Nq).  The backward is the training convention only
-(Nq = Nk).  The wrappers take contiguous CUDA tensors only and raise on
-anything else; nothing falls back to the plain version.
+(Nq = Nk).  The wrappers take contiguous, 16-byte aligned CUDA tensors
+only (TMA reads whole rows from an aligned base) and raise on anything
+else; nothing falls back to the plain version.
 
 Beside each wrapper, `plan_<entry>` gives the entry's launch plan
 (kernels/plan.py) from the same arguments' shapes.
@@ -44,7 +48,7 @@ import torch
 from repro_torch.core.softmax import softmax_chunked
 from repro_torch.kernels import build, plan
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
-    FLASH_BLOCK_K, FLASH_BLOCK_Q
+    FLASH_BLOCK_K, FLASH_BLOCK_Q, FLASH_WGMMA_HEAD_DIMS
 
 F32 = torch.float32
 # head dims the kernels are instantiated for
@@ -55,6 +59,20 @@ HEAD_DIMS = (32, 64, 128)
 # kernels)
 launches = {"flash_fwd": 0, "flash_bwd_delta": 0, "flash_bwd_q": 0,
             "flash_bwd_kv": 0}
+
+
+def flash_body(dtype, d: int) -> str:
+    """The body a flash entry runs for this compute dtype and head dim:
+    "wgmma" (bf16 at D in FLASH_WGMMA_HEAD_DIMS) or "mma_sync"."""
+    return ("wgmma" if dtype == torch.bfloat16
+            and d in FLASH_WGMMA_HEAD_DIMS else "mma_sync")
+
+
+def flash_tiles(entry: str, dtype, d: int):
+    """(block_q, block_k) of `entry`'s tiles for this dtype and head dim
+    (kernels/defaults.py)."""
+    body = flash_body(dtype, d)
+    return FLASH_BLOCK_Q[body][entry], FLASH_BLOCK_K[body][entry]
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +219,7 @@ def flash_fwd_cuda(q, k, v, q_offset: Optional[torch.Tensor] = None,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None,
             q_offset.data_ptr() if q_offset is not None else None,
-            bsz, h, hkv, nq, nk, d, FLASH_BLOCK_Q, FLASH_BLOCK_K,
+            bsz, h, hkv, nq, nk, d, *flash_tiles("flash_fwd", q.dtype, d),
             1.0 / d ** 0.5, build.DTYPE_CODE[q.dtype],
             build.current_stream(q.device))
     build.raise_on(lib, "flash_fwd", "flash_fwd", err)
@@ -251,7 +269,7 @@ def flash_bwd_q_cuda(q, k, v, do, lse, delta):
         err = lib.flash_bwd_q(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bsz, h, hkv, n,
-            d, FLASH_BLOCK_Q, FLASH_BLOCK_K, 1.0 / d ** 0.5,
+            d, *flash_tiles("flash_bwd_q", q.dtype, d), 1.0 / d ** 0.5,
             build.DTYPE_CODE[q.dtype], build.current_stream(q.device))
     build.raise_on(lib, "flash_bwd", "flash_bwd_q", err)
     launches["flash_bwd_q"] += 1
@@ -269,8 +287,9 @@ def flash_bwd_kv_cuda(q, k, v, do, lse, delta):
         err = lib.flash_bwd_kv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bsz, h, hkv, n, d, FLASH_BLOCK_Q, FLASH_BLOCK_K, 1.0 / d ** 0.5,
-            build.DTYPE_CODE[q.dtype], build.current_stream(q.device))
+            bsz, h, hkv, n, d, *flash_tiles("flash_bwd_kv", q.dtype, d),
+            1.0 / d ** 0.5, build.DTYPE_CODE[q.dtype],
+            build.current_stream(q.device))
     build.raise_on(lib, "flash_bwd", "flash_bwd_kv", err)
     launches["flash_bwd_kv"] += 1
     return dk, dv
@@ -289,22 +308,72 @@ def flash_bwd_cuda(q, k, v, o, lse, do):
 # Launch plans (kernels/plan.py)
 # ---------------------------------------------------------------------------
 
-# compiled into csrc/flash_common.cuh and flash_bwd.cu: 4 warps a block, 16
-# rows a warp, 32 query columns per flash_bwd_kv sub-tile, one warp per row
-# of flash_bwd_delta and 8 rows a block
-_THREADS = 128
+# compiled into csrc/flash_common.cuh, flash_fwd.cu and flash_bwd.cu.
+# mma_sync body: 4 warps a block, 16 rows a warp, 32 query columns per
+# flash_bwd_kv sub-tile; wgmma body: two warpgroups a block, a ring of 3
+# stages (the backward: 2) of streamed tiles, and 2048 bytes beside the
+# tiles (barriers and the pad to the tiles' 1024-byte alignment);
+# flash_bwd_delta: one warp per row, 8 rows a block
+_THREADS = {"mma_sync": 128, "wgmma": 256}
 _WARP_ROWS = 16
 _SUB_Q = 32
+_WG_STAGES = {"flash_fwd": 3, "flash_bwd_q": 2, "flash_bwd_kv": 2}
+_WG_EXTRA = 2048
 _DELTA_ROWS = 8
 
 
 def _tile_smem(dtype, d: int, rows: int, p_cols: int) -> int:
-    """Shared memory of `rows` staged rows of D and a per-warp tile of
-    p_cols columns, each row padded by 16 bytes (`flash::kPad`)."""
+    """mma_sync body: shared memory of `rows` staged rows of D and a
+    per-warp tile of p_cols columns, each row padded by 16 bytes
+    (`flash::kPad`)."""
     itemsize = torch.tensor([], dtype=dtype).element_size()
     pad = 16 // itemsize
     return (rows * (d + pad)
-            + _THREADS // 32 * _WARP_ROWS * (p_cols + pad)) * itemsize
+            + _THREADS["mma_sync"] // 32 * _WARP_ROWS * (p_cols + pad)
+            ) * itemsize
+
+
+def _wgmma_smem(entry: str, d: int, resident: int, streamed: int,
+                stats: int = 0) -> int:
+    """wgmma body: `resident` bf16 rows of D, `streamed` rows per stage of
+    the ring, `stats` f32 values per stage, and the barriers and pad."""
+    stages = _WG_STAGES[entry]
+    return 2 * d * (resident + stages * streamed) + 4 * stages * stats \
+        + _WG_EXTRA
+
+
+def _order(body: str, grid):
+    """blk -> (rank, head, slot): the work of block blk.  mma_sync body:
+    (x, y, z) itself; wgmma body: by launch order (`flash::wg::
+    launch_order`), the rank of a walk's length varying slowest over the
+    linear block index, so the longest walks of every head start first."""
+    if body == "mma_sync":
+        return lambda blk: blk
+    _, gy, gz = grid
+
+    def order(blk):
+        lin = blk[0] + grid[0] * (blk[1] + gy * blk[2])
+        rem = lin % (gy * gz)
+        return lin // (gy * gz), rem % gy, rem // gy
+    return order
+
+
+def _geometry(entry: str, dtype, d: int):
+    """(block_q, block_k, threads, smem) of `entry` for this dtype and
+    head dim."""
+    bq, bk = flash_tiles(entry, dtype, d)
+    body = flash_body(dtype, d)
+    if body == "wgmma":
+        # (resident rows, streamed rows per stage, f32 values per stage)
+        rows = {"flash_fwd": (bq, 2 * bk), "flash_bwd_q": (2 * bq, 2 * bk),
+                "flash_bwd_kv": (2 * bk, 2 * bq, 2 * bq)}[entry]
+        smem = _wgmma_smem(entry, d, *rows)
+    else:
+        smem = {"flash_fwd": _tile_smem(dtype, d, bq + 2 * bk, bk),
+                "flash_bwd_q": _tile_smem(dtype, d, 2 * bq + 2 * bk, bk),
+                "flash_bwd_kv": _tile_smem(dtype, d, 2 * bk + 2 * bq, _SUB_Q)
+                + 2 * bq * 4}[entry]
+    return bq, bk, _THREADS[body], smem
 
 
 def _scale(d: int) -> float:
@@ -320,35 +389,38 @@ def plan_flash_fwd(q, k, v, q_offset: Optional[torch.Tensor] = None,
     if q_offset is not None and tuple(q_offset.shape) != (bsz,):
         raise ValueError(f"q_offset {tuple(q_offset.shape)} is not ({bsz},)")
     group, code = h // hkv, plan.dtype_code(q.dtype)
-    q_tiles = -(-nq // FLASH_BLOCK_Q)
+    bq, bk, threads, smem = _geometry("flash_fwd", q.dtype, d)
+    q_tiles = -(-nq // bq)
+    order = _order(flash_body(q.dtype, d), (q_tiles, h, bsz))
 
     def walk(blk, *q_off):
-        x, hh, bi = blk
-        q0 = (q_tiles - 1 - x) * FLASH_BLOCK_Q
+        x, hh, bi = order(blk)
+        q0 = (q_tiles - 1 - x) * bq
         off = int(q_off[0][bi]) if q_off else nk - nq
-        last_key = min(nk, off + min(q0 + FLASH_BLOCK_Q, nq)) - 1
-        kv_tiles = 0 if last_key < 0 else last_key // FLASH_BLOCK_K + 1
+        last_key = min(nk, off + min(q0 + bq, nq)) - 1
+        kv_tiles = 0 if last_key < 0 else last_key // bk + 1
         return bi, hh, q0, kv_tiles
 
     def q_rows(blk, *q_off):
         bi, hh, q0, _ = walk(blk, *q_off)
-        return plan.box((bi, bi + 1), (hh, hh + 1),
-                        (q0, q0 + FLASH_BLOCK_Q), (0, d), masked=True)
+        return plan.box((bi, bi + 1), (hh, hh + 1), (q0, q0 + bq), (0, d),
+                        masked=True)
 
     def lse_rows(blk, *q_off):
         bi, hh, q0, _ = walk(blk, *q_off)
-        return plan.box((bi, bi + 1), (hh, hh + 1),
-                        (q0, q0 + FLASH_BLOCK_Q), masked=True)
+        return plan.box((bi, bi + 1), (hh, hh + 1), (q0, q0 + bq),
+                        masked=True)
 
     def kv_rows(blk, *q_off):
         bi, hh, _, kv_tiles = walk(blk, *q_off)
         hk = hh // group
         return plan.box((bi, bi + 1), (hk, hk + 1),
-                        (0, kv_tiles * FLASH_BLOCK_K), (0, d),
+                        (0, kv_tiles * bk), (0, d),
                         masked=True) if kv_tiles else []
 
     def offset(blk, *q_off):
-        return plan.box((blk[2], blk[2] + 1))
+        bi = order(blk)[2]
+        return plan.box((bi, bi + 1))
 
     accesses = [plan.Access("q", "in", plan.shape_of(q), q.dtype, q_rows),
                 plan.Access("k", "in", plan.shape_of(k), q.dtype, kv_rows),
@@ -360,14 +432,10 @@ def plan_flash_fwd(q, k, v, q_offset: Optional[torch.Tensor] = None,
     if q_offset is not None:
         accesses.append(plan.Access("q_offset", "in", (bsz,), plan.I32,
                                     offset))
-    smem = _tile_smem(q.dtype, d, FLASH_BLOCK_Q + 2 * FLASH_BLOCK_K,
-                      FLASH_BLOCK_K)
     return plan.make(
-        "flash_fwd", "flash_fwd", (q_tiles, h, bsz), _THREADS, smem,
-        accesses,
-        (bsz, h, hkv, nq, nk, d, FLASH_BLOCK_Q, FLASH_BLOCK_K, _scale(d),
-         code), _FWD_SYMBOLS["flash_fwd"],
-        (bsz, h, hkv, nq, nk, d, FLASH_BLOCK_Q, FLASH_BLOCK_K, code),
+        "flash_fwd", "flash_fwd", (q_tiles, h, bsz), threads, smem,
+        accesses, (bsz, h, hkv, nq, nk, d, bq, bk, _scale(d), code),
+        _FWD_SYMBOLS["flash_fwd"], (bsz, h, hkv, nq, nk, d, bq, bk, code),
         pointers=("q", "k", "v", "o", "lse" if return_lse else None,
                   None if q_offset is None else "q_offset"),
         gathered=() if q_offset is None else ("q_offset",))
@@ -398,7 +466,7 @@ def plan_flash_bwd_delta(o, do):
         "flash_bwd_delta", "flash_bwd", (-(-rows // _DELTA_ROWS),),
         _DELTA_ROWS * 32, 0, accesses, (bsz, h, n, d, code),
         _BWD_SYMBOLS["flash_bwd_delta"],
-        (bsz, h, h, n, d, FLASH_BLOCK_Q, FLASH_BLOCK_K, code))
+        (bsz, h, h, n, d, 0, 0, code))
 
 
 def plan_flash_bwd_q(q, k, v, do, lse, delta):
@@ -406,28 +474,30 @@ def plan_flash_bwd_q(q, k, v, do, lse, delta):
     KV tiles up to its diagonal."""
     bsz, h, hkv, n, _, d = _dims(q, k, v, same_len=True)
     group, code = h // hkv, plan.dtype_code(q.dtype)
-    q_tiles = -(-n // FLASH_BLOCK_Q)
+    bq, bk, threads, smem = _geometry("flash_bwd_q", q.dtype, d)
+    q_tiles = -(-n // bq)
+    order = _order(flash_body(q.dtype, d), (q_tiles, h, bsz))
 
     def walk(blk):
-        x, hh, bi = blk
-        q0 = (q_tiles - 1 - x) * FLASH_BLOCK_Q
-        kv_tiles = (min(n, q0 + FLASH_BLOCK_Q) - 1) // FLASH_BLOCK_K + 1
+        x, hh, bi = order(blk)
+        q0 = (q_tiles - 1 - x) * bq
+        kv_tiles = (min(n, q0 + bq) - 1) // bk + 1
         return bi, hh, q0, kv_tiles
 
     def q_rows(blk):
         bi, hh, q0, _ = walk(blk)
-        return plan.box((bi, bi + 1), (hh, hh + 1),
-                        (q0, q0 + FLASH_BLOCK_Q), (0, d), masked=True)
+        return plan.box((bi, bi + 1), (hh, hh + 1), (q0, q0 + bq), (0, d),
+                        masked=True)
 
     def row_stats(blk):
         bi, hh, q0, _ = walk(blk)
-        return plan.box((bi, bi + 1), (hh, hh + 1),
-                        (q0, q0 + FLASH_BLOCK_Q), masked=True)
+        return plan.box((bi, bi + 1), (hh, hh + 1), (q0, q0 + bq),
+                        masked=True)
 
     def kv_rows(blk):
         bi, hh, _, kv_tiles = walk(blk)
         return plan.box((bi, bi + 1), (hh // group, hh // group + 1),
-                        (0, kv_tiles * FLASH_BLOCK_K), (0, d), masked=True)
+                        (0, kv_tiles * bk), (0, d), masked=True)
 
     accesses = [plan.Access("q", "in", plan.shape_of(q), q.dtype, q_rows),
                 plan.Access("k", "in", plan.shape_of(k), q.dtype, kv_rows),
@@ -436,14 +506,10 @@ def plan_flash_bwd_q(q, k, v, do, lse, delta):
                 plan.Access("lse", "in", (bsz, h, n), F32, row_stats),
                 plan.Access("delta", "in", (bsz, h, n), F32, row_stats),
                 plan.Access("dq", "out", plan.shape_of(q), q.dtype, q_rows)]
-    smem = _tile_smem(q.dtype, d, 2 * FLASH_BLOCK_Q + 2 * FLASH_BLOCK_K,
-                      FLASH_BLOCK_K)
     return plan.make(
-        "flash_bwd_q", "flash_bwd", (q_tiles, h, bsz), _THREADS, smem,
-        accesses,
-        (bsz, h, hkv, n, d, FLASH_BLOCK_Q, FLASH_BLOCK_K, _scale(d), code),
-        _BWD_SYMBOLS["flash_bwd_q"],
-        (bsz, h, hkv, n, d, FLASH_BLOCK_Q, FLASH_BLOCK_K, code))
+        "flash_bwd_q", "flash_bwd", (q_tiles, h, bsz), threads, smem,
+        accesses, (bsz, h, hkv, n, d, bq, bk, _scale(d), code),
+        _BWD_SYMBOLS["flash_bwd_q"], (bsz, h, hkv, n, d, bq, bk, code))
 
 
 def plan_flash_bwd_kv(q, k, v, do, lse, delta):
@@ -451,19 +517,21 @@ def plan_flash_bwd_kv(q, k, v, do, lse, delta):
     of its group and every query tile from its diagonal on."""
     bsz, h, hkv, n, _, d = _dims(q, k, v, same_len=True)
     group, code = h // hkv, plan.dtype_code(q.dtype)
-    q_tiles = -(-n // FLASH_BLOCK_Q)
+    bq, bk, threads, smem = _geometry("flash_bwd_kv", q.dtype, d)
+    q_tiles = -(-n // bq)
+    grid = (-(-n // bk), hkv, bsz)
+    order = _order(flash_body(q.dtype, d), grid)
 
     def kv_rows(blk):
-        kt, hk, bi = blk
+        kt, hk, bi = order(blk)
         return plan.box((bi, bi + 1), (hk, hk + 1),
-                        (kt * FLASH_BLOCK_K, (kt + 1) * FLASH_BLOCK_K),
-                        (0, d), masked=True)
+                        (kt * bk, (kt + 1) * bk), (0, d), masked=True)
 
     def q_span(blk):
-        kt, hk, bi = blk
-        q0 = kt * FLASH_BLOCK_K // FLASH_BLOCK_Q * FLASH_BLOCK_Q
+        kt, hk, bi = order(blk)
+        q0 = kt * bk // bq * bq
         return ((bi, bi + 1), (hk * group, (hk + 1) * group),
-                (q0, q_tiles * FLASH_BLOCK_Q))
+                (q0, q_tiles * bq))
 
     def q_rows(blk):
         return plan.box(*q_span(blk), (0, d), masked=True)
@@ -479,11 +547,7 @@ def plan_flash_bwd_kv(q, k, v, do, lse, delta):
                 plan.Access("delta", "in", (bsz, h, n), F32, row_stats),
                 plan.Access("dk", "out", plan.shape_of(k), q.dtype, kv_rows),
                 plan.Access("dv", "out", plan.shape_of(v), q.dtype, kv_rows)]
-    smem = (_tile_smem(q.dtype, d, 2 * FLASH_BLOCK_K + 2 * FLASH_BLOCK_Q,
-                       _SUB_Q) + 2 * FLASH_BLOCK_Q * 4)
     return plan.make(
-        "flash_bwd_kv", "flash_bwd", (-(-n // FLASH_BLOCK_K), hkv, bsz),
-        _THREADS, smem, accesses,
-        (bsz, h, hkv, n, d, FLASH_BLOCK_Q, FLASH_BLOCK_K, _scale(d), code),
-        _BWD_SYMBOLS["flash_bwd_kv"],
-        (bsz, h, hkv, n, d, FLASH_BLOCK_Q, FLASH_BLOCK_K, code))
+        "flash_bwd_kv", "flash_bwd", grid, threads, smem,
+        accesses, (bsz, h, hkv, n, d, bq, bk, _scale(d), code),
+        _BWD_SYMBOLS["flash_bwd_kv"], (bsz, h, hkv, n, d, bq, bk, code))
