@@ -57,7 +57,11 @@ fails the run by raising (no result line is printed then):
                (-softplus(N(0,1))) and the hard U[-5, 0] (o, the f32 dq
                and dk partials, dv, and after the epilogue dq, dk, dv and
                dld), and at log_decay = 0 the forward against
-               unnormalized causal linear attention
+               unnormalized causal linear attention, in f32 (the token
+               walk) and bf16; every bf16 ssd_fwd case runs the chunked
+               wgmma body (asserted from its launcher's C plan export),
+               and a second launch of the bf16 main case must give
+               bit-equal o
   4. serve   — the Engine at full width pythia-1.4b in bf16, once with the
                paper's linear attention and once with the softmax
                baseline: 8 requests, 512-token prompts, prefill_chunk 256,
@@ -113,7 +117,9 @@ fails the run by raising (no result line is printed then):
                contiguous one on the same keys; flash_fwd, flash_bwd_q
                and flash_bwd_kv also with their achieved TFLOP/s beside
                their bounds' and the ptxas report of every flash
-               instantiation; the fixture at n = 2^24 f32, block 256
+               instantiation; ssd_fwd with the body that ran, its ptxas
+               registers and spills, shared memory per block and the
+               bound of that body; the fixture at n = 2^24 f32, block 256
   7. result  — a JSON line with every measurement, the card's line, a
                `kernels` JSON line, then {"ok": true, "device": {...}}
                as the last line
@@ -918,13 +924,31 @@ def _ssd_case(torch, gen, b, g, h, n, dk, dv, dtype, regime):
             normal(b, h, n, dv).to(dtype), ld, normal(b, h, n, dv).to(dtype))
 
 
+def _ssd_fwd_body(q, k, v, ld):
+    """The ssd_fwd body a call with these operands runs, from the plan
+    beside the wrapper and the launcher's own C export (grid, threads and
+    shared memory of the very launch): "wgmma" or "walk"."""
+    from repro_torch.check import bounds
+    from repro_torch.kernels import ssd
+    body = ssd.ssd_body("ssd_fwd", q.dtype, q.shape[-1], v.shape[-1])
+    launch = ssd.plan_ssd_fwd(q, k, v, ld)
+    got = bounds.c_plan(launch)
+    if got[:5] != launch.grid + (launch.threads, launch.smem):
+        raise AssertionError(f"ssd_fwd: the launcher's plan {got} is not "
+                             f"the {body} body's {launch}")
+    return body, launch, got
+
+
 def phase_kernel_ssd(torch):
     """ssd_fwd, ssd_bwd_q and ssd_bwd_kv against their plain versions at
     mamba2-2.7b's training shapes, odd N and G > 1, bf16 and f32, under
     both decay regimes: o, the f32 partials of dq and dk, dv, and after
     the PyTorch epilogue (the group sums and dld, from each path's
     partials and the same o) dq, dk, dv and dld; at log_decay = 0 the
-    forward against unnormalized causal linear attention."""
+    forward against unnormalized causal linear attention, in f32 and
+    bf16.  Every bf16 case runs ssd_fwd's chunked wgmma body, every f32
+    case the token walk; the bf16 main case launches twice for bit-equal
+    o."""
     from repro_torch.core import ssd as core_ssd
     from repro_torch.kernels import ssd
     gen = torch.Generator(device="cuda")
@@ -946,7 +970,19 @@ def phase_kernel_ssd(torch):
         log(f"[kernel] ssd {label}: B={b} G={g} H={h} N={n} Dk={dk} "
             f"Dv={dv} {dtype}, log decay {regime}")
         rel = BF16_REL if dtype == bf16 else SEQ_F32_REL
+        body, _, _ = _ssd_fwd_body(q, k, v, ld)
+        if body != ("wgmma" if dtype == bf16 else "walk"):
+            raise AssertionError(f"ssd {label}: ssd_fwd runs the {body} "
+                                 f"body")
         o_k = ssd.ssd_fwd_cuda(q, k, v, ld)
+        if label == "main_bf16":
+            again = ssd.ssd_fwd_cuda(q, k, v, ld)
+            torch.cuda.synchronize()
+            if not torch.equal(o_k, again):
+                raise AssertionError("ssd main_bf16: two launches of "
+                                     "ssd_fwd differ")
+            log(f"  ssd {label} o: two launches bit-equal ({body} body)")
+            del again
         dq_pk = ssd.ssd_bwd_q_cuda(k, v, ld, om)
         dk_pk, dv_k = ssd.ssd_bwd_kv_cuda(q, k, v, ld, om)
         torch.cuda.synchronize()
@@ -982,18 +1018,25 @@ def phase_kernel_ssd(torch):
         torch.cuda.empty_cache()
 
     # log_decay = 0: unnormalized causal linear attention (the
-    # reference's tests/test_kernels_ssd.py checks its kernel so)
+    # reference's tests/test_kernels_ssd.py checks its kernel so), through
+    # the token walk (f32) and the chunked body (bf16)
     b, g, h, n = m["b"], 1, m["h"], 1000
-    q, k, v, _, _ = _ssd_case(torch, gen, b, g, h, n, dk, dv, f32, "init")
-    o_k = ssd.ssd_fwd_cuda(q, k, v, torch.zeros((b, h, n), device="cuda"))
-    scores = torch.einsum("bgid,bgjd->bgij", q, k).tril()
-    o_la = torch.einsum("bgij,bghjd->bghid", scores,
-                        v.reshape(b, g, h // g, n, dv)).reshape(b, h, n, dv)
-    errs["ld0_vs_linear"] = check_close(
-        "ssd at log_decay = 0 vs unnormalized causal linear attention", o_k,
-        o_la, SEQ_F32_REL)
-    del q, k, v, o_k, scores, o_la
-    torch.cuda.empty_cache()
+    for label, dtype, rel in (("ld0_vs_linear", f32, SEQ_F32_REL),
+                              ("ld0_vs_linear_bf16", bf16, BF16_REL)):
+        q, k, v, _, _ = _ssd_case(torch, gen, b, g, h, n, dk, dv, dtype,
+                                  "init")
+        o_k = ssd.ssd_fwd_cuda(q, k, v,
+                               torch.zeros((b, h, n), device="cuda"))
+        scores = torch.einsum("bgid,bgjd->bgij", q.float(),
+                              k.float()).tril()
+        o_la = torch.einsum("bgij,bghjd->bghid", scores,
+                            v.float().reshape(b, g, h // g, n, dv)
+                            ).reshape(b, h, n, dv)
+        errs[label] = check_close(
+            f"ssd at log_decay = 0 vs unnormalized causal linear attention "
+            f"({dtype})", o_k, o_la, rel)
+        del q, k, v, o_k, scores, o_la
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -2282,16 +2325,22 @@ def phase_timing_gla(torch):
     return out
 
 
-def phase_timing_ssd(torch):
+def phase_timing_ssd(torch, ptxas):
     """ssd_fwd, ssd_bwd_q and ssd_bwd_kv and their plain versions at
     mamba2-2.7b's training shapes (bf16, as the model hands them over; a
     fresh layer's decays), in turns, beside their bounds.  Bytes: each
-    input read once, each output written once; operations: per token and
-    head, the decayed state update (3 Dk Dv: a multiply and an FMA per
-    element) and each readout (2 Dk Dv), i.e. 5 Dk Dv for the forward and
-    for dq, 7 Dk Dv for dk and dv (the kernel's second copy of U is its
-    own choice, not counted)."""
+    input read once, each output written once.  Operations of the token
+    walk (f32 on the CUDA cores): per token and head, the decayed state
+    update (3 Dk Dv: a multiply and an FMA per element) and each readout
+    (2 Dk Dv), i.e. 5 Dk Dv for the forward and for dq, 7 Dk Dv for dk
+    and dv (the kernel's second copy of U is its own choice, not
+    counted).  ssd_fwd in bf16 runs the chunked wgmma body: per chunk of
+    c tokens and head its four products, q k^T, q S, A v and the state
+    update, 2 c Dk (c + Dv) + 2 c Dv (c + Dk) flops on the bf16 tensor
+    cores; its record names the body, its ptxas registers and spills and
+    its shared memory per block, and keeps the walk's bound beside."""
     from repro_torch.kernels import ssd
+    from repro_torch.kernels.defaults import SSD_CHUNK_TOKENS
     m = SSD_SHAPE
     b, g, h, n, dk, dv = m["b"], m["g"], m["h"], m["n"], m["dk"], m["dv"]
     gen = torch.Generator(device="cuda")
@@ -2319,12 +2368,27 @@ def phase_timing_ssd(torch):
         "ssd_bwd_kv": (lambda: ssd.ssd_bwd_kv_torch(q, k, v, ld, om),
                        lambda: ssd.ssd_bwd_kv_cuda(q, k, v, ld, om)),
     }
+    body, launch, c_geo = _ssd_fwd_body(q, k, v, ld)
+    chunks = -(-n // SSD_CHUNK_TOKENS)
+    c = SSD_CHUNK_TOKENS
+    tc_flops = b * h * chunks * (2 * c * dk * (c + dv) + 2 * c * dv * (c + dk))
+    walk_bound = _bound(*work["ssd_fwd"])
+    if body == "wgmma":
+        work["ssd_fwd"] = (work["ssd_fwd"][0], tc_flops, BF16_TC_FLOP_PER_S)
     out = {}
     for name, (plain_fn, kernel_fn) in calls.items():
         kern, pl = _time_pair(torch, plain_fn, kernel_fn, reps=5)
         out[name] = {"ms": min(kern), "ms_runs": kern, "plain_ms": min(pl),
                      "plain_ms_runs": pl, "library_ms": None,
                      **_bound(*work[name])}
+        if name == "ssd_fwd":
+            fn = "sc::ssd_fwd_wgmma_kernel" if body == "wgmma" else \
+                "ssd_fwd_kernel<__nv_bfloat16, 128, 64>"
+            out[name].update(
+                body=body, threads=launch.threads, smem_per_block=launch.smem,
+                c_plan=list(c_geo), walk_bound=walk_bound,
+                ptxas=[r for r in ptxas.get("ssd", [])
+                       if r["function"] == fn])
         log(f"[timing] {name} B={b} G={g} H={h} N={n} Dk={dk} Dv={dv} "
             f"bf16: {out[name]}")
     log("[timing] ssd_fwd / ssd_bwd_q / ssd_bwd_kv: library_ms null: no "
@@ -2338,7 +2402,10 @@ def phase_timing_fixture(torch):
     """The fixture kernel at n = 2^24 f32, block 256, its last block
     reading the block after x in one allocation, beside its plain version
     and `Tensor.copy_` of the shifted slice (the one PyTorch call for the
-    same function); bound: 64 MiB read and 64 MiB written."""
+    same function), in turns; bound: 64 MiB read and 64 MiB written.
+    Runs of 200 launches, as the decode kernels' (the first launch of a
+    run waits on the host, which is ~0.5 % of a run of 50 of these
+    0.048 ms calls)."""
     from repro_torch.check import fixtures
     n, block = 1 << 24, 256
     gen = torch.Generator(device="cuda")
@@ -2347,11 +2414,11 @@ def phase_timing_fixture(torch):
     x, out = buf[:n], torch.empty(n, device="cuda")
     kern, plain = _time_pair(
         torch, lambda: fixtures.oob_blocked_sum_torch(buf, 0, n, block),
-        lambda: fixtures.oob_blocked_sum_cuda(x, block), reps=50, warm=3)
+        lambda: fixtures.oob_blocked_sum_cuda(x, block), reps=200, warm=3)
     kern2, lib = _time_pair(torch,
                             lambda: out.copy_(buf[block:n + block]),
                             lambda: fixtures.oob_blocked_sum_cuda(x, block),
-                            reps=50, warm=3)
+                            reps=200, warm=3)
     rec = {"ms": min(kern + kern2), "ms_runs": kern + kern2,
            "plain_ms": min(plain), "plain_ms_runs": plain,
            "library_ms": min(lib), "library_ms_runs": lib,
@@ -2391,7 +2458,7 @@ def main() -> int:
     train_m2, train_m2_launches = phase_train(torch, "mamba2")
     timing = {"la_decode_fused": phase_timing(torch), **phase_timing_la(
         torch), **phase_timing_softmax(torch, ptxas), **phase_timing_paged(torch),
-        **phase_timing_gla(torch), **phase_timing_ssd(torch),
+        **phase_timing_gla(torch), **phase_timing_ssd(torch, ptxas),
         "oob_blocked_sum": phase_timing_fixture(torch)}
 
     # each kernel's launches summed over the main-path runs (every other

@@ -8,10 +8,11 @@ as the reference's fixtures do.  They are NOT registered in
 `kernels/ops.py`.
 
   oob_blocked_sum        a hand-written CUDA kernel
-                         (kernels/csrc/check_fixture.cu) whose blocks copy
-                         x[(i+1) block + t] into o[i block + t], so the last
-                         block reads one block past x -> REPRO-B001, from
-                         its launch plan and, on the card, from a guard band
+                         (kernels/csrc/check_fixture.cu) whose grid steps
+                         copy x[(i+1) block + e] into o[i block + e], so the
+                         last step reads one block past x -> REPRO-B001,
+                         from its launch plan and, on the card, from a
+                         guard band
   quadratic_residual     an autograd Function saving the (N, N) attention
                          matrix -> REPRO-J001
   unguarded_bf16_matmul  a bf16 x bf16 -> bf16 matmul -> REPRO-J002
@@ -42,6 +43,11 @@ launches = {KERNEL: 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SYMBOLS = {KERNEL: [_P, _P, _I, _I, _P]}
+# the kernel's block, as csrc/check_fixture.cu: threads a CUDA block,
+# float4 loads in flight per thread, and the floats of a run of grid steps
+_THREADS = 256
+_LOADS = 4
+_RUN_FLOATS = _THREADS * _LOADS * 4
 
 
 # ---------------------------------------------------------------------------
@@ -65,16 +71,20 @@ def oob_blocked_sum_torch(buf, offset: int, n: int, block: int):
 
 
 def oob_blocked_sum_cuda(x, block: int):
-    """Launch the fixture kernel on a 1-D float32 CUDA tensor x: o (n,),
-    zero where no block writes.  The last block reads x[n : n + block],
-    past x: x should be a view inside a larger allocation."""
+    """Launch the fixture kernel on a 1-D float32 CUDA tensor x (block a
+    multiple of 4, at most n): o (n,), zero where no grid step writes.
+    The last step reads x[n : n + block], past x: x should be a view
+    inside a larger allocation."""
     build.check_tensors(KERNEL, {"x": x}, ("x",))
     if x.dim() != 1 or x.dtype != F32:
         raise ValueError(f"x must be 1-D float32; got {tuple(x.shape)} "
                          f"{x.dtype}")
+    _check_block(x, block)
     lib = build.bind(LIB, _SYMBOLS)
     o = torch.empty_like(x)
-    o[x.numel() // block * block:] = 0   # the tail no block writes
+    tail = x.numel() % block
+    if tail:
+        o[-tail:] = 0   # the tail no block writes
     with torch.cuda.device(x.device):
         err = lib.oob_blocked_sum(x.data_ptr(), o.data_ptr(), x.numel(),
                                   block, build.current_stream(x.device))
@@ -94,21 +104,43 @@ def oob_blocked_sum(x, block: int = 16):
                                  block)
 
 
+def _check_block(x, block: int) -> None:
+    if block <= 0 or block % 4:
+        raise ValueError(f"{KERNEL}: block {block} is not a positive "
+                         f"multiple of 4 (the kernel copies float4s)")
+    if x.numel() < block:
+        raise ValueError(f"{KERNEL}: n = {x.numel()} < block {block}: no "
+                         f"grid step")
+
+
+def _steps_of(blk, steps: int, run: int):
+    """Grid steps [first, last) of CUDA block blk (x, y, z): runs of `run`
+    steps over the first steps - 1, then the last step alone."""
+    if blk[0] == -(-(steps - 1) // run):
+        return steps - 1, steps
+    return blk[0] * run, min((blk[0] + 1) * run, steps - 1)
+
+
 def plan_oob_blocked_sum(x, block: int = 16) -> plan.Launch:
-    """One block of `block` threads per grid step, n // block steps; block
-    i reads x[(i+1) block : (i+2) block] and writes o[i block : (i+1)
-    block]."""
+    """n // block grid steps in runs of _RUN_FLOATS // block (at least 1),
+    one CUDA block of 256 threads each, the last step alone in the last
+    block; a block taking steps [first, last) reads x[(first+1) block :
+    (last+1) block] and writes o[first block : last block]."""
+    _check_block(x, block)
     n = x.numel()
+    steps, run = n // block, max(1, _RUN_FLOATS // block)
 
     def x_rows(blk):
-        return plan.box(((blk[0] + 1) * block, (blk[0] + 2) * block))
+        first, last = _steps_of(blk, steps, run)
+        return plan.box(((first + 1) * block, (last + 1) * block))
 
     def o_rows(blk):
-        return plan.box((blk[0] * block, (blk[0] + 1) * block))
+        first, last = _steps_of(blk, steps, run)
+        return plan.box((first * block, last * block))
 
-    return plan.make(KERNEL, LIB, (n // block,), block, 0,
-                     [plan.Access("x", "in", (n,), F32, x_rows),
-                      plan.Access("o", "out", (n,), F32, o_rows)],
+    return plan.make(KERNEL, LIB, (-(-(steps - 1) // run) + 1,), _THREADS,
+                     0, [plan.Access("x", "in", (n,), F32, x_rows),
+                         plan.Access("o", "out", (n,), F32, o_rows)],
                      (n, block), _SYMBOLS[KERNEL], (n, block, 0))
 
 

@@ -257,13 +257,7 @@ constexpr size_t tile_bytes(int rows) {
   return static_cast<size_t>(rows) * kD * 2;
 }
 
-// 2^x by one `ex2.approx.ftz` (results below 2^-126 flush to 0; -inf
-// gives 0)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+using sm90::exp2_ftz;
 
 // whether the instantiation (T, D) runs the wgmma body
 template <typename T, int D>

@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks of the wgmma flash bodies
-// (flash_fwd.cu, flash_bwd.cu): mbarriers, TMA tile loads and warpgroup
-// matrix products, as raw PTX.
+// Hopper (sm_90a) building blocks of the wgmma bodies (flash_fwd.cu,
+// flash_bwd.cu, ssd.cu): mbarriers, TMA tile loads and warpgroup matrix
+// products, as raw PTX.
 //
 //   * mbarrier: init, arrive, arrive with an expected transaction count,
 //     and a try_wait loop on a phase parity (a barrier's phase p has
@@ -14,16 +14,17 @@
 //     a TMA box's must, go by 4-byte `cp.async` whose completion arrives
 //     on the same mbarrier;
 //   * wgmma: shared-memory descriptors of 128-byte-swizzled bf16 tiles,
-//     `wgmma.fence`, `commit_group`, `wait_group`, and the m64nNk16
-//     products the flash bodies issue (bf16 in, f32 accumulate).
+//     `wgmma.fence`, `commit_group`, `wait_group`, the proxy fence that
+//     makes tiles written by threads visible to them, and the m64nNk16
+//     products the bodies issue (bf16 in, f32 accumulate).
 //
 // Tile layout.  A bf16 tile of R rows and 128 columns sits in shared
 // memory as two boxes of R x 64 (one 128-byte row each, as the 128-byte
 // swizzle needs), box c at byte c * R * 128; each box is what one TMA load
 // of a (64, R, 1) box of a 3-D map (D, N, heads) writes, with 16-byte
-// chunks of row r XOR-swizzled by r % 8.  Every tile starts 1024-byte
-// aligned, so the swizzle (a function of the address bits) matches the
-// descriptors'.  Such a tile is
+// chunks of row r XOR-swizzled by r % 8 (a tile of 64 columns is one
+// box).  Every tile starts 1024-byte aligned, so the swizzle (a function
+// of the address bits) matches the descriptors'.  Such a tile is
 //   * a K-major operand (rows = M or N, columns = K): 8-row groups 1024
 //     bytes apart (SBO); the k-th 16-column step starts at box k / 4, byte
 //     32 (k % 4) of its rows;
@@ -124,6 +125,31 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// box (c0, c1, c2) of a 3-D map from shared memory to global memory, in
+// the thread's bulk group; elements outside the map's extent are not
+// written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// returns once at most N of the thread's bulk groups still read shared
+// memory (kRead) or are still in flight at all
+template <int N, bool kRead>
+__device__ __forceinline__ void bulk_wait() {
+  if (kRead)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // 4 bytes from global to shared memory by `cp.async` (zero-filled where
 // !in; src must still be a valid address), for values too few or too
 // unaligned for a TMA box
@@ -173,6 +199,13 @@ __device__ __forceinline__ uint64_t desc_mn(const __nv_bfloat16* tile,
                                             int k) {
   return desc(reinterpret_cast<const char*>(tile) + k * 2048, kRows * 128,
               1024);
+}
+
+// orders this thread's shared-memory writes before later reads of the
+// same bytes by wgmma or TMA (the async proxy); a barrier must still
+// follow before another thread's product reads them
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void mma_fence() {
@@ -227,8 +260,9 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
 }
 
 // d (64 x 128, f32) (+)= A (64 x 16) B (16 x 128), A and B bf16 in shared
-// memory, both K-major (descriptors a, b); d is overwritten where
-// accumulate is 0.
+// memory (descriptors a, b), K-major unless kTransA / kTransB is 1 (then
+// MN-major, read transposed); d is overwritten where accumulate is 0.
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
                                           uint64_t b, int accumulate) {
   asm volatile(
@@ -243,7 +277,7 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -260,7 +294,7 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
 // d (64 x 128, f32) += A (64 x 16) B (16 x 128): A bf16 in registers (the
@@ -303,10 +337,84 @@ __device__ __forceinline__ void mma_rs_n128(float (&d)[64],
 }
 
 
+// d (64 x 64, f32) += A (64 x 16) B (16 x 64): A bf16 in registers (the
+// four 32-bit fragment registers a), B bf16 in shared memory, MN-major
+// (descriptor b, transposed).
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
 // two f32 values as one bf16x2 register (lo in the low half)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Four 8 x 8 bf16 matrices from registers into shared memory: register j
+// holds this thread's pair of matrix j (row lane / 4, columns
+// 2 (lane % 4) and + 1, as in an accumulator), and lane l gives the
+// address of row l % 8 of matrix l / 8 (16 bytes).
+__device__ __forceinline__ void stmatrix_x4(void* row, uint32_t r0,
+                                            uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(smem_u32(row)),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
+// A warpgroup's m64nN f32 accumulator d (N = 8 kBlocks: 4 values of each
+// 8-column block a thread) as bf16 into a 128-byte-swizzled K-major tile
+// of 64 rows and N columns (see the tile layout above): eight columns of
+// a warp's 16 rows are two 8 x 8 matrices, four go by one stmatrix.
+template <int kBlocks>
+__device__ __forceinline__ void store_tile(unsigned char* tile,
+                                           const float (&d)[4 * kBlocks]) {
+  static_assert(kBlocks % 2 == 0, "column blocks in pairs");
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  // this lane's row of its matrix: matrices 0 and 2 the warp's top 8
+  // rows, 1 and 3 its bottom 8; 0 and 1 column block a, 2 and 3 a + 1
+  const int m = lane / 8;
+  const int row = 16 * warp + 8 * (m & 1) + lane % 8;
+#pragma unroll
+  for (int a = 0; a < kBlocks; a += 2) {
+    const int blk = a + (m >> 1);  // the lane's 16-byte column block
+    unsigned char* addr = tile + (blk / 8) * 64 * 128 + row * 128 +
+                          (((blk % 8) ^ (row % 8)) * 16);
+    stmatrix_x4(addr, pack_bf16(d[4 * a], d[4 * a + 1]),
+                pack_bf16(d[4 * a + 2], d[4 * a + 3]),
+                pack_bf16(d[4 * a + 4], d[4 * a + 5]),
+                pack_bf16(d[4 * a + 6], d[4 * a + 7]));
+  }
+}
+
+// 2^x by one `ex2.approx.ftz` (results below 2^-126 flush to 0; -inf
+// gives 0)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // The accumulator of an m64nN product as the A operand of the next one:
@@ -352,16 +460,19 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map of a contiguous bf16 (slices, n, 128) tensor as (128, n,
-// slices), boxes of (64, rows, 1) with the 128-byte swizzle: a box past
-// one slice's n rows is zero-filled, never the next slice's rows.
+// A 3-D map of a contiguous bf16 (slices, n, cols) tensor as (cols, n,
+// slices), cols 128 or 64, boxes of (64, rows, 1) with the 128-byte
+// swizzle: a box past one slice's n rows is zero-filled, never the next
+// slice's rows.
 inline cudaError_t map_rows(CUtensorMap* map, const void* base, int n,
-                            int slices, int rows) {
+                            int slices, int rows, int cols = 128) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {128, static_cast<cuuint64_t>(n),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(n),
                               static_cast<cuuint64_t>(slices)};
-  const cuuint64_t strides[2] = {128 * 2, static_cast<cuuint64_t>(n) * 256};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(n) * cols * 2};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult res = encode(

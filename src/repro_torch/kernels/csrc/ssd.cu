@@ -1,5 +1,5 @@
 // SSD (Mamba-2) forward and analytic backward for Hopper (sm_90a): three
-// kernels.
+// kernels, the forward with two bodies.
 //
 // Replaces the TPU kernels `ssd_fwd_pallas` (src/repro/kernels/ssd.py:65;
 // body `_ssd_kernel`, ssd.py:34) and `ssd_bwd_pallas` (ssd.py:192; bodies
@@ -17,8 +17,9 @@
 // γ_{n+1}, the decay of the token walked just before (the weight of query
 // i on key n is Π_{m=n+1..i} γ_m).  The sums include the token itself, as
 // the reference's causal masks do.  Every factor is exp(ld) <= 1, so
-// nothing overflows and the chunked form's log-space cumsums have no
-// counterpart.  No normalizer, no a/b: unlike la_fwd.cu this is the
+// nothing overflows: the token walks multiply the decays token by token;
+// the chunked body takes the reference's log-space cumsums within a chunk
+// of 64 and exponentiates only differences <= 0.  No normalizer, no a/b: unlike la_fwd.cu this is the
 // reference's plain SSD recurrence.
 //
 // Grouping (the reference's `hi // group` index maps): q and k are
@@ -36,16 +37,46 @@
 // (mamba2-2.7b: state 128, head dim 64) and (16, 32) (its smoke config);
 // any other pair is refused.
 //
-// What bounds them (estimates from the shapes, not measurements; B=2,
-// G=1, H=80, N=8192, Dk=128, Dv=64): ssd_fwd does 5 Dk Dv flops per token
-// and head (the decayed update and the readout), 53.7 GFLOP, 0.80 ms at
-// 67 TFLOP/s f32, against 0.10 ms for its ~0.35 GB; ssd_bwd_q the same
-// flops, but it writes 671 MB of f32 partials (0.26 ms); ssd_bwd_kv
-// updates U once and reads it twice, 7 Dk Dv flops, 75.2 GFLOP, 1.12 ms.
-// All are bound by f32 operations on the CUDA cores.
+// Two bodies of ssd_fwd, chosen by the launcher from the dtype and dims:
+// the chunked wgmma body for bf16 at (128, 64) (mamba2-2.7b's training
+// instance), the token walk for f32 at both dims and bf16 at (16, 32).
+// Both backward kernels are token walks.
 //
-// Design (simple first; a chunk-parallel form on the tensor cores is
-// later work):
+// What bounds them (estimates from the shapes; B=2, G=1, H=80, N=8192,
+// Dk=128, Dv=64): every kernel moves its bytes once, ssd_fwd ~0.35 GB
+// (0.104 ms at 3.35 TB/s).  The token walk does 5 Dk Dv f32 flops per
+// token and head in ssd_fwd (the decayed update and the readout), 53.7
+// GFLOP, 0.80 ms at 67 TFLOP/s; ssd_bwd_q the same flops, but it writes
+// 671 MB of f32 partials (0.26 ms); ssd_bwd_kv updates U once and reads
+// it twice, 7 Dk Dv flops, 75.2 GFLOP, 1.12 ms: bound by f32 operations
+// on the CUDA cores.  The chunked body does four products per chunk of
+// c = 64 tokens (q k^T, q S, A v and the state update: 2 c Dk (c + Dv) +
+// 2 c Dv (c + Dk) flops), 75.2 GFLOP on the bf16 tensor cores, 0.076 ms
+// at 989 TFLOP/s: bound by its bytes (0.104 ms).
+//
+// Design of the chunked body (namespace sc, the reference's chunked form,
+// src/repro/kernels/ssd.py:34-62): one warpgroup per (batch, head), 160
+// blocks of 108,544 B of shared memory, two to an SM, one wave on 132 SMs.
+//   * thread 0 loads each chunk's q, k (64 x 128) and v (64 x 64) by TMA
+//     into a 2-stage ring (sm90.cuh: 128-byte-swizzled boxes; rows past N
+//     arrive as zeros, so a ragged last chunk needs no padding in device
+//     memory); at G = 1 every head of a batch reads the same q and k,
+//     which stay in L2.  Chunk c + 1 is requested when chunk c starts;
+//   * per chunk: q k^T and q S (S from the bf16 copy of S^T, a K-major B)
+//     by `wgmma` from shared memory; behind them the log decays' inclusive
+//     cumsum cl as a warp scan (every warp holds all 64), and the tile
+//     (w v) with w_n = exp(cl_last - cl_n) <= 1; then the decay matrix
+//     A = (q k^T) o exp(cl_i - cl_j) (j <= i, else 0; exponent <= 0, so
+//     nothing overflows) in registers, rounded to bf16 as the register A
+//     of A v; o = exp(cl_i) q S + A v (v read MN-major); S^T =
+//     exp(cl_last) S^T + (w v)^T k (both MN-major, no transpose copy);
+//   * the state stays an f32 accumulator in registers (S^T, 64 x 128: 64
+//     registers a thread) for the whole walk; only operands are rounded to
+//     bf16 (A, w v and the readout's copy of S), as the flash kernels
+//     round P;
+//   * o of a chunk is stored from registers while the state update runs;
+//     each o is written once (no atomics): the result is bit-deterministic.
+// Design of the token walk (simple first):
 //   * one block per (batch, head), walking the whole sequence: a (B, H)
 //     grid, 160 blocks at B=2, H=80 on 132 SMs, small enough that two
 //     fit on one SM, so the grid runs in one wave;
@@ -77,7 +108,264 @@
 
 #include <string.h>
 
+#include <type_traits>
+
 #include "plan.cuh"
+#include "sm90.cuh"
+
+// ---------------------------------------------------------------------------
+// the chunked wgmma body of ssd_fwd (bf16, Dk = 128, Dv = 64)
+// ---------------------------------------------------------------------------
+
+namespace sc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kDk = 128;
+constexpr int kDv = 64;
+constexpr int kChunk = 64;     // tokens of a chunk: the M of wgmma
+constexpr int kStages = 2;     // chunks of q, k and v in the TMA ring
+constexpr int kThreads = 128;  // one warpgroup
+constexpr size_t kQKBytes = static_cast<size_t>(kChunk) * kDk * 2;
+constexpr size_t kVBytes = static_cast<size_t>(kChunk) * kDv * 2;
+constexpr size_t kStageBytes = 2 * kQKBytes + kVBytes;  // q, k, v
+constexpr size_t kSBytes = static_cast<size_t>(kDv) * kDk * 2;  // bf16 S^T
+// dynamic shared memory beside the tiles: the barriers, and up to 1024
+// bytes of padding to the tiles' 1024-byte alignment
+constexpr size_t kExtra = 2048;
+// the ring, the (w v) tile, the bf16 copy of S^T, barriers and pad:
+// 108,544 B, so that two blocks share an SM
+constexpr size_t kSmem = kStages * kStageBytes + kVBytes + kSBytes + kExtra;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One block (one warpgroup) per (batch, head) walks its head's chunks in
+// order.  Per chunk of c = 64 tokens, with cl the inclusive cumsum of the
+// chunk's log decays (kept in base 2) and S the state carried in (S^T
+// held as the f32 accumulator st, Dv x Dk):
+//   sc  = q k^T                                   (wgmma, SS)
+//   acc = q S = q (S^T)^T, from S^T's bf16 copy    (wgmma, SS)
+//   A   = sc o exp(cl_i - cl_j) for j <= i, else 0; bf16 in registers
+//   o   = exp(cl_i) acc + A v                      (wgmma, RS; v MN-major)
+//   S^T = exp(cl_last) S^T + (w o v)^T k, w_n = exp(cl_last - cl_n) <= 1
+//                                                  (wgmma, SS; both MN-major)
+// The bf16 copy of the new S^T goes back to shared memory for the next
+// chunk's readout; o goes as bf16 into the chunk's q tile, which the
+// next chunk stores by TMA.
+__global__ void __launch_bounds__(kThreads, 2)
+    ssd_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap o_map,
+                         const float* __restrict__ ld, int heads,
+                         int per_group, int n) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = sm90::aligned_smem(smem_raw);
+  unsigned char* wv_sh = smem + kStages * kStageBytes;
+  unsigned char* s_sh = wv_sh + kVBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_sh + kSBytes);
+
+  const int bh = blockIdx.x;  // batch * heads + head
+  const int bi = bh / heads;
+  const int hi = bh - bi * heads;
+  const int qk_slice = bi * (heads / per_group) + hi / per_group;
+  const int chunks = (n + kChunk - 1) / kChunk;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+
+  auto stage_of = [&](int c) { return smem + (c % kStages) * kStageBytes; };
+  // q, k and v of chunk c into its stage (q, k: box b = columns
+  // 64 b .. 64 b + 63); rows past n arrive as zeros
+  auto load_chunk = [&](int c) {
+    unsigned char* st = stage_of(c);
+    uint64_t* bar = &full[c % kStages];
+    sm90::bar_expect(bar, kStageBytes);
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      sm90::tma_load_3d(st + b * kQKBytes / 2, &q_map, bar, 64 * b,
+                        c * kChunk, qk_slice);
+      sm90::tma_load_3d(st + kQKBytes + b * kQKBytes / 2, &k_map, bar,
+                        64 * b, c * kChunk, qk_slice);
+    }
+    sm90::tma_load_3d(st + 2 * kQKBytes, &v_map, bar, 0, c * kChunk, bh);
+  };
+  // o of chunk c, staged in its q tile, to device memory (rows past n
+  // are not written)
+  auto store_o = [&](int c) {
+    sm90::tma_store_3d(&o_map, stage_of(c), 0, c * kChunk, bh);
+    sm90::bulk_commit();
+  };
+  // lane l's two log decays of chunk c in base 2 (tokens 2l, 2l + 1; 0
+  // past n)
+  const float* ld_row = ld + static_cast<size_t>(bh) * n;
+  auto load_ld = [&](int c, float (&x)[2]) {
+    const int t = c * kChunk + 2 * lane;
+    x[0] = t < n ? ld_row[t] * kLog2e : 0.f;
+    x[1] = t + 1 < n ? ld_row[t + 1] * kLog2e : 0.f;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) sm90::bar_init(&full[s], 1);
+    sm90::bar_init_fence();
+  }
+  // S_0 = 0: its bf16 copy too
+  for (int i = tid; i < static_cast<int>(kSBytes / 16); i += kThreads)
+    reinterpret_cast<uint4*>(s_sh)[i] = make_uint4(0, 0, 0, 0);
+  sm90::fence_async_smem();
+  __syncthreads();
+  if (tid == 0) load_chunk(0);
+
+  float st[64];  // S^T: rows (Dv) 16 warp + g (+ 8), columns (Dk) 8 a + 2 tq
+#pragma unroll
+  for (int i = 0; i < 64; ++i) st[i] = 0.f;
+  float ld_cur[2];
+  load_ld(0, ld_cur);
+  const int row0 = 16 * warp + g;  // this thread's rows of a chunk: +0, +8
+
+  for (int c = 0; c < chunks; ++c) {
+    // every thread is done with chunk c - 1: its o is staged, the bf16
+    // copy of S^T it wrote is complete, and its k, v and (w v) are free
+    __syncthreads();
+    if (tid == 0 && c > 0) store_o(c - 1);
+    __syncwarp();
+    float ld_next[2] = {0.f, 0.f};
+    if (c + 1 < chunks) load_ld(c + 1, ld_next);
+    sm90::bar_wait(&full[c % kStages], (c / kStages) & 1);
+    __syncwarp();  // the products below are warp-aligned
+    const unsigned char* stage = stage_of(c);
+    const bf16* q_t = reinterpret_cast<const bf16*>(stage);
+    const bf16* k_t = reinterpret_cast<const bf16*>(stage + kQKBytes);
+    const bf16* v_t = reinterpret_cast<const bf16*>(stage + 2 * kQKBytes);
+    const bf16* s_t = reinterpret_cast<const bf16*>(s_sh);
+
+    float sc[32], acc[32];
+    sm90::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDk / 16; ++kk)
+      sm90::mma_ss_n64(sc, sm90::desc_k<kChunk>(q_t, kk),
+                       sm90::desc_k<kChunk>(k_t, kk), kk);
+    sm90::mma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kDk / 16; ++kk)
+      sm90::mma_ss_n64(acc, sm90::desc_k<kChunk>(q_t, kk),
+                       sm90::desc_k<kDv>(s_t, kk), kk);
+    sm90::mma_commit();
+
+    // behind the products: cl, the inclusive cumsum of the chunk's log
+    // decays, as a warp scan (every warp holds all of it: lane l tokens
+    // 2l and 2l + 1), and the weights w of the state update
+    float incl = ld_cur[0] + ld_cur[1];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
+    }
+    const float cl_odd = incl, cl_even = incl - ld_cur[1];
+    const float total = __shfl_sync(0xffffffffu, incl, 31);
+    auto cl_at = [&](int t) {  // cl of token t of the chunk (lane-varying)
+      const float e = __shfl_sync(0xffffffffu, cl_even, t / 2);
+      const float od = __shfl_sync(0xffffffffu, cl_odd, t / 2);
+      return (t & 1) ? od : e;
+    };
+    // (w o v) into its tile, chunk for chunk of 16 bytes: the swizzle
+    // permutes the chunks within a row only, so v's layout carries over
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int ch = tid + kThreads * r;  // 8 chunks of 16 bytes a row
+      const float w = sm90::exp2_ftz(total - cl_at(ch / 8));
+      const uint4 raw =
+          reinterpret_cast<const uint4*>(stage + 2 * kQKBytes)[ch];
+      const __nv_bfloat162* pv = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      uint4 out;
+      uint32_t* po = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(pv[e]);
+        po[e] = sm90::pack_bf16(w * f.x, w * f.y);
+      }
+      reinterpret_cast<uint4*>(wv_sh)[ch] = out;
+    }
+    float cl_col[16];  // cl of this thread's key columns 8 a + 2 tq (+ 1)
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      cl_col[2 * a] = __shfl_sync(0xffffffffu, cl_even, 4 * a + tq);
+      cl_col[2 * a + 1] = __shfl_sync(0xffffffffu, cl_odd, 4 * a + tq);
+    }
+    const float cl_row[2] = {cl_at(row0), cl_at(row0 + 8)};
+    if (tid == 0 && c + 1 < chunks) {
+      // chunk c + 1 into the stage of chunk c - 1, once the store of
+      // that chunk's o has read it
+      sm90::bulk_wait<0, true>();
+      load_chunk(c + 1);
+    }
+    __syncwarp();
+    sm90::mma_wait<0>();  // q k^T and q S
+    sm90::pin(sc);
+    sm90::pin(acc);
+    sm90::fence_async_smem();
+    // the (w v) tile is whole, and no product reads S^T's copy or q any
+    // more
+    __syncthreads();
+
+    uint32_t pa[kChunk / 16][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const int j = 8 * (i / 4) + 2 * tq + (i & 1);
+      // column blocks past the warp's last row are masked whole
+      if (8 * (i / 4) > 16 * warp + 15) {
+        sc[i] = 0.f;
+        continue;
+      }
+      sc[i] = j <= row0 + 8 * r
+                  ? sc[i] * sm90::exp2_ftz(cl_row[r] -
+                                           cl_col[2 * (i / 4) + (i & 1)])
+                  : 0.f;
+    }
+    sm90::to_a<kChunk / 16>(pa, sc);
+    const float e_row[2] = {sm90::exp2_ftz(cl_row[0]),
+                            sm90::exp2_ftz(cl_row[1])};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] *= e_row[(i >> 1) & 1];
+    const float e_total = sm90::exp2_ftz(total);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) st[i] *= e_total;
+    sm90::pin(acc);
+    sm90::pin(st);
+    sm90::pin(pa);
+    sm90::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      sm90::mma_rs_n64(acc, pa[kk], sm90::desc_mn<kChunk>(v_t, kk), 1);
+    sm90::mma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      sm90::mma_ss_n128<1, 1>(
+          st, sm90::desc_mn<kChunk>(reinterpret_cast<const bf16*>(wv_sh), kk),
+          sm90::desc_mn<kChunk>(k_t, kk), 1);
+    sm90::mma_commit();
+
+    sm90::mma_wait<1>();  // o, while the state update runs
+    sm90::pin(acc);
+    sm90::pin(pa);
+    sm90::store_tile<kDv / 8>(smem + (c % kStages) * kStageBytes, acc);
+    sm90::mma_wait<0>();
+    sm90::pin(st);
+    // the bf16 copy of S^T, the K-major B of the next readout
+    sm90::store_tile<kDk / 8>(s_sh, st);
+    sm90::fence_async_smem();
+    ld_cur[0] = ld_next[0];
+    ld_cur[1] = ld_next[1];
+  }
+  __syncthreads();
+  if (tid == 0) {
+    store_o(chunks - 1);
+    sm90::bulk_wait<0, false>();
+  }
+}
+
+}  // namespace sc
 
 namespace {
 
@@ -509,22 +797,35 @@ auto kernel_of() {
 }
 
 // The launch of one of the three kernels, shared by the launchers and
-// `ssd_plan`: f(Type<T>{}, kernel, geometry) for the instantiation a call
-// with these arguments runs.  One block per (batch, head); `stage` tokens
-// staged per iteration, shrunk to fit kMaxSmem.
+// `ssd_plan`: f(Type<T>{}, kernel, geometry, Int<wgmma>{}) for the
+// instantiation a call with these arguments runs.  One block per (batch,
+// head).  The wgmma body (ssd_fwd in bf16 at (128, 64)) walks chunks of
+// sc::kChunk tokens, which `stage` must name; the token walk stages
+// `stage` tokens per iteration, shrunk to fit kMaxSmem.
 template <Kind K, typename F>
 cudaError_t with_launch(int dtype, int dk, int dv, int batch, int heads,
                         int stage, F&& f) {
   return plan::with_dtype(dtype, [&](auto t) {
+    using T = typename decltype(t)::type;
+    if constexpr (K == Kind::kFwd &&
+                  std::is_same<T, __nv_bfloat16>::value) {
+      if (dk == sc::kDk && dv == sc::kDv) {
+        if (stage != sc::kChunk) return cudaErrorInvalidValue;
+        return f(t, sc::ssd_fwd_wgmma_kernel,
+                 plan::Geometry{dim3(batch * heads), sc::kThreads, sc::kSmem,
+                                sc::kChunk},
+                 plan::Int<1>{});
+      }
+    }
     auto go = [&](auto dkc, auto dvc) {
-      using T = typename decltype(t)::type;
       constexpr int DK = decltype(dkc)::value;
       constexpr int DV = decltype(dvc)::value;
       using B = Block<K, DK, DV>;
       auto kernel = kernel_of<K, T, DK, DV>();
       return f(t, kernel,
                plan::fit({dim3(batch * heads), B::kThreads, 0, 0}, stage,
-                         B::kPerToken * sizeof(float), kMaxSmem));
+                         B::kPerToken * sizeof(float), kMaxSmem),
+               plan::Int<0>{});
     };
     if (dk == 128 && dv == 64) return go(plan::Int<128>{}, plan::Int<64>{});
     if (dk == 16 && dv == 32) return go(plan::Int<16>{}, plan::Int<32>{});
@@ -557,15 +858,31 @@ int run(const Args& a, int dk, int dv, int dtype) {
   const int per_group = a.heads / a.groups;
   return static_cast<int>(with_launch<K>(
       dtype, dk, dv, a.batch, a.heads, a.stage,
-      [&](auto t, auto kernel, const plan::Geometry& geo) {
+      [&](auto t, auto kernel, const plan::Geometry& geo, auto body) {
         using T = typename decltype(t)::type;
         if (geo.stage < 1) return cudaErrorInvalidValue;
         const T* q = static_cast<const T*>(a.q);
         const T* k = static_cast<const T*>(a.k);
         const T* v = static_cast<const T*>(a.v);
         const float* ld = static_cast<const float*>(a.ld);
-        const T* om = static_cast<const T*>(a.om);
-        if constexpr (K == Kind::kFwd)
+        [[maybe_unused]] const T* om = static_cast<const T*>(a.om);
+        if constexpr (decltype(body)::value == 1) {
+          CUtensorMap q_map, k_map, v_map, o_map;
+          cudaError_t err = sm90::map_rows(&q_map, q, a.n,
+                                           a.batch * a.groups, sc::kChunk);
+          if (err == cudaSuccess)
+            err = sm90::map_rows(&k_map, k, a.n, a.batch * a.groups,
+                                 sc::kChunk);
+          if (err == cudaSuccess)
+            err = sm90::map_rows(&v_map, v, a.n, a.batch * a.heads,
+                                 sc::kChunk, sc::kDv);
+          if (err == cudaSuccess)
+            err = sm90::map_rows(&o_map, a.out0, a.n, a.batch * a.heads,
+                                 sc::kChunk, sc::kDv);
+          if (err != cudaSuccess) return err;
+          return plan::launch(kernel, geo, a.stream, q_map, k_map, v_map,
+                              o_map, ld, a.heads, per_group, a.n);
+        } else if constexpr (K == Kind::kFwd)
           return plan::launch(kernel, geo, a.stream, q, k, v, ld,
                               static_cast<T*>(a.out0), a.heads, per_group,
                               a.n, geo.stage);
@@ -585,7 +902,11 @@ int run(const Args& a, int dk, int dv, int dtype) {
 
 // Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16
 // (of q, k, v, Ω and o).  Each returns the cudaError_t of its launch
-// (0 = success); the launch is asynchronous on `stream`.
+// (0 = success); the launch is asynchronous on `stream`.  `ssd_fwd` in
+// bf16 at (Dk, Dv) = (128, 64) runs the wgmma body: `stage` must be its
+// chunk (64), and its TMA reads need q, k and v 16-byte aligned (the
+// wrapper checks it; a map that cannot be encoded is refused with
+// cudaErrorInvalidValue).
 extern "C" int ssd_fwd(const void* q, const void* k, const void* v,
                        const void* ld, void* o, int batch, int heads,
                        int groups, int n, int dk, int dv, int stage,
@@ -624,7 +945,7 @@ extern "C" int ssd_plan(const char* entry, int batch, int heads, int groups,
                         int64_t* out) {
   if (bad_shape(batch, heads, groups, n, stage))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto report = [&](auto, auto kernel, const plan::Geometry& geo) {
+  auto report = [&](auto, auto kernel, const plan::Geometry& geo, auto) {
     return plan::report(kernel, geo, out);
   };
   cudaError_t err = cudaErrorInvalidValue;

@@ -60,14 +60,29 @@ staging size, and no result depends on it.
     the result independent of it.  The plain GLA scans (core/gla.py)
     take `DEFAULT_SCAN_CHUNK`, as the linear ones do.
 
-  * `SSD_STAGE_TOKENS` — the same staging size for the SSD (Mamba-2)
-    kernels (`ssd_fwd`, `ssd_bwd_q`, `ssd_bwd_kv`), which stage q, k, v
-    (and Ω in the backward) and each token's decay.  The reference's
+  * `SSD_STAGE_TOKENS` — the same staging size for the token walk of the
+    SSD (Mamba-2) kernels (`ssd_fwd` in f32 and at the smoke dims,
+    `ssd_bwd_q`, `ssd_bwd_kv`), which stage q, k, v (and Ω in the
+    backward) and each token's decay.  The reference's
     `DEFAULT_TILES["ssd"]["chunk"] = 128` is the VMEM tile of its Pallas
     SSD kernels; the token-by-token walk makes the result independent of
     it.  At 32 tokens a block of `ssd_bwd_kv` stages ~86 KB, so two
     blocks share an SM.  The plain SSD scans (core/ssd.py) take
     `DEFAULT_SCAN_CHUNK`.
+  * `SSD_CHUNK_TOKENS`, `SSD_CHUNK_RING` — the chunk and the ring depth
+    of `ssd_fwd`'s "wgmma" body (bf16 at (Dk, Dv) in
+    `SSD_WGMMA_STATE_DIMS`, mamba2-2.7b's training instance; the dtype,
+    the dims and the entry pick the body, `ssd.ssd_body`).  A chunk is
+    64 tokens, the M of Hopper's `wgmma`: its four products per chunk
+    (q k^T, q S, A v and the state update) are m64nNk16 tiles, and its
+    intra-chunk decay matrix is a 64 x 64 f32 accumulator, 32 registers
+    a thread beside the state's 64.  Two chunks of q, k and v (40 KB
+    each) in the TMA ring, the (w v) tile and the bf16 copy of the state
+    come to 108,544 B, so that two blocks share an SM and the 160 blocks
+    of the timing shape run in one wave.  Unlike the token walk's stage,
+    the chunk moves where the result rounds (A, w v and the readout's
+    copy of S are rounded to bf16 once per chunk); the kernel is compiled
+    for exactly this chunk and refuses any other.
 
 The CUDA decode steps (`la_decode_fused`, `gla_decode_fused`) launch one
 block per (slot, KV head) and have no tile to choose.
@@ -78,6 +93,9 @@ DEFAULT_SCAN_CHUNK = 512
 LA_STAGE_TOKENS = 32
 GLA_STAGE_TOKENS = 32
 SSD_STAGE_TOKENS = 32
+SSD_CHUNK_TOKENS = 64
+SSD_CHUNK_RING = 2
+SSD_WGMMA_STATE_DIMS = ((128, 64),)
 FLASH_BLOCK_Q = {
     "wgmma": {"flash_fwd": 128, "flash_bwd_q": 128, "flash_bwd_kv": 64},
     "mma_sync": {"flash_fwd": 64, "flash_bwd_q": 64, "flash_bwd_kv": 64},

@@ -27,6 +27,12 @@ in v's dtype; the partials and dv in float32.  The wrappers take
 contiguous CUDA tensors only and raise on anything else; nothing falls
 back to the plain version.
 
+`ssd_fwd` has two bodies, chosen by `ssd_body(entry, dtype, dk, dv)`:
+"wgmma" (bf16 at (Dk, Dv) = (128, 64), mamba2-2.7b's training instance:
+a chunked scan on the tensor cores, fed by TMA, so q, k and v must be
+16-byte aligned, which the wrappers check) and "walk" (f32, and bf16 at
+(16, 32): the token walk, as are both backward kernels).
+
 Beside each wrapper, `plan_<entry>` gives the entry's launch plan
 (kernels/plan.py) from the same arguments' shapes.
 """
@@ -39,7 +45,8 @@ import torch
 from repro_torch.core import ssd as _ssd
 from repro_torch.kernels import build, plan
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
-    SSD_STAGE_TOKENS
+    SSD_CHUNK_RING, SSD_CHUNK_TOKENS, SSD_STAGE_TOKENS, \
+    SSD_WGMMA_STATE_DIMS
 
 F32 = torch.float32
 # (Dk, Dv) the kernels are instantiated for: mamba2-2.7b (state 128, head
@@ -50,6 +57,21 @@ STATE_DIMS = ((128, 64), (16, 32))
 # to 0 and reads them back to show that its steps went through the
 # kernels)
 launches = {"ssd_fwd": 0, "ssd_bwd_q": 0, "ssd_bwd_kv": 0}
+
+
+def ssd_body(entry: str, dtype, dk: int, dv: int) -> str:
+    """The body an SSD entry runs for this compute dtype and (Dk, Dv):
+    "wgmma" (`ssd_fwd` in bf16 at (Dk, Dv) in SSD_WGMMA_STATE_DIMS) or
+    "walk"."""
+    return ("wgmma" if entry == "ssd_fwd" and dtype == torch.bfloat16
+            and (dk, dv) in SSD_WGMMA_STATE_DIMS else "walk")
+
+
+def _stage(entry: str, dtype, dk: int, dv: int) -> int:
+    """The `stage` argument of an entry's C call: the wgmma body's chunk,
+    or the tokens the walk stages per iteration."""
+    return (SSD_CHUNK_TOKENS if ssd_body(entry, dtype, dk, dv) == "wgmma"
+            else SSD_STAGE_TOKENS)
 
 
 # ---------------------------------------------------------------------------
@@ -108,7 +130,7 @@ def ssd_fwd_cuda(q, k, v, log_decay):
     with torch.cuda.device(q.device):
         err = lib.ssd_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           log_decay.data_ptr(), o.data_ptr(), bsz, h, g, n,
-                          dk, dv, SSD_STAGE_TOKENS,
+                          dk, dv, _stage("ssd_fwd", q.dtype, dk, dv),
                           build.DTYPE_CODE[q.dtype],
                           build.current_stream(q.device))
     build.raise_on(lib, "ssd", "ssd_fwd", err)
@@ -184,11 +206,29 @@ def ssd_bwd_cuda(q, k, v, log_decay, o, omega):
 _TILINGS = {(128, 64): (8, 4), (16, 32): (4, 8)}
 
 
+# the wgmma body: one warpgroup; beside the tiles the barriers and the pad
+# to their 1024-byte alignment
+_WGMMA_THREADS = 128
+_WGMMA_EXTRA = 2048
+
+
+def _wgmma_block(dk, dv):
+    """(threads, dynamic shared memory) of the wgmma body's block, as
+    csrc/ssd.cu's `sc::kSmem`: SSD_CHUNK_RING chunks of bf16 q, k (Dk
+    wide) and v (Dv wide), the bf16 (w v) tile of a chunk, the bf16 copy
+    of S^T (Dv x Dk), and the barriers and pad."""
+    c = SSD_CHUNK_TOKENS
+    stage = 2 * (2 * c * dk + c * dv)
+    return _WGMMA_THREADS, (SSD_CHUNK_RING * stage + 2 * c * dv
+                            + 2 * dv * dk + _WGMMA_EXTRA)
+
+
 def _block(entry, dk, dv):
-    """(threads, staged floats per token) of an entry's block at (Dk, Dv),
-    as csrc/ssd.cu's `Block<K, Dk, Dv>`: column tiles of Dk / col_groups
-    rows (the forward, dv), row tiles of Dv / row_groups columns (dq,
-    dk); staged rows padded by 4 floats after every tile-wide slice."""
+    """(threads, staged floats per token) of an entry's token-walk block at
+    (Dk, Dv), as csrc/ssd.cu's `Block<K, Dk, Dv>`: column tiles of
+    Dk / col_groups rows (the forward, dv), row tiles of Dv / row_groups
+    columns (dq, dk); staged rows padded by 4 floats after every
+    tile-wide slice."""
     col_groups, row_groups = _TILINGS[(dk, dv)]
     col_threads, row_threads = dv // 4 * col_groups, dk // 4 * row_groups
     pad_k = dk + 4 * col_groups
@@ -203,7 +243,8 @@ def _block(entry, dk, dv):
 def _plan(entry, q, k, v, log_decay, omega):
     """One block per (batch, head), walking all N tokens of its head and of
     its group's q and k (the forward and dq forwards, dk and dv in
-    reverse)."""
+    reverse; the wgmma body by chunks, TMA zero-filling the rows of the
+    last chunk past N, so it reads and writes nothing past N either)."""
     bsz, g, h, n, dk, dv = _dims(k, v, log_decay)
     if (q is not None and q.shape != k.shape) \
             or (omega is not None and omega.shape != v.shape):
@@ -213,8 +254,12 @@ def _plan(entry, q, k, v, log_decay, omega):
                          f"{None if omega is None else tuple(omega.shape)}, "
                          f"{tuple(v.shape)}")
     code = plan.dtype_code(k.dtype)
-    threads, per_token = _block(entry, dk, dv)
-    stage, smem = plan.fit(SSD_STAGE_TOKENS, per_token * 4)
+    arg = _stage(entry, k.dtype, dk, dv)
+    if ssd_body(entry, k.dtype, dk, dv) == "wgmma":
+        (threads, smem), stage = _wgmma_block(dk, dv), arg
+    else:
+        threads, per_token = _block(entry, dk, dv)
+        stage, smem = plan.fit(arg, per_token * 4)
 
     def head(blk):
         bi, hi = divmod(blk[0], h)
@@ -255,10 +300,8 @@ def _plan(entry, q, k, v, log_decay, omega):
                        plan.Access("dv", "out", v_shape, F32,
                                    head_rows(dv))]}[entry]
     return plan.make(entry, "ssd", (bsz * h,), threads, smem, accesses,
-                     (bsz, h, g, n, dk, dv, SSD_STAGE_TOKENS, code),
-                     _SYMBOLS[entry],
-                     (bsz, h, g, n, dk, dv, SSD_STAGE_TOKENS, code),
-                     stage=stage)
+                     (bsz, h, g, n, dk, dv, arg, code), _SYMBOLS[entry],
+                     (bsz, h, g, n, dk, dv, arg, code), stage=stage)
 
 
 def plan_ssd_fwd(q, k, v, log_decay):

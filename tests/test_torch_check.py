@@ -68,6 +68,23 @@ def test_fixtures_fire_the_reference_rules():
     assert got == [(["REPRO-B001"], ["REPRO-B001"]),
                    (["REPRO-J001"], ["REPRO-J001"]),
                    (["REPRO-J002"], ["REPRO-J002"])]
+    # at the timing shape: one box of x and one of o per CUDA block,
+    # tiling [block, n + block) and [0, n) exactly, the last step's read
+    # past x a box of its own
+    n, block = 1 << 24, 256
+    launch = fixtures.plan_oob_blocked_sum(torch.empty(n, device="meta"),
+                                           block)
+    assert (launch.grid, launch.threads) == ((4097, 1, 1), 256)
+    spans = {"x": [], "o": []}
+    for blk in launch.blocks():
+        for acc in launch.accesses:
+            (tile,) = acc.tile(blk)
+            spans[acc.name].append(tile.ranges[0])
+    assert spans["x"][-1] == (n, n + block)
+    for name, lo, hi in (("x", block, n + block), ("o", 0, n)):
+        runs = sorted(spans[name])
+        assert runs[0][0] == lo and runs[-1][1] == hi
+        assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
 
 
 def _copy_plan(n, block, steps, masked=False, threads=None, smem=0):
