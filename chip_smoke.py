@@ -29,8 +29,12 @@ fails the run by raising (no result line is printed then):
                GQA and a zero normalizer, state in place); la_fwd,
                la_bwd_q and la_bwd_kv at the training shapes (B=2,
                H=Hkv=16, N=8192, D=128) in bf16 and f32, at odd N=1000
-               and with GQA G=4; softmax_decode_fused at the serving
-               shapes (B=8, H=Hkv=16, S=544, D=128, per-slot lengths >= 1,
+               and with GQA G=4 (every bf16 case runs la_fwd's chunked
+               wgmma body, every f32 case its token walk, asserted from
+               its launcher's C plan export; a second launch of the bf16
+               main case must give bit-equal o and g);
+               softmax_decode_fused at the serving shapes (B=8, H=Hkv=16,
+               S=544, D=128, per-slot lengths >= 1,
                one past the cache; zeros at length 0 checked apart), GQA
                G=4, bf16 and f32; flash_fwd and the three flash backward
                kernels at the training shapes, odd N=1000 and GQA G=4, bf16
@@ -58,10 +62,11 @@ fails the run by raising (no result line is printed then):
                and dk partials, dv, and after the epilogue dq, dk, dv and
                dld), and at log_decay = 0 the forward against
                unnormalized causal linear attention, in f32 (the token
-               walk) and bf16; every bf16 ssd_fwd case runs the chunked
-               wgmma body (asserted from its launcher's C plan export),
-               and a second launch of the bf16 main case must give
-               bit-equal o
+               walk) and bf16; every bf16 ssd_fwd and ssd_bwd_kv case runs
+               its chunked wgmma body, every f32 case the token walk
+               (asserted from the launchers' C plan exports), and a second
+               launch of the bf16 main case must give bit-equal o, dk
+               partials and dv
   4. serve   — the Engine at full width pythia-1.4b in bf16, once with the
                paper's linear attention and once with the softmax
                baseline: 8 requests, 512-token prompts, prefill_chunk 256,
@@ -117,9 +122,11 @@ fails the run by raising (no result line is printed then):
                contiguous one on the same keys; flash_fwd, flash_bwd_q
                and flash_bwd_kv also with their achieved TFLOP/s beside
                their bounds' and the ptxas report of every flash
-               instantiation; ssd_fwd with the body that ran, its ptxas
-               registers and spills, shared memory per block and the
-               bound of that body; the fixture at n = 2^24 f32, block 256
+               instantiation; la_fwd, ssd_fwd and ssd_bwd_kv with the body
+               that ran, its ptxas registers and spills, shared memory per
+               block, the blocks an SM holds and the bound of that body
+               beside the walk's; la_fwd also beside its token walk (f32
+               inputs) in turns; the fixture at n = 2^24 f32, block 256
   7. result  — a JSON line with every measurement, the card's line, a
                `kernels` JSON line, then {"ok": true, "device": {...}}
                as the last line
@@ -147,6 +154,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
 BF16_TC_FLOP_PER_S = 989e12     # bf16 on the tensor cores, dense
+SMS = 132                       # streaming multiprocessors
+SM_SMEM = 233472                # shared memory of one SM, bytes
+REGISTERS_PER_SM = 65536        # 32-bit registers of one SM
 
 CSRC = "src/repro_torch/kernels/csrc"
 # kernel -> (source in the repo, the TPU kernel it replaces)
@@ -510,7 +520,10 @@ def _la_case(torch, gen, b, h, hkv, n, d, dtype):
 
 
 def phase_kernel_la(torch):
-    """la_fwd, la_bwd_q and la_bwd_kv against their plain versions."""
+    """la_fwd, la_bwd_q and la_bwd_kv against their plain versions.
+    Every bf16 case runs la_fwd's chunked wgmma body, every f32 case the
+    token walk (from the launcher's C plan export); the bf16 main case
+    launches la_fwd twice for bit-equal o and g."""
     from repro_torch.kernels import linear_attention as la
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
@@ -527,7 +540,18 @@ def phase_kernel_la(torch):
         log(f"[kernel] {label}: B={b} H={h} Hkv={hkv} N={n} D={m['d']} "
             f"{dtype}")
         rel = BF16_REL if dtype == torch.bfloat16 else SEQ_F32_REL
+        body, _, _ = _la_fwd_body(q, k, v)
+        if body != ("wgmma" if dtype == torch.bfloat16 else "walk"):
+            raise AssertionError(f"{label}: la_fwd runs the {body} body")
         o_k, g_k = la.la_fwd_cuda(q, k, v, 1.0, 1.0)
+        if label == "main_bf16":
+            o_again, g_again = la.la_fwd_cuda(q, k, v, 1.0, 1.0)
+            torch.cuda.synchronize()
+            if not (torch.equal(o_k, o_again) and torch.equal(g_k, g_again)):
+                raise AssertionError("main_bf16: two launches of la_fwd "
+                                     "differ")
+            log(f"  {label} o, g: two launches bit-equal ({body} body)")
+            del o_again, g_again
         dq_k = la.la_bwd_q_cuda(k, v, om_hat, h_vec, 1.0)
         dk_k, dv_k = la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec, 1.0, 1.0)
         torch.cuda.synchronize()
@@ -924,19 +948,34 @@ def _ssd_case(torch, gen, b, g, h, n, dk, dv, dtype, regime):
             normal(b, h, n, dv).to(dtype), ld, normal(b, h, n, dv).to(dtype))
 
 
-def _ssd_fwd_body(q, k, v, ld):
-    """The ssd_fwd body a call with these operands runs, from the plan
-    beside the wrapper and the launcher's own C export (grid, threads and
-    shared memory of the very launch): "wgmma" or "walk"."""
+def _c_body(body, launch):
+    """(body, launch, the launcher's C plan export) for the body the
+    wrapper's module names and its plan (grid, threads and shared memory
+    of the very launch), raising where the export is not that plan."""
     from repro_torch.check import bounds
-    from repro_torch.kernels import ssd
-    body = ssd.ssd_body("ssd_fwd", q.dtype, q.shape[-1], v.shape[-1])
-    launch = ssd.plan_ssd_fwd(q, k, v, ld)
     got = bounds.c_plan(launch)
     if got[:5] != launch.grid + (launch.threads, launch.smem):
-        raise AssertionError(f"ssd_fwd: the launcher's plan {got} is not "
-                             f"the {body} body's {launch}")
+        raise AssertionError(f"{launch.name}: the launcher's plan {got} is "
+                             f"not the {body} body's {launch}")
     return body, launch, got
+
+
+def _ssd_body(entry, q, k, v, ld, om=None):
+    """The body an SSD entry runs for these operands, held to its
+    launcher's C export: "wgmma" or "walk"."""
+    from repro_torch.kernels import ssd
+    body = ssd.ssd_body(entry, q.dtype, q.shape[-1], v.shape[-1])
+    launch = (ssd.plan_ssd_fwd(q, k, v, ld) if entry == "ssd_fwd"
+              else ssd.plan_ssd_bwd_kv(q, k, v, ld, om))
+    return _c_body(body, launch)
+
+
+def _la_fwd_body(q, k, v):
+    """The la_fwd body these operands run, held to its launcher's C
+    export: "wgmma" or "walk"."""
+    from repro_torch.kernels import linear_attention as la
+    return _c_body(la.la_fwd_body(q.dtype, q.shape[-1]),
+                   la.plan_la_fwd(q, k, v, 1.0, 1.0))
 
 
 def phase_kernel_ssd(torch):
@@ -946,9 +985,10 @@ def phase_kernel_ssd(torch):
     the PyTorch epilogue (the group sums and dld, from each path's
     partials and the same o) dq, dk, dv and dld; at log_decay = 0 the
     forward against unnormalized causal linear attention, in f32 and
-    bf16.  Every bf16 case runs ssd_fwd's chunked wgmma body, every f32
-    case the token walk; the bf16 main case launches twice for bit-equal
-    o."""
+    bf16.  Every bf16 case runs the chunked wgmma bodies of ssd_fwd and
+    ssd_bwd_kv, every f32 case the token walk (from the launchers' C plan
+    exports); the bf16 main case launches both twice for bit-equal o, dk
+    partials and dv."""
     from repro_torch.core import ssd as core_ssd
     from repro_torch.kernels import ssd
     gen = torch.Generator(device="cuda")
@@ -970,10 +1010,11 @@ def phase_kernel_ssd(torch):
         log(f"[kernel] ssd {label}: B={b} G={g} H={h} N={n} Dk={dk} "
             f"Dv={dv} {dtype}, log decay {regime}")
         rel = BF16_REL if dtype == bf16 else SEQ_F32_REL
-        body, _, _ = _ssd_fwd_body(q, k, v, ld)
-        if body != ("wgmma" if dtype == bf16 else "walk"):
-            raise AssertionError(f"ssd {label}: ssd_fwd runs the {body} "
-                                 f"body")
+        for entry in ("ssd_fwd", "ssd_bwd_kv"):
+            body, _, _ = _ssd_body(entry, q, k, v, ld, om)
+            if body != ("wgmma" if dtype == bf16 else "walk"):
+                raise AssertionError(f"ssd {label}: {entry} runs the {body} "
+                                     f"body")
         o_k = ssd.ssd_fwd_cuda(q, k, v, ld)
         if label == "main_bf16":
             again = ssd.ssd_fwd_cuda(q, k, v, ld)
@@ -981,10 +1022,20 @@ def phase_kernel_ssd(torch):
             if not torch.equal(o_k, again):
                 raise AssertionError("ssd main_bf16: two launches of "
                                      "ssd_fwd differ")
-            log(f"  ssd {label} o: two launches bit-equal ({body} body)")
+            log(f"  ssd {label} o: two launches bit-equal (wgmma body)")
             del again
         dq_pk = ssd.ssd_bwd_q_cuda(k, v, ld, om)
         dk_pk, dv_k = ssd.ssd_bwd_kv_cuda(q, k, v, ld, om)
+        if label == "main_bf16":
+            dk_again, dv_again = ssd.ssd_bwd_kv_cuda(q, k, v, ld, om)
+            torch.cuda.synchronize()
+            if not (torch.equal(dk_pk, dk_again)
+                    and torch.equal(dv_k, dv_again)):
+                raise AssertionError("ssd main_bf16: two launches of "
+                                     "ssd_bwd_kv differ")
+            log(f"  ssd {label} dk partials, dv: two launches bit-equal "
+                f"(wgmma body)")
+            del dk_again, dv_again
         torch.cuda.synchronize()
         o_t = ssd.ssd_fwd_torch(q, k, v, ld)
         dq_pt = ssd.ssd_bwd_q_torch(k, v, ld, om)
@@ -1913,6 +1964,34 @@ def _bound(bytes_moved, flops, flop_per_s=F32_FLOP_PER_S):
             "bytes": bytes_moved, "flops": flops}
 
 
+def _blocks_per_sm(threads, smem, regs):
+    """Blocks of one kernel an SM holds at once: by its shared memory
+    (each block also takes 1 KB), by its registers (each of the four
+    schedulers holds a quarter of the file, a warp's in units of 8 a
+    thread) and by its threads."""
+    warps = -(-threads // 32)
+    by_regs = (REGISTERS_PER_SM // 4 // (-(-regs // 8) * 8 * 32)) * 4 // warps
+    return min(SM_SMEM // (smem + 1024), by_regs, 2048 // threads)
+
+
+def _body_record(c_body, walk_bound, ptxas_recs, wgmma_fn):
+    """The body a timed kernel ran (from its launcher's C export), its
+    ptxas registers and spills, shared memory per block, the blocks an SM
+    holds and the blocks per SM of its grid, and the walk's bound."""
+    body, launch, c_geo = c_body
+    rec = {"body": body, "threads": launch.threads,
+           "smem_per_block": launch.smem, "grid": list(launch.grid),
+           "c_plan": list(c_geo), "walk_bound": walk_bound}
+    if body == "wgmma":
+        blocks = launch.grid[0] * launch.grid[1] * launch.grid[2]
+        rec.update(
+            ptxas=[r for r in ptxas_recs if r["function"] == wgmma_fn],
+            blocks_per_sm_fit=_blocks_per_sm(launch.threads, launch.smem,
+                                             c_geo[5]),
+            grid_blocks_per_sm=blocks / SMS)
+    return rec
+
+
 def phase_timing(torch):
     """Kernel and plain version at the main path's decode shapes.  The
     serving step finds each layer's state cold in L2 (24 layers of
@@ -1953,12 +2032,20 @@ def phase_timing(torch):
     return rec
 
 
-def phase_timing_la(torch):
+def phase_timing_la(torch, ptxas):
     """la_fwd, la_bwd_q and la_bwd_kv and their plain versions at the
     train path's shapes (bf16, as the model hands them over).  Each
     input is larger than the 50 MB L2, so every call reads it from
-    device memory."""
+    device memory.  la_fwd in bf16 runs the chunked wgmma body: per
+    chunk of c tokens, (batch, query head) and half of the value columns
+    its four products, q k^T (2 c^2 D), q S (2 c D D/2), A v (2 c^2 D/2)
+    and the state update (2 c D/2 D) on the bf16 tensor cores; its
+    record names the body, its ptxas registers and spills, shared memory
+    per block and the blocks an SM holds, keeps the walk's bound beside,
+    and times the token walk (which f32 inputs still run) in turns with
+    it."""
     from repro_torch.kernels import linear_attention as la
+    from repro_torch.kernels.defaults import LA_CHUNK_TOKENS, LA_WGMMA_SPLIT
     m = LA_SHAPE
     b, h, hkv, n, d = m["b"], m["h"], m["hkv"], m["n"], m["d"]
     dtype = torch.bfloat16
@@ -1992,16 +2079,37 @@ def phase_timing_la(torch):
                       lambda: la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec,
                                                 1.0, 1.0)),
     }
+    c_body = _la_fwd_body(q, k, v)
+    walk_bound = _bound(*work["la_fwd"])
+    if c_body[0] == "wgmma":
+        c, part = LA_CHUNK_TOKENS, d // LA_WGMMA_SPLIT
+        tc_flops = tok_q // c * LA_WGMMA_SPLIT * (
+            2 * c * c * d + 2 * c * d * part + 2 * c * c * part
+            + 2 * c * part * d)
+        work["la_fwd"] = (work["la_fwd"][0], tc_flops, BF16_TC_FLOP_PER_S)
     out = {}
     for name, (plain, kernel) in calls.items():
         kern, pl = _time_pair(torch, plain, kernel, reps=5)
         rec = {"ms": min(kern), "ms_runs": kern, "plain_ms": min(pl),
                "plain_ms_runs": pl, **_bound(*work[name])}
+        if name == "la_fwd":
+            rec.update(_body_record(c_body, walk_bound,
+                                    ptxas.get("la_fwd", []),
+                                    "lc::la_fwd_wgmma_kernel"))
+            qf, kf, vf = q.float(), k.float(), v.float()
+            walk, kern2 = _time_pair(
+                torch, kernel, lambda: la.la_fwd_cuda(qf, kf, vf, 1.0, 1.0),
+                reps=5)
+            rec.update(walk_ms=min(walk), walk_ms_runs=walk,
+                       ms_runs_beside_walk=kern2)
+            del qf, kf, vf
         log(f"[timing] {name} B={b} H={h} Hkv={hkv} N={n} D={d} {dtype}: "
             f"kernel {kern} ms, plain {pl} ms, bound {rec['bound_ms']!r} ms "
             f"({rec['bound_by']}: {rec['bytes']} B, {rec['flops']} flop); "
             f"library_ms null: no single PyTorch call computes normalized "
             f"causal linear attention or its gradient (SDPA is softmax)")
+        if name == "la_fwd":
+            log(f"[timing] la_fwd body: {rec}")
         out[name] = rec
     return out
 
@@ -2337,8 +2445,13 @@ def phase_timing_ssd(torch, ptxas):
     counted).  ssd_fwd in bf16 runs the chunked wgmma body: per chunk of
     c tokens and head its four products, q k^T, q S, A v and the state
     update, 2 c Dk (c + Dv) + 2 c Dv (c + Dk) flops on the bf16 tensor
-    cores; its record names the body, its ptxas registers and spills and
-    its shared memory per block, and keeps the walk's bound beside."""
+    cores.  ssd_bwd_kv in bf16 runs its chunked wgmma body: per chunk
+    and head p = v Ω^T (2 c^2 Dv), s = k q^T (2 c^2 Dk), and each of the
+    products with a hi + lo operand twice: e v U^T and (p o M) q (2 c Dv
+    Dk and 2 c^2 Dk), e k U and (s o M) Ω (2 c Dk Dv and 2 c^2 Dv), the
+    state update (2 c Dv Dk).  Each wgmma record names the body, its
+    ptxas registers and spills, its shared memory per block and the
+    blocks an SM holds, and keeps the walk's bound beside."""
     from repro_torch.kernels import ssd
     from repro_torch.kernels.defaults import SSD_CHUNK_TOKENS
     m = SSD_SHAPE
@@ -2368,27 +2481,34 @@ def phase_timing_ssd(torch, ptxas):
         "ssd_bwd_kv": (lambda: ssd.ssd_bwd_kv_torch(q, k, v, ld, om),
                        lambda: ssd.ssd_bwd_kv_cuda(q, k, v, ld, om)),
     }
-    body, launch, c_geo = _ssd_fwd_body(q, k, v, ld)
     chunks = -(-n // SSD_CHUNK_TOKENS)
     c = SSD_CHUNK_TOKENS
-    tc_flops = b * h * chunks * (2 * c * dk * (c + dv) + 2 * c * dv * (c + dk))
-    walk_bound = _bound(*work["ssd_fwd"])
-    if body == "wgmma":
-        work["ssd_fwd"] = (work["ssd_fwd"][0], tc_flops, BF16_TC_FLOP_PER_S)
+    tc_flops = {
+        "ssd_fwd": b * h * chunks * (2 * c * dk * (c + dv)
+                                     + 2 * c * dv * (c + dk)),
+        "ssd_bwd_kv": b * h * chunks * (2 * c * c * (dv + dk)
+                                        + 2 * (2 * c * dv * dk
+                                               + 2 * c * c * dk
+                                               + 2 * c * dk * dv
+                                               + 2 * c * c * dv
+                                               + 2 * c * dv * dk))}
+    wgmma_fn = {"ssd_fwd": "sc::ssd_fwd_wgmma_kernel",
+                "ssd_bwd_kv": "sk::ssd_bwd_kv_wgmma_kernel"}
+    bodies = {name: _ssd_body(name, q, k, v, ld, om) for name in wgmma_fn}
+    walk_bounds = {name: _bound(*work[name]) for name in wgmma_fn}
+    for name, (body, _, _) in bodies.items():
+        if body == "wgmma":
+            work[name] = (work[name][0], tc_flops[name], BF16_TC_FLOP_PER_S)
     out = {}
     for name, (plain_fn, kernel_fn) in calls.items():
         kern, pl = _time_pair(torch, plain_fn, kernel_fn, reps=5)
         out[name] = {"ms": min(kern), "ms_runs": kern, "plain_ms": min(pl),
                      "plain_ms_runs": pl, "library_ms": None,
                      **_bound(*work[name])}
-        if name == "ssd_fwd":
-            fn = "sc::ssd_fwd_wgmma_kernel" if body == "wgmma" else \
-                "ssd_fwd_kernel<__nv_bfloat16, 128, 64>"
-            out[name].update(
-                body=body, threads=launch.threads, smem_per_block=launch.smem,
-                c_plan=list(c_geo), walk_bound=walk_bound,
-                ptxas=[r for r in ptxas.get("ssd", [])
-                       if r["function"] == fn])
+        if name in bodies:
+            out[name].update(_body_record(
+                bodies[name], walk_bounds[name], ptxas.get("ssd", []),
+                wgmma_fn[name]))
         log(f"[timing] {name} B={b} G={g} H={h} N={n} Dk={dk} Dv={dv} "
             f"bf16: {out[name]}")
     log("[timing] ssd_fwd / ssd_bwd_q / ssd_bwd_kv: library_ms null: no "
@@ -2457,7 +2577,7 @@ def main() -> int:
     train_gla, train_gla_launches = phase_train(torch, "gla")
     train_m2, train_m2_launches = phase_train(torch, "mamba2")
     timing = {"la_decode_fused": phase_timing(torch), **phase_timing_la(
-        torch), **phase_timing_softmax(torch, ptxas), **phase_timing_paged(torch),
+        torch, ptxas), **phase_timing_softmax(torch, ptxas), **phase_timing_paged(torch),
         **phase_timing_gla(torch), **phase_timing_ssd(torch, ptxas),
         "oob_blocked_sum": phase_timing_fixture(torch)}
 

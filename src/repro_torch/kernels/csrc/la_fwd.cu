@@ -31,15 +31,48 @@
 // Dk = Dv = D, a template parameter (32, 64 or 128) so that a state column
 // lives in registers.
 //
-// What bounds it: the recurrent form does 4 D (D+1) flops per token and
+// Two bodies of la_fwd, chosen by the launcher from the dtype and D: the
+// chunked wgmma body (namespace lc) for bf16 at D = 128, the paper's
+// training instance; the token walk for f32, for D < 128, and for every
+// gla_fwd call (the walk's kGated instantiation).
+//
+// What bounds them: the recurrent form does 4 D (D+1) flops per token and
 // head (the state update and the q.S readout; gated, 5 D (D+1) with the
 // decay), in f32 on the CUDA cores; at B=2, H=16, N=8192, D=128 that is
 // 17.3 GFLOP (gated 21.6), 0.26 ms (0.32) at 67 TFLOP/s, against 0.08 ms
 // for its 269.5 MB at 3.35 TB/s (estimates from the shapes, not
-// measurements).
+// measurements).  The chunked body does four products per chunk of 64
+// tokens and half of the value columns, 30.1 GFLOP on the bf16 tensor
+// cores (0.030 ms at 989 TFLOP/s): bound by its bytes (0.080 ms).
 //
-// Design (simple first; a chunk-parallel two-pass form on wgmma is later
-// work):
+// Design of the chunked body (the reference's chunked form,
+// src/repro/kernels/linear_attention.py:67-93; ssd.cu's sc without the
+// decay, with the normalizer):
+//   * two blocks per (batch, query head), one per half of the D = 128
+//     value columns, so each block's state S^T (64 x 128) is one m64n128
+//     f32 accumulator (64 registers a thread) and its products are sc's
+//     tile shapes; 64 blocks at B=2, H=16.  Both halves read all of q and
+//     k and compute the same scores and g (bit-identical); the half with
+//     column 0 writes g;
+//   * thread 0 loads each chunk's q, k (64 x 128) and the block's half of
+//     v (64 x 64) by TMA into a 2-stage ring (rows past N arrive as
+//     zeros); o is staged by stmatrix in the chunk's q tile and stored by
+//     TMA from the next chunk;
+//   * per chunk: q k^T and q S (S from the bf16 copy of S^T, K-major) by
+//     wgmma; A = a + b q k^T on j <= i rounded to bf16 in registers, f =
+//     b q S + a P + A v (v MN-major), o = f / g; S^T += v^T k (both
+//     MN-major: no transpose copy, no rounding of the update);
+//   * precision: g is the backward's residual and is held to 1e-4, so it
+//     never goes through a bf16 operand: the row sums come from the f32
+//     score accumulator, q . z is an f32 dot on the CUDA cores from the q
+//     tile, and z (the sum of k) and P (the sum of v) are f32 sums in
+//     shared memory, double-buffered so that the next chunk's sums are
+//     formed while this chunk reads its own.  o, held to one bf16 step,
+//     rounds A and the readout's copy of S once per chunk;
+//   * each o and g element is written once (no atomics): the result is
+//     bit-deterministic.
+//
+// Design of the token walk (simple first):
 //   * one block per (batch, query head), walking the whole sequence: a
 //     (B, H) grid, 32 blocks at B=2, H=16, on 132 SMs;
 //   * the D value columns of S are tiled over D threads: thread (cg, rg)
@@ -67,11 +100,282 @@
 
 #include <string.h>
 
+#include <type_traits>
+
 #include "plan.cuh"
+#include "sm90.cuh"
+
+namespace {
+constexpr float kSafeEps = 1e-30f;  // core.numerics.safe_div threshold
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// the chunked wgmma body of la_fwd (bf16, D = 128)
+// ---------------------------------------------------------------------------
+
+namespace lc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kD = 128;
+constexpr int kSplit = 2;             // blocks per head, by value columns
+constexpr int kHalf = kD / kSplit;    // value columns of a block
+constexpr int kChunk = 64;            // tokens of a chunk: the M of wgmma
+constexpr int kStages = 2;            // chunks of q, k and v in the TMA ring
+constexpr int kThreads = 128;         // one warpgroup
+constexpr size_t kQKBytes = static_cast<size_t>(kChunk) * kD * 2;
+constexpr size_t kVBytes = static_cast<size_t>(kChunk) * kHalf * 2;
+constexpr size_t kStageBytes = 2 * kQKBytes + kVBytes;  // q, k, v's half
+constexpr size_t kSBytes = static_cast<size_t>(kHalf) * kD * 2;  // bf16 S^T
+constexpr size_t kSumBytes = 2 * (kD + kHalf) * 4;  // z and P, twice, f32
+// beside the tiles and the sums: the barriers, and up to 1024 bytes of
+// padding to the tiles' 1024-byte alignment
+constexpr size_t kExtra = 2048;
+// 101,888 B
+constexpr size_t kSmem = kStages * kStageBytes + kSBytes + kSumBytes + kExtra;
+
+// One block per (batch, query head, half of the value columns) walks its
+// head's chunks in order.  Per chunk of c = 64 tokens, with S (D x D/2,
+// held as the f32 accumulator st = S^T) the sum of k^T v over the earlier
+// chunks, P their sum of v and z their sum of k:
+//   sc = q k^T                                     (wgmma, SS)
+//   acc = q S, from S^T's bf16 copy                (wgmma, SS)
+//   g  = a (t + 1) + b (rowsum of sc on j <= i + q . z), in f32: the row
+//        sums from the f32 accumulator, q . z on the CUDA cores
+//   A  = a + b sc on j <= i, else 0; bf16 in registers
+//   f  = b acc + a P + A v                         (wgmma, RS; v MN-major)
+//   o  = f / g (|g| < 1e-30 gives 0)
+//   S^T += v^T k                                   (wgmma, SS; both MN-major)
+//   z += sum of k, P += sum of v                   (f32, CUDA cores)
+// Both halves compute g; the half with value column 0 writes it.  o of a
+// chunk is staged as bf16 in the chunk's q tile and stored by TMA from the
+// next chunk.
+__global__ void __launch_bounds__(kThreads, 1)
+    la_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const __grid_constant__ CUtensorMap o_map,
+                        float* __restrict__ g_out, int heads, int kv_heads,
+                        int n, float a, float b) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = sm90::aligned_smem(smem_raw);
+  unsigned char* s_sh = smem + kStages * kStageBytes;
+  float* z_sh = reinterpret_cast<float*>(s_sh + kSBytes);  // [2][kD]
+  float* p_sh = z_sh + 2 * kD;                              // [2][kHalf]
+  uint64_t* full = reinterpret_cast<uint64_t*>(p_sh + 2 * kHalf);
+
+  const int bh = blockIdx.x;  // batch * heads + query head
+  const int half = blockIdx.y;
+  const int bi = bh / heads;
+  const int hi = bh - bi * heads;
+  const int kv_slice = bi * kv_heads + hi / (heads / kv_heads);
+  const int chunks = (n + kChunk - 1) / kChunk;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+
+  auto stage_of = [&](int c) { return smem + (c % kStages) * kStageBytes; };
+  // q, k (box b = columns 64 b ..) and this half of v of chunk c into its
+  // stage; rows past n arrive as zeros
+  auto load_chunk = [&](int c) {
+    unsigned char* st = stage_of(c);
+    uint64_t* bar = &full[c % kStages];
+    sm90::bar_expect(bar, kStageBytes);
+#pragma unroll
+    for (int bx = 0; bx < 2; ++bx) {
+      sm90::tma_load_3d(st + bx * kQKBytes / 2, &q_map, bar, 64 * bx,
+                        c * kChunk, bh);
+      sm90::tma_load_3d(st + kQKBytes + bx * kQKBytes / 2, &k_map, bar,
+                        64 * bx, c * kChunk, kv_slice);
+    }
+    sm90::tma_load_3d(st + 2 * kQKBytes, &v_map, bar, kHalf * half,
+                      c * kChunk, kv_slice);
+  };
+  // o of chunk c (this half's columns), staged in its q tile, to device
+  // memory (rows past n are not written)
+  auto store_o = [&](int c) {
+    sm90::tma_store_3d(&o_map, stage_of(c), kHalf * half, c * kChunk, bh);
+    sm90::bulk_commit();
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) sm90::bar_init(&full[s], 1);
+    sm90::bar_init_fence();
+  }
+  // S_0 = 0 (its bf16 copy too), z_0 = 0, P_0 = 0
+  for (int i = tid; i < static_cast<int>(kSBytes / 16); i += kThreads)
+    reinterpret_cast<uint4*>(s_sh)[i] = make_uint4(0, 0, 0, 0);
+  z_sh[tid] = 0.f;
+  if (tid < kHalf) p_sh[tid] = 0.f;
+  sm90::fence_async_smem();
+  __syncthreads();
+  if (tid == 0) load_chunk(0);
+
+  float st[64];  // S^T: rows (values) 16 warp + g (+ 8), columns 8 a + 2 tq
+#pragma unroll
+  for (int i = 0; i < 64; ++i) st[i] = 0.f;
+  const int row0 = 16 * warp + g;  // this thread's rows of a chunk: +0, +8
+
+  for (int c = 0; c < chunks; ++c) {
+    const int t0 = c * kChunk;
+    // every thread is done with chunk c - 1: its o is staged, the bf16
+    // copy of S^T, z and P it wrote are complete, its k and v are free
+    __syncthreads();
+    if (tid == 0 && c > 0) store_o(c - 1);
+    __syncwarp();
+    sm90::bar_wait(&full[c % kStages], (c / kStages) & 1);
+    __syncwarp();  // the products below are warp-aligned
+    const unsigned char* stage = stage_of(c);
+    const bf16* q_t = reinterpret_cast<const bf16*>(stage);
+    const bf16* k_t = reinterpret_cast<const bf16*>(stage + kQKBytes);
+    const bf16* v_t = reinterpret_cast<const bf16*>(stage + 2 * kQKBytes);
+    const bf16* s_t = reinterpret_cast<const bf16*>(s_sh);
+
+    float sc[32], acc[32];
+    sm90::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      sm90::mma_ss_n64(sc, sm90::desc_k<kChunk>(q_t, kk),
+                       sm90::desc_k<kChunk>(k_t, kk), kk);
+    sm90::mma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      sm90::mma_ss_n64(acc, sm90::desc_k<kChunk>(q_t, kk),
+                       sm90::desc_k<kHalf>(s_t, kk), kk);
+    sm90::mma_commit();
+
+    // behind the products, in f32 on the CUDA cores: q . z of this
+    // thread's rows (a quad splits the 16 chunks of 16 bytes of a row),
+    // and the next chunk's z and P (each thread a column of k, the first
+    // kHalf also a column of v)
+    const float* z_cur = z_sh + (c % 2) * kD;
+    const float* p_cur = p_sh + (c % 2) * kHalf;
+    float qz[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      float part = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int x = tq + 4 * jj;  // 16-byte chunk: columns 8 x ..
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            stage + (x / 8) * (kQKBytes / 2) + row * 128 +
+            (((x % 8) ^ (row % 8)) * 16));
+        const __nv_bfloat162* pq =
+            reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(pq[e]);
+          part = fmaf(f.x, z_cur[8 * x + 2 * e], part);
+          part = fmaf(f.y, z_cur[8 * x + 2 * e + 1], part);
+        }
+      }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      qz[r] = part;
+    }
+    {
+      const int d = tid;
+      const unsigned char* col = stage + kQKBytes + (d / 64) * (kQKBytes / 2);
+      float sum = 0.f;
+#pragma unroll 8
+      for (int t = 0; t < kChunk; ++t)
+        sum += __bfloat162float(*reinterpret_cast<const bf16*>(
+            col + t * 128 + ((((d % 64) / 8) ^ (t % 8)) * 16) + (d % 8) * 2));
+      z_sh[((c + 1) % 2) * kD + d] = z_cur[d] + sum;
+      if (d < kHalf) {
+        const unsigned char* vcol = stage + 2 * kQKBytes;
+        float vsum = 0.f;
+#pragma unroll 8
+        for (int t = 0; t < kChunk; ++t)
+          vsum += __bfloat162float(*reinterpret_cast<const bf16*>(
+              vcol + t * 128 + (((d / 8) ^ (t % 8)) * 16) + (d % 8) * 2));
+        p_sh[((c + 1) % 2) * kHalf + d] = p_cur[d] + vsum;
+      }
+    }
+    if (tid == 0 && c + 1 < chunks) {
+      // chunk c + 1 into the stage of chunk c - 1, once the store of that
+      // chunk's o has read it
+      sm90::bulk_wait<0, true>();
+      load_chunk(c + 1);
+    }
+    __syncwarp();
+    sm90::mma_wait<0>();  // q k^T and q S
+    sm90::pin(sc);
+    sm90::pin(acc);
+
+    // g from the f32 scores, then A in place
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const int j = 8 * (i / 4) + 2 * tq + (i & 1);
+      const bool in = j <= row0 + 8 * r;
+      rs[r] += in ? sc[i] : 0.f;
+      sc[i] = in ? fmaf(b, sc[i], a) : 0.f;
+    }
+    float g_row[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+      g_row[r] = a * static_cast<float>(t0 + row0 + 8 * r + 1) +
+                 b * (rs[r] + qz[r]);
+    }
+    uint32_t pa[kChunk / 16][4];
+    sm90::to_a<kChunk / 16>(pa, sc);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      acc[i] = fmaf(b, acc[i], a * p_cur[8 * (i / 4) + 2 * tq + (i & 1)]);
+    // no product or thread reads q or S^T's copy any more
+    __syncthreads();
+    sm90::pin(acc);
+    sm90::pin(st);
+    sm90::pin(pa);
+    sm90::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      sm90::mma_rs_n64(acc, pa[kk], sm90::desc_mn<kChunk>(v_t, kk), 1);
+    sm90::mma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      sm90::mma_ss_n128<1, 1>(st, sm90::desc_mn<kChunk>(v_t, kk),
+                              sm90::desc_mn<kChunk>(k_t, kk), 1);
+    sm90::mma_commit();
+
+    sm90::mma_wait<1>();  // f, while the state update runs
+    sm90::pin(acc);
+    sm90::pin(pa);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float den = g_row[(i >> 1) & 1];
+      acc[i] = fabsf(den) < kSafeEps ? 0.f : acc[i] / den;
+    }
+    sm90::store_tile<kHalf / 8>(stage_of(c), acc);
+    if (half == 0 && tq == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = t0 + row0 + 8 * r;
+        if (row < n) g_out[static_cast<size_t>(bh) * n + row] = g_row[r];
+      }
+    }
+    sm90::mma_wait<0>();
+    sm90::pin(st);
+    // the bf16 copy of S^T, the K-major B of the next readout
+    sm90::store_tile<kD / 8>(s_sh, st);
+    sm90::fence_async_smem();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    store_o(chunks - 1);
+    sm90::bulk_wait<0, false>();
+  }
+}
+
+}  // namespace lc
 
 namespace {
 
-constexpr float kSafeEps = 1e-30f;  // core.numerics.safe_div threshold
 constexpr size_t kMaxSmem = 232448;  // H100: 227 KB of dynamic shared memory
 
 template <typename T>
@@ -279,16 +583,28 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
 }
 
 // The launch of la_fwd / gla_fwd, shared by the launcher and `la_fwd_plan`:
-// f(Type<T>{}, kernel, geometry) for the instantiation a call with these
-// arguments runs.  One block per (batch, query head); D value threads and
-// the normalizer warp; `stage` tokens staged per iteration, shrunk to fit
-// kMaxSmem.
+// f(Type<T>{}, kernel, geometry, Int<wgmma>{}) for the instantiation a
+// call with these arguments runs.  la_fwd in bf16 at D = 128 runs the
+// chunked wgmma body: two blocks per (batch, query head), one per half of
+// the value columns, walking chunks of lc::kChunk tokens, which `stage`
+// must name.  Otherwise the token walk: one block per (batch, query
+// head); D value threads and the normalizer warp; `stage` tokens staged
+// per iteration, shrunk to fit kMaxSmem.
 template <bool kGated, typename F>
 cudaError_t with_launch(int dtype, int d, int batch, int heads, int stage,
                         F&& f) {
   return plan::with_dtype(dtype, [&](auto t) {
+    using T = typename decltype(t)::type;
+    if constexpr (!kGated && std::is_same<T, __nv_bfloat16>::value) {
+      if (d == lc::kD) {
+        if (stage != lc::kChunk) return cudaErrorInvalidValue;
+        return f(t, lc::la_fwd_wgmma_kernel,
+                 plan::Geometry{dim3(batch * heads, lc::kSplit),
+                                lc::kThreads, lc::kSmem, lc::kChunk},
+                 plan::Int<1>{});
+      }
+    }
     return plan::with_head_dim(d, [&](auto dc) {
-      using T = typename decltype(t)::type;
       constexpr int D = decltype(dc)::value;
       // the staging's floats per token: q, k and v padded, f, and the decay
       const size_t per_token =
@@ -298,7 +614,8 @@ cudaError_t with_launch(int dtype, int d, int batch, int heads, int stage,
       auto kernel = la_fwd_kernel<T, D, kGated>;
       return f(t, kernel,
                plan::fit({dim3(batch * heads), D + 32, 0, 0}, stage,
-                         per_token, kMaxSmem));
+                         per_token, kMaxSmem),
+               plan::Int<0>{});
     });
   });
 }
@@ -315,18 +632,34 @@ int run(const void* q, const void* k, const void* v, const void* ld, void* o,
   if (bad_shape(batch, heads, kv_heads, n, stage))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_launch<kGated>(
       dtype, d, batch, heads, stage,
-      [&](auto t, auto kernel, const plan::Geometry& geo) {
+      [&](auto t, auto kernel, const plan::Geometry& geo, auto body) {
         using T = typename decltype(t)::type;
         if (geo.stage < 1) return cudaErrorInvalidValue;
-        return plan::launch(kernel, geo, static_cast<cudaStream_t>(stream),
-                            static_cast<const T*>(q),
-                            static_cast<const T*>(k),
-                            static_cast<const T*>(v),
-                            static_cast<const float*>(ld),
-                            static_cast<T*>(o), static_cast<float*>(g),
-                            heads, kv_heads, n, geo.stage, a, b);
+        if constexpr (decltype(body)::value == 1) {
+          CUtensorMap q_map, k_map, v_map, o_map;
+          cudaError_t err = sm90::map_rows(&q_map, q, n, batch * heads,
+                                           lc::kChunk);
+          if (err == cudaSuccess)
+            err = sm90::map_rows(&k_map, k, n, batch * kv_heads, lc::kChunk);
+          if (err == cudaSuccess)
+            err = sm90::map_rows(&v_map, v, n, batch * kv_heads, lc::kChunk);
+          if (err == cudaSuccess)
+            err = sm90::map_rows(&o_map, o, n, batch * heads, lc::kChunk);
+          if (err != cudaSuccess) return err;
+          return plan::launch(kernel, geo, st, q_map, k_map, v_map, o_map,
+                              static_cast<float*>(g), heads, kv_heads, n, a,
+                              b);
+        } else {
+          return plan::launch(kernel, geo, st, static_cast<const T*>(q),
+                              static_cast<const T*>(k),
+                              static_cast<const T*>(v),
+                              static_cast<const float*>(ld),
+                              static_cast<T*>(o), static_cast<float*>(g),
+                              heads, kv_heads, n, geo.stage, a, b);
+        }
       }));
 }
 
@@ -334,7 +667,10 @@ int run(const void* q, const void* k, const void* v, const void* ld, void* o,
 
 // Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
 // Each returns the cudaError_t of its launch (0 = success); the launch is
-// asynchronous on `stream`.
+// asynchronous on `stream`.  `la_fwd` in bf16 at D = 128 runs the wgmma
+// body: `stage` must be its chunk (64), and its TMA reads need q, k and v
+// 16-byte aligned (the wrapper checks it; a map that cannot be encoded is
+// refused with cudaErrorInvalidValue).
 extern "C" int la_fwd(const void* q, const void* k, const void* v, void* o,
                       void* g, int batch, int heads, int kv_heads, int n,
                       int d, int stage, float a, float b, int dtype,
@@ -361,7 +697,7 @@ extern "C" int la_fwd_plan(const char* entry, int batch, int heads,
   if ((!gated && strcmp(entry, "la_fwd") != 0) ||
       bad_shape(batch, heads, kv_heads, n, stage))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto report = [&](auto, auto kernel, const plan::Geometry& geo) {
+  auto report = [&](auto, auto kernel, const plan::Geometry& geo, auto) {
     return plan::report(kernel, geo, out);
   };
   return static_cast<int>(

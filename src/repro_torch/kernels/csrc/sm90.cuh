@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the wgmma bodies (flash_fwd.cu,
-// flash_bwd.cu, ssd.cu): mbarriers, TMA tile loads and warpgroup matrix
-// products, as raw PTX.
+// flash_bwd.cu, ssd.cu, la_fwd.cu): mbarriers, TMA tile loads and
+// warpgroup matrix products, as raw PTX.
 //
 //   * mbarrier: init, arrive, arrive with an expected transaction count,
 //     and a try_wait loop on a phase parity (a barrier's phase p has
@@ -16,7 +16,12 @@
 //   * wgmma: shared-memory descriptors of 128-byte-swizzled bf16 tiles,
 //     `wgmma.fence`, `commit_group`, `wait_group`, the proxy fence that
 //     makes tiles written by threads visible to them, and the m64nNk16
-//     products the bodies issue (bf16 in, f32 accumulate).
+//     products the bodies run (bf16 in, f32 accumulate);
+//   * operands from f32 values: one bf16 rounding (pack_bf16, to_a,
+//     store_tile) or a hi + lo pair of bf16 values (pack_bf16_split,
+//     to_a_split, store_tile_split) whose two products into one
+//     accumulator keep ~16 bits; A fragments read transposed from a tile
+//     (ldmatrix_x4_trans).
 //
 // Tile layout.  A bf16 tile of R rows and 128 columns sits in shared
 // memory as two boxes of R x 64 (one 128-byte row each, as the 128-byte
@@ -409,6 +414,56 @@ __device__ __forceinline__ void store_tile(unsigned char* tile,
   }
 }
 
+// two f32 values as a hi + lo pair of bf16x2 registers: hi = bf16(x), lo =
+// bf16(x - hi) (x - hi is exact in f32), so hi + lo keeps ~16 of x's bits
+// (relative error <= 2^-17) where hi alone keeps 8 (2^-9)
+__device__ __forceinline__ void pack_bf16_split(float x0, float x1,
+                                                uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// store_tile of d's hi part into `hi` and of its lo part into `lo`
+// (pack_bf16_split), both 128-byte-swizzled K-major tiles of 64 rows
+template <int kBlocks>
+__device__ __forceinline__ void store_tile_split(unsigned char* hi,
+                                                 unsigned char* lo,
+                                                 const float (&d)[4 * kBlocks]) {
+  static_assert(kBlocks % 2 == 0, "column blocks in pairs");
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  const int m = lane / 8;
+  const int row = 16 * warp + 8 * (m & 1) + lane % 8;
+#pragma unroll
+  for (int a = 0; a < kBlocks; a += 2) {
+    const int blk = a + (m >> 1);
+    const int off = (blk / 8) * 64 * 128 + row * 128 +
+                    (((blk % 8) ^ (row % 8)) * 16);
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      pack_bf16_split(d[4 * a + 2 * j], d[4 * a + 2 * j + 1], h[j], l[j]);
+    stmatrix_x4(hi + off, h[0], h[1], h[2], h[3]);
+    stmatrix_x4(lo + off, l[0], l[1], l[2], l[3]);
+  }
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed: lane l gives
+// the address of row l % 8 of matrix l / 8 (16 bytes), and register j
+// receives this thread's pair of matrix j's transpose (row lane / 4,
+// columns 2 (lane % 4) and + 1): the A fragment of a product whose A is
+// the transpose of the tile read.
+__device__ __forceinline__ void ldmatrix_x4_trans(const void* row,
+                                                  uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row))
+      : "memory");
+}
+
 // 2^x by one `ex2.approx.ftz` (results below 2^-126 flush to 0; -inf
 // gives 0)
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -429,6 +484,20 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[K][4],
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       a[k][j] = pack_bf16(d[8 * k + 2 * j], d[8 * k + 2 * j + 1]);
+}
+
+// to_a as a hi + lo pair (pack_bf16_split): two A operands whose products
+// with the same B, summed in one accumulator, keep ~16 bits of d
+template <int K>
+__device__ __forceinline__ void to_a_split(uint32_t (&hi)[K][4],
+                                           uint32_t (&lo)[K][4],
+                                           const float (&d)[K * 8]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      pack_bf16_split(d[8 * k + 2 * j], d[8 * k + 2 * j + 1], hi[k][j],
+                      lo[k][j]);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 // SSD (Mamba-2) forward and analytic backward for Hopper (sm_90a): three
-// kernels, the forward with two bodies.
+// kernels, the forward and ssd_bwd_kv with two bodies each.
 //
 // Replaces the TPU kernels `ssd_fwd_pallas` (src/repro/kernels/ssd.py:65;
 // body `_ssd_kernel`, ssd.py:34) and `ssd_bwd_pallas` (ssd.py:192; bodies
@@ -37,10 +37,10 @@
 // (mamba2-2.7b: state 128, head dim 64) and (16, 32) (its smoke config);
 // any other pair is refused.
 //
-// Two bodies of ssd_fwd, chosen by the launcher from the dtype and dims:
-// the chunked wgmma body for bf16 at (128, 64) (mamba2-2.7b's training
-// instance), the token walk for f32 at both dims and bf16 at (16, 32).
-// Both backward kernels are token walks.
+// Two bodies of ssd_fwd and of ssd_bwd_kv, chosen by the launcher from the
+// dtype and dims: the chunked wgmma bodies for bf16 at (128, 64)
+// (mamba2-2.7b's training instance), the token walk for f32 at both dims
+// and bf16 at (16, 32).  ssd_bwd_q is a token walk at every shape.
 //
 // What bounds them (estimates from the shapes; B=2, G=1, H=80, N=8192,
 // Dk=128, Dv=64): every kernel moves its bytes once, ssd_fwd ~0.35 GB
@@ -49,10 +49,13 @@
 // GFLOP, 0.80 ms at 67 TFLOP/s; ssd_bwd_q the same flops, but it writes
 // 671 MB of f32 partials (0.26 ms); ssd_bwd_kv updates U once and reads
 // it twice, 7 Dk Dv flops, 75.2 GFLOP, 1.12 ms: bound by f32 operations
-// on the CUDA cores.  The chunked body does four products per chunk of
-// c = 64 tokens (q k^T, q S, A v and the state update: 2 c Dk (c + Dv) +
-// 2 c Dv (c + Dk) flops), 75.2 GFLOP on the bf16 tensor cores, 0.076 ms
-// at 989 TFLOP/s: bound by its bytes (0.104 ms).
+// on the CUDA cores.  The chunked ssd_fwd body does four products per
+// chunk of c = 64 tokens (q k^T, q S, A v and the state update: 2 c Dk
+// (c + Dv) + 2 c Dv (c + Dk) flops), 75.2 GFLOP on the bf16 tensor cores,
+// 0.076 ms at 989 TFLOP/s: bound by its bytes (0.104 ms).  The chunked
+// ssd_bwd_kv body does seven products per chunk, five of them twice (a hi
+// and a lo operand), 225.5 GFLOP on the tensor cores (0.228 ms): bound by
+// its bytes, 1.36 GB (0.405 ms), half of them the f32 dk partials.
 //
 // Design of the chunked body (namespace sc, the reference's chunked form,
 // src/repro/kernels/ssd.py:34-62): one warpgroup per (batch, head), 160
@@ -76,6 +79,35 @@
 //     round P;
 //   * o of a chunk is stored from registers while the state update runs;
 //     each o is written once (no atomics): the result is bit-deterministic.
+// Design of the chunked ssd_bwd_kv body (namespace sk, the reference's
+// chunked form, src/repro/kernels/ssd.py:151-189): one warpgroup per
+// (batch, head) walks its chunks from the last, 160 blocks of 108,544 B,
+// two to an SM, one wave on 132 SMs.
+//   * the state U is held as U^T (Dv x Dk), an m64n128 f32 accumulator
+//     (64 registers a thread), as sc holds S^T; its readouts read a bf16
+//     copy of U^T from shared memory, MN-major for e v U^T (dk) and
+//     K-major for e k U (dv): one layout serves both;
+//   * precision: chip_smoke.py holds the f32 dk partials and dv to 1e-4
+//     of their largest |value|, which the f32 walk meets and one bf16
+//     rounding of an operand (2^-9) would not.  So every operand that is
+//     not a bf16 input -- p o M, s o M, exp(cl) o Ω and the copy of U^T --
+//     goes as a pair hi = bf16(x), lo = bf16(x - hi) (sm90.cuh), two
+//     products into one f32 accumulator: ~2^-17 relative.  p = v Ω^T and
+//     s = k q^T are products of inputs, exact before the f32 sums;
+//   * shared memory, for two blocks an SM: both copies of U^T (32 KB),
+//     q and Ω in a ring of two chunks (their last reads end a chunk), k
+//     and v once: their last reads (p, s and the readouts of U) end
+//     half-way through a chunk, where the next chunk's k and v are
+//     requested by TMA;
+//   * per chunk: p and e v U^T (SS), then (p o M) q (RS, hi and lo), dk
+//     stored from registers (a quad's 8-byte stores fill 32-byte
+//     sectors); s and e k U (SS), then (s o M) Ω (RS) and behind it the
+//     state update (exp(cl) o Ω)^T q, its A read from Ω's tile by
+//     ldmatrix.trans and scaled per token in registers (RS); dv stored,
+//     then the new hi and lo copies of U^T by stmatrix.  Exponents are
+//     differences <= 0 of the chunk's cumsum, masked first, as in sc;
+//   * each dk and dv element is written once (no atomics): the result is
+//     bit-deterministic.
 // Design of the token walk (simple first):
 //   * one block per (batch, head), walking the whole sequence: a (B, H)
 //     grid, 160 blocks at B=2, H=80 on 132 SMs, small enough that two
@@ -366,6 +398,357 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 }  // namespace sc
+
+// ---------------------------------------------------------------------------
+// the chunked wgmma body of ssd_bwd_kv (bf16, Dk = 128, Dv = 64)
+// ---------------------------------------------------------------------------
+
+namespace sk {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kDk = 128;
+constexpr int kDv = 64;
+constexpr int kChunk = 64;     // tokens of a chunk: the M of wgmma
+constexpr int kThreads = 128;  // one warpgroup
+constexpr size_t kQKBytes = static_cast<size_t>(kChunk) * kDk * 2;
+constexpr size_t kVBytes = static_cast<size_t>(kChunk) * kDv * 2;
+constexpr size_t kUBytes = static_cast<size_t>(kDv) * kDk * 2;  // U^T, bf16
+// tile offsets (each 1024-byte aligned): the hi and lo copies of U^T; q
+// and Ω in rings of two chunks (their last reads end a chunk); k and v
+// once (their last reads are half-way through a chunk, and the next
+// chunk's load starts there)
+constexpr size_t kUHi = 0;
+constexpr size_t kULo = kUHi + kUBytes;
+constexpr size_t kQ = kULo + kUBytes;
+constexpr size_t kOm = kQ + 2 * kQKBytes;
+constexpr size_t kK = kOm + 2 * kVBytes;
+constexpr size_t kV = kK + kQKBytes;
+constexpr size_t kBars = kV + kVBytes;
+// beside the tiles: the barriers, and up to 1024 bytes of padding to the
+// tiles' 1024-byte alignment
+constexpr size_t kExtra = 2048;
+// 108,544 B, so that two blocks share an SM
+constexpr size_t kSmem = kBars + kExtra;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One block (one warpgroup) per (batch, head) walks its head's chunks from
+// the last to the first.  Per chunk of c = 64 tokens, with cl the
+// inclusive cumsum of its log decays (base 2), `total` its last, and U
+// (U^T held as the f32 accumulator ut, Dv x Dk) carried in from the later
+// chunks:
+//   p   = v Ω^T, s = k q^T                        (wgmma, SS; exact products)
+//   M   = exp(cl_i - cl_n) for i >= n, else 0;  e_n = exp(total - cl_n)
+//   dk  = e_n (v U^T) + (p o M) q                 (SS from U^T's copies; RS)
+//   dv  = e_n (k U) + (s o M) Ω                   (SS from U^T's copies; RS)
+//   U^T = exp(total) U^T + (exp(cl) o Ω)^T q      (RS: A by ldmatrix.trans)
+// Every operand that is not a bf16 input (p o M, s o M, exp(cl) o Ω and
+// U^T's copy) goes as a hi + lo pair of bf16 (sm90::pack_bf16_split), two
+// products into one f32 accumulator: ~2^-17 relative, where one bf16
+// rounding (2^-9) would miss the f32 walk's 1e-4.
+__global__ void __launch_bounds__(kThreads, 2)
+    ssd_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap om_map,
+                            const float* __restrict__ ld,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int heads, int per_group, int n) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = sm90::aligned_smem(smem_raw);
+  unsigned char* u_hi = smem + kUHi;
+  unsigned char* u_lo = smem + kULo;
+  uint64_t* qo_full = reinterpret_cast<uint64_t*>(smem + kBars);  // [2]
+  uint64_t* kv_full = qo_full + 2;
+
+  const int bh = blockIdx.x;  // batch * heads + head
+  const int bi = bh / heads;
+  const int hi = bh - bi * heads;
+  const int qk_slice = bi * (heads / per_group) + hi / per_group;
+  const int chunks = (n + kChunk - 1) / kChunk;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+
+  // iteration j walks chunk chunks - 1 - j; rows past n arrive as zeros
+  auto q_tile = [&](int j) { return smem + kQ + (j % 2) * kQKBytes; };
+  auto om_tile = [&](int j) { return smem + kOm + (j % 2) * kVBytes; };
+  auto load_qo = [&](int j) {
+    const int c = chunks - 1 - j;
+    uint64_t* bar = &qo_full[j % 2];
+    sm90::bar_expect(bar, kQKBytes + kVBytes);
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+      sm90::tma_load_3d(q_tile(j) + b * kQKBytes / 2, &q_map, bar, 64 * b,
+                        c * kChunk, qk_slice);
+    sm90::tma_load_3d(om_tile(j), &om_map, bar, 0, c * kChunk, bh);
+  };
+  auto load_kv = [&](int j) {
+    const int c = chunks - 1 - j;
+    sm90::bar_expect(kv_full, kQKBytes + kVBytes);
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+      sm90::tma_load_3d(smem + kK + b * kQKBytes / 2, &k_map, kv_full,
+                        64 * b, c * kChunk, qk_slice);
+    sm90::tma_load_3d(smem + kV, &v_map, kv_full, 0, c * kChunk, bh);
+  };
+  // lane l's two log decays of chunk c in base 2 (tokens 2l, 2l + 1; 0
+  // past n)
+  const float* ld_row = ld + static_cast<size_t>(bh) * n;
+  auto load_ld = [&](int c, float (&x)[2]) {
+    const int t = c * kChunk + 2 * lane;
+    x[0] = t < n ? ld_row[t] * kLog2e : 0.f;
+    x[1] = t + 1 < n ? ld_row[t + 1] * kLog2e : 0.f;
+  };
+  float* dk_head = dk + static_cast<size_t>(bh) * n * kDk;
+  float* dv_head = dv + static_cast<size_t>(bh) * n * kDv;
+
+  if (tid == 0) {
+    sm90::bar_init(&qo_full[0], 1);
+    sm90::bar_init(&qo_full[1], 1);
+    sm90::bar_init(kv_full, 1);
+    sm90::bar_init_fence();
+  }
+  // U = 0 past the last chunk: both of its copies too
+  for (int i = tid; i < static_cast<int>(2 * kUBytes / 16); i += kThreads)
+    reinterpret_cast<uint4*>(smem + kUHi)[i] = make_uint4(0, 0, 0, 0);
+  sm90::fence_async_smem();
+  __syncthreads();
+  if (tid == 0) {
+    load_qo(0);
+    load_kv(0);
+  }
+
+  float ut[64];  // U^T: rows (Dv) 16 warp + g (+ 8), columns (Dk) 8 a + 2 tq
+#pragma unroll
+  for (int i = 0; i < 64; ++i) ut[i] = 0.f;
+  float ld_cur[2];
+  load_ld(chunks - 1, ld_cur);
+  const int row0 = 16 * warp + g;  // this thread's rows of a chunk: +0, +8
+
+  for (int j = 0; j < chunks; ++j) {
+    const int c = chunks - 1 - j;
+    const int t0 = c * kChunk;
+    // every thread is done with iteration j - 1: its q and Ω stage is
+    // free and both copies of U^T are whole
+    __syncthreads();
+    if (tid == 0 && j + 1 < chunks) load_qo(j + 1);
+    __syncwarp();
+    float ld_next[2] = {0.f, 0.f};
+    if (c > 0) load_ld(c - 1, ld_next);
+    sm90::bar_wait(&qo_full[j % 2], (j / 2) & 1);
+    sm90::bar_wait(kv_full, j & 1);
+    __syncwarp();  // the products below are warp-aligned
+    const bf16* q_t = reinterpret_cast<const bf16*>(q_tile(j));
+    const unsigned char* om_raw = om_tile(j);
+    const bf16* om_t = reinterpret_cast<const bf16*>(om_raw);
+    const bf16* k_t = reinterpret_cast<const bf16*>(smem + kK);
+    const bf16* v_t = reinterpret_cast<const bf16*>(smem + kV);
+    const bf16* uh_t = reinterpret_cast<const bf16*>(u_hi);
+    const bf16* ul_t = reinterpret_cast<const bf16*>(u_lo);
+
+    // ---- dk: p = v Ω^T; e_n v U^T from both copies
+    float p[32], dka[64];
+    sm90::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDv / 16; ++kk)
+      sm90::mma_ss_n64(p, sm90::desc_k<kChunk>(v_t, kk),
+                       sm90::desc_k<kChunk>(om_t, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < kDv / 16; ++kk)
+      sm90::mma_ss_n128<0, 1>(dka, sm90::desc_k<kChunk>(v_t, kk),
+                              sm90::desc_mn<kDv>(uh_t, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < kDv / 16; ++kk)
+      sm90::mma_ss_n128<0, 1>(dka, sm90::desc_k<kChunk>(v_t, kk),
+                              sm90::desc_mn<kDv>(ul_t, kk), 1);
+    sm90::mma_commit();
+
+    // behind the products: cl as a warp scan (every warp holds all of it:
+    // lane l tokens 2l and 2l + 1)
+    float incl = ld_cur[0] + ld_cur[1];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
+    }
+    const float cl_odd = incl, cl_even = incl - ld_cur[1];
+    const float total = __shfl_sync(0xffffffffu, incl, 31);
+    auto cl_at = [&](int t) {  // cl of token t of the chunk (lane-varying)
+      const float e = __shfl_sync(0xffffffffu, cl_even, t / 2);
+      const float od = __shfl_sync(0xffffffffu, cl_odd, t / 2);
+      return (t & 1) ? od : e;
+    };
+    float cl_col[16];  // cl of this thread's columns 8 a + 2 tq (+ 1)
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      cl_col[2 * a] = __shfl_sync(0xffffffffu, cl_even, 4 * a + tq);
+      cl_col[2 * a + 1] = __shfl_sync(0xffffffffu, cl_odd, 4 * a + tq);
+    }
+    const float cl_row[2] = {cl_at(row0), cl_at(row0 + 8)};
+    const float e_row[2] = {sm90::exp2_ftz(total - cl_row[0]),
+                            sm90::exp2_ftz(total - cl_row[1])};
+    // x o M in place: rows n (this thread's), columns i >= n; column
+    // blocks before the warp's first row are masked whole
+    auto decay_mask = [&](float (&x)[32]) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        const int col = 8 * (i / 4) + 2 * tq + (i & 1);
+        if (8 * (i / 4) + 7 < 16 * warp) {
+          x[i] = 0.f;
+          continue;
+        }
+        x[i] = col >= row0 + 8 * r
+                   ? x[i] * sm90::exp2_ftz(cl_col[2 * (i / 4) + (i & 1)] -
+                                           cl_row[r])
+                   : 0.f;
+      }
+    };
+
+    sm90::mma_wait<0>();
+    sm90::pin(p);
+    sm90::pin(dka);
+    uint32_t ah[kChunk / 16][4], al[kChunk / 16][4];
+    decay_mask(p);
+    sm90::to_a_split<kChunk / 16>(ah, al, p);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dka[i] *= e_row[(i >> 1) & 1];
+    sm90::pin(dka);
+    sm90::pin(ah);
+    sm90::pin(al);
+    sm90::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      sm90::mma_rs_n128(dka, ah[kk], sm90::desc_mn<kChunk>(q_t, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      sm90::mma_rs_n128(dka, al[kk], sm90::desc_mn<kChunk>(q_t, kk), 1);
+    sm90::mma_commit();
+    sm90::mma_wait<0>();
+    sm90::pin(dka);
+    sm90::pin(ah);
+    sm90::pin(al);
+    // dk rows from registers: a quad's 8-byte stores fill 32-byte sectors
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = t0 + row0 + 8 * r;
+      if (row < n) {
+        float* out = dk_head + static_cast<size_t>(row) * kDk + 2 * tq;
+#pragma unroll
+        for (int a = 0; a < kDk / 8; ++a)
+          *reinterpret_cast<float2*>(out + 8 * a) =
+              make_float2(dka[4 * a + 2 * r], dka[4 * a + 2 * r + 1]);
+      }
+    }
+
+    // ---- dv: s = k q^T; e_n k U from both copies
+    float s[32], dva[32];
+    sm90::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDk / 16; ++kk)
+      sm90::mma_ss_n64(s, sm90::desc_k<kChunk>(k_t, kk),
+                       sm90::desc_k<kChunk>(q_t, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < kDk / 16; ++kk)
+      sm90::mma_ss_n64(dva, sm90::desc_k<kChunk>(k_t, kk),
+                       sm90::desc_k<kDv>(uh_t, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < kDk / 16; ++kk)
+      sm90::mma_ss_n64(dva, sm90::desc_k<kChunk>(k_t, kk),
+                       sm90::desc_k<kDv>(ul_t, kk), 1);
+    sm90::mma_commit();
+    sm90::mma_wait<0>();
+    sm90::pin(s);
+    sm90::pin(dva);
+    // every warp is done with k, v and both copies of U^T: the next
+    // chunk's k and v load behind the rest of this one
+    __syncthreads();
+    if (tid == 0 && j + 1 < chunks) load_kv(j + 1);
+    __syncwarp();
+    decay_mask(s);
+    sm90::to_a_split<kChunk / 16>(ah, al, s);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dva[i] *= e_row[(i >> 1) & 1];
+    // (exp(cl) o Ω)^T, the A of the state update: Ω's tile read transposed
+    // (lane l: row 16 kk + 8 (m / 2) + l % 8 of the tile, columns
+    // 8 (2 warp + m % 2).. of matrix m = l / 8), scaled per token
+    uint32_t oh[kChunk / 16][4], ol[kChunk / 16][4];
+    {
+      const int m = lane / 8;
+      const int ch = 2 * warp + (m & 1);
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk) {
+        const int i = 16 * kk + 8 * (m >> 1) + lane % 8;
+        uint32_t raw[4];
+        sm90::ldmatrix_x4_trans(om_raw + i * 128 + ((ch ^ (i % 8)) * 16),
+                                raw);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int cc = 4 * kk + 2 * (jj >> 1);  // cl_col of tokens +0, +1
+          const float2 f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&raw[jj]));
+          sm90::pack_bf16_split(f.x * sm90::exp2_ftz(cl_col[cc]),
+                                f.y * sm90::exp2_ftz(cl_col[cc + 1]),
+                                oh[kk][jj], ol[kk][jj]);
+        }
+      }
+    }
+    const float e_total = sm90::exp2_ftz(total);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) ut[i] *= e_total;
+    sm90::pin(dva);
+    sm90::pin(ut);
+    sm90::pin(ah);
+    sm90::pin(al);
+    sm90::pin(oh);
+    sm90::pin(ol);
+    sm90::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      sm90::mma_rs_n64(dva, ah[kk], sm90::desc_mn<kChunk>(om_t, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      sm90::mma_rs_n64(dva, al[kk], sm90::desc_mn<kChunk>(om_t, kk), 1);
+    sm90::mma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      sm90::mma_rs_n128(ut, oh[kk], sm90::desc_mn<kChunk>(q_t, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      sm90::mma_rs_n128(ut, ol[kk], sm90::desc_mn<kChunk>(q_t, kk), 1);
+    sm90::mma_commit();
+    sm90::mma_wait<1>();  // dv, while the state update runs
+    sm90::pin(dva);
+    sm90::pin(ah);
+    sm90::pin(al);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = t0 + row0 + 8 * r;
+      if (row < n) {
+        float* out = dv_head + static_cast<size_t>(row) * kDv + 2 * tq;
+#pragma unroll
+        for (int a = 0; a < kDv / 8; ++a)
+          *reinterpret_cast<float2*>(out + 8 * a) =
+              make_float2(dva[4 * a + 2 * r], dva[4 * a + 2 * r + 1]);
+      }
+    }
+    sm90::mma_wait<0>();
+    sm90::pin(ut);
+    sm90::pin(oh);
+    sm90::pin(ol);
+    // the copies of the new U^T, the B of the next chunk's readouts; the
+    // fence also orders this chunk's ldmatrix reads of Ω before the TMA
+    // load that reuses its stage
+    sm90::store_tile_split<kDk / 8>(u_hi, u_lo, ut);
+    sm90::fence_async_smem();
+    ld_cur[0] = ld_next[0];
+    ld_cur[1] = ld_next[1];
+  }
+}
+
+}  // namespace sk
 
 namespace {
 
@@ -799,9 +1182,10 @@ auto kernel_of() {
 // The launch of one of the three kernels, shared by the launchers and
 // `ssd_plan`: f(Type<T>{}, kernel, geometry, Int<wgmma>{}) for the
 // instantiation a call with these arguments runs.  One block per (batch,
-// head).  The wgmma body (ssd_fwd in bf16 at (128, 64)) walks chunks of
-// sc::kChunk tokens, which `stage` must name; the token walk stages
-// `stage` tokens per iteration, shrunk to fit kMaxSmem.
+// head).  The wgmma bodies (ssd_fwd and ssd_bwd_kv in bf16 at (128, 64))
+// walk chunks of sc::kChunk = sk::kChunk tokens, which `stage` must name;
+// the token walk stages `stage` tokens per iteration, shrunk to fit
+// kMaxSmem.
 template <Kind K, typename F>
 cudaError_t with_launch(int dtype, int dk, int dv, int batch, int heads,
                         int stage, F&& f) {
@@ -814,6 +1198,16 @@ cudaError_t with_launch(int dtype, int dk, int dv, int batch, int heads,
         return f(t, sc::ssd_fwd_wgmma_kernel,
                  plan::Geometry{dim3(batch * heads), sc::kThreads, sc::kSmem,
                                 sc::kChunk},
+                 plan::Int<1>{});
+      }
+    }
+    if constexpr (K == Kind::kBwdKV &&
+                  std::is_same<T, __nv_bfloat16>::value) {
+      if (dk == sk::kDk && dv == sk::kDv) {
+        if (stage != sk::kChunk) return cudaErrorInvalidValue;
+        return f(t, sk::ssd_bwd_kv_wgmma_kernel,
+                 plan::Geometry{dim3(batch * heads), sk::kThreads, sk::kSmem,
+                                sk::kChunk},
                  plan::Int<1>{});
       }
     }
@@ -866,7 +1260,25 @@ int run(const Args& a, int dk, int dv, int dtype) {
         const T* v = static_cast<const T*>(a.v);
         const float* ld = static_cast<const float*>(a.ld);
         [[maybe_unused]] const T* om = static_cast<const T*>(a.om);
-        if constexpr (decltype(body)::value == 1) {
+        if constexpr (decltype(body)::value == 1 && K == Kind::kBwdKV) {
+          CUtensorMap q_map, k_map, v_map, om_map;
+          cudaError_t err = sm90::map_rows(&q_map, q, a.n,
+                                           a.batch * a.groups, sk::kChunk);
+          if (err == cudaSuccess)
+            err = sm90::map_rows(&k_map, k, a.n, a.batch * a.groups,
+                                 sk::kChunk);
+          if (err == cudaSuccess)
+            err = sm90::map_rows(&v_map, v, a.n, a.batch * a.heads,
+                                 sk::kChunk, sk::kDv);
+          if (err == cudaSuccess)
+            err = sm90::map_rows(&om_map, om, a.n, a.batch * a.heads,
+                                 sk::kChunk, sk::kDv);
+          if (err != cudaSuccess) return err;
+          return plan::launch(kernel, geo, a.stream, q_map, k_map, v_map,
+                              om_map, ld, static_cast<float*>(a.out0),
+                              static_cast<float*>(a.out1), a.heads,
+                              per_group, a.n);
+        } else if constexpr (decltype(body)::value == 1) {
           CUtensorMap q_map, k_map, v_map, o_map;
           cudaError_t err = sm90::map_rows(&q_map, q, a.n,
                                            a.batch * a.groups, sc::kChunk);
@@ -902,11 +1314,11 @@ int run(const Args& a, int dk, int dv, int dtype) {
 
 // Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16
 // (of q, k, v, Ω and o).  Each returns the cudaError_t of its launch
-// (0 = success); the launch is asynchronous on `stream`.  `ssd_fwd` in
-// bf16 at (Dk, Dv) = (128, 64) runs the wgmma body: `stage` must be its
-// chunk (64), and its TMA reads need q, k and v 16-byte aligned (the
-// wrapper checks it; a map that cannot be encoded is refused with
-// cudaErrorInvalidValue).
+// (0 = success); the launch is asynchronous on `stream`.  `ssd_fwd` and
+// `ssd_bwd_kv` in bf16 at (Dk, Dv) = (128, 64) run their wgmma bodies:
+// `stage` must be the chunk (64), and their TMA reads need q, k, v (and
+// Ω) 16-byte aligned (the wrapper checks it; a map that cannot be encoded
+// is refused with cudaErrorInvalidValue).
 extern "C" int ssd_fwd(const void* q, const void* k, const void* v,
                        const void* ld, void* o, int batch, int heads,
                        int groups, int n, int dk, int dv, int stage,

@@ -10,12 +10,42 @@ staging size, and no result depends on it.
     scans (core/chunked.py: serving prefill and the `torch` impl of
     training's forward and backward); `LACfg.chunk` mirrors it.
   * `LA_STAGE_TOKENS` — the most tokens of q/k/v (and Ω̂/h in the
-    backward) that a block of the CUDA linear-attention kernels
-    (`la_fwd`, `la_bwd_q`, `la_bwd_kv`) stages in shared memory per
+    backward) that a block of the CUDA linear-attention kernels' token
+    walk (`la_fwd` in f32 and at D < 128, `la_bwd_q`, `la_bwd_kv`) stages in shared memory per
     iteration.  The kernels walk the recurrence one token at a time, so
     the staging size changes no result; each launcher stages fewer where
     its block would exceed the H100's 227 KB of shared memory (large
     query groups in `la_bwd_kv`).
+
+  * `LA_CHUNK_TOKENS`, `LA_CHUNK_RING`, `LA_WGMMA_SPLIT` — the chunk,
+    the ring depth and the blocks per head of `la_fwd`'s "wgmma" body
+    (bf16 at D in `LA_WGMMA_HEAD_DIMS`, the paper's training instance;
+    the dtype and D pick the body, `linear_attention.la_fwd_body`; f32,
+    the other D and `gla_fwd` keep the token walk).  A chunk is 64
+    tokens, the M of Hopper's `wgmma`; a head's D = 128 value columns
+    are split over two blocks of 64, so each block's state S^T (64 x 128)
+    is one m64n128 f32 accumulator, 64 registers a thread, and the grid
+    of the timing shape (B = 2, H = 16) is 64 blocks.  Two chunks of q,
+    k (64 x 128) and the block's half of v (64 x 64) in bf16 (40 KB
+    each) in the TMA ring, the bf16 copy of S^T and the f32 sums z (of
+    k) and P (of v) come to 101,888 B.  The chunk moves where o rounds:
+    the intra-chunk matrix A = a + b q k^T and the readout's copy of S
+    are rounded to bf16 once per chunk (one bf16 step of o at most); g,
+    the normalizer and the backward's residual, stays f32 (the row sums
+    of the f32 scores and q . z on the CUDA cores).  The kernel is
+    compiled for exactly this chunk and refuses any other.
+  * `SSD_BWD_KV_QO_RING` — the ring depth of q and Ω in `ssd_bwd_kv`'s
+    "wgmma" body (bf16 at (Dk, Dv) in `SSD_BWD_KV_WGMMA_STATE_DIMS`,
+    mamba2-2.7b's training instance; chunks of `SSD_CHUNK_TOKENS`).  The
+    reverse chunk walk reads k and v in the chunk's first half and q and
+    Ω to its end, so k and v are kept once (the next chunk's load starts
+    half-way) and q and Ω twice: with the hi and lo bf16 copies of the
+    state U^T (16 KB each) that is 108,544 B, so two blocks share an SM
+    and the 160 blocks of the timing shape run in one wave.  Every
+    operand of its products that is not a bf16 input (the decay-masked
+    p o M and s o M, exp(cl) o Ω and the copies of U^T) goes as a hi +
+    lo pair of bf16 values, two products into one f32 accumulator, so
+    the f32 dk partials and dv round at ~2^-17 relative, not bf16's 2^-9.
 
   * `FLASH_BLOCK_Q`, `FLASH_BLOCK_K` — the query and key tiles (rows)
     of the CUDA flash kernels (`flash_fwd`, `flash_bwd_q`,
@@ -62,15 +92,15 @@ staging size, and no result depends on it.
 
   * `SSD_STAGE_TOKENS` — the same staging size for the token walk of the
     SSD (Mamba-2) kernels (`ssd_fwd` in f32 and at the smoke dims,
-    `ssd_bwd_q`, `ssd_bwd_kv`), which stage q, k, v (and Ω in the
-    backward) and each token's decay.  The reference's
+    `ssd_bwd_q`, `ssd_bwd_kv` in f32 and at the smoke dims), which stage
+    q, k, v (and Ω in the backward) and each token's decay.  The reference's
     `DEFAULT_TILES["ssd"]["chunk"] = 128` is the VMEM tile of its Pallas
     SSD kernels; the token-by-token walk makes the result independent of
     it.  At 32 tokens a block of `ssd_bwd_kv` stages ~86 KB, so two
     blocks share an SM.  The plain SSD scans (core/ssd.py) take
     `DEFAULT_SCAN_CHUNK`.
-  * `SSD_CHUNK_TOKENS`, `SSD_CHUNK_RING` — the chunk and the ring depth
-    of `ssd_fwd`'s "wgmma" body (bf16 at (Dk, Dv) in
+  * `SSD_CHUNK_TOKENS`, `SSD_CHUNK_RING` — the chunk of both SSD
+    "wgmma" bodies and the ring depth of `ssd_fwd`'s "wgmma" body (bf16 at (Dk, Dv) in
     `SSD_WGMMA_STATE_DIMS`, mamba2-2.7b's training instance; the dtype,
     the dims and the entry pick the body, `ssd.ssd_body`).  A chunk is
     64 tokens, the M of Hopper's `wgmma`: its four products per chunk
@@ -96,6 +126,12 @@ SSD_STAGE_TOKENS = 32
 SSD_CHUNK_TOKENS = 64
 SSD_CHUNK_RING = 2
 SSD_WGMMA_STATE_DIMS = ((128, 64),)
+SSD_BWD_KV_WGMMA_STATE_DIMS = ((128, 64),)
+SSD_BWD_KV_QO_RING = 2
+LA_CHUNK_TOKENS = 64
+LA_CHUNK_RING = 2
+LA_WGMMA_SPLIT = 2
+LA_WGMMA_HEAD_DIMS = (128,)
 FLASH_BLOCK_Q = {
     "wgmma": {"flash_fwd": 128, "flash_bwd_q": 128, "flash_bwd_kv": 64},
     "mma_sync": {"flash_fwd": 64, "flash_bwd_q": 64, "flash_bwd_kv": 64},

@@ -17,6 +17,13 @@ does outside its kernels) and launches both backward kernels;
 and csrc/la_bwd.cu; their headers say what bounds each kernel and how
 it is laid out.
 
+`la_fwd` has two bodies, chosen by `la_fwd_body(dtype, d)`: "wgmma"
+(bf16 at D = 128, the paper's training instance: a chunked scan on the
+tensor cores, two blocks per head by halves of the value columns, fed by
+TMA, so q, k and v must be 16-byte aligned, which the wrappers check)
+and "walk" (f32, and bf16 at D < 128: the token walk, as are both
+backward kernels and every GLA kernel).
+
 Shapes: q (B, H, N, D), k and v (B, Hkv, N, D) with Hkv | H, float32 or
 bfloat16, D in `HEAD_DIMS`; o, dq, dk and dv come back in their
 inputs' dtypes, g, Ω̂ and h are float32.  The wrappers take contiguous
@@ -35,7 +42,8 @@ import torch
 from repro_torch.core import chunked as _chunked
 from repro_torch.kernels import build, plan
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
-    LA_STAGE_TOKENS
+    LA_CHUNK_RING, LA_CHUNK_TOKENS, LA_STAGE_TOKENS, LA_WGMMA_HEAD_DIMS, \
+    LA_WGMMA_SPLIT
 
 F32 = torch.float32
 # head dims the kernels are instantiated for (a state row in registers)
@@ -45,6 +53,20 @@ HEAD_DIMS = (32, 64, 128)
 # to 0 and reads them back to show that its steps went through the
 # kernels)
 launches = {"la_fwd": 0, "la_bwd_q": 0, "la_bwd_kv": 0}
+
+
+def la_fwd_body(dtype, d: int) -> str:
+    """The body `la_fwd` runs for this compute dtype and head dim:
+    "wgmma" (bf16 at D in LA_WGMMA_HEAD_DIMS) or "walk"."""
+    return ("wgmma" if dtype == torch.bfloat16 and d in LA_WGMMA_HEAD_DIMS
+            else "walk")
+
+
+def _fwd_stage(dtype, d: int) -> int:
+    """The `stage` argument of `la_fwd`'s C call: the wgmma body's chunk,
+    or the tokens the walk stages per iteration."""
+    return (LA_CHUNK_TOKENS if la_fwd_body(dtype, d) == "wgmma"
+            else LA_STAGE_TOKENS)
 
 
 # ---------------------------------------------------------------------------
@@ -102,7 +124,7 @@ def la_fwd_cuda(q, k, v, a: float, b: float):
     with torch.cuda.device(q.device):
         err = lib.la_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          o.data_ptr(), g.data_ptr(), bsz, h, hkv, n, d,
-                         LA_STAGE_TOKENS, float(a), float(b),
+                         _fwd_stage(q.dtype, d), float(a), float(b),
                          build.DTYPE_CODE[q.dtype],
                          build.current_stream(q.device))
     build.raise_on(lib, "la_fwd", "la_fwd", err)
@@ -178,15 +200,41 @@ def _padded(d: int) -> int:
     return d + 16
 
 
+# the wgmma body: one warpgroup; beside the tiles and sums the barriers and
+# the pad to their 1024-byte alignment
+_WGMMA_THREADS = 128
+_WGMMA_EXTRA = 2048
+
+
+def _wgmma_smem(d: int) -> int:
+    """Dynamic shared memory of `la_fwd`'s wgmma block, as csrc/la_fwd.cu's
+    `lc::kSmem`: LA_CHUNK_RING chunks of bf16 q, k (D wide) and the
+    block's share of v, the bf16 copy of S^T (its value columns x D), z
+    and P twice in f32, and the barriers and pad."""
+    c, part = LA_CHUNK_TOKENS, d // LA_WGMMA_SPLIT
+    return (LA_CHUNK_RING * 2 * (2 * c * d + c * part) + 2 * part * d
+            + 2 * 4 * (d + part) + _WGMMA_EXTRA)
+
+
 def plan_fwd(entry, q, k, v, log_decay, a, b, stage_tokens, argtypes):
-    """la_fwd (log_decay None) or gla_fwd: one block per (batch, query
-    head) walking all N tokens of its query head and of its KV head."""
+    """la_fwd (log_decay None) or gla_fwd: the token walk's one block per
+    (batch, query head) walking all N tokens of its query head and of its
+    KV head; `la_fwd`'s wgmma body LA_WGMMA_SPLIT such blocks, each with
+    its share of the value columns (of v and o; the first writes g),
+    walking chunks (TMA zero-fills the rows of the last chunk past N)."""
     bsz, h, hkv, n, d = _dims(q, k, v)
     group, gated = h // hkv, log_decay is not None
     code = plan.dtype_code(q.dtype)
-    # the staging's floats per token: q, k and v padded, f, and the decay
-    stage, smem = plan.fit(
-        stage_tokens, (3 * _padded(d) + d + 1 + int(gated)) * 4)
+    split, threads = 1, d + 32
+    if entry == "la_fwd" and la_fwd_body(q.dtype, d) == "wgmma":
+        stage_tokens = stage = LA_CHUNK_TOKENS
+        split, threads, smem = LA_WGMMA_SPLIT, _WGMMA_THREADS, _wgmma_smem(d)
+    else:
+        # the staging's floats per token: q, k and v padded, f, and the
+        # decay
+        stage, smem = plan.fit(
+            stage_tokens, (3 * _padded(d) + d + 1 + int(gated)) * 4)
+    part = d // split
 
     def head(blk):
         bi, hi = divmod(blk[0], h)
@@ -200,23 +248,35 @@ def plan_fwd(entry, q, k, v, log_decay, a, b, stage_tokens, argtypes):
         bi, _, hk = head(blk)
         return plan.box((bi, bi + 1), (hk, hk + 1), (0, n), (0, d))
 
+    def v_part(blk):
+        bi, _, hk = head(blk)
+        lo = blk[1] * part
+        return plan.box((bi, bi + 1), (hk, hk + 1), (0, n), (lo, lo + part))
+
+    def o_part(blk):
+        bi, hi, _ = head(blk)
+        lo = blk[1] * part
+        return plan.box((bi, bi + 1), (hi, hi + 1), (0, n), (lo, lo + part))
+
     def ld_row(blk):
         bi, _, hk = head(blk)
         return plan.box((bi, bi + 1), (hk, hk + 1), (0, n))
 
     def g_row(blk):
         bi, hi, _ = head(blk)
-        return plan.box((bi, bi + 1), (hi, hi + 1), (0, n))
+        return plan.box((bi, bi + 1), (hi, hi + 1), (0, n if blk[1] == 0
+                                                       else 0))
 
     accesses = [plan.Access("q", "in", plan.shape_of(q), q.dtype, q_rows),
                 plan.Access("k", "in", plan.shape_of(k), q.dtype, kv_rows),
-                plan.Access("v", "in", plan.shape_of(v), q.dtype, kv_rows)]
+                plan.Access("v", "in", plan.shape_of(v), q.dtype, v_part)]
     if gated:
         accesses.append(plan.Access("log_decay", "in", (bsz, hkv, n), F32,
                                     ld_row))
-    accesses += [plan.Access("o", "out", plan.shape_of(q), q.dtype, q_rows),
+    accesses += [plan.Access("o", "out", plan.shape_of(q), q.dtype, o_part),
                  plan.Access("g", "out", (bsz, h, n), F32, g_row)]
-    return plan.make(entry, "la_fwd", (bsz * h,), d + 32, smem, accesses,
+    return plan.make(entry, "la_fwd", (bsz * h, split), threads, smem,
+                     accesses,
                      (bsz, h, hkv, n, d, stage_tokens, float(a), float(b),
                       code), argtypes,
                      (bsz, h, hkv, n, d, stage_tokens, code), stage=stage)

@@ -27,11 +27,13 @@ in v's dtype; the partials and dv in float32.  The wrappers take
 contiguous CUDA tensors only and raise on anything else; nothing falls
 back to the plain version.
 
-`ssd_fwd` has two bodies, chosen by `ssd_body(entry, dtype, dk, dv)`:
-"wgmma" (bf16 at (Dk, Dv) = (128, 64), mamba2-2.7b's training instance:
-a chunked scan on the tensor cores, fed by TMA, so q, k and v must be
+`ssd_fwd` and `ssd_bwd_kv` have two bodies each, chosen by
+`ssd_body(entry, dtype, dk, dv)`: "wgmma" (bf16 at (Dk, Dv) = (128, 64),
+mamba2-2.7b's training instance: a chunked scan on the tensor cores, the
+forward's in chunk order, `ssd_bwd_kv`'s in reverse with its non-input
+operands as hi + lo bf16 pairs; fed by TMA, so q, k, v and Ω must be
 16-byte aligned, which the wrappers check) and "walk" (f32, and bf16 at
-(16, 32): the token walk, as are both backward kernels).
+(16, 32): the token walk, as is `ssd_bwd_q` at every shape).
 
 Beside each wrapper, `plan_<entry>` gives the entry's launch plan
 (kernels/plan.py) from the same arguments' shapes.
@@ -45,8 +47,8 @@ import torch
 from repro_torch.core import ssd as _ssd
 from repro_torch.kernels import build, plan
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
-    SSD_CHUNK_RING, SSD_CHUNK_TOKENS, SSD_STAGE_TOKENS, \
-    SSD_WGMMA_STATE_DIMS
+    SSD_BWD_KV_QO_RING, SSD_BWD_KV_WGMMA_STATE_DIMS, SSD_CHUNK_RING, \
+    SSD_CHUNK_TOKENS, SSD_STAGE_TOKENS, SSD_WGMMA_STATE_DIMS
 
 F32 = torch.float32
 # (Dk, Dv) the kernels are instantiated for: mamba2-2.7b (state 128, head
@@ -59,12 +61,18 @@ STATE_DIMS = ((128, 64), (16, 32))
 launches = {"ssd_fwd": 0, "ssd_bwd_q": 0, "ssd_bwd_kv": 0}
 
 
+# (Dk, Dv) at which an entry runs its wgmma body in bf16
+_WGMMA_DIMS = {"ssd_fwd": SSD_WGMMA_STATE_DIMS,
+               "ssd_bwd_kv": SSD_BWD_KV_WGMMA_STATE_DIMS}
+
+
 def ssd_body(entry: str, dtype, dk: int, dv: int) -> str:
     """The body an SSD entry runs for this compute dtype and (Dk, Dv):
-    "wgmma" (`ssd_fwd` in bf16 at (Dk, Dv) in SSD_WGMMA_STATE_DIMS) or
+    "wgmma" (`ssd_fwd` in bf16 at (Dk, Dv) in SSD_WGMMA_STATE_DIMS,
+    `ssd_bwd_kv` in bf16 at (Dk, Dv) in SSD_BWD_KV_WGMMA_STATE_DIMS) or
     "walk"."""
-    return ("wgmma" if entry == "ssd_fwd" and dtype == torch.bfloat16
-            and (dk, dv) in SSD_WGMMA_STATE_DIMS else "walk")
+    return ("wgmma" if dtype == torch.bfloat16
+            and (dk, dv) in _WGMMA_DIMS.get(entry, ()) else "walk")
 
 
 def _stage(entry: str, dtype, dk: int, dv: int) -> int:
@@ -180,7 +188,7 @@ def ssd_bwd_kv_cuda(q, k, v, log_decay, omega):
         err = lib.ssd_bwd_kv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              log_decay.data_ptr(), omega.data_ptr(),
                              dk_p.data_ptr(), dv_o.data_ptr(), bsz, h, g, n,
-                             dk, dv, SSD_STAGE_TOKENS,
+                             dk, dv, _stage("ssd_bwd_kv", q.dtype, dk, dv),
                              build.DTYPE_CODE[q.dtype],
                              build.current_stream(q.device))
     build.raise_on(lib, "ssd", "ssd_bwd_kv", err)
@@ -212,12 +220,19 @@ _WGMMA_THREADS = 128
 _WGMMA_EXTRA = 2048
 
 
-def _wgmma_block(dk, dv):
-    """(threads, dynamic shared memory) of the wgmma body's block, as
-    csrc/ssd.cu's `sc::kSmem`: SSD_CHUNK_RING chunks of bf16 q, k (Dk
-    wide) and v (Dv wide), the bf16 (w v) tile of a chunk, the bf16 copy
-    of S^T (Dv x Dk), and the barriers and pad."""
+def _wgmma_block(entry, dk, dv):
+    """(threads, dynamic shared memory) of an entry's wgmma body block.
+    `ssd_fwd`, as csrc/ssd.cu's `sc::kSmem`: SSD_CHUNK_RING chunks of bf16
+    q, k (Dk wide) and v (Dv wide), the bf16 (w v) tile of a chunk, the
+    bf16 copy of S^T (Dv x Dk), and the barriers and pad.  `ssd_bwd_kv`,
+    as `sk::kSmem`: the hi and lo bf16 copies of U^T (Dv x Dk),
+    SSD_BWD_KV_QO_RING chunks of q and Ω, one of k and v, and the
+    barriers and pad."""
     c = SSD_CHUNK_TOKENS
+    if entry == "ssd_bwd_kv":
+        pair = 2 * (c * dk + c * dv)   # q and Ω, or k and v, of a chunk
+        return _WGMMA_THREADS, (2 * 2 * dv * dk + SSD_BWD_KV_QO_RING * pair
+                                + pair + _WGMMA_EXTRA)
     stage = 2 * (2 * c * dk + c * dv)
     return _WGMMA_THREADS, (SSD_CHUNK_RING * stage + 2 * c * dv
                             + 2 * dv * dk + _WGMMA_EXTRA)
@@ -243,8 +258,8 @@ def _block(entry, dk, dv):
 def _plan(entry, q, k, v, log_decay, omega):
     """One block per (batch, head), walking all N tokens of its head and of
     its group's q and k (the forward and dq forwards, dk and dv in
-    reverse; the wgmma body by chunks, TMA zero-filling the rows of the
-    last chunk past N, so it reads and writes nothing past N either)."""
+    reverse; the wgmma bodies by chunks, TMA zero-filling the rows of the
+    last chunk past N, so they read and write nothing past N either)."""
     bsz, g, h, n, dk, dv = _dims(k, v, log_decay)
     if (q is not None and q.shape != k.shape) \
             or (omega is not None and omega.shape != v.shape):
@@ -256,7 +271,7 @@ def _plan(entry, q, k, v, log_decay, omega):
     code = plan.dtype_code(k.dtype)
     arg = _stage(entry, k.dtype, dk, dv)
     if ssd_body(entry, k.dtype, dk, dv) == "wgmma":
-        (threads, smem), stage = _wgmma_block(dk, dv), arg
+        (threads, smem), stage = _wgmma_block(entry, dk, dv), arg
     else:
         threads, per_token = _block(entry, dk, dv)
         stage, smem = plan.fit(arg, per_token * 4)
