@@ -29,10 +29,12 @@ fails the run by raising (no result line is printed then):
                GQA and a zero normalizer, state in place); la_fwd,
                la_bwd_q and la_bwd_kv at the training shapes (B=2,
                H=Hkv=16, N=8192, D=128) in bf16 and f32, at odd N=1000
-               and with GQA G=4 (every bf16 case runs la_fwd's chunked
-               wgmma body, every f32 case its token walk, asserted from
-               its launcher's C plan export; a second launch of the bf16
-               main case must give bit-equal o and g);
+               and with GQA G=4, and in bf16 at N=8192 with q and k that
+               share a direction (every bf16 case runs the chunked wgmma
+               bodies of all three, every f32 case their token walks,
+               asserted from the launchers' C plan exports; a second
+               launch of each in the bf16 main case must give bit-equal
+               o, g, dq, dk and dv);
                softmax_decode_fused at the serving shapes (B=8, H=Hkv=16,
                S=544, D=128, per-slot lengths >= 1,
                one past the cache; zeros at length 0 checked apart), GQA
@@ -122,11 +124,13 @@ fails the run by raising (no result line is printed then):
                contiguous one on the same keys; flash_fwd, flash_bwd_q
                and flash_bwd_kv also with their achieved TFLOP/s beside
                their bounds' and the ptxas report of every flash
-               instantiation; la_fwd, ssd_fwd and ssd_bwd_kv with the body
-               that ran, its ptxas registers and spills, shared memory per
-               block, the blocks an SM holds and the bound of that body
-               beside the walk's; la_fwd also beside its token walk (f32
-               inputs) in turns; the fixture at n = 2^24 f32, block 256
+               instantiation; la_fwd, la_bwd_q, la_bwd_kv, ssd_fwd and
+               ssd_bwd_kv with the body that ran, its ptxas registers and
+               spills, shared memory per block, the blocks an SM holds and
+               the bound of that body beside the walk's; the three LA
+               kernels also with their tensor-core and byte times and
+               beside their token walks (f32 inputs) in turns; the
+               fixture at n = 2^24 f32, block 256
   7. result  — a JSON line with every measurement, the card's line, a
                `kernels` JSON line, then {"ok": true, "device": {...}}
                as the last line
@@ -216,6 +220,10 @@ GLA_PAGED_PAGES = 5
 # train path: pythia-1.4b at full width, the paper's §5.2 length
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8192, 4
 LA_SHAPE = dict(b=2, h=16, hkv=16, n=8192, d=128)
+# the shared-direction case of the LA kernels: q and k rows are their
+# noise (norm ~1) plus this times one common unit direction, then
+# l2-normalized (cosine ~0.99 between rows)
+LA_SHARED = 10.0
 # mamba2-2.7b's training shapes: q and k (Mamba-2's C and B) shared by
 # all 80 heads (G = 1), state 128, head dim 64
 SSD_SHAPE = dict(b=2, g=1, h=80, n=8192, dk=128, dv=64)
@@ -500,15 +508,24 @@ def phase_kernel(torch):
     return errs
 
 
-def _la_case(torch, gen, b, h, hkv, n, d, dtype):
+def _la_case(torch, gen, b, h, hkv, n, d, dtype, shared=0.0):
     """Unit q/k rows (as the model hands them over after l2
     normalization), normal v and upstream grad, and the plain forward's
-    o and g with the backward's Ω̂ and h prepared from them."""
+    o and g with the backward's Ω̂ and h prepared from them.  With
+    `shared` > 0 the rows are their noise (norm ~1) plus `shared` times
+    one common unit direction before the normalization, so q and k share
+    a direction as the keys of a trained model do: Σ k grows with t and
+    the terms of the backward's [Ω̂, -h] cancel."""
     from repro_torch.core import chunked
     from repro_torch.kernels import linear_attention as la
+    if shared:
+        u = torch.randn(d, generator=gen, device="cuda")
+        u = u / u.norm()
 
     def unit(*shape):
         x = torch.randn(shape, generator=gen, device="cuda")
+        if shared:
+            x = x / d ** 0.5 + shared * u
         return (x / x.norm(dim=-1, keepdim=True)).to(dtype)
 
     q, k = unit(b, h, n, d), unit(b, hkv, n, d)
@@ -521,39 +538,55 @@ def _la_case(torch, gen, b, h, hkv, n, d, dtype):
 
 def phase_kernel_la(torch):
     """la_fwd, la_bwd_q and la_bwd_kv against their plain versions.
-    Every bf16 case runs la_fwd's chunked wgmma body, every f32 case the
-    token walk (from the launcher's C plan export); the bf16 main case
-    launches la_fwd twice for bit-equal o and g."""
+    Every bf16 case (GQA included) runs the chunked wgmma bodies of all
+    three, every f32 case the token walks (from the launchers' C plan
+    exports); the bf16 main case launches each kernel twice for bit-equal
+    o, g, dq, dk and dv; one bf16 case at N = 8192 has q and k that share
+    a direction."""
     from repro_torch.kernels import linear_attention as la
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     m = LA_SHAPE
-    cases = [("main_bf16", m["b"], m["h"], m["hkv"], m["n"], torch.bfloat16),
-             ("main_f32", m["b"], m["h"], m["hkv"], m["n"], torch.float32),
-             ("odd_n_bf16", m["b"], m["h"], m["hkv"], 1000, torch.bfloat16),
-             ("gqa_f32", m["b"], m["h"], 4, 1000, torch.float32),
-             ("gqa_bf16", m["b"], m["h"], 4, 1000, torch.bfloat16)]
+    cases = [("main_bf16", m["b"], m["h"], m["hkv"], m["n"], torch.bfloat16,
+              0.0),
+             ("main_f32", m["b"], m["h"], m["hkv"], m["n"], torch.float32,
+              0.0),
+             ("odd_n_bf16", m["b"], m["h"], m["hkv"], 1000, torch.bfloat16,
+              0.0),
+             ("gqa_f32", m["b"], m["h"], 4, 1000, torch.float32, 0.0),
+             ("gqa_bf16", m["b"], m["h"], 4, 1000, torch.bfloat16, 0.0),
+             ("shared_bf16", m["b"], m["h"], m["hkv"], m["n"],
+              torch.bfloat16, LA_SHARED)]
     errs = {}
-    for label, b, h, hkv, n, dtype in cases:
+    for label, b, h, hkv, n, dtype, shared in cases:
         q, k, v, om_hat, h_vec = _la_case(torch, gen, b, h, hkv, n,
-                                          m["d"], dtype)
+                                          m["d"], dtype, shared)
         log(f"[kernel] {label}: B={b} H={h} Hkv={hkv} N={n} D={m['d']} "
-            f"{dtype}")
+            f"{dtype} shared={shared}")
         rel = BF16_REL if dtype == torch.bfloat16 else SEQ_F32_REL
-        body, _, _ = _la_fwd_body(q, k, v)
-        if body != ("wgmma" if dtype == torch.bfloat16 else "walk"):
-            raise AssertionError(f"{label}: la_fwd runs the {body} body")
+        expect = "wgmma" if dtype == torch.bfloat16 else "walk"
+        bodies = {"la_fwd": _la_fwd_body(q, k, v)[0],
+                  **{e: _la_bwd_body(e, q, k, v, om_hat, h_vec)[0]
+                     for e in ("la_bwd_q", "la_bwd_kv")}}
+        if set(bodies.values()) != {expect}:
+            raise AssertionError(f"{label}: bodies {bodies}, not {expect}")
+        log(f"  {label} bodies (C plan exports): {bodies}")
         o_k, g_k = la.la_fwd_cuda(q, k, v, 1.0, 1.0)
-        if label == "main_bf16":
-            o_again, g_again = la.la_fwd_cuda(q, k, v, 1.0, 1.0)
-            torch.cuda.synchronize()
-            if not (torch.equal(o_k, o_again) and torch.equal(g_k, g_again)):
-                raise AssertionError("main_bf16: two launches of la_fwd "
-                                     "differ")
-            log(f"  {label} o, g: two launches bit-equal ({body} body)")
-            del o_again, g_again
         dq_k = la.la_bwd_q_cuda(k, v, om_hat, h_vec, 1.0)
         dk_k, dv_k = la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec, 1.0, 1.0)
+        if label == "main_bf16":
+            again = (*la.la_fwd_cuda(q, k, v, 1.0, 1.0),
+                     la.la_bwd_q_cuda(k, v, om_hat, h_vec, 1.0),
+                     *la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec, 1.0, 1.0))
+            torch.cuda.synchronize()
+            for name, x, y in zip(("o", "g", "dq", "dk", "dv"),
+                                  (o_k, g_k, dq_k, dk_k, dv_k), again):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"main_bf16: two launches give "
+                                         f"different {name}")
+            log(f"  {label} o, g, dq, dk, dv: two launches bit-equal "
+                f"({bodies})")
+            del again
         torch.cuda.synchronize()
         o_t, g_t = la.la_fwd_torch(q, k, v, 1.0, 1.0)
         dq_t = la.la_bwd_q_torch(k, v, om_hat, h_vec, 1.0)
@@ -976,6 +1009,16 @@ def _la_fwd_body(q, k, v):
     from repro_torch.kernels import linear_attention as la
     return _c_body(la.la_fwd_body(q.dtype, q.shape[-1]),
                    la.plan_la_fwd(q, k, v, 1.0, 1.0))
+
+
+def _la_bwd_body(entry, q, k, v, om_hat, h_vec):
+    """The body la_bwd_q or la_bwd_kv runs for these operands, held to
+    its launcher's C export: "wgmma" or "walk"."""
+    from repro_torch.kernels import linear_attention as la
+    launch = (la.plan_la_bwd_q(k, v, om_hat, h_vec, 1.0)
+              if entry == "la_bwd_q"
+              else la.plan_la_bwd_kv(q, k, v, om_hat, h_vec, 1.0, 1.0))
+    return _c_body(la.la_bwd_body(entry, q.dtype, q.shape[-1]), launch)
 
 
 def phase_kernel_ssd(torch):
@@ -2036,14 +2079,24 @@ def phase_timing_la(torch, ptxas):
     """la_fwd, la_bwd_q and la_bwd_kv and their plain versions at the
     train path's shapes (bf16, as the model hands them over).  Each
     input is larger than the 50 MB L2, so every call reads it from
-    device memory.  la_fwd in bf16 runs the chunked wgmma body: per
-    chunk of c tokens, (batch, query head) and half of the value columns
-    its four products, q k^T (2 c^2 D), q S (2 c D D/2), A v (2 c^2 D/2)
-    and the state update (2 c D/2 D) on the bf16 tensor cores; its
-    record names the body, its ptxas registers and spills, shared memory
-    per block and the blocks an SM holds, keeps the walk's bound beside,
-    and times the token walk (which f32 inputs still run) in turns with
-    it."""
+    device memory.  In bf16 all three run their chunked wgmma bodies, on
+    the bf16 tensor cores, per chunk of c tokens:
+      * la_fwd, per (batch, query head) and half of the value columns:
+        q k^T (2 c^2 D), q S (2 c D D/2), A v (2 c^2 D/2) and the state
+        update (2 c D/2 D);
+      * la_bwd_q, per (batch, query head) and half of dq's columns: P =
+        Ω̂ v^T twice (2 c^2 D; Ω̂ hi + lo), R = Ω̂ A^T three times (2 c
+        D/2 D; both hi + lo), P k twice (2 c^2 D/2) and the update (2 c
+        D/2 D);
+      * la_bwd_kv, per (batch, KV head): for each half of dk, U's readout
+        twice (2 c D/2 D) and per query head T = v Ω̂^T twice (2 c^2 D),
+        T q twice (2 c^2 D/2), the update twice (2 c D/2 D); for each half
+        of dv, the readout twice and per query head S = k q^T (2 c^2 D), A
+        Ω̂ three times (2 c^2 D/2) and the update twice.
+    Each record names the body, its ptxas registers and spills, shared
+    memory per block and the blocks an SM holds, keeps the walk's bound
+    and the tensor-core and byte times beside, and times the token walk
+    (which f32 inputs still run) in turns with it."""
     from repro_torch.kernels import linear_attention as la
     from repro_torch.kernels.defaults import LA_CHUNK_TOKENS, LA_WGMMA_SPLIT
     m = LA_SHAPE
@@ -2079,38 +2132,57 @@ def phase_timing_la(torch, ptxas):
                       lambda: la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec,
                                                 1.0, 1.0)),
     }
-    c_body = _la_fwd_body(q, k, v)
-    walk_bound = _bound(*work["la_fwd"])
-    if c_body[0] == "wgmma":
-        c, part = LA_CHUNK_TOKENS, d // LA_WGMMA_SPLIT
-        tc_flops = tok_q // c * LA_WGMMA_SPLIT * (
-            2 * c * c * d + 2 * c * d * part + 2 * c * c * part
-            + 2 * c * part * d)
-        work["la_fwd"] = (work["la_fwd"][0], tc_flops, BF16_TC_FLOP_PER_S)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    walks = {
+        "la_fwd": lambda: la.la_fwd_cuda(qf, kf, vf, 1.0, 1.0),
+        "la_bwd_q": lambda: la.la_bwd_q_cuda(kf, vf, om_hat, h_vec, 1.0),
+        "la_bwd_kv": lambda: la.la_bwd_kv_cuda(qf, kf, vf, om_hat, h_vec,
+                                               1.0, 1.0)}
+    c, half, group = LA_CHUNK_TOKENS, d // 2, h // hkv
+    tc_flops = {
+        "la_fwd": tok_q // c * LA_WGMMA_SPLIT * (
+            2 * c * c * d + 2 * c * d * half + 2 * c * c * half
+            + 2 * c * half * d),
+        "la_bwd_q": tok_q // c * 2 * (
+            2 * 2 * c * c * d + 3 * 2 * c * half * d + 2 * 2 * c * c * half
+            + 2 * c * half * d),
+        "la_bwd_kv": tok_kv // c * 2 * (
+            2 * 2 * 2 * c * half * d
+            + group * (2 * 2 * c * c * d + 2 * 2 * c * c * half
+                       + 2 * 2 * c * half * d)
+            + group * (2 * c * c * d + 3 * 2 * c * c * half
+                       + 2 * 2 * c * half * d))}
+    c_bodies = {"la_fwd": _la_fwd_body(q, k, v),
+                **{e: _la_bwd_body(e, q, k, v, om_hat, h_vec)
+                   for e in ("la_bwd_q", "la_bwd_kv")}}
+    wgmma_fn = {"la_fwd": ("la_fwd", "lc::la_fwd_wgmma_kernel"),
+                "la_bwd_q": ("la_bwd", "bq::la_bwd_q_wgmma_kernel"),
+                "la_bwd_kv": ("la_bwd", "bkv::la_bwd_kv_wgmma_kernel")}
+    walk_bounds = {name: _bound(*work[name]) for name in calls}
+    for name, (body, _, _) in c_bodies.items():
+        if body == "wgmma":
+            work[name] = (work[name][0], tc_flops[name], BF16_TC_FLOP_PER_S)
     out = {}
     for name, (plain, kernel) in calls.items():
         kern, pl = _time_pair(torch, plain, kernel, reps=5)
         rec = {"ms": min(kern), "ms_runs": kern, "plain_ms": min(pl),
                "plain_ms_runs": pl, **_bound(*work[name])}
-        if name == "la_fwd":
-            rec.update(_body_record(c_body, walk_bound,
-                                    ptxas.get("la_fwd", []),
-                                    "lc::la_fwd_wgmma_kernel"))
-            qf, kf, vf = q.float(), k.float(), v.float()
-            walk, kern2 = _time_pair(
-                torch, kernel, lambda: la.la_fwd_cuda(qf, kf, vf, 1.0, 1.0),
-                reps=5)
-            rec.update(walk_ms=min(walk), walk_ms_runs=walk,
-                       ms_runs_beside_walk=kern2)
-            del qf, kf, vf
+        lib, fn = wgmma_fn[name]
+        rec.update(_body_record(c_bodies[name], walk_bounds[name],
+                                ptxas.get(lib, []), fn))
+        rec.update(byte_ms=rec["bytes"] / HBM_BYTES_PER_S * 1e3,
+                   tensor_core_ms=tc_flops[name] / BF16_TC_FLOP_PER_S * 1e3)
+        walk, kern2 = _time_pair(torch, kernel, walks[name], reps=5)
+        rec.update(walk_ms=min(walk), walk_ms_runs=walk,
+                   ms_runs_beside_walk=kern2)
         log(f"[timing] {name} B={b} H={h} Hkv={hkv} N={n} D={d} {dtype}: "
             f"kernel {kern} ms, plain {pl} ms, bound {rec['bound_ms']!r} ms "
             f"({rec['bound_by']}: {rec['bytes']} B, {rec['flops']} flop); "
             f"library_ms null: no single PyTorch call computes normalized "
             f"causal linear attention or its gradient (SDPA is softmax)")
-        if name == "la_fwd":
-            log(f"[timing] la_fwd body: {rec}")
+        log(f"[timing] {name} body: {rec}")
         out[name] = rec
+    del qf, kf, vf
     return out
 
 

@@ -46,15 +46,73 @@
 // Dk = Dv = D, a template parameter (32, 64 or 128) so that a state row or
 // column lives in registers.
 //
-// What bounds them (estimates from the shapes, not measurements; B=2,
-// H=Hkv=16, N=8192, D=128): la_bwd_q does 4 D (D+1) flops per token and
-// head, 17.3 GFLOP, 0.26 ms at 67 TFLOP/s f32, against 0.10 ms for its
-// 336.6 MB; la_bwd_kv needs ~6 D^2 per token and head, ~26 GFLOP,
-// 0.39 ms, against 0.14 ms for its 470.8 MB.  The gated kernels add one
-// multiply per state element and token.  All are bound by f32 operations
-// on the CUDA cores.
+// Two bodies of each linear entry, chosen by the launcher from the dtype
+// and D: the chunked wgmma bodies (namespaces bq and bkv) for bf16 at
+// D = 128, the paper's training instance; the token walk for f32, for
+// D < 128, and for every gla_bwd_q / gla_bwd_kv call (the walk's kGated
+// instantiation).
 //
-// Design (simple first; as in la_fwd.cu):
+// What bounds them (estimates from the shapes, not measurements; B=2,
+// H=Hkv=16, N=8192, D=128): the token walk of la_bwd_q does 4 D (D+1)
+// flops per token and head, 17.3 GFLOP, 0.26 ms at 67 TFLOP/s f32,
+// against 0.10 ms for its 336.6 MB; la_bwd_kv ~6 D^2 per token and head,
+// ~26 GFLOP, 0.39 ms, against 0.14 ms for its 470.8 MB.  The gated
+// kernels add one multiply per state element and token.  The walks are
+// bound by f32 operations on the CUDA cores.  The chunked bodies do their
+// products on the bf16 tensor cores, each product with a hi + lo operand
+// two or three times: la_bwd_q 60.1 GFLOP (0.061 ms at 989 TFLOP/s),
+// la_bwd_kv 116.0 GFLOP (0.117 ms); both are bound by their bytes.
+//
+// Design of the chunked la_bwd_q body (namespace bq; the reference's
+// chunk form, src/repro/kernels/linear_attention.py:142-167, with
+// la_fwd.cu's lc as the model):
+//   * two blocks per (batch, query head), one per half of dq's Dk = 128
+//     columns, so each block's share of the state, A_v = Σ k^T v (its 64
+//     rows of Dk x Dv), is one m64n128 f32 accumulator (64 registers a
+//     thread); 64 blocks at B=2, H=16, one to an SM;
+//   * thread 0 loads each chunk's k (the block's half), v and the f32 Ω̂
+//     (TMA boxes of 32 f32 columns, map_rows_f32) into a 2-stage ring;
+//     rows past N arrive as zeros; h goes by plain loads a chunk ahead;
+//   * per chunk of 64 tokens: Ω̂ is split into hi + lo bf16 tiles; P =
+//     Ω̂ v^T and R = Ω̂ A_v^T (SS); P - h on j <= i in f32, split in
+//     registers; dq = b (R + P k - h z^T) (RS), z = Σ k an f32 sum on the
+//     CUDA cores, double-buffered in shared memory as lc keeps its sums;
+//     A_v += k^T v (SS, both MN-major); then A_v's hi + lo copies;
+//   * dq is stored from registers; each element is written once.
+//
+// Design of the chunked la_bwd_kv body (namespace bkv; the reference's
+// chunk form, linear_attention.py:170-205, with ssd.cu's sk as the model):
+//   * four blocks per (batch, KV head): blocks y = 0, 1 write dk's column
+//     half y, blocks y = 2, 3 dv's half y - 2.  Each keeps a 64 x 128
+//     slice of U_qΩ = Σ q^T Ω̂ as one m64n128 f32 accumulator in the
+//     orientation its readout needs (dk: rows of U_qΩ, dv: rows of
+//     U_qΩ^T), as the walk's row and column roles do; 128 blocks at B=2,
+//     Hkv=16, one wave on 132 SMs;
+//   * the reverse walk goes over (chunk, query head of the group) steps
+//     from the last chunk, loaded by TMA into a 2-stage ring: dk blocks
+//     v, their half of q and the f32 Ω̂; dv blocks k, q and their half of
+//     Ω̂.  U's readout runs at a chunk's first step, from the hi + lo
+//     copies of the state before the chunk; each step adds its query
+//     head's share; dk or dv is stored at the chunk's last step;
+//   * dk = b (v U_qΩ^T - u_h + T q) with T = v Ω̂^T - 1 h^T on i >= p;
+//     dv = b k U_qΩ + a u_Ω + A Ω̂ with A = a + b k q^T on i >= p.  u_h =
+//     Σ q h and u_Ω = Σ Ω̂ are f32 sums on the CUDA cores;
+//   * dk and dv are stored from registers; each element is written once:
+//     the result is bit-deterministic.
+//
+// Precision of the chunked bodies (held to one bf16 step, 2^-7 of the
+// largest |value|).  Where l2-normalized q and k share a direction, the
+// terms of [Ω̂, -h] A (dq) and of U [v, -1] (dk) grow with t and cancel,
+// so an operand rounded once to bf16 (2^-9) errs several times the
+// limit: tests/test_torch_la_bwd_sm90.py's emulation with the lo halves
+// dropped misses it by 3-7x on dq.  So every operand that is not a bf16
+// input goes as a hi + lo pair (sm90.cuh): Ω̂ (split from its f32 tile),
+// the copies of A_v and of U, and the score tiles P, T and A (split in
+// registers after the -h or the mask, in f32); products of a pair with a
+// pair run three times (hi hi, lo hi, hi lo).  h, z, u_h and u_Ω never
+// go through an operand.
+//
+// Design of the token walk (simple first; as in la_fwd.cu):
 //   * every state is tiled over threads in 4 x D/4 register tiles, so each
 //     float a thread reads from shared memory feeds 4 FMAs, and the 4
 //     partial dots of a tile row are summed across 4 adjacent lanes with
@@ -92,6 +150,569 @@
 #include <type_traits>
 
 #include "plan.cuh"
+#include "sm90.cuh"
+
+// ---------------------------------------------------------------------------
+// the chunked wgmma bodies (bf16, D = 128)
+// ---------------------------------------------------------------------------
+
+namespace lbw {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kD = 128;
+constexpr int kHalf = kD / 2;       // the columns a block writes
+constexpr int kChunk = 64;          // tokens of a chunk: the M of wgmma
+constexpr int kStages = 2;          // steps in the TMA ring
+constexpr int kThreads = 128;       // one warpgroup
+constexpr size_t kBox = static_cast<size_t>(kChunk) * 128;  // one TMA box
+constexpr size_t kTile = 2 * kBox;  // a 64 x 128 bf16 tile
+// beside the tiles and the sums: the barriers, and up to 1024 bytes of
+// padding to the tiles' 1024-byte alignment
+constexpr size_t kExtra = 2048;
+
+// element (t, col) of a 64-row f32 tile loaded by map_rows_f32 (boxes of
+// 32 columns, 128-byte swizzled)
+__device__ __forceinline__ float f32_at(const unsigned char* tile, int t,
+                                        int col) {
+  return *reinterpret_cast<const float*>(
+      tile + (col / 32) * kBox + t * 128 +
+      ((((col % 32) / 4) ^ (t % 8)) * 16) + (col % 4) * 4);
+}
+
+// element (t, col) of a 64-row bf16 tile (boxes of 64 columns, 128-byte
+// swizzled), as f32
+__device__ __forceinline__ float bf16_at(const unsigned char* tile, int t,
+                                         int col) {
+  return __bfloat162float(*reinterpret_cast<const bf16*>(
+      tile + (col / 64) * kBox + t * 128 +
+      ((((col % 64) / 8) ^ (t % 8)) * 16) + (col % 8) * 2));
+}
+
+// rows row0 and row0 + 8 of a warpgroup's m64n64 f32 accumulator d (the
+// half of D a block writes) as bf16 into rows t0 + row0 (+ 8) < n of
+// `out` (rows of kD values, starting at the half's first column), each
+// value f(i, column) of accumulator element i
+template <typename F>
+__device__ __forceinline__ void store_rows(bf16* out, int t0, int row0,
+                                           int n, F&& f) {
+  const int tq = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = t0 + row0 + 8 * r;
+    if (row >= n) continue;
+    bf16* dst = out + static_cast<size_t>(row) * kD + 2 * tq;
+#pragma unroll
+    for (int a = 0; a < kHalf / 8; ++a) {
+      const int i = 4 * a + 2 * r, col = 8 * a + 2 * tq;
+      *reinterpret_cast<uint32_t*>(dst + 8 * a) =
+          sm90::pack_bf16(f(i, col), f(i + 1, col + 1));
+    }
+  }
+}
+
+}  // namespace lbw
+
+namespace bq {
+
+using namespace lbw;
+
+constexpr int kSplit = 2;  // blocks per head, by dq's columns
+// a stage: k (the block's half, one box), v (two), the f32 Ω̂ (four)
+constexpr size_t kK = 0;
+constexpr size_t kV = kK + kBox;
+constexpr size_t kOm = kV + 2 * kBox;
+constexpr size_t kStageBytes = kOm + 4 * kBox;
+// after the ring: Ω̂'s hi and lo tiles, A_v's hi and lo copies, z twice
+// and h of the chunk (f32)
+constexpr size_t kOmHi = kStages * kStageBytes;
+constexpr size_t kOmLo = kOmHi + kTile;
+constexpr size_t kAHi = kOmLo + kTile;
+constexpr size_t kALo = kAHi + kTile;
+constexpr size_t kZ = kALo + kTile;
+constexpr size_t kH = kZ + 2 * kHalf * 4;
+constexpr size_t kBars = kH + kChunk * 4;
+// 183,040 B: one block an SM
+constexpr size_t kSmem = kBars + kExtra;
+
+// One block per (batch, query head, half of Dk) walks its head's chunks in
+// order.  Per chunk of c = 64 tokens, with A_v (this half's 64 rows of
+// Σ k^T v, held as the f32 accumulator av) and z (its Σ k) over the
+// earlier chunks:
+//   P  = Ω̂ v^T, R = Ω̂ A_v^T                  (wgmma, SS; Ω̂ and A_v hi + lo)
+//   P  = P - h on j <= i, else 0              (f32, then hi + lo registers)
+//   dq = b (R + P k - h z^T)                  (wgmma, RS; k MN-major)
+//   A_v += k^T v                              (wgmma, SS; both MN-major)
+//   z  += Σ k                                 (f32, CUDA cores)
+__global__ void __launch_bounds__(kThreads, 1)
+    la_bwd_q_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap om_map,
+                          const float* __restrict__ hv, bf16* __restrict__ dq,
+                          int heads, int kv_heads, int n, float b) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = sm90::aligned_smem(smem_raw);
+  float* z_sh = reinterpret_cast<float*>(smem + kZ);  // [2][kHalf]
+  float* h_sh = reinterpret_cast<float*>(smem + kH);  // [kChunk]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBars);
+
+  const int bh = blockIdx.x;  // batch * heads + query head
+  const int half = blockIdx.y;
+  const int bi = bh / heads;
+  const int kv_slice = bi * kv_heads + (bh - bi * heads) / (heads / kv_heads);
+  const int chunks = (n + kChunk - 1) / kChunk;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int tq = lane % 4;
+  const int row0 = 16 * warp + lane / 4;  // this thread's rows: +0, +8
+  const float* h_row = hv + static_cast<size_t>(bh) * n;
+
+  auto stage_of = [&](int c) { return smem + (c % kStages) * kStageBytes; };
+  // k's half, v and Ω̂ of chunk c into its stage; rows past n arrive as
+  // zeros
+  auto load_chunk = [&](int c) {
+    unsigned char* st = stage_of(c);
+    uint64_t* bar = &full[c % kStages];
+    sm90::bar_expect(bar, kStageBytes);
+    sm90::tma_load_3d(st + kK, &k_map, bar, kHalf * half, c * kChunk,
+                      kv_slice);
+#pragma unroll
+    for (int bx = 0; bx < 2; ++bx)
+      sm90::tma_load_3d(st + kV + bx * kBox, &v_map, bar, 64 * bx,
+                        c * kChunk, kv_slice);
+#pragma unroll
+    for (int bx = 0; bx < 4; ++bx)
+      sm90::tma_load_3d(st + kOm + bx * kBox, &om_map, bar, 32 * bx,
+                        c * kChunk, bh);
+  };
+  // h of chunk c's token tid (0 past n and for tid >= kChunk)
+  auto load_h = [&](int c) {
+    const int t = c * kChunk + tid;
+    return tid < kChunk && t < n ? h_row[t] : 0.f;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) sm90::bar_init(&full[s], 1);
+    sm90::bar_init_fence();
+  }
+  // A_v = 0 before the first chunk (both copies), z = 0
+  for (int i = tid; i < static_cast<int>(2 * kTile / 16); i += kThreads)
+    reinterpret_cast<uint4*>(smem + kAHi)[i] = make_uint4(0, 0, 0, 0);
+  if (tid < kHalf) z_sh[tid] = 0.f;
+  sm90::fence_async_smem();
+  __syncthreads();
+  if (tid == 0) load_chunk(0);
+
+  float av[64];  // A_v: rows (Dk) row0 (+ 8), columns (Dv) 8 a + 2 tq (+ 1)
+#pragma unroll
+  for (int i = 0; i < 64; ++i) av[i] = 0.f;
+  float h_next = load_h(0);
+  bf16* dq_head = dq + static_cast<size_t>(bh) * n * kD + kHalf * half;
+
+  for (int c = 0; c < chunks; ++c) {
+    const int t0 = c * kChunk;
+    // every thread is done with chunk c - 1: its stage, Ω̂'s tiles and h
+    // are free, A_v's copies and z are whole
+    __syncthreads();
+    if (tid == 0 && c + 1 < chunks) load_chunk(c + 1);
+    if (tid < kChunk) h_sh[tid] = h_next;
+    h_next = c + 1 < chunks ? load_h(c + 1) : 0.f;
+    __syncwarp();
+    sm90::bar_wait(&full[c % kStages], (c / kStages) & 1);
+    const unsigned char* st = stage_of(c);
+    sm90::split_tile_f32<kD, kThreads>(st + kOm, 0, smem + kOmHi,
+                                       smem + kOmLo);
+    sm90::fence_async_smem();
+    __syncthreads();  // Ω̂'s tiles and h are whole
+    const bf16* k_t = reinterpret_cast<const bf16*>(st + kK);
+    const bf16* v_t = reinterpret_cast<const bf16*>(st + kV);
+    const bf16* oh_t = reinterpret_cast<const bf16*>(smem + kOmHi);
+    const bf16* ol_t = reinterpret_cast<const bf16*>(smem + kOmLo);
+    const bf16* ah_t = reinterpret_cast<const bf16*>(smem + kAHi);
+    const bf16* al_t = reinterpret_cast<const bf16*>(smem + kALo);
+
+    float p[32], acc[32];
+    sm90::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      sm90::mma_ss_n64(p, sm90::desc_k<kChunk>(oh_t, kk),
+                       sm90::desc_k<kChunk>(v_t, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      sm90::mma_ss_n64(p, sm90::desc_k<kChunk>(ol_t, kk),
+                       sm90::desc_k<kChunk>(v_t, kk), 1);
+    sm90::mma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      sm90::mma_ss_n64(acc, sm90::desc_k<kChunk>(oh_t, kk),
+                       sm90::desc_k<kHalf>(ah_t, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      sm90::mma_ss_n64(acc, sm90::desc_k<kChunk>(ol_t, kk),
+                       sm90::desc_k<kHalf>(ah_t, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      sm90::mma_ss_n64(acc, sm90::desc_k<kChunk>(oh_t, kk),
+                       sm90::desc_k<kHalf>(al_t, kk), 1);
+    sm90::mma_commit();
+
+    // behind the products, in f32 on the CUDA cores: the next chunk's z
+    // (each of the first kHalf threads one column of k's half)
+    const float* z_cur = z_sh + (c % 2) * kHalf;
+    if (tid < kHalf) {
+      float sum = 0.f;
+#pragma unroll 8
+      for (int t = 0; t < kChunk; ++t) sum += bf16_at(st + kK, t, tid);
+      z_sh[((c + 1) % 2) * kHalf + tid] = z_cur[tid] + sum;
+    }
+    const float h_r[2] = {h_sh[row0], h_sh[row0 + 8]};
+    __syncwarp();
+    sm90::mma_wait<1>();  // P
+    sm90::pin(p);
+    // P - h on j <= i, else 0: h enters in f32, before any rounding
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const int j = 8 * (i / 4) + 2 * tq + (i & 1);
+      p[i] = j <= row0 + 8 * r ? p[i] - h_r[r] : 0.f;
+    }
+    uint32_t ph[kChunk / 16][4], pl[kChunk / 16][4];
+    sm90::to_a_split<kChunk / 16>(ph, pl, p);
+    sm90::mma_wait<0>();  // R
+    sm90::pin(acc);
+    // no product reads A_v's copies any more: they are rewritten below
+    __syncthreads();
+    sm90::pin(acc);
+    sm90::pin(av);
+    sm90::pin(ph);
+    sm90::pin(pl);
+    sm90::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      sm90::mma_rs_n64(acc, ph[kk], sm90::desc_mn<kChunk>(k_t, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      sm90::mma_rs_n64(acc, pl[kk], sm90::desc_mn<kChunk>(k_t, kk), 1);
+    sm90::mma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      sm90::mma_ss_n128<1, 1>(av, sm90::desc_mn<kChunk>(k_t, kk),
+                              sm90::desc_mn<kChunk>(v_t, kk), 1);
+    sm90::mma_commit();
+
+    sm90::mma_wait<1>();  // dq, while the state update runs
+    sm90::pin(acc);
+    sm90::pin(ph);
+    sm90::pin(pl);
+    store_rows(dq_head, t0, row0, n, [&](int i, int col) {
+      return b * (acc[i] - h_r[(i >> 1) & 1] * z_cur[col]);
+    });
+    __syncwarp();
+    sm90::mma_wait<0>();
+    sm90::pin(av);
+    // the copies of the new A_v, the B of the next chunk's R
+    sm90::store_tile_split<kD / 8>(smem + kAHi, smem + kALo, av);
+    sm90::fence_async_smem();
+  }
+}
+
+}  // namespace bq
+
+namespace bkv {
+
+using namespace lbw;
+
+constexpr int kSplit = 4;  // blocks per KV head: dk's halves, dv's halves
+// a stage: v (dk blocks) or k (dv blocks), two boxes; q's half (dk, one
+// box) or q (dv, two); the f32 Ω̂ (dk: four boxes) or its half (dv: two)
+constexpr size_t kKV = 0;
+constexpr size_t kQ = kKV + 2 * kBox;
+constexpr size_t kOm = kQ + 2 * kBox;
+constexpr size_t kStageBytes = kOm + 4 * kBox;
+// after the ring: Ω̂'s hi and lo tiles (the dv blocks use their first
+// box), U's hi and lo copies, the f32 sums (u_h or u_Ω) twice and h
+constexpr size_t kOmHi = kStages * kStageBytes;
+constexpr size_t kOmLo = kOmHi + kTile;
+constexpr size_t kUHi = kOmLo + kTile;
+constexpr size_t kULo = kUHi + kTile;
+constexpr size_t kSums = kULo + kTile;
+constexpr size_t kH = kSums + 2 * kHalf * 4;
+constexpr size_t kBars = kH + kChunk * 4;
+// 199,424 B: one block an SM
+constexpr size_t kSmem = kBars + kExtra;
+
+// The reverse walk of one block: kDk, dk's column half `part` (its U
+// slice U_qΩ[64 part.., :], out = dk); else dv's half (U_qΩ^T[64 part..,
+// :], out = dv).  Steps s = j G + gi walk chunk chunks - 1 - j with the
+// group's query head gi.  Per step, with U (the f32 accumulator ut), u_h
+// or u_Ω over the later chunks:
+//   dk: first step of a chunk  acc = v U_qΩ^T        (SS; U's copies)
+//       T = v Ω̂^T - 1 h^T on i >= p, else 0           (SS, then f32)
+//       acc += T q,  U_qΩ += q^T Ω̂,  u_h += q^T h     (RS; SS; f32)
+//       last step: dk = b (acc - u_h)
+//   dv: first step of a chunk  acc = b k U_qΩ         (SS; U's copies)
+//       A = a + b k q^T on i >= p, else 0             (SS, then f32)
+//       acc += A Ω̂,  U_qΩ^T += Ω̂^T q,  u_Ω += Σ Ω̂     (RS; SS; f32)
+//       last step: dv = acc + a u_Ω
+template <bool kDk>
+__device__ __forceinline__ void walk(unsigned char* smem,
+                                     const CUtensorMap* q_map,
+                                     const CUtensorMap* kv_map,
+                                     const CUtensorMap* om_map,
+                                     const float* __restrict__ hv,
+                                     bf16* __restrict__ out, int part,
+                                     int heads, int kv_heads, int n, float a,
+                                     float b) {
+  float* sums = reinterpret_cast<float*>(smem + kSums);  // [2][kHalf]
+  float* h_sh = reinterpret_cast<float*>(smem + kH);     // [kChunk]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBars);
+
+  const int bk = blockIdx.x;  // batch * kv_heads + KV head
+  const int group = heads / kv_heads;
+  const int bi = bk / kv_heads;
+  // query head hk * G + gi reads this KV head
+  const int q0 = bi * heads + (bk - bi * kv_heads) * group;
+  const int chunks = (n + kChunk - 1) / kChunk;
+  const int steps = chunks * group;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int tq = lane % 4;
+  const int row0 = 16 * warp + lane / 4;  // this thread's rows: +0, +8
+
+  auto stage_of = [&](int s) { return smem + (s % kStages) * kStageBytes; };
+  // the tiles of step s into its stage; rows past n arrive as zeros
+  auto load_step = [&](int s) {
+    const int c = chunks - 1 - s / group, slice = q0 + s % group;
+    unsigned char* st = stage_of(s);
+    uint64_t* bar = &full[s % kStages];
+    sm90::bar_expect(bar, (kDk ? 7 : 6) * kBox);
+#pragma unroll
+    for (int bx = 0; bx < 2; ++bx)
+      sm90::tma_load_3d(st + kKV + bx * kBox, kv_map, bar, 64 * bx,
+                        c * kChunk, bk);
+    if (kDk) {
+      sm90::tma_load_3d(st + kQ, q_map, bar, kHalf * part, c * kChunk,
+                        slice);
+#pragma unroll
+      for (int bx = 0; bx < 4; ++bx)
+        sm90::tma_load_3d(st + kOm + bx * kBox, om_map, bar, 32 * bx,
+                          c * kChunk, slice);
+    } else {
+#pragma unroll
+      for (int bx = 0; bx < 2; ++bx) {
+        sm90::tma_load_3d(st + kQ + bx * kBox, q_map, bar, 64 * bx,
+                          c * kChunk, slice);
+        sm90::tma_load_3d(st + kOm + bx * kBox, om_map, bar,
+                          kHalf * part + 32 * bx, c * kChunk, slice);
+      }
+    }
+  };
+  // dk: h of step s's token tid (0 past n and for tid >= kChunk)
+  auto load_h = [&](int s) {
+    const int t = (chunks - 1 - s / group) * kChunk + tid;
+    return kDk && tid < kChunk && t < n
+               ? hv[static_cast<size_t>(q0 + s % group) * n + t]
+               : 0.f;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) sm90::bar_init(&full[s], 1);
+    sm90::bar_init_fence();
+  }
+  // U = 0 past the last chunk (both copies), and its sums
+  for (int i = tid; i < static_cast<int>(2 * kTile / 16); i += kThreads)
+    reinterpret_cast<uint4*>(smem + kUHi)[i] = make_uint4(0, 0, 0, 0);
+  if (tid < kHalf) sums[tid] = 0.f;
+  sm90::fence_async_smem();
+  __syncthreads();
+  if (tid == 0) load_step(0);
+
+  float ut[64];  // dk: U_qΩ rows (Dk) row0 (+ 8), columns (Dv) 8 a + 2 tq
+                 // (+ 1); dv: U_qΩ^T rows (Dv), columns (Dk)
+#pragma unroll
+  for (int i = 0; i < 64; ++i) ut[i] = 0.f;
+  float acc[32];  // dk or dv of this half, summed over the group
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float h_next = load_h(0);
+  out += static_cast<size_t>(bk) * n * kD + kHalf * part;
+
+  for (int s = 0; s < steps; ++s) {
+    const int j = s / group;
+    const bool first = s - j * group == 0, last = s - j * group == group - 1;
+    const int t0 = (chunks - 1 - j) * kChunk;
+    // every thread is done with step s - 1: its stage, Ω̂'s tiles and h
+    // are free, U's copies and the sums are whole
+    __syncthreads();
+    if (tid == 0 && s + 1 < steps) load_step(s + 1);
+    if (kDk) {
+      if (tid < kChunk) h_sh[tid] = h_next;
+      h_next = s + 1 < steps ? load_h(s + 1) : 0.f;
+    }
+    __syncwarp();
+    sm90::bar_wait(&full[s % kStages], (s / kStages) & 1);
+    const unsigned char* st = stage_of(s);
+    sm90::split_tile_f32<kDk ? kD : kHalf, kThreads>(st + kOm, 0,
+                                                      smem + kOmHi,
+                                                      smem + kOmLo);
+    sm90::fence_async_smem();
+    __syncthreads();  // Ω̂'s tiles and h are whole
+    const bf16* kv_t = reinterpret_cast<const bf16*>(st + kKV);
+    const bf16* q_t = reinterpret_cast<const bf16*>(st + kQ);
+    const bf16* oh_t = reinterpret_cast<const bf16*>(smem + kOmHi);
+    const bf16* ol_t = reinterpret_cast<const bf16*>(smem + kOmLo);
+    const bf16* uh_t = reinterpret_cast<const bf16*>(smem + kUHi);
+    const bf16* ul_t = reinterpret_cast<const bf16*>(smem + kULo);
+
+    float sc[32];
+    sm90::pin(acc);
+    sm90::mma_fence();
+    if (first) {
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        sm90::mma_ss_n64(acc, sm90::desc_k<kChunk>(kv_t, kk),
+                         sm90::desc_k<kHalf>(uh_t, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        sm90::mma_ss_n64(acc, sm90::desc_k<kChunk>(kv_t, kk),
+                         sm90::desc_k<kHalf>(ul_t, kk), 1);
+    }
+    if (kDk) {
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        sm90::mma_ss_n64(sc, sm90::desc_k<kChunk>(kv_t, kk),
+                         sm90::desc_k<kChunk>(oh_t, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        sm90::mma_ss_n64(sc, sm90::desc_k<kChunk>(kv_t, kk),
+                         sm90::desc_k<kChunk>(ol_t, kk), 1);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        sm90::mma_ss_n64(sc, sm90::desc_k<kChunk>(kv_t, kk),
+                         sm90::desc_k<kChunk>(q_t, kk), kk);
+    }
+    sm90::mma_commit();
+
+    // behind the products, in f32 on the CUDA cores: this step's share of
+    // the next chunk's sums (each of the first kHalf threads one column)
+    const float* s_cur = sums + (j % 2) * kHalf;
+    float* s_next = sums + ((j + 1) % 2) * kHalf;
+    if (tid < kHalf) {
+      float sum = 0.f;
+      if (kDk) {
+#pragma unroll 8
+        for (int t = 0; t < kChunk; ++t)
+          sum += bf16_at(st + kQ, t, tid) * h_sh[t];
+      } else {
+#pragma unroll 8
+        for (int t = 0; t < kChunk; ++t) sum += f32_at(st + kOm, t, tid);
+      }
+      s_next[tid] = (first ? s_cur[tid] : s_next[tid]) + sum;
+    }
+    __syncwarp();
+    sm90::mma_wait<0>();
+    sm90::pin(sc);
+    sm90::pin(acc);
+    // T (the -h in f32, before any rounding) or A, on i >= p
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const int col = 8 * (i / 4) + 2 * tq + (i & 1);
+      const bool in = col >= row0 + 8 * r;
+      if (kDk)
+        sc[i] = in ? sc[i] - h_sh[col] : 0.f;
+      else
+        sc[i] = in ? fmaf(b, sc[i], a) : 0.f;
+    }
+    if (!kDk && first) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] *= b;
+    }
+    uint32_t xh[kChunk / 16][4], xl[kChunk / 16][4];
+    sm90::to_a_split<kChunk / 16>(xh, xl, sc);
+    sm90::pin(acc);
+    sm90::pin(ut);
+    sm90::pin(xh);
+    sm90::pin(xl);
+    sm90::mma_fence();
+    if (kDk) {
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        sm90::mma_rs_n64(acc, xh[kk], sm90::desc_mn<kChunk>(q_t, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        sm90::mma_rs_n64(acc, xl[kk], sm90::desc_mn<kChunk>(q_t, kk), 1);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        sm90::mma_rs_n64(acc, xh[kk], sm90::desc_mn<kChunk>(oh_t, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        sm90::mma_rs_n64(acc, xl[kk], sm90::desc_mn<kChunk>(oh_t, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        sm90::mma_rs_n64(acc, xh[kk], sm90::desc_mn<kChunk>(ol_t, kk), 1);
+    }
+    sm90::mma_commit();
+    // the state update: U_qΩ += q^T Ω̂ (dk) or U_qΩ^T += Ω̂^T q (dv)
+    const bf16* ua_t[2] = {kDk ? q_t : oh_t, kDk ? q_t : ol_t};
+    const bf16* ub_t[2] = {kDk ? oh_t : q_t, kDk ? ol_t : q_t};
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        sm90::mma_ss_n128<1, 1>(ut, sm90::desc_mn<kChunk>(ua_t[x], kk),
+                                sm90::desc_mn<kChunk>(ub_t[x], kk), 1);
+    sm90::mma_commit();
+
+    sm90::mma_wait<1>();  // dk or dv, while the state update runs
+    sm90::pin(acc);
+    sm90::pin(xh);
+    sm90::pin(xl);
+    if (last) {
+      if (kDk)
+        store_rows(out, t0, row0, n, [&](int i, int col) {
+          return b * (acc[i] - s_cur[col]);
+        });
+      else
+        store_rows(out, t0, row0, n, [&](int i, int col) {
+          return fmaf(a, s_cur[col], acc[i]);
+        });
+    }
+    __syncwarp();
+    sm90::mma_wait<0>();
+    sm90::pin(ut);
+    if (last) {
+      // every warp is done with this chunk's readout of U's copies
+      __syncthreads();
+      sm90::store_tile_split<kD / 8>(smem + kUHi, smem + kULo, ut);
+    }
+    // orders this step's reads of its stage and the copies' stores before
+    // the async proxy's next use of those bytes
+    sm90::fence_async_smem();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    la_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap om_map,
+                           const float* __restrict__ hv,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int heads, int kv_heads, int n, float a, float b) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = sm90::aligned_smem(smem_raw);
+  if (blockIdx.y < 2)
+    walk<true>(smem, &q_map, &v_map, &om_map, hv, dk, blockIdx.y, heads,
+               kv_heads, n, a, b);
+  else
+    walk<false>(smem, &q_map, &k_map, &om_map, hv, dv, blockIdx.y - 2,
+                heads, kv_heads, n, a, b);
+}
+
+}  // namespace bkv
 
 namespace {
 
@@ -505,16 +1126,29 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
 }
 
 // The launches of the two kernels, shared by the launchers and
-// `la_bwd_plan`: f(Type<T>{}, kernel, geometry) for the instantiation a call
-// with these arguments runs, with `stage` shrunk to fit kMaxSmem.
+// `la_bwd_plan`: f(Type<T>{}, kernel, geometry, Int<wgmma>{}) for the
+// instantiation a call with these arguments runs.  The linear entries in
+// bf16 at D = 128 run the chunked wgmma bodies, walking chunks of
+// lbw::kChunk tokens, which `stage` must name: dq two blocks per (batch,
+// query head), dk and dv four per (batch, KV head).  Otherwise the token
+// walk, with `stage` shrunk to fit kMaxSmem.
 // dq: one block per (batch, query head), D threads; the staging holds k, v
 // and Ω̂ padded, h and the decay per token.
 template <bool kGated, typename F>
 cudaError_t with_launch_q(int dtype, int d, int batch, int heads, int stage,
                           F&& f) {
   return plan::with_dtype(dtype, [&](auto t) {
+    using T = typename decltype(t)::type;
+    if constexpr (!kGated && std::is_same<T, __nv_bfloat16>::value) {
+      if (d == lbw::kD) {
+        if (stage != lbw::kChunk) return cudaErrorInvalidValue;
+        return f(t, bq::la_bwd_q_wgmma_kernel,
+                 plan::Geometry{dim3(batch * heads, bq::kSplit),
+                                lbw::kThreads, bq::kSmem, lbw::kChunk},
+                 plan::Int<1>{});
+      }
+    }
     return plan::with_head_dim(d, [&](auto dc) {
-      using T = typename decltype(t)::type;
       constexpr int D = decltype(dc)::value;
       const size_t per_token =
           static_cast<size_t>(3 * Rows<D>::kPadded + 1 + (kGated ? 1 : 0)) *
@@ -522,7 +1156,8 @@ cudaError_t with_launch_q(int dtype, int d, int batch, int heads, int stage,
       auto kernel = la_bwd_q_kernel<T, D, kGated>;
       return f(t, kernel,
                plan::fit({dim3(batch * heads), D, 0, 0}, stage, per_token,
-                         kMaxSmem));
+                         kMaxSmem),
+               plan::Int<0>{});
     });
   });
 }
@@ -536,8 +1171,17 @@ cudaError_t with_launch_kv(int dtype, int d, int batch, int heads,
                            int kv_heads, int stage, F&& f) {
   const int group = heads / kv_heads;
   return plan::with_dtype(dtype, [&](auto t) {
+    using T = typename decltype(t)::type;
+    if constexpr (!kGated && std::is_same<T, __nv_bfloat16>::value) {
+      if (d == lbw::kD) {
+        if (stage != lbw::kChunk) return cudaErrorInvalidValue;
+        return f(t, bkv::la_bwd_kv_wgmma_kernel,
+                 plan::Geometry{dim3(batch * kv_heads, bkv::kSplit),
+                                lbw::kThreads, bkv::kSmem, lbw::kChunk},
+                 plan::Int<1>{});
+      }
+    }
     return plan::with_head_dim(d, [&](auto dc) {
-      using T = typename decltype(t)::type;
       constexpr int D = decltype(dc)::value;
       const size_t per_token =
           static_cast<size_t>((2 * group + 2) * Rows<D>::kPadded + group +
@@ -546,7 +1190,8 @@ cudaError_t with_launch_kv(int dtype, int d, int batch, int heads,
       auto kernel = la_bwd_kv_kernel<T, D, kGated>;
       return f(t, kernel,
                plan::fit({dim3(batch * kv_heads), 2 * D, 0, 0}, stage,
-                         per_token, kMaxSmem));
+                         per_token, kMaxSmem),
+               plan::Int<0>{});
     });
   });
 }
@@ -563,19 +1208,35 @@ int run_q(const void* k, const void* v, const void* ld, const void* om,
   if (bad_shape(batch, heads, kv_heads, n, stage))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_launch_q<kGated>(
       dtype, d, batch, heads, stage,
-      [&](auto t, auto kernel, const plan::Geometry& geo) {
+      [&](auto t, auto kernel, const plan::Geometry& geo, auto body) {
         using T = typename decltype(t)::type;
         if (geo.stage < 1) return cudaErrorInvalidValue;
-        return plan::launch(kernel, geo, static_cast<cudaStream_t>(stream),
-                            static_cast<const T*>(k),
-                            static_cast<const T*>(v),
-                            static_cast<const float*>(ld),
-                            static_cast<const float*>(om),
-                            static_cast<const float*>(hv),
-                            static_cast<T*>(dq), heads, kv_heads, n,
-                            geo.stage, b);
+        if constexpr (decltype(body)::value == 1) {
+          CUtensorMap k_map, v_map, om_map;
+          cudaError_t err = sm90::map_rows(&k_map, k, n, batch * kv_heads,
+                                           lbw::kChunk);
+          if (err == cudaSuccess)
+            err = sm90::map_rows(&v_map, v, n, batch * kv_heads, lbw::kChunk);
+          if (err == cudaSuccess)
+            err = sm90::map_rows_f32(&om_map, om, n, batch * heads,
+                                     lbw::kChunk);
+          if (err != cudaSuccess) return err;
+          return plan::launch(kernel, geo, st, k_map, v_map, om_map,
+                              static_cast<const float*>(hv),
+                              static_cast<__nv_bfloat16*>(dq), heads,
+                              kv_heads, n, b);
+        } else {
+          return plan::launch(kernel, geo, st, static_cast<const T*>(k),
+                              static_cast<const T*>(v),
+                              static_cast<const float*>(ld),
+                              static_cast<const float*>(om),
+                              static_cast<const float*>(hv),
+                              static_cast<T*>(dq), heads, kv_heads, n,
+                              geo.stage, b);
+        }
       }));
 }
 
@@ -587,22 +1248,41 @@ int run_kv(const void* q, const void* k, const void* v, const void* ld,
   if (bad_shape(batch, heads, kv_heads, n, stage))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_launch_kv<kGated>(
       dtype, d, batch, heads, kv_heads, stage,
-      [&](auto t, auto kernel, const plan::Geometry& geo) {
+      [&](auto t, auto kernel, const plan::Geometry& geo, auto body) {
         using T = typename decltype(t)::type;
         // dv's element type (DvOut): T, or f32 for the gated dV'
         using TV = std::conditional_t<kGated, float, T>;
         if (geo.stage < 1) return cudaErrorInvalidValue;
-        return plan::launch(kernel, geo, static_cast<cudaStream_t>(stream),
-                            static_cast<const T*>(q),
-                            static_cast<const T*>(k),
-                            static_cast<const T*>(v),
-                            static_cast<const float*>(ld),
-                            static_cast<const float*>(om),
-                            static_cast<const float*>(hv),
-                            static_cast<T*>(dk), static_cast<TV*>(dv), heads,
-                            kv_heads, n, geo.stage, a, b);
+        if constexpr (decltype(body)::value == 1) {
+          CUtensorMap q_map, k_map, v_map, om_map;
+          cudaError_t err = sm90::map_rows(&q_map, q, n, batch * heads,
+                                           lbw::kChunk);
+          if (err == cudaSuccess)
+            err = sm90::map_rows(&k_map, k, n, batch * kv_heads, lbw::kChunk);
+          if (err == cudaSuccess)
+            err = sm90::map_rows(&v_map, v, n, batch * kv_heads, lbw::kChunk);
+          if (err == cudaSuccess)
+            err = sm90::map_rows_f32(&om_map, om, n, batch * heads,
+                                     lbw::kChunk);
+          if (err != cudaSuccess) return err;
+          return plan::launch(kernel, geo, st, q_map, k_map, v_map, om_map,
+                              static_cast<const float*>(hv),
+                              static_cast<__nv_bfloat16*>(dk),
+                              static_cast<__nv_bfloat16*>(dv), heads,
+                              kv_heads, n, a, b);
+        } else {
+          return plan::launch(kernel, geo, st, static_cast<const T*>(q),
+                              static_cast<const T*>(k),
+                              static_cast<const T*>(v),
+                              static_cast<const float*>(ld),
+                              static_cast<const float*>(om),
+                              static_cast<const float*>(hv),
+                              static_cast<T*>(dk), static_cast<TV*>(dv),
+                              heads, kv_heads, n, geo.stage, a, b);
+        }
       }));
 }
 
@@ -611,7 +1291,11 @@ int run_kv(const void* q, const void* k, const void* v, const void* ld,
 // Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16
 // (q, k, v, dq, dk and the linear dv; om, h, ld and the gated dV' are
 // always float32).  Each returns the cudaError_t of its launch
-// (0 = success); launches are asynchronous on `stream`.
+// (0 = success); launches are asynchronous on `stream`.  `la_bwd_q` and
+// `la_bwd_kv` in bf16 at D = 128 run the wgmma bodies: `stage` must be
+// their chunk (64), and their TMA reads need q, k, v and om 16-byte
+// aligned (the wrappers check it; a map that cannot be encoded is refused
+// with cudaErrorInvalidValue).
 extern "C" int la_bwd_q(const void* k, const void* v, const void* om,
                         const void* hv, void* dq, int batch, int heads,
                         int kv_heads, int n, int d, int stage, float b,
@@ -656,7 +1340,7 @@ extern "C" int la_bwd_plan(const char* entry, int batch, int heads,
                            int64_t* out) {
   if (bad_shape(batch, heads, kv_heads, n, stage))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto report = [&](auto, auto kernel, const plan::Geometry& geo) {
+  auto report = [&](auto, auto kernel, const plan::Geometry& geo, auto) {
     return plan::report(kernel, geo, out);
   };
   cudaError_t err = cudaErrorInvalidValue;

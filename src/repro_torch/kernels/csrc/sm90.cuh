@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the wgmma bodies (flash_fwd.cu,
-// flash_bwd.cu, ssd.cu, la_fwd.cu): mbarriers, TMA tile loads and
+// flash_bwd.cu, ssd.cu, la_fwd.cu, la_bwd.cu): mbarriers, TMA tile loads and
 // warpgroup matrix products, as raw PTX.
 //
 //   * mbarrier: init, arrive, arrive with an expected transaction count,
@@ -19,7 +19,8 @@
 //     products the bodies run (bf16 in, f32 accumulate);
 //   * operands from f32 values: one bf16 rounding (pack_bf16, to_a,
 //     store_tile) or a hi + lo pair of bf16 values (pack_bf16_split,
-//     to_a_split, store_tile_split) whose two products into one
+//     to_a_split, store_tile_split, and split_tile_f32 of an f32 tile
+//     loaded by TMA through map_rows_f32) whose two products into one
 //     accumulator keep ~16 bits; A fragments read transposed from a tile
 //     (ldmatrix_x4_trans).
 //
@@ -449,6 +450,38 @@ __device__ __forceinline__ void store_tile_split(unsigned char* hi,
   }
 }
 
+// Columns [c0, c0 + kCols) of a 64-row f32 tile (TMA boxes of 32 columns,
+// 8 KB apart, 128-byte swizzled: map_rows_f32) as a hi + lo pair of bf16
+// tiles of kCols columns (pack_bf16_split; boxes of 64 columns, 8 KB
+// apart, swizzled as a TMA load writes them), so that the pair serves as a
+// K-major or an MN-major operand (see the tile layout above).  c0 is a
+// multiple of 8; the block's kThreads threads share the work.
+template <int kCols, int kThreads>
+__device__ __forceinline__ void split_tile_f32(const unsigned char* f32,
+                                               int c0, unsigned char* hi,
+                                               unsigned char* lo) {
+  constexpr int kPerRow = kCols / 8;  // 16-byte bf16 chunks of a row
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < 64 * kPerRow; idx += kThreads) {
+    const int r = idx / kPerRow, y = idx % kPerRow;
+    const int col = c0 + 8 * y;    // the chunk's first f32 column
+    const int x = (col % 32) / 4;  // its first 16-byte f32 chunk (even)
+    const unsigned char* row = f32 + (col / 32) * 8192 + r * 128;
+    const float4 u = *reinterpret_cast<const float4*>(
+        row + ((x ^ (r % 8)) * 16));
+    const float4 w = *reinterpret_cast<const float4*>(
+        row + (((x + 1) ^ (r % 8)) * 16));
+    uint32_t h[4], l[4];
+    pack_bf16_split(u.x, u.y, h[0], l[0]);
+    pack_bf16_split(u.z, u.w, h[1], l[1]);
+    pack_bf16_split(w.x, w.y, h[2], l[2]);
+    pack_bf16_split(w.z, w.w, h[3], l[3]);
+    const int off = (y / 8) * 8192 + r * 128 + (((y % 8) ^ (r % 8)) * 16);
+    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
 // Four 8 x 8 bf16 matrices from shared memory, transposed: lane l gives
 // the address of row l % 8 of matrix l / 8 (16 bytes), and register j
 // receives this thread's pair of matrix j's transpose (row lane / 4,
@@ -529,27 +562,47 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// A 3-D map of a contiguous (slices, n, cols) tensor of `elem` bytes per
+// value as (cols, n, slices), boxes of (box_cols, rows, 1) with the
+// 128-byte swizzle (box_cols * elem = 128): a box past one slice's n rows
+// is zero-filled, never the next slice's rows.
+inline cudaError_t map_rows_of(CUtensorMap* map, CUtensorMapDataType type,
+                               int elem, const void* base, int n, int slices,
+                               int rows, int cols) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(slices)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * elem,
+                                 static_cast<cuuint64_t>(n) * cols * elem};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / elem),
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // A 3-D map of a contiguous bf16 (slices, n, cols) tensor as (cols, n,
 // slices), cols 128 or 64, boxes of (64, rows, 1) with the 128-byte
 // swizzle: a box past one slice's n rows is zero-filled, never the next
 // slice's rows.
 inline cudaError_t map_rows(CUtensorMap* map, const void* base, int n,
                             int slices, int rows, int cols = 128) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(n),
-                              static_cast<cuuint64_t>(slices)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
-                                 static_cast<cuuint64_t>(n) * cols * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return map_rows_of(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, n,
+                     slices, rows, cols);
+}
+
+// The same of a contiguous f32 (slices, n, cols) tensor: boxes of (32,
+// rows, 1), so a 64-row tile of 128 columns is four boxes of 32 columns
+// (one 128-byte row each, swizzled as the bf16 boxes are).
+inline cudaError_t map_rows_f32(CUtensorMap* map, const void* base, int n,
+                                int slices, int rows, int cols = 128) {
+  return map_rows_of(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, n,
+                     slices, rows, cols);
 }
 
 // The dynamic shared memory of a wgmma body rounded up to the 1024-byte

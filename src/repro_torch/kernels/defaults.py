@@ -11,11 +11,11 @@ staging size, and no result depends on it.
     training's forward and backward); `LACfg.chunk` mirrors it.
   * `LA_STAGE_TOKENS` — the most tokens of q/k/v (and Ω̂/h in the
     backward) that a block of the CUDA linear-attention kernels' token
-    walk (`la_fwd` in f32 and at D < 128, `la_bwd_q`, `la_bwd_kv`) stages in shared memory per
-    iteration.  The kernels walk the recurrence one token at a time, so
-    the staging size changes no result; each launcher stages fewer where
-    its block would exceed the H100's 227 KB of shared memory (large
-    query groups in `la_bwd_kv`).
+    walk (`la_fwd`, `la_bwd_q` and `la_bwd_kv` in f32 and at D < 128)
+    stages in shared memory per iteration.  The kernels walk the
+    recurrence one token at a time, so the staging size changes no
+    result; each launcher stages fewer where its block would exceed the
+    H100's 227 KB of shared memory (large query groups in `la_bwd_kv`).
 
   * `LA_CHUNK_TOKENS`, `LA_CHUNK_RING`, `LA_WGMMA_SPLIT` — the chunk,
     the ring depth and the blocks per head of `la_fwd`'s "wgmma" body
@@ -34,6 +34,26 @@ staging size, and no result depends on it.
     the normalizer and the backward's residual, stays f32 (the row sums
     of the f32 scores and q . z on the CUDA cores).  The kernel is
     compiled for exactly this chunk and refuses any other.
+  * `LA_BWD_WGMMA_HEAD_DIMS`, `LA_BWD_Q_SPLIT`, `LA_BWD_KV_SPLIT`,
+    `LA_BWD_RING` — the "wgmma" bodies of the analytic backward's
+    `la_bwd_q` and `la_bwd_kv` (bf16 at D in `LA_BWD_WGMMA_HEAD_DIMS`,
+    the paper's training instance; the entry, the dtype and D pick the
+    body, `linear_attention.la_bwd_body`; f32, the other D and both
+    `gla_bwd_*` entries keep the token walk).  Both walk chunks of
+    `LA_CHUNK_TOKENS`.  `la_bwd_q` runs `LA_BWD_Q_SPLIT` = 2 blocks per
+    (batch, query head), one per half of dq's columns, so a block's share
+    of the state A = Σ k^T v (64 x 128) is one m64n128 f32 accumulator;
+    `la_bwd_kv` runs `LA_BWD_KV_SPLIT` = 4 blocks per (batch, KV head),
+    dk's two column halves and dv's two, each holding a 64 x 128 slice of
+    U = Σ q^T Ω̂ in the orientation its readout needs (128 blocks at the
+    timing shape, one wave on 132 SMs).  `LA_BWD_RING` steps of k, v, q
+    and the f32 Ω̂ are in flight in the TMA ring: with Ω̂'s hi and lo bf16
+    tiles and the state's hi and lo copies that is 183,040 B (`la_bwd_q`)
+    and 199,424 B (`la_bwd_kv`), one block an SM.  Every operand that is
+    not a bf16 input (Ω̂, the copies of the states, the score tiles) goes
+    as a hi + lo pair of bf16 values, so dq, dk and dv stay within one
+    bf16 step where q and k share a direction; the kernels are compiled
+    for exactly this chunk and refuse any other.
   * `SSD_BWD_KV_QO_RING` — the ring depth of q and Ω in `ssd_bwd_kv`'s
     "wgmma" body (bf16 at (Dk, Dv) in `SSD_BWD_KV_WGMMA_STATE_DIMS`,
     mamba2-2.7b's training instance; chunks of `SSD_CHUNK_TOKENS`).  The
@@ -132,6 +152,10 @@ LA_CHUNK_TOKENS = 64
 LA_CHUNK_RING = 2
 LA_WGMMA_SPLIT = 2
 LA_WGMMA_HEAD_DIMS = (128,)
+LA_BWD_WGMMA_HEAD_DIMS = (128,)
+LA_BWD_Q_SPLIT = 2
+LA_BWD_KV_SPLIT = 4
+LA_BWD_RING = 2
 FLASH_BLOCK_Q = {
     "wgmma": {"flash_fwd": 128, "flash_bwd_q": 128, "flash_bwd_kv": 64},
     "mma_sync": {"flash_fwd": 64, "flash_bwd_q": 64, "flash_bwd_kv": 64},

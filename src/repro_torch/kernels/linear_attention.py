@@ -17,12 +17,14 @@ does outside its kernels) and launches both backward kernels;
 and csrc/la_bwd.cu; their headers say what bounds each kernel and how
 it is laid out.
 
-`la_fwd` has two bodies, chosen by `la_fwd_body(dtype, d)`: "wgmma"
-(bf16 at D = 128, the paper's training instance: a chunked scan on the
-tensor cores, two blocks per head by halves of the value columns, fed by
-TMA, so q, k and v must be 16-byte aligned, which the wrappers check)
-and "walk" (f32, and bf16 at D < 128: the token walk, as are both
-backward kernels and every GLA kernel).
+Each kernel has two bodies, chosen by `la_fwd_body(dtype, d)` and
+`la_bwd_body(entry, dtype, d)`: "wgmma" (bf16 at D = 128, the paper's
+training instance: chunked scans on the tensor cores fed by TMA, so
+their operands must be 16-byte aligned, which the wrappers check;
+`la_fwd` two blocks per head by halves of the value columns, `la_bwd_q`
+two by halves of dq's columns, `la_bwd_kv` four per KV head, by halves
+of dk's and of dv's columns) and "walk" (f32, and bf16 at D < 128: the
+token walk, as is every GLA kernel).
 
 Shapes: q (B, H, N, D), k and v (B, Hkv, N, D) with Hkv | H, float32 or
 bfloat16, D in `HEAD_DIMS`; o, dq, dk and dv come back in their
@@ -42,6 +44,7 @@ import torch
 from repro_torch.core import chunked as _chunked
 from repro_torch.kernels import build, plan
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
+    LA_BWD_KV_SPLIT, LA_BWD_Q_SPLIT, LA_BWD_RING, LA_BWD_WGMMA_HEAD_DIMS, \
     LA_CHUNK_RING, LA_CHUNK_TOKENS, LA_STAGE_TOKENS, LA_WGMMA_HEAD_DIMS, \
     LA_WGMMA_SPLIT
 
@@ -62,10 +65,26 @@ def la_fwd_body(dtype, d: int) -> str:
             else "walk")
 
 
+def la_bwd_body(entry: str, dtype, d: int) -> str:
+    """The body backward entry `entry` runs for this compute dtype and head
+    dim: "wgmma" (`la_bwd_q` and `la_bwd_kv` in bf16 at D in
+    LA_BWD_WGMMA_HEAD_DIMS) or "walk" (also every `gla_bwd_*` call)."""
+    return ("wgmma" if entry in ("la_bwd_q", "la_bwd_kv")
+            and dtype == torch.bfloat16 and d in LA_BWD_WGMMA_HEAD_DIMS
+            else "walk")
+
+
 def _fwd_stage(dtype, d: int) -> int:
     """The `stage` argument of `la_fwd`'s C call: the wgmma body's chunk,
     or the tokens the walk stages per iteration."""
     return (LA_CHUNK_TOKENS if la_fwd_body(dtype, d) == "wgmma"
+            else LA_STAGE_TOKENS)
+
+
+def _bwd_stage(entry: str, dtype, d: int) -> int:
+    """The `stage` argument of a linear backward entry's C call, as
+    `_fwd_stage`."""
+    return (LA_CHUNK_TOKENS if la_bwd_body(entry, dtype, d) == "wgmma"
             else LA_STAGE_TOKENS)
 
 
@@ -148,7 +167,7 @@ def la_bwd_q_cuda(k, v, om_hat, h_vec, b: float):
     with torch.cuda.device(k.device):
         err = lib.la_bwd_q(k.data_ptr(), v.data_ptr(), om_hat.data_ptr(),
                            h_vec.data_ptr(), dq.data_ptr(), bsz, h, hkv, n,
-                           d, LA_STAGE_TOKENS, float(b),
+                           d, _bwd_stage("la_bwd_q", k.dtype, d), float(b),
                            build.DTYPE_CODE[k.dtype],
                            build.current_stream(k.device))
     build.raise_on(lib, "la_bwd", "la_bwd_q", err)
@@ -174,7 +193,8 @@ def la_bwd_kv_cuda(q, k, v, om_hat, h_vec, a: float, b: float):
         err = lib.la_bwd_kv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             om_hat.data_ptr(), h_vec.data_ptr(),
                             dk.data_ptr(), dv.data_ptr(), bsz, h, hkv, n, d,
-                            LA_STAGE_TOKENS, float(a), float(b),
+                            _bwd_stage("la_bwd_kv", q.dtype, d), float(a),
+                            float(b),
                             build.DTYPE_CODE[q.dtype],
                             build.current_stream(q.device))
     build.raise_on(lib, "la_bwd", "la_bwd_kv", err)
@@ -214,6 +234,30 @@ def _wgmma_smem(d: int) -> int:
     c, part = LA_CHUNK_TOKENS, d // LA_WGMMA_SPLIT
     return (LA_CHUNK_RING * 2 * (2 * c * d + c * part) + 2 * part * d
             + 2 * 4 * (d + part) + _WGMMA_EXTRA)
+
+
+def _bwd_q_smem(d: int) -> int:
+    """Dynamic shared memory of `la_bwd_q`'s wgmma block, as csrc/la_bwd.cu's
+    `bq::kSmem`: LA_BWD_RING chunks of the block's half of k and of v in
+    bf16 and of Ω̂ in f32, Ω̂'s hi and lo bf16 tiles, the hi and lo copies
+    of the block's half of A = Σ k^T v, z twice and h in f32, and the
+    barriers and pad."""
+    c, half = LA_CHUNK_TOKENS, d // LA_BWD_Q_SPLIT
+    return (LA_BWD_RING * (2 * c * half + 2 * c * d + 4 * c * d)
+            + 2 * 2 * c * d + 2 * 2 * half * d + 2 * 4 * half + 4 * c
+            + _WGMMA_EXTRA)
+
+
+def _bwd_kv_smem(d: int) -> int:
+    """Dynamic shared memory of `la_bwd_kv`'s wgmma block, as
+    `bkv::kSmem`: LA_BWD_RING steps of a bf16 k or v tile, a bf16 q tile
+    and an f32 Ω̂ tile, Ω̂'s hi and lo bf16 tiles, the hi and lo copies of
+    the block's slice of U = Σ q^T Ω̂, its f32 sums twice, h, and the
+    barriers and pad."""
+    c, half = LA_CHUNK_TOKENS, d // (LA_BWD_KV_SPLIT // 2)
+    return (LA_BWD_RING * (2 * c * d + 2 * c * d + 4 * c * d)
+            + 2 * 2 * c * d + 2 * 2 * half * d + 2 * 4 * half + 4 * c
+            + _WGMMA_EXTRA)
 
 
 def plan_fwd(entry, q, k, v, log_decay, a, b, stage_tokens, argtypes):
@@ -284,14 +328,24 @@ def plan_fwd(entry, q, k, v, log_decay, a, b, stage_tokens, argtypes):
 
 def plan_bwd_q(entry, k, v, log_decay, om_hat, h_vec, b, stage_tokens,
                argtypes):
-    """la_bwd_q (log_decay None) or gla_bwd_q: one block per (batch, query
-    head), the forward scan over all N tokens."""
+    """la_bwd_q (log_decay None) or gla_bwd_q: the token walk's one block
+    per (batch, query head), the forward scan over all N tokens;
+    `la_bwd_q`'s wgmma body LA_BWD_Q_SPLIT such blocks, each with its
+    share of dq's columns (and of k's), walking chunks (TMA zero-fills
+    the rows of the last chunk past N)."""
     bsz, h, hkv, n, d = _dims(om_hat, k, v)
     group, gated = h // hkv, log_decay is not None
     code = plan.dtype_code(k.dtype)
-    # k, v and Ω̂ padded, h, and the decay
-    stage, smem = plan.fit(stage_tokens,
-                           (3 * _padded(d) + 1 + int(gated)) * 4)
+    split, threads = 1, d
+    if la_bwd_body(entry, k.dtype, d) == "wgmma":
+        stage_tokens = stage = LA_CHUNK_TOKENS
+        split, threads, smem = LA_BWD_Q_SPLIT, _WGMMA_THREADS, \
+            _bwd_q_smem(d)
+    else:
+        # k, v and Ω̂ padded, h, and the decay
+        stage, smem = plan.fit(stage_tokens,
+                               (3 * _padded(d) + 1 + int(gated)) * 4)
+    part = d // split
 
     def head(blk):
         bi, hi = divmod(blk[0], h)
@@ -301,9 +355,19 @@ def plan_bwd_q(entry, k, v, log_decay, om_hat, h_vec, b, stage_tokens,
         bi, hi, _ = head(blk)
         return plan.box((bi, bi + 1), (hi, hi + 1), (0, n), (0, d))
 
+    def q_part(blk):
+        bi, hi, _ = head(blk)
+        lo = blk[1] * part
+        return plan.box((bi, bi + 1), (hi, hi + 1), (0, n), (lo, lo + part))
+
     def kv_rows(blk):
         bi, _, hk = head(blk)
         return plan.box((bi, bi + 1), (hk, hk + 1), (0, n), (0, d))
+
+    def k_part(blk):
+        bi, _, hk = head(blk)
+        lo = blk[1] * part
+        return plan.box((bi, bi + 1), (hk, hk + 1), (0, n), (lo, lo + part))
 
     def ld_row(blk):
         bi, _, hk = head(blk)
@@ -313,7 +377,7 @@ def plan_bwd_q(entry, k, v, log_decay, om_hat, h_vec, b, stage_tokens,
         bi, hi, _ = head(blk)
         return plan.box((bi, bi + 1), (hi, hi + 1), (0, n))
 
-    accesses = [plan.Access("k", "in", plan.shape_of(k), k.dtype, kv_rows),
+    accesses = [plan.Access("k", "in", plan.shape_of(k), k.dtype, k_part),
                 plan.Access("v", "in", plan.shape_of(v), k.dtype, kv_rows)]
     if gated:
         accesses.append(plan.Access("log_decay", "in", (bsz, hkv, n), F32,
@@ -321,8 +385,9 @@ def plan_bwd_q(entry, k, v, log_decay, om_hat, h_vec, b, stage_tokens,
     accesses += [
         plan.Access("om_hat", "in", (bsz, h, n, d), F32, q_rows),
         plan.Access("h_vec", "in", (bsz, h, n), F32, h_row),
-        plan.Access("dq", "out", (bsz, h, n, d), k.dtype, q_rows)]
-    return plan.make(entry, "la_bwd", (bsz * h,), d, smem, accesses,
+        plan.Access("dq", "out", (bsz, h, n, d), k.dtype, q_part)]
+    return plan.make(entry, "la_bwd", (bsz * h, split), threads, smem,
+                     accesses,
                      (bsz, h, hkv, n, d, stage_tokens, float(b), code),
                      argtypes, (bsz, h, hkv, n, d, stage_tokens, code),
                      stage=stage)
@@ -330,55 +395,80 @@ def plan_bwd_q(entry, k, v, log_decay, om_hat, h_vec, b, stage_tokens,
 
 def plan_bwd_kv(entry, q, k, v, log_decay, om_hat, h_vec, a, b,
                 stage_tokens, argtypes):
-    """la_bwd_kv (log_decay None) or gla_bwd_kv: one block per (batch, KV
-    head), the reverse scan over all N tokens of its G query heads.  Its
-    staging grows with G, so large groups stage fewer tokens."""
+    """la_bwd_kv (log_decay None) or gla_bwd_kv: the token walk's one
+    block per (batch, KV head), the reverse scan over all N tokens of its
+    G query heads (its staging grows with G, so large groups stage fewer
+    tokens); `la_bwd_kv`'s wgmma body LA_BWD_KV_SPLIT blocks per (batch,
+    KV head): y = 0, 1 write dk's column half y from v, their half of q,
+    Ω̂ and h; y = 2, 3 dv's half y - 2 from k, q and their half of Ω̂,
+    each walking the group's chunks from the last."""
     bsz, h, hkv, n, d = _dims(q, k, v)
     group, gated = h // hkv, log_decay is not None
     code = plan.dtype_code(q.dtype)
-    # q and Ω̂ of the G query heads, k and v, padded; h of the G heads;
-    # gated: the decay, the row warps' shares of k.U[:Dk, Dv] and U[Dk, Dv]
-    stage, smem = plan.fit(
-        stage_tokens, ((2 * group + 2) * _padded(d) + group
-                       + (d // 32 + 2 if gated else 0)) * 4)
+    wgmma = la_bwd_body(entry, q.dtype, d) == "wgmma"
+    if wgmma:
+        stage_tokens = stage = LA_CHUNK_TOKENS
+        split, threads, smem = LA_BWD_KV_SPLIT, _WGMMA_THREADS, \
+            _bwd_kv_smem(d)
+    else:
+        # q and Ω̂ of the G query heads, k and v, padded; h of the G heads;
+        # gated: the decay, the row warps' shares of k.U[:Dk, Dv] and
+        # U[Dk, Dv]
+        stage, smem = plan.fit(
+            stage_tokens, ((2 * group + 2) * _padded(d) + group
+                           + (d // 32 + 2 if gated else 0)) * 4)
+        split, threads = 1, 2 * d
+    half = d // (LA_BWD_KV_SPLIT // 2)   # dk's halves, then dv's
 
-    def head(blk):
-        return divmod(blk[0], hkv)
+    def part(blk):
+        """The block's roles and the columns of its half: the walk's one
+        block does both, over all D columns."""
+        if not wgmma:
+            return ("dk", "dv"), (0, d)
+        lo = (blk[1] % 2) * half
+        return ("dk",) if blk[1] < 2 else ("dv",), (lo, lo + half)
 
-    def q_rows(blk):
-        bi, hk = head(blk)
-        return plan.box((bi, bi + 1), (hk * group, (hk + 1) * group),
-                        (0, n), (0, d))
+    def operand(grouped, role=None, halved=None, width=d):
+        """Tiles of an operand over the block's query group (grouped) or
+        KV head: rows [0, N) where `role` is None or one of the block's
+        roles, else none; of `width` columns (None: a 3-D operand), the
+        block's half where `halved` is one of its roles."""
+        def tile(blk):
+            bi, hk = divmod(blk[0], hkv)
+            roles, cols = part(blk)
+            ranges = [(bi, bi + 1), (hk * group, (hk + 1) * group)
+                      if grouped else (hk, hk + 1),
+                      (0, n) if role is None or role in roles else (0, 0)]
+            if width is not None:
+                ranges.append(cols if halved in roles else (0, width))
+            return plan.box(*ranges)
+        return tile
 
-    def h_rows(blk):
-        bi, hk = head(blk)
-        return plan.box((bi, bi + 1), (hk * group, (hk + 1) * group), (0, n))
-
-    def kv_rows(blk, width=d):
-        bi, hk = head(blk)
-        return plan.box((bi, bi + 1), (hk, hk + 1), (0, n), (0, width))
-
-    def ld_row(blk):
-        bi, hk = head(blk)
-        return plan.box((bi, bi + 1), (hk, hk + 1), (0, n))
-
-    accesses = [plan.Access("q", "in", plan.shape_of(q), q.dtype, q_rows),
-                plan.Access("k", "in", plan.shape_of(k), q.dtype, kv_rows),
-                plan.Access("v", "in", plan.shape_of(v), q.dtype, kv_rows)]
+    accesses = [
+        plan.Access("q", "in", plan.shape_of(q), q.dtype,
+                    operand(True, halved="dk")),
+        plan.Access("k", "in", plan.shape_of(k), q.dtype,
+                    operand(False, "dv")),
+        plan.Access("v", "in", plan.shape_of(v), q.dtype,
+                    operand(False, "dk"))]
     if gated:
         accesses.append(plan.Access("log_decay", "in", (bsz, hkv, n), F32,
-                                    ld_row))
+                                    operand(False, width=None)))
     accesses += [
-        plan.Access("om_hat", "in", (bsz, h, n, d), F32, q_rows),
-        plan.Access("h_vec", "in", (bsz, h, n), F32, h_rows),
-        plan.Access("dk", "out", plan.shape_of(k), q.dtype, kv_rows)]
+        plan.Access("om_hat", "in", (bsz, h, n, d), F32,
+                    operand(True, halved="dv")),
+        plan.Access("h_vec", "in", (bsz, h, n), F32,
+                    operand(True, "dk", width=None)),
+        plan.Access("dk", "out", plan.shape_of(k), q.dtype,
+                    operand(False, "dk", "dk"))]
     if gated:   # dV' with its augmented column, f32
         accesses.append(plan.Access("dva", "out", (bsz, hkv, n, d + 1), F32,
-                                    lambda blk: kv_rows(blk, d + 1)))
+                                    operand(False, width=d + 1)))
     else:
         accesses.append(plan.Access("dv", "out", plan.shape_of(v), q.dtype,
-                                    kv_rows))
-    return plan.make(entry, "la_bwd", (bsz * hkv,), 2 * d, smem, accesses,
+                                    operand(False, "dv", "dv")))
+    return plan.make(entry, "la_bwd", (bsz * hkv, split), threads, smem,
+                     accesses,
                      (bsz, h, hkv, n, d, stage_tokens, float(a), float(b),
                       code), argtypes,
                      (bsz, h, hkv, n, d, stage_tokens, code), stage=stage)
