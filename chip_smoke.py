@@ -64,11 +64,11 @@ fails the run by raising (no result line is printed then):
                and dk partials, dv, and after the epilogue dq, dk, dv and
                dld), and at log_decay = 0 the forward against
                unnormalized causal linear attention, in f32 (the token
-               walk) and bf16; every bf16 ssd_fwd and ssd_bwd_kv case runs
-               its chunked wgmma body, every f32 case the token walk
+               walk) and bf16; every bf16 case of the three SSD kernels
+               runs its chunked wgmma body, every f32 case the token walk
                (asserted from the launchers' C plan exports), and a second
-               launch of the bf16 main case must give bit-equal o, dk
-               partials and dv
+               launch of the bf16 main case must give bit-equal o, dq
+               partials, dk partials and dv
   4. serve   — the Engine at full width pythia-1.4b in bf16, once with the
                paper's linear attention and once with the softmax
                baseline: 8 requests, 512-token prompts, prefill_chunk 256,
@@ -124,12 +124,13 @@ fails the run by raising (no result line is printed then):
                contiguous one on the same keys; flash_fwd, flash_bwd_q
                and flash_bwd_kv also with their achieved TFLOP/s beside
                their bounds' and the ptxas report of every flash
-               instantiation; la_fwd, la_bwd_q, la_bwd_kv, ssd_fwd and
-               ssd_bwd_kv with the body that ran, its ptxas registers and
-               spills, shared memory per block, the blocks an SM holds and
-               the bound of that body beside the walk's; the three LA
-               kernels also with their tensor-core and byte times and
-               beside their token walks (f32 inputs) in turns; the
+               instantiation; la_fwd, la_bwd_q, la_bwd_kv, ssd_fwd,
+               ssd_bwd_q and ssd_bwd_kv with the body that ran, its ptxas
+               registers and spills, shared memory per block, the blocks
+               an SM holds and the bound of that body beside the walk's;
+               the three LA kernels and ssd_bwd_q also with their
+               tensor-core and byte times and beside their token walks
+               (f32 inputs) in turns; the
                fixture at n = 2^24 f32, block 256
   7. result  — a JSON line with every measurement, the card's line, a
                `kernels` JSON line, then {"ok": true, "device": {...}}
@@ -998,8 +999,10 @@ def _ssd_body(entry, q, k, v, ld, om=None):
     launcher's C export: "wgmma" or "walk"."""
     from repro_torch.kernels import ssd
     body = ssd.ssd_body(entry, q.dtype, q.shape[-1], v.shape[-1])
-    launch = (ssd.plan_ssd_fwd(q, k, v, ld) if entry == "ssd_fwd"
-              else ssd.plan_ssd_bwd_kv(q, k, v, ld, om))
+    launch = {"ssd_fwd": lambda: ssd.plan_ssd_fwd(q, k, v, ld),
+              "ssd_bwd_q": lambda: ssd.plan_ssd_bwd_q(k, v, ld, om),
+              "ssd_bwd_kv": lambda: ssd.plan_ssd_bwd_kv(q, k, v, ld, om)
+              }[entry]()
     return _c_body(body, launch)
 
 
@@ -1028,10 +1031,10 @@ def phase_kernel_ssd(torch):
     the PyTorch epilogue (the group sums and dld, from each path's
     partials and the same o) dq, dk, dv and dld; at log_decay = 0 the
     forward against unnormalized causal linear attention, in f32 and
-    bf16.  Every bf16 case runs the chunked wgmma bodies of ssd_fwd and
-    ssd_bwd_kv, every f32 case the token walk (from the launchers' C plan
-    exports); the bf16 main case launches both twice for bit-equal o, dk
-    partials and dv."""
+    bf16.  Every bf16 case runs the chunked wgmma bodies of all three
+    kernels, every f32 case the token walk (from the launchers' C plan
+    exports); the bf16 main case launches each twice for bit-equal o, dq
+    partials, dk partials and dv."""
     from repro_torch.core import ssd as core_ssd
     from repro_torch.kernels import ssd
     gen = torch.Generator(device="cuda")
@@ -1053,7 +1056,7 @@ def phase_kernel_ssd(torch):
         log(f"[kernel] ssd {label}: B={b} G={g} H={h} N={n} Dk={dk} "
             f"Dv={dv} {dtype}, log decay {regime}")
         rel = BF16_REL if dtype == bf16 else SEQ_F32_REL
-        for entry in ("ssd_fwd", "ssd_bwd_kv"):
+        for entry in ("ssd_fwd", "ssd_bwd_q", "ssd_bwd_kv"):
             body, _, _ = _ssd_body(entry, q, k, v, ld, om)
             if body != ("wgmma" if dtype == bf16 else "walk"):
                 raise AssertionError(f"ssd {label}: {entry} runs the {body} "
@@ -1068,6 +1071,15 @@ def phase_kernel_ssd(torch):
             log(f"  ssd {label} o: two launches bit-equal (wgmma body)")
             del again
         dq_pk = ssd.ssd_bwd_q_cuda(k, v, ld, om)
+        if label == "main_bf16":
+            dq_again = ssd.ssd_bwd_q_cuda(k, v, ld, om)
+            torch.cuda.synchronize()
+            if not torch.equal(dq_pk, dq_again):
+                raise AssertionError("ssd main_bf16: two launches of "
+                                     "ssd_bwd_q differ")
+            log(f"  ssd {label} dq partials: two launches bit-equal "
+                f"(wgmma body)")
+            del dq_again
         dk_pk, dv_k = ssd.ssd_bwd_kv_cuda(q, k, v, ld, om)
         if label == "main_bf16":
             dk_again, dv_again = ssd.ssd_bwd_kv_cuda(q, k, v, ld, om)
@@ -2517,9 +2529,13 @@ def phase_timing_ssd(torch, ptxas):
     counted).  ssd_fwd in bf16 runs the chunked wgmma body: per chunk of
     c tokens and head its four products, q k^T, q S, A v and the state
     update, 2 c Dk (c + Dv) + 2 c Dv (c + Dk) flops on the bf16 tensor
-    cores.  ssd_bwd_kv in bf16 runs its chunked wgmma body: per chunk
-    and head p = v Ω^T (2 c^2 Dv), s = k q^T (2 c^2 Dk), and each of the
-    products with a hi + lo operand twice: e v U^T and (p o M) q (2 c Dv
+    cores.  ssd_bwd_q in bf16 runs its chunked wgmma body: per chunk and
+    head p = Ω v^T (2 c^2 Dv) and, twice each (a hi + lo operand), Ω S
+    (2 c Dv Dk), W k (2 c^2 Dk) and the state update (2 c Dv Dk); it is
+    also timed in turns with its token walk (f32 inputs).  ssd_bwd_kv in
+    bf16 runs its chunked wgmma body: per chunk and head p = v Ω^T
+    (2 c^2 Dv), s = k q^T (2 c^2 Dk), and each of the products with a
+    hi + lo operand twice: e v U^T and (p o M) q (2 c Dv
     Dk and 2 c^2 Dk), e k U and (s o M) Ω (2 c Dk Dv and 2 c^2 Dv), the
     state update (2 c Dv Dk).  Each wgmma record names the body, its
     ptxas registers and spills, its shared memory per block and the
@@ -2558,6 +2574,10 @@ def phase_timing_ssd(torch, ptxas):
     tc_flops = {
         "ssd_fwd": b * h * chunks * (2 * c * dk * (c + dv)
                                      + 2 * c * dv * (c + dk)),
+        "ssd_bwd_q": b * h * chunks * (2 * c * c * dv
+                                       + 2 * (2 * c * dv * dk
+                                              + 2 * c * c * dk
+                                              + 2 * c * dv * dk)),
         "ssd_bwd_kv": b * h * chunks * (2 * c * c * (dv + dk)
                                         + 2 * (2 * c * dv * dk
                                                + 2 * c * c * dk
@@ -2565,6 +2585,7 @@ def phase_timing_ssd(torch, ptxas):
                                                + 2 * c * c * dv
                                                + 2 * c * dv * dk))}
     wgmma_fn = {"ssd_fwd": "sc::ssd_fwd_wgmma_kernel",
+                "ssd_bwd_q": "sq::ssd_bwd_q_wgmma_kernel",
                 "ssd_bwd_kv": "sk::ssd_bwd_kv_wgmma_kernel"}
     bodies = {name: _ssd_body(name, q, k, v, ld, om) for name in wgmma_fn}
     walk_bounds = {name: _bound(*work[name]) for name in wgmma_fn}
@@ -2581,6 +2602,18 @@ def phase_timing_ssd(torch, ptxas):
             out[name].update(_body_record(
                 bodies[name], walk_bounds[name], ptxas.get("ssd", []),
                 wgmma_fn[name]))
+        if name == "ssd_bwd_q":
+            rec = out[name]
+            rec.update(byte_ms=rec["bytes"] / HBM_BYTES_PER_S * 1e3,
+                       tensor_core_ms=tc_flops[name] / BF16_TC_FLOP_PER_S
+                       * 1e3)
+            kf, vf, omf = k.float(), v.float(), om.float()
+            walk, kern2 = _time_pair(
+                torch, kernel_fn, lambda: ssd.ssd_bwd_q_cuda(kf, vf, ld, omf),
+                reps=5)
+            rec.update(walk_ms=min(walk), walk_ms_runs=walk,
+                       ms_runs_beside_walk=kern2)
+            del kf, vf, omf
         log(f"[timing] {name} B={b} G={g} H={h} N={n} Dk={dk} Dv={dv} "
             f"bf16: {out[name]}")
     log("[timing] ssd_fwd / ssd_bwd_q / ssd_bwd_kv: library_ms null: no "

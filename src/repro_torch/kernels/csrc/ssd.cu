@@ -1,5 +1,5 @@
 // SSD (Mamba-2) forward and analytic backward for Hopper (sm_90a): three
-// kernels, the forward and ssd_bwd_kv with two bodies each.
+// kernels with two bodies each.
 //
 // Replaces the TPU kernels `ssd_fwd_pallas` (src/repro/kernels/ssd.py:65;
 // body `_ssd_kernel`, ssd.py:34) and `ssd_bwd_pallas` (ssd.py:192; bodies
@@ -37,10 +37,10 @@
 // (mamba2-2.7b: state 128, head dim 64) and (16, 32) (its smoke config);
 // any other pair is refused.
 //
-// Two bodies of ssd_fwd and of ssd_bwd_kv, chosen by the launcher from the
-// dtype and dims: the chunked wgmma bodies for bf16 at (128, 64)
-// (mamba2-2.7b's training instance), the token walk for f32 at both dims
-// and bf16 at (16, 32).  ssd_bwd_q is a token walk at every shape.
+// Two bodies of each kernel, chosen by the launcher from the dtype and
+// dims: the chunked wgmma bodies for bf16 at (128, 64) (mamba2-2.7b's
+// training instance), the token walk for f32 at both dims and bf16 at
+// (16, 32).
 //
 // What bounds them (estimates from the shapes; B=2, G=1, H=80, N=8192,
 // Dk=128, Dv=64): every kernel moves its bytes once, ssd_fwd ~0.35 GB
@@ -53,6 +53,9 @@
 // chunk of c = 64 tokens (q k^T, q S, A v and the state update: 2 c Dk
 // (c + Dv) + 2 c Dv (c + Dk) flops), 75.2 GFLOP on the bf16 tensor cores,
 // 0.076 ms at 989 TFLOP/s: bound by its bytes (0.104 ms).  The chunked
+// ssd_bwd_q body does four products per chunk, three of them twice (a hi
+// and a lo operand), 139.6 GFLOP (0.141 ms): bound by its bytes, 1.02 GB
+// (0.303 ms), two thirds of them the f32 dq partials.  The chunked
 // ssd_bwd_kv body does seven products per chunk, five of them twice (a hi
 // and a lo operand), 225.5 GFLOP on the tensor cores (0.228 ms): bound by
 // its bytes, 1.36 GB (0.405 ms), half of them the f32 dk partials.
@@ -108,6 +111,35 @@
 //     differences <= 0 of the chunk's cumsum, masked first, as in sc;
 //   * each dk and dv element is written once (no atomics): the result is
 //     bit-deterministic.
+// Design of the chunked ssd_bwd_q body (namespace sq, the reference's
+// `_ssd_bwd_q_kernel`, src/repro/kernels/ssd.py:118-147): sc's forward
+// walk with the readout dq = S Ω in place of o = q S.  One warpgroup per
+// (batch, head), 160 blocks of 100,352 B, two to an SM, one wave on 132
+// SMs.
+//   * the state and its update are sc's: S^T (Dv x Dk) as one m64n128 f32
+//     accumulator, S^T = 2^total S^T + (w o v)^T k; k comes through the
+//     group's map (at G = 1 every head reads one k, which stays in L2), v,
+//     Ω and the log decays per head;
+//   * per chunk: p = Ω v^T (both bf16 inputs: exact in f32) and Ω S (S
+//     from S^T's copies read MN-major) by SS wgmma; behind them cl and the
+//     (w o v) tiles; W = p o 2^(cl_i - cl_n) (n <= i) in registers; dq =
+//     2^cl_i (Ω S) + W k (RS, k MN-major from its TMA tile); dq, 64 x 128
+//     f32, stored from registers (a quad's 8-byte stores fill 32-byte
+//     sectors) while the state update runs;
+//   * precision: chip_smoke.py holds the f32 dq partials to 1e-4 of their
+//     largest |value|, so W, the copy of S^T and w o v each go as a hi +
+//     lo pair of bf16, two products into one accumulator, as in sk;
+//   * shared memory: both copies of S^T (32 KB), k in a ring of two
+//     chunks (its last reads end a chunk), v and Ω once (their last reads,
+//     p, Ω S and the (w o v) tiles, end half-way through a chunk, where
+//     the next chunk's v and Ω are requested by TMA), the hi and lo
+//     (w o v) tiles (16 KB);
+//   * each dq element is written once (no atomics): the result is
+//     bit-deterministic.
+// The three chunked bodies share their decay bookkeeping (namespace cd):
+// the warp-scan cumsum of a chunk's log decays, its gathers by token and
+// by fragment column, the masked decay of a score fragment, and the
+// (w o v) tile of the forward state update.
 // Design of the token walk (simple first):
 //   * one block per (batch, head), walking the whole sequence: a (B, H)
 //     grid, 160 blocks at B=2, H=80 on 132 SMs, small enough that two
@@ -144,6 +176,109 @@
 
 #include "plan.cuh"
 #include "sm90.cuh"
+
+// ---------------------------------------------------------------------------
+// the decay bookkeeping of the three chunked bodies (sc, sk, sq)
+// ---------------------------------------------------------------------------
+
+namespace cd {
+
+// A chunk's inclusive cumsum cl of its 64 log decays (base 2), held whole
+// by every warp: lane l holds tokens 2l (even) and 2l + 1 (odd); total is
+// cl of the chunk's last token.
+struct Cumsum {
+  float even, odd, total;
+
+  // cl of token t of the chunk (t may differ between lanes)
+  __device__ __forceinline__ float at(int t) const {
+    const float e = __shfl_sync(0xffffffffu, even, t / 2);
+    const float od = __shfl_sync(0xffffffffu, odd, t / 2);
+    return (t & 1) ? od : e;
+  }
+
+  // cl of this thread's columns 8 a + 2 tq (+ 1) of an m64n64 fragment
+  __device__ __forceinline__ void cols(int tq, float (&cl)[16]) const {
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      cl[2 * a] = __shfl_sync(0xffffffffu, even, 4 * a + tq);
+      cl[2 * a + 1] = __shfl_sync(0xffffffffu, odd, 4 * a + tq);
+    }
+  }
+};
+
+// the warp scan of this lane's two log decays (tokens 2 lane, 2 lane + 1)
+__device__ __forceinline__ Cumsum scan(const float (&ld)[2], int lane) {
+  float incl = ld[0] + ld[1];
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  return {incl - ld[1], incl, __shfl_sync(0xffffffffu, incl, 31)};
+}
+
+// x o M in place, x an m64n64 f32 fragment (this thread's rows row0 and
+// row0 + 8 of the chunk, its columns 8 a + 2 tq (+ 1)).  kLower: M =
+// 2^(cl_row - cl_col) on columns <= the row, column blocks past the
+// warp's last row masked whole; else M = 2^(cl_col - cl_row) on columns
+// >= the row, column blocks before the warp's first row masked whole.
+// The exponent is masked first, so it is <= 0.
+template <bool kLower>
+__device__ __forceinline__ void decay_mask(float (&x)[32],
+                                           const float (&cl_row)[2],
+                                           const float (&cl_col)[16],
+                                           int warp, int tq, int row0) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    const int col = 8 * (i / 4) + 2 * tq + (i & 1);
+    const float cc = cl_col[2 * (i / 4) + (i & 1)];
+    if (kLower ? 8 * (i / 4) > 16 * warp + 15 : 8 * (i / 4) + 7 < 16 * warp) {
+      x[i] = 0.f;
+      continue;
+    }
+    if (kLower)
+      x[i] = col <= row0 + 8 * r ? x[i] * sm90::exp2_ftz(cl_row[r] - cc)
+                                 : 0.f;
+    else
+      x[i] = col >= row0 + 8 * r ? x[i] * sm90::exp2_ftz(cc - cl_row[r])
+                                 : 0.f;
+  }
+}
+
+// The (w o v) tile of the forward state update, w_n = 2^(total - cl_n)
+// <= 1: v's 64 x 64 bf16 TMA tile scaled row by row, 16 bytes at a time
+// (the swizzle permutes the 16-byte chunks within a row only, so v's
+// layout carries over), rounded to bf16 once into hi, or (kSplit) as a
+// hi + lo pair (sm90::pack_bf16_split) into hi and lo.
+template <bool kSplit, int kThreads>
+__device__ __forceinline__ void weighted_v(const Cumsum& cl,
+                                           const unsigned char* v,
+                                           unsigned char* hi,
+                                           unsigned char* lo, int tid) {
+#pragma unroll
+  for (int r = 0; r < 64 * 8 / kThreads; ++r) {
+    const int ch = tid + kThreads * r;  // 8 chunks of 16 bytes a row
+    const float w = sm90::exp2_ftz(cl.total - cl.at(ch / 8));
+    const uint4 raw = reinterpret_cast<const uint4*>(v)[ch];
+    const __nv_bfloat162* pv = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    uint32_t h[4];
+    [[maybe_unused]] uint32_t l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(pv[e]);
+      if constexpr (kSplit)
+        sm90::pack_bf16_split(w * f.x, w * f.y, h[e], l[e]);
+      else
+        h[e] = sm90::pack_bf16(w * f.x, w * f.y);
+    }
+    reinterpret_cast<uint4*>(hi)[ch] = make_uint4(h[0], h[1], h[2], h[3]);
+    if constexpr (kSplit)
+      reinterpret_cast<uint4*>(lo)[ch] = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+}  // namespace cd
 
 // ---------------------------------------------------------------------------
 // the chunked wgmma body of ssd_fwd (bf16, Dk = 128, Dv = 64)
@@ -285,46 +420,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     sm90::mma_commit();
 
     // behind the products: cl, the inclusive cumsum of the chunk's log
-    // decays, as a warp scan (every warp holds all of it: lane l tokens
-    // 2l and 2l + 1), and the weights w of the state update
-    float incl = ld_cur[0] + ld_cur[1];
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float y = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += y;
-    }
-    const float cl_odd = incl, cl_even = incl - ld_cur[1];
-    const float total = __shfl_sync(0xffffffffu, incl, 31);
-    auto cl_at = [&](int t) {  // cl of token t of the chunk (lane-varying)
-      const float e = __shfl_sync(0xffffffffu, cl_even, t / 2);
-      const float od = __shfl_sync(0xffffffffu, cl_odd, t / 2);
-      return (t & 1) ? od : e;
-    };
-    // (w o v) into its tile, chunk for chunk of 16 bytes: the swizzle
-    // permutes the chunks within a row only, so v's layout carries over
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int ch = tid + kThreads * r;  // 8 chunks of 16 bytes a row
-      const float w = sm90::exp2_ftz(total - cl_at(ch / 8));
-      const uint4 raw =
-          reinterpret_cast<const uint4*>(stage + 2 * kQKBytes)[ch];
-      const __nv_bfloat162* pv = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      uint4 out;
-      uint32_t* po = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(pv[e]);
-        po[e] = sm90::pack_bf16(w * f.x, w * f.y);
-      }
-      reinterpret_cast<uint4*>(wv_sh)[ch] = out;
-    }
-    float cl_col[16];  // cl of this thread's key columns 8 a + 2 tq (+ 1)
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      cl_col[2 * a] = __shfl_sync(0xffffffffu, cl_even, 4 * a + tq);
-      cl_col[2 * a + 1] = __shfl_sync(0xffffffffu, cl_odd, 4 * a + tq);
-    }
-    const float cl_row[2] = {cl_at(row0), cl_at(row0 + 8)};
+    // decays (cd::scan), and the (w v) tile of the state update
+    const cd::Cumsum cl = cd::scan(ld_cur, lane);
+    cd::weighted_v<false, kThreads>(cl, stage + 2 * kQKBytes, wv_sh,
+                                    nullptr, tid);
+    float cl_col[16];  // cl of this thread's key columns
+    cl.cols(tq, cl_col);
+    const float cl_row[2] = {cl.at(row0), cl.at(row0 + 8)};
     if (tid == 0 && c + 1 < chunks) {
       // chunk c + 1 into the stage of chunk c - 1, once the store of
       // that chunk's o has read it
@@ -341,26 +443,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
 
     uint32_t pa[kChunk / 16][4];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int r = (i >> 1) & 1;
-      const int j = 8 * (i / 4) + 2 * tq + (i & 1);
-      // column blocks past the warp's last row are masked whole
-      if (8 * (i / 4) > 16 * warp + 15) {
-        sc[i] = 0.f;
-        continue;
-      }
-      sc[i] = j <= row0 + 8 * r
-                  ? sc[i] * sm90::exp2_ftz(cl_row[r] -
-                                           cl_col[2 * (i / 4) + (i & 1)])
-                  : 0.f;
-    }
+    cd::decay_mask<true>(sc, cl_row, cl_col, warp, tq, row0);
     sm90::to_a<kChunk / 16>(pa, sc);
     const float e_row[2] = {sm90::exp2_ftz(cl_row[0]),
                             sm90::exp2_ftz(cl_row[1])};
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] *= e_row[(i >> 1) & 1];
-    const float e_total = sm90::exp2_ftz(total);
+    const float e_total = sm90::exp2_ftz(cl.total);
 #pragma unroll
     for (int i = 0; i < 64; ++i) st[i] *= e_total;
     sm90::pin(acc);
@@ -565,53 +654,19 @@ __global__ void __launch_bounds__(kThreads, 2)
                               sm90::desc_mn<kDv>(ul_t, kk), 1);
     sm90::mma_commit();
 
-    // behind the products: cl as a warp scan (every warp holds all of it:
-    // lane l tokens 2l and 2l + 1)
-    float incl = ld_cur[0] + ld_cur[1];
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float y = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += y;
-    }
-    const float cl_odd = incl, cl_even = incl - ld_cur[1];
-    const float total = __shfl_sync(0xffffffffu, incl, 31);
-    auto cl_at = [&](int t) {  // cl of token t of the chunk (lane-varying)
-      const float e = __shfl_sync(0xffffffffu, cl_even, t / 2);
-      const float od = __shfl_sync(0xffffffffu, cl_odd, t / 2);
-      return (t & 1) ? od : e;
-    };
-    float cl_col[16];  // cl of this thread's columns 8 a + 2 tq (+ 1)
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      cl_col[2 * a] = __shfl_sync(0xffffffffu, cl_even, 4 * a + tq);
-      cl_col[2 * a + 1] = __shfl_sync(0xffffffffu, cl_odd, 4 * a + tq);
-    }
-    const float cl_row[2] = {cl_at(row0), cl_at(row0 + 8)};
-    const float e_row[2] = {sm90::exp2_ftz(total - cl_row[0]),
-                            sm90::exp2_ftz(total - cl_row[1])};
-    // x o M in place: rows n (this thread's), columns i >= n; column
-    // blocks before the warp's first row are masked whole
-    auto decay_mask = [&](float (&x)[32]) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int r = (i >> 1) & 1;
-        const int col = 8 * (i / 4) + 2 * tq + (i & 1);
-        if (8 * (i / 4) + 7 < 16 * warp) {
-          x[i] = 0.f;
-          continue;
-        }
-        x[i] = col >= row0 + 8 * r
-                   ? x[i] * sm90::exp2_ftz(cl_col[2 * (i / 4) + (i & 1)] -
-                                           cl_row[r])
-                   : 0.f;
-      }
-    };
+    // behind the products: cl (cd::scan)
+    const cd::Cumsum cl = cd::scan(ld_cur, lane);
+    float cl_col[16];  // cl of this thread's columns
+    cl.cols(tq, cl_col);
+    const float cl_row[2] = {cl.at(row0), cl.at(row0 + 8)};
+    const float e_row[2] = {sm90::exp2_ftz(cl.total - cl_row[0]),
+                            sm90::exp2_ftz(cl.total - cl_row[1])};
 
     sm90::mma_wait<0>();
     sm90::pin(p);
     sm90::pin(dka);
     uint32_t ah[kChunk / 16][4], al[kChunk / 16][4];
-    decay_mask(p);
+    cd::decay_mask<false>(p, cl_row, cl_col, warp, tq, row0);
     sm90::to_a_split<kChunk / 16>(ah, al, p);
 #pragma unroll
     for (int i = 0; i < 64; ++i) dka[i] *= e_row[(i >> 1) & 1];
@@ -667,7 +722,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
     if (tid == 0 && j + 1 < chunks) load_kv(j + 1);
     __syncwarp();
-    decay_mask(s);
+    cd::decay_mask<false>(s, cl_row, cl_col, warp, tq, row0);
     sm90::to_a_split<kChunk / 16>(ah, al, s);
 #pragma unroll
     for (int i = 0; i < 32; ++i) dva[i] *= e_row[(i >> 1) & 1];
@@ -695,7 +750,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         }
       }
     }
-    const float e_total = sm90::exp2_ftz(total);
+    const float e_total = sm90::exp2_ftz(cl.total);
 #pragma unroll
     for (int i = 0; i < 64; ++i) ut[i] *= e_total;
     sm90::pin(dva);
@@ -749,6 +804,247 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 }  // namespace sk
+
+// ---------------------------------------------------------------------------
+// the chunked wgmma body of ssd_bwd_q (bf16, Dk = 128, Dv = 64)
+// ---------------------------------------------------------------------------
+
+namespace sq {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kDk = 128;
+constexpr int kDv = 64;
+constexpr int kChunk = 64;     // tokens of a chunk: the M of wgmma
+constexpr int kKStages = 2;    // chunks of k in the TMA ring
+constexpr int kThreads = 128;  // one warpgroup
+constexpr size_t kKBytes = static_cast<size_t>(kChunk) * kDk * 2;
+constexpr size_t kVBytes = static_cast<size_t>(kChunk) * kDv * 2;  // v or Ω
+constexpr size_t kSBytes = static_cast<size_t>(kDv) * kDk * 2;  // S^T, bf16
+// tile offsets (each 1024-byte aligned): the hi and lo copies of S^T; k
+// in a ring of two chunks (its last reads end a chunk); v and Ω once
+// (their last reads are half-way through a chunk, and the next chunk's
+// load starts there); the hi and lo (w v) tiles
+constexpr size_t kSHi = 0;
+constexpr size_t kSLo = kSHi + kSBytes;
+constexpr size_t kK = kSLo + kSBytes;
+constexpr size_t kV = kK + kKStages * kKBytes;
+constexpr size_t kOm = kV + kVBytes;
+constexpr size_t kWvHi = kOm + kVBytes;
+constexpr size_t kWvLo = kWvHi + kVBytes;
+constexpr size_t kBars = kWvLo + kVBytes;
+// beside the tiles: the barriers, and up to 1024 bytes of padding to the
+// tiles' 1024-byte alignment
+constexpr size_t kExtra = 2048;
+// 100,352 B, so that two blocks share an SM
+constexpr size_t kSmem = kBars + kExtra;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One block (one warpgroup) per (batch, head) walks its head's chunks in
+// order, carrying sc's state S (S^T held as the f32 accumulator st, Dv x
+// Dk).  Per chunk of c = 64 tokens, with cl the inclusive cumsum of its
+// log decays (base 2) and `total` its last:
+//   p   = Ω v^T                                    (wgmma, SS; exact)
+//   W   = p o 2^(cl_i - cl_n) for n <= i, else 0
+//   dq  = 2^cl_i (Ω S) + W k                        (SS from S^T's copies,
+//                                                    MN-major; RS, k MN-major)
+//   S^T = 2^total S^T + (w o v)^T k, w_n = 2^(total - cl_n) <= 1
+//                                                  (SS; both MN-major)
+// Every operand that is not a bf16 input (W, the copy of S^T and w o v)
+// goes as a hi + lo pair of bf16 (sm90::pack_bf16_split), two products
+// into one f32 accumulator: ~2^-17 relative, where one bf16 rounding
+// (2^-9) would miss the f32 walk's 1e-4.  dq, the per-head f32 partial,
+// is stored from registers.
+__global__ void __launch_bounds__(kThreads, 2)
+    ssd_bwd_q_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap om_map,
+                           const float* __restrict__ ld,
+                           float* __restrict__ dq, int heads, int per_group,
+                           int n) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = sm90::aligned_smem(smem_raw);
+  unsigned char* s_hi = smem + kSHi;
+  unsigned char* s_lo = smem + kSLo;
+  unsigned char* wv_hi = smem + kWvHi;
+  unsigned char* wv_lo = smem + kWvLo;
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(smem + kBars);  // [2]
+  uint64_t* vo_full = k_full + kKStages;
+
+  const int bh = blockIdx.x;  // batch * heads + head
+  const int bi = bh / heads;
+  const int hi = bh - bi * heads;
+  const int k_slice = bi * (heads / per_group) + hi / per_group;
+  const int chunks = (n + kChunk - 1) / kChunk;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+
+  // rows past n arrive as zeros
+  auto k_tile = [&](int c) { return smem + kK + (c % kKStages) * kKBytes; };
+  auto load_k = [&](int c) {
+    uint64_t* bar = &k_full[c % kKStages];
+    sm90::bar_expect(bar, kKBytes);
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+      sm90::tma_load_3d(k_tile(c) + b * kKBytes / 2, &k_map, bar, 64 * b,
+                        c * kChunk, k_slice);
+  };
+  auto load_vo = [&](int c) {
+    sm90::bar_expect(vo_full, 2 * kVBytes);
+    sm90::tma_load_3d(smem + kV, &v_map, vo_full, 0, c * kChunk, bh);
+    sm90::tma_load_3d(smem + kOm, &om_map, vo_full, 0, c * kChunk, bh);
+  };
+  // lane l's two log decays of chunk c in base 2 (tokens 2l, 2l + 1; 0
+  // past n)
+  const float* ld_row = ld + static_cast<size_t>(bh) * n;
+  auto load_ld = [&](int c, float (&x)[2]) {
+    const int t = c * kChunk + 2 * lane;
+    x[0] = t < n ? ld_row[t] * kLog2e : 0.f;
+    x[1] = t + 1 < n ? ld_row[t + 1] * kLog2e : 0.f;
+  };
+  float* dq_head = dq + static_cast<size_t>(bh) * n * kDk;
+
+  if (tid == 0) {
+    for (int s = 0; s < kKStages; ++s) sm90::bar_init(&k_full[s], 1);
+    sm90::bar_init(vo_full, 1);
+    sm90::bar_init_fence();
+  }
+  // S_0 = 0: both of its copies too
+  for (int i = tid; i < static_cast<int>(2 * kSBytes / 16); i += kThreads)
+    reinterpret_cast<uint4*>(smem + kSHi)[i] = make_uint4(0, 0, 0, 0);
+  sm90::fence_async_smem();
+  __syncthreads();
+  if (tid == 0) {
+    load_k(0);
+    load_vo(0);
+  }
+
+  float st[64];  // S^T: rows (Dv) 16 warp + g (+ 8), columns (Dk) 8 a + 2 tq
+#pragma unroll
+  for (int i = 0; i < 64; ++i) st[i] = 0.f;
+  float ld_cur[2];
+  load_ld(0, ld_cur);
+  const int row0 = 16 * warp + g;  // this thread's rows of a chunk: +0, +8
+
+  for (int c = 0; c < chunks; ++c) {
+    const int t0 = c * kChunk;
+    // every thread is done with chunk c - 1: its k stage and the (w v)
+    // tiles are free, both copies of S^T are whole
+    __syncthreads();
+    if (tid == 0 && c + 1 < chunks) load_k(c + 1);
+    __syncwarp();
+    float ld_next[2] = {0.f, 0.f};
+    if (c + 1 < chunks) load_ld(c + 1, ld_next);
+    sm90::bar_wait(&k_full[c % kKStages], (c / kKStages) & 1);
+    sm90::bar_wait(vo_full, c & 1);
+    __syncwarp();  // the products below are warp-aligned
+    const bf16* k_t = reinterpret_cast<const bf16*>(k_tile(c));
+    const bf16* v_t = reinterpret_cast<const bf16*>(smem + kV);
+    const bf16* om_t = reinterpret_cast<const bf16*>(smem + kOm);
+
+    // p = Ω v^T; Ω S from both copies of S^T
+    float p[32], dqa[64];
+    sm90::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDv / 16; ++kk)
+      sm90::mma_ss_n64(p, sm90::desc_k<kChunk>(om_t, kk),
+                       sm90::desc_k<kChunk>(v_t, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < kDv / 16; ++kk)
+      sm90::mma_ss_n128<0, 1>(
+          dqa, sm90::desc_k<kChunk>(om_t, kk),
+          sm90::desc_mn<kDv>(reinterpret_cast<const bf16*>(s_hi), kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < kDv / 16; ++kk)
+      sm90::mma_ss_n128<0, 1>(
+          dqa, sm90::desc_k<kChunk>(om_t, kk),
+          sm90::desc_mn<kDv>(reinterpret_cast<const bf16*>(s_lo), kk), 1);
+    sm90::mma_commit();
+
+    // behind the products: cl (cd::scan), and the hi and lo (w v) tiles
+    const cd::Cumsum cl = cd::scan(ld_cur, lane);
+    cd::weighted_v<true, kThreads>(cl, smem + kV, wv_hi, wv_lo, tid);
+    float cl_col[16];  // cl of this thread's key columns
+    cl.cols(tq, cl_col);
+    const float cl_row[2] = {cl.at(row0), cl.at(row0 + 8)};
+    __syncwarp();
+    sm90::mma_wait<0>();  // p and Ω S
+    sm90::pin(p);
+    sm90::pin(dqa);
+    // the (w v) tiles for the state update; the fence also orders this
+    // thread's reads of v before the TMA load that reuses its tile
+    sm90::fence_async_smem();
+    // every warp is done with v, Ω and both copies of S^T, and the (w v)
+    // tiles are whole: the next chunk's v and Ω load behind the rest of
+    // this one
+    __syncthreads();
+    if (tid == 0 && c + 1 < chunks) load_vo(c + 1);
+    __syncwarp();
+
+    // W = p o M in place: rows i (this thread's), columns n <= i
+    cd::decay_mask<true>(p, cl_row, cl_col, warp, tq, row0);
+    uint32_t wh[kChunk / 16][4], wl[kChunk / 16][4];
+    sm90::to_a_split<kChunk / 16>(wh, wl, p);
+    const float e_row[2] = {sm90::exp2_ftz(cl_row[0]),
+                            sm90::exp2_ftz(cl_row[1])};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dqa[i] *= e_row[(i >> 1) & 1];
+    const float e_total = sm90::exp2_ftz(cl.total);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) st[i] *= e_total;
+    sm90::pin(dqa);
+    sm90::pin(st);
+    sm90::pin(wh);
+    sm90::pin(wl);
+    sm90::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      sm90::mma_rs_n128(dqa, wh[kk], sm90::desc_mn<kChunk>(k_t, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      sm90::mma_rs_n128(dqa, wl[kk], sm90::desc_mn<kChunk>(k_t, kk), 1);
+    sm90::mma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      sm90::mma_ss_n128<1, 1>(
+          st, sm90::desc_mn<kChunk>(reinterpret_cast<const bf16*>(wv_hi), kk),
+          sm90::desc_mn<kChunk>(k_t, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      sm90::mma_ss_n128<1, 1>(
+          st, sm90::desc_mn<kChunk>(reinterpret_cast<const bf16*>(wv_lo), kk),
+          sm90::desc_mn<kChunk>(k_t, kk), 1);
+    sm90::mma_commit();
+
+    sm90::mma_wait<1>();  // dq, while the state update runs
+    sm90::pin(dqa);
+    sm90::pin(wh);
+    sm90::pin(wl);
+    // dq rows from registers: a quad's 8-byte stores fill 32-byte sectors
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = t0 + row0 + 8 * r;
+      if (row < n) {
+        float* out = dq_head + static_cast<size_t>(row) * kDk + 2 * tq;
+#pragma unroll
+        for (int a = 0; a < kDk / 8; ++a)
+          *reinterpret_cast<float2*>(out + 8 * a) =
+              make_float2(dqa[4 * a + 2 * r], dqa[4 * a + 2 * r + 1]);
+      }
+    }
+    sm90::mma_wait<0>();
+    sm90::pin(st);
+    // the hi and lo copies of the new S^T, the B of the next readout
+    sm90::store_tile_split<kDk / 8>(s_hi, s_lo, st);
+    sm90::fence_async_smem();
+    ld_cur[0] = ld_next[0];
+    ld_cur[1] = ld_next[1];
+  }
+}
+
+}  // namespace sq
 
 namespace {
 
@@ -1182,8 +1478,9 @@ auto kernel_of() {
 // The launch of one of the three kernels, shared by the launchers and
 // `ssd_plan`: f(Type<T>{}, kernel, geometry, Int<wgmma>{}) for the
 // instantiation a call with these arguments runs.  One block per (batch,
-// head).  The wgmma bodies (ssd_fwd and ssd_bwd_kv in bf16 at (128, 64))
-// walk chunks of sc::kChunk = sk::kChunk tokens, which `stage` must name;
+// head).  The wgmma bodies (all three kernels in bf16 at (128, 64)) walk
+// chunks of sc::kChunk = sq::kChunk = sk::kChunk tokens, which `stage`
+// must name;
 // the token walk stages `stage` tokens per iteration, shrunk to fit
 // kMaxSmem.
 template <Kind K, typename F>
@@ -1198,6 +1495,16 @@ cudaError_t with_launch(int dtype, int dk, int dv, int batch, int heads,
         return f(t, sc::ssd_fwd_wgmma_kernel,
                  plan::Geometry{dim3(batch * heads), sc::kThreads, sc::kSmem,
                                 sc::kChunk},
+                 plan::Int<1>{});
+      }
+    }
+    if constexpr (K == Kind::kBwdQ &&
+                  std::is_same<T, __nv_bfloat16>::value) {
+      if (dk == sq::kDk && dv == sq::kDv) {
+        if (stage != sq::kChunk) return cudaErrorInvalidValue;
+        return f(t, sq::ssd_bwd_q_wgmma_kernel,
+                 plan::Geometry{dim3(batch * heads), sq::kThreads, sq::kSmem,
+                                sq::kChunk},
                  plan::Int<1>{});
       }
     }
@@ -1278,6 +1585,21 @@ int run(const Args& a, int dk, int dv, int dtype) {
                               om_map, ld, static_cast<float*>(a.out0),
                               static_cast<float*>(a.out1), a.heads,
                               per_group, a.n);
+        } else if constexpr (decltype(body)::value == 1 &&
+                             K == Kind::kBwdQ) {
+          CUtensorMap k_map, v_map, om_map;
+          cudaError_t err = sm90::map_rows(&k_map, k, a.n,
+                                           a.batch * a.groups, sq::kChunk);
+          if (err == cudaSuccess)
+            err = sm90::map_rows(&v_map, v, a.n, a.batch * a.heads,
+                                 sq::kChunk, sq::kDv);
+          if (err == cudaSuccess)
+            err = sm90::map_rows(&om_map, om, a.n, a.batch * a.heads,
+                                 sq::kChunk, sq::kDv);
+          if (err != cudaSuccess) return err;
+          return plan::launch(kernel, geo, a.stream, k_map, v_map, om_map,
+                              ld, static_cast<float*>(a.out0), a.heads,
+                              per_group, a.n);
         } else if constexpr (decltype(body)::value == 1) {
           CUtensorMap q_map, k_map, v_map, o_map;
           cudaError_t err = sm90::map_rows(&q_map, q, a.n,
@@ -1314,11 +1636,11 @@ int run(const Args& a, int dk, int dv, int dtype) {
 
 // Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16
 // (of q, k, v, Ω and o).  Each returns the cudaError_t of its launch
-// (0 = success); the launch is asynchronous on `stream`.  `ssd_fwd` and
-// `ssd_bwd_kv` in bf16 at (Dk, Dv) = (128, 64) run their wgmma bodies:
-// `stage` must be the chunk (64), and their TMA reads need q, k, v (and
-// Ω) 16-byte aligned (the wrapper checks it; a map that cannot be encoded
-// is refused with cudaErrorInvalidValue).
+// (0 = success); the launch is asynchronous on `stream`.  All three in
+// bf16 at (Dk, Dv) = (128, 64) run their wgmma bodies: `stage` must be the
+// chunk (64), and their TMA reads need q, k, v (and Ω) 16-byte aligned
+// (the wrapper checks it; a map that cannot be encoded is refused with
+// cudaErrorInvalidValue).
 extern "C" int ssd_fwd(const void* q, const void* k, const void* v,
                        const void* ld, void* o, int batch, int heads,
                        int groups, int n, int dk, int dv, int stage,

@@ -54,6 +54,18 @@ staging size, and no result depends on it.
     as a hi + lo pair of bf16 values, so dq, dk and dv stay within one
     bf16 step where q and k share a direction; the kernels are compiled
     for exactly this chunk and refuse any other.
+  * `SSD_BWD_Q_WGMMA_STATE_DIMS`, `SSD_BWD_Q_K_RING` — `ssd_bwd_q`'s
+    "wgmma" body (bf16 at (Dk, Dv) in `SSD_BWD_Q_WGMMA_STATE_DIMS`,
+    mamba2-2.7b's training instance; chunks of `SSD_CHUNK_TOKENS`):
+    `ssd_fwd`'s forward chunk walk with the readout dq = S Ω.  k is read
+    to a chunk's end and kept in a ring of `SSD_BWD_Q_K_RING` chunks; v
+    and Ω are read in a chunk's first half only and kept once (the next
+    chunk's load starts half-way).  With the hi and lo bf16 copies of
+    S^T and of the (w v) tile that is 100,352 B, two blocks an SM, and
+    the 160 blocks of the timing shape run in one wave.  Every operand
+    that is not a bf16 input (the decay-masked p o M, the copies of S^T,
+    w v) goes as a hi + lo pair, so the f32 dq partials round at ~2^-17
+    relative.
   * `SSD_BWD_KV_QO_RING` — the ring depth of q and Ω in `ssd_bwd_kv`'s
     "wgmma" body (bf16 at (Dk, Dv) in `SSD_BWD_KV_WGMMA_STATE_DIMS`,
     mamba2-2.7b's training instance; chunks of `SSD_CHUNK_TOKENS`).  The
@@ -111,15 +123,15 @@ staging size, and no result depends on it.
     take `DEFAULT_SCAN_CHUNK`, as the linear ones do.
 
   * `SSD_STAGE_TOKENS` — the same staging size for the token walk of the
-    SSD (Mamba-2) kernels (`ssd_fwd` in f32 and at the smoke dims,
-    `ssd_bwd_q`, `ssd_bwd_kv` in f32 and at the smoke dims), which stage
+    SSD (Mamba-2) kernels (each of `ssd_fwd`, `ssd_bwd_q` and
+    `ssd_bwd_kv` in f32 and at the smoke dims), which stage
     q, k, v (and Ω in the backward) and each token's decay.  The reference's
     `DEFAULT_TILES["ssd"]["chunk"] = 128` is the VMEM tile of its Pallas
     SSD kernels; the token-by-token walk makes the result independent of
     it.  At 32 tokens a block of `ssd_bwd_kv` stages ~86 KB, so two
     blocks share an SM.  The plain SSD scans (core/ssd.py) take
     `DEFAULT_SCAN_CHUNK`.
-  * `SSD_CHUNK_TOKENS`, `SSD_CHUNK_RING` — the chunk of both SSD
+  * `SSD_CHUNK_TOKENS`, `SSD_CHUNK_RING` — the chunk of the three SSD
     "wgmma" bodies and the ring depth of `ssd_fwd`'s "wgmma" body (bf16 at (Dk, Dv) in
     `SSD_WGMMA_STATE_DIMS`, mamba2-2.7b's training instance; the dtype,
     the dims and the entry pick the body, `ssd.ssd_body`).  A chunk is
@@ -147,6 +159,8 @@ SSD_CHUNK_TOKENS = 64
 SSD_CHUNK_RING = 2
 SSD_WGMMA_STATE_DIMS = ((128, 64),)
 SSD_BWD_KV_WGMMA_STATE_DIMS = ((128, 64),)
+SSD_BWD_Q_WGMMA_STATE_DIMS = ((128, 64),)
+SSD_BWD_Q_K_RING = 2
 SSD_BWD_KV_QO_RING = 2
 LA_CHUNK_TOKENS = 64
 LA_CHUNK_RING = 2

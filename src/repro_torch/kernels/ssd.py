@@ -27,13 +27,13 @@ in v's dtype; the partials and dv in float32.  The wrappers take
 contiguous CUDA tensors only and raise on anything else; nothing falls
 back to the plain version.
 
-`ssd_fwd` and `ssd_bwd_kv` have two bodies each, chosen by
-`ssd_body(entry, dtype, dk, dv)`: "wgmma" (bf16 at (Dk, Dv) = (128, 64),
-mamba2-2.7b's training instance: a chunked scan on the tensor cores, the
-forward's in chunk order, `ssd_bwd_kv`'s in reverse with its non-input
+Each kernel has two bodies, chosen by `ssd_body(entry, dtype, dk, dv)`:
+"wgmma" (bf16 at (Dk, Dv) = (128, 64), mamba2-2.7b's training instance:
+a chunked scan on the tensor cores, `ssd_fwd`'s and `ssd_bwd_q`'s in
+chunk order, `ssd_bwd_kv`'s in reverse, the backward's non-input
 operands as hi + lo bf16 pairs; fed by TMA, so q, k, v and Ω must be
 16-byte aligned, which the wrappers check) and "walk" (f32, and bf16 at
-(16, 32): the token walk, as is `ssd_bwd_q` at every shape).
+(16, 32): the token walk).
 
 Beside each wrapper, `plan_<entry>` gives the entry's launch plan
 (kernels/plan.py) from the same arguments' shapes.
@@ -47,8 +47,9 @@ import torch
 from repro_torch.core import ssd as _ssd
 from repro_torch.kernels import build, plan
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
-    SSD_BWD_KV_QO_RING, SSD_BWD_KV_WGMMA_STATE_DIMS, SSD_CHUNK_RING, \
-    SSD_CHUNK_TOKENS, SSD_STAGE_TOKENS, SSD_WGMMA_STATE_DIMS
+    SSD_BWD_KV_QO_RING, SSD_BWD_KV_WGMMA_STATE_DIMS, SSD_BWD_Q_K_RING, \
+    SSD_BWD_Q_WGMMA_STATE_DIMS, SSD_CHUNK_RING, SSD_CHUNK_TOKENS, \
+    SSD_STAGE_TOKENS, SSD_WGMMA_STATE_DIMS
 
 F32 = torch.float32
 # (Dk, Dv) the kernels are instantiated for: mamba2-2.7b (state 128, head
@@ -63,14 +64,16 @@ launches = {"ssd_fwd": 0, "ssd_bwd_q": 0, "ssd_bwd_kv": 0}
 
 # (Dk, Dv) at which an entry runs its wgmma body in bf16
 _WGMMA_DIMS = {"ssd_fwd": SSD_WGMMA_STATE_DIMS,
+               "ssd_bwd_q": SSD_BWD_Q_WGMMA_STATE_DIMS,
                "ssd_bwd_kv": SSD_BWD_KV_WGMMA_STATE_DIMS}
 
 
 def ssd_body(entry: str, dtype, dk: int, dv: int) -> str:
     """The body an SSD entry runs for this compute dtype and (Dk, Dv):
     "wgmma" (`ssd_fwd` in bf16 at (Dk, Dv) in SSD_WGMMA_STATE_DIMS,
-    `ssd_bwd_kv` in bf16 at (Dk, Dv) in SSD_BWD_KV_WGMMA_STATE_DIMS) or
-    "walk"."""
+    `ssd_bwd_q` at (Dk, Dv) in SSD_BWD_Q_WGMMA_STATE_DIMS, `ssd_bwd_kv` at
+    (Dk, Dv) in SSD_BWD_KV_WGMMA_STATE_DIMS: chunked scans on the tensor
+    cores) or "walk" (the token walk: f32, and bf16 at the other dims)."""
     return ("wgmma" if dtype == torch.bfloat16
             and (dk, dv) in _WGMMA_DIMS.get(entry, ()) else "walk")
 
@@ -161,7 +164,7 @@ def ssd_bwd_q_cuda(k, v, log_decay, omega):
     with torch.cuda.device(k.device):
         err = lib.ssd_bwd_q(k.data_ptr(), v.data_ptr(), log_decay.data_ptr(),
                             omega.data_ptr(), dq.data_ptr(), bsz, h, g, n,
-                            dk, dv, SSD_STAGE_TOKENS,
+                            dk, dv, _stage("ssd_bwd_q", k.dtype, dk, dv),
                             build.DTYPE_CODE[k.dtype],
                             build.current_stream(k.device))
     build.raise_on(lib, "ssd", "ssd_bwd_q", err)
@@ -224,11 +227,17 @@ def _wgmma_block(entry, dk, dv):
     """(threads, dynamic shared memory) of an entry's wgmma body block.
     `ssd_fwd`, as csrc/ssd.cu's `sc::kSmem`: SSD_CHUNK_RING chunks of bf16
     q, k (Dk wide) and v (Dv wide), the bf16 (w v) tile of a chunk, the
-    bf16 copy of S^T (Dv x Dk), and the barriers and pad.  `ssd_bwd_kv`,
-    as `sk::kSmem`: the hi and lo bf16 copies of U^T (Dv x Dk),
-    SSD_BWD_KV_QO_RING chunks of q and Ω, one of k and v, and the
-    barriers and pad."""
+    bf16 copy of S^T (Dv x Dk), and the barriers and pad.  `ssd_bwd_q`, as
+    `sq::kSmem`: the hi and lo bf16 copies of S^T, SSD_BWD_Q_K_RING chunks
+    of k, one of v and Ω, the hi and lo (w v) tiles, and the barriers and
+    pad.  `ssd_bwd_kv`, as `sk::kSmem`: the hi and lo bf16 copies of U^T
+    (Dv x Dk), SSD_BWD_KV_QO_RING chunks of q and Ω, one of k and v, and
+    the barriers and pad."""
     c = SSD_CHUNK_TOKENS
+    if entry == "ssd_bwd_q":
+        return _WGMMA_THREADS, (2 * 2 * dv * dk + SSD_BWD_Q_K_RING * 2 * c
+                                * dk + 2 * 2 * c * dv + 2 * 2 * c * dv
+                                + _WGMMA_EXTRA)
     if entry == "ssd_bwd_kv":
         pair = 2 * (c * dk + c * dv)   # q and Ω, or k and v, of a chunk
         return _WGMMA_THREADS, (2 * 2 * dv * dk + SSD_BWD_KV_QO_RING * pair

@@ -7,7 +7,8 @@ blocks per (batch, query head), one per half of the value columns;
 `ssd_bwd_kv` in bf16 at (Dk, Dv) = (128, 64) a reverse chunked scan, one
 block per (batch, head), its operands that are not bf16 inputs sent as
 hi + lo pairs of bf16.  f32, the other dims and `gla_fwd` keep the token
-walk.
+walk (`ssd_bwd_q`'s chunked body is held by
+tests/test_torch_gated_sm90.py).
 
   * plan tests on meta tensors at N = 8192, 1000, 65 and 1, G = 1 and 4:
     the bodies' geometry, shared memory within the H100's 232,448 bytes
@@ -34,10 +35,15 @@ import pytest
 import torch
 
 try:
+    import jax
     import jax.numpy as jnp
 
     from repro.core import chunked as jchunked
     from repro.core import ssd as jssd
+
+    # one compile per shape (a, b and the chunk are static)
+    _jax_la_fwd = jax.jit(jchunked.la_fwd_chunked, static_argnums=(3, 4, 5))
+    _jax_ssd_bwd = jax.jit(jssd.ssd_bwd_chunked, static_argnums=(6,))
 except ImportError:   # the port alone, on the machine with the card
     jnp = None
 
@@ -296,8 +302,8 @@ def test_emulated_la_fwd_matches_jax_reference():
     for hkv in (4, 2):
         q, k, v = _la_inputs(rng, 2, 4, hkv, 300)
         o, g = _emulate_la_fwd(q, k, v, 1.0, 1.0)
-        want_o, want_g, _ = jchunked.la_fwd_chunked(_np(q), _np(k), _np(v),
-                                                    1.0, 1.0, chunk=128)
+        want_o, want_g, _ = _jax_la_fwd(_np(q), _np(k), _np(v), 1.0, 1.0,
+                                        128)
         assert np.isfinite(o.float().numpy()).all()
         assert _rel(o.float(), want_o) <= BF16_REL, hkv
         assert _rel(g, want_g) <= SEQ_F32_REL, hkv
@@ -315,9 +321,9 @@ def test_emulated_ssd_bwd_kv_matches_jax_reference():
     for g, regime in ((1, "init"), (2, "strong")):
         q, k, v, ld, om = _ssd_inputs(rng, b, g, h, n, regime)
         dk_p, dv = _emulate_ssd_bwd_kv(q, k, v, ld, om)
-        _, want_dk, want_dv, _ = jssd.ssd_bwd_chunked(
+        _, want_dk, want_dv, _ = _jax_ssd_bwd(
             _np(q), _np(k), _np(v), jnp.asarray(ld.numpy()),
-            jnp.zeros(v.shape, jnp.float32), _np(om))
+            jnp.zeros(v.shape, jnp.float32), _np(om), 128)
         dk = dk_p.reshape(b, g, h // g, n, DK).sum(2)
         assert np.isfinite(dk.numpy()).all() and np.isfinite(dv.numpy()).all()
         assert _rel(dk, want_dk) <= SEQ_F32_REL, (g, regime)

@@ -5,8 +5,9 @@ kernel against its plain version.
 `ssd_fwd` in bf16 at (Dk, Dv) = (128, 64) runs the wgmma body: one
 warpgroup per (batch, head) walking chunks of 64 tokens, four tensor-core
 products per chunk, the state an f32 accumulator; f32 at every shape and
-bf16 at (16, 32) keep the token walk, as does `ssd_bwd_q` (`ssd_bwd_kv`
-has a chunked body of its own, tests/test_torch_chunked_sm90.py).
+bf16 at (16, 32) keep the token walk (`ssd_bwd_q` and `ssd_bwd_kv` have
+chunked bodies of their own at (128, 64), tests/test_torch_gated_sm90.py
+and tests/test_torch_chunked_sm90.py).
 
   * plan tests on meta tensors at N = 8192, 1000, 65 and 1, G = 1 and 4:
     the body's geometry, shared memory within the H100's 232,448 bytes,
@@ -64,7 +65,8 @@ def _fwd_plan(dtype, b, g, h, n, dk=DK, dv=DV):
 def test_wgmma_plan_geometry_and_chunks(g):
     """bf16 at (128, 64): one warpgroup per (batch, head), 108,544 B of
     shared memory (two blocks to an SM), the chunk as the C call's stage;
-    its chunks cover [0, N) exactly; ssd_bwd_q keeps the walk."""
+    its chunks cover [0, N) exactly; ssd_bwd_q and ssd_bwd_kv run their
+    own wgmma bodies there, and the walk in f32 and at (16, 32)."""
     b, h = 2, 16 if g == 4 else 80
     for n in (8192, 1000, 65, 1):
         p = _fwd_plan(BF16, b, g, h, n)
@@ -79,10 +81,12 @@ def test_wgmma_plan_geometry_and_chunks(g):
         assert spans[0][0] == 0 and spans[-1][1] == n
         assert all(a[1] == b_[0] for a, b_ in zip(spans, spans[1:]))
         assert len(spans) == -(-n // SSD_CHUNK_TOKENS)
-    # ssd_bwd_q keeps the walk; ssd_bwd_kv's own wgmma body is held by
-    # tests/test_torch_chunked_sm90.py
-    assert tkssd.ssd_body("ssd_bwd_q", BF16, DK, DV) == "walk"
-    assert tkssd.ssd_body("ssd_bwd_kv", BF16, DK, DV) == "wgmma"
+    # the backward's own wgmma bodies are held by
+    # tests/test_torch_gated_sm90.py and tests/test_torch_chunked_sm90.py
+    for entry in ("ssd_bwd_q", "ssd_bwd_kv"):
+        assert tkssd.ssd_body(entry, BF16, DK, DV) == "wgmma"
+        assert tkssd.ssd_body(entry, F32, DK, DV) == "walk"
+        assert tkssd.ssd_body(entry, BF16, 16, 32) == "walk"
 
 
 def test_walk_plans_unchanged():
