@@ -54,9 +54,16 @@ fails the run by raising (no result line is printed then):
                gla_decode_fused at the serving shapes and with G=4, bf16
                and f32, state in place, a zero normalizer; gla_fwd,
                gla_bwd_q and gla_bwd_kv at the training shapes, odd
-               N=1000 and G=4, bf16 and f32 (o, g, dq, dk, dv and dld);
-               and at log_decay = 0 each gated kernel against its linear
-               counterpart; the SSD kernels ssd_fwd, ssd_bwd_q and
+               N=1000 and G=4, bf16 and f32 (o, g, dq, dk, dv and dld;
+               every bf16 case runs the gated chunked wgmma bodies of
+               gla_fwd and gla_bwd_kv, every f32 case their token walks,
+               asserted from the C plan exports; a second launch of each
+               in the bf16 main case must give bit-equal o, g, dq, dk and
+               dV'); and at log_decay = 0 each gated kernel against its
+               linear counterpart, in f32 (the walks) and in bf16 (the
+               gated wgmma bodies against the linear ones, within one
+               bf16 step; dV' against its plain version); the SSD
+               kernels ssd_fwd, ssd_bwd_q and
                ssd_bwd_kv at mamba2-2.7b's training shapes (B=2, G=1,
                H=80, N=8192, Dk=128, Dv=64), odd N=1000 and G=4 with
                H=16, bf16 and f32, under a fresh layer's decay
@@ -101,11 +108,13 @@ fails the run by raising (no result line is printed then):
   5. train   — full width pythia-1.4b (f32 params, bf16 compute, the
                config's remat) on SyntheticLM batches of 2 x 8192 tokens
                (seed 0), once per backend (linear, softmax, gla), and
-               full-width mamba2-2.7b the same way: the
-               first step's loss and the grads of every layer's
-               wq/wk/wv/wo (and gla's gate wg), ln_f and lm_head (mamba2:
-               every grad, beside a second plain run's spread) on the
-               kernel path against the plain path from one set of weights;
+               full-width mamba2-2.7b the same way: the first step's
+               loss and grads on the kernel path against the plain path
+               from one set of weights (linear and softmax: every
+               layer's wq/wk/wv/wo, ln_f and lm_head within 2^-4 of
+               their max |value|; gla and mamba2: every grad in two
+               legs, in bf16 compute each kind of leaf beside a second
+               plain run's spread, in f32 compute each grad within 2^-4);
                then 4 steps through the Trainer, each launching the
                forward kernel 48 times (remat runs each layer's forward
                twice) and each backward kernel 24 times (la_fwd /
@@ -124,13 +133,14 @@ fails the run by raising (no result line is printed then):
                contiguous one on the same keys; flash_fwd, flash_bwd_q
                and flash_bwd_kv also with their achieved TFLOP/s beside
                their bounds' and the ptxas report of every flash
-               instantiation; la_fwd, la_bwd_q, la_bwd_kv, ssd_fwd,
-               ssd_bwd_q and ssd_bwd_kv with the body that ran, its ptxas
+               instantiation; la_fwd, la_bwd_q, la_bwd_kv, gla_fwd,
+               gla_bwd_kv, ssd_fwd, ssd_bwd_q and ssd_bwd_kv with the
+               body that ran, its ptxas
                registers and spills, shared memory per block, the blocks
                an SM holds and the bound of that body beside the walk's;
-               the three LA kernels and ssd_bwd_q also with their
-               tensor-core and byte times and beside their token walks
-               (f32 inputs) in turns; the
+               the three LA kernels, gla_fwd, gla_bwd_kv and ssd_bwd_q
+               also with their tensor-core and byte times and beside
+               their token walks (f32 inputs) in turns; the
                fixture at n = 2^24 f32, block 256
   7. result  — a JSON line with every measurement, the card's line, a
                `kernels` JSON line, then {"ok": true, "device": {...}}
@@ -256,13 +266,16 @@ LD0_REL = 1e-6
 # matmuls forward and back
 TRAIN_LOSS_REL = 2.0 ** -8
 TRAIN_GRAD_REL = 2.0 ** -4
-# the GLA gate's grads (wg) at init: d log_sigmoid(z + 6)/dz ~ e^-6 scales
-# a sum over 16,384 tokens that mostly cancels, so in bf16 compute they are
+# the GLA and mamba2 grads at init in bf16 compute: the GLA gate's (wg:
+# d log_sigmoid(z + 6)/dz ~ e^-6 scales a sum over 16,384 tokens that
+# mostly cancels), every mamba2 leaf's and GLA's deep q projections' sit
 # at the level of the rounding noise itself: two plain runs that differ
-# only in the scan chunk (512 against 256) disagree by up to 1.39x their
-# largest |value| (NVIDIA H100 80GB HBM3, 700 W; PERF.md).  The kernel path is held to that spread: all wg grads
-# together differ from the plain path by at most GATE_NOISE_FACTOR times
-# the norm by which the two plain runs differ
+# only in the scan chunk (512 against 256) disagree by up to 1.39x (wg)
+# and 2x (mamba2) their largest |value| (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md).  There the kernel path is held to that spread: each kind of
+# leaf, in norm over its layers, differs from the plain path by at most
+# GATE_NOISE_FACTOR times the norm by which the two plain runs differ
+# (`_train_legs`, beside a strict f32-compute leg)
 GATE_NOISE_FACTOR = 2.0
 # the softmax kernels against their plain versions: bf16 o within one
 # bf16 step (the kernels round P to bf16 before P V, as FlashAttention-2
@@ -843,10 +856,27 @@ def _gla_case(torch, gen, b, h, hkv, n, d, dtype, regime):
     return q, k, v, ld, om_hat, h_vec
 
 
+def _gla_body(entry, q, k, v, ld, om_hat, h_vec):
+    """The body gla_fwd or gla_bwd_kv runs for these operands, held to
+    its launcher's C export: "wgmma" or "walk"."""
+    from repro_torch.kernels import gla
+    from repro_torch.kernels import linear_attention as la
+    d = q.shape[-1]
+    if entry == "gla_fwd":
+        return _c_body(la.la_fwd_body(q.dtype, d, entry),
+                       gla.plan_gla_fwd(q, k, v, ld, 1.0, 1.0))
+    return _c_body(la.la_bwd_body(entry, q.dtype, d),
+                   gla.plan_gla_bwd_kv(q, k, v, ld, om_hat, h_vec, 1.0, 1.0))
+
+
 def phase_kernel_gla(torch):
     """gla_decode_fused, gla_fwd, gla_bwd_q and gla_bwd_kv against their
     plain versions, under both decay regimes; at log_decay = 0 against
-    the linear kernels."""
+    the linear kernels (f32: the walks; bf16: the gated instances of the
+    chunked wgmma bodies against the linear ones).  Every bf16 case runs
+    gla_fwd's and gla_bwd_kv's chunked wgmma bodies, every f32 case their
+    token walks (from the launchers' C plan exports); the bf16 main case
+    launches each kernel twice for bit-equal o, g, dq, dk and dV'."""
     from repro_torch.core import gla as core_gla
     from repro_torch.kernels import decode_fused as df
     from repro_torch.kernels import gla
@@ -898,10 +928,31 @@ def phase_kernel_gla(torch):
         log(f"[kernel] gla {label}: B={b} H={h} Hkv={hkv} N={n} D={d} "
             f"{dtype}, log decay {regime}")
         rel = BF16_REL if dtype == bf16 else SEQ_F32_REL
+        expect = "wgmma" if dtype == bf16 else "walk"
+        bodies = {e: _gla_body(e, q, k, v, ld, om_hat, h_vec)[0]
+                  for e in ("gla_fwd", "gla_bwd_kv")}
+        if set(bodies.values()) != {expect}:
+            raise AssertionError(f"gla {label}: bodies {bodies}, not "
+                                 f"{expect}")
+        log(f"  gla {label} bodies (C plan exports): {bodies}")
         o_k, g_k = gla.gla_fwd_cuda(q, k, v, ld, 1.0, 1.0)
         dq_k = gla.gla_bwd_q_cuda(k, v, ld, om_hat, h_vec, 1.0)
         dk_k, dva_k = gla.gla_bwd_kv_cuda(q, k, v, ld, om_hat, h_vec, 1.0,
                                           1.0)
+        if label == "main_bf16":
+            again = (*gla.gla_fwd_cuda(q, k, v, ld, 1.0, 1.0),
+                     gla.gla_bwd_q_cuda(k, v, ld, om_hat, h_vec, 1.0),
+                     *gla.gla_bwd_kv_cuda(q, k, v, ld, om_hat, h_vec, 1.0,
+                                          1.0))
+            torch.cuda.synchronize()
+            for name, x, y in zip(("o", "g", "dq", "dk", "dV'"),
+                                  (o_k, g_k, dq_k, dk_k, dva_k), again):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"gla main_bf16: two launches give "
+                                         f"different {name}")
+            log(f"  gla {label} o, g, dq, dk, dV': two launches bit-equal "
+                f"({bodies})")
+            del again
         torch.cuda.synchronize()
         o_t, g_t = gla.gla_fwd_torch(q, k, v, ld, 1.0, 1.0)
         dq_t = gla.gla_bwd_q_torch(k, v, ld, om_hat, h_vec, 1.0)
@@ -961,6 +1012,38 @@ def phase_kernel_gla(torch):
         f"{[name for name, got, want in pairs if torch.equal(got, want)]}")
     errs["ld0_vs_linear"] = ld0
     del q, k, v, om_hat, h_vec, pairs
+
+    # log_decay = 0 in bf16: the gated wgmma bodies against the linear
+    # ones (every decay factor is 1; the gated bodies send A, S's copy and
+    # the update's operands as hi + lo pairs where the linear forward
+    # rounds once), o, dk and dv within one bf16 step, g within the f32
+    # walk's limit, and dV' against the plain version at log_decay = 0
+    q, k, v, _, om_hat, h_vec = _gla_case(torch, gen, b, h, hkv, n, d, bf16,
+                                          "trained")
+    bodies = {e: _gla_body(e, q, k, v, zero, om_hat, h_vec)[0]
+              for e in ("gla_fwd", "gla_bwd_kv")}
+    if set(bodies.values()) != {"wgmma"}:
+        raise AssertionError(f"gla ld0 bf16: bodies {bodies}, not wgmma")
+    o_g, g_g = gla.gla_fwd_cuda(q, k, v, zero, 1.0, 1.0)
+    o_l, g_l = la.la_fwd_cuda(q, k, v, 1.0, 1.0)
+    dk_g, dva_g = gla.gla_bwd_kv_cuda(q, k, v, zero, om_hat, h_vec, 1.0,
+                                      1.0)
+    dk_l, dv_l = la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec, 1.0, 1.0)
+    torch.cuda.synchronize()
+    _, dva_t = gla.gla_bwd_kv_torch(q, k, v, zero, om_hat, h_vec, 1.0, 1.0)
+    pairs = [("o", o_g, o_l, BF16_REL), ("g", g_g, g_l, SEQ_F32_REL),
+             ("dk", dk_g, dk_l, BF16_REL),
+             ("dv", dva_g[..., :d], dv_l, BF16_REL),
+             ("dV' (plain)", dva_g, dva_t, SEQ_F32_REL)]
+    ld0_bf16 = {name: check_close(f"gla bf16 at log_decay = 0 vs linear "
+                                  f"body, {name}", got, want, rel)
+                for name, got, want, rel in pairs}
+    same = [name for name, got, want, _ in pairs[:4]
+            if torch.equal(got.to(want.dtype), want)]
+    log(f"  bf16 log_decay = 0 ({bodies}): bit-identical to the linear "
+        f"bodies: {same}")
+    errs["ld0_bf16_vs_linear"] = ld0_bf16
+    del q, k, v, om_hat, h_vec, pairs, dva_t
     torch.cuda.empty_cache()
     return errs
 
@@ -1710,12 +1793,11 @@ def phase_smoke_reference(torch, arch="pythia-1.4b"):
 # ---------------------------------------------------------------------------
 
 def _compared_grad(path: str) -> bool:
-    """Every layer's wq/wk/wv/wo (and gla's gate wg), ln_f and
-    lm_head."""
+    """Every layer's wq/wk/wv/wo, ln_f and lm_head."""
     parts = path.split(".")
     return (parts[0] in ("ln_f", "lm_head")
             or (parts[0] == "blocks" and parts[2] == "mixer"
-                and parts[3] in ("wq", "wk", "wv", "wo", "wg")))
+                and parts[3] in ("wq", "wk", "wv", "wo")))
 
 
 def _train_compare(torch, mdl, cfg, params, batch):
@@ -1736,66 +1818,20 @@ def _train_compare(torch, mdl, cfg, params, batch):
                            loss_t, TRAIN_LOSS_REL)
     if not (torch.isfinite(loss_k) and torch.isfinite(loss_t)):
         raise AssertionError("non-finite first-step loss")
-    gate = [i for i, (path, _) in enumerate(named) if ".wg." in path]
     grad_errs = {}
-    for i, ((path, _), gk, gt) in enumerate(zip(named, grads_k, grads_t)):
+    for (path, _), gk, gt in zip(named, grads_k, grads_t):
         err, scale = rel_err(gk, gt)
         grad_errs[path] = err / scale
-        if not torch.isfinite(gk).all() or (
-                i not in gate and not err <= TRAIN_GRAD_REL * scale):
+        if not torch.isfinite(gk).all() or not err <= TRAIN_GRAD_REL * scale:
             raise AssertionError(f"grad {path}: max abs err {err} > "
                                  f"{TRAIN_GRAD_REL} * {scale}")
-    worst = max((p for i, (p, _) in enumerate(named) if i not in gate),
-                key=grad_errs.get)
-    log(f"  {len(named) - len(gate)} grads within {TRAIN_GRAD_REL} of "
-        f"their max |value|; worst {worst} at {grad_errs[worst]!r}")
-    rec = {"loss_cuda": float(loss_k), "loss_torch": float(loss_t),
-           "loss_abs_err": loss_err, "grads_compared": len(named),
-           "grad_rel_err_max": grad_errs[worst], "grad_rel_err_worst":
-           worst, "grad_rel_err": grad_errs}
-    if gate:
-        rec["gate"] = _gate_noise(torch, mdl, cfg, params, batch, named,
-                                  gate, grads_k, grads_t)
-    return rec
-
-
-def _gate_noise(torch, mdl, cfg, params, batch, named, gate, grads_k,
-                grads_t):
-    """The GLA gate's grads against the plain path, held to the plain
-    path's own spread (GATE_NOISE_FACTOR): a second plain run with half
-    the scan chunk differs from the first only in summation order."""
-    c = _with_impl(cfg, "torch")
-    c = dataclasses.replace(c, la=dataclasses.replace(c.la,
-                                                      chunk=c.la.chunk // 2))
-    loss, _ = mdl.loss_fn(params, c, batch)
-    grads_2 = torch.autograd.grad(loss, [named[i][1] for i in gate])
-    del loss
-
-    def flat(gs):
-        return torch.cat([g.float().flatten() for g in gs])
-
-    ref = flat(grads_t[i] for i in gate)
-    d_kernel = float((flat(grads_k[i] for i in gate) - ref).norm())
-    d_plain = float((flat(grads_2) - ref).norm())
-    def rel(got, want):
-        err, scale = rel_err(got, want)
-        return err / scale
-
-    per_leaf = {named[i][0]: [rel(grads_k[i], grads_t[i]),
-                              rel(g2, grads_t[i])]
-                for i, g2 in zip(gate, grads_2)}
-    log(f"  {len(gate)} gate (wg) grads: |cuda - torch| = {d_kernel!r}, "
-        f"|torch chunk {c.la.chunk} - torch| = {d_plain!r} (limit "
-        f"{GATE_NOISE_FACTOR} x), |torch| = {float(ref.norm())!r}; per "
-        f"leaf, max abs err over max |value| (cuda, torch chunk "
-        f"{c.la.chunk}): {per_leaf}")
-    if not d_kernel <= GATE_NOISE_FACTOR * d_plain:
-        raise AssertionError(f"gate grads: |cuda - torch| {d_kernel} > "
-                             f"{GATE_NOISE_FACTOR} x {d_plain}")
-    return {"norm_cuda_vs_torch": d_kernel,
-            "norm_torch_half_chunk_vs_torch": d_plain,
-            "norm_torch": float(ref.norm()),
-            "rel_err_cuda_and_half_chunk": per_leaf}
+    worst = max(grad_errs, key=grad_errs.get)
+    log(f"  {len(named)} grads within {TRAIN_GRAD_REL} of their max "
+        f"|value|; worst {worst} at {grad_errs[worst]!r}")
+    return {"loss_cuda": float(loss_k), "loss_torch": float(loss_t),
+            "loss_abs_err": loss_err, "grads_compared": len(named),
+            "grad_rel_err_max": grad_errs[worst], "grad_rel_err_worst":
+            worst, "grad_rel_err": grad_errs}
 
 
 def _param_kind(path: str) -> str:
@@ -1805,20 +1841,35 @@ def _param_kind(path: str) -> str:
         else path
 
 
-def _train_compare_all(torch, mdl, cfg, params, batch):
-    """mamba2: the first step's loss and EVERY grad, kernel path against
-    plain path, from the same weights and batch, twice.
+def _within(err, limit):
+    """(err <= limit, err / limit): the verdict and the share of the
+    limit used (inf where the limit is 0 and err is not)."""
+    ratio = err / limit if limit > 0 else (0.0 if err == 0 else math.inf)
+    return err <= limit, ratio
 
-    In the config's bf16 compute the grads at init are at the level of
-    the rounding noise itself: a second plain run with half the scan
-    chunk, which differs from the first only in summation order, differs
-    by up to 2x the max |value| of a leaf in every kind of leaf (NVIDIA
-    H100 80GB HBM3, 700 W; PERF.md).  So there the loss is held to
-    TRAIN_LOSS_REL and each kind of leaf, in norm over its 64 layers, to
-    GATE_NOISE_FACTOR times that plain spread, as GLA's gate.  In f32
-    compute the rounding is 2^16 times finer: there the loss is held to
+
+def _train_legs(torch, mdl, cfg, params, batch, variants):
+    """The first step's loss and EVERY grad of each variant against the
+    plain path, from the same weights and batch, in two legs.
+
+    `variants` maps a name to a function of a config (the leg's compute
+    dtype) that returns the config to run.  In the config's bf16 compute
+    the grads at init are at the level of the rounding noise itself: a
+    second plain run with half the scan chunk, which differs from the
+    first only in summation order, differs by up to 2x the max |value| of
+    a leaf (mamba2) and, in GLA, moves the deep q projections' grads by
+    5-8 % of theirs (NVIDIA H100 80GB HBM3, 700 W; PERF.md).  So there the
+    loss is held to TRAIN_LOSS_REL and each kind of leaf, in norm over its
+    layers, to GATE_NOISE_FACTOR times that plain spread.  In f32 compute
+    the rounding is 2^16 times finer: there the loss is held to
     SEQ_F32_REL and every grad to TRAIN_GRAD_REL of its max |value|, the
-    pythia runs' limit.  At most two grad sets are alive at once."""
+    pythia runs' limit.  At most three grad sets are alive at once.
+
+    Returns {variant: {"bf16": leg, "f32": leg}}, each leg {"ok", "worst",
+    "ratio" (its share of the limit), "loss", "loss_ref", "loss_abs_err",
+    "kinds": per kind of leaf the norm of the differences, its share of
+    the reference's norm, the largest per-leaf max abs err over max
+    |value| and that leaf}; the bf16 leg also the plain spread per kind."""
     from repro_torch.tree import named_leaves
     named = named_leaves(params)
     ts = [t for _, t in named]
@@ -1853,56 +1904,81 @@ def _train_compare_all(torch, mdl, cfg, params, batch):
                            "worst": named[max(idx, key=rel.__getitem__)][0]}
         return rel, norms
 
-    rec = {"grads_compared": len(named)}
+    def leg(loss, loss_ref, loss_rel, checks, kinds_rec):
+        """The verdict of one leg: the loss and every (name, err, limit)
+        of `checks` within its limit."""
+        err, scale = rel_err(loss, loss_ref)
+        verdicts = {"loss": _within(err, loss_rel * scale)}
+        verdicts.update({name: _within(e, lim) for name, e, lim in checks})
+        worst = max(verdicts, key=lambda k: verdicts[k][1])
+        return {"ok": all(ok for ok, _ in verdicts.values()),
+                "worst": worst, "ratio": verdicts[worst][1],
+                "loss": float(loss), "loss_ref": float(loss_ref),
+                "loss_abs_err": err, "kinds": kinds_rec}
+
+    out = {name: {} for name in variants}
     # bf16 compute (the config's): held to the plain path's own spread
     loss_t, grads_t = run(_with_impl(cfg, "torch"))
-    loss_k, grads_k = run(_with_impl(cfg, "cuda"))
-    rec["loss_cuda"], rec["loss_torch"] = float(loss_k), float(loss_t)
-    rec["loss_abs_err"] = check_close("train step 0 loss (cuda vs torch)",
-                                      loss_k, loss_t, TRAIN_LOSS_REL)
-    _, norm_k = against(grads_k, grads_t)
-    del grads_k
     half = _with_impl(cfg, "torch")
     half = dataclasses.replace(half, la=dataclasses.replace(
         half.la, chunk=half.la.chunk // 2))
     _, grads_2 = run(half)
     _, norm_2 = against(grads_2, grads_t)
-    del grads_2, grads_t
-    rec["bf16"] = {kind: {"cuda_vs_torch": norm_k[kind],
-                          f"torch_chunk_{half.la.chunk}_vs_torch":
-                          norm_2[kind]} for kind in kinds}
-    log(f"  bf16 grads by kind of leaf (cuda vs torch; torch chunk "
-        f"{half.la.chunk} vs torch): {rec['bf16']}")
-    bad = [kind for kind in kinds if not norm_k[kind]["norm_diff"]
-           <= GATE_NOISE_FACTOR * norm_2[kind]["norm_diff"]]
-    if bad:
-        raise AssertionError(f"bf16 grads of {bad}: |cuda - torch| > "
-                             f"{GATE_NOISE_FACTOR} x |torch chunk "
-                             f"{half.la.chunk} - torch|")
-    log(f"  bf16: every kind of leaf within {GATE_NOISE_FACTOR} x the "
-        f"plain path's spread in norm")
+    del grads_2
+    for name, make in variants.items():
+        loss_v, grads_v = run(make(cfg))
+        _, norm_v = against(grads_v, grads_t)
+        del grads_v
+        out[name]["bf16"] = leg(
+            loss_v, loss_t, TRAIN_LOSS_REL,
+            [(kind, norm_v[kind]["norm_diff"],
+              GATE_NOISE_FACTOR * norm_2[kind]["norm_diff"])
+             for kind in kinds],
+            {kind: {"vs_torch": norm_v[kind],
+                    f"torch_chunk_{half.la.chunk}_vs_torch": norm_2[kind]}
+             for kind in kinds})
+    del grads_t
 
     # f32 compute: every grad to the pythia runs' limit
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
     loss_t, grads_t = run(_with_impl(f32, "torch"))
-    loss_k, grads_k = run(_with_impl(f32, "cuda"))
-    rec["f32_loss_cuda"], rec["f32_loss_torch"] = float(loss_k), \
-        float(loss_t)
-    rec["f32_loss_abs_err"] = check_close(
-        "f32 train step 0 loss (cuda vs torch)", loss_k, loss_t, SEQ_F32_REL)
-    rel_k, norm_k = against(grads_k, grads_t)
-    del grads_k, grads_t
-    rec["f32"] = norm_k
-    log(f"  f32 grads by kind of leaf (cuda vs torch): {norm_k}")
-    bad = [named[i][0] for i in range(len(named))
-           if not rel_k[i] <= TRAIN_GRAD_REL]
-    if bad:
-        raise AssertionError(f"f32 grads not within {TRAIN_GRAD_REL} of "
-                             f"their max |value|: {bad[:8]} ({len(bad)})")
-    log(f"  f32: {len(named)} grads within {TRAIN_GRAD_REL} of their max "
-        f"|value|; worst {max(rel_k)!r}")
+    for name, make in variants.items():
+        loss_v, grads_v = run(make(f32))
+        rel_v, norm_v = against(grads_v, grads_t)
+        del grads_v
+        out[name]["f32"] = leg(
+            loss_v, loss_t, SEQ_F32_REL,
+            [(named[i][0], rel_v[i], TRAIN_GRAD_REL)
+             for i in range(len(named))], norm_v)
+    del grads_t
     for t in ts:
         t.requires_grad_(False)
+    return out
+
+
+def _train_compare_all(torch, mdl, cfg, params, batch):
+    """GLA and mamba2: the first step's loss and EVERY grad, kernel path
+    against plain path, in both legs of `_train_legs`; raises where a leg
+    fails."""
+    from repro_torch.tree import named_leaves
+    rec = {"grads_compared": len(named_leaves(params)),
+           **_train_legs(torch, mdl, cfg, params, batch,
+                         {"cuda": lambda c: _with_impl(c, "cuda")})["cuda"]}
+    for name, what in (("bf16", f"every kind of leaf within "
+                                f"{GATE_NOISE_FACTOR} x the plain path's "
+                                f"spread in norm, the loss within "
+                                f"{TRAIN_LOSS_REL}"),
+                       ("f32", f"{rec['grads_compared']} grads within "
+                               f"{TRAIN_GRAD_REL} of their max |value|, "
+                               f"the loss within {SEQ_F32_REL}")):
+        r = rec[name]
+        log(f"  {name} compute (cuda vs torch): loss {r['loss']!r} vs "
+            f"{r['loss_ref']!r}; by kind of leaf {r['kinds']}")
+        if not r["ok"]:
+            raise AssertionError(f"{name} train step 0: {r['worst']} at "
+                                 f"{r['ratio']!r} of its limit")
+        log(f"  {name}: {what}; worst {r['worst']} at {r['ratio']!r} of "
+            f"its limit")
     return rec
 
 
@@ -1922,7 +1998,7 @@ def phase_train(torch, backend):
     params = mdl.init_params(cfg, seed=0, device="cuda")
     data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
     batch0 = {"tokens": torch.from_numpy(data.batch_at(0)).to("cuda")}
-    compare = (_train_compare_all if backend == "mamba2"
+    compare = (_train_compare_all if backend in ("gla", "mamba2")
                else _train_compare)(torch, mdl, cfg, params, batch0)
     n_params = sum(t.numel() for t in leaves(params))
     del batch0
@@ -2167,9 +2243,10 @@ def phase_timing_la(torch, ptxas):
     c_bodies = {"la_fwd": _la_fwd_body(q, k, v),
                 **{e: _la_bwd_body(e, q, k, v, om_hat, h_vec)
                    for e in ("la_bwd_q", "la_bwd_kv")}}
-    wgmma_fn = {"la_fwd": ("la_fwd", "lc::la_fwd_wgmma_kernel"),
+    wgmma_fn = {"la_fwd": ("la_fwd", "lc::la_fwd_wgmma_kernel<false>"),
                 "la_bwd_q": ("la_bwd", "bq::la_bwd_q_wgmma_kernel"),
-                "la_bwd_kv": ("la_bwd", "bkv::la_bwd_kv_wgmma_kernel")}
+                "la_bwd_kv": ("la_bwd",
+                              "bkv::la_bwd_kv_wgmma_kernel<false>")}
     walk_bounds = {name: _bound(*work[name]) for name in calls}
     for name, (body, _, _) in c_bodies.items():
         if body == "wgmma":
@@ -2408,15 +2485,31 @@ def phase_timing_paged(torch):
     return out
 
 
-def phase_timing_gla(torch):
+def phase_timing_gla(torch, ptxas):
     """gla_decode_fused at the serving shapes (8 rotating states, cold in
     L2, as in phase_timing) and gla_fwd, gla_bwd_q and gla_bwd_kv at the
     training shapes (bf16, the trained gate's decays), each beside its
     plain version and, in turns, beside its linear counterpart on the
-    same inputs: what the gate costs."""
+    same inputs: what the gate costs.  gla_fwd and gla_bwd_kv in bf16 run
+    the gated instances of the chunked wgmma bodies (tensor-core work per
+    chunk of c tokens, with s = D/2):
+      * gla_fwd, per (batch, query head) and half of the value columns:
+        q k^T (2 c^2 D), and twice each (a hi + lo operand) q S (2 c D
+        s), A v (2 c^2 s) and the state update (2 c s D);
+      * gla_bwd_kv, per (batch, KV head): for each half of dk, U's
+        readout twice (2 c s D) and per query head T = v Ω̂^T twice (2 c^2
+        D), T q twice (2 c^2 s), the update three times (2 c s D; the
+        weighted q and Ω̂ both pairs); for each half of dv, the readout
+        twice and per query head S = k q^T (2 c^2 D), A Ω̂ three times (2
+        c^2 s) and the update twice.
+    Their records name the body, its ptxas registers and spills, shared
+    memory per block and the blocks an SM holds, keep the walk's bound
+    and the tensor-core and byte times beside, and time the token walk
+    (which f32 inputs still run) in turns with them."""
     from repro_torch.kernels import decode_fused as df
     from repro_torch.kernels import gla
     from repro_torch.kernels import linear_attention as la
+    from repro_torch.kernels.defaults import LA_CHUNK_TOKENS, LA_WGMMA_SPLIT
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
@@ -2499,6 +2592,34 @@ def phase_timing_gla(torch):
                        lambda: la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec,
                                                  1.0, 1.0)),
     }
+    qf, kf, vf = q.float(), k.float(), v.float()
+    walks = {
+        "gla_fwd": lambda: gla.gla_fwd_cuda(qf, kf, vf, ld, 1.0, 1.0),
+        "gla_bwd_kv": lambda: gla.gla_bwd_kv_cuda(qf, kf, vf, ld, om_hat,
+                                                  h_vec, 1.0, 1.0)}
+    c, half, group = LA_CHUNK_TOKENS, d // 2, h // hkv
+    tc_flops = {
+        "gla_fwd": tok_q // c * LA_WGMMA_SPLIT * (
+            2 * c * c * d + 2 * 2 * c * d * half + 2 * 2 * c * c * half
+            + 2 * 2 * c * half * d),
+        "gla_bwd_kv": tok_kv // c * 2 * (
+            2 * 2 * 2 * c * half * d
+            + group * (2 * 2 * c * c * d + 2 * 2 * c * c * half
+                       + 3 * 2 * c * half * d)
+            + group * (2 * c * c * d + 3 * 2 * c * c * half
+                       + 2 * 2 * c * half * d))}
+    c_bodies = {
+        "gla_fwd": _c_body(la.la_fwd_body(bf16, d, "gla_fwd"),
+                           gla.plan_gla_fwd(q, k, v, ld, 1.0, 1.0)),
+        "gla_bwd_kv": _c_body(la.la_bwd_body("gla_bwd_kv", bf16, d),
+                              gla.plan_gla_bwd_kv(q, k, v, ld, om_hat,
+                                                  h_vec, 1.0, 1.0))}
+    wgmma_fn = {"gla_fwd": ("la_fwd", "lc::la_fwd_wgmma_kernel<true>"),
+                "gla_bwd_kv": ("la_bwd", "bkv::la_bwd_kv_wgmma_kernel<true>")}
+    walk_bounds = {name: _bound(*work[name]) for name in c_bodies}
+    for name, (body, _, _) in c_bodies.items():
+        if body == "wgmma":
+            work[name] = (work[name][0], tc_flops[name], BF16_TC_FLOP_PER_S)
     for name, (plain_fn, kernel_fn, linear_fn) in calls.items():
         kern, pl = _time_pair(torch, plain_fn, kernel_fn, reps=5)
         lin, kern_b = _time_pair(torch, kernel_fn, linear_fn, reps=5)
@@ -2507,8 +2628,20 @@ def phase_timing_gla(torch):
                      "in_turns_with_linear": {"gla_ms_runs": kern_b,
                                               "la_ms_runs": lin},
                      **_bound(*work[name])}
+        if name in c_bodies:
+            rec = out[name]
+            lib, fn = wgmma_fn[name]
+            rec.update(_body_record(c_bodies[name], walk_bounds[name],
+                                    ptxas.get(lib, []), fn))
+            rec.update(byte_ms=rec["bytes"] / HBM_BYTES_PER_S * 1e3,
+                       tensor_core_ms=tc_flops[name] / BF16_TC_FLOP_PER_S
+                       * 1e3)
+            walk, kern2 = _time_pair(torch, kernel_fn, walks[name], reps=5)
+            rec.update(walk_ms=min(walk), walk_ms_runs=walk,
+                       ms_runs_beside_walk=kern2)
         log(f"[timing] {name} B={b} H={h} Hkv={hkv} N={n} D={d} bf16: "
             f"{out[name]}")
+    del qf, kf, vf
     log("[timing] gla_fwd / gla_bwd_q / gla_bwd_kv: library_ms null: no "
         "single PyTorch call computes gated linear attention or its "
         "gradient (SDPA is softmax)")
@@ -2683,7 +2816,7 @@ def main() -> int:
     train_m2, train_m2_launches = phase_train(torch, "mamba2")
     timing = {"la_decode_fused": phase_timing(torch), **phase_timing_la(
         torch, ptxas), **phase_timing_softmax(torch, ptxas), **phase_timing_paged(torch),
-        **phase_timing_gla(torch), **phase_timing_ssd(torch, ptxas),
+        **phase_timing_gla(torch, ptxas), **phase_timing_ssd(torch, ptxas),
         "oob_blocked_sum": phase_timing_fixture(torch)}
 
     # each kernel's launches summed over the main-path runs (every other

@@ -46,11 +46,11 @@
 // Dk = Dv = D, a template parameter (32, 64 or 128) so that a state row or
 // column lives in registers.
 //
-// Two bodies of each linear entry, chosen by the launcher from the dtype
-// and D: the chunked wgmma bodies (namespaces bq and bkv) for bf16 at
-// D = 128, the paper's training instance; the token walk for f32, for
-// D < 128, and for every gla_bwd_q / gla_bwd_kv call (the walk's kGated
-// instantiation).
+// Two bodies of each entry but gla_bwd_q, chosen by the launcher from the
+// dtype and D: the chunked wgmma bodies (namespaces bq and bkv; gla_bwd_kv
+// runs bkv's kGated instance) for bf16 at D = 128, the training instance;
+// the token walk (the gated entries its kGated instantiation) for f32,
+// for D < 128, and for every gla_bwd_q call.
 //
 // What bounds them (estimates from the shapes, not measurements; B=2,
 // H=Hkv=16, N=8192, D=128): the token walk of la_bwd_q does 4 D (D+1)
@@ -61,7 +61,9 @@
 // bound by f32 operations on the CUDA cores.  The chunked bodies do their
 // products on the bf16 tensor cores, each product with a hi + lo operand
 // two or three times: la_bwd_q 60.1 GFLOP (0.061 ms at 989 TFLOP/s),
-// la_bwd_kv 116.0 GFLOP (0.117 ms); both are bound by their bytes.
+// la_bwd_kv 116.0 GFLOP (0.117 ms; gated, with its three-product update
+// in the dk blocks, 124.6 GFLOP); all are bound by their bytes (gated:
+// 540.0 MB, 0.161 ms, dV' in f32).
 //
 // Design of the chunked la_bwd_q body (namespace bq; the reference's
 // chunk form, src/repro/kernels/linear_attention.py:142-167, with
@@ -98,7 +100,20 @@
 //     dv = b k U_qΩ + a u_Ω + A Ω̂ with A = a + b k q^T on i >= p.  u_h =
 //     Σ q h and u_Ω = Σ Ω̂ are f32 sums on the CUDA cores;
 //   * dk and dv are stored from registers; each element is written once:
-//     the result is bit-deterministic.
+//     the result is bit-deterministic;
+//   * gated (gla_bwd_kv): ssd.cu's sk carries the decay through the same
+//     reverse scan (decay.cuh): with cl the chunk's cumsum of log decays
+//     (base 2), the carried state's readout and sums take 2^(total -
+//     cl_p) on row p, T and A take 2^(cl_i - cl_p) on i >= p in f32 before
+//     their split, and the state decays by 2^total while the chunk's rows
+//     i enter weighted by 2^cl_i: the dk blocks weight q (read transposed
+//     by ldmatrix into registers, an RS update of two pairs), the dv
+//     blocks Ω̂ (split weighted into the free second boxes of Ω̂'s tiles),
+//     so no tile is added.  dV' is f32 rows of D + 1, stored from
+//     registers (4-byte stores: its 516-byte rows rule out TMA); block y =
+//     2 also writes its column D from the row dots of the f32 A with h
+//     and f32 sums of q h and h beside u_Ω, their token weights 2^cl and
+//     2^cl h formed once a step in shared memory (200,976 B).
 //
 // Precision of the chunked bodies (held to one bf16 step, 2^-7 of the
 // largest |value|).  Where l2-normalized q and k share a direction, the
@@ -149,6 +164,7 @@
 
 #include <type_traits>
 
+#include "decay.cuh"
 #include "plan.cuh"
 #include "sm90.cuh"
 
@@ -430,16 +446,27 @@ constexpr size_t kQ = kKV + 2 * kBox;
 constexpr size_t kOm = kQ + 2 * kBox;
 constexpr size_t kStageBytes = kOm + 4 * kBox;
 // after the ring: Ω̂'s hi and lo tiles (the dv blocks use their first
-// box), U's hi and lo copies, the f32 sums (u_h or u_Ω) twice and h
+// box; gated, their second holds the decay-weighted Ω̂), U's hi and lo
+// copies, the f32 sums (u_h or u_Ω) twice and h
 constexpr size_t kOmHi = kStages * kStageBytes;
 constexpr size_t kOmLo = kOmHi + kTile;
 constexpr size_t kUHi = kOmLo + kTile;
 constexpr size_t kULo = kUHi + kTile;
 constexpr size_t kSums = kULo + kTile;
 constexpr size_t kH = kSums + 2 * kHalf * 4;
-constexpr size_t kBars = kH + kChunk * 4;
-// 199,424 B: one block an SM
-constexpr size_t kSmem = kBars + kExtra;
+constexpr float kLog2e = 1.4426950408889634f;
+// then, gated only, the sums of dV''s augmented column (u_h over all of
+// Dk and Σ h, each twice), the step's token weights 2^cl and 2^cl h, and
+// the barriers.  199,424 B; gated 200,976 B: one block an SM
+template <bool kGated>
+struct Layout {
+  static constexpr size_t kUh = kH + kChunk * 4;
+  static constexpr size_t kHs = kUh + 2 * kD * 4;
+  static constexpr size_t kE = kHs + 16;
+  static constexpr size_t kEh = kE + kChunk * 4;
+  static constexpr size_t kBars = kGated ? kEh + kChunk * 4 : kUh;
+  static constexpr size_t kSmem = kBars + kExtra;
+};
 
 // The reverse walk of one block: kDk, dk's column half `part` (its U
 // slice U_qΩ[64 part.., :], out = dk); else dv's half (U_qΩ^T[64 part..,
@@ -454,18 +481,43 @@ constexpr size_t kSmem = kBars + kExtra;
 //       A = a + b k q^T on i >= p, else 0             (SS, then f32)
 //       acc += A Ω̂,  U_qΩ^T += Ω̂^T q,  u_Ω += Σ Ω̂     (RS; SS; f32)
 //       last step: dv = acc + a u_Ω
-template <bool kDk>
+// kGated (gla_bwd_kv): with cl the inclusive cumsum of the chunk's log
+// decays (base 2), `total` its last and e_p = 2^(total - cl_p) the decay
+// from token p to the chunk's end (decay.cuh):
+//   * the carried state's readout and sums take e_p on row p: dk: acc =
+//     e_p (v U_qΩ^T - u_h); dv: acc = e_p (b k U_qΩ + a u_Ω);
+//   * T and A take 2^(cl_i - cl_p) on i >= p, in f32 before the split;
+//   * the state and its sums decay by 2^total at a chunk's first step,
+//     and the chunk's query rows i enter weighted by 2^cl_i: dk blocks
+//     weight q's rows, as the A of an RS update read by ldmatrix.trans
+//     (U_qΩ += (2^cl o q)^T Ω̂, three products of the pairs); dv blocks
+//     split the weighted Ω̂ half into the second boxes of Ω̂'s tiles
+//     (U_qΩ^T += (2^cl o Ω̂)^T q);
+//   * dv is dV' in f32 (rows of kD + 1), stored from registers; the dv
+//     block of the first half also writes its column kD, -(b k_p . U_p[:Dk,
+//     Dv] + a U_p[Dk, Dv]): the row dot of the f32 A with h plus e_p (b k_p
+//     . u_h + a Σ h), u_h (over all of Dk) and Σ h f32 sums kept beside
+//     u_Ω.
+template <bool kDk, bool kGated, typename Out>
 __device__ __forceinline__ void walk(unsigned char* smem,
                                      const CUtensorMap* q_map,
                                      const CUtensorMap* kv_map,
                                      const CUtensorMap* om_map,
+                                     const float* __restrict__ ld,
                                      const float* __restrict__ hv,
-                                     bf16* __restrict__ out, int part,
+                                     Out* __restrict__ out, int part,
                                      int heads, int kv_heads, int n, float a,
                                      float b) {
+  using L = Layout<kGated>;
+  // gated dv: rows of dV' are kD + 1 f32 values
+  constexpr int kOutRow = kGated && !kDk ? kD + 1 : kD;
   float* sums = reinterpret_cast<float*>(smem + kSums);  // [2][kHalf]
   float* h_sh = reinterpret_cast<float*>(smem + kH);     // [kChunk]
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBars);
+  [[maybe_unused]] float* uh = reinterpret_cast<float*>(smem + L::kUh);
+  [[maybe_unused]] float* hs = reinterpret_cast<float*>(smem + L::kHs);
+  [[maybe_unused]] float* e_sh = reinterpret_cast<float*>(smem + L::kE);
+  [[maybe_unused]] float* eh_sh = reinterpret_cast<float*>(smem + L::kEh);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
 
   const int bk = blockIdx.x;  // batch * kv_heads + KV head
   const int group = heads / kv_heads;
@@ -478,6 +530,8 @@ __device__ __forceinline__ void walk(unsigned char* smem,
   const int warp = tid / 32, lane = tid % 32;
   const int tq = lane % 4;
   const int row0 = 16 * warp + lane / 4;  // this thread's rows: +0, +8
+  // gated: the dv block that writes dV''s augmented column
+  [[maybe_unused]] const bool aug = kGated && !kDk && part == 0;
 
   auto stage_of = [&](int s) { return smem + (s % kStages) * kStageBytes; };
   // the tiles of step s into its stage; rows past n arrive as zeros
@@ -507,12 +561,21 @@ __device__ __forceinline__ void walk(unsigned char* smem,
       }
     }
   };
-  // dk: h of step s's token tid (0 past n and for tid >= kChunk)
+  // dk (and gated dv): h of step s's token tid (0 past n and for tid >=
+  // kChunk)
   auto load_h = [&](int s) {
     const int t = (chunks - 1 - s / group) * kChunk + tid;
-    return kDk && tid < kChunk && t < n
+    return (kDk || kGated) && tid < kChunk && t < n
                ? hv[static_cast<size_t>(q0 + s % group) * n + t]
                : 0.f;
+  };
+  // gated: lane l's two log decays of chunk c in base 2 (tokens 2l,
+  // 2l + 1; 0 past n)
+  [[maybe_unused]] auto load_ld = [&](int c, float (&x)[2]) {
+    const float* ld_row = ld + static_cast<size_t>(bk) * n;
+    const int t = c * kChunk + 2 * lane;
+    x[0] = t < n ? ld_row[t] * kLog2e : 0.f;
+    x[1] = t + 1 < n ? ld_row[t + 1] * kLog2e : 0.f;
   };
 
   if (tid == 0) {
@@ -523,6 +586,10 @@ __device__ __forceinline__ void walk(unsigned char* smem,
   for (int i = tid; i < static_cast<int>(2 * kTile / 16); i += kThreads)
     reinterpret_cast<uint4*>(smem + kUHi)[i] = make_uint4(0, 0, 0, 0);
   if (tid < kHalf) sums[tid] = 0.f;
+  if constexpr (kGated) {
+    uh[tid] = 0.f;
+    if (tid == 0) hs[0] = 0.f;
+  }
   sm90::fence_async_smem();
   __syncthreads();
   if (tid == 0) load_step(0);
@@ -535,7 +602,12 @@ __device__ __forceinline__ void walk(unsigned char* smem,
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   float h_next = load_h(0);
-  out += static_cast<size_t>(bk) * n * kD + kHalf * part;
+  out += static_cast<size_t>(bk) * n * kOutRow + kHalf * part;
+  // gated: the chunk's log decays (the next chunk's, loaded a chunk
+  // ahead), and the dv block's -dV'[kD] of its rows, summed over the group
+  [[maybe_unused]] float ld_cur[2] = {0.f, 0.f}, ld_next[2] = {0.f, 0.f};
+  [[maybe_unused]] float xd[2] = {0.f, 0.f};
+  if constexpr (kGated) load_ld(chunks - 1, ld_cur);
 
   for (int s = 0; s < steps; ++s) {
     const int j = s / group;
@@ -545,7 +617,20 @@ __device__ __forceinline__ void walk(unsigned char* smem,
     // are free, U's copies and the sums are whole
     __syncthreads();
     if (tid == 0 && s + 1 < steps) load_step(s + 1);
-    if (kDk) {
+    [[maybe_unused]] cd::Cumsum cl;
+    [[maybe_unused]] float e_total = 1.f;
+    if constexpr (kGated) {
+      if (first && j + 1 < chunks) load_ld(chunks - 2 - j, ld_next);
+      cl = cd::scan(ld_cur, lane);
+      e_total = sm90::exp2_ftz(cl.total);
+      // the weights of the step's sums: 2^cl of token tid, and 2^cl h
+      const float e = sm90::exp2_ftz(cl.at(tid % kChunk));
+      if (tid < kChunk) {
+        e_sh[tid] = e;
+        eh_sh[tid] = e * h_next;
+      }
+    }
+    if (kDk || kGated) {
       if (tid < kChunk) h_sh[tid] = h_next;
       h_next = s + 1 < steps ? load_h(s + 1) : 0.f;
     }
@@ -555,6 +640,10 @@ __device__ __forceinline__ void walk(unsigned char* smem,
     sm90::split_tile_f32<kDk ? kD : kHalf, kThreads>(st + kOm, 0,
                                                       smem + kOmHi,
                                                       smem + kOmLo);
+    if constexpr (kGated && !kDk)
+      cd::split_rows_f32<kHalf, kThreads>(cl, st + kOm, 0,
+                                          smem + kOmHi + kBox,
+                                          smem + kOmLo + kBox);
     sm90::fence_async_smem();
     __syncthreads();  // Ω̂'s tiles and h are whole
     const bf16* kv_t = reinterpret_cast<const bf16*>(st + kKV);
@@ -595,46 +684,117 @@ __device__ __forceinline__ void walk(unsigned char* smem,
     sm90::mma_commit();
 
     // behind the products, in f32 on the CUDA cores: this step's share of
-    // the next chunk's sums (each of the first kHalf threads one column)
+    // the next chunk's sums (each of the first kHalf threads one column;
+    // gated, each token weighted by 2^cl and the carried sums decayed by
+    // 2^total)
     const float* s_cur = sums + (j % 2) * kHalf;
     float* s_next = sums + ((j + 1) % 2) * kHalf;
     if (tid < kHalf) {
       float sum = 0.f;
       if (kDk) {
 #pragma unroll 8
-        for (int t = 0; t < kChunk; ++t)
-          sum += bf16_at(st + kQ, t, tid) * h_sh[t];
+        for (int t = 0; t < kChunk; ++t) {
+          if constexpr (kGated)
+            sum = fmaf(bf16_at(st + kQ, t, tid), eh_sh[t], sum);
+          else
+            sum += bf16_at(st + kQ, t, tid) * h_sh[t];
+        }
       } else {
 #pragma unroll 8
-        for (int t = 0; t < kChunk; ++t) sum += f32_at(st + kOm, t, tid);
+        for (int t = 0; t < kChunk; ++t) {
+          if constexpr (kGated)
+            sum = fmaf(f32_at(st + kOm, t, tid), e_sh[t], sum);
+          else
+            sum += f32_at(st + kOm, t, tid);
+        }
       }
-      s_next[tid] = (first ? s_cur[tid] : s_next[tid]) + sum;
+      if constexpr (kGated)
+        s_next[tid] = (first ? e_total * s_cur[tid] : s_next[tid]) + sum;
+      else
+        s_next[tid] = (first ? s_cur[tid] : s_next[tid]) + sum;
+    }
+    [[maybe_unused]] float cl_col[16], cl_row[2], e_row[2];
+    if constexpr (kGated) {
+      cl.cols(tq, cl_col);
+      cl_row[0] = cl.at(row0);
+      cl_row[1] = cl.at(row0 + 8);
+      e_row[0] = sm90::exp2_ftz(cl.total - cl_row[0]);
+      e_row[1] = sm90::exp2_ftz(cl.total - cl_row[1]);
     }
     __syncwarp();
     sm90::mma_wait<0>();
     sm90::pin(sc);
     sm90::pin(acc);
-    // T (the -h in f32, before any rounding) or A, on i >= p
+    if constexpr (!kGated) {
+      // T (the -h in f32, before any rounding) or A, on i >= p
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int r = (i >> 1) & 1;
-      const int col = 8 * (i / 4) + 2 * tq + (i & 1);
-      const bool in = col >= row0 + 8 * r;
-      if (kDk)
-        sc[i] = in ? sc[i] - h_sh[col] : 0.f;
-      else
-        sc[i] = in ? fmaf(b, sc[i], a) : 0.f;
-    }
-    if (!kDk && first) {
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        const int col = 8 * (i / 4) + 2 * tq + (i & 1);
+        const bool in = col >= row0 + 8 * r;
+        if (kDk)
+          sc[i] = in ? sc[i] - h_sh[col] : 0.f;
+        else
+          sc[i] = in ? fmaf(b, sc[i], a) : 0.f;
+      }
+      if (!kDk && first) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] *= b;
+        for (int i = 0; i < 32; ++i) acc[i] *= b;
+      }
+    } else {
+      // T or A in f32, decayed by 2^(cl_i - cl_p) on i >= p
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i / 4) + 2 * tq + (i & 1);
+        sc[i] = kDk ? sc[i] - h_sh[col] : fmaf(b, sc[i], a);
+      }
+      cd::decay_mask<false>(sc, cl_row, cl_col, warp, tq, row0);
+      if (first) {
+        // the carried state's readout and sums, decayed to row p
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const float sv = s_cur[8 * (i / 4) + 2 * tq + (i & 1)];
+          acc[i] = e_row[(i >> 1) & 1] *
+                   (kDk ? acc[i] - sv : fmaf(b, acc[i], a * sv));
+        }
+      }
+      if (aug) {
+        // -dV'[kD] of rows p: the row dot of A with h (the carried part
+        // is added behind the state update)
+        float rd[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          rd[(i >> 1) & 1] =
+              fmaf(sc[i], h_sh[8 * (i / 4) + 2 * tq + (i & 1)],
+                   rd[(i >> 1) & 1]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          rd[r] += __shfl_xor_sync(0xffffffffu, rd[r], 1);
+          rd[r] += __shfl_xor_sync(0xffffffffu, rd[r], 2);
+          xd[r] = first ? rd[r] : xd[r] + rd[r];
+        }
+      }
     }
     uint32_t xh[kChunk / 16][4], xl[kChunk / 16][4];
     sm90::to_a_split<kChunk / 16>(xh, xl, sc);
+    // gated dk: (2^cl o q)^T, the A of the state update
+    [[maybe_unused]] uint32_t qh[kChunk / 16][4], ql[kChunk / 16][4];
+    if constexpr (kGated && kDk)
+      cd::weighted_a_trans(st + kQ, cl_col, warp, lane, qh, ql);
+    if constexpr (kGated) {
+      if (first) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) ut[i] *= e_total;
+      }
+    }
     sm90::pin(acc);
     sm90::pin(ut);
     sm90::pin(xh);
     sm90::pin(xl);
+    if constexpr (kGated && kDk) {
+      sm90::pin(qh);
+      sm90::pin(ql);
+    }
     sm90::mma_fence();
     if (kDk) {
 #pragma unroll
@@ -655,34 +815,103 @@ __device__ __forceinline__ void walk(unsigned char* smem,
         sm90::mma_rs_n64(acc, xh[kk], sm90::desc_mn<kChunk>(ol_t, kk), 1);
     }
     sm90::mma_commit();
-    // the state update: U_qΩ += q^T Ω̂ (dk) or U_qΩ^T += Ω̂^T q (dv)
-    const bf16* ua_t[2] = {kDk ? q_t : oh_t, kDk ? q_t : ol_t};
-    const bf16* ub_t[2] = {kDk ? oh_t : q_t, kDk ? ol_t : q_t};
-#pragma unroll
-    for (int x = 0; x < 2; ++x)
+    if constexpr (kGated && kDk) {
+      // U_qΩ += (2^cl o q)^T Ω̂: the pairs' hi hi, lo hi, hi lo
 #pragma unroll
       for (int kk = 0; kk < kChunk / 16; ++kk)
-        sm90::mma_ss_n128<1, 1>(ut, sm90::desc_mn<kChunk>(ua_t[x], kk),
-                                sm90::desc_mn<kChunk>(ub_t[x], kk), 1);
+        sm90::mma_rs_n128(ut, qh[kk], sm90::desc_mn<kChunk>(oh_t, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        sm90::mma_rs_n128(ut, ql[kk], sm90::desc_mn<kChunk>(oh_t, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        sm90::mma_rs_n128(ut, qh[kk], sm90::desc_mn<kChunk>(ol_t, kk), 1);
+    } else {
+      // the state update: U_qΩ += q^T Ω̂ (dk) or U_qΩ^T += Ω̂^T q (dv;
+      // gated, the weighted Ω̂ from the tiles' second boxes)
+      const bf16* ow_t[2] = {
+          kGated ? reinterpret_cast<const bf16*>(smem + kOmHi + kBox) : oh_t,
+          kGated ? reinterpret_cast<const bf16*>(smem + kOmLo + kBox)
+                 : ol_t};
+      const bf16* ua_t[2] = {kDk ? q_t : ow_t[0], kDk ? q_t : ow_t[1]};
+      const bf16* ub_t[2] = {kDk ? oh_t : q_t, kDk ? ol_t : q_t};
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 16; ++kk)
+          sm90::mma_ss_n128<1, 1>(ut, sm90::desc_mn<kChunk>(ua_t[x], kk),
+                                  sm90::desc_mn<kChunk>(ub_t[x], kk), 1);
+    }
     sm90::mma_commit();
 
+    if constexpr (kGated) {
+      if (aug) {
+        // behind the products: the next chunk's u_h (each thread one
+        // column of q) and Σ h (warp 0), both weighted by 2^cl and the
+        // carried ones decayed by 2^total; at a chunk's first step the
+        // carried part of -dV'[kD], e_p (b k_p . u_h + a Σ h)
+        const float* uh_cur = uh + (j % 2) * kD;
+        float* uh_next = uh + ((j + 1) % 2) * kD;
+        float sum = 0.f;
+#pragma unroll 8
+        for (int t = 0; t < kChunk; ++t)
+          sum = fmaf(bf16_at(st + kQ, t, tid), eh_sh[t], sum);
+        uh_next[tid] = (first ? e_total * uh_cur[tid] : uh_next[tid]) + sum;
+        if (warp == 0) {
+          float part_h = eh_sh[2 * lane] + eh_sh[2 * lane + 1];
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            part_h += __shfl_xor_sync(0xffffffffu, part_h, off);
+          if (lane == 0)
+            hs[(j + 1) % 2] =
+                (first ? e_total * hs[j % 2] : hs[(j + 1) % 2]) + part_h;
+        }
+        if (first) {
+          float kdot[2];
+          cd::row_dot<kBox>(st + kKV, uh_cur, row0, tq, kdot);
+          const float hsum = hs[j % 2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            xd[r] = fmaf(e_row[r], fmaf(b, kdot[r], a * hsum), xd[r]);
+        }
+      }
+    }
     sm90::mma_wait<1>();  // dk or dv, while the state update runs
     sm90::pin(acc);
     sm90::pin(xh);
     sm90::pin(xl);
     if (last) {
-      if (kDk)
+      if constexpr (kGated && !kDk) {
+        // dV' rows from registers (rows of kD + 1 f32: 4-byte stores)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = t0 + row0 + 8 * r;
+          if (row >= n) continue;
+          float* dst = out + static_cast<size_t>(row) * kOutRow + 2 * tq;
+#pragma unroll
+          for (int x = 0; x < kHalf / 8; ++x) {
+            dst[8 * x] = acc[4 * x + 2 * r];
+            dst[8 * x + 1] = acc[4 * x + 2 * r + 1];
+          }
+          if (aug && tq == 0) dst[kD] = -xd[r];
+        }
+      } else if (kDk) {
         store_rows(out, t0, row0, n, [&](int i, int col) {
-          return b * (acc[i] - s_cur[col]);
+          return kGated ? b * acc[i] : b * (acc[i] - s_cur[col]);
         });
-      else
+      } else {
         store_rows(out, t0, row0, n, [&](int i, int col) {
           return fmaf(a, s_cur[col], acc[i]);
         });
+      }
     }
     __syncwarp();
     sm90::mma_wait<0>();
     sm90::pin(ut);
+    if constexpr (kGated && kDk) {
+      sm90::pin(qh);
+      sm90::pin(ql);
+    }
     if (last) {
       // every warp is done with this chunk's readout of U's copies
       __syncthreads();
@@ -691,25 +920,36 @@ __device__ __forceinline__ void walk(unsigned char* smem,
     // orders this step's reads of its stage and the copies' stores before
     // the async proxy's next use of those bytes
     sm90::fence_async_smem();
+    if constexpr (kGated) {
+      if (last) {
+        ld_cur[0] = ld_next[0];
+        ld_cur[1] = ld_next[1];
+      }
+    }
   }
 }
 
+template <bool kGated>
 __global__ void __launch_bounds__(kThreads, 1)
     la_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap k_map,
                            const __grid_constant__ CUtensorMap v_map,
                            const __grid_constant__ CUtensorMap om_map,
+                           const float* __restrict__ ld,
                            const float* __restrict__ hv,
-                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           bf16* __restrict__ dk, void* __restrict__ dv,
                            int heads, int kv_heads, int n, float a, float b) {
+  // dv: bf16, or the gated dV' in f32
+  using Dv = std::conditional_t<kGated, float, bf16>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = sm90::aligned_smem(smem_raw);
   if (blockIdx.y < 2)
-    walk<true>(smem, &q_map, &v_map, &om_map, hv, dk, blockIdx.y, heads,
-               kv_heads, n, a, b);
+    walk<true, kGated>(smem, &q_map, &v_map, &om_map, ld, hv, dk,
+                       blockIdx.y, heads, kv_heads, n, a, b);
   else
-    walk<false>(smem, &q_map, &k_map, &om_map, hv, dv, blockIdx.y - 2,
-                heads, kv_heads, n, a, b);
+    walk<false, kGated>(smem, &q_map, &k_map, &om_map, ld, hv,
+                        static_cast<Dv*>(dv), blockIdx.y - 2, heads,
+                        kv_heads, n, a, b);
 }
 
 }  // namespace bkv
@@ -1172,12 +1412,13 @@ cudaError_t with_launch_kv(int dtype, int d, int batch, int heads,
   const int group = heads / kv_heads;
   return plan::with_dtype(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
-    if constexpr (!kGated && std::is_same<T, __nv_bfloat16>::value) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       if (d == lbw::kD) {
         if (stage != lbw::kChunk) return cudaErrorInvalidValue;
-        return f(t, bkv::la_bwd_kv_wgmma_kernel,
+        return f(t, bkv::la_bwd_kv_wgmma_kernel<kGated>,
                  plan::Geometry{dim3(batch * kv_heads, bkv::kSplit),
-                                lbw::kThreads, bkv::kSmem, lbw::kChunk},
+                                lbw::kThreads, bkv::Layout<kGated>::kSmem,
+                                lbw::kChunk},
                  plan::Int<1>{});
       }
     }
@@ -1269,9 +1510,9 @@ int run_kv(const void* q, const void* k, const void* v, const void* ld,
                                      lbw::kChunk);
           if (err != cudaSuccess) return err;
           return plan::launch(kernel, geo, st, q_map, k_map, v_map, om_map,
+                              static_cast<const float*>(ld),
                               static_cast<const float*>(hv),
-                              static_cast<__nv_bfloat16*>(dk),
-                              static_cast<__nv_bfloat16*>(dv), heads,
+                              static_cast<__nv_bfloat16*>(dk), dv, heads,
                               kv_heads, n, a, b);
         } else {
           return plan::launch(kernel, geo, st, static_cast<const T*>(q),

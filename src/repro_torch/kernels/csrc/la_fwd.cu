@@ -31,10 +31,10 @@
 // Dk = Dv = D, a template parameter (32, 64 or 128) so that a state column
 // lives in registers.
 //
-// Two bodies of la_fwd, chosen by the launcher from the dtype and D: the
-// chunked wgmma body (namespace lc) for bf16 at D = 128, the paper's
-// training instance; the token walk for f32, for D < 128, and for every
-// gla_fwd call (the walk's kGated instantiation).
+// Two bodies of each entry, chosen by the launcher from the dtype and D:
+// the chunked wgmma body (namespace lc; gla_fwd its kGated instance) for
+// bf16 at D = 128, the training instance; the token walk (gla_fwd its
+// kGated instantiation) for f32 and for D < 128.
 //
 // What bounds them: the recurrent form does 4 D (D+1) flops per token and
 // head (the state update and the q.S readout; gated, 5 D (D+1) with the
@@ -43,7 +43,9 @@
 // for its 269.5 MB at 3.35 TB/s (estimates from the shapes, not
 // measurements).  The chunked body does four products per chunk of 64
 // tokens and half of the value columns, 30.1 GFLOP on the bf16 tensor
-// cores (0.030 ms at 989 TFLOP/s): bound by its bytes (0.080 ms).
+// cores (0.030 ms at 989 TFLOP/s): bound by its bytes (0.080 ms).  Its
+// gated instance runs three of them twice (a hi + lo operand), 51.5
+// GFLOP (0.052 ms), and is bound by its bytes too (270.5 MB, 0.081 ms).
 //
 // Design of the chunked body (the reference's chunked form,
 // src/repro/kernels/linear_attention.py:67-93; ssd.cu's sc without the
@@ -70,7 +72,19 @@
 //     formed while this chunk reads its own.  o, held to one bf16 step,
 //     rounds A and the readout's copy of S once per chunk;
 //   * each o and g element is written once (no atomics): the result is
-//     bit-deterministic.
+//     bit-deterministic;
+//   * gated (gla_fwd): ssd.cu's sc carries the decay the same way
+//     (decay.cuh): the chunk's cumsum cl of the KV head's log decays in
+//     base 2 by a warp scan, A = (a + b q k^T) o 2^(cl_i - cl_j), the
+//     readout scaled by 2^cl_i, the state by 2^total and its update fed
+//     (w o v), w_j = 2^(total - cl_j) <= 1, built by the threads; the
+//     exponents are masked differences <= 0, so nothing overflows.  z, P
+//     and the decayed token count stay f32 on the CUDA cores, weighted
+//     the same way, and g is the f32 row sums of the decayed A plus
+//     2^cl_i (a n + b q . z).  A, the readout's copy of S^T and w o v go
+//     as hi + lo pairs of bf16 (134,656 B of shared memory): o is held to
+//     one bf16 step of the plain path, and a step-0 training comparison
+//     reads it through deep-layer grads that cancel.
 //
 // Design of the token walk (simple first):
 //   * one block per (batch, query head), walking the whole sequence: a
@@ -102,6 +116,7 @@
 
 #include <type_traits>
 
+#include "decay.cuh"
 #include "plan.cuh"
 #include "sm90.cuh"
 
@@ -131,8 +146,20 @@ constexpr size_t kSumBytes = 2 * (kD + kHalf) * 4;  // z and P, twice, f32
 // beside the tiles and the sums: the barriers, and up to 1024 bytes of
 // padding to the tiles' 1024-byte alignment
 constexpr size_t kExtra = 2048;
-// 101,888 B
-constexpr size_t kSmem = kStages * kStageBytes + kSBytes + kSumBytes + kExtra;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Offsets after the ring (each tile 1024-byte aligned): the bf16 copy of
+// S^T (gated: its hi + lo pair), the gated body's hi and lo (w o v)
+// tiles, then z and P twice and the barriers.  101,888 B; gated 134,656 B.
+template <bool kGated>
+struct Layout {
+  static constexpr size_t kSHi = kStages * kStageBytes;
+  static constexpr size_t kSLo = kSHi + kSBytes;
+  static constexpr size_t kWvHi = kSLo + (kGated ? kSBytes : 0);
+  static constexpr size_t kWvLo = kWvHi + kVBytes;
+  static constexpr size_t kSums = kGated ? kWvLo + kVBytes : kSLo;
+  static constexpr size_t kSmem = kSums + kSumBytes + kExtra;
+};
 
 // One block per (batch, query head, half of the value columns) walks its
 // head's chunks in order.  Per chunk of c = 64 tokens, with S (D x D/2,
@@ -147,20 +174,40 @@ constexpr size_t kSmem = kStages * kStageBytes + kSBytes + kSumBytes + kExtra;
 //   o  = f / g (|g| < 1e-30 gives 0)
 //   S^T += v^T k                                   (wgmma, SS; both MN-major)
 //   z += sum of k, P += sum of v                   (f32, CUDA cores)
+// kGated (gla_fwd): with cl the inclusive cumsum of the chunk's log decays
+// (base 2, a KV head's), `total` its last, and n the decayed count of the
+// earlier tokens, every sum above is decayed (sc, sk's and sq's
+// bookkeeping, decay.cuh):
+//   A  = (a + b sc) o 2^(cl_i - cl_j) on j <= i, else 0, in f32
+//   g  = rowsum of A + 2^cl_i (a n + b q . z)       (f32)
+//   f  = 2^cl_i (b acc + a P) + A v                 (A as hi + lo, RS)
+//   S^T = 2^total S^T + (w o v)^T k,  w_j = 2^(total - cl_j) <= 1
+//                                                   ((w o v) as hi + lo, SS)
+//   z = 2^total z + Σ w k,  P = 2^total P + Σ w v,  n = 2^total n + Σ w
+// and the readout reads S^T's copy as a hi + lo pair.  o is held to one
+// bf16 step of the plain path, and a step-0 train comparison reads it
+// through cancelling deep-layer grads, so every non-input operand keeps
+// ~16 bits.
 // Both halves compute g; the half with value column 0 writes it.  o of a
 // chunk is staged as bf16 in the chunk's q tile and stored by TMA from the
 // next chunk.
+template <bool kGated>
 __global__ void __launch_bounds__(kThreads, 1)
     la_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                         const __grid_constant__ CUtensorMap k_map,
                         const __grid_constant__ CUtensorMap v_map,
                         const __grid_constant__ CUtensorMap o_map,
+                        const float* __restrict__ ld,
                         float* __restrict__ g_out, int heads, int kv_heads,
                         int n, float a, float b) {
+  using L = Layout<kGated>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = sm90::aligned_smem(smem_raw);
-  unsigned char* s_sh = smem + kStages * kStageBytes;
-  float* z_sh = reinterpret_cast<float*>(s_sh + kSBytes);  // [2][kD]
+  unsigned char* s_sh = smem + L::kSHi;
+  [[maybe_unused]] unsigned char* s_lo = smem + L::kSLo;
+  [[maybe_unused]] unsigned char* wv_hi = smem + L::kWvHi;
+  [[maybe_unused]] unsigned char* wv_lo = smem + L::kWvLo;
+  float* z_sh = reinterpret_cast<float*>(smem + L::kSums);  // [2][kD]
   float* p_sh = z_sh + 2 * kD;                              // [2][kHalf]
   uint64_t* full = reinterpret_cast<uint64_t*>(p_sh + 2 * kHalf);
 
@@ -197,13 +244,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::tma_store_3d(&o_map, stage_of(c), kHalf * half, c * kChunk, bh);
     sm90::bulk_commit();
   };
+  // gated: lane l's two log decays of chunk c in base 2 (tokens 2l,
+  // 2l + 1; 0 past n, so the padded tokens of a ragged last chunk decay
+  // nothing, and add nothing to a row of the chunk's real tokens)
+  [[maybe_unused]] auto load_ld = [&](int c, float (&x)[2]) {
+    const float* ld_row = ld + static_cast<size_t>(kv_slice) * n;
+    const int t = c * kChunk + 2 * lane;
+    x[0] = t < n ? ld_row[t] * kLog2e : 0.f;
+    x[1] = t + 1 < n ? ld_row[t + 1] * kLog2e : 0.f;
+  };
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) sm90::bar_init(&full[s], 1);
     sm90::bar_init_fence();
   }
-  // S_0 = 0 (its bf16 copy too), z_0 = 0, P_0 = 0
-  for (int i = tid; i < static_cast<int>(kSBytes / 16); i += kThreads)
+  // S_0 = 0 (its bf16 copies too), z_0 = 0, P_0 = 0
+  for (int i = tid; i < static_cast<int>((kGated ? 2 : 1) * kSBytes / 16);
+       i += kThreads)
     reinterpret_cast<uint4*>(s_sh)[i] = make_uint4(0, 0, 0, 0);
   z_sh[tid] = 0.f;
   if (tid < kHalf) p_sh[tid] = 0.f;
@@ -215,14 +272,24 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int i = 0; i < 64; ++i) st[i] = 0.f;
   const int row0 = 16 * warp + g;  // this thread's rows of a chunk: +0, +8
+  // gated: the decayed count of the earlier tokens (P's normalizer entry),
+  // the same in every thread; the chunk's log decays
+  [[maybe_unused]] float count = 0.f;
+  [[maybe_unused]] float ld_cur[2] = {0.f, 0.f};
+  if constexpr (kGated) load_ld(0, ld_cur);
 
   for (int c = 0; c < chunks; ++c) {
     const int t0 = c * kChunk;
     // every thread is done with chunk c - 1: its o is staged, the bf16
-    // copy of S^T, z and P it wrote are complete, its k and v are free
+    // copy of S^T, z and P it wrote are complete, its k and v (and the
+    // (w o v) tiles) are free
     __syncthreads();
     if (tid == 0 && c > 0) store_o(c - 1);
     __syncwarp();
+    [[maybe_unused]] float ld_next[2] = {0.f, 0.f};
+    if constexpr (kGated) {
+      if (c + 1 < chunks) load_ld(c + 1, ld_next);
+    }
     sm90::bar_wait(&full[c % kStages], (c / kStages) & 1);
     __syncwarp();  // the products below are warp-aligned
     const unsigned char* stage = stage_of(c);
@@ -242,56 +309,75 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int kk = 0; kk < kD / 16; ++kk)
       sm90::mma_ss_n64(acc, sm90::desc_k<kChunk>(q_t, kk),
                        sm90::desc_k<kHalf>(s_t, kk), kk);
+    if constexpr (kGated) {
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        sm90::mma_ss_n64(acc, sm90::desc_k<kChunk>(q_t, kk),
+                         sm90::desc_k<kHalf>(
+                             reinterpret_cast<const bf16*>(s_lo), kk), 1);
+    }
     sm90::mma_commit();
 
     // behind the products, in f32 on the CUDA cores: q . z of this
     // thread's rows (a quad splits the 16 chunks of 16 bytes of a row),
     // and the next chunk's z and P (each thread a column of k, the first
-    // kHalf also a column of v)
+    // kHalf also a column of v); gated: cl (cd::scan), the hi and lo
+    // (w o v) tiles, and each sum weighted by w and decayed by 2^total
     const float* z_cur = z_sh + (c % 2) * kD;
     const float* p_cur = p_sh + (c % 2) * kHalf;
     float qz[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      float part = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int x = tq + 4 * jj;  // 16-byte chunk: columns 8 x ..
-        const uint4 raw = *reinterpret_cast<const uint4*>(
-            stage + (x / 8) * (kQKBytes / 2) + row * 128 +
-            (((x % 8) ^ (row % 8)) * 16));
-        const __nv_bfloat162* pq =
-            reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(pq[e]);
-          part = fmaf(f.x, z_cur[8 * x + 2 * e], part);
-          part = fmaf(f.y, z_cur[8 * x + 2 * e + 1], part);
-        }
-      }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      qz[r] = part;
+    cd::row_dot<kQKBytes / 2>(stage, z_cur, row0, tq, qz);
+    [[maybe_unused]] cd::Cumsum cl;
+    [[maybe_unused]] float w_tok[2] = {1.f, 1.f};  // w of tokens 2l, 2l + 1
+    [[maybe_unused]] float e_total = 1.f;
+    if constexpr (kGated) {
+      cl = cd::scan(ld_cur, lane);
+      cd::weighted_v<true, kThreads>(cl, stage + 2 * kQKBytes, wv_hi, wv_lo,
+                                     tid);
+      w_tok[0] = sm90::exp2_ftz(cl.total - cl.even);
+      w_tok[1] = sm90::exp2_ftz(cl.total - cl.odd);
+      e_total = sm90::exp2_ftz(cl.total);
     }
+    // w of token t (the same t in every lane)
+    [[maybe_unused]] auto w_at = [&](int t) {
+      return __shfl_sync(0xffffffffu, w_tok[t & 1], t / 2);
+    };
     {
       const int d = tid;
       const unsigned char* col = stage + kQKBytes + (d / 64) * (kQKBytes / 2);
       float sum = 0.f;
 #pragma unroll 8
-      for (int t = 0; t < kChunk; ++t)
-        sum += __bfloat162float(*reinterpret_cast<const bf16*>(
+      for (int t = 0; t < kChunk; ++t) {
+        const float x = __bfloat162float(*reinterpret_cast<const bf16*>(
             col + t * 128 + ((((d % 64) / 8) ^ (t % 8)) * 16) + (d % 8) * 2));
-      z_sh[((c + 1) % 2) * kD + d] = z_cur[d] + sum;
+        if constexpr (kGated)
+          sum = fmaf(w_at(t), x, sum);
+        else
+          sum += x;
+      }
+      z_sh[((c + 1) % 2) * kD + d] =
+          kGated ? fmaf(e_total, z_cur[d], sum) : z_cur[d] + sum;
       if (d < kHalf) {
         const unsigned char* vcol = stage + 2 * kQKBytes;
         float vsum = 0.f;
 #pragma unroll 8
-        for (int t = 0; t < kChunk; ++t)
-          vsum += __bfloat162float(*reinterpret_cast<const bf16*>(
+        for (int t = 0; t < kChunk; ++t) {
+          const float x = __bfloat162float(*reinterpret_cast<const bf16*>(
               vcol + t * 128 + (((d / 8) ^ (t % 8)) * 16) + (d % 8) * 2));
-        p_sh[((c + 1) % 2) * kHalf + d] = p_cur[d] + vsum;
+          if constexpr (kGated)
+            vsum = fmaf(w_at(t), x, vsum);
+          else
+            vsum += x;
+        }
+        p_sh[((c + 1) % 2) * kHalf + d] =
+            kGated ? fmaf(e_total, p_cur[d], vsum) : p_cur[d] + vsum;
       }
+    }
+    [[maybe_unused]] float cl_col[16], cl_row[2];
+    if constexpr (kGated) {
+      cl.cols(tq, cl_col);
+      cl_row[0] = cl.at(row0);
+      cl_row[1] = cl.at(row0 + 8);
     }
     if (tid == 0 && c + 1 < chunks) {
       // chunk c + 1 into the stage of chunk c - 1, once the store of that
@@ -304,48 +390,102 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::pin(sc);
     sm90::pin(acc);
 
-    // g from the f32 scores, then A in place
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int r = (i >> 1) & 1;
-      const int j = 8 * (i / 4) + 2 * tq + (i & 1);
-      const bool in = j <= row0 + 8 * r;
-      rs[r] += in ? sc[i] : 0.f;
-      sc[i] = in ? fmaf(b, sc[i], a) : 0.f;
-    }
     float g_row[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      g_row[r] = a * static_cast<float>(t0 + row0 + 8 * r + 1) +
-                 b * (rs[r] + qz[r]);
-    }
     uint32_t pa[kChunk / 16][4];
-    sm90::to_a<kChunk / 16>(pa, sc);
+    [[maybe_unused]] uint32_t pl[kChunk / 16][4];
+    if constexpr (!kGated) {
+      // g from the f32 scores, then A in place
+      float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
-      acc[i] = fmaf(b, acc[i], a * p_cur[8 * (i / 4) + 2 * tq + (i & 1)]);
-    // no product or thread reads q or S^T's copy any more
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        const int j = 8 * (i / 4) + 2 * tq + (i & 1);
+        const bool in = j <= row0 + 8 * r;
+        rs[r] += in ? sc[i] : 0.f;
+        sc[i] = in ? fmaf(b, sc[i], a) : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        g_row[r] = a * static_cast<float>(t0 + row0 + 8 * r + 1) +
+                   b * (rs[r] + qz[r]);
+      }
+      sm90::to_a<kChunk / 16>(pa, sc);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        acc[i] = fmaf(b, acc[i], a * p_cur[8 * (i / 4) + 2 * tq + (i & 1)]);
+    } else {
+      // A in f32, decayed and masked; g from its row sums
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = fmaf(b, sc[i], a);
+      cd::decay_mask<true>(sc, cl_row, cl_col, warp, tq, row0);
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) rs[(i >> 1) & 1] += sc[i];
+      const float e_row[2] = {sm90::exp2_ftz(cl_row[0]),
+                              sm90::exp2_ftz(cl_row[1])};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        g_row[r] = fmaf(e_row[r], fmaf(b, qz[r], a * count), rs[r]);
+      }
+      sm90::to_a_split<kChunk / 16>(pa, pl, sc);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        acc[i] = e_row[(i >> 1) & 1] *
+                 fmaf(b, acc[i], a * p_cur[8 * (i / 4) + 2 * tq + (i & 1)]);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) st[i] *= e_total;
+      // the next chunk's count: 2^total n + Σ w, summed over the warp
+      float wsum = w_tok[0] + w_tok[1];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        wsum += __shfl_xor_sync(0xffffffffu, wsum, off);
+      count = fmaf(e_total, count, wsum);
+      // the (w o v) tiles for the state update
+      sm90::fence_async_smem();
+    }
+    // no product or thread reads q or S^T's copy any more (gated: the
+    // (w o v) tiles are whole)
     __syncthreads();
     sm90::pin(acc);
     sm90::pin(st);
     sm90::pin(pa);
+    if constexpr (kGated) sm90::pin(pl);
     sm90::mma_fence();
 #pragma unroll
     for (int kk = 0; kk < kChunk / 16; ++kk)
       sm90::mma_rs_n64(acc, pa[kk], sm90::desc_mn<kChunk>(v_t, kk), 1);
-    sm90::mma_commit();
+    if constexpr (kGated) {
 #pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk)
-      sm90::mma_ss_n128<1, 1>(st, sm90::desc_mn<kChunk>(v_t, kk),
-                              sm90::desc_mn<kChunk>(k_t, kk), 1);
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        sm90::mma_rs_n64(acc, pl[kk], sm90::desc_mn<kChunk>(v_t, kk), 1);
+    }
+    sm90::mma_commit();
+    if constexpr (kGated) {
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 16; ++kk)
+          sm90::mma_ss_n128<1, 1>(
+              st,
+              sm90::desc_mn<kChunk>(
+                  reinterpret_cast<const bf16*>(x ? wv_lo : wv_hi), kk),
+              sm90::desc_mn<kChunk>(k_t, kk), 1);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        sm90::mma_ss_n128<1, 1>(st, sm90::desc_mn<kChunk>(v_t, kk),
+                                sm90::desc_mn<kChunk>(k_t, kk), 1);
+    }
     sm90::mma_commit();
 
     sm90::mma_wait<1>();  // f, while the state update runs
     sm90::pin(acc);
     sm90::pin(pa);
+    if constexpr (kGated) sm90::pin(pl);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const float den = g_row[(i >> 1) & 1];
@@ -361,9 +501,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     sm90::mma_wait<0>();
     sm90::pin(st);
-    // the bf16 copy of S^T, the K-major B of the next readout
-    sm90::store_tile<kD / 8>(s_sh, st);
+    // the bf16 copy (gated: the hi + lo copies) of S^T, the K-major B of
+    // the next readout
+    if constexpr (kGated)
+      sm90::store_tile_split<kD / 8>(s_sh, s_lo, st);
+    else
+      sm90::store_tile<kD / 8>(s_sh, st);
     sm90::fence_async_smem();
+    if constexpr (kGated) {
+      ld_cur[0] = ld_next[0];
+      ld_cur[1] = ld_next[1];
+    }
   }
   __syncthreads();
   if (tid == 0) {
@@ -584,23 +732,24 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
 
 // The launch of la_fwd / gla_fwd, shared by the launcher and `la_fwd_plan`:
 // f(Type<T>{}, kernel, geometry, Int<wgmma>{}) for the instantiation a
-// call with these arguments runs.  la_fwd in bf16 at D = 128 runs the
-// chunked wgmma body: two blocks per (batch, query head), one per half of
-// the value columns, walking chunks of lc::kChunk tokens, which `stage`
-// must name.  Otherwise the token walk: one block per (batch, query
-// head); D value threads and the normalizer warp; `stage` tokens staged
-// per iteration, shrunk to fit kMaxSmem.
+// call with these arguments runs.  Both entries in bf16 at D = 128 run the
+// chunked wgmma body (gla_fwd its kGated instance): two blocks per (batch,
+// query head), one per half of the value columns, walking chunks of
+// lc::kChunk tokens, which `stage` must name.  Otherwise the token walk:
+// one block per (batch, query head); D value threads and the normalizer
+// warp; `stage` tokens staged per iteration, shrunk to fit kMaxSmem.
 template <bool kGated, typename F>
 cudaError_t with_launch(int dtype, int d, int batch, int heads, int stage,
                         F&& f) {
   return plan::with_dtype(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
-    if constexpr (!kGated && std::is_same<T, __nv_bfloat16>::value) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       if (d == lc::kD) {
         if (stage != lc::kChunk) return cudaErrorInvalidValue;
-        return f(t, lc::la_fwd_wgmma_kernel,
+        return f(t, lc::la_fwd_wgmma_kernel<kGated>,
                  plan::Geometry{dim3(batch * heads, lc::kSplit),
-                                lc::kThreads, lc::kSmem, lc::kChunk},
+                                lc::kThreads, lc::Layout<kGated>::kSmem,
+                                lc::kChunk},
                  plan::Int<1>{});
       }
     }
@@ -650,6 +799,7 @@ int run(const void* q, const void* k, const void* v, const void* ld, void* o,
             err = sm90::map_rows(&o_map, o, n, batch * heads, lc::kChunk);
           if (err != cudaSuccess) return err;
           return plan::launch(kernel, geo, st, q_map, k_map, v_map, o_map,
+                              static_cast<const float*>(ld),
                               static_cast<float*>(g), heads, kv_heads, n, a,
                               b);
         } else {
@@ -667,9 +817,9 @@ int run(const void* q, const void* k, const void* v, const void* ld, void* o,
 
 // Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
 // Each returns the cudaError_t of its launch (0 = success); the launch is
-// asynchronous on `stream`.  `la_fwd` in bf16 at D = 128 runs the wgmma
+// asynchronous on `stream`.  Both entries in bf16 at D = 128 run the wgmma
 // body: `stage` must be its chunk (64), and its TMA reads need q, k and v
-// 16-byte aligned (the wrapper checks it; a map that cannot be encoded is
+// 16-byte aligned (the wrappers check it; a map that cannot be encoded is
 // refused with cudaErrorInvalidValue).
 extern "C" int la_fwd(const void* q, const void* k, const void* v, void* o,
                       void* g, int batch, int heads, int kv_heads, int n,

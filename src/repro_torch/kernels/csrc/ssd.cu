@@ -136,10 +136,11 @@
 //     (w o v) tiles (16 KB);
 //   * each dq element is written once (no atomics): the result is
 //     bit-deterministic.
-// The three chunked bodies share their decay bookkeeping (namespace cd):
-// the warp-scan cumsum of a chunk's log decays, its gathers by token and
-// by fragment column, the masked decay of a score fragment, and the
-// (w o v) tile of the forward state update.
+// The three chunked bodies share their decay bookkeeping with la_fwd.cu's
+// and la_bwd.cu's gated bodies (decay.cuh, namespace cd): the warp-scan
+// cumsum of a chunk's log decays, its gathers by token and by fragment
+// column, the masked decay of a score fragment, the (w o v) tile of the
+// forward state update and the decayed A of the reverse one.
 // Design of the token walk (simple first):
 //   * one block per (batch, head), walking the whole sequence: a (B, H)
 //     grid, 160 blocks at B=2, H=80 on 132 SMs, small enough that two
@@ -174,111 +175,9 @@
 
 #include <type_traits>
 
+#include "decay.cuh"
 #include "plan.cuh"
 #include "sm90.cuh"
-
-// ---------------------------------------------------------------------------
-// the decay bookkeeping of the three chunked bodies (sc, sk, sq)
-// ---------------------------------------------------------------------------
-
-namespace cd {
-
-// A chunk's inclusive cumsum cl of its 64 log decays (base 2), held whole
-// by every warp: lane l holds tokens 2l (even) and 2l + 1 (odd); total is
-// cl of the chunk's last token.
-struct Cumsum {
-  float even, odd, total;
-
-  // cl of token t of the chunk (t may differ between lanes)
-  __device__ __forceinline__ float at(int t) const {
-    const float e = __shfl_sync(0xffffffffu, even, t / 2);
-    const float od = __shfl_sync(0xffffffffu, odd, t / 2);
-    return (t & 1) ? od : e;
-  }
-
-  // cl of this thread's columns 8 a + 2 tq (+ 1) of an m64n64 fragment
-  __device__ __forceinline__ void cols(int tq, float (&cl)[16]) const {
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      cl[2 * a] = __shfl_sync(0xffffffffu, even, 4 * a + tq);
-      cl[2 * a + 1] = __shfl_sync(0xffffffffu, odd, 4 * a + tq);
-    }
-  }
-};
-
-// the warp scan of this lane's two log decays (tokens 2 lane, 2 lane + 1)
-__device__ __forceinline__ Cumsum scan(const float (&ld)[2], int lane) {
-  float incl = ld[0] + ld[1];
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float y = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += y;
-  }
-  return {incl - ld[1], incl, __shfl_sync(0xffffffffu, incl, 31)};
-}
-
-// x o M in place, x an m64n64 f32 fragment (this thread's rows row0 and
-// row0 + 8 of the chunk, its columns 8 a + 2 tq (+ 1)).  kLower: M =
-// 2^(cl_row - cl_col) on columns <= the row, column blocks past the
-// warp's last row masked whole; else M = 2^(cl_col - cl_row) on columns
-// >= the row, column blocks before the warp's first row masked whole.
-// The exponent is masked first, so it is <= 0.
-template <bool kLower>
-__device__ __forceinline__ void decay_mask(float (&x)[32],
-                                           const float (&cl_row)[2],
-                                           const float (&cl_col)[16],
-                                           int warp, int tq, int row0) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int r = (i >> 1) & 1;
-    const int col = 8 * (i / 4) + 2 * tq + (i & 1);
-    const float cc = cl_col[2 * (i / 4) + (i & 1)];
-    if (kLower ? 8 * (i / 4) > 16 * warp + 15 : 8 * (i / 4) + 7 < 16 * warp) {
-      x[i] = 0.f;
-      continue;
-    }
-    if (kLower)
-      x[i] = col <= row0 + 8 * r ? x[i] * sm90::exp2_ftz(cl_row[r] - cc)
-                                 : 0.f;
-    else
-      x[i] = col >= row0 + 8 * r ? x[i] * sm90::exp2_ftz(cc - cl_row[r])
-                                 : 0.f;
-  }
-}
-
-// The (w o v) tile of the forward state update, w_n = 2^(total - cl_n)
-// <= 1: v's 64 x 64 bf16 TMA tile scaled row by row, 16 bytes at a time
-// (the swizzle permutes the 16-byte chunks within a row only, so v's
-// layout carries over), rounded to bf16 once into hi, or (kSplit) as a
-// hi + lo pair (sm90::pack_bf16_split) into hi and lo.
-template <bool kSplit, int kThreads>
-__device__ __forceinline__ void weighted_v(const Cumsum& cl,
-                                           const unsigned char* v,
-                                           unsigned char* hi,
-                                           unsigned char* lo, int tid) {
-#pragma unroll
-  for (int r = 0; r < 64 * 8 / kThreads; ++r) {
-    const int ch = tid + kThreads * r;  // 8 chunks of 16 bytes a row
-    const float w = sm90::exp2_ftz(cl.total - cl.at(ch / 8));
-    const uint4 raw = reinterpret_cast<const uint4*>(v)[ch];
-    const __nv_bfloat162* pv = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    uint32_t h[4];
-    [[maybe_unused]] uint32_t l[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(pv[e]);
-      if constexpr (kSplit)
-        sm90::pack_bf16_split(w * f.x, w * f.y, h[e], l[e]);
-      else
-        h[e] = sm90::pack_bf16(w * f.x, w * f.y);
-    }
-    reinterpret_cast<uint4*>(hi)[ch] = make_uint4(h[0], h[1], h[2], h[3]);
-    if constexpr (kSplit)
-      reinterpret_cast<uint4*>(lo)[ch] = make_uint4(l[0], l[1], l[2], l[3]);
-  }
-}
-
-}  // namespace cd
 
 // ---------------------------------------------------------------------------
 // the chunked wgmma body of ssd_fwd (bf16, Dk = 128, Dv = 64)
@@ -730,26 +629,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     // (lane l: row 16 kk + 8 (m / 2) + l % 8 of the tile, columns
     // 8 (2 warp + m % 2).. of matrix m = l / 8), scaled per token
     uint32_t oh[kChunk / 16][4], ol[kChunk / 16][4];
-    {
-      const int m = lane / 8;
-      const int ch = 2 * warp + (m & 1);
-#pragma unroll
-      for (int kk = 0; kk < kChunk / 16; ++kk) {
-        const int i = 16 * kk + 8 * (m >> 1) + lane % 8;
-        uint32_t raw[4];
-        sm90::ldmatrix_x4_trans(om_raw + i * 128 + ((ch ^ (i % 8)) * 16),
-                                raw);
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int cc = 4 * kk + 2 * (jj >> 1);  // cl_col of tokens +0, +1
-          const float2 f = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&raw[jj]));
-          sm90::pack_bf16_split(f.x * sm90::exp2_ftz(cl_col[cc]),
-                                f.y * sm90::exp2_ftz(cl_col[cc + 1]),
-                                oh[kk][jj], ol[kk][jj]);
-        }
-      }
-    }
+    cd::weighted_a_trans(om_raw, cl_col, warp, lane, oh, ol);
     const float e_total = sm90::exp2_ftz(cl.total);
 #pragma unroll
     for (int i = 0; i < 64; ++i) ut[i] *= e_total;

@@ -20,8 +20,8 @@ staging size, and no result depends on it.
   * `LA_CHUNK_TOKENS`, `LA_CHUNK_RING`, `LA_WGMMA_SPLIT` — the chunk,
     the ring depth and the blocks per head of `la_fwd`'s "wgmma" body
     (bf16 at D in `LA_WGMMA_HEAD_DIMS`, the paper's training instance;
-    the dtype and D pick the body, `linear_attention.la_fwd_body`; f32,
-    the other D and `gla_fwd` keep the token walk).  A chunk is 64
+    the dtype and D pick the body, `linear_attention.la_fwd_body`; f32
+    and the other D keep the token walk).  A chunk is 64
     tokens, the M of Hopper's `wgmma`; a head's D = 128 value columns
     are split over two blocks of 64, so each block's state S^T (64 x 128)
     is one m64n128 f32 accumulator, 64 registers a thread, and the grid
@@ -38,8 +38,8 @@ staging size, and no result depends on it.
     `LA_BWD_RING` — the "wgmma" bodies of the analytic backward's
     `la_bwd_q` and `la_bwd_kv` (bf16 at D in `LA_BWD_WGMMA_HEAD_DIMS`,
     the paper's training instance; the entry, the dtype and D pick the
-    body, `linear_attention.la_bwd_body`; f32, the other D and both
-    `gla_bwd_*` entries keep the token walk).  Both walk chunks of
+    body, `linear_attention.la_bwd_body`; f32, the other D and
+    `gla_bwd_q` keep the token walk).  Both walk chunks of
     `LA_CHUNK_TOKENS`.  `la_bwd_q` runs `LA_BWD_Q_SPLIT` = 2 blocks per
     (batch, query head), one per half of dq's columns, so a block's share
     of the state A = Σ k^T v (64 x 128) is one m64n128 f32 accumulator;
@@ -115,12 +115,24 @@ staging size, and no result depends on it.
     has no counterpart: a block walks all of its slot's pages.
 
   * `GLA_STAGE_TOKENS` — the same staging size for the decay-gated
-    instantiations of those kernels (`gla_fwd`, `gla_bwd_q`,
-    `gla_bwd_kv`), which also stage each token's decay.  The
-    reference's `DEFAULT_TILES["gla"]["chunk"] = 128` is the VMEM tile
-    of its Pallas GLA kernels; here too the token-by-token walk makes
-    the result independent of it.  The plain GLA scans (core/gla.py)
-    take `DEFAULT_SCAN_CHUNK`, as the linear ones do.
+    instantiations of the token walks (`gla_bwd_q` always; `gla_fwd` and
+    `gla_bwd_kv` in f32 and at D < 128), which also stage each token's
+    decay.  The reference's `DEFAULT_TILES["gla"]["chunk"] = 128` is the
+    VMEM tile of its Pallas GLA kernels; here too the token-by-token
+    walk makes the result independent of it.  The plain GLA scans
+    (core/gla.py) take `DEFAULT_SCAN_CHUNK`, as the linear ones do.
+  * `GLA_WGMMA_HEAD_DIMS`, `GLA_BWD_KV_WGMMA_HEAD_DIMS` — the head dims
+    at which `gla_fwd` and `gla_bwd_kv` in bf16 run the decay-gated
+    instances of `la_fwd`'s and `la_bwd_kv`'s "wgmma" bodies (the entry,
+    the dtype and D pick the body, `linear_attention.la_fwd_body` and
+    `la_bwd_body`), with their chunk `LA_CHUNK_TOKENS`, ring and splits.
+    The decay is kept as a chunk's cumsum of log decays, every factor a
+    power of two of a masked difference <= 0 of it.  The gated forward
+    also sends A, the readout's copy of S^T and the (w o v) tile of its
+    state update as hi + lo pairs of bf16 (134,656 B); the gated dk/dV'
+    body writes dV' in f32 with its augmented column and keeps that
+    column's sums and the step's token weights beside its own (200,976
+    B).
 
   * `SSD_STAGE_TOKENS` — the same staging size for the token walk of the
     SSD (Mamba-2) kernels (each of `ssd_fwd`, `ssd_bwd_q` and
@@ -167,6 +179,8 @@ LA_CHUNK_RING = 2
 LA_WGMMA_SPLIT = 2
 LA_WGMMA_HEAD_DIMS = (128,)
 LA_BWD_WGMMA_HEAD_DIMS = (128,)
+GLA_WGMMA_HEAD_DIMS = (128,)
+GLA_BWD_KV_WGMMA_HEAD_DIMS = (128,)
 LA_BWD_Q_SPLIT = 2
 LA_BWD_KV_SPLIT = 4
 LA_BWD_RING = 2

@@ -4,9 +4,11 @@ Hopper.
 Port of `repro/kernels/gla.py` (`gla_fwd_pallas`, `gla_bwd_pallas`).
 Three hand-written CUDA kernels, the `kGated` instantiations of the
 linear-attention kernels' bodies (csrc/la_fwd.cu entry `gla_fwd`,
-csrc/la_bwd.cu entries `gla_bwd_q` and `gla_bwd_kv`), each launched by a
-wrapper on the current stream, and beside each its plain PyTorch version
-(the chunked scans of core/gla.py):
+csrc/la_bwd.cu entries `gla_bwd_q` and `gla_bwd_kv`; in bf16 at D = 128
+`gla_fwd` and `gla_bwd_kv` run the gated instances of the chunked wgmma
+bodies, `linear_attention.la_fwd_body` and `la_bwd_body` say which),
+each launched by a wrapper on the current stream, and beside each its
+plain PyTorch version (the chunked scans of core/gla.py):
 
   kernel      wrapper                                     plain version
   gla_fwd     gla_fwd_cuda(q, k, v, ld, a, b) -> (o, g)   gla_fwd_torch
@@ -96,8 +98,9 @@ def gla_fwd_cuda(q, k, v, log_decay, a: float, b: float):
     with torch.cuda.device(q.device):
         err = lib.gla_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           log_decay.data_ptr(), o.data_ptr(), g.data_ptr(),
-                          bsz, h, hkv, n, d, GLA_STAGE_TOKENS, float(a),
-                          float(b), build.DTYPE_CODE[q.dtype],
+                          bsz, h, hkv, n, d, _la.fwd_stage(q.dtype, d,
+                                                           "gla_fwd"),
+                          float(a), float(b), build.DTYPE_CODE[q.dtype],
                           build.current_stream(q.device))
     build.raise_on(lib, "la_fwd", "gla_fwd", err)
     launches["gla_fwd"] += 1
@@ -122,8 +125,8 @@ def gla_bwd_q_cuda(k, v, log_decay, om_hat, h_vec, b: float):
         err = lib.gla_bwd_q(k.data_ptr(), v.data_ptr(),
                             log_decay.data_ptr(), om_hat.data_ptr(),
                             h_vec.data_ptr(), dq.data_ptr(), bsz, h, hkv, n,
-                            d, GLA_STAGE_TOKENS, float(b),
-                            build.DTYPE_CODE[k.dtype],
+                            d, _la.bwd_stage("gla_bwd_q", k.dtype, d),
+                            float(b), build.DTYPE_CODE[k.dtype],
                             build.current_stream(k.device))
     build.raise_on(lib, "la_bwd", "gla_bwd_q", err)
     launches["gla_bwd_q"] += 1
@@ -152,8 +155,9 @@ def gla_bwd_kv_cuda(q, k, v, log_decay, om_hat, h_vec, a: float,
         err = lib.gla_bwd_kv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              log_decay.data_ptr(), om_hat.data_ptr(),
                              h_vec.data_ptr(), dk.data_ptr(), dva.data_ptr(),
-                             bsz, h, hkv, n, d, GLA_STAGE_TOKENS, float(a),
-                             float(b), build.DTYPE_CODE[q.dtype],
+                             bsz, h, hkv, n, d,
+                             _la.bwd_stage("gla_bwd_kv", q.dtype, d),
+                             float(a), float(b), build.DTYPE_CODE[q.dtype],
                              build.current_stream(q.device))
     build.raise_on(lib, "la_bwd", "gla_bwd_kv", err)
     launches["gla_bwd_kv"] += 1

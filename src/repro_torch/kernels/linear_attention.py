@@ -17,14 +17,15 @@ does outside its kernels) and launches both backward kernels;
 and csrc/la_bwd.cu; their headers say what bounds each kernel and how
 it is laid out.
 
-Each kernel has two bodies, chosen by `la_fwd_body(dtype, d)` and
+Each kernel has two bodies, chosen by `la_fwd_body(dtype, d, entry)` and
 `la_bwd_body(entry, dtype, d)`: "wgmma" (bf16 at D = 128, the paper's
 training instance: chunked scans on the tensor cores fed by TMA, so
 their operands must be 16-byte aligned, which the wrappers check;
 `la_fwd` two blocks per head by halves of the value columns, `la_bwd_q`
 two by halves of dq's columns, `la_bwd_kv` four per KV head, by halves
-of dk's and of dv's columns) and "walk" (f32, and bf16 at D < 128: the
-token walk, as is every GLA kernel).
+of dk's and of dv's columns; `gla_fwd` and `gla_bwd_kv` run the gated
+instances of the forward's and the dk/dv body) and "walk" (f32, and bf16
+at D < 128: the token walk, as is every `gla_bwd_q` call).
 
 Shapes: q (B, H, N, D), k and v (B, Hkv, N, D) with Hkv | H, float32 or
 bfloat16, D in `HEAD_DIMS`; o, dq, dk and dv come back in their
@@ -44,6 +45,7 @@ import torch
 from repro_torch.core import chunked as _chunked
 from repro_torch.kernels import build, plan
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
+    GLA_BWD_KV_WGMMA_HEAD_DIMS, GLA_STAGE_TOKENS, GLA_WGMMA_HEAD_DIMS, \
     LA_BWD_KV_SPLIT, LA_BWD_Q_SPLIT, LA_BWD_RING, LA_BWD_WGMMA_HEAD_DIMS, \
     LA_CHUNK_RING, LA_CHUNK_TOKENS, LA_STAGE_TOKENS, LA_WGMMA_HEAD_DIMS, \
     LA_WGMMA_SPLIT
@@ -58,34 +60,48 @@ HEAD_DIMS = (32, 64, 128)
 launches = {"la_fwd": 0, "la_bwd_q": 0, "la_bwd_kv": 0}
 
 
-def la_fwd_body(dtype, d: int) -> str:
-    """The body `la_fwd` runs for this compute dtype and head dim:
-    "wgmma" (bf16 at D in LA_WGMMA_HEAD_DIMS) or "walk"."""
-    return ("wgmma" if dtype == torch.bfloat16 and d in LA_WGMMA_HEAD_DIMS
-            else "walk")
+def la_fwd_body(dtype, d: int, entry: str = "la_fwd") -> str:
+    """The body forward entry `entry` ("la_fwd" or "gla_fwd") runs for
+    this compute dtype and head dim: "wgmma" (bf16 at D in
+    LA_WGMMA_HEAD_DIMS, or for `gla_fwd` GLA_WGMMA_HEAD_DIMS: the gated
+    instance) or "walk"."""
+    dims = GLA_WGMMA_HEAD_DIMS if entry == "gla_fwd" else LA_WGMMA_HEAD_DIMS
+    return "wgmma" if dtype == torch.bfloat16 and d in dims else "walk"
+
+
+# the head dims of each backward entry's "wgmma" body (gla_bwd_q has none)
+_BWD_WGMMA_HEAD_DIMS = {"la_bwd_q": LA_BWD_WGMMA_HEAD_DIMS,
+                        "la_bwd_kv": LA_BWD_WGMMA_HEAD_DIMS,
+                        "gla_bwd_kv": GLA_BWD_KV_WGMMA_HEAD_DIMS}
 
 
 def la_bwd_body(entry: str, dtype, d: int) -> str:
     """The body backward entry `entry` runs for this compute dtype and head
     dim: "wgmma" (`la_bwd_q` and `la_bwd_kv` in bf16 at D in
-    LA_BWD_WGMMA_HEAD_DIMS) or "walk" (also every `gla_bwd_*` call)."""
-    return ("wgmma" if entry in ("la_bwd_q", "la_bwd_kv")
-            and dtype == torch.bfloat16 and d in LA_BWD_WGMMA_HEAD_DIMS
-            else "walk")
+    LA_BWD_WGMMA_HEAD_DIMS, `gla_bwd_kv` at D in
+    GLA_BWD_KV_WGMMA_HEAD_DIMS: the gated instance) or "walk" (also every
+    `gla_bwd_q` call)."""
+    return ("wgmma" if dtype == torch.bfloat16
+            and d in _BWD_WGMMA_HEAD_DIMS.get(entry, ()) else "walk")
 
 
-def _fwd_stage(dtype, d: int) -> int:
-    """The `stage` argument of `la_fwd`'s C call: the wgmma body's chunk,
-    or the tokens the walk stages per iteration."""
-    return (LA_CHUNK_TOKENS if la_fwd_body(dtype, d) == "wgmma"
-            else LA_STAGE_TOKENS)
+def _walk_stage(entry: str) -> int:
+    """The tokens a token walk stages per iteration."""
+    return GLA_STAGE_TOKENS if entry.startswith("gla_") else LA_STAGE_TOKENS
 
 
-def _bwd_stage(entry: str, dtype, d: int) -> int:
-    """The `stage` argument of a linear backward entry's C call, as
-    `_fwd_stage`."""
+def fwd_stage(dtype, d: int, entry: str = "la_fwd") -> int:
+    """The `stage` argument of a forward entry's C call: the wgmma body's
+    chunk, or the tokens the walk stages per iteration."""
+    return (LA_CHUNK_TOKENS if la_fwd_body(dtype, d, entry) == "wgmma"
+            else _walk_stage(entry))
+
+
+def bwd_stage(entry: str, dtype, d: int) -> int:
+    """The `stage` argument of a backward entry's C call, as
+    `fwd_stage`."""
     return (LA_CHUNK_TOKENS if la_bwd_body(entry, dtype, d) == "wgmma"
-            else LA_STAGE_TOKENS)
+            else _walk_stage(entry))
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +159,7 @@ def la_fwd_cuda(q, k, v, a: float, b: float):
     with torch.cuda.device(q.device):
         err = lib.la_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          o.data_ptr(), g.data_ptr(), bsz, h, hkv, n, d,
-                         _fwd_stage(q.dtype, d), float(a), float(b),
+                         fwd_stage(q.dtype, d), float(a), float(b),
                          build.DTYPE_CODE[q.dtype],
                          build.current_stream(q.device))
     build.raise_on(lib, "la_fwd", "la_fwd", err)
@@ -167,7 +183,7 @@ def la_bwd_q_cuda(k, v, om_hat, h_vec, b: float):
     with torch.cuda.device(k.device):
         err = lib.la_bwd_q(k.data_ptr(), v.data_ptr(), om_hat.data_ptr(),
                            h_vec.data_ptr(), dq.data_ptr(), bsz, h, hkv, n,
-                           d, _bwd_stage("la_bwd_q", k.dtype, d), float(b),
+                           d, bwd_stage("la_bwd_q", k.dtype, d), float(b),
                            build.DTYPE_CODE[k.dtype],
                            build.current_stream(k.device))
     build.raise_on(lib, "la_bwd", "la_bwd_q", err)
@@ -193,7 +209,7 @@ def la_bwd_kv_cuda(q, k, v, om_hat, h_vec, a: float, b: float):
         err = lib.la_bwd_kv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             om_hat.data_ptr(), h_vec.data_ptr(),
                             dk.data_ptr(), dv.data_ptr(), bsz, h, hkv, n, d,
-                            _bwd_stage("la_bwd_kv", q.dtype, d), float(a),
+                            bwd_stage("la_bwd_kv", q.dtype, d), float(a),
                             float(b),
                             build.DTYPE_CODE[q.dtype],
                             build.current_stream(q.device))
@@ -226,13 +242,15 @@ _WGMMA_THREADS = 128
 _WGMMA_EXTRA = 2048
 
 
-def _wgmma_smem(d: int) -> int:
-    """Dynamic shared memory of `la_fwd`'s wgmma block, as csrc/la_fwd.cu's
-    `lc::kSmem`: LA_CHUNK_RING chunks of bf16 q, k (D wide) and the
-    block's share of v, the bf16 copy of S^T (its value columns x D), z
-    and P twice in f32, and the barriers and pad."""
+def _wgmma_smem(d: int, gated: bool = False) -> int:
+    """Dynamic shared memory of the forward's wgmma block, as
+    csrc/la_fwd.cu's `lc::Layout<gated>::kSmem`: LA_CHUNK_RING chunks of
+    bf16 q, k (D wide) and the block's share of v, the bf16 copy of S^T
+    (its value columns x D; gated, its hi + lo pair and the hi and lo
+    (w o v) tiles), z and P twice in f32, and the barriers and pad."""
     c, part = LA_CHUNK_TOKENS, d // LA_WGMMA_SPLIT
     return (LA_CHUNK_RING * 2 * (2 * c * d + c * part) + 2 * part * d
+            + (2 * part * d + 2 * 2 * c * part if gated else 0)
             + 2 * 4 * (d + part) + _WGMMA_EXTRA)
 
 
@@ -248,31 +266,35 @@ def _bwd_q_smem(d: int) -> int:
             + _WGMMA_EXTRA)
 
 
-def _bwd_kv_smem(d: int) -> int:
-    """Dynamic shared memory of `la_bwd_kv`'s wgmma block, as
-    `bkv::kSmem`: LA_BWD_RING steps of a bf16 k or v tile, a bf16 q tile
-    and an f32 Ω̂ tile, Ω̂'s hi and lo bf16 tiles, the hi and lo copies of
-    the block's slice of U = Σ q^T Ω̂, its f32 sums twice, h, and the
-    barriers and pad."""
+def _bwd_kv_smem(d: int, gated: bool = False) -> int:
+    """Dynamic shared memory of the dk/dv wgmma block, as
+    `bkv::Layout<gated>::kSmem`: LA_BWD_RING steps of a bf16 k or v tile,
+    a bf16 q tile and an f32 Ω̂ tile, Ω̂'s hi and lo bf16 tiles, the hi and
+    lo copies of the block's slice of U = Σ q^T Ω̂, its f32 sums twice, h,
+    gated the sums of dV''s augmented column (u_h over D and Σ h, twice,
+    in 16-byte rows) and the step's token weights 2^cl and 2^cl h, and
+    the barriers and pad."""
     c, half = LA_CHUNK_TOKENS, d // (LA_BWD_KV_SPLIT // 2)
     return (LA_BWD_RING * (2 * c * d + 2 * c * d + 4 * c * d)
             + 2 * 2 * c * d + 2 * 2 * half * d + 2 * 4 * half + 4 * c
-            + _WGMMA_EXTRA)
+            + (2 * 4 * d + 16 + 2 * 4 * c if gated else 0) + _WGMMA_EXTRA)
 
 
 def plan_fwd(entry, q, k, v, log_decay, a, b, stage_tokens, argtypes):
     """la_fwd (log_decay None) or gla_fwd: the token walk's one block per
     (batch, query head) walking all N tokens of its query head and of its
-    KV head; `la_fwd`'s wgmma body LA_WGMMA_SPLIT such blocks, each with
-    its share of the value columns (of v and o; the first writes g),
-    walking chunks (TMA zero-fills the rows of the last chunk past N)."""
+    KV head; the wgmma body LA_WGMMA_SPLIT such blocks, each with its
+    share of the value columns (of v and o; the first writes g), walking
+    chunks (TMA zero-fills the rows of the last chunk past N; gated, each
+    block reads its KV head's log decays)."""
     bsz, h, hkv, n, d = _dims(q, k, v)
     group, gated = h // hkv, log_decay is not None
     code = plan.dtype_code(q.dtype)
     split, threads = 1, d + 32
-    if entry == "la_fwd" and la_fwd_body(q.dtype, d) == "wgmma":
+    if la_fwd_body(q.dtype, d, entry) == "wgmma":
         stage_tokens = stage = LA_CHUNK_TOKENS
-        split, threads, smem = LA_WGMMA_SPLIT, _WGMMA_THREADS, _wgmma_smem(d)
+        split, threads, smem = LA_WGMMA_SPLIT, _WGMMA_THREADS, \
+            _wgmma_smem(d, gated)
     else:
         # the staging's floats per token: q, k and v padded, f, and the
         # decay
@@ -398,10 +420,11 @@ def plan_bwd_kv(entry, q, k, v, log_decay, om_hat, h_vec, a, b,
     """la_bwd_kv (log_decay None) or gla_bwd_kv: the token walk's one
     block per (batch, KV head), the reverse scan over all N tokens of its
     G query heads (its staging grows with G, so large groups stage fewer
-    tokens); `la_bwd_kv`'s wgmma body LA_BWD_KV_SPLIT blocks per (batch,
-    KV head): y = 0, 1 write dk's column half y from v, their half of q,
-    Ω̂ and h; y = 2, 3 dv's half y - 2 from k, q and their half of Ω̂,
-    each walking the group's chunks from the last."""
+    tokens); the wgmma body LA_BWD_KV_SPLIT blocks per (batch, KV head):
+    y = 0, 1 write dk's column half y from v, their half of q, Ω̂ and h;
+    y = 2, 3 dv's half y - 2 from k, q and their half of Ω̂ (gated: dV''s
+    columns of that half, from h too, and y = 2 also its column D), each
+    walking the group's chunks from the last."""
     bsz, h, hkv, n, d = _dims(q, k, v)
     group, gated = h // hkv, log_decay is not None
     code = plan.dtype_code(q.dtype)
@@ -409,7 +432,7 @@ def plan_bwd_kv(entry, q, k, v, log_decay, om_hat, h_vec, a, b,
     if wgmma:
         stage_tokens = stage = LA_CHUNK_TOKENS
         split, threads, smem = LA_BWD_KV_SPLIT, _WGMMA_THREADS, \
-            _bwd_kv_smem(d)
+            _bwd_kv_smem(d, gated)
     else:
         # q and Ω̂ of the G query heads, k and v, padded; h of the G heads;
         # gated: the decay, the row warps' shares of k.U[:Dk, Dv] and
@@ -458,12 +481,25 @@ def plan_bwd_kv(entry, q, k, v, log_decay, om_hat, h_vec, a, b,
         plan.Access("om_hat", "in", (bsz, h, n, d), F32,
                     operand(True, halved="dv")),
         plan.Access("h_vec", "in", (bsz, h, n), F32,
-                    operand(True, "dk", width=None)),
+                    operand(True, None if gated else "dk", width=None)),
         plan.Access("dk", "out", plan.shape_of(k), q.dtype,
                     operand(False, "dk", "dk"))]
     if gated:   # dV' with its augmented column, f32
+        def dva_tile(blk):
+            """The walk's block writes whole rows; a wgmma dv block its
+            half's columns, the first half also column D."""
+            if not wgmma:
+                return operand(False, width=d + 1)(blk)
+            bi, hk = divmod(blk[0], hkv)
+            roles, cols = part(blk)
+            head = ((bi, bi + 1), (hk, hk + 1),
+                    (0, n) if "dv" in roles else (0, 0))
+            tiles = plan.box(*head, cols)
+            if "dv" in roles and cols[0] == 0:
+                tiles += plan.box(*head, (d, d + 1))
+            return tiles
         accesses.append(plan.Access("dva", "out", (bsz, hkv, n, d + 1), F32,
-                                    operand(False, width=d + 1)))
+                                    dva_tile))
     else:
         accesses.append(plan.Access("dv", "out", plan.shape_of(v), q.dtype,
                                     operand(False, "dv", "dv")))

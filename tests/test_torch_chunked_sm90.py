@@ -6,8 +6,9 @@ on the card both kernels against their plain versions.
 blocks per (batch, query head), one per half of the value columns;
 `ssd_bwd_kv` in bf16 at (Dk, Dv) = (128, 64) a reverse chunked scan, one
 block per (batch, head), its operands that are not bf16 inputs sent as
-hi + lo pairs of bf16.  f32, the other dims and `gla_fwd` keep the token
-walk (`ssd_bwd_q`'s chunked body is held by
+hi + lo pairs of bf16.  f32 and the other dims keep the token walk
+(`ssd_bwd_q`'s chunked body and the gated instances `gla_fwd` and
+`gla_bwd_kv` run in bf16 at D = 128 are held by
 tests/test_torch_gated_sm90.py).
 
   * plan tests on meta tensors at N = 8192, 1000, 65 and 1, G = 1 and 4:
@@ -51,8 +52,8 @@ from repro_torch.kernels import gla as tkgla
 from repro_torch.kernels import linear_attention as tkla
 from repro_torch.kernels import plan
 from repro_torch.kernels import ssd as tkssd
-from repro_torch.kernels.defaults import LA_CHUNK_TOKENS, LA_STAGE_TOKENS, \
-    SSD_CHUNK_TOKENS, SSD_STAGE_TOKENS
+from repro_torch.kernels.defaults import GLA_STAGE_TOKENS, LA_CHUNK_TOKENS, \
+    LA_STAGE_TOKENS, SSD_CHUNK_TOKENS, SSD_STAGE_TOKENS
 
 BF16, F32 = torch.bfloat16, torch.float32
 D, DK, DV = 128, 128, 64
@@ -136,22 +137,27 @@ def test_wgmma_plans_geometry_chunks_and_boxes(g):
 
 
 def test_walk_plans_unchanged():
-    """f32 at D = 128, bf16 at D = 64 and gla_fwd keep la_fwd's token
-    walk (D + 32 threads, 32 staged tokens); f32 and the smoke dims keep
-    ssd_bwd_kv's (row and column tiles, 32 staged tokens)."""
+    """f32 at D = 128 and bf16 at D = 64 keep la_fwd's token walk (D + 32
+    threads, 32 staged tokens), and so does gla_fwd (its gated walk, one
+    staged decay more per token), which in bf16 at D = 128 runs the gated
+    wgmma body (tests/test_torch_gated_sm90.py); f32 and the smoke dims
+    keep ssd_bwd_kv's walk (row and column tiles, 32 staged tokens)."""
     for dtype, d in ((F32, 128), (BF16, 64), (F32, 32)):
         assert tkla.la_fwd_body(dtype, d) == "walk"
+        assert tkla.la_fwd_body(dtype, d, "gla_fwd") == "walk"
         for n in (8192, 1000, 65, 1):
             p = _la_plan(dtype, 2, 16, 4, n, d)
             assert (p.grid, p.threads, p.stage) == ((32, 1, 1), d + 32,
                                                     LA_STAGE_TOKENS)
             assert p.smem == LA_STAGE_TOKENS * (3 * (d + 16) + d + 1) * 4
-    q = _meta(2, 16, 1000, D)
-    kv = _meta(2, 4, 1000, D)
-    gp = tkgla.plan_gla_fwd(q, kv, kv, _meta(2, 4, 1000, dtype=F32), 1.0,
-                            1.0)
-    assert (gp.grid, gp.threads, gp.stage) == ((32, 1, 1), D + 32,
-                                               LA_STAGE_TOKENS)
+            q = _meta(2, 16, n, d, dtype=dtype)
+            kv = _meta(2, 4, n, d, dtype=dtype)
+            gp = tkgla.plan_gla_fwd(q, kv, kv, _meta(2, 4, n, dtype=F32),
+                                    1.0, 1.0)
+            assert (gp.grid, gp.threads, gp.stage) == ((32, 1, 1), d + 32,
+                                                       GLA_STAGE_TOKENS)
+            assert gp.smem == GLA_STAGE_TOKENS * (3 * (d + 16) + d + 2) * 4
+    assert tkla.la_fwd_body(BF16, D, "gla_fwd") == "wgmma"
     for dtype, dk, dv, smem in ((F32, 128, 64, 32 * 2692),
                                 (BF16, 16, 32, 32 * 964),
                                 (F32, 16, 32, 32 * 964)):

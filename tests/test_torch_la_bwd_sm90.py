@@ -8,8 +8,9 @@ cores, two blocks per (batch, query head), one per half of dq's columns;
 `la_bwd_kv` a reverse chunked scan, four blocks per (batch, KV head), for
 dk's two column halves and dv's two.  Every operand of their products
 that is not a bf16 input (Ω̂, the copies of the states, the score tiles)
-goes as a hi + lo pair of bf16 values.  f32, D < 128 and both `gla_bwd_*`
-entries keep the token walk.
+goes as a hi + lo pair of bf16 values.  f32, D < 128 and `gla_bwd_q`
+keep the token walk; `gla_bwd_kv` in bf16 at D = 128 runs the gated
+instance of `la_bwd_kv`'s body (tests/test_torch_gated_sm90.py).
 
   * plan tests on meta tensors at N = 8192, 1000, 65 and 1, G = 1 and 4:
     the bodies' geometry, shared memory within the H100's 232,448 bytes
@@ -51,7 +52,8 @@ from repro_torch.core import chunked as tchunked
 from repro_torch.kernels import gla as tkgla
 from repro_torch.kernels import linear_attention as tkla
 from repro_torch.kernels import plan
-from repro_torch.kernels.defaults import LA_CHUNK_TOKENS, LA_STAGE_TOKENS
+from repro_torch.kernels.defaults import GLA_STAGE_TOKENS, LA_CHUNK_TOKENS, \
+    LA_STAGE_TOKENS
 
 BF16, F32 = torch.bfloat16, torch.float32
 D = 128
@@ -125,9 +127,11 @@ def test_wgmma_plans_geometry_chunks_and_boxes(g):
 
 
 def test_walk_plans_unchanged():
-    """f32 at D = 128, bf16 at D = 64 and both gla_bwd entries keep the
-    token walk: one block per (batch, query head) of D threads, or per
-    (batch, KV head) of 2 D threads, 32 staged tokens."""
+    """f32 at D = 128, bf16 at D = 64 and gla_bwd_q at every dtype and D
+    keep the token walk: one block per (batch, query head) of D threads,
+    or per (batch, KV head) of 2 D threads, 32 staged tokens; so does
+    gla_bwd_kv in f32 and at D = 64, which in bf16 at D = 128 runs the
+    gated wgmma body (tests/test_torch_gated_sm90.py)."""
     for dtype, d in ((F32, 128), (BF16, 64), (F32, 32)):
         for entry in ("la_bwd_q", "la_bwd_kv"):
             assert tkla.la_bwd_body(entry, dtype, d) == "walk"
@@ -139,15 +143,22 @@ def test_walk_plans_unchanged():
             assert (pkv.grid, pkv.threads) == ((8, 1, 1), 2 * d)
             assert pkv.stage == plan.fit(
                 LA_STAGE_TOKENS, ((2 * 4 + 2) * (d + 16) + 4) * 4)[0]
-    for entry in ("gla_bwd_q", "gla_bwd_kv"):
-        assert tkla.la_bwd_body(entry, BF16, D) == "walk"
-    q, kv = _meta(2, 16, 1000, D), _meta(2, 16, 1000, D)
-    ld, om = _meta(2, 16, 1000, dtype=F32), _meta(2, 16, 1000, D, dtype=F32)
-    h_vec = _meta(2, 16, 1000, dtype=F32)
-    gq = tkgla.plan_gla_bwd_q(kv, kv, ld, om, h_vec, 1.0)
-    gkv = tkgla.plan_gla_bwd_kv(q, kv, kv, ld, om, h_vec, 1.0, 1.0)
-    assert (gq.grid, gq.threads, gq.stage) == ((32, 1, 1), D, LA_STAGE_TOKENS)
-    assert (gkv.grid, gkv.threads) == ((32, 1, 1), 2 * D)
+    assert tkla.la_bwd_body("gla_bwd_q", BF16, D) == "walk"
+    assert tkla.la_bwd_body("gla_bwd_kv", BF16, D) == "wgmma"
+    for dtype, d in ((BF16, D), (F32, D), (BF16, 64)):
+        q, kv = _meta(2, 16, 1000, d, dtype=dtype), _meta(2, 16, 1000, d,
+                                                          dtype=dtype)
+        ld = _meta(2, 16, 1000, dtype=F32)
+        om, h_vec = _meta(2, 16, 1000, d, dtype=F32), _meta(2, 16, 1000,
+                                                            dtype=F32)
+        gq = tkgla.plan_gla_bwd_q(kv, kv, ld, om, h_vec, 1.0)
+        assert (gq.grid, gq.threads, gq.stage) == ((32, 1, 1), d,
+                                                   GLA_STAGE_TOKENS)
+        if dtype == BF16 and d == D:
+            continue
+        assert tkla.la_bwd_body("gla_bwd_kv", dtype, d) == "walk"
+        gkv = tkgla.plan_gla_bwd_kv(q, kv, kv, ld, om, h_vec, 1.0, 1.0)
+        assert (gkv.grid, gkv.threads) == ((32, 1, 1), 2 * d)
 
 
 # ---------------------------------------------------------------------------
