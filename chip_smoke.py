@@ -52,14 +52,17 @@ fails the run by raising (no result line is printed then):
                the GLA kernels under both decay regimes (the trained
                gate's log_sigmoid(N(0,1) + 6) and a hard U[-5, 0]):
                gla_decode_fused at the serving shapes and with G=4, bf16
-               and f32, state in place, a zero normalizer; gla_fwd,
-               gla_bwd_q and gla_bwd_kv at the training shapes, odd
-               N=1000 and G=4, bf16 and f32 (o, g, dq, dk, dv and dld;
-               every bf16 case runs the gated chunked wgmma bodies of
-               gla_fwd and gla_bwd_kv, every f32 case their token walks,
-               asserted from the C plan exports; a second launch of each
-               in the bf16 main case must give bit-equal o, g, dq, dk and
-               dV'); and at log_decay = 0 each gated kernel against its
+               and f32, state in place, a zero normalizer (every case
+               runs the state stream, asserted from the C plan export;
+               S and P must be the bits of the elementwise fmaf update,
+               and two launches of the bf16 main case bit-equal);
+               gla_fwd, gla_bwd_q and gla_bwd_kv at the training shapes,
+               odd N=1000 and G=4, bf16 and f32 (o, g, dq, dk, dv and
+               dld; every bf16 case runs the gated chunked wgmma bodies
+               of all three, every f32 case their token walks, asserted
+               from the C plan exports; a second launch of each in the
+               bf16 main case must give bit-equal o, g, dq, dk and dV');
+               and at log_decay = 0 each gated kernel against its
                linear counterpart, in f32 (the walks) and in bf16 (the
                gated wgmma bodies against the linear ones, within one
                bf16 step; dV' against its plain version); the SSD
@@ -134,13 +137,15 @@ fails the run by raising (no result line is printed then):
                and flash_bwd_kv also with their achieved TFLOP/s beside
                their bounds' and the ptxas report of every flash
                instantiation; la_fwd, la_bwd_q, la_bwd_kv, gla_fwd,
-               gla_bwd_kv, ssd_fwd, ssd_bwd_q and ssd_bwd_kv with the
-               body that ran, its ptxas
+               gla_bwd_q, gla_bwd_kv, ssd_fwd, ssd_bwd_q and ssd_bwd_kv
+               with the body that ran, its ptxas
                registers and spills, shared memory per block, the blocks
                an SM holds and the bound of that body beside the walk's;
-               the three LA kernels, gla_fwd, gla_bwd_kv and ssd_bwd_q
-               also with their tensor-core and byte times and beside
-               their token walks (f32 inputs) in turns; the
+               the three LA kernels, the three GLA training kernels and
+               ssd_bwd_q also with their tensor-core and byte times and
+               beside their token walks (f32 inputs) in turns;
+               gla_decode_fused (the state stream) with its body record,
+               in turns with la_decode_fused on the same inputs; the
                fixture at n = 2^24 f32, block 256
   7. result  — a JSON line with every measurement, the card's line, a
                `kernels` JSON line, then {"ok": true, "device": {...}}
@@ -857,26 +862,71 @@ def _gla_case(torch, gen, b, h, hkv, n, d, dtype, regime):
 
 
 def _gla_body(entry, q, k, v, ld, om_hat, h_vec):
-    """The body gla_fwd or gla_bwd_kv runs for these operands, held to
-    its launcher's C export: "wgmma" or "walk"."""
+    """The body gla_fwd, gla_bwd_q or gla_bwd_kv runs for these operands,
+    held to its launcher's C export: "wgmma" or "walk"."""
     from repro_torch.kernels import gla
     from repro_torch.kernels import linear_attention as la
     d = q.shape[-1]
     if entry == "gla_fwd":
         return _c_body(la.la_fwd_body(q.dtype, d, entry),
                        gla.plan_gla_fwd(q, k, v, ld, 1.0, 1.0))
+    if entry == "gla_bwd_q":
+        return _c_body(la.la_bwd_body(entry, q.dtype, d),
+                       gla.plan_gla_bwd_q(k, v, ld, om_hat, h_vec, 1.0))
     return _c_body(la.la_bwd_body(entry, q.dtype, d),
                    gla.plan_gla_bwd_kv(q, k, v, ld, om_hat, h_vec, 1.0, 1.0))
+
+
+def _gla_decode_body(s, p, q, k, v, ld):
+    """The body gla_decode_fused runs for these operands, held to its
+    launcher's C export: "stream" or "walk"."""
+    from repro_torch.kernels import decode_fused as df
+    return _c_body(df.gla_decode_body(k.shape[-1], v.shape[-1]),
+                   df.plan_gla_decode_fused(s, p, q, k, v, ld, 1.0, 1.0))
+
+
+def _fma_f32(torch, a, b, c):
+    """fmaf(a, b, c) of f32 tensors, rounded once, on the card: a b + c in
+    float64 (a b exact), TwoSum's error term, and the f32 rounding moved
+    off a tie where that term says the exact sum lies past it."""
+    x, y = c.double(), a.double() * b.double()
+    s = x + y
+    bb = s - x
+    err = (x - (s - bb)) + (y - bb)
+    r = s.float()
+    inf = torch.full_like(r, math.inf)
+    up, down = torch.nextafter(r, inf), torch.nextafter(r, -inf)
+    r = torch.where((s == (r.double() + up.double()) / 2) & (err > 0), up,
+                    r)
+    return torch.where((s == (r.double() + down.double()) / 2) & (err < 0),
+                       down, r)
+
+
+def _gla_decode_state(torch, s, p, k, v, ld):
+    """The state a gated decode step leaves, as the kernels compute it
+    element by element: S = fmaf(k_i, v_j, γ S), P = fmaf(γ, P, [v, 1]),
+    γ = exp(ld) (f32)."""
+    b, hkv, d = k.shape
+    vaug = torch.cat([v.float(), torch.ones((b, hkv, 1), device="cuda")],
+                     -1)
+    gam = torch.exp(ld.float())
+    s_new = _fma_f32(torch, k.float()[..., :, None].expand_as(s),
+                     vaug[..., None, :].expand_as(s),
+                     s * gam[..., None, None])
+    return s_new, _fma_f32(torch, gam[..., None].expand_as(p), p, vaug)
 
 
 def phase_kernel_gla(torch):
     """gla_decode_fused, gla_fwd, gla_bwd_q and gla_bwd_kv against their
     plain versions, under both decay regimes; at log_decay = 0 against
     the linear kernels (f32: the walks; bf16: the gated instances of the
-    chunked wgmma bodies against the linear ones).  Every bf16 case runs
-    gla_fwd's and gla_bwd_kv's chunked wgmma bodies, every f32 case their
-    token walks (from the launchers' C plan exports); the bf16 main case
-    launches each kernel twice for bit-equal o, g, dq, dk and dV'."""
+    chunked wgmma bodies against the linear ones).  Every decode case
+    runs gla_decode_fused's state stream, its S and P the bits of the
+    elementwise fmaf update; every bf16 case runs gla_fwd's, gla_bwd_q's
+    and gla_bwd_kv's chunked wgmma bodies, every f32 case their token
+    walks (from the launchers' C plan exports); the bf16 main cases
+    launch each kernel twice for bit-equal o, g, dq, dk and dV', and the
+    decode step's o, S and P."""
     from repro_torch.core import gla as core_gla
     from repro_torch.kernels import decode_fused as df
     from repro_torch.kernels import gla
@@ -894,17 +944,44 @@ def phase_kernel_gla(torch):
         b, h, d = SLOTS, 16, 128
         s, p, q, k, v, ld = _gla_decode_case(torch, gen, b, h, hkv, d, dtype,
                                              regime)
+        body = _gla_decode_body(s, p, q, k, v, ld)[0]
+        if body != "stream":
+            raise AssertionError(f"gla {label}: decode body {body}, not "
+                                 f"stream")
+        want_s, want_p = _gla_decode_state(torch, s, p, k, v, ld)
         s_k, p_k = s.clone(), p.clone()
         ptrs = (s_k.data_ptr(), p_k.data_ptr())
         o_k = df.gla_decode_fused_cuda(s_k, p_k, q, k, v, ld, 1.0, 1.0)
+        if label == "decode_main_bf16":
+            s_2, p_2 = s.clone(), p.clone()
+            o_2 = df.gla_decode_fused_cuda(s_2, p_2, q, k, v, ld, 1.0, 1.0)
         torch.cuda.synchronize()
         o_t = df.gla_decode_fused_torch(s, p, q, k, v, ld, 1.0, 1.0)
         log(f"[kernel] gla {label}: B={b} H={h} Hkv={hkv} D={d} {dtype}, "
-            f"log decay {regime}")
+            f"log decay {regime}, body {body} (C plan export)")
         if (s_k.data_ptr(), p_k.data_ptr()) != ptrs:
             raise AssertionError(f"{label}: state was reallocated")
+        # the f32 state as the elementwise update leaves it, bit for bit
+        # (in bf16 the plain version's own: k_i v_j is exact in f32)
+        for name, got, want in (("s", s_k, want_s), ("p", p_k, want_p)):
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"gla {label} {name}: not the elementwise update's "
+                    f"bits ({int((got != want).sum())} elements differ)")
+        plain_bits = [name for name, got, want in (("s", s_k, s),
+                                                   ("p", p_k, p))
+                      if torch.equal(got, want)]
+        log(f"  gla {label} s, p: the elementwise fmaf update's bits; "
+            f"bit-equal to the plain version: {plain_bits}")
         check_close(f"gla {label} s (in place)", s_k, s, F32_REL)
         check_close(f"gla {label} p (in place)", p_k, p, F32_REL)
+        if label == "decode_main_bf16":
+            if not (torch.equal(o_k, o_2) and torch.equal(s_k, s_2)
+                    and torch.equal(p_k, p_2)):
+                raise AssertionError(f"gla {label}: two launches give "
+                                     f"different o, s or p")
+            log(f"  gla {label} o, s, p: two launches bit-equal")
+            del s_2, p_2, o_2
         rel = BF16_REL if dtype == bf16 else F32_REL
         errs[label] = {"gla_decode_fused": check_close(
             f"gla {label} o", o_k, o_t, rel)}
@@ -930,7 +1007,7 @@ def phase_kernel_gla(torch):
         rel = BF16_REL if dtype == bf16 else SEQ_F32_REL
         expect = "wgmma" if dtype == bf16 else "walk"
         bodies = {e: _gla_body(e, q, k, v, ld, om_hat, h_vec)[0]
-                  for e in ("gla_fwd", "gla_bwd_kv")}
+                  for e in ("gla_fwd", "gla_bwd_q", "gla_bwd_kv")}
         if set(bodies.values()) != {expect}:
             raise AssertionError(f"gla {label}: bodies {bodies}, not "
                                  f"{expect}")
@@ -1016,34 +1093,37 @@ def phase_kernel_gla(torch):
     # log_decay = 0 in bf16: the gated wgmma bodies against the linear
     # ones (every decay factor is 1; the gated bodies send A, S's copy and
     # the update's operands as hi + lo pairs where the linear forward
-    # rounds once), o, dk and dv within one bf16 step, g within the f32
+    # rounds once), o, dq, dk and dv within one bf16 step, g within the f32
     # walk's limit, and dV' against the plain version at log_decay = 0
     q, k, v, _, om_hat, h_vec = _gla_case(torch, gen, b, h, hkv, n, d, bf16,
                                           "trained")
     bodies = {e: _gla_body(e, q, k, v, zero, om_hat, h_vec)[0]
-              for e in ("gla_fwd", "gla_bwd_kv")}
+              for e in ("gla_fwd", "gla_bwd_q", "gla_bwd_kv")}
     if set(bodies.values()) != {"wgmma"}:
         raise AssertionError(f"gla ld0 bf16: bodies {bodies}, not wgmma")
     o_g, g_g = gla.gla_fwd_cuda(q, k, v, zero, 1.0, 1.0)
     o_l, g_l = la.la_fwd_cuda(q, k, v, 1.0, 1.0)
+    dq_g = gla.gla_bwd_q_cuda(k, v, zero, om_hat, h_vec, 1.0)
+    dq_l = la.la_bwd_q_cuda(k, v, om_hat, h_vec, 1.0)
     dk_g, dva_g = gla.gla_bwd_kv_cuda(q, k, v, zero, om_hat, h_vec, 1.0,
                                       1.0)
     dk_l, dv_l = la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec, 1.0, 1.0)
     torch.cuda.synchronize()
     _, dva_t = gla.gla_bwd_kv_torch(q, k, v, zero, om_hat, h_vec, 1.0, 1.0)
     pairs = [("o", o_g, o_l, BF16_REL), ("g", g_g, g_l, SEQ_F32_REL),
+             ("dq", dq_g, dq_l, BF16_REL),
              ("dk", dk_g, dk_l, BF16_REL),
              ("dv", dva_g[..., :d], dv_l, BF16_REL),
              ("dV' (plain)", dva_g, dva_t, SEQ_F32_REL)]
     ld0_bf16 = {name: check_close(f"gla bf16 at log_decay = 0 vs linear "
                                   f"body, {name}", got, want, rel)
                 for name, got, want, rel in pairs}
-    same = [name for name, got, want, _ in pairs[:4]
+    same = [name for name, got, want, _ in pairs[:5]
             if torch.equal(got.to(want.dtype), want)]
     log(f"  bf16 log_decay = 0 ({bodies}): bit-identical to the linear "
         f"bodies: {same}")
     errs["ld0_bf16_vs_linear"] = ld0_bf16
-    del q, k, v, om_hat, h_vec, pairs, dva_t
+    del q, k, v, om_hat, h_vec, pairs, dva_t, dq_g, dq_l
     torch.cuda.empty_cache()
     return errs
 
@@ -2084,6 +2164,42 @@ def _time_pair(torch, plain, kernel, reps, warm=1):
     return [kern_a, kern_b], [plain_a, plain_b]
 
 
+def _graph_time_pair(torch, first, second, launches=200):
+    """CUDA-event ms per launch of `first` and `second`, each captured
+    `launches` times into a CUDA graph and the graphs replayed in turns
+    (first, second, second, first): the kernels' own time, where a
+    Python loop of launches would time the host's dispatch (each takes
+    no arguments)."""
+    graphs = []
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in (first, second):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(launches):
+                    fn()
+            graphs.append(graph)
+    torch.cuda.current_stream().wait_stream(side)
+
+    def time_graph(graph):
+        graph.replay()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        ev0.record()
+        graph.replay()
+        ev1.record()
+        torch.cuda.synchronize()
+        return ev0.elapsed_time(ev1) / launches
+
+    a1, b1 = time_graph(graphs[0]), time_graph(graphs[1])
+    b2, a2 = time_graph(graphs[1]), time_graph(graphs[0])
+    return [a1, a2], [b1, b2]
+
+
 def _bound(bytes_moved, flops, flop_per_s=F32_FLOP_PER_S):
     """The least time for the work: bytes at the HBM rate or operations
     at `flop_per_s` (f32 CUDA cores for the linear-attention kernels,
@@ -2244,7 +2360,7 @@ def phase_timing_la(torch, ptxas):
                 **{e: _la_bwd_body(e, q, k, v, om_hat, h_vec)
                    for e in ("la_bwd_q", "la_bwd_kv")}}
     wgmma_fn = {"la_fwd": ("la_fwd", "lc::la_fwd_wgmma_kernel<false>"),
-                "la_bwd_q": ("la_bwd", "bq::la_bwd_q_wgmma_kernel"),
+                "la_bwd_q": ("la_bwd", "bq::la_bwd_q_wgmma_kernel<false>"),
                 "la_bwd_kv": ("la_bwd",
                               "bkv::la_bwd_kv_wgmma_kernel<false>")}
     walk_bounds = {name: _bound(*work[name]) for name in calls}
@@ -2487,15 +2603,23 @@ def phase_timing_paged(torch):
 
 def phase_timing_gla(torch, ptxas):
     """gla_decode_fused at the serving shapes (8 rotating states, cold in
-    L2, as in phase_timing) and gla_fwd, gla_bwd_q and gla_bwd_kv at the
+    L2, as in phase_timing; the kernel and la_decode_fused on the same
+    inputs timed in turns by CUDA graph replays, since a Python loop of
+    launches is host-bound there) and gla_fwd, gla_bwd_q and gla_bwd_kv at the
     training shapes (bf16, the trained gate's decays), each beside its
     plain version and, in turns, beside its linear counterpart on the
-    same inputs: what the gate costs.  gla_fwd and gla_bwd_kv in bf16 run
-    the gated instances of the chunked wgmma bodies (tensor-core work per
-    chunk of c tokens, with s = D/2):
+    same inputs: what the gate costs.  gla_decode_fused runs the state
+    stream; its record names the body, its ptxas registers and spills,
+    shared memory per block and the blocks an SM holds.  gla_fwd,
+    gla_bwd_q and gla_bwd_kv in bf16 run the gated instances of the
+    chunked wgmma bodies (tensor-core work per chunk of c tokens, with s
+    = D/2):
       * gla_fwd, per (batch, query head) and half of the value columns:
         q k^T (2 c^2 D), and twice each (a hi + lo operand) q S (2 c D
         s), A v (2 c^2 s) and the state update (2 c s D);
+      * gla_bwd_q, per (batch, query head) and half of dq's columns: P =
+        Ω̂ v^T twice (2 c^2 D), R = Ω̂ A^T three times (2 c s D), P k
+        twice (2 c^2 s) and the update twice (2 c s D; w o v a pair);
       * gla_bwd_kv, per (batch, KV head): for each half of dk, U's
         readout twice (2 c s D) and per query head T = v Ω̂^T twice (2 c^2
         D), T q twice (2 c^2 s), the update three times (2 c s D; the
@@ -2525,12 +2649,14 @@ def phase_timing_gla(torch, ptxas):
             return lambda: fn(*nxt(), 1.0, 1.0)
         return lambda: fn(*nxt()[:5], 1.0, 1.0)
 
-    kern, plain = _time_pair(torch, rotating(df.gla_decode_fused_torch),
+    # a Python loop of stream launches times the host's dispatch (~0.044
+    # ms a call, over the kernel's own ~0.012): the kernel's time comes
+    # from CUDA graphs of 200 launches, in turns with la_decode_fused's
+    loop, plain = _time_pair(torch, rotating(df.gla_decode_fused_torch),
                              rotating(df.gla_decode_fused_cuda), reps=200,
                              warm=20)
-    lin, kern_b = _time_pair(torch, rotating(df.gla_decode_fused_cuda),
-                             rotating(df.la_decode_fused_cuda, False),
-                             reps=200, warm=20)
+    kern, lin = _graph_time_pair(torch, rotating(df.gla_decode_fused_cuda),
+                                 rotating(df.la_decode_fused_cuda, False))
     g = h // hkv
     cols = d + 1
     state_elems = b * hkv * d * cols
@@ -2544,11 +2670,21 @@ def phase_timing_gla(torch, ptxas):
     flops = (state_elems * (3 + 2 * g) + b * hkv * cols * (2 + 3 * g)
              + b * h * d)
     out["gla_decode_fused"] = {
-        "ms": min(kern), "ms_runs": kern, "plain_ms": min(plain),
+        "ms": min(kern), "ms_runs": kern, "timed_by": "CUDA graph replays",
+        "python_loop_ms_runs": loop, "plain_ms": min(plain),
         "plain_ms_runs": plain, "library_ms": None,
-        "in_turns_with_la_decode_fused": {"gla_ms_runs": kern_b,
+        "in_turns_with_la_decode_fused": {"gla_ms_runs": kern,
                                           "la_ms_runs": lin},
         **_bound(bytes_moved, flops)}
+    body, launch, c_geo = _gla_decode_body(*sets[0])
+    out["gla_decode_fused"].update(
+        body=body, threads=launch.threads, smem_per_block=launch.smem,
+        grid=list(launch.grid), c_plan=list(c_geo),
+        ptxas=[r for r in ptxas.get("la_decode_fused", [])
+               if r["function"].startswith("ds::gla_decode_stream_kernel")],
+        blocks_per_sm_fit=_blocks_per_sm(launch.threads, launch.smem,
+                                         c_geo[5]),
+        grid_blocks_per_sm=launch.grid[0] / SMS)
     log(f"[timing] gla_decode_fused B={b} H={h} Hkv={hkv} D={d} bf16: "
         f"{out['gla_decode_fused']}; library_ms null: no single PyTorch "
         f"call computes this gated update + readout")
@@ -2595,12 +2731,17 @@ def phase_timing_gla(torch, ptxas):
     qf, kf, vf = q.float(), k.float(), v.float()
     walks = {
         "gla_fwd": lambda: gla.gla_fwd_cuda(qf, kf, vf, ld, 1.0, 1.0),
+        "gla_bwd_q": lambda: gla.gla_bwd_q_cuda(kf, vf, ld, om_hat, h_vec,
+                                                1.0),
         "gla_bwd_kv": lambda: gla.gla_bwd_kv_cuda(qf, kf, vf, ld, om_hat,
                                                   h_vec, 1.0, 1.0)}
     c, half, group = LA_CHUNK_TOKENS, d // 2, h // hkv
     tc_flops = {
         "gla_fwd": tok_q // c * LA_WGMMA_SPLIT * (
             2 * c * c * d + 2 * 2 * c * d * half + 2 * 2 * c * c * half
+            + 2 * 2 * c * half * d),
+        "gla_bwd_q": tok_q // c * 2 * (
+            2 * 2 * c * c * d + 3 * 2 * c * half * d + 2 * 2 * c * c * half
             + 2 * 2 * c * half * d),
         "gla_bwd_kv": tok_kv // c * 2 * (
             2 * 2 * 2 * c * half * d
@@ -2609,12 +2750,10 @@ def phase_timing_gla(torch, ptxas):
             + group * (2 * c * c * d + 3 * 2 * c * c * half
                        + 2 * 2 * c * half * d))}
     c_bodies = {
-        "gla_fwd": _c_body(la.la_fwd_body(bf16, d, "gla_fwd"),
-                           gla.plan_gla_fwd(q, k, v, ld, 1.0, 1.0)),
-        "gla_bwd_kv": _c_body(la.la_bwd_body("gla_bwd_kv", bf16, d),
-                              gla.plan_gla_bwd_kv(q, k, v, ld, om_hat,
-                                                  h_vec, 1.0, 1.0))}
+        name: _gla_body(name, q, k, v, ld, om_hat, h_vec)
+        for name in ("gla_fwd", "gla_bwd_q", "gla_bwd_kv")}
     wgmma_fn = {"gla_fwd": ("la_fwd", "lc::la_fwd_wgmma_kernel<true>"),
+                "gla_bwd_q": ("la_bwd", "bq::la_bwd_q_wgmma_kernel<true>"),
                 "gla_bwd_kv": ("la_bwd", "bkv::la_bwd_kv_wgmma_kernel<true>")}
     walk_bounds = {name: _bound(*work[name]) for name in c_bodies}
     for name, (body, _, _) in c_bodies.items():

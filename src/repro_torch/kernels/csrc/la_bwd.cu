@@ -46,11 +46,11 @@
 // Dk = Dv = D, a template parameter (32, 64 or 128) so that a state row or
 // column lives in registers.
 //
-// Two bodies of each entry but gla_bwd_q, chosen by the launcher from the
-// dtype and D: the chunked wgmma bodies (namespaces bq and bkv; gla_bwd_kv
-// runs bkv's kGated instance) for bf16 at D = 128, the training instance;
-// the token walk (the gated entries its kGated instantiation) for f32,
-// for D < 128, and for every gla_bwd_q call.
+// Two bodies of each entry, chosen by the launcher from the dtype and D:
+// the chunked wgmma bodies (namespaces bq and bkv; gla_bwd_q and
+// gla_bwd_kv run their kGated instances) for bf16 at D = 128, the
+// training instance; the token walk (the gated entries its kGated
+// instantiation) for f32 and for D < 128.
 //
 // What bounds them (estimates from the shapes, not measurements; B=2,
 // H=Hkv=16, N=8192, D=128): the token walk of la_bwd_q does 4 D (D+1)
@@ -60,10 +60,11 @@
 // kernels add one multiply per state element and token.  The walks are
 // bound by f32 operations on the CUDA cores.  The chunked bodies do their
 // products on the bf16 tensor cores, each product with a hi + lo operand
-// two or three times: la_bwd_q 60.1 GFLOP (0.061 ms at 989 TFLOP/s),
-// la_bwd_kv 116.0 GFLOP (0.117 ms; gated, with its three-product update
-// in the dk blocks, 124.6 GFLOP); all are bound by their bytes (gated:
-// 540.0 MB, 0.161 ms, dV' in f32).
+// two or three times: la_bwd_q 60.1 GFLOP (0.061 ms at 989 TFLOP/s;
+// gated, with its two-product update, 68.7 GFLOP, 0.069 ms), la_bwd_kv
+// 116.0 GFLOP (0.117 ms; gated, with its three-product update in the dk
+// blocks, 124.6 GFLOP); all are bound by their bytes (gla_bwd_q 337.6 MB,
+// 0.101 ms; gla_bwd_kv 540.0 MB, 0.161 ms, dV' in f32).
 //
 // Design of the chunked la_bwd_q body (namespace bq; the reference's
 // chunk form, src/repro/kernels/linear_attention.py:142-167, with
@@ -80,7 +81,15 @@
 //     registers; dq = b (R + P k - h z^T) (RS), z = Σ k an f32 sum on the
 //     CUDA cores, double-buffered in shared memory as lc keeps its sums;
 //     A_v += k^T v (SS, both MN-major); then A_v's hi + lo copies;
-//   * dq is stored from registers; each element is written once.
+//   * dq is stored from registers; each element is written once;
+//   * gated (gla_bwd_q): lc's gated instance carries the decay through the
+//     same forward scan (decay.cuh): with cl the chunk's cumsum of the KV
+//     head's log decays (base 2), P - h takes 2^(cl_i - cl_j) on j <= i in
+//     f32 before its split, R and the carried h z^T take 2^cl_i in the
+//     accumulator before P k adds in, A_v decays by 2^total in registers
+//     and its update reads (w o v), w_j = 2^(total - cl_j) <= 1, split by
+//     the threads into hi + lo tiles (two 64-column boxes each), and z
+//     decays likewise (215,808 B).
 //
 // Design of the chunked la_bwd_kv body (namespace bkv; the reference's
 // chunk form, linear_attention.py:170-205, with ssd.cu's sk as the model):
@@ -239,17 +248,23 @@ constexpr size_t kK = 0;
 constexpr size_t kV = kK + kBox;
 constexpr size_t kOm = kV + 2 * kBox;
 constexpr size_t kStageBytes = kOm + 4 * kBox;
-// after the ring: Ω̂'s hi and lo tiles, A_v's hi and lo copies, z twice
-// and h of the chunk (f32)
-constexpr size_t kOmHi = kStages * kStageBytes;
-constexpr size_t kOmLo = kOmHi + kTile;
-constexpr size_t kAHi = kOmLo + kTile;
-constexpr size_t kALo = kAHi + kTile;
-constexpr size_t kZ = kALo + kTile;
-constexpr size_t kH = kZ + 2 * kHalf * 4;
-constexpr size_t kBars = kH + kChunk * 4;
-// 183,040 B: one block an SM
-constexpr size_t kSmem = kBars + kExtra;
+constexpr float kLog2e = 1.4426950408889634f;
+// after the ring: Ω̂'s hi and lo tiles, A_v's hi and lo copies, gated the
+// hi and lo (w o v) tiles (64 x 128 each), z twice and h of the chunk
+// (f32).  183,040 B; gated 215,808 B: one block an SM
+template <bool kGated>
+struct Layout {
+  static constexpr size_t kOmHi = kStages * kStageBytes;
+  static constexpr size_t kOmLo = kOmHi + kTile;
+  static constexpr size_t kAHi = kOmLo + kTile;
+  static constexpr size_t kALo = kAHi + kTile;
+  static constexpr size_t kWvHi = kALo + kTile;
+  static constexpr size_t kWvLo = kWvHi + kTile;
+  static constexpr size_t kZ = kGated ? kWvLo + kTile : kWvHi;
+  static constexpr size_t kH = kZ + 2 * kHalf * 4;
+  static constexpr size_t kBars = kH + kChunk * 4;
+  static constexpr size_t kSmem = kBars + kExtra;
+};
 
 // One block per (batch, query head, half of Dk) walks its head's chunks in
 // order.  Per chunk of c = 64 tokens, with A_v (this half's 64 rows of
@@ -260,17 +275,30 @@ constexpr size_t kSmem = kBars + kExtra;
 //   dq = b (R + P k - h z^T)                  (wgmma, RS; k MN-major)
 //   A_v += k^T v                              (wgmma, SS; both MN-major)
 //   z  += Σ k                                 (f32, CUDA cores)
+// kGated (gla_bwd_q; the reference's _gla_bwd_q_kernel): with cl the
+// inclusive cumsum of the chunk's log decays (base 2, the KV head's),
+// `total` its last, and every exponent a masked difference <= 0
+// (decay.cuh):
+//   P  = (P - h) o 2^(cl_i - cl_j) on j <= i   (f32, the mask first)
+//   dq = b (2^cl_i (R - h z^T) + P k)          (R scaled in the
+//                                              accumulator before P k)
+//   A_v = 2^total A_v + k^T (w o v), w_j = 2^(total - cl_j) <= 1
+//                                              ((w o v) as hi + lo, SS)
+//   z  = 2^total z + Σ_j w_j k_j               (f32, CUDA cores)
+template <bool kGated>
 __global__ void __launch_bounds__(kThreads, 1)
     la_bwd_q_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map,
                           const __grid_constant__ CUtensorMap om_map,
+                          const float* __restrict__ ld,
                           const float* __restrict__ hv, bf16* __restrict__ dq,
                           int heads, int kv_heads, int n, float b) {
+  using L = Layout<kGated>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = sm90::aligned_smem(smem_raw);
-  float* z_sh = reinterpret_cast<float*>(smem + kZ);  // [2][kHalf]
-  float* h_sh = reinterpret_cast<float*>(smem + kH);  // [kChunk]
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBars);
+  float* z_sh = reinterpret_cast<float*>(smem + L::kZ);  // [2][kHalf]
+  float* h_sh = reinterpret_cast<float*>(smem + L::kH);  // [kChunk]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
 
   const int bh = blockIdx.x;  // batch * heads + query head
   const int half = blockIdx.y;
@@ -306,6 +334,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int t = c * kChunk + tid;
     return tid < kChunk && t < n ? h_row[t] : 0.f;
   };
+  // gated: lane l's two log decays of chunk c in base 2 (tokens 2l,
+  // 2l + 1; 0 past n, so the padded tokens of a ragged last chunk decay
+  // nothing)
+  [[maybe_unused]] auto load_ld = [&](int c, float (&x)[2]) {
+    const float* ld_row = ld + static_cast<size_t>(kv_slice) * n;
+    const int t = c * kChunk + 2 * lane;
+    x[0] = t < n ? ld_row[t] * kLog2e : 0.f;
+    x[1] = t + 1 < n ? ld_row[t + 1] * kLog2e : 0.f;
+  };
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) sm90::bar_init(&full[s], 1);
@@ -313,7 +350,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   // A_v = 0 before the first chunk (both copies), z = 0
   for (int i = tid; i < static_cast<int>(2 * kTile / 16); i += kThreads)
-    reinterpret_cast<uint4*>(smem + kAHi)[i] = make_uint4(0, 0, 0, 0);
+    reinterpret_cast<uint4*>(smem + L::kAHi)[i] = make_uint4(0, 0, 0, 0);
   if (tid < kHalf) z_sh[tid] = 0.f;
   sm90::fence_async_smem();
   __syncthreads();
@@ -324,28 +361,34 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < 64; ++i) av[i] = 0.f;
   float h_next = load_h(0);
   bf16* dq_head = dq + static_cast<size_t>(bh) * n * kD + kHalf * half;
+  // gated: the chunk's log decays (the next chunk's, loaded a chunk ahead)
+  [[maybe_unused]] float ld_cur[2] = {0.f, 0.f}, ld_next[2] = {0.f, 0.f};
+  if constexpr (kGated) load_ld(0, ld_cur);
 
   for (int c = 0; c < chunks; ++c) {
     const int t0 = c * kChunk;
-    // every thread is done with chunk c - 1: its stage, Ω̂'s tiles and h
-    // are free, A_v's copies and z are whole
+    // every thread is done with chunk c - 1: its stage, Ω̂'s tiles, h and
+    // the (w o v) tiles are free, A_v's copies and z are whole
     __syncthreads();
     if (tid == 0 && c + 1 < chunks) load_chunk(c + 1);
     if (tid < kChunk) h_sh[tid] = h_next;
     h_next = c + 1 < chunks ? load_h(c + 1) : 0.f;
+    if constexpr (kGated) {
+      if (c + 1 < chunks) load_ld(c + 1, ld_next);
+    }
     __syncwarp();
     sm90::bar_wait(&full[c % kStages], (c / kStages) & 1);
     const unsigned char* st = stage_of(c);
-    sm90::split_tile_f32<kD, kThreads>(st + kOm, 0, smem + kOmHi,
-                                       smem + kOmLo);
+    sm90::split_tile_f32<kD, kThreads>(st + kOm, 0, smem + L::kOmHi,
+                                       smem + L::kOmLo);
     sm90::fence_async_smem();
     __syncthreads();  // Ω̂'s tiles and h are whole
     const bf16* k_t = reinterpret_cast<const bf16*>(st + kK);
     const bf16* v_t = reinterpret_cast<const bf16*>(st + kV);
-    const bf16* oh_t = reinterpret_cast<const bf16*>(smem + kOmHi);
-    const bf16* ol_t = reinterpret_cast<const bf16*>(smem + kOmLo);
-    const bf16* ah_t = reinterpret_cast<const bf16*>(smem + kAHi);
-    const bf16* al_t = reinterpret_cast<const bf16*>(smem + kALo);
+    const bf16* oh_t = reinterpret_cast<const bf16*>(smem + L::kOmHi);
+    const bf16* ol_t = reinterpret_cast<const bf16*>(smem + L::kOmLo);
+    const bf16* ah_t = reinterpret_cast<const bf16*>(smem + L::kAHi);
+    const bf16* al_t = reinterpret_cast<const bf16*>(smem + L::kALo);
 
     float p[32], acc[32];
     sm90::mma_fence();
@@ -372,31 +415,84 @@ __global__ void __launch_bounds__(kThreads, 1)
                        sm90::desc_k<kHalf>(al_t, kk), 1);
     sm90::mma_commit();
 
-    // behind the products, in f32 on the CUDA cores: the next chunk's z
-    // (each of the first kHalf threads one column of k's half)
+    // behind the products, in f32 on the CUDA cores: gated, cl
+    // (cd::scan) and the hi and lo (w o v) tiles; the next chunk's z (each
+    // of the first kHalf threads one column of k's half; gated, each token
+    // weighted by w and the carried z decayed by 2^total)
+    [[maybe_unused]] cd::Cumsum cl;
+    [[maybe_unused]] float w_tok[2] = {1.f, 1.f};  // w of tokens 2l, 2l + 1
+    [[maybe_unused]] float e_total = 1.f;
+    if constexpr (kGated) {
+      cl = cd::scan(ld_cur, lane);
+#pragma unroll
+      for (int bx = 0; bx < 2; ++bx)
+        cd::weighted_v<true, kThreads>(cl, st + kV + bx * kBox,
+                                       smem + L::kWvHi + bx * kBox,
+                                       smem + L::kWvLo + bx * kBox, tid);
+      w_tok[0] = sm90::exp2_ftz(cl.total - cl.even);
+      w_tok[1] = sm90::exp2_ftz(cl.total - cl.odd);
+      e_total = sm90::exp2_ftz(cl.total);
+    }
     const float* z_cur = z_sh + (c % 2) * kHalf;
     if (tid < kHalf) {
       float sum = 0.f;
 #pragma unroll 8
-      for (int t = 0; t < kChunk; ++t) sum += bf16_at(st + kK, t, tid);
-      z_sh[((c + 1) % 2) * kHalf + tid] = z_cur[tid] + sum;
+      for (int t = 0; t < kChunk; ++t) {
+        if constexpr (kGated)
+          sum = fmaf(__shfl_sync(0xffffffffu, w_tok[t & 1], t / 2),
+                     bf16_at(st + kK, t, tid), sum);
+        else
+          sum += bf16_at(st + kK, t, tid);
+      }
+      z_sh[((c + 1) % 2) * kHalf + tid] =
+          kGated ? fmaf(e_total, z_cur[tid], sum) : z_cur[tid] + sum;
+    }
+    [[maybe_unused]] float cl_col[16], cl_row[2];
+    if constexpr (kGated) {
+      cl.cols(tq, cl_col);
+      cl_row[0] = cl.at(row0);
+      cl_row[1] = cl.at(row0 + 8);
     }
     const float h_r[2] = {h_sh[row0], h_sh[row0 + 8]};
     __syncwarp();
     sm90::mma_wait<1>();  // P
     sm90::pin(p);
-    // P - h on j <= i, else 0: h enters in f32, before any rounding
+    if constexpr (!kGated) {
+      // P - h on j <= i, else 0: h enters in f32, before any rounding
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int r = (i >> 1) & 1;
-      const int j = 8 * (i / 4) + 2 * tq + (i & 1);
-      p[i] = j <= row0 + 8 * r ? p[i] - h_r[r] : 0.f;
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        const int j = 8 * (i / 4) + 2 * tq + (i & 1);
+        p[i] = j <= row0 + 8 * r ? p[i] - h_r[r] : 0.f;
+      }
+    } else {
+      // (P - h) o 2^(cl_i - cl_j) on j <= i, in f32 before the split
+#pragma unroll
+      for (int i = 0; i < 32; ++i) p[i] -= h_r[(i >> 1) & 1];
+      cd::decay_mask<true>(p, cl_row, cl_col, warp, tq, row0);
     }
     uint32_t ph[kChunk / 16][4], pl[kChunk / 16][4];
     sm90::to_a_split<kChunk / 16>(ph, pl, p);
     sm90::mma_wait<0>();  // R
     sm90::pin(acc);
+    if constexpr (kGated) {
+      // 2^cl_i (R - h z^T) in the accumulator, before P k adds in; the
+      // state decays by 2^total before its update
+      const float e_row[2] = {sm90::exp2_ftz(cl_row[0]),
+                              sm90::exp2_ftz(cl_row[1])};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        acc[i] = e_row[r] *
+                 (acc[i] - h_r[r] * z_cur[8 * (i / 4) + 2 * tq + (i & 1)]);
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) av[i] *= e_total;
+      // the (w o v) tiles for the state update
+      sm90::fence_async_smem();
+    }
     // no product reads A_v's copies any more: they are rewritten below
+    // (gated: the (w o v) tiles are whole)
     __syncthreads();
     sm90::pin(acc);
     sm90::pin(av);
@@ -410,10 +506,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int kk = 0; kk < kChunk / 16; ++kk)
       sm90::mma_rs_n64(acc, pl[kk], sm90::desc_mn<kChunk>(k_t, kk), 1);
     sm90::mma_commit();
+    if constexpr (kGated) {
 #pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk)
-      sm90::mma_ss_n128<1, 1>(av, sm90::desc_mn<kChunk>(k_t, kk),
-                              sm90::desc_mn<kChunk>(v_t, kk), 1);
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 16; ++kk)
+          sm90::mma_ss_n128<1, 1>(
+              av, sm90::desc_mn<kChunk>(k_t, kk),
+              sm90::desc_mn<kChunk>(reinterpret_cast<const bf16*>(
+                                        smem + (x ? L::kWvLo : L::kWvHi)),
+                                    kk),
+              1);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        sm90::mma_ss_n128<1, 1>(av, sm90::desc_mn<kChunk>(k_t, kk),
+                                sm90::desc_mn<kChunk>(v_t, kk), 1);
+    }
     sm90::mma_commit();
 
     sm90::mma_wait<1>();  // dq, while the state update runs
@@ -421,14 +530,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::pin(ph);
     sm90::pin(pl);
     store_rows(dq_head, t0, row0, n, [&](int i, int col) {
-      return b * (acc[i] - h_r[(i >> 1) & 1] * z_cur[col]);
+      return kGated ? b * acc[i]
+                    : b * (acc[i] - h_r[(i >> 1) & 1] * z_cur[col]);
     });
     __syncwarp();
     sm90::mma_wait<0>();
     sm90::pin(av);
     // the copies of the new A_v, the B of the next chunk's R
-    sm90::store_tile_split<kD / 8>(smem + kAHi, smem + kALo, av);
+    sm90::store_tile_split<kD / 8>(smem + L::kAHi, smem + L::kALo, av);
     sm90::fence_async_smem();
+    if constexpr (kGated) {
+      ld_cur[0] = ld_next[0];
+      ld_cur[1] = ld_next[1];
+    }
   }
 }
 
@@ -1367,11 +1481,12 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
 
 // The launches of the two kernels, shared by the launchers and
 // `la_bwd_plan`: f(Type<T>{}, kernel, geometry, Int<wgmma>{}) for the
-// instantiation a call with these arguments runs.  The linear entries in
-// bf16 at D = 128 run the chunked wgmma bodies, walking chunks of
-// lbw::kChunk tokens, which `stage` must name: dq two blocks per (batch,
-// query head), dk and dv four per (batch, KV head).  Otherwise the token
-// walk, with `stage` shrunk to fit kMaxSmem.
+// instantiation a call with these arguments runs.  Every entry in bf16 at
+// D = 128 runs its chunked wgmma body (the gated entries its kGated
+// instance), walking chunks of lbw::kChunk tokens, which `stage` must
+// name: dq two blocks per (batch, query head), dk and dv four per (batch,
+// KV head).  Otherwise the token walk, with `stage` shrunk to fit
+// kMaxSmem.
 // dq: one block per (batch, query head), D threads; the staging holds k, v
 // and Ω̂ padded, h and the decay per token.
 template <bool kGated, typename F>
@@ -1379,12 +1494,13 @@ cudaError_t with_launch_q(int dtype, int d, int batch, int heads, int stage,
                           F&& f) {
   return plan::with_dtype(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
-    if constexpr (!kGated && std::is_same<T, __nv_bfloat16>::value) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       if (d == lbw::kD) {
         if (stage != lbw::kChunk) return cudaErrorInvalidValue;
-        return f(t, bq::la_bwd_q_wgmma_kernel,
+        return f(t, bq::la_bwd_q_wgmma_kernel<kGated>,
                  plan::Geometry{dim3(batch * heads, bq::kSplit),
-                                lbw::kThreads, bq::kSmem, lbw::kChunk},
+                                lbw::kThreads, bq::Layout<kGated>::kSmem,
+                                lbw::kChunk},
                  plan::Int<1>{});
       }
     }
@@ -1466,6 +1582,7 @@ int run_q(const void* k, const void* v, const void* ld, const void* om,
                                      lbw::kChunk);
           if (err != cudaSuccess) return err;
           return plan::launch(kernel, geo, st, k_map, v_map, om_map,
+                              static_cast<const float*>(ld),
                               static_cast<const float*>(hv),
                               static_cast<__nv_bfloat16*>(dq), heads,
                               kv_heads, n, b);
@@ -1532,11 +1649,10 @@ int run_kv(const void* q, const void* k, const void* v, const void* ld,
 // Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16
 // (q, k, v, dq, dk and the linear dv; om, h, ld and the gated dV' are
 // always float32).  Each returns the cudaError_t of its launch
-// (0 = success); launches are asynchronous on `stream`.  `la_bwd_q` and
-// `la_bwd_kv` in bf16 at D = 128 run the wgmma bodies: `stage` must be
-// their chunk (64), and their TMA reads need q, k, v and om 16-byte
-// aligned (the wrappers check it; a map that cannot be encoded is refused
-// with cudaErrorInvalidValue).
+// (0 = success); launches are asynchronous on `stream`.  Every entry in
+// bf16 at D = 128 runs its wgmma body: `stage` must be the chunk (64), and
+// the TMA reads need q, k, v and om 16-byte aligned (the wrappers check
+// it; a map that cannot be encoded is refused with cudaErrorInvalidValue).
 extern "C" int la_bwd_q(const void* k, const void* v, const void* om,
                         const void* hv, void* dq, int batch, int heads,
                         int kv_heads, int n, int d, int stage, float b,

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the wgmma bodies (flash_fwd.cu,
-// flash_bwd.cu, ssd.cu, la_fwd.cu, la_bwd.cu): mbarriers, TMA tile loads and
-// warpgroup matrix products, as raw PTX.
+// flash_bwd.cu, ssd.cu, la_fwd.cu, la_bwd.cu) and of the GLA decode
+// step's state stream (la_decode_fused.cu): mbarriers, TMA tile loads, 1-D
+// bulk copies and warpgroup matrix products, as raw PTX.
 //
 //   * mbarrier: init, arrive, arrive with an expected transaction count,
 //     and a try_wait loop on a phase parity (a barrier's phase p has
@@ -13,6 +14,8 @@
 //     Rows of f32 statistics, whose starts need not be 16-byte aligned as
 //     a TMA box's must, go by 4-byte `cp.async` whose completion arrives
 //     on the same mbarrier;
+//   * 1-D bulk copies (`cp.async.bulk`) of contiguous bytes: loads counted
+//     on an mbarrier, stores in the thread's bulk group;
 //   * wgmma: shared-memory descriptors of 128-byte-swizzled bf16 tiles,
 //     `wgmma.fence`, `commit_group`, `wait_group`, the proxy fence that
 //     makes tiles written by threads visible to them, and the m64nNk16
@@ -154,6 +157,29 @@ __device__ __forceinline__ void bulk_wait() {
     asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
   else
     asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// `bytes` contiguous bytes from global to shared memory by one 1-D bulk
+// copy, counted on `bar` (bar_expect); both addresses 16-byte aligned,
+// `bytes` a multiple of 16
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` contiguous bytes from shared to global memory by one 1-D bulk
+// copy, in the thread's bulk group (bulk_commit, bulk_wait); the writers
+// of the bytes each fence_async_smem first, then a barrier
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], "
+               "%2;\n" ::"l"(reinterpret_cast<uint64_t>(dst)),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
 }
 
 // 4 bytes from global to shared memory by `cp.async` (zero-filled where

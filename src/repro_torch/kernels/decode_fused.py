@@ -23,10 +23,16 @@ in place and return o (B, H, Dv) in q.dtype.
 GLA: the same step with the decay gate, log_decay (B, Hkv) f32: first
 S, P <- exp(log_decay) (S, P), then the rank-1 update and the readout.
 
-  gla_decode_fused_cuda   the gated instantiation of the same kernel
-                          (csrc/la_decode_fused.cu, entry
-                          `gla_decode_fused`); CUDA only
+  gla_decode_fused_cuda   the gated kernel (csrc/la_decode_fused.cu,
+                          entry `gla_decode_fused`); CUDA only
   gla_decode_fused_torch  its plain version, state in place
+
+The gated entry has two bodies, chosen from the dims by
+`gla_decode_body(dk, dv)`: "stream" (Dk % 4 == 0 and 4 (Dv + 1) <=
+1024: each (slot, KV head)'s f32 state slab goes through a ring of row
+chunks in shared memory by 1-D bulk copies, updated there exactly as the
+walk updates it, so the new state carries the walk's bits) and "walk"
+(the linear entry's column walk, its gated instantiation).
 
 Softmax: one call per layer and decode step attends each slot's query
 token to the first lengths[b] keys of its contiguous KV cache, the
@@ -70,7 +76,8 @@ from repro_torch.core import softmax as _softmax
 from repro_torch.core.numerics import safe_div
 from repro_torch.kernels import build, plan
 from repro_torch.kernels import paged_attention as _pg
-from repro_torch.kernels.defaults import SOFTMAX_DECODE_WARPS
+from repro_torch.kernels.defaults import GLA_DECODE_RING, \
+    GLA_DECODE_ROW_CLASSES, GLA_DECODE_ROWS, SOFTMAX_DECODE_WARPS
 
 F32 = torch.float32
 KERNEL = "la_decode_fused"
@@ -292,10 +299,44 @@ def paged_decode_fused_cuda(q, k_pages, v_pages, page_table, lengths):
 RECURRENT_MAX_SMEM = 48 * 1024
 
 
+def gla_decode_body(dk: int, dv: int) -> str:
+    """The body `gla_decode_fused` runs at these dims: "stream" where the
+    state's row chunks start 16-byte aligned (Dk % 4 == 0) and a block
+    holds one thread per column and row class, else "walk"."""
+    return ("stream" if dk % 4 == 0
+            and GLA_DECODE_ROW_CLASSES * (dv + 1) <= plan.MAX_THREADS
+            else "walk")
+
+
+def _stream_smem(dk: int, dv: int, group: int) -> int:
+    """Dynamic shared memory of the stream body, as csrc/la_decode_fused.cu's
+    `ds::layout` with `ds::stages_for`'s stages: the ring of row chunks
+    (after the stream, the partial dots of all row classes but the
+    first), k, [v, 1], the G query rows and the G rows f in f32, and an
+    mbarrier per stage; as many stages (at most one a chunk and
+    GLA_DECODE_RING, at least two) as fit the launcher's limit."""
+    dv1 = dv + 1
+    chunk = GLA_DECODE_ROWS * dv1 * 4
+    parts = (GLA_DECODE_ROW_CLASSES - 1) * group * dv1 * 4
+
+    def total(stages):
+        region = -(-max(stages * chunk, parts) // 16) * 16
+        end = region + (dk + dv1 + group * dk + group * dv1) * 4
+        return -(-end // 8) * 8 + 8 * stages
+
+    stages = min(GLA_DECODE_RING, -(-dk // GLA_DECODE_ROWS))
+    while stages > 2 and total(stages) > RECURRENT_MAX_SMEM:
+        stages -= 1
+    return total(stages)
+
+
 def _plan_recurrent(entry, s, p, q, k, v, log_decay, a, b):
     """la_decode_fused (log_decay None) or gla_decode_fused: one block per
-    (slot, KV head), threads over the Dv+1 state columns, walking all Dk
-    rows of its state slab."""
+    (slot, KV head) updating its whole state slab and P row and writing
+    its G rows of o.  The walk's threads go over the Dv+1 state columns,
+    each down all Dk rows; the stream's (gla_decode_fused) over a row
+    chunk's columns and row classes, GLA_DECODE_ROW_CLASSES (Dv+1)
+    threads rounded up to warps."""
     bsz, h, hkv, dk, dv = _recurrent_dims(s, p, q, k, v, log_decay)
     group = h // hkv
     code = plan.dtype_code(q.dtype)
@@ -335,8 +376,12 @@ def _plan_recurrent(entry, s, p, q, k, v, log_decay, a, b):
                                     ld_cell))
     accesses.append(plan.Access("o", "out", (bsz, h, dv), q.dtype,
                                 group_rows(dv)))
-    threads = min((dv + 1 + 31) // 32 * 32, plan.MAX_THREADS)
-    smem = (dk + dv + 1 + group * dk + group * (dv + 1)) * 4
+    if log_decay is not None and gla_decode_body(dk, dv) == "stream":
+        threads = -(-GLA_DECODE_ROW_CLASSES * (dv + 1) // 32) * 32
+        smem = _stream_smem(dk, dv, group)
+    else:
+        threads = min((dv + 1 + 31) // 32 * 32, plan.MAX_THREADS)
+        smem = (dk + dv + 1 + group * dk + group * (dv + 1)) * 4
     return plan.make(entry, KERNEL, (bsz * hkv,), threads, smem, accesses,
                      (bsz, h, hkv, dk, dv, float(a), float(b), code),
                      _LA_SYMBOLS[entry], (bsz, h, hkv, dk, dv, code),

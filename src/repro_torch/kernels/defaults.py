@@ -38,8 +38,8 @@ staging size, and no result depends on it.
     `LA_BWD_RING` — the "wgmma" bodies of the analytic backward's
     `la_bwd_q` and `la_bwd_kv` (bf16 at D in `LA_BWD_WGMMA_HEAD_DIMS`,
     the paper's training instance; the entry, the dtype and D pick the
-    body, `linear_attention.la_bwd_body`; f32, the other D and
-    `gla_bwd_q` keep the token walk).  Both walk chunks of
+    body, `linear_attention.la_bwd_body`; f32 and the other D keep the
+    token walk).  Both walk chunks of
     `LA_CHUNK_TOKENS`.  `la_bwd_q` runs `LA_BWD_Q_SPLIT` = 2 blocks per
     (batch, query head), one per half of dq's columns, so a block's share
     of the state A = Σ k^T v (64 x 128) is one m64n128 f32 accumulator;
@@ -115,24 +115,26 @@ staging size, and no result depends on it.
     has no counterpart: a block walks all of its slot's pages.
 
   * `GLA_STAGE_TOKENS` — the same staging size for the decay-gated
-    instantiations of the token walks (`gla_bwd_q` always; `gla_fwd` and
+    instantiations of the token walks (`gla_fwd`, `gla_bwd_q` and
     `gla_bwd_kv` in f32 and at D < 128), which also stage each token's
     decay.  The reference's `DEFAULT_TILES["gla"]["chunk"] = 128` is the
     VMEM tile of its Pallas GLA kernels; here too the token-by-token
     walk makes the result independent of it.  The plain GLA scans
     (core/gla.py) take `DEFAULT_SCAN_CHUNK`, as the linear ones do.
-  * `GLA_WGMMA_HEAD_DIMS`, `GLA_BWD_KV_WGMMA_HEAD_DIMS` — the head dims
-    at which `gla_fwd` and `gla_bwd_kv` in bf16 run the decay-gated
-    instances of `la_fwd`'s and `la_bwd_kv`'s "wgmma" bodies (the entry,
-    the dtype and D pick the body, `linear_attention.la_fwd_body` and
-    `la_bwd_body`), with their chunk `LA_CHUNK_TOKENS`, ring and splits.
-    The decay is kept as a chunk's cumsum of log decays, every factor a
-    power of two of a masked difference <= 0 of it.  The gated forward
-    also sends A, the readout's copy of S^T and the (w o v) tile of its
-    state update as hi + lo pairs of bf16 (134,656 B); the gated dk/dV'
-    body writes dV' in f32 with its augmented column and keeps that
-    column's sums and the step's token weights beside its own (200,976
-    B).
+  * `GLA_WGMMA_HEAD_DIMS`, `GLA_BWD_Q_WGMMA_HEAD_DIMS`,
+    `GLA_BWD_KV_WGMMA_HEAD_DIMS` — the head dims at which `gla_fwd`,
+    `gla_bwd_q` and `gla_bwd_kv` in bf16 run the decay-gated instances
+    of `la_fwd`'s, `la_bwd_q`'s and `la_bwd_kv`'s "wgmma" bodies (the
+    entry, the dtype and D pick the body, `linear_attention.la_fwd_body`
+    and `la_bwd_body`), with their chunk `LA_CHUNK_TOKENS`, ring and
+    splits.  The decay is kept as a chunk's cumsum of log decays, every
+    factor a power of two of a masked difference <= 0 of it.  The gated
+    forward also sends A, the readout's copy of S^T and the (w o v) tile
+    of its state update as hi + lo pairs of bf16 (134,656 B); the gated
+    dq body sends its (w o v) tile as a hi + lo pair too (215,808 B);
+    the gated dk/dV' body writes dV' in f32 with its augmented column
+    and keeps that column's sums and the step's token weights beside
+    its own (200,976 B).
 
   * `SSD_STAGE_TOKENS` — the same staging size for the token walk of the
     SSD (Mamba-2) kernels (each of `ssd_fwd`, `ssd_bwd_q` and
@@ -159,7 +161,23 @@ staging size, and no result depends on it.
     for exactly this chunk and refuses any other.
 
 The CUDA decode steps (`la_decode_fused`, `gla_decode_fused`) launch one
-block per (slot, KV head) and have no tile to choose.
+block per (slot, KV head).  `la_decode_fused` (and `gla_decode_fused` at
+dims the stream does not take) walks the state by columns and has no tile
+to choose.  `gla_decode_fused` streams its f32 state slab through shared
+memory (`decode_fused.gla_decode_body`):
+
+  * `GLA_DECODE_ROWS` — state rows per chunk: one 1-D bulk copy in and
+    one out, 8,256 B at Dv = 128; a run of a multiple of 4 rows starts
+    16-byte aligned where Dk % 4 == 0, as the bulk copies need;
+  * `GLA_DECODE_ROW_CLASSES` — the threads of a chunk: one per column
+    and row class, so 4 (Dv + 1) threads each update every fourth row of
+    their column and keep that class's partial dots q . S_new; the
+    classes' dots are added in a fixed order after the stream;
+  * `GLA_DECODE_RING` — the most chunks in flight: 5 x 8,256 B = 41 KB a
+    block at Dv = 128 (one block an SM at the serving shape, where ~26 KB
+    of loads in flight an SM cover ~1 us of latency at 3.35 TB/s), fewer
+    where the group's q and f rows leave less of the launcher's 48 KB
+    (three at G = 16), never more than the slab's chunks.
 """
 from __future__ import annotations
 
@@ -180,6 +198,7 @@ LA_WGMMA_SPLIT = 2
 LA_WGMMA_HEAD_DIMS = (128,)
 LA_BWD_WGMMA_HEAD_DIMS = (128,)
 GLA_WGMMA_HEAD_DIMS = (128,)
+GLA_BWD_Q_WGMMA_HEAD_DIMS = (128,)
 GLA_BWD_KV_WGMMA_HEAD_DIMS = (128,)
 LA_BWD_Q_SPLIT = 2
 LA_BWD_KV_SPLIT = 4
@@ -194,3 +213,6 @@ FLASH_BLOCK_K = {
 }
 FLASH_WGMMA_HEAD_DIMS = (128,)
 SOFTMAX_DECODE_WARPS = 8
+GLA_DECODE_ROWS = 16
+GLA_DECODE_ROW_CLASSES = 4
+GLA_DECODE_RING = 5

@@ -5,8 +5,8 @@ Port of `repro/kernels/gla.py` (`gla_fwd_pallas`, `gla_bwd_pallas`).
 Three hand-written CUDA kernels, the `kGated` instantiations of the
 linear-attention kernels' bodies (csrc/la_fwd.cu entry `gla_fwd`,
 csrc/la_bwd.cu entries `gla_bwd_q` and `gla_bwd_kv`; in bf16 at D = 128
-`gla_fwd` and `gla_bwd_kv` run the gated instances of the chunked wgmma
-bodies, `linear_attention.la_fwd_body` and `la_bwd_body` say which),
+all three run the gated instances of the chunked wgmma bodies,
+`linear_attention.la_fwd_body` and `la_bwd_body` say which),
 each launched by a wrapper on the current stream, and beside each its
 plain PyTorch version (the chunked scans of core/gla.py):
 

@@ -23,9 +23,9 @@ training instance: chunked scans on the tensor cores fed by TMA, so
 their operands must be 16-byte aligned, which the wrappers check;
 `la_fwd` two blocks per head by halves of the value columns, `la_bwd_q`
 two by halves of dq's columns, `la_bwd_kv` four per KV head, by halves
-of dk's and of dv's columns; `gla_fwd` and `gla_bwd_kv` run the gated
-instances of the forward's and the dk/dv body) and "walk" (f32, and bf16
-at D < 128: the token walk, as is every `gla_bwd_q` call).
+of dk's and of dv's columns; `gla_fwd`, `gla_bwd_q` and `gla_bwd_kv`
+run the gated instances of the forward's, the dq and the dk/dv body) and
+"walk" (f32, and bf16 at D < 128: the token walk).
 
 Shapes: q (B, H, N, D), k and v (B, Hkv, N, D) with Hkv | H, float32 or
 bfloat16, D in `HEAD_DIMS`; o, dq, dk and dv come back in their
@@ -45,7 +45,8 @@ import torch
 from repro_torch.core import chunked as _chunked
 from repro_torch.kernels import build, plan
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
-    GLA_BWD_KV_WGMMA_HEAD_DIMS, GLA_STAGE_TOKENS, GLA_WGMMA_HEAD_DIMS, \
+    GLA_BWD_KV_WGMMA_HEAD_DIMS, GLA_BWD_Q_WGMMA_HEAD_DIMS, \
+    GLA_STAGE_TOKENS, GLA_WGMMA_HEAD_DIMS, \
     LA_BWD_KV_SPLIT, LA_BWD_Q_SPLIT, LA_BWD_RING, LA_BWD_WGMMA_HEAD_DIMS, \
     LA_CHUNK_RING, LA_CHUNK_TOKENS, LA_STAGE_TOKENS, LA_WGMMA_HEAD_DIMS, \
     LA_WGMMA_SPLIT
@@ -69,18 +70,19 @@ def la_fwd_body(dtype, d: int, entry: str = "la_fwd") -> str:
     return "wgmma" if dtype == torch.bfloat16 and d in dims else "walk"
 
 
-# the head dims of each backward entry's "wgmma" body (gla_bwd_q has none)
+# the head dims of each backward entry's "wgmma" body
 _BWD_WGMMA_HEAD_DIMS = {"la_bwd_q": LA_BWD_WGMMA_HEAD_DIMS,
                         "la_bwd_kv": LA_BWD_WGMMA_HEAD_DIMS,
+                        "gla_bwd_q": GLA_BWD_Q_WGMMA_HEAD_DIMS,
                         "gla_bwd_kv": GLA_BWD_KV_WGMMA_HEAD_DIMS}
 
 
 def la_bwd_body(entry: str, dtype, d: int) -> str:
     """The body backward entry `entry` runs for this compute dtype and head
     dim: "wgmma" (`la_bwd_q` and `la_bwd_kv` in bf16 at D in
-    LA_BWD_WGMMA_HEAD_DIMS, `gla_bwd_kv` at D in
-    GLA_BWD_KV_WGMMA_HEAD_DIMS: the gated instance) or "walk" (also every
-    `gla_bwd_q` call)."""
+    LA_BWD_WGMMA_HEAD_DIMS, `gla_bwd_q` at D in GLA_BWD_Q_WGMMA_HEAD_DIMS
+    and `gla_bwd_kv` at D in GLA_BWD_KV_WGMMA_HEAD_DIMS: the gated
+    instances) or "walk"."""
     return ("wgmma" if dtype == torch.bfloat16
             and d in _BWD_WGMMA_HEAD_DIMS.get(entry, ()) else "walk")
 
@@ -254,15 +256,16 @@ def _wgmma_smem(d: int, gated: bool = False) -> int:
             + 2 * 4 * (d + part) + _WGMMA_EXTRA)
 
 
-def _bwd_q_smem(d: int) -> int:
-    """Dynamic shared memory of `la_bwd_q`'s wgmma block, as csrc/la_bwd.cu's
-    `bq::kSmem`: LA_BWD_RING chunks of the block's half of k and of v in
-    bf16 and of Ω̂ in f32, Ω̂'s hi and lo bf16 tiles, the hi and lo copies
-    of the block's half of A = Σ k^T v, z twice and h in f32, and the
-    barriers and pad."""
+def _bwd_q_smem(d: int, gated: bool = False) -> int:
+    """Dynamic shared memory of the dq wgmma block, as csrc/la_bwd.cu's
+    `bq::Layout<gated>::kSmem`: LA_BWD_RING chunks of the block's half of
+    k and of v in bf16 and of Ω̂ in f32, Ω̂'s hi and lo bf16 tiles, the hi
+    and lo copies of the block's half of A = Σ k^T v, gated the hi and lo
+    (w o v) tiles, z twice and h in f32, and the barriers and pad."""
     c, half = LA_CHUNK_TOKENS, d // LA_BWD_Q_SPLIT
     return (LA_BWD_RING * (2 * c * half + 2 * c * d + 4 * c * d)
-            + 2 * 2 * c * d + 2 * 2 * half * d + 2 * 4 * half + 4 * c
+            + 2 * 2 * c * d + 2 * 2 * half * d
+            + (2 * 2 * c * d if gated else 0) + 2 * 4 * half + 4 * c
             + _WGMMA_EXTRA)
 
 
@@ -351,10 +354,10 @@ def plan_fwd(entry, q, k, v, log_decay, a, b, stage_tokens, argtypes):
 def plan_bwd_q(entry, k, v, log_decay, om_hat, h_vec, b, stage_tokens,
                argtypes):
     """la_bwd_q (log_decay None) or gla_bwd_q: the token walk's one block
-    per (batch, query head), the forward scan over all N tokens;
-    `la_bwd_q`'s wgmma body LA_BWD_Q_SPLIT such blocks, each with its
-    share of dq's columns (and of k's), walking chunks (TMA zero-fills
-    the rows of the last chunk past N)."""
+    per (batch, query head), the forward scan over all N tokens; the
+    wgmma body (gla_bwd_q its gated instance) LA_BWD_Q_SPLIT such
+    blocks, each with its share of dq's columns (and of k's), walking
+    chunks (TMA zero-fills the rows of the last chunk past N)."""
     bsz, h, hkv, n, d = _dims(om_hat, k, v)
     group, gated = h // hkv, log_decay is not None
     code = plan.dtype_code(k.dtype)
@@ -362,7 +365,7 @@ def plan_bwd_q(entry, k, v, log_decay, om_hat, h_vec, b, stage_tokens,
     if la_bwd_body(entry, k.dtype, d) == "wgmma":
         stage_tokens = stage = LA_CHUNK_TOKENS
         split, threads, smem = LA_BWD_Q_SPLIT, _WGMMA_THREADS, \
-            _bwd_q_smem(d)
+            _bwd_q_smem(d, gated)
     else:
         # k, v and Ω̂ padded, h, and the decay
         stage, smem = plan.fit(stage_tokens,

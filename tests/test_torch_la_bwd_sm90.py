@@ -8,9 +8,10 @@ cores, two blocks per (batch, query head), one per half of dq's columns;
 `la_bwd_kv` a reverse chunked scan, four blocks per (batch, KV head), for
 dk's two column halves and dv's two.  Every operand of their products
 that is not a bf16 input (Ω̂, the copies of the states, the score tiles)
-goes as a hi + lo pair of bf16 values.  f32, D < 128 and `gla_bwd_q`
-keep the token walk; `gla_bwd_kv` in bf16 at D = 128 runs the gated
-instance of `la_bwd_kv`'s body (tests/test_torch_gated_sm90.py).
+goes as a hi + lo pair of bf16 values.  f32 and D < 128 keep the token
+walk; `gla_bwd_kv` and `gla_bwd_q` in bf16 at D = 128 run the gated
+instances of the two bodies (tests/test_torch_gated_sm90.py,
+tests/test_torch_gla_q_decode_sm90.py).
 
   * plan tests on meta tensors at N = 8192, 1000, 65 and 1, G = 1 and 4:
     the bodies' geometry, shared memory within the H100's 232,448 bytes
@@ -127,11 +128,12 @@ def test_wgmma_plans_geometry_chunks_and_boxes(g):
 
 
 def test_walk_plans_unchanged():
-    """f32 at D = 128, bf16 at D = 64 and gla_bwd_q at every dtype and D
-    keep the token walk: one block per (batch, query head) of D threads,
-    or per (batch, KV head) of 2 D threads, 32 staged tokens; so does
-    gla_bwd_kv in f32 and at D = 64, which in bf16 at D = 128 runs the
-    gated wgmma body (tests/test_torch_gated_sm90.py)."""
+    """f32 at D = 128 and bf16 at D = 64 keep the token walk: one block
+    per (batch, query head) of D threads, or per (batch, KV head) of 2 D
+    threads, 32 staged tokens; so do gla_bwd_q and gla_bwd_kv in f32 and
+    at D = 64, which in bf16 at D = 128 run the gated wgmma bodies
+    (tests/test_torch_gated_sm90.py, tests/test_torch_gla_q_decode_sm90.py):
+    gla_bwd_q then (B H, 2) blocks of one warpgroup, the chunk staged."""
     for dtype, d in ((F32, 128), (BF16, 64), (F32, 32)):
         for entry in ("la_bwd_q", "la_bwd_kv"):
             assert tkla.la_bwd_body(entry, dtype, d) == "walk"
@@ -143,7 +145,7 @@ def test_walk_plans_unchanged():
             assert (pkv.grid, pkv.threads) == ((8, 1, 1), 2 * d)
             assert pkv.stage == plan.fit(
                 LA_STAGE_TOKENS, ((2 * 4 + 2) * (d + 16) + 4) * 4)[0]
-    assert tkla.la_bwd_body("gla_bwd_q", BF16, D) == "walk"
+    assert tkla.la_bwd_body("gla_bwd_q", BF16, D) == "wgmma"
     assert tkla.la_bwd_body("gla_bwd_kv", BF16, D) == "wgmma"
     for dtype, d in ((BF16, D), (F32, D), (BF16, 64)):
         q, kv = _meta(2, 16, 1000, d, dtype=dtype), _meta(2, 16, 1000, d,
@@ -152,10 +154,12 @@ def test_walk_plans_unchanged():
         om, h_vec = _meta(2, 16, 1000, d, dtype=F32), _meta(2, 16, 1000,
                                                             dtype=F32)
         gq = tkgla.plan_gla_bwd_q(kv, kv, ld, om, h_vec, 1.0)
+        if dtype == BF16 and d == D:
+            assert (gq.grid, gq.threads, gq.stage) == ((32, 2, 1), 128, C)
+            continue
+        assert tkla.la_bwd_body("gla_bwd_q", dtype, d) == "walk"
         assert (gq.grid, gq.threads, gq.stage) == ((32, 1, 1), d,
                                                    GLA_STAGE_TOKENS)
-        if dtype == BF16 and d == D:
-            continue
         assert tkla.la_bwd_body("gla_bwd_kv", dtype, d) == "walk"
         gkv = tkgla.plan_gla_bwd_kv(q, kv, kv, ld, om, h_vec, 1.0, 1.0)
         assert (gkv.grid, gkv.threads) == ((32, 1, 1), 2 * d)

@@ -1,15 +1,20 @@
-"""Whether the SSD and linear-attention kernels of this tree give the
-same bits as those of another copy of the port.
+"""Whether the SSD, linear-attention, GLA and recurrent decode kernels of
+this tree give the same bits as those of another copy of the port.
 
-Builds `ssd_fwd`, `ssd_bwd_q`, `ssd_bwd_kv`, `la_fwd`, `la_bwd_q` and
-`la_bwd_kv` from this tree's `src/` and from each DIR given, runs each on
-the same bf16 inputs (made from a seed on the card): the SSD kernels at
-mamba2-2.7b's training shape (B=2, G=1, H=80, N=8192, Dk=128, Dv=64, a
-fresh layer's decays) and at N=1000, G=4, H=16 under the strong U[-5, 0]
-decays; the LA kernels at pythia-1.4b's (B=2, H=Hkv=16, N=8192, D=128)
-and at N=1000, G=4.  It prints for each kernel and shape whether its
-outputs (o; the dq partials; the dk partials and dv; o and g; dq; dk and
-dv) equal this tree's bit for bit, and its largest difference if not.
+Builds `ssd_fwd`, `ssd_bwd_q`, `ssd_bwd_kv`, `la_fwd`, `la_bwd_q`,
+`la_bwd_kv`, `gla_fwd`, `gla_bwd_q`, `gla_bwd_kv`, `la_decode_fused` and
+`gla_decode_fused` from this tree's `src/` and from each DIR given, runs
+each on the same bf16 inputs (made from a seed on the card): the SSD
+kernels at mamba2-2.7b's training shape (B=2, G=1, H=80, N=8192, Dk=128,
+Dv=64, a fresh layer's decays) and at N=1000, G=4, H=16 under the strong
+U[-5, 0] decays; the LA and GLA kernels at pythia-1.4b's (B=2, H=Hkv=16,
+N=8192, D=128; the trained gate's decays) and at N=1000, G=4 (the strong
+decays); the decode steps at the serving shape (B=8, H=Hkv=16, D=128,
+the trained gate) and at G=4 (the strong decays), each from the same
+f32 state.  It prints for each kernel and shape whether its outputs (o;
+the dq partials; the dk partials and dv; o and g; dq; dk and dv or dV';
+the decode steps' new S, P and o, `gla_decode_fused`'s state and o apart)
+equal this tree's bit for bit, and its largest difference if not.
 
     python tools/bits_vs_parent.py DIR [DIR ...]
 
@@ -28,14 +33,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 CASES = {"main": (2, 1, 80, 8192, "init"), "n1000_g4": (2, 4, 16, 1000,
                                                        "strong")}
-# the LA kernels' cases: (B, H, Hkv, N)
-LA_CASES = {"la_main": (2, 16, 16, 8192), "la_n1000_g4": (2, 16, 4, 1000)}
+# the LA and GLA kernels' cases: (B, H, Hkv, N, decay regime)
+LA_CASES = {"la_main": (2, 16, 16, 8192, "trained"),
+            "la_n1000_g4": (2, 16, 4, 1000, "strong")}
+# the decode steps' cases: (B, H, Hkv, decay regime)
+DECODE_CASES = {"decode_main": (8, 16, 16, "trained"),
+                "decode_g4": (8, 16, 4, "strong")}
 
 
 def dump(path):
     """Every compared kernel's outputs on the fixed inputs, saved to
     `path`."""
     import torch
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.kernels import gla
     from repro_torch.kernels import linear_attention as la
     from repro_torch.kernels import ssd
     gen = torch.Generator(device="cuda")
@@ -55,21 +66,50 @@ def dump(path):
         out[name] = {"ssd_fwd": [ssd.ssd_fwd_cuda(q, k, v, ld).cpu()],
                      "ssd_bwd_q": [ssd.ssd_bwd_q_cuda(k, v, ld, om).cpu()],
                      "ssd_bwd_kv": [dk.cpu(), dv.cpu()]}
-    for name, (b, h, hkv, n) in LA_CASES.items():
-        def unit(*shape):
-            x = torch.randn(shape, generator=gen, device="cuda")
-            return (x / x.norm(dim=-1, keepdim=True)).bfloat16()
+    def unit(*shape):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        return (x / x.norm(dim=-1, keepdim=True)).bfloat16()
+
+    def log_decay(shape, regime):
+        """The trained gate's log_sigmoid(N(0, 1) + 6), or U[-5, 0]."""
+        if regime == "trained":
+            return torch.nn.functional.logsigmoid(
+                torch.randn(shape, generator=gen, device="cuda") + 6.0)
+        return -5.0 * torch.rand(shape, generator=gen, device="cuda")
+
+    for name, (b, h, hkv, n, regime) in LA_CASES.items():
         q, k = unit(b, h, n, 128), unit(b, hkv, n, 128)
         v = torch.randn((b, hkv, n, 128), generator=gen,
                         device="cuda").bfloat16()
         om_hat = torch.randn((b, h, n, 128), generator=gen, device="cuda")
         h_vec = torch.randn((b, h, n), generator=gen, device="cuda")
+        ld = log_decay((b, hkv, n), regime)
         o, g_ = la.la_fwd_cuda(q, k, v, 1.0, 1.0)
         dk, dv = la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec, 1.0, 1.0)
+        go, gg = gla.gla_fwd_cuda(q, k, v, ld, 1.0, 1.0)
+        gdk, gdva = gla.gla_bwd_kv_cuda(q, k, v, ld, om_hat, h_vec, 1.0, 1.0)
         out[name] = {"la_fwd": [o.cpu(), g_.cpu()],
                      "la_bwd_q": [la.la_bwd_q_cuda(k, v, om_hat, h_vec,
                                                    1.0).cpu()],
-                     "la_bwd_kv": [dk.cpu(), dv.cpu()]}
+                     "la_bwd_kv": [dk.cpu(), dv.cpu()],
+                     "gla_fwd": [go.cpu(), gg.cpu()],
+                     "gla_bwd_q": [gla.gla_bwd_q_cuda(k, v, ld, om_hat, h_vec,
+                                                      1.0).cpu()],
+                     "gla_bwd_kv": [gdk.cpu(), gdva.cpu()]}
+    for name, (b, h, hkv, regime) in DECODE_CASES.items():
+        s = torch.randn((b, hkv, 128, 129), generator=gen, device="cuda")
+        p = torch.randn((b, hkv, 129), generator=gen,
+                        device="cuda").abs() + 1.0
+        q, k = unit(b, h, 128), unit(b, hkv, 128)
+        v = torch.randn((b, hkv, 128), generator=gen,
+                        device="cuda").bfloat16()
+        ld = log_decay((b, hkv), regime)
+        s_l, p_l, s_g, p_g = s.clone(), p.clone(), s.clone(), p.clone()
+        o_l = df.la_decode_fused_cuda(s_l, p_l, q, k, v, 1.0, 1.0)
+        o_g = df.gla_decode_fused_cuda(s_g, p_g, q, k, v, ld, 1.0, 1.0)
+        out[name] = {"la_decode_fused": [s_l.cpu(), p_l.cpu(), o_l.cpu()],
+                     "gla_decode_fused_state": [s_g.cpu(), p_g.cpu()],
+                     "gla_decode_fused_o": [o_g.cpu()]}
     torch.save(out, path)
 
 
