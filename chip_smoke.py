@@ -26,7 +26,11 @@ fails the run by raising (no result line is printed then):
                positions included); its launches are the check path's
   3. kernel  — each kernel against its plain PyTorch version on CUDA
                tensors: the linear decode step at the serving shapes (plus
-               GQA and a zero normalizer, state in place); la_fwd,
+               GQA and a zero normalizer, state in place; every D = 128
+               case runs the state stream, and two cases at Dk = 30,
+               Dv = 32 the column walk, asserted from the C plan export;
+               S and P the bits of the elementwise fmaf update, and two
+               launches of the bf16 main case bit-equal); la_fwd,
                la_bwd_q and la_bwd_kv at the training shapes (B=2,
                H=Hkv=16, N=8192, D=128) in bf16 and f32, at odd N=1000
                and with GQA G=4, and in bf16 at N=8192 with q and k that
@@ -48,12 +52,16 @@ fails the run by raising (no result line is printed then):
                page size 16, 34 table entries per slot into a shuffled
                arena, unallocated entries at the sink page, lengths in
                [1, 544] and one past the table) and with GQA G=4 at page
-               size 5, bf16 and f32, zeros at length 0 checked apart;
+               size 5, bf16 and f32, zeros at length 0 checked apart
+               (paged_decode_fused runs its cluster-split page stream in
+               every case, asserted from the C plan export, and a second
+               launch gives the same bits);
                the GLA kernels under both decay regimes (the trained
                gate's log_sigmoid(N(0,1) + 6) and a hard U[-5, 0]):
                gla_decode_fused at the serving shapes and with G=4, bf16
-               and f32, state in place, a zero normalizer (every case
-               runs the state stream, asserted from the C plan export;
+               and f32, state in place, a zero normalizer (every D = 128
+               case runs the state stream, two cases at Dk = 30, Dv = 32
+               the column walk, asserted from the C plan export;
                S and P must be the bits of the elementwise fmaf update,
                and two launches of the bf16 main case bit-equal);
                gla_fwd, gla_bwd_q and gla_bwd_kv at the training shapes,
@@ -132,8 +140,15 @@ fails the run by raising (no result line is printed then):
                where one PyTorch call computes the same function (SDPA for
                the contiguous softmax kernels, `Tensor.copy_` of the
                shifted slice for the fixture; the port never calls them),
-               that call; the paged decode kernels also beside the
-               contiguous one on the same keys; flash_fwd, flash_bwd_q
+               that call; the decode kernels by CUDA graph replays (a
+               Python loop of their launches times the host's dispatch):
+               la_decode_fused in turns with gla_decode_fused,
+               softmax_decode_fused with SDPA, paged_decode_fused with
+               paged_attention on the same inputs and with the contiguous
+               kernel on the same keys, la_decode_fused and
+               paged_decode_fused with their body records (ptxas
+               registers and spills, shared memory per block, blocks an
+               SM holds; the clusters the card holds); flash_fwd, flash_bwd_q
                and flash_bwd_kv also with their achieved TFLOP/s beside
                their bounds' and the ptxas report of every flash
                instantiation; la_fwd, la_bwd_q, la_bwd_kv, gla_fwd,
@@ -470,51 +485,104 @@ def phase_check(torch):
 # 3. kernel vs plain
 # ---------------------------------------------------------------------------
 
-def _decode_case(torch, gen, b, h, hkv, d, dtype, zero_den=False):
+def _decode_case(torch, gen, b, h, hkv, d, dtype, zero_den=False, dv=None):
     """Warm f32 state (3 rank-1 updates with unit k) and unit q/k rows,
-    as the model hands them over after l2 normalization."""
+    as the model hands them over after l2 normalization; Dk = d, Dv = dv
+    (d where None)."""
     from repro_torch.kernels import decode_fused as df
+    dv = d if dv is None else dv
 
     def unit(*shape):
         x = torch.randn(shape, generator=gen, device="cuda")
         return x / x.norm(dim=-1, keepdim=True)
 
-    s = torch.zeros((b, hkv, d, d + 1), device="cuda")
-    p = torch.zeros((b, hkv, d + 1), device="cuda")
+    s = torch.zeros((b, hkv, d, dv + 1), device="cuda")
+    p = torch.zeros((b, hkv, dv + 1), device="cuda")
     for _ in range(3):
         df.la_decode_fused_torch(
             s, p, unit(b, h, d), unit(b, hkv, d),
-            torch.randn((b, hkv, d), generator=gen, device="cuda"), 1.0, 1.0)
+            torch.randn((b, hkv, dv), generator=gen, device="cuda"), 1.0, 1.0)
     q, k = unit(b, h, d), unit(b, hkv, d)
-    v = torch.randn((b, hkv, d), generator=gen, device="cuda")
+    v = torch.randn((b, hkv, dv), generator=gen, device="cuda")
     if zero_den:
         # slot 0, KV head 0: after the update p[dv] == 0 and q == 0, so
         # the normalizer is exactly 0 while the numerators are not
-        p[0, 0, d] = -1.0
+        p[0, 0, dv] = -1.0
         q[0, :h // hkv] = 0.0
     return s, p, q.to(dtype), k.to(dtype), v.to(dtype)
 
 
+def _recurrent_decode_body(s, p, q, k, v, ld=None):
+    """The body la_decode_fused (ld None) or gla_decode_fused runs for
+    these operands, held to its launcher's C export: "stream" or
+    "walk"."""
+    from repro_torch.kernels import decode_fused as df
+    body = df.recurrent_decode_body(k.shape[-1], v.shape[-1])
+    if ld is None:
+        return _c_body(body, df.plan_la_decode_fused(s, p, q, k, v, 1.0,
+                                                     1.0))
+    return _c_body(body, df.plan_gla_decode_fused(s, p, q, k, v, ld, 1.0,
+                                                  1.0))
+
+
+# The dims at which both recurrent decode entries keep the column walk
+# (Dk % 4 != 0: the state's row chunks are not 16-byte aligned)
+WALK_DK, WALK_DV = 30, 32
+
+
 def phase_kernel(torch):
+    """la_decode_fused against its plain version; every D = 128 case runs
+    the state stream, the walk cases (Dk = 30, Dv = 32) the column walk
+    (from the C plan export); S and P are the bits of the elementwise
+    fmaf update, and the bf16 main case launches twice for bit-equal o,
+    S and P."""
     from repro_torch.kernels import decode_fused as df
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    cases = [("main_bf16", 8, 16, 16, 128, torch.bfloat16, False),
-             ("main_f32", 8, 16, 16, 128, torch.float32, False),
-             ("gqa_bf16", 8, 16, 4, 128, torch.bfloat16, False),
-             ("zero_den_f32", 8, 16, 16, 128, torch.float32, True)]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("main_bf16", 8, 16, 16, 128, None, bf16, False),
+             ("main_f32", 8, 16, 16, 128, None, f32, False),
+             ("gqa_bf16", 8, 16, 4, 128, None, bf16, False),
+             ("zero_den_f32", 8, 16, 16, 128, None, f32, True),
+             ("walk_gqa_bf16", 8, 16, 4, WALK_DK, WALK_DV, bf16, False),
+             ("walk_zero_den_f32", 8, 16, 16, WALK_DK, WALK_DV, f32, True)]
     errs = {}
-    for label, b, h, hkv, d, dtype, zero_den in cases:
+    for label, b, h, hkv, d, dv, dtype, zero_den in cases:
         s, p, q, k, v = _decode_case(torch, gen, b, h, hkv, d, dtype,
-                                     zero_den)
+                                     zero_den, dv)
+        body = _recurrent_decode_body(s, p, q, k, v)[0]
+        expect = "stream" if dv is None else "walk"
+        if body != expect:
+            raise AssertionError(f"{label}: decode body {body}, not "
+                                 f"{expect}")
+        # γ = 1: the linear update is the gated one at log_decay = 0
+        want_s, want_p = _gla_decode_state(
+            torch, s, p, k, v, torch.zeros((b, hkv), device="cuda"))
         s_k, p_k = s.clone(), p.clone()
         ptrs = (s_k.data_ptr(), p_k.data_ptr())
         o_k = df.la_decode_fused_cuda(s_k, p_k, q, k, v, 1.0, 1.0)
+        if label == "main_bf16":
+            s_2, p_2 = s.clone(), p.clone()
+            o_2 = df.la_decode_fused_cuda(s_2, p_2, q, k, v, 1.0, 1.0)
         torch.cuda.synchronize()
         o_t = df.la_decode_fused_torch(s, p, q, k, v, 1.0, 1.0)
-        log(f"[kernel] {label}: B={b} H={h} Hkv={hkv} D={d} {dtype}")
+        log(f"[kernel] {label}: B={b} H={h} Hkv={hkv} Dk={d} "
+            f"Dv={v.shape[-1]} {dtype}, body {body} (C plan export)")
         if (s_k.data_ptr(), p_k.data_ptr()) != ptrs:
             raise AssertionError(f"{label}: state was reallocated")
+        for name, got, want in (("s", s_k, want_s), ("p", p_k, want_p)):
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{label} {name}: not the elementwise update's bits "
+                    f"({int((got != want).sum())} elements differ)")
+        log(f"  {label} s, p: the elementwise fmaf update's bits")
+        if label == "main_bf16":
+            if not (torch.equal(o_k, o_2) and torch.equal(s_k, s_2)
+                    and torch.equal(p_k, p_2)):
+                raise AssertionError(f"{label}: two launches give "
+                                     f"different o, s or p")
+            log(f"  {label} o, s, p: two launches bit-equal")
+            del s_2, p_2, o_2
         check_close(f"{label} s (in place)", s_k, s, F32_REL)
         check_close(f"{label} p (in place)", p_k, p, F32_REL)
         rel = BF16_REL if dtype == torch.bfloat16 else F32_REL
@@ -774,9 +842,37 @@ def _paged_case(torch, gen, b, h, hkv, d, ps, pmax, lengths, dtype):
     return q, kp, vp, table, lengths
 
 
+def _paged_body(q, kp, vp, table, lengths):
+    """The body paged_decode_fused runs for these operands, held to its
+    launcher's C export: "cluster" or "walk"."""
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.kernels import paged_attention as pg
+    body = pg.paged_decode_body(q.dtype, q.shape[-1], kp.shape[2],
+                                table.shape[1], q.shape[1] // kp.shape[1])
+    return _c_body(body, df.plan_paged_decode_fused(q, kp, vp, table,
+                                                    lengths))
+
+
+def _paged_clusters(launch):
+    """(blocks per cluster, the most clusters the card holds at once) of a
+    paged_decode_fused launch, from its launcher's C export
+    `paged_decode_cluster_plan`."""
+    import ctypes
+    from repro_torch.kernels import build
+    symbol = "paged_decode_cluster_plan"
+    argtypes = ([ctypes.c_char_p] + [ctypes.c_int] * len(launch.plan_args)
+                + [ctypes.POINTER(ctypes.c_int64)])
+    lib = build.bind(launch.lib, {symbol: argtypes})
+    out = (ctypes.c_int64 * 2)()
+    err = getattr(lib, symbol)(launch.name.encode(), *launch.plan_args, out)
+    build.raise_on(lib, launch.lib, symbol, err)
+    return int(out[0]), int(out[1])
+
+
 def phase_kernel_paged(torch):
     """paged_decode_fused and paged_attention against their plain
-    versions."""
+    versions; paged_decode_fused runs its cluster body in every case (from
+    the C plan export) and a second launch gives its bits again."""
     from repro_torch.kernels import decode_fused as df
     from repro_torch.kernels import paged_attention as pg
     gen = torch.Generator(device="cuda")
@@ -798,17 +894,30 @@ def phase_kernel_paged(torch):
                            dtype)
         want = pg.paged_attention_torch(*case)
         rel = BF16_REL if dtype == torch.bfloat16 else F32_REL
+        body = _paged_body(*case)[0]
         log(f"[kernel] {label}: B={b} H={h} Hkv={hkv} D={d} ps={ps} "
-            f"Pmax={pmax} {dtype}, lengths {lengths.tolist()}")
+            f"Pmax={pmax} {dtype}, lengths {lengths.tolist()}; "
+            f"paged_decode_fused body {body} (C plan export)")
+        if body != "cluster":
+            raise AssertionError(f"{label}: paged_decode_fused body {body}, "
+                                 f"not cluster")
         errs[label] = {}
         for name, kernel in kernels:
             o = kernel(*case)
+            if name == "paged_decode_fused":
+                o_2 = kernel(*case)
             torch.cuda.synchronize()
             errs[label][name] = check_close(f"{label} {name} o", o, want,
                                             rel)
             if o.dtype != dtype or not torch.isfinite(o).all():
                 raise AssertionError(f"{label} {name}: o dtype {o.dtype} "
                                      f"or non-finite values")
+            if name == "paged_decode_fused":
+                if not torch.equal(o, o_2):
+                    raise AssertionError(f"{label} {name}: two launches "
+                                         f"give different o")
+                log(f"  {label} {name} o: two launches bit-equal")
+                del o_2
         # length 0: zeros on both kernels (and on the plain version)
         lengths[1] = 0
         for name, kernel in kernels:
@@ -832,11 +941,11 @@ def _log_decay(torch, gen, shape, regime):
     return -5.0 * torch.rand(shape, generator=gen, device="cuda")
 
 
-def _gla_decode_case(torch, gen, b, h, hkv, d, dtype, regime):
+def _gla_decode_case(torch, gen, b, h, hkv, d, dtype, regime, dv=None):
     """_decode_case's inputs and a log decay; slot 0, KV head 0 decays by
     exactly 1 so that its zero normalizer survives the gate."""
     s, p, q, k, v = _decode_case(torch, gen, b, h, hkv, d, dtype,
-                                 zero_den=True)
+                                 zero_den=True, dv=dv)
     ld = _log_decay(torch, gen, (b, hkv), regime)
     ld[0, 0] = 0.0
     return s, p, q, k, v, ld
@@ -877,14 +986,6 @@ def _gla_body(entry, q, k, v, ld, om_hat, h_vec):
                    gla.plan_gla_bwd_kv(q, k, v, ld, om_hat, h_vec, 1.0, 1.0))
 
 
-def _gla_decode_body(s, p, q, k, v, ld):
-    """The body gla_decode_fused runs for these operands, held to its
-    launcher's C export: "stream" or "walk"."""
-    from repro_torch.kernels import decode_fused as df
-    return _c_body(df.gla_decode_body(k.shape[-1], v.shape[-1]),
-                   df.plan_gla_decode_fused(s, p, q, k, v, ld, 1.0, 1.0))
-
-
 def _fma_f32(torch, a, b, c):
     """fmaf(a, b, c) of f32 tensors, rounded once, on the card: a b + c in
     float64 (a b exact), TwoSum's error term, and the f32 rounding moved
@@ -920,9 +1021,10 @@ def phase_kernel_gla(torch):
     """gla_decode_fused, gla_fwd, gla_bwd_q and gla_bwd_kv against their
     plain versions, under both decay regimes; at log_decay = 0 against
     the linear kernels (f32: the walks; bf16: the gated instances of the
-    chunked wgmma bodies against the linear ones).  Every decode case
-    runs gla_decode_fused's state stream, its S and P the bits of the
-    elementwise fmaf update; every bf16 case runs gla_fwd's, gla_bwd_q's
+    chunked wgmma bodies against the linear ones).  Every D = 128 decode
+    case runs gla_decode_fused's state stream, the walk cases (Dk = 30,
+    Dv = 32) its column walk, S and P the bits of the elementwise fmaf
+    update; every bf16 case runs gla_fwd's, gla_bwd_q's
     and gla_bwd_kv's chunked wgmma bodies, every f32 case their token
     walks (from the launchers' C plan exports); the bf16 main cases
     launch each kernel twice for bit-equal o, g, dq, dk and dV', and the
@@ -935,19 +1037,23 @@ def phase_kernel_gla(torch):
     gen.manual_seed(11)
     bf16, f32 = torch.bfloat16, torch.float32
     errs = {}
-    for label, hkv, dtype, regime in (
-            ("decode_main_bf16", 16, bf16, "trained"),
-            ("decode_main_f32_strong", 16, f32, "strong"),
-            ("decode_main_bf16_strong", 16, bf16, "strong"),
-            ("decode_gqa_bf16_strong", 4, bf16, "strong"),
-            ("decode_gqa_f32", 4, f32, "trained")):
-        b, h, d = SLOTS, 16, 128
+    for label, hkv, d, dv, dtype, regime in (
+            ("decode_main_bf16", 16, 128, None, bf16, "trained"),
+            ("decode_main_f32_strong", 16, 128, None, f32, "strong"),
+            ("decode_main_bf16_strong", 16, 128, None, bf16, "strong"),
+            ("decode_gqa_bf16_strong", 4, 128, None, bf16, "strong"),
+            ("decode_gqa_f32", 4, 128, None, f32, "trained"),
+            ("decode_walk_gqa_bf16_strong", 4, WALK_DK, WALK_DV, bf16,
+             "strong"),
+            ("decode_walk_f32", 16, WALK_DK, WALK_DV, f32, "trained")):
+        b, h = SLOTS, 16
         s, p, q, k, v, ld = _gla_decode_case(torch, gen, b, h, hkv, d, dtype,
-                                             regime)
-        body = _gla_decode_body(s, p, q, k, v, ld)[0]
-        if body != "stream":
+                                             regime, dv)
+        body = _recurrent_decode_body(s, p, q, k, v, ld)[0]
+        expect = "stream" if dv is None else "walk"
+        if body != expect:
             raise AssertionError(f"gla {label}: decode body {body}, not "
-                                 f"stream")
+                                 f"{expect}")
         want_s, want_p = _gla_decode_state(torch, s, p, k, v, ld)
         s_k, p_k = s.clone(), p.clone()
         ptrs = (s_k.data_ptr(), p_k.data_ptr())
@@ -957,8 +1063,9 @@ def phase_kernel_gla(torch):
             o_2 = df.gla_decode_fused_cuda(s_2, p_2, q, k, v, ld, 1.0, 1.0)
         torch.cuda.synchronize()
         o_t = df.gla_decode_fused_torch(s, p, q, k, v, ld, 1.0, 1.0)
-        log(f"[kernel] gla {label}: B={b} H={h} Hkv={hkv} D={d} {dtype}, "
-            f"log decay {regime}, body {body} (C plan export)")
+        log(f"[kernel] gla {label}: B={b} H={h} Hkv={hkv} Dk={d} "
+            f"Dv={v.shape[-1]} {dtype}, log decay {regime}, body {body} "
+            f"(C plan export)")
         if (s_k.data_ptr(), p_k.data_ptr()) != ptrs:
             raise AssertionError(f"{label}: state was reallocated")
         # the f32 state as the elementwise update leaves it, bit for bit
@@ -2144,23 +2251,27 @@ def phase_train(torch, backend):
 # 6. kernel timing
 # ---------------------------------------------------------------------------
 
+def _time_loop(torch, fn, reps, warm=1):
+    """CUDA-event ms per call of `fn` (no arguments) in a Python loop."""
+    for _ in range(warm):
+        fn()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    ev0.record()
+    for _ in range(reps):
+        fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1) / reps
+
+
 def _time_pair(torch, plain, kernel, reps, warm=1):
     """CUDA-event ms per call of `plain` and `kernel`, in turns (plain,
     kernel, kernel, plain); each takes no arguments."""
-    def time_fn(fn):
-        for _ in range(warm):
-            fn()
-        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        ev0.record()
-        for _ in range(reps):
-            fn()
-        ev1.record()
-        torch.cuda.synchronize()
-        return ev0.elapsed_time(ev1) / reps
-
-    plain_a, kern_a = time_fn(plain), time_fn(kernel)
-    kern_b, plain_b = time_fn(kernel), time_fn(plain)
+    plain_a = _time_loop(torch, plain, reps, warm)
+    kern_a = _time_loop(torch, kernel, reps, warm)
+    kern_b = _time_loop(torch, kernel, reps, warm)
+    plain_b = _time_loop(torch, plain, reps, warm)
     return [kern_a, kern_b], [plain_a, plain_b]
 
 
@@ -2198,6 +2309,72 @@ def _graph_time_pair(torch, first, second, launches=200):
     a1, b1 = time_graph(graphs[0]), time_graph(graphs[1])
     b2, a2 = time_graph(graphs[1]), time_graph(graphs[0])
     return [a1, a2], [b1, b2]
+
+
+def _rotating(fn, sets, tail=()):
+    """fn over `sets` in turn (each a tuple of its leading arguments, then
+    `tail`), taking no arguments."""
+    nxt = itertools.cycle(sets).__next__
+    return lambda: fn(*nxt(), *tail)
+
+
+def decode_state_sets(torch, n=8):
+    """n gated decode steps' inputs at the serving shape (B=8, H=Hkv=16,
+    D=128, bf16, the trained gate): 8.5 MB of f32 state each, so that 8
+    of them exceed the 50 MB L2 and each call finds its state cold, as a
+    serving step finds each of its 24 layers'."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    return [_gla_decode_case(torch, gen, SLOTS, 16, 16, 128, torch.bfloat16,
+                             "trained") for _ in range(n)]
+
+
+def recurrent_graph_times(torch, sets):
+    """la_decode_fused and gla_decode_fused over `sets` (the linear step
+    reads no log decay), each captured to a CUDA graph and the graphs
+    replayed in turns: ([la ms], [gla ms]) per launch."""
+    from repro_torch.kernels import decode_fused as df
+    return _graph_time_pair(
+        torch, _rotating(df.la_decode_fused_cuda, [x[:5] for x in sets],
+                         (1.0, 1.0)),
+        _rotating(df.gla_decode_fused_cuda, sets, (1.0, 1.0)))
+
+
+def paged_sets(torch, n=8):
+    """n paged decode inputs at the serving shape (B=8, H=Hkv=16, D=128,
+    bf16, page size 16, 34 table entries a slot into a shuffled arena,
+    every slot at MAX_LEN live keys): 36 MB of live keys each, 286 MB in
+    all, so each call finds its pages cold in L2; and the same keys
+    gathered into contiguous caches for softmax_decode_fused."""
+    from repro_torch.kernels import paged_attention as pg
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    sets = []
+    for _ in range(n):
+        lengths = torch.full((SLOTS,), MAX_LEN, dtype=torch.int32,
+                             device="cuda")
+        sets.append(_paged_case(torch, gen, SLOTS, 16, 16, 128, PAGE_SIZE,
+                                PMAX, lengths, torch.bfloat16))
+    contiguous = [(q, pg.gather_pages(kp, t), pg.gather_pages(vp, t), n)
+                  for q, kp, vp, t, n in sets]
+    return sets, contiguous
+
+
+def paged_graph_times(torch, sets, contiguous):
+    """By CUDA graph replays in turns: paged_decode_fused beside
+    paged_attention on the same inputs, then beside softmax_decode_fused
+    on the same keys in contiguous caches.  ms runs per launch of each."""
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.kernels import paged_attention as pg
+    fused, unfused = _graph_time_pair(
+        torch, _rotating(df.paged_decode_fused_cuda, sets),
+        _rotating(pg.paged_attention_cuda, sets))
+    paged, contig = _graph_time_pair(
+        torch, _rotating(df.paged_decode_fused_cuda, sets),
+        _rotating(df.softmax_decode_fused_cuda, contiguous))
+    return {"paged_decode_fused": fused, "paged_attention": unfused,
+            "paged_decode_fused_beside_contiguous": paged,
+            "softmax_decode_fused_contiguous": contig}
 
 
 def _bound(bytes_moved, flops, flop_per_s=F32_FLOP_PER_S):
@@ -2239,27 +2416,33 @@ def _body_record(c_body, walk_bound, ptxas_recs, wgmma_fn):
     return rec
 
 
-def phase_timing(torch):
-    """Kernel and plain version at the main path's decode shapes.  The
-    serving step finds each layer's state cold in L2 (24 layers of
-    8.5 MB), so the timed launches rotate over enough state buffers to
-    exceed the 50 MB L2."""
+def _ptxas_of(ptxas, source, prefix):
+    """ptxas's records of `source`'s instantiations whose name starts with
+    `prefix`."""
+    return [r for r in ptxas.get(source, [])
+            if r["function"].startswith(prefix)]
+
+
+def phase_timing(torch, ptxas):
+    """la_decode_fused and its plain version at the main path's decode
+    shapes.  The serving step finds each layer's state cold in L2 (24
+    layers of 8.5 MB), so the timed launches rotate over enough state
+    buffers to exceed the 50 MB L2.  The kernel is timed by CUDA graph
+    replays, in turns with gla_decode_fused on the same inputs (a Python
+    loop of launches times the host's dispatch); the plain version by a
+    loop.  Its record names the body (the state stream), its ptxas
+    registers and spills, shared memory per block and the blocks an SM
+    holds."""
     from repro_torch.kernels import decode_fused as df
     b, h, hkv, d = SLOTS, 16, 16, 128
     dtype = torch.bfloat16
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(2)
-    n_bufs = 8
-    sets = [_decode_case(torch, gen, b, h, hkv, d, dtype)
-            for _ in range(n_bufs)]
-
-    def rotating(fn):
-        nxt = itertools.cycle(sets).__next__
-        return lambda: fn(*nxt()[:5], 1.0, 1.0)
-
-    kern, plain = _time_pair(torch, rotating(df.la_decode_fused_torch),
-                             rotating(df.la_decode_fused_cuda), reps=200,
-                             warm=20)
+    sets = decode_state_sets(torch)
+    linear = [x[:5] for x in sets]
+    loop, plain = _time_pair(
+        torch, _rotating(df.la_decode_fused_torch, linear, (1.0, 1.0)),
+        _rotating(df.la_decode_fused_cuda, linear, (1.0, 1.0)), reps=200,
+        warm=20)
+    kern, gla_runs = recurrent_graph_times(torch, sets)
     g = h // hkv
     cols = d + 1
     state_elems = b * hkv * d * cols
@@ -2269,13 +2452,27 @@ def phase_timing(torch):
                    + b * h * d * itemsize)
     flops = (state_elems * (2 + 2 * g) + b * hkv * cols * (1 + 3 * g)
              + b * h * d)
-    rec = {"ms": min(kern), "ms_runs": kern, "plain_ms": min(plain),
-           "plain_ms_runs": plain, **_bound(bytes_moved, flops)}
+    rec = {"ms": min(kern), "ms_runs": kern,
+           "timed_by": "CUDA graph replays",
+           "python_loop_ms_runs": loop, "plain_ms": min(plain),
+           "plain_ms_runs": plain, "library_ms": None,
+           "in_turns_with_gla_decode_fused": {"la_ms_runs": kern,
+                                              "gla_ms_runs": gla_runs},
+           **_bound(bytes_moved, flops)}
+    body, launch, c_geo = _recurrent_decode_body(*sets[0][:5])
+    rec.update(
+        body=body, threads=launch.threads, smem_per_block=launch.smem,
+        grid=list(launch.grid), c_plan=list(c_geo),
+        ptxas=_ptxas_of(ptxas, "la_decode_fused",
+                        "ds::decode_stream_kernel<__nv_bfloat16, 1, false>"),
+        blocks_per_sm_fit=_blocks_per_sm(launch.threads, launch.smem,
+                                         c_geo[5]),
+        grid_blocks_per_sm=launch.grid[0] / SMS)
     log(f"[timing] la_decode_fused B={b} H={h} Hkv={hkv} D={d} {dtype}: "
-        f"kernel {rec['ms_runs']} ms, plain {rec['plain_ms_runs']} ms, "
-        f"bound {rec['bound_ms']!r} ms ({rec['bound_by']}: "
+        f"{rec}; bound {rec['bound_ms']!r} ms ({rec['bound_by']}: "
         f"{bytes_moved} B, {flops} flop); library_ms null: no single "
         f"PyTorch call computes this fused update + readout")
+    del sets, linear
     return rec
 
 
@@ -2425,26 +2622,29 @@ def phase_timing_softmax(torch, ptxas):
         nxt = itertools.cycle(sets).__next__
         return lambda: fn(*nxt())
 
-    kern, plain = _time_pair(
+    # the kernel and SDPA by CUDA graph replays in turns (a Python loop of
+    # launches times the host's dispatch); the plain version by a loop
+    loop, plain = _time_pair(
         torch, rotating(lambda q, k, v, n, m: df.softmax_decode_fused_torch(
             q, k, v, n)),
         rotating(lambda q, k, v, n, m: df.softmax_decode_fused_cuda(
             q, k, v, n)), reps=200, warm=20)
-    lib, _ = _time_pair(torch, rotating(
-        lambda q, k, v, n, m: sdpa(q, k, v, attn_mask=m, enable_gqa=True)),
+    kern, lib = _graph_time_pair(
+        torch, rotating(lambda q, k, v, n, m: df.softmax_decode_fused_cuda(
+            q, k, v, n)),
         rotating(lambda q, k, v, n, m: sdpa(q, k, v, attn_mask=m,
-                                            enable_gqa=True)),
-        reps=200, warm=20)
+                                            enable_gqa=True)))
     live = int(sets[0][3].sum())
     it = 2
     bytes_moved = 2 * b * h * d * it + 2 * hkv * live * d * it + 4 * b
     flops = 4 * h * live * d
     out["softmax_decode_fused"] = {
-        "ms": min(kern), "ms_runs": kern, "plain_ms": min(plain),
+        "ms": min(kern), "ms_runs": kern, "timed_by": "CUDA graph replays",
+        "python_loop_ms_runs": loop, "plain_ms": min(plain),
         "plain_ms_runs": plain, "library_ms": min(lib),
         "library_ms_runs": lib,
         "library": "scaled_dot_product_attention(attn_mask=(B,1,1,S), "
-                   "enable_gqa=True)",
+                   "enable_gqa=True), by CUDA graph replays in turns",
         **_bound(bytes_moved, flops, BF16_TC_FLOP_PER_S)}
     log(f"[timing] softmax_decode_fused B={b} H={h} Hkv={hkv} S={MAX_LEN} "
         f"D={d} bf16: {out['softmax_decode_fused']}")
@@ -2539,32 +2739,21 @@ def phase_timing_softmax(torch, ptxas):
     return out
 
 
-def phase_timing_paged(torch):
+def phase_timing_paged(torch, ptxas):
     """paged_decode_fused and paged_attention at the serving shapes (every
     slot at MAX_LEN live keys, its pages shuffled over the arena; 8
-    rotating arenas, 286 MB, so every call finds its pages cold in L2),
-    each beside its plain version, and paged_decode_fused beside the
+    rotating arenas, 286 MB, so every call finds its pages cold in L2):
+    the two kernels on the same inputs by CUDA graph replays in turns,
+    each plain version by a loop, and paged_decode_fused beside the
     contiguous softmax_decode_fused on the same keys gathered into a
-    contiguous cache: what the page indirection costs."""
+    contiguous cache (graph replays in turns): what the page indirection
+    costs.  paged_decode_fused's record names its body (the cluster-split
+    page stream), its ptxas registers and spills, shared memory per
+    block, the blocks an SM holds and the clusters the card holds."""
     from repro_torch.kernels import decode_fused as df
     from repro_torch.kernels import paged_attention as pg
     b, h, hkv, d = SLOTS, 16, 16, 128
-    bf16 = torch.bfloat16
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(9)
-    sets = []
-    for _ in range(8):
-        lengths = torch.full((b,), MAX_LEN, dtype=torch.int32, device="cuda")
-        case = _paged_case(torch, gen, b, h, hkv, d, PAGE_SIZE, PMAX,
-                           lengths, bf16)
-        sets.append(case)
-    contiguous = [(q, pg.gather_pages(kp, t), pg.gather_pages(vp, t), n)
-                  for q, kp, vp, t, n in sets]
-
-    def rotating(fn, over=sets):
-        nxt = itertools.cycle(over).__next__
-        return lambda: fn(*nxt())
-
+    sets, contiguous = paged_sets(torch)
     live = int(sets[0][4].sum())
     live_pages = b * -(-MAX_LEN // PAGE_SIZE)
     it = 2
@@ -2573,29 +2762,45 @@ def phase_timing_paged(torch):
     bytes_moved = (2 * b * h * d * it + 2 * hkv * live * d * it
                    + 4 * live_pages + 4 * b)
     flops = 4 * h * live * d
+    graphs = paged_graph_times(torch, sets, contiguous)
     out = {}
-    for name, kernel, plain in (
-            ("paged_decode_fused", df.paged_decode_fused_cuda,
-             df.paged_decode_fused_torch),
-            ("paged_attention", pg.paged_attention_cuda,
-             pg.paged_attention_torch)):
-        kern, pl = _time_pair(torch, rotating(plain), rotating(kernel),
-                              reps=200, warm=20)
-        out[name] = {"ms": min(kern), "ms_runs": kern, "plain_ms": min(pl),
-                     "plain_ms_runs": pl, "library_ms": None,
+    for name, plain in (("paged_decode_fused", df.paged_decode_fused_torch),
+                        ("paged_attention", pg.paged_attention_torch)):
+        kern = graphs[name]
+        # the plain version alone, by two loops
+        pl = [_time_loop(torch, _rotating(plain, sets), 200, 20)
+              for _ in range(2)]
+        out[name] = {"ms": min(kern), "ms_runs": kern,
+                     "timed_by": "CUDA graph replays, paged_decode_fused "
+                                 "and paged_attention in turns",
+                     "plain_ms": min(pl), "plain_ms_runs": pl,
+                     "library_ms": None,
                      **_bound(bytes_moved, flops, BF16_TC_FLOP_PER_S)}
+    body, launch, c_geo = _paged_body(*sets[0])
+    per_cluster, clusters = _paged_clusters(launch)
+    out["paged_decode_fused"].update(
+        body=body, threads=launch.threads, smem_per_block=launch.smem,
+        stages=launch.stage, grid=list(launch.grid), c_plan=list(c_geo),
+        ptxas=_ptxas_of(ptxas, "paged_decode",
+                        "pc::paged_cluster_kernel<__nv_bfloat16, 128, 1>"),
+        blocks_per_sm_fit=_blocks_per_sm(launch.threads, launch.smem,
+                                         c_geo[5]),
+        grid_blocks_per_sm=launch.grid[0] / SMS,
+        blocks_per_cluster=per_cluster, max_active_clusters=clusters,
+        active_blocks_per_sm=clusters * per_cluster / SMS,
+        grid_clusters=launch.grid[0] // max(per_cluster, 1))
+    for name in out:
         log(f"[timing] {name} B={b} H={h} Hkv={hkv} D={d} ps={PAGE_SIZE} "
             f"Pmax={PMAX} bf16, {MAX_LEN} live keys per slot: {out[name]}")
-    paged, contig = _time_pair(
-        torch, rotating(df.softmax_decode_fused_cuda, contiguous),
-        rotating(df.paged_decode_fused_cuda), reps=200, warm=20)
+    paged = graphs["paged_decode_fused_beside_contiguous"]
+    contig = graphs["softmax_decode_fused_contiguous"]
     out["paged_decode_fused"].update(
         contiguous_ms_runs=contig, paged_ms_runs_beside_contiguous=paged)
     log(f"[timing] paged_decode_fused {paged} ms against the contiguous "
-        f"softmax_decode_fused {contig} ms on the same keys; library_ms "
-        f"null for both paged kernels: no single PyTorch call attends "
-        f"over a paged cache (a gather and SDPA are two calls, and the "
-        f"gather alone moves the whole cache)")
+        f"softmax_decode_fused {contig} ms on the same keys (graph "
+        f"replays); library_ms null for both paged kernels: no single "
+        f"PyTorch call attends over a paged cache (a gather and SDPA are "
+        f"two calls, and the gather alone moves the whole cache)")
     del sets, contiguous
     torch.cuda.empty_cache()
     return out
@@ -2642,21 +2847,14 @@ def phase_timing_gla(torch, ptxas):
     b, h, hkv, d = SLOTS, 16, 16, 128
     sets = [_gla_decode_case(torch, gen, b, h, hkv, d, bf16, "trained")
             for _ in range(8)]
-
-    def rotating(fn, gated=True):
-        nxt = itertools.cycle(sets).__next__
-        if gated:
-            return lambda: fn(*nxt(), 1.0, 1.0)
-        return lambda: fn(*nxt()[:5], 1.0, 1.0)
-
     # a Python loop of stream launches times the host's dispatch (~0.044
     # ms a call, over the kernel's own ~0.012): the kernel's time comes
     # from CUDA graphs of 200 launches, in turns with la_decode_fused's
-    loop, plain = _time_pair(torch, rotating(df.gla_decode_fused_torch),
-                             rotating(df.gla_decode_fused_cuda), reps=200,
-                             warm=20)
-    kern, lin = _graph_time_pair(torch, rotating(df.gla_decode_fused_cuda),
-                                 rotating(df.la_decode_fused_cuda, False))
+    loop, plain = _time_pair(
+        torch, _rotating(df.gla_decode_fused_torch, sets, (1.0, 1.0)),
+        _rotating(df.gla_decode_fused_cuda, sets, (1.0, 1.0)), reps=200,
+        warm=20)
+    lin, kern = recurrent_graph_times(torch, sets)
     g = h // hkv
     cols = d + 1
     state_elems = b * hkv * d * cols
@@ -2676,12 +2874,12 @@ def phase_timing_gla(torch, ptxas):
         "in_turns_with_la_decode_fused": {"gla_ms_runs": kern,
                                           "la_ms_runs": lin},
         **_bound(bytes_moved, flops)}
-    body, launch, c_geo = _gla_decode_body(*sets[0])
+    body, launch, c_geo = _recurrent_decode_body(*sets[0])
     out["gla_decode_fused"].update(
         body=body, threads=launch.threads, smem_per_block=launch.smem,
         grid=list(launch.grid), c_plan=list(c_geo),
-        ptxas=[r for r in ptxas.get("la_decode_fused", [])
-               if r["function"].startswith("ds::gla_decode_stream_kernel")],
+        ptxas=_ptxas_of(ptxas, "la_decode_fused",
+                        "ds::decode_stream_kernel<__nv_bfloat16, 1, true>"),
         blocks_per_sm_fit=_blocks_per_sm(launch.threads, launch.smem,
                                          c_geo[5]),
         grid_blocks_per_sm=launch.grid[0] / SMS)
@@ -2953,10 +3151,13 @@ def main() -> int:
     train_sm, train_sm_launches = phase_train(torch, "softmax")
     train_gla, train_gla_launches = phase_train(torch, "gla")
     train_m2, train_m2_launches = phase_train(torch, "mamba2")
-    timing = {"la_decode_fused": phase_timing(torch), **phase_timing_la(
-        torch, ptxas), **phase_timing_softmax(torch, ptxas), **phase_timing_paged(torch),
-        **phase_timing_gla(torch, ptxas), **phase_timing_ssd(torch, ptxas),
-        "oob_blocked_sum": phase_timing_fixture(torch)}
+    timing = {"la_decode_fused": phase_timing(torch, ptxas),
+              **phase_timing_la(torch, ptxas),
+              **phase_timing_softmax(torch, ptxas),
+              **phase_timing_paged(torch, ptxas),
+              **phase_timing_gla(torch, ptxas),
+              **phase_timing_ssd(torch, ptxas),
+              "oob_blocked_sum": phase_timing_fixture(torch)}
 
     # each kernel's launches summed over the main-path runs (every other
     # run left it at 0, expect_launches checked)

@@ -12,10 +12,10 @@
 //
 // where γ = 1 for the linear entry `la_decode_fused` and γ = exp(ld[b, hk])
 // for the gated entry `gla_decode_fused` (the decay gate, applied to the
-// carried state before the rank-1 update).  The column walk is one kernel
-// body with a compile-time `kGated` flag (the linear instantiation is the
-// ungated code unchanged); the gated entry runs the state stream below
-// wherever it takes the dims.
+// carried state before the rank-1 update).  Both bodies below take a
+// compile-time `kGated` flag: the linear instance neither reads ld nor
+// multiplies by γ, and its update fmaf(k_i, v_j, S_ij) is the gated one's
+// at γ = 1 bit for bit.
 //
 // Shapes (all contiguous): s (B, Hkv, Dk, Dv+1) f32, p (B, Hkv, Dv+1) f32,
 // q (B, H, Dk), k (B, Hkv, Dk), v (B, Hkv, Dv) and o (B, H, Dv) in the
@@ -29,11 +29,10 @@
 // 3.35 TB/s (an estimate from the shapes, not a measurement); the gate adds
 // 512 B of ld.
 //
-// Two bodies, chosen by the launcher from the entry and the dims:
-//   * the state stream (namespace ds; `gla_decode_fused` wherever Dk % 4
-//     == 0 and 4 (Dv + 1) <= 1024), below;
-//   * the column walk (`la_decode_fused`, and `gla_decode_fused` at other
-//     dims), the first design.
+// Two bodies, chosen by the launcher from the dims alone, for both entries:
+//   * the state stream (namespace ds) wherever Dk % 4 == 0 and
+//     4 (Dv + 1) <= 1024, below;
+//   * the column walk at other dims, the first design.
 //
 // Design of the column walk (simple first):
 //   * one block per (slot, KV head), so the state slab of a block is one
@@ -61,7 +60,8 @@
 //   * 4 (Dv+1) threads sweep a chunk linearly, thread t = ry (Dv+1) + j
 //     on column j of rows ry, ry + 4, ... (row class ry), each S element
 //     updated in shared memory exactly as the column walk does it,
-//     fmaf(k_i, v_j, γ S_ij), so the new state carries the same bits;
+//     fmaf(k_i, v_j, γ S_ij) (fmaf(k_i, v_j, S_ij) in the linear
+//     instance), so the new state carries the same bits;
 //   * each chunk goes back by one bulk store (each writer fences its
 //     writes to the async proxy, then a barrier); its stage takes the
 //     chunk `stages` later once that store has read it, a chunk behind,
@@ -224,10 +224,11 @@ inline int stages_for(int dk, int dv, int group) {
 
 // One block per (slot, KV head): S <- γ S + k^T [v, 1] streamed chunk by
 // chunk, P <- γ P + [v, 1], f = a P + b q S over the G query heads, o =
-// f[:Dv] / f[Dv].  s must be 16-byte aligned (the launcher checks it).
-template <typename T, int G>
+// f[:Dv] / f[Dv]; γ = exp(ld[bh]) where kGated, else 1 (ld not read).  s
+// must be 16-byte aligned (the launcher checks it).
+template <typename T, int G, bool kGated>
 __global__ void __launch_bounds__(kMaxThreads)
-    gla_decode_stream_kernel(float* __restrict__ s, float* __restrict__ p,
+    decode_stream_kernel(float* __restrict__ s, float* __restrict__ p,
                              const T* __restrict__ q,
                              const T* __restrict__ k,
                              const T* __restrict__ v,
@@ -278,7 +279,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   for (int i = tid; i < G * dk; i += nthr) q_sh[i] = to_f32(q_rows[i]);
   __syncthreads();
 
-  const float gam = expf(ld[bh]);  // the decay gate of this (slot, KV head)
+  // the decay gate of this (slot, KV head)
+  const float gam = kGated ? expf(ld[bh]) : 1.0f;
   const float vj = live ? va_sh[j] : 0.f;
   float acc[G];
 #pragma unroll
@@ -294,7 +296,8 @@ __global__ void __launch_bounds__(kMaxThreads)
         if (r < rows) {
           const int i = c * kRows + r;
           float* cell = tile + r * dv1 + j;
-          const float s_new = fmaf(k_sh[i], vj, gam * *cell);
+          const float s_new =
+              fmaf(k_sh[i], vj, kGated ? gam * *cell : *cell);
           *cell = s_new;
 #pragma unroll
           for (int g = 0; g < G; ++g) acc[g] += q_sh[g * dk + i] * s_new;
@@ -327,7 +330,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   __syncthreads();
   if (live && ry == 0) {
     float* p_row = p + bh * dv1;
-    const float p_new = fmaf(gam, p_row[j], vj);
+    const float p_new = kGated ? fmaf(gam, p_row[j], vj) : p_row[j] + vj;
     p_row[j] = p_new;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -359,8 +362,8 @@ namespace {
 // The launch of la_decode_fused / gla_decode_fused, shared by the launcher
 // and `la_decode_fused_plan`: f(Type<T>{}, kernel, geometry, Int<stream>{})
 // for the instantiation a call with these arguments runs, at most
-// kMaxSmem of shared memory (the launcher refuses more).  The gated entry
-// streams the state wherever ds::takes the dims: one block per (slot, KV
+// kMaxSmem of shared memory (the launcher refuses more).  Both entries
+// stream the state wherever ds::takes the dims: one block per (slot, KV
 // head) of 4 (Dv+1) threads rounded up to warps, the ring's stages in
 // geometry.stage.  Otherwise the column walk: one block per (slot, KV
 // head); threads stride over the Dv+1 columns; k, [v, 1], the group's G
@@ -374,16 +377,13 @@ cudaError_t with_launch(int dtype, int group, int batch, int kv_heads,
     return plan::with_group(group, [&](auto gc) {
       using T = typename decltype(t)::type;
       constexpr int G = decltype(gc)::value;
-      if constexpr (kGated) {
-        if (ds::takes(dk, dv)) {
-          const int stages = ds::stages_for(dk, dv, G);
-          return f(t, ds::gla_decode_stream_kernel<T, G>,
-                   plan::Geometry{dim3(batch * kv_heads),
-                                  (ds::kClasses * dv1 + 31) / 32 * 32,
-                                  ds::layout(dk, dv, G, stages).total,
-                                  stages},
-                   plan::Int<1>{});
-        }
+      if (ds::takes(dk, dv)) {
+        const int stages = ds::stages_for(dk, dv, G);
+        return f(t, ds::decode_stream_kernel<T, G, kGated>,
+                 plan::Geometry{dim3(batch * kv_heads),
+                                (ds::kClasses * dv1 + 31) / 32 * 32,
+                                ds::layout(dk, dv, G, stages).total, stages},
+                 plan::Int<1>{});
       }
       const size_t smem =
           static_cast<size_t>(dk + dv1 + G * dk + G * dv1) * sizeof(float);

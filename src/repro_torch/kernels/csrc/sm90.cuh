@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the wgmma bodies (flash_fwd.cu,
-// flash_bwd.cu, ssd.cu, la_fwd.cu, la_bwd.cu) and of the GLA decode
-// step's state stream (la_decode_fused.cu): mbarriers, TMA tile loads, 1-D
-// bulk copies and warpgroup matrix products, as raw PTX.
+// flash_bwd.cu, ssd.cu, la_fwd.cu, la_bwd.cu), of the recurrent decode
+// steps' state stream (la_decode_fused.cu) and of the paged decode's
+// cluster-split page stream (paged_decode.cu): mbarriers, TMA tile loads,
+// 1-D bulk copies, thread-block clusters and warpgroup matrix products, as
+// raw PTX.
 //
 //   * mbarrier: init, arrive, arrive with an expected transaction count,
 //     and a try_wait loop on a phase parity (a barrier's phase p has
@@ -16,6 +18,10 @@
 //     on the same mbarrier;
 //   * 1-D bulk copies (`cp.async.bulk`) of contiguous bytes: loads counted
 //     on an mbarrier, stores in the thread's bulk group;
+//   * clusters: the block's rank in its cluster, the cluster-wide barrier
+//     (arrive with release, wait with acquire semantics), and reads of a
+//     peer block's shared memory (distributed shared memory: `mapa` and
+//     `ld.shared::cluster`);
 //   * wgmma: shared-memory descriptors of 128-byte-swizzled bf16 tiles,
 //     `wgmma.fence`, `commit_group`, `wait_group`, the proxy fence that
 //     makes tiles written by threads visible to them, and the m64nNk16
@@ -199,6 +205,39 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
                    smem_u32(bar))
                : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// thread-block clusters
+// ---------------------------------------------------------------------------
+
+// the block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster arrives, then waits: writes
+// to shared memory before it are visible to the cluster's reads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// the f32 at `p` (this block's shared memory) in the shared memory of the
+// cluster's block `rank`
+__device__ __forceinline__ float ld_peer(const float* p, uint32_t rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(addr)
+               : "r"(smem_u32(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ---------------------------------------------------------------------------

@@ -27,12 +27,13 @@ S, P <- exp(log_decay) (S, P), then the rank-1 update and the readout.
                           entry `gla_decode_fused`); CUDA only
   gla_decode_fused_torch  its plain version, state in place
 
-The gated entry has two bodies, chosen from the dims by
-`gla_decode_body(dk, dv)`: "stream" (Dk % 4 == 0 and 4 (Dv + 1) <=
-1024: each (slot, KV head)'s f32 state slab goes through a ring of row
-chunks in shared memory by 1-D bulk copies, updated there exactly as the
-walk updates it, so the new state carries the walk's bits) and "walk"
-(the linear entry's column walk, its gated instantiation).
+Both entries have two bodies, chosen from the dims by
+`recurrent_decode_body(dk, dv)`: "stream" (Dk % 4 == 0 and 4 (Dv + 1)
+<= 1024: each (slot, KV head)'s f32 state slab goes through a ring of
+row chunks in shared memory by 1-D bulk copies, updated there exactly
+as the walk updates it, so the new state carries the walk's bits; the
+linear instance reads no log decay) and "walk" (the column walk, with
+its gated instantiation).
 
 Softmax: one call per layer and decode step attends each slot's query
 token to the first lengths[b] keys of its contiguous KV cache, the
@@ -57,11 +58,20 @@ head-folded so each page is read once per KV head:
 
   paged_decode_fused_cuda   the hand-written Hopper kernel
                             (csrc/paged_decode.cu, entry
-                            `paged_decode_fused`: one block per (slot,
-                            KV head) for its G query rows); CUDA only
+                            `paged_decode_fused`); CUDA only
   paged_decode_fused_torch  its plain version, the same as
                             `paged_attention_torch` (zeros at length 0
                             on both, as in the reference)
+
+The paged entry has two bodies, chosen from the shapes by
+`paged_attention.paged_decode_body`: "cluster" (wherever a ring of two
+pages fits, at D = 128 pages of up to 194-224 rows in bf16 and 102-112
+in f32, by G: a cluster of PAGED_DECODE_CLUSTER blocks per (slot, KV
+head), each streaming a contiguous span of the slot's live pages through a ring of
+1-D bulk copies, the blocks' partial softmaxes merged in rank order by
+rank 0 through distributed shared memory) and "walk" (the
+`decode_common.cuh` walk that `paged_attention` and
+`softmax_decode_fused` run).
 
 Beside each wrapper, `plan_<entry>` gives the entry's launch plan
 (kernels/plan.py) from the same arguments' shapes.
@@ -299,10 +309,11 @@ def paged_decode_fused_cuda(q, k_pages, v_pages, page_table, lengths):
 RECURRENT_MAX_SMEM = 48 * 1024
 
 
-def gla_decode_body(dk: int, dv: int) -> str:
-    """The body `gla_decode_fused` runs at these dims: "stream" where the
-    state's row chunks start 16-byte aligned (Dk % 4 == 0) and a block
-    holds one thread per column and row class, else "walk"."""
+def recurrent_decode_body(dk: int, dv: int) -> str:
+    """The body `la_decode_fused` and `gla_decode_fused` run at these
+    dims: "stream" where the state's row chunks start 16-byte aligned (Dk
+    % 4 == 0) and a block holds one thread per column and row class, else
+    "walk"."""
     return ("stream" if dk % 4 == 0
             and GLA_DECODE_ROW_CLASSES * (dv + 1) <= plan.MAX_THREADS
             else "walk")
@@ -333,10 +344,10 @@ def _stream_smem(dk: int, dv: int, group: int) -> int:
 def _plan_recurrent(entry, s, p, q, k, v, log_decay, a, b):
     """la_decode_fused (log_decay None) or gla_decode_fused: one block per
     (slot, KV head) updating its whole state slab and P row and writing
-    its G rows of o.  The walk's threads go over the Dv+1 state columns,
-    each down all Dk rows; the stream's (gla_decode_fused) over a row
-    chunk's columns and row classes, GLA_DECODE_ROW_CLASSES (Dv+1)
-    threads rounded up to warps."""
+    its G rows of o.  The stream's threads go over a row chunk's columns
+    and row classes, GLA_DECODE_ROW_CLASSES (Dv+1) threads rounded up to
+    warps; the walk's over the Dv+1 state columns, each down all Dk
+    rows."""
     bsz, h, hkv, dk, dv = _recurrent_dims(s, p, q, k, v, log_decay)
     group = h // hkv
     code = plan.dtype_code(q.dtype)
@@ -376,7 +387,7 @@ def _plan_recurrent(entry, s, p, q, k, v, log_decay, a, b):
                                     ld_cell))
     accesses.append(plan.Access("o", "out", (bsz, h, dv), q.dtype,
                                 group_rows(dv)))
-    if log_decay is not None and gla_decode_body(dk, dv) == "stream":
+    if recurrent_decode_body(dk, dv) == "stream":
         threads = -(-GLA_DECODE_ROW_CLASSES * (dv + 1) // 32) * 32
         smem = _stream_smem(dk, dv, group)
     else:
@@ -437,8 +448,10 @@ def plan_softmax_decode_fused(q, k, v, lengths):
 
 
 def plan_paged_decode_fused(q, k_pages, v_pages, page_table, lengths):
-    """One block per (slot, KV head) for its G query rows: the plan of
-    `paged_attention` with the group folded in."""
+    """The cluster body (PAGED_DECODE_CLUSTER blocks per (slot, KV head),
+    each a span of the slot's live pages; rank 0 writes the G rows of o)
+    where `paged_attention.paged_decode_body` says so, else the walk with
+    one block per (slot, KV head) for its G query rows."""
     _check_group(q, k_pages)
     return _pg.plan_paged(PAGED_KERNEL, q, k_pages, v_pages, page_table,
                           lengths, 1.0 / q.shape[-1] ** 0.5)

@@ -104,15 +104,33 @@ staging size, and no result depends on it.
     kernels are compiled for exactly these tiles; their C entry points
     reject any other.
   * `SOFTMAX_DECODE_WARPS` — warps per block of the softmax decode
-    kernels: `softmax_decode_fused` (one block per (slot, KV head)) and
-    the paged `paged_attention` (per (slot, query head)) and
-    `paged_decode_fused` (per (slot, KV head)); each warp walks every
+    walk (`decode_common.cuh`): `softmax_decode_fused` (one block per
+    (slot, KV head)), the paged `paged_attention` (per (slot, query
+    head)), and `paged_decode_fused` (per (slot, KV head)) at the shapes
+    its cluster body does not take; each warp walks every
     `SOFTMAX_DECODE_WARPS`-th key of the slot's live prefix with its
     own online softmax, and the block merges the warps' partial sums
     at the end.  8 warps read 8 K/V rows at a time per block; the
     result does not depend on it beyond f32 summation order.  The
     reference's `pages_per_block` (pages per sequential TPU grid step)
     has no counterpart: a block walks all of its slot's pages.
+  * `PAGED_DECODE_CLUSTER`, `PAGED_DECODE_WARPS`, `PAGED_DECODE_RING` —
+    `paged_decode_fused`'s cluster-split page stream
+    (`paged_attention.paged_decode_body`, csrc/paged_decode.cu namespace
+    `pc`).  A cluster of 4 blocks per (slot, KV head) makes 512 blocks
+    at the serving shape (B = 8, Hkv = 16): about four an SM on 132 SMs,
+    where the walk's 128 blocks left one an SM walking 544 keys alone;
+    each block streams a contiguous quarter of the slot's live pages
+    (9 of 34) and the four merge through distributed shared memory,
+    within the portable cluster size of 8.  4 warps a block: 16 keys
+    scored at once, 8 lanes a key (a page of 16 rows at a time), and
+    one thread per value column (D = 128) for P V.  A ring of 4 pages of
+    K and V (8 KB each in bf16 at ps = 16, D = 128) is 32 KB a block,
+    so four blocks keep ~128 KB of bulk copies in flight an SM, where
+    ~1 us of latency at 3.35 TB/s wants ~26 KB; fewer stages where the
+    longest span has fewer pages (at least 2) or the ring would not
+    fit.  The result does not depend on the ring; it depends on the
+    cluster through the f32 merge order.
 
   * `GLA_STAGE_TOKENS` — the same staging size for the decay-gated
     instantiations of the token walks (`gla_fwd`, `gla_bwd_q` and
@@ -161,10 +179,10 @@ staging size, and no result depends on it.
     for exactly this chunk and refuses any other.
 
 The CUDA decode steps (`la_decode_fused`, `gla_decode_fused`) launch one
-block per (slot, KV head).  `la_decode_fused` (and `gla_decode_fused` at
-dims the stream does not take) walks the state by columns and has no tile
-to choose.  `gla_decode_fused` streams its f32 state slab through shared
-memory (`decode_fused.gla_decode_body`):
+block per (slot, KV head).  At dims the stream does not take both walk
+the state by columns and have no tile to choose.  Elsewhere both stream
+their f32 state slab through shared memory
+(`decode_fused.recurrent_decode_body`):
 
   * `GLA_DECODE_ROWS` — state rows per chunk: one 1-D bulk copy in and
     one out, 8,256 B at Dv = 128; a run of a multiple of 4 rows starts
@@ -213,6 +231,9 @@ FLASH_BLOCK_K = {
 }
 FLASH_WGMMA_HEAD_DIMS = (128,)
 SOFTMAX_DECODE_WARPS = 8
+PAGED_DECODE_CLUSTER = 4
+PAGED_DECODE_WARPS = 4
+PAGED_DECODE_RING = 4
 GLA_DECODE_ROWS = 16
 GLA_DECODE_ROW_CLASSES = 4
 GLA_DECODE_RING = 5

@@ -22,7 +22,8 @@ backward), "softmax"
 "softmax_decode" (the unfused contiguous-cache decode),
 "softmax_decode_fused" (the fused one), and "paged" and
 "paged_decode_fused" (decode over a paged KV arena: one kernel block per
-query head, or per KV head with its query group folded in).
+query head, or per KV head with its query group folded in, split over a
+cluster of blocks where the kernel's cluster body takes the shapes).
 `get_kernel` raises an error listing the registered impls for unknown
 names.
 

@@ -27,9 +27,14 @@ name an arena page: the engine points unallocated entries at its sink
 page, and the kernel traps on an entry outside the arena.
 
 `launch_paged` is shared with the head-folded variant
-(`decode_fused.py::paged_decode_fused_cuda`, entry `paged_decode_fused`:
-one block per (slot, KV head) for its G query rows), and so is
-`plan_paged`, the launch plan (kernels/plan.py) of either entry.
+(`decode_fused.py::paged_decode_fused_cuda`, entry `paged_decode_fused`),
+and so is `plan_paged`, the launch plan (kernels/plan.py) of either
+entry.  `paged_decode_body` says which body the head-folded entry runs:
+"cluster" (a cluster of PAGED_DECODE_CLUSTER blocks per (slot, KV head),
+each streaming a contiguous span of the slot's live pages by 1-D bulk
+copies, merged in rank order through distributed shared memory) or
+"walk" (one block per (slot, KV head), the walk `paged_attention`
+runs).
 """
 from __future__ import annotations
 
@@ -39,7 +44,8 @@ import torch
 
 from repro_torch.core import softmax as _softmax
 from repro_torch.kernels import build, plan
-from repro_torch.kernels.defaults import SOFTMAX_DECODE_WARPS
+from repro_torch.kernels.defaults import PAGED_DECODE_CLUSTER, \
+    PAGED_DECODE_RING, PAGED_DECODE_WARPS, SOFTMAX_DECODE_WARPS
 
 LIB = "paged_decode"
 KERNEL = "paged_attention"
@@ -141,44 +147,103 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, lengths,
     return o
 
 
+def _span_max(pmax: int) -> int:
+    """The most live pages one block of a cluster takes."""
+    return -(-pmax // PAGED_DECODE_CLUSTER)
+
+
+def _cluster_smem(itemsize: int, d: int, ps: int, pmax: int, group: int,
+                  stages: int) -> int:
+    """Dynamic shared memory of the cluster body, as csrc/paged_decode.cu's
+    `pc::layout`: the ring of `stages` pages of K and V rows (after the
+    stream, the block's G x D f32 acc), the scaled query rows (G x D
+    f32), the scores and probabilities (G x ps f32 each), the warps' page
+    maxima (PAGED_DECODE_WARPS x G f32), the running max by page parity
+    (2 x G), l and the final max (G each), the span's table entries, and
+    an mbarrier per stage."""
+    ring = stages * 2 * ps * d * itemsize
+    acc = group * d * 4
+    end = -(-max(ring, acc) // 16) * 16 + acc + 2 * group * ps * 4 \
+        + (PAGED_DECODE_WARPS + 4) * group * 4 + _span_max(pmax) * 4
+    return -(-end // 8) * 8 + 8 * stages
+
+
+def _cluster_stages(itemsize, d, ps, pmax, group) -> int:
+    """`pc::stages_for`: at most PAGED_DECODE_RING and one per page of the
+    longest span, at least 2, as many as fit."""
+    stages = max(2, min(PAGED_DECODE_RING, _span_max(pmax)))
+    while stages > 2 and _cluster_smem(itemsize, d, ps, pmax, group,
+                                       stages) > plan.MAX_SMEM:
+        stages -= 1
+    return stages
+
+
+def paged_decode_body(dtype: torch.dtype, d: int, ps: int, pmax: int,
+                      group: int) -> str:
+    """The body `paged_decode_fused` runs at these shapes: "cluster" where
+    a ring of two pages fits, else "walk" (`paged_attention` always
+    walks).  A page's rows for one KV head are 16-byte-aligned contiguous
+    bytes at every head dim the launcher admits (32, 64, 128)."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    return ("cluster" if _cluster_smem(itemsize, d, ps, pmax, group, 2)
+            <= plan.MAX_SMEM else "walk")
+
+
 def plan_paged(entry, q, k_pages, v_pages, page_table, lengths,
                scale: float):
     """`paged_attention` (one block per (slot, query head)) or
-    `paged_decode_fused` (per (slot, KV head), its G rows): a block stages
-    the slot's live table entries, ceil(min(lengths[b], Pmax ps) / ps) of
-    them, and reads the live rows of each such page."""
+    `paged_decode_fused` (its G rows per (slot, KV head)).  The walk's
+    block stages the slot's live table entries, ceil(min(lengths[b], Pmax
+    ps) / ps) of them, and reads the live rows of each such page.  The
+    cluster body's block r of (slot, KV head) takes the span [r n, min((r
+    + 1) n, live)) of those pages, n = ceil(live / PAGED_DECODE_CLUSTER):
+    its table entries and each page's live rows; rank 0 writes o."""
     bsz, h, hkv, num_pages, ps, pmax, d = paged_dims(q, k_pages, v_pages,
                                                      page_table, lengths)
     group = h // hkv
-    rows = group if entry == "paged_decode_fused" else 1
+    fused = entry == "paged_decode_fused"
+    rows = group if fused else 1
     code = plan.dtype_code(q.dtype)
+    cluster = fused and paged_decode_body(q.dtype, d, ps, pmax,
+                                          group) == "cluster"
+    ranks = PAGED_DECODE_CLUSTER if cluster else 1
 
     def slot(blk, lengths):
-        bi, r = divmod(blk[0], h // rows)
+        """(slot, first query head, live keys, first page, pages) of a
+        block: the walk's whole slot, or the cluster rank's span."""
+        cell, rank = divmod(blk[0], ranks)
+        bi, r = divmod(cell, h // rows)
         live = max(0, min(int(lengths[bi]), pmax * ps))
-        return bi, r * rows, live
+        pages = -(-live // ps)
+        span = -(-pages // ranks)
+        first = min(rank * span, pages)
+        return bi, r * rows, live, first, min(first + span, pages) - first
 
     def q_rows(blk, page_table, lengths):
-        bi, h0, _ = slot(blk, lengths)
+        bi, h0, *_ = slot(blk, lengths)
         return plan.box((bi, bi + 1), (h0, h0 + rows), (0, 1), (0, d))
 
+    def o_rows(blk, page_table, lengths):
+        # the cluster's rank 0 writes the merged rows
+        return q_rows(blk, page_table, lengths) if blk[0] % ranks == 0 \
+            else []
+
     def table_row(blk, page_table, lengths):
-        bi, _, live = slot(blk, lengths)
-        pages = -(-live // ps)
-        return plan.box((bi, bi + 1), (0, pages)) if pages else []
+        bi, _, _, first, n = slot(blk, lengths)
+        return plan.box((bi, bi + 1), (first, first + n)) if n else []
 
     def pages(blk, page_table, lengths):
-        bi, h0, live = slot(blk, lengths)
+        bi, h0, live, first, n = slot(blk, lengths)
         hk = h0 // group
         tiles = []
-        for i in range(-(-live // ps)):
+        for i in range(first, first + n):
             page = int(page_table[bi, i])
             tiles += plan.box((page, page + 1), (hk, hk + 1),
                               (0, min(ps, live - i * ps)), (0, d))
         return tiles
 
     def length(blk, page_table, lengths):
-        bi = blk[0] // (h // rows)
+        bi = slot(blk, lengths)[0]
         return plan.box((bi, bi + 1))
 
     accesses = [
@@ -188,14 +253,21 @@ def plan_paged(entry, q, k_pages, v_pages, page_table, lengths,
         plan.Access("page_table", "in", plan.shape_of(page_table), plan.I32,
                     table_row),
         plan.Access("lengths", "in", (bsz,), plan.I32, length),
-        plan.Access("o", "out", plan.shape_of(q), q.dtype, q_rows)]
+        plan.Access("o", "out", plan.shape_of(q), q.dtype, o_rows)]
     warps = SOFTMAX_DECODE_WARPS
+    if cluster:
+        itemsize = q.element_size()
+        stages = _cluster_stages(itemsize, d, ps, pmax, group)
+        threads, stage = PAGED_DECODE_WARPS * 32, stages
+        smem = _cluster_smem(itemsize, d, ps, pmax, group, stages)
+    else:
+        threads, stage = warps * 32, None
+        smem = warps * rows * (d + 2) * 4 + pmax * 4
     return plan.make(
-        entry, LIB, (bsz * (h // rows),), warps * 32,
-        warps * rows * (d + 2) * 4 + pmax * 4, accesses,
+        entry, LIB, (bsz * (h // rows) * ranks,), threads, smem, accesses,
         (bsz, h, hkv, num_pages, ps, pmax, d, warps, float(scale), code),
         _SIGNATURE, (bsz, h, hkv, num_pages, ps, pmax, d, warps, code),
-        gathered=("page_table", "lengths"))
+        gathered=("page_table", "lengths"), stage=stage)
 
 
 def plan_paged_attention(q, k_pages, v_pages, page_table, lengths,

@@ -1,7 +1,7 @@
 """The gated chunked wgmma body of `gla_bwd_q` and the state stream of
-`gla_decode_fused`: their launch plans, their arithmetic emulated on the
-CPU against the JAX package, and on the card both kernels against their
-plain versions.
+`gla_decode_fused` and `la_decode_fused`: their launch plans, their
+arithmetic emulated on the CPU against the JAX package, and on the card
+the kernels against their plain versions.
 
 `gla_bwd_q` in bf16 at D = 128 runs the gated instance of `la_bwd_q`'s
 chunked body (csrc/la_bwd.cu, namespace `bq`): two blocks per (batch,
@@ -12,30 +12,32 @@ cl the chunk's cumsum of log decays (base 2), P = (Ω̂ v^T - h) o
 copy, P and w o v go as hi + lo pairs of bf16.  f32 and D < 128 keep the
 token walk.
 
-`gla_decode_fused` streams each (slot, KV head)'s f32 state slab through
-a ring of 16-row chunks in shared memory (csrc/la_decode_fused.cu,
-namespace `ds`), 4 (Dv+1) threads each updating every fourth row of one
-column exactly as the column walk does, keeping its row class's partial
-dots q . S_new and adding the four classes' in a fixed order.
+`gla_decode_fused` and `la_decode_fused` stream each (slot, KV head)'s
+f32 state slab through a ring of 16-row chunks in shared memory
+(csrc/la_decode_fused.cu, namespace `ds`, the linear instance with γ = 1
+and no log decay), 4 (Dv+1) threads each updating every fourth row of
+one column exactly as the column walk does, keeping its row class's
+partial dots q . S_new and adding the four classes' in a fixed order.
 
   * plan tests on meta tensors: `gla_bwd_q`'s wgmma geometry at G = 1 and
     4, N = 8192, 1000, 65 and 1, chunks that cover [0, N), one writer per
-    dq element; the stream's geometry at G = 1 and 4 with one writer per
-    S, P and o element, and `la_decode_fused`'s column walk as it was;
+    dq element; the stream's geometry (both entries) at G = 1 and 4 with
+    one writer per S, P and o element, and the column walk at odd Dk;
   * the dq body's arithmetic emulated in f32 at its rounding points
     against the JAX package's chunked GLA backward at N = 1000 (a ragged
     last chunk), G = 1 and 4, under a fresh layer's gate and the strong
     U[-5, 0] decays, within one bf16 step (2^-7 of the largest |value|),
     the limit `chip_smoke.py` holds the kernel to;
   * the stream's chunked update and fixed-order reduction emulated
-    against the JAX package's fused decode step (impl "xla") at D = 128,
-    G = 1 and 4, with a slot whose normalizer is exactly zero: o within
+    against the JAX package's fused decode steps (impl "xla"; gated, and
+    linear with γ = 1) at D = 128, G = 1 and 4, with a slot whose
+    normalizer is exactly zero: o within
     one bf16 step, S and P within 1e-5, and the new state equal, bit for
     bit, to the plain elementwise update (bf16 inputs make k_i v_j exact
     in f32, so the kernel's fmaf and the plain multiply-then-add round
     once alike);
-  * a `gpu`-marked test (skips without a card): both kernels against
-    their plain versions, and twice for bit-equal outputs.
+  * a `gpu`-marked test (skips without a card): the three kernels
+    against their plain versions, and twice for bit-equal outputs.
 
 The machine with the card has no JAX; there the gpu test runs alone
 (`--noconftest -m gpu`).
@@ -48,6 +50,7 @@ try:
     import jax
     import jax.numpy as jnp
 
+    from repro.core import chunked as jchunked
     from repro.core import gla as jgla
     from repro.kernels import ops as jops
 
@@ -136,38 +139,37 @@ def _decode_plans(b, h, hkv, dk=D, dv=D):
 
 
 def test_gla_decode_stream_plan():
-    """gla_decode_fused at D = 128 streams: one block per (slot, KV head)
-    of 4 x 129 threads rounded up to 17 warps, the ring of 5 chunks of 16
-    rows (8,256 B each) beside k, [v, 1], the G query rows and f, and an
-    mbarrier a stage, within the launcher's 48 KB (43,376 B at G = 1,
-    46,464 B at G = 4; three stages at G = 16).  Each S, P and o element
-    has one writer.  la_decode_fused keeps its column walk; odd Dk and
-    wide Dv keep the gated walk."""
-    assert tdf.gla_decode_body(D, D) == "stream"
-    assert tdf.gla_decode_body(30, 32) == tdf.gla_decode_body(128, 256) \
-        == "walk"
+    """gla_decode_fused and la_decode_fused at D = 128 stream: one block
+    per (slot, KV head) of 4 x 129 threads rounded up to 17 warps, the
+    ring of 5 chunks of 16 rows (8,256 B each) beside k, [v, 1], the G
+    query rows and f, and an mbarrier a stage, within the launcher's 48 KB
+    (43,376 B at G = 1, 46,464 B at G = 4; three stages at G = 16).  Each
+    S, P and o element has one writer.  Odd Dk and wide Dv keep the column
+    walk, for both entries."""
+    assert tdf.recurrent_decode_body(D, D) == "stream"
+    assert tdf.recurrent_decode_body(30, 32) == \
+        tdf.recurrent_decode_body(128, 256) == "walk"
     chunk = GLA_DECODE_ROWS * (D + 1) * 4
     assert (chunk, GLA_DECODE_RING, GLA_DECODE_ROW_CLASSES) == (8256, 5, 4)
     for g, smem in ((1, 43376), (4, 46464)):
         b, h, hkv = 8, 16, 16 // g
-        gp, lp = _decode_plans(b, h, hkv)
         rows = (D + (D + 1) + g * D + g * (D + 1)) * 4
         # the mbarriers 8-byte aligned after the f32 rows
         assert smem == -(-(GLA_DECODE_RING * chunk + rows) // 8) * 8 \
             + 8 * GLA_DECODE_RING
-        assert (gp.grid, gp.threads, gp.smem) == ((b * hkv, 1, 1), 544, smem)
-        assert gp.smem <= tdf.RECURRENT_MAX_SMEM == gp.smem_limit
-        assert (lp.grid, lp.threads, lp.smem) == ((b * hkv, 1, 1), 160,
-                                                  rows)
-        small, _ = _decode_plans(3, 4 * g, 4)
-        for name in ("s", "p", "o"):
-            assert _written_once(small, name), (g, name)
-    g16, _ = _decode_plans(8, 16, 1)
-    assert g16.smem == -(-(3 * chunk + (D + 129 + 16 * (D + 129)) * 4)
-                         // 8) * 8 + 8 * 3
-    assert g16.smem <= tdf.RECURRENT_MAX_SMEM
-    walk, _ = _decode_plans(2, 4, 2, dk=30, dv=32)
-    assert (walk.threads, walk.smem) == (64, (30 + 33 + 2 * (30 + 33)) * 4)
+        for p in _decode_plans(b, h, hkv):
+            assert (p.grid, p.threads, p.smem) == ((b * hkv, 1, 1), 544,
+                                                   smem)
+            assert p.smem <= tdf.RECURRENT_MAX_SMEM == p.smem_limit
+        for p in _decode_plans(3, 4 * g, 4):
+            for name in ("s", "p", "o"):
+                assert _written_once(p, name), (p.name, g, name)
+    for p in _decode_plans(8, 16, 1):
+        assert p.smem == -(-(3 * chunk + (D + 129 + 16 * (D + 129)) * 4)
+                           // 8) * 8 + 8 * 3
+        assert p.smem <= tdf.RECURRENT_MAX_SMEM
+    for p in _decode_plans(2, 4, 2, dk=30, dv=32):
+        assert (p.threads, p.smem) == (64, (30 + 33 + 2 * (30 + 33)) * 4)
 
 
 # ---------------------------------------------------------------------------
@@ -287,17 +289,19 @@ def test_emulated_gla_bwd_q_matches_jax_reference():
 
 
 def _emulate_stream(s, p, q, k, v, log_decay, a, b):
-    """gla_decode_fused's stream body: S updated chunk by chunk of
-    GLA_DECODE_ROWS rows, row i of a chunk by row class i % 4, each
-    element γ S + k_i v_j; each class's partial dots over its rows in
-    order, then added in the fixed order 0, 1, 2, 3; P = γ P + [v, 1]
-    (as fmaf: one rounding, through float64); o = f[:Dv] / f[Dv].  s and
-    p are updated in place; returns o."""
+    """The stream body of gla_decode_fused (log_decay given) and
+    la_decode_fused (log_decay None: γ = 1, the linear instance): S
+    updated chunk by chunk of GLA_DECODE_ROWS rows, row i of a chunk by
+    row class i % 4, each element γ S + k_i v_j; each class's partial dots
+    over its rows in order, then added in the fixed order 0, 1, 2, 3; P =
+    γ P + [v, 1] (as fmaf: one rounding, through float64); o = f[:Dv] /
+    f[Dv].  s and p are updated in place; returns o."""
     bsz, h, dk = q.shape
     hkv, dv = k.shape[1], v.shape[-1]
     g = h // hkv
     vaug = torch.cat([v.float(), torch.ones(bsz, hkv, 1)], -1)
-    gam = torch.exp(log_decay)[..., None]
+    gam = torch.ones(bsz, hkv, 1) if log_decay is None else \
+        torch.exp(log_decay)[..., None]
     qg = q.reshape(bsz, hkv, g, dk).float()
     acc = torch.zeros(GLA_DECODE_ROW_CLASSES, bsz, hkv, g, dv + 1)
     for c0 in range(0, dk, GLA_DECODE_ROWS):
@@ -321,30 +325,41 @@ def test_emulated_decode_stream_matches_jax_reference():
     (8 chunks) and G = 1 and 4 in bf16 with a slot whose normalizer is
     exactly zero: o within one bf16 step and S, P within 1e-5 of the JAX
     package's fused decode step (impl "xla"), o = 0 on the zero
-    normalizer, and the new S bit-equal to the plain elementwise update."""
+    normalizer, and the new S bit-equal to the plain elementwise update;
+    gated under both decay regimes, and with γ = 1 (the linear entry,
+    against the JAX package's linear decode step)."""
     if jnp is None:
         pytest.skip("the JAX reference is not installed here")
     rng = np.random.default_rng(52)
     a, b = 1.0, 0.5
-    for g, regime in ((1, "init"), (4, "strong")):
+    for g, regime in ((1, "init"), (4, "strong"), (1, None), (4, None)):
         bsz, hkv = 3, 2
         s = _normal(rng, bsz, hkv, D, D + 1)
         p = _normal(rng, bsz, hkv, D + 1).abs()
         q, k = _unit(rng, bsz, hkv * g, D), _unit(rng, bsz, hkv, D)
         v = _normal(rng, bsz, hkv, D, dtype=BF16)
-        ld = _gla_log_decay(rng, (bsz, hkv), regime)
+        ld = None if regime is None else \
+            _gla_log_decay(rng, (bsz, hkv), regime)
         # slot 0, KV head 0: after the step p[Dv] == 0 and q == 0, so the
         # normalizer is exactly 0
-        ld[0, 0] = 0.0
+        if ld is not None:
+            ld[0, 0] = 0.0
         p[0, 0, D] = -1.0
         q[0, :g] = 0.0
-        want_s, want_o = jops.gla_decode_step_fused(
-            jgla.GLAState(_np(s), _np(p)), _np(q).astype(jnp.bfloat16),
-            _np(k).astype(jnp.bfloat16), _np(v).astype(jnp.bfloat16),
-            jnp.asarray(ld.numpy()), a, b, backend="xla")
+        step = (_np(q).astype(jnp.bfloat16), _np(k).astype(jnp.bfloat16),
+                _np(v).astype(jnp.bfloat16))
         s_e, p_e, s_t, p_t = s.clone(), p.clone(), s.clone(), p.clone()
         o = _emulate_stream(s_e, p_e, q, k, v, ld, a, b)
-        tdf.gla_decode_fused_torch(s_t, p_t, q, k, v, ld, a, b)
+        if ld is None:
+            want_s, want_o = jops.la_decode_step_fused(
+                jchunked.LAState(_np(s), _np(p)), *step, a, b,
+                backend="xla")
+            tdf.la_decode_fused_torch(s_t, p_t, q, k, v, a, b)
+        else:
+            want_s, want_o = jops.gla_decode_step_fused(
+                jgla.GLAState(_np(s), _np(p)), *step,
+                jnp.asarray(ld.numpy()), a, b, backend="xla")
+            tdf.gla_decode_fused_torch(s_t, p_t, q, k, v, ld, a, b)
         assert torch.equal(s_e, s_t), g
         assert float(o[0, :g].float().abs().max()) == 0.0
         assert _rel(o.float(), want_o) <= BF16_REL, (g, regime)
@@ -356,10 +371,10 @@ def test_emulated_decode_stream_matches_jax_reference():
 def test_cuda_gla_bwd_q_and_decode_stream_match_plain():
     """gla_bwd_q (bf16, D = 128, the gated wgmma body) against its plain
     version at N = 300 and 65 with G = 1 and 2 under both decay regimes,
-    dq within one bf16 step; gla_decode_fused (the stream) at D = 128,
-    G = 1 and 4: S bit-equal to the plain version (bf16 inputs), P within
-    1e-5, o within one bf16 step.  A second launch of each gives
-    bit-equal outputs."""
+    dq within one bf16 step; gla_decode_fused and la_decode_fused (the
+    stream) at D = 128, G = 1 and 4: S bit-equal to the plain version
+    (bf16 inputs), P within 1e-5, o within one bf16 step.  A second
+    launch of each gives bit-equal outputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -384,15 +399,20 @@ def test_cuda_gla_bwd_q_and_decode_stream_match_plain():
         q, k = _unit(rng, bsz, 16, D).to(dev), _unit(rng, bsz, hkv, D).to(dev)
         v = _normal(rng, bsz, hkv, D, dtype=BF16).to(dev)
         ld = _gla_log_decay(rng, (bsz, hkv), "strong").to(dev)
-        outs = []
-        for _ in range(2):
-            s_k, p_k = s.clone(), p.clone()
-            outs.append((tdf.gla_decode_fused_cuda(s_k, p_k, q, k, v, ld, 1.0,
-                                                   0.5), s_k, p_k))
-        torch.cuda.synchronize()
-        o_t = tdf.gla_decode_fused_torch(s, p, q, k, v, ld, 1.0, 0.5)
-        assert all(torch.equal(x, y) for x, y in zip(*outs))
-        o_k, s_k, p_k = outs[0]
-        assert torch.equal(s_k, s)
-        assert _rel(p_k.cpu(), p.cpu()) <= F32_REL
-        assert _rel(o_k.float().cpu(), o_t.float().cpu()) <= BF16_REL
+        for kernel, plain, gate in (
+                (tdf.gla_decode_fused_cuda, tdf.gla_decode_fused_torch,
+                 (ld,)),
+                (tdf.la_decode_fused_cuda, tdf.la_decode_fused_torch, ())):
+            outs = []
+            for _ in range(2):
+                s_k, p_k = s.clone(), p.clone()
+                outs.append((kernel(s_k, p_k, q, k, v, *gate, 1.0, 0.5),
+                             s_k, p_k))
+            torch.cuda.synchronize()
+            s_t, p_t = s.clone(), p.clone()
+            o_t = plain(s_t, p_t, q, k, v, *gate, 1.0, 0.5)
+            assert all(torch.equal(x, y) for x, y in zip(*outs))
+            o_k, s_k, p_k = outs[0]
+            assert torch.equal(s_k, s_t)
+            assert _rel(p_k.cpu(), p_t.cpu()) <= F32_REL
+            assert _rel(o_k.float().cpu(), o_t.float().cpu()) <= BF16_REL

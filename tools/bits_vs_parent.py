@@ -1,20 +1,28 @@
-"""Whether the SSD, linear-attention, GLA and recurrent decode kernels of
-this tree give the same bits as those of another copy of the port.
+"""Whether the SSD, linear-attention, GLA, recurrent decode and softmax
+decode kernels of this tree give the same bits as those of another copy
+of the port.
 
 Builds `ssd_fwd`, `ssd_bwd_q`, `ssd_bwd_kv`, `la_fwd`, `la_bwd_q`,
-`la_bwd_kv`, `gla_fwd`, `gla_bwd_q`, `gla_bwd_kv`, `la_decode_fused` and
-`gla_decode_fused` from this tree's `src/` and from each DIR given, runs
+`la_bwd_kv`, `gla_fwd`, `gla_bwd_q`, `gla_bwd_kv`, `la_decode_fused`,
+`gla_decode_fused`, `softmax_decode_fused`, `paged_decode_fused` and
+`paged_attention` from this tree's `src/` and from each DIR given, runs
 each on the same bf16 inputs (made from a seed on the card): the SSD
 kernels at mamba2-2.7b's training shape (B=2, G=1, H=80, N=8192, Dk=128,
 Dv=64, a fresh layer's decays) and at N=1000, G=4, H=16 under the strong
 U[-5, 0] decays; the LA and GLA kernels at pythia-1.4b's (B=2, H=Hkv=16,
 N=8192, D=128; the trained gate's decays) and at N=1000, G=4 (the strong
-decays); the decode steps at the serving shape (B=8, H=Hkv=16, D=128,
-the trained gate) and at G=4 (the strong decays), each from the same
-f32 state.  It prints for each kernel and shape whether its outputs (o;
-the dq partials; the dk partials and dv; o and g; dq; dk and dv or dV';
-the decode steps' new S, P and o, `gla_decode_fused`'s state and o apart)
-equal this tree's bit for bit, and its largest difference if not.
+decays); the recurrent decode steps at the serving shape (B=8,
+H=Hkv=16, D=128, the trained gate) and at G=4 (the strong decays), each
+from the same f32 state; the softmax decode kernels at the serving shape
+(B=8, H=Hkv=16, D=128, page size 16, 34 table entries per slot into a
+shuffled arena, lengths in [1, 544] with a slot of length 0 and one past
+the table; `softmax_decode_fused` on the same keys gathered into a
+contiguous cache) and at G=4 with page size 5.  It prints for each
+kernel and shape whether its outputs (o; the dq partials; the dk
+partials and dv; o and g; dq; dk and dv or dV'; the recurrent decode
+steps' new S and P apart from their o) equal this tree's bit for bit,
+its largest difference, that difference over the other copy's largest
+|value|, and whether that is within one bf16 step (2^-7).
 
     python tools/bits_vs_parent.py DIR [DIR ...]
 
@@ -39,6 +47,10 @@ LA_CASES = {"la_main": (2, 16, 16, 8192, "trained"),
 # the decode steps' cases: (B, H, Hkv, decay regime)
 DECODE_CASES = {"decode_main": (8, 16, 16, "trained"),
                 "decode_g4": (8, 16, 4, "strong")}
+# the softmax decode kernels' cases: (B, H, Hkv, page size, Pmax)
+PAGED_CASES = {"paged_main": (8, 16, 16, 16, 34),
+               "paged_g4_ps5": (8, 16, 4, 5, 109)}
+BF16_STEP = 2.0 ** -7
 
 
 def dump(path):
@@ -107,10 +119,46 @@ def dump(path):
         s_l, p_l, s_g, p_g = s.clone(), p.clone(), s.clone(), p.clone()
         o_l = df.la_decode_fused_cuda(s_l, p_l, q, k, v, 1.0, 1.0)
         o_g = df.gla_decode_fused_cuda(s_g, p_g, q, k, v, ld, 1.0, 1.0)
-        out[name] = {"la_decode_fused": [s_l.cpu(), p_l.cpu(), o_l.cpu()],
+        out[name] = {"la_decode_fused_state": [s_l.cpu(), p_l.cpu()],
+                     "la_decode_fused_o": [o_l.cpu()],
                      "gla_decode_fused_state": [s_g.cpu(), p_g.cpu()],
                      "gla_decode_fused_o": [o_g.cpu()]}
+    from repro_torch.kernels import paged_attention as pg
+    for name, (b, h, hkv, ps, pmax) in PAGED_CASES.items():
+        num_pages = b * pmax + 1
+        q = torch.randn((b, h, 1, 128), generator=gen,
+                        device="cuda").bfloat16()
+        kp, vp = (torch.randn((num_pages, hkv, ps, 128), generator=gen,
+                              device="cuda").bfloat16() for _ in range(2))
+        table = torch.randperm(num_pages - 1, generator=gen,
+                               device="cuda").to(torch.int32).reshape(
+                                   b, pmax)
+        lengths = torch.randint(1, pmax * ps + 1, (b,), generator=gen,
+                                device="cuda").to(torch.int32)
+        lengths[0], lengths[1] = 0, pmax * ps + 3
+        contiguous = (q, pg.gather_pages(kp, table),
+                      pg.gather_pages(vp, table), lengths)
+        out[name] = {
+            "paged_decode_fused": [df.paged_decode_fused_cuda(
+                q, kp, vp, table, lengths).cpu()],
+            "paged_attention": [pg.paged_attention_cuda(
+                q, kp, vp, table, lengths).cpu()],
+            "softmax_decode_fused": [df.softmax_decode_fused_cuda(
+                *contiguous).cpu()]}
     torch.save(out, path)
+
+
+def compare(mine, other):
+    """Bit equality of two lists of outputs, their largest difference,
+    that over the other's largest |value|, and whether it is within one
+    bf16 step."""
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(mine, other))
+    rel = diff / max(max(float(b.float().abs().max()) for b in other),
+                     1e-30)
+    return {"bit_equal": all(a.equal(b) for a, b in zip(mine, other)),
+            "max_abs_diff": diff, "max_rel_diff": rel,
+            "within_one_bf16_step": rel <= BF16_STEP}
 
 
 def main():
@@ -135,11 +183,7 @@ def main():
         for i, other_src in enumerate(sys.argv[1:]):
             other = run(other_src, f"other{i}")
             res[other_src] = {
-                case: {kern: {"bit_equal": all(torch.equal(a, b) for a, b
-                                               in zip(ts, other[case][kern])),
-                              "max_abs_diff": max(
-                                  float((a.float() - b.float()).abs().max())
-                                  for a, b in zip(ts, other[case][kern]))}
+                case: {kern: compare(ts, other[case][kern])
                        for kern, ts in kernels.items()}
                 for case, kernels in mine.items()}
     print(json.dumps(res, indent=1))
