@@ -42,7 +42,9 @@ fails the run by raising (no result line is printed then):
                softmax_decode_fused at the serving shapes (B=8, H=Hkv=16,
                S=544, D=128, per-slot lengths >= 1,
                one past the cache; zeros at length 0 checked apart), GQA
-               G=4, bf16 and f32; flash_fwd and the three flash backward
+               G=4, bf16 and f32 (the tile stream in every case, asserted
+               from the C plan exports, and a second launch gives the
+               same bits); flash_fwd and the three flash backward
                kernels at the training shapes, odd N=1000 and GQA G=4, bf16
                and f32, and flash_fwd on a prefill window (Nq=256,
                Nk=544, q_offset [0, 256]); at the training shapes
@@ -51,11 +53,13 @@ fails the run by raising (no result line is printed then):
                paged_attention at the serving shapes (B=8, H=Hkv=16, D=128,
                page size 16, 34 table entries per slot into a shuffled
                arena, unallocated entries at the sink page, lengths in
-               [1, 544] and one past the table) and with GQA G=4 at page
-               size 5, bf16 and f32, zeros at length 0 checked apart
-               (paged_decode_fused runs its cluster-split page stream in
-               every case, asserted from the C plan export, and a second
-               launch gives the same bits);
+               [1, 544] and one past the table), with GQA G=4 at page
+               size 5 and with pages of 256 rows (16 tiles a page), bf16
+               and f32, zeros at length 0 checked apart (both run the
+               tile stream in every case, asserted from the C plan
+               exports, and a second launch gives the same bits; at page
+               size 16 softmax_decode_fused on the same keys in a
+               contiguous cache gives paged_decode_fused's bits);
                the GLA kernels under both decay regimes (the trained
                gate's log_sigmoid(N(0,1) + 6) and a hard U[-5, 0]):
                gla_decode_fused at the serving shapes and with G=4, bf16
@@ -145,8 +149,8 @@ fails the run by raising (no result line is printed then):
                la_decode_fused in turns with gla_decode_fused,
                softmax_decode_fused with SDPA, paged_decode_fused with
                paged_attention on the same inputs and with the contiguous
-               kernel on the same keys, la_decode_fused and
-               paged_decode_fused with their body records (ptxas
+               kernel on the same keys, la_decode_fused and the three
+               softmax decode kernels with their body records (ptxas
                registers and spills, shared memory per block, blocks an
                SM holds; the clusters the card holds); flash_fwd, flash_bwd_q
                and flash_bwd_kv also with their achieved TFLOP/s beside
@@ -737,16 +741,23 @@ def phase_kernel_softmax(torch):
             ("decode_gqa_bf16", SLOTS, 16, 4, MAX_LEN, 128, bf16)):
         q, k, v, lengths = _decode_softmax_case(torch, gen, b, h, hkv, s_len,
                                                 d, dtype)
+        body = _decode_stream(df.plan_softmax_decode_fused(q, k, v,
+                                                           lengths))[0]
         o_k = df.softmax_decode_fused_cuda(q, k, v, lengths)
+        o_2 = df.softmax_decode_fused_cuda(q, k, v, lengths)
         torch.cuda.synchronize()
         o_t = df.softmax_decode_fused_torch(q, k, v, lengths)
         log(f"[kernel] {label}: B={b} H={h} Hkv={hkv} S={s_len} D={d} "
-            f"{dtype}, lengths {lengths.tolist()}")
+            f"{dtype}, lengths {lengths.tolist()}; body {body} (C plan "
+            f"export)")
         errs[label] = {"softmax_decode_fused": check_close(
             f"{label} o", o_k, o_t, _softmax_rel(torch, dtype))}
         if o_k.dtype != dtype or not torch.isfinite(o_k).all():
             raise AssertionError(f"{label}: o dtype {o_k.dtype} or "
                                  f"non-finite values")
+        if not torch.equal(o_k, o_2):
+            raise AssertionError(f"{label}: two launches give different o")
+        log(f"  {label} o: two launches bit-equal")
         # length 0: the kernel writes zeros (as the Pallas kernel does)
         lengths[1] = 0
         o_0 = df.softmax_decode_fused_cuda(q, k, v, lengths)
@@ -842,24 +853,13 @@ def _paged_case(torch, gen, b, h, hkv, d, ps, pmax, lengths, dtype):
     return q, kp, vp, table, lengths
 
 
-def _paged_body(q, kp, vp, table, lengths):
-    """The body paged_decode_fused runs for these operands, held to its
-    launcher's C export: "cluster" or "walk"."""
-    from repro_torch.kernels import decode_fused as df
-    from repro_torch.kernels import paged_attention as pg
-    body = pg.paged_decode_body(q.dtype, q.shape[-1], kp.shape[2],
-                                table.shape[1], q.shape[1] // kp.shape[1])
-    return _c_body(body, df.plan_paged_decode_fused(q, kp, vp, table,
-                                                    lengths))
-
-
-def _paged_clusters(launch):
+def _stream_clusters(launch):
     """(blocks per cluster, the most clusters the card holds at once) of a
-    paged_decode_fused launch, from its launcher's C export
-    `paged_decode_cluster_plan`."""
+    softmax decode launch, from its launcher's C export
+    `<source>_cluster_plan`."""
     import ctypes
     from repro_torch.kernels import build
-    symbol = "paged_decode_cluster_plan"
+    symbol = f"{launch.lib}_cluster_plan"
     argtypes = ([ctypes.c_char_p] + [ctypes.c_int] * len(launch.plan_args)
                 + [ctypes.POINTER(ctypes.c_int64)])
     lib = build.bind(launch.lib, {symbol: argtypes})
@@ -869,22 +869,47 @@ def _paged_clusters(launch):
     return int(out[0]), int(out[1])
 
 
+def _decode_stream(launch):
+    """("stream", launch, C plan, the most clusters the card holds) for a
+    softmax decode entry's plan, raising unless its launcher's C exports
+    report that launch (grid, threads, shared memory) as clusters of
+    PAGED_DECODE_CLUSTER blocks: the tile stream, the only body of the
+    three entries."""
+    from repro_torch.kernels.defaults import PAGED_DECODE_CLUSTER
+    body, launch, got = _c_body("stream", launch)
+    per_cluster, clusters = _stream_clusters(launch)
+    if per_cluster != PAGED_DECODE_CLUSTER:
+        raise AssertionError(f"{launch.name}: clusters of {per_cluster} "
+                             f"blocks, not the stream's "
+                             f"{PAGED_DECODE_CLUSTER}")
+    return body, launch, got, clusters
+
+
 def phase_kernel_paged(torch):
-    """paged_decode_fused and paged_attention against their plain
-    versions; paged_decode_fused runs its cluster body in every case (from
-    the C plan export) and a second launch gives its bits again."""
+    """paged_decode_fused and paged_attention against their plain versions
+    (the serving shape, GQA at page size 5, and pages of 256 rows: 16
+    tiles each), both running the tile stream in every case (from the C
+    plan exports), a second launch giving the same bits and zeros at
+    length 0; at page size DECODE_TILE_ROWS softmax_decode_fused on the
+    same keys gathered into a contiguous cache gives paged_decode_fused's
+    bits."""
     from repro_torch.kernels import decode_fused as df
     from repro_torch.kernels import paged_attention as pg
+    from repro_torch.kernels.defaults import DECODE_TILE_ROWS
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    kernels = (("paged_decode_fused", df.paged_decode_fused_cuda),
-               ("paged_attention", pg.paged_attention_cuda))
+    kernels = (("paged_decode_fused", df.paged_decode_fused_cuda,
+                df.plan_paged_decode_fused),
+               ("paged_attention", pg.paged_attention_cuda,
+                pg.plan_paged_attention))
     errs = {}
     for label, hkv, ps, dtype in (
             ("paged_main_bf16", 16, PAGE_SIZE, torch.bfloat16),
             ("paged_main_f32", 16, PAGE_SIZE, torch.float32),
             ("paged_gqa_ps5_bf16", 4, 5, torch.bfloat16),
-            ("paged_gqa_ps5_f32", 4, 5, torch.float32)):
+            ("paged_gqa_ps5_f32", 4, 5, torch.float32),
+            ("paged_ps256_bf16", 16, 256, torch.bfloat16),
+            ("paged_ps256_f32", 16, 256, torch.float32)):
         b, h, d = SLOTS, 16, 128
         pmax = -(-MAX_LEN // ps)
         lengths = torch.randint(1, MAX_LEN + 1, (b,), generator=gen,
@@ -894,33 +919,45 @@ def phase_kernel_paged(torch):
                            dtype)
         want = pg.paged_attention_torch(*case)
         rel = BF16_REL if dtype == torch.bfloat16 else F32_REL
-        body = _paged_body(*case)[0]
+        bodies = {name: _decode_stream(plan_fn(*case))[0]
+                  for name, _, plan_fn in kernels}
         log(f"[kernel] {label}: B={b} H={h} Hkv={hkv} D={d} ps={ps} "
-            f"Pmax={pmax} {dtype}, lengths {lengths.tolist()}; "
-            f"paged_decode_fused body {body} (C plan export)")
-        if body != "cluster":
-            raise AssertionError(f"{label}: paged_decode_fused body {body}, "
-                                 f"not cluster")
+            f"Pmax={pmax} {dtype}, lengths {lengths.tolist()}; bodies "
+            f"{bodies} (C plan exports), tiles of "
+            f"{pg.tiling(ps)[0]} rows, {pg.tiling(ps)[1]} a page")
         errs[label] = {}
-        for name, kernel in kernels:
+        for name, kernel, _ in kernels:
             o = kernel(*case)
-            if name == "paged_decode_fused":
-                o_2 = kernel(*case)
+            o_2 = kernel(*case)
             torch.cuda.synchronize()
             errs[label][name] = check_close(f"{label} {name} o", o, want,
                                             rel)
             if o.dtype != dtype or not torch.isfinite(o).all():
                 raise AssertionError(f"{label} {name}: o dtype {o.dtype} "
                                      f"or non-finite values")
-            if name == "paged_decode_fused":
-                if not torch.equal(o, o_2):
-                    raise AssertionError(f"{label} {name}: two launches "
-                                         f"give different o")
-                log(f"  {label} {name} o: two launches bit-equal")
-                del o_2
+            if not torch.equal(o, o_2):
+                raise AssertionError(f"{label} {name}: two launches give "
+                                     f"different o")
+            log(f"  {label} {name} o: two launches bit-equal")
+            if name == "paged_decode_fused" and ps == DECODE_TILE_ROWS:
+                # the same keys as a contiguous cache: the same tiles,
+                # spans and arithmetic, so the same bits
+                q, kp, vp, table, _ = case
+                o_c = df.softmax_decode_fused_cuda(
+                    q, pg.gather_pages(kp, table),
+                    pg.gather_pages(vp, table), lengths)
+                torch.cuda.synchronize()
+                if not torch.equal(o, o_c):
+                    raise AssertionError(
+                        f"{label}: softmax_decode_fused on the gathered "
+                        f"keys is not paged_decode_fused's bits")
+                log(f"  {label}: softmax_decode_fused on the same keys "
+                    f"gives paged_decode_fused's bits")
+                errs[label]["contiguous_bit_equal"] = True
+            del o_2
         # length 0: zeros on both kernels (and on the plain version)
         lengths[1] = 0
-        for name, kernel in kernels:
+        for name, kernel, _ in kernels:
             o = kernel(*case)
             torch.cuda.synchronize()
             if float(o[1].abs().max()) != 0.0:
@@ -2423,6 +2460,29 @@ def _ptxas_of(ptxas, source, prefix):
             if r["function"].startswith(prefix)]
 
 
+def _stream_record(launch, ptxas, source, paged):
+    """The tile stream a bf16, D = 128 softmax decode launch with one query
+    row a cell and tiles of whole pages (or of the contiguous cache) runs
+    (from its launcher's C exports), its ptxas registers and spills,
+    shared memory per block, the blocks an SM holds and the clusters the
+    card holds."""
+    from repro_torch.kernels.defaults import PAGED_DECODE_CLUSTER
+    body, launch, c_geo, clusters = _decode_stream(launch)
+    per_cluster = PAGED_DECODE_CLUSTER
+    return dict(
+        body=body, threads=launch.threads, smem_per_block=launch.smem,
+        stages=launch.stage, grid=list(launch.grid), c_plan=list(c_geo),
+        ptxas=_ptxas_of(ptxas, source,
+                        f"pc::stream_kernel<__nv_bfloat16, 128, 1, "
+                        f"{str(paged).lower()}, false>"),
+        blocks_per_sm_fit=_blocks_per_sm(launch.threads, launch.smem,
+                                         c_geo[5]),
+        grid_blocks_per_sm=launch.grid[0] / SMS,
+        blocks_per_cluster=per_cluster, max_active_clusters=clusters,
+        active_blocks_per_sm=clusters * per_cluster / SMS,
+        grid_clusters=launch.grid[0] // max(per_cluster, 1))
+
+
 def phase_timing(torch, ptxas):
     """la_decode_fused and its plain version at the main path's decode
     shapes.  The serving step finds each layer's state cold in L2 (24
@@ -2645,7 +2705,9 @@ def phase_timing_softmax(torch, ptxas):
         "library_ms_runs": lib,
         "library": "scaled_dot_product_attention(attn_mask=(B,1,1,S), "
                    "enable_gqa=True), by CUDA graph replays in turns",
-        **_bound(bytes_moved, flops, BF16_TC_FLOP_PER_S)}
+        **_bound(bytes_moved, flops, BF16_TC_FLOP_PER_S),
+        **_stream_record(df.plan_softmax_decode_fused(*sets[0][:4]), ptxas,
+                         "softmax_decode_fused", paged=False)}
     log(f"[timing] softmax_decode_fused B={b} H={h} Hkv={hkv} S={MAX_LEN} "
         f"D={d} bf16: {out['softmax_decode_fused']}")
     del sets
@@ -2747,9 +2809,9 @@ def phase_timing_paged(torch, ptxas):
     each plain version by a loop, and paged_decode_fused beside the
     contiguous softmax_decode_fused on the same keys gathered into a
     contiguous cache (graph replays in turns): what the page indirection
-    costs.  paged_decode_fused's record names its body (the cluster-split
-    page stream), its ptxas registers and spills, shared memory per
-    block, the blocks an SM holds and the clusters the card holds."""
+    costs.  Each record names its body (the tile stream, from the C
+    exports), its ptxas registers and spills, shared memory per block,
+    the blocks an SM holds and the clusters the card holds."""
     from repro_torch.kernels import decode_fused as df
     from repro_torch.kernels import paged_attention as pg
     b, h, hkv, d = SLOTS, 16, 16, 128
@@ -2776,19 +2838,10 @@ def phase_timing_paged(torch, ptxas):
                      "plain_ms": min(pl), "plain_ms_runs": pl,
                      "library_ms": None,
                      **_bound(bytes_moved, flops, BF16_TC_FLOP_PER_S)}
-    body, launch, c_geo = _paged_body(*sets[0])
-    per_cluster, clusters = _paged_clusters(launch)
-    out["paged_decode_fused"].update(
-        body=body, threads=launch.threads, smem_per_block=launch.smem,
-        stages=launch.stage, grid=list(launch.grid), c_plan=list(c_geo),
-        ptxas=_ptxas_of(ptxas, "paged_decode",
-                        "pc::paged_cluster_kernel<__nv_bfloat16, 128, 1>"),
-        blocks_per_sm_fit=_blocks_per_sm(launch.threads, launch.smem,
-                                         c_geo[5]),
-        grid_blocks_per_sm=launch.grid[0] / SMS,
-        blocks_per_cluster=per_cluster, max_active_clusters=clusters,
-        active_blocks_per_sm=clusters * per_cluster / SMS,
-        grid_clusters=launch.grid[0] // max(per_cluster, 1))
+    for name, plan_fn in (("paged_decode_fused", df.plan_paged_decode_fused),
+                          ("paged_attention", pg.plan_paged_attention)):
+        out[name].update(_stream_record(plan_fn(*sets[0]), ptxas,
+                                        "paged_decode", paged=True))
     for name in out:
         log(f"[timing] {name} B={b} H={h} Hkv={hkv} D={d} ps={PAGE_SIZE} "
             f"Pmax={PMAX} bf16, {MAX_LEN} live keys per slot: {out[name]}")

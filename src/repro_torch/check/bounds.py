@@ -343,25 +343,31 @@ def _page_tables(b, pmax, ps, lengths):
 
 
 def _paged_cases(width, fused):
+    """Page sizes within one tile, then a page of several tiles (the last
+    one ragged at the small width)."""
     w = WIDTHS[width]
     r = _Data(6)
     h, hkv, d, dt = w["h"], w["hkv"], w["d"], w["dtype"]
     if width == "small":
-        b, ps, pmax = 3, 8, 5
-        lens = [0, 12, pmax * ps]
+        b = 3
+        shapes = [(8, 5, [0, 12, 5 * 8]), (40, 2, [0, 37, 2 * 40 + 3])]
     else:
-        b, ps, pmax = 8, 16, 9
-        lens = [0, 1, 15, 16, 17, 100, pmax * ps, pmax * ps + 5]
-    num_pages = b * pmax + 1  # + the engine's sink page (id 0)
+        b = 8
+        shapes = [(16, 9, [0, 1, 15, 16, 17, 100, 9 * 16, 9 * 16 + 5]),
+                  (256, 2, [0, 1, 15, 16, 17, 300, 2 * 256, 2 * 256 + 5])]
     plan_fn = df.plan_paged_decode_fused if fused else pg.plan_paged_attention
     plain = df.paged_decode_fused_torch if fused else pg.paged_attention_torch
-    k_pages = r.normal(num_pages, hkv, ps, d, dtype=dt)
-    v_pages = r.normal(num_pages, hkv, ps, d, dtype=dt)
-    q = r.normal(b, h, 1, d, dtype=dt)
-    return [Case(width, plan_fn, plain,
-                 dict(q=q, k_pages=k_pages, v_pages=v_pages, page_table=pt,
-                      lengths=_ints(lens)))
-            for pt in _page_tables(b, pmax, ps, lens)]
+    cases = []
+    for ps, pmax, lens in shapes:
+        num_pages = b * pmax + 1  # + the engine's sink page (id 0)
+        k_pages = r.normal(num_pages, hkv, ps, d, dtype=dt)
+        v_pages = r.normal(num_pages, hkv, ps, d, dtype=dt)
+        q = r.normal(b, h, 1, d, dtype=dt)
+        cases += [Case(width, plan_fn, plain,
+                       dict(q=q, k_pages=k_pages, v_pages=v_pages,
+                            page_table=pt, lengths=_ints(lens)))
+                  for pt in _page_tables(b, pmax, ps, lens)]
+    return cases
 
 
 DRIVERS = {

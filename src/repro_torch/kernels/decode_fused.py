@@ -63,15 +63,15 @@ head-folded so each page is read once per KV head:
                             `paged_attention_torch` (zeros at length 0
                             on both, as in the reference)
 
-The paged entry has two bodies, chosen from the shapes by
-`paged_attention.paged_decode_body`: "cluster" (wherever a ring of two
-pages fits, at D = 128 pages of up to 194-224 rows in bf16 and 102-112
-in f32, by G: a cluster of PAGED_DECODE_CLUSTER blocks per (slot, KV
-head), each streaming a contiguous span of the slot's live pages through a ring of
-1-D bulk copies, the blocks' partial softmaxes merged in rank order by
-rank 0 through distributed shared memory) and "walk" (the
-`decode_common.cuh` walk that `paged_attention` and
-`softmax_decode_fused` run).
+Both softmax kernels run the tile stream of csrc/decode_common.cuh, as
+`paged_attention` does (kernels/paged_attention.py): a cluster of
+PAGED_DECODE_CLUSTER blocks per (slot, KV head), each streaming a
+contiguous span of the cell's live tiles of at most DECODE_TILE_ROWS
+rows through a ring of 1-D bulk copies, the blocks' partial softmaxes
+merged in rank order by rank 0 through distributed shared memory.  A
+contiguous cache is a paged one with one page of S rows per slot and
+the identity table: its tiles are DECODE_TILE_ROWS rows of the slot's
+(S, D) block for the KV head, and no table is read.
 
 Beside each wrapper, `plan_<entry>` gives the entry's launch plan
 (kernels/plan.py) from the same arguments' shapes.
@@ -86,8 +86,9 @@ from repro_torch.core import softmax as _softmax
 from repro_torch.core.numerics import safe_div
 from repro_torch.kernels import build, plan
 from repro_torch.kernels import paged_attention as _pg
-from repro_torch.kernels.defaults import GLA_DECODE_RING, \
-    GLA_DECODE_ROW_CLASSES, GLA_DECODE_ROWS, SOFTMAX_DECODE_WARPS
+from repro_torch.kernels.defaults import DECODE_TILE_ROWS, \
+    GLA_DECODE_RING, GLA_DECODE_ROW_CLASSES, GLA_DECODE_ROWS, \
+    PAGED_DECODE_CLUSTER, PAGED_DECODE_WARPS
 
 F32 = torch.float32
 KERNEL = "la_decode_fused"
@@ -242,6 +243,8 @@ def _softmax_dims(q, k, v, lengths):
     if h % hkv != 0 or h // hkv not in GROUPS:
         raise ValueError(f"H={h} over Hkv={hkv} is not a query group of "
                          f"{GROUPS}")
+    if k.shape[2] < 1:
+        raise ValueError(f"a cache of S={k.shape[2]} positions")
     return bsz, h, hkv, k.shape[2], d
 
 
@@ -263,7 +266,7 @@ def softmax_decode_fused_cuda(q, k, v, lengths):
     with torch.cuda.device(q.device):
         err = lib.softmax_decode_fused(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            o.data_ptr(), bsz, h, hkv, s_len, d, SOFTMAX_DECODE_WARPS,
+            o.data_ptr(), bsz, h, hkv, s_len, d, DECODE_TILE_ROWS,
             1.0 / d ** 0.5, build.DTYPE_CODE[q.dtype],
             build.current_stream(q.device))
     build.raise_on(lib, SOFTMAX_KERNEL, SOFTMAX_KERNEL, err)
@@ -408,50 +411,47 @@ def plan_gla_decode_fused(s, p, q, k, v, log_decay, a: float, b: float):
 
 
 def plan_softmax_decode_fused(q, k, v, lengths):
-    """One block of SOFTMAX_DECODE_WARPS warps per (slot, KV head): its G
-    query rows attend to the first min(lengths[b], S) keys."""
+    """The tile stream with one page of S rows per slot: a cell per (slot,
+    KV head) holds its G query rows, block r of it takes its span of the
+    live prefix's tiles (`paged_attention.live_tiles`, `spans`), one box
+    of rows of the (S, D) block for the KV head; rank 0 writes o."""
     bsz, h, hkv, s_len, d = _softmax_dims(q, k, v, lengths)
     group = h // hkv
     code = plan.dtype_code(q.dtype)
 
-    def head(blk):
-        return divmod(blk[0], hkv)
+    def count_tiles(lengths):
+        return lambda bi: _pg.live_tiles(int(lengths[bi]), s_len, 1)
 
-    def q_rows(blk, lengths):
-        bi, hk = head(blk)
-        return plan.box((bi, bi + 1), (hk * group, (hk + 1) * group), (0, 1),
-                        (0, d))
+    def kv_tiles(bi, h0, span, lengths):
+        hk = h0 // group
+        return plan.box((bi, bi + 1), (hk, hk + 1),
+                        (span[0][1], span[-1][1] + span[-1][2]),
+                        (0, d)) if span else []
 
-    def kv_rows(blk, lengths):
-        bi, hk = head(blk)
-        live = max(0, min(int(lengths[bi]), s_len))
-        return plan.box((bi, bi + 1), (hk, hk + 1), (0, live),
-                        (0, d)) if live else []
-
-    def length(blk, lengths):
-        bi = head(blk)[0]
-        return plan.box((bi, bi + 1))
-
+    q_rows, o_rows, length, keys = _pg.stream_accesses(q, group, count_tiles,
+                                                       kv_tiles)
     accesses = [
         plan.Access("q", "in", plan.shape_of(q), q.dtype, q_rows),
-        plan.Access("k", "in", plan.shape_of(k), q.dtype, kv_rows),
-        plan.Access("v", "in", plan.shape_of(v), q.dtype, kv_rows),
+        plan.Access("k", "in", plan.shape_of(k), q.dtype, keys),
+        plan.Access("v", "in", plan.shape_of(v), q.dtype, keys),
         plan.Access("lengths", "in", (bsz,), plan.I32, length),
-        plan.Access("o", "out", plan.shape_of(q), q.dtype, q_rows)]
-    warps = SOFTMAX_DECODE_WARPS
+        plan.Access("o", "out", plan.shape_of(q), q.dtype, o_rows)]
+    stages, smem = _pg.stream_smem(q.element_size(), d, group, s_len, 1,
+                                   False)
     return plan.make(
-        SOFTMAX_KERNEL, SOFTMAX_KERNEL, (bsz * hkv,), warps * 32,
-        warps * group * (d + 2) * 4, accesses,
-        (bsz, h, hkv, s_len, d, warps, 1.0 / d ** 0.5, code),
+        SOFTMAX_KERNEL, SOFTMAX_KERNEL,
+        (bsz * hkv * PAGED_DECODE_CLUSTER,), PAGED_DECODE_WARPS * 32,
+        smem, accesses,
+        (bsz, h, hkv, s_len, d, DECODE_TILE_ROWS, 1.0 / d ** 0.5, code),
         _SOFTMAX_SYMBOLS[SOFTMAX_KERNEL],
-        (bsz, h, hkv, s_len, d, warps, code), gathered=("lengths",))
+        (bsz, h, hkv, s_len, d, DECODE_TILE_ROWS, code),
+        gathered=("lengths",), stage=stages)
 
 
 def plan_paged_decode_fused(q, k_pages, v_pages, page_table, lengths):
-    """The cluster body (PAGED_DECODE_CLUSTER blocks per (slot, KV head),
-    each a span of the slot's live pages; rank 0 writes the G rows of o)
-    where `paged_attention.paged_decode_body` says so, else the walk with
-    one block per (slot, KV head) for its G query rows."""
+    """The tile stream with a cell per (slot, KV head): PAGED_DECODE_CLUSTER
+    blocks, each a span of the slot's live tiles; rank 0 writes the G rows
+    of o."""
     _check_group(q, k_pages)
     return _pg.plan_paged(PAGED_KERNEL, q, k_pages, v_pages, page_table,
                           lengths, 1.0 / q.shape[-1] ** 0.5)

@@ -103,34 +103,34 @@ staging size, and no result depends on it.
     The reference's 128 x 128 is a VMEM tiling of the TPU's MXU.  The
     kernels are compiled for exactly these tiles; their C entry points
     reject any other.
-  * `SOFTMAX_DECODE_WARPS` — warps per block of the softmax decode
-    walk (`decode_common.cuh`): `softmax_decode_fused` (one block per
-    (slot, KV head)), the paged `paged_attention` (per (slot, query
-    head)), and `paged_decode_fused` (per (slot, KV head)) at the shapes
-    its cluster body does not take; each warp walks every
-    `SOFTMAX_DECODE_WARPS`-th key of the slot's live prefix with its
-    own online softmax, and the block merges the warps' partial sums
-    at the end.  8 warps read 8 K/V rows at a time per block; the
-    result does not depend on it beyond f32 summation order.  The
-    reference's `pages_per_block` (pages per sequential TPU grid step)
-    has no counterpart: a block walks all of its slot's pages.
-  * `PAGED_DECODE_CLUSTER`, `PAGED_DECODE_WARPS`, `PAGED_DECODE_RING` —
-    `paged_decode_fused`'s cluster-split page stream
-    (`paged_attention.paged_decode_body`, csrc/paged_decode.cu namespace
-    `pc`).  A cluster of 4 blocks per (slot, KV head) makes 512 blocks
-    at the serving shape (B = 8, Hkv = 16): about four an SM on 132 SMs,
-    where the walk's 128 blocks left one an SM walking 544 keys alone;
-    each block streams a contiguous quarter of the slot's live pages
-    (9 of 34) and the four merge through distributed shared memory,
-    within the portable cluster size of 8.  4 warps a block: 16 keys
-    scored at once, 8 lanes a key (a page of 16 rows at a time), and
-    one thread per value column (D = 128) for P V.  A ring of 4 pages of
-    K and V (8 KB each in bf16 at ps = 16, D = 128) is 32 KB a block,
-    so four blocks keep ~128 KB of bulk copies in flight an SM, where
-    ~1 us of latency at 3.35 TB/s wants ~26 KB; fewer stages where the
-    longest span has fewer pages (at least 2) or the ring would not
-    fit.  The result does not depend on the ring; it depends on the
-    cluster through the f32 merge order.
+  * `PAGED_DECODE_CLUSTER`, `PAGED_DECODE_WARPS`, `PAGED_DECODE_RING`,
+    `DECODE_TILE_ROWS` — the tile stream that every softmax decode entry
+    runs (csrc/decode_common.cuh namespace `pc`): `softmax_decode_fused`
+    (contiguous cache) and `paged_decode_fused` with a cell per (slot, KV
+    head), `paged_attention` with a cell per (slot, query head).  A
+    cluster of 4 blocks per cell makes 512 blocks at the serving shape (B
+    = 8, Hkv = 16): about four an SM on 132 SMs, where one block per cell
+    left one an SM walking 544 keys alone; each block streams a
+    contiguous quarter of the cell's live tiles (9 of 34) and the four
+    merge through distributed shared memory, within the portable cluster
+    size of 8.  4 warps a block: 16 keys scored at once, 8 lanes a key
+    (a 16-row tile at a time), and one thread per value column (D = 128)
+    for P V.  A tile is at most `DECODE_TILE_ROWS` rows contiguous in
+    memory: a page of at most that many rows is one tile (so the paged
+    kernel's tiles are its pages at the serving page size of 16), a
+    larger page and a contiguous cache's S rows are cut into tiles of
+    that many rows (the C entries admit 1..64: a ring of two 64-row
+    tiles fits at f32, D = 128, G = 16).  16 rows: on the same keys the
+    contiguous kernel then gives the paged kernel's bits at page size 16
+    (PERF.md gives its times against 32 and 64 rows).  A ring of 4 tiles
+    of K and V (8 KB each in bf16 at 16 rows, D = 128) is 32 KB a block,
+    so four blocks keep ~128 KB of bulk copies in flight an SM, where ~1
+    us of latency at 3.35 TB/s wants ~26 KB; fewer stages where the
+    longest span has fewer tiles (at least 2) or the ring would not fit.
+    The result depends on the tile and the cluster through the f32
+    summation order, not on the ring.  The reference's `pages_per_block`
+    (pages per sequential TPU grid step) has no counterpart: a cluster's
+    blocks split the pages between them.
 
   * `GLA_STAGE_TOKENS` — the same staging size for the decay-gated
     instantiations of the token walks (`gla_fwd`, `gla_bwd_q` and
@@ -230,10 +230,10 @@ FLASH_BLOCK_K = {
     "mma_sync": {"flash_fwd": 64, "flash_bwd_q": 64, "flash_bwd_kv": 64},
 }
 FLASH_WGMMA_HEAD_DIMS = (128,)
-SOFTMAX_DECODE_WARPS = 8
 PAGED_DECODE_CLUSTER = 4
 PAGED_DECODE_WARPS = 4
 PAGED_DECODE_RING = 4
+DECODE_TILE_ROWS = 16
 GLA_DECODE_ROWS = 16
 GLA_DECODE_ROW_CLASSES = 4
 GLA_DECODE_RING = 5

@@ -21,9 +21,9 @@ backward), "softmax"
 (flash forward, optional per-slot q_offset, + recomputation backward),
 "softmax_decode" (the unfused contiguous-cache decode),
 "softmax_decode_fused" (the fused one), and "paged" and
-"paged_decode_fused" (decode over a paged KV arena: one kernel block per
-query head, or per KV head with its query group folded in, split over a
-cluster of blocks where the kernel's cluster body takes the shapes).
+"paged_decode_fused" (decode over a paged KV arena: a cluster of kernel
+blocks per query head, or per KV head with its query group folded in;
+all three softmax decode kernels run one tile stream).
 `get_kernel` raises an error listing the registered impls for unknown
 names.
 

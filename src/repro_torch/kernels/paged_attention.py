@@ -15,8 +15,8 @@ new query token to its first lengths[b] keys:
                          reference's `paged_attention_xla`
   paged_attention_cuda   the hand-written Hopper kernel
                          (csrc/paged_decode.cu, entry `paged_attention`:
-                         one block per (slot, query head), reading KV
-                         head h // G through the table); CUDA only
+                         a cell per (slot, query head), reading KV head
+                         h // G through the table); CUDA only
 
 Both take q (B, H, 1, D) and the arenas in the compute dtype, the table
 and lengths (B,) int32, and an optional score scale (default 1/sqrt(D),
@@ -26,15 +26,18 @@ yields zeros on both.  Every table entry a slot's live keys reach must
 name an arena page: the engine points unallocated entries at its sink
 page, and the kernel traps on an entry outside the arena.
 
-`launch_paged` is shared with the head-folded variant
-(`decode_fused.py::paged_decode_fused_cuda`, entry `paged_decode_fused`),
-and so is `plan_paged`, the launch plan (kernels/plan.py) of either
-entry.  `paged_decode_body` says which body the head-folded entry runs:
-"cluster" (a cluster of PAGED_DECODE_CLUSTER blocks per (slot, KV head),
-each streaming a contiguous span of the slot's live pages by 1-D bulk
-copies, merged in rank order through distributed shared memory) or
-"walk" (one block per (slot, KV head), the walk `paged_attention`
-runs).
+Every softmax decode entry (`paged_attention`, the head-folded
+`paged_decode_fused` and the contiguous `softmax_decode_fused`,
+decode_fused.py) runs one body, the tile stream of csrc/decode_common.cuh
+(`pc::stream_kernel`): a cluster of PAGED_DECODE_CLUSTER blocks per cell
+(a slot's query rows reading one KV head), each streaming a contiguous
+span of the cell's live tiles by 1-D bulk copies, merged in rank order
+through distributed shared memory.  A tile is at most DECODE_TILE_ROWS
+rows contiguous in memory: a page of ps <= DECODE_TILE_ROWS rows is one
+tile, a larger page (and a contiguous cache's S rows) ceil(ps /
+DECODE_TILE_ROWS) tiles.  `tiling`, `live_tiles`, `spans` and
+`stream_smem` mirror the kernel's; `launch_paged` and `plan_paged` (the
+launch plan, kernels/plan.py) serve both paged entries.
 """
 from __future__ import annotations
 
@@ -44,13 +47,16 @@ import torch
 
 from repro_torch.core import softmax as _softmax
 from repro_torch.kernels import build, plan
-from repro_torch.kernels.defaults import PAGED_DECODE_CLUSTER, \
-    PAGED_DECODE_RING, PAGED_DECODE_WARPS, SOFTMAX_DECODE_WARPS
+from repro_torch.kernels.defaults import DECODE_TILE_ROWS, \
+    PAGED_DECODE_CLUSTER, PAGED_DECODE_RING, PAGED_DECODE_WARPS
 
 LIB = "paged_decode"
 KERNEL = "paged_attention"
 # head dims the kernels are instantiated for
 HEAD_DIMS = (32, 64, 128)
+# the most rows of one tile the C entries admit (csrc/decode_common.cuh
+# `pc::kMaxTileRows`): a ring of two such tiles fits at f32, D = 128, R = 16
+MAX_TILE_ROWS = 64
 
 # kernel launches made by `paged_attention_cuda` (a run sets it to 0 and
 # reads it back to show that its decode steps went through the kernel)
@@ -129,7 +135,7 @@ def launch_paged(symbol: str, q, k_pages, v_pages, page_table, lengths,
         err = getattr(lib, symbol)(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), o.data_ptr(), bsz, h,
-            hkv, num_pages, ps, page_table.shape[1], d, SOFTMAX_DECODE_WARPS,
+            hkv, num_pages, ps, page_table.shape[1], d, DECODE_TILE_ROWS,
             float(scale), build.DTYPE_CODE[q.dtype],
             build.current_stream(q.device))
     build.raise_on(lib, LIB, symbol, err)
@@ -147,127 +153,154 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, lengths,
     return o
 
 
-def _span_max(pmax: int) -> int:
-    """The most live pages one block of a cluster takes."""
-    return -(-pmax // PAGED_DECODE_CLUSTER)
+def tiling(ps: int) -> tuple[int, int]:
+    """(rows of a tile, tiles of a page) for pages of `ps` rows, as
+    `pc::Tiling`: min(ps, DECODE_TILE_ROWS) rows, ceil(ps / that) tiles."""
+    tr = min(ps, DECODE_TILE_ROWS)
+    return tr, -(-ps // tr)
 
 
-def _cluster_smem(itemsize: int, d: int, ps: int, pmax: int, group: int,
-                  stages: int) -> int:
-    """Dynamic shared memory of the cluster body, as csrc/paged_decode.cu's
-    `pc::layout`: the ring of `stages` pages of K and V rows (after the
-    stream, the block's G x D f32 acc), the scaled query rows (G x D
-    f32), the scores and probabilities (G x ps f32 each), the warps' page
-    maxima (PAGED_DECODE_WARPS x G f32), the running max by page parity
-    (2 x G), l and the final max (G each), the span's table entries, and
-    an mbarrier per stage."""
-    ring = stages * 2 * ps * d * itemsize
-    acc = group * d * 4
-    end = -(-max(ring, acc) // 16) * 16 + acc + 2 * group * ps * 4 \
-        + (PAGED_DECODE_WARPS + 4) * group * 4 + _span_max(pmax) * 4
-    return -(-end // 8) * 8 + 8 * stages
+def live_tiles(length: int, ps: int, pmax: int) -> list:
+    """The tiles of a cell's first min(length, pmax ps) keys, in order:
+    (page index in the slot's table row, first row in the page, rows)."""
+    tr, sub = tiling(ps)
+    n = max(0, min(int(length), pmax * ps))
+    full = n // ps
+    out = []
+    for t in range(full * sub + -(-(n - full * ps) // tr)):
+        i, r0 = t // sub, t % sub * tr
+        out.append((i, r0, min(tr, ps - r0, n - i * ps - r0)))
+    return out
 
 
-def _cluster_stages(itemsize, d, ps, pmax, group) -> int:
-    """`pc::stages_for`: at most PAGED_DECODE_RING and one per page of the
-    longest span, at least 2, as many as fit."""
-    stages = max(2, min(PAGED_DECODE_RING, _span_max(pmax)))
-    while stages > 2 and _cluster_smem(itemsize, d, ps, pmax, group,
-                                       stages) > plan.MAX_SMEM:
+def spans(count: int) -> list:
+    """Block r's span [first, end) of a cell's `count` tiles, r in [0,
+    PAGED_DECODE_CLUSTER): contiguous spans of ceil(count /
+    PAGED_DECODE_CLUSTER) tiles, the last ones shorter or empty."""
+    n = -(-count // PAGED_DECODE_CLUSTER)
+    return [(min(r * n, count), min((r + 1) * n, count))
+            for r in range(PAGED_DECODE_CLUSTER)]
+
+
+def stream_smem(itemsize: int, d: int, rows: int, ps: int, pmax: int,
+                paged: bool) -> tuple[int, int]:
+    """(stages, dynamic shared memory) of the tile stream, as
+    csrc/decode_common.cuh's `pc::shape_of` and `pc::layout`: a ring of
+    `stages` tiles of K and V rows (after the stream, the block's R x D
+    f32 acc), the scaled query rows (R x D f32), the scores and
+    probabilities (R x tile rows f32 each), the warps' tile maxima
+    (PAGED_DECODE_WARPS x R f32), the running max by tile parity (2 x R),
+    l and the final max (R each), the span's table entries (paged only)
+    and an mbarrier per stage.  Stages: at most PAGED_DECODE_RING and one
+    per tile of the longest span, at least 2, as many as fit."""
+    tr, sub = tiling(ps)
+    span = -(-(pmax * sub) // PAGED_DECODE_CLUSTER)
+    table = span if paged else 0
+
+    def total(stages):
+        ring = stages * 2 * tr * d * itemsize
+        acc = rows * d * 4
+        end = -(-max(ring, acc) // 16) * 16 + acc + 2 * rows * tr * 4 \
+            + (PAGED_DECODE_WARPS + 4) * rows * 4 + table * 4
+        return -(-end // 8) * 8 + 8 * stages
+
+    stages = max(2, min(PAGED_DECODE_RING, span))
+    while stages > 2 and total(stages) > plan.MAX_SMEM:
         stages -= 1
-    return stages
+    return stages, total(stages)
 
 
-def paged_decode_body(dtype: torch.dtype, d: int, ps: int, pmax: int,
-                      group: int) -> str:
-    """The body `paged_decode_fused` runs at these shapes: "cluster" where
-    a ring of two pages fits, else "walk" (`paged_attention` always
-    walks).  A page's rows for one KV head are 16-byte-aligned contiguous
-    bytes at every head dim the launcher admits (32, 64, 128)."""
-    itemsize = torch.tensor([], dtype=dtype).element_size()
-    return ("cluster" if _cluster_smem(itemsize, d, ps, pmax, group, 2)
-            <= plan.MAX_SMEM else "walk")
+def _cell(blk, h: int, rows: int, count_tiles):
+    """(slot, first query row, this block's span of the cell's live
+    tiles, rank) of block `blk`: cell blk // PAGED_DECODE_CLUSTER holds
+    slot b's query rows [h0, h0 + rows)."""
+    cell, rank = divmod(blk[0], PAGED_DECODE_CLUSTER)
+    bi, r = divmod(cell, h // rows)
+    tiles = count_tiles(bi)
+    first, end = spans(len(tiles))[rank]
+    return bi, r * rows, tiles[first:end], rank
+
+
+def stream_accesses(q, rows: int, count_tiles, kv_tiles):
+    """The tile functions of a stream launch's q, o and lengths (a cell's
+    rows of q and o, o written by rank 0) and K/V (kv_tiles(slot, first
+    query row, span, *gathered) -> tiles).  The lengths are the last
+    gathered operand; count_tiles(lengths)(slot) gives the cell's live
+    tiles."""
+    h, d = q.shape[1], q.shape[3]
+
+    def span_of(blk, lengths):
+        return _cell(blk, h, rows, count_tiles(lengths))
+
+    def q_rows(blk, *gathered):
+        bi, h0, _, _ = span_of(blk, gathered[-1])
+        return plan.box((bi, bi + 1), (h0, h0 + rows), (0, 1), (0, d))
+
+    def o_rows(blk, *gathered):
+        # the cluster's rank 0 writes the merged rows
+        return q_rows(blk, *gathered) if blk[0] % PAGED_DECODE_CLUSTER == 0 \
+            else []
+
+    def length(blk, *gathered):
+        bi = span_of(blk, gathered[-1])[0]
+        return plan.box((bi, bi + 1))
+
+    def keys(blk, *gathered):
+        bi, h0, span, _ = span_of(blk, gathered[-1])
+        return kv_tiles(bi, h0, span, *gathered)
+
+    return q_rows, o_rows, length, keys
 
 
 def plan_paged(entry, q, k_pages, v_pages, page_table, lengths,
                scale: float):
-    """`paged_attention` (one block per (slot, query head)) or
-    `paged_decode_fused` (its G rows per (slot, KV head)).  The walk's
-    block stages the slot's live table entries, ceil(min(lengths[b], Pmax
-    ps) / ps) of them, and reads the live rows of each such page.  The
-    cluster body's block r of (slot, KV head) takes the span [r n, min((r
-    + 1) n, live)) of those pages, n = ceil(live / PAGED_DECODE_CLUSTER):
-    its table entries and each page's live rows; rank 0 writes o."""
+    """`paged_attention` (a cell per (slot, query head)) or
+    `paged_decode_fused` (a cell per (slot, KV head), its G rows): the
+    tile stream.  Block r of a cell takes its span of the cell's live
+    tiles (`live_tiles`, `spans`): those tiles' table entries and their
+    live rows of each page; rank 0 writes o."""
     bsz, h, hkv, num_pages, ps, pmax, d = paged_dims(q, k_pages, v_pages,
                                                      page_table, lengths)
     group = h // hkv
-    fused = entry == "paged_decode_fused"
-    rows = group if fused else 1
+    rows = group if entry == "paged_decode_fused" else 1
     code = plan.dtype_code(q.dtype)
-    cluster = fused and paged_decode_body(q.dtype, d, ps, pmax,
-                                          group) == "cluster"
-    ranks = PAGED_DECODE_CLUSTER if cluster else 1
 
-    def slot(blk, lengths):
-        """(slot, first query head, live keys, first page, pages) of a
-        block: the walk's whole slot, or the cluster rank's span."""
-        cell, rank = divmod(blk[0], ranks)
-        bi, r = divmod(cell, h // rows)
-        live = max(0, min(int(lengths[bi]), pmax * ps))
-        pages = -(-live // ps)
-        span = -(-pages // ranks)
-        first = min(rank * span, pages)
-        return bi, r * rows, live, first, min(first + span, pages) - first
+    def count_tiles(lengths):
+        return lambda bi: live_tiles(int(lengths[bi]), ps, pmax)
 
-    def q_rows(blk, page_table, lengths):
-        bi, h0, *_ = slot(blk, lengths)
-        return plan.box((bi, bi + 1), (h0, h0 + rows), (0, 1), (0, d))
-
-    def o_rows(blk, page_table, lengths):
-        # the cluster's rank 0 writes the merged rows
-        return q_rows(blk, page_table, lengths) if blk[0] % ranks == 0 \
-            else []
-
-    def table_row(blk, page_table, lengths):
-        bi, _, _, first, n = slot(blk, lengths)
-        return plan.box((bi, bi + 1), (first, first + n)) if n else []
-
-    def pages(blk, page_table, lengths):
-        bi, h0, live, first, n = slot(blk, lengths)
+    def kv_tiles(bi, h0, span, page_table, lengths):
         hk = h0 // group
         tiles = []
-        for i in range(first, first + n):
+        for i, r0, n in span:
             page = int(page_table[bi, i])
-            tiles += plan.box((page, page + 1), (hk, hk + 1),
-                              (0, min(ps, live - i * ps)), (0, d))
+            tiles += plan.box((page, page + 1), (hk, hk + 1), (r0, r0 + n),
+                              (0, d))
         return tiles
 
-    def length(blk, page_table, lengths):
-        bi = slot(blk, lengths)[0]
-        return plan.box((bi, bi + 1))
+    q_rows, o_rows, length, keys = stream_accesses(q, rows, count_tiles,
+                                                   kv_tiles)
+
+    def table_row(blk, page_table, lengths):
+        bi, _, span, _ = _cell(blk, h, rows, count_tiles(lengths))
+        return plan.box((bi, bi + 1), (span[0][0], span[-1][0] + 1)) \
+            if span else []
 
     accesses = [
         plan.Access("q", "in", plan.shape_of(q), q.dtype, q_rows),
-        plan.Access("k_pages", "in", plan.shape_of(k_pages), q.dtype, pages),
-        plan.Access("v_pages", "in", plan.shape_of(v_pages), q.dtype, pages),
+        plan.Access("k_pages", "in", plan.shape_of(k_pages), q.dtype, keys),
+        plan.Access("v_pages", "in", plan.shape_of(v_pages), q.dtype, keys),
         plan.Access("page_table", "in", plan.shape_of(page_table), plan.I32,
                     table_row),
         plan.Access("lengths", "in", (bsz,), plan.I32, length),
         plan.Access("o", "out", plan.shape_of(q), q.dtype, o_rows)]
-    warps = SOFTMAX_DECODE_WARPS
-    if cluster:
-        itemsize = q.element_size()
-        stages = _cluster_stages(itemsize, d, ps, pmax, group)
-        threads, stage = PAGED_DECODE_WARPS * 32, stages
-        smem = _cluster_smem(itemsize, d, ps, pmax, group, stages)
-    else:
-        threads, stage = warps * 32, None
-        smem = warps * rows * (d + 2) * 4 + pmax * 4
+    stages, smem = stream_smem(q.element_size(), d, rows, ps, pmax, True)
     return plan.make(
-        entry, LIB, (bsz * (h // rows) * ranks,), threads, smem, accesses,
-        (bsz, h, hkv, num_pages, ps, pmax, d, warps, float(scale), code),
-        _SIGNATURE, (bsz, h, hkv, num_pages, ps, pmax, d, warps, code),
-        gathered=("page_table", "lengths"), stage=stage)
+        entry, LIB, (bsz * (h // rows) * PAGED_DECODE_CLUSTER,),
+        PAGED_DECODE_WARPS * 32, smem, accesses,
+        (bsz, h, hkv, num_pages, ps, pmax, d, DECODE_TILE_ROWS, float(scale),
+         code), _SIGNATURE,
+        (bsz, h, hkv, num_pages, ps, pmax, d, DECODE_TILE_ROWS, code),
+        gathered=("page_table", "lengths"), stage=stages)
 
 
 def plan_paged_attention(q, k_pages, v_pages, page_table, lengths,

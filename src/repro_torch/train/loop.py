@@ -10,7 +10,7 @@
     checkpoint yet; `max_retries` consecutive failures re-raise.
 
 Checkpoint save and restore wait for the checkpoint slice (ROADMAP.md
-queue 1 item 14).  The step time is taken on the port's one host clock
+queue 1 item 8).  The step time is taken on the port's one host clock
 around a device synchronize, so it includes the step's device work.
 """
 from __future__ import annotations

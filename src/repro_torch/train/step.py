@@ -15,7 +15,7 @@ batch, step_idx) -> (params, opt_state, metrics):
     model computing in cfg.compute_dtype.
 
 The compressed (int8 error-feedback) step waits for the multi-GPU
-slice (ROADMAP.md queue 1 item 14).
+slice (ROADMAP.md queue 1 item 11).
 """
 from __future__ import annotations
 

@@ -29,8 +29,9 @@ tests/test_torch_gla_q_decode_sm90.py).
     their plain versions at ragged N with G = 1 and 2 and in the shared
     regime, and twice for bit-equal outputs.
 
-The machine with the card has no JAX; there the gpu test runs alone
-(`--noconftest -m gpu`).
+Where JAX is installed the reference runs on the CPU, in f32 (JAX on a
+card computes an f32 dot in TF32 by default); the machine with the card
+has JAX with a CUDA backend, so the pin matters there.
 """
 import functools
 
@@ -40,6 +41,10 @@ import torch
 
 try:
     import jax
+
+    # the reference on the CPU, where an f32 dot is an f32 dot (JAX on a
+    # card computes it in TF32 by default)
+    jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
     from repro.core import chunked as jchunked

@@ -2,15 +2,17 @@
 its split and merge emulated on the CPU against the JAX package, and on
 the card the kernel against its plain version.
 
-Wherever a ring of two pages fits in shared memory, `paged_decode_fused`
-runs csrc/paged_decode.cu's namespace `pc`: a cluster of
-PAGED_DECODE_CLUSTER blocks per (slot, KV head); block r takes the span
-[r n, min((r + 1) n, live)) of the slot's live pages, n = ceil(live /
-PAGED_DECODE_CLUSTER), and streams each page's live K and V rows through
-a ring of 1-D bulk copies; per page it takes one max and one rescale per
-query row (as the Pallas body does) and accumulates P V in f32; rank 0
-then merges the blocks' (m, l, acc) in rank order and divides with the
-guard (a slot of length 0 gives zeros).
+`paged_decode_fused` runs the tile stream of csrc/decode_common.cuh
+(namespace `pc`); at page sizes up to DECODE_TILE_ROWS its tiles are the
+pages (tests/test_torch_decode_tiles_sm90.py holds larger pages and the
+other two entries): a cluster of PAGED_DECODE_CLUSTER blocks per (slot,
+KV head); block r takes the span [r n, min((r + 1) n, live)) of the
+slot's live pages, n = ceil(live / PAGED_DECODE_CLUSTER), and streams
+each page's live K and V rows through a ring of 1-D bulk copies; per
+page it takes one max and one rescale per query row (as the Pallas body
+does) and accumulates P V in f32; rank 0 then merges the blocks' (m, l,
+acc) in rank order and divides with the guard (a slot of length 0 gives
+zeros).
 
   * plan tests on meta tensors, at G = 1 and 4 and page sizes 16 and 5:
     the geometry, the spans cover [0, live pages) once, one writer per o
@@ -23,8 +25,10 @@ guard (a slot of length 0 gives zeros).
   * a `gpu`-marked test (skips without a card): the kernel against its
     plain version, twice for equal bits.
 
-~3 s on the CPU.  The machine with the card has no JAX; there the gpu
-test runs alone (`--noconftest -m gpu`).
+~3 s on the CPU.  Where JAX is installed the reference runs on the
+CPU, in f32 (JAX on a card computes an f32 dot in TF32 by default, which
+alone exceeds the 1e-5 limit); the machine with the card has JAX with a
+CUDA backend, so the pin matters there.
 """
 import numpy as np
 import pytest
@@ -34,6 +38,9 @@ try:
     import functools
 
     import jax
+
+    # the reference on the CPU, where an f32 dot is an f32 dot
+    jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
     from repro.kernels import ops as jops
@@ -44,6 +51,7 @@ try:
 except ImportError:   # the port alone, on the machine with the card
     jnp = None
 
+from repro_torch.check import bounds
 from repro_torch.kernels import decode_fused as tdf
 from repro_torch.kernels import paged_attention as tpg
 from repro_torch.kernels import plan
@@ -93,7 +101,7 @@ def test_cluster_plan(g):
     d, hkv = 128, 16 // g
     for ps in (16, 5):
         pmax = -(-544 // ps)
-        assert tpg.paged_decode_body(BF16, d, ps, pmax, g) == "cluster"
+        assert tpg.tiling(ps) == (ps, 1)   # a page is a tile
         p = _plan(8, 16, hkv, ps, pmax)
         span = -(-pmax // C)
         stages = min(PAGED_DECODE_RING, span)
@@ -260,8 +268,8 @@ def test_cuda_paged_cluster_matches_plain():
             q, kp, vp, table, lens = (torch.from_numpy(x).to(dev)
                                       for x in case)
             q, kp, vp = (x.to(dtype) for x in (q, kp, vp))
-            assert tpg.paged_decode_body(dtype, 128, ps, pmax,
-                                         g) == "cluster"
+            p = tdf.plan_paged_decode_fused(q, kp, vp, table, lens)
+            assert bounds.c_plan(p)[:5] == p.grid + (p.threads, p.smem)
             o1 = tdf.paged_decode_fused_cuda(q, kp, vp, table, lens)
             o2 = tdf.paged_decode_fused_cuda(q, kp, vp, table, lens)
             torch.cuda.synchronize()
