@@ -120,6 +120,27 @@ fails the run by raising (no result line is printed then):
                configs on the card against the same weights on the CPU
                (mamba2 also its loss and every grad, through the SSD
                kernels' smoke instantiation)
+  4b. preempt — priority preemption at full width pythia-1.4b, one run per
+               eviction policy, each traced by a ServeTracer: background
+               priority-0 requests fill the slots, then (once every slot
+               holder decodes and has emitted 8 tokens) 2 priority-5
+               requests of 256 random prompt tokens, 16 new, arrive:
+               linear and softmax contiguous (phase 4's engines and
+               prompts, `snapshot` x 2: every request's tokens bit-equal
+               to phase 4's run), softmax paged (phase 4's paged engine,
+               its first 8 prompts, `recompute` x 2: each victim's KV rows
+               after the re-prefill within RECOMPUTE_REL of a copy taken
+               at eviction, per layer), gla paged with 4 slots and 7
+               state pages (`page_keep` x 2: tokens bit-equal to the same
+               engine without the urgent requests) and gla paged as phase
+               4's with 1 urgent request (`recompute` x 1: the f32 state
+               page against its eviction copy); each urgent request
+               finishes before its victims, every request with its full
+               budget, every page back, the path's decode kernel (and
+               flash_fwd for every softmax window) launched every step;
+               the linear run's tracer summary, the device time of one
+               snapshot and one restore per policy, and the urgent
+               requests' TTFT against a run with them at priority 0 (FIFO)
   5. train   — full width pythia-1.4b (f32 params, bf16 compute, the
                config's remat) on SyntheticLM batches of 2 x 8192 tokens
                (seed 0), once per backend (linear, softmax, gla), and
@@ -252,6 +273,13 @@ UNFUSED_PROMPT, UNFUSED_NEW = 128, 8
 # allocatable pages and the sink, so at most 4 of the 8 slots decode and
 # the other requests wait for pages
 GLA_PAGED_PAGES = 5
+# preemption at full width (phase_serve_preempt): 2 priority-5 requests of
+# 256 random prompt tokens (seed 1), 16 new each, arrive once every slot
+# holder decodes and has emitted 8 tokens; the page_keep run has 4 slots
+# and a budget of 7 state pages (6 allocatable + the sink) for 4
+# background requests, so slots block the urgent requests, pages do not
+URGENT_PRIORITY, URGENT_PROMPT, URGENT_NEW, URGENT_AFTER = 5, 256, 16, 8
+KEEP_SLOTS, KEEP_PAGES = 4, 7
 # train path: pythia-1.4b at full width, the paper's §5.2 length
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8192, 4
 LA_SHAPE = dict(b=2, h=16, hkv=16, n=8192, d=128)
@@ -271,6 +299,15 @@ BF16_REL = 2.0 ** -7    # bf16 outputs: one bf16 rounding step
 # residual stream over 24 layers (2^-8 per rounding, compounding)
 LOGITS_REL = 2.0 ** -4
 SMOKE_REL = 1e-4        # f32 smoke logits, card vs CPU
+# a recompute victim's KV rows (paged softmax) or f32 state page (paged
+# GLA) after its re-prefill against a copy taken at eviction, relative
+# to max |value| per layer: the copy was built by prefill windows and then
+# decode steps (the tile stream; the state stream), the re-prefill builds
+# the same positions by windows alone (flash_fwd; the plain chunked scan),
+# so each token decoded before the eviction reaches every layer through
+# other bf16 roundings, compounding over the 24 layers of the bf16
+# residual stream as in the logits comparisons
+RECOMPUTE_REL = LOGITS_REL
 # la_fwd / la_bwd in f32 against their plain versions: the kernels sum
 # token by token over up to 8192 tokens, the plain scans chunk by
 # chunk, so the f32 sums round in different orders
@@ -1479,7 +1516,8 @@ def _config(backend):
 
 def phase_serve(torch, np, backend):
     """The engine at full width with `backend`'s mixer (pythia-1.4b, or
-    mamba2-2.7b for "mamba2"); returns (record, the run's launches)."""
+    mamba2-2.7b for "mamba2"); returns (record, the run's launches, rid
+    -> generated tokens)."""
     from repro_torch.models import model as mdl
     from repro_torch.serve.engine import Engine, Request
 
@@ -1564,6 +1602,8 @@ def phase_serve(torch, np, backend):
         tok = lk.argmax(-1)
 
     ttft = [first[r] for r in range(SLOTS)]
+    tokens_of = {rid: list(engine.request(rid).generated)
+                 for rid in range(SLOTS)}
     record = {
         "arch": cfg.name, "attention_backend": backend,
         "compute_dtype": cfg.compute_dtype,
@@ -1585,7 +1625,7 @@ def phase_serve(torch, np, backend):
     }
     del engine, cache_k, cache_t
     torch.cuda.empty_cache()
-    return record, launches
+    return record, launches, tokens_of
 
 
 def _steady_decode(torch, mdl, params, cfg, cache, tokens, label):
@@ -1692,7 +1732,8 @@ def _serve_paged_logits(torch, np, params, cfg, table, what):
 
 def phase_serve_paged(torch, np):
     """The softmax baseline served from a paged KV arena at full width;
-    returns (record, the fused run's launches, the unfused run's)."""
+    returns (record, the fused run's launches, the unfused run's, rid ->
+    the fused run's generated tokens)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model as mdl
     from repro_torch.serve.cache import page_bytes
@@ -1762,6 +1803,8 @@ def phase_serve_paged(torch, np):
                              f"reserved {reserved} (freed pages reused?)")
     if not waited:
         raise AssertionError("no admission waited for pages")
+    tokens_of = {rid: list(engine.request(rid).generated)
+                 for rid in range(PAGED_REQUESTS)}
 
     params = engine.params
     del engine
@@ -1832,12 +1875,12 @@ def phase_serve_paged(torch, np):
                     "kernel_launches": launches_unfused}}
     del engine, params
     torch.cuda.empty_cache()
-    return record, launches, launches_unfused
+    return record, launches, launches_unfused, tokens_of
 
 
 def phase_serve_gla_paged(torch, np):
     """The GLA backend served from a paged state arena at full width;
-    returns (record, the run's launches)."""
+    returns (record, the run's launches, rid -> generated tokens)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model as mdl
     from repro_torch.serve.cache import state_page_bytes
@@ -1911,6 +1954,8 @@ def phase_serve_gla_paged(torch, np):
                              f"{pages_of} (one per request, reused?)")
     if not waited:
         raise AssertionError("no admission waited for state pages")
+    tokens_of = {rid: list(engine.request(rid).generated)
+                 for rid in range(PAGED_REQUESTS)}
 
     params = engine.params
     del engine
@@ -1955,7 +2000,345 @@ def phase_serve_gla_paged(torch, np):
         "logits_max_abs_err": logit_errs}
     del params
     torch.cuda.empty_cache()
-    return record, launches
+    return record, launches, tokens_of
+
+
+def _paged_prompts(np, vocab):
+    """The 16 prompts of phase_serve_paged and phase_serve_gla_paged."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(PAGED_PROMPT_LENS[0], PAGED_PROMPT_LENS[1] + 1,
+                        size=PAGED_REQUESTS)
+    return [rng.integers(3, vocab, size=int(n)).tolist() for n in lens]
+
+
+def _layer_rows(torch, engine, pages, pos):
+    """One request's own rows of every layer's paged arena, copied: its
+    first `pos` KV rows (k, v as (Hkv, pos, hd)) or its state page (s,
+    p)."""
+    idx = torch.tensor(pages, dtype=torch.long, device="cuda")
+    out = []
+    for layer in engine.cache["blocks"]:
+        if hasattr(layer, "k_pages"):
+            out.append(tuple(
+                t[idx].transpose(0, 1).flatten(1, 2)[:, :pos].clone()
+                for t in (layer.k_pages, layer.v_pages)))
+        else:
+            out.append((layer.s_pages[idx[0]].clone(),
+                        layer.p_pages[idx[0]].clone()))
+    return out
+
+
+def _preempt_tracer(torch, engine_ref):
+    """A ServeTracer that copies a recompute victim's rows at eviction
+    (the pages it held before the step, `tables`) and, once its re-prefill
+    has run, holds its new rows against that copy: per layer max |new -
+    old| over max |old|, within RECOMPUTE_REL."""
+    from repro_torch.obs import ServeTracer
+
+    class Probe(ServeTracer):
+        def __init__(self):
+            super().__init__()
+            self.tables, self.evicted, self.rebuilt = {}, {}, {}
+
+        def request_preempted(self, rid, slot, policy):
+            super().request_preempted(rid, slot, policy)
+            if policy == "recompute":
+                engine = engine_ref[0]
+                pos = int(engine.cache["pos"][slot])
+                self.evicted[rid] = (pos, _layer_rows(
+                    torch, engine, self.tables[rid], pos))
+
+        def before_step(self, engine):
+            self.tables = {r.rid: engine.pool.table(r.rid)
+                           for _, r in engine.scheduler.active()
+                           if engine.pool.holds(r.rid)}
+
+        def after_step(self, engine, label):
+            """Compare each victim whose re-prefill just completed (its
+            final window runs after the step's decode, so no decode step
+            has touched its rows yet)."""
+            for slot, req in engine.scheduler.active():
+                rid = req.rid
+                if rid not in self.evicted or rid in self.rebuilt \
+                        or req.state.value != "decoding":
+                    continue
+                pos, old = self.evicted[rid]
+                if int(engine.cache["pos"][slot]) != pos:
+                    raise AssertionError(f"{label} rid {rid}: position "
+                                         f"{int(engine.cache['pos'][slot])}"
+                                         f" after the re-prefill, {pos} at "
+                                         f"eviction")
+                new = _layer_rows(torch, engine, engine.pool.table(rid), pos)
+                errs = []
+                for layer, (a_new, a_old) in enumerate(zip(new, old)):
+                    for name, x, y in zip("ab", a_new, a_old):
+                        err, scale = rel_err(x, y)
+                        errs.append(err / scale)
+                        if not err <= RECOMPUTE_REL * scale:
+                            raise AssertionError(
+                                f"{label} rid {rid} layer {layer} "
+                                f"{name}: re-prefill differs from the "
+                                f"eviction copy by {err} > "
+                                f"{RECOMPUTE_REL} * {scale}")
+                self.rebuilt[rid] = {"positions": pos,
+                                     "max_rel_err_per_layer": errs}
+
+    return Probe()
+
+
+def _preempt_run(torch, label, make_engine, background, urgent, priority,
+                 want):
+    """Serve `background` (rid -> prompt, priority 0, MAX_NEW new each)
+    on a traced engine and, once every request that holds a slot decodes
+    and has emitted URGENT_AFTER tokens, submit `urgent` (rid -> prompt,
+    URGENT_NEW new each) at `priority`; drain.  `want`: the kernels the
+    run must launch ("decode": name, "flash": whether every prefill
+    window runs flash_fwd).  Returns (engine, tracer, finish order, wall
+    s, launches)."""
+    from repro_torch.serve.engine import Request
+
+    engine_ref = [None]
+    tracer = _preempt_tracer(torch, engine_ref)
+    engine = engine_ref[0] = make_engine(tracer)
+    free0 = None if engine.pool is None else engine.pool.free_pages
+    for rid, prompt in background.items():
+        engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW))
+    reset_launches()
+    t0 = time.perf_counter()
+    order, arrived = [], False
+    while engine.scheduler.has_work():
+        held = [r for _, r in engine.scheduler.active()]
+        if not arrived and held and all(
+                r.state.value == "decoding"
+                and len(r.generated) >= URGENT_AFTER for r in held):
+            for rid, prompt in urgent.items():
+                engine.submit(Request(rid=rid, prompt=prompt,
+                                      max_new_tokens=URGENT_NEW,
+                                      priority=priority))
+            arrived = True
+        if engine.pool is not None:
+            tracer.before_step(engine)
+        order += [o.rid for o in engine.step() if o.finished]
+        tracer.after_step(engine, label)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if urgent and not arrived:
+        raise AssertionError(f"{label}: the urgent requests never arrived")
+    layers = engine.cfg.num_layers
+    windows = sum(len(r.prefill_windows) for r in tracer.records())
+    expect = {want["decode"]: layers * engine.decode_steps}
+    if want.get("flash"):
+        expect["flash_fwd"] = layers * windows
+    expect_launches(label, launches, expect)
+    for rid in list(background) + list(urgent):
+        n = URGENT_NEW if rid in urgent else MAX_NEW
+        toks = engine.request(rid).generated
+        if len(toks) != n or not all(0 <= t < engine.cfg.vocab_size
+                                     for t in toks):
+            raise AssertionError(f"{label} request {rid} generated {toks}")
+    if engine.pool is not None and engine.pool.free_pages != free0:
+        raise AssertionError(f"{label}: {engine.pool.free_pages} free pages "
+                             f"after the drain, {free0} before")
+    if engine._suspended or engine._jobs:
+        raise AssertionError(f"{label}: left suspended or mid-prefill")
+    return engine, tracer, order, wall, launches
+
+
+def _slot_copy_times(torch, engine):
+    """Device ms of one `snapshot_slot` and one `restore_slot` of slot 0
+    of the engine's cache (drained), by CUDA graph replays in turns, and
+    the bytes a snapshot copies."""
+    from repro_torch.serve.cache import restore_slot, slot_leaves, \
+        snapshot_slot
+    rows = slot_leaves(engine.cfg, engine.max_len)
+    snap = snapshot_slot(engine.cache, rows, 0)
+    snap_ms, restore_ms = _graph_time_pair(
+        torch, lambda: snapshot_slot(engine.cache, rows, 0),
+        lambda: restore_slot(engine.cache, snap, rows, 0), launches=20)
+    return {"bytes": sum(t.numel() * t.element_size() for t in snap),
+            "tensors": len(snap), "snapshot_ms": min(snap_ms),
+            "snapshot_ms_runs": snap_ms, "restore_ms": min(restore_ms),
+            "restore_ms_runs": restore_ms,
+            "timed_by": "CUDA graph replays of 20, in turns"}
+
+
+def phase_serve_preempt(torch, np, baselines, smi):
+    """Priority preemption at full width, one run per eviction policy
+    (the module docstring's phase 4b); returns (record, the launches of
+    every run)."""
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.cache import page_bytes, state_page_bytes
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.paging import PagedAdmission
+
+    vocab = _config("linear").vocab_size
+    contiguous = {rid: p.tolist() for rid, p in enumerate(
+        np.random.default_rng(0).integers(3, vocab, size=(SLOTS,
+                                                          PROMPT_LEN)))}
+    paged = dict(enumerate(_paged_prompts(np, vocab)))
+    urgent = {100 + i: p.tolist() for i, p in enumerate(
+        np.random.default_rng(1).integers(3, vocab,
+                                          size=(2, URGENT_PROMPT)))}
+    record, all_launches = {"card": smi}, []
+
+    def policies(tracer):
+        return [p for r in tracer.records() for _, _, p in r.preempt_events]
+
+    def victims(tracer):
+        return [r.rid for r in tracer.records() if r.preempt_events]
+
+    def check(label, engine, tracer, order, want_policies, urgent_rids):
+        got = policies(tracer)
+        if got != want_policies or engine.preemption_count != len(got):
+            raise AssertionError(f"{label}: policies {got}, "
+                                 f"preemption_count "
+                                 f"{engine.preemption_count}; want "
+                                 f"{want_policies}")
+        for u in urgent_rids:
+            for v in victims(tracer):
+                if order.index(u) > order.index(v):
+                    raise AssertionError(f"{label}: urgent {u} finished "
+                                         f"after victim {v} ({order})")
+
+    def same_tokens(engine, rids, baseline):
+        return [rid for rid in rids
+                if engine.request(rid).generated == baseline[rid]]
+
+    def ttft(tracer, rids):
+        recs = {r.rid: r for r in tracer.records()}
+        return [recs[rid].ttft_s for rid in rids]
+
+    def run(label, make_engine, background, want_policies, want, baseline,
+            identical, urgent_in=urgent):
+        torch.cuda.reset_peak_memory_stats()
+        engine, tracer, order, wall, launches = _preempt_run(
+            torch, label, make_engine, background, urgent_in, URGENT_PRIORITY,
+            want)
+        all_launches.append(launches)
+        check(label, engine, tracer, order, want_policies, urgent_in)
+        vic = victims(tracer)
+        same = same_tokens(engine, background, baseline)
+        if identical and same != list(background):
+            raise AssertionError(
+                f"{label}: tokens of {sorted(set(background) - set(same))} "
+                f"differ from the uninterrupted run's (victims {vic})")
+        recs = {r.rid: r for r in tracer.records()}
+        rec = {"policies": policies(tracer), "victims": vic,
+               "finish_order": order, "wall_s": wall,
+               "decode_steps": engine.decode_steps,
+               "kernel_launches": launches,
+               "victims_tokens_equal_uninterrupted": len(
+                   [r for r in vic if r in same]),
+               "background_tokens_equal_uninterrupted": len(same),
+               "urgent_ttft_s": ttft(tracer, urgent_in),
+               "victim_preempted_s": {r: recs[r].preempted_s for r in vic},
+               "rebuilt": tracer.rebuilt,
+               "max_memory_allocated_bytes":
+                   torch.cuda.max_memory_allocated()}
+        if set(tracer.rebuilt) != set(tracer.evicted):
+            raise AssertionError(f"{label}: re-prefills compared "
+                                 f"{sorted(tracer.rebuilt)} of "
+                                 f"{sorted(tracer.evicted)}")
+        if "recompute" in rec["policies"]:
+            # the resume's cost: the victims' re-prefill windows (host
+            # clock around windows that end in a synchronize)
+            rec["reprefill_s"] = {
+                r: sum(w1 - w0 for w0, w1, _ in recs[r].prefill_windows
+                       if w0 >= recs[r].resume_events[0][0]) for r in vic}
+        else:
+            rec["slot_copy"] = _slot_copy_times(torch, engine)
+        log(f"[serve preempt {label}] {rec} ({smi})")
+        return engine, tracer, rec
+
+    def contiguous_engine(cfg, params):
+        return lambda tracer: Engine(
+            cfg, params, max_slots=SLOTS, max_len=MAX_LEN,
+            prefill_chunk=PREFILL_CHUNK, eos_id=-1, tracer=tracer,
+            device="cuda")
+
+    def paged_engine(cfg, params, budget, slots):
+        policy = PagedAdmission(budget, page_size=PAGE_SIZE,
+                                max_slots=slots)
+        return lambda tracer: Engine(
+            cfg, params, max_len=MAX_LEN, policy=policy,
+            prefill_chunk=PREFILL_CHUNK, eos_id=-1, tracer=tracer,
+            device="cuda")
+
+    # linear: snapshot; the same traffic with the urgent requests at
+    # priority 0 (FIFO, no preemption) for their queued TTFT
+    cfg = _config("linear")
+    params = mdl.init_params(cfg, seed=0, device="cuda")
+    engine, tracer, rec = run("linear", contiguous_engine(cfg, params),
+                              contiguous, ["snapshot"] * 2,
+                              {"decode": "la_decode_fused"},
+                              baselines["linear"], identical=True)
+    rec["summary"] = tracer.summary()
+    log(f"[serve preempt linear] traced summary {rec['summary']}; "
+        f"preempted_s {rec['victim_preempted_s']} ({smi})")
+    del engine
+    engine, fifo_tr, order, _, launches = _preempt_run(
+        torch, "linear fifo", contiguous_engine(cfg, params), contiguous,
+        urgent, 0, {"decode": "la_decode_fused"})
+    all_launches.append(launches)
+    if engine.preemption_count:
+        raise AssertionError(f"fifo: {engine.preemption_count} preemptions")
+    rec["urgent_ttft_fifo_s"] = ttft(fifo_tr, urgent)
+    log(f"[serve preempt linear] urgent TTFT {rec['urgent_ttft_s']} s "
+        f"(priority {URGENT_PRIORITY}, preempting) against "
+        f"{rec['urgent_ttft_fifo_s']} s queued FIFO at priority 0 ({smi})")
+    record["linear"] = rec
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # softmax: snapshot (contiguous), recompute (paged KV, its first 8
+    # prompts)
+    cfg = _config("softmax")
+    params = mdl.init_params(cfg, seed=0, device="cuda")
+    engine, _, record["softmax"] = run(
+        "softmax", contiguous_engine(cfg, params), contiguous,
+        ["snapshot"] * 2, {"decode": "softmax_decode_fused", "flash": True},
+        baselines["softmax"], identical=True)
+    del engine
+    engine, _, record["softmax_paged"] = run(
+        "softmax_paged",
+        paged_engine(cfg, params, PAGED_PAGES * page_bytes(cfg, PAGE_SIZE),
+                     SLOTS),
+        {rid: paged[rid] for rid in range(SLOTS)}, ["recompute"] * 2,
+        {"decode": "paged_decode_fused", "flash": True},
+        baselines["softmax_paged"], identical=False)
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # gla: page_keep (slots block, pages do not; its uninterrupted run is
+    # the same engine without the urgent requests), recompute (pages
+    # block: phase_serve_gla_paged's engine, 1 urgent request)
+    cfg = _config("gla")
+    params = mdl.init_params(cfg, seed=0, device="cuda")
+    keep = paged_engine(cfg, params, KEEP_PAGES * state_page_bytes(cfg),
+                        KEEP_SLOTS)
+    background = {rid: paged[rid] for rid in range(KEEP_SLOTS)}
+    engine, _, _, _, launches = _preempt_run(
+        torch, "gla_page_keep uninterrupted", keep, background, {}, 0,
+        {"decode": "gla_decode_fused"})
+    all_launches.append(launches)
+    uninterrupted = {rid: list(engine.request(rid).generated)
+                     for rid in background}
+    del engine
+    engine, _, record["gla_page_keep"] = run(
+        "gla_page_keep", keep, background, ["page_keep"] * 2,
+        {"decode": "gla_decode_fused"}, uninterrupted, identical=True)
+    del engine
+    engine, _, record["gla_page_blocked"] = run(
+        "gla_page_blocked",
+        paged_engine(cfg, params, GLA_PAGED_PAGES * state_page_bytes(cfg),
+                     SLOTS),
+        background, ["recompute"], {"decode": "gla_decode_fused"},
+        baselines["gla_paged"], identical=False,
+        urgent_in={100: urgent[100]})
+    del engine, params
+    torch.cuda.empty_cache()
+    return record, all_launches
 
 
 def phase_smoke_reference(torch, arch="pythia-1.4b"):
@@ -2777,8 +3160,24 @@ def phase_timing_softmax(torch, ptxas):
         "library": "scaled_dot_product_attention(is_causal=True) "
                    "backward (dq, dk, dv) on a retained graph",
         **_bound(bwd_bytes, bwd_flops, BF16_TC_FLOP_PER_S)}
-    for name in FLASH_BWD:
+    for name in ("flash_bwd_q", "flash_bwd_kv"):
         out[name]["library_ms"] = None
+    # delta = rowsum(dO o O) in f32 is one PyTorch call: vecdot of the two
+    # cast to f32 (casts included), in turns with the kernel, in runs of
+    # 50 (each call moves >= 134 MB, so the loop keeps the card busy)
+    def vecdot():
+        return torch.linalg.vecdot(do.float(), o.float(), dim=-1)
+
+    check_close("flash_bwd_delta (cuda) vs vecdot(dO, O) in f32",
+                fl.flash_bwd_delta_cuda(o, do), vecdot(), SOFTMAX_F32_REL)
+    kern, lib = _time_pair(torch, vecdot,
+                           lambda: fl.flash_bwd_delta_cuda(o, do), reps=50,
+                           warm=3)
+    out["flash_bwd_delta"].update(
+        library_ms=min(lib), library_ms_runs=lib,
+        in_turns_with_library_ms_runs=kern,
+        library="torch.linalg.vecdot(dO.float(), O.float(), dim=-1), "
+                "casts included, in turns with the kernel (runs of 50)")
     for name in ("flash_fwd", "flash_bwd_q", "flash_bwd_kv"):
         rec = out[name]
         rec["tflop_per_s"] = rec["flops"] / rec["ms"] / 1e9
@@ -2794,10 +3193,9 @@ def phase_timing_softmax(torch, ptxas):
     for name in ("flash_fwd", *FLASH_BWD, "flash_bwd"):
         log(f"[timing] {name} B={b} H={h} Hkv={hkv} N={n} D={d} bf16: "
             f"{out[name]}")
-    log("[timing] flash_bwd_delta / flash_bwd_q / flash_bwd_kv: "
-        "library_ms null each: no single PyTorch call computes delta, dq "
-        "or (dk, dv) alone; the whole backward against SDPA's is under "
-        "flash_bwd")
+    log("[timing] flash_bwd_q / flash_bwd_kv: library_ms null each: no "
+        "single PyTorch call computes dq or (dk, dv) alone; the whole "
+        "backward against SDPA's is under flash_bwd")
     return out
 
 
@@ -3190,13 +3588,19 @@ def main() -> int:
     paged_errs = phase_kernel_paged(torch)
     gla_errs = phase_kernel_gla(torch)
     ssd_errs = phase_kernel_ssd(torch)
-    serve, serve_launches = phase_serve(torch, np, "linear")
-    serve_sm, serve_sm_launches = phase_serve(torch, np, "softmax")
-    serve_pg, serve_pg_launches, serve_pgu_launches = phase_serve_paged(
+    serve, serve_launches, tokens = phase_serve(torch, np, "linear")
+    serve_sm, serve_sm_launches, tokens_sm = phase_serve(torch, np,
+                                                         "softmax")
+    serve_pg, serve_pg_launches, serve_pgu_launches, tokens_pg = \
+        phase_serve_paged(torch, np)
+    serve_gla, serve_gla_launches, _ = phase_serve(torch, np, "gla")
+    serve_glp, serve_glp_launches, tokens_glp = phase_serve_gla_paged(
         torch, np)
-    serve_gla, serve_gla_launches = phase_serve(torch, np, "gla")
-    serve_glp, serve_glp_launches = phase_serve_gla_paged(torch, np)
-    serve_m2, serve_m2_launches = phase_serve(torch, np, "mamba2")
+    serve_pre, serve_pre_launches = phase_serve_preempt(
+        torch, np, {"linear": tokens, "softmax": tokens_sm,
+                    "softmax_paged": tokens_pg, "gla_paged": tokens_glp},
+        smi)
+    serve_m2, serve_m2_launches, _ = phase_serve(torch, np, "mamba2")
     smoke_errs = {arch: phase_smoke_reference(torch, arch)
                   for arch in ("pythia-1.4b", "mamba2-2.7b")}
     torch.cuda.empty_cache()
@@ -3216,8 +3620,8 @@ def main() -> int:
     # run left it at 0, expect_launches checked)
     runs = (serve_launches, serve_sm_launches, serve_pg_launches,
             serve_pgu_launches, serve_gla_launches, serve_glp_launches,
-            serve_m2_launches, train_launches, train_sm_launches,
-            train_gla_launches, train_m2_launches)
+            *serve_pre_launches, serve_m2_launches, train_launches,
+            train_sm_launches, train_gla_launches, train_m2_launches)
     launches = {k: sum(r[k] for r in runs) for k in KERNELS}
     # the fixture's: those of the check path
     launches["oob_blocked_sum"] = check_launches["oob_blocked_sum"]
@@ -3246,6 +3650,7 @@ def main() -> int:
     print(json.dumps({"serve": serve, "serve_softmax": serve_sm,
                       "serve_softmax_paged": serve_pg,
                       "serve_gla": serve_gla, "serve_gla_paged": serve_glp,
+                      "serve_preempt": serve_pre,
                       "serve_mamba2": serve_m2,
                       "train": train, "train_softmax": train_sm,
                       "train_gla": train_gla, "train_mamba2": train_m2,

@@ -21,8 +21,17 @@ tokens for softmax, one recurrent-state page per request for gla (the
 token count is then ignored).  With `--budget-mb` the budget buys the
 arena (PagedAdmission: requests admit by the pages they actually need),
 otherwise `--num-pages` (or a worst-case default) sizes it.
+`--kernel` picks the kernel impl of the port's registry for the engine
+(torch, cuda or ref; default: cuda on a card, torch on the CPU).
 Prints one JSON record, with a `paging` record (page stats and
 `peak_pages_in_use`) when paged, and writes it to --json-out.
+
+Tracing: `--trace-out` installs a repro_torch.obs ServeTracer and writes
+the Chrome trace-event JSON (open it in Perfetto, or `python -m
+repro_torch.obs report trace.json`); `--metrics-json` writes the
+Counter/Gauge/Histogram registry.  Either flag also puts the latency
+summary (ttft / inter-token p50 and p99, queue wait, occupancy,
+preemptions) into the record as `latency`.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.kernels import ops as _ops
 from repro_torch.mixers import get_backend, resolve_backend_name
 from repro_torch.models import model as mdl
+from repro_torch.obs import ServeTracer
 from repro_torch.serve.cache import per_slot_bytes
 from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.paging import PagedAdmission
@@ -53,6 +63,9 @@ def main(argv=None):
     ap.add_argument("--backend", default=None,
                     help="attention backend (linear: the paper's; gla: "
                          "its decay-gated variant; softmax: the baseline)")
+    ap.add_argument("--kernel", default=None,
+                    help="kernel impl for the engine (torch|cuda|ref; "
+                         "default auto: cuda on a card, torch on the CPU)")
     ap.add_argument("--budget-mb", type=float, default=None,
                     help="ByteBudget admission instead of fixed slots "
                          "(with --page-size: PagedAdmission)")
@@ -72,6 +85,13 @@ def main(argv=None):
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--json-out", default=None,
                     help="also write the result record to this path")
+    ap.add_argument("--trace-out", default=None,
+                    help="trace requests through repro_torch.obs and write "
+                         "the Chrome trace-event JSON here (`python -m "
+                         "repro_torch.obs report` reads its records)")
+    ap.add_argument("--metrics-json", default=None,
+                    help="write the repro_torch.obs metrics registry "
+                         "(counters, gauges, histograms) here")
     ap.add_argument("--full", action="store_true",
                     help="full-width config instead of the smoke one")
     ap.add_argument("--device", default="cuda",
@@ -101,9 +121,11 @@ def main(argv=None):
         policy = FixedSlots(args.slots)
         page_kwargs = {"page_size": args.page_size,
                        "num_pages": args.num_pages}
+    tracer = ServeTracer() if args.trace_out or args.metrics_json else None
     engine = Engine(cfg, params, max_len=args.max_len, policy=policy,
-                    prefill_chunk=args.prefill_chunk, device=args.device,
-                    **page_kwargs)
+                    prefill_chunk=args.prefill_chunk,
+                    kernel_backend=args.kernel, tracer=tracer,
+                    device=args.device, **page_kwargs)
     del params   # the engine keeps its compute-dtype copy
 
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
@@ -141,6 +163,13 @@ def main(argv=None):
     if engine.pool is not None:
         record["paging"] = dict(engine.page_stats(),
                                 peak_pages_in_use=peak_pages)
+    if tracer is not None:
+        record["latency"] = tracer.summary()
+        if args.trace_out:
+            tracer.export_chrome_trace(args.trace_out)
+        if args.metrics_json:
+            with open(args.metrics_json, "w") as f:
+                json.dump(tracer.metrics.to_json(), f, indent=2)
     print(json.dumps(record))
     if args.json_out:
         with open(args.json_out, "w") as f:

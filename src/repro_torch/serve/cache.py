@@ -1,8 +1,11 @@
-"""Serving-cache accounting: exact byte counts of the decode caches.
+"""Serving-cache accounting and one slot's rows of the batched cache.
 
 Port of `repro/serve/cache.py`'s `cache_bytes`, `per_slot_bytes`,
 `state_page_bytes` and `page_bytes`, the units of the ByteBudget and
-PagedAdmission policies.
+PagedAdmission policies, and of the engine's slot addressing
+(`_cache_batch_dims`, `snap_fn` and `restore_fn` of
+`repro/serve/engine.py`): `slot_leaves`, `snapshot_slot` and
+`restore_slot`, which preemption uses to evict and restore a victim.
 For a context of length S the softmax backend needs O(S * Hkv * hd) KV
 bytes per layer and slot, the paper's linear backend an O(Hkv * Dk *
 (Dv+1)) state whatever S.  `cache_bytes` builds the model's own
@@ -15,7 +18,7 @@ from __future__ import annotations
 from repro_torch.mixers.base import resolve_backend_name
 from repro_torch.models import model as mdl
 from repro_torch.models.common import dtype_of
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, named_leaves
 
 
 def cache_bytes(cfg, batch: int, max_len: int) -> int:
@@ -52,3 +55,43 @@ def page_bytes(cfg, page_size: int) -> int:
         return state_page_bytes(cfg)
     return (2 * page_size * cfg.num_kv_heads * cfg.resolved_head_dim
             * dtype_of(cfg.compute_dtype).itemsize * cfg.num_layers)
+
+
+def slot_leaves(cfg, max_len: int) -> list[bool]:
+    """Per leaf of the model's cache (in `tree.leaves` order): whether it
+    holds rows of its own for every slot, found by growing the batch
+    from 1 to 2 on the meta device.  Those leaves carry the slot in dim
+    0; the others are the paged arenas, shared by every slot."""
+    one = named_leaves(mdl.init_cache(cfg, 1, max_len, device="meta"))
+    two = leaves(mdl.init_cache(cfg, 2, max_len, device="meta"))
+    out = []
+    for (path, a), b in zip(one, two):
+        if a.shape == b.shape:
+            out.append(False)
+        elif a.shape[1:] == b.shape[1:] and (a.shape[0], b.shape[0]) \
+                == (1, 2):
+            out.append(True)
+        else:
+            raise ValueError(f"cache leaf {path}: {tuple(a.shape)} at one "
+                             f"slot, {tuple(b.shape)} at two; the slot "
+                             f"must be dim 0")
+    return out
+
+
+def snapshot_slot(cache, rows: list[bool], slot: int) -> list:
+    """Copies of one slot's own rows, on the cache's device: the
+    leaves `rows` marks (KV rows or recurrent state, a page-table row,
+    the position).  A paged arena is never copied: for the GLA state
+    arena the snapshot is the table row and the position only, and the
+    state page stays where it is."""
+    return [t[slot:slot + 1].clone()
+            for t, own in zip(leaves(cache), rows) if own]
+
+
+def restore_slot(cache, snap: list, rows: list[bool], slot: int) -> None:
+    """Write a `snapshot_slot` back into `slot`'s rows, in place (the
+    slot may differ from the one it was taken from)."""
+    it = iter(snap)
+    for t, own in zip(leaves(cache), rows):
+        if own:
+            t[slot].copy_(next(it)[0])

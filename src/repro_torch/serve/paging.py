@@ -1,5 +1,5 @@
 """Paged-KV page pool and page-based admission (port of
-`repro/serve/paging.py`, without the tracer hooks).
+`repro/serve/paging.py`).
 
 The contiguous serving cache reserves batch x max_len KV rows up front,
 so admission must charge every request the worst case.  The paged cache
@@ -16,6 +16,15 @@ instead keeps each layer's KV in a shared arena of fixed-size pages:
                   lets the engine admit by the pages a request actually
                   needs (ceil(tokens / page_size)), not by worst-case
                   max_len bytes per slot.
+
+Preemption: `free(rid)` is not tied to a request's finish.  The engine
+also calls it to evict a preemption victim's pages mid-flight, and the
+victim re-admits later through a fresh `allocate_pages` (drop and
+recompute) or, for the GLA state layout, keeps its one page across the
+preemption: `holds(rid)` lets admission recognize that standing
+reservation.  An optional tracer (repro_torch.obs) mirrors the pool's
+level into its pages gauges after every allocation and free, and counts
+copy-on-write forks.
 
 Pure Python: it runs on the host between engine steps, like the
 Scheduler.
@@ -49,16 +58,23 @@ class PagePool:
     footprint small.
     """
 
-    def __init__(self, num_pages: int, page_size: int):
+    def __init__(self, num_pages: int, page_size: int, tracer=None):
         if num_pages < 1 or page_size < 1:
             raise ValueError(
                 f"PagePool needs num_pages >= 1 and page_size >= 1, got "
                 f"{num_pages} / {page_size}")
         self.num_pages = num_pages
         self.page_size = page_size
+        self.tracer = tracer   # repro_torch.obs.Tracer hooks, or None
         self._free: List[int] = list(range(num_pages - 1, -1, -1))
         self._refcount = [0] * num_pages
         self._tables: Dict[int, List[int]] = {}   # rid -> page ids
+
+    def _notify(self) -> None:
+        """Mirror the pool level into the tracer's pages gauges after any
+        allocation or free."""
+        if self.tracer is not None:
+            self.tracer.pages_changed(self.pages_in_use, self.free_pages)
 
     # -- introspection -------------------------------------------------
     @property
@@ -77,7 +93,9 @@ class PagePool:
         return list(self._tables[rid])
 
     def holds(self, rid: int) -> bool:
-        """Whether the request currently holds an allocation."""
+        """Whether the request currently holds an allocation: True for a
+        preempted GLA request that kept its state page, so re-admission
+        swaps the page back in instead of allocating anew."""
         return rid in self._tables
 
     def pages_needed(self, num_tokens: int) -> int:
@@ -95,6 +113,7 @@ class PagePool:
         pages = [self._free.pop() for _ in range(n)]
         for p in pages:
             self._refcount[p] = 1
+        self._notify()
         return pages
 
     def allocate(self, rid: int, num_tokens: int) -> List[int]:
@@ -129,6 +148,7 @@ class PagePool:
             if self._refcount[p] == 0:
                 self._free.append(p)
                 freed.append(p)
+        self._notify()
         return freed
 
     def fork(self, src_rid: int, dst_rid: int,
@@ -160,6 +180,9 @@ class PagePool:
             copies.append((src[full], tail))
             table.append(tail)
         self._tables[dst_rid] = table
+        if self.tracer is not None:
+            self.tracer.cow_fork()
+        self._notify()
         return table, copies
 
 

@@ -1,18 +1,26 @@
 """Request lifecycle + admission for the serving engine.
 
-Port of `repro/serve/scheduler.py` without preemption and the tracer
-hooks (both on ROADMAP.md).  Requests move through
+Port of `repro/serve/scheduler.py`.  Requests move through
 
   QUEUED -> PREFILLING -> DECODING -> FINISHED(finish_reason)
+                 ^             |
+                 |             v
+                 + <------ PREEMPTED   (requeued at its original
+                                        arrival order within its class)
 
 The queue is a priority queue (higher `priority` first, strict FIFO
 within a class); each engine step spends a `TokenBudget` that mixes one
-decode token per decoding slot with chunked-prefill window tokens.
+decode token per decoding slot with chunked-prefill window tokens, and
+a blocked higher-priority request may preempt a lower-priority decoding
+victim (`pick_victim`, `preempt`); the engine evicts and restores the
+victim's cache.
 finish_reason is "stop" (eos or a stop token) or "length".  An
 `AdmissionPolicy` resolves the engine's slot count: `FixedSlots`, or
 `ByteBudget` from the exact per-slot decode-cache bytes
 (serve/cache.py); the paged engine's `PagedAdmission` (serve/paging.py)
-admits by the pages a request needs.
+admits by the pages a request needs.  An optional tracer (repro_torch.obs)
+receives queued / admitted / blocked events; without one every hook site
+is a single `is not None` check.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ class RequestState(enum.Enum):
     QUEUED = "queued"
     PREFILLING = "prefilling"
     DECODING = "decoding"
+    PREEMPTED = "preempted"
     FINISHED = "finished"
 
 
@@ -121,29 +130,49 @@ class TokenBudget:
 class Scheduler:
     """Priority admission over a fixed slot array (slots index the
     engine's batched cache).  Within a priority class the queue is
-    strictly FIFO by arrival, and it never skips its head."""
+    strictly FIFO by arrival, and it never skips its head.  A preempted
+    request re-enters the queue under its ORIGINAL arrival order, so it
+    resumes ahead of later arrivals of its own class."""
 
-    def __init__(self, num_slots: int):
+    def __init__(self, num_slots: int, tracer=None):
         self.num_slots = num_slots
         # heap of (-priority, arrival_seq, request)
         self.queue: List[tuple] = []
         self.slots: List[Optional[object]] = [None] * num_slots
-        self._seq = 0
-        self._admit_seq = 0
+        self.tracer = tracer   # repro_torch.obs.Tracer hooks, or None
+        self._seq = 0          # arrival order, assigned once per request
+        self._seq_of: dict = {}        # rid -> arrival seq
+        self._admit_seq = 0            # admission recency (victim tie-break)
         self._admitted_at: dict = {}   # rid -> admission seq
         # why the queue head still waited after the last admit():
         # "resources" (can_admit refused it), "slots" or None
         self.blocked: Optional[str] = None
 
+    def _push(self, req) -> None:
+        prio = getattr(req, "priority", 0)
+        heapq.heappush(self.queue, (-prio, self._seq_of[req.rid], req))
+
     def submit(self, req) -> None:
         req.state = RequestState.QUEUED
-        prio = getattr(req, "priority", 0)
-        heapq.heappush(self.queue, (-prio, self._seq, req))
+        self._seq_of[req.rid] = self._seq
         self._seq += 1
+        self._push(req)
+        if self.tracer is not None:
+            self.tracer.request_queued(req.rid)
+
+    def requeue(self, req) -> None:
+        """Re-enter a preempted request under its original arrival seq
+        (ahead of anything submitted after it in its priority class)."""
+        req.state = RequestState.PREEMPTED
+        self._push(req)
 
     def peek(self):
         """The next request admission would try, or None."""
         return self.queue[0][2] if self.queue else None
+
+    def queued(self) -> Iterator[object]:
+        """Waiting requests in admission order (heap order, exact)."""
+        return (entry[2] for entry in sorted(self.queue))
 
     def admit(self, can_admit=None) -> List[Tuple[int, object]]:
         """Fill free slots from the queue head; returns [(slot, request)].
@@ -168,9 +197,43 @@ class Scheduler:
                 self._admitted_at[head.rid] = self._admit_seq
                 self._admit_seq += 1
                 admitted.append((i, head))
+                if self.tracer is not None:
+                    self.tracer.request_admitted(head.rid, i)
         if self.blocked is None and self.queue:
             self.blocked = "slots"
+        if self.blocked is not None and self.tracer is not None:
+            self.tracer.admission_blocked(self.queue[0][2].rid, self.blocked)
         return admitted
+
+    def pick_victim(self, min_priority: int) -> Optional[int]:
+        """Slot of the best preemption victim for a blocked request of
+        `min_priority`: a DECODING occupant of strictly lower priority,
+        lowest priority first, most recently admitted on ties (the newest
+        work loses the least progress).  None if no slot holds an
+        eligible victim (a PREFILLING slot is never preempted: its
+        partial window state is not restorable)."""
+        best = None
+        for i, req in enumerate(self.slots):
+            if req is None or req.state is not RequestState.DECODING:
+                continue
+            prio = getattr(req, "priority", 0)
+            if prio >= min_priority:
+                continue
+            key = (prio, -self._admitted_at.get(req.rid, 0))
+            if best is None or key < best[0]:
+                best = (key, i)
+        return None if best is None else best[1]
+
+    def preempt(self, slot: int) -> object:
+        """Evict the slot's occupant back into the queue (PREEMPTED, at
+        its original arrival order).  The engine evicts and restores its
+        cache around this call."""
+        req = self.slots[slot]
+        if req is None:
+            raise ValueError(f"slot {slot} is empty; nothing to preempt")
+        self.slots[slot] = None
+        self.requeue(req)
+        return req
 
     def release(self, slot: int, finish_reason: Optional[str] = None
                 ) -> float:
@@ -182,6 +245,10 @@ class Scheduler:
             req.finish_reason = finish_reason
         self.slots[slot] = None
         return t
+
+    def active(self) -> Iterator[Tuple[int, object]]:
+        """Occupied slots, whatever their occupant's state."""
+        return ((i, r) for i, r in enumerate(self.slots) if r is not None)
 
     def decoding(self) -> Iterator[Tuple[int, object]]:
         """Slots whose occupant is past prefill."""

@@ -24,8 +24,10 @@ outputs to one bf16 rounding step (2^-7 relative).
     `la_causal_learnable`'s da and db; the `ref` impl against `torch`
   * `gpu`-marked CUDA kernel-vs-plain tests (skip without a card)
 
-The machine with the card has no JAX; there the gpu test runs alone
-(README.md) and the reference tests skip.
+Where JAX is installed the reference runs on the CPU, in f32 (JAX on a
+card computes an f32 dot in TF32 by default); the machine with the card
+has JAX with a CUDA backend, so the pin matters there.  Without JAX the
+reference tests skip and the gpu test runs alone.
 """
 import numpy as np
 import pytest
@@ -33,6 +35,10 @@ import torch
 
 try:
     import jax
+
+    # the reference on the CPU, where an f32 dot is an f32 dot (JAX on a
+    # card computes it in TF32 by default)
+    jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
     from repro.core import chunked as jchunked
@@ -40,7 +46,7 @@ try:
     from repro.kernels import ops as jops
     from repro.models import common as jcommon
     from repro.models import rope as jrope
-except ImportError:  # the port alone, on the machine with the card
+except ImportError:  # the port alone, without JAX
     jax = None
 from repro_torch.core import chunked as tchunked
 from repro_torch.core import numerics as tnum
