@@ -90,7 +90,14 @@ fails the run by raising (no result line is printed then):
                runs its chunked wgmma body, every f32 case the token walk
                (asserted from the launchers' C plan exports), and a second
                launch of the bf16 main case must give bit-equal o, dq
-               partials, dk partials and dv
+               partials, dk partials and dv; and the shapes of the other
+               architectures, under the same limits: la_fwd, la_bwd_q and
+               la_bwd_kv at GQA G = 8, 16 and 48 (the wgmma bodies, bf16
+               at D = 128) and at D = 64 and 112 (the token walks, bf16
+               and f32, GQA at 112), la_decode_fused at G = 48 and at D =
+               112 (the stream, bf16 and f32 with a zero normalizer), the
+               SSD kernels at zamba2-7b's (64, 64) (the token walks, bf16
+               and f32, both decay regimes, G = 4)
   4. serve   — the Engine at full width pythia-1.4b in bf16, once with the
                paper's linear attention and once with the softmax
                baseline: 8 requests, 512-token prompts, prefill_chunk 256,
@@ -141,6 +148,15 @@ fails the run by raising (no result line is printed then):
                the linear run's tracer summary, the device time of one
                snapshot and one restore per policy, and the urgent
                requests' TTFT against a run with them at priority 0 (FIFO)
+  4c. archs  — qwen2.5-3b, stablelm-1.6b, chatglm3-6b, granite-20b
+               (bf16 params: 28.2 B of them) and zamba2-7b at full width
+               and depth with their preset linear backend: 4 requests of
+               256 random prompt tokens, 16 new, greedy, every decode step
+               through la_decode_fused (one launch per attention block:
+               zamba2's shared block once per group); the decode step
+               timed and profiled, and 4 decode steps' logits on the
+               kernel path against the plain path; then the smoke configs
+               of all seven architectures on the card against the CPU
   5. train   — full width pythia-1.4b (f32 params, bf16 compute, the
                config's remat) on SyntheticLM batches of 2 x 8192 tokens
                (seed 0), once per backend (linear, softmax, gla), and
@@ -160,6 +176,14 @@ fails the run by raising (no result line is printed then):
                ssd_bwd_q and ssd_bwd_kv 64 times each); step time,
                tokens/s, peak memory, and one more step under
                torch.profiler
+  5b. archs  — the five other architectures 3 steps each of 2 x 8192
+               tokens at full width (chatglm3-6b 8 of 28 layers,
+               granite-20b 3 of 52, zamba2-7b 2 of 13 groups: f32 AdamW
+               needs 16 B a param), launching la_fwd twice and la_bwd_q /
+               la_bwd_kv once per attention block and step (zamba2 also
+               the SSD kernels: 3gm + 2t forwards, gm + t backwards, remat
+               per block inside remat per group); step time, tokens/s,
+               peak memory, one step under torch.profiler
   6. timing  — each kernel and its plain version with CUDA events at the
                main paths' shapes, in turns, beside the kernel's bound and,
                where one PyTorch call computes the same function (SDPA for
@@ -186,7 +210,11 @@ fails the run by raising (no result line is printed then):
                beside their token walks (f32 inputs) in turns;
                gla_decode_fused (the state stream) with its body record,
                in turns with la_decode_fused on the same inputs; the
-               fixture at n = 2^24 f32, block 256
+               fixture at n = 2^24 f32, block 256; and the other
+               architectures' shapes (`phase_timing_arch`): the LA
+               training kernels at each arch's (H, Hkv, D), la_decode_fused
+               at each arch's serving shape by graph replays in turns with
+               the pythia shape's, the SSD kernels at (64, 64)
   7. result  — a JSON line with every measurement, the card's line, a
                `kernels` JSON line, then {"ok": true, "device": {...}}
                as the last line
@@ -282,7 +310,60 @@ URGENT_PRIORITY, URGENT_PROMPT, URGENT_NEW, URGENT_AFTER = 5, 256, 16, 8
 KEEP_SLOTS, KEEP_PAGES = 4, 7
 # train path: pythia-1.4b at full width, the paper's §5.2 length
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8192, 4
+# the other architectures (phases 4c and 5b), each at full width with its
+# preset backend (linear): served at full depth in bf16, 4 requests of 256
+# random prompt tokens, 16 new, greedy (granite-20b with bf16 params: its
+# 28.2 B params take 113 GB in f32, 56 GB in bf16, and the engine's
+# compute copy then aliases them); trained 3 steps of TRAIN_BATCH x
+# TRAIN_SEQ tokens of SyntheticLM, at full depth where f32 params, grads
+# and AdamW moments (16 B a param) fit the card, else at the depth below
+ARCHS = ("qwen2.5-3b", "stablelm-1.6b", "chatglm3-6b", "granite-20b",
+         "zamba2-7b")
+ARCH_SLOTS, ARCH_PROMPT, ARCH_NEW, ARCH_TRAIN_STEPS = 4, 256, 16, 3
+ARCH_SERVE_PARAMS = {"granite-20b": "bfloat16"}
+# depth cuts of the train runs: chatglm3-6b 28 -> 8 layers, granite-20b
+# 52 -> 3, zamba2-7b 13 -> 2 groups of 6 Mamba-2 blocks (the tail of 3
+# and the shared block kept): 2.17 B, 2.20 B and 1.60 B params, ~35, ~35
+# and ~26 GB of params, grads and moments
+ARCH_TRAIN_DEPTH = {"chatglm3-6b": dict(num_layers=8),
+                    "granite-20b": dict(num_layers=3),
+                    "zamba2-7b": dict(num_layers=15, hybrid_groups=2)}
+# depth of the step-0 comparison before each train run: kernel path
+# against plain path, the loss and every grad in bf16 and in f32 compute
+# (`_train_legs`), at full width: the dense stacks at 2 layers (the GQA
+# group sums through autograd), zamba2-7b at 2 groups of 1 Mamba-2 block
+# with the shared block after each (its grad summed over both
+# applications, each under its own remat) and 1 tail block.  In bf16 the
+# dense stacks' grads at init stand well above the rounding noise, and
+# the wgmma bodies' bf16 products (D = 128) move them by up to twice the
+# plain path's own chunk spread in norm: they are held per leaf, as
+# pythia's linear path is; zamba2's Mamba-2 grads sit at the noise level
+# and are held to the spread, as mamba2's are (PERF.md, §6)
+ARCH_COMPARE_DEPTH = {
+    **{arch: dict(num_layers=2) for arch in ARCHS if arch != "zamba2-7b"},
+    "zamba2-7b": dict(num_layers=3, hybrid_groups=2,
+                      hybrid_mamba_per_group=1, hybrid_tail=1)}
 LA_SHAPE = dict(b=2, h=16, hkv=16, n=8192, d=128)
+# the new architectures' attention shapes (H, Hkv, D) and the LA kernel
+# cases at them (label, arch, N, dtype): GQA through the wgmma bodies at
+# G = 8, 16 and 48, the token walks at D = 64 and 112 (zamba2-7b's shared
+# attention, 3584 / 32), with GQA at 112 too
+LA_ARCH_SHAPES = {"qwen2.5-3b": (16, 2, 128), "stablelm-1.6b": (32, 32, 64),
+                  "chatglm3-6b": (32, 2, 128), "granite-20b": (48, 1, 128),
+                  "zamba2-7b": (32, 32, 112), "zamba2-7b-gqa": (32, 8, 112)}
+LA_ARCH_CASES = (
+    ("gqa8_bf16", "qwen2.5-3b", 8192, "bfloat16"),
+    ("gqa16_bf16", "chatglm3-6b", 8192, "bfloat16"),
+    ("mqa48_bf16", "granite-20b", 8192, "bfloat16"),
+    ("mqa48_odd_n_bf16", "granite-20b", 1000, "bfloat16"),
+    ("d64_bf16", "stablelm-1.6b", 8192, "bfloat16"),
+    ("d64_f32", "stablelm-1.6b", 1000, "float32"),
+    ("d112_bf16", "zamba2-7b", 8192, "bfloat16"),
+    ("d112_f32", "zamba2-7b", 8192, "float32"),
+    ("d112_gqa_odd_n_f32", "zamba2-7b-gqa", 1000, "float32"),
+    ("d112_gqa_odd_n_bf16", "zamba2-7b-gqa", 1000, "bfloat16"))
+# zamba2-7b's Mamba-2 layers: state 64, head dim 64, 112 heads
+SSD_ZAMBA2_SHAPE = dict(b=2, g=1, h=112, n=8192, dk=64, dv=64)
 # the shared-direction case of the LA kernels: q and k rows are their
 # noise (norm ~1) plus this times one common unit direction, then
 # l2-normalized (cosine ~0.99 between rows)
@@ -558,7 +639,8 @@ def _recurrent_decode_body(s, p, q, k, v, ld=None):
     these operands, held to its launcher's C export: "stream" or
     "walk"."""
     from repro_torch.kernels import decode_fused as df
-    body = df.recurrent_decode_body(k.shape[-1], v.shape[-1])
+    body = df.recurrent_decode_body(k.shape[-1], v.shape[-1],
+                                    q.shape[1] // k.shape[1])
     if ld is None:
         return _c_body(body, df.plan_la_decode_fused(s, p, q, k, v, 1.0,
                                                      1.0))
@@ -573,10 +655,11 @@ WALK_DK, WALK_DV = 30, 32
 
 def phase_kernel(torch):
     """la_decode_fused against its plain version; every D = 128 case runs
-    the state stream, the walk cases (Dk = 30, Dv = 32) the column walk
-    (from the C plan export); S and P are the bits of the elementwise
-    fmaf update, and the bf16 main case launches twice for bit-equal o,
-    S and P."""
+    the state stream, and so do granite-20b's group of 48 query heads on
+    one KV head and zamba2-7b's head dim 112 (at 4 slots, the serving
+    runs'), the walk cases (Dk = 30, Dv = 32) the column walk (from the C
+    plan export); S and P are the bits of the elementwise fmaf update,
+    and the bf16 main case launches twice for bit-equal o, S and P."""
     from repro_torch.kernels import decode_fused as df
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -586,7 +669,13 @@ def phase_kernel(torch):
              ("gqa_bf16", 8, 16, 4, 128, None, bf16, False),
              ("zero_den_f32", 8, 16, 16, 128, None, f32, True),
              ("walk_gqa_bf16", 8, 16, 4, WALK_DK, WALK_DV, bf16, False),
-             ("walk_zero_den_f32", 8, 16, 16, WALK_DK, WALK_DV, f32, True)]
+             ("walk_zero_den_f32", 8, 16, 16, WALK_DK, WALK_DV, f32, True),
+             ("mqa48_bf16", ARCH_SLOTS, 48, 1, 128, None, bf16, False),
+             ("mqa48_zero_den_f32", ARCH_SLOTS, 48, 1, 128, None, f32,
+              True),
+             ("d112_bf16", ARCH_SLOTS, 32, 32, 112, None, bf16, False),
+             ("d112_zero_den_f32", ARCH_SLOTS, 32, 32, 112, None, f32,
+              True)]
     errs = {}
     for label, b, h, hkv, d, dv, dtype, zero_den in cases:
         s, p, q, k, v = _decode_case(torch, gen, b, h, hkv, d, dtype,
@@ -666,33 +755,40 @@ def _la_case(torch, gen, b, h, hkv, n, d, dtype, shared=0.0):
 
 def phase_kernel_la(torch):
     """la_fwd, la_bwd_q and la_bwd_kv against their plain versions.
-    Every bf16 case (GQA included) runs the chunked wgmma bodies of all
-    three, every f32 case the token walks (from the launchers' C plan
-    exports); the bf16 main case launches each kernel twice for bit-equal
-    o, g, dq, dk and dv; one bf16 case at N = 8192 has q and k that share
-    a direction."""
+    Every bf16 case at D = 128 (GQA included: G = 4, and the new archs'
+    8, 16 and 48) runs the chunked wgmma bodies of all three, every f32
+    case and every bf16 case at D = 64 (stablelm-1.6b) or 112 (zamba2-7b)
+    the token walks (from the launchers' C plan exports); the bf16 main
+    case launches each kernel twice for bit-equal o, g, dq, dk and dv; one
+    bf16 case at N = 8192 has q and k that share a direction."""
     from repro_torch.kernels import linear_attention as la
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     m = LA_SHAPE
-    cases = [("main_bf16", m["b"], m["h"], m["hkv"], m["n"], torch.bfloat16,
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("main_bf16", m["b"], m["h"], m["hkv"], m["n"], m["d"], bf16,
               0.0),
-             ("main_f32", m["b"], m["h"], m["hkv"], m["n"], torch.float32,
+             ("main_f32", m["b"], m["h"], m["hkv"], m["n"], m["d"], f32,
               0.0),
-             ("odd_n_bf16", m["b"], m["h"], m["hkv"], 1000, torch.bfloat16,
+             ("odd_n_bf16", m["b"], m["h"], m["hkv"], 1000, m["d"], bf16,
               0.0),
-             ("gqa_f32", m["b"], m["h"], 4, 1000, torch.float32, 0.0),
-             ("gqa_bf16", m["b"], m["h"], 4, 1000, torch.bfloat16, 0.0),
-             ("shared_bf16", m["b"], m["h"], m["hkv"], m["n"],
-              torch.bfloat16, LA_SHARED)]
+             ("gqa_f32", m["b"], m["h"], 4, 1000, m["d"], f32, 0.0),
+             ("gqa_bf16", m["b"], m["h"], 4, 1000, m["d"], bf16, 0.0),
+             ("shared_bf16", m["b"], m["h"], m["hkv"], m["n"], m["d"], bf16,
+              LA_SHARED),
+             # the new archs' own shapes (LA_ARCH_SHAPES)
+             *((label, m["b"], *LA_ARCH_SHAPES[arch][:2], n,
+                LA_ARCH_SHAPES[arch][2], getattr(torch, dtype), 0.0)
+               for label, arch, n, dtype in LA_ARCH_CASES)]
     errs = {}
-    for label, b, h, hkv, n, dtype, shared in cases:
-        q, k, v, om_hat, h_vec = _la_case(torch, gen, b, h, hkv, n,
-                                          m["d"], dtype, shared)
-        log(f"[kernel] {label}: B={b} H={h} Hkv={hkv} N={n} D={m['d']} "
+    for label, b, h, hkv, n, d, dtype, shared in cases:
+        q, k, v, om_hat, h_vec = _la_case(torch, gen, b, h, hkv, n, d,
+                                          dtype, shared)
+        log(f"[kernel] {label}: B={b} H={h} Hkv={hkv} N={n} D={d} "
             f"{dtype} shared={shared}")
         rel = BF16_REL if dtype == torch.bfloat16 else SEQ_F32_REL
-        expect = "wgmma" if dtype == torch.bfloat16 else "walk"
+        expect = "wgmma" if dtype == torch.bfloat16 and d == 128 \
+            else "walk"
         bodies = {"la_fwd": _la_fwd_body(q, k, v)[0],
                   **{e: _la_bwd_body(e, q, k, v, om_hat, h_vec)[0]
                      for e in ("la_bwd_q", "la_bwd_kv")}}
@@ -1370,39 +1466,51 @@ def _la_bwd_body(entry, q, k, v, om_hat, h_vec):
 
 def phase_kernel_ssd(torch):
     """ssd_fwd, ssd_bwd_q and ssd_bwd_kv against their plain versions at
-    mamba2-2.7b's training shapes, odd N and G > 1, bf16 and f32, under
+    mamba2-2.7b's training shapes, odd N and G > 1, and at zamba2-7b's
+    (H = 112, (Dk, Dv) = (64, 64): the token walks), bf16 and f32, under
     both decay regimes: o, the f32 partials of dq and dk, dv, and after
     the PyTorch epilogue (the group sums and dld, from each path's
     partials and the same o) dq, dk, dv and dld; at log_decay = 0 the
     forward against unnormalized causal linear attention, in f32 and
     bf16.  Every bf16 case runs the chunked wgmma bodies of all three
-    kernels, every f32 case the token walk (from the launchers' C plan
-    exports); the bf16 main case launches each twice for bit-equal o, dq
-    partials, dk partials and dv."""
+    kernels at (128, 64), every f32 case and (64, 64) the token walk (from
+    the launchers' C plan exports); the bf16 main case launches each twice
+    for bit-equal o, dq partials, dk partials and dv."""
     from repro_torch.core import ssd as core_ssd
     from repro_torch.kernels import ssd
     gen = torch.Generator(device="cuda")
     gen.manual_seed(17)
     bf16, f32 = torch.bfloat16, torch.float32
-    m = SSD_SHAPE
+    m, z = SSD_SHAPE, SSD_ZAMBA2_SHAPE
     dk, dv = m["dk"], m["dv"]
     errs = {}
-    for label, n, g, h, dtype, regime in (
-            ("main_bf16", m["n"], m["g"], m["h"], bf16, "init"),
-            ("main_bf16_strong", m["n"], m["g"], m["h"], bf16, "strong"),
-            ("main_f32_strong", m["n"], m["g"], m["h"], f32, "strong"),
-            ("odd_n_bf16_strong", 1000, m["g"], m["h"], bf16, "strong"),
-            ("groups_f32", 1000, 4, 16, f32, "init"),
-            ("groups_bf16_strong", 1000, 4, 16, bf16, "strong")):
+    for label, n, g, h, dtype, regime, dims in (
+            ("main_bf16", m["n"], m["g"], m["h"], bf16, "init", (dk, dv)),
+            ("main_bf16_strong", m["n"], m["g"], m["h"], bf16, "strong",
+             (dk, dv)),
+            ("main_f32_strong", m["n"], m["g"], m["h"], f32, "strong",
+             (dk, dv)),
+            ("odd_n_bf16_strong", 1000, m["g"], m["h"], bf16, "strong",
+             (dk, dv)),
+            ("groups_f32", 1000, 4, 16, f32, "init", (dk, dv)),
+            ("groups_bf16_strong", 1000, 4, 16, bf16, "strong", (dk, dv)),
+            # zamba2-7b's Mamba-2 layers, (64, 64): the token walks
+            ("zamba2_bf16", z["n"], z["g"], z["h"], bf16, "init",
+             (z["dk"], z["dv"])),
+            ("zamba2_f32_strong", z["n"], z["g"], z["h"], f32, "strong",
+             (z["dk"], z["dv"])),
+            ("zamba2_groups_bf16_strong", 1000, 4, 16, bf16, "strong",
+             (z["dk"], z["dv"]))):
         b = m["b"]
-        q, k, v, ld, om = _ssd_case(torch, gen, b, g, h, n, dk, dv, dtype,
+        q, k, v, ld, om = _ssd_case(torch, gen, b, g, h, n, *dims, dtype,
                                     regime)
-        log(f"[kernel] ssd {label}: B={b} G={g} H={h} N={n} Dk={dk} "
-            f"Dv={dv} {dtype}, log decay {regime}")
+        log(f"[kernel] ssd {label}: B={b} G={g} H={h} N={n} Dk={dims[0]} "
+            f"Dv={dims[1]} {dtype}, log decay {regime}")
         rel = BF16_REL if dtype == bf16 else SEQ_F32_REL
         for entry in ("ssd_fwd", "ssd_bwd_q", "ssd_bwd_kv"):
             body, _, _ = _ssd_body(entry, q, k, v, ld, om)
-            if body != ("wgmma" if dtype == bf16 else "walk"):
+            if body != ("wgmma" if dtype == bf16 and dims == (dk, dv)
+                        else "walk"):
                 raise AssertionError(f"ssd {label}: {entry} runs the {body} "
                                      f"body")
         o_k = ssd.ssd_fwd_cuda(q, k, v, ld)
@@ -2442,10 +2550,9 @@ def _train_compare(torch, mdl, cfg, params, batch):
 
 
 def _param_kind(path: str) -> str:
-    """A leaf's path without its layer index ("blocks.mixer.a_log")."""
-    parts = path.split(".")
-    return ".".join(parts[:1] + parts[2:]) if parts[0] == "blocks" \
-        else path
+    """A leaf's path without its layer and group indices
+    ("blocks.mixer.a_log", "mamba_groups.mixer.a_log")."""
+    return ".".join(p for p in path.split(".") if not p.isdigit())
 
 
 def _within(err, limit):
@@ -2455,7 +2562,8 @@ def _within(err, limit):
     return err <= limit, ratio
 
 
-def _train_legs(torch, mdl, cfg, params, batch, variants):
+def _train_legs(torch, mdl, cfg, params, batch, variants,
+                bf16_per_leaf=False):
     """The first step's loss and EVERY grad of each variant against the
     plain path, from the same weights and batch, in two legs.
 
@@ -2467,16 +2575,20 @@ def _train_legs(torch, mdl, cfg, params, batch, variants):
     a leaf (mamba2) and, in GLA, moves the deep q projections' grads by
     5-8 % of theirs (NVIDIA H100 80GB HBM3, 700 W; PERF.md).  So there the
     loss is held to TRAIN_LOSS_REL and each kind of leaf, in norm over its
-    layers, to GATE_NOISE_FACTOR times that plain spread.  In f32 compute
-    the rounding is 2^16 times finer: there the loss is held to
-    SEQ_F32_REL and every grad to TRAIN_GRAD_REL of its max |value|, the
-    pythia runs' limit.  At most three grad sets are alive at once.
+    layers, to GATE_NOISE_FACTOR times that plain spread.  With
+    `bf16_per_leaf` (grads well above that noise, as the dense stacks'
+    are) every grad is held instead to TRAIN_GRAD_REL of its max |value|,
+    the pythia runs' limit, and the spread's verdict is only recorded.  In
+    f32 compute the rounding is 2^16 times finer: there the loss is held
+    to SEQ_F32_REL and every grad to TRAIN_GRAD_REL of its max |value|.
+    At most three grad sets are alive at once.
 
     Returns {variant: {"bf16": leg, "f32": leg}}, each leg {"ok", "worst",
     "ratio" (its share of the limit), "loss", "loss_ref", "loss_abs_err",
     "kinds": per kind of leaf the norm of the differences, its share of
     the reference's norm, the largest per-leaf max abs err over max
-    |value| and that leaf}; the bf16 leg also the plain spread per kind."""
+    |value| and that leaf}; the bf16 leg also the plain spread per kind,
+    its "criterion" and, held per leaf, the spread's "spread_verdict"."""
     from repro_torch.tree import named_leaves
     named = named_leaves(params)
     ts = [t for _, t in named]
@@ -2534,16 +2646,24 @@ def _train_legs(torch, mdl, cfg, params, batch, variants):
     del grads_2
     for name, make in variants.items():
         loss_v, grads_v = run(make(cfg))
-        _, norm_v = against(grads_v, grads_t)
+        rel_v, norm_v = against(grads_v, grads_t)
         del grads_v
-        out[name]["bf16"] = leg(
-            loss_v, loss_t, TRAIN_LOSS_REL,
-            [(kind, norm_v[kind]["norm_diff"],
-              GATE_NOISE_FACTOR * norm_2[kind]["norm_diff"])
-             for kind in kinds],
-            {kind: {"vs_torch": norm_v[kind],
-                    f"torch_chunk_{half.la.chunk}_vs_torch": norm_2[kind]}
-             for kind in kinds})
+        kinds_rec = {kind: {"vs_torch": norm_v[kind],
+                            f"torch_chunk_{half.la.chunk}_vs_torch":
+                            norm_2[kind]} for kind in kinds}
+        spread = leg(loss_v, loss_t, TRAIN_LOSS_REL,
+                     [(kind, norm_v[kind]["norm_diff"],
+                       GATE_NOISE_FACTOR * norm_2[kind]["norm_diff"])
+                      for kind in kinds], kinds_rec)
+        if bf16_per_leaf:
+            held = leg(loss_v, loss_t, TRAIN_LOSS_REL,
+                       [(named[i][0], rel_v[i], TRAIN_GRAD_REL)
+                        for i in range(len(named))], kinds_rec)
+            held.update(criterion="per_leaf", spread_verdict={
+                k: spread[k] for k in ("ok", "worst", "ratio")})
+        else:
+            held = dict(spread, criterion="spread")
+        out[name]["bf16"] = held
     del grads_t
 
     # f32 compute: every grad to the pythia runs' limit
@@ -2563,24 +2683,30 @@ def _train_legs(torch, mdl, cfg, params, batch, variants):
     return out
 
 
-def _train_compare_all(torch, mdl, cfg, params, batch):
-    """GLA and mamba2: the first step's loss and EVERY grad, kernel path
-    against plain path, in both legs of `_train_legs`; raises where a leg
-    fails."""
+def _train_compare_all(torch, mdl, cfg, params, batch,
+                       bf16_per_leaf=False):
+    """GLA, mamba2 and the other architectures: the first step's loss and
+    EVERY grad, kernel path against plain path, in both legs of
+    `_train_legs`; raises where a leg fails."""
     from repro_torch.tree import named_leaves
     rec = {"grads_compared": len(named_leaves(params)),
            **_train_legs(torch, mdl, cfg, params, batch,
-                         {"cuda": lambda c: _with_impl(c, "cuda")})["cuda"]}
-    for name, what in (("bf16", f"every kind of leaf within "
-                                f"{GATE_NOISE_FACTOR} x the plain path's "
-                                f"spread in norm, the loss within "
-                                f"{TRAIN_LOSS_REL}"),
-                       ("f32", f"{rec['grads_compared']} grads within "
-                               f"{TRAIN_GRAD_REL} of their max |value|, "
-                               f"the loss within {SEQ_F32_REL}")):
+                         {"cuda": lambda c: _with_impl(c, "cuda")},
+                         bf16_per_leaf)["cuda"]}
+    per_leaf = (f"{rec['grads_compared']} grads within {TRAIN_GRAD_REL} of "
+                f"their max |value|")
+    spread = (f"every kind of leaf within {GATE_NOISE_FACTOR} x the plain "
+              f"path's spread in norm")
+    for name, what in (("bf16", f"{per_leaf if bf16_per_leaf else spread}, "
+                                f"the loss within {TRAIN_LOSS_REL}"),
+                       ("f32", f"{per_leaf}, the loss within "
+                               f"{SEQ_F32_REL}")):
         r = rec[name]
         log(f"  {name} compute (cuda vs torch): loss {r['loss']!r} vs "
             f"{r['loss_ref']!r}; by kind of leaf {r['kinds']}")
+        if "spread_verdict" in r:
+            log(f"  {name}: against {GATE_NOISE_FACTOR} x the plain path's "
+                f"spread in norm (recorded, not held): {r['spread_verdict']}")
         if not r["ok"]:
             raise AssertionError(f"{name} train step 0: {r['worst']} at "
                                  f"{r['ratio']!r} of its limit")
@@ -2653,6 +2779,243 @@ def phase_train(torch, backend):
               "params": n_params, "compute_dtype": cfg.compute_dtype,
               "param_dtype": cfg.param_dtype, "remat": cfg.remat,
               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+              "losses": [h["loss"] for h in hist],
+              "step_s": [h["dt"] for h in hist],
+              "step_s_median_after_first": step_s,
+              "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+              "wall_s": wall, "kernel_launches": launches,
+              "launches_per_step": per_step,
+              "max_memory_allocated_bytes": peak,
+              "train_step_profile": profile,
+              "kernel_vs_plain": compare}
+    del trainer
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+# ---------------------------------------------------------------------------
+# 4c / 5b. the other architectures at full width
+# ---------------------------------------------------------------------------
+
+def _clone_tree(tree):
+    """A copy of a cache: dicts, lists and state tuples rebuilt, tensors
+    cloned."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    if isinstance(tree, tuple):
+        return type(tree)(*(_clone_tree(v) for v in tree))
+    return tree.clone()
+
+
+def _attention_layers(cfg) -> int:
+    """Attention blocks a decode step runs: every layer of a dense stack,
+    the shared block's applications (one a group) of a hybrid."""
+    return cfg.hybrid_groups if cfg.family == "hybrid" else cfg.num_layers
+
+
+def _arch_train_launches(cfg) -> dict:
+    """Kernel launches per train step (remat): each block's forward runs
+    twice, a hybrid's grouped Mamba-2 blocks three times (remat per block
+    inside remat per group), its shared block twice an application."""
+    if cfg.family != "hybrid":
+        n = cfg.num_layers
+        return {"la_fwd": 2 * n, "la_bwd_q": n, "la_bwd_kv": n}
+    g, m, t = cfg.hybrid_groups, cfg.hybrid_mamba_per_group, cfg.hybrid_tail
+    return {"la_fwd": 2 * g, "la_bwd_q": g, "la_bwd_kv": g,
+            "ssd_fwd": 3 * g * m + 2 * t, "ssd_bwd_q": g * m + t,
+            "ssd_bwd_kv": g * m + t}
+
+
+def phase_arch_serve(torch, np, arch):
+    """The engine at full width and depth with `arch`'s preset (linear)
+    backend, bf16 compute (granite-20b: bf16 params too, its compute copy
+    the very tensors): ARCH_SLOTS requests of ARCH_PROMPT random tokens,
+    ARCH_NEW new, greedy; every decode step through la_decode_fused (one
+    launch per attention block); the steady decode step (events, host
+    clock, profile) and the first decode steps' logits, kernel path
+    against plain path, from one cloned prefilled cache.  Returns (record,
+    the run's launches)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.tree import leaves
+
+    cfg = get_config(arch)
+    if arch in ARCH_SERVE_PARAMS:
+        cfg = dataclasses.replace(cfg, param_dtype=ARCH_SERVE_PARAMS[arch])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = mdl.init_params(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in leaves(params))
+    max_len = ARCH_PROMPT + ARCH_NEW
+    engine = Engine(cfg, params, max_slots=ARCH_SLOTS, max_len=max_len,
+                    prefill_chunk=ARCH_PROMPT, eos_id=-1, device="cuda")
+    aliased = all(a.data_ptr() == b.data_ptr() for a, b in
+                  zip(leaves(params), leaves(engine.params)))
+    if cfg.param_dtype == cfg.compute_dtype and not aliased:
+        raise AssertionError(f"{arch}: the engine's compute copy does not "
+                             f"alias the {cfg.param_dtype} params")
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(3, cfg.vocab_size, size=(ARCH_SLOTS, ARCH_PROMPT))
+    for rid in range(ARCH_SLOTS):
+        engine.submit(Request(rid=rid, prompt=prompts[rid].tolist(),
+                              max_new_tokens=ARCH_NEW))
+    reset_launches()
+    t_start = time.perf_counter()
+    first = {}
+    for out in engine.stream():
+        if out.token is not None and out.rid not in first:
+            first[out.rid] = out.t - t_start
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = read_launches()
+    steps = engine.decode_steps
+    attn = _attention_layers(cfg)
+    log(f"[serve {arch}] {cfg.name} ({n_params} params, {cfg.param_dtype} "
+        f"params, aliased compute copy {aliased}): {ARCH_SLOTS} requests x "
+        f"{ARCH_PROMPT} prompt tokens, {ARCH_NEW} new: {steps} decode "
+        f"steps, launches {launches}, wall {wall!r} s (init {init_s!r} s)")
+    if steps < ARCH_NEW - 1:
+        raise AssertionError(f"{steps} decode steps for {ARCH_NEW} tokens")
+    expect_launches(f"serve {arch}", launches,
+                    {"la_decode_fused": attn * steps})
+    for rid in range(ARCH_SLOTS):
+        toks = engine.request(rid).generated
+        if len(toks) != ARCH_NEW or not all(0 <= t < cfg.vocab_size
+                                            for t in toks):
+            raise AssertionError(f"{arch} request {rid} generated {toks}")
+    tokens = torch.from_numpy(engine.next_tokens).to("cuda")
+    step_dev_ms, step_host_ms, profile = _steady_decode(
+        torch, mdl, engine.params, engine.cfg, engine.cache, tokens,
+        f"decode step ({arch})")
+    peak = torch.cuda.max_memory_allocated()
+
+    prompt_t = torch.from_numpy(prompts).to("cuda")
+    logits, cache0 = mdl.prefill(engine.params, engine.cfg,
+                                 {"tokens": prompt_t},
+                                 mdl.init_cache(cfg, ARCH_SLOTS, max_len,
+                                                "cuda"))
+    tok = logits.argmax(-1)
+    cache_k, cache_t = _clone_tree(cache0), _clone_tree(cache0)
+    del cache0
+    cfg_k, cfg_t = _with_impl(engine.cfg, "cuda"), _with_impl(engine.cfg,
+                                                              "torch")
+    logit_errs = []
+    for i in range(COMPARE_STEPS):
+        lk, cache_k = mdl.decode_step(engine.params, cfg_k, cache_k, tok)
+        lt, cache_t = mdl.decode_step(engine.params, cfg_t, cache_t, tok)
+        if not torch.isfinite(lk).all():
+            raise AssertionError(f"{arch} decode step {i}: non-finite "
+                                 f"logits")
+        logit_errs.append(check_close(f"full-width {arch} decode step {i} "
+                                      f"logits (cuda vs torch)", lk, lt,
+                                      LOGITS_REL))
+        tok = lk.argmax(-1)
+    ttft = [first[r] for r in range(ARCH_SLOTS)]
+    record = {
+        "arch": cfg.name, "params": n_params,
+        "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+        "compute_copy_aliases_params": aliased,
+        "layers": cfg.num_layers, "attention_blocks_per_step": attn,
+        "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+        "head_dim": cfg.resolved_head_dim,
+        "slots": ARCH_SLOTS, "prompt_len": ARCH_PROMPT,
+        "prefill_chunk": ARCH_PROMPT, "max_new": ARCH_NEW,
+        "decode_steps": steps, "kernel_launches": launches,
+        "wall_s": wall, "init_s": init_s,
+        "generated_tokens_per_s": ARCH_SLOTS * ARCH_NEW / wall,
+        "ttft_s": ttft, "ttft_max_s": max(ttft),
+        "decode_step_ms_device": step_dev_ms,
+        "decode_step_ms_host": step_host_ms,
+        "decode_step_profile": profile,
+        "max_memory_allocated_bytes": peak,
+        "logits_max_abs_err": logit_errs,
+    }
+    del engine, cache_k, cache_t
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+def phase_arch_train(torch, arch):
+    """The first step of `arch` at full width and ARCH_COMPARE_DEPTH's
+    depth, kernel path against plain path (`_train_compare_all`: the loss
+    and every grad, bf16 and f32 compute); then ARCH_TRAIN_STEPS Trainer
+    steps at full width (f32 params and moments, bf16 compute, remat;
+    ARCH_TRAIN_DEPTH's depth), each through the LA kernels (and a
+    hybrid's SSD kernels) as often as `_arch_train_launches` says; step
+    time, tokens/s, peak memory and one more step under torch.profiler.
+    Returns (record, the run's launches)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as mdl
+    from repro_torch.train.loop import Trainer
+    from repro_torch.tree import leaves
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, **ARCH_TRAIN_DEPTH.get(arch, {}))
+    if not (cfg.remat and cfg.compute_dtype == "bfloat16"
+            and cfg.param_dtype == "float32"):
+        raise AssertionError(f"{cfg.name} is not f32 params / bf16 "
+                             f"compute / remat: {cfg}")
+    torch.cuda.empty_cache()
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    short = dataclasses.replace(full, **ARCH_COMPARE_DEPTH[arch])
+    params = mdl.init_params(short, seed=0, device="cuda")
+    batch0 = {"tokens": torch.from_numpy(data.batch_at(0)).to("cuda")}
+    log(f"[train {arch}] step 0 at {short.num_layers} layers, kernel path "
+        f"vs plain path")
+    compare = {"layers": short.num_layers,
+               **_train_compare_all(torch, mdl, short, params, batch0,
+                                    bf16_per_leaf=cfg.family != "hybrid")}
+    del params, batch0
+    torch.cuda.empty_cache()
+    params = mdl.init_params(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in leaves(params))
+    tc = TrainConfig(total_steps=ARCH_TRAIN_STEPS, warmup_steps=1)
+    trainer = Trainer(cfg, tc, params, data)
+    del params
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = trainer.run(ARCH_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = _arch_train_launches(cfg)
+    log(f"[train {arch}] {cfg.name} at {cfg.num_layers} of "
+        f"{full.num_layers} layers ({n_params} params): "
+        f"{ARCH_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+        f"launches {launches}, losses {[h['loss'] for h in hist]}, step s "
+        f"{[h['dt'] for h in hist]}, peak {peak} B")
+    expect_launches(f"train {arch}", launches,
+                    {k: v * ARCH_TRAIN_STEPS for k, v in per_step.items()})
+    if len(hist) != ARCH_TRAIN_STEPS or not all(
+            math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"{arch} train history {hist}")
+    steady = sorted(h["dt"] for h in hist[1:])
+    step_s = steady[len(steady) // 2]
+    batch = {"tokens": torch.from_numpy(
+        data.batch_at(ARCH_TRAIN_STEPS)).to("cuda")}
+    profile = _profile(torch, f"train step ({arch})",
+                       lambda: trainer.step_fn(trainer.params,
+                                               trainer.opt_state, batch,
+                                               ARCH_TRAIN_STEPS), steps=1)
+    record = {"arch": cfg.name, "layers": cfg.num_layers,
+              "full_depth_layers": full.num_layers,
+              "depth_cut": ARCH_TRAIN_DEPTH.get(arch),
+              "params": n_params, "full_depth_params": full.param_count(),
+              "compute_dtype": cfg.compute_dtype,
+              "param_dtype": cfg.param_dtype, "remat": cfg.remat,
+              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "steps": ARCH_TRAIN_STEPS,
               "losses": [h["loss"] for h in hist],
               "step_s": [h["dt"] for h in hist],
               "step_s_median_after_first": step_s,
@@ -2866,6 +3229,20 @@ def _stream_record(launch, ptxas, source, paged):
         grid_clusters=launch.grid[0] // max(per_cluster, 1))
 
 
+def _decode_work(b, h, hkv, d, itemsize):
+    """(bytes, flops) of one linear decode step: the f32 state and P read
+    and written once, q, k, v read and o written in the compute dtype;
+    the update and the G readouts."""
+    g, cols = h // hkv, d + 1
+    state_elems = b * hkv * d * cols
+    bytes_moved = (2 * state_elems * 4 + 2 * b * hkv * cols * 4
+                   + (b * h * d + 2 * b * hkv * d) * itemsize
+                   + b * h * d * itemsize)
+    flops = (state_elems * (2 + 2 * g) + b * hkv * cols * (1 + 3 * g)
+             + b * h * d)
+    return bytes_moved, flops
+
+
 def phase_timing(torch, ptxas):
     """la_decode_fused and its plain version at the main path's decode
     shapes.  The serving step finds each layer's state cold in L2 (24
@@ -2886,15 +3263,8 @@ def phase_timing(torch, ptxas):
         _rotating(df.la_decode_fused_cuda, linear, (1.0, 1.0)), reps=200,
         warm=20)
     kern, gla_runs = recurrent_graph_times(torch, sets)
-    g = h // hkv
-    cols = d + 1
-    state_elems = b * hkv * d * cols
-    itemsize = torch.tensor([], dtype=dtype).element_size()
-    bytes_moved = (2 * state_elems * 4 + 2 * b * hkv * cols * 4
-                   + (b * h * d + b * hkv * d + b * hkv * d) * itemsize
-                   + b * h * d * itemsize)
-    flops = (state_elems * (2 + 2 * g) + b * hkv * cols * (1 + 3 * g)
-             + b * h * d)
+    bytes_moved, flops = _decode_work(
+        b, h, hkv, d, torch.tensor([], dtype=dtype).element_size())
     rec = {"ms": min(kern), "ms_runs": kern,
            "timed_by": "CUDA graph replays",
            "python_loop_ms_runs": loop, "plain_ms": min(plain),
@@ -2917,6 +3287,48 @@ def phase_timing(torch, ptxas):
         f"PyTorch call computes this fused update + readout")
     del sets, linear
     return rec
+
+
+def _la_work(b, h, hkv, n, d, it):
+    """(bytes, f32 flops of the token walk) of la_fwd, la_bwd_q and
+    la_bwd_kv at these shapes, `it` the compute dtype's bytes."""
+    q_el, kv_el = b * h * n * d, b * hkv * n * d
+    tok_q, tok_kv = b * h * n, b * hkv * n
+    return {
+        # q, k, v read; o written in the compute dtype, g in f32
+        "la_fwd": ((q_el + 2 * kv_el) * it + q_el * it + tok_q * 4,
+                   tok_q * 4 * d * (d + 1)),
+        # k, v read; Ω̂ and h read in f32; dq written
+        "la_bwd_q": (2 * kv_el * it + q_el * 4 + tok_q * 4 + q_el * it,
+                     tok_q * 4 * d * (d + 1)),
+        # q, k, v read; Ω̂ and h read in f32; dk, dv written.  The U
+        # update per query token and head, the dk and dv readouts per
+        # KV token and head
+        "la_bwd_kv": ((q_el + 2 * kv_el) * it + q_el * 4 + tok_q * 4
+                      + 2 * kv_el * it,
+                      tok_q * 2 * (d + 1) ** 2 + tok_kv * 4 * d * (d + 1)),
+    }
+
+
+def _la_tc_flops(b, h, hkv, n, d):
+    """The bf16 tensor-core flops of the three LA kernels' chunked wgmma
+    bodies at these shapes (phase_timing_la's docstring)."""
+    from repro_torch.kernels.defaults import LA_CHUNK_TOKENS, LA_WGMMA_SPLIT
+    tok_q, tok_kv = b * h * n, b * hkv * n
+    c, half, group = LA_CHUNK_TOKENS, d // 2, h // hkv
+    return {
+        "la_fwd": tok_q // c * LA_WGMMA_SPLIT * (
+            2 * c * c * d + 2 * c * d * half + 2 * c * c * half
+            + 2 * c * half * d),
+        "la_bwd_q": tok_q // c * 2 * (
+            2 * 2 * c * c * d + 3 * 2 * c * half * d + 2 * 2 * c * c * half
+            + 2 * c * half * d),
+        "la_bwd_kv": tok_kv // c * 2 * (
+            2 * 2 * 2 * c * half * d
+            + group * (2 * 2 * c * c * d + 2 * 2 * c * c * half
+                       + 2 * 2 * c * half * d)
+            + group * (2 * c * c * d + 3 * 2 * c * c * half
+                       + 2 * 2 * c * half * d))}
 
 
 def phase_timing_la(torch, ptxas):
@@ -2942,30 +3354,13 @@ def phase_timing_la(torch, ptxas):
     and the tensor-core and byte times beside, and times the token walk
     (which f32 inputs still run) in turns with it."""
     from repro_torch.kernels import linear_attention as la
-    from repro_torch.kernels.defaults import LA_CHUNK_TOKENS, LA_WGMMA_SPLIT
     m = LA_SHAPE
     b, h, hkv, n, d = m["b"], m["h"], m["hkv"], m["n"], m["d"]
     dtype = torch.bfloat16
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     q, k, v, om_hat, h_vec = _la_case(torch, gen, b, h, hkv, n, d, dtype)
-    it = q.element_size()
-    q_el, kv_el = b * h * n * d, b * hkv * n * d
-    tok_q, tok_kv = b * h * n, b * hkv * n
-    work = {
-        # q, k, v read; o written in the compute dtype, g in f32
-        "la_fwd": ((q_el + 2 * kv_el) * it + q_el * it + tok_q * 4,
-                   tok_q * 4 * d * (d + 1)),
-        # k, v read; Ω̂ and h read in f32; dq written
-        "la_bwd_q": (2 * kv_el * it + q_el * 4 + tok_q * 4 + q_el * it,
-                     tok_q * 4 * d * (d + 1)),
-        # q, k, v read; Ω̂ and h read in f32; dk, dv written.  The U
-        # update per query token and head, the dk and dv readouts per
-        # KV token and head
-        "la_bwd_kv": ((q_el + 2 * kv_el) * it + q_el * 4 + tok_q * 4
-                      + 2 * kv_el * it,
-                      tok_q * 2 * (d + 1) ** 2 + tok_kv * 4 * d * (d + 1)),
-    }
+    work = _la_work(b, h, hkv, n, d, q.element_size())
     calls = {
         "la_fwd": (lambda: la.la_fwd_torch(q, k, v, 1.0, 1.0),
                    lambda: la.la_fwd_cuda(q, k, v, 1.0, 1.0)),
@@ -2982,20 +3377,7 @@ def phase_timing_la(torch, ptxas):
         "la_bwd_q": lambda: la.la_bwd_q_cuda(kf, vf, om_hat, h_vec, 1.0),
         "la_bwd_kv": lambda: la.la_bwd_kv_cuda(qf, kf, vf, om_hat, h_vec,
                                                1.0, 1.0)}
-    c, half, group = LA_CHUNK_TOKENS, d // 2, h // hkv
-    tc_flops = {
-        "la_fwd": tok_q // c * LA_WGMMA_SPLIT * (
-            2 * c * c * d + 2 * c * d * half + 2 * c * c * half
-            + 2 * c * half * d),
-        "la_bwd_q": tok_q // c * 2 * (
-            2 * 2 * c * c * d + 3 * 2 * c * half * d + 2 * 2 * c * c * half
-            + 2 * c * half * d),
-        "la_bwd_kv": tok_kv // c * 2 * (
-            2 * 2 * 2 * c * half * d
-            + group * (2 * 2 * c * c * d + 2 * 2 * c * c * half
-                       + 2 * 2 * c * half * d)
-            + group * (2 * c * c * d + 3 * 2 * c * c * half
-                       + 2 * 2 * c * half * d))}
+    tc_flops = _la_tc_flops(b, h, hkv, n, d)
     c_bodies = {"la_fwd": _la_fwd_body(q, k, v),
                 **{e: _la_bwd_body(e, q, k, v, om_hat, h_vec)
                    for e in ("la_bwd_q", "la_bwd_kv")}}
@@ -3438,6 +3820,44 @@ def phase_timing_gla(torch, ptxas):
     return out
 
 
+def _ssd_work(b, g, h, n, dk, dv, it):
+    """(bytes, f32 flops of the token walk) of the three SSD kernels at
+    these shapes (phase_timing_ssd's docstring)."""
+    qk_el, v_el, tok = b * g * n * dk, b * h * n * dv, b * h * n
+    return {
+        # q, k, v, ld read; o written
+        "ssd_fwd": (2 * qk_el * it + v_el * it + tok * 4 + v_el * it,
+                    tok * 5 * dk * dv),
+        # k, v, ld, Ω read; the f32 dq partials written
+        "ssd_bwd_q": (qk_el * it + 2 * v_el * it + tok * 4 + tok * dk * 4,
+                      tok * 5 * dk * dv),
+        # q, k, v, ld, Ω read; the f32 dk partials and dv written
+        "ssd_bwd_kv": (2 * qk_el * it + 2 * v_el * it + tok * 4
+                       + tok * dk * 4 + v_el * 4, tok * 7 * dk * dv),
+    }
+
+
+def _ssd_tc_flops(b, h, n, dk, dv):
+    """The bf16 tensor-core flops of the three SSD kernels' chunked wgmma
+    bodies at these shapes (phase_timing_ssd's docstring)."""
+    from repro_torch.kernels.defaults import SSD_CHUNK_TOKENS
+    c = SSD_CHUNK_TOKENS
+    chunks = -(-n // c)
+    return {
+        "ssd_fwd": b * h * chunks * (2 * c * dk * (c + dv)
+                                     + 2 * c * dv * (c + dk)),
+        "ssd_bwd_q": b * h * chunks * (2 * c * c * dv
+                                       + 2 * (2 * c * dv * dk
+                                              + 2 * c * c * dk
+                                              + 2 * c * dv * dk)),
+        "ssd_bwd_kv": b * h * chunks * (2 * c * c * (dv + dk)
+                                        + 2 * (2 * c * dv * dk
+                                               + 2 * c * c * dk
+                                               + 2 * c * dk * dv
+                                               + 2 * c * c * dv
+                                               + 2 * c * dv * dk))}
+
+
 def phase_timing_ssd(torch, ptxas):
     """ssd_fwd, ssd_bwd_q and ssd_bwd_kv and their plain versions at
     mamba2-2.7b's training shapes (bf16, as the model hands them over; a
@@ -3462,26 +3882,13 @@ def phase_timing_ssd(torch, ptxas):
     ptxas registers and spills, its shared memory per block and the
     blocks an SM holds, and keeps the walk's bound beside."""
     from repro_torch.kernels import ssd
-    from repro_torch.kernels.defaults import SSD_CHUNK_TOKENS
     m = SSD_SHAPE
     b, g, h, n, dk, dv = m["b"], m["g"], m["h"], m["n"], m["dk"], m["dv"]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(19)
     q, k, v, ld, om = _ssd_case(torch, gen, b, g, h, n, dk, dv,
                                 torch.bfloat16, "init")
-    it = 2
-    qk_el, v_el, tok = b * g * n * dk, b * h * n * dv, b * h * n
-    work = {
-        # q, k, v, ld read; o written
-        "ssd_fwd": (2 * qk_el * it + v_el * it + tok * 4 + v_el * it,
-                    tok * 5 * dk * dv),
-        # k, v, ld, Ω read; the f32 dq partials written
-        "ssd_bwd_q": (qk_el * it + 2 * v_el * it + tok * 4 + tok * dk * 4,
-                      tok * 5 * dk * dv),
-        # q, k, v, ld, Ω read; the f32 dk partials and dv written
-        "ssd_bwd_kv": (2 * qk_el * it + 2 * v_el * it + tok * 4
-                       + tok * dk * 4 + v_el * 4, tok * 7 * dk * dv),
-    }
+    work = _ssd_work(b, g, h, n, dk, dv, 2)
     calls = {
         "ssd_fwd": (lambda: ssd.ssd_fwd_torch(q, k, v, ld),
                     lambda: ssd.ssd_fwd_cuda(q, k, v, ld)),
@@ -3490,21 +3897,7 @@ def phase_timing_ssd(torch, ptxas):
         "ssd_bwd_kv": (lambda: ssd.ssd_bwd_kv_torch(q, k, v, ld, om),
                        lambda: ssd.ssd_bwd_kv_cuda(q, k, v, ld, om)),
     }
-    chunks = -(-n // SSD_CHUNK_TOKENS)
-    c = SSD_CHUNK_TOKENS
-    tc_flops = {
-        "ssd_fwd": b * h * chunks * (2 * c * dk * (c + dv)
-                                     + 2 * c * dv * (c + dk)),
-        "ssd_bwd_q": b * h * chunks * (2 * c * c * dv
-                                       + 2 * (2 * c * dv * dk
-                                              + 2 * c * c * dk
-                                              + 2 * c * dv * dk)),
-        "ssd_bwd_kv": b * h * chunks * (2 * c * c * (dv + dk)
-                                        + 2 * (2 * c * dv * dk
-                                               + 2 * c * c * dk
-                                               + 2 * c * dk * dv
-                                               + 2 * c * c * dv
-                                               + 2 * c * dv * dk))}
+    tc_flops = _ssd_tc_flops(b, h, n, dk, dv)
     wgmma_fn = {"ssd_fwd": "sc::ssd_fwd_wgmma_kernel",
                 "ssd_bwd_q": "sq::ssd_bwd_q_wgmma_kernel",
                 "ssd_bwd_kv": "sk::ssd_bwd_kv_wgmma_kernel"}
@@ -3539,6 +3932,133 @@ def phase_timing_ssd(torch, ptxas):
             f"bf16: {out[name]}")
     log("[timing] ssd_fwd / ssd_bwd_q / ssd_bwd_kv: library_ms null: no "
         "single PyTorch call computes the SSD recurrence or its gradient")
+    del q, k, v, ld, om
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_timing_arch(torch, ptxas, arch_launches):
+    """The new architectures' instantiations, each beside its plain
+    version and its bound, with its launches on the main path (the arch's
+    serve and train runs): la_fwd, la_bwd_q and la_bwd_kv at each arch's
+    (H, Hkv, D) in bf16 (B=2, N=8192; the wgmma bodies at D = 128 with G
+    = 8, 16, 48, the token walks at D = 64 and 112) by loops in turns
+    with the plain versions; la_decode_fused at each arch's serving shape
+    (ARCH_SLOTS slots, bf16) by CUDA graph replays in turns with the
+    pythia serving shape's (row 3), rotating over enough states to exceed
+    the 50 MB L2; the SSD kernels at zamba2-7b's (64, 64) (the token
+    walks).  Each bf16 case is bounded by the function, whatever body
+    runs it: bytes at 3.35 TB/s against the chunked bodies' bf16
+    operations (`_la_tc_flops`, `_ssd_tc_flops`) at 989 TFLOP/s; the
+    token walk's own f32 operations at 67 TFLOP/s are kept beside as
+    `walk_bound`, a bound of that algorithm, not of the function."""
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.kernels import linear_attention as la
+    from repro_torch.kernels import ssd
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    bf16 = torch.bfloat16
+    out = {}
+    b, n = LA_SHAPE["b"], LA_SHAPE["n"]
+    for arch in ARCHS:
+        h, hkv, d = LA_ARCH_SHAPES[arch]
+        serve_l, train_l = arch_launches[arch]
+        q, k, v, om_hat, h_vec = _la_case(torch, gen, b, h, hkv, n, d, bf16)
+        work = _la_work(b, h, hkv, n, d, q.element_size())
+        tc = _la_tc_flops(b, h, hkv, n, d)
+        bodies = {"la_fwd": _la_fwd_body(q, k, v),
+                  **{e: _la_bwd_body(e, q, k, v, om_hat, h_vec)
+                     for e in ("la_bwd_q", "la_bwd_kv")}}
+        calls = {
+            "la_fwd": (lambda: la.la_fwd_torch(q, k, v, 1.0, 1.0),
+                       lambda: la.la_fwd_cuda(q, k, v, 1.0, 1.0)),
+            "la_bwd_q": (lambda: la.la_bwd_q_torch(k, v, om_hat, h_vec, 1.0),
+                         lambda: la.la_bwd_q_cuda(k, v, om_hat, h_vec, 1.0)),
+            "la_bwd_kv": (lambda: la.la_bwd_kv_torch(q, k, v, om_hat, h_vec,
+                                                     1.0, 1.0),
+                          lambda: la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec,
+                                                    1.0, 1.0))}
+        for name, (plain, kernel) in calls.items():
+            body, launch, c_geo = bodies[name]
+            kern, pl = _time_pair(torch, plain, kernel, reps=3)
+            rec = {"arch": arch, "shape": dict(b=b, h=h, hkv=hkv, n=n, d=d,
+                                               dtype="bfloat16"),
+                   "ms": min(kern), "ms_runs": kern, "plain_ms": min(pl),
+                   "plain_ms_runs": pl, "library_ms": None,
+                   **_bound(work[name][0], tc[name], BF16_TC_FLOP_PER_S),
+                   "walk_bound": _bound(*work[name]),
+                   "body": body, "threads": launch.threads,
+                   "smem_per_block": launch.smem, "grid": list(launch.grid),
+                   "c_plan": list(c_geo), "launches": train_l.get(name, 0)}
+            log(f"[timing arch] {name} {arch} (B={b} H={h} Hkv={hkv} N={n} "
+                f"D={d} bf16, {body}): {rec}")
+            out[f"{name}@{arch}"] = rec
+        del q, k, v, om_hat, h_vec
+        torch.cuda.empty_cache()
+
+    main_sets = [x[:5] for x in decode_state_sets(torch)]
+    main_fn = _rotating(df.la_decode_fused_cuda, main_sets, (1.0, 1.0))
+    for arch in ARCHS:
+        h, hkv, d = LA_ARCH_SHAPES[arch]
+        serve_l = arch_launches[arch][0]
+        state_bytes = ARCH_SLOTS * hkv * d * (d + 1) * 4
+        n_sets = max(8, -(-64 * 2 ** 20 // state_bytes))
+        sets = [_decode_case(torch, gen, ARCH_SLOTS, h, hkv, d, bf16)
+                for _ in range(n_sets)]
+        kern, main = _graph_time_pair(
+            torch, _rotating(df.la_decode_fused_cuda, sets, (1.0, 1.0)),
+            main_fn)
+        plain = [_time_loop(torch, _rotating(df.la_decode_fused_torch, sets,
+                                             (1.0, 1.0)), 50, 5)
+                 for _ in range(2)]
+        body, launch, c_geo = _recurrent_decode_body(*sets[0])
+        rec = {"arch": arch, "shape": dict(b=ARCH_SLOTS, h=h, hkv=hkv, d=d,
+                                           dtype="bfloat16"),
+               "ms": min(kern), "ms_runs": kern,
+               "timed_by": "CUDA graph replays",
+               "row3_shape_ms_runs_in_turns": main,
+               "rotating_states": n_sets, "plain_ms": min(plain),
+               "plain_ms_runs": plain, "library_ms": None,
+               **_bound(*_decode_work(ARCH_SLOTS, h, hkv, d, 2)),
+               "body": body, "threads": launch.threads,
+               "smem_per_block": launch.smem, "grid": list(launch.grid),
+               "c_plan": list(c_geo),
+               "ptxas": _ptxas_of(ptxas, "la_decode_fused",
+                                  f"ds::decode_stream_kernel<__nv_bfloat16, "
+                                  f"{h // hkv}, false>"),
+               "launches": serve_l.get("la_decode_fused", 0)}
+        log(f"[timing arch] la_decode_fused {arch}: {rec}")
+        out[f"la_decode_fused@{arch}"] = rec
+        del sets
+    del main_sets
+
+    z = SSD_ZAMBA2_SHAPE
+    b, g, h, n, dk, dv = z["b"], z["g"], z["h"], z["n"], z["dk"], z["dv"]
+    q, k, v, ld, om = _ssd_case(torch, gen, b, g, h, n, dk, dv, bf16,
+                                "init")
+    work = _ssd_work(b, g, h, n, dk, dv, 2)
+    tc = _ssd_tc_flops(b, h, n, dk, dv)
+    train_l = arch_launches["zamba2-7b"][1]
+    calls = {
+        "ssd_fwd": (lambda: ssd.ssd_fwd_torch(q, k, v, ld),
+                    lambda: ssd.ssd_fwd_cuda(q, k, v, ld)),
+        "ssd_bwd_q": (lambda: ssd.ssd_bwd_q_torch(k, v, ld, om),
+                      lambda: ssd.ssd_bwd_q_cuda(k, v, ld, om)),
+        "ssd_bwd_kv": (lambda: ssd.ssd_bwd_kv_torch(q, k, v, ld, om),
+                       lambda: ssd.ssd_bwd_kv_cuda(q, k, v, ld, om))}
+    for name, (plain, kernel) in calls.items():
+        body, launch, c_geo = _ssd_body(name, q, k, v, ld, om)
+        kern, pl = _time_pair(torch, plain, kernel, reps=3)
+        rec = {"arch": "zamba2-7b", "shape": dict(z, dtype="bfloat16"),
+               "ms": min(kern), "ms_runs": kern, "plain_ms": min(pl),
+               "plain_ms_runs": pl, "library_ms": None,
+               **_bound(work[name][0], tc[name], BF16_TC_FLOP_PER_S),
+               "walk_bound": _bound(*work[name]),
+               "body": body, "threads": launch.threads,
+               "smem_per_block": launch.smem, "grid": list(launch.grid),
+               "c_plan": list(c_geo), "launches": train_l.get(name, 0)}
+        log(f"[timing arch] {name} zamba2-7b ({body}): {rec}")
+        out[f"{name}@zamba2-7b"] = rec
     del q, k, v, ld, om
     torch.cuda.empty_cache()
     return out
@@ -3601,13 +4121,18 @@ def main() -> int:
                     "softmax_paged": tokens_pg, "gla_paged": tokens_glp},
         smi)
     serve_m2, serve_m2_launches, _ = phase_serve(torch, np, "mamba2")
+    serve_archs = {arch: phase_arch_serve(torch, np, arch)
+                   for arch in ARCHS}
     smoke_errs = {arch: phase_smoke_reference(torch, arch)
-                  for arch in ("pythia-1.4b", "mamba2-2.7b")}
+                  for arch in ("pythia-1.4b", "mamba2-2.7b", *ARCHS)}
     torch.cuda.empty_cache()
     train, train_launches = phase_train(torch, "linear")
     train_sm, train_sm_launches = phase_train(torch, "softmax")
     train_gla, train_gla_launches = phase_train(torch, "gla")
     train_m2, train_m2_launches = phase_train(torch, "mamba2")
+    train_archs = {arch: phase_arch_train(torch, arch) for arch in ARCHS}
+    arch_launches = {arch: (serve_archs[arch][1], train_archs[arch][1])
+                     for arch in ARCHS}
     timing = {"la_decode_fused": phase_timing(torch, ptxas),
               **phase_timing_la(torch, ptxas),
               **phase_timing_softmax(torch, ptxas),
@@ -3615,13 +4140,15 @@ def main() -> int:
               **phase_timing_gla(torch, ptxas),
               **phase_timing_ssd(torch, ptxas),
               "oob_blocked_sum": phase_timing_fixture(torch)}
+    timing_arch = phase_timing_arch(torch, ptxas, arch_launches)
 
     # each kernel's launches summed over the main-path runs (every other
     # run left it at 0, expect_launches checked)
     runs = (serve_launches, serve_sm_launches, serve_pg_launches,
             serve_pgu_launches, serve_gla_launches, serve_glp_launches,
             *serve_pre_launches, serve_m2_launches, train_launches,
-            train_sm_launches, train_gla_launches, train_m2_launches)
+            train_sm_launches, train_gla_launches, train_m2_launches,
+            *(x for pair in arch_launches.values() for x in pair))
     launches = {k: sum(r[k] for r in runs) for k in KERNELS}
     # the fixture's: those of the check path
     launches["oob_blocked_sum"] = check_launches["oob_blocked_sum"]
@@ -3645,7 +4172,9 @@ def main() -> int:
         "bound_by": timing[kname]["bound_by"],
         "library_ms": timing[kname].get("library_ms")} for kname in KERNELS]}
     for rec in (serve, serve_sm, serve_pg, serve_gla, serve_glp, serve_m2,
-                train, train_sm, train_gla, train_m2):
+                train, train_sm, train_gla, train_m2,
+                *(serve_archs[a][0] for a in ARCHS),
+                *(train_archs[a][0] for a in ARCHS)):
         rec["card"] = smi
     print(json.dumps({"serve": serve, "serve_softmax": serve_sm,
                       "serve_softmax_paged": serve_pg,
@@ -3654,6 +4183,9 @@ def main() -> int:
                       "serve_mamba2": serve_m2,
                       "train": train, "train_softmax": train_sm,
                       "train_gla": train_gla, "train_mamba2": train_m2,
+                      "serve_archs": {a: serve_archs[a][0] for a in ARCHS},
+                      "train_archs": {a: train_archs[a][0] for a in ARCHS},
+                      "timing_arch": timing_arch,
                       "build_s": build_s, "ptxas": ptxas, "check": check,
                       "kernel_max_abs_err": kernel_errs,
                       "la_kernel_max_abs_err": la_errs,

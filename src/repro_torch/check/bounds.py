@@ -216,15 +216,28 @@ def _ints(values) -> torch.Tensor:
 
 
 # the widths of each driver: the reference's small ones (head dims raised
-# to the kernels' smallest instantiation, 32) and a registry model's
+# to the kernels' smallest instantiation, 32) and registry models': pythia
+# and mamba2, granite-20b's group of 48 query heads on one KV head and
+# zamba2-7b's shared attention (head dim 112) and Mamba-2 layers (64, 64)
 WIDTHS = {
     "small": dict(h=4, hkv=2, d=32, dtype=F32),
     "pythia-1.4b": dict(h=16, hkv=16, d=128, dtype=BF16),
+    "granite-20b": dict(h=48, hkv=1, d=128, dtype=BF16),
+    "zamba2-7b": dict(h=32, hkv=32, d=112, dtype=BF16),
 }
 SSD_WIDTHS = {
     "small": dict(g=2, h=4, dk=16, dv=32, dtype=F32),
     "mamba2-2.7b": dict(g=1, h=80, dk=128, dv=64, dtype=BF16),
+    "zamba2-7b": dict(g=1, h=112, dk=64, dv=64, dtype=BF16),
 }
+# the models' widths each family is driven at beside the small ones: the
+# linear entries and the linear decode step also at granite-20b's and
+# zamba2-7b's (their kernels take these shapes; gla, softmax and paging
+# do not take zamba2's head dim, nor softmax granite's group)
+FULL_WIDTHS = {"ssd": ("mamba2-2.7b", "zamba2-7b"),
+               "linear": ("pythia-1.4b", "granite-20b", "zamba2-7b"),
+               "linear_decode_fused": ("pythia-1.4b", "granite-20b",
+                                       "zamba2-7b")}
 
 
 def _linear_cases(width, gated):
@@ -384,9 +397,11 @@ DRIVERS = {
 
 
 def cases(family: str) -> list[Case]:
-    """Every case of a family: at the small widths, then a model's."""
-    full = "mamba2-2.7b" if family == "ssd" else "pythia-1.4b"
-    return DRIVERS[family]("small") + DRIVERS[family](full)
+    """Every case of a family: at the small widths, then the models'."""
+    out = DRIVERS[family]("small")
+    for width in FULL_WIDTHS.get(family, ("pythia-1.4b",)):
+        out += DRIVERS[family](width)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,13 @@
               meta tensors, so the analyzer and the launcher cannot
               disagree; where a launcher shrinks its staging to fit
               (`la_bwd_kv` for large query groups) the coverage record
-              gives the stage it keeps.
+              gives the stage it keeps.  An architecture runs the
+              kernels of every backend whose kernels take its shapes:
+              the hybrid's shared block the linear ones (the launchers
+              refuse gla and softmax for its head dim 112), and the
+              softmax decode kernels only at their query groups (not
+              granite-20b's 48); the coverage record lists what is left
+              out.
   REPRO-V002  reserved: the port has no tuning cache yet (ROADMAP queue 1
               item 10); the coverage record says so.
 """
@@ -51,24 +57,44 @@ def registry_cells() -> list[tuple[str, str, dict]]:
                     "n": 1 if sc.kind == "decode" else sc.seq_len,
                     "cache": sc.seq_len, "family": cfg.family}
             if cfg.ssm is not None:
-                dims.update(dk=cfg.ssm.state_dim, dv=cfg.ssm.head_dim,
-                            h=cfg.d_model * cfg.ssm.expand // cfg.ssm.head_dim,
-                            g=1)
+                dims["ssm"] = dict(
+                    dk=cfg.ssm.state_dim, dv=cfg.ssm.head_dim,
+                    h=cfg.d_model * cfg.ssm.expand // cfg.ssm.head_dim, g=1)
             cells.append((arch, name, dims))
     return cells
+
+
+def left_out(dims: dict) -> list[str]:
+    """The entries a cell's architecture does not run on the card: the
+    backends whose kernels do not take its shapes."""
+    family = dims["family"]
+    if family == "ssm":
+        return []
+    out = []
+    if family == "hybrid":
+        out += ["gla_fwd", "gla_bwd_q", "gla_bwd_kv", "gla_decode_fused",
+                "flash_fwd", "flash_bwd_delta", "flash_bwd_q",
+                "flash_bwd_kv"]
+    if family == "hybrid" or dims["h"] // dims["hkv"] not in df.GROUPS:
+        out += ["softmax_decode_fused", "paged_attention",
+                "paged_decode_fused"]
+    return out
 
 
 def cell_plans(dims: dict, dtype) -> list:
     """The launch plans of every entry the cell's architecture runs."""
     b, n = dims["b"], dims["n"]
+    plans = []
+    if "ssm" in dims:
+        m = dims["ssm"]
+        q = _meta(b, m["g"], n, m["dk"], dtype=dtype)
+        v = _meta(b, m["h"], n, m["dv"], dtype=dtype)
+        ld = _meta(b, m["h"], n)
+        plans += [ssd.plan_ssd_fwd(q, q, v, ld),
+                  ssd.plan_ssd_bwd_q(q, v, ld, v),
+                  ssd.plan_ssd_bwd_kv(q, q, v, ld, v)]
     if dims["family"] == "ssm":
-        g, h, dk, dv = dims["g"], dims["h"], dims["dk"], dims["dv"]
-        q = _meta(b, g, n, dk, dtype=dtype)
-        v = _meta(b, h, n, dv, dtype=dtype)
-        ld = _meta(b, h, n)
-        return [ssd.plan_ssd_fwd(q, q, v, ld),
-                ssd.plan_ssd_bwd_q(q, v, ld, v),
-                ssd.plan_ssd_bwd_kv(q, q, v, ld, v)]
+        return plans
     h, hkv, d, s_len = dims["h"], dims["hkv"], dims["d"], dims["cache"]
     q = _meta(b, h, n, d, dtype=dtype)
     kv = _meta(b, hkv, n, d, dtype=dtype)
@@ -81,21 +107,34 @@ def cell_plans(dims: dict, dtype) -> list:
     state = (_meta(b, hkv, d, d + 1), _meta(b, hkv, d + 1))
     step = (_meta(b, h, d, dtype=dtype), _meta(b, hkv, d, dtype=dtype),
             _meta(b, hkv, d, dtype=dtype))
-    return [la.plan_la_fwd(q, kv, kv, 1.0, 1.0),
-            la.plan_la_bwd_q(kv, kv, om, h_vec, 1.0),
-            la.plan_la_bwd_kv(q, kv, kv, om, h_vec, 1.0, 1.0),
-            gla.plan_gla_fwd(q, kv, kv, ld, 1.0, 1.0),
-            gla.plan_gla_bwd_q(kv, kv, ld, om, h_vec, 1.0),
-            gla.plan_gla_bwd_kv(q, kv, kv, ld, om, h_vec, 1.0, 1.0),
-            fl.plan_flash_fwd(q, kv, kv),
-            fl.plan_flash_bwd_delta(q, q),
-            fl.plan_flash_bwd_q(q, kv, kv, q, h_vec, h_vec),
-            fl.plan_flash_bwd_kv(q, kv, kv, q, h_vec, h_vec),
-            df.plan_la_decode_fused(*state, *step, 1.0, 1.0),
-            df.plan_gla_decode_fused(*state, *step, _meta(b, hkv), 1.0, 1.0),
-            df.plan_softmax_decode_fused(q1, cache, cache, lengths),
-            pg.plan_paged_attention(q1, pages, pages, table, lengths),
-            df.plan_paged_decode_fused(q1, pages, pages, table, lengths)]
+    every = {
+        "la_fwd": lambda: la.plan_la_fwd(q, kv, kv, 1.0, 1.0),
+        "la_bwd_q": lambda: la.plan_la_bwd_q(kv, kv, om, h_vec, 1.0),
+        "la_bwd_kv": lambda: la.plan_la_bwd_kv(q, kv, kv, om, h_vec, 1.0,
+                                               1.0),
+        "gla_fwd": lambda: gla.plan_gla_fwd(q, kv, kv, ld, 1.0, 1.0),
+        "gla_bwd_q": lambda: gla.plan_gla_bwd_q(kv, kv, ld, om, h_vec, 1.0),
+        "gla_bwd_kv": lambda: gla.plan_gla_bwd_kv(q, kv, kv, ld, om, h_vec,
+                                                  1.0, 1.0),
+        "flash_fwd": lambda: fl.plan_flash_fwd(q, kv, kv),
+        "flash_bwd_delta": lambda: fl.plan_flash_bwd_delta(q, q),
+        "flash_bwd_q": lambda: fl.plan_flash_bwd_q(q, kv, kv, q, h_vec,
+                                                   h_vec),
+        "flash_bwd_kv": lambda: fl.plan_flash_bwd_kv(q, kv, kv, q, h_vec,
+                                                     h_vec),
+        "la_decode_fused": lambda: df.plan_la_decode_fused(*state, *step,
+                                                           1.0, 1.0),
+        "gla_decode_fused": lambda: df.plan_gla_decode_fused(
+            *state, *step, _meta(b, hkv), 1.0, 1.0),
+        "softmax_decode_fused": lambda: df.plan_softmax_decode_fused(
+            q1, cache, cache, lengths),
+        "paged_attention": lambda: pg.plan_paged_attention(
+            q1, pages, pages, table, lengths),
+        "paged_decode_fused": lambda: df.plan_paged_decode_fused(
+            q1, pages, pages, table, lengths)}
+    skip = left_out(dims)
+    return plans + [make() for name, make in every.items()
+                    if name not in skip]
 
 
 def check_defaults(cells=None) -> tuple[list[Finding], dict]:
@@ -128,6 +167,8 @@ def run(log=lambda s: None) -> tuple[list[Finding], list[dict]]:
     coverage = [{"pass": "smem", "cells": len(cells),
                  "archs": sorted(_MODULES), "shapes": sorted(SHAPES),
                  "least_stage": stages,
+                 "left_out": {arch: left_out(dims)
+                              for arch, _, dims in cells if left_out(dims)},
                  "not_audited": {"REPRO-V002": "the port has no tuning "
                                                "cache yet"}}]
     return findings, coverage

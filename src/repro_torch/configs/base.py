@@ -4,9 +4,10 @@ Only what the ported paths read is kept: `LACfg`, `ModelConfig` (its
 fields, `resolved_head_dim` and `param_count`), the optional blocks
 `ModelConfig` names, `TrainConfig`, and the workload shapes `SHAPES`
 (read by `repro_torch.check.smem`).  `SSMCfg` is read by the mamba2
-mixer; the other family extensions (MoE, MLA, hybrid, enc-dec) keep
-their fields so `param_count` matches the reference, but no module of
-the port reads them yet.
+mixer and the `hybrid_*` fields by the hybrid family (zamba2-7b); the
+other family extensions (MoE, MLA, enc-dec) keep their fields so
+`param_count` matches the reference, but no module of the port reads
+them yet.
 """
 from __future__ import annotations
 

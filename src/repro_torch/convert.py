@@ -4,11 +4,14 @@
 `repro.models.model.init_params` as numpy arrays (e.g. after
 `jax.tree.map(np.asarray, params)`) and returns the port's tree: the
 layer axis that the reference's `_stack_init` puts on axis 0 of every
-`blocks` leaf is unstacked into a list of per-layer dicts.  Dense
-weights keep their (d_in, d_out) layout, so each one is a copy; the
-learnable coefficients `la_a` / `la_b` (one scalar per layer, stacked
-to (L,)) become one 0-d f32 tensor per layer.  A tree with tied
-embeddings (mamba2) has no `lm_head` and the port's has none either.
+`blocks` leaf (dense and ssm families) is unstacked into a list of
+per-layer dicts; in the hybrid family (zamba2) `mamba_groups`, stacked
+(g, m, ...), becomes g lists of m, `tail`, stacked (t, ...), a list of
+t, and the one `shared_attn` block is not stacked.  Dense weights keep
+their (d_in, d_out) layout, so each one is a copy; the learnable
+coefficients `la_a` / `la_b` (one scalar per layer, stacked to (L,))
+become one 0-d f32 tensor per layer.  A tree with tied embeddings
+(mamba2, qwen2.5) has no `lm_head` and the port's has none either.
 """
 from __future__ import annotations
 
@@ -32,15 +35,30 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def _unstack(tree, dev, *index):
+    """The layer at `index` of a stacked subtree."""
+    return _map(lambda a: _tensor(np.asarray(a)[index], dev), tree)
+
+
 def params_from_jax(cfg, tree, device="cuda"):
-    if cfg.family not in ("dense", "ssm") or "prefix_blocks" in tree:
+    if cfg.family not in ("dense", "ssm", "hybrid") \
+            or "prefix_blocks" in tree:
         raise NotImplementedError(
-            f"params_from_jax covers the dense and ssm families; got "
-            f"{cfg.family!r}")
+            f"params_from_jax covers the dense, ssm and hybrid families; "
+            f"got {cfg.family!r}")
     dev = resolve_device(device)
+    stacked = ("blocks", "mamba_groups", "tail")
     out = {k: _map(lambda a: _tensor(a, dev), v)
-           for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [_map(lambda a, i=i: _tensor(np.asarray(a)[i], dev),
-                          tree["blocks"])
+           for k, v in tree.items() if k not in stacked}
+    if cfg.family == "hybrid":
+        out["mamba_groups"] = [
+            [_unstack(tree["mamba_groups"], dev, i, j)
+             for j in range(cfg.hybrid_mamba_per_group)]
+            for i in range(cfg.hybrid_groups)]
+        if "tail" in tree:
+            out["tail"] = [_unstack(tree["tail"], dev, i)
+                           for i in range(cfg.hybrid_tail)]
+        return out
+    out["blocks"] = [_unstack(tree["blocks"], dev, i)
                      for i in range(cfg.num_layers)]
     return out

@@ -43,14 +43,15 @@
 // compute type T (float or bf16); om (B, H, N, D) and h (B, H, N) f32;
 // ld (B, Hkv, N) f32 (gated only); dq (B, H, N, D) and dk (B, Hkv, N, D)
 // in T; dv (B, Hkv, N, D) in T, or gated dV' (B, Hkv, N, D+1) in f32.
-// Dk = Dv = D, a template parameter (32, 64 or 128) so that a state row or
+// Dk = Dv = D, a template parameter (32, 64 or 128; the linear walks also
+// 112, where a role's shuffles name only its own lanes) so that a state row or
 // column lives in registers.
 //
 // Two bodies of each entry, chosen by the launcher from the dtype and D:
 // the chunked wgmma bodies (namespaces bq and bkv; gla_bwd_q and
 // gla_bwd_kv run their kGated instances) for bf16 at D = 128, the
 // training instance; the token walk (the gated entries its kGated
-// instantiation) for f32 and for D < 128.
+// instantiation) for f32 and at every other D.
 //
 // What bounds them (estimates from the shapes, not measurements; B=2,
 // H=Hkv=16, N=8192, D=128): the token walk of la_bwd_q does 4 D (D+1)
@@ -1127,19 +1128,30 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, int len,
     const int t = e / D;
     float vals[V];
     load16(src + e, vals);
-    float* out = dst + t * Rows<D>::kPadded + Rows<D>::at(e - t * D);
+    float* row = dst + t * Rows<D>::kPadded;
+    // each 4 values to their own place: a load of 8 bf16 values may
+    // straddle a row group where D / 4 is not a multiple of 8 (D = 112)
 #pragma unroll
     for (int i = 0; i < V; i += 4)
-      *reinterpret_cast<float4*>(out + i) =
+      *reinterpret_cast<float4*>(row + Rows<D>::at(e - t * D + i)) =
           make_float4(vals[i], vals[i + 1], vals[i + 2], vals[i + 3]);
   }
 }
 
 // Sum over the 4 adjacent lanes (lane ^ 1, lane ^ 2) that hold the
-// partial dots of one tile row.
-__device__ __forceinline__ float sum4(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+// partial dots of one tile row; `mask` names the lanes of the warp that
+// take part (all 32 unless D % 32 != 0).
+__device__ __forceinline__ float sum4(float x, unsigned mask) {
+  x += __shfl_xor_sync(mask, x, 1);
+  return x + __shfl_xor_sync(mask, x, 2);
+}
+
+// The lanes of thread tid's warp with a thread index below `bound`: where
+// D % 32 != 0 (at D = 112) a role ends inside a warp, and each role's
+// shuffles name only its own lanes.
+__device__ __forceinline__ unsigned lanes_below(int tid, int bound) {
+  const int live = bound - (tid & ~31);
+  return live >= 32 ? 0xffffffffu : live <= 0 ? 0u : (1u << live) - 1u;
 }
 
 // ---------------------------------------------------------------------------
@@ -1175,6 +1187,7 @@ __global__ void la_bwd_q_kernel(const T* __restrict__ k,
   const int nthr = blockDim.x;
   const int cg = tid & 3;   // column group of the tile
   const int dg = tid >> 2;  // rows 4dg..4dg+3 of A
+  const unsigned mask = lanes_below(tid, D);
 
   float at_[4][R];  // A[4dg + r, cg*R + e]
   float a1[4];      // A[4dg + r, Dv] = running sum of k[4dg + r]
@@ -1229,7 +1242,7 @@ __global__ void la_bwd_q_kernel(const T* __restrict__ k,
       const float ht = h_sh[t];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        acc[r] = sum4(acc[r]);
+        acc[r] = sum4(acc[r], mask);
         if constexpr (kGated)
           a1[r] = fmaf(gam, a1[r], kk[r]);
         else
@@ -1306,6 +1319,9 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
   // column role: rows ((tid-D)%4)*R.., columns 4*((tid-D)/4)..
   const bool row_role = tid < D;
   const int x = row_role ? tid : tid - D;
+  // this role's lanes of the warp (at D = 112 warp 3 holds both roles)
+  const unsigned mask = row_role ? lanes_below(tid, D)
+                                 : ~lanes_below(tid, D);
   const int grp4 = x >> 2;  // which 4 rows (row role) or 4 columns
   const int sub = x & 3;    // which D/4 columns (row role) or rows
 
@@ -1397,7 +1413,7 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
           }
         }
 #pragma unroll
-        for (int r = 0; r < 4; ++r) acc[r] = sum4(acc[r]);
+        for (int r = 0; r < 4; ++r) acc[r] = sum4(acc[r], mask);
         if (sub == 0) {
           T* out = dk + kv_row + static_cast<size_t>(t) * D + 4 * grp4;
 #pragma unroll
@@ -1455,7 +1471,7 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
           }
         }
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[c] = sum4(acc[c]);
+        for (int c = 0; c < 4; ++c) acc[c] = sum4(acc[c], mask);
         if (sub == 0) {
           TV* out = dv_row + 4 * grp4;
 #pragma unroll
@@ -1504,7 +1520,7 @@ cudaError_t with_launch_q(int dtype, int d, int batch, int heads, int stage,
                  plan::Int<1>{});
       }
     }
-    return plan::with_head_dim(d, [&](auto dc) {
+    return plan::with_walk_head_dim<kGated>(d, [&](auto dc) {
       constexpr int D = decltype(dc)::value;
       const size_t per_token =
           static_cast<size_t>(3 * Rows<D>::kPadded + 1 + (kGated ? 1 : 0)) *
@@ -1538,7 +1554,7 @@ cudaError_t with_launch_kv(int dtype, int d, int batch, int heads,
                  plan::Int<1>{});
       }
     }
-    return plan::with_head_dim(d, [&](auto dc) {
+    return plan::with_walk_head_dim<kGated>(d, [&](auto dc) {
       constexpr int D = decltype(dc)::value;
       const size_t per_token =
           static_cast<size_t>((2 * group + 2) * Rows<D>::kPadded + group +

@@ -27,12 +27,17 @@
 // element (one more multiply per element when gated).  At B=8, Hkv=16,
 // Dk=Dv=128 one launch moves 2 * 8*16*128*129 * 4 B ~= 16.9 MB, ~5 us at
 // 3.35 TB/s (an estimate from the shapes, not a measurement); the gate adds
-// 512 B of ld.
+// 512 B of ld.  Dk and Dv are runtime values (zamba2-7b's 112 streams as
+// 128 does).
 //
-// Two bodies, chosen by the launcher from the dims alone, for both entries:
+// Two bodies, chosen by the launcher from the dims and the group, for both
+// entries:
 //   * the state stream (namespace ds) wherever Dk % 4 == 0 and
-//     4 (Dv + 1) <= 1024, below;
+//     4 (Dv + 1) <= 1024 (<= 576 for a group of more than 16), below;
 //   * the column walk at other dims, the first design.
+// G, the query heads of a KV head, is a template parameter (1, 2, 4, 8,
+// 16 or 48) so that its partial dots live in registers; the state is
+// updated once per step whatever G.
 //
 // Design of the column walk (simple first):
 //   * one block per (slot, KV head), so the state slab of a block is one
@@ -55,8 +60,9 @@
 //     f32 slab through a ring of chunks of kRows rows in shared memory,
 //     each chunk one 1-D bulk copy (`cp.async.bulk`, completion on an
 //     mbarrier; a run of a multiple of 4 rows starts 16-byte aligned when
-//     Dk % 4 == 0).  The ring holds as many chunks as fit kMaxSmem, up to
-//     kMaxStages (5 x 8,256 B at Dv = 128), all in flight from the start;
+//     Dk % 4 == 0).  The ring holds as many chunks as fit kMaxSmem (a
+//     wide group: ds::max_smem), up to kMaxStages (5 x 8,256 B at Dv =
+//     128), all in flight from the start;
 //   * 4 (Dv+1) threads sweep a chunk linearly, thread t = ry (Dv+1) + j
 //     on column j of rows ry, ry + 4, ... (row class ry), each S element
 //     updated in shared memory exactly as the column walk does it,
@@ -181,6 +187,26 @@ constexpr int kRows = 16;     // state rows of a chunk
 constexpr int kClasses = 4;   // row classes: a thread's rows in a chunk
 constexpr int kMaxStages = 5;
 constexpr int kMinStages = 2;
+// A wide query group (granite-20b's 48 heads on one KV head) keeps G
+// partial dots a thread in registers: its blocks are capped at
+// kWideThreads threads, so each may hold 112 registers, and its G query
+// rows, G rows f and the classes' G partial dots (124,720 B at G = 48, Dv =
+// 128) take shared memory past the 48 KB every block has without opting
+// in, up to the card's opt-in maximum.
+constexpr int kWideGroup = 16;
+constexpr int kWideThreads = 576;
+constexpr size_t kWideSmem = 232448;
+
+// the most threads a block of the stream for a group of `group` has
+__host__ __device__ constexpr int max_threads(int group) {
+  return group > kWideGroup ? kWideThreads : kMaxThreads;
+}
+
+// the most shared memory the stream's block for a group of `group` takes:
+// the launcher refuses more
+inline size_t max_smem(int group) {
+  return group > kWideGroup ? kWideSmem : kMaxSmem;
+}
 
 // Byte offsets of the stream's shared memory: the ring of `stages` chunks
 // (after the stream, the partial dots of row classes 1..kClasses-1, G
@@ -206,18 +232,18 @@ __host__ __device__ inline Layout layout(int dk, int dv, int group,
   return l;
 }
 
-// whether the stream takes these dims: 16-byte aligned chunks, and one
-// thread per column and row class
-inline bool takes(int dk, int dv) {
-  return dk % 4 == 0 && kClasses * (dv + 1) <= kMaxThreads;
+// whether the stream takes these dims and group: 16-byte aligned chunks,
+// and one thread per column and row class
+inline bool takes(int dk, int dv, int group) {
+  return dk % 4 == 0 && kClasses * (dv + 1) <= max_threads(group);
 }
 
 // the most stages, at most one a chunk and kMaxStages, down to kMinStages,
-// whose layout fits kMaxSmem
+// whose layout fits max_smem(group)
 inline int stages_for(int dk, int dv, int group) {
   int stages = std::min(kMaxStages, (dk + kRows - 1) / kRows);
   while (stages > kMinStages &&
-         layout(dk, dv, group, stages).total > kMaxSmem)
+         layout(dk, dv, group, stages).total > max_smem(group))
     --stages;
   return stages;
 }
@@ -227,7 +253,7 @@ inline int stages_for(int dk, int dv, int group) {
 // f[:Dv] / f[Dv]; γ = exp(ld[bh]) where kGated, else 1 (ld not read).  s
 // must be 16-byte aligned (the launcher checks it).
 template <typename T, int G, bool kGated>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(max_threads(G))
     decode_stream_kernel(float* __restrict__ s, float* __restrict__ p,
                              const T* __restrict__ q,
                              const T* __restrict__ k,
@@ -362,8 +388,9 @@ namespace {
 // The launch of la_decode_fused / gla_decode_fused, shared by the launcher
 // and `la_decode_fused_plan`: f(Type<T>{}, kernel, geometry, Int<stream>{})
 // for the instantiation a call with these arguments runs, at most
-// kMaxSmem of shared memory (the launcher refuses more).  Both entries
-// stream the state wherever ds::takes the dims: one block per (slot, KV
+// kMaxSmem of shared memory (the stream for a wide group: ds::max_smem;
+// the launcher refuses more).  Both entries stream the state wherever
+// ds::takes the dims and group: one block per (slot, KV
 // head) of 4 (Dv+1) threads rounded up to warps, the ring's stages in
 // geometry.stage.  Otherwise the column walk: one block per (slot, KV
 // head); threads stride over the Dv+1 columns; k, [v, 1], the group's G
@@ -374,10 +401,10 @@ cudaError_t with_launch(int dtype, int group, int batch, int kv_heads,
   const int dv1 = dv + 1;
   const int threads = std::min((dv1 + 31) / 32 * 32, kMaxThreads);
   return plan::with_dtype(dtype, [&](auto t) {
-    return plan::with_group(group, [&](auto gc) {
+    return plan::with_decode_group(group, [&](auto gc) {
       using T = typename decltype(t)::type;
       constexpr int G = decltype(gc)::value;
-      if (ds::takes(dk, dv)) {
+      if (ds::takes(dk, dv, G)) {
         const int stages = ds::stages_for(dk, dv, G);
         return f(t, ds::decode_stream_kernel<T, G, kGated>,
                  plan::Geometry{dim3(batch * kv_heads),
@@ -410,7 +437,10 @@ int run(void* s, void* p, const void* q, const void* k, const void* v,
       dtype, heads / kv_heads, batch, kv_heads, dk, dv,
       [&](auto t, auto kernel, const plan::Geometry& geo, auto body) {
         using T = typename decltype(t)::type;
-        if (geo.smem > kMaxSmem) return cudaErrorInvalidValue;
+        const size_t limit = decltype(body)::value == 1
+                                 ? ds::max_smem(heads / kv_heads)
+                                 : kMaxSmem;
+        if (geo.smem > limit) return cudaErrorInvalidValue;
         const cudaStream_t st = static_cast<cudaStream_t>(stream);
         if constexpr (decltype(body)::value == 1) {
           // the bulk copies need the slab 16-byte aligned

@@ -28,13 +28,13 @@
 // compute type T (float or bf16), o (B, H, N, D) in T, g (B, H, N) f32,
 // ld (B, Hkv, N) f32 (gated only: one decay per KV head, shared by its
 // query group).  H = G * Hkv, and query head h reads KV head h / G.
-// Dk = Dv = D, a template parameter (32, 64 or 128) so that a state column
-// lives in registers.
+// Dk = Dv = D, a template parameter (32, 64 or 128; `la_fwd`'s walk also
+// 112) so that a state column lives in registers.
 //
 // Two bodies of each entry, chosen by the launcher from the dtype and D:
 // the chunked wgmma body (namespace lc; gla_fwd its kGated instance) for
 // bf16 at D = 128, the training instance; the token walk (gla_fwd its
-// kGated instantiation) for f32 and for D < 128.
+// kGated instantiation) for f32 and at every other D.
 //
 // What bounds them: the recurrent form does 4 D (D+1) flops per token and
 // head (the state update and the q.S readout; gated, 5 D (D+1) with the
@@ -96,7 +96,10 @@
 //     sum their partial q.S dots with two shuffles;
 //   * one more warp keeps the normalizer column (the running sum of k)
 //     and its q dot, reduced across the warp; P's normalizer entry is
-//     the token count;
+//     the token count.  It starts on a warp boundary: the D value threads
+//     are rounded up to whole warps (at D = 112, 128 of which 112 work),
+//     their shuffles name only the working lanes, and the normalizer
+//     warp's lanes take ceil(D / 32) rows each (at 112, lanes 0..27);
 //   * per iteration the block stages `stage` tokens of q, k and v in
 //     shared memory as f32 (bf16 products are exact in f32) by 16-byte
 //     loads, each row padded by 4 floats per row group so that the row
@@ -546,6 +549,22 @@ struct Rows {
   __device__ static int at(int r) { return r + 4 * (r / kGroup); }
 };
 
+// The value threads of a walk: D rounded up to whole warps, so the warp
+// after them starts on a warp boundary; threads D.. of the last value warp
+// (at D = 112, its lanes 16..31) only stage and wait.
+template <int D>
+struct ValueThreads {
+  static constexpr int value = (D + 31) / 32 * 32;
+};
+
+// The lanes of thread tid's warp that are among the first D threads: the
+// members of the value threads' shuffles.
+template <int D>
+__device__ __forceinline__ unsigned value_mask(int tid) {
+  const int live = D - (tid & ~31);
+  return live >= 32 ? 0xffffffffu : (1u << live) - 1u;
+}
+
 // 16 bytes of device memory (8 bf16 or 4 f32 values) as f32.
 __device__ __forceinline__ void load16(const float* src, float* out) {
   const float4 v = *reinterpret_cast<const float4*>(src);
@@ -581,10 +600,12 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, int len,
     const int t = e / D;
     float vals[V];
     load16(src + e, vals);
-    float* out = dst + t * Rows<D>::kPadded + Rows<D>::at(e - t * D);
+    float* row = dst + t * Rows<D>::kPadded;
+    // each 4 values to their own place: a load of 8 bf16 values may
+    // straddle a row group where D / 4 is not a multiple of 8 (D = 112)
 #pragma unroll
     for (int i = 0; i < V; i += 4)
-      *reinterpret_cast<float4*>(out + i) =
+      *reinterpret_cast<float4*>(row + Rows<D>::at(e - t * D + i)) =
           make_float4(vals[i], vals[i + 1], vals[i + 2], vals[i + 3]);
   }
 }
@@ -600,7 +621,8 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
   using L = Rows<D>;
   constexpr int R = L::kGroup;    // rows of a thread's tile
   constexpr int DP = L::kPadded;
-  constexpr int R2 = D / 32;      // rows per lane of the normalizer warp
+  constexpr int VT = ValueThreads<D>::value;
+  constexpr int R2 = (D + 31) / 32;  // rows per lane of the normalizer warp
   extern __shared__ __align__(16) float smem[];  // read as float4
   float* q_sh = smem;               // (stage, DP)
   float* k_sh = q_sh + stage * DP;  // (stage, DP)
@@ -619,7 +641,7 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
   const int nthr = blockDim.x;
   const int rg = tid & 3;   // value threads: row group
   const int cg = tid >> 2;  // value threads: column group
-  const int lane = tid - D; // normalizer warp
+  const int lane = tid - VT;  // normalizer warp
 
   float s[4][R];  // value threads: S[rg*R + i, 4cg + c]
   float p[4];     // value threads: P[4cg + c]
@@ -648,6 +670,7 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
     __syncthreads();
 
     if (tid < D) {
+      const unsigned vmask = value_mask<D>(tid);
       for (int t = 0; t < len; ++t) {
         [[maybe_unused]] const float gam = kGated ? gam_sh[t] : 1.0f;
         const float4 vv =
@@ -678,8 +701,8 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
         }
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], 1);
-          acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], 2);
+          acc[c] += __shfl_xor_sync(vmask, acc[c], 1);
+          acc[c] += __shfl_xor_sync(vmask, acc[c], 2);
           if constexpr (kGated)
             p[c] = fmaf(gam, p[c], vc[c]);
           else
@@ -691,18 +714,20 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
             f_sh[t * (D + 1) + 4 * cg + c] = a * p[c] + b * acc[c];
         }
       }
-    } else if (lane < 32) {
+    } else if (tid >= VT) {
       for (int t = 0; t < len; ++t) {
         [[maybe_unused]] const float gam = kGated ? gam_sh[t] : 1.0f;
         float part = 0.0f;
 #pragma unroll
         for (int r = 0; r < R2; ++r) {
-          const int at = t * DP + L::at(lane * R2 + r);
-          if constexpr (kGated)
-            ks[r] = fmaf(gam, ks[r], k_sh[at]);
-          else
-            ks[r] += k_sh[at];
-          part += q_sh[at] * ks[r];
+          if (D % 32 == 0 || lane * R2 + r < D) {
+            const int at = t * DP + L::at(lane * R2 + r);
+            if constexpr (kGated)
+              ks[r] = fmaf(gam, ks[r], k_sh[at]);
+            else
+              ks[r] += k_sh[at];
+            part += q_sh[at] * ks[r];
+          }
         }
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
@@ -753,7 +778,7 @@ cudaError_t with_launch(int dtype, int d, int batch, int heads, int stage,
                  plan::Int<1>{});
       }
     }
-    return plan::with_head_dim(d, [&](auto dc) {
+    return plan::with_walk_head_dim<kGated>(d, [&](auto dc) {
       constexpr int D = decltype(dc)::value;
       // the staging's floats per token: q, k and v padded, f, and the decay
       const size_t per_token =
@@ -762,7 +787,9 @@ cudaError_t with_launch(int dtype, int d, int batch, int heads, int stage,
           sizeof(float);
       auto kernel = la_fwd_kernel<T, D, kGated>;
       return f(t, kernel,
-               plan::fit({dim3(batch * heads), D + 32, 0, 0}, stage,
+               plan::fit({dim3(batch * heads), ValueThreads<D>::value + 32,
+                          0, 0},
+                         stage,
                          per_token, kMaxSmem),
                plan::Int<0>{});
     });

@@ -83,6 +83,19 @@ cudaError_t with_head_dim(int d, F&& f) {
   }
 }
 
+// f(Int<d>{}) for a head dim the linear-attention token walks are
+// instantiated for: with_head_dim's and, for the ungated walks, 112
+// (zamba2-7b's shared attention, 3584 / 32), whose 28 row groups of 4 leave
+// the last warp of a role half full.  The gated (GLA) walks take
+// with_head_dim's only.
+template <bool kGated, typename F>
+cudaError_t with_walk_head_dim(int d, F&& f) {
+  if constexpr (!kGated) {
+    if (d == 112) return f(Int<112>{});
+  }
+  return with_head_dim(d, f);
+}
+
 // f(Int<g>{}) for a query group (or rows per block) of 1, 2, 4, 8 or 16.
 template <typename F>
 cudaError_t with_group(int g, F&& f) {
@@ -100,6 +113,14 @@ cudaError_t with_group(int g, F&& f) {
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// f(Int<g>{}) for a query group of the recurrent decode steps: with_group's
+// and 48 (granite-20b's multi-query attention, 48 heads on one KV head).
+template <typename F>
+cudaError_t with_decode_group(int g, F&& f) {
+  if (g == 48) return f(Int<48>{});
+  return with_group(g, f);
 }
 
 // Fill out[kPlanFields] with g and `kernel`'s registers and static shared

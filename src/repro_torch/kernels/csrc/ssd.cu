@@ -34,13 +34,14 @@
 // Shapes (all contiguous): q, k in the compute type T (float or bf16);
 // v and Ω in T; ld f32; o in T; dq, dk partials and dv in f32.
 // (Dk, Dv) are template parameters, instantiated for (128, 64)
-// (mamba2-2.7b: state 128, head dim 64) and (16, 32) (its smoke config);
-// any other pair is refused.
+// (mamba2-2.7b: state 128, head dim 64), (64, 64) (zamba2-7b's Mamba-2
+// layers: state 64, head dim 64) and (16, 32) (the smoke configs); any
+// other pair is refused.
 //
 // Two bodies of each kernel, chosen by the launcher from the dtype and
 // dims: the chunked wgmma bodies for bf16 at (128, 64) (mamba2-2.7b's
-// training instance), the token walk for f32 at both dims and bf16 at
-// (16, 32).
+// training instance), the token walk for f32 at every pair and bf16 at
+// (64, 64) and (16, 32).
 //
 // What bounds them (estimates from the shapes; B=2, G=1, H=80, N=8192,
 // Dk=128, Dv=64): every kernel moves its bytes once, ssd_fwd ~0.35 GB
@@ -153,7 +154,8 @@
 //     ssd_bwd_kv's dk role): a thread owns 4 adjacent rows and
 //     C = Dv / kRowGroups columns, so dq = S Ω and dk = U v end in
 //     log2(kRowGroups) shuffles per row.  At (128, 64) a tile is 64
-//     floats, 128 threads per role;
+//     floats, 128 threads per role; at (64, 64) 32 floats (8 column and
+//     8 row groups), 128 threads per role;
 //   * ssd_bwd_kv reads U by rows (dk) and by columns (dv), so the block
 //     keeps it twice: 128 threads in row tiles, 128 in column tiles, each
 //     taking the same rank-1 update.  That doubles the update's flops but
@@ -978,6 +980,11 @@ struct Tiles<128, 64> {
   static constexpr int kRowGroups = 4;
 };
 template <>
+struct Tiles<64, 64> {
+  static constexpr int kColGroups = 8;
+  static constexpr int kRowGroups = 8;
+};
+template <>
 struct Tiles<16, 32> {
   static constexpr int kColGroups = 4;
   static constexpr int kRowGroups = 8;
@@ -1409,6 +1416,7 @@ cudaError_t with_launch(int dtype, int dk, int dv, int batch, int heads,
                plan::Int<0>{});
     };
     if (dk == 128 && dv == 64) return go(plan::Int<128>{}, plan::Int<64>{});
+    if (dk == 64 && dv == 64) return go(plan::Int<64>{}, plan::Int<64>{});
     if (dk == 16 && dv == 32) return go(plan::Int<16>{}, plan::Int<32>{});
     return cudaErrorInvalidValue;
   });

@@ -27,13 +27,16 @@ S, P <- exp(log_decay) (S, P), then the rank-1 update and the readout.
                           entry `gla_decode_fused`); CUDA only
   gla_decode_fused_torch  its plain version, state in place
 
-Both entries have two bodies, chosen from the dims by
-`recurrent_decode_body(dk, dv)`: "stream" (Dk % 4 == 0 and 4 (Dv + 1)
-<= 1024: each (slot, KV head)'s f32 state slab goes through a ring of
-row chunks in shared memory by 1-D bulk copies, updated there exactly
-as the walk updates it, so the new state carries the walk's bits; the
-linear instance reads no log decay) and "walk" (the column walk, with
-its gated instantiation).
+Both entries take a query group G in `RECURRENT_GROUPS` (1 to 16, and
+48 for granite-20b's multi-query attention) and any head dims, and have
+two bodies, chosen from the dims and the group by
+`recurrent_decode_body(dk, dv, group)`: "stream" (Dk % 4 == 0 and 4 (Dv
++ 1) <= 1024, at most GLA_DECODE_WIDE_THREADS for a group of more than
+GLA_DECODE_WIDE_GROUP: each (slot, KV head)'s f32 state slab goes
+through a ring of row chunks in shared memory by 1-D bulk copies,
+updated there exactly as the walk updates it, so the new state carries
+the walk's bits; the linear instance reads no log decay) and "walk" (the
+column walk, with its gated instantiation).
 
 Softmax: one call per layer and decode step attends each slot's query
 token to the first lengths[b] keys of its contiguous KV cache, the
@@ -88,15 +91,18 @@ from repro_torch.kernels import build, plan
 from repro_torch.kernels import paged_attention as _pg
 from repro_torch.kernels.defaults import DECODE_TILE_ROWS, \
     GLA_DECODE_RING, GLA_DECODE_ROW_CLASSES, GLA_DECODE_ROWS, \
-    PAGED_DECODE_CLUSTER, PAGED_DECODE_WARPS
+    GLA_DECODE_WIDE_GROUP, GLA_DECODE_WIDE_THREADS, PAGED_DECODE_CLUSTER, \
+    PAGED_DECODE_WARPS
 
 F32 = torch.float32
 KERNEL = "la_decode_fused"
 GLA_KERNEL = "gla_decode_fused"
 SOFTMAX_KERNEL = "softmax_decode_fused"
 PAGED_KERNEL = "paged_decode_fused"
-# query heads per KV head the kernels are instantiated for
+# query heads per KV head the softmax kernels are instantiated for
 GROUPS = (1, 2, 4, 8, 16)
+# ... and the recurrent steps (la_decode_fused, gla_decode_fused)
+RECURRENT_GROUPS = GROUPS + (48,)
 # head dims the softmax kernel is instantiated for
 HEAD_DIMS = (32, 64, 128)
 
@@ -151,9 +157,9 @@ def _recurrent_dims(s, p, q, k, v, log_decay=None):
     if tuple(k.shape) != (bsz, hkv, dk) or tuple(v.shape[:2]) != (bsz, hkv):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    if h % hkv != 0 or h // hkv not in GROUPS:
+    if h % hkv != 0 or h // hkv not in RECURRENT_GROUPS:
         raise ValueError(f"H={h} over Hkv={hkv} is not a query group of "
-                         f"{GROUPS}")
+                         f"{RECURRENT_GROUPS}")
     if tuple(s.shape) != (bsz, hkv, dk, dv + 1) \
             or tuple(p.shape) != (bsz, hkv, dv + 1):
         raise ValueError(
@@ -308,18 +314,31 @@ def paged_decode_fused_cuda(q, k_pages, v_pages, page_table, lengths):
 # ---------------------------------------------------------------------------
 
 # la_decode_fused.cu's limit: the launcher refuses more (it stays within the
-# shared memory every block may use without opting in)
+# shared memory every block may use without opting in), but for the stream
+# of a wide group (more than GLA_DECODE_WIDE_GROUP query heads), whose query
+# rows, rows f and partial dots alone take more: the card's opt-in maximum
 RECURRENT_MAX_SMEM = 48 * 1024
 
 
-def recurrent_decode_body(dk: int, dv: int) -> str:
+def _wide(group: int) -> bool:
+    return group > GLA_DECODE_WIDE_GROUP
+
+
+def recurrent_smem_limit(group: int, body: str) -> int:
+    """The shared memory the launcher takes for `body` at this group."""
+    return plan.MAX_SMEM if body == "stream" and _wide(group) \
+        else RECURRENT_MAX_SMEM
+
+
+def recurrent_decode_body(dk: int, dv: int, group: int = 1) -> str:
     """The body `la_decode_fused` and `gla_decode_fused` run at these
-    dims: "stream" where the state's row chunks start 16-byte aligned (Dk
-    % 4 == 0) and a block holds one thread per column and row class, else
-    "walk"."""
+    dims and group: "stream" where the state's row chunks start 16-byte
+    aligned (Dk % 4 == 0) and a block holds one thread per column and row
+    class (at most GLA_DECODE_WIDE_THREADS for a wide group, whose G
+    partial dots a thread need the registers), else "walk"."""
+    most = GLA_DECODE_WIDE_THREADS if _wide(group) else plan.MAX_THREADS
     return ("stream" if dk % 4 == 0
-            and GLA_DECODE_ROW_CLASSES * (dv + 1) <= plan.MAX_THREADS
-            else "walk")
+            and GLA_DECODE_ROW_CLASSES * (dv + 1) <= most else "walk")
 
 
 def _stream_smem(dk: int, dv: int, group: int) -> int:
@@ -339,7 +358,8 @@ def _stream_smem(dk: int, dv: int, group: int) -> int:
         return -(-end // 8) * 8 + 8 * stages
 
     stages = min(GLA_DECODE_RING, -(-dk // GLA_DECODE_ROWS))
-    while stages > 2 and total(stages) > RECURRENT_MAX_SMEM:
+    limit = recurrent_smem_limit(group, "stream")
+    while stages > 2 and total(stages) > limit:
         stages -= 1
     return total(stages)
 
@@ -390,7 +410,8 @@ def _plan_recurrent(entry, s, p, q, k, v, log_decay, a, b):
                                     ld_cell))
     accesses.append(plan.Access("o", "out", (bsz, h, dv), q.dtype,
                                 group_rows(dv)))
-    if recurrent_decode_body(dk, dv) == "stream":
+    body = recurrent_decode_body(dk, dv, group)
+    if body == "stream":
         threads = -(-GLA_DECODE_ROW_CLASSES * (dv + 1) // 32) * 32
         smem = _stream_smem(dk, dv, group)
     else:
@@ -399,7 +420,7 @@ def _plan_recurrent(entry, s, p, q, k, v, log_decay, a, b):
     return plan.make(entry, KERNEL, (bsz * hkv,), threads, smem, accesses,
                      (bsz, h, hkv, dk, dv, float(a), float(b), code),
                      _LA_SYMBOLS[entry], (bsz, h, hkv, dk, dv, code),
-                     smem_limit=RECURRENT_MAX_SMEM)
+                     smem_limit=recurrent_smem_limit(group, body))
 
 
 def plan_la_decode_fused(s, p, q, k, v, a: float, b: float):

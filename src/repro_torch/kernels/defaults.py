@@ -195,7 +195,13 @@ their f32 state slab through shared memory
     block at Dv = 128 (one block an SM at the serving shape, where ~26 KB
     of loads in flight an SM cover ~1 us of latency at 3.35 TB/s), fewer
     where the group's q and f rows leave less of the launcher's 48 KB
-    (three at G = 16), never more than the slab's chunks.
+    (three at G = 16), never more than the slab's chunks;
+  * `GLA_DECODE_WIDE_GROUP`, `GLA_DECODE_WIDE_THREADS` — a group of more
+    query heads than the first (granite-20b's 48 on one KV head) keeps
+    its G partial dots a thread in registers, so its blocks are capped at
+    the second (112 registers a thread; 544 threads at Dv = 128), and its
+    query rows, rows f and partial dots take shared memory past 48 KB, up
+    to the card's opt-in maximum (csrc/la_decode_fused.cu `ds::max_smem`).
 """
 from __future__ import annotations
 
@@ -237,3 +243,5 @@ DECODE_TILE_ROWS = 16
 GLA_DECODE_ROWS = 16
 GLA_DECODE_ROW_CLASSES = 4
 GLA_DECODE_RING = 5
+GLA_DECODE_WIDE_GROUP = 16
+GLA_DECODE_WIDE_THREADS = 576

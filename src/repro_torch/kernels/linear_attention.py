@@ -28,7 +28,8 @@ run the gated instances of the forward's, the dq and the dk/dv body) and
 "walk" (f32, and bf16 at D < 128: the token walk).
 
 Shapes: q (B, H, N, D), k and v (B, Hkv, N, D) with Hkv | H, float32 or
-bfloat16, D in `HEAD_DIMS`; o, dq, dk and dv come back in their
+bfloat16, D in `HEAD_DIMS` (the gated entries of kernels/gla.py: in
+`GLA_HEAD_DIMS`); o, dq, dk and dv come back in their
 inputs' dtypes, g, Ω̂ and h are float32.  The wrappers take contiguous
 CUDA tensors only and raise on anything else; nothing falls back to the
 plain version.
@@ -52,8 +53,16 @@ from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
     LA_WGMMA_SPLIT
 
 F32 = torch.float32
-# head dims the kernels are instantiated for (a state row in registers)
-HEAD_DIMS = (32, 64, 128)
+# head dims the kernels are instantiated for (a state row in registers):
+# the linear entries' walks also at 112 (zamba2-7b's shared attention),
+# the gated entries (kernels/gla.py) not
+HEAD_DIMS = (32, 64, 112, 128)
+GLA_HEAD_DIMS = (32, 64, 128)
+
+
+def head_dims(entry: str) -> tuple:
+    """The head dims entry `entry` takes."""
+    return GLA_HEAD_DIMS if entry.startswith("gla_") else HEAD_DIMS
 
 # kernel launches made by the wrappers, by kernel name (a run sets them
 # to 0 and reads them back to show that its steps went through the
@@ -126,9 +135,9 @@ la_bwd_torch = _chunked.la_bwd_chunked
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
-def _dims(q, k, v):
+def _dims(q, k, v, dims=HEAD_DIMS):
     """(B, H, Hkv, N, D) of a (q, k, v) triple, raising on shapes the
-    kernels do not take."""
+    kernels do not take (head dims outside `dims`)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be 4-D; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -140,8 +149,8 @@ def _dims(q, k, v):
                          f"match q {tuple(q.shape)} (Dk = Dv = D)")
     if h % hkv != 0:
         raise ValueError(f"H={h} is not a multiple of Hkv={hkv}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
+    if d not in dims:
+        raise ValueError(f"head dim {d} is not one of {dims}")
     return bsz, h, hkv, n, d
 
 
@@ -290,10 +299,11 @@ def plan_fwd(entry, q, k, v, log_decay, a, b, stage_tokens, argtypes):
     share of the value columns (of v and o; the first writes g), walking
     chunks (TMA zero-fills the rows of the last chunk past N; gated, each
     block reads its KV head's log decays)."""
-    bsz, h, hkv, n, d = _dims(q, k, v)
+    bsz, h, hkv, n, d = _dims(q, k, v, head_dims(entry))
     group, gated = h // hkv, log_decay is not None
     code = plan.dtype_code(q.dtype)
-    split, threads = 1, d + 32
+    # the walk: d value threads rounded up to warps, the normalizer warp
+    split, threads = 1, -(-d // 32) * 32 + 32
     if la_fwd_body(q.dtype, d, entry) == "wgmma":
         stage_tokens = stage = LA_CHUNK_TOKENS
         split, threads, smem = LA_WGMMA_SPLIT, _WGMMA_THREADS, \
@@ -358,7 +368,7 @@ def plan_bwd_q(entry, k, v, log_decay, om_hat, h_vec, b, stage_tokens,
     wgmma body (gla_bwd_q its gated instance) LA_BWD_Q_SPLIT such
     blocks, each with its share of dq's columns (and of k's), walking
     chunks (TMA zero-fills the rows of the last chunk past N)."""
-    bsz, h, hkv, n, d = _dims(om_hat, k, v)
+    bsz, h, hkv, n, d = _dims(om_hat, k, v, head_dims(entry))
     group, gated = h // hkv, log_decay is not None
     code = plan.dtype_code(k.dtype)
     split, threads = 1, d
@@ -428,7 +438,7 @@ def plan_bwd_kv(entry, q, k, v, log_decay, om_hat, h_vec, a, b,
     y = 2, 3 dv's half y - 2 from k, q and their half of Ω̂ (gated: dV''s
     columns of that half, from h too, and y = 2 also its column D), each
     walking the group's chunks from the last."""
-    bsz, h, hkv, n, d = _dims(q, k, v)
+    bsz, h, hkv, n, d = _dims(q, k, v, head_dims(entry))
     group, gated = h // hkv, log_decay is not None
     code = plan.dtype_code(q.dtype)
     wgmma = la_bwd_body(entry, q.dtype, d) == "wgmma"

@@ -53,8 +53,9 @@ from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
 
 F32 = torch.float32
 # (Dk, Dv) the kernels are instantiated for: mamba2-2.7b (state 128, head
-# dim 64) and its smoke config (state 16, head dim 32)
-STATE_DIMS = ((128, 64), (16, 32))
+# dim 64), zamba2-7b's Mamba-2 layers (state 64, head dim 64) and the smoke
+# configs (state 16, head dim 32)
+STATE_DIMS = ((128, 64), (64, 64), (16, 32))
 
 # kernel launches made by the wrappers, by kernel name (a run sets them
 # to 0 and reads them back to show that its steps went through the
@@ -214,7 +215,7 @@ def ssd_bwd_cuda(q, k, v, log_decay, o, omega):
 # ---------------------------------------------------------------------------
 
 # (column groups, row groups) of csrc/ssd.cu's register tilings `Tiles<Dk, Dv>`
-_TILINGS = {(128, 64): (8, 4), (16, 32): (4, 8)}
+_TILINGS = {(128, 64): (8, 4), (64, 64): (8, 8), (16, 32): (4, 8)}
 
 
 # the wgmma body: one warpgroup; beside the tiles the barriers and the pad

@@ -1,0 +1,35 @@
+"""The command-line launchers' shared checks."""
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_fused import GROUPS as SOFTMAX_DECODE_GROUPS
+
+# attention backends whose card kernels do not take a hybrid's shared
+# attention yet (zamba2-7b's head dim 112: flash and the softmax decode
+# kernels, the GLA kernels)
+HYBRID_REFUSED_BACKENDS = ("softmax", "gla")
+
+
+def backend_refusal(cfg: ModelConfig, backend: str,
+                    serving: bool) -> str | None:
+    """Why the launchers refuse `--backend` on `cfg`, or None.  As the
+    reference, the flag sets `attention_backend` and an architecture
+    without attention ignores it.  Refused are the backends whose card
+    kernels do not take the model's shapes: on the hybrid family softmax
+    and gla (its shared block's head dim), and in serving softmax where
+    the query group is not one the softmax decode kernels take
+    (granite-20b's 48)."""
+    todo = ("(ROADMAP.md queue 1, 'softmax and gla on zamba2'); use "
+            "linear")
+    if cfg.family == "hybrid" and backend in HYBRID_REFUSED_BACKENDS:
+        return (f"--backend {backend} on {cfg.name}: the {backend} kernels "
+                f"do not take the shared attention's head dim at full "
+                f"width (zamba2-7b: 112) yet {todo}")
+    if not (serving and backend == "softmax" and cfg.mixer == "attention"):
+        return None
+    group = cfg.num_heads // cfg.num_kv_heads
+    if group not in SOFTMAX_DECODE_GROUPS:
+        return (f"--backend softmax on {cfg.name}: the softmax decode "
+                f"kernels take query groups {SOFTMAX_DECODE_GROUPS}, not "
+                f"{group}, yet {todo}")
+    return None

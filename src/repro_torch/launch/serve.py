@@ -3,15 +3,21 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch pythia-1.4b \
         --requests 8 --max-new 16 [--backend softmax|gla] [--full] \
         [--device cuda]
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --device cpu --requests 3 --max-new 4
 
-Flag names follow `repro/launch/serve.py` for the flags kept.  Weights
-are random, drawn from seed 0; prompts are random token ids drawn from
-seed 0.  `--backend` swaps the attention backend (linear, the paper's,
-by default; gla, its decay-gated variant; softmax, the baseline); it
-is refused for an architecture without attention (mamba2-2.7b, whose
-mixer is fixed), and so is paging there (`get_backend`).
+`--arch` takes every id of `configs/registry.py` (pythia-1.4b,
+qwen2.5-3b, stablelm-1.6b, chatglm3-6b, granite-20b, mamba2-2.7b,
+zamba2-7b).  Flag names follow `repro/launch/serve.py` for the flags
+kept.  Weights are random, drawn from seed 0; prompts are random token
+ids drawn from seed 0.  `--backend` swaps the attention backend
+(linear, the paper's, by default; gla, its decay-gated variant;
+softmax, the baseline), as the reference does: mamba2-2.7b has no
+attention and ignores it, zamba2-7b refuses softmax and gla, whose
+kernels do not take its head dim 112 yet, and the full granite-20b
+refuses softmax, whose decode kernels do not take its query group of 48
+(`repro_torch.launch.backend_refusal`).  Paging is refused where the
+backend does not page (`get_backend`).
 `--full` serves the full-width config instead of the smoke one;
 `--device` defaults to cuda and raises without a card.  Admission
 defaults to fixed slots; `--budget-mb` switches to ByteBudget (the slot
@@ -43,6 +49,7 @@ import numpy as np
 
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import ops as _ops
+from repro_torch.launch import backend_refusal
 from repro_torch.mixers import get_backend, resolve_backend_name
 from repro_torch.models import model as mdl
 from repro_torch.obs import ServeTracer
@@ -103,9 +110,9 @@ def main(argv=None):
                  "arena; without a page size the cache stays contiguous)")
     cfg = get_config(args.arch, smoke=not args.full)
     if args.backend:
-        if cfg.mixer != "attention":
-            ap.error(f"--backend switches the attention backend; "
-                     f"{args.arch} has no attention (mixer {cfg.mixer!r})")
+        refusal = backend_refusal(cfg, args.backend, serving=True)
+        if refusal:
+            ap.error(refusal)
         cfg = dataclasses.replace(cfg, attention_backend=args.backend)
     get_backend(cfg)  # fail fast on a bad --backend, naming the valid ones
     params = mdl.init_params(cfg, seed=0, device=args.device)

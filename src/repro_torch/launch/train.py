@@ -2,16 +2,17 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch pythia-1.4b \
         --steps 50 --batch 8 --seq 128 [--full] [--device cuda]
-    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
         --device cpu --steps 5 --batch 2 --seq 32
 
 Flag names follow `repro/launch/train.py` for the flags kept; the
 checkpoint (`--checkpoint-dir`, `--resume`) and autotune
 (`--autotune`, `--tune-cache`) flags wait for their slices (ROADMAP.md).
-Weights are random from the train config's seed and data is
-`SyntheticLM` from the same seed.  `--backend` swaps the attention
-backend and is refused for an architecture without attention
-(mamba2-2.7b, whose mixer is fixed).  `--full` trains the full-width
+`--arch` takes every id of `configs/registry.py`.  Weights are random
+from the train config's seed and data is `SyntheticLM` from the same
+seed.  `--backend` swaps the attention backend as the reference does
+(mamba2-2.7b ignores it; zamba2-7b refuses softmax and gla, whose
+kernels do not take its head dim 112 yet).  `--full` trains the full-width
 config instead of the smoke one; `--device` defaults to cuda and raises
 without a card.  Prints one JSON record: first_loss, last_loss, steps,
 stragglers.
@@ -25,6 +26,7 @@ import json
 from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.launch import backend_refusal
 from repro_torch.mixers import get_backend
 from repro_torch.models import model as mdl
 from repro_torch.train.loop import Trainer
@@ -48,9 +50,9 @@ def main(argv=None):
 
     cfg = get_config(args.arch, smoke=not args.full)
     if args.backend:
-        if cfg.mixer != "attention":
-            ap.error(f"--backend switches the attention backend; "
-                     f"{args.arch} has no attention (mixer {cfg.mixer!r})")
+        refusal = backend_refusal(cfg, args.backend, serving=False)
+        if refusal:
+            ap.error(refusal)
         cfg = dataclasses.replace(cfg, attention_backend=args.backend)
     get_backend(cfg)  # fail fast on a bad --backend, naming the valid ones
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,

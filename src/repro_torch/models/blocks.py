@@ -1,12 +1,15 @@
 """Decoder block: norm + mixer (+ FFN) with residuals.
 
 Port of the decoder half of `repro/models/blocks.py` (training
-`block_apply`, serving `block_prefill` / `block_decode`) for pythia's
-dense block (layernorm, gelu FFN, parallel residual) and mamba2's
-(rmsnorm, no FFN: `backend.fuses_ffn`, the mixer carries its own channel
-mixing); swiglu, MoE, encoder and cross-attention blocks come with their
-architectures.  Norms follow `cfg.norm`.  The mixer is resolved through
-the backend registry, so blocks never branch on backend names.
+`block_apply`, serving `block_prefill` / `block_decode`): the dense
+block (a norm, the mixer and an FFN of `cfg.mlp_act`, swiglu or gelu,
+with the parallel residual of pythia or the sequential one of qwen2.5,
+stablelm, chatglm3, granite and zamba2's shared attention block) and
+the Mamba-2 block (no FFN: `backend.fuses_ffn`, the mixer carries its
+own channel mixing; mamba2 and zamba2's mamba layers).  MoE, encoder
+and cross-attention blocks come with their architectures.  Norms follow
+`cfg.norm`.  The mixer is resolved through the backend registry, so
+blocks never branch on backend names.
 """
 from __future__ import annotations
 
@@ -17,26 +20,29 @@ from repro_torch.models.common import mlp_apply, mlp_init, norm_apply, \
     norm_init
 
 
-def _check_block(cfg, fuses_ffn: bool):
-    """The FFN is checked only where the block has one."""
-    if cfg.moe is not None or cfg.norm not in ("layernorm", "rmsnorm") \
-            or (not fuses_ffn and cfg.mlp_act != "gelu"):
+def _check_block(cfg):
+    if cfg.moe is not None:
         raise NotImplementedError(
-            f"the port's blocks are pythia's (gelu FFN) and mamba2's (no "
-            f"FFN), with layernorm or rmsnorm; norm={cfg.norm!r}, "
-            f"mlp_act={cfg.mlp_act!r}, moe={cfg.moe is not None} come with "
-            f"their architectures (ROADMAP.md queue 1 'Remaining "
-            f"architectures')")
+            "the MoE FFN is not ported yet (ROADMAP.md queue 1 item 5, "
+            "'MoE and MLA')")
+
+
+def _ffn_init(gen, cfg, dtype):
+    return mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype)
+
+
+def _ffn_apply(p, cfg, x, compute_dtype):
+    return mlp_apply(p, x, cfg.mlp_act, compute_dtype)
 
 
 def block_init(gen: torch.Generator, cfg, dtype=torch.float32):
     backend = get_backend(cfg)
-    _check_block(cfg, backend.fuses_ffn)
+    _check_block(cfg)
     p = {"ln1": norm_init(cfg.d_model, dtype, gen.device, cfg.norm),
          "mixer": backend.init(gen, cfg, dtype)}
     if not backend.fuses_ffn:
         p["ln2"] = norm_init(cfg.d_model, dtype, gen.device, cfg.norm)
-        p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+        p["ffn"] = _ffn_init(gen, cfg, dtype)
     return p
 
 
@@ -52,12 +58,12 @@ def _residual(p, cfg, x, attn_out, compute_dtype):
     if get_backend(cfg).fuses_ffn:
         return x + attn_out
     if cfg.parallel_residual:
-        ffn_out = mlp_apply(p["ffn"], norm_apply(p["ln2"], x, cfg.norm),
-                            compute_dtype)
+        ffn_out = _ffn_apply(p["ffn"], cfg,
+                             norm_apply(p["ln2"], x, cfg.norm), compute_dtype)
         return x + attn_out + ffn_out
     x = x + attn_out
-    return x + mlp_apply(p["ffn"], norm_apply(p["ln2"], x, cfg.norm),
-                         compute_dtype)
+    return x + _ffn_apply(p["ffn"], cfg, norm_apply(p["ln2"], x, cfg.norm),
+                          compute_dtype)
 
 
 def block_apply(p, cfg, x, positions, compute_dtype=None):

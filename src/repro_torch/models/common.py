@@ -4,8 +4,8 @@ Params are plain nested dicts of tensors; every layer is an (init,
 apply) pair.  Dense weights are (d_in, d_out) and applied as `x @ W`, so
 converting the reference's params is a copy.  Matmuls run in the
 config's compute dtype; norms always compute in f32.  What the ported
-paths run is here: layernorm and rmsnorm, the gelu MLP, the embedding
-and the tied unembedding.
+paths run is here: layernorm and rmsnorm, the swiglu and gelu MLPs, the
+embedding and the tied unembedding.
 """
 from __future__ import annotations
 
@@ -77,15 +77,25 @@ def norm_apply(p, x, kind: str = "layernorm", eps: float = 1e-5):
 # MLP
 # ---------------------------------------------------------------------------
 
-def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=F32):
-    return {"wi": dense_init(gen, d_model, d_ff, dtype=dtype),
-            "wo": dense_init(gen, d_ff, d_model, dtype=dtype)}
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
+             act: str = "swiglu", dtype=F32):
+    """swiglu: wi, wg (the gate) and wo; gelu: wi and wo (the
+    reference's leaf names)."""
+    p = {"wi": dense_init(gen, d_model, d_ff, dtype=dtype)}
+    if act == "swiglu":
+        p["wg"] = dense_init(gen, d_model, d_ff, dtype=dtype)
+    p["wo"] = dense_init(gen, d_ff, d_model, dtype=dtype)
+    return p
 
 
-def mlp_apply(p, x, compute_dtype=None):
-    """The gelu MLP (swiglu comes with the architectures that use it);
-    jax.nn.gelu defaults to the tanh approximation, so this uses it."""
-    h = F.gelu(dense(p["wi"], x, compute_dtype), approximate="tanh")
+def mlp_apply(p, x, act: str = "swiglu", compute_dtype=None):
+    """swiglu: silu(x wg) * (x wi), then wo; gelu: gelu(x wi), then wo,
+    with the tanh approximation that jax.nn.gelu defaults to."""
+    if act == "swiglu":
+        h = F.silu(dense(p["wg"], x, compute_dtype)) * dense(
+            p["wi"], x, compute_dtype)
+    else:
+        h = F.gelu(dense(p["wi"], x, compute_dtype), approximate="tanh")
     return dense(p["wo"], h, compute_dtype)
 
 

@@ -1,20 +1,31 @@
 """Decoder-only LM: embed -> blocks -> norm -> unembed.
 
-Port of the dense- and ssm-family paths of `repro/models/model.py`
-(pythia; the pure Mamba-2 stack of mamba2-2.7b, whose embeddings are
-tied: no lm_head, the loss and the logits unembed through the embedding
-table in f32): training
-(`forward_hidden`, `chunked_cross_entropy`, `loss_fn`) and serving
-(`init_params`, `init_cache`, `prefill`, `decode_step`).  Layers are a
-Python list of per-layer param dicts (the reference stacks them on axis
-0 for lax.scan; convert.py unstacks).  Logits are computed in f32.
+Port of the dense-, ssm- and hybrid-family paths of
+`repro/models/model.py`: the dense stacks of pythia-1.4b, qwen2.5-3b,
+stablelm-1.6b, chatglm3-6b and granite-20b, the pure Mamba-2 stack of
+mamba2-2.7b and zamba2-7b's hybrid (groups of Mamba-2 blocks, one
+SHARED attention block applied after each group, a tail of Mamba-2
+blocks): training (`forward_hidden`, `chunked_cross_entropy`,
+`loss_fn`, `forward_logits`) and serving (`init_params`, `init_cache`,
+`prefill`, `decode_step`).  Tied embeddings (mamba2, qwen2.5) have no
+lm_head: the loss and the logits unembed through the embedding table in
+f32.  A logit softcap c tanh(logits / c) applies to `forward_logits`
+and the last-token logits, not to the loss, as in the reference.
+Layers are Python lists of per-layer param dicts (the reference stacks
+them on axis 0 for lax.scan; convert.py unstacks): `blocks`, or
+`mamba_groups` (g lists of m), `shared_attn` and `tail`.  Logits are
+computed in f32.
 
 `cfg.remat` recomputes each block in the backward
 (`torch.utils.checkpoint`, non-reentrant): the counterpart of the
 reference's `jax.checkpoint` around its scanned block body, so only the
-blocks' inputs stay alive between forward and backward.
+blocks' inputs stay alive between forward and backward.  The hybrid
+family is also recomputed per group, as the reference does, so the
+shared block's internals are not kept for every application.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -28,16 +39,25 @@ F32 = torch.float32
 
 
 def _check_family(cfg):
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; the port runs the "
-            f"dense and ssm families (ROADMAP.md queue 1 'Remaining "
-            f"architectures')")
-    if cfg.logit_softcap or \
-            cfg.rope_kind not in ("standard", "partial", "none"):
+            f"dense, ssm and hybrid families (ROADMAP.md queue 1 items "
+            f"5-7)")
+    if cfg.rope_kind == "mrope":
         raise NotImplementedError(
-            "logit softcap and sinusoid/M-RoPE positions are not ported "
-            "yet (ROADMAP.md queue 1 'Remaining architectures')")
+            "M-RoPE positions are not ported yet (ROADMAP.md queue 1 item "
+            "6, 'VLM')")
+    if cfg.rope_kind == "sinusoid":
+        raise NotImplementedError(
+            "sinusoid positions are not ported yet (ROADMAP.md queue 1 "
+            "item 7, 'Encoder-decoder')")
+
+
+def _attn_variant(cfg):
+    """Config view for zamba2's shared attention block (attention
+    mixer)."""
+    return dataclasses.replace(cfg, mixer="attention", moe=None)
 
 
 def init_params(cfg, seed: int = 0, device="cuda"):
@@ -55,6 +75,16 @@ def init_params(cfg, seed: int = 0, device="cuda"):
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                        dtype=pd)
+    if cfg.family == "hybrid":
+        g, m, t = cfg.hybrid_groups, cfg.hybrid_mamba_per_group, \
+            cfg.hybrid_tail
+        params["mamba_groups"] = [[blk.block_init(gen, cfg, pd)
+                                   for _ in range(m)] for _ in range(g)]
+        params["shared_attn"] = blk.block_init(gen, _attn_variant(cfg), pd)
+        if t:
+            params["tail"] = [blk.block_init(gen, cfg, pd)
+                              for _ in range(t)]
+        return params
     params["blocks"] = [blk.block_init(gen, cfg, pd)
                         for _ in range(cfg.num_layers)]
     return params
@@ -95,22 +125,63 @@ def _positions(batch, tokens):
                         device=tokens.device)[None].expand(b, n)
 
 
+def _apply(fn, cfg, *args):
+    """fn(*args), recomputed in the backward where cfg.remat."""
+    if cfg.remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _blocks(layers, cfg, x, positions, cdt):
+    """x through a list of blocks, each recomputed under cfg.remat."""
+    for lp in layers:
+        x = _apply(blk.block_apply, cfg, lp, cfg, x, positions, cdt)
+    return x
+
+
+def _group(group, shared, cfg, x, positions, cdt):
+    """One hybrid group: its Mamba-2 blocks, then the shared attention
+    block."""
+    x = _blocks(group, cfg, x, positions, cdt)
+    return blk.block_apply(shared, _attn_variant(cfg), x, positions, cdt)
+
+
 def forward_hidden(params, cfg, batch):
     """batch: {"tokens": (B, N) int}.  Returns (hidden (B, N, d) in the
-    compute dtype, aux loss f32: 0 for the dense family)."""
+    compute dtype, aux loss f32: 0 without MoE)."""
     _check_family(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     tokens = batch["tokens"]
     positions = _positions(batch, tokens)
     x = embed_lookup(params["embed"], tokens, cdt)
-    for lp in params["blocks"]:
-        if cfg.remat:
-            x = checkpoint(blk.block_apply, lp, cfg, x, positions, cdt,
-                           use_reentrant=False)
-        else:
-            x = blk.block_apply(lp, cfg, x, positions, cdt)
+    if cfg.family == "hybrid":
+        # remat at the group level too: the shared attention block's
+        # internals are not kept for every group application
+        for group in params["mamba_groups"]:
+            x = _apply(_group, cfg, group, params["shared_attn"], cfg, x,
+                       positions, cdt)
+        x = _blocks(params.get("tail", []), cfg, x, positions, cdt)
+    else:
+        x = _blocks(params["blocks"], cfg, x, positions, cdt)
     aux = torch.zeros((), dtype=F32, device=x.device)
     return norm_apply(params["ln_f"], x, cfg.norm), aux
+
+
+def _softcap(logits, cfg):
+    if cfg.logit_softcap:
+        return cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits
+
+
+def forward_logits(params, cfg, batch):
+    """Full (B, N, V) f32 logits, softcapped where cfg.logit_softcap:
+    small-scale use only (tests, examples)."""
+    hidden, _ = forward_hidden(params, cfg, batch)
+    if cfg.tie_embeddings:
+        logits = unembed(params["embed"], hidden.float())
+    else:
+        logits = dense(params["lm_head"], hidden, F32)
+    return _softcap(logits, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -174,21 +245,63 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
     GLAStates in f32; KV caches, or with cfg.paging paged KV arenas each
     with its own page table at the sink page, in the compute dtype, as
     the reference's; MambaCaches: the f32 SSD state and the conv tail in
-    the compute dtype) and the per-slot position counter."""
+    the compute dtype) and the per-slot position counter.  Dense and ssm:
+    {"blocks": [L], "pos"}; hybrid: {"mamba": [g][m], "shared": [g] (one
+    cache per application of the shared block), "tail": [t], "pos"}."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.compute_dtype)
-    return {"blocks": [blk.block_init_cache(cfg, batch, max_len, dev, dtype)
-                       for _ in range(cfg.num_layers)],
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+    def one(c):
+        return blk.block_init_cache(c, batch, max_len, dev, dtype)
+
+    if cfg.family == "hybrid":
+        g, m, t = cfg.hybrid_groups, cfg.hybrid_mamba_per_group, \
+            cfg.hybrid_tail
+        cache = {"mamba": [[one(cfg) for _ in range(m)] for _ in range(g)],
+                 "shared": [one(_attn_variant(cfg)) for _ in range(g)]}
+        if t:
+            cache["tail"] = [one(cfg) for _ in range(t)]
+    else:
+        cache = {"blocks": [one(cfg) for _ in range(cfg.num_layers)]}
+    cache["pos"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    return cache
+
+
+def _layers(params, cfg, cache):
+    """(block params, config view, holder, index) of every block in the
+    order the model runs them; the block's cache is holder[index]."""
+    if cfg.family != "hybrid":
+        return [(lp, cfg, cache["blocks"], i)
+                for i, lp in enumerate(params["blocks"])]
+    acfg = _attn_variant(cfg)
+    out = []
+    for gi, group in enumerate(params["mamba_groups"]):
+        out += [(lp, cfg, cache["mamba"][gi], j)
+                for j, lp in enumerate(group)]
+        out.append((params["shared_attn"], acfg, cache["shared"], gi))
+    return out + [(lp, cfg, cache["tail"], j)
+                  for j, lp in enumerate(params.get("tail", []))]
+
+
+def _new_lists(tree):
+    """The cache's dicts and lists anew, its leaves shared."""
+    if isinstance(tree, dict):
+        return {k: _new_lists(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_new_lists(v) for v in tree]
+    return tree
 
 
 def _last_logits(params, cfg, x_last):
     """(B, V) f32 logits of the last position: through the tied
-    embedding table (param dtype, in f32) or the lm_head."""
+    embedding table (param dtype, in f32) or the lm_head; softcapped
+    where cfg.logit_softcap."""
     if cfg.tie_embeddings:
-        return unembed(params["embed"], x_last.float())[:, 0]
-    return dense(params["lm_head"], x_last, F32)[:, 0]
+        logits = unembed(params["embed"], x_last.float())
+    else:
+        logits = dense(params["lm_head"], x_last, F32)
+    return _softcap(logits, cfg)[:, 0]
 
 
 def prefill(params, cfg, batch, cache):
@@ -210,13 +323,13 @@ def prefill(params, cfg, batch, cache):
     positions = cache["pos"][:, None] + torch.arange(
         n, dtype=torch.int32, device=tokens.device)[None]
     x = embed_lookup(params["embed"], tokens, cdt)
-    new_blocks = []
-    for lp, lc in zip(params["blocks"], cache["blocks"]):
-        x, nc = blk.block_prefill(lp, cfg, x, positions, lc, cdt)
-        new_blocks.append(nc)
+    new = _new_lists(cache)
+    for lp, lcfg, holder, i in _layers(params, cfg, new):
+        x, holder[i] = blk.block_prefill(lp, lcfg, x, positions, holder[i],
+                                         cdt)
+    new["pos"] = cache["pos"] + n
     x = norm_apply(params["ln_f"], x[:, -1:], cfg.norm)
-    return _last_logits(params, cfg, x), {"blocks": new_blocks,
-                                          "pos": cache["pos"] + n}
+    return _last_logits(params, cfg, x), new
 
 
 def decode_step(params, cfg, cache, tokens):
@@ -225,8 +338,8 @@ def decode_step(params, cfg, cache, tokens):
 
     The cache is updated IN PLACE (the reference's engine donates it):
     the fused decode kernel rewrites each layer's state, or the token's
-    k/v land in each layer's KV cache, or (mamba2, whose decode is the
-    reference's functional plain step) the layer's new MambaCache
+    k/v land in each layer's KV cache, or (a Mamba-2 block, whose decode
+    is the reference's functional plain step) the layer's new MambaCache
     replaces its entry; the position counter advances and the same dict
     is returned.
     """
@@ -234,9 +347,9 @@ def decode_step(params, cfg, cache, tokens):
     pos = cache["pos"]                       # (B,) — per-slot depths
     position = pos[:, None]
     x = embed_lookup(params["embed"], tokens[:, None], cdt)
-    for i, lp in enumerate(params["blocks"]):
-        x, cache["blocks"][i] = blk.block_decode(
-            lp, cfg, x, position, cache["blocks"][i], cdt)
+    for lp, lcfg, holder, i in _layers(params, cfg, cache):
+        x, holder[i] = blk.block_decode(lp, lcfg, x, position, holder[i],
+                                        cdt)
     pos += 1
     x = norm_apply(params["ln_f"], x, cfg.norm)
     return _last_logits(params, cfg, x), cache

@@ -46,7 +46,8 @@ DECODING victim.  The eviction policy follows the cache:
 
   contiguous        snapshot: the victim's own rows (O(max_len) KV for
                     softmax, O(D^2) state for linear / gla, the mamba2
-                    state and conv tail) are copied to device buffers
+                    state and conv tail, every cache of a zamba2 hybrid)
+                    are copied to device buffers
                     (serve/cache.py `snapshot_slot`); resume copies them
                     into whatever slot it gets and the victim decodes on.
   paged KV          recompute: the victim's pages are freed and its
@@ -99,6 +100,7 @@ from repro_torch.serve.cache import restore_slot, slot_leaves, \
 from repro_torch.serve.paging import PagedAdmission, PagePool
 from repro_torch.serve.scheduler import AdmissionPolicy, ByteBudget, \
     FixedSlots, RequestState, Scheduler, StepOutput, TokenBudget
+from repro_torch.tree import leaves
 from repro_torch.tune import timer
 
 
@@ -504,14 +506,15 @@ class Engine:
 
     def _install(self, slot: int, carry: dict) -> None:
         """Write a finished batch-1 carry into the slot's rows of the
-        batched cache (overwriting what padding decode wrote there)."""
-        for big, small in zip(self.cache["blocks"], carry["blocks"]):
-            for b_t, s_t in zip(big, small):
-                # a paged arena is the carry's own tensor, written in
-                # place: only its page-table row is copied
-                if b_t is not s_t:
-                    b_t[slot].copy_(s_t[0])
-        self.cache["pos"][slot] = carry["pos"][0]
+        batched cache (overwriting what padding decode wrote there):
+        every leaf that holds rows of its own per slot (`slot_leaves`:
+        states, KV rows, page-table rows, conv tails, the position), of
+        any family's cache.  A paged arena is the carry's own tensor,
+        written in place, and is not copied."""
+        for b_t, s_t, own in zip(leaves(self.cache), leaves(carry),
+                                 self._slot_rows):
+            if own:
+                b_t[slot].copy_(s_t[0])
 
     def _set_sampling(self, slot: int, req: Request) -> None:
         sp = req.resolved_sampling()

@@ -146,7 +146,10 @@ def test_walk_plans_unchanged():
     threads, 32 staged tokens), and so does gla_fwd (its gated walk, one
     staged decay more per token), which in bf16 at D = 128 runs the gated
     wgmma body (tests/test_torch_gated_sm90.py); f32 and the smoke dims
-    keep ssd_bwd_kv's walk (row and column tiles, 32 staged tokens)."""
+    keep ssd_bwd_kv's walk (row and column tiles, 32 staged tokens).
+    zamba2-7b's shapes: la_fwd's walk at D = 112 has 128 value threads
+    (whole warps) and the normalizer warp, gla_fwd refuses 112, and
+    ssd_bwd_kv walks (64, 64) with 128 row and 128 column threads."""
     for dtype, d in ((F32, 128), (BF16, 64), (F32, 32)):
         assert tkla.la_fwd_body(dtype, d) == "walk"
         assert tkla.la_fwd_body(dtype, d, "gla_fwd") == "walk"
@@ -162,15 +165,29 @@ def test_walk_plans_unchanged():
             assert (gp.grid, gp.threads, gp.stage) == ((32, 1, 1), d + 32,
                                                        GLA_STAGE_TOKENS)
             assert gp.smem == GLA_STAGE_TOKENS * (3 * (d + 16) + d + 2) * 4
+    for dtype in (F32, BF16):
+        assert tkla.la_fwd_body(dtype, 112) == "walk"
+        for n in (8192, 1000, 1):
+            p = _la_plan(dtype, 2, 32, 8, n, 112)
+            assert (p.grid, p.threads, p.stage) == ((64, 1, 1), 160,
+                                                    LA_STAGE_TOKENS)
+            assert p.smem == LA_STAGE_TOKENS * (3 * 128 + 113) * 4
+            q, kv = _meta(2, 32, n, 112, dtype=dtype), _meta(2, 8, n, 112,
+                                                             dtype=dtype)
+            with pytest.raises(ValueError, match="head dim 112"):
+                tkgla.plan_gla_fwd(q, kv, kv, _meta(2, 8, n, dtype=F32),
+                                   1.0, 1.0)
     assert tkla.la_fwd_body(BF16, D, "gla_fwd") == "wgmma"
     for dtype, dk, dv, smem in ((F32, 128, 64, 32 * 2692),
                                 (BF16, 16, 32, 32 * 964),
-                                (F32, 16, 32, 32 * 964)):
+                                (F32, 16, 32, 32 * 964),
+                                (BF16, 64, 64, 32 * 2052),
+                                (F32, 64, 64, 32 * 2052)):
         assert tkssd.ssd_body("ssd_bwd_kv", dtype, dk, dv) == "walk"
         for n in (8192, 1000, 65, 1):
             p = _ssd_plan(dtype, 2, 4, 16, n, dk, dv)
             assert (p.grid, p.threads, p.smem, p.stage) == (
-                (32, 1, 1), 256 if dk == 128 else 64, smem,
+                (32, 1, 1), 64 if dk == 16 else 256, smem,
                 SSD_STAGE_TOKENS), (dtype, dk, n)
 
 

@@ -150,7 +150,9 @@ def test_gla_decode_stream_plan():
     query rows and f, and an mbarrier a stage, within the launcher's 48 KB
     (43,376 B at G = 1, 46,464 B at G = 4; three stages at G = 16).  Each
     S, P and o element has one writer.  Odd Dk and wide Dv keep the column
-    walk, for both entries."""
+    walk, for both entries.  A group of 48 (granite-20b) streams in
+    blocks of at most 576 threads past 48 KB, and Dk = Dv = 112 (zamba2-7b)
+    streams within it."""
     assert tdf.recurrent_decode_body(D, D) == "stream"
     assert tdf.recurrent_decode_body(30, 32) == \
         tdf.recurrent_decode_body(128, 256) == "walk"
@@ -175,6 +177,24 @@ def test_gla_decode_stream_plan():
         assert p.smem <= tdf.RECURRENT_MAX_SMEM
     for p in _decode_plans(2, 4, 2, dk=30, dv=32):
         assert (p.threads, p.smem) == (64, (30 + 33 + 2 * (30 + 33)) * 4)
+    # granite-20b's 48 query heads on one KV head: blocks of at most 576
+    # threads (544 at Dv = 128), and the 48 query rows, rows f and the
+    # classes' partial dots past 48 KB, within the card's opt-in maximum;
+    # zamba2-7b's D = 112: 4 x 113 threads rounded up to 15 warps
+    assert tdf.recurrent_decode_body(D, D, 48) == "stream"
+    assert tdf.recurrent_decode_body(D, 160, 48) == "walk"
+    parts = 3 * 48 * 129 * 4
+    for p in _decode_plans(4, 48, 1):
+        assert (p.grid, p.threads) == ((4, 1, 1), 544)
+        assert p.smem == -(-(parts + (D + 129 + 48 * (D + 129)) * 4)
+                           // 8) * 8 + 8 * GLA_DECODE_RING
+        assert tdf.RECURRENT_MAX_SMEM < p.smem <= plan.MAX_SMEM \
+            == p.smem_limit
+        for name in ("s", "p", "o"):
+            assert _written_once(p, name), (p.name, name)
+    for p in _decode_plans(4, 32, 32, dk=112, dv=112):
+        assert (p.grid, p.threads) == ((128, 1, 1), 480)
+        assert p.smem <= tdf.RECURRENT_MAX_SMEM == p.smem_limit
 
 
 # ---------------------------------------------------------------------------

@@ -138,8 +138,12 @@ def test_walk_plans_unchanged():
     threads, 32 staged tokens; so do gla_bwd_q and gla_bwd_kv in f32 and
     at D = 64, which in bf16 at D = 128 run the gated wgmma bodies
     (tests/test_torch_gated_sm90.py, tests/test_torch_gla_q_decode_sm90.py):
-    gla_bwd_q then (B H, 2) blocks of one warpgroup, the chunk staged."""
-    for dtype, d in ((F32, 128), (BF16, 64), (F32, 32)):
+    gla_bwd_q then (B H, 2) blocks of one warpgroup, the chunk staged.
+    zamba2-7b's D = 112 walks (the last warp of each role half full; its
+    shuffles name the role's lanes): 112 and 224 threads; the gated
+    entries refuse 112."""
+    for dtype, d in ((F32, 128), (BF16, 64), (F32, 32), (BF16, 112),
+                     (F32, 112)):
         for entry in ("la_bwd_q", "la_bwd_kv"):
             assert tkla.la_bwd_body(entry, dtype, d) == "walk"
         for n in (8192, 1000, 65, 1):
@@ -168,6 +172,12 @@ def test_walk_plans_unchanged():
         assert tkla.la_bwd_body("gla_bwd_kv", dtype, d) == "walk"
         gkv = tkgla.plan_gla_bwd_kv(q, kv, kv, ld, om, h_vec, 1.0, 1.0)
         assert (gkv.grid, gkv.threads) == ((32, 1, 1), 2 * d)
+    kv = _meta(2, 16, 65, 112, dtype=BF16)
+    om, h_vec = _meta(2, 16, 65, 112, dtype=F32), _meta(2, 16, 65,
+                                                        dtype=F32)
+    with pytest.raises(ValueError, match="head dim 112"):
+        tkgla.plan_gla_bwd_q(kv, kv, _meta(2, 16, 65, dtype=F32), om, h_vec,
+                             1.0)
 
 
 # ---------------------------------------------------------------------------
