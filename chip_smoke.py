@@ -93,9 +93,12 @@ fails the run by raising (no result line is printed then):
                partials, dk partials and dv; and the shapes of the other
                architectures, under the same limits: la_fwd, la_bwd_q and
                la_bwd_kv at GQA G = 8, 16 and 48 (the wgmma bodies, bf16
-               at D = 128) and at D = 64 and 112 (the token walks, bf16
-               and f32, GQA at 112), la_decode_fused at G = 48 and at D =
-               112 (the stream, bf16 and f32 with a zero normalizer), the
+               at D = 128), at D = 64 and 112 (the token walks, bf16
+               and f32, GQA at 112) and at deepseek-v2-236b's MLA heads,
+               (Dk, Dv) = (192, 128), H = Hkv = 128 (the token walks,
+               bf16 at N = 8192 and 1000, f32 at 1000), la_decode_fused
+               at G = 48, at D = 112 and at (192, 128) with 128 heads
+               (the stream, bf16 and f32 with a zero normalizer), the
                SSD kernels at zamba2-7b's (64, 64) (the token walks, bf16
                and f32, both decay regimes, G = 4)
   4. serve   — the Engine at full width pythia-1.4b in bf16, once with the
@@ -157,6 +160,15 @@ fails the run by raising (no result line is printed then):
                timed and profiled, and 4 decode steps' logits on the
                kernel path against the plain path; then the smoke configs
                of all seven architectures on the card against the CPU
+  4d. moe    — moonshot-v1-16b-a3b at full width and depth (bf16 params,
+               28.4 B, the f32 routers kept) and deepseek-v2-236b at full
+               width and 8 of 60 layers (1 dense + 7 MoE, bf16 params,
+               29.2 B) the same way: la_decode_fused one launch per layer
+               and step (deepseek's at (192, 128), 128 heads); their 4
+               logits comparisons start each step's two paths from one
+               cache (a token near a tie of router scores takes other
+               experts on the two paths, and the states keep it); both
+               smoke configs on the card against the CPU
   5. train   — full width pythia-1.4b (f32 params, bf16 compute, the
                config's remat) on SyntheticLM batches of 2 x 8192 tokens
                (seed 0), once per backend (linear, softmax, gla), and
@@ -184,6 +196,15 @@ fails the run by raising (no result line is printed then):
                the SSD kernels: 3gm + 2t forwards, gm + t backwards, remat
                per block inside remat per group); step time, tokens/s,
                peak memory, one step under torch.profiler
+  5c. moe    — moonshot-v1-16b-a3b the same way at 4 of 48 layers (1
+               dense + 3 MoE, 2.52 B params); its step-0 comparison and
+               deepseek-v2-236b's at 2 layers (1 dense + 1 MoE, 5.36 B
+               params) in `_train_legs`'s two legs, deepseek's grads held
+               on the host between legs and its two kernel legs its train
+               path (la_fwd, la_bwd_q and la_bwd_kv at (192, 128), counted:
+               no depth of it trains with f32 AdamW on one card); an MoE
+               forward at full width and 2 x 8192 tokens run twice for
+               bit-equal routing, output and aux (remat recomputes it)
   6. timing  — each kernel and its plain version with CUDA events at the
                main paths' shapes, in turns, beside the kernel's bound and,
                where one PyTorch call computes the same function (SDPA for
@@ -212,9 +233,10 @@ fails the run by raising (no result line is printed then):
                in turns with la_decode_fused on the same inputs; the
                fixture at n = 2^24 f32, block 256; and the other
                architectures' shapes (`phase_timing_arch`): the LA
-               training kernels at each arch's (H, Hkv, D), la_decode_fused
-               at each arch's serving shape by graph replays in turns with
-               the pythia shape's, the SSD kernels at (64, 64)
+               training kernels at each arch's (H, Hkv, D) and at
+               deepseek-v2's (128, 128, 192, 128), la_decode_fused at each
+               arch's serving shape by graph replays in turns with the
+               pythia shape's, the SSD kernels at (64, 64)
   7. result  — a JSON line with every measurement, the card's line, a
                `kernels` JSON line, then {"ok": true, "device": {...}}
                as the last line
@@ -320,14 +342,32 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8192, 4
 ARCHS = ("qwen2.5-3b", "stablelm-1.6b", "chatglm3-6b", "granite-20b",
          "zamba2-7b")
 ARCH_SLOTS, ARCH_PROMPT, ARCH_NEW, ARCH_TRAIN_STEPS = 4, 256, 16, 3
-ARCH_SERVE_PARAMS = {"granite-20b": "bfloat16"}
+ARCH_SERVE_PARAMS = {"granite-20b": "bfloat16",
+                     "moonshot-v1-16b-a3b": "bfloat16",
+                     "deepseek-v2-236b": "bfloat16"}
+# the MoE family (phases 4d and 5c), served and trained as the archs above:
+# moonshot-v1-16b-a3b at full depth in bf16 params (28.4 B, 56.8 GB, the
+# compute copy aliased; the f32 routers stay f32), deepseek-v2-236b at 8
+# of its 60 layers (the dense first layer and 7 MoE layers, 29.2 B params,
+# 58.4 GB in bf16: the whole model does not fit one card); moonshot
+# trained at 4 of 48 layers (1 dense + 3 MoE, 2.52 B params, ~40 GB of
+# f32 params, grads and moments); deepseek only through the step-0
+# comparison (2 of its layers are 5.36 B params, ~86 GB under f32 AdamW),
+# whose grads go to the host between the legs
+MOE_ARCHS = ("moonshot-v1-16b-a3b", "deepseek-v2-236b")
+# the archs whose attention shapes phase_timing_arch times: moonshot's is
+# pythia's (H = Hkv = 16, D = 128), whose rows phase_timing_la times
+TIMED_ARCHS = ARCHS + ("deepseek-v2-236b",)
+ARCH_SERVE_DEPTH = {"deepseek-v2-236b": dict(num_layers=8)}
+COMPARE_ONLY = ("deepseek-v2-236b",)
 # depth cuts of the train runs: chatglm3-6b 28 -> 8 layers, granite-20b
 # 52 -> 3, zamba2-7b 13 -> 2 groups of 6 Mamba-2 blocks (the tail of 3
 # and the shared block kept): 2.17 B, 2.20 B and 1.60 B params, ~35, ~35
 # and ~26 GB of params, grads and moments
 ARCH_TRAIN_DEPTH = {"chatglm3-6b": dict(num_layers=8),
                     "granite-20b": dict(num_layers=3),
-                    "zamba2-7b": dict(num_layers=15, hybrid_groups=2)}
+                    "zamba2-7b": dict(num_layers=15, hybrid_groups=2),
+                    "moonshot-v1-16b-a3b": dict(num_layers=4)}
 # depth of the step-0 comparison before each train run: kernel path
 # against plain path, the loss and every grad in bf16 and in f32 compute
 # (`_train_legs`), at full width: the dense stacks at 2 layers (the GQA
@@ -338,9 +378,14 @@ ARCH_TRAIN_DEPTH = {"chatglm3-6b": dict(num_layers=8),
 # the wgmma bodies' bf16 products (D = 128) move them by up to twice the
 # plain path's own chunk spread in norm: they are held per leaf, as
 # pythia's linear path is; zamba2's Mamba-2 grads sit at the noise level
-# and are held to the spread, as mamba2's are (PERF.md, §6)
+# and are held to the spread, as mamba2's are, and so are the MoE
+# family's: a token near a tie of router scores takes other experts on two
+# paths, so the routed experts' grads move by up to 5 % of their max
+# |value| between two plain runs that differ only in the scan chunk
+# (moonshot, 2 layers; PERF.md, §6)
 ARCH_COMPARE_DEPTH = {
-    **{arch: dict(num_layers=2) for arch in ARCHS if arch != "zamba2-7b"},
+    **{arch: dict(num_layers=2) for arch in ARCHS + MOE_ARCHS
+       if arch != "zamba2-7b"},
     "zamba2-7b": dict(num_layers=3, hybrid_groups=2,
                       hybrid_mamba_per_group=1, hybrid_tail=1)}
 LA_SHAPE = dict(b=2, h=16, hkv=16, n=8192, d=128)
@@ -350,7 +395,10 @@ LA_SHAPE = dict(b=2, h=16, hkv=16, n=8192, d=128)
 # attention, 3584 / 32), with GQA at 112 too
 LA_ARCH_SHAPES = {"qwen2.5-3b": (16, 2, 128), "stablelm-1.6b": (32, 32, 64),
                   "chatglm3-6b": (32, 2, 128), "granite-20b": (48, 1, 128),
-                  "zamba2-7b": (32, 32, 112), "zamba2-7b-gqa": (32, 8, 112)}
+                  "zamba2-7b": (32, 32, 112), "zamba2-7b-gqa": (32, 8, 112),
+                  "moonshot-v1-16b-a3b": (16, 16, 128),
+                  # MLA: (H, Hkv, Dk, Dv), q and k nope 128 + rope 64
+                  "deepseek-v2-236b": (128, 128, 192, 128)}
 LA_ARCH_CASES = (
     ("gqa8_bf16", "qwen2.5-3b", 8192, "bfloat16"),
     ("gqa16_bf16", "chatglm3-6b", 8192, "bfloat16"),
@@ -361,7 +409,17 @@ LA_ARCH_CASES = (
     ("d112_bf16", "zamba2-7b", 8192, "bfloat16"),
     ("d112_f32", "zamba2-7b", 8192, "float32"),
     ("d112_gqa_odd_n_f32", "zamba2-7b-gqa", 1000, "float32"),
-    ("d112_gqa_odd_n_bf16", "zamba2-7b-gqa", 1000, "bfloat16"))
+    ("d112_gqa_odd_n_bf16", "zamba2-7b-gqa", 1000, "bfloat16"),
+    ("mla_bf16", "deepseek-v2-236b", 8192, "bfloat16"),
+    ("mla_odd_n_f32", "deepseek-v2-236b", 1000, "float32"),
+    ("mla_odd_n_bf16", "deepseek-v2-236b", 1000, "bfloat16"))
+
+
+def _la_arch_shape(arch):
+    """(H, Hkv, Dk, Dv) of an LA_ARCH_SHAPES entry; Dv None where it is
+    Dk."""
+    h, hkv, d, *dv = LA_ARCH_SHAPES[arch]
+    return h, hkv, d, (dv[0] if dv else None)
 # zamba2-7b's Mamba-2 layers: state 64, head dim 64, 112 heads
 SSD_ZAMBA2_SHAPE = dict(b=2, g=1, h=112, n=8192, dk=64, dv=64)
 # the shared-direction case of the LA kernels: q and k rows are their
@@ -675,13 +733,18 @@ def phase_kernel(torch):
               True),
              ("d112_bf16", ARCH_SLOTS, 32, 32, 112, None, bf16, False),
              ("d112_zero_den_f32", ARCH_SLOTS, 32, 32, 112, None, f32,
+              True),
+             # deepseek-v2-236b's MLA heads: a 192 x 129 f32 slab (99 KB)
+             # per (slot, head), 128 heads, G = 1
+             ("mla_bf16", ARCH_SLOTS, 128, 128, 192, 128, bf16, False),
+             ("mla_zero_den_f32", ARCH_SLOTS, 128, 128, 192, 128, f32,
               True)]
     errs = {}
     for label, b, h, hkv, d, dv, dtype, zero_den in cases:
         s, p, q, k, v = _decode_case(torch, gen, b, h, hkv, d, dtype,
                                      zero_den, dv)
         body = _recurrent_decode_body(s, p, q, k, v)[0]
-        expect = "stream" if dv is None else "walk"
+        expect = "walk" if d == WALK_DK else "stream"
         if body != expect:
             raise AssertionError(f"{label}: decode body {body}, not "
                                  f"{expect}")
@@ -725,10 +788,11 @@ def phase_kernel(torch):
     return errs
 
 
-def _la_case(torch, gen, b, h, hkv, n, d, dtype, shared=0.0):
+def _la_case(torch, gen, b, h, hkv, n, d, dtype, shared=0.0, dv=None):
     """Unit q/k rows (as the model hands them over after l2
-    normalization), normal v and upstream grad, and the plain forward's
-    o and g with the backward's Ω̂ and h prepared from them.  With
+    normalization) of d columns, normal v and upstream grad of dv (d where
+    None), and the plain forward's o and g with the backward's Ω̂ and h
+    prepared from them.  With
     `shared` > 0 the rows are their noise (norm ~1) plus `shared` times
     one common unit direction before the normalization, so q and k share
     a direction as the keys of a trained model do: Σ k grows with t and
@@ -745,9 +809,10 @@ def _la_case(torch, gen, b, h, hkv, n, d, dtype, shared=0.0):
             x = x / d ** 0.5 + shared * u
         return (x / x.norm(dim=-1, keepdim=True)).to(dtype)
 
+    dv = d if dv is None else dv
     q, k = unit(b, h, n, d), unit(b, hkv, n, d)
-    v = torch.randn((b, hkv, n, d), generator=gen, device="cuda").to(dtype)
-    omega = torch.randn((b, h, n, d), generator=gen, device="cuda")
+    v = torch.randn((b, hkv, n, dv), generator=gen, device="cuda").to(dtype)
+    omega = torch.randn((b, h, n, dv), generator=gen, device="cuda")
     o, g = la.la_fwd_torch(q, k, v, 1.0, 1.0)
     om_hat, h_vec = chunked.la_bwd_prep(o, g, omega)
     return q, k, v, om_hat, h_vec
@@ -758,7 +823,8 @@ def phase_kernel_la(torch):
     Every bf16 case at D = 128 (GQA included: G = 4, and the new archs'
     8, 16 and 48) runs the chunked wgmma bodies of all three, every f32
     case and every bf16 case at D = 64 (stablelm-1.6b) or 112 (zamba2-7b)
-    the token walks (from the launchers' C plan exports); the bf16 main
+    or (Dk, Dv) = (192, 128) (deepseek-v2-236b's MLA) the token walks
+    (from the launchers' C plan exports); the bf16 main
     case launches each kernel twice for bit-equal o, g, dq, dk and dv; one
     bf16 case at N = 8192 has q and k that share a direction."""
     from repro_torch.kernels import linear_attention as la
@@ -766,29 +832,29 @@ def phase_kernel_la(torch):
     gen.manual_seed(3)
     m = LA_SHAPE
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [("main_bf16", m["b"], m["h"], m["hkv"], m["n"], m["d"], bf16,
-              0.0),
-             ("main_f32", m["b"], m["h"], m["hkv"], m["n"], m["d"], f32,
-              0.0),
-             ("odd_n_bf16", m["b"], m["h"], m["hkv"], 1000, m["d"], bf16,
-              0.0),
-             ("gqa_f32", m["b"], m["h"], 4, 1000, m["d"], f32, 0.0),
-             ("gqa_bf16", m["b"], m["h"], 4, 1000, m["d"], bf16, 0.0),
-             ("shared_bf16", m["b"], m["h"], m["hkv"], m["n"], m["d"], bf16,
-              LA_SHARED),
+    cases = [("main_bf16", m["b"], m["h"], m["hkv"], m["n"], m["d"], None,
+              bf16, 0.0),
+             ("main_f32", m["b"], m["h"], m["hkv"], m["n"], m["d"], None,
+              f32, 0.0),
+             ("odd_n_bf16", m["b"], m["h"], m["hkv"], 1000, m["d"], None,
+              bf16, 0.0),
+             ("gqa_f32", m["b"], m["h"], 4, 1000, m["d"], None, f32, 0.0),
+             ("gqa_bf16", m["b"], m["h"], 4, 1000, m["d"], None, bf16, 0.0),
+             ("shared_bf16", m["b"], m["h"], m["hkv"], m["n"], m["d"], None,
+              bf16, LA_SHARED),
              # the new archs' own shapes (LA_ARCH_SHAPES)
-             *((label, m["b"], *LA_ARCH_SHAPES[arch][:2], n,
-                LA_ARCH_SHAPES[arch][2], getattr(torch, dtype), 0.0)
+             *((label, m["b"], *_la_arch_shape(arch)[:2], n,
+                *_la_arch_shape(arch)[2:], getattr(torch, dtype), 0.0)
                for label, arch, n, dtype in LA_ARCH_CASES)]
     errs = {}
-    for label, b, h, hkv, n, d, dtype, shared in cases:
+    for label, b, h, hkv, n, d, dv, dtype, shared in cases:
         q, k, v, om_hat, h_vec = _la_case(torch, gen, b, h, hkv, n, d,
-                                          dtype, shared)
-        log(f"[kernel] {label}: B={b} H={h} Hkv={hkv} N={n} D={d} "
-            f"{dtype} shared={shared}")
+                                          dtype, shared, dv)
+        log(f"[kernel] {label}: B={b} H={h} Hkv={hkv} N={n} Dk={d} "
+            f"Dv={v.shape[-1]} {dtype} shared={shared}")
         rel = BF16_REL if dtype == torch.bfloat16 else SEQ_F32_REL
         expect = "wgmma" if dtype == torch.bfloat16 and d == 128 \
-            else "walk"
+            and dv is None else "walk"
         bodies = {"la_fwd": _la_fwd_body(q, k, v)[0],
                   **{e: _la_bwd_body(e, q, k, v, om_hat, h_vec)[0]
                      for e in ("la_bwd_q", "la_bwd_kv")}}
@@ -2563,7 +2629,7 @@ def _within(err, limit):
 
 
 def _train_legs(torch, mdl, cfg, params, batch, variants,
-                bf16_per_leaf=False):
+                bf16_per_leaf=False, host_grads=False):
     """The first step's loss and EVERY grad of each variant against the
     plain path, from the same weights and batch, in two legs.
 
@@ -2581,7 +2647,10 @@ def _train_legs(torch, mdl, cfg, params, batch, variants,
     the pythia runs' limit, and the spread's verdict is only recorded.  In
     f32 compute the rounding is 2^16 times finer: there the loss is held
     to SEQ_F32_REL and every grad to TRAIN_GRAD_REL of its max |value|.
-    At most three grad sets are alive at once.
+    At most three grad sets are alive at once; with `host_grads` each set
+    goes to the host as soon as its run ends (a model whose params and
+    one set of grads fill most of the card), and each pair of leaves comes
+    back to the card for its comparison.
 
     Returns {variant: {"bf16": leg, "f32": leg}}, each leg {"ok", "worst",
     "ratio" (its share of the limit), "loss", "loss_ref", "loss_abs_err",
@@ -2605,19 +2674,28 @@ def _train_legs(torch, mdl, cfg, params, batch, variants,
                 torch.isfinite(g).all() for g in grads):
             raise AssertionError(f"non-finite loss or grads ({c.la.backend}"
                                  f", {c.compute_dtype})")
+        if host_grads:
+            grads = [g.cpu() for g in grads]
+            torch.cuda.empty_cache()
         return loss.detach(), grads
+
+    def dev(t):
+        return t.to("cuda") if host_grads else t
 
     def against(grads, ref):
         """Per leaf max abs err over max |value|; per kind of leaf the
         norm of the differences and its share of the reference's norm."""
-        rel = [e / sc for e, sc in (rel_err(g, r)
-                                    for g, r in zip(grads, ref))]
+        rel, sq_diff, sq_ref = [], [], []
+        for g, r in zip(grads, ref):
+            g, r = dev(g), dev(r)
+            e, sc = rel_err(g, r)
+            rel.append(e / sc)
+            sq_diff.append(float(((g.float() - r.float()) ** 2).sum()))
+            sq_ref.append(float((r.float() ** 2).sum()))
         norms = {}
         for kind, idx in kinds.items():
-            d = math.sqrt(sum(float(((grads[i].float() - ref[i].float())
-                                     ** 2).sum()) for i in idx))
-            r = math.sqrt(sum(float((ref[i].float() ** 2).sum())
-                              for i in idx))
+            d = math.sqrt(sum(sq_diff[i] for i in idx))
+            r = math.sqrt(sum(sq_ref[i] for i in idx))
             norms[kind] = {"norm_diff": d, "norm_rel": d / max(r, 1e-30),
                            "max_rel": max(rel[i] for i in idx),
                            "worst": named[max(idx, key=rel.__getitem__)][0]}
@@ -2684,7 +2762,7 @@ def _train_legs(torch, mdl, cfg, params, batch, variants,
 
 
 def _train_compare_all(torch, mdl, cfg, params, batch,
-                       bf16_per_leaf=False):
+                       bf16_per_leaf=False, host_grads=False):
     """GLA, mamba2 and the other architectures: the first step's loss and
     EVERY grad, kernel path against plain path, in both legs of
     `_train_legs`; raises where a leg fails."""
@@ -2692,7 +2770,7 @@ def _train_compare_all(torch, mdl, cfg, params, batch,
     rec = {"grads_compared": len(named_leaves(params)),
            **_train_legs(torch, mdl, cfg, params, batch,
                          {"cuda": lambda c: _with_impl(c, "cuda")},
-                         bf16_per_leaf)["cuda"]}
+                         bf16_per_leaf, host_grads)["cuda"]}
     per_leaf = (f"{rec['grads_compared']} grads within {TRAIN_GRAD_REL} of "
                 f"their max |value|")
     spread = (f"every kind of leaf within {GATE_NOISE_FACTOR} x the plain "
@@ -2828,10 +2906,20 @@ def _arch_train_launches(cfg) -> dict:
             "ssd_bwd_kv": g * m + t}
 
 
+def _head_dims(cfg):
+    """(Dk, Dv) of the model's attention heads: MLA's decompressed nope +
+    rope and v widths, else the head dim twice."""
+    if cfg.mixer == "mla":
+        return (cfg.mla.nope_head_dim + cfg.mla.rope_head_dim,
+                cfg.mla.v_head_dim)
+    return cfg.resolved_head_dim, cfg.resolved_head_dim
+
+
 def phase_arch_serve(torch, np, arch):
-    """The engine at full width and depth with `arch`'s preset (linear)
-    backend, bf16 compute (granite-20b: bf16 params too, its compute copy
-    the very tensors): ARCH_SLOTS requests of ARCH_PROMPT random tokens,
+    """The engine at full width and depth (deepseek-v2-236b at
+    ARCH_SERVE_DEPTH's) with `arch`'s preset (linear) backend, bf16
+    compute (granite-20b and the MoE family: bf16 params too, the compute
+    copy the very tensors): ARCH_SLOTS requests of ARCH_PROMPT random tokens,
     ARCH_NEW new, greedy; every decode step through la_decode_fused (one
     launch per attention block); the steady decode step (events, host
     clock, profile) and the first decode steps' logits, kernel path
@@ -2842,7 +2930,8 @@ def phase_arch_serve(torch, np, arch):
     from repro_torch.serve.engine import Engine, Request
     from repro_torch.tree import leaves
 
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, **ARCH_SERVE_DEPTH.get(arch, {}))
     if arch in ARCH_SERVE_PARAMS:
         cfg = dataclasses.replace(cfg, param_dtype=ARCH_SERVE_PARAMS[arch])
     torch.cuda.empty_cache()
@@ -2907,24 +2996,37 @@ def phase_arch_serve(torch, np, arch):
     cfg_k, cfg_t = _with_impl(engine.cfg, "cuda"), _with_impl(engine.cfg,
                                                               "torch")
     logit_errs = []
+    # the MoE family: a token whose router scores lie within rounding of a
+    # tie takes other experts on the two paths, and the recurrent states
+    # keep that for every later step, so each step starts both paths from
+    # the kernel path's cache
+    resync = cfg.moe is not None
     for i in range(COMPARE_STEPS):
+        if resync and i:
+            cache_t = _clone_tree(cache_k)
         lk, cache_k = mdl.decode_step(engine.params, cfg_k, cache_k, tok)
         lt, cache_t = mdl.decode_step(engine.params, cfg_t, cache_t, tok)
         if not torch.isfinite(lk).all():
             raise AssertionError(f"{arch} decode step {i}: non-finite "
                                  f"logits")
         logit_errs.append(check_close(f"full-width {arch} decode step {i} "
-                                      f"logits (cuda vs torch)", lk, lt,
-                                      LOGITS_REL))
+                                      f"logits (cuda vs torch"
+                                      f"{', same cache' if resync else ''})",
+                                      lk, lt, LOGITS_REL))
         tok = lk.argmax(-1)
     ttft = [first[r] for r in range(ARCH_SLOTS)]
     record = {
         "arch": cfg.name, "params": n_params,
         "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
         "compute_copy_aliases_params": aliased,
-        "layers": cfg.num_layers, "attention_blocks_per_step": attn,
+        "layers": cfg.num_layers, "full_depth_layers": full.num_layers,
+        "depth_cut": ARCH_SERVE_DEPTH.get(arch),
+        "full_depth_params": full.param_count(),
+        "attention_blocks_per_step": attn,
         "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
-        "head_dim": cfg.resolved_head_dim,
+        "head_dim": cfg.resolved_head_dim, "head_dims_kv": _head_dims(cfg),
+        "mixer": cfg.mixer, "moe": (dataclasses.asdict(cfg.moe)
+                                    if cfg.moe is not None else None),
         "slots": ARCH_SLOTS, "prompt_len": ARCH_PROMPT,
         "prefill_chunk": ARCH_PROMPT, "max_new": ARCH_NEW,
         "decode_steps": steps, "kernel_launches": launches,
@@ -2936,21 +3038,52 @@ def phase_arch_serve(torch, np, arch):
         "decode_step_profile": profile,
         "max_memory_allocated_bytes": peak,
         "logits_max_abs_err": logit_errs,
+        "logits_compared_from_same_cache_each_step": resync,
     }
     del engine, cache_k, cache_t
     torch.cuda.empty_cache()
     return record, launches
 
 
+def _moe_recompute_bits(torch, cfg, params, batch):
+    """An MoE FFN of the model's first MoE block run twice on the same
+    full-width input (its embedded batch, bf16): remat recomputes the
+    routing in the backward, so both runs must give the same top-k,
+    output and aux loss, bit for bit."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import embed_lookup
+    p = params["blocks"][0]["ffn"]
+    with torch.no_grad():
+        x = embed_lookup(params["embed"], batch["tokens"], torch.bfloat16)
+        xt = x.reshape(-1, x.shape[-1])
+        runs = [(*moe.route(p, cfg, xt)[1:2], *moe.moe_apply(
+            p, cfg, x, torch.bfloat16)) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    tokens = xt.shape[0]
+    log(f"  MoE routing recomputed at {tokens} tokens: top-k ids, output "
+        f"and aux bit-equal {same}")
+    if not same:
+        raise AssertionError(f"{cfg.name}: a recomputed MoE forward differs "
+                             f"from the first")
+    return {"tokens": tokens, "bit_equal": same,
+            "capacity": moe.capacity(cfg, tokens)}
+
+
 def phase_arch_train(torch, arch):
     """The first step of `arch` at full width and ARCH_COMPARE_DEPTH's
     depth, kernel path against plain path (`_train_compare_all`: the loss
-    and every grad, bf16 and f32 compute); then ARCH_TRAIN_STEPS Trainer
-    steps at full width (f32 params and moments, bf16 compute, remat;
-    ARCH_TRAIN_DEPTH's depth), each through the LA kernels (and a
-    hybrid's SSD kernels) as often as `_arch_train_launches` says; step
-    time, tokens/s, peak memory and one more step under torch.profiler.
-    Returns (record, the run's launches)."""
+    and every grad, bf16 and f32 compute; the MoE family also an MoE
+    forward recomputed bit-equal, `_moe_recompute_bits`); then
+    ARCH_TRAIN_STEPS Trainer steps at full width (f32 params and moments,
+    bf16 compute, remat; ARCH_TRAIN_DEPTH's depth), each through the LA
+    kernels (and a hybrid's SSD kernels) as often as
+    `_arch_train_launches` says; step time, tokens/s, peak memory and one
+    more step under torch.profiler.  An arch of COMPARE_ONLY (deepseek-v2:
+    no depth of it trains on one card) stops after the comparison, its
+    grads held on the host between legs, and its kernel legs are its
+    train path: counted, each leg a step's forward (twice under remat)
+    and backward.  Returns (record, the run's launches)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import SyntheticLM
@@ -2971,11 +3104,33 @@ def phase_arch_train(torch, arch):
     batch0 = {"tokens": torch.from_numpy(data.batch_at(0)).to("cuda")}
     log(f"[train {arch}] step 0 at {short.num_layers} layers, kernel path "
         f"vs plain path")
+    compare_only = arch in COMPARE_ONLY
+    reset_launches()
+    t_cmp = time.perf_counter()
     compare = {"layers": short.num_layers,
                **_train_compare_all(torch, mdl, short, params, batch0,
-                                    bf16_per_leaf=cfg.family != "hybrid")}
+                                    bf16_per_leaf=cfg.family == "dense",
+                                    host_grads=compare_only)}
+    compare["compare_s"] = time.perf_counter() - t_cmp
+    if compare_only:
+        launches = read_launches()
+        per_step = _arch_train_launches(short)
+        log(f"[train {arch}] the step-0 comparison's two kernel legs: "
+            f"launches {launches}")
+        expect_launches(f"train {arch} (step-0 kernel legs)", launches,
+                        {k: 2 * v for k, v in per_step.items()})
+    if cfg.moe is not None:
+        compare["moe_recompute"] = _moe_recompute_bits(torch, short, params,
+                                                       batch0)
     del params, batch0
     torch.cuda.empty_cache()
+    if compare_only:
+        return {"arch": cfg.name, "full_depth_layers": full.num_layers,
+                "full_depth_params": full.param_count(),
+                "compare_only": True, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                "kernel_launches": launches,
+                "launches_per_kernel_leg": per_step,
+                "kernel_vs_plain": compare}, launches
     params = mdl.init_params(cfg, seed=0, device="cuda")
     n_params = sum(t.numel() for t in leaves(params))
     tc = TrainConfig(total_steps=ARCH_TRAIN_STEPS, warmup_steps=1)
@@ -3229,17 +3384,18 @@ def _stream_record(launch, ptxas, source, paged):
         grid_clusters=launch.grid[0] // max(per_cluster, 1))
 
 
-def _decode_work(b, h, hkv, d, itemsize):
-    """(bytes, flops) of one linear decode step: the f32 state and P read
-    and written once, q, k, v read and o written in the compute dtype;
-    the update and the G readouts."""
-    g, cols = h // hkv, d + 1
+def _decode_work(b, h, hkv, d, itemsize, dv=None):
+    """(bytes, flops) of one linear decode step (Dk = d, Dv = dv, default
+    d): the f32 state and P read and written once, q, k, v read and o
+    written in the compute dtype; the update and the G readouts."""
+    dv = d if dv is None else dv
+    g, cols = h // hkv, dv + 1
     state_elems = b * hkv * d * cols
     bytes_moved = (2 * state_elems * 4 + 2 * b * hkv * cols * 4
-                   + (b * h * d + 2 * b * hkv * d) * itemsize
-                   + b * h * d * itemsize)
+                   + (b * h * d + b * hkv * d + b * hkv * dv) * itemsize
+                   + b * h * dv * itemsize)
     flops = (state_elems * (2 + 2 * g) + b * hkv * cols * (1 + 3 * g)
-             + b * h * d)
+             + b * h * dv)
     return bytes_moved, flops
 
 
@@ -3289,25 +3445,46 @@ def phase_timing(torch, ptxas):
     return rec
 
 
-def _la_work(b, h, hkv, n, d, it):
+def _la_work(b, h, hkv, n, d, it, dv=None):
     """(bytes, f32 flops of the token walk) of la_fwd, la_bwd_q and
-    la_bwd_kv at these shapes, `it` the compute dtype's bytes."""
-    q_el, kv_el = b * h * n * d, b * hkv * n * d
+    la_bwd_kv at these shapes (Dk = d, Dv = dv, default d), `it` the
+    compute dtype's bytes."""
+    dv = d if dv is None else dv
+    q_el, k_el = b * h * n * d, b * hkv * n * d
+    o_el, v_el = b * h * n * dv, b * hkv * n * dv
     tok_q, tok_kv = b * h * n, b * hkv * n
     return {
         # q, k, v read; o written in the compute dtype, g in f32
-        "la_fwd": ((q_el + 2 * kv_el) * it + q_el * it + tok_q * 4,
-                   tok_q * 4 * d * (d + 1)),
+        "la_fwd": ((q_el + k_el + v_el) * it + o_el * it + tok_q * 4,
+                   tok_q * 4 * d * (dv + 1)),
         # k, v read; Ω̂ and h read in f32; dq written
-        "la_bwd_q": (2 * kv_el * it + q_el * 4 + tok_q * 4 + q_el * it,
-                     tok_q * 4 * d * (d + 1)),
+        "la_bwd_q": ((k_el + v_el) * it + o_el * 4 + tok_q * 4 + q_el * it,
+                     tok_q * 4 * d * (dv + 1)),
         # q, k, v read; Ω̂ and h read in f32; dk, dv written.  The U
         # update per query token and head, the dk and dv readouts per
         # KV token and head
-        "la_bwd_kv": ((q_el + 2 * kv_el) * it + q_el * 4 + tok_q * 4
-                      + 2 * kv_el * it,
-                      tok_q * 2 * (d + 1) ** 2 + tok_kv * 4 * d * (d + 1)),
+        "la_bwd_kv": ((q_el + k_el + v_el) * it + o_el * 4 + tok_q * 4
+                      + (k_el + v_el) * it,
+                      tok_q * 2 * (d + 1) * (dv + 1)
+                      + tok_kv * 4 * d * (dv + 1)),
     }
+
+
+def _la_chunk_flops(b, h, hkv, n, dk, dv):
+    """The bf16 operations of the three LA kernels' functions in the
+    reference's chunked form at (Dk, Dv) = (dk, dv), each product once (no
+    hi + lo pair): per chunk of c tokens and query head, la_fwd's q k^T,
+    q S, A v and the state update; la_bwd_q's Ω̂ v^T, Ω̂ A^T, P k and A's
+    update; la_bwd_kv's v Ω̂^T, T q, k q^T, A Ω̂, the two readouts of U and
+    its update.  The bound of a shape no chunked body runs (the walks at
+    (192, 128))."""
+    from repro_torch.kernels.defaults import LA_CHUNK_TOKENS
+    c, tok_q = LA_CHUNK_TOKENS, b * h * n
+    return {
+        "la_fwd": tok_q // c * (2 * c * c * (dk + dv) + 4 * c * dk * dv),
+        "la_bwd_q": tok_q // c * (2 * c * c * (dk + dv) + 4 * c * dk * dv),
+        "la_bwd_kv": tok_q // c * (4 * c * c * (dk + dv)
+                                   + 6 * c * dk * dv)}
 
 
 def _la_tc_flops(b, h, hkv, n, d):
@@ -3960,12 +4137,14 @@ def phase_timing_arch(torch, ptxas, arch_launches):
     bf16 = torch.bfloat16
     out = {}
     b, n = LA_SHAPE["b"], LA_SHAPE["n"]
-    for arch in ARCHS:
-        h, hkv, d = LA_ARCH_SHAPES[arch]
+    for arch in TIMED_ARCHS:
+        h, hkv, d, dv = _la_arch_shape(arch)
         serve_l, train_l = arch_launches[arch]
-        q, k, v, om_hat, h_vec = _la_case(torch, gen, b, h, hkv, n, d, bf16)
-        work = _la_work(b, h, hkv, n, d, q.element_size())
-        tc = _la_tc_flops(b, h, hkv, n, d)
+        q, k, v, om_hat, h_vec = _la_case(torch, gen, b, h, hkv, n, d, bf16,
+                                          dv=dv)
+        work = _la_work(b, h, hkv, n, d, q.element_size(), dv)
+        tc = (_la_tc_flops(b, h, hkv, n, d) if dv is None
+              else _la_chunk_flops(b, h, hkv, n, d, dv))
         bodies = {"la_fwd": _la_fwd_body(q, k, v),
                   **{e: _la_bwd_body(e, q, k, v, om_hat, h_vec)
                      for e in ("la_bwd_q", "la_bwd_kv")}}
@@ -3982,6 +4161,7 @@ def phase_timing_arch(torch, ptxas, arch_launches):
             body, launch, c_geo = bodies[name]
             kern, pl = _time_pair(torch, plain, kernel, reps=3)
             rec = {"arch": arch, "shape": dict(b=b, h=h, hkv=hkv, n=n, d=d,
+                                               dv=dv or d,
                                                dtype="bfloat16"),
                    "ms": min(kern), "ms_runs": kern, "plain_ms": min(pl),
                    "plain_ms_runs": pl, "library_ms": None,
@@ -3991,19 +4171,19 @@ def phase_timing_arch(torch, ptxas, arch_launches):
                    "smem_per_block": launch.smem, "grid": list(launch.grid),
                    "c_plan": list(c_geo), "launches": train_l.get(name, 0)}
             log(f"[timing arch] {name} {arch} (B={b} H={h} Hkv={hkv} N={n} "
-                f"D={d} bf16, {body}): {rec}")
+                f"Dk={d} Dv={dv or d} bf16, {body}): {rec}")
             out[f"{name}@{arch}"] = rec
         del q, k, v, om_hat, h_vec
         torch.cuda.empty_cache()
 
     main_sets = [x[:5] for x in decode_state_sets(torch)]
     main_fn = _rotating(df.la_decode_fused_cuda, main_sets, (1.0, 1.0))
-    for arch in ARCHS:
-        h, hkv, d = LA_ARCH_SHAPES[arch]
+    for arch in TIMED_ARCHS:
+        h, hkv, d, dv = _la_arch_shape(arch)
         serve_l = arch_launches[arch][0]
-        state_bytes = ARCH_SLOTS * hkv * d * (d + 1) * 4
+        state_bytes = ARCH_SLOTS * hkv * d * ((dv or d) + 1) * 4
         n_sets = max(8, -(-64 * 2 ** 20 // state_bytes))
-        sets = [_decode_case(torch, gen, ARCH_SLOTS, h, hkv, d, bf16)
+        sets = [_decode_case(torch, gen, ARCH_SLOTS, h, hkv, d, bf16, dv=dv)
                 for _ in range(n_sets)]
         kern, main = _graph_time_pair(
             torch, _rotating(df.la_decode_fused_cuda, sets, (1.0, 1.0)),
@@ -4013,13 +4193,13 @@ def phase_timing_arch(torch, ptxas, arch_launches):
                  for _ in range(2)]
         body, launch, c_geo = _recurrent_decode_body(*sets[0])
         rec = {"arch": arch, "shape": dict(b=ARCH_SLOTS, h=h, hkv=hkv, d=d,
-                                           dtype="bfloat16"),
+                                           dv=dv or d, dtype="bfloat16"),
                "ms": min(kern), "ms_runs": kern,
                "timed_by": "CUDA graph replays",
                "row3_shape_ms_runs_in_turns": main,
                "rotating_states": n_sets, "plain_ms": min(plain),
                "plain_ms_runs": plain, "library_ms": None,
-               **_bound(*_decode_work(ARCH_SLOTS, h, hkv, d, 2)),
+               **_bound(*_decode_work(ARCH_SLOTS, h, hkv, d, 2, dv)),
                "body": body, "threads": launch.threads,
                "smem_per_block": launch.smem, "grid": list(launch.grid),
                "c_plan": list(c_geo),
@@ -4122,17 +4302,19 @@ def main() -> int:
         smi)
     serve_m2, serve_m2_launches, _ = phase_serve(torch, np, "mamba2")
     serve_archs = {arch: phase_arch_serve(torch, np, arch)
-                   for arch in ARCHS}
+                   for arch in ARCHS + MOE_ARCHS}
     smoke_errs = {arch: phase_smoke_reference(torch, arch)
-                  for arch in ("pythia-1.4b", "mamba2-2.7b", *ARCHS)}
+                  for arch in ("pythia-1.4b", "mamba2-2.7b", *ARCHS,
+                               *MOE_ARCHS)}
     torch.cuda.empty_cache()
     train, train_launches = phase_train(torch, "linear")
     train_sm, train_sm_launches = phase_train(torch, "softmax")
     train_gla, train_gla_launches = phase_train(torch, "gla")
     train_m2, train_m2_launches = phase_train(torch, "mamba2")
-    train_archs = {arch: phase_arch_train(torch, arch) for arch in ARCHS}
+    train_archs = {arch: phase_arch_train(torch, arch)
+                   for arch in ARCHS + MOE_ARCHS}
     arch_launches = {arch: (serve_archs[arch][1], train_archs[arch][1])
-                     for arch in ARCHS}
+                     for arch in ARCHS + MOE_ARCHS}
     timing = {"la_decode_fused": phase_timing(torch, ptxas),
               **phase_timing_la(torch, ptxas),
               **phase_timing_softmax(torch, ptxas),
@@ -4173,8 +4355,8 @@ def main() -> int:
         "library_ms": timing[kname].get("library_ms")} for kname in KERNELS]}
     for rec in (serve, serve_sm, serve_pg, serve_gla, serve_glp, serve_m2,
                 train, train_sm, train_gla, train_m2,
-                *(serve_archs[a][0] for a in ARCHS),
-                *(train_archs[a][0] for a in ARCHS)):
+                *(serve_archs[a][0] for a in ARCHS + MOE_ARCHS),
+                *(train_archs[a][0] for a in ARCHS + MOE_ARCHS)):
         rec["card"] = smi
     print(json.dumps({"serve": serve, "serve_softmax": serve_sm,
                       "serve_softmax_paged": serve_pg,
@@ -4183,8 +4365,10 @@ def main() -> int:
                       "serve_mamba2": serve_m2,
                       "train": train, "train_softmax": train_sm,
                       "train_gla": train_gla, "train_mamba2": train_m2,
-                      "serve_archs": {a: serve_archs[a][0] for a in ARCHS},
-                      "train_archs": {a: train_archs[a][0] for a in ARCHS},
+                      "serve_archs": {a: serve_archs[a][0]
+                                      for a in ARCHS + MOE_ARCHS},
+                      "train_archs": {a: train_archs[a][0]
+                                      for a in ARCHS + MOE_ARCHS},
                       "timing_arch": timing_arch,
                       "build_s": build_s, "ptxas": ptxas, "check": check,
                       "kernel_max_abs_err": kernel_errs,

@@ -217,13 +217,16 @@ def _ints(values) -> torch.Tensor:
 
 # the widths of each driver: the reference's small ones (head dims raised
 # to the kernels' smallest instantiation, 32) and registry models': pythia
-# and mamba2, granite-20b's group of 48 query heads on one KV head and
+# and mamba2, granite-20b's group of 48 query heads on one KV head,
 # zamba2-7b's shared attention (head dim 112) and Mamba-2 layers (64, 64)
+# and deepseek-v2-236b's MLA heads (Dk = 192 for q and k, Dv = 128; `d`
+# is Dk, `dv` Dv where they differ)
 WIDTHS = {
     "small": dict(h=4, hkv=2, d=32, dtype=F32),
     "pythia-1.4b": dict(h=16, hkv=16, d=128, dtype=BF16),
     "granite-20b": dict(h=48, hkv=1, d=128, dtype=BF16),
     "zamba2-7b": dict(h=32, hkv=32, d=112, dtype=BF16),
+    "deepseek-v2-236b": dict(h=128, hkv=128, d=192, dv=128, dtype=BF16),
 }
 SSD_WIDTHS = {
     "small": dict(g=2, h=4, dk=16, dv=32, dtype=F32),
@@ -231,13 +234,15 @@ SSD_WIDTHS = {
     "zamba2-7b": dict(g=1, h=112, dk=64, dv=64, dtype=BF16),
 }
 # the models' widths each family is driven at beside the small ones: the
-# linear entries and the linear decode step also at granite-20b's and
-# zamba2-7b's (their kernels take these shapes; gla, softmax and paging
-# do not take zamba2's head dim, nor softmax granite's group)
+# linear entries and the linear decode step also at granite-20b's,
+# zamba2-7b's and deepseek-v2-236b's (their kernels take these shapes;
+# gla, softmax and paging do not take zamba2's head dim, nor softmax
+# granite's group, nor any of them MLA's (192, 128))
 FULL_WIDTHS = {"ssd": ("mamba2-2.7b", "zamba2-7b"),
-               "linear": ("pythia-1.4b", "granite-20b", "zamba2-7b"),
+               "linear": ("pythia-1.4b", "granite-20b", "zamba2-7b",
+                          "deepseek-v2-236b"),
                "linear_decode_fused": ("pythia-1.4b", "granite-20b",
-                                       "zamba2-7b")}
+                                       "zamba2-7b", "deepseek-v2-236b")}
 
 
 def _linear_cases(width, gated):
@@ -245,10 +250,11 @@ def _linear_cases(width, gated):
     r = _Data(1)
     b, n = 2, 50 if width == "small" else 130
     h, hkv, d, dt = w["h"], w["hkv"], w["d"], w["dtype"]
+    dv = w.get("dv", d)
     args = dict(q=r.normal(b, h, n, d, dtype=dt),
                 k=r.normal(b, hkv, n, d, dtype=dt),
-                v=r.normal(b, hkv, n, d, dtype=dt),
-                om_hat=r.normal(b, h, n, d), h_vec=r.normal(b, h, n),
+                v=r.normal(b, hkv, n, dv, dtype=dt),
+                om_hat=r.normal(b, h, n, dv), h_vec=r.normal(b, h, n),
                 a=1.0, b=1.0)
     if gated:
         args["log_decay"] = r.decay(b, hkv, n)
@@ -304,13 +310,15 @@ def _recurrent_cases(width, gated):
     r = _Data(4)
     b = 3 if width == "small" else 8
     d, dt = w["d"], w["dtype"]
+    dv = w.get("dv", d)
     cases = []
     # the width's group, and MHA (a group of 1) on the same grid
     for h, hkv in dict.fromkeys([(w["h"], w["hkv"]), (w["hkv"], w["hkv"])]):
-        args = dict(s=r.normal(b, hkv, d, d + 1), p=r.positive(b, hkv, d + 1),
+        args = dict(s=r.normal(b, hkv, d, dv + 1),
+                    p=r.positive(b, hkv, dv + 1),
                     q=r.normal(b, h, d, dtype=dt),
                     k=r.normal(b, hkv, d, dtype=dt),
-                    v=r.normal(b, hkv, d, dtype=dt), a=1.0, b=1.0)
+                    v=r.normal(b, hkv, dv, dtype=dt), a=1.0, b=1.0)
         if gated:
             args["log_decay"] = r.decay(b, hkv)
             cases.append(Case(width, df.plan_gla_decode_fused,

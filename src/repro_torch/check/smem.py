@@ -14,10 +14,11 @@
               gives the stage it keeps.  An architecture runs the
               kernels of every backend whose kernels take its shapes:
               the hybrid's shared block the linear ones (the launchers
-              refuse gla and softmax for its head dim 112), and the
-              softmax decode kernels only at their query groups (not
-              granite-20b's 48); the coverage record lists what is left
-              out.
+              refuse gla and softmax for its head dim 112), the MLA mixer
+              (deepseek-v2-236b) only the linear ones at its (Dk, Dv) =
+              (192, 128), and the softmax decode kernels only at their
+              query groups (not granite-20b's 48); the coverage record
+              lists what is left out.
   REPRO-V002  reserved: the port has no tuning cache yet (ROADMAP queue 1
               item 10); the coverage record says so.
 """
@@ -51,11 +52,18 @@ def registry_cells() -> list[tuple[str, str, dict]]:
     cells = []
     for arch in _MODULES:
         cfg = get_config(arch)
+        # head dims (Dk, Dv): MLA decompresses q and k to nope + rope, v to
+        # its own width
+        dk = dv = cfg.resolved_head_dim
+        if cfg.mixer == "mla":
+            dk = cfg.mla.nope_head_dim + cfg.mla.rope_head_dim
+            dv = cfg.mla.v_head_dim
         for name, sc in SHAPES.items():
             dims = {"b": sc.global_batch, "h": cfg.num_heads,
-                    "hkv": cfg.num_kv_heads, "d": cfg.resolved_head_dim,
+                    "hkv": cfg.num_kv_heads, "d": dk, "dv": dv,
                     "n": 1 if sc.kind == "decode" else sc.seq_len,
-                    "cache": sc.seq_len, "family": cfg.family}
+                    "cache": sc.seq_len, "family": cfg.family,
+                    "mixer": cfg.mixer}
             if cfg.ssm is not None:
                 dims["ssm"] = dict(
                     dk=cfg.ssm.state_dim, dv=cfg.ssm.head_dim,
@@ -71,6 +79,11 @@ def left_out(dims: dict) -> list[str]:
     if family == "ssm":
         return []
     out = []
+    if dims["mixer"] == "mla":
+        return ["gla_fwd", "gla_bwd_q", "gla_bwd_kv", "gla_decode_fused",
+                "flash_fwd", "flash_bwd_delta", "flash_bwd_q",
+                "flash_bwd_kv", "softmax_decode_fused", "paged_attention",
+                "paged_decode_fused"]
     if family == "hybrid":
         out += ["gla_fwd", "gla_bwd_q", "gla_bwd_kv", "gla_decode_fused",
                 "flash_fwd", "flash_bwd_delta", "flash_bwd_q",
@@ -96,21 +109,23 @@ def cell_plans(dims: dict, dtype) -> list:
     if dims["family"] == "ssm":
         return plans
     h, hkv, d, s_len = dims["h"], dims["hkv"], dims["d"], dims["cache"]
+    dv = dims["dv"]
     q = _meta(b, h, n, d, dtype=dtype)
     kv = _meta(b, hkv, n, d, dtype=dtype)
-    ld, h_vec, om = _meta(b, hkv, n), _meta(b, h, n), _meta(b, h, n, d)
+    v = _meta(b, hkv, n, dv, dtype=dtype)
+    ld, h_vec, om = _meta(b, hkv, n), _meta(b, h, n), _meta(b, h, n, dv)
     pmax = -(-s_len // PAGE_SIZE)
     q1 = _meta(b, h, 1, d, dtype=dtype)
     cache = _meta(b, hkv, s_len, d, dtype=dtype)
     pages = _meta(b * pmax + 1, hkv, PAGE_SIZE, d, dtype=dtype)
     table, lengths = _meta(b, pmax, dtype=I32), _meta(b, dtype=I32)
-    state = (_meta(b, hkv, d, d + 1), _meta(b, hkv, d + 1))
+    state = (_meta(b, hkv, d, dv + 1), _meta(b, hkv, dv + 1))
     step = (_meta(b, h, d, dtype=dtype), _meta(b, hkv, d, dtype=dtype),
-            _meta(b, hkv, d, dtype=dtype))
+            _meta(b, hkv, dv, dtype=dtype))
     every = {
-        "la_fwd": lambda: la.plan_la_fwd(q, kv, kv, 1.0, 1.0),
-        "la_bwd_q": lambda: la.plan_la_bwd_q(kv, kv, om, h_vec, 1.0),
-        "la_bwd_kv": lambda: la.plan_la_bwd_kv(q, kv, kv, om, h_vec, 1.0,
+        "la_fwd": lambda: la.plan_la_fwd(q, kv, v, 1.0, 1.0),
+        "la_bwd_q": lambda: la.plan_la_bwd_q(kv, v, om, h_vec, 1.0),
+        "la_bwd_kv": lambda: la.plan_la_bwd_kv(q, kv, v, om, h_vec, 1.0,
                                                1.0),
         "gla_fwd": lambda: gla.plan_gla_fwd(q, kv, kv, ld, 1.0, 1.0),
         "gla_bwd_q": lambda: gla.plan_gla_bwd_q(kv, kv, ld, om, h_vec, 1.0),

@@ -1,7 +1,8 @@
 """Architecture registry: --arch <id> resolution for the port.
 
 Only the architectures the port can run are listed: pythia-1.4b, the
-dense qwen2.5-3b, stablelm-1.6b, chatglm3-6b and granite-20b, the ssm
+dense qwen2.5-3b, stablelm-1.6b, chatglm3-6b and granite-20b, the moe
+moonshot-v1-16b-a3b and deepseek-v2-236b (the MLA mixer), the ssm
 mamba2-2.7b and the hybrid zamba2-7b; the reference's registry
 (`repro/configs/registry.py`) names all eleven.
 """
@@ -19,6 +20,8 @@ _MODULES = {
     "chatglm3-6b": "chatglm3_6b",
     "granite-20b": "granite_20b",
     "zamba2-7b": "zamba2_7b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
 }
 
 

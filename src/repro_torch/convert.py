@@ -5,9 +5,14 @@
 `jax.tree.map(np.asarray, params)`) and returns the port's tree: the
 layer axis that the reference's `_stack_init` puts on axis 0 of every
 `blocks` leaf (dense and ssm families) is unstacked into a list of
-per-layer dicts; in the hybrid family (zamba2) `mamba_groups`, stacked
-(g, m, ...), becomes g lists of m, `tail`, stacked (t, ...), a list of
-t, and the one `shared_attn` block is not stacked.  Dense weights keep
+per-layer dicts; in the moe family (moonshot-v1-16b-a3b,
+deepseek-v2-236b) `prefix_blocks`, the dense first layers, is already a
+list of block dicts, and the MoE leaves of `blocks` (the router, the
+routed `experts` and the `shared` ones, each stacked (L, E, ...)) lose
+their layer axis and keep their expert axis; in the hybrid family
+(zamba2) `mamba_groups`, stacked (g, m, ...), becomes g lists of m,
+`tail`, stacked (t, ...), a list of t, and the one `shared_attn` block is
+not stacked.  Dense weights keep
 their (d_in, d_out) layout, so each one is a copy; the learnable
 coefficients `la_a` / `la_b` (one scalar per layer, stacked to (L,))
 become one 0-d f32 tensor per layer.  A tree with tied embeddings
@@ -41,15 +46,17 @@ def _unstack(tree, dev, *index):
 
 
 def params_from_jax(cfg, tree, device="cuda"):
-    if cfg.family not in ("dense", "ssm", "hybrid") \
-            or "prefix_blocks" in tree:
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"params_from_jax covers the dense, ssm and hybrid families; "
-            f"got {cfg.family!r}")
+            f"params_from_jax covers the dense, moe, ssm and hybrid "
+            f"families; got {cfg.family!r}")
     dev = resolve_device(device)
-    stacked = ("blocks", "mamba_groups", "tail")
+    stacked = ("blocks", "mamba_groups", "tail", "prefix_blocks")
     out = {k: _map(lambda a: _tensor(a, dev), v)
            for k, v in tree.items() if k not in stacked}
+    if "prefix_blocks" in tree:
+        out["prefix_blocks"] = [_map(lambda a: _tensor(a, dev), lp)
+                                for lp in tree["prefix_blocks"]]
     if cfg.family == "hybrid":
         out["mamba_groups"] = [
             [_unstack(tree["mamba_groups"], dev, i, j)
@@ -60,5 +67,6 @@ def params_from_jax(cfg, tree, device="cuda"):
                            for i in range(cfg.hybrid_tail)]
         return out
     out["blocks"] = [_unstack(tree["blocks"], dev, i)
-                     for i in range(cfg.num_layers)]
+                     for i in range(cfg.num_layers
+                                    - len(tree.get("prefix_blocks", [])))]
     return out

@@ -39,19 +39,21 @@
 // threads; keeping it in PyTorch costs one pass over dV' and keeps the
 // kernel free of a block reduction per token.
 //
-// Shapes (all contiguous): q (B, H, N, D), k and v (B, Hkv, N, D) in the
-// compute type T (float or bf16); om (B, H, N, D) and h (B, H, N) f32;
-// ld (B, Hkv, N) f32 (gated only); dq (B, H, N, D) and dk (B, Hkv, N, D)
-// in T; dv (B, Hkv, N, D) in T, or gated dV' (B, Hkv, N, D+1) in f32.
-// Dk = Dv = D, a template parameter (32, 64 or 128; the linear walks also
-// 112, where a role's shuffles name only its own lanes) so that a state row or
-// column lives in registers.
+// Shapes (all contiguous): q (B, H, N, Dk), k (B, Hkv, N, Dk) and v
+// (B, Hkv, N, Dv) in the compute type T (float or bf16); om (B, H, N, Dv)
+// and h (B, H, N) f32; ld (B, Hkv, N) f32 (gated only); dq (B, H, N, Dk)
+// and dk (B, Hkv, N, Dk) in T; dv (B, Hkv, N, Dv) in T, or gated dV'
+// (B, Hkv, N, Dv+1) in f32.  Dk and Dv are template parameters so that a
+// state row or column lives in registers: Dk = Dv = D at 32, 64 or 128
+// (the linear walks also 112, where a role's shuffles name only its own
+// lanes), and for the linear walks (Dk, Dv) = (192, 128), deepseek-v2's
+// MLA heads (plan::with_walk_dims).
 //
-// Two bodies of each entry, chosen by the launcher from the dtype and D:
-// the chunked wgmma bodies (namespaces bq and bkv; gla_bwd_q and
-// gla_bwd_kv run their kGated instances) for bf16 at D = 128, the
+// Two bodies of each entry, chosen by the launcher from the dtype and the
+// dims: the chunked wgmma bodies (namespaces bq and bkv; gla_bwd_q and
+// gla_bwd_kv run their kGated instances) for bf16 at Dk = Dv = 128, the
 // training instance; the token walk (the gated entries its kGated
-// instantiation) for f32 and at every other D.
+// instantiation) for f32 and at every other pair.
 //
 // What bounds them (estimates from the shapes, not measurements; B=2,
 // H=Hkv=16, N=8192, D=128): the token walk of la_bwd_q does 4 D (D+1)
@@ -151,7 +153,12 @@
 //     plus U[d, Dv] = Σ q[d] h) and compute dk_p; D threads tile its
 //     columns (D/4 rows x 4 columns, plus U[Dk, e] = Σ Ω̂[e]) and compute
 //     dv_p.  Both copies take the same rank-G update, which doubles the
-//     update's flops but needs no cross-tile reduction per token;
+//     update's flops but needs no cross-tile reduction per token.  At
+//     (Dk, Dv) = (192, 128) the two copies would not fit one block's
+//     registers: the roles go to two blocks per (batch, KV head), the row
+//     role's 192 threads of 4 x 32 and the column role's 256 of 4 x 24
+//     (8 row groups of 24, three shuffles), each block staging every
+//     operand (`KvWalk`); la_bwd_q's Dk threads keep 4 rows x Dv/4;
 //   * inputs are staged `stage` tokens at a time in shared memory as f32
 //     by 16-byte loads, each row padded by 4 floats per row group so that
 //     the row groups of a warp read disjoint banks; la_bwd_kv stages from the end of the
@@ -1084,12 +1091,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Shared-memory row of one token: D floats in 4 groups of D/4, each
+// Shared-memory row of one token: D floats in G groups of D/G, each
 // followed by 4 floats of padding.
-template <int D>
+template <int D, int G = 4>
 struct Rows {
-  static constexpr int kGroup = D / 4;
-  static constexpr int kPadded = D + 16;
+  static constexpr int kGroup = D / G;
+  static constexpr int kPadded = D + 4 * G;
   __device__ static int at(int r) { return r + 4 * (r / kGroup); }
 };
 
@@ -1114,11 +1121,11 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* src,
 }
 
 // Stage `len` contiguous rows of D values from device memory into the
-// padded shared-memory rows `dst` as f32, 16 bytes per load; unrolled so
-// that each thread keeps several loads in flight (the loads' latency,
-// not their bytes, bounds the staging).  The caller guarantees 16-byte
-// aligned rows.
-template <int D, typename T>
+// padded shared-memory rows `dst` (Rows<D, G>) as f32, 16 bytes per load;
+// unrolled so that each thread keeps several loads in flight (the loads'
+// latency, not their bytes, bounds the staging).  The caller guarantees
+// 16-byte aligned rows.
+template <int D, int G, typename T>
 __device__ __forceinline__ void stage_rows(float* dst, const T* src, int len,
                                            int tid, int nthr) {
   constexpr int V = 16 / sizeof(T);
@@ -1128,22 +1135,24 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, int len,
     const int t = e / D;
     float vals[V];
     load16(src + e, vals);
-    float* row = dst + t * Rows<D>::kPadded;
+    float* row = dst + t * Rows<D, G>::kPadded;
     // each 4 values to their own place: a load of 8 bf16 values may
-    // straddle a row group where D / 4 is not a multiple of 8 (D = 112)
+    // straddle a row group where D / G is not a multiple of 8 (D = 112)
 #pragma unroll
     for (int i = 0; i < V; i += 4)
-      *reinterpret_cast<float4*>(row + Rows<D>::at(e - t * D + i)) =
+      *reinterpret_cast<float4*>(row + Rows<D, G>::at(e - t * D + i)) =
           make_float4(vals[i], vals[i + 1], vals[i + 2], vals[i + 3]);
   }
 }
 
-// Sum over the 4 adjacent lanes (lane ^ 1, lane ^ 2) that hold the
+// Sum over the N adjacent lanes (lane ^ 1, lane ^ 2, ...) that hold the
 // partial dots of one tile row; `mask` names the lanes of the warp that
-// take part (all 32 unless D % 32 != 0).
-__device__ __forceinline__ float sum4(float x, unsigned mask) {
-  x += __shfl_xor_sync(mask, x, 1);
-  return x + __shfl_xor_sync(mask, x, 2);
+// take part (all 32 unless a role ends inside the warp).
+template <int N>
+__device__ __forceinline__ float sum_lanes(float x, unsigned mask) {
+#pragma unroll
+  for (int off = 1; off < N; off <<= 1) x += __shfl_xor_sync(mask, x, off);
+  return x;
 }
 
 // The lanes of thread tid's warp with a thread index below `bound`: where
@@ -1158,7 +1167,10 @@ __device__ __forceinline__ unsigned lanes_below(int tid, int bound) {
 // dQ: forward scan
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, bool kGated>
+// Dk threads: thread (dg, cg) owns rows 4dg..4dg+3 of A (Dk x Dv+1) and the
+// Dv/4 columns cg*Dv/4..; k rows are staged as Rows<Dk>, v and Ω̂ rows as
+// Rows<Dv>.
+template <typename T, int DK, int DV, bool kGated>
 __global__ void la_bwd_q_kernel(const T* __restrict__ k,
                                 const T* __restrict__ v,
                                 const float* __restrict__ ld,
@@ -1166,28 +1178,28 @@ __global__ void la_bwd_q_kernel(const T* __restrict__ k,
                                 const float* __restrict__ hv,
                                 T* __restrict__ dq, int heads, int kv_heads,
                                 int n, int stage, float b) {
-  using L = Rows<D>;
-  constexpr int R = L::kGroup;  // columns of a thread's tile
-  constexpr int DP = L::kPadded;
+  using LK = Rows<DK>;
+  using LV = Rows<DV>;
+  constexpr int R = LV::kGroup;  // columns of a thread's tile
+  constexpr int DPK = LK::kPadded;
+  constexpr int DPV = LV::kPadded;
   extern __shared__ __align__(16) float smem[];  // read as float4
-  float* k_sh = smem;                 // (stage, DP)
-  float* v_sh = k_sh + stage * DP;    // (stage, DP)
-  float* om_sh = v_sh + stage * DP;   // (stage, DP)
-  float* h_sh = om_sh + stage * DP;   // (stage,)
+  float* k_sh = smem;                 // (stage, DPK)
+  float* v_sh = k_sh + stage * DPK;   // (stage, DPV)
+  float* om_sh = v_sh + stage * DPV;  // (stage, DPV)
+  float* h_sh = om_sh + stage * DPV;  // (stage,)
   float* gam_sh = h_sh + stage;       // (stage,) decays (gated only)
 
   const int bh = blockIdx.x;  // batch * heads + query head
   const int bi = bh / heads;
   const int hi = bh - bi * heads;
   const int group = heads / kv_heads;
-  const size_t q_base = static_cast<size_t>(bh) * n * D;
   const size_t ld_base = (static_cast<size_t>(bi) * kv_heads + hi / group) * n;
-  const size_t kv_base = ld_base * D;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int cg = tid & 3;   // column group of the tile
   const int dg = tid >> 2;  // rows 4dg..4dg+3 of A
-  const unsigned mask = lanes_below(tid, D);
+  const unsigned mask = lanes_below(tid, DK);
 
   float at_[4][R];  // A[4dg + r, cg*R + e]
   float a1[4];      // A[4dg + r, Dv] = running sum of k[4dg + r]
@@ -1200,11 +1212,11 @@ __global__ void la_bwd_q_kernel(const T* __restrict__ k,
 
   for (int t0 = 0; t0 < n; t0 += stage) {
     const int len = min(stage, n - t0);
-    const size_t q_row = q_base + static_cast<size_t>(t0) * D;
-    const size_t kv_row = kv_base + static_cast<size_t>(t0) * D;
-    stage_rows<D>(k_sh, k + kv_row, len, tid, nthr);
-    stage_rows<D>(v_sh, v + kv_row, len, tid, nthr);
-    stage_rows<D>(om_sh, om + q_row, len, tid, nthr);
+    const size_t om_row = (static_cast<size_t>(bh) * n + t0) * DV;
+    const size_t dq_row = (static_cast<size_t>(bh) * n + t0) * DK;
+    stage_rows<DK, 4>(k_sh, k + (ld_base + t0) * DK, len, tid, nthr);
+    stage_rows<DV, 4>(v_sh, v + (ld_base + t0) * DV, len, tid, nthr);
+    stage_rows<DV, 4>(om_sh, om + om_row, len, tid, nthr);
     for (int t = tid; t < len; t += nthr) {
       h_sh[t] = hv[static_cast<size_t>(bh) * n + t0 + t];
       if constexpr (kGated) gam_sh[t] = expf(ld[ld_base + t0 + t]);
@@ -1214,12 +1226,12 @@ __global__ void la_bwd_q_kernel(const T* __restrict__ k,
     for (int t = 0; t < len; ++t) {
       [[maybe_unused]] const float gam = kGated ? gam_sh[t] : 1.0f;
       const float4 kk4 =
-          *reinterpret_cast<const float4*>(k_sh + t * DP + L::at(4 * dg));
+          *reinterpret_cast<const float4*>(k_sh + t * DPK + LK::at(4 * dg));
       const float kk[4] = {kk4.x, kk4.y, kk4.z, kk4.w};
       const float4* vt =
-          reinterpret_cast<const float4*>(v_sh + t * DP + cg * (R + 4));
+          reinterpret_cast<const float4*>(v_sh + t * DPV + cg * (R + 4));
       const float4* omt =
-          reinterpret_cast<const float4*>(om_sh + t * DP + cg * (R + 4));
+          reinterpret_cast<const float4*>(om_sh + t * DPV + cg * (R + 4));
       float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int e4 = 0; e4 < R / 4; ++e4) {
@@ -1242,14 +1254,14 @@ __global__ void la_bwd_q_kernel(const T* __restrict__ k,
       const float ht = h_sh[t];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        acc[r] = sum4(acc[r], mask);
+        acc[r] = sum_lanes<4>(acc[r], mask);
         if constexpr (kGated)
           a1[r] = fmaf(gam, a1[r], kk[r]);
         else
           a1[r] += kk[r];
       }
       if (cg == 0) {
-        T* out = dq + q_row + static_cast<size_t>(t) * D + 4 * dg;
+        T* out = dq + dq_row + static_cast<size_t>(t) * DK + 4 * dg;
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           out[r] = from_f32<T>(b * (acc[r] - a1[r] * ht));
@@ -1263,20 +1275,39 @@ __global__ void la_bwd_q_kernel(const T* __restrict__ k,
 // dK / dV: reverse scan, the query group folded into the block
 // ---------------------------------------------------------------------------
 
-// dv's element type and row stride: T and D, or gated dV' in f32 with its
+// dv's element type and row stride: T and Dv, or gated dV' in f32 with its
 // augmented column
-template <typename T, int D, bool kGated>
+template <typename T, int DV, bool kGated>
 struct DvOut {
   using type = T;
-  static constexpr int kStride = D;
+  static constexpr int kStride = DV;
 };
-template <typename T, int D>
-struct DvOut<T, D, true> {
+template <typename T, int DV>
+struct DvOut<T, DV, true> {
   using type = float;
-  static constexpr int kStride = D + 1;
+  static constexpr int kStride = DV + 1;
 };
 
-template <typename T, int D, bool kGated>
+// The roles of the dk/dv walk at (Dk, Dv).  The row role (dk) tiles U's Dk
+// rows by 4 over Dk threads, each with Dv/4 of its columns; the column role
+// (dv) tiles U's Dv columns by 4 over RG row groups of Dk/RG rows, RG Dv/4
+// threads.  Where Dk = Dv both roles share one block of 2D threads (RG =
+// 4).  Where Dk > Dv ((192, 128)) the block cannot hold both copies of U
+// in registers (~49,000 floats beside the staging's pointers), so kSplit:
+// two blocks per (batch, KV head), blockIdx.y 0 the row role and 1 the
+// column role with RG = 8 (4 x 24 floats a thread), each block of
+// kThreads = max(Dk, RG Dv / 4) threads, each staging every operand.
+template <int DK, int DV>
+struct KvWalk {
+  static constexpr bool kSplit = DK != DV;
+  static constexpr int kRowGroups = kSplit ? 8 : 4;
+  static constexpr int kColThreads = kRowGroups * DV / 4;
+  static constexpr int kThreads =
+      kSplit ? (DK > kColThreads ? DK : kColThreads) : 2 * DK;
+  static constexpr int kBlocks = kSplit ? 2 : 1;
+};
+
+template <typename T, int DK, int DV, bool kGated>
 __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
                                  const T* __restrict__ k,
                                  const T* __restrict__ v,
@@ -1284,22 +1315,28 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
                                  const float* __restrict__ om,
                                  const float* __restrict__ hv,
                                  T* __restrict__ dk,
-                                 typename DvOut<T, D, kGated>::type* __restrict__ dv,
+                                 typename DvOut<T, DV, kGated>::type* __restrict__ dv,
                                  int heads, int kv_heads, int n, int stage,
                                  float a, float b) {
-  using L = Rows<D>;
-  using TV = typename DvOut<T, D, kGated>::type;
-  constexpr int VS = DvOut<T, D, kGated>::kStride;
-  constexpr int R = L::kGroup;
-  constexpr int DP = L::kPadded;
-  constexpr int kRowWarps = D / 32;
+  using KW = KvWalk<DK, DV>;
+  constexpr int RG = KW::kRowGroups;
+  using LK = Rows<DK, RG>;  // q and k rows
+  using LV = Rows<DV>;      // Ω̂ and v rows
+  using TV = typename DvOut<T, DV, kGated>::type;
+  constexpr int VS = DvOut<T, DV, kGated>::kStride;
+  constexpr int RR = LV::kGroup;  // row role: columns of its tile
+  constexpr int RC = LK::kGroup;  // column role: rows of its tile
+  constexpr int R = RR > RC ? RR : RC;
+  constexpr int DPK = LK::kPadded;
+  constexpr int DPV = LV::kPadded;
+  constexpr int kRowWarps = DK / 32;
   extern __shared__ __align__(16) float smem[];  // read as float4
   const int group = heads / kv_heads;
-  float* q_sh = smem;                         // (G, stage, DP)
-  float* om_sh = q_sh + group * stage * DP;   // (G, stage, DP)
-  float* k_sh = om_sh + group * stage * DP;   // (stage, DP)
-  float* v_sh = k_sh + stage * DP;            // (stage, DP)
-  float* h_sh = v_sh + stage * DP;            // (G, stage), after the rows:
+  float* q_sh = smem;                         // (G, stage, DPK)
+  float* om_sh = q_sh + group * stage * DPK;  // (G, stage, DPV)
+  float* k_sh = om_sh + group * stage * DPV;  // (stage, DPK)
+  float* v_sh = k_sh + stage * DPK;           // (stage, DPV)
+  float* h_sh = v_sh + stage * DPV;           // (G, stage), after the rows:
                                               // they stay 16-byte aligned
   // gated only: the decays, each row warp's share of k.U[:Dk, Dv], and
   // U[Dk, Dv], per staged token
@@ -1310,23 +1347,27 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
   const int bk = blockIdx.x;  // batch * kv_heads + KV head
   const int bi = bk / kv_heads;
   const int hk = bk - bi * kv_heads;
-  const size_t kv_base = static_cast<size_t>(bk) * n * D;
   // query head hk * G + gi reads this KV head
   const size_t q_head0 = static_cast<size_t>(bi) * heads + hk * group;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-  // row role (tid < D): rows 4*(tid/4).. of U, columns (tid%4)*R..;
-  // column role: rows ((tid-D)%4)*R.., columns 4*((tid-D)/4)..
-  const bool row_role = tid < D;
-  const int x = row_role ? tid : tid - D;
+  // row role: rows 4*(x/4).. of U, columns (x%4)*RR..; column role: rows
+  // (x%RG)*RC.., columns 4*(x/RG)..  One block: row role tid < D, column
+  // role x = tid - D.  Split: the block's role, x = tid, and the threads
+  // past the role's count only stage.
+  const bool row_role = KW::kSplit ? blockIdx.y == 0 : tid < DK;
+  const int x = (KW::kSplit || row_role) ? tid : tid - DK;
+  const bool working = row_role ? x < DK : x < KW::kColThreads;
   // this role's lanes of the warp (at D = 112 warp 3 holds both roles)
-  const unsigned mask = row_role ? lanes_below(tid, D)
-                                 : ~lanes_below(tid, D);
-  const int grp4 = x >> 2;  // which 4 rows (row role) or 4 columns
-  const int sub = x & 3;    // which D/4 columns (row role) or rows
+  const unsigned mask =
+      KW::kSplit ? lanes_below(tid, row_role ? DK : KW::kColThreads)
+                 : (row_role ? lanes_below(tid, DK) : ~lanes_below(tid, DK));
+  // which 4 rows (row role) or 4 columns; which columns (row role) or rows
+  const int grp4 = row_role ? x >> 2 : x / RG;
+  const int sub = row_role ? x & 3 : x % RG;
 
-  float u[4][R];  // row role: U[4grp4 + r, sub*R + e];
-                  // column role: U[sub*R + i, 4grp4 + c], stored [c][i]
+  float u[4][R];  // row role: U[4grp4 + r, sub*RR + e];
+                  // column role: U[sub*RC + i, 4grp4 + c], stored [c][i]
   float u_last[4];  // row role: U[4grp4 + r, Dv]; column: U[Dk, 4grp4 + c]
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -1344,9 +1385,11 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
     const int t0 = max(0, t_end - stage);
     const int len = t_end - t0;
     for (int gi = 0; gi < group; ++gi) {
-      const size_t src = ((q_head0 + gi) * n + t0) * D;
-      stage_rows<D>(q_sh + gi * stage * DP, q + src, len, tid, nthr);
-      stage_rows<D>(om_sh + gi * stage * DP, om + src, len, tid, nthr);
+      const size_t src = (q_head0 + gi) * n + t0;
+      stage_rows<DK, RG>(q_sh + gi * stage * DPK, q + src * DK, len, tid,
+                         nthr);
+      stage_rows<DV, 4>(om_sh + gi * stage * DPV, om + src * DV, len, tid,
+                        nthr);
     }
     for (int idx = tid; idx < group * len; idx += nthr) {
       const int gi = idx / len;
@@ -1357,12 +1400,13 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
       for (int t = tid; t < len; t += nthr)
         gam_sh[t] = expf(ld[static_cast<size_t>(bk) * n + t0 + t]);
     }
-    const size_t kv_row = kv_base + static_cast<size_t>(t0) * D;
-    stage_rows<D>(k_sh, k + kv_row, len, tid, nthr);
-    stage_rows<D>(v_sh, v + kv_row, len, tid, nthr);
+    const size_t k_row = (static_cast<size_t>(bk) * n + t0) * DK;
+    stage_rows<DK, RG>(k_sh, k + k_row, len, tid, nthr);
+    stage_rows<DV, 4>(v_sh, v + (static_cast<size_t>(bk) * n + t0) * DV, len,
+                      tid, nthr);
     __syncthreads();
 
-    for (int t = len - 1; t >= 0; --t) {
+    for (int t = len - 1; working && t >= 0; --t) {
       // the token's row of dv (or dV')
       TV* dv_row = dv + (static_cast<size_t>(bk) * n + t0 + t) * VS;
       if constexpr (kGated) {
@@ -1378,14 +1422,14 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
       }
       if (row_role) {
         for (int gi = 0; gi < group; ++gi) {
-          const float* base = (gi * stage + t) * DP + q_sh;
+          const float* base = (gi * stage + t) * DPK + q_sh;
           const float4 qq4 =
-              *reinterpret_cast<const float4*>(base + L::at(4 * grp4));
+              *reinterpret_cast<const float4*>(base + LK::at(4 * grp4));
           const float qq[4] = {qq4.x, qq4.y, qq4.z, qq4.w};
           const float4* omt = reinterpret_cast<const float4*>(
-              om_sh + (gi * stage + t) * DP + sub * (R + 4));
+              om_sh + (gi * stage + t) * DPV + sub * (RR + 4));
 #pragma unroll
-          for (int e4 = 0; e4 < R / 4; ++e4) {
+          for (int e4 = 0; e4 < RR / 4; ++e4) {
             const float4 oo4 = omt[e4];
             const float oo[4] = {oo4.x, oo4.y, oo4.z, oo4.w};
 #pragma unroll
@@ -1399,11 +1443,11 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
           for (int r = 0; r < 4; ++r) u_last[r] += qq[r] * hg;
           if constexpr (kGated) u_hh += hg;
         }
-        const float4* vt =
-            reinterpret_cast<const float4*>(v_sh + t * DP + sub * (R + 4));
+        const float4* vt = reinterpret_cast<const float4*>(
+            v_sh + t * DPV + sub * (RR + 4));
         float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-        for (int e4 = 0; e4 < R / 4; ++e4) {
+        for (int e4 = 0; e4 < RR / 4; ++e4) {
           const float4 vv4 = vt[e4];
           const float vv[4] = {vv4.x, vv4.y, vv4.z, vv4.w};
 #pragma unroll
@@ -1413,9 +1457,9 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
           }
         }
 #pragma unroll
-        for (int r = 0; r < 4; ++r) acc[r] = sum4(acc[r], mask);
+        for (int r = 0; r < 4; ++r) acc[r] = sum_lanes<4>(acc[r], mask);
         if (sub == 0) {
-          T* out = dk + kv_row + static_cast<size_t>(t) * D + 4 * grp4;
+          T* out = dk + k_row + static_cast<size_t>(t) * DK + 4 * grp4;
 #pragma unroll
           for (int r = 0; r < 4; ++r)
             out[r] = from_f32<T>(b * (acc[r] - u_last[r]));
@@ -1426,7 +1470,7 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
           float part = 0.0f;
           if (sub == 0) {
             const float4 kk4 = *reinterpret_cast<const float4*>(
-                k_sh + t * DP + L::at(4 * grp4));
+                k_sh + t * DPK + LK::at(4 * grp4));
             part = kk4.x * u_last[0] + kk4.y * u_last[1] +
                    kk4.z * u_last[2] + kk4.w * u_last[3];
           }
@@ -1438,14 +1482,14 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
         }
       } else {
         for (int gi = 0; gi < group; ++gi) {
-          const float* obase = om_sh + (gi * stage + t) * DP;
+          const float* obase = om_sh + (gi * stage + t) * DPV;
           const float4 oo4 =
-              *reinterpret_cast<const float4*>(obase + L::at(4 * grp4));
+              *reinterpret_cast<const float4*>(obase + LV::at(4 * grp4));
           const float oo[4] = {oo4.x, oo4.y, oo4.z, oo4.w};
           const float4* qt = reinterpret_cast<const float4*>(
-              q_sh + (gi * stage + t) * DP + sub * (R + 4));
+              q_sh + (gi * stage + t) * DPK + sub * (RC + 4));
 #pragma unroll
-          for (int i4 = 0; i4 < R / 4; ++i4) {
+          for (int i4 = 0; i4 < RC / 4; ++i4) {
             const float4 qq4 = qt[i4];
             const float qq[4] = {qq4.x, qq4.y, qq4.z, qq4.w};
 #pragma unroll
@@ -1457,11 +1501,11 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
 #pragma unroll
           for (int c = 0; c < 4; ++c) u_last[c] += oo[c];
         }
-        const float4* kt =
-            reinterpret_cast<const float4*>(k_sh + t * DP + sub * (R + 4));
+        const float4* kt = reinterpret_cast<const float4*>(
+            k_sh + t * DPK + sub * (RC + 4));
         float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-        for (int i4 = 0; i4 < R / 4; ++i4) {
+        for (int i4 = 0; i4 < RC / 4; ++i4) {
           const float4 kk4 = kt[i4];
           const float kk[4] = {kk4.x, kk4.y, kk4.z, kk4.w};
 #pragma unroll
@@ -1471,7 +1515,7 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
           }
         }
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[c] = sum4(acc[c], mask);
+        for (int c = 0; c < 4; ++c) acc[c] = sum_lanes<RG>(acc[c], mask);
         if (sub == 0) {
           TV* out = dv_row + 4 * grp4;
 #pragma unroll
@@ -1488,7 +1532,7 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
         float dot = 0.0f;
 #pragma unroll
         for (int w = 0; w < kRowWarps; ++w) dot += kpart_sh[t * kRowWarps + w];
-        dv[(static_cast<size_t>(bk) * n + t0 + t) * VS + D] =
+        dv[(static_cast<size_t>(bk) * n + t0 + t) * VS + DV] =
             -(b * dot + a * hh_sh[t]);
       }
     }
@@ -1498,20 +1542,20 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
 // The launches of the two kernels, shared by the launchers and
 // `la_bwd_plan`: f(Type<T>{}, kernel, geometry, Int<wgmma>{}) for the
 // instantiation a call with these arguments runs.  Every entry in bf16 at
-// D = 128 runs its chunked wgmma body (the gated entries its kGated
+// Dk = Dv = 128 runs its chunked wgmma body (the gated entries its kGated
 // instance), walking chunks of lbw::kChunk tokens, which `stage` must
 // name: dq two blocks per (batch, query head), dk and dv four per (batch,
-// KV head).  Otherwise the token walk, with `stage` shrunk to fit
-// kMaxSmem.
-// dq: one block per (batch, query head), D threads; the staging holds k, v
-// and Ω̂ padded, h and the decay per token.
+// KV head).  Otherwise the token walk at a pair of plan::with_walk_dims,
+// with `stage` shrunk to fit kMaxSmem.
+// dq: one block per (batch, query head), Dk threads; the staging holds k,
+// v and Ω̂ padded, h and the decay per token.
 template <bool kGated, typename F>
-cudaError_t with_launch_q(int dtype, int d, int batch, int heads, int stage,
-                          F&& f) {
+cudaError_t with_launch_q(int dtype, int dk, int dv, int batch, int heads,
+                          int stage, F&& f) {
   return plan::with_dtype(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      if (d == lbw::kD) {
+      if (dk == lbw::kD && dv == lbw::kD) {
         if (stage != lbw::kChunk) return cudaErrorInvalidValue;
         return f(t, bq::la_bwd_q_wgmma_kernel<kGated>,
                  plan::Geometry{dim3(batch * heads, bq::kSplit),
@@ -1520,32 +1564,34 @@ cudaError_t with_launch_q(int dtype, int d, int batch, int heads, int stage,
                  plan::Int<1>{});
       }
     }
-    return plan::with_walk_head_dim<kGated>(d, [&](auto dc) {
-      constexpr int D = decltype(dc)::value;
+    return plan::with_walk_dims<kGated>(dk, dv, [&](auto kc, auto vc) {
+      constexpr int DK = decltype(kc)::value;
+      constexpr int DV = decltype(vc)::value;
       const size_t per_token =
-          static_cast<size_t>(3 * Rows<D>::kPadded + 1 + (kGated ? 1 : 0)) *
+          static_cast<size_t>(Rows<DK>::kPadded + 2 * Rows<DV>::kPadded + 1 +
+                              (kGated ? 1 : 0)) *
           sizeof(float);
-      auto kernel = la_bwd_q_kernel<T, D, kGated>;
+      auto kernel = la_bwd_q_kernel<T, DK, DV, kGated>;
       return f(t, kernel,
-               plan::fit({dim3(batch * heads), D, 0, 0}, stage, per_token,
+               plan::fit({dim3(batch * heads), DK, 0, 0}, stage, per_token,
                          kMaxSmem),
                plan::Int<0>{});
     });
   });
 }
 
-// dk, dv: one block per (batch, KV head), the row and column roles of D
-// threads each; the staging holds q and Ω̂ of the G query heads and k and v,
-// padded, h of the G heads and, gated, the decay, the row warps' shares of
-// k.U[:Dk, Dv] and U[Dk, Dv] per token, so large groups stage fewer tokens.
+// dk, dv: KvWalk's blocks per (batch, KV head) and threads; the staging
+// holds q and Ω̂ of the G query heads and k and v, padded, h of the G heads
+// and, gated, the decay, the row warps' shares of k.U[:Dk, Dv] and U[Dk,
+// Dv] per token, so large groups stage fewer tokens.
 template <bool kGated, typename F>
-cudaError_t with_launch_kv(int dtype, int d, int batch, int heads,
+cudaError_t with_launch_kv(int dtype, int dk, int dv, int batch, int heads,
                            int kv_heads, int stage, F&& f) {
   const int group = heads / kv_heads;
   return plan::with_dtype(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      if (d == lbw::kD) {
+      if (dk == lbw::kD && dv == lbw::kD) {
         if (stage != lbw::kChunk) return cudaErrorInvalidValue;
         return f(t, bkv::la_bwd_kv_wgmma_kernel<kGated>,
                  plan::Geometry{dim3(batch * kv_heads, bkv::kSplit),
@@ -1554,16 +1600,20 @@ cudaError_t with_launch_kv(int dtype, int d, int batch, int heads,
                  plan::Int<1>{});
       }
     }
-    return plan::with_walk_head_dim<kGated>(d, [&](auto dc) {
-      constexpr int D = decltype(dc)::value;
+    return plan::with_walk_dims<kGated>(dk, dv, [&](auto kc, auto vc) {
+      constexpr int DK = decltype(kc)::value;
+      constexpr int DV = decltype(vc)::value;
+      using KW = KvWalk<DK, DV>;
+      const size_t rows = Rows<DK, KW::kRowGroups>::kPadded + Rows<DV>::kPadded;
       const size_t per_token =
-          static_cast<size_t>((2 * group + 2) * Rows<D>::kPadded + group +
-                              (kGated ? D / 32 + 2 : 0)) *
+          static_cast<size_t>((group + 1) * rows + group +
+                              (kGated ? DK / 32 + 2 : 0)) *
           sizeof(float);
-      auto kernel = la_bwd_kv_kernel<T, D, kGated>;
+      auto kernel = la_bwd_kv_kernel<T, DK, DV, kGated>;
       return f(t, kernel,
-               plan::fit({dim3(batch * kv_heads), 2 * D, 0, 0}, stage,
-                         per_token, kMaxSmem),
+               plan::fit({dim3(batch * kv_heads, KW::kBlocks), KW::kThreads,
+                          0, 0},
+                         stage, per_token, kMaxSmem),
                plan::Int<0>{});
     });
   });
@@ -1577,13 +1627,14 @@ bool bad_shape(int batch, int heads, int kv_heads, int n, int stage) {
 template <bool kGated>
 int run_q(const void* k, const void* v, const void* ld, const void* om,
           const void* hv, void* dq, int batch, int heads, int kv_heads,
-          int n, int d, int stage, float b, int dtype, void* stream) {
+          int n, int dk, int dv, int stage, float b, int dtype,
+          void* stream) {
   if (bad_shape(batch, heads, kv_heads, n, stage))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_launch_q<kGated>(
-      dtype, d, batch, heads, stage,
+      dtype, dk, dv, batch, heads, stage,
       [&](auto t, auto kernel, const plan::Geometry& geo, auto body) {
         using T = typename decltype(t)::type;
         if (geo.stage < 1) return cudaErrorInvalidValue;
@@ -1617,14 +1668,14 @@ int run_q(const void* k, const void* v, const void* ld, const void* om,
 template <bool kGated>
 int run_kv(const void* q, const void* k, const void* v, const void* ld,
            const void* om, const void* hv, void* dk, void* dv, int batch,
-           int heads, int kv_heads, int n, int d, int stage, float a, float b,
-           int dtype, void* stream) {
+           int heads, int kv_heads, int n, int d_k, int d_v, int stage,
+           float a, float b, int dtype, void* stream) {
   if (bad_shape(batch, heads, kv_heads, n, stage))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_launch_kv<kGated>(
-      dtype, d, batch, heads, kv_heads, stage,
+      dtype, d_k, d_v, batch, heads, kv_heads, stage,
       [&](auto t, auto kernel, const plan::Geometry& geo, auto body) {
         using T = typename decltype(t)::type;
         // dv's element type (DvOut): T, or f32 for the gated dV'
@@ -1666,24 +1717,27 @@ int run_kv(const void* q, const void* k, const void* v, const void* ld,
 // (q, k, v, dq, dk and the linear dv; om, h, ld and the gated dV' are
 // always float32).  Each returns the cudaError_t of its launch
 // (0 = success); launches are asynchronous on `stream`.  Every entry in
-// bf16 at D = 128 runs its wgmma body: `stage` must be the chunk (64), and
-// the TMA reads need q, k, v and om 16-byte aligned (the wrappers check
-// it; a map that cannot be encoded is refused with cudaErrorInvalidValue).
+// bf16 at Dk = Dv = 128 runs its wgmma body: `stage` must be the chunk
+// (64), and the TMA reads need q, k, v and om 16-byte aligned (the wrappers
+// check it; a map that cannot be encoded is refused with
+// cudaErrorInvalidValue).  The linear entries take q, k, dq and dk
+// (.., dk) and v, om and dv (.., dv, after dtype); the gated ones
+// Dk = Dv = d.
 extern "C" int la_bwd_q(const void* k, const void* v, const void* om,
                         const void* hv, void* dq, int batch, int heads,
-                        int kv_heads, int n, int d, int stage, float b,
-                        int dtype, void* stream) {
+                        int kv_heads, int n, int dk, int stage, float b,
+                        int dtype, int dv, void* stream) {
   return run_q<false>(k, v, nullptr, om, hv, dq, batch, heads, kv_heads, n,
-                      d, stage, b, dtype, stream);
+                      dk, dv, stage, b, dtype, stream);
 }
 
 extern "C" int la_bwd_kv(const void* q, const void* k, const void* v,
                          const void* om, const void* hv, void* dk, void* dv,
-                         int batch, int heads, int kv_heads, int n, int d,
-                         int stage, float a, float b, int dtype,
+                         int batch, int heads, int kv_heads, int n, int d_k,
+                         int stage, float a, float b, int dtype, int d_v,
                          void* stream) {
   return run_kv<false>(q, k, v, nullptr, om, hv, dk, dv, batch, heads,
-                       kv_heads, n, d, stage, a, b, dtype, stream);
+                       kv_heads, n, d_k, d_v, stage, a, b, dtype, stream);
 }
 
 // The gated dq: ld (B, Hkv, N) f32 is the per-token log decay.
@@ -1691,7 +1745,7 @@ extern "C" int gla_bwd_q(const void* k, const void* v, const void* ld,
                          const void* om, const void* hv, void* dq, int batch,
                          int heads, int kv_heads, int n, int d, int stage,
                          float b, int dtype, void* stream) {
-  return run_q<true>(k, v, ld, om, hv, dq, batch, heads, kv_heads, n, d,
+  return run_q<true>(k, v, ld, om, hv, dq, batch, heads, kv_heads, n, d, d,
                      stage, b, dtype, stream);
 }
 
@@ -1702,15 +1756,15 @@ extern "C" int gla_bwd_kv(const void* q, const void* k, const void* v,
                           int kv_heads, int n, int d, int stage, float a,
                           float b, int dtype, void* stream) {
   return run_kv<true>(q, k, v, ld, om, hv, dk, dva, batch, heads, kv_heads,
-                      n, d, stage, a, b, dtype, stream);
+                      n, d, d, stage, a, b, dtype, stream);
 }
 
 // The geometry a call of `entry` ("la_bwd_q", "la_bwd_kv", "gla_bwd_q" or
 // "gla_bwd_kv") with these arguments launches, into out[7] (plan.cuh);
-// nothing is launched.
+// nothing is launched.  dv is Dv (the gated entries: dk).
 extern "C" int la_bwd_plan(const char* entry, int batch, int heads,
-                           int kv_heads, int n, int d, int stage, int dtype,
-                           int64_t* out) {
+                           int kv_heads, int n, int dk, int stage, int dtype,
+                           int dv, int64_t* out) {
   if (bad_shape(batch, heads, kv_heads, n, stage))
     return static_cast<int>(cudaErrorInvalidValue);
   auto report = [&](auto, auto kernel, const plan::Geometry& geo, auto) {
@@ -1718,14 +1772,14 @@ extern "C" int la_bwd_plan(const char* entry, int batch, int heads,
   };
   cudaError_t err = cudaErrorInvalidValue;
   if (strcmp(entry, "la_bwd_q") == 0)
-    err = with_launch_q<false>(dtype, d, batch, heads, stage, report);
+    err = with_launch_q<false>(dtype, dk, dv, batch, heads, stage, report);
   else if (strcmp(entry, "gla_bwd_q") == 0)
-    err = with_launch_q<true>(dtype, d, batch, heads, stage, report);
+    err = with_launch_q<true>(dtype, dk, dv, batch, heads, stage, report);
   else if (strcmp(entry, "la_bwd_kv") == 0)
-    err = with_launch_kv<false>(dtype, d, batch, heads, kv_heads, stage,
+    err = with_launch_kv<false>(dtype, dk, dv, batch, heads, kv_heads, stage,
                                 report);
   else if (strcmp(entry, "gla_bwd_kv") == 0)
-    err = with_launch_kv<true>(dtype, d, batch, heads, kv_heads, stage,
+    err = with_launch_kv<true>(dtype, dk, dv, batch, heads, kv_heads, stage,
                                report);
   return static_cast<int>(err);
 }

@@ -24,17 +24,19 @@
 // the Pallas kernels divide plainly (linear_attention.py:89) or guard
 // only g == 0 (gla.py:107).  They differ only where |g| < 1e-30.
 //
-// Shapes (all contiguous): q (B, H, N, D), k and v (B, Hkv, N, D) in the
-// compute type T (float or bf16), o (B, H, N, D) in T, g (B, H, N) f32,
-// ld (B, Hkv, N) f32 (gated only: one decay per KV head, shared by its
-// query group).  H = G * Hkv, and query head h reads KV head h / G.
-// Dk = Dv = D, a template parameter (32, 64 or 128; `la_fwd`'s walk also
-// 112) so that a state column lives in registers.
+// Shapes (all contiguous): q and k (B, H, N, Dk) and (B, Hkv, N, Dk), v
+// (B, Hkv, N, Dv) in the compute type T (float or bf16), o (B, H, N, Dv)
+// in T, g (B, H, N) f32, ld (B, Hkv, N) f32 (gated only: one decay per KV
+// head, shared by its query group).  H = G * Hkv, and query head h reads
+// KV head h / G.  Dk and Dv are template parameters so that a state
+// column lives in registers: Dk = Dv = D at 32, 64 or 128 (`la_fwd`'s walk
+// also 112), and for `la_fwd`'s walk (Dk, Dv) = (192, 128), deepseek-v2's
+// MLA heads (plan::with_walk_dims).
 //
-// Two bodies of each entry, chosen by the launcher from the dtype and D:
-// the chunked wgmma body (namespace lc; gla_fwd its kGated instance) for
-// bf16 at D = 128, the training instance; the token walk (gla_fwd its
-// kGated instantiation) for f32 and at every other D.
+// Two bodies of each entry, chosen by the launcher from the dtype and the
+// dims: the chunked wgmma body (namespace lc; gla_fwd its kGated instance)
+// for bf16 at Dk = Dv = 128, the training instance; the token walk
+// (gla_fwd its kGated instantiation) for f32 and at every other pair.
 //
 // What bounds them: the recurrent form does 4 D (D+1) flops per token and
 // head (the state update and the q.S readout; gated, 5 D (D+1) with the
@@ -93,7 +95,10 @@
 //     owns columns 4cg..4cg+3 and rows rg*D/4..(rg+1)*D/4-1, a 4 x D/4
 //     tile in registers, so each float it reads from shared memory feeds
 //     4 FMAs.  The 4 row groups of a column group are adjacent lanes and
-//     sum their partial q.S dots with two shuffles;
+//     sum their partial q.S dots with two shuffles.  At (Dk, Dv) =
+//     (192, 128) a column holds 192 rows: 8 row groups of 24 (`Walk`), 256
+//     value threads of 4 x 24 floats, three shuffles, and q and k rows
+//     padded per row group of 24;
 //   * one more warp keeps the normalizer column (the running sum of k)
 //     and its q dot, reduced across the warp; P's normalizer entry is
 //     the token count.  It starts on a warp boundary: the D value threads
@@ -540,28 +545,40 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Shared-memory row of one token: D floats in 4 row groups of D/4, each
+// Shared-memory row of one token: D floats in G row groups of D/G, each
 // followed by 4 floats of padding.
-template <int D>
+template <int D, int G = 4>
 struct Rows {
-  static constexpr int kGroup = D / 4;
-  static constexpr int kPadded = D + 16;
+  static constexpr int kGroup = D / G;
+  static constexpr int kPadded = D + 4 * G;
   __device__ static int at(int r) { return r + 4 * (r / kGroup); }
 };
 
-// The value threads of a walk: D rounded up to whole warps, so the warp
-// after them starts on a warp boundary; threads D.. of the last value warp
-// (at D = 112, its lanes 16..31) only stage and wait.
-template <int D>
-struct ValueThreads {
-  static constexpr int value = (D + 31) / 32 * 32;
+// The walk's thread layout at (Dk, Dv).  Value thread (cg, rg) owns value
+// columns 4cg..4cg+3 and state rows rg*Dk/RG..(rg+1)*Dk/RG-1: RG = 4 row
+// groups where Dk = Dv, 8 where Dk > Dv ((192, 128): 4 x 24 state floats a
+// thread instead of 4 x 48, which would not fit the registers).  kWork =
+// RG Dv / 4 value threads, rounded up to whole warps (kValue) so the
+// normalizer warp after them starts on a warp boundary; threads kWork.. of
+// the last value warp (at D = 112, its lanes 16..31) only stage and wait.
+// kBound, the launch bound, rounds the block up to 4 warps: an SM gives
+// each of its four schedulers a quarter of the register file, so 9 warps
+// (at (192, 128)) have 3 on one scheduler and ptxas must keep a thread
+// under 16,384 / (3 x 32) registers.
+template <int DK, int DV>
+struct Walk {
+  static constexpr int kRowGroups = DK == DV ? 4 : 8;
+  static constexpr int kWork = kRowGroups * DV / 4;
+  static constexpr int kValue = (kWork + 31) / 32 * 32;
+  static constexpr int kThreads = kValue + 32;
+  static constexpr int kBound = (kThreads + 127) / 128 * 128;
 };
 
-// The lanes of thread tid's warp that are among the first D threads: the
-// members of the value threads' shuffles.
-template <int D>
+// The lanes of thread tid's warp that are among the first kWorkers threads:
+// the members of the value threads' shuffles.
+template <int kWorkers>
 __device__ __forceinline__ unsigned value_mask(int tid) {
-  const int live = D - (tid & ~31);
+  const int live = kWorkers - (tid & ~31);
   return live >= 32 ? 0xffffffffu : (1u << live) - 1u;
 }
 
@@ -586,11 +603,11 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* src,
 }
 
 // Stage `len` contiguous rows of D values from device memory into the
-// padded shared-memory rows `dst` as f32, 16 bytes per load; unrolled so
-// that each thread keeps several loads in flight (the loads' latency,
-// not their bytes, bounds the staging).  The caller guarantees 16-byte
-// aligned rows.
-template <int D, typename T>
+// padded shared-memory rows `dst` (Rows<D, G>) as f32, 16 bytes per load;
+// unrolled so that each thread keeps several loads in flight (the loads'
+// latency, not their bytes, bounds the staging).  The caller guarantees
+// 16-byte aligned rows.
+template <int D, int G, typename T>
 __device__ __forceinline__ void stage_rows(float* dst, const T* src, int len,
                                            int tid, int nthr) {
   constexpr int V = 16 / sizeof(T);
@@ -600,47 +617,47 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, int len,
     const int t = e / D;
     float vals[V];
     load16(src + e, vals);
-    float* row = dst + t * Rows<D>::kPadded;
+    float* row = dst + t * Rows<D, G>::kPadded;
     // each 4 values to their own place: a load of 8 bf16 values may
-    // straddle a row group where D / 4 is not a multiple of 8 (D = 112)
+    // straddle a row group where D / G is not a multiple of 8 (D = 112)
 #pragma unroll
     for (int i = 0; i < V; i += 4)
-      *reinterpret_cast<float4*>(row + Rows<D>::at(e - t * D + i)) =
+      *reinterpret_cast<float4*>(row + Rows<D, G>::at(e - t * D + i)) =
           make_float4(vals[i], vals[i + 1], vals[i + 2], vals[i + 3]);
   }
 }
 
-template <typename T, int D, bool kGated>
-__global__ void la_fwd_kernel(const T* __restrict__ q,
-                              const T* __restrict__ k,
-                              const T* __restrict__ v,
-                              const float* __restrict__ ld,
-                              T* __restrict__ o, float* __restrict__ g,
-                              int heads, int kv_heads, int n, int stage,
-                              float a, float b) {
-  using L = Rows<D>;
-  constexpr int R = L::kGroup;    // rows of a thread's tile
-  constexpr int DP = L::kPadded;
-  constexpr int VT = ValueThreads<D>::value;
-  constexpr int R2 = (D + 31) / 32;  // rows per lane of the normalizer warp
+template <typename T, int DK, int DV, bool kGated>
+__global__ void __launch_bounds__(Walk<DK, DV>::kBound)
+    la_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const float* __restrict__ ld,
+                  T* __restrict__ o, float* __restrict__ g, int heads,
+                  int kv_heads, int n, int stage, float a, float b) {
+  using W = Walk<DK, DV>;
+  constexpr int RG = W::kRowGroups;
+  using LK = Rows<DK, RG>;  // q and k rows
+  using LV = Rows<DV>;      // v rows
+  constexpr int R = LK::kGroup;    // rows of a thread's tile
+  constexpr int DPK = LK::kPadded;
+  constexpr int DPV = LV::kPadded;
+  constexpr int VT = W::kValue;
+  constexpr int R2 = (DK + 31) / 32;  // rows per lane of the normalizer warp
   extern __shared__ __align__(16) float smem[];  // read as float4
-  float* q_sh = smem;               // (stage, DP)
-  float* k_sh = q_sh + stage * DP;  // (stage, DP)
-  float* v_sh = k_sh + stage * DP;  // (stage, DP)
-  float* f_sh = v_sh + stage * DP;  // (stage, D+1) un-normalized output
-  float* gam_sh = f_sh + stage * (D + 1);  // (stage,) decays (gated only)
+  float* q_sh = smem;                 // (stage, DPK)
+  float* k_sh = q_sh + stage * DPK;   // (stage, DPK)
+  float* v_sh = k_sh + stage * DPK;   // (stage, DPV)
+  float* f_sh = v_sh + stage * DPV;   // (stage, DV+1) un-normalized output
+  float* gam_sh = f_sh + stage * (DV + 1);  // (stage,) decays (gated only)
 
   const int bh = blockIdx.x;  // batch * heads + query head
   const int bi = bh / heads;
   const int hi = bh - bi * heads;
   const int group = heads / kv_heads;
-  const size_t q_base = static_cast<size_t>(bh) * n * D;
   const size_t ld_base = (static_cast<size_t>(bi) * kv_heads + hi / group) * n;
-  const size_t kv_base = ld_base * D;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-  const int rg = tid & 3;   // value threads: row group
-  const int cg = tid >> 2;  // value threads: column group
+  const int rg = tid % RG;  // value threads: row group
+  const int cg = tid / RG;  // value threads: column group
   const int lane = tid - VT;  // normalizer warp
 
   float s[4][R];  // value threads: S[rg*R + i, 4cg + c]
@@ -651,35 +668,37 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < R; ++i) s[c][i] = 0.0f;
   }
-  float ks[R2];   // normalizer warp: S[lane*R2 + r, D] = running sum of k
+  float ks[R2];   // normalizer warp: S[lane*R2 + r, Dv] = running sum of k
 #pragma unroll
   for (int r = 0; r < R2; ++r) ks[r] = 0.0f;
-  float count = 0.0f;  // normalizer warp, gated: P[D], the decayed count
+  float count = 0.0f;  // normalizer warp, gated: P[Dv], the decayed count
 
   for (int t0 = 0; t0 < n; t0 += stage) {
     const int len = min(stage, n - t0);
-    const size_t q_row = q_base + static_cast<size_t>(t0) * D;
-    const size_t kv_row = kv_base + static_cast<size_t>(t0) * D;
-    stage_rows<D>(q_sh, q + q_row, len, tid, nthr);
-    stage_rows<D>(k_sh, k + kv_row, len, tid, nthr);
-    stage_rows<D>(v_sh, v + kv_row, len, tid, nthr);
+    const size_t q_row = (static_cast<size_t>(bh) * n + t0) * DK;
+    const size_t o_row = (static_cast<size_t>(bh) * n + t0) * DV;
+    const size_t k_row = (ld_base + t0) * DK;
+    const size_t v_row = (ld_base + t0) * DV;
+    stage_rows<DK, RG>(q_sh, q + q_row, len, tid, nthr);
+    stage_rows<DK, RG>(k_sh, k + k_row, len, tid, nthr);
+    stage_rows<DV, 4>(v_sh, v + v_row, len, tid, nthr);
     if constexpr (kGated) {
       for (int t = tid; t < len; t += nthr)
         gam_sh[t] = expf(ld[ld_base + t0 + t]);
     }
     __syncthreads();
 
-    if (tid < D) {
-      const unsigned vmask = value_mask<D>(tid);
+    if (tid < W::kWork) {
+      const unsigned vmask = value_mask<W::kWork>(tid);
       for (int t = 0; t < len; ++t) {
         [[maybe_unused]] const float gam = kGated ? gam_sh[t] : 1.0f;
-        const float4 vv =
-            *reinterpret_cast<const float4*>(v_sh + t * DP + L::at(4 * cg));
+        const float4 vv = *reinterpret_cast<const float4*>(
+            v_sh + t * DPV + LV::at(4 * cg));
         const float vc[4] = {vv.x, vv.y, vv.z, vv.w};
         const float4* qt =
-            reinterpret_cast<const float4*>(q_sh + t * DP + rg * (R + 4));
+            reinterpret_cast<const float4*>(q_sh + t * DPK + rg * (R + 4));
         const float4* kt =
-            reinterpret_cast<const float4*>(k_sh + t * DP + rg * (R + 4));
+            reinterpret_cast<const float4*>(k_sh + t * DPK + rg * (R + 4));
         float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
         for (int i4 = 0; i4 < R / 4; ++i4) {
@@ -701,8 +720,10 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
         }
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          acc[c] += __shfl_xor_sync(vmask, acc[c], 1);
-          acc[c] += __shfl_xor_sync(vmask, acc[c], 2);
+          // the RG row groups of a column group are adjacent lanes
+#pragma unroll
+          for (int off = 1; off < RG; off <<= 1)
+            acc[c] += __shfl_xor_sync(vmask, acc[c], off);
           if constexpr (kGated)
             p[c] = fmaf(gam, p[c], vc[c]);
           else
@@ -711,7 +732,7 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
         if (rg == 0) {
 #pragma unroll
           for (int c = 0; c < 4; ++c)
-            f_sh[t * (D + 1) + 4 * cg + c] = a * p[c] + b * acc[c];
+            f_sh[t * (DV + 1) + 4 * cg + c] = a * p[c] + b * acc[c];
         }
       }
     } else if (tid >= VT) {
@@ -720,8 +741,8 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
         float part = 0.0f;
 #pragma unroll
         for (int r = 0; r < R2; ++r) {
-          if (D % 32 == 0 || lane * R2 + r < D) {
-            const int at = t * DP + L::at(lane * R2 + r);
+          if (DK % 32 == 0 || lane * R2 + r < DK) {
+            const int at = t * DPK + LK::at(lane * R2 + r);
             if constexpr (kGated)
               ks[r] = fmaf(gam, ks[r], k_sh[at]);
             else
@@ -736,40 +757,41 @@ __global__ void la_fwd_kernel(const T* __restrict__ q,
           count = fmaf(gam, count, 1.0f);
         else
           count = static_cast<float>(t0 + t + 1);
-        if (lane == 0) f_sh[t * (D + 1) + D] = a * count + b * part;
+        if (lane == 0) f_sh[t * (DV + 1) + DV] = a * count + b * part;
       }
     }
     __syncthreads();
 
-    for (int idx = tid; idx < len * D; idx += nthr) {
-      const int t = idx / D;
-      const int jj = idx - t * D;
-      const float den = f_sh[t * (D + 1) + D];
+    for (int idx = tid; idx < len * DV; idx += nthr) {
+      const int t = idx / DV;
+      const int jj = idx - t * DV;
+      const float den = f_sh[t * (DV + 1) + DV];
       const float val =
-          fabsf(den) < kSafeEps ? 0.0f : f_sh[t * (D + 1) + jj] / den;
-      o[q_row + idx] = from_f32<T>(val);
+          fabsf(den) < kSafeEps ? 0.0f : f_sh[t * (DV + 1) + jj] / den;
+      o[o_row + idx] = from_f32<T>(val);
     }
     for (int t = tid; t < len; t += nthr)
-      g[static_cast<size_t>(bh) * n + t0 + t] = f_sh[t * (D + 1) + D];
+      g[static_cast<size_t>(bh) * n + t0 + t] = f_sh[t * (DV + 1) + DV];
     __syncthreads();  // the next iteration overwrites the staging
   }
 }
 
 // The launch of la_fwd / gla_fwd, shared by the launcher and `la_fwd_plan`:
 // f(Type<T>{}, kernel, geometry, Int<wgmma>{}) for the instantiation a
-// call with these arguments runs.  Both entries in bf16 at D = 128 run the
-// chunked wgmma body (gla_fwd its kGated instance): two blocks per (batch,
-// query head), one per half of the value columns, walking chunks of
-// lc::kChunk tokens, which `stage` must name.  Otherwise the token walk:
-// one block per (batch, query head); D value threads and the normalizer
-// warp; `stage` tokens staged per iteration, shrunk to fit kMaxSmem.
+// call with these arguments runs.  Both entries in bf16 at Dk = Dv = 128
+// run the chunked wgmma body (gla_fwd its kGated instance): two blocks per
+// (batch, query head), one per half of the value columns, walking chunks
+// of lc::kChunk tokens, which `stage` must name.  Otherwise the token walk
+// at a pair of plan::with_walk_dims: one block per (batch, query head);
+// Walk<Dk, Dv>'s value threads and the normalizer warp; `stage` tokens
+// staged per iteration, shrunk to fit kMaxSmem.
 template <bool kGated, typename F>
-cudaError_t with_launch(int dtype, int d, int batch, int heads, int stage,
-                        F&& f) {
+cudaError_t with_launch(int dtype, int dk, int dv, int batch, int heads,
+                        int stage, F&& f) {
   return plan::with_dtype(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      if (d == lc::kD) {
+      if (dk == lc::kD && dv == lc::kD) {
         if (stage != lc::kChunk) return cudaErrorInvalidValue;
         return f(t, lc::la_fwd_wgmma_kernel<kGated>,
                  plan::Geometry{dim3(batch * heads, lc::kSplit),
@@ -778,18 +800,18 @@ cudaError_t with_launch(int dtype, int d, int batch, int heads, int stage,
                  plan::Int<1>{});
       }
     }
-    return plan::with_walk_head_dim<kGated>(d, [&](auto dc) {
-      constexpr int D = decltype(dc)::value;
-      // the staging's floats per token: q, k and v padded, f, and the decay
+    return plan::with_walk_dims<kGated>(dk, dv, [&](auto kc, auto vc) {
+      constexpr int DK = decltype(kc)::value;
+      constexpr int DV = decltype(vc)::value;
+      using W = Walk<DK, DV>;
+      // the staging's floats per token: q and k, v padded, f, and the decay
       const size_t per_token =
-          static_cast<size_t>(3 * Rows<D>::kPadded + D + 1 +
-                              (kGated ? 1 : 0)) *
+          static_cast<size_t>(2 * Rows<DK, W::kRowGroups>::kPadded +
+                              Rows<DV>::kPadded + DV + 1 + (kGated ? 1 : 0)) *
           sizeof(float);
-      auto kernel = la_fwd_kernel<T, D, kGated>;
+      auto kernel = la_fwd_kernel<T, DK, DV, kGated>;
       return f(t, kernel,
-               plan::fit({dim3(batch * heads), ValueThreads<D>::value + 32,
-                          0, 0},
-                         stage,
+               plan::fit({dim3(batch * heads), W::kThreads, 0, 0}, stage,
                          per_token, kMaxSmem),
                plan::Int<0>{});
     });
@@ -803,14 +825,14 @@ bool bad_shape(int batch, int heads, int kv_heads, int n, int stage) {
 
 template <bool kGated>
 int run(const void* q, const void* k, const void* v, const void* ld, void* o,
-        void* g, int batch, int heads, int kv_heads, int n, int d, int stage,
-        float a, float b, int dtype, void* stream) {
+        void* g, int batch, int heads, int kv_heads, int n, int dk, int dv,
+        int stage, float a, float b, int dtype, void* stream) {
   if (bad_shape(batch, heads, kv_heads, n, stage))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_launch<kGated>(
-      dtype, d, batch, heads, stage,
+      dtype, dk, dv, batch, heads, stage,
       [&](auto t, auto kernel, const plan::Geometry& geo, auto body) {
         using T = typename decltype(t)::type;
         if (geo.stage < 1) return cudaErrorInvalidValue;
@@ -844,32 +866,35 @@ int run(const void* q, const void* k, const void* v, const void* ld, void* o,
 
 // Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
 // Each returns the cudaError_t of its launch (0 = success); the launch is
-// asynchronous on `stream`.  Both entries in bf16 at D = 128 run the wgmma
-// body: `stage` must be its chunk (64), and its TMA reads need q, k and v
-// 16-byte aligned (the wrappers check it; a map that cannot be encoded is
-// refused with cudaErrorInvalidValue).
+// asynchronous on `stream`.  Both entries in bf16 at Dk = Dv = 128 run the
+// wgmma body: `stage` must be its chunk (64), and its TMA reads need q, k
+// and v 16-byte aligned (the wrappers check it; a map that cannot be
+// encoded is refused with cudaErrorInvalidValue).  `la_fwd` takes q and k
+// (.., dk) and v and o (.., dv).
 extern "C" int la_fwd(const void* q, const void* k, const void* v, void* o,
                       void* g, int batch, int heads, int kv_heads, int n,
-                      int d, int stage, float a, float b, int dtype,
+                      int dk, int stage, float a, float b, int dtype, int dv,
                       void* stream) {
-  return run<false>(q, k, v, nullptr, o, g, batch, heads, kv_heads, n, d,
-                    stage, a, b, dtype, stream);
+  return run<false>(q, k, v, nullptr, o, g, batch, heads, kv_heads, n, dk,
+                    dv, stage, a, b, dtype, stream);
 }
 
-// The decay-gated forward: ld (B, Hkv, N) f32 is the per-token log decay.
+// The decay-gated forward: ld (B, Hkv, N) f32 is the per-token log decay;
+// Dk = Dv = d.
 extern "C" int gla_fwd(const void* q, const void* k, const void* v,
                        const void* ld, void* o, void* g, int batch,
                        int heads, int kv_heads, int n, int d, int stage,
                        float a, float b, int dtype, void* stream) {
-  return run<true>(q, k, v, ld, o, g, batch, heads, kv_heads, n, d, stage, a,
-                   b, dtype, stream);
+  return run<true>(q, k, v, ld, o, g, batch, heads, kv_heads, n, d, d, stage,
+                   a, b, dtype, stream);
 }
 
 // The geometry a call of `entry` ("la_fwd" or "gla_fwd") with these
-// arguments launches, into out[7] (plan.cuh); nothing is launched.
+// arguments launches, into out[7] (plan.cuh); nothing is launched.  dv is
+// Dv (gla_fwd: dk).
 extern "C" int la_fwd_plan(const char* entry, int batch, int heads,
-                           int kv_heads, int n, int d, int stage, int dtype,
-                           int64_t* out) {
+                           int kv_heads, int n, int dk, int stage, int dtype,
+                           int dv, int64_t* out) {
   const bool gated = strcmp(entry, "gla_fwd") == 0;
   if ((!gated && strcmp(entry, "la_fwd") != 0) ||
       bad_shape(batch, heads, kv_heads, n, stage))
@@ -878,8 +903,8 @@ extern "C" int la_fwd_plan(const char* entry, int batch, int heads,
     return plan::report(kernel, geo, out);
   };
   return static_cast<int>(
-      gated ? with_launch<true>(dtype, d, batch, heads, stage, report)
-            : with_launch<false>(dtype, d, batch, heads, stage, report));
+      gated ? with_launch<true>(dtype, dk, dv, batch, heads, stage, report)
+            : with_launch<false>(dtype, dk, dv, batch, heads, stage, report));
 }
 
 extern "C" const char* la_fwd_error_string(int code) {

@@ -96,6 +96,20 @@ cudaError_t with_walk_head_dim(int d, F&& f) {
   return with_head_dim(d, f);
 }
 
+// f(Int<dk>{}, Int<dv>{}) for the (Dk, Dv) pairs of the token walks:
+// with_walk_head_dim's D as (D, D) and, for the ungated walks,
+// (192, 128) (deepseek-v2-236b's MLA: q and k carry nope 128 + rope 64
+// per head, v 128).  Every other pair is refused.
+template <bool kGated, typename F>
+cudaError_t with_walk_dims(int dk, int dv, F&& f) {
+  if (dk == dv)
+    return with_walk_head_dim<kGated>(dk, [&](auto dc) { return f(dc, dc); });
+  if constexpr (!kGated) {
+    if (dk == 192 && dv == 128) return f(Int<192>{}, Int<128>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
 // f(Int<g>{}) for a query group (or rows per block) of 1, 2, 4, 8 or 16.
 template <typename F>
 cudaError_t with_group(int g, F&& f) {

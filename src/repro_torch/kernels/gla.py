@@ -43,7 +43,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels import linear_attention as _la
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
     GLA_STAGE_TOKENS
-from repro_torch.kernels.linear_attention import GLA_HEAD_DIMS, _dims
+from repro_torch.kernels.linear_attention import GLA_HEAD_DIM_PAIRS, \
+    _dims
 
 F32 = torch.float32
 
@@ -90,7 +91,7 @@ def gla_fwd_cuda(q, k, v, log_decay, a: float, b: float):
     build.check_tensors("gla_fwd", {"q": q, "k": k, "v": v,
                                     "log_decay": log_decay},
                         ("q", "k", "v"), ("log_decay",))
-    bsz, h, hkv, n, d = _dims(q, k, v, GLA_HEAD_DIMS)
+    bsz, h, hkv, n, d, _ = _dims(q, k, v, GLA_HEAD_DIM_PAIRS)
     _check_ld(log_decay, bsz, hkv, n)
     lib = build.bind("la_fwd", _FWD_SYMBOLS)
     o = torch.empty_like(q)
@@ -114,7 +115,8 @@ def gla_bwd_q_cuda(k, v, log_decay, om_hat, h_vec, b: float):
                                       "log_decay": log_decay,
                                       "om_hat": om_hat, "h": h_vec},
                         ("k", "v"), ("log_decay", "om_hat", "h"))
-    bsz, h, hkv, n, d = _dims(om_hat, k, v, GLA_HEAD_DIMS)
+    bsz, h, hkv, n, d, _ = _dims(om_hat, k, v, GLA_HEAD_DIM_PAIRS,
+                                 q_width="dv")
     _check_ld(log_decay, bsz, hkv, n)
     if tuple(h_vec.shape) != (bsz, h, n):
         raise ValueError(f"h {tuple(h_vec.shape)} does not match "
@@ -141,7 +143,7 @@ def gla_bwd_kv_cuda(q, k, v, log_decay, om_hat, h_vec, a: float,
                                        "log_decay": log_decay,
                                        "om_hat": om_hat, "h": h_vec},
                         ("q", "k", "v"), ("log_decay", "om_hat", "h"))
-    bsz, h, hkv, n, d = _dims(q, k, v, GLA_HEAD_DIMS)
+    bsz, h, hkv, n, d, _ = _dims(q, k, v, GLA_HEAD_DIM_PAIRS)
     _check_ld(log_decay, bsz, hkv, n)
     if tuple(om_hat.shape) != tuple(q.shape) \
             or tuple(h_vec.shape) != (bsz, h, n):

@@ -17,20 +17,23 @@ does outside its kernels) and launches both backward kernels;
 and csrc/la_bwd.cu; their headers say what bounds each kernel and how
 it is laid out.
 
-Each kernel has two bodies, chosen by `la_fwd_body(dtype, d, entry)` and
-`la_bwd_body(entry, dtype, d)`: "wgmma" (bf16 at D = 128, the paper's
+Each kernel has two bodies, chosen by `la_fwd_body(dtype, d, entry, dv)`
+and `la_bwd_body(entry, dtype, d, dv)`: "wgmma" (bf16 at Dk = Dv = 128, the paper's
 training instance: chunked scans on the tensor cores fed by TMA, so
 their operands must be 16-byte aligned, which the wrappers check;
 `la_fwd` two blocks per head by halves of the value columns, `la_bwd_q`
 two by halves of dq's columns, `la_bwd_kv` four per KV head, by halves
 of dk's and of dv's columns; `gla_fwd`, `gla_bwd_q` and `gla_bwd_kv`
 run the gated instances of the forward's, the dq and the dk/dv body) and
-"walk" (f32, and bf16 at D < 128: the token walk).
+"walk" (f32, and bf16 at every other pair: the token walk; `la_bwd_kv`'s
+walk at (192, 128) runs its two roles in two blocks per KV head).
 
-Shapes: q (B, H, N, D), k and v (B, Hkv, N, D) with Hkv | H, float32 or
-bfloat16, D in `HEAD_DIMS` (the gated entries of kernels/gla.py: in
-`GLA_HEAD_DIMS`); o, dq, dk and dv come back in their
-inputs' dtypes, g, Ω̂ and h are float32.  The wrappers take contiguous
+Shapes: q (B, H, N, Dk), k (B, Hkv, N, Dk) and v (B, Hkv, N, Dv) with
+Hkv | H, float32 or bfloat16, (Dk, Dv) in `HEAD_DIM_PAIRS`: Dk = Dv = D
+for D in `HEAD_DIMS`, and (192, 128), deepseek-v2-236b's MLA heads (the
+gated entries of kernels/gla.py: Dk = Dv in `GLA_HEAD_DIMS`); o, dq, dk
+and dv come back in their inputs' dtypes, g, Ω̂ and h are float32; Ω̂ and
+o are (.., Dv), dq and dk (.., Dk).  The wrappers take contiguous
 CUDA tensors only and raise on anything else; nothing falls back to the
 plain version.
 
@@ -58,11 +61,15 @@ F32 = torch.float32
 # the gated entries (kernels/gla.py) not
 HEAD_DIMS = (32, 64, 112, 128)
 GLA_HEAD_DIMS = (32, 64, 128)
+# the (Dk, Dv) pairs of the linear entries: Dk = Dv and the token walks'
+# (192, 128), deepseek-v2-236b's MLA (q and k nope 128 + rope 64, v 128)
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
+GLA_HEAD_DIM_PAIRS = tuple((d, d) for d in GLA_HEAD_DIMS)
 
 
 def head_dims(entry: str) -> tuple:
-    """The head dims entry `entry` takes."""
-    return GLA_HEAD_DIMS if entry.startswith("gla_") else HEAD_DIMS
+    """The (Dk, Dv) pairs entry `entry` takes."""
+    return GLA_HEAD_DIM_PAIRS if entry.startswith("gla_") else HEAD_DIM_PAIRS
 
 # kernel launches made by the wrappers, by kernel name (a run sets them
 # to 0 and reads them back to show that its steps went through the
@@ -70,13 +77,14 @@ def head_dims(entry: str) -> tuple:
 launches = {"la_fwd": 0, "la_bwd_q": 0, "la_bwd_kv": 0}
 
 
-def la_fwd_body(dtype, d: int, entry: str = "la_fwd") -> str:
+def la_fwd_body(dtype, d: int, entry: str = "la_fwd", dv=None) -> str:
     """The body forward entry `entry` ("la_fwd" or "gla_fwd") runs for
-    this compute dtype and head dim: "wgmma" (bf16 at D in
-    LA_WGMMA_HEAD_DIMS, or for `gla_fwd` GLA_WGMMA_HEAD_DIMS: the gated
-    instance) or "walk"."""
+    this compute dtype and head dims (Dk = d, Dv = dv, default d): "wgmma"
+    (bf16 at Dk = Dv in LA_WGMMA_HEAD_DIMS, or for `gla_fwd`
+    GLA_WGMMA_HEAD_DIMS: the gated instance) or "walk"."""
     dims = GLA_WGMMA_HEAD_DIMS if entry == "gla_fwd" else LA_WGMMA_HEAD_DIMS
-    return "wgmma" if dtype == torch.bfloat16 and d in dims else "walk"
+    return ("wgmma" if dtype == torch.bfloat16 and d in dims
+            and dv in (None, d) else "walk")
 
 
 # the head dims of each backward entry's "wgmma" body
@@ -86,13 +94,13 @@ _BWD_WGMMA_HEAD_DIMS = {"la_bwd_q": LA_BWD_WGMMA_HEAD_DIMS,
                         "gla_bwd_kv": GLA_BWD_KV_WGMMA_HEAD_DIMS}
 
 
-def la_bwd_body(entry: str, dtype, d: int) -> str:
+def la_bwd_body(entry: str, dtype, d: int, dv=None) -> str:
     """The body backward entry `entry` runs for this compute dtype and head
-    dim: "wgmma" (`la_bwd_q` and `la_bwd_kv` in bf16 at D in
-    LA_BWD_WGMMA_HEAD_DIMS, `gla_bwd_q` at D in GLA_BWD_Q_WGMMA_HEAD_DIMS
-    and `gla_bwd_kv` at D in GLA_BWD_KV_WGMMA_HEAD_DIMS: the gated
-    instances) or "walk"."""
-    return ("wgmma" if dtype == torch.bfloat16
+    dims (Dk = d, Dv = dv, default d): "wgmma" (`la_bwd_q` and `la_bwd_kv`
+    in bf16 at Dk = Dv in LA_BWD_WGMMA_HEAD_DIMS, `gla_bwd_q` in
+    GLA_BWD_Q_WGMMA_HEAD_DIMS and `gla_bwd_kv` in
+    GLA_BWD_KV_WGMMA_HEAD_DIMS: the gated instances) or "walk"."""
+    return ("wgmma" if dtype == torch.bfloat16 and dv in (None, d)
             and d in _BWD_WGMMA_HEAD_DIMS.get(entry, ()) else "walk")
 
 
@@ -101,17 +109,17 @@ def _walk_stage(entry: str) -> int:
     return GLA_STAGE_TOKENS if entry.startswith("gla_") else LA_STAGE_TOKENS
 
 
-def fwd_stage(dtype, d: int, entry: str = "la_fwd") -> int:
+def fwd_stage(dtype, d: int, entry: str = "la_fwd", dv=None) -> int:
     """The `stage` argument of a forward entry's C call: the wgmma body's
     chunk, or the tokens the walk stages per iteration."""
-    return (LA_CHUNK_TOKENS if la_fwd_body(dtype, d, entry) == "wgmma"
+    return (LA_CHUNK_TOKENS if la_fwd_body(dtype, d, entry, dv) == "wgmma"
             else _walk_stage(entry))
 
 
-def bwd_stage(entry: str, dtype, d: int) -> int:
+def bwd_stage(entry: str, dtype, d: int, dv=None) -> int:
     """The `stage` argument of a backward entry's C call, as
     `fwd_stage`."""
-    return (LA_CHUNK_TOKENS if la_bwd_body(entry, dtype, d) == "wgmma"
+    return (LA_CHUNK_TOKENS if la_bwd_body(entry, dtype, d, dv) == "wgmma"
             else _walk_stage(entry))
 
 
@@ -135,43 +143,48 @@ la_bwd_torch = _chunked.la_bwd_chunked
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
-def _dims(q, k, v, dims=HEAD_DIMS):
-    """(B, H, Hkv, N, D) of a (q, k, v) triple, raising on shapes the
-    kernels do not take (head dims outside `dims`)."""
+def _dims(q, k, v, pairs=HEAD_DIM_PAIRS, q_width="dk"):
+    """(B, H, Hkv, N, Dk, Dv) of a (q, k, v) triple, raising on shapes
+    the kernels do not take ((Dk, Dv) outside `pairs`).  q is (B, H, N,
+    Dk), or with q_width "dv" a per-query-head operand of Dv columns (Ω̂)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be 4-D; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    bsz, h, n, d = q.shape
-    hkv = k.shape[1]
-    if tuple(k.shape) != (bsz, hkv, n, d) or tuple(v.shape) != (bsz, hkv,
-                                                               n, d):
-        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)} (Dk = Dv = D)")
+    bsz, hkv, n, dk = k.shape
+    h, dv = q.shape[1], v.shape[-1]
+    width = dk if q_width == "dk" else dv
+    if tuple(q.shape) != (bsz, h, n, width) \
+            or tuple(v.shape) != (bsz, hkv, n, dv):
+        raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} / v "
+                         f"{tuple(v.shape)} do not match: q and k (.., Dk), "
+                         f"v (.., Dv), q of {q_width} columns")
     if h % hkv != 0:
         raise ValueError(f"H={h} is not a multiple of Hkv={hkv}")
-    if d not in dims:
-        raise ValueError(f"head dim {d} is not one of {dims}")
-    return bsz, h, hkv, n, d
+    if (dk, dv) not in pairs:
+        raise ValueError(f"head dim {dk} with Dv {dv}: (Dk, Dv) is not one "
+                         f"of {pairs}")
+    return bsz, h, hkv, n, dk, dv
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FWD_SYMBOLS = {"la_fwd": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_I, _P]}
-_BWD_SYMBOLS = {"la_bwd_q": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
-                "la_bwd_kv": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_I, _P]}
+# the linear entries take Dv after the dtype code
+_FWD_SYMBOLS = {"la_fwd": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_I, _I, _P]}
+_BWD_SYMBOLS = {"la_bwd_q": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+                "la_bwd_kv": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_I, _I, _P]}
 
 
 def la_fwd_cuda(q, k, v, a: float, b: float):
     """Launch `la_fwd`: returns (o in q.dtype, g f32)."""
     build.check_tensors("la_fwd", {"q": q, "k": k, "v": v}, ("q", "k", "v"))
-    bsz, h, hkv, n, d = _dims(q, k, v)
+    bsz, h, hkv, n, dk, dv = _dims(q, k, v)
     lib = build.bind("la_fwd", _FWD_SYMBOLS)
-    o = torch.empty_like(q)
+    o = torch.empty((bsz, h, n, dv), dtype=q.dtype, device=q.device)
     g = torch.empty((bsz, h, n), dtype=F32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.la_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         o.data_ptr(), g.data_ptr(), bsz, h, hkv, n, d,
-                         fwd_stage(q.dtype, d), float(a), float(b),
-                         build.DTYPE_CODE[q.dtype],
+                         o.data_ptr(), g.data_ptr(), bsz, h, hkv, n, dk,
+                         fwd_stage(q.dtype, dk, dv=dv), float(a), float(b),
+                         build.DTYPE_CODE[q.dtype], dv,
                          build.current_stream(q.device))
     build.raise_on(lib, "la_fwd", "la_fwd", err)
     launches["la_fwd"] += 1
@@ -179,23 +192,23 @@ def la_fwd_cuda(q, k, v, a: float, b: float):
 
 
 def la_bwd_q_cuda(k, v, om_hat, h_vec, b: float):
-    """Launch `la_bwd_q`: dq (B, H, N, D) in k.dtype (the dtype q shares
-    with k and v) from k, v and the f32 om_hat (B, H, N, D), h (B, H, N).
+    """Launch `la_bwd_q`: dq (B, H, N, Dk) in k.dtype (the dtype q shares
+    with k and v) from k, v and the f32 om_hat (B, H, N, Dv), h (B, H, N).
     """
     build.check_tensors("la_bwd_q", {"k": k, "v": v, "om_hat": om_hat,
                                      "h": h_vec}, ("k", "v"),
                         ("om_hat", "h"))
-    bsz, h, hkv, n, d = _dims(om_hat, k, v)
+    bsz, h, hkv, n, dk, dv = _dims(om_hat, k, v, q_width="dv")
     if tuple(h_vec.shape) != (bsz, h, n):
         raise ValueError(f"h {tuple(h_vec.shape)} does not match "
                          f"{(bsz, h, n)}")
     lib = build.bind("la_bwd", _BWD_SYMBOLS)
-    dq = torch.empty((bsz, h, n, d), dtype=k.dtype, device=k.device)
+    dq = torch.empty((bsz, h, n, dk), dtype=k.dtype, device=k.device)
     with torch.cuda.device(k.device):
         err = lib.la_bwd_q(k.data_ptr(), v.data_ptr(), om_hat.data_ptr(),
                            h_vec.data_ptr(), dq.data_ptr(), bsz, h, hkv, n,
-                           d, bwd_stage("la_bwd_q", k.dtype, d), float(b),
-                           build.DTYPE_CODE[k.dtype],
+                           dk, bwd_stage("la_bwd_q", k.dtype, dk, dv),
+                           float(b), build.DTYPE_CODE[k.dtype], dv,
                            build.current_stream(k.device))
     build.raise_on(lib, "la_bwd", "la_bwd_q", err)
     launches["la_bwd_q"] += 1
@@ -203,26 +216,26 @@ def la_bwd_q_cuda(k, v, om_hat, h_vec, b: float):
 
 
 def la_bwd_kv_cuda(q, k, v, om_hat, h_vec, a: float, b: float):
-    """Launch `la_bwd_kv`: (dk, dv), each (B, Hkv, N, D) in its input's
-    dtype."""
+    """Launch `la_bwd_kv`: (dk (B, Hkv, N, Dk), dv (B, Hkv, N, Dv)), each
+    in its input's dtype."""
     build.check_tensors("la_bwd_kv", {"q": q, "k": k, "v": v,
                                       "om_hat": om_hat, "h": h_vec},
                         ("q", "k", "v"), ("om_hat", "h"))
-    bsz, h, hkv, n, d = _dims(q, k, v)
-    if tuple(om_hat.shape) != tuple(q.shape) \
+    bsz, h, hkv, n, d_k, d_v = _dims(q, k, v)
+    if tuple(om_hat.shape) != (bsz, h, n, d_v) \
             or tuple(h_vec.shape) != (bsz, h, n):
         raise ValueError(f"om_hat {tuple(om_hat.shape)} / h "
-                         f"{tuple(h_vec.shape)} do not match q "
-                         f"{tuple(q.shape)}")
+                         f"{tuple(h_vec.shape)} do not match (B, H, N, Dv) "
+                         f"= {(bsz, h, n, d_v)}")
     lib = build.bind("la_bwd", _BWD_SYMBOLS)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = lib.la_bwd_kv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             om_hat.data_ptr(), h_vec.data_ptr(),
-                            dk.data_ptr(), dv.data_ptr(), bsz, h, hkv, n, d,
-                            bwd_stage("la_bwd_kv", q.dtype, d), float(a),
-                            float(b),
-                            build.DTYPE_CODE[q.dtype],
+                            dk.data_ptr(), dv.data_ptr(), bsz, h, hkv, n,
+                            d_k, bwd_stage("la_bwd_kv", q.dtype, d_k, d_v),
+                            float(a), float(b), build.DTYPE_CODE[q.dtype],
+                            d_v,
                             build.current_stream(q.device))
     build.raise_on(lib, "la_bwd", "la_bwd_kv", err)
     launches["la_bwd_kv"] += 1
@@ -241,10 +254,17 @@ def la_bwd_cuda(q, k, v, o, g, omega, a: float, b: float):
 # Launch plans (kernels/plan.py), shared with the gated entries (gla.py)
 # ---------------------------------------------------------------------------
 
-def _padded(d: int) -> int:
-    """Floats of one staged row: D in 4 row groups, each followed by 4
-    floats of padding (`Rows<D>::kPadded`)."""
-    return d + 16
+def _padded(d: int, groups: int = 4) -> int:
+    """Floats of one staged row: D in `groups` row groups, each followed by
+    4 floats of padding (`Rows<D, G>::kPadded`)."""
+    return d + 4 * groups
+
+
+def _walk_row_groups(dk: int, dv: int) -> int:
+    """Row groups of the state column a walk's value thread (la_fwd) or
+    column-role thread (la_bwd_kv) tiles: 4 where Dk = Dv, 8 where Dk > Dv
+    (`Walk` / `KvWalk`)."""
+    return 4 if dk == dv else 8
 
 
 # the wgmma body: one warpgroup; beside the tiles and sums the barriers and
@@ -299,21 +319,24 @@ def plan_fwd(entry, q, k, v, log_decay, a, b, stage_tokens, argtypes):
     share of the value columns (of v and o; the first writes g), walking
     chunks (TMA zero-fills the rows of the last chunk past N; gated, each
     block reads its KV head's log decays)."""
-    bsz, h, hkv, n, d = _dims(q, k, v, head_dims(entry))
+    bsz, h, hkv, n, d, dv = _dims(q, k, v, head_dims(entry))
     group, gated = h // hkv, log_decay is not None
     code = plan.dtype_code(q.dtype)
-    # the walk: d value threads rounded up to warps, the normalizer warp
-    split, threads = 1, -(-d // 32) * 32 + 32
-    if la_fwd_body(q.dtype, d, entry) == "wgmma":
+    # the walk: RG Dv / 4 value threads rounded up to warps, the
+    # normalizer warp
+    rg = _walk_row_groups(d, dv)
+    split, threads = 1, -(-(rg * dv // 4) // 32) * 32 + 32
+    if la_fwd_body(q.dtype, d, entry, dv) == "wgmma":
         stage_tokens = stage = LA_CHUNK_TOKENS
         split, threads, smem = LA_WGMMA_SPLIT, _WGMMA_THREADS, \
             _wgmma_smem(d, gated)
     else:
-        # the staging's floats per token: q, k and v padded, f, and the
+        # the staging's floats per token: q and k, v padded, f, and the
         # decay
         stage, smem = plan.fit(
-            stage_tokens, (3 * _padded(d) + d + 1 + int(gated)) * 4)
-    part = d // split
+            stage_tokens, (2 * _padded(d, rg) + _padded(dv) + dv + 1
+                           + int(gated)) * 4)
+    part = dv // split
 
     def head(blk):
         bi, hi = divmod(blk[0], h)
@@ -352,13 +375,13 @@ def plan_fwd(entry, q, k, v, log_decay, a, b, stage_tokens, argtypes):
     if gated:
         accesses.append(plan.Access("log_decay", "in", (bsz, hkv, n), F32,
                                     ld_row))
-    accesses += [plan.Access("o", "out", plan.shape_of(q), q.dtype, o_part),
+    accesses += [plan.Access("o", "out", (bsz, h, n, dv), q.dtype, o_part),
                  plan.Access("g", "out", (bsz, h, n), F32, g_row)]
     return plan.make(entry, "la_fwd", (bsz * h, split), threads, smem,
                      accesses,
                      (bsz, h, hkv, n, d, stage_tokens, float(a), float(b),
-                      code), argtypes,
-                     (bsz, h, hkv, n, d, stage_tokens, code), stage=stage)
+                      code, *_dv_arg(gated, dv)), argtypes,
+                     (bsz, h, hkv, n, d, stage_tokens, code, dv), stage=stage)
 
 
 def plan_bwd_q(entry, k, v, log_decay, om_hat, h_vec, b, stage_tokens,
@@ -368,18 +391,20 @@ def plan_bwd_q(entry, k, v, log_decay, om_hat, h_vec, b, stage_tokens,
     wgmma body (gla_bwd_q its gated instance) LA_BWD_Q_SPLIT such
     blocks, each with its share of dq's columns (and of k's), walking
     chunks (TMA zero-fills the rows of the last chunk past N)."""
-    bsz, h, hkv, n, d = _dims(om_hat, k, v, head_dims(entry))
+    bsz, h, hkv, n, d, dv = _dims(om_hat, k, v, head_dims(entry),
+                                  q_width="dv")
     group, gated = h // hkv, log_decay is not None
     code = plan.dtype_code(k.dtype)
     split, threads = 1, d
-    if la_bwd_body(entry, k.dtype, d) == "wgmma":
+    if la_bwd_body(entry, k.dtype, d, dv) == "wgmma":
         stage_tokens = stage = LA_CHUNK_TOKENS
         split, threads, smem = LA_BWD_Q_SPLIT, _WGMMA_THREADS, \
             _bwd_q_smem(d, gated)
     else:
         # k, v and Ω̂ padded, h, and the decay
         stage, smem = plan.fit(stage_tokens,
-                               (3 * _padded(d) + 1 + int(gated)) * 4)
+                               (_padded(d) + 2 * _padded(dv) + 1
+                                + int(gated)) * 4)
     part = d // split
 
     def head(blk):
@@ -388,7 +413,7 @@ def plan_bwd_q(entry, k, v, log_decay, om_hat, h_vec, b, stage_tokens,
 
     def q_rows(blk):
         bi, hi, _ = head(blk)
-        return plan.box((bi, bi + 1), (hi, hi + 1), (0, n), (0, d))
+        return plan.box((bi, bi + 1), (hi, hi + 1), (0, n), (0, dv))
 
     def q_part(blk):
         bi, hi, _ = head(blk)
@@ -397,7 +422,7 @@ def plan_bwd_q(entry, k, v, log_decay, om_hat, h_vec, b, stage_tokens,
 
     def kv_rows(blk):
         bi, _, hk = head(blk)
-        return plan.box((bi, bi + 1), (hk, hk + 1), (0, n), (0, d))
+        return plan.box((bi, bi + 1), (hk, hk + 1), (0, n), (0, dv))
 
     def k_part(blk):
         bi, _, hk = head(blk)
@@ -418,30 +443,34 @@ def plan_bwd_q(entry, k, v, log_decay, om_hat, h_vec, b, stage_tokens,
         accesses.append(plan.Access("log_decay", "in", (bsz, hkv, n), F32,
                                     ld_row))
     accesses += [
-        plan.Access("om_hat", "in", (bsz, h, n, d), F32, q_rows),
+        plan.Access("om_hat", "in", (bsz, h, n, dv), F32, q_rows),
         plan.Access("h_vec", "in", (bsz, h, n), F32, h_row),
         plan.Access("dq", "out", (bsz, h, n, d), k.dtype, q_part)]
     return plan.make(entry, "la_bwd", (bsz * h, split), threads, smem,
                      accesses,
-                     (bsz, h, hkv, n, d, stage_tokens, float(b), code),
-                     argtypes, (bsz, h, hkv, n, d, stage_tokens, code),
+                     (bsz, h, hkv, n, d, stage_tokens, float(b), code,
+                      *_dv_arg(gated, dv)),
+                     argtypes, (bsz, h, hkv, n, d, stage_tokens, code, dv),
                      stage=stage)
 
 
 def plan_bwd_kv(entry, q, k, v, log_decay, om_hat, h_vec, a, b,
                 stage_tokens, argtypes):
-    """la_bwd_kv (log_decay None) or gla_bwd_kv: the token walk's one
-    block per (batch, KV head), the reverse scan over all N tokens of its
-    G query heads (its staging grows with G, so large groups stage fewer
-    tokens); the wgmma body LA_BWD_KV_SPLIT blocks per (batch, KV head):
-    y = 0, 1 write dk's column half y from v, their half of q, Ω̂ and h;
-    y = 2, 3 dv's half y - 2 from k, q and their half of Ω̂ (gated: dV''s
-    columns of that half, from h too, and y = 2 also its column D), each
-    walking the group's chunks from the last."""
-    bsz, h, hkv, n, d = _dims(q, k, v, head_dims(entry))
+    """la_bwd_kv (log_decay None) or gla_bwd_kv: the token walk's one block
+    per (batch, KV head), the reverse scan over all N tokens of its G query
+    heads (its staging grows with G, so large groups stage fewer tokens);
+    where Dk > Dv its two roles in two blocks per (batch, KV head), y = 0
+    writing dk and y = 1 dv, each staging every operand; the wgmma body
+    LA_BWD_KV_SPLIT blocks per (batch, KV head): y = 0, 1 write dk's column
+    half y from v, their half of q, Ω̂ and h; y = 2, 3 dv's half y - 2 from
+    k, q and their half of Ω̂ (gated: dV''s columns of that half, from h
+    too, and y = 2 also its column D), each walking the group's chunks from
+    the last."""
+    bsz, h, hkv, n, d, dv = _dims(q, k, v, head_dims(entry))
     group, gated = h // hkv, log_decay is not None
     code = plan.dtype_code(q.dtype)
-    wgmma = la_bwd_body(entry, q.dtype, d) == "wgmma"
+    wgmma = la_bwd_body(entry, q.dtype, d, dv) == "wgmma"
+    split_roles = not wgmma and d != dv
     if wgmma:
         stage_tokens = stage = LA_CHUNK_TOKENS
         split, threads, smem = LA_BWD_KV_SPLIT, _WGMMA_THREADS, \
@@ -450,33 +479,42 @@ def plan_bwd_kv(entry, q, k, v, log_decay, om_hat, h_vec, a, b,
         # q and Ω̂ of the G query heads, k and v, padded; h of the G heads;
         # gated: the decay, the row warps' shares of k.U[:Dk, Dv] and
         # U[Dk, Dv]
+        rg = _walk_row_groups(d, dv)
         stage, smem = plan.fit(
-            stage_tokens, ((2 * group + 2) * _padded(d) + group
-                           + (d // 32 + 2 if gated else 0)) * 4)
-        split, threads = 1, 2 * d
+            stage_tokens, ((group + 1) * (_padded(d, rg) + _padded(dv))
+                           + group + (d // 32 + 2 if gated else 0)) * 4)
+        split, threads = ((2, max(d, rg * dv // 4)) if split_roles
+                          else (1, 2 * d))
     half = d // (LA_BWD_KV_SPLIT // 2)   # dk's halves, then dv's
 
     def part(blk):
-        """The block's roles and the columns of its half: the walk's one
-        block does both, over all D columns."""
+        """The block's roles and the columns its output takes: the walk's
+        one block does both over all columns, a split walk's block y its
+        role; a wgmma block its half."""
         if not wgmma:
-            return ("dk", "dv"), (0, d)
+            if split_roles:
+                return ("dk",) if blk[1] == 0 else ("dv",), None
+            return ("dk", "dv"), None
         lo = (blk[1] % 2) * half
         return ("dk",) if blk[1] < 2 else ("dv",), (lo, lo + half)
 
     def operand(grouped, role=None, halved=None, width=d):
         """Tiles of an operand over the block's query group (grouped) or
-        KV head: rows [0, N) where `role` is None or one of the block's
-        roles, else none; of `width` columns (None: a 3-D operand), the
-        block's half where `halved` is one of its roles."""
+        KV head: rows [0, N) where `role` is None, the walk stages every
+        operand, or `role` is one of the block's roles, else none; of
+        `width` columns (None: a 3-D operand), the block's half where
+        `halved` is one of its roles."""
         def tile(blk):
             bi, hk = divmod(blk[0], hkv)
             roles, cols = part(blk)
+            reads = role is None or (not wgmma and halved is None) \
+                or role in roles
             ranges = [(bi, bi + 1), (hk * group, (hk + 1) * group)
                       if grouped else (hk, hk + 1),
-                      (0, n) if role is None or role in roles else (0, 0)]
+                      (0, n) if reads else (0, 0)]
             if width is not None:
-                ranges.append(cols if halved in roles else (0, width))
+                ranges.append(cols if cols is not None and halved in roles
+                              else (0, width))
             return plan.box(*ranges)
         return tile
 
@@ -486,13 +524,13 @@ def plan_bwd_kv(entry, q, k, v, log_decay, om_hat, h_vec, a, b,
         plan.Access("k", "in", plan.shape_of(k), q.dtype,
                     operand(False, "dv")),
         plan.Access("v", "in", plan.shape_of(v), q.dtype,
-                    operand(False, "dk"))]
+                    operand(False, "dk", width=dv))]
     if gated:
         accesses.append(plan.Access("log_decay", "in", (bsz, hkv, n), F32,
                                     operand(False, width=None)))
     accesses += [
-        plan.Access("om_hat", "in", (bsz, h, n, d), F32,
-                    operand(True, halved="dv")),
+        plan.Access("om_hat", "in", (bsz, h, n, dv), F32,
+                    operand(True, halved="dv", width=dv)),
         plan.Access("h_vec", "in", (bsz, h, n), F32,
                     operand(True, None if gated else "dk", width=None)),
         plan.Access("dk", "out", plan.shape_of(k), q.dtype,
@@ -515,12 +553,19 @@ def plan_bwd_kv(entry, q, k, v, log_decay, om_hat, h_vec, a, b,
                                     dva_tile))
     else:
         accesses.append(plan.Access("dv", "out", plan.shape_of(v), q.dtype,
-                                    operand(False, "dv", "dv")))
+                                    operand(False, "dv", "dv", width=dv)))
     return plan.make(entry, "la_bwd", (bsz * hkv, split), threads, smem,
                      accesses,
                      (bsz, h, hkv, n, d, stage_tokens, float(a), float(b),
-                      code), argtypes,
-                     (bsz, h, hkv, n, d, stage_tokens, code), stage=stage)
+                      code, *_dv_arg(gated, dv)), argtypes,
+                     (bsz, h, hkv, n, d, stage_tokens, code, dv), stage=stage)
+
+
+def _dv_arg(gated: bool, dv: int) -> tuple:
+    """The last argument before the stream of an entry's C call: the
+    linear entries take Dv after the dtype code, the gated ones nothing
+    (Dk = Dv = D)."""
+    return () if gated else (dv,)
 
 
 def plan_la_fwd(q, k, v, a: float, b: float):

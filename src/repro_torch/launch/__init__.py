@@ -3,6 +3,7 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_fused import GROUPS as SOFTMAX_DECODE_GROUPS
+from repro_torch.models.model import prefix_layers
 
 # attention backends whose card kernels do not take a hybrid's shared
 # attention yet (zamba2-7b's head dim 112: flash and the softmax decode
@@ -13,12 +14,13 @@ HYBRID_REFUSED_BACKENDS = ("softmax", "gla")
 def backend_refusal(cfg: ModelConfig, backend: str,
                     serving: bool) -> str | None:
     """Why the launchers refuse `--backend` on `cfg`, or None.  As the
-    reference, the flag sets `attention_backend` and an architecture
-    without attention ignores it.  Refused are the backends whose card
-    kernels do not take the model's shapes: on the hybrid family softmax
-    and gla (its shared block's head dim), and in serving softmax where
-    the query group is not one the softmax decode kernels take
-    (granite-20b's 48)."""
+    reference, the flag sets `attention_backend`, and an architecture
+    whose mixer is not attention ignores it (mamba2-2.7b; deepseek-v2-236b,
+    whose MLA mixer always runs the paper's linear attention).  Refused
+    are the backends whose card kernels do not take the model's shapes:
+    on the hybrid family softmax and gla (its shared block's head dim),
+    and in serving softmax where the query group is not one the softmax
+    decode kernels take (granite-20b's 48)."""
     todo = ("(ROADMAP.md queue 1, 'softmax and gla on zamba2'); use "
             "linear")
     if cfg.family == "hybrid" and backend in HYBRID_REFUSED_BACKENDS:
@@ -32,4 +34,17 @@ def backend_refusal(cfg: ModelConfig, backend: str,
         return (f"--backend softmax on {cfg.name}: the softmax decode "
                 f"kernels take query groups {SOFTMAX_DECODE_GROUPS}, not "
                 f"{group}, yet {todo}")
+    return None
+
+
+def paging_refusal(cfg: ModelConfig) -> str | None:
+    """Why the serving launcher refuses `--page-size` on `cfg`, or None:
+    the MoE family's dense first layers keep caches of their own
+    ("prefix") whose page tables the engine does not manage, and the
+    engine refuses them as the reference's does."""
+    n_prefix = prefix_layers(cfg)
+    if n_prefix:
+        return (f"--page-size on {cfg.name}: its {n_prefix} dense first "
+                f"layer(s) keep prefix caches the engine does not page (as "
+                f"in the reference); serve it contiguous")
     return None

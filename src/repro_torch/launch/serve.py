@@ -7,17 +7,20 @@
         --device cpu --requests 3 --max-new 4
 
 `--arch` takes every id of `configs/registry.py` (pythia-1.4b,
-qwen2.5-3b, stablelm-1.6b, chatglm3-6b, granite-20b, mamba2-2.7b,
-zamba2-7b).  Flag names follow `repro/launch/serve.py` for the flags
+qwen2.5-3b, stablelm-1.6b, chatglm3-6b, granite-20b, moonshot-v1-16b-a3b,
+deepseek-v2-236b, mamba2-2.7b, zamba2-7b).  Flag names follow `repro/launch/serve.py` for the flags
 kept.  Weights are random, drawn from seed 0; prompts are random token
 ids drawn from seed 0.  `--backend` swaps the attention backend
 (linear, the paper's, by default; gla, its decay-gated variant;
 softmax, the baseline), as the reference does: mamba2-2.7b has no
-attention and ignores it, zamba2-7b refuses softmax and gla, whose
+attention and deepseek-v2-236b's MLA mixer always runs the linear
+scores, so both ignore it, zamba2-7b refuses softmax and gla, whose
 kernels do not take its head dim 112 yet, and the full granite-20b
 refuses softmax, whose decode kernels do not take its query group of 48
 (`repro_torch.launch.backend_refusal`).  Paging is refused where the
-backend does not page (`get_backend`).
+backend does not page (`get_backend`) and on the MoE family, whose dense
+first layers keep caches the engine does not page
+(`repro_torch.launch.paging_refusal`).
 `--full` serves the full-width config instead of the smoke one;
 `--device` defaults to cuda and raises without a card.  Admission
 defaults to fixed slots; `--budget-mb` switches to ByteBudget (the slot
@@ -49,7 +52,7 @@ import numpy as np
 
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import ops as _ops
-from repro_torch.launch import backend_refusal
+from repro_torch.launch import backend_refusal, paging_refusal
 from repro_torch.mixers import get_backend, resolve_backend_name
 from repro_torch.models import model as mdl
 from repro_torch.obs import ServeTracer
@@ -115,6 +118,8 @@ def main(argv=None):
             ap.error(refusal)
         cfg = dataclasses.replace(cfg, attention_backend=args.backend)
     get_backend(cfg)  # fail fast on a bad --backend, naming the valid ones
+    if args.page_size is not None and paging_refusal(cfg):
+        ap.error(paging_refusal(cfg))
     params = mdl.init_params(cfg, seed=0, device=args.device)
     page_kwargs = {}
     if args.budget_mb is not None and args.page_size is not None:

@@ -11,8 +11,11 @@ checkpoint (`--checkpoint-dir`, `--resume`) and autotune
 `--arch` takes every id of `configs/registry.py`.  Weights are random
 from the train config's seed and data is `SyntheticLM` from the same
 seed.  `--backend` swaps the attention backend as the reference does
-(mamba2-2.7b ignores it; zamba2-7b refuses softmax and gla, whose
-kernels do not take its head dim 112 yet).  `--full` trains the full-width
+(mamba2-2.7b and deepseek-v2-236b, whose MLA mixer always runs the
+linear scores, ignore it; zamba2-7b refuses softmax and gla, whose
+kernels do not take its head dim 112 yet).  The MoE family
+(moonshot-v1-16b-a3b, deepseek-v2-236b) adds its load-balancing loss to
+the objective.  `--full` trains the full-width
 config instead of the smoke one; `--device` defaults to cuda and raises
 without a card.  Prints one JSON record: first_loss, last_loss, steps,
 stragglers.

@@ -8,8 +8,8 @@ the kernel family of the resolved backend (kernels/ops.py; `softmax` ->
 "softmax", `gla` -> "gla", every other backend -> "linear") and the
 chunk size positive; and cfg.paging: only the softmax (KV pages) and gla
 (state pages) backends page their caches (page_size >= 1, num_pages >=
-2).  The port registers the `linear`, `gla`, `softmax` and `mamba2`
-backends; the others are on ROADMAP.md.
+2).  The port registers the `linear`, `gla`, `softmax`, `mamba2` and
+`mla` backends; the others are on ROADMAP.md.
 """
 from __future__ import annotations
 

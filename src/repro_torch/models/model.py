@@ -1,27 +1,33 @@
 """Decoder-only LM: embed -> blocks -> norm -> unembed.
 
-Port of the dense-, ssm- and hybrid-family paths of
+Port of the dense-, moe-, ssm- and hybrid-family paths of
 `repro/models/model.py`: the dense stacks of pythia-1.4b, qwen2.5-3b,
-stablelm-1.6b, chatglm3-6b and granite-20b, the pure Mamba-2 stack of
-mamba2-2.7b and zamba2-7b's hybrid (groups of Mamba-2 blocks, one
-SHARED attention block applied after each group, a tail of Mamba-2
-blocks): training (`forward_hidden`, `chunked_cross_entropy`,
-`loss_fn`, `forward_logits`) and serving (`init_params`, `init_cache`,
-`prefill`, `decode_step`).  Tied embeddings (mamba2, qwen2.5) have no
-lm_head: the loss and the logits unembed through the embedding table in
-f32.  A logit softcap c tanh(logits / c) applies to `forward_logits`
-and the last-token logits, not to the loss, as in the reference.
-Layers are Python lists of per-layer param dicts (the reference stacks
-them on axis 0 for lax.scan; convert.py unstacks): `blocks`, or
-`mamba_groups` (g lists of m), `shared_attn` and `tail`.  Logits are
-computed in f32.
+stablelm-1.6b, chatglm3-6b and granite-20b, the MoE stacks of
+moonshot-v1-16b-a3b (attention) and deepseek-v2-236b (the MLA mixer),
+each with its dense first layers (`prefix_blocks`) before the stack, the
+pure Mamba-2 stack of mamba2-2.7b and zamba2-7b's hybrid (groups of
+Mamba-2 blocks, one SHARED attention block applied after each group, a
+tail of Mamba-2 blocks): training (`forward_hidden`,
+`chunked_cross_entropy`, `loss_fn`, `forward_logits`) and serving
+(`init_params`, `init_cache`, `prefill`, `decode_step`).  Tied
+embeddings (mamba2, qwen2.5) have no lm_head: the loss and the logits
+unembed through the embedding table in f32.  A logit softcap c
+tanh(logits / c) applies to `forward_logits` and the last-token logits,
+not to the loss, as in the reference.  The MoE blocks' load-balancing
+losses are summed over the prefix and the stack, and `loss_fn` adds
+`cfg.moe.aux_loss_weight` times that sum.  Layers are Python lists of
+per-layer param dicts (the reference stacks them on axis 0 for lax.scan;
+convert.py unstacks): `prefix_blocks` and `blocks`, or `mamba_groups` (g
+lists of m), `shared_attn` and `tail`.  Logits are computed in f32.
 
 `cfg.remat` recomputes each block in the backward
 (`torch.utils.checkpoint`, non-reentrant): the counterpart of the
 reference's `jax.checkpoint` around its scanned block body, so only the
-blocks' inputs stay alive between forward and backward.  The hybrid
-family is also recomputed per group, as the reference does, so the
-shared block's internals are not kept for every application.
+blocks' inputs stay alive between forward and backward.  The prefix
+blocks, which the reference runs outside its scan, are recomputed too:
+the numbers are the same, the memory less.  The hybrid family is also
+recomputed per group, as the reference does, so the shared block's
+internals are not kept for every group application.
 """
 from __future__ import annotations
 
@@ -39,11 +45,11 @@ F32 = torch.float32
 
 
 def _check_family(cfg):
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; the port runs the "
-            f"dense, ssm and hybrid families (ROADMAP.md queue 1 items "
-            f"5-7)")
+            f"dense, moe, ssm and hybrid families (ROADMAP.md queue 1 "
+            f"items 6-7)")
     if cfg.rope_kind == "mrope":
         raise NotImplementedError(
             "M-RoPE positions are not ported yet (ROADMAP.md queue 1 item "
@@ -58,6 +64,11 @@ def _attn_variant(cfg):
     """Config view for zamba2's shared attention block (attention
     mixer)."""
     return dataclasses.replace(cfg, mixer="attention", moe=None)
+
+
+def prefix_layers(cfg) -> int:
+    """The dense first layers of an MoE stack (0 elsewhere)."""
+    return cfg.moe.first_dense_layers if cfg.moe is not None else 0
 
 
 def init_params(cfg, seed: int = 0, device="cuda"):
@@ -85,8 +96,13 @@ def init_params(cfg, seed: int = 0, device="cuda"):
             params["tail"] = [blk.block_init(gen, cfg, pd)
                               for _ in range(t)]
         return params
+    n_prefix = prefix_layers(cfg)
+    if n_prefix:
+        params["prefix_blocks"] = [blk.block_init(gen, cfg, pd,
+                                                  dense_ffn=True)
+                                   for _ in range(n_prefix)]
     params["blocks"] = [blk.block_init(gen, cfg, pd)
-                        for _ in range(cfg.num_layers)]
+                        for _ in range(cfg.num_layers - n_prefix)]
     return params
 
 
@@ -95,10 +111,11 @@ def compute_params(params, cfg):
     in cfg.compute_dtype: the numbers equal the reference's cast at each
     call.  The lm_head stays as it is (logits are computed in f32), and
     so do norm params (norms compute in f32), a tied embedding table (it
-    also unembeds, in f32 from the param dtype) and mamba2's conv_w (its
-    decode step convolves in f32 with the weight in the param dtype)."""
+    also unembeds, in f32 from the param dtype), mamba2's conv_w (its
+    decode step convolves in f32 with the weight in the param dtype) and
+    an MoE router (f32, its logits computed in f32)."""
     cdt = dtype_of(cfg.compute_dtype)
-    kept = ("lm_head", "ln1", "ln2", "ln_f", "conv_w") + (
+    kept = ("lm_head", "ln1", "ln2", "ln_f", "conv_w", "router") + (
         ("embed",) if cfg.tie_embeddings else ())
 
     def cast(tree, keep=False):
@@ -133,22 +150,27 @@ def _apply(fn, cfg, *args):
 
 
 def _blocks(layers, cfg, x, positions, cdt):
-    """x through a list of blocks, each recomputed under cfg.remat."""
+    """x through a list of blocks, each recomputed under cfg.remat; returns
+    (x, the sum of their aux losses, f32)."""
+    aux = torch.zeros((), dtype=F32, device=x.device)
     for lp in layers:
-        x = _apply(blk.block_apply, cfg, lp, cfg, x, positions, cdt)
-    return x
+        x, a = _apply(blk.block_apply, cfg, lp, cfg, x, positions, cdt)
+        aux = aux + a
+    return x, aux
 
 
 def _group(group, shared, cfg, x, positions, cdt):
     """One hybrid group: its Mamba-2 blocks, then the shared attention
     block."""
-    x = _blocks(group, cfg, x, positions, cdt)
-    return blk.block_apply(shared, _attn_variant(cfg), x, positions, cdt)
+    x, _ = _blocks(group, cfg, x, positions, cdt)
+    return blk.block_apply(shared, _attn_variant(cfg), x, positions,
+                           cdt)[0]
 
 
 def forward_hidden(params, cfg, batch):
     """batch: {"tokens": (B, N) int}.  Returns (hidden (B, N, d) in the
-    compute dtype, aux loss f32: 0 without MoE)."""
+    compute dtype, aux loss f32: the MoE blocks' summed, 0 without
+    MoE)."""
     _check_family(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     tokens = batch["tokens"]
@@ -160,10 +182,12 @@ def forward_hidden(params, cfg, batch):
         for group in params["mamba_groups"]:
             x = _apply(_group, cfg, group, params["shared_attn"], cfg, x,
                        positions, cdt)
-        x = _blocks(params.get("tail", []), cfg, x, positions, cdt)
+        x, aux = _blocks(params.get("tail", []), cfg, x, positions, cdt)
     else:
-        x = _blocks(params["blocks"], cfg, x, positions, cdt)
-    aux = torch.zeros((), dtype=F32, device=x.device)
+        x, aux = _blocks(params.get("prefix_blocks", []), cfg, x,
+                         positions, cdt)
+        x, a = _blocks(params["blocks"], cfg, x, positions, cdt)
+        aux = aux + a
     return norm_apply(params["ln_f"], x, cfg.norm), aux
 
 
@@ -222,8 +246,8 @@ def _unembed_weight(params, cfg):
 
 
 def loss_fn(params, cfg, batch):
-    """Next-token CE (+ the MoE aux term, 0 here).  Returns (loss,
-    {"ce": ce, "aux": aux})."""
+    """Next-token CE + cfg.moe.aux_loss_weight x the MoE aux loss.
+    Returns (loss, {"ce": ce, "aux": aux})."""
     hidden, aux = forward_hidden(params, cfg, batch)
     tokens = batch["tokens"]
     labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
@@ -233,7 +257,8 @@ def loss_fn(params, cfg, batch):
         mask = mask * batch["loss_mask"].float()
     ce = chunked_cross_entropy(hidden, _unembed_weight(params, cfg), labels,
                                mask)
-    return ce, {"ce": ce, "aux": aux}
+    aux_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
+    return ce + aux_w * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +271,8 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
     with its own page table at the sink page, in the compute dtype, as
     the reference's; MambaCaches: the f32 SSD state and the conv tail in
     the compute dtype) and the per-slot position counter.  Dense and ssm:
-    {"blocks": [L], "pos"}; hybrid: {"mamba": [g][m], "shared": [g] (one
+    {"blocks": [L], "pos"}; moe: {"blocks": [L - p], "prefix": [p] (its p
+    dense first layers), "pos"}; hybrid: {"mamba": [g][m], "shared": [g] (one
     cache per application of the shared block), "tail": [t], "pos"}."""
     _check_family(cfg)
     dev = resolve_device(device)
@@ -263,7 +289,11 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
         if t:
             cache["tail"] = [one(cfg) for _ in range(t)]
     else:
-        cache = {"blocks": [one(cfg) for _ in range(cfg.num_layers)]}
+        n_prefix = prefix_layers(cfg)
+        cache = {"blocks": [one(cfg)
+                            for _ in range(cfg.num_layers - n_prefix)]}
+        if n_prefix:
+            cache["prefix"] = [one(cfg) for _ in range(n_prefix)]
     cache["pos"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
     return cache
 
@@ -272,8 +302,10 @@ def _layers(params, cfg, cache):
     """(block params, config view, holder, index) of every block in the
     order the model runs them; the block's cache is holder[index]."""
     if cfg.family != "hybrid":
-        return [(lp, cfg, cache["blocks"], i)
-                for i, lp in enumerate(params["blocks"])]
+        return [(lp, cfg, cache["prefix"], i)
+                for i, lp in enumerate(params.get("prefix_blocks", []))] + [
+            (lp, cfg, cache["blocks"], i)
+            for i, lp in enumerate(params["blocks"])]
     acfg = _attn_variant(cfg)
     out = []
     for gi, group in enumerate(params["mamba_groups"]):

@@ -223,6 +223,14 @@ class Engine:
         self.decode_steps = 0   # batched decode steps run so far
 
         n = self.num_slots
+        if cfg.paging is not None and mdl.prefix_layers(cfg):
+            # the dense first layers of an MoE stack keep caches of their
+            # own under "prefix", whose page tables the engine does not
+            # manage: refused, as the reference's engine refuses them
+            raise NotImplementedError(
+                "paged serving needs the plain decoder cache layout (no "
+                "dense-prefix layers: the MoE family's cache has "
+                "\"prefix\" caches the engine does not page)")
         # a paged cache starts with every table row at the sink page
         # (the mixer's init_cache fills it so)
         self.cache = mdl.init_cache(cfg, n, max_len, self.device)

@@ -159,10 +159,11 @@ def test_swiglu_sequential_block_and_softcap_match_jax(refs):
     pos = np.broadcast_to(np.arange(N, dtype=np.int32), (B, N))
     jlp = jax.tree.map(lambda a: a[0], jparams["blocks"])
     want, _ = jblk.block_apply(jlp, jcfg, jnp.asarray(x), jnp.asarray(pos))
-    _assert_rel(tblk.block_apply(params["blocks"][0], cfg,
-                                 torch.from_numpy(x),
-                                 torch.from_numpy(pos.copy())),
-                want, "sequential block")
+    got, aux = tblk.block_apply(params["blocks"][0], cfg,
+                                torch.from_numpy(x),
+                                torch.from_numpy(pos.copy()))
+    _assert_rel(got, want, "sequential block")
+    assert float(aux) == 0.0   # a dense FFN has no aux loss
     # the logit softcap, on forward_logits and the last-token logits; the
     # loss does not apply it (as the reference's)
     # (a cap below the smoke logits' largest |value|, ~0.6, so it bends)

@@ -17,6 +17,8 @@ tests/test_torch_gla_q_decode_sm90.py).
     the bodies' geometry, shared memory within the H100's 232,448 bytes
     (one block an SM), chunks that cover [0, N) exactly, each dq, dk and
     dv element written by one block, and the walk's plans as they were;
+    and the walks of all three LA entries at deepseek-v2-236b's (Dk, Dv)
+    = (192, 128);
   * each body's arithmetic, emulated in f32 with the kernel's rounding
     points, against the JAX package's `la_bwd_chunked` at H = 4, N = 300
     (a ragged last chunk), G = 1 and 2, for unit random q and k and for q
@@ -354,6 +356,53 @@ def test_emulated_la_bwd_kv_matches_jax_reference():
             assert np.isfinite(dv.float().numpy()).all()
             assert _rel(dk.float(), want_dk) <= BF16_REL, (hkv, regime)
             assert _rel(dv.float(), want_dv) <= BF16_REL, (hkv, regime)
+
+
+def test_walk_plans_at_mla_head_dims():
+    """deepseek-v2-236b's MLA heads, (Dk, Dv) = (192, 128), H = Hkv = 128
+    and G = 2, in bf16 and f32: every LA entry keeps the token walk.
+    la_fwd one block per (batch, query head) of 8 row groups x 32 column
+    groups of value threads and the normalizer warp (288); la_bwd_q Dk =
+    192 threads; la_bwd_kv its two roles in two blocks per (batch, KV
+    head) of 256 threads (dk's 192 rows, dv's 8 row groups x 32).  The
+    staging fits at 32 tokens; o, g, dq, dk and dv each have one writer.
+    Other pairs, and the gated entries at (192, 128), are refused."""
+    dk, dv = 192, 128
+    for dtype, (h, hkv), n in ((BF16, (128, 128), 1000),
+                               (F32, (128, 128), 65), (BF16, (8, 4), 1)):
+        b = 2
+        q, k = _meta(b, h, n, dk, dtype=dtype), _meta(b, hkv, n, dk,
+                                                      dtype=dtype)
+        v = _meta(b, hkv, n, dv, dtype=dtype)
+        om, h_vec = _meta(b, h, n, dv, dtype=F32), _meta(b, h, n, dtype=F32)
+        assert tkla.la_fwd_body(dtype, dk, dv=dv) == "walk"
+        for entry in ("la_bwd_q", "la_bwd_kv"):
+            assert tkla.la_bwd_body(entry, dtype, dk, dv) == "walk"
+        pf = tkla.plan_la_fwd(q, k, v, 1.0, 1.0)
+        pq = tkla.plan_la_bwd_q(k, v, om, h_vec, 1.0)
+        pkv = tkla.plan_la_bwd_kv(q, k, v, om, h_vec, 1.0, 1.0)
+        assert (pf.grid, pf.threads) == ((b * h, 1, 1), 288)
+        assert pf.smem == LA_STAGE_TOKENS * (2 * 224 + 144 + dv + 1) * 4
+        assert (pq.grid, pq.threads) == ((b * h, 1, 1), dk)
+        assert pq.smem == LA_STAGE_TOKENS * (208 + 2 * 144 + 1) * 4
+        g = h // hkv
+        assert (pkv.grid, pkv.threads) == ((b * hkv, 2, 1), 256)
+        assert pkv.smem == LA_STAGE_TOKENS * ((g + 1) * (224 + 144) + g) * 4
+        for p in (pf, pq, pkv):
+            assert p.stage == p.args[5] == p.plan_args[5] == LA_STAGE_TOKENS
+            assert p.args[-1] == p.plan_args[-1] == dv
+            assert p.smem <= plan.MAX_SMEM
+        for p, names in ((pf, ("o", "g")), (pq, ("dq",)),
+                         (pkv, ("dk", "dv"))):
+            for name in names:
+                assert _written_once(p, name), (p.name, name)
+    k, v = _meta(2, 4, 9, 192), _meta(2, 4, 9, 64)
+    with pytest.raises(ValueError, match="head dim 192 with Dv 64"):
+        tkla.plan_la_fwd(_meta(2, 4, 9, 192), k, v, 1.0, 1.0)
+    v = _meta(2, 4, 9, 128)
+    with pytest.raises(ValueError, match="head dim 192"):
+        tkgla.plan_gla_fwd(_meta(2, 4, 9, 192), k, v, _meta(2, 4, 9), 1.0,
+                           1.0)
 
 
 @pytest.mark.gpu

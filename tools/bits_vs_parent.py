@@ -6,12 +6,14 @@ Builds `ssd_fwd`, `ssd_bwd_q`, `ssd_bwd_kv`, `la_fwd`, `la_bwd_q`,
 `la_bwd_kv`, `gla_fwd`, `gla_bwd_q`, `gla_bwd_kv`, `la_decode_fused`,
 `gla_decode_fused`, `softmax_decode_fused`, `paged_decode_fused` and
 `paged_attention` from this tree's `src/` and from each DIR given, runs
-each on the same bf16 inputs (made from a seed on the card): the SSD
+each on the same inputs (made from a seed on the card): the SSD
 kernels at mamba2-2.7b's training shape (B=2, G=1, H=80, N=8192, Dk=128,
 Dv=64, a fresh layer's decays) and at N=1000, G=4, H=16 under the strong
 U[-5, 0] decays; the LA and GLA kernels at pythia-1.4b's (B=2, H=Hkv=16,
 N=8192, D=128; the trained gate's decays) and at N=1000, G=4 (the strong
-decays); the recurrent decode steps at the serving shape (B=8,
+decays), and their token walks: in f32 at D = 128 and in bf16 at D = 64,
+and the LA kernels alone at D = 112 (bf16 with G = 4, f32); the
+recurrent decode steps at the serving shape (B=8,
 H=Hkv=16, D=128, the trained gate) and at G=4 (the strong decays), each
 from the same f32 state; the softmax decode kernels at the serving shape
 (B=8, H=Hkv=16, D=128, page size 16, 34 table entries per slot into a
@@ -41,9 +43,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 CASES = {"main": (2, 1, 80, 8192, "init"), "n1000_g4": (2, 4, 16, 1000,
                                                        "strong")}
-# the LA and GLA kernels' cases: (B, H, Hkv, N, decay regime)
-LA_CASES = {"la_main": (2, 16, 16, 8192, "trained"),
-            "la_n1000_g4": (2, 16, 4, 1000, "strong")}
+# the LA and GLA kernels' cases: (B, H, Hkv, N, decay regime, D, dtype):
+# the wgmma bodies (bf16 at D = 128), then the token walks (f32, and bf16
+# at D = 64 and 112; no regime: the LA kernels alone, the gated entries
+# do not take 112)
+LA_CASES = {"la_main": (2, 16, 16, 8192, "trained", 128, "bfloat16"),
+            "la_n1000_g4": (2, 16, 4, 1000, "strong", 128, "bfloat16"),
+            "walk_f32": (2, 16, 16, 1000, "trained", 128, "float32"),
+            "walk_d64_bf16": (2, 16, 16, 1000, "strong", 64, "bfloat16"),
+            "walk_d112_g4_bf16": (2, 16, 4, 1000, None, 112, "bfloat16"),
+            "walk_d112_f32": (2, 16, 16, 300, None, 112, "float32")}
 # the decode steps' cases: (B, H, Hkv, decay regime)
 DECODE_CASES = {"decode_main": (8, 16, 16, "trained"),
                 "decode_g4": (8, 16, 4, "strong")}
@@ -78,9 +87,9 @@ def dump(path):
         out[name] = {"ssd_fwd": [ssd.ssd_fwd_cuda(q, k, v, ld).cpu()],
                      "ssd_bwd_q": [ssd.ssd_bwd_q_cuda(k, v, ld, om).cpu()],
                      "ssd_bwd_kv": [dk.cpu(), dv.cpu()]}
-    def unit(*shape):
+    def unit(*shape, dtype=torch.bfloat16):
         x = torch.randn(shape, generator=gen, device="cuda")
-        return (x / x.norm(dim=-1, keepdim=True)).bfloat16()
+        return (x / x.norm(dim=-1, keepdim=True)).to(dtype)
 
     def log_decay(shape, regime):
         """The trained gate's log_sigmoid(N(0, 1) + 6), or U[-5, 0]."""
@@ -89,25 +98,29 @@ def dump(path):
                 torch.randn(shape, generator=gen, device="cuda") + 6.0)
         return -5.0 * torch.rand(shape, generator=gen, device="cuda")
 
-    for name, (b, h, hkv, n, regime) in LA_CASES.items():
-        q, k = unit(b, h, n, 128), unit(b, hkv, n, 128)
-        v = torch.randn((b, hkv, n, 128), generator=gen,
-                        device="cuda").bfloat16()
-        om_hat = torch.randn((b, h, n, 128), generator=gen, device="cuda")
+    for name, (b, h, hkv, n, regime, d, dt) in LA_CASES.items():
+        dt = getattr(torch, dt)
+        q, k = unit(b, h, n, d, dtype=dt), unit(b, hkv, n, d, dtype=dt)
+        v = torch.randn((b, hkv, n, d), generator=gen,
+                        device="cuda").to(dt)
+        om_hat = torch.randn((b, h, n, d), generator=gen, device="cuda")
         h_vec = torch.randn((b, h, n), generator=gen, device="cuda")
-        ld = log_decay((b, hkv, n), regime)
         o, g_ = la.la_fwd_cuda(q, k, v, 1.0, 1.0)
         dk, dv = la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec, 1.0, 1.0)
-        go, gg = gla.gla_fwd_cuda(q, k, v, ld, 1.0, 1.0)
-        gdk, gdva = gla.gla_bwd_kv_cuda(q, k, v, ld, om_hat, h_vec, 1.0, 1.0)
         out[name] = {"la_fwd": [o.cpu(), g_.cpu()],
                      "la_bwd_q": [la.la_bwd_q_cuda(k, v, om_hat, h_vec,
                                                    1.0).cpu()],
-                     "la_bwd_kv": [dk.cpu(), dv.cpu()],
-                     "gla_fwd": [go.cpu(), gg.cpu()],
-                     "gla_bwd_q": [gla.gla_bwd_q_cuda(k, v, ld, om_hat, h_vec,
-                                                      1.0).cpu()],
-                     "gla_bwd_kv": [gdk.cpu(), gdva.cpu()]}
+                     "la_bwd_kv": [dk.cpu(), dv.cpu()]}
+        if regime is None:
+            continue
+        ld = log_decay((b, hkv, n), regime)
+        go, gg = gla.gla_fwd_cuda(q, k, v, ld, 1.0, 1.0)
+        gdk, gdva = gla.gla_bwd_kv_cuda(q, k, v, ld, om_hat, h_vec, 1.0, 1.0)
+        out[name].update({
+            "gla_fwd": [go.cpu(), gg.cpu()],
+            "gla_bwd_q": [gla.gla_bwd_q_cuda(k, v, ld, om_hat, h_vec,
+                                             1.0).cpu()],
+            "gla_bwd_kv": [gdk.cpu(), gdva.cpu()]})
     for name, (b, h, hkv, regime) in DECODE_CASES.items():
         s = torch.randn((b, hkv, 128, 129), generator=gen, device="cuda")
         p = torch.randn((b, hkv, 129), generator=gen,
