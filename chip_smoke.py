@@ -69,8 +69,8 @@ fails the run by raising (no result line is printed then):
                S and P must be the bits of the elementwise fmaf update,
                and two launches of the bf16 main case bit-equal);
                gla_fwd, gla_bwd_q and gla_bwd_kv at the training shapes,
-               odd N=1000 and G=4, bf16 and f32 (o, g, dq, dk, dv and
-               dld; every bf16 case runs the gated chunked wgmma bodies
+               odd N=1000 and G=4, bf16 and f32 (o, g, dq, dk, dv, and
+               dld against a float64 backward; every bf16 case runs the gated chunked wgmma bodies
                of all three, every f32 case their token walks, asserted
                from the C plan exports; a second launch of each in the
                bf16 main case must give bit-equal o, g, dq, dk and dV');
@@ -96,9 +96,12 @@ fails the run by raising (no result line is printed then):
                at D = 128), at D = 64 and 112 (the token walks, bf16
                and f32, GQA at 112) and at deepseek-v2-236b's MLA heads,
                (Dk, Dv) = (192, 128), H = Hkv = 128 (the token walks,
-               bf16 at N = 8192 and 1000, f32 at 1000), la_decode_fused
-               at G = 48, at D = 112 and at (192, 128) with 128 heads
-               (the stream, bf16 and f32 with a zero normalizer), the
+               bf16 at N = 8192 and 1000, f32 at 1000), at qwen2-vl-7b's
+               G = 7 (the wgmma bodies, N = 8192 and 1000) and at
+               whisper's decoder (H = 20, D = 64, N = 448, the walks),
+               la_decode_fused at G = 7, G = 48, at D = 64 (whisper), 112
+               and at (192, 128) with 128 heads (the stream, bf16 and f32
+               with a zero normalizer), gla_decode_fused at G = 7, the
                SSD kernels at zamba2-7b's (64, 64) (the token walks, bf16
                and f32, both decay regimes, G = 4)
   4. serve   — the Engine at full width pythia-1.4b in bf16, once with the
@@ -152,14 +155,18 @@ fails the run by raising (no result line is printed then):
                snapshot and one restore per policy, and the urgent
                requests' TTFT against a run with them at priority 0 (FIFO)
   4c. archs  — qwen2.5-3b, stablelm-1.6b, chatglm3-6b, granite-20b
-               (bf16 params: 28.2 B of them) and zamba2-7b at full width
-               and depth with their preset linear backend: 4 requests of
-               256 random prompt tokens, 16 new, greedy, every decode step
-               through la_decode_fused (one launch per attention block:
-               zamba2's shared block once per group); the decode step
-               timed and profiled, and 4 decode steps' logits on the
-               kernel path against the plain path; then the smoke configs
-               of all seven architectures on the card against the CPU
+               (bf16 params: 28.2 B of them), zamba2-7b and qwen2-vl-7b
+               (f32 params, 7.6 B; M-RoPE) at full width and depth with
+               their preset linear backend: 4 requests of 256 random
+               prompt tokens, 16 new, greedy, every decode step through
+               la_decode_fused (one launch per attention block: zamba2's
+               shared block once per group); the decode step timed and
+               profiled, and 4 decode steps' logits on the kernel path
+               against the plain path; qwen2-vl-7b also `model.prefill`
+               on an image of (1, 16, 16) patches then 64 text tokens and
+               16 decode steps (rope_pos lags the token count by 255);
+               then the smoke configs of all ten architectures on the
+               card against the CPU
   4d. moe    — moonshot-v1-16b-a3b at full width and depth (bf16 params,
                28.4 B, the f32 routers kept) and deepseek-v2-236b at full
                width and 8 of 60 layers (1 dense + 7 MoE, bf16 params,
@@ -169,6 +176,16 @@ fails the run by raising (no result line is printed then):
                cache (a token near a tie of router scores takes other
                experts on the two paths, and the states keep it); both
                smoke configs on the card against the CPU
+  4e. encdec — whisper-large-v3 at full width and depth through
+               `models/model.py` (the engine refuses the family, as the
+               reference's does; f32 params, the bf16 compute copy): 4
+               clips of 1500 stub frames of 1280, its 4-token
+               start-of-transcript prompt, 64 new tokens greedy, one
+               prefill (the encoder and each decoder layer's
+               cross-attention state) and 63 decode steps, each through
+               la_decode_fused once per decoder layer (D = 64); the
+               decode step timed and profiled, 4 decode steps' logits on
+               the kernel path against the plain path
   5. train   — full width pythia-1.4b (f32 params, bf16 compute, the
                config's remat) on SyntheticLM batches of 2 x 8192 tokens
                (seed 0), once per backend (linear, softmax, gla), and
@@ -188,10 +205,11 @@ fails the run by raising (no result line is printed then):
                ssd_bwd_q and ssd_bwd_kv 64 times each); step time,
                tokens/s, peak memory, and one more step under
                torch.profiler
-  5b. archs  — the five other architectures 3 steps each of 2 x 8192
+  5b. archs  — the six other architectures 3 steps each of 2 x 8192
                tokens at full width (chatglm3-6b 8 of 28 layers,
-               granite-20b 3 of 52, zamba2-7b 2 of 13 groups: f32 AdamW
-               needs 16 B a param), launching la_fwd twice and la_bwd_q /
+               granite-20b 3 of 52, zamba2-7b 2 of 13 groups, qwen2-vl-7b
+               6 of 28 with stub M-RoPE positions: f32 AdamW needs 16 B a
+               param), launching la_fwd twice and la_bwd_q /
                la_bwd_kv once per attention block and step (zamba2 also
                the SSD kernels: 3gm + 2t forwards, gm + t backwards, remat
                per block inside remat per group); step time, tokens/s,
@@ -205,6 +223,13 @@ fails the run by raising (no result line is printed then):
                no depth of it trains with f32 AdamW on one card); an MoE
                forward at full width and 2 x 8192 tokens run twice for
                bit-equal routing, output and aux (remat recomputes it)
+  5d. encdec — whisper-large-v3 at full depth, 3 steps of 16 clips of
+               1500 stub frames with decoder sequences of 448 tokens (the
+               decoder's self-attention: la_fwd twice, la_bwd_q and
+               la_bwd_kv once per decoder layer; the encoder and the
+               cross-attention are the plain non-causal form, as the
+               reference keeps them on XLA), its step 0 first at 2
+               encoder and 2 decoder layers in both legs
   6. timing  — each kernel and its plain version with CUDA events at the
                main paths' shapes, in turns, beside the kernel's bound and,
                where one PyTorch call computes the same function (SDPA for
@@ -234,7 +259,8 @@ fails the run by raising (no result line is printed then):
                fixture at n = 2^24 f32, block 256; and the other
                architectures' shapes (`phase_timing_arch`): the LA
                training kernels at each arch's (H, Hkv, D) and at
-               deepseek-v2's (128, 128, 192, 128), la_decode_fused at each
+               deepseek-v2's (128, 128, 192, 128) (whisper's at its train
+               shape, B = 16, N = 448), la_decode_fused at each
                arch's serving shape by graph replays in turns with the
                pythia shape's, the SSD kernels at (64, 64)
   7. result  — a JSON line with every measurement, the card's line, a
@@ -340,7 +366,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8192, 4
 # TRAIN_SEQ tokens of SyntheticLM, at full depth where f32 params, grads
 # and AdamW moments (16 B a param) fit the card, else at the depth below
 ARCHS = ("qwen2.5-3b", "stablelm-1.6b", "chatglm3-6b", "granite-20b",
-         "zamba2-7b")
+         "zamba2-7b", "qwen2-vl-7b")
 ARCH_SLOTS, ARCH_PROMPT, ARCH_NEW, ARCH_TRAIN_STEPS = 4, 256, 16, 3
 ARCH_SERVE_PARAMS = {"granite-20b": "bfloat16",
                      "moonshot-v1-16b-a3b": "bfloat16",
@@ -355,19 +381,39 @@ ARCH_SERVE_PARAMS = {"granite-20b": "bfloat16",
 # comparison (2 of its layers are 5.36 B params, ~86 GB under f32 AdamW),
 # whose grads go to the host between the legs
 MOE_ARCHS = ("moonshot-v1-16b-a3b", "deepseek-v2-236b")
+# whisper-large-v3 (phases 4e and 5d; the engine refuses the
+# encoder-decoder, as the reference's does): served at full width and
+# depth through `models/model.py` (f32 params, the bf16 compute copy):
+# ENCDEC_SLOTS clips of its 1500 stub frames of 1280, its 4-token
+# start-of-transcript prompt, ENCDEC_NEW new tokens greedy; trained at
+# full depth (1.53 B params, ~25 GB of params, grads and moments) on
+# ENCDEC_TRAIN_BATCH clips with decoder sequences of its 448-token text
+# context
+ENCDEC = "whisper-large-v3"
+ENCDEC_SLOTS, ENCDEC_NEW = 4, 64
+# <|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|>
+ENCDEC_PROMPT = (50258, 50259, 50360, 50364)
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 16, 448
+# qwen2-vl-7b's mixed prefill (phase 4c): an image of VLM_GRID patches
+# (t, h, w), then VLM_TEXT text tokens, then VLM_DECODE decode steps: its
+# rope position lags the token count by the grid's patches but one
+VLM_GRID, VLM_TEXT, VLM_DECODE = (1, 16, 16), 64, 16
 # the archs whose attention shapes phase_timing_arch times: moonshot's is
 # pythia's (H = Hkv = 16, D = 128), whose rows phase_timing_la times
-TIMED_ARCHS = ARCHS + ("deepseek-v2-236b",)
+TIMED_ARCHS = ARCHS + ("deepseek-v2-236b", ENCDEC)
+# the LA training kernels' timing shape (B, N) where it is not LA_SHAPE's
+LA_TIMING_BN = {ENCDEC: (ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ)}
 ARCH_SERVE_DEPTH = {"deepseek-v2-236b": dict(num_layers=8)}
 COMPARE_ONLY = ("deepseek-v2-236b",)
 # depth cuts of the train runs: chatglm3-6b 28 -> 8 layers, granite-20b
 # 52 -> 3, zamba2-7b 13 -> 2 groups of 6 Mamba-2 blocks (the tail of 3
-# and the shared block kept): 2.17 B, 2.20 B and 1.60 B params, ~35, ~35
-# and ~26 GB of params, grads and moments
+# and the shared block kept), qwen2-vl-7b 28 -> 6: 2.17 B, 2.20 B, 1.60 B
+# and 2.49 B params, ~35, ~35, ~26 and ~40 GB of params, grads and moments
 ARCH_TRAIN_DEPTH = {"chatglm3-6b": dict(num_layers=8),
                     "granite-20b": dict(num_layers=3),
                     "zamba2-7b": dict(num_layers=15, hybrid_groups=2),
-                    "moonshot-v1-16b-a3b": dict(num_layers=4)}
+                    "moonshot-v1-16b-a3b": dict(num_layers=4),
+                    "qwen2-vl-7b": dict(num_layers=6)}
 # depth of the step-0 comparison before each train run: kernel path
 # against plain path, the loss and every grad in bf16 and in f32 compute
 # (`_train_legs`), at full width: the dense stacks at 2 layers (the GQA
@@ -382,21 +428,27 @@ ARCH_TRAIN_DEPTH = {"chatglm3-6b": dict(num_layers=8),
 # family's: a token near a tie of router scores takes other experts on two
 # paths, so the routed experts' grads move by up to 5 % of their max
 # |value| between two plain runs that differ only in the scan chunk
-# (moonshot, 2 layers; PERF.md, §6)
+# (moonshot, 2 layers; PERF.md, §6); whisper-large-v3 at 2 encoder and 2
+# decoder layers, held per leaf as the dense stacks are
 ARCH_COMPARE_DEPTH = {
     **{arch: dict(num_layers=2) for arch in ARCHS + MOE_ARCHS
        if arch != "zamba2-7b"},
     "zamba2-7b": dict(num_layers=3, hybrid_groups=2,
-                      hybrid_mamba_per_group=1, hybrid_tail=1)}
+                      hybrid_mamba_per_group=1, hybrid_tail=1),
+    ENCDEC: dict(num_layers=2, encoder_layers=2)}
+# the families whose bf16 step-0 leg is held per leaf (`_train_legs`)
+PER_LEAF_FAMILIES = ("dense", "vlm", "encdec")
 LA_SHAPE = dict(b=2, h=16, hkv=16, n=8192, d=128)
 # the new architectures' attention shapes (H, Hkv, D) and the LA kernel
 # cases at them (label, arch, N, dtype): GQA through the wgmma bodies at
-# G = 8, 16 and 48, the token walks at D = 64 and 112 (zamba2-7b's shared
-# attention, 3584 / 32), with GQA at 112 too
+# G = 7 (qwen2-vl-7b), 8, 16 and 48, the token walks at D = 64 (stablelm,
+# and whisper's decoder at its 448-token text context) and 112 (zamba2-7b's
+# shared attention, 3584 / 32), with GQA at 112 too
 LA_ARCH_SHAPES = {"qwen2.5-3b": (16, 2, 128), "stablelm-1.6b": (32, 32, 64),
                   "chatglm3-6b": (32, 2, 128), "granite-20b": (48, 1, 128),
                   "zamba2-7b": (32, 32, 112), "zamba2-7b-gqa": (32, 8, 112),
                   "moonshot-v1-16b-a3b": (16, 16, 128),
+                  "qwen2-vl-7b": (28, 4, 128), ENCDEC: (20, 20, 64),
                   # MLA: (H, Hkv, Dk, Dv), q and k nope 128 + rope 64
                   "deepseek-v2-236b": (128, 128, 192, 128)}
 LA_ARCH_CASES = (
@@ -412,7 +464,10 @@ LA_ARCH_CASES = (
     ("d112_gqa_odd_n_bf16", "zamba2-7b-gqa", 1000, "bfloat16"),
     ("mla_bf16", "deepseek-v2-236b", 8192, "bfloat16"),
     ("mla_odd_n_f32", "deepseek-v2-236b", 1000, "float32"),
-    ("mla_odd_n_bf16", "deepseek-v2-236b", 1000, "bfloat16"))
+    ("mla_odd_n_bf16", "deepseek-v2-236b", 1000, "bfloat16"),
+    ("gqa7_bf16", "qwen2-vl-7b", 8192, "bfloat16"),
+    ("gqa7_odd_n_bf16", "qwen2-vl-7b", 1000, "bfloat16"),
+    ("whisper_d64_bf16", ENCDEC, ENCDEC_TRAIN_SEQ, "bfloat16"))
 
 
 def _la_arch_shape(arch):
@@ -455,7 +510,9 @@ SEQ_F32_REL = 1e-4
 # tokens of dcl = -[v, 1].dV', held to the magnitude of those sums: the
 # plain scans form each decay as exp of a difference of a chunk's cumsum
 # of log decays, which under strong decay reaches ~-1,300 within 512
-# tokens, where one float32 ulp is 1.2e-4, and dld sums those errors
+# tokens, where one float32 ulp is 1.2e-4, and dld sums those errors.
+# The kernel's dld and the plain version's are each held against a
+# float64 backward (`_gla_dld_f64`), not against each other
 DLD_REL = 1e-3
 # at log_decay = 0 the gated kernels run the linear kernels' arithmetic
 # with every decay factor exactly 1: within a few float32 ulps
@@ -713,11 +770,12 @@ WALK_DK, WALK_DV = 30, 32
 
 def phase_kernel(torch):
     """la_decode_fused against its plain version; every D = 128 case runs
-    the state stream, and so do granite-20b's group of 48 query heads on
-    one KV head and zamba2-7b's head dim 112 (at 4 slots, the serving
-    runs'), the walk cases (Dk = 30, Dv = 32) the column walk (from the C
-    plan export); S and P are the bits of the elementwise fmaf update,
-    and the bf16 main case launches twice for bit-equal o, S and P."""
+    the state stream, and so do qwen2-vl-7b's group of 7 and granite-20b's
+    of 48 query heads a KV head, zamba2-7b's head dim 112 and whisper's 64
+    (at 4 slots, the serving runs'), the walk cases (Dk = 30, Dv = 32) the
+    column walk (from the C plan export); S and P are the bits of the
+    elementwise fmaf update, and the bf16 main case launches twice for
+    bit-equal o, S and P."""
     from repro_torch.kernels import decode_fused as df
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -738,7 +796,13 @@ def phase_kernel(torch):
              # per (slot, head), 128 heads, G = 1
              ("mla_bf16", ARCH_SLOTS, 128, 128, 192, 128, bf16, False),
              ("mla_zero_den_f32", ARCH_SLOTS, 128, 128, 192, 128, f32,
-              True)]
+              True),
+             # qwen2-vl-7b: 28 query heads on 4 KV heads, an odd group
+             ("gqa7_bf16", ARCH_SLOTS, 28, 4, 128, None, bf16, False),
+             ("gqa7_zero_den_f32", ARCH_SLOTS, 28, 4, 128, None, f32, True),
+             # whisper-large-v3's decoder: 20 heads of 64
+             ("whisper_d64_bf16", ENCDEC_SLOTS, 20, 20, 64, None, bf16,
+              False)]
     errs = {}
     for label, b, h, hkv, d, dv, dtype, zero_den in cases:
         s, p, q, k, v = _decode_case(torch, gen, b, h, hkv, d, dtype,
@@ -1253,6 +1317,35 @@ def _gla_decode_state(torch, s, p, k, v, ld):
     return s_new, _fma_f32(torch, gam[..., None].expand_as(p), p, vaug)
 
 
+def _gla_dld_f64(torch, q, k, v, ld, om_hat, h_vec):
+    """dlog_decay of the plain GLA backward (a = b = 1) in float64, by the
+    token recurrence of its definition: U_n = γ_{n+1} U_{n+1} + Σ_g
+    [q_n, 1]^T [Ω̂_n, -h_n] (Dk+1, Dv+1), dV'_n = k_n U_n[:Dk] + U_n[Dk],
+    dcl_n = -[v_n, 1] . dV'_n, dld_t = Σ_{n >= t} dcl_n.  It shares
+    neither the kernel's nor the chunked scan's sum order or precision."""
+    f64, dev = torch.float64, q.device
+    b, h, n, dk = q.shape
+    hkv, dv = k.shape[1], v.shape[-1]
+    grp = h // hkv
+    qa = torch.cat([q.to(f64), torch.ones((b, h, n, 1), dtype=f64,
+                                          device=dev)], -1)
+    qa = qa.reshape(b, hkv, grp, n, dk + 1)
+    gm = torch.cat([om_hat.to(f64), -h_vec.to(f64)[..., None]], -1)
+    gm = gm.reshape(b, hkv, grp, n, dv + 1)
+    kk, gam = k.to(f64), torch.exp(ld.to(f64))
+    u = torch.zeros((b, hkv, dk + 1, dv + 1), dtype=f64, device=dev)
+    dva = torch.empty((b, hkv, n, dv + 1), dtype=f64, device=dev)
+    for i in reversed(range(n)):
+        if i + 1 < n:
+            u = u * gam[:, :, i + 1, None, None]
+        u = u + torch.einsum("bhgc,bhge->bhce", qa[:, :, :, i],
+                             gm[:, :, :, i])
+        dva[:, :, i] = (torch.einsum("bhd,bhde->bhe", kk[:, :, i],
+                                     u[:, :, :dk]) + u[:, :, dk])
+    dcl = -((v.to(f64) * dva[..., :dv]).sum(-1) + dva[..., dv])
+    return torch.flip(torch.cumsum(torch.flip(dcl, [-1]), -1), [-1])
+
+
 def phase_kernel_gla(torch):
     """gla_decode_fused, gla_fwd, gla_bwd_q and gla_bwd_kv against their
     plain versions, under both decay regimes; at log_decay = 0 against
@@ -1273,18 +1366,20 @@ def phase_kernel_gla(torch):
     gen.manual_seed(11)
     bf16, f32 = torch.bfloat16, torch.float32
     errs = {}
-    for label, hkv, d, dv, dtype, regime in (
-            ("decode_main_bf16", 16, 128, None, bf16, "trained"),
-            ("decode_main_f32_strong", 16, 128, None, f32, "strong"),
-            ("decode_main_bf16_strong", 16, 128, None, bf16, "strong"),
-            ("decode_gqa_bf16_strong", 4, 128, None, bf16, "strong"),
-            ("decode_gqa_f32", 4, 128, None, f32, "trained"),
-            ("decode_walk_gqa_bf16_strong", 4, WALK_DK, WALK_DV, bf16,
+    for label, h, hkv, d, dv, dtype, regime in (
+            ("decode_main_bf16", 16, 16, 128, None, bf16, "trained"),
+            ("decode_main_f32_strong", 16, 16, 128, None, f32, "strong"),
+            ("decode_main_bf16_strong", 16, 16, 128, None, bf16, "strong"),
+            ("decode_gqa_bf16_strong", 16, 4, 128, None, bf16, "strong"),
+            ("decode_gqa_f32", 16, 4, 128, None, f32, "trained"),
+            # the gated instance of qwen2-vl-7b's group of 7
+            ("decode_gqa7_bf16_strong", 28, 4, 128, None, bf16, "strong"),
+            ("decode_walk_gqa_bf16_strong", 16, 4, WALK_DK, WALK_DV, bf16,
              "strong"),
-            ("decode_walk_f32", 16, WALK_DK, WALK_DV, f32, "trained")):
-        b, h = SLOTS, 16
-        s, p, q, k, v, ld = _gla_decode_case(torch, gen, b, h, hkv, d, dtype,
-                                             regime, dv)
+            ("decode_walk_f32", 16, 16, WALK_DK, WALK_DV, f32, "trained")):
+        b = SLOTS
+        s, p, q, k, v, ld = _gla_decode_case(
+            torch, gen, b, h, hkv, d, dtype, regime, dv)
         body = _recurrent_decode_body(s, p, q, k, v, ld)[0]
         expect = "stream" if dv is None else "walk"
         if body != expect:
@@ -1388,7 +1483,14 @@ def phase_kernel_gla(torch):
             check_close(f"gla {label} dv", dv_k, dv_t, rel),
             check_close(f"gla {label} dV' (f32)", dva_k, dva_t,
                         SEQ_F32_REL))
-        e["dld"] = check_close(f"gla {label} dld", dld_k, dld_t, DLD_REL)
+        # dld against a float64 backward, the kernel's and the plain
+        # version's each on its own: the two f32 paths round the long
+        # sums in different orders, and their difference sums both errors
+        dld_64 = _gla_dld_f64(torch, q, k, v, ld, om_hat, h_vec)
+        e["dld"] = check_close(f"gla {label} dld (vs float64)", dld_k,
+                               dld_64, DLD_REL)
+        check_close(f"gla {label} plain dld (vs float64)", dld_t, dld_64,
+                    DLD_REL)
         for name, t in (("o", o_k), ("dq", dq_k), ("dk", dk_k),
                         ("dv", dv_k)):
             if t.dtype != dtype or not torch.isfinite(t).all():
@@ -1398,7 +1500,7 @@ def phase_kernel_gla(torch):
             raise AssertionError(f"gla {label}: non-finite dld")
         errs[label] = e
         del q, k, v, ld, om_hat, h_vec, o_k, g_k, dq_k, dk_k, dva_k, o_t, \
-            g_t, dq_t, dk_t, dva_t, dv_k, dld_k, dv_t, dld_t
+            g_t, dq_t, dk_t, dva_t, dv_k, dld_k, dv_t, dld_t, dld_64
         torch.cuda.empty_cache()
 
     # log_decay = 0: each gated kernel against its linear counterpart, f32
@@ -2517,9 +2619,12 @@ def phase_serve_preempt(torch, np, baselines, smi):
 
 def phase_smoke_reference(torch, arch="pythia-1.4b"):
     """The smoke config of `arch` on the card (kernel path) against the
-    same weights on the CPU (plain path): prefill + 4 decode steps; for
-    mamba2 also the loss and every grad (the SSD kernels at their smoke
-    instantiation, Dk = 16, Dv = 32)."""
+    same weights on the CPU (plain path): prefill + 4 decode steps (under
+    M-RoPE the prompt a (1, 3, 3) image then text; the encoder-decoder's
+    prefill with stub frames); for mamba2 also the loss and every grad
+    (the SSD kernels at their smoke instantiation, Dk = 16, Dv = 32)."""
+    from repro_torch.models.frontends import audio_frames_stub, \
+        vision_positions_stub
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model as mdl
     from repro_torch.tree import named_leaves
@@ -2537,12 +2642,20 @@ def phase_smoke_reference(torch, arch="pythia-1.4b"):
     p_gpu = to(p_cpu, "cuda")
     gen = torch.Generator().manual_seed(1)
     tokens = torch.randint(3, cfg.vocab_size, (3, 17), generator=gen)
+    extra = {}
+    if cfg.rope_kind == "mrope":
+        extra["positions"] = vision_positions_stub(3, 13, (1, 3, 3))
+    if cfg.family == "encdec":
+        extra["frames"] = audio_frames_stub(gen, 3, cfg.encoder_seq,
+                                            cfg.d_model)
     errs = []
     runs = {}
     for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
         cache = mdl.init_cache(cfg, 3, 32, dev)
         lg, cache = mdl.prefill(params, cfg,
-                                {"tokens": tokens[:, :13].to(dev)}, cache)
+                                {"tokens": tokens[:, :13].to(dev),
+                                 **{k: v.to(dev) for k, v in extra.items()}},
+                                cache)
         out = [lg]
         for i in range(13, 17):
             lg, cache = mdl.decode_step(params, cfg, cache,
@@ -2915,6 +3028,69 @@ def _head_dims(cfg):
     return cfg.resolved_head_dim, cfg.resolved_head_dim
 
 
+def _vlm_mixed(torch, mdl, params, cfg):
+    """qwen2-vl-7b's `model.prefill` on a mixed stream, ARCH_SLOTS
+    sequences of an image of VLM_GRID patches (positions from
+    `vision_positions_stub`) then VLM_TEXT text tokens, and VLM_DECODE
+    greedy decode steps through la_decode_fused, the first COMPARE_STEPS
+    beside the plain path from a copy of the prefilled cache; rope_pos
+    lags the token count by the patches but one.  Returns (record, the
+    run's launches)."""
+    from repro_torch.models.frontends import vision_positions_stub
+    n_img = math.prod(VLM_GRID)
+    n = n_img + VLM_TEXT
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    tokens = torch.randint(3, cfg.vocab_size, (ARCH_SLOTS, n), generator=gen,
+                           device="cuda")
+    positions = vision_positions_stub(ARCH_SLOTS, n, VLM_GRID, "cuda")
+    cfg_k, cfg_t = _with_impl(cfg, "cuda"), _with_impl(cfg, "torch")
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = mdl.prefill(params, cfg_k, {"tokens": tokens,
+                                                "positions": positions},
+                                mdl.init_cache(cfg, ARCH_SLOTS,
+                                               n + VLM_DECODE, "cuda"))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    rope0 = cache["rope_pos"].tolist()
+    if rope0 != [VLM_TEXT + 1] * ARCH_SLOTS or \
+            cache["pos"].tolist() != [n] * ARCH_SLOTS:
+        raise AssertionError(f"mixed prefill: rope_pos {rope0}, pos "
+                             f"{cache['pos'].tolist()}")
+    cache_t = _clone_tree(cache)
+    errs, toks = [], []
+    for i in range(VLM_DECODE):
+        tok = logits.argmax(-1)
+        toks.append(tok.tolist())
+        logits, cache = mdl.decode_step(params, cfg_k, cache, tok)
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"mixed decode step {i}: non-finite logits")
+        if i < COMPARE_STEPS:
+            lt, cache_t = mdl.decode_step(params, cfg_t, cache_t, tok)
+            errs.append(check_close(f"qwen2-vl-7b mixed decode step {i} "
+                                    f"logits (cuda vs torch)", logits, lt,
+                                    LOGITS_REL))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expect_launches("qwen2-vl-7b mixed image+text stream", launches,
+                    {"la_decode_fused": cfg.num_layers * VLM_DECODE})
+    rope1 = cache["rope_pos"].tolist()
+    if rope1 != [VLM_TEXT + 1 + VLM_DECODE] * ARCH_SLOTS:
+        raise AssertionError(f"mixed decode: rope_pos {rope1}")
+    log(f"[serve qwen2-vl-7b mixed] {ARCH_SLOTS} x ({n_img} image patches "
+        f"{VLM_GRID} + {VLM_TEXT} text): prefill {prefill_s!r} s, rope_pos "
+        f"{rope0[0]} at pos {n} -> {rope1[0]} after {VLM_DECODE} decode "
+        f"steps; launches {launches}")
+    del cache, cache_t
+    return {"grid": list(VLM_GRID), "image_patches": n_img,
+            "text_tokens": VLM_TEXT, "decode_steps": VLM_DECODE,
+            "prefill_s": prefill_s, "rope_pos_after_prefill": rope0[0],
+            "pos_after_prefill": n, "rope_pos_after_decode": rope1[0],
+            "tokens": toks, "kernel_launches": launches,
+            "logits_max_abs_err": errs}, launches
+
+
 def phase_arch_serve(torch, np, arch):
     """The engine at full width and depth (deepseek-v2-236b at
     ARCH_SERVE_DEPTH's) with `arch`'s preset (linear) backend, bf16
@@ -2923,8 +3099,10 @@ def phase_arch_serve(torch, np, arch):
     ARCH_NEW new, greedy; every decode step through la_decode_fused (one
     launch per attention block); the steady decode step (events, host
     clock, profile) and the first decode steps' logits, kernel path
-    against plain path, from one cloned prefilled cache.  Returns (record,
-    the run's launches)."""
+    against plain path, from one cloned prefilled cache (under M-RoPE text
+    positions, as the engine gives); qwen2-vl-7b also its mixed
+    image+text stream (`_vlm_mixed`).  Returns (record, the run's
+    launches)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model as mdl
     from repro_torch.serve.engine import Engine, Request
@@ -2986,8 +3164,12 @@ def phase_arch_serve(torch, np, arch):
     peak = torch.cuda.max_memory_allocated()
 
     prompt_t = torch.from_numpy(prompts).to("cuda")
-    logits, cache0 = mdl.prefill(engine.params, engine.cfg,
-                                 {"tokens": prompt_t},
+    batch = {"tokens": prompt_t}
+    if cfg.rope_kind == "mrope":
+        batch["positions"] = torch.arange(
+            ARCH_PROMPT, dtype=torch.int32,
+            device="cuda")[None, None].expand(3, ARCH_SLOTS, ARCH_PROMPT)
+    logits, cache0 = mdl.prefill(engine.params, engine.cfg, batch,
                                  mdl.init_cache(cfg, ARCH_SLOTS, max_len,
                                                 "cuda"))
     tok = logits.argmax(-1)
@@ -3014,6 +3196,11 @@ def phase_arch_serve(torch, np, arch):
                                       f"{', same cache' if resync else ''})",
                                       lk, lt, LOGITS_REL))
         tok = lk.argmax(-1)
+    del cache_k, cache_t
+    mixed = None
+    if cfg.rope_kind == "mrope":
+        mixed, mixed_l = _vlm_mixed(torch, mdl, engine.params, engine.cfg)
+        launches = {k: v + mixed_l[k] for k, v in launches.items()}
     ttft = [first[r] for r in range(ARCH_SLOTS)]
     record = {
         "arch": cfg.name, "params": n_params,
@@ -3039,8 +3226,117 @@ def phase_arch_serve(torch, np, arch):
         "max_memory_allocated_bytes": peak,
         "logits_max_abs_err": logit_errs,
         "logits_compared_from_same_cache_each_step": resync,
+        "mixed_image_text": mixed,
     }
-    del engine, cache_k, cache_t
+    del engine
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+def phase_encdec_serve(torch):
+    """whisper-large-v3 at full width and depth through `models/model.py`
+    (the engine refuses the encoder-decoder, as the reference's does):
+    f32 params and their bf16 compute copy (`compute_params`, as the
+    engine makes it), ENCDEC_SLOTS clips of 1500 stub frames
+    (`audio_frames_stub`), the 4-token start-of-transcript prompt; one
+    prefill (the encoder, each decoder layer's cross-attention state, the
+    prompt) and ENCDEC_NEW - 1 greedy decode steps, each through
+    la_decode_fused once per decoder layer; the steady decode step
+    (events, host clock, profile) and the first decode steps' logits,
+    kernel path against plain path, from one cloned prefilled cache.
+    Returns (record, the run's launches)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as mdl
+    from repro_torch.models.frontends import audio_frames_stub
+    from repro_torch.tree import leaves
+
+    cfg = get_config(ENCDEC)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = mdl.init_params(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in leaves(params))
+    cparams = mdl.compute_params(params, cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    frames = audio_frames_stub(gen, ENCDEC_SLOTS, cfg.encoder_seq,
+                               cfg.d_model)
+    prompt = torch.tensor([ENCDEC_PROMPT] * ENCDEC_SLOTS, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    max_len = len(ENCDEC_PROMPT) + ENCDEC_NEW
+    reset_launches()
+    t_start = time.perf_counter()
+    logits, cache = mdl.prefill(cparams, cfg, {"tokens": prompt,
+                                               "frames": frames},
+                                mdl.init_cache(cfg, ENCDEC_SLOTS, max_len,
+                                               "cuda"))
+    tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t_start
+    prefilled = _clone_tree(cache)
+    generated = [tok.tolist()]
+    for _ in range(ENCDEC_NEW - 1):
+        logits, cache = mdl.decode_step(cparams, cfg, cache, tok)
+        tok = logits.argmax(-1)
+        generated.append(tok.tolist())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = read_launches()
+    steps = ENCDEC_NEW - 1
+    log(f"[serve {ENCDEC}] {n_params} f32 params (bf16 compute copy): "
+        f"{ENCDEC_SLOTS} clips x {cfg.encoder_seq} frames, prompt "
+        f"{ENCDEC_PROMPT}, {ENCDEC_NEW} new: TTFT {ttft!r} s, wall {wall!r} "
+        f"s, launches {launches}")
+    expect_launches(f"serve {ENCDEC}", launches,
+                    {"la_decode_fused": cfg.num_layers * steps})
+    toks = list(zip(*generated))
+    if not all(len(t) == ENCDEC_NEW and all(0 <= x < cfg.vocab_size
+                                              for x in t) for t in toks):
+        raise AssertionError(f"{ENCDEC} generated {toks}")
+    if cache["pos"].tolist() != [max_len - 1] * ENCDEC_SLOTS:
+        raise AssertionError(f"{ENCDEC} pos {cache['pos'].tolist()}")
+    for i, cs in enumerate(prefilled["cross"]):
+        hd = cfg.resolved_head_dim
+        if tuple(cs.s.shape) != (ENCDEC_SLOTS, cfg.num_kv_heads, hd,
+                                 hd + 1) \
+                or not torch.isfinite(cs.s).all() \
+                or not torch.allclose(cs.p[..., -1], torch.full_like(
+                    cs.p[..., -1], float(cfg.encoder_seq))):
+            raise AssertionError(f"{ENCDEC} layer {i} cross state")
+    step_dev_ms, step_host_ms, profile = _steady_decode(
+        torch, mdl, cparams, cfg, cache, tok, f"decode step ({ENCDEC})")
+    peak = torch.cuda.max_memory_allocated()
+    del cache
+    tok = torch.tensor(generated[0], device="cuda")
+    cache_k, cache_t = prefilled, _clone_tree(prefilled)
+    cfg_k, cfg_t = _with_impl(cfg, "cuda"), _with_impl(cfg, "torch")
+    logit_errs = []
+    for i in range(COMPARE_STEPS):
+        lk, cache_k = mdl.decode_step(cparams, cfg_k, cache_k, tok)
+        lt, cache_t = mdl.decode_step(cparams, cfg_t, cache_t, tok)
+        logit_errs.append(check_close(f"full-width {ENCDEC} decode step {i} "
+                                      f"logits (cuda vs torch)", lk, lt,
+                                      LOGITS_REL))
+        tok = lk.argmax(-1)
+    record = {
+        "arch": cfg.name, "params": n_params, "param_dtype": cfg.param_dtype,
+        "compute_dtype": cfg.compute_dtype,
+        "encoder_layers": cfg.encoder_layers, "decoder_layers":
+        cfg.num_layers, "full_depth_params": cfg.param_count(),
+        "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+        "head_dim": cfg.resolved_head_dim, "slots": ENCDEC_SLOTS,
+        "frames": cfg.encoder_seq, "prompt": list(ENCDEC_PROMPT),
+        "max_new": ENCDEC_NEW, "decode_steps": steps,
+        "kernel_launches": launches, "wall_s": wall, "init_s": init_s,
+        "ttft_s": ttft,
+        "generated_tokens_per_s": ENCDEC_SLOTS * ENCDEC_NEW / wall,
+        "decode_step_ms_device": step_dev_ms,
+        "decode_step_ms_host": step_host_ms,
+        "decode_step_profile": profile,
+        "max_memory_allocated_bytes": peak,
+        "logits_max_abs_err": logit_errs, "tokens": toks}
+    del params, cparams, cache_k, cache_t, prefilled, frames
     torch.cuda.empty_cache()
     return record, launches
 
@@ -3079,7 +3375,11 @@ def phase_arch_train(torch, arch):
     bf16 compute, remat; ARCH_TRAIN_DEPTH's depth), each through the LA
     kernels (and a hybrid's SSD kernels) as often as
     `_arch_train_launches` says; step time, tokens/s, peak memory and one
-    more step under torch.profiler.  An arch of COMPARE_ONLY (deepseek-v2:
+    more step under torch.profiler.  Batches are TRAIN_BATCH x TRAIN_SEQ
+    tokens of SyntheticLM (whisper-large-v3: ENCDEC_TRAIN_BATCH clips of
+    1500 stub frames and ENCDEC_TRAIN_SEQ decoder tokens), with M-RoPE
+    positions or encoder frames where the family takes them
+    (`models/frontends.py::StubBatches`).  An arch of COMPARE_ONLY (deepseek-v2:
     no depth of it trains on one card) stops after the comparison, its
     grads held on the host between legs, and its kernel legs are its
     train path: counted, each leg a step's forward (twice under remat)
@@ -3088,6 +3388,7 @@ def phase_arch_train(torch, arch):
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import model as mdl
+    from repro_torch.models.frontends import StubBatches
     from repro_torch.train.loop import Trainer
     from repro_torch.tree import leaves
 
@@ -3098,10 +3399,13 @@ def phase_arch_train(torch, arch):
         raise AssertionError(f"{cfg.name} is not f32 params / bf16 "
                              f"compute / remat: {cfg}")
     torch.cuda.empty_cache()
-    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    n_batch, seq = ((ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ)
+                    if cfg.family == "encdec" else (TRAIN_BATCH, TRAIN_SEQ))
+    data = StubBatches(cfg, SyntheticLM(cfg.vocab_size, seq, n_batch,
+                                        seed=0), VLM_GRID, "cuda")
     short = dataclasses.replace(full, **ARCH_COMPARE_DEPTH[arch])
     params = mdl.init_params(short, seed=0, device="cuda")
-    batch0 = {"tokens": torch.from_numpy(data.batch_at(0)).to("cuda")}
+    batch0 = data.batch_at(0)
     log(f"[train {arch}] step 0 at {short.num_layers} layers, kernel path "
         f"vs plain path")
     compare_only = arch in COMPARE_ONLY
@@ -3109,7 +3413,8 @@ def phase_arch_train(torch, arch):
     t_cmp = time.perf_counter()
     compare = {"layers": short.num_layers,
                **_train_compare_all(torch, mdl, short, params, batch0,
-                                    bf16_per_leaf=cfg.family == "dense",
+                                    bf16_per_leaf=cfg.family
+                                    in PER_LEAF_FAMILIES,
                                     host_grads=compare_only)}
     compare["compare_s"] = time.perf_counter() - t_cmp
     if compare_only:
@@ -3127,7 +3432,7 @@ def phase_arch_train(torch, arch):
     if compare_only:
         return {"arch": cfg.name, "full_depth_layers": full.num_layers,
                 "full_depth_params": full.param_count(),
-                "compare_only": True, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                "compare_only": True, "batch": n_batch, "seq": seq,
                 "kernel_launches": launches,
                 "launches_per_kernel_leg": per_step,
                 "kernel_vs_plain": compare}, launches
@@ -3147,7 +3452,7 @@ def phase_arch_train(torch, arch):
     per_step = _arch_train_launches(cfg)
     log(f"[train {arch}] {cfg.name} at {cfg.num_layers} of "
         f"{full.num_layers} layers ({n_params} params): "
-        f"{ARCH_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+        f"{ARCH_TRAIN_STEPS} steps of {n_batch} x {seq} tokens: "
         f"launches {launches}, losses {[h['loss'] for h in hist]}, step s "
         f"{[h['dt'] for h in hist]}, peak {peak} B")
     expect_launches(f"train {arch}", launches,
@@ -3157,8 +3462,7 @@ def phase_arch_train(torch, arch):
         raise AssertionError(f"{arch} train history {hist}")
     steady = sorted(h["dt"] for h in hist[1:])
     step_s = steady[len(steady) // 2]
-    batch = {"tokens": torch.from_numpy(
-        data.batch_at(ARCH_TRAIN_STEPS)).to("cuda")}
+    batch = data.batch_at(ARCH_TRAIN_STEPS)
     profile = _profile(torch, f"train step ({arch})",
                        lambda: trainer.step_fn(trainer.params,
                                                trainer.opt_state, batch,
@@ -3169,12 +3473,14 @@ def phase_arch_train(torch, arch):
               "params": n_params, "full_depth_params": full.param_count(),
               "compute_dtype": cfg.compute_dtype,
               "param_dtype": cfg.param_dtype, "remat": cfg.remat,
-              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "batch": n_batch, "seq": seq,
+              "encoder_frames": (cfg.encoder_seq if cfg.family == "encdec"
+                                 else None),
               "steps": ARCH_TRAIN_STEPS,
               "losses": [h["loss"] for h in hist],
               "step_s": [h["dt"] for h in hist],
               "step_s_median_after_first": step_s,
-              "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+              "tokens_per_s": n_batch * seq / step_s,
               "wall_s": wall, "kernel_launches": launches,
               "launches_per_step": per_step,
               "max_memory_allocated_bytes": peak,
@@ -4118,9 +4424,10 @@ def phase_timing_arch(torch, ptxas, arch_launches):
     """The new architectures' instantiations, each beside its plain
     version and its bound, with its launches on the main path (the arch's
     serve and train runs): la_fwd, la_bwd_q and la_bwd_kv at each arch's
-    (H, Hkv, D) in bf16 (B=2, N=8192; the wgmma bodies at D = 128 with G
-    = 8, 16, 48, the token walks at D = 64 and 112) by loops in turns
-    with the plain versions; la_decode_fused at each arch's serving shape
+    (H, Hkv, D) in bf16 (B=2, N=8192, whisper-large-v3 its train shape
+    B=16, N=448; the wgmma bodies at D = 128 with G = 7, 8, 16, 48, the
+    token walks at D = 64 and 112) by loops in turns with the plain
+    versions; la_decode_fused at each arch's serving shape
     (ARCH_SLOTS slots, bf16) by CUDA graph replays in turns with the
     pythia serving shape's (row 3), rotating over enough states to exceed
     the 50 MB L2; the SSD kernels at zamba2-7b's (64, 64) (the token
@@ -4136,8 +4443,8 @@ def phase_timing_arch(torch, ptxas, arch_launches):
     gen.manual_seed(23)
     bf16 = torch.bfloat16
     out = {}
-    b, n = LA_SHAPE["b"], LA_SHAPE["n"]
     for arch in TIMED_ARCHS:
+        b, n = LA_TIMING_BN.get(arch, (LA_SHAPE["b"], LA_SHAPE["n"]))
         h, hkv, d, dv = _la_arch_shape(arch)
         serve_l, train_l = arch_launches[arch]
         q, k, v, om_hat, h_vec = _la_case(torch, gen, b, h, hkv, n, d, bf16,
@@ -4303,18 +4610,20 @@ def main() -> int:
     serve_m2, serve_m2_launches, _ = phase_serve(torch, np, "mamba2")
     serve_archs = {arch: phase_arch_serve(torch, np, arch)
                    for arch in ARCHS + MOE_ARCHS}
+    serve_archs[ENCDEC] = phase_encdec_serve(torch)
     smoke_errs = {arch: phase_smoke_reference(torch, arch)
                   for arch in ("pythia-1.4b", "mamba2-2.7b", *ARCHS,
-                               *MOE_ARCHS)}
+                               *MOE_ARCHS, ENCDEC)}
     torch.cuda.empty_cache()
     train, train_launches = phase_train(torch, "linear")
     train_sm, train_sm_launches = phase_train(torch, "softmax")
     train_gla, train_gla_launches = phase_train(torch, "gla")
     train_m2, train_m2_launches = phase_train(torch, "mamba2")
+    every_arch = ARCHS + MOE_ARCHS + (ENCDEC,)
     train_archs = {arch: phase_arch_train(torch, arch)
-                   for arch in ARCHS + MOE_ARCHS}
+                   for arch in every_arch}
     arch_launches = {arch: (serve_archs[arch][1], train_archs[arch][1])
-                     for arch in ARCHS + MOE_ARCHS}
+                     for arch in every_arch}
     timing = {"la_decode_fused": phase_timing(torch, ptxas),
               **phase_timing_la(torch, ptxas),
               **phase_timing_softmax(torch, ptxas),
@@ -4355,8 +4664,8 @@ def main() -> int:
         "library_ms": timing[kname].get("library_ms")} for kname in KERNELS]}
     for rec in (serve, serve_sm, serve_pg, serve_gla, serve_glp, serve_m2,
                 train, train_sm, train_gla, train_m2,
-                *(serve_archs[a][0] for a in ARCHS + MOE_ARCHS),
-                *(train_archs[a][0] for a in ARCHS + MOE_ARCHS)):
+                *(serve_archs[a][0] for a in every_arch),
+                *(train_archs[a][0] for a in every_arch)):
         rec["card"] = smi
     print(json.dumps({"serve": serve, "serve_softmax": serve_sm,
                       "serve_softmax_paged": serve_pg,
@@ -4366,9 +4675,9 @@ def main() -> int:
                       "train": train, "train_softmax": train_sm,
                       "train_gla": train_gla, "train_mamba2": train_m2,
                       "serve_archs": {a: serve_archs[a][0]
-                                      for a in ARCHS + MOE_ARCHS},
+                                      for a in every_arch},
                       "train_archs": {a: train_archs[a][0]
-                                      for a in ARCHS + MOE_ARCHS},
+                                      for a in every_arch},
                       "timing_arch": timing_arch,
                       "build_s": build_s, "ptxas": ptxas, "check": check,
                       "kernel_max_abs_err": kernel_errs,

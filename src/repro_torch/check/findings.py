@@ -51,8 +51,7 @@ RULES: dict[str, str] = {
     # -- registry coverage -------------------------------------------------
     "REPRO-R001": "kernel family missing a required impl (torch/cuda/ref)",
     "REPRO-R002": "mixer capability flag inconsistent with the methods "
-                  "the backend actually overrides (reserved: the port's "
-                  "mixers have no capability flags yet)",
+                  "the backend actually overrides",
     "REPRO-R003": "softmax-family impl registers a bwd without the "
                   "fwd_res the autograd Function needs",
     # -- AST lint ----------------------------------------------------------

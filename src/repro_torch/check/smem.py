@@ -17,8 +17,8 @@
               refuse gla and softmax for its head dim 112), the MLA mixer
               (deepseek-v2-236b) only the linear ones at its (Dk, Dv) =
               (192, 128), and the softmax decode kernels only at their
-              query groups (not granite-20b's 48); the coverage record
-              lists what is left out.
+              query groups (not qwen2-vl-7b's 7 nor granite-20b's 48);
+              the coverage record lists what is left out.
   REPRO-V002  reserved: the port has no tuning cache yet (ROADMAP queue 1
               item 10); the coverage record says so.
 """

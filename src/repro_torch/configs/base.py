@@ -4,10 +4,9 @@ Only what the ported paths read is kept: `LACfg`, `ModelConfig` (its
 fields, `resolved_head_dim` and `param_count`), the optional blocks
 `ModelConfig` names, `TrainConfig`, and the workload shapes `SHAPES`
 (read by `repro_torch.check.smem`).  `SSMCfg` is read by the mamba2
-mixer and the `hybrid_*` fields by the hybrid family (zamba2-7b); the
-other family extensions (MoE, MLA, enc-dec) keep their fields so
-`param_count` matches the reference, but no module of the port reads
-them yet.
+mixer, the `hybrid_*` fields by the hybrid family (zamba2-7b), `moe`
+and `mla` by the MoE family, `mrope_sections` by M-RoPE (qwen2-vl-7b)
+and the `encoder_*` fields by the enc-dec family (whisper-large-v3).
 """
 from __future__ import annotations
 
@@ -98,7 +97,8 @@ class ModelConfig:
     mlp_act: str = "swiglu"        # swiglu | gelu
     norm: str = "rmsnorm"          # rmsnorm | layernorm
     parallel_residual: bool = False
-    rope_kind: str = "standard"    # standard | partial | none
+    # standard | partial | mrope | none | sinusoid
+    rope_kind: str = "standard"
     rope_fraction: float = 1.0
     rope_theta: float = 10000.0
     mrope_sections: Tuple[int, int, int] = (16, 24, 24)

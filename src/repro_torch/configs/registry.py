@@ -1,10 +1,12 @@
 """Architecture registry: --arch <id> resolution for the port.
 
-Only the architectures the port can run are listed: pythia-1.4b, the
-dense qwen2.5-3b, stablelm-1.6b, chatglm3-6b and granite-20b, the moe
-moonshot-v1-16b-a3b and deepseek-v2-236b (the MLA mixer), the ssm
-mamba2-2.7b and the hybrid zamba2-7b; the reference's registry
-(`repro/configs/registry.py`) names all eleven.
+The eleven architectures of the reference's registry
+(`repro/configs/registry.py`): pythia-1.4b, the dense qwen2.5-3b,
+stablelm-1.6b, chatglm3-6b and granite-20b, the moe moonshot-v1-16b-a3b
+and deepseek-v2-236b (the MLA mixer), the ssm mamba2-2.7b, the hybrid
+zamba2-7b, the vlm qwen2-vl-7b (M-RoPE) and the encdec whisper-large-v3.
+The reference's `input_specs` goes with the dry-run launcher (ROADMAP.md
+queue 1 item 11), its only user.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ _MODULES = {
     "zamba2-7b": "zamba2_7b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 

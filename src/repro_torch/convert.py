@@ -12,11 +12,14 @@ routed `experts` and the `shared` ones, each stacked (L, E, ...)) lose
 their layer axis and keep their expert axis; in the hybrid family
 (zamba2) `mamba_groups`, stacked (g, m, ...), becomes g lists of m,
 `tail`, stacked (t, ...), a list of t, and the one `shared_attn` block is
-not stacked.  Dense weights keep
+not stacked; in the encdec family (whisper) `enc_blocks` and
+`dec_blocks` become lists of the encoder's and the decoder's layers, and
+`ln_enc` is not stacked.  Dense weights keep
 their (d_in, d_out) layout, so each one is a copy; the learnable
 coefficients `la_a` / `la_b` (one scalar per layer, stacked to (L,))
 become one 0-d f32 tensor per layer.  A tree with tied embeddings
-(mamba2, qwen2.5) has no `lm_head` and the port's has none either.
+(mamba2, qwen2.5, whisper) has no `lm_head` and the port's has none
+either.
 """
 from __future__ import annotations
 
@@ -46,14 +49,17 @@ def _unstack(tree, dev, *index):
 
 
 def params_from_jax(cfg, tree, device="cuda"):
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"params_from_jax covers the dense, moe, ssm and hybrid "
-            f"families; got {cfg.family!r}")
     dev = resolve_device(device)
-    stacked = ("blocks", "mamba_groups", "tail", "prefix_blocks")
+    stacked = ("blocks", "mamba_groups", "tail", "prefix_blocks",
+               "enc_blocks", "dec_blocks")
     out = {k: _map(lambda a: _tensor(a, dev), v)
            for k, v in tree.items() if k not in stacked}
+    if cfg.family == "encdec":
+        out["enc_blocks"] = [_unstack(tree["enc_blocks"], dev, i)
+                             for i in range(cfg.encoder_layers)]
+        out["dec_blocks"] = [_unstack(tree["dec_blocks"], dev, i)
+                             for i in range(cfg.num_layers)]
+        return out
     if "prefix_blocks" in tree:
         out["prefix_blocks"] = [_map(lambda a: _tensor(a, dev), lp)
                                 for lp in tree["prefix_blocks"]]

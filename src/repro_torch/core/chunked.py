@@ -1,9 +1,10 @@
 """Chunked-scan formulation of the paper's linear attention (plain PyTorch).
 
 Port of `repro/core/chunked.py`: forward with state in and out, the
-analytic backward (paper Eqs. 19-21) and decode.  The sequence is processed in
-chunks of C tokens and V is augmented with a ones column, so one
-carried state gives both the numerator and the normalizer:
+analytic backward (paper Eqs. 19-21), the non-causal form and decode.
+The sequence is processed in chunks of C tokens and V is augmented with
+a ones column, so one carried state gives both the numerator and the
+normalizer:
 
     V' = [V, 1]                               (C, D+1)
     S  = sum_{n < chunk} k_n (x) V'_n          (D, D+1)
@@ -206,6 +207,32 @@ def la_bwd_chunked(q, k, v, o, g, omega, a: float, b: float,
     dq = la_bwd_q_chunked(k, v, om_hat, h_vec, b, chunk, out_dtype=q.dtype)
     dk, dv = la_bwd_kv_chunked(q, k, v, om_hat, h_vec, a, b, chunk)
     return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# Non-causal (paper Eq. 4, right) — encoder and cross-attention path
+# ---------------------------------------------------------------------------
+
+def la_noncausal(q, k, v, a: float, b: float):
+    """Bidirectional normalized LA: an O(N D^2) product chain that
+    autograd differentiates (its intermediates are O(D^2 + N D), so
+    autograd already keeps the paper's memory bound; no custom backward).
+
+    q: (B, H, Nq, Dk); k: (B, Hkv, Nk, Dk); v: (B, Hkv, Nk, Dv), Hkv | H.
+    Returns o (B, H, Nq, Dv) in q.dtype, safe_div'd by its normalizer.
+    """
+    bsz, h, nq, dk = q.shape
+    dv = v.shape[-1]
+    hkv = k.shape[1]
+    qg = q.float().reshape(bsz, hkv, h // hkv, nq, dk)
+    ones = torch.ones(v.shape[:-1] + (1,), dtype=v.dtype, device=v.device)
+    vaug = torch.cat([v, ones], -1).float()
+    s = torch.einsum("bhjd,bhje->bhde", k.float(), vaug)
+    p = vaug.sum(dim=-2)                                  # (B, Hkv, Dv+1)
+    f = (a * p[:, :, None, None, :]
+         + b * torch.einsum("bhgid,bhde->bhgie", qg, s))
+    o = safe_div(f[..., :dv], f[..., dv:])
+    return o.reshape(bsz, h, nq, dv).to(q.dtype)
 
 
 def la_decode_step(state: LAState, q, k, v, a: float, b: float):

@@ -3,8 +3,10 @@
 Port of `repro/core/linear_attention.py`: applies the paper's q/k l2
 normalization (Eq. 22) HERE, outside the kernels, then dispatches
 training (`la_attention`, `la_attention_learnable`: the causal
-autograd Functions of kernels/ops.py), prefill (plain chunked scan) and
-decode (the fused step family).
+autograd Functions of kernels/ops.py; `causal=False`, the encoder and
+cross-attention, the plain product chain `la_noncausal`, as the
+reference's XLA einsums), prefill (plain chunked scan) and decode (the
+fused step family).
 """
 from __future__ import annotations
 
@@ -15,15 +17,13 @@ from repro_torch.kernels import ops as _ops
 
 
 def la_attention(q, k, v, cfg: LACfg = LACfg(), *, causal: bool = True):
-    """q: (B, H, N, D); k, v: (B, Hkv, N, D).  Returns (B, H, N, D)."""
-    if not causal:
-        raise NotImplementedError(
-            "non-causal linear attention (la_noncausal) runs only on the "
-            "encoder-decoder path and comes with that slice (ROADMAP.md "
-            "queue 1 'Remaining architectures')")
+    """q: (B, H, Nq, D); k, v: (B, Hkv, Nk, D) (Nq = Nk where causal).
+    Returns (B, H, Nq, D)."""
     if cfg.normalize_qk:
         q, k = l2_normalize(q), l2_normalize(k)
-    return _ops.la_causal(q, k, v, cfg.a, cfg.b, cfg.chunk, cfg.backend)
+    if causal:
+        return _ops.la_causal(q, k, v, cfg.a, cfg.b, cfg.chunk, cfg.backend)
+    return _ops.la_noncausal(q, k, v, cfg.a, cfg.b)
 
 
 def la_attention_learnable(q, k, v, a, b, cfg: LACfg = LACfg()):

@@ -35,9 +35,11 @@
 //   * the state stream (namespace ds) wherever Dk % 4 == 0 and
 //     4 (Dv + 1) <= 1024 (<= 576 for a group of more than 16), below;
 //   * the column walk at other dims, the first design.
-// G, the query heads of a KV head, is a template parameter (1, 2, 4, 8,
-// 16 or 48) so that its partial dots live in registers; the state is
-// updated once per step whatever G.
+// G, the query heads of a KV head, is a template parameter (1, 2, 4, 7,
+// 8, 16 or 48) so that its partial dots live in registers; the state is
+// updated once per step whatever G.  Nothing assumes G a power of two:
+// the threads go over columns and row classes, not query heads, and the
+// G query rows and rows f are indexed g * Dk and g * (Dv+1).
 //
 // Design of the column walk (simple first):
 //   * one block per (slot, KV head), so the state slab of a block is one

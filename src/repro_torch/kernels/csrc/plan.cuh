@@ -129,10 +129,12 @@ cudaError_t with_group(int g, F&& f) {
   }
 }
 
-// f(Int<g>{}) for a query group of the recurrent decode steps: with_group's
-// and 48 (granite-20b's multi-query attention, 48 heads on one KV head).
+// f(Int<g>{}) for a query group of the recurrent decode steps: with_group's,
+// 7 (qwen2-vl-7b: 28 heads on 4 KV heads) and 48 (granite-20b's multi-query
+// attention, 48 heads on one KV head).
 template <typename F>
 cudaError_t with_decode_group(int g, F&& f) {
+  if (g == 7) return f(Int<7>{});
   if (g == 48) return f(Int<48>{});
   return with_group(g, f);
 }

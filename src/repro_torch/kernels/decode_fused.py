@@ -27,8 +27,9 @@ S, P <- exp(log_decay) (S, P), then the rank-1 update and the readout.
                           entry `gla_decode_fused`); CUDA only
   gla_decode_fused_torch  its plain version, state in place
 
-Both entries take a query group G in `RECURRENT_GROUPS` (1 to 16, and
-48 for granite-20b's multi-query attention) and any head dims, and have
+Both entries take a query group G in `RECURRENT_GROUPS` (1 to 16, 7 for
+qwen2-vl-7b's 28 heads on 4, and 48 for granite-20b's multi-query
+attention) and any head dims, and have
 two bodies, chosen from the dims and the group by
 `recurrent_decode_body(dk, dv, group)`: "stream" (Dk % 4 == 0 and 4 (Dv
 + 1) <= 1024, at most GLA_DECODE_WIDE_THREADS for a group of more than
@@ -102,7 +103,7 @@ PAGED_KERNEL = "paged_decode_fused"
 # query heads per KV head the softmax kernels are instantiated for
 GROUPS = (1, 2, 4, 8, 16)
 # ... and the recurrent steps (la_decode_fused, gla_decode_fused)
-RECURRENT_GROUPS = GROUPS + (48,)
+RECURRENT_GROUPS = GROUPS + (7, 48)
 # head dims the softmax kernel is instantiated for
 HEAD_DIMS = (32, 64, 128)
 

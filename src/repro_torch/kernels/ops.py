@@ -33,7 +33,9 @@ are {q, k, v, o, g}, O(N D) memory, instead of the O(N D^2)
 intermediates autograd would keep.  `la_causal_learnable` adds the
 closed-form gradients of the scalar coefficients a and b.  Serving
 prefill runs the plain chunked scan on every impl, as the reference
-does (`repro/kernels/ops.py::la_prefill`).
+does (`repro/kernels/ops.py::la_prefill`), and so does the non-causal
+form (`la_noncausal`, the encoder and cross-attention: a product chain
+that autograd differentiates, as the reference's XLA einsums).
 
 The causal GLA path is `gla_causal`, an autograd Function with residuals
 {q, k, v, log_decay, o, g} whose backward returns gradients to q, k, v
@@ -51,7 +53,9 @@ residuals are {q, k, v, o, lse}: both the `torch` and the `cuda` impl
 register a forward that returns them and a recomputation backward, so
 CPU and card training go through the same Function with O(N D)
 residuals (autograd through the chunked scan would keep every chunk's
-score block).
+score block).  Non-causal softmax (the encoder and cross-attention)
+runs the plain chunked scan on the `cuda` impl too, as the reference's
+Pallas impls send it to their XLA scan: the flash kernels are causal.
 """
 from __future__ import annotations
 
@@ -64,7 +68,7 @@ from repro_torch.core import chunked as _chunked
 from repro_torch.core import gla as _gla
 from repro_torch.core import softmax as _softmax
 from repro_torch.core import ssd as _ssd
-from repro_torch.core.chunked import LAState
+from repro_torch.core.chunked import LAState, la_noncausal
 from repro_torch.core.gla import GLAState
 from repro_torch.core.numerics import safe_div
 from repro_torch.kernels import decode_fused as _df
@@ -78,6 +82,7 @@ from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK
 
 __all__ = ["KernelImpl", "register_kernel", "get_kernel", "kernel_names",
            "resolve_impl", "la_causal", "la_causal_learnable", "la_prefill",
+           "la_noncausal",
            "la_decode_step_fused", "gla_causal", "gla_prefill",
            "gla_decode_step", "gla_decode_step_fused", "ssd_causal",
            "softmax_causal",
@@ -518,10 +523,14 @@ def _softmax_torch_fwd_res(q, k, v, chunk):
 
 def _softmax_cuda_fwd(q, k, v, causal, chunk, q_offset=None):
     if not causal:
-        raise NotImplementedError(
-            "non-causal softmax attention runs only on the encoder-decoder "
-            "path and comes with that slice (ROADMAP.md queue 1 "
-            "'Remaining architectures'); the flash kernel is causal")
+        # the encoder and cross-attention stay on the plain scan, as the
+        # reference's Pallas impls keep them on XLA: the flash grid is
+        # causal by construction
+        if q.device.type != "cuda":
+            raise ValueError(f"the softmax family's cuda impl needs CUDA "
+                             f"tensors; q is on {q.device} (the plain "
+                             f"version is its torch impl)")
+        return _softmax.softmax_chunked(q, k, v, causal=False, chunk=chunk)
     # the model hands over strided head views; the kernel reads rows
     o, _ = _fl.flash_fwd_cuda(
         q.contiguous(), k.contiguous(), v.contiguous(),

@@ -20,7 +20,7 @@ def backend_refusal(cfg: ModelConfig, backend: str,
     are the backends whose card kernels do not take the model's shapes:
     on the hybrid family softmax and gla (its shared block's head dim),
     and in serving softmax where the query group is not one the softmax
-    decode kernels take (granite-20b's 48)."""
+    decode kernels take (qwen2-vl-7b's 7, granite-20b's 48)."""
     todo = ("(ROADMAP.md queue 1, 'softmax and gla on zamba2'); use "
             "linear")
     if cfg.family == "hybrid" and backend in HYBRID_REFUSED_BACKENDS:
@@ -35,6 +35,22 @@ def backend_refusal(cfg: ModelConfig, backend: str,
                 f"kernels take query groups {SOFTMAX_DECODE_GROUPS}, not "
                 f"{group}, yet {todo}")
     return None
+
+
+def family_refusal(cfg: ModelConfig, serving: bool) -> str | None:
+    """Why the launchers refuse `cfg`'s family, or None: the
+    encoder-decoder (whisper-large-v3) needs each request's or batch's
+    encoder frames, which neither launcher makes, as the reference's do
+    not (its engine raises on the family, its trainer feeds tokens
+    alone); `chip_smoke.py` drives it through `models/model.py` with
+    frames from `models/frontends.py`."""
+    if cfg.family != "encdec":
+        return None
+    what = ("the engine serves decoder-only families" if serving else
+            "SyntheticLM feeds tokens, not encoder frames")
+    return (f"{cfg.name} is an encoder-decoder: {what}; drive it through "
+            f"repro_torch.models.model (prefill/decode_step, loss_fn) with "
+            f"frames from repro_torch.models.frontends.audio_frames_stub")
 
 
 def paging_refusal(cfg: ModelConfig) -> str | None:

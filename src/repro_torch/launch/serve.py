@@ -6,18 +6,21 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --device cpu --requests 3 --max-new 4
 
-`--arch` takes every id of `configs/registry.py` (pythia-1.4b,
-qwen2.5-3b, stablelm-1.6b, chatglm3-6b, granite-20b, moonshot-v1-16b-a3b,
-deepseek-v2-236b, mamba2-2.7b, zamba2-7b).  Flag names follow `repro/launch/serve.py` for the flags
-kept.  Weights are random, drawn from seed 0; prompts are random token
-ids drawn from seed 0.  `--backend` swaps the attention backend
-(linear, the paper's, by default; gla, its decay-gated variant;
-softmax, the baseline), as the reference does: mamba2-2.7b has no
-attention and deepseek-v2-236b's MLA mixer always runs the linear
-scores, so both ignore it, zamba2-7b refuses softmax and gla, whose
-kernels do not take its head dim 112 yet, and the full granite-20b
-refuses softmax, whose decode kernels do not take its query group of 48
-(`repro_torch.launch.backend_refusal`).  Paging is refused where the
+`--arch` takes every id of `configs/registry.py` but whisper-large-v3
+(pythia-1.4b, qwen2.5-3b, stablelm-1.6b, chatglm3-6b, granite-20b,
+moonshot-v1-16b-a3b, deepseek-v2-236b, mamba2-2.7b, zamba2-7b,
+qwen2-vl-7b with text prompts): the engine refuses the encoder-decoder,
+as the reference's does (`repro_torch.launch.family_refusal`). Flag
+names follow `repro/launch/serve.py` for the flags kept. Weights are
+random, drawn from seed 0; prompts are random token ids drawn from seed
+0. `--backend` swaps the attention backend (linear, the paper's, by
+default; gla, its decay-gated variant; softmax, the baseline), as the
+reference does: mamba2-2.7b has no attention and deepseek-v2-236b's MLA
+mixer always runs the linear scores, so both ignore it, zamba2-7b
+refuses softmax and gla, whose kernels do not take its head dim 112 yet,
+and the full qwen2-vl-7b and granite-20b refuse softmax, whose decode
+kernels do not take their query groups of 7 and 48
+(`repro_torch.launch.backend_refusal`). Paging is refused where the
 backend does not page (`get_backend`) and on the MoE family, whose dense
 first layers keep caches the engine does not page
 (`repro_torch.launch.paging_refusal`).
@@ -52,7 +55,8 @@ import numpy as np
 
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import ops as _ops
-from repro_torch.launch import backend_refusal, paging_refusal
+from repro_torch.launch import backend_refusal, family_refusal, \
+    paging_refusal
 from repro_torch.mixers import get_backend, resolve_backend_name
 from repro_torch.models import model as mdl
 from repro_torch.obs import ServeTracer
@@ -112,6 +116,9 @@ def main(argv=None):
         ap.error("--num-pages requires --page-size (it sizes the paged "
                  "arena; without a page size the cache stays contiguous)")
     cfg = get_config(args.arch, smoke=not args.full)
+    refusal = family_refusal(cfg, serving=True)
+    if refusal:
+        ap.error(refusal)
     if args.backend:
         refusal = backend_refusal(cfg, args.backend, serving=True)
         if refusal:

@@ -6,19 +6,22 @@
         --device cpu --steps 5 --batch 2 --seq 32
 
 Flag names follow `repro/launch/train.py` for the flags kept; the
-checkpoint (`--checkpoint-dir`, `--resume`) and autotune
-(`--autotune`, `--tune-cache`) flags wait for their slices (ROADMAP.md).
-`--arch` takes every id of `configs/registry.py`.  Weights are random
-from the train config's seed and data is `SyntheticLM` from the same
-seed.  `--backend` swaps the attention backend as the reference does
-(mamba2-2.7b and deepseek-v2-236b, whose MLA mixer always runs the
-linear scores, ignore it; zamba2-7b refuses softmax and gla, whose
-kernels do not take its head dim 112 yet).  The MoE family
-(moonshot-v1-16b-a3b, deepseek-v2-236b) adds its load-balancing loss to
-the objective.  `--full` trains the full-width
-config instead of the smoke one; `--device` defaults to cuda and raises
-without a card.  Prints one JSON record: first_loss, last_loss, steps,
-stragglers.
+checkpoint (`--checkpoint-dir`, `--resume`) and autotune (`--autotune`,
+`--tune-cache`) flags wait for their slices (ROADMAP.md). `--arch` takes
+every id of `configs/registry.py` but whisper-large-v3, whose encoder
+frames SyntheticLM does not make (as in the reference;
+`repro_torch.launch.family_refusal`). Weights are random from the train
+config's seed and data is `SyntheticLM` from the same seed;
+qwen2-vl-7b's batches add M-RoPE positions of an image grid then text
+(`models/frontends.py::StubBatches`). `--backend` swaps the
+attention backend as the reference does (mamba2-2.7b and
+deepseek-v2-236b, whose MLA mixer always runs the linear scores, ignore
+it; zamba2-7b refuses softmax and gla, whose kernels do not take its
+head dim 112 yet). The MoE family (moonshot-v1-16b-a3b,
+deepseek-v2-236b) adds its load-balancing loss to the objective.
+`--full` trains the full-width config instead of the smoke one;
+`--device` defaults to cuda and raises without a card. Prints one JSON
+record: first_loss, last_loss, steps, stragglers.
 """
 from __future__ import annotations
 
@@ -29,9 +32,10 @@ import json
 from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import SyntheticLM
-from repro_torch.launch import backend_refusal
+from repro_torch.launch import backend_refusal, family_refusal
 from repro_torch.mixers import get_backend
 from repro_torch.models import model as mdl
+from repro_torch.models.frontends import StubBatches
 from repro_torch.train.loop import Trainer
 
 
@@ -52,6 +56,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=not args.full)
+    refusal = family_refusal(cfg, serving=False)
+    if refusal:
+        ap.error(refusal)
     if args.backend:
         refusal = backend_refusal(cfg, args.backend, serving=False)
         if refusal:
@@ -62,6 +69,8 @@ def main(argv=None):
                      warmup_steps=max(args.steps // 10, 1))
     params = mdl.init_params(cfg, seed=tc.seed, device=args.device)
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=tc.seed)
+    if cfg.rope_kind == "mrope":
+        data = StubBatches(cfg, data, device=args.device)
     trainer = Trainer(cfg, tc, params, data)
     history = trainer.run(args.steps)
     record = {"first_loss": history[0]["loss"],

@@ -8,8 +8,12 @@ the kernel family of the resolved backend (kernels/ops.py; `softmax` ->
 "softmax", `gla` -> "gla", every other backend -> "linear") and the
 chunk size positive; and cfg.paging: only the softmax (KV pages) and gla
 (state pages) backends page their caches (page_size >= 1, num_pages >=
-2).  The port registers the `linear`, `gla`, `softmax`, `mamba2` and
-`mla` backends; the others are on ROADMAP.md.
+2); and the family: `encdec` needs a backend with encoder and
+cross-attention-decode paths (the capability flags `supports_noncausal`
+and `supports_cross_decode`, which `python -m repro_torch.check` holds
+to the methods each backend overrides, REPRO-R002).  The port registers
+the `linear`, `gla`, `softmax`, `mamba2` and `mla` backends, the
+reference's five.
 """
 from __future__ import annotations
 
@@ -32,6 +36,10 @@ class AttentionBackend:
     # the mixer is the whole block (token and channel mixing, mamba2):
     # blocks add no FFN and no second norm around it
     fuses_ffn: bool = False
+    # capability flags, checked at resolution so that a config needing
+    # them fails there and not deep inside a step
+    supports_noncausal: bool = False     # apply_noncausal (encoder, cross)
+    supports_cross_decode: bool = False  # cross_precompute, cross_decode
 
     def init(self, gen, cfg, dtype):
         """-> params dict for one layer's mixer."""
@@ -53,6 +61,24 @@ class AttentionBackend:
     def decode(self, p, cfg, x, position, cache, compute_dtype=None):
         """One token per slot -> (y, cache).  x: (B, 1, C)."""
         raise NotImplementedError
+
+    # -- optional capabilities ------------------------------------------
+    def apply_noncausal(self, p, cfg, x, ctx, positions=None,
+                        compute_dtype=None):
+        """Bidirectional attention: self (ctx = x) or cross (ctx = the
+        encoder output)."""
+        raise NotImplementedError(
+            f"backend {self.name!r} has no non-causal (encoder/cross) path")
+
+    def cross_precompute(self, p, cfg, ctx, compute_dtype=None):
+        """A decode-time cross-attention state from `ctx`."""
+        raise NotImplementedError(
+            f"backend {self.name!r} has no cross-attention decode path")
+
+    def cross_decode(self, p, cfg, x, state, compute_dtype=None):
+        """One-token cross-attention readout against that state."""
+        raise NotImplementedError(
+            f"backend {self.name!r} has no cross-attention decode path")
 
 
 def register_backend(name: str):
@@ -113,4 +139,12 @@ def get_backend(cfg_or_name) -> AttentionBackend:
                     f"(one page is the engine's reserved write sink), got "
                     f"page_size={cfg.paging.page_size} "
                     f"num_pages={cfg.paging.num_pages}")
+        if cfg.family == "encdec" and not (backend.supports_noncausal
+                                           and backend.supports_cross_decode):
+            capable = [n for n, b in _BACKENDS.items()
+                       if b.supports_noncausal and b.supports_cross_decode]
+            raise ValueError(
+                f"family 'encdec' needs a backend with encoder and "
+                f"cross-attention-decode paths; {name!r} has none — "
+                f"capable backends: {capable}")
     return backend

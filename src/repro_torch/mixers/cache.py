@@ -10,6 +10,8 @@
   PagedKVCache  softmax (paged)  fixed-size KV pages shared across
                                  slots + per-slot page table
   MambaCache    mamba2           SSD state + depthwise-conv window tail
+  CrossState    linear cross     precomputed encoder-side LA state
+                                 (whisper's cross-attention decode)
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from repro_torch.core.ssd import SSDState, init_ssd_state
 
 __all__ = ["LAState", "init_state", "GLAState", "init_gla_state",
            "PagedGLAState", "KVCache", "PagedKVCache", "MambaCache",
-           "SSDState", "init_ssd_state"]
+           "CrossState", "SSDState", "init_ssd_state"]
 
 
 class KVCache(NamedTuple):
@@ -77,3 +79,11 @@ class MambaCache(NamedTuple):
 
     s: torch.Tensor     # (B, H, state, hd) f32, the SSD state
     conv: torch.Tensor  # (B, conv_width - 1, conv_ch) in the compute dtype
+
+
+class CrossState(NamedTuple):
+    """The linear backend's cross-attention state, precomputed once from
+    the encoder output (f32)."""
+
+    s: torch.Tensor  # (B, Hkv, D, D+1) — sum_j k_j (x) [v_j, 1]
+    p: torch.Tensor  # (B, Hkv, D+1)    — sum_j [v_j, 1]

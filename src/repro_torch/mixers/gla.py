@@ -43,6 +43,9 @@ DECAY_BIAS = 6.0
 
 @register_backend("gla")
 class GLAAttentionBackend(GQAProjectionBackend):
+    # the decayed state is causal by construction: no encoder path
+    supports_noncausal = False
+
     def init(self, gen, cfg, dtype=F32):
         p = super().init(gen, cfg, dtype)
         p["wg"] = dense_init(gen, cfg.d_model, cfg.num_kv_heads, bias=True,

@@ -1,7 +1,9 @@
 """Shared GQA projection machinery for the attention-shaped backends.
 
 Port of `repro/mixers/qkv.py`: `GQAProjectionBackend` owns the
-wq/wk/wv/wo params, head split/merge and rope application.
+wq/wk/wv/wo params, head split/merge and rope application (M-RoPE with
+the config's sections), and the non-causal projection: q from x, k and
+v from a context (the encoder and cross-attention).
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ def merge_heads(x):
 
 
 class GQAProjectionBackend(AttentionBackend):
+    supports_noncausal = True
+
     def init(self, gen, cfg, dtype=F32):
         hd = cfg.resolved_head_dim
         return {
@@ -46,11 +50,28 @@ class GQAProjectionBackend(AttentionBackend):
         v = split_heads(dense(p["wv"], x, compute_dtype),
                         cfg.num_kv_heads, hd)
         if cfg.rope_kind not in ("none", "sinusoid"):
-            q = apply_rope(q, positions, cfg.rope_kind, cfg.rope_fraction,
-                           cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_kind, cfg.rope_fraction,
-                           cfg.rope_theta)
+            q, k = self._rope(cfg, q, k, positions)
         return q, k, v
+
+    def project_noncausal(self, p, cfg, x, ctx, positions, compute_dtype):
+        """q from x, k and v from ctx (self-bidirectional or cross); rope
+        only where positions are given."""
+        hd = cfg.resolved_head_dim
+        q = split_heads(dense(p["wq"], x, compute_dtype), cfg.num_heads, hd)
+        k = split_heads(dense(p["wk"], ctx, compute_dtype),
+                        cfg.num_kv_heads, hd)
+        v = split_heads(dense(p["wv"], ctx, compute_dtype),
+                        cfg.num_kv_heads, hd)
+        if positions is not None and cfg.rope_kind not in ("none",
+                                                           "sinusoid"):
+            q, k = self._rope(cfg, q, k, positions)
+        return q, k, v
+
+    @staticmethod
+    def _rope(cfg, q, k, positions):
+        return tuple(apply_rope(t, positions, cfg.rope_kind,
+                                cfg.rope_fraction, cfg.rope_theta,
+                                cfg.mrope_sections) for t in (q, k))
 
     def out(self, p, o_heads, compute_dtype):
         return dense(p["wo"], merge_heads(o_heads), compute_dtype)

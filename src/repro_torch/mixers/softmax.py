@@ -31,7 +31,15 @@ advancing in the batched decode writes the cache's last row (its
 paged row points at the sink page), and its length (pos + 1) is
 clamped by the decode kernels.
 
-Left for a later slice: `apply_noncausal` (encoder-decoder).
+`apply_noncausal` (the encoder-decoder's bidirectional and cross
+attention) runs the plain chunked scan on every impl, as the reference
+keeps it on XLA.  With M-RoPE positions (3, B, N) the cache is indexed
+by the temporal stream (`_pos2d`), as in the reference.  That stream is
+the token index only on a text-only stream: after image patches it lags
+the token count, so a later window or decode step writes over earlier
+rows and attends to too few keys.  The reference has the same defect
+(`repro/mixers/softmax.py::_pos2d`); the engine and the launchers feed
+text only (ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -42,6 +50,11 @@ from repro_torch.kernels.paged_attention import gather_pages
 from repro_torch.mixers.base import register_backend
 from repro_torch.mixers.cache import KVCache, PagedKVCache
 from repro_torch.mixers.qkv import GQAProjectionBackend
+
+
+def _pos2d(positions: torch.Tensor) -> torch.Tensor:
+    """(B, N) positions; M-RoPE's (3, B, N) gives its temporal stream."""
+    return positions if positions.dim() == 2 else positions[0]
 
 
 def _scatter_window(big: torch.Tensor, new: torch.Tensor,
@@ -86,11 +99,13 @@ class SoftmaxAttentionBackend(GQAProjectionBackend):
                                    backend=cfg.la.backend)
         return self.out(p, o, compute_dtype)
 
-    def apply_noncausal(self, *args, **kwargs):
-        raise NotImplementedError(
-            "non-causal softmax attention runs only on the encoder-decoder "
-            "path and comes with that slice (ROADMAP.md queue 1 "
-            "'Remaining architectures')")
+    def apply_noncausal(self, p, cfg, x, ctx, positions=None,
+                        compute_dtype=None):
+        q, k, v = self.project_noncausal(p, cfg, x, ctx, positions,
+                                         compute_dtype)
+        o = _ops.softmax_attention(q, k, v, causal=False, chunk=cfg.la.chunk,
+                                   backend=cfg.la.backend)
+        return self.out(p, o, compute_dtype)
 
     def init_cache(self, cfg, batch: int, max_len: int, device="cuda",
                    dtype=torch.bfloat16):
@@ -121,6 +136,7 @@ class SoftmaxAttentionBackend(GQAProjectionBackend):
         past the causal frontier, the sink page's included, are
         masked)."""
         q, k, v = self.project_qkv(p, cfg, x, positions, compute_dtype)
+        positions = _pos2d(positions)
         start = positions[:, 0]
         if isinstance(cache, PagedKVCache):
             _write_pages(cache.k_pages, k, cache.page_table, positions)
@@ -143,6 +159,7 @@ class SoftmaxAttentionBackend(GQAProjectionBackend):
         slot b attends to its first pos_b + 1 keys: in its contiguous
         cache, or through its page-table row in the paged arena."""
         q, k, v = self.project_qkv(p, cfg, x, position, compute_dtype)
+        position = _pos2d(position)
         pos = position[:, 0]
         lengths = (pos + 1).to(torch.int32)
         if isinstance(cache, PagedKVCache):

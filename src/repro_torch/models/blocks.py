@@ -9,8 +9,12 @@ family), the MoE block (the routed-expert FFN of models/moe.py with its
 shared experts, moonshot-v1-16b-a3b and deepseek-v2-236b; the first
 `cfg.moe.first_dense_layers` are dense blocks of `cfg.moe.dense_d_ff`)
 and the Mamba-2 block (no FFN: `backend.fuses_ffn`, the mixer carries its
-own channel mixing; mamba2 and zamba2's mamba layers).  Encoder and
-cross-attention blocks come with their architectures.  Norms follow
+own channel mixing; mamba2 and zamba2's mamba layers).  Then the
+encoder-decoder's blocks (whisper): the encoder block (bidirectional
+self-attention through the mixer's `apply_noncausal`, and an FFN) and
+the cross-attention decoder block (causal self-attention, cross-attention
+to the encoder output, an FFN; in serving, prefill builds the
+cross-attention's state once and decode reads it).  Norms follow
 `cfg.norm`.  The mixer is resolved through the backend registry, so
 blocks never branch on backend names.
 
@@ -108,3 +112,79 @@ def block_decode(p, cfg, x, position, cache, compute_dtype=None):
                                               cache, compute_dtype)
     return _residual(p, cfg, x, attn_out, compute_dtype,
                      dropless=True)[0], cache
+
+
+# ---------------------------------------------------------------------------
+# Encoder block (bidirectional self-attention; whisper's encoder)
+# ---------------------------------------------------------------------------
+
+def enc_block_init(gen: torch.Generator, cfg, dtype=torch.float32):
+    return {"ln1": norm_init(cfg.d_model, dtype, gen.device, cfg.norm),
+            "attn": get_backend(cfg).init(gen, cfg, dtype),
+            "ln2": norm_init(cfg.d_model, dtype, gen.device, cfg.norm),
+            "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype)}
+
+
+def enc_block_apply(p, cfg, x, compute_dtype=None):
+    h = norm_apply(p["ln1"], x, cfg.norm)
+    x = x + get_backend(cfg).apply_noncausal(p["attn"], cfg, h, h,
+                                             compute_dtype=compute_dtype)
+    return x + mlp_apply(p["ffn"], norm_apply(p["ln2"], x, cfg.norm),
+                         cfg.mlp_act, compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention decoder block (whisper's decoder)
+# ---------------------------------------------------------------------------
+
+def xdec_block_init(gen: torch.Generator, cfg, dtype=torch.float32):
+    backend = get_backend(cfg)
+    return {"ln1": norm_init(cfg.d_model, dtype, gen.device, cfg.norm),
+            "self": backend.init(gen, cfg, dtype),
+            "ln_x": norm_init(cfg.d_model, dtype, gen.device, cfg.norm),
+            "cross": backend.init(gen, cfg, dtype),
+            "ln2": norm_init(cfg.d_model, dtype, gen.device, cfg.norm),
+            "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype)}
+
+
+def _xdec_tail(p, cfg, x, cross_out, compute_dtype):
+    """x + the cross-attention's output, then the FFN's residual."""
+    x = x + cross_out
+    return x + mlp_apply(p["ffn"], norm_apply(p["ln2"], x, cfg.norm),
+                         cfg.mlp_act, compute_dtype)
+
+
+def xdec_block_apply(p, cfg, x, enc, positions, compute_dtype=None):
+    backend = get_backend(cfg)
+    h = norm_apply(p["ln1"], x, cfg.norm)
+    x = x + backend.apply(p["self"], cfg, h, positions, compute_dtype)
+    h = norm_apply(p["ln_x"], x, cfg.norm)
+    return _xdec_tail(p, cfg, x, backend.apply_noncausal(
+        p["cross"], cfg, h, enc, compute_dtype=compute_dtype), compute_dtype)
+
+
+def xdec_block_prefill(p, cfg, x, enc, positions, cache, compute_dtype=None):
+    """cache: {"self": the mixer's cache, "cross": ignored}; returns (y,
+    {"self": its new cache, "cross": the CrossState of enc})."""
+    backend = get_backend(cfg)
+    h = norm_apply(p["ln1"], x, cfg.norm)
+    attn_out, self_cache = backend.prefill(p["self"], cfg, h, positions,
+                                           cache["self"], compute_dtype)
+    x = x + attn_out
+    cross = backend.cross_precompute(p["cross"], cfg, enc, compute_dtype)
+    h = norm_apply(p["ln_x"], x, cfg.norm)
+    x = _xdec_tail(p, cfg, x, backend.apply_noncausal(
+        p["cross"], cfg, h, enc, compute_dtype=compute_dtype), compute_dtype)
+    return x, {"self": self_cache, "cross": cross}
+
+
+def xdec_block_decode(p, cfg, x, position, cache, compute_dtype=None):
+    backend = get_backend(cfg)
+    h = norm_apply(p["ln1"], x, cfg.norm)
+    attn_out, self_cache = backend.decode(p["self"], cfg, h, position,
+                                          cache["self"], compute_dtype)
+    x = x + attn_out
+    h = norm_apply(p["ln_x"], x, cfg.norm)
+    x = _xdec_tail(p, cfg, x, backend.cross_decode(
+        p["cross"], cfg, h, cache["cross"], compute_dtype), compute_dtype)
+    return x, {"self": self_cache, "cross": cache["cross"]}

@@ -5,9 +5,12 @@ apply) pair.  Dense weights are (d_in, d_out) and applied as `x @ W`, so
 converting the reference's params is a copy.  Matmuls run in the
 config's compute dtype; norms always compute in f32.  What the ported
 paths run is here: layernorm and rmsnorm, the swiglu and gelu MLPs, the
-embedding and the tied unembedding.
+embedding and the tied unembedding, and whisper's sinusoidal absolute
+positions.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -119,3 +122,13 @@ def unembed(p, x):
     """Logits through the (tied) embedding table in x's dtype: x @
     table^T."""
     return torch.matmul(x, p["table"].to(x.dtype).T)
+
+
+def sinusoid_positions(n: int, d: int, offset=0, device=None):
+    """Sinusoidal absolute position encodings (whisper-style), f32 (n,
+    d): [sin(pos * w), cos(pos * w)] with w_i = 10000^(-2i / d)."""
+    pos = torch.arange(n, dtype=F32, device=device) + offset
+    inv = torch.exp(-torch.arange(0, d, 2, dtype=F32, device=device) / d
+                    * math.log(10000.0))
+    ang = pos[:, None] * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)

@@ -1,24 +1,31 @@
-"""Decoder-only LM: embed -> blocks -> norm -> unembed.
+"""The LM: embed -> blocks -> norm -> unembed.
 
-Port of the dense-, moe-, ssm- and hybrid-family paths of
-`repro/models/model.py`: the dense stacks of pythia-1.4b, qwen2.5-3b,
-stablelm-1.6b, chatglm3-6b and granite-20b, the MoE stacks of
+Port of `repro/models/model.py`, every family: the dense stacks of
+pythia-1.4b, qwen2.5-3b, stablelm-1.6b, chatglm3-6b and granite-20b, the
+vlm qwen2-vl-7b (a dense stack under M-RoPE: positions (3, B, N) from
+the batch, the next rope position of each slot in cache["rope_pos"],
+which lags the token count after image patches), the MoE stacks of
 moonshot-v1-16b-a3b (attention) and deepseek-v2-236b (the MLA mixer),
 each with its dense first layers (`prefix_blocks`) before the stack, the
-pure Mamba-2 stack of mamba2-2.7b and zamba2-7b's hybrid (groups of
-Mamba-2 blocks, one SHARED attention block applied after each group, a
-tail of Mamba-2 blocks): training (`forward_hidden`,
-`chunked_cross_entropy`, `loss_fn`, `forward_logits`) and serving
-(`init_params`, `init_cache`, `prefill`, `decode_step`).  Tied
-embeddings (mamba2, qwen2.5) have no lm_head: the loss and the logits
-unembed through the embedding table in f32.  A logit softcap c
+pure Mamba-2 stack of mamba2-2.7b, zamba2-7b's hybrid (groups of Mamba-2
+blocks, one SHARED attention block applied after each group, a tail of
+Mamba-2 blocks) and whisper-large-v3's encoder-decoder (frames plus
+sinusoids through the bidirectional encoder and its norm, then the
+cross-attention decoder under sinusoids; serving prefills once, which
+builds each layer's cross-attention state, and decodes against it):
+training (`forward_hidden`, `chunked_cross_entropy`, `loss_fn`,
+`forward_logits`) and serving (`init_params`, `init_cache`, `prefill`,
+`decode_step`).  Tied embeddings (mamba2, qwen2.5, whisper) have no
+lm_head: the loss and the logits unembed through the embedding table in
+f32.  A logit softcap c
 tanh(logits / c) applies to `forward_logits` and the last-token logits,
 not to the loss, as in the reference.  The MoE blocks' load-balancing
 losses are summed over the prefix and the stack, and `loss_fn` adds
 `cfg.moe.aux_loss_weight` times that sum.  Layers are Python lists of
 per-layer param dicts (the reference stacks them on axis 0 for lax.scan;
 convert.py unstacks): `prefix_blocks` and `blocks`, or `mamba_groups` (g
-lists of m), `shared_attn` and `tail`.  Logits are computed in f32.
+lists of m), `shared_attn` and `tail`, or `enc_blocks` and `dec_blocks`.
+Logits are computed in f32.
 
 `cfg.remat` recomputes each block in the backward
 (`torch.utils.checkpoint`, non-reentrant): the counterpart of the
@@ -32,32 +39,26 @@ internals are not kept for every group application.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.mixers.cache import CrossState
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import dense, dense_init, dtype_of, \
-    embed_init, embed_lookup, norm_apply, norm_init, unembed
+    embed_init, embed_lookup, norm_apply, norm_init, sinusoid_positions, \
+    unembed
 
 F32 = torch.float32
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
 
 def _check_family(cfg):
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; the port runs the "
-            f"dense, moe, ssm and hybrid families (ROADMAP.md queue 1 "
-            f"items 6-7)")
-    if cfg.rope_kind == "mrope":
-        raise NotImplementedError(
-            "M-RoPE positions are not ported yet (ROADMAP.md queue 1 item "
-            "6, 'VLM')")
-    if cfg.rope_kind == "sinusoid":
-        raise NotImplementedError(
-            "sinusoid positions are not ported yet (ROADMAP.md queue 1 "
-            "item 7, 'Encoder-decoder')")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}; known: "
+                         f"{FAMILIES}")
 
 
 def _attn_variant(cfg):
@@ -86,6 +87,13 @@ def init_params(cfg, seed: int = 0, device="cuda"):
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                        dtype=pd)
+    if cfg.family == "encdec":
+        params["enc_blocks"] = [blk.enc_block_init(gen, cfg, pd)
+                                for _ in range(cfg.encoder_layers)]
+        params["ln_enc"] = norm_init(cfg.d_model, pd, dev, cfg.norm)
+        params["dec_blocks"] = [blk.xdec_block_init(gen, cfg, pd)
+                                for _ in range(cfg.num_layers)]
+        return params
     if cfg.family == "hybrid":
         g, m, t = cfg.hybrid_groups, cfg.hybrid_mamba_per_group, \
             cfg.hybrid_tail
@@ -167,16 +175,40 @@ def _group(group, shared, cfg, x, positions, cdt):
                            cdt)[0]
 
 
+def _sinusoids(n: int, cfg, cdt, device):
+    """The first n sinusoidal position rows, in the compute dtype."""
+    return sinusoid_positions(n, cfg.d_model, device=device).to(cdt)
+
+
+def _encode(params, cfg, frames, cdt):
+    """whisper's encoder: frames (B, T, d) plus sinusoids through the
+    encoder blocks (each recomputed in the backward under cfg.remat) and
+    ln_enc."""
+    enc = frames.to(cdt) + _sinusoids(frames.shape[1], cfg, cdt,
+                                      frames.device)
+    for lp in params["enc_blocks"]:
+        enc = _apply(blk.enc_block_apply, cfg, lp, cfg, enc, cdt)
+    return norm_apply(params["ln_enc"], enc, cfg.norm)
+
+
 def forward_hidden(params, cfg, batch):
-    """batch: {"tokens": (B, N) int}.  Returns (hidden (B, N, d) in the
-    compute dtype, aux loss f32: the MoE blocks' summed, 0 without
-    MoE)."""
+    """batch: {"tokens": (B, N) int} (+ "positions" (3, B, N) for M-RoPE,
+    + "frames" (B, T, d) for the encoder-decoder).  Returns (hidden (B,
+    N, d) in the compute dtype, aux loss f32: the MoE blocks' summed, 0
+    without MoE)."""
     _check_family(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     tokens = batch["tokens"]
     positions = _positions(batch, tokens)
     x = embed_lookup(params["embed"], tokens, cdt)
-    if cfg.family == "hybrid":
+    if cfg.family == "encdec":
+        enc = _encode(params, cfg, batch["frames"], cdt)
+        x = x + _sinusoids(x.shape[1], cfg, cdt, x.device)
+        for lp in params["dec_blocks"]:
+            x = _apply(blk.xdec_block_apply, cfg, lp, cfg, x, enc,
+                       positions, cdt)
+        aux = torch.zeros((), dtype=F32, device=x.device)
+    elif cfg.family == "hybrid":
         # remat at the group level too: the shared attention block's
         # internals are not kept for every group application
         for group in params["mamba_groups"]:
@@ -184,6 +216,8 @@ def forward_hidden(params, cfg, batch):
                        positions, cdt)
         x, aux = _blocks(params.get("tail", []), cfg, x, positions, cdt)
     else:
+        if cfg.rope_kind == "sinusoid":
+            x = x + _sinusoids(x.shape[1], cfg, cdt, x.device)
         x, aux = _blocks(params.get("prefix_blocks", []), cfg, x,
                          positions, cdt)
         x, a = _blocks(params["blocks"], cfg, x, positions, cdt)
@@ -271,9 +305,13 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
     with its own page table at the sink page, in the compute dtype, as
     the reference's; MambaCaches: the f32 SSD state and the conv tail in
     the compute dtype) and the per-slot position counter.  Dense and ssm:
-    {"blocks": [L], "pos"}; moe: {"blocks": [L - p], "prefix": [p] (its p
-    dense first layers), "pos"}; hybrid: {"mamba": [g][m], "shared": [g] (one
-    cache per application of the shared block), "tail": [t], "pos"}."""
+    {"blocks": [L], "pos"}; vlm: the same + "rope_pos" (B,) int32, each
+    slot's next M-RoPE position; moe: {"blocks": [L - p], "prefix": [p]
+    (its p dense first layers), "pos"}; hybrid: {"mamba": [g][m],
+    "shared": [g] (one cache per application of the shared block), "tail":
+    [t], "pos"}; encdec: {"self": [L] decoder self-attention caches,
+    "cross": [L] f32 CrossStates (zeros until prefill builds them from the
+    encoder output), "pos"}."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.compute_dtype)
@@ -281,7 +319,16 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
     def one(c):
         return blk.block_init_cache(c, batch, max_len, dev, dtype)
 
-    if cfg.family == "hybrid":
+    if cfg.family == "encdec":
+        hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
+        cache = {"self": [one(cfg) for _ in range(cfg.num_layers)],
+                 "cross": [CrossState(
+                     s=torch.zeros((batch, hkv, hd, hd + 1), dtype=F32,
+                                   device=dev),
+                     p=torch.zeros((batch, hkv, hd + 1), dtype=F32,
+                                   device=dev))
+                     for _ in range(cfg.num_layers)]}
+    elif cfg.family == "hybrid":
         g, m, t = cfg.hybrid_groups, cfg.hybrid_mamba_per_group, \
             cfg.hybrid_tail
         cache = {"mamba": [[one(cfg) for _ in range(m)] for _ in range(g)],
@@ -295,6 +342,11 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
         if n_prefix:
             cache["prefix"] = [one(cfg) for _ in range(n_prefix)]
     cache["pos"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if cfg.rope_kind == "mrope":
+        # the next rope position of each slot (it lags the token count
+        # where image patches share t/h/w grid positions)
+        cache["rope_pos"] = torch.zeros((batch,), dtype=torch.int32,
+                                        device=dev)
     return cache
 
 
@@ -338,30 +390,61 @@ def _last_logits(params, cfg, x_last):
 
 def prefill(params, cfg, batch, cache):
     """Run a prompt (or a continuation window of one) against `cache`;
-    batch is {"tokens": (B, N)}.  Returns (last-token logits (B, V) f32,
-    new cache).
+    batch is {"tokens": (B, N)} (+ "positions" (3, B, N) under M-RoPE,
+    + "frames" (B, T, d) for the encoder-decoder).  Returns (last-token
+    logits (B, V) f32, new cache).
 
-    Positions and the pos counter CONTINUE from cache["pos"], so chunked
-    prefill (window by window, carrying the recurrent state or the KV
-    cache) is exact.  A recurrent state comes back as new tensors; a KV
-    cache (softmax, contiguous or paged) is written in place and comes
-    back as the same tensors, which saves copying max_len rows per layer
-    and window.  The
-    input's position counter is not modified.
+    Positions and the pos counter CONTINUE from cache["pos"] (or come
+    from batch["positions"]), so chunked prefill (window by window,
+    carrying the recurrent state or the KV cache) is exact; under M-RoPE
+    cache["rope_pos"] becomes one past the last token's largest stream
+    position.  The encoder-decoder prefills once: it runs the encoder,
+    builds each layer's cross-attention state from its output, and gives
+    the decoder sinusoids from position 0, as the reference does.  A
+    recurrent state comes back as new tensors; a KV cache (softmax,
+    contiguous or paged) is written in place and comes back as the same
+    tensors, which saves copying max_len rows per layer and window.  The
+    input's position counters are not modified.
     """
     cdt = dtype_of(cfg.compute_dtype)
     tokens = batch["tokens"]
     n = tokens.shape[1]
-    positions = cache["pos"][:, None] + torch.arange(
-        n, dtype=torch.int32, device=tokens.device)[None]
+    if "positions" in batch:
+        positions = batch["positions"]
+    else:
+        positions = cache["pos"][:, None] + torch.arange(
+            n, dtype=torch.int32, device=tokens.device)[None]
     x = embed_lookup(params["embed"], tokens, cdt)
     new = _new_lists(cache)
-    for lp, lcfg, holder, i in _layers(params, cfg, new):
-        x, holder[i] = blk.block_prefill(lp, lcfg, x, positions, holder[i],
-                                         cdt)
+    if cfg.family == "encdec":
+        enc = _encode(params, cfg, batch["frames"], cdt)
+        x = x + _sinusoids(n, cfg, cdt, x.device)
+        for i, lp in enumerate(params["dec_blocks"]):
+            x, nc = blk.xdec_block_prefill(
+                lp, cfg, x, enc, positions,
+                {"self": new["self"][i], "cross": None}, cdt)
+            new["self"][i], new["cross"][i] = nc["self"], nc["cross"]
+    else:
+        if cfg.rope_kind == "sinusoid":
+            x = x + _sinusoids(n, cfg, cdt, x.device)
+        for lp, lcfg, holder, i in _layers(params, cfg, new):
+            x, holder[i] = blk.block_prefill(lp, lcfg, x, positions,
+                                             holder[i], cdt)
+        if cfg.rope_kind == "mrope":
+            new["rope_pos"] = (positions[:, :, -1].amax(0) + 1).to(
+                torch.int32)
     new["pos"] = cache["pos"] + n
     x = norm_apply(params["ln_f"], x[:, -1:], cfg.norm)
     return _last_logits(params, cfg, x), new
+
+
+def _sinusoid_at(pos, d: int):
+    """Per-slot sinusoidal embedding at positions pos (B,) -> (B, 1, d)
+    f32."""
+    inv = torch.exp(-torch.arange(0, d, 2, dtype=F32, device=pos.device)
+                    / d * math.log(10000.0))
+    ang = pos.float()[:, None] * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)[:, None]
 
 
 def decode_step(params, cfg, cache, tokens):
@@ -372,16 +455,32 @@ def decode_step(params, cfg, cache, tokens):
     the fused decode kernel rewrites each layer's state, or the token's
     k/v land in each layer's KV cache, or (a Mamba-2 block, whose decode
     is the reference's functional plain step) the layer's new MambaCache
-    replaces its entry; the position counter advances and the same dict
-    is returned.
+    replaces its entry; the position counters advance (under M-RoPE all
+    three streams from cache["rope_pos"], as text does) and the same dict
+    is returned.  The encoder-decoder's cross-attention states are read,
+    not written.
     """
     cdt = dtype_of(cfg.compute_dtype)
     pos = cache["pos"]                       # (B,) — per-slot depths
     position = pos[:, None]
+    if cfg.rope_kind == "mrope":
+        position = cache["rope_pos"][None, :, None].expand(
+            3, tokens.shape[0], 1)
     x = embed_lookup(params["embed"], tokens[:, None], cdt)
-    for lp, lcfg, holder, i in _layers(params, cfg, cache):
-        x, holder[i] = blk.block_decode(lp, lcfg, x, position, holder[i],
-                                        cdt)
+    if cfg.rope_kind == "sinusoid":
+        x = x + _sinusoid_at(pos, cfg.d_model).to(cdt)
+    if cfg.family == "encdec":
+        for i, lp in enumerate(params["dec_blocks"]):
+            x, nc = blk.xdec_block_decode(
+                lp, cfg, x, position,
+                {"self": cache["self"][i], "cross": cache["cross"][i]}, cdt)
+            cache["self"][i] = nc["self"]
+    else:
+        for lp, lcfg, holder, i in _layers(params, cfg, cache):
+            x, holder[i] = blk.block_decode(lp, lcfg, x, position,
+                                            holder[i], cdt)
     pos += 1
+    if cfg.rope_kind == "mrope":
+        cache["rope_pos"] += 1
     x = norm_apply(params["ln_f"], x, cfg.norm)
     return _last_logits(params, cfg, x), cache

@@ -21,7 +21,10 @@ carry into the slot's rows of the batched cache and samples the first
 token from the prefill's last logits.  Decode runs over every slot at
 once, updating the batched cache in place; empty, retired and
 mid-prefill slots decode as padding, and a completing prefill overwrites
-whatever padding wrote into its rows.
+whatever padding wrote into its rows.  Under M-RoPE (qwen2-vl-7b) a
+window's text positions start at the carry's `rope_pos`, a leaf of the
+slot like `pos`.  The encoder-decoder family is refused, as by the
+reference's engine: its decode needs each request's encoder frames.
 
 Paged (`page_size`, `num_pages` or a PagedAdmission policy): every
 layer keeps its cache in an arena of pages shared by the slots.  The
@@ -503,8 +506,15 @@ class Engine:
         t0 = timer.now() if tr is not None else 0.0
         tokens = torch.tensor([window], dtype=torch.int64,
                               device=self.device)
-        logits, job.carry = mdl.prefill(self.params, self.cfg,
-                                        {"tokens": tokens}, job.carry)
+        batch = {"tokens": tokens}
+        if self.cfg.rope_kind == "mrope":
+            # text positions: all three streams from the carry's next
+            # rope position
+            pos = job.carry["rope_pos"][:, None] + torch.arange(
+                len(window), dtype=torch.int32, device=self.device)[None]
+            batch["positions"] = pos[None].expand(3, 1, len(window))
+        logits, job.carry = mdl.prefill(self.params, self.cfg, batch,
+                                        job.carry)
         if tr is not None:
             # the span measures device time; the sync changes no values
             if self.device.type == "cuda":

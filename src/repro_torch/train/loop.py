@@ -68,7 +68,8 @@ class Trainer:
         b = self.data_it.batch_at(i)
         if isinstance(b, np.ndarray):
             b = {"tokens": b}
-        return {k: torch.from_numpy(np.asarray(v)).to(self.device)
+        return {k: (v if isinstance(v, torch.Tensor)
+                    else torch.from_numpy(np.asarray(v))).to(self.device)
                 for k, v in b.items()}
 
     def _sync(self) -> None:

@@ -29,11 +29,14 @@ F32 = torch.float32
 
 
 def _microbatches(batch, n: int):
-    """Split every batch entry along dim 0 into n equal parts."""
+    """Split every batch entry along its batch dim (M-RoPE positions
+    (3, B, N): dim 1, else dim 0) into n equal parts."""
     b = batch["tokens"].shape[0]
     if b % n:
         raise ValueError(f"batch {b} does not split into {n} microbatches")
-    return [{k: v[i * (b // n):(i + 1) * (b // n)] for k, v in batch.items()}
+    m = b // n
+    return [{k: (v[:, i * m:(i + 1) * m] if k == "positions"
+                 else v[i * m:(i + 1) * m]) for k, v in batch.items()}
             for i in range(n)]
 
 

@@ -425,8 +425,13 @@ def test_la_attention_normalizes_and_is_causal_only():
                           tnum.l2_normalize(_t(k) * 0.5), _t(v), cfg.a,
                           cfg.b, cfg.chunk, "torch")
     assert torch.equal(o, want)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        tla.la_attention(_t(q), _t(k), _t(v), cfg, causal=False)
+    # causal=False (the encoder and cross-attention): the non-causal form
+    # on the normalized q and k
+    o = tla.la_attention(_t(q) * 3.0, _t(k) * 0.5, _t(v), cfg, causal=False)
+    want = tops.la_noncausal(tnum.l2_normalize(_t(q) * 3.0),
+                             tnum.l2_normalize(_t(k) * 0.5), _t(v), cfg.a,
+                             cfg.b)
+    assert torch.equal(o, want)
 
 
 def test_linear_registry_and_cuda_on_cpu_raises():

@@ -47,6 +47,7 @@ except ImportError:  # the port alone, on the machine with the card
     jax = None
 from repro_torch.configs.registry import get_config
 from repro_torch.convert import params_from_jax
+from repro_torch.core import softmax as tsoftmax_core
 from repro_torch.kernels import decode_fused as tdf
 from repro_torch.kernels import flash_attention as tfl
 from repro_torch.kernels import ops as tops
@@ -462,11 +463,20 @@ def test_softmax_registry_and_cuda_on_cpu_raises():
         tops.softmax_decode_fused(q[:, :, :1], k, v,
                                   torch.tensor([3], dtype=torch.int32),
                                   backend="cuda")
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         tops.softmax_attention(q, k, v, causal=False, backend="cuda")
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        get_backend("softmax").apply_noncausal(None, None, None, None)
     _, cfg = _configs()
+    # the encoder-decoder's non-causal attention: the plain chunked scan
+    # over the mixer's non-causal projections (q from x, k and v from ctx)
+    sm = get_backend("softmax")
+    gen = torch.Generator().manual_seed(0)
+    p = sm.init(gen, cfg)
+    x = torch.randn((1, 5, cfg.d_model), generator=gen)
+    ctx = torch.randn((1, 7, cfg.d_model), generator=gen)
+    qn, kn, vn = sm.project_noncausal(p, cfg, x, ctx, None, None)
+    want = sm.out(p, tsoftmax_core.softmax_chunked(qn, kn, vn, causal=False,
+                                                   chunk=cfg.la.chunk), None)
+    assert torch.equal(sm.apply_noncausal(p, cfg, x, ctx), want)
     from repro_torch.configs.base import PagingCfg
     # paging is served (tests/test_torch_paging.py); a config without an
     # arena of at least 2 pages (one of them the sink) is refused
