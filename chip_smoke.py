@@ -421,8 +421,8 @@ ARCH_TRAIN_DEPTH = {"chatglm3-6b": dict(num_layers=8),
 # with the shared block after each (its grad summed over both
 # applications, each under its own remat) and 1 tail block.  In bf16 the
 # dense stacks' grads at init stand well above the rounding noise, and
-# the wgmma bodies' bf16 products (D = 128) move them by up to twice the
-# plain path's own chunk spread in norm: they are held per leaf, as
+# the wgmma bodies' bf16 products (D = 64, 128) move them by up to twice
+# the plain path's own chunk spread in norm: they are held per leaf, as
 # pythia's linear path is; zamba2's Mamba-2 grads sit at the noise level
 # and are held to the spread, as mamba2's are, and so are the MoE
 # family's: a token near a tie of router scores takes other experts on two
@@ -439,12 +439,17 @@ ARCH_COMPARE_DEPTH = {
 # the families whose bf16 step-0 leg is held per leaf (`_train_legs`)
 PER_LEAF_FAMILIES = ("dense", "vlm", "encdec")
 LA_SHAPE = dict(b=2, h=16, hkv=16, n=8192, d=128)
+# stablelm-1.6b's attention shape, where phase_timing_la times the D = 64
+# bodies
+LA_SHAPE_D64 = dict(b=2, h=32, hkv=32, n=8192, d=64)
 # the new architectures' attention shapes (H, Hkv, D) and the LA kernel
 # cases at them (label, arch, N, dtype): GQA through the wgmma bodies at
-# G = 7 (qwen2-vl-7b), 8, 16 and 48, the token walks at D = 64 (stablelm,
-# and whisper's decoder at its 448-token text context) and 112 (zamba2-7b's
+# G = 7 (qwen2-vl-7b), 8, 16 and 48, the wgmma bodies at D = 64 (stablelm,
+# and whisper's decoder at its 448-token text context; GQA at 64 with a
+# ragged chunk, no registry arch), the token walks at 112 (zamba2-7b's
 # shared attention, 3584 / 32), with GQA at 112 too
 LA_ARCH_SHAPES = {"qwen2.5-3b": (16, 2, 128), "stablelm-1.6b": (32, 32, 64),
+                  "stablelm-1.6b-gqa": (32, 8, 64),
                   "chatglm3-6b": (32, 2, 128), "granite-20b": (48, 1, 128),
                   "zamba2-7b": (32, 32, 112), "zamba2-7b-gqa": (32, 8, 112),
                   "moonshot-v1-16b-a3b": (16, 16, 128),
@@ -458,6 +463,7 @@ LA_ARCH_CASES = (
     ("mqa48_odd_n_bf16", "granite-20b", 1000, "bfloat16"),
     ("d64_bf16", "stablelm-1.6b", 8192, "bfloat16"),
     ("d64_f32", "stablelm-1.6b", 1000, "float32"),
+    ("d64_gqa_odd_n_bf16", "stablelm-1.6b-gqa", 1000, "bfloat16"),
     ("d112_bf16", "zamba2-7b", 8192, "bfloat16"),
     ("d112_f32", "zamba2-7b", 8192, "float32"),
     ("d112_gqa_odd_n_f32", "zamba2-7b-gqa", 1000, "float32"),
@@ -884,14 +890,17 @@ def _la_case(torch, gen, b, h, hkv, n, d, dtype, shared=0.0, dv=None):
 
 def phase_kernel_la(torch):
     """la_fwd, la_bwd_q and la_bwd_kv against their plain versions.
-    Every bf16 case at D = 128 (GQA included: G = 4, and the new archs'
-    8, 16 and 48) runs the chunked wgmma bodies of all three, every f32
-    case and every bf16 case at D = 64 (stablelm-1.6b) or 112 (zamba2-7b)
-    or (Dk, Dv) = (192, 128) (deepseek-v2-236b's MLA) the token walks
-    (from the launchers' C plan exports); the bf16 main
-    case launches each kernel twice for bit-equal o, g, dq, dk and dv; one
-    bf16 case at N = 8192 has q and k that share a direction."""
+    Every bf16 case at D in LA_WGMMA_HEAD_DIMS (128, GQA included: G = 4,
+    and the new archs' 7, 8, 16 and 48; 64: stablelm-1.6b, whisper's
+    decoder, G = 4 at a ragged N) runs the chunked wgmma bodies of all
+    three, every f32 case and every bf16 case at D = 112 (zamba2-7b) or
+    (Dk, Dv) = (192, 128) (deepseek-v2-236b's MLA) the token walks (from
+    the launchers' C plan exports); the bf16 main cases at D = 128 and 64
+    launch each kernel twice for bit-equal o, g, dq, dk and dv; one bf16
+    case at N = 8192 at each of the two has q and k that share a
+    direction."""
     from repro_torch.kernels import linear_attention as la
+    from repro_torch.kernels.defaults import LA_WGMMA_HEAD_DIMS
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     m = LA_SHAPE
@@ -906,6 +915,9 @@ def phase_kernel_la(torch):
              ("gqa_bf16", m["b"], m["h"], 4, 1000, m["d"], None, bf16, 0.0),
              ("shared_bf16", m["b"], m["h"], m["hkv"], m["n"], m["d"], None,
               bf16, LA_SHARED),
+             ("d64_shared_bf16", *(LA_SHAPE_D64[x] for x in
+                                   ("b", "h", "hkv", "n", "d")), None, bf16,
+              LA_SHARED),
              # the new archs' own shapes (LA_ARCH_SHAPES)
              *((label, m["b"], *_la_arch_shape(arch)[:2], n,
                 *_la_arch_shape(arch)[2:], getattr(torch, dtype), 0.0)
@@ -917,8 +929,8 @@ def phase_kernel_la(torch):
         log(f"[kernel] {label}: B={b} H={h} Hkv={hkv} N={n} Dk={d} "
             f"Dv={v.shape[-1]} {dtype} shared={shared}")
         rel = BF16_REL if dtype == torch.bfloat16 else SEQ_F32_REL
-        expect = "wgmma" if dtype == torch.bfloat16 and d == 128 \
-            and dv is None else "walk"
+        expect = "wgmma" if dtype == torch.bfloat16 \
+            and d in LA_WGMMA_HEAD_DIMS and dv is None else "walk"
         bodies = {"la_fwd": _la_fwd_body(q, k, v)[0],
                   **{e: _la_bwd_body(e, q, k, v, om_hat, h_vec)[0]
                      for e in ("la_bwd_q", "la_bwd_kv")}}
@@ -928,7 +940,7 @@ def phase_kernel_la(torch):
         o_k, g_k = la.la_fwd_cuda(q, k, v, 1.0, 1.0)
         dq_k = la.la_bwd_q_cuda(k, v, om_hat, h_vec, 1.0)
         dk_k, dv_k = la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec, 1.0, 1.0)
-        if label == "main_bf16":
+        if label in ("main_bf16", "d64_bf16"):
             again = (*la.la_fwd_cuda(q, k, v, 1.0, 1.0),
                      la.la_bwd_q_cuda(k, v, om_hat, h_vec, 1.0),
                      *la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec, 1.0, 1.0))
@@ -936,7 +948,7 @@ def phase_kernel_la(torch):
             for name, x, y in zip(("o", "g", "dq", "dk", "dv"),
                                   (o_k, g_k, dq_k, dk_k, dv_k), again):
                 if not torch.equal(x, y):
-                    raise AssertionError(f"main_bf16: two launches give "
+                    raise AssertionError(f"{label}: two launches give "
                                          f"different {name}")
             log(f"  {label} o, g, dq, dk, dv: two launches bit-equal "
                 f"({bodies})")
@@ -3795,18 +3807,21 @@ def _la_chunk_flops(b, h, hkv, n, dk, dv):
 
 def _la_tc_flops(b, h, hkv, n, d):
     """The bf16 tensor-core flops of the three LA kernels' chunked wgmma
-    bodies at these shapes (phase_timing_la's docstring)."""
-    from repro_torch.kernels.defaults import LA_CHUNK_TOKENS, LA_WGMMA_SPLIT
+    bodies at these shapes, D in LA_WGMMA_HEAD_DIMS (phase_timing_la's
+    docstring; `parts` = D / 64 blocks per head or per KV head and role,
+    each of `half` = 64 columns)."""
+    from repro_torch.kernels.defaults import LA_CHUNK_TOKENS, LA_WGMMA_PART
     tok_q, tok_kv = b * h * n, b * hkv * n
-    c, half, group = LA_CHUNK_TOKENS, d // 2, h // hkv
+    c, half, group = LA_CHUNK_TOKENS, LA_WGMMA_PART, h // hkv
+    parts = d // half
     return {
-        "la_fwd": tok_q // c * LA_WGMMA_SPLIT * (
+        "la_fwd": tok_q // c * parts * (
             2 * c * c * d + 2 * c * d * half + 2 * c * c * half
             + 2 * c * half * d),
-        "la_bwd_q": tok_q // c * 2 * (
+        "la_bwd_q": tok_q // c * parts * (
             2 * 2 * c * c * d + 3 * 2 * c * half * d + 2 * 2 * c * c * half
             + 2 * c * half * d),
-        "la_bwd_kv": tok_kv // c * 2 * (
+        "la_bwd_kv": tok_kv // c * parts * (
             2 * 2 * 2 * c * half * d
             + group * (2 * 2 * c * c * d + 2 * 2 * c * c * half
                        + 2 * 2 * c * half * d)
@@ -3816,32 +3831,44 @@ def _la_tc_flops(b, h, hkv, n, d):
 
 def phase_timing_la(torch, ptxas):
     """la_fwd, la_bwd_q and la_bwd_kv and their plain versions at the
-    train path's shapes (bf16, as the model hands them over).  Each
-    input is larger than the 50 MB L2, so every call reads it from
-    device memory.  In bf16 all three run their chunked wgmma bodies, on
-    the bf16 tensor cores, per chunk of c tokens:
-      * la_fwd, per (batch, query head) and half of the value columns:
-        q k^T (2 c^2 D), q S (2 c D D/2), A v (2 c^2 D/2) and the state
-        update (2 c D/2 D);
-      * la_bwd_q, per (batch, query head) and half of dq's columns: P =
+    train path's shapes (bf16, as the model hands them over): pythia's
+    (LA_SHAPE, D = 128; records by kernel name) and stablelm-1.6b's
+    (LA_SHAPE_D64; records `<kernel>@d64`).  Each input is larger than
+    the 50 MB L2, so every call reads it from device memory.  In bf16 all
+    three run their chunked wgmma bodies, on the bf16 tensor cores, per
+    chunk of c tokens, with D / 64 parts of 64 columns (`half` below; two
+    parts at D = 128, one at 64):
+      * la_fwd, per (batch, query head) and part of the value columns:
+        q k^T (2 c^2 D), q S (2 c D half), A v (2 c^2 half) and the state
+        update (2 c half D);
+      * la_bwd_q, per (batch, query head) and part of dq's columns: P =
         Ω̂ v^T twice (2 c^2 D; Ω̂ hi + lo), R = Ω̂ A^T three times (2 c
-        D/2 D; both hi + lo), P k twice (2 c^2 D/2) and the update (2 c
-        D/2 D);
-      * la_bwd_kv, per (batch, KV head): for each half of dk, U's readout
-        twice (2 c D/2 D) and per query head T = v Ω̂^T twice (2 c^2 D),
-        T q twice (2 c^2 D/2), the update twice (2 c D/2 D); for each half
-        of dv, the readout twice and per query head S = k q^T (2 c^2 D), A
-        Ω̂ three times (2 c^2 D/2) and the update twice.
+        half D; both hi + lo), P k twice (2 c^2 half) and the update (2 c
+        half D);
+      * la_bwd_kv, per (batch, KV head): for each part of dk, U's readout
+        twice (2 c half D) and per query head T = v Ω̂^T twice (2 c^2 D),
+        T q twice (2 c^2 half), the update twice (2 c half D); for each
+        part of dv, the readout twice and per query head S = k q^T (2 c^2
+        D), A Ω̂ three times (2 c^2 half) and the update twice.
     Each record names the body, its ptxas registers and spills, shared
     memory per block and the blocks an SM holds, keeps the walk's bound
     and the tensor-core and byte times beside, and times the token walk
     (which f32 inputs still run) in turns with it."""
+    out = _timing_la_at(torch, ptxas, LA_SHAPE, 4, "")
+    torch.cuda.empty_cache()
+    out.update(_timing_la_at(torch, ptxas, LA_SHAPE_D64, 5, "@d64"))
+    torch.cuda.empty_cache()
+    return out
+
+
+def _timing_la_at(torch, ptxas, m, seed, suffix):
+    """phase_timing_la at one shape `m`, its records keyed by kernel name
+    and `suffix`."""
     from repro_torch.kernels import linear_attention as la
-    m = LA_SHAPE
     b, h, hkv, n, d = m["b"], m["h"], m["hkv"], m["n"], m["d"]
     dtype = torch.bfloat16
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(4)
+    gen.manual_seed(seed)
     q, k, v, om_hat, h_vec = _la_case(torch, gen, b, h, hkv, n, d, dtype)
     work = _la_work(b, h, hkv, n, d, q.element_size())
     calls = {
@@ -3864,10 +3891,11 @@ def phase_timing_la(torch, ptxas):
     c_bodies = {"la_fwd": _la_fwd_body(q, k, v),
                 **{e: _la_bwd_body(e, q, k, v, om_hat, h_vec)
                    for e in ("la_bwd_q", "la_bwd_kv")}}
-    wgmma_fn = {"la_fwd": ("la_fwd", "lc::la_fwd_wgmma_kernel<false>"),
-                "la_bwd_q": ("la_bwd", "bq::la_bwd_q_wgmma_kernel<false>"),
+    wgmma_fn = {"la_fwd": ("la_fwd", f"lc::la_fwd_wgmma_kernel<{d}, false>"),
+                "la_bwd_q": ("la_bwd",
+                             f"bq::la_bwd_q_wgmma_kernel<{d}, false>"),
                 "la_bwd_kv": ("la_bwd",
-                              "bkv::la_bwd_kv_wgmma_kernel<false>")}
+                              f"bkv::la_bwd_kv_wgmma_kernel<{d}, false>")}
     walk_bounds = {name: _bound(*work[name]) for name in calls}
     for name, (body, _, _) in c_bodies.items():
         if body == "wgmma":
@@ -3891,7 +3919,7 @@ def phase_timing_la(torch, ptxas):
             f"library_ms null: no single PyTorch call computes normalized "
             f"causal linear attention or its gradient (SDPA is softmax)")
         log(f"[timing] {name} body: {rec}")
-        out[name] = rec
+        out[name + suffix] = rec
     del qf, kf, vf
     return out
 
@@ -4154,7 +4182,7 @@ def phase_timing_gla(torch, ptxas):
     from repro_torch.kernels import decode_fused as df
     from repro_torch.kernels import gla
     from repro_torch.kernels import linear_attention as la
-    from repro_torch.kernels.defaults import LA_CHUNK_TOKENS, LA_WGMMA_SPLIT
+    from repro_torch.kernels.defaults import LA_CHUNK_TOKENS, LA_WGMMA_PART
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
@@ -4251,7 +4279,7 @@ def phase_timing_gla(torch, ptxas):
                                                   h_vec, 1.0, 1.0)}
     c, half, group = LA_CHUNK_TOKENS, d // 2, h // hkv
     tc_flops = {
-        "gla_fwd": tok_q // c * LA_WGMMA_SPLIT * (
+        "gla_fwd": tok_q // c * (d // LA_WGMMA_PART) * (
             2 * c * c * d + 2 * 2 * c * d * half + 2 * 2 * c * c * half
             + 2 * 2 * c * half * d),
         "gla_bwd_q": tok_q // c * 2 * (
@@ -4425,22 +4453,30 @@ def phase_timing_arch(torch, ptxas, arch_launches):
     version and its bound, with its launches on the main path (the arch's
     serve and train runs): la_fwd, la_bwd_q and la_bwd_kv at each arch's
     (H, Hkv, D) in bf16 (B=2, N=8192, whisper-large-v3 its train shape
-    B=16, N=448; the wgmma bodies at D = 128 with G = 7, 8, 16, 48, the
-    token walks at D = 64 and 112) by loops in turns with the plain
-    versions; la_decode_fused at each arch's serving shape
+    B=16, N=448; the wgmma bodies at D = 128 with G = 7, 8, 16, 48 and at
+    D = 64, each with its ptxas registers and spills and the blocks an SM
+    holds, the token walks at D = 112 and (192, 128)) by loops in turns
+    with the plain versions; la_decode_fused at each arch's serving shape
     (ARCH_SLOTS slots, bf16) by CUDA graph replays in turns with the
     pythia serving shape's (row 3), rotating over enough states to exceed
     the 50 MB L2; the SSD kernels at zamba2-7b's (64, 64) (the token
     walks).  Each bf16 case is bounded by the function, whatever body
     runs it: bytes at 3.35 TB/s against the chunked bodies' bf16
-    operations (`_la_tc_flops`, `_ssd_tc_flops`) at 989 TFLOP/s; the
+    operations (`_la_tc_flops`, `_ssd_tc_flops`; where no chunked body
+    runs, the chunked form's, `_la_chunk_flops`) at 989 TFLOP/s; the
     token walk's own f32 operations at 67 TFLOP/s are kept beside as
     `walk_bound`, a bound of that algorithm, not of the function."""
     from repro_torch.kernels import decode_fused as df
     from repro_torch.kernels import linear_attention as la
     from repro_torch.kernels import ssd
+    from repro_torch.kernels.defaults import LA_WGMMA_HEAD_DIMS
     gen = torch.Generator(device="cuda")
     gen.manual_seed(23)
+    # the wgmma bodies' instantiations, by kernel: (library, name prefix)
+    wgmma_fn = {"la_fwd": ("la_fwd", "lc::la_fwd_wgmma_kernel<{}, false>"),
+                "la_bwd_q": ("la_bwd", "bq::la_bwd_q_wgmma_kernel<{}, false>"),
+                "la_bwd_kv": ("la_bwd",
+                              "bkv::la_bwd_kv_wgmma_kernel<{}, false>")}
     bf16 = torch.bfloat16
     out = {}
     for arch in TIMED_ARCHS:
@@ -4450,8 +4486,9 @@ def phase_timing_arch(torch, ptxas, arch_launches):
         q, k, v, om_hat, h_vec = _la_case(torch, gen, b, h, hkv, n, d, bf16,
                                           dv=dv)
         work = _la_work(b, h, hkv, n, d, q.element_size(), dv)
-        tc = (_la_tc_flops(b, h, hkv, n, d) if dv is None
-              else _la_chunk_flops(b, h, hkv, n, d, dv))
+        tc = (_la_tc_flops(b, h, hkv, n, d)
+              if dv is None and d in LA_WGMMA_HEAD_DIMS
+              else _la_chunk_flops(b, h, hkv, n, d, dv or d))
         bodies = {"la_fwd": _la_fwd_body(q, k, v),
                   **{e: _la_bwd_body(e, q, k, v, om_hat, h_vec)
                      for e in ("la_bwd_q", "la_bwd_kv")}}
@@ -4477,6 +4514,11 @@ def phase_timing_arch(torch, ptxas, arch_launches):
                    "body": body, "threads": launch.threads,
                    "smem_per_block": launch.smem, "grid": list(launch.grid),
                    "c_plan": list(c_geo), "launches": train_l.get(name, 0)}
+            if body == "wgmma":
+                lib, fn = wgmma_fn[name]
+                rec.update(ptxas=_ptxas_of(ptxas, lib, fn.format(d)),
+                           blocks_per_sm_fit=_blocks_per_sm(
+                               launch.threads, launch.smem, c_geo[5]))
             log(f"[timing arch] {name} {arch} (B={b} H={h} Hkv={hkv} N={n} "
                 f"Dk={d} Dv={dv or d} bf16, {body}): {rec}")
             out[f"{name}@{arch}"] = rec

@@ -218,7 +218,8 @@ def _ints(values) -> torch.Tensor:
 # the widths of each driver: the reference's small ones (head dims raised
 # to the kernels' smallest instantiation, 32) and registry models': pythia
 # and mamba2, qwen2-vl-7b's group of 7 (28 query heads on 4 KV heads),
-# granite-20b's group of 48 query heads on one KV head,
+# granite-20b's group of 48 query heads on one KV head, stablelm-1.6b's
+# head dim 64 (the linear entries' chunked bodies at D = 64),
 # zamba2-7b's shared attention (head dim 112) and Mamba-2 layers (64, 64)
 # and deepseek-v2-236b's MLA heads (Dk = 192 for q and k, Dv = 128; `d`
 # is Dk, `dv` Dv where they differ)
@@ -227,6 +228,7 @@ WIDTHS = {
     "pythia-1.4b": dict(h=16, hkv=16, d=128, dtype=BF16),
     "qwen2-vl-7b": dict(h=28, hkv=4, d=128, dtype=BF16),
     "granite-20b": dict(h=48, hkv=1, d=128, dtype=BF16),
+    "stablelm-1.6b": dict(h=32, hkv=32, d=64, dtype=BF16),
     "zamba2-7b": dict(h=32, hkv=32, d=112, dtype=BF16),
     "deepseek-v2-236b": dict(h=128, hkv=128, d=192, dv=128, dtype=BF16),
 }
@@ -237,13 +239,14 @@ SSD_WIDTHS = {
 }
 # the models' widths each family is driven at beside the small ones: the
 # linear entries and the linear decode step also at qwen2-vl-7b's,
-# granite-20b's, zamba2-7b's and deepseek-v2-236b's, the gated decode
+# granite-20b's, zamba2-7b's and deepseek-v2-236b's, the linear entries
+# at stablelm-1.6b's, the gated decode
 # step at qwen2-vl-7b's group too (their kernels take these shapes; gla,
 # softmax and paging do not take zamba2's head dim, nor softmax
 # qwen2-vl's or granite's group, nor any of them MLA's (192, 128))
 FULL_WIDTHS = {"ssd": ("mamba2-2.7b", "zamba2-7b"),
                "linear": ("pythia-1.4b", "qwen2-vl-7b", "granite-20b",
-                          "zamba2-7b", "deepseek-v2-236b"),
+                          "stablelm-1.6b", "zamba2-7b", "deepseek-v2-236b"),
                "linear_decode_fused": ("pythia-1.4b", "qwen2-vl-7b",
                                        "granite-20b", "zamba2-7b",
                                        "deepseek-v2-236b"),

@@ -189,11 +189,11 @@ __device__ __forceinline__ void split_rows_f32(const Cumsum& cl,
 }
 
 // Σ_col tile[row, col] vec[col] for rows row0 and row0 + 8 of a 64-row
-// bf16 tile of 128 columns (two 128-byte-swizzled boxes of 64 columns,
-// kBox bytes apart), vec 128 f32 values in shared memory: the quad of a
-// row splits its 16 chunks of 16 bytes, then sums its partial dots with
-// two shuffles.  Every lane of the warp takes part.
-template <size_t kBox>
+// bf16 tile of kCols columns (64 or 128: 128-byte-swizzled boxes of 64
+// columns, kBox bytes apart), vec kCols f32 values in shared memory: the
+// quad of a row splits its kCols / 8 chunks of 16 bytes, then sums its
+// partial dots with two shuffles.  Every lane of the warp takes part.
+template <size_t kBox, int kCols = 128>
 __device__ __forceinline__ void row_dot(const unsigned char* tile,
                                         const float* vec, int row0, int tq,
                                         float (&out)[2]) {
@@ -202,7 +202,7 @@ __device__ __forceinline__ void row_dot(const unsigned char* tile,
     const int row = row0 + 8 * r;
     float part = 0.f;
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
+    for (int jj = 0; jj < kCols / 32; ++jj) {
       const int x = tq + 4 * jj;  // 16-byte chunk: columns 8 x ..
       const uint4 raw = *reinterpret_cast<const uint4*>(
           tile + (x / 8) * kBox + row * 128 + (((x % 8) ^ (row % 8)) * 16));

@@ -50,10 +50,12 @@
 // MLA heads (plan::with_walk_dims).
 //
 // Two bodies of each entry, chosen by the launcher from the dtype and the
-// dims: the chunked wgmma bodies (namespaces bq and bkv; gla_bwd_q and
-// gla_bwd_kv run their kGated instances) for bf16 at Dk = Dv = 128, the
-// training instance; the token walk (the gated entries its kGated
-// instantiation) for f32 and at every other pair.
+// dims (plan::chunked_dims): the chunked wgmma bodies (namespaces bq and
+// bkv, `template <int kD, bool kGated>`) for bf16 at Dk = Dv = 128
+// (gla_bwd_q and gla_bwd_kv their kGated instances) and, for the linear
+// entries only, 64 (stablelm-1.6b, whisper-large-v3's decoder); the token
+// walk (the gated entries its kGated instantiation) for f32 and at every
+// other pair.
 //
 // What bounds them (estimates from the shapes, not measurements; B=2,
 // H=Hkv=16, N=8192, D=128): the token walk of la_bwd_q does 4 D (D+1)
@@ -67,16 +69,21 @@
 // gated, with its two-product update, 68.7 GFLOP, 0.069 ms), la_bwd_kv
 // 116.0 GFLOP (0.117 ms; gated, with its three-product update in the dk
 // blocks, 124.6 GFLOP); all are bound by their bytes (gla_bwd_q 337.6 MB,
-// 0.101 ms; gla_bwd_kv 540.0 MB, 0.161 ms, dV' in f32).
+// 0.101 ms; gla_bwd_kv 540.0 MB, 0.161 ms, dV' in f32).  At
+// stablelm-1.6b's B=2, H=Hkv=32, N=8192, D=64 the bodies do 34.4 and 68.7
+// GFLOP (0.035 and 0.069 ms) against 0.101 and 0.141 ms of bytes.
 //
 // Design of the chunked la_bwd_q body (namespace bq; the reference's
 // chunk form, src/repro/kernels/linear_attention.py:142-167, with
 // la_fwd.cu's lc as the model):
-//   * two blocks per (batch, query head), one per half of dq's Dk = 128
-//     columns, so each block's share of the state, A_v = Σ k^T v (its 64
-//     rows of Dk x Dv), is one m64n128 f32 accumulator (64 registers a
-//     thread); 64 blocks at B=2, H=16, one to an SM;
-//   * thread 0 loads each chunk's k (the block's half), v and the f32 Ω̂
+//   * D / 64 blocks per (batch, query head), one per part of 64 of dq's
+//     Dk columns, so each block's share of the state, A_v = Σ k^T v (its
+//     64 rows of Dk x Dv), is one m64nD f32 accumulator: at D = 128 two
+//     blocks a head (64 registers a thread), 64 blocks at B=2, H=16, one
+//     to an SM (183,040 B); at D = 64 one block a head holding all of A_v
+//     (32 registers), 64 blocks at B=2, H=32 (101,120 B, two would fit an
+//     SM);
+//   * thread 0 loads each chunk's k (the block's part), v and the f32 Ω̂
 //     (TMA boxes of 32 f32 columns, map_rows_f32) into a 2-stage ring;
 //     rows past N arrive as zeros; h goes by plain loads a chunk ahead;
 //   * per chunk of 64 tokens: Ω̂ is split into hi + lo bf16 tiles; P =
@@ -96,15 +103,17 @@
 //
 // Design of the chunked la_bwd_kv body (namespace bkv; the reference's
 // chunk form, linear_attention.py:170-205, with ssd.cu's sk as the model):
-//   * four blocks per (batch, KV head): blocks y = 0, 1 write dk's column
-//     half y, blocks y = 2, 3 dv's half y - 2.  Each keeps a 64 x 128
-//     slice of U_qΩ = Σ q^T Ω̂ as one m64n128 f32 accumulator in the
-//     orientation its readout needs (dk: rows of U_qΩ, dv: rows of
-//     U_qΩ^T), as the walk's row and column roles do; 128 blocks at B=2,
-//     Hkv=16, one wave on 132 SMs;
+//   * 2 D / 64 blocks per (batch, KV head): blocks y < D / 64 write dk's
+//     columns 64 y.., the rest dv's columns 64 (y - D / 64)...  Each keeps
+//     a 64 x D slice of U_qΩ = Σ q^T Ω̂ as one m64nD f32 accumulator in
+//     the orientation its readout needs (dk: rows of U_qΩ, dv: rows of
+//     U_qΩ^T), as the walk's row and column roles do: at D = 128 four
+//     blocks, 128 at B=2, Hkv=16, one wave on 132 SMs (199,424 B, one an
+//     SM); at D = 64 two, a dk and a dv block each holding all of U_qΩ
+//     (32 registers), 128 at B=2, Hkv=32 (101,120 B, two would fit);
 //   * the reverse walk goes over (chunk, query head of the group) steps
 //     from the last chunk, loaded by TMA into a 2-stage ring: dk blocks
-//     v, their half of q and the f32 Ω̂; dv blocks k, q and their half of
+//     v, their part of q and the f32 Ω̂; dv blocks k, q and their part of
 //     Ω̂.  U's readout runs at a chunk's first step, from the hi + lo
 //     copies of the state before the chunk; each step adds its query
 //     head's share; dk or dv is stored at the chunk's last step;
@@ -139,7 +148,8 @@
 // pair run three times (hi hi, lo hi, hi lo).  h, z, u_h and u_Ω never
 // go through an operand.
 //
-// Design of the token walk (simple first; as in la_fwd.cu):
+// Design of the token walk (simple first; as in la_fwd.cu; f32, D = 32 and
+// 112, (192, 128), and the gated entries at D = 64):
 //   * every state is tiled over threads in 4 x D/4 register tiles, so each
 //     float a thread reads from shared memory feeds 4 FMAs, and the 4
 //     partial dots of a tile row are summed across 4 adjacent lanes with
@@ -186,20 +196,21 @@
 #include "sm90.cuh"
 
 // ---------------------------------------------------------------------------
-// the chunked wgmma bodies (bf16, D = 128)
+// the chunked wgmma bodies (bf16, D = 64 and 128)
 // ---------------------------------------------------------------------------
 
 namespace lbw {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 128;
-constexpr int kHalf = kD / 2;       // the columns a block writes
+constexpr int kPart = 64;           // the columns a block writes: its N
 constexpr int kChunk = 64;          // tokens of a chunk: the M of wgmma
 constexpr int kStages = 2;          // steps in the TMA ring
 constexpr int kThreads = 128;       // one warpgroup
 constexpr size_t kBox = static_cast<size_t>(kChunk) * 128;  // one TMA box
-constexpr size_t kTile = 2 * kBox;  // a 64 x 128 bf16 tile
+// a 64 x kD bf16 tile (kD / 64 boxes; kD = 64 or 128, the head dim)
+template <int kD>
+constexpr size_t kTile = kD / 64 * kBox;
 // beside the tiles and the sums: the barriers, and up to 1024 bytes of
 // padding to the tiles' 1024-byte alignment
 constexpr size_t kExtra = 2048;
@@ -223,10 +234,10 @@ __device__ __forceinline__ float bf16_at(const unsigned char* tile, int t,
 }
 
 // rows row0 and row0 + 8 of a warpgroup's m64n64 f32 accumulator d (the
-// half of D a block writes) as bf16 into rows t0 + row0 (+ 8) < n of
-// `out` (rows of kD values, starting at the half's first column), each
+// 64 columns of D a block writes) as bf16 into rows t0 + row0 (+ 8) < n
+// of `out` (rows of kD values, starting at the part's first column), each
 // value f(i, column) of accumulator element i
-template <typename F>
+template <int kD, typename F>
 __device__ __forceinline__ void store_rows(bf16* out, int t0, int row0,
                                            int n, F&& f) {
   const int tq = threadIdx.x % 4;
@@ -236,7 +247,7 @@ __device__ __forceinline__ void store_rows(bf16* out, int t0, int row0,
     if (row >= n) continue;
     bf16* dst = out + static_cast<size_t>(row) * kD + 2 * tq;
 #pragma unroll
-    for (int a = 0; a < kHalf / 8; ++a) {
+    for (int a = 0; a < kPart / 8; ++a) {
       const int i = 4 * a + 2 * r, col = 8 * a + 2 * tq;
       *reinterpret_cast<uint32_t*>(dst + 8 * a) =
           sm90::pack_bf16(f(i, col), f(i + 1, col + 1));
@@ -250,18 +261,21 @@ namespace bq {
 
 using namespace lbw;
 
-constexpr int kSplit = 2;  // blocks per head, by dq's columns
-// a stage: k (the block's half, one box), v (two), the f32 Ω̂ (four)
-constexpr size_t kK = 0;
-constexpr size_t kV = kK + kBox;
-constexpr size_t kOm = kV + 2 * kBox;
-constexpr size_t kStageBytes = kOm + 4 * kBox;
 constexpr float kLog2e = 1.4426950408889634f;
-// after the ring: Ω̂'s hi and lo tiles, A_v's hi and lo copies, gated the
-// hi and lo (w o v) tiles (64 x 128 each), z twice and h of the chunk
-// (f32).  183,040 B; gated 215,808 B: one block an SM
-template <bool kGated>
+// At head dim kD (64 or 128; gated only 128): kD / 64 blocks per head, by
+// dq's columns.  A stage: k (the block's 64 columns, one box), v (kD / 64
+// boxes), the f32 Ω̂ (kD / 32).  After the ring: Ω̂'s hi and lo tiles,
+// A_v's hi and lo copies, gated the hi and lo (w o v) tiles (64 x kD
+// each), z twice and h of the chunk (f32).  D = 128: 183,040 B, gated
+// 215,808 B, one block an SM; D = 64: 101,120 B, two
+template <int kD, bool kGated>
 struct Layout {
+  static constexpr int kSplit = kD / kPart;
+  static constexpr size_t kTile = lbw::kTile<kD>;
+  static constexpr size_t kK = 0;
+  static constexpr size_t kV = kK + kBox;
+  static constexpr size_t kOm = kV + kTile;
+  static constexpr size_t kStageBytes = kOm + 2 * kTile;
   static constexpr size_t kOmHi = kStages * kStageBytes;
   static constexpr size_t kOmLo = kOmHi + kTile;
   static constexpr size_t kAHi = kOmLo + kTile;
@@ -269,22 +283,23 @@ struct Layout {
   static constexpr size_t kWvHi = kALo + kTile;
   static constexpr size_t kWvLo = kWvHi + kTile;
   static constexpr size_t kZ = kGated ? kWvLo + kTile : kWvHi;
-  static constexpr size_t kH = kZ + 2 * kHalf * 4;
+  static constexpr size_t kH = kZ + 2 * kPart * 4;
   static constexpr size_t kBars = kH + kChunk * 4;
   static constexpr size_t kSmem = kBars + kExtra;
 };
 
-// One block per (batch, query head, half of Dk) walks its head's chunks in
-// order.  Per chunk of c = 64 tokens, with A_v (this half's 64 rows of
-// Σ k^T v, held as the f32 accumulator av) and z (its Σ k) over the
-// earlier chunks:
+// One block per (batch, query head, part of 64 of Dk's columns) walks its
+// head's chunks in order: D / 64 blocks per head, so that the block's
+// A_v (its 64 rows of Σ k^T v, 64 x D) is one m64nD f32 accumulator (av).
+// Per chunk of c = 64 tokens, with A_v and z (its Σ k) over the earlier
+// chunks:
 //   P  = Ω̂ v^T, R = Ω̂ A_v^T                  (wgmma, SS; Ω̂ and A_v hi + lo)
 //   P  = P - h on j <= i, else 0              (f32, then hi + lo registers)
 //   dq = b (R + P k - h z^T)                  (wgmma, RS; k MN-major)
 //   A_v += k^T v                              (wgmma, SS; both MN-major)
 //   z  += Σ k                                 (f32, CUDA cores)
-// kGated (gla_bwd_q; the reference's _gla_bwd_q_kernel): with cl the
-// inclusive cumsum of the chunk's log decays (base 2, the KV head's),
+// kGated (gla_bwd_q, D = 128; the reference's _gla_bwd_q_kernel): with cl
+// the inclusive cumsum of the chunk's log decays (base 2, the KV head's),
 // `total` its last, and every exponent a masked difference <= 0
 // (decay.cuh):
 //   P  = (P - h) o 2^(cl_i - cl_j) on j <= i   (f32, the mask first)
@@ -293,7 +308,7 @@ struct Layout {
 //   A_v = 2^total A_v + k^T (w o v), w_j = 2^(total - cl_j) <= 1
 //                                              ((w o v) as hi + lo, SS)
 //   z  = 2^total z + Σ_j w_j k_j               (f32, CUDA cores)
-template <bool kGated>
+template <int kD, bool kGated>
 __global__ void __launch_bounds__(kThreads, 1)
     la_bwd_q_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map,
@@ -301,15 +316,16 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const float* __restrict__ ld,
                           const float* __restrict__ hv, bf16* __restrict__ dq,
                           int heads, int kv_heads, int n, float b) {
-  using L = Layout<kGated>;
+  using L = Layout<kD, kGated>;
+  constexpr size_t kK = L::kK, kV = L::kV, kOm = L::kOm;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = sm90::aligned_smem(smem_raw);
-  float* z_sh = reinterpret_cast<float*>(smem + L::kZ);  // [2][kHalf]
+  float* z_sh = reinterpret_cast<float*>(smem + L::kZ);  // [2][kPart]
   float* h_sh = reinterpret_cast<float*>(smem + L::kH);  // [kChunk]
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
 
   const int bh = blockIdx.x;  // batch * heads + query head
-  const int half = blockIdx.y;
+  const int part = blockIdx.y;  // the part of dq's columns
   const int bi = bh / heads;
   const int kv_slice = bi * kv_heads + (bh - bi * heads) / (heads / kv_heads);
   const int chunks = (n + kChunk - 1) / kChunk;
@@ -319,22 +335,24 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int row0 = 16 * warp + lane / 4;  // this thread's rows: +0, +8
   const float* h_row = hv + static_cast<size_t>(bh) * n;
 
-  auto stage_of = [&](int c) { return smem + (c % kStages) * kStageBytes; };
-  // k's half, v and Ω̂ of chunk c into its stage; rows past n arrive as
+  auto stage_of = [&](int c) {
+    return smem + (c % kStages) * L::kStageBytes;
+  };
+  // k's part, v and Ω̂ of chunk c into its stage; rows past n arrive as
   // zeros
   auto load_chunk = [&](int c) {
     unsigned char* st = stage_of(c);
     uint64_t* bar = &full[c % kStages];
-    sm90::bar_expect(bar, kStageBytes);
-    sm90::tma_load_3d(st + kK, &k_map, bar, kHalf * half, c * kChunk,
+    sm90::bar_expect(bar, L::kStageBytes);
+    sm90::tma_load_3d(st + L::kK, &k_map, bar, kPart * part, c * kChunk,
                       kv_slice);
 #pragma unroll
-    for (int bx = 0; bx < 2; ++bx)
-      sm90::tma_load_3d(st + kV + bx * kBox, &v_map, bar, 64 * bx,
+    for (int bx = 0; bx < kD / 64; ++bx)
+      sm90::tma_load_3d(st + L::kV + bx * kBox, &v_map, bar, 64 * bx,
                         c * kChunk, kv_slice);
 #pragma unroll
-    for (int bx = 0; bx < 4; ++bx)
-      sm90::tma_load_3d(st + kOm + bx * kBox, &om_map, bar, 32 * bx,
+    for (int bx = 0; bx < kD / 32; ++bx)
+      sm90::tma_load_3d(st + L::kOm + bx * kBox, &om_map, bar, 32 * bx,
                         c * kChunk, bh);
   };
   // h of chunk c's token tid (0 past n and for tid >= kChunk)
@@ -357,18 +375,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::bar_init_fence();
   }
   // A_v = 0 before the first chunk (both copies), z = 0
-  for (int i = tid; i < static_cast<int>(2 * kTile / 16); i += kThreads)
+  for (int i = tid; i < static_cast<int>(2 * L::kTile / 16); i += kThreads)
     reinterpret_cast<uint4*>(smem + L::kAHi)[i] = make_uint4(0, 0, 0, 0);
-  if (tid < kHalf) z_sh[tid] = 0.f;
+  if (tid < kPart) z_sh[tid] = 0.f;
   sm90::fence_async_smem();
   __syncthreads();
   if (tid == 0) load_chunk(0);
 
-  float av[64];  // A_v: rows (Dk) row0 (+ 8), columns (Dv) 8 a + 2 tq (+ 1)
+  float av[kD / 2];  // A_v: rows (Dk) row0 (+ 8), columns (Dv) 8 a + 2 tq
+                     // (+ 1)
 #pragma unroll
-  for (int i = 0; i < 64; ++i) av[i] = 0.f;
+  for (int i = 0; i < kD / 2; ++i) av[i] = 0.f;
   float h_next = load_h(0);
-  bf16* dq_head = dq + static_cast<size_t>(bh) * n * kD + kHalf * half;
+  bf16* dq_head = dq + static_cast<size_t>(bh) * n * kD + kPart * part;
   // gated: the chunk's log decays (the next chunk's, loaded a chunk ahead)
   [[maybe_unused]] float ld_cur[2] = {0.f, 0.f}, ld_next[2] = {0.f, 0.f};
   if constexpr (kGated) load_ld(0, ld_cur);
@@ -412,20 +431,20 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
       sm90::mma_ss_n64(acc, sm90::desc_k<kChunk>(oh_t, kk),
-                       sm90::desc_k<kHalf>(ah_t, kk), kk);
+                       sm90::desc_k<kPart>(ah_t, kk), kk);
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
       sm90::mma_ss_n64(acc, sm90::desc_k<kChunk>(ol_t, kk),
-                       sm90::desc_k<kHalf>(ah_t, kk), 1);
+                       sm90::desc_k<kPart>(ah_t, kk), 1);
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
       sm90::mma_ss_n64(acc, sm90::desc_k<kChunk>(oh_t, kk),
-                       sm90::desc_k<kHalf>(al_t, kk), 1);
+                       sm90::desc_k<kPart>(al_t, kk), 1);
     sm90::mma_commit();
 
     // behind the products, in f32 on the CUDA cores: gated, cl
     // (cd::scan) and the hi and lo (w o v) tiles; the next chunk's z (each
-    // of the first kHalf threads one column of k's half; gated, each token
+    // of the first kPart threads one column of k's part; gated, each token
     // weighted by w and the carried z decayed by 2^total)
     [[maybe_unused]] cd::Cumsum cl;
     [[maybe_unused]] float w_tok[2] = {1.f, 1.f};  // w of tokens 2l, 2l + 1
@@ -433,7 +452,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if constexpr (kGated) {
       cl = cd::scan(ld_cur, lane);
 #pragma unroll
-      for (int bx = 0; bx < 2; ++bx)
+      for (int bx = 0; bx < kD / 64; ++bx)
         cd::weighted_v<true, kThreads>(cl, st + kV + bx * kBox,
                                        smem + L::kWvHi + bx * kBox,
                                        smem + L::kWvLo + bx * kBox, tid);
@@ -441,8 +460,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       w_tok[1] = sm90::exp2_ftz(cl.total - cl.odd);
       e_total = sm90::exp2_ftz(cl.total);
     }
-    const float* z_cur = z_sh + (c % 2) * kHalf;
-    if (tid < kHalf) {
+    const float* z_cur = z_sh + (c % 2) * kPart;
+    if (tid < kPart) {
       float sum = 0.f;
 #pragma unroll 8
       for (int t = 0; t < kChunk; ++t) {
@@ -452,7 +471,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         else
           sum += bf16_at(st + kK, t, tid);
       }
-      z_sh[((c + 1) % 2) * kHalf + tid] =
+      z_sh[((c + 1) % 2) * kPart + tid] =
           kGated ? fmaf(e_total, z_cur[tid], sum) : z_cur[tid] + sum;
     }
     [[maybe_unused]] float cl_col[16], cl_row[2];
@@ -495,7 +514,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                  (acc[i] - h_r[r] * z_cur[8 * (i / 4) + 2 * tq + (i & 1)]);
       }
 #pragma unroll
-      for (int i = 0; i < 64; ++i) av[i] *= e_total;
+      for (int i = 0; i < kD / 2; ++i) av[i] *= e_total;
       // the (w o v) tiles for the state update
       sm90::fence_async_smem();
     }
@@ -519,7 +538,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int x = 0; x < 2; ++x)
 #pragma unroll
         for (int kk = 0; kk < kChunk / 16; ++kk)
-          sm90::mma_ss_n128<1, 1>(
+          sm90::mma_ss<1, 1>(
               av, sm90::desc_mn<kChunk>(k_t, kk),
               sm90::desc_mn<kChunk>(reinterpret_cast<const bf16*>(
                                         smem + (x ? L::kWvLo : L::kWvHi)),
@@ -528,8 +547,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     } else {
 #pragma unroll
       for (int kk = 0; kk < kChunk / 16; ++kk)
-        sm90::mma_ss_n128<1, 1>(av, sm90::desc_mn<kChunk>(k_t, kk),
-                                sm90::desc_mn<kChunk>(v_t, kk), 1);
+        sm90::mma_ss<1, 1>(av, sm90::desc_mn<kChunk>(k_t, kk),
+                           sm90::desc_mn<kChunk>(v_t, kk), 1);
     }
     sm90::mma_commit();
 
@@ -537,7 +556,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::pin(acc);
     sm90::pin(ph);
     sm90::pin(pl);
-    store_rows(dq_head, t0, row0, n, [&](int i, int col) {
+    store_rows<kD>(dq_head, t0, row0, n, [&](int i, int col) {
       return kGated ? b * acc[i]
                     : b * (acc[i] - h_r[(i >> 1) & 1] * z_cur[col]);
     });
@@ -560,28 +579,32 @@ namespace bkv {
 
 using namespace lbw;
 
-constexpr int kSplit = 4;  // blocks per KV head: dk's halves, dv's halves
-// a stage: v (dk blocks) or k (dv blocks), two boxes; q's half (dk, one
-// box) or q (dv, two); the f32 Ω̂ (dk: four boxes) or its half (dv: two)
-constexpr size_t kKV = 0;
-constexpr size_t kQ = kKV + 2 * kBox;
-constexpr size_t kOm = kQ + 2 * kBox;
-constexpr size_t kStageBytes = kOm + 4 * kBox;
-// after the ring: Ω̂'s hi and lo tiles (the dv blocks use their first
-// box; gated, their second holds the decay-weighted Ω̂), U's hi and lo
-// copies, the f32 sums (u_h or u_Ω) twice and h
-constexpr size_t kOmHi = kStages * kStageBytes;
-constexpr size_t kOmLo = kOmHi + kTile;
-constexpr size_t kUHi = kOmLo + kTile;
-constexpr size_t kULo = kUHi + kTile;
-constexpr size_t kSums = kULo + kTile;
-constexpr size_t kH = kSums + 2 * kHalf * 4;
 constexpr float kLog2e = 1.4426950408889634f;
-// then, gated only, the sums of dV''s augmented column (u_h over all of
-// Dk and Σ h, each twice), the step's token weights 2^cl and 2^cl h, and
-// the barriers.  199,424 B; gated 200,976 B: one block an SM
-template <bool kGated>
+// At head dim kD (64 or 128; gated only 128): 2 kD / 64 blocks per KV
+// head, dk's parts of 64 columns, then dv's.  A stage: v (dk blocks) or k
+// (dv blocks), kD / 64 boxes; q's part (dk, one box) or q (dv, kD / 64);
+// the f32 Ω̂ (dk: kD / 32 boxes) or its part (dv: two).  After the ring:
+// Ω̂'s hi and lo tiles (the dv blocks use their first box; gated, their
+// second holds the decay-weighted Ω̂), U's hi and lo copies, the f32 sums
+// (u_h or u_Ω) twice and h; then, gated only, the sums of dV''s augmented
+// column (u_h over all of Dk and Σ h, each twice), the step's token
+// weights 2^cl and 2^cl h, and the barriers.  D = 128: 199,424 B, gated
+// 200,976 B, one block an SM; D = 64: 101,120 B, two
+template <int kD, bool kGated>
 struct Layout {
+  static constexpr int kParts = kD / kPart;  // blocks of each role
+  static constexpr int kSplit = 2 * kParts;
+  static constexpr size_t kTile = lbw::kTile<kD>;
+  static constexpr size_t kKV = 0;
+  static constexpr size_t kQ = kKV + kTile;
+  static constexpr size_t kOm = kQ + kTile;
+  static constexpr size_t kStageBytes = kOm + 2 * kTile;
+  static constexpr size_t kOmHi = kStages * kStageBytes;
+  static constexpr size_t kOmLo = kOmHi + kTile;
+  static constexpr size_t kUHi = kOmLo + kTile;
+  static constexpr size_t kULo = kUHi + kTile;
+  static constexpr size_t kSums = kULo + kTile;
+  static constexpr size_t kH = kSums + 2 * kPart * 4;
   static constexpr size_t kUh = kH + kChunk * 4;
   static constexpr size_t kHs = kUh + 2 * kD * 4;
   static constexpr size_t kE = kHs + 16;
@@ -590,11 +613,11 @@ struct Layout {
   static constexpr size_t kSmem = kBars + kExtra;
 };
 
-// The reverse walk of one block: kDk, dk's column half `part` (its U
-// slice U_qΩ[64 part.., :], out = dk); else dv's half (U_qΩ^T[64 part..,
-// :], out = dv).  Steps s = j G + gi walk chunk chunks - 1 - j with the
-// group's query head gi.  Per step, with U (the f32 accumulator ut), u_h
-// or u_Ω over the later chunks:
+// The reverse walk of one block: kDk, dk's columns 64 part.. (its U slice
+// U_qΩ[64 part.., :], 64 x D, out = dk); else dv's (U_qΩ^T[64 part.., :],
+// out = dv).  Steps s = j G + gi walk chunk chunks - 1 - j with the
+// group's query head gi.  Per step, with U (the f32 accumulator ut, an
+// m64nD), u_h or u_Ω over the later chunks:
 //   dk: first step of a chunk  acc = v U_qΩ^T        (SS; U's copies)
 //       T = v Ω̂^T - 1 h^T on i >= p, else 0           (SS, then f32)
 //       acc += T q,  U_qΩ += q^T Ω̂,  u_h += q^T h     (RS; SS; f32)
@@ -603,8 +626,8 @@ struct Layout {
 //       A = a + b k q^T on i >= p, else 0             (SS, then f32)
 //       acc += A Ω̂,  U_qΩ^T += Ω̂^T q,  u_Ω += Σ Ω̂     (RS; SS; f32)
 //       last step: dv = acc + a u_Ω
-// kGated (gla_bwd_kv): with cl the inclusive cumsum of the chunk's log
-// decays (base 2), `total` its last and e_p = 2^(total - cl_p) the decay
+// kGated (gla_bwd_kv, D = 128): with cl the inclusive cumsum of the chunk's
+// log decays (base 2), `total` its last and e_p = 2^(total - cl_p) the decay
 // from token p to the chunk's end (decay.cuh):
 //   * the carried state's readout and sums take e_p on row p: dk: acc =
 //     e_p (v U_qΩ^T - u_h); dv: acc = e_p (b k U_qΩ + a u_Ω);
@@ -620,7 +643,7 @@ struct Layout {
 //     Dv] + a U_p[Dk, Dv]): the row dot of the f32 A with h plus e_p (b k_p
 //     . u_h + a Σ h), u_h (over all of Dk) and Σ h f32 sums kept beside
 //     u_Ω.
-template <bool kDk, bool kGated, typename Out>
+template <int kD, bool kDk, bool kGated, typename Out>
 __device__ __forceinline__ void walk(unsigned char* smem,
                                      const CUtensorMap* q_map,
                                      const CUtensorMap* kv_map,
@@ -630,11 +653,14 @@ __device__ __forceinline__ void walk(unsigned char* smem,
                                      Out* __restrict__ out, int part,
                                      int heads, int kv_heads, int n, float a,
                                      float b) {
-  using L = Layout<kGated>;
+  using L = Layout<kD, kGated>;
+  constexpr size_t kKV = L::kKV, kQ = L::kQ, kOm = L::kOm;
+  constexpr size_t kOmHi = L::kOmHi, kOmLo = L::kOmLo;
+  constexpr size_t kUHi = L::kUHi, kULo = L::kULo;
   // gated dv: rows of dV' are kD + 1 f32 values
   constexpr int kOutRow = kGated && !kDk ? kD + 1 : kD;
-  float* sums = reinterpret_cast<float*>(smem + kSums);  // [2][kHalf]
-  float* h_sh = reinterpret_cast<float*>(smem + kH);     // [kChunk]
+  float* sums = reinterpret_cast<float*>(smem + L::kSums);  // [2][kPart]
+  float* h_sh = reinterpret_cast<float*>(smem + L::kH);     // [kChunk]
   [[maybe_unused]] float* uh = reinterpret_cast<float*>(smem + L::kUh);
   [[maybe_unused]] float* hs = reinterpret_cast<float*>(smem + L::kHs);
   [[maybe_unused]] float* e_sh = reinterpret_cast<float*>(smem + L::kE);
@@ -655,31 +681,35 @@ __device__ __forceinline__ void walk(unsigned char* smem,
   // gated: the dv block that writes dV''s augmented column
   [[maybe_unused]] const bool aug = kGated && !kDk && part == 0;
 
-  auto stage_of = [&](int s) { return smem + (s % kStages) * kStageBytes; };
+  auto stage_of = [&](int s) {
+    return smem + (s % kStages) * L::kStageBytes;
+  };
   // the tiles of step s into its stage; rows past n arrive as zeros
   auto load_step = [&](int s) {
     const int c = chunks - 1 - s / group, slice = q0 + s % group;
     unsigned char* st = stage_of(s);
     uint64_t* bar = &full[s % kStages];
-    sm90::bar_expect(bar, (kDk ? 7 : 6) * kBox);
+    sm90::bar_expect(bar, (kDk ? kD / 64 + 1 + kD / 32 : 2 * (kD / 64) + 2) *
+                              kBox);
 #pragma unroll
-    for (int bx = 0; bx < 2; ++bx)
-      sm90::tma_load_3d(st + kKV + bx * kBox, kv_map, bar, 64 * bx,
+    for (int bx = 0; bx < kD / 64; ++bx)
+      sm90::tma_load_3d(st + L::kKV + bx * kBox, kv_map, bar, 64 * bx,
                         c * kChunk, bk);
     if (kDk) {
-      sm90::tma_load_3d(st + kQ, q_map, bar, kHalf * part, c * kChunk,
+      sm90::tma_load_3d(st + L::kQ, q_map, bar, kPart * part, c * kChunk,
                         slice);
 #pragma unroll
-      for (int bx = 0; bx < 4; ++bx)
-        sm90::tma_load_3d(st + kOm + bx * kBox, om_map, bar, 32 * bx,
+      for (int bx = 0; bx < kD / 32; ++bx)
+        sm90::tma_load_3d(st + L::kOm + bx * kBox, om_map, bar, 32 * bx,
                           c * kChunk, slice);
     } else {
 #pragma unroll
       for (int bx = 0; bx < 2; ++bx) {
-        sm90::tma_load_3d(st + kQ + bx * kBox, q_map, bar, 64 * bx,
-                          c * kChunk, slice);
-        sm90::tma_load_3d(st + kOm + bx * kBox, om_map, bar,
-                          kHalf * part + 32 * bx, c * kChunk, slice);
+        if (bx < kD / 64)
+          sm90::tma_load_3d(st + L::kQ + bx * kBox, q_map, bar, 64 * bx,
+                            c * kChunk, slice);
+        sm90::tma_load_3d(st + L::kOm + bx * kBox, om_map, bar,
+                          kPart * part + 32 * bx, c * kChunk, slice);
       }
     }
   };
@@ -705,9 +735,9 @@ __device__ __forceinline__ void walk(unsigned char* smem,
     sm90::bar_init_fence();
   }
   // U = 0 past the last chunk (both copies), and its sums
-  for (int i = tid; i < static_cast<int>(2 * kTile / 16); i += kThreads)
+  for (int i = tid; i < static_cast<int>(2 * L::kTile / 16); i += kThreads)
     reinterpret_cast<uint4*>(smem + kUHi)[i] = make_uint4(0, 0, 0, 0);
-  if (tid < kHalf) sums[tid] = 0.f;
+  if (tid < kPart) sums[tid] = 0.f;
   if constexpr (kGated) {
     uh[tid] = 0.f;
     if (tid == 0) hs[0] = 0.f;
@@ -716,15 +746,15 @@ __device__ __forceinline__ void walk(unsigned char* smem,
   __syncthreads();
   if (tid == 0) load_step(0);
 
-  float ut[64];  // dk: U_qΩ rows (Dk) row0 (+ 8), columns (Dv) 8 a + 2 tq
-                 // (+ 1); dv: U_qΩ^T rows (Dv), columns (Dk)
+  float ut[kD / 2];  // dk: U_qΩ rows (Dk) row0 (+ 8), columns (Dv) 8 a +
+                     // 2 tq (+ 1); dv: U_qΩ^T rows (Dv), columns (Dk)
 #pragma unroll
-  for (int i = 0; i < 64; ++i) ut[i] = 0.f;
-  float acc[32];  // dk or dv of this half, summed over the group
+  for (int i = 0; i < kD / 2; ++i) ut[i] = 0.f;
+  float acc[32];  // dk or dv of this part, summed over the group
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   float h_next = load_h(0);
-  out += static_cast<size_t>(bk) * n * kOutRow + kHalf * part;
+  out += static_cast<size_t>(bk) * n * kOutRow + kPart * part;
   // gated: the chunk's log decays (the next chunk's, loaded a chunk
   // ahead), and the dv block's -dV'[kD] of its rows, summed over the group
   [[maybe_unused]] float ld_cur[2] = {0.f, 0.f}, ld_next[2] = {0.f, 0.f};
@@ -759,11 +789,11 @@ __device__ __forceinline__ void walk(unsigned char* smem,
     __syncwarp();
     sm90::bar_wait(&full[s % kStages], (s / kStages) & 1);
     const unsigned char* st = stage_of(s);
-    sm90::split_tile_f32<kDk ? kD : kHalf, kThreads>(st + kOm, 0,
+    sm90::split_tile_f32<kDk ? kD : kPart, kThreads>(st + kOm, 0,
                                                       smem + kOmHi,
                                                       smem + kOmLo);
     if constexpr (kGated && !kDk)
-      cd::split_rows_f32<kHalf, kThreads>(cl, st + kOm, 0,
+      cd::split_rows_f32<kPart, kThreads>(cl, st + kOm, 0,
                                           smem + kOmHi + kBox,
                                           smem + kOmLo + kBox);
     sm90::fence_async_smem();
@@ -782,11 +812,11 @@ __device__ __forceinline__ void walk(unsigned char* smem,
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk)
         sm90::mma_ss_n64(acc, sm90::desc_k<kChunk>(kv_t, kk),
-                         sm90::desc_k<kHalf>(uh_t, kk), kk);
+                         sm90::desc_k<kPart>(uh_t, kk), kk);
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk)
         sm90::mma_ss_n64(acc, sm90::desc_k<kChunk>(kv_t, kk),
-                         sm90::desc_k<kHalf>(ul_t, kk), 1);
+                         sm90::desc_k<kPart>(ul_t, kk), 1);
     }
     if (kDk) {
 #pragma unroll
@@ -806,12 +836,12 @@ __device__ __forceinline__ void walk(unsigned char* smem,
     sm90::mma_commit();
 
     // behind the products, in f32 on the CUDA cores: this step's share of
-    // the next chunk's sums (each of the first kHalf threads one column;
+    // the next chunk's sums (each of the first kPart threads one column;
     // gated, each token weighted by 2^cl and the carried sums decayed by
     // 2^total)
-    const float* s_cur = sums + (j % 2) * kHalf;
-    float* s_next = sums + ((j + 1) % 2) * kHalf;
-    if (tid < kHalf) {
+    const float* s_cur = sums + (j % 2) * kPart;
+    float* s_next = sums + ((j + 1) % 2) * kPart;
+    if (tid < kPart) {
       float sum = 0.f;
       if (kDk) {
 #pragma unroll 8
@@ -906,7 +936,7 @@ __device__ __forceinline__ void walk(unsigned char* smem,
     if constexpr (kGated) {
       if (first) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) ut[i] *= e_total;
+        for (int i = 0; i < kD / 2; ++i) ut[i] *= e_total;
       }
     }
     sm90::pin(acc);
@@ -961,8 +991,8 @@ __device__ __forceinline__ void walk(unsigned char* smem,
       for (int x = 0; x < 2; ++x)
 #pragma unroll
         for (int kk = 0; kk < kChunk / 16; ++kk)
-          sm90::mma_ss_n128<1, 1>(ut, sm90::desc_mn<kChunk>(ua_t[x], kk),
-                                  sm90::desc_mn<kChunk>(ub_t[x], kk), 1);
+          sm90::mma_ss<1, 1>(ut, sm90::desc_mn<kChunk>(ua_t[x], kk),
+                             sm90::desc_mn<kChunk>(ub_t[x], kk), 1);
     }
     sm90::mma_commit();
 
@@ -1011,18 +1041,18 @@ __device__ __forceinline__ void walk(unsigned char* smem,
           if (row >= n) continue;
           float* dst = out + static_cast<size_t>(row) * kOutRow + 2 * tq;
 #pragma unroll
-          for (int x = 0; x < kHalf / 8; ++x) {
+          for (int x = 0; x < kPart / 8; ++x) {
             dst[8 * x] = acc[4 * x + 2 * r];
             dst[8 * x + 1] = acc[4 * x + 2 * r + 1];
           }
           if (aug && tq == 0) dst[kD] = -xd[r];
         }
       } else if (kDk) {
-        store_rows(out, t0, row0, n, [&](int i, int col) {
+        store_rows<kD>(out, t0, row0, n, [&](int i, int col) {
           return kGated ? b * acc[i] : b * (acc[i] - s_cur[col]);
         });
       } else {
-        store_rows(out, t0, row0, n, [&](int i, int col) {
+        store_rows<kD>(out, t0, row0, n, [&](int i, int col) {
           return fmaf(a, s_cur[col], acc[i]);
         });
       }
@@ -1051,7 +1081,7 @@ __device__ __forceinline__ void walk(unsigned char* smem,
   }
 }
 
-template <bool kGated>
+template <int kD, bool kGated>
 __global__ void __launch_bounds__(kThreads, 1)
     la_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap k_map,
@@ -1065,13 +1095,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   using Dv = std::conditional_t<kGated, float, bf16>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = sm90::aligned_smem(smem_raw);
-  if (blockIdx.y < 2)
-    walk<true, kGated>(smem, &q_map, &v_map, &om_map, ld, hv, dk,
-                       blockIdx.y, heads, kv_heads, n, a, b);
+  constexpr int kParts = Layout<kD, kGated>::kParts;
+  if (blockIdx.y < kParts)
+    walk<kD, true, kGated>(smem, &q_map, &v_map, &om_map, ld, hv, dk,
+                           blockIdx.y, heads, kv_heads, n, a, b);
   else
-    walk<false, kGated>(smem, &q_map, &k_map, &om_map, ld, hv,
-                        static_cast<Dv*>(dv), blockIdx.y - 2, heads,
-                        kv_heads, n, a, b);
+    walk<kD, false, kGated>(smem, &q_map, &k_map, &om_map, ld, hv,
+                            static_cast<Dv*>(dv), blockIdx.y - kParts, heads,
+                            kv_heads, n, a, b);
 }
 
 }  // namespace bkv
@@ -1542,11 +1573,12 @@ __global__ void la_bwd_kv_kernel(const T* __restrict__ q,
 // The launches of the two kernels, shared by the launchers and
 // `la_bwd_plan`: f(Type<T>{}, kernel, geometry, Int<wgmma>{}) for the
 // instantiation a call with these arguments runs.  Every entry in bf16 at
-// Dk = Dv = 128 runs its chunked wgmma body (the gated entries its kGated
-// instance), walking chunks of lbw::kChunk tokens, which `stage` must
-// name: dq two blocks per (batch, query head), dk and dv four per (batch,
-// KV head).  Otherwise the token walk at a pair of plan::with_walk_dims,
-// with `stage` shrunk to fit kMaxSmem.
+// Dk = Dv = 128, and the linear entries at 64, run their chunked wgmma
+// body (the gated entries its kGated instance), walking chunks of
+// lbw::kChunk tokens, which `stage` must name: dq D / 64 blocks per
+// (batch, query head), dk and dv 2 D / 64 per (batch, KV head).
+// Otherwise the token walk at a pair of plan::with_walk_dims, with `stage`
+// shrunk to fit kMaxSmem.
 // dq: one block per (batch, query head), Dk threads; the staging holds k,
 // v and Ω̂ padded, h and the decay per token.
 template <bool kGated, typename F>
@@ -1555,13 +1587,16 @@ cudaError_t with_launch_q(int dtype, int dk, int dv, int batch, int heads,
   return plan::with_dtype(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      if (dk == lbw::kD && dv == lbw::kD) {
+      if (plan::chunked_dims<kGated>(dk, dv)) {
         if (stage != lbw::kChunk) return cudaErrorInvalidValue;
-        return f(t, bq::la_bwd_q_wgmma_kernel<kGated>,
-                 plan::Geometry{dim3(batch * heads, bq::kSplit),
-                                lbw::kThreads, bq::Layout<kGated>::kSmem,
-                                lbw::kChunk},
-                 plan::Int<1>{});
+        return plan::with_chunked_dim<kGated>(dk, [&](auto dc) {
+          constexpr int D = decltype(dc)::value;
+          using L = bq::Layout<D, kGated>;
+          return f(t, bq::la_bwd_q_wgmma_kernel<D, kGated>,
+                   plan::Geometry{dim3(batch * heads, L::kSplit),
+                                  lbw::kThreads, L::kSmem, lbw::kChunk},
+                   plan::Int<1>{});
+        });
       }
     }
     return plan::with_walk_dims<kGated>(dk, dv, [&](auto kc, auto vc) {
@@ -1591,13 +1626,16 @@ cudaError_t with_launch_kv(int dtype, int dk, int dv, int batch, int heads,
   return plan::with_dtype(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      if (dk == lbw::kD && dv == lbw::kD) {
+      if (plan::chunked_dims<kGated>(dk, dv)) {
         if (stage != lbw::kChunk) return cudaErrorInvalidValue;
-        return f(t, bkv::la_bwd_kv_wgmma_kernel<kGated>,
-                 plan::Geometry{dim3(batch * kv_heads, bkv::kSplit),
-                                lbw::kThreads, bkv::Layout<kGated>::kSmem,
-                                lbw::kChunk},
-                 plan::Int<1>{});
+        return plan::with_chunked_dim<kGated>(dk, [&](auto dc) {
+          constexpr int D = decltype(dc)::value;
+          using L = bkv::Layout<D, kGated>;
+          return f(t, bkv::la_bwd_kv_wgmma_kernel<D, kGated>,
+                   plan::Geometry{dim3(batch * kv_heads, L::kSplit),
+                                  lbw::kThreads, L::kSmem, lbw::kChunk},
+                   plan::Int<1>{});
+        });
       }
     }
     return plan::with_walk_dims<kGated>(dk, dv, [&](auto kc, auto vc) {
@@ -1641,12 +1679,13 @@ int run_q(const void* k, const void* v, const void* ld, const void* om,
         if constexpr (decltype(body)::value == 1) {
           CUtensorMap k_map, v_map, om_map;
           cudaError_t err = sm90::map_rows(&k_map, k, n, batch * kv_heads,
-                                           lbw::kChunk);
+                                           lbw::kChunk, dk);
           if (err == cudaSuccess)
-            err = sm90::map_rows(&v_map, v, n, batch * kv_heads, lbw::kChunk);
+            err = sm90::map_rows(&v_map, v, n, batch * kv_heads, lbw::kChunk,
+                                 dv);
           if (err == cudaSuccess)
             err = sm90::map_rows_f32(&om_map, om, n, batch * heads,
-                                     lbw::kChunk);
+                                     lbw::kChunk, dv);
           if (err != cudaSuccess) return err;
           return plan::launch(kernel, geo, st, k_map, v_map, om_map,
                               static_cast<const float*>(ld),
@@ -1684,14 +1723,16 @@ int run_kv(const void* q, const void* k, const void* v, const void* ld,
         if constexpr (decltype(body)::value == 1) {
           CUtensorMap q_map, k_map, v_map, om_map;
           cudaError_t err = sm90::map_rows(&q_map, q, n, batch * heads,
-                                           lbw::kChunk);
+                                           lbw::kChunk, d_k);
           if (err == cudaSuccess)
-            err = sm90::map_rows(&k_map, k, n, batch * kv_heads, lbw::kChunk);
+            err = sm90::map_rows(&k_map, k, n, batch * kv_heads, lbw::kChunk,
+                                 d_k);
           if (err == cudaSuccess)
-            err = sm90::map_rows(&v_map, v, n, batch * kv_heads, lbw::kChunk);
+            err = sm90::map_rows(&v_map, v, n, batch * kv_heads, lbw::kChunk,
+                                 d_v);
           if (err == cudaSuccess)
             err = sm90::map_rows_f32(&om_map, om, n, batch * heads,
-                                     lbw::kChunk);
+                                     lbw::kChunk, d_v);
           if (err != cudaSuccess) return err;
           return plan::launch(kernel, geo, st, q_map, k_map, v_map, om_map,
                               static_cast<const float*>(ld),
@@ -1717,8 +1758,9 @@ int run_kv(const void* q, const void* k, const void* v, const void* ld,
 // (q, k, v, dq, dk and the linear dv; om, h, ld and the gated dV' are
 // always float32).  Each returns the cudaError_t of its launch
 // (0 = success); launches are asynchronous on `stream`.  Every entry in
-// bf16 at Dk = Dv = 128 runs its wgmma body: `stage` must be the chunk
-// (64), and the TMA reads need q, k, v and om 16-byte aligned (the wrappers
+// bf16 at Dk = Dv = 128, and the linear entries at 64, run their wgmma
+// body: `stage` must be the chunk (64), and the TMA reads need q, k, v and
+// om 16-byte aligned (the wrappers
 // check it; a map that cannot be encoded is refused with
 // cudaErrorInvalidValue).  The linear entries take q, k, dq and dk
 // (.., dk) and v, om and dv (.., dv, after dtype); the gated ones

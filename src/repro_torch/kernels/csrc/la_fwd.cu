@@ -34,9 +34,11 @@
 // MLA heads (plan::with_walk_dims).
 //
 // Two bodies of each entry, chosen by the launcher from the dtype and the
-// dims: the chunked wgmma body (namespace lc; gla_fwd its kGated instance)
-// for bf16 at Dk = Dv = 128, the training instance; the token walk
-// (gla_fwd its kGated instantiation) for f32 and at every other pair.
+// dims (plan::chunked_dims): the chunked wgmma body (namespace lc,
+// `template <int kD, bool kGated>`) for bf16 at Dk = Dv = 128 (gla_fwd its
+// kGated instance) and, for `la_fwd` only, 64 (stablelm-1.6b,
+// whisper-large-v3's decoder); the token walk (gla_fwd its kGated
+// instantiation) for f32 and at every other pair.
 //
 // What bounds them: the recurrent form does 4 D (D+1) flops per token and
 // head (the state update and the q.S readout; gated, 5 D (D+1) with the
@@ -44,24 +46,29 @@
 // 17.3 GFLOP (gated 21.6), 0.26 ms (0.32) at 67 TFLOP/s, against 0.08 ms
 // for its 269.5 MB at 3.35 TB/s (estimates from the shapes, not
 // measurements).  The chunked body does four products per chunk of 64
-// tokens and half of the value columns, 30.1 GFLOP on the bf16 tensor
-// cores (0.030 ms at 989 TFLOP/s): bound by its bytes (0.080 ms).  Its
-// gated instance runs three of them twice (a hi + lo operand), 51.5
-// GFLOP (0.052 ms), and is bound by its bytes too (270.5 MB, 0.081 ms).
+// tokens and part of 64 value columns, 30.1 GFLOP on the bf16 tensor
+// cores (0.030 ms at 989 TFLOP/s): bound by its bytes (0.080 ms); at
+// stablelm-1.6b's B=2, H=32, N=8192, D=64, 17.2 GFLOP (0.017 ms) against
+// 0.081 ms of bytes.  Its gated instance runs three of them twice (a hi
+// + lo operand), 51.5 GFLOP (0.052 ms), and is bound by its bytes too
+// (270.5 MB, 0.081 ms).
 //
 // Design of the chunked body (the reference's chunked form,
 // src/repro/kernels/linear_attention.py:67-93; ssd.cu's sc without the
 // decay, with the normalizer):
-//   * two blocks per (batch, query head), one per half of the D = 128
-//     value columns, so each block's state S^T (64 x 128) is one m64n128
-//     f32 accumulator (64 registers a thread) and its products are sc's
-//     tile shapes; 64 blocks at B=2, H=16.  Both halves read all of q and
-//     k and compute the same scores and g (bit-identical); the half with
-//     column 0 writes g;
-//   * thread 0 loads each chunk's q, k (64 x 128) and the block's half of
-//     v (64 x 64) by TMA into a 2-stage ring (rows past N arrive as
-//     zeros); o is staged by stmatrix in the chunk's q tile and stored by
-//     TMA from the next chunk;
+//   * D / 64 blocks per (batch, query head), one per part of 64 value
+//     columns, so each block's state S^T (64 x D) is one m64nD f32
+//     accumulator (D / 2 registers a thread) and its products are sc's
+//     tile shapes: at D = 128 two blocks per head, 64 at B=2, H=16; at
+//     D = 64 one, whose whole state S^T (64 x 64) is 32 registers a
+//     thread, 64 blocks at B=2, H=32 (its update S^T += v^T k an m64n64
+//     product).  The parts read all of q and k and compute the same
+//     scores and g (bit-identical); the part with column 0 writes g;
+//   * thread 0 loads each chunk's q, k (64 x D, boxes of 64 columns) and
+//     the block's part of v (64 x 64) by TMA into a 2-stage ring (rows
+//     past N arrive as zeros; 101,888 B of shared memory at D = 128,
+//     60,416 B at 64); o is staged by stmatrix in the chunk's q tile and
+//     stored by TMA from the next chunk;
 //   * per chunk: q k^T and q S (S from the bf16 copy of S^T, K-major) by
 //     wgmma; A = a + b q k^T on j <= i rounded to bf16 in registers, f =
 //     b q S + a P + A v (v MN-major), o = f / g; S^T += v^T k (both
@@ -71,7 +78,8 @@
 //     score accumulator, q . z is an f32 dot on the CUDA cores from the q
 //     tile, and z (the sum of k) and P (the sum of v) are f32 sums in
 //     shared memory, double-buffered so that the next chunk's sums are
-//     formed while this chunk reads its own.  o, held to one bf16 step,
+//     formed while this chunk reads its own (at D = 64 z by the first
+//     two warps and P by the other two).  o, held to one bf16 step,
 //     rounds A and the readout's copy of S once per chunk;
 //   * each o and g element is written once (no atomics): the result is
 //     bit-deterministic;
@@ -88,7 +96,8 @@
 //     one bf16 step of the plain path, and a step-0 training comparison
 //     reads it through deep-layer grads that cancel.
 //
-// Design of the token walk (simple first):
+// Design of the token walk (simple first; f32, D = 32 and 112, (192,
+// 128), and the gated entry at D = 64):
 //   * one block per (batch, query head), walking the whole sequence: a
 //     (B, H) grid, 32 blocks at B=2, H=16, on 132 SMs;
 //   * the D value columns of S are tiled over D threads: thread (cg, rg)
@@ -133,34 +142,37 @@ constexpr float kSafeEps = 1e-30f;  // core.numerics.safe_div threshold
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// the chunked wgmma body of la_fwd (bf16, D = 128)
+// the chunked wgmma body of la_fwd (bf16, D = 64 and 128)
 // ---------------------------------------------------------------------------
 
 namespace lc {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 128;
-constexpr int kSplit = 2;             // blocks per head, by value columns
-constexpr int kHalf = kD / kSplit;    // value columns of a block
+constexpr int kPart = 64;             // value columns of a block: its N
 constexpr int kChunk = 64;            // tokens of a chunk: the M of wgmma
 constexpr int kStages = 2;            // chunks of q, k and v in the TMA ring
 constexpr int kThreads = 128;         // one warpgroup
-constexpr size_t kQKBytes = static_cast<size_t>(kChunk) * kD * 2;
-constexpr size_t kVBytes = static_cast<size_t>(kChunk) * kHalf * 2;
-constexpr size_t kStageBytes = 2 * kQKBytes + kVBytes;  // q, k, v's half
-constexpr size_t kSBytes = static_cast<size_t>(kHalf) * kD * 2;  // bf16 S^T
-constexpr size_t kSumBytes = 2 * (kD + kHalf) * 4;  // z and P, twice, f32
+constexpr size_t kBox = static_cast<size_t>(kChunk) * 128;  // one TMA box
 // beside the tiles and the sums: the barriers, and up to 1024 bytes of
 // padding to the tiles' 1024-byte alignment
 constexpr size_t kExtra = 2048;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Offsets after the ring (each tile 1024-byte aligned): the bf16 copy of
-// S^T (gated: its hi + lo pair), the gated body's hi and lo (w o v)
-// tiles, then z and P twice and the barriers.  101,888 B; gated 134,656 B.
-template <bool kGated>
+// The sizes at head dim kD (64 or 128; gated only 128), and the offsets
+// after the ring (each tile 1024-byte aligned): the bf16 copy of S^T
+// (gated: its hi + lo pair), the gated body's hi and lo (w o v) tiles,
+// then z and P twice and the barriers.  D = 128: 101,888 B, gated
+// 134,656 B; D = 64: 60,416 B.
+template <int kD, bool kGated>
 struct Layout {
+  static constexpr int kSplit = kD / kPart;  // blocks per head
+  static constexpr size_t kQKBytes = static_cast<size_t>(kChunk) * kD * 2;
+  static constexpr size_t kVBytes = static_cast<size_t>(kChunk) * kPart * 2;
+  // q, k and the block's part of v
+  static constexpr size_t kStageBytes = 2 * kQKBytes + kVBytes;
+  static constexpr size_t kSBytes = static_cast<size_t>(kPart) * kD * 2;
+  static constexpr size_t kSumBytes = 2 * (kD + kPart) * 4;  // z, P twice
   static constexpr size_t kSHi = kStages * kStageBytes;
   static constexpr size_t kSLo = kSHi + kSBytes;
   static constexpr size_t kWvHi = kSLo + (kGated ? kSBytes : 0);
@@ -169,10 +181,12 @@ struct Layout {
   static constexpr size_t kSmem = kSums + kSumBytes + kExtra;
 };
 
-// One block per (batch, query head, half of the value columns) walks its
-// head's chunks in order.  Per chunk of c = 64 tokens, with S (D x D/2,
-// held as the f32 accumulator st = S^T) the sum of k^T v over the earlier
-// chunks, P their sum of v and z their sum of k:
+// One block per (batch, query head, part of 64 value columns) walks its
+// head's chunks in order: D / 64 blocks per head, so that the block's
+// state S^T (64 x D) is one m64nD f32 accumulator (D / 2 registers a
+// thread).  Per chunk of c = 64 tokens, with S (D x 64, held as the f32
+// accumulator st = S^T) the sum of k^T v over the earlier chunks, P their
+// sum of v and z their sum of k:
 //   sc = q k^T                                     (wgmma, SS)
 //   acc = q S, from S^T's bf16 copy                (wgmma, SS)
 //   g  = a (t + 1) + b (rowsum of sc on j <= i + q . z), in f32: the row
@@ -182,10 +196,10 @@ struct Layout {
 //   o  = f / g (|g| < 1e-30 gives 0)
 //   S^T += v^T k                                   (wgmma, SS; both MN-major)
 //   z += sum of k, P += sum of v                   (f32, CUDA cores)
-// kGated (gla_fwd): with cl the inclusive cumsum of the chunk's log decays
-// (base 2, a KV head's), `total` its last, and n the decayed count of the
-// earlier tokens, every sum above is decayed (sc, sk's and sq's
-// bookkeeping, decay.cuh):
+// kGated (gla_fwd, D = 128): with cl the inclusive cumsum of the chunk's
+// log decays (base 2, a KV head's), `total` its last, and n the decayed
+// count of the earlier tokens, every sum above is decayed (sc, sk's and
+// sq's bookkeeping, decay.cuh):
 //   A  = (a + b sc) o 2^(cl_i - cl_j) on j <= i, else 0, in f32
 //   g  = rowsum of A + 2^cl_i (a n + b q . z)       (f32)
 //   f  = 2^cl_i (b acc + a P) + A v                 (A as hi + lo, RS)
@@ -196,10 +210,10 @@ struct Layout {
 // bf16 step of the plain path, and a step-0 train comparison reads it
 // through cancelling deep-layer grads, so every non-input operand keeps
 // ~16 bits.
-// Both halves compute g; the half with value column 0 writes it.  o of a
+// Every part computes g; the part with value column 0 writes it.  o of a
 // chunk is staged as bf16 in the chunk's q tile and stored by TMA from the
 // next chunk.
-template <bool kGated>
+template <int kD, bool kGated>
 __global__ void __launch_bounds__(kThreads, 1)
     la_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                         const __grid_constant__ CUtensorMap k_map,
@@ -208,7 +222,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                         const float* __restrict__ ld,
                         float* __restrict__ g_out, int heads, int kv_heads,
                         int n, float a, float b) {
-  using L = Layout<kGated>;
+  using L = Layout<kD, kGated>;
+  constexpr size_t kQKBytes = L::kQKBytes;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = sm90::aligned_smem(smem_raw);
   unsigned char* s_sh = smem + L::kSHi;
@@ -216,11 +231,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   [[maybe_unused]] unsigned char* wv_hi = smem + L::kWvHi;
   [[maybe_unused]] unsigned char* wv_lo = smem + L::kWvLo;
   float* z_sh = reinterpret_cast<float*>(smem + L::kSums);  // [2][kD]
-  float* p_sh = z_sh + 2 * kD;                              // [2][kHalf]
-  uint64_t* full = reinterpret_cast<uint64_t*>(p_sh + 2 * kHalf);
+  float* p_sh = z_sh + 2 * kD;                              // [2][kPart]
+  uint64_t* full = reinterpret_cast<uint64_t*>(p_sh + 2 * kPart);
 
   const int bh = blockIdx.x;  // batch * heads + query head
-  const int half = blockIdx.y;
+  const int part = blockIdx.y;  // the part of the value columns
   const int bi = bh / heads;
   const int hi = bh - bi * heads;
   const int kv_slice = bi * kv_heads + hi / (heads / kv_heads);
@@ -229,27 +244,29 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tq = lane % 4;
 
-  auto stage_of = [&](int c) { return smem + (c % kStages) * kStageBytes; };
-  // q, k (box b = columns 64 b ..) and this half of v of chunk c into its
+  auto stage_of = [&](int c) {
+    return smem + (c % kStages) * L::kStageBytes;
+  };
+  // q, k (box b = columns 64 b ..) and this part of v of chunk c into its
   // stage; rows past n arrive as zeros
   auto load_chunk = [&](int c) {
     unsigned char* st = stage_of(c);
     uint64_t* bar = &full[c % kStages];
-    sm90::bar_expect(bar, kStageBytes);
+    sm90::bar_expect(bar, L::kStageBytes);
 #pragma unroll
-    for (int bx = 0; bx < 2; ++bx) {
-      sm90::tma_load_3d(st + bx * kQKBytes / 2, &q_map, bar, 64 * bx,
-                        c * kChunk, bh);
-      sm90::tma_load_3d(st + kQKBytes + bx * kQKBytes / 2, &k_map, bar,
-                        64 * bx, c * kChunk, kv_slice);
+    for (int bx = 0; bx < kD / 64; ++bx) {
+      sm90::tma_load_3d(st + bx * kBox, &q_map, bar, 64 * bx, c * kChunk,
+                        bh);
+      sm90::tma_load_3d(st + L::kQKBytes + bx * kBox, &k_map, bar, 64 * bx,
+                        c * kChunk, kv_slice);
     }
-    sm90::tma_load_3d(st + 2 * kQKBytes, &v_map, bar, kHalf * half,
+    sm90::tma_load_3d(st + 2 * L::kQKBytes, &v_map, bar, kPart * part,
                       c * kChunk, kv_slice);
   };
-  // o of chunk c (this half's columns), staged in its q tile, to device
+  // o of chunk c (this part's columns), staged in its q tile, to device
   // memory (rows past n are not written)
   auto store_o = [&](int c) {
-    sm90::tma_store_3d(&o_map, stage_of(c), kHalf * half, c * kChunk, bh);
+    sm90::tma_store_3d(&o_map, stage_of(c), kPart * part, c * kChunk, bh);
     sm90::bulk_commit();
   };
   // gated: lane l's two log decays of chunk c in base 2 (tokens 2l,
@@ -267,18 +284,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::bar_init_fence();
   }
   // S_0 = 0 (its bf16 copies too), z_0 = 0, P_0 = 0
-  for (int i = tid; i < static_cast<int>((kGated ? 2 : 1) * kSBytes / 16);
+  for (int i = tid;
+       i < static_cast<int>((kGated ? 2 : 1) * L::kSBytes / 16);
        i += kThreads)
     reinterpret_cast<uint4*>(s_sh)[i] = make_uint4(0, 0, 0, 0);
-  z_sh[tid] = 0.f;
-  if (tid < kHalf) p_sh[tid] = 0.f;
+  if (kD == kThreads || tid < kD) z_sh[tid] = 0.f;
+  if (tid < kPart) p_sh[tid] = 0.f;
   sm90::fence_async_smem();
   __syncthreads();
   if (tid == 0) load_chunk(0);
 
-  float st[64];  // S^T: rows (values) 16 warp + g (+ 8), columns 8 a + 2 tq
+  float st[kD / 2];  // S^T: rows (values) 16 warp + g (+ 8), columns 8 a +
+                     // 2 tq
 #pragma unroll
-  for (int i = 0; i < 64; ++i) st[i] = 0.f;
+  for (int i = 0; i < kD / 2; ++i) st[i] = 0.f;
   const int row0 = 16 * warp + g;  // this thread's rows of a chunk: +0, +8
   // gated: the decayed count of the earlier tokens (P's normalizer entry),
   // the same in every thread; the chunk's log decays
@@ -316,25 +335,26 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
       sm90::mma_ss_n64(acc, sm90::desc_k<kChunk>(q_t, kk),
-                       sm90::desc_k<kHalf>(s_t, kk), kk);
+                       sm90::desc_k<kPart>(s_t, kk), kk);
     if constexpr (kGated) {
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk)
         sm90::mma_ss_n64(acc, sm90::desc_k<kChunk>(q_t, kk),
-                         sm90::desc_k<kHalf>(
+                         sm90::desc_k<kPart>(
                              reinterpret_cast<const bf16*>(s_lo), kk), 1);
     }
     sm90::mma_commit();
 
     // behind the products, in f32 on the CUDA cores: q . z of this
-    // thread's rows (a quad splits the 16 chunks of 16 bytes of a row),
-    // and the next chunk's z and P (each thread a column of k, the first
-    // kHalf also a column of v); gated: cl (cd::scan), the hi and lo
-    // (w o v) tiles, and each sum weighted by w and decayed by 2^total
+    // thread's rows (a quad splits the D / 8 chunks of 16 bytes of a row),
+    // and the next chunk's z and P (a thread a column of k; of v the first
+    // 64 threads at D = 128, the last 64 at D = 64); gated: cl (cd::scan),
+    // the hi and lo (w o v) tiles, and each sum weighted by w and decayed
+    // by 2^total
     const float* z_cur = z_sh + (c % 2) * kD;
-    const float* p_cur = p_sh + (c % 2) * kHalf;
+    const float* p_cur = p_sh + (c % 2) * kPart;
     float qz[2];
-    cd::row_dot<kQKBytes / 2>(stage, z_cur, row0, tq, qz);
+    cd::row_dot<kBox, kD>(stage, z_cur, row0, tq, qz);
     [[maybe_unused]] cd::Cumsum cl;
     [[maybe_unused]] float w_tok[2] = {1.f, 1.f};  // w of tokens 2l, 2l + 1
     [[maybe_unused]] float e_total = 1.f;
@@ -350,9 +370,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     [[maybe_unused]] auto w_at = [&](int t) {
       return __shfl_sync(0xffffffffu, w_tok[t & 1], t / 2);
     };
-    {
+    if (kD == kThreads || tid < kD) {
       const int d = tid;
-      const unsigned char* col = stage + kQKBytes + (d / 64) * (kQKBytes / 2);
+      const unsigned char* col = stage + kQKBytes + (d / 64) * kBox;
       float sum = 0.f;
 #pragma unroll 8
       for (int t = 0; t < kChunk; ++t) {
@@ -365,21 +385,22 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       z_sh[((c + 1) % 2) * kD + d] =
           kGated ? fmaf(e_total, z_cur[d], sum) : z_cur[d] + sum;
-      if (d < kHalf) {
-        const unsigned char* vcol = stage + 2 * kQKBytes;
-        float vsum = 0.f;
+    }
+    if (kD == kThreads ? tid < kPart : tid >= kD) {
+      const int d = kD == kThreads ? tid : tid - kD;
+      const unsigned char* vcol = stage + 2 * kQKBytes;
+      float vsum = 0.f;
 #pragma unroll 8
-        for (int t = 0; t < kChunk; ++t) {
-          const float x = __bfloat162float(*reinterpret_cast<const bf16*>(
-              vcol + t * 128 + (((d / 8) ^ (t % 8)) * 16) + (d % 8) * 2));
-          if constexpr (kGated)
-            vsum = fmaf(w_at(t), x, vsum);
-          else
-            vsum += x;
-        }
-        p_sh[((c + 1) % 2) * kHalf + d] =
-            kGated ? fmaf(e_total, p_cur[d], vsum) : p_cur[d] + vsum;
+      for (int t = 0; t < kChunk; ++t) {
+        const float x = __bfloat162float(*reinterpret_cast<const bf16*>(
+            vcol + t * 128 + (((d / 8) ^ (t % 8)) * 16) + (d % 8) * 2));
+        if constexpr (kGated)
+          vsum = fmaf(w_at(t), x, vsum);
+        else
+          vsum += x;
       }
+      p_sh[((c + 1) % 2) * kPart + d] =
+          kGated ? fmaf(e_total, p_cur[d], vsum) : p_cur[d] + vsum;
     }
     [[maybe_unused]] float cl_col[16], cl_row[2];
     if constexpr (kGated) {
@@ -445,7 +466,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         acc[i] = e_row[(i >> 1) & 1] *
                  fmaf(b, acc[i], a * p_cur[8 * (i / 4) + 2 * tq + (i & 1)]);
 #pragma unroll
-      for (int i = 0; i < 64; ++i) st[i] *= e_total;
+      for (int i = 0; i < kD / 2; ++i) st[i] *= e_total;
       // the next chunk's count: 2^total n + Σ w, summed over the warp
       float wsum = w_tok[0] + w_tok[1];
 #pragma unroll
@@ -477,7 +498,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int x = 0; x < 2; ++x)
 #pragma unroll
         for (int kk = 0; kk < kChunk / 16; ++kk)
-          sm90::mma_ss_n128<1, 1>(
+          sm90::mma_ss<1, 1>(
               st,
               sm90::desc_mn<kChunk>(
                   reinterpret_cast<const bf16*>(x ? wv_lo : wv_hi), kk),
@@ -485,8 +506,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     } else {
 #pragma unroll
       for (int kk = 0; kk < kChunk / 16; ++kk)
-        sm90::mma_ss_n128<1, 1>(st, sm90::desc_mn<kChunk>(v_t, kk),
-                                sm90::desc_mn<kChunk>(k_t, kk), 1);
+        sm90::mma_ss<1, 1>(st, sm90::desc_mn<kChunk>(v_t, kk),
+                           sm90::desc_mn<kChunk>(k_t, kk), 1);
     }
     sm90::mma_commit();
 
@@ -499,8 +520,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float den = g_row[(i >> 1) & 1];
       acc[i] = fabsf(den) < kSafeEps ? 0.f : acc[i] / den;
     }
-    sm90::store_tile<kHalf / 8>(stage_of(c), acc);
-    if (half == 0 && tq == 0) {
+    sm90::store_tile<kPart / 8>(stage_of(c), acc);
+    if (part == 0 && tq == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = t0 + row0 + 8 * r;
@@ -778,10 +799,11 @@ __global__ void __launch_bounds__(Walk<DK, DV>::kBound)
 
 // The launch of la_fwd / gla_fwd, shared by the launcher and `la_fwd_plan`:
 // f(Type<T>{}, kernel, geometry, Int<wgmma>{}) for the instantiation a
-// call with these arguments runs.  Both entries in bf16 at Dk = Dv = 128
-// run the chunked wgmma body (gla_fwd its kGated instance): two blocks per
-// (batch, query head), one per half of the value columns, walking chunks
-// of lc::kChunk tokens, which `stage` must name.  Otherwise the token walk
+// call with these arguments runs.  Both entries in bf16 at Dk = Dv = 128,
+// and la_fwd at 64, run the chunked wgmma body (gla_fwd its kGated
+// instance): D / 64 blocks per (batch, query head), one per part of 64
+// value columns, walking chunks of lc::kChunk tokens, which `stage` must
+// name.  Otherwise the token walk
 // at a pair of plan::with_walk_dims: one block per (batch, query head);
 // Walk<Dk, Dv>'s value threads and the normalizer warp; `stage` tokens
 // staged per iteration, shrunk to fit kMaxSmem.
@@ -791,13 +813,16 @@ cudaError_t with_launch(int dtype, int dk, int dv, int batch, int heads,
   return plan::with_dtype(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      if (dk == lc::kD && dv == lc::kD) {
+      if (plan::chunked_dims<kGated>(dk, dv)) {
         if (stage != lc::kChunk) return cudaErrorInvalidValue;
-        return f(t, lc::la_fwd_wgmma_kernel<kGated>,
-                 plan::Geometry{dim3(batch * heads, lc::kSplit),
-                                lc::kThreads, lc::Layout<kGated>::kSmem,
-                                lc::kChunk},
-                 plan::Int<1>{});
+        return plan::with_chunked_dim<kGated>(dk, [&](auto dc) {
+          constexpr int D = decltype(dc)::value;
+          using L = lc::Layout<D, kGated>;
+          return f(t, lc::la_fwd_wgmma_kernel<D, kGated>,
+                   plan::Geometry{dim3(batch * heads, L::kSplit),
+                                  lc::kThreads, L::kSmem, lc::kChunk},
+                   plan::Int<1>{});
+        });
       }
     }
     return plan::with_walk_dims<kGated>(dk, dv, [&](auto kc, auto vc) {
@@ -839,13 +864,15 @@ int run(const void* q, const void* k, const void* v, const void* ld, void* o,
         if constexpr (decltype(body)::value == 1) {
           CUtensorMap q_map, k_map, v_map, o_map;
           cudaError_t err = sm90::map_rows(&q_map, q, n, batch * heads,
-                                           lc::kChunk);
+                                           lc::kChunk, dk);
           if (err == cudaSuccess)
-            err = sm90::map_rows(&k_map, k, n, batch * kv_heads, lc::kChunk);
+            err = sm90::map_rows(&k_map, k, n, batch * kv_heads, lc::kChunk,
+                                 dk);
           if (err == cudaSuccess)
-            err = sm90::map_rows(&v_map, v, n, batch * kv_heads, lc::kChunk);
+            err = sm90::map_rows(&v_map, v, n, batch * kv_heads, lc::kChunk,
+                                 dv);
           if (err == cudaSuccess)
-            err = sm90::map_rows(&o_map, o, n, batch * heads, lc::kChunk);
+            err = sm90::map_rows(&o_map, o, n, batch * heads, lc::kChunk, dv);
           if (err != cudaSuccess) return err;
           return plan::launch(kernel, geo, st, q_map, k_map, v_map, o_map,
                               static_cast<const float*>(ld),
@@ -866,11 +893,11 @@ int run(const void* q, const void* k, const void* v, const void* ld, void* o,
 
 // Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
 // Each returns the cudaError_t of its launch (0 = success); the launch is
-// asynchronous on `stream`.  Both entries in bf16 at Dk = Dv = 128 run the
-// wgmma body: `stage` must be its chunk (64), and its TMA reads need q, k
-// and v 16-byte aligned (the wrappers check it; a map that cannot be
-// encoded is refused with cudaErrorInvalidValue).  `la_fwd` takes q and k
-// (.., dk) and v and o (.., dv).
+// asynchronous on `stream`.  Both entries in bf16 at Dk = Dv = 128, and
+// la_fwd at 64, run the wgmma body: `stage` must be its chunk (64), and
+// its TMA reads need q, k and v 16-byte aligned (the wrappers check it; a
+// map that cannot be encoded is refused with cudaErrorInvalidValue).
+// `la_fwd` takes q and k (.., dk) and v and o (.., dv).
 extern "C" int la_fwd(const void* q, const void* k, const void* v, void* o,
                       void* g, int batch, int heads, int kv_heads, int n,
                       int dk, int stage, float a, float b, int dtype, int dv,

@@ -110,6 +110,25 @@ cudaError_t with_walk_dims(int dk, int dv, F&& f) {
   return cudaErrorInvalidValue;
 }
 
+// Whether the chunked wgmma bodies of the linear-attention kernels
+// (la_fwd.cu's lc, la_bwd.cu's bq and bkv) take (Dk, Dv) in bf16: Dk = Dv =
+// 128, and for the ungated bodies 64 too (stablelm-1.6b, whisper-large-v3's
+// decoder); every other pair walks.
+template <bool kGated>
+constexpr bool chunked_dims(int dk, int dv) {
+  return dk == dv && (dk == 128 || (!kGated && dk == 64));
+}
+
+// f(Int<d>{}) for a head dim that chunked_dims<kGated> takes (no gated
+// instance at 64 is compiled).
+template <bool kGated, typename F>
+cudaError_t with_chunked_dim(int d, F&& f) {
+  if constexpr (!kGated) {
+    if (d == 64) return f(Int<64>{});
+  }
+  return f(Int<128>{});
+}
+
 // f(Int<g>{}) for a query group (or rows per block) of 1, 2, 4, 8 or 16.
 template <typename F>
 cudaError_t with_group(int g, F&& f) {

@@ -306,8 +306,9 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
 }
 
 // d (64 x 64, f32) (+)= A (64 x 16) B (16 x 64), A and B bf16 in shared
-// memory, both K-major (descriptors a, b); d is overwritten where
-// accumulate is 0.
+// memory (descriptors a, b), K-major unless kTransA / kTransB is 1 (then
+// MN-major, read transposed); d is overwritten where accumulate is 0.
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
                                           uint64_t b, int accumulate) {
   asm volatile(
@@ -318,7 +319,7 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -327,7 +328,7 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
 // d (64 x 128, f32) (+)= A (64 x 16) B (16 x 128), A and B bf16 in shared
@@ -366,6 +367,19 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// mma_ss_n64 or mma_ss_n128 by the width of d: an m64n64 accumulator is
+// 32 registers a thread, an m64n128 one 64 (the chunked bodies' states,
+// whose N is the head dim)
+template <int kTransA = 0, int kTransB = 0, int R>
+__device__ __forceinline__ void mma_ss(float (&d)[R], uint64_t a, uint64_t b,
+                                      int accumulate) {
+  static_assert(R == 32 || R == 64, "an m64n64 or m64n128 accumulator");
+  if constexpr (R == 32)
+    mma_ss_n64<kTransA, kTransB>(d, a, b, accumulate);
+  else
+    mma_ss_n128<kTransA, kTransB>(d, a, b, accumulate);
 }
 
 // d (64 x 128, f32) += A (64 x 16) B (16 x 128): A bf16 in registers (the

@@ -11,49 +11,53 @@ staging size, and no result depends on it.
     training's forward and backward); `LACfg.chunk` mirrors it.
   * `LA_STAGE_TOKENS` — the most tokens of q/k/v (and Ω̂/h in the
     backward) that a block of the CUDA linear-attention kernels' token
-    walk (`la_fwd`, `la_bwd_q` and `la_bwd_kv` in f32 and at D < 128)
-    stages in shared memory per iteration.  The kernels walk the
-    recurrence one token at a time, so the staging size changes no
-    result; each launcher stages fewer where its block would exceed the
+    walk (`la_fwd`, `la_bwd_q` and `la_bwd_kv` in f32 and at D = 32, 112
+    and (192, 128)) stages in shared memory per iteration.  The kernels
+    walk the recurrence one token at a time, so the staging size changes
+    no result; each launcher stages fewer where its block would exceed the
     H100's 227 KB of shared memory (large query groups in `la_bwd_kv`).
 
-  * `LA_CHUNK_TOKENS`, `LA_CHUNK_RING`, `LA_WGMMA_SPLIT` — the chunk,
-    the ring depth and the blocks per head of `la_fwd`'s "wgmma" body
-    (bf16 at D in `LA_WGMMA_HEAD_DIMS`, the paper's training instance;
-    the dtype and D pick the body, `linear_attention.la_fwd_body`; f32
-    and the other D keep the token walk).  A chunk is 64
-    tokens, the M of Hopper's `wgmma`; a head's D = 128 value columns
-    are split over two blocks of 64, so each block's state S^T (64 x 128)
-    is one m64n128 f32 accumulator, 64 registers a thread, and the grid
-    of the timing shape (B = 2, H = 16) is 64 blocks.  Two chunks of q,
-    k (64 x 128) and the block's half of v (64 x 64) in bf16 (40 KB
-    each) in the TMA ring, the bf16 copy of S^T and the f32 sums z (of
-    k) and P (of v) come to 101,888 B.  The chunk moves where o rounds:
+  * `LA_CHUNK_TOKENS`, `LA_CHUNK_RING`, `LA_WGMMA_PART` — the chunk,
+    the ring depth and the value columns a block of `la_fwd`'s "wgmma"
+    body writes (bf16 at D in `LA_WGMMA_HEAD_DIMS`: 128, the paper's
+    training instance, and 64, stablelm-1.6b's and whisper-large-v3's
+    decoder's; the dtype and D pick the body,
+    `linear_attention.la_fwd_body`; f32 and the other D keep the token
+    walk).  A chunk is 64 tokens, the M of Hopper's `wgmma`; a head's D
+    value columns are split over D / 64 blocks of 64
+    (`linear_attention.wgmma_parts`), so each block's state S^T (64 x D)
+    is one m64nD f32 accumulator, D / 2 registers a thread: two blocks a
+    head at D = 128, 64 at the timing shape (B = 2, H = 16); one at D =
+    64, 64 at stablelm's (B = 2, H = 32).  Two chunks of q, k (64 x D)
+    and the block's 64 columns of v in bf16 (40 KB each at D = 128) in
+    the TMA ring, the bf16 copy of S^T and the f32 sums z (of k) and P
+    (of v) come to 101,888 B at D = 128, 60,416 B at 64.  The chunk moves
+    where o rounds:
     the intra-chunk matrix A = a + b q k^T and the readout's copy of S
     are rounded to bf16 once per chunk (one bf16 step of o at most); g,
     the normalizer and the backward's residual, stays f32 (the row sums
     of the f32 scores and q . z on the CUDA cores).  The kernel is
     compiled for exactly this chunk and refuses any other.
-  * `LA_BWD_WGMMA_HEAD_DIMS`, `LA_BWD_Q_SPLIT`, `LA_BWD_KV_SPLIT`,
-    `LA_BWD_RING` — the "wgmma" bodies of the analytic backward's
-    `la_bwd_q` and `la_bwd_kv` (bf16 at D in `LA_BWD_WGMMA_HEAD_DIMS`,
-    the paper's training instance; the entry, the dtype and D pick the
-    body, `linear_attention.la_bwd_body`; f32 and the other D keep the
-    token walk).  Both walk chunks of
-    `LA_CHUNK_TOKENS`.  `la_bwd_q` runs `LA_BWD_Q_SPLIT` = 2 blocks per
-    (batch, query head), one per half of dq's columns, so a block's share
-    of the state A = Σ k^T v (64 x 128) is one m64n128 f32 accumulator;
-    `la_bwd_kv` runs `LA_BWD_KV_SPLIT` = 4 blocks per (batch, KV head),
-    dk's two column halves and dv's two, each holding a 64 x 128 slice of
-    U = Σ q^T Ω̂ in the orientation its readout needs (128 blocks at the
-    timing shape, one wave on 132 SMs).  `LA_BWD_RING` steps of k, v, q
-    and the f32 Ω̂ are in flight in the TMA ring: with Ω̂'s hi and lo bf16
-    tiles and the state's hi and lo copies that is 183,040 B (`la_bwd_q`)
-    and 199,424 B (`la_bwd_kv`), one block an SM.  Every operand that is
-    not a bf16 input (Ω̂, the copies of the states, the score tiles) goes
-    as a hi + lo pair of bf16 values, so dq, dk and dv stay within one
-    bf16 step where q and k share a direction; the kernels are compiled
-    for exactly this chunk and refuse any other.
+  * `LA_BWD_WGMMA_HEAD_DIMS`, `LA_BWD_RING` — the "wgmma" bodies of
+    the analytic backward's `la_bwd_q` and `la_bwd_kv` (bf16 at D in
+    `LA_BWD_WGMMA_HEAD_DIMS`, 128 and 64 as the forward's; the entry, the
+    dtype and D pick the body, `linear_attention.la_bwd_body`; f32 and
+    the other D keep the token walk).  Both walk chunks of
+    `LA_CHUNK_TOKENS` with blocks of `LA_WGMMA_PART` columns.  `la_bwd_q`
+    runs D / 64 blocks per (batch, query head), one per 64 of dq's
+    columns, so a block's share of the state A = Σ k^T v (64 x D) is one
+    m64nD f32 accumulator; `la_bwd_kv` runs 2 D / 64 blocks per (batch,
+    KV head), dk's parts of 64 columns and dv's (four at D = 128, two at
+    64), each holding a 64 x D slice of U = Σ q^T Ω̂ in the orientation
+    its readout needs (128 blocks at either timing shape, one wave on 132
+    SMs).  `LA_BWD_RING` steps of k, v, q and the f32 Ω̂ are in flight in
+    the TMA ring: with Ω̂'s hi and lo bf16 tiles and the state's hi and lo
+    copies that is 183,040 B (`la_bwd_q`) and 199,424 B (`la_bwd_kv`) at
+    D = 128, one block an SM, and 101,120 B each at 64.  Every operand
+    that is not a bf16 input (Ω̂, the copies of the states, the score
+    tiles) goes as a hi + lo pair of bf16 values, so dq, dk and dv stay
+    within one bf16 step where q and k share a direction; the kernels are
+    compiled for exactly this chunk and refuse any other.
   * `SSD_BWD_Q_WGMMA_STATE_DIMS`, `SSD_BWD_Q_K_RING` — `ssd_bwd_q`'s
     "wgmma" body (bf16 at (Dk, Dv) in `SSD_BWD_Q_WGMMA_STATE_DIMS`,
     mamba2-2.7b's training instance; chunks of `SSD_CHUNK_TOKENS`):
@@ -134,10 +138,11 @@ staging size, and no result depends on it.
 
   * `GLA_STAGE_TOKENS` — the same staging size for the decay-gated
     instantiations of the token walks (`gla_fwd`, `gla_bwd_q` and
-    `gla_bwd_kv` in f32 and at D < 128), which also stage each token's
-    decay.  The reference's `DEFAULT_TILES["gla"]["chunk"] = 128` is the
-    VMEM tile of its Pallas GLA kernels; here too the token-by-token
-    walk makes the result independent of it.  The plain GLA scans
+    `gla_bwd_kv` in f32 and at D < 128: the gated entries have no
+    chunked body at D = 64, which no path runs), which also stage each
+    token's decay.  The reference's `DEFAULT_TILES["gla"]["chunk"] = 128`
+    is the VMEM tile of its Pallas GLA kernels; here too the
+    token-by-token walk makes the result independent of it.  The plain GLA scans
     (core/gla.py) take `DEFAULT_SCAN_CHUNK`, as the linear ones do.
   * `GLA_WGMMA_HEAD_DIMS`, `GLA_BWD_Q_WGMMA_HEAD_DIMS`,
     `GLA_BWD_KV_WGMMA_HEAD_DIMS` — the head dims at which `gla_fwd`,
@@ -218,14 +223,12 @@ SSD_BWD_Q_K_RING = 2
 SSD_BWD_KV_QO_RING = 2
 LA_CHUNK_TOKENS = 64
 LA_CHUNK_RING = 2
-LA_WGMMA_SPLIT = 2
-LA_WGMMA_HEAD_DIMS = (128,)
-LA_BWD_WGMMA_HEAD_DIMS = (128,)
+LA_WGMMA_PART = 64
+LA_WGMMA_HEAD_DIMS = (64, 128)
+LA_BWD_WGMMA_HEAD_DIMS = (64, 128)
 GLA_WGMMA_HEAD_DIMS = (128,)
 GLA_BWD_Q_WGMMA_HEAD_DIMS = (128,)
 GLA_BWD_KV_WGMMA_HEAD_DIMS = (128,)
-LA_BWD_Q_SPLIT = 2
-LA_BWD_KV_SPLIT = 4
 LA_BWD_RING = 2
 FLASH_BLOCK_Q = {
     "wgmma": {"flash_fwd": 128, "flash_bwd_q": 128, "flash_bwd_kv": 64},

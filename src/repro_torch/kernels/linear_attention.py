@@ -18,15 +18,18 @@ and csrc/la_bwd.cu; their headers say what bounds each kernel and how
 it is laid out.
 
 Each kernel has two bodies, chosen by `la_fwd_body(dtype, d, entry, dv)`
-and `la_bwd_body(entry, dtype, d, dv)`: "wgmma" (bf16 at Dk = Dv = 128, the paper's
-training instance: chunked scans on the tensor cores fed by TMA, so
-their operands must be 16-byte aligned, which the wrappers check;
-`la_fwd` two blocks per head by halves of the value columns, `la_bwd_q`
-two by halves of dq's columns, `la_bwd_kv` four per KV head, by halves
-of dk's and of dv's columns; `gla_fwd`, `gla_bwd_q` and `gla_bwd_kv`
-run the gated instances of the forward's, the dq and the dk/dv body) and
-"walk" (f32, and bf16 at every other pair: the token walk; `la_bwd_kv`'s
-walk at (192, 128) runs its two roles in two blocks per KV head).
+and `la_bwd_body(entry, dtype, d, dv)`: "wgmma" (bf16 at Dk = Dv = 128,
+the paper's training instance, and 64, stablelm-1.6b's and
+whisper-large-v3's decoder's: chunked scans on the tensor cores fed by
+TMA, so their operands must be 16-byte aligned, which the wrappers
+check; blocks of 64 columns, `wgmma_parts(D)` of them: `la_fwd` per head
+by parts of the value columns, `la_bwd_q` by parts of dq's columns,
+`la_bwd_kv` per KV head by parts of dk's and of dv's columns (four at
+D = 128, two at 64); `gla_fwd`, `gla_bwd_q` and `gla_bwd_kv` run the
+gated instances of the forward's, the dq and the dk/dv body at D = 128)
+and "walk" (f32, and bf16 at every other pair: the token walk;
+`la_bwd_kv`'s walk at (192, 128) runs its two roles in two blocks per
+KV head).
 
 Shapes: q (B, H, N, Dk), k (B, Hkv, N, Dk) and v (B, Hkv, N, Dv) with
 Hkv | H, float32 or bfloat16, (Dk, Dv) in `HEAD_DIM_PAIRS`: Dk = Dv = D
@@ -50,10 +53,9 @@ from repro_torch.core import chunked as _chunked
 from repro_torch.kernels import build, plan
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
     GLA_BWD_KV_WGMMA_HEAD_DIMS, GLA_BWD_Q_WGMMA_HEAD_DIMS, \
-    GLA_STAGE_TOKENS, GLA_WGMMA_HEAD_DIMS, \
-    LA_BWD_KV_SPLIT, LA_BWD_Q_SPLIT, LA_BWD_RING, LA_BWD_WGMMA_HEAD_DIMS, \
-    LA_CHUNK_RING, LA_CHUNK_TOKENS, LA_STAGE_TOKENS, LA_WGMMA_HEAD_DIMS, \
-    LA_WGMMA_SPLIT
+    GLA_STAGE_TOKENS, GLA_WGMMA_HEAD_DIMS, LA_BWD_RING, \
+    LA_BWD_WGMMA_HEAD_DIMS, LA_CHUNK_RING, LA_CHUNK_TOKENS, LA_STAGE_TOKENS, \
+    LA_WGMMA_HEAD_DIMS, LA_WGMMA_PART
 
 F32 = torch.float32
 # head dims the kernels are instantiated for (a state row in registers):
@@ -273,13 +275,20 @@ _WGMMA_THREADS = 128
 _WGMMA_EXTRA = 2048
 
 
+def wgmma_parts(d: int) -> int:
+    """Blocks of the wgmma bodies per (batch, query head) of `la_fwd` and
+    `la_bwd_q`, and per (batch, KV head) and role of `la_bwd_kv`: one per
+    LA_WGMMA_PART columns of D (1 at D = 64, 2 at D = 128)."""
+    return d // LA_WGMMA_PART
+
+
 def _wgmma_smem(d: int, gated: bool = False) -> int:
     """Dynamic shared memory of the forward's wgmma block, as
-    csrc/la_fwd.cu's `lc::Layout<gated>::kSmem`: LA_CHUNK_RING chunks of
-    bf16 q, k (D wide) and the block's share of v, the bf16 copy of S^T
+    csrc/la_fwd.cu's `lc::Layout<d, gated>::kSmem`: LA_CHUNK_RING chunks of
+    bf16 q, k (D wide) and the block's part of v, the bf16 copy of S^T
     (its value columns x D; gated, its hi + lo pair and the hi and lo
     (w o v) tiles), z and P twice in f32, and the barriers and pad."""
-    c, part = LA_CHUNK_TOKENS, d // LA_WGMMA_SPLIT
+    c, part = LA_CHUNK_TOKENS, LA_WGMMA_PART
     return (LA_CHUNK_RING * 2 * (2 * c * d + c * part) + 2 * part * d
             + (2 * part * d + 2 * 2 * c * part if gated else 0)
             + 2 * 4 * (d + part) + _WGMMA_EXTRA)
@@ -287,11 +296,11 @@ def _wgmma_smem(d: int, gated: bool = False) -> int:
 
 def _bwd_q_smem(d: int, gated: bool = False) -> int:
     """Dynamic shared memory of the dq wgmma block, as csrc/la_bwd.cu's
-    `bq::Layout<gated>::kSmem`: LA_BWD_RING chunks of the block's half of
-    k and of v in bf16 and of Ω̂ in f32, Ω̂'s hi and lo bf16 tiles, the hi
-    and lo copies of the block's half of A = Σ k^T v, gated the hi and lo
-    (w o v) tiles, z twice and h in f32, and the barriers and pad."""
-    c, half = LA_CHUNK_TOKENS, d // LA_BWD_Q_SPLIT
+    `bq::Layout<d, gated>::kSmem`: LA_BWD_RING chunks of the block's part
+    of k and of v in bf16 and of Ω̂ in f32, Ω̂'s hi and lo bf16 tiles, the
+    hi and lo copies of the block's part of A = Σ k^T v, gated the hi and
+    lo (w o v) tiles, z twice and h in f32, and the barriers and pad."""
+    c, half = LA_CHUNK_TOKENS, LA_WGMMA_PART
     return (LA_BWD_RING * (2 * c * half + 2 * c * d + 4 * c * d)
             + 2 * 2 * c * d + 2 * 2 * half * d
             + (2 * 2 * c * d if gated else 0) + 2 * 4 * half + 4 * c
@@ -300,13 +309,13 @@ def _bwd_q_smem(d: int, gated: bool = False) -> int:
 
 def _bwd_kv_smem(d: int, gated: bool = False) -> int:
     """Dynamic shared memory of the dk/dv wgmma block, as
-    `bkv::Layout<gated>::kSmem`: LA_BWD_RING steps of a bf16 k or v tile,
+    `bkv::Layout<d, gated>::kSmem`: LA_BWD_RING steps of a bf16 k or v tile,
     a bf16 q tile and an f32 Ω̂ tile, Ω̂'s hi and lo bf16 tiles, the hi and
     lo copies of the block's slice of U = Σ q^T Ω̂, its f32 sums twice, h,
     gated the sums of dV''s augmented column (u_h over D and Σ h, twice,
     in 16-byte rows) and the step's token weights 2^cl and 2^cl h, and
     the barriers and pad."""
-    c, half = LA_CHUNK_TOKENS, d // (LA_BWD_KV_SPLIT // 2)
+    c, half = LA_CHUNK_TOKENS, LA_WGMMA_PART
     return (LA_BWD_RING * (2 * c * d + 2 * c * d + 4 * c * d)
             + 2 * 2 * c * d + 2 * 2 * half * d + 2 * 4 * half + 4 * c
             + (2 * 4 * d + 16 + 2 * 4 * c if gated else 0) + _WGMMA_EXTRA)
@@ -315,8 +324,8 @@ def _bwd_kv_smem(d: int, gated: bool = False) -> int:
 def plan_fwd(entry, q, k, v, log_decay, a, b, stage_tokens, argtypes):
     """la_fwd (log_decay None) or gla_fwd: the token walk's one block per
     (batch, query head) walking all N tokens of its query head and of its
-    KV head; the wgmma body LA_WGMMA_SPLIT such blocks, each with its
-    share of the value columns (of v and o; the first writes g), walking
+    KV head; the wgmma body `wgmma_parts(D)` such blocks, each with its
+    part of the value columns (of v and o; the first writes g), walking
     chunks (TMA zero-fills the rows of the last chunk past N; gated, each
     block reads its KV head's log decays)."""
     bsz, h, hkv, n, d, dv = _dims(q, k, v, head_dims(entry))
@@ -328,7 +337,7 @@ def plan_fwd(entry, q, k, v, log_decay, a, b, stage_tokens, argtypes):
     split, threads = 1, -(-(rg * dv // 4) // 32) * 32 + 32
     if la_fwd_body(q.dtype, d, entry, dv) == "wgmma":
         stage_tokens = stage = LA_CHUNK_TOKENS
-        split, threads, smem = LA_WGMMA_SPLIT, _WGMMA_THREADS, \
+        split, threads, smem = wgmma_parts(d), _WGMMA_THREADS, \
             _wgmma_smem(d, gated)
     else:
         # the staging's floats per token: q and k, v padded, f, and the
@@ -388,8 +397,8 @@ def plan_bwd_q(entry, k, v, log_decay, om_hat, h_vec, b, stage_tokens,
                argtypes):
     """la_bwd_q (log_decay None) or gla_bwd_q: the token walk's one block
     per (batch, query head), the forward scan over all N tokens; the
-    wgmma body (gla_bwd_q its gated instance) LA_BWD_Q_SPLIT such
-    blocks, each with its share of dq's columns (and of k's), walking
+    wgmma body (gla_bwd_q its gated instance) `wgmma_parts(D)` such
+    blocks, each with its part of dq's columns (and of k's), walking
     chunks (TMA zero-fills the rows of the last chunk past N)."""
     bsz, h, hkv, n, d, dv = _dims(om_hat, k, v, head_dims(entry),
                                   q_width="dv")
@@ -398,7 +407,7 @@ def plan_bwd_q(entry, k, v, log_decay, om_hat, h_vec, b, stage_tokens,
     split, threads = 1, d
     if la_bwd_body(entry, k.dtype, d, dv) == "wgmma":
         stage_tokens = stage = LA_CHUNK_TOKENS
-        split, threads, smem = LA_BWD_Q_SPLIT, _WGMMA_THREADS, \
+        split, threads, smem = wgmma_parts(d), _WGMMA_THREADS, \
             _bwd_q_smem(d, gated)
     else:
         # k, v and Ω̂ padded, h, and the decay
@@ -461,11 +470,11 @@ def plan_bwd_kv(entry, q, k, v, log_decay, om_hat, h_vec, a, b,
     heads (its staging grows with G, so large groups stage fewer tokens);
     where Dk > Dv its two roles in two blocks per (batch, KV head), y = 0
     writing dk and y = 1 dv, each staging every operand; the wgmma body
-    LA_BWD_KV_SPLIT blocks per (batch, KV head): y = 0, 1 write dk's column
-    half y from v, their half of q, Ω̂ and h; y = 2, 3 dv's half y - 2 from
-    k, q and their half of Ω̂ (gated: dV''s columns of that half, from h
-    too, and y = 2 also its column D), each walking the group's chunks from
-    the last."""
+    2 P blocks per (batch, KV head), P = `wgmma_parts(D)`: y < P write
+    dk's columns part y from v, their part of q, Ω̂ and h; y >= P dv's part
+    y - P from k, q and their part of Ω̂ (gated: dV''s columns of that
+    part, from h too, and y = P also its column D), each walking the
+    group's chunks from the last."""
     bsz, h, hkv, n, d, dv = _dims(q, k, v, head_dims(entry))
     group, gated = h // hkv, log_decay is not None
     code = plan.dtype_code(q.dtype)
@@ -473,7 +482,7 @@ def plan_bwd_kv(entry, q, k, v, log_decay, om_hat, h_vec, a, b,
     split_roles = not wgmma and d != dv
     if wgmma:
         stage_tokens = stage = LA_CHUNK_TOKENS
-        split, threads, smem = LA_BWD_KV_SPLIT, _WGMMA_THREADS, \
+        split, threads, smem = 2 * wgmma_parts(d), _WGMMA_THREADS, \
             _bwd_kv_smem(d, gated)
     else:
         # q and Ω̂ of the G query heads, k and v, padded; h of the G heads;
@@ -485,24 +494,25 @@ def plan_bwd_kv(entry, q, k, v, log_decay, om_hat, h_vec, a, b,
                            + group + (d // 32 + 2 if gated else 0)) * 4)
         split, threads = ((2, max(d, rg * dv // 4)) if split_roles
                           else (1, 2 * d))
-    half = d // (LA_BWD_KV_SPLIT // 2)   # dk's halves, then dv's
+    parts = wgmma_parts(d)   # dk's parts, then dv's
 
     def part(blk):
         """The block's roles and the columns its output takes: the walk's
         one block does both over all columns, a split walk's block y its
-        role; a wgmma block its half."""
+        role; a wgmma block its part."""
         if not wgmma:
             if split_roles:
                 return ("dk",) if blk[1] == 0 else ("dv",), None
             return ("dk", "dv"), None
-        lo = (blk[1] % 2) * half
-        return ("dk",) if blk[1] < 2 else ("dv",), (lo, lo + half)
+        lo = (blk[1] % parts) * LA_WGMMA_PART
+        return ("dk",) if blk[1] < parts else ("dv",), \
+            (lo, lo + LA_WGMMA_PART)
 
     def operand(grouped, role=None, halved=None, width=d):
         """Tiles of an operand over the block's query group (grouped) or
         KV head: rows [0, N) where `role` is None, the walk stages every
         operand, or `role` is one of the block's roles, else none; of
-        `width` columns (None: a 3-D operand), the block's half where
+        `width` columns (None: a 3-D operand), the block's part where
         `halved` is one of its roles."""
         def tile(blk):
             bi, hk = divmod(blk[0], hkv)
@@ -538,7 +548,7 @@ def plan_bwd_kv(entry, q, k, v, log_decay, om_hat, h_vec, a, b,
     if gated:   # dV' with its augmented column, f32
         def dva_tile(blk):
             """The walk's block writes whole rows; a wgmma dv block its
-            half's columns, the first half also column D."""
+            part's columns, the first part also column D."""
             if not wgmma:
                 return operand(False, width=d + 1)(blk)
             bi, hk = divmod(blk[0], hkv)

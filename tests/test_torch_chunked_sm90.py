@@ -2,8 +2,8 @@
 plans, their arithmetic emulated on the CPU against the JAX package, and
 on the card both kernels against their plain versions.
 
-`la_fwd` in bf16 at D = 128 runs a chunked scan on the tensor cores, two
-blocks per (batch, query head), one per half of the value columns;
+`la_fwd` in bf16 at D = 64 and 128 runs a chunked scan on the tensor
+cores, D / 64 blocks per (batch, query head), one per 64 value columns;
 `ssd_bwd_kv` in bf16 at (Dk, Dv) = (128, 64) a reverse chunked scan, one
 block per (batch, head), its operands that are not bf16 inputs sent as
 hi + lo pairs of bf16.  f32 and the other dims keep the token walk
@@ -11,7 +11,8 @@ hi + lo pairs of bf16.  f32 and the other dims keep the token walk
 `gla_bwd_kv` run in bf16 at D = 128 are held by
 tests/test_torch_gated_sm90.py).
 
-  * plan tests on meta tensors at N = 8192, 1000, 65 and 1, G = 1 and 4:
+  * plan tests on meta tensors at N = 8192, 1000, 65 and 1, G = 1 and 4
+    (la_fwd at D = 64 and 128):
     the bodies' geometry, shared memory within the H100's 232,448 bytes
     and the blocks per SM each claims, chunks that cover [0, N) exactly,
     each output element written by one block, and the token walk's plans
@@ -20,7 +21,8 @@ tests/test_torch_gated_sm90.py).
     points (la_fwd: the intra-chunk matrix A and the readout's copy of S
     in bf16; ssd_bwd_kv: every operand as its hi + lo bf16 pair), against
     the JAX package's chunked scans at H = 4, N = 300 (a ragged last
-    chunk), G = 1 and 2, and for the SSD a fresh layer's and the hard
+    chunk), G = 1 and 2, la_fwd at D = 64 and 128, and for the SSD a
+    fresh layer's and the hard
     U[-5, 0] decays, within the limits `chip_smoke.py` holds the kernels
     to: o one bf16 step (2^-7 of its largest |value|), g, the dk partials
     and dv 1e-4;
@@ -65,10 +67,14 @@ D, DK, DV = 128, 128, 64
 BF16_REL = 2.0 ** -7
 SEQ_F32_REL = 1e-4
 SM_SMEM = 233472   # an SM's shared memory; each block also holds 1 KB
-# csrc/la_fwd.cu's `lc::kSmem`: two chunks of q, k (64 x 128) and the
-# block's half of v (64 x 64) in bf16, the bf16 copy of S^T (64 x 128), z
-# and P twice in f32, and 2 KB of barriers and alignment pad
-LA_SMEM = 2 * (2 * 16384 + 8192) + 16384 + 2 * 4 * (128 + 64) + 2048
+# csrc/la_fwd.cu's `lc::Layout<D, false>::kSmem`: two chunks of q, k (64 x
+# D) and the block's 64 columns of v (64 x 64) in bf16, the bf16 copy of
+# S^T (64 x D), z and P twice in f32, and 2 KB of barriers and alignment
+# pad: 101,888 B at D = 128, 60,416 B at 64
+LA_SMEM = {d: 2 * (2 * 128 * d + 8192) + 128 * d + 2 * 4 * (d + 64) + 2048
+           for d in (64, 128)}
+# the blocks an SM holds by that shared memory (each block also takes 1 KB)
+LA_BLOCKS_PER_SM = {128: 2, 64: 3}
 # csrc/ssd.cu's `sk::kSmem`: the hi and lo bf16 copies of U^T (64 x 128),
 # two chunks of q (64 x 128) and Ω (64 x 64), one of k and v, and 2 KB
 SSD_SMEM = 2 * 16384 + 2 * (16384 + 8192) + (16384 + 8192) + 2048
@@ -107,21 +113,25 @@ def _written_once(launch, name):
     return bool((seen == 1).all())
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("g", [1, 4])
-def test_wgmma_plans_geometry_chunks_and_boxes(g):
+def test_wgmma_plans_geometry_chunks_and_boxes(g, d):
     """la_fwd in bf16 at D = 128: (B H, 2) blocks of one warpgroup,
-    101,888 B, one block per SM (64 blocks at the timing shape); the
-    chunk as the C call's stage.  ssd_bwd_kv in bf16 at (128, 64): B H
-    blocks of one warpgroup, 108,544 B, two to an SM (160 blocks in one
-    wave on 132 SMs).  Chunks cover [0, N) exactly; each o, g, dk and dv
-    element has one writer."""
-    b = 2
-    assert tkla.la_fwd_body(BF16, D) == "wgmma"
+    101,888 B, two would fit an SM (64 blocks at the timing shape); at
+    D = 64: (B H, 1) blocks, 60,416 B, three would fit; the chunk as the
+    C call's stage.  ssd_bwd_kv in bf16 at (128, 64): B H blocks of one
+    warpgroup, 108,544 B, two to an SM (160 blocks in one wave on 132
+    SMs).  Chunks cover [0, N) exactly; each o, g, dk and dv element has
+    one writer."""
+    b, parts = 2, d // 64
+    assert tkla.la_fwd_body(BF16, d) == "wgmma"
     assert tkssd.ssd_body("ssd_bwd_kv", BF16, DK, DV) == "wgmma"
     for n in (8192, 1000, 65, 1):
-        p = _la_plan(BF16, b, 16, 16 // g, n)
-        assert (p.grid, p.threads, p.smem) == ((b * 16, 2, 1), 128, LA_SMEM)
+        p = _la_plan(BF16, b, 16, 16 // g, n, d)
+        assert (p.grid, p.threads, p.smem) == ((b * 16, parts, 1), 128,
+                                               LA_SMEM[d])
         assert p.smem <= plan.MAX_SMEM and p.grid[0] * p.grid[1] <= 132
+        assert SM_SMEM // (p.smem + 1024) == LA_BLOCKS_PER_SM[d]
         assert p.stage == p.args[5] == p.plan_args[5] == LA_CHUNK_TOKENS
         assert len(_spans(n, p.stage)) == -(-n // LA_CHUNK_TOKENS)
         h = 80 if g == 1 else 16
@@ -130,34 +140,39 @@ def test_wgmma_plans_geometry_chunks_and_boxes(g):
         assert 2 * (s.smem + 1024) <= SM_SMEM and s.smem <= plan.MAX_SMEM
         assert s.stage == s.args[6] == s.plan_args[6] == SSD_CHUNK_TOKENS
         assert len(_spans(n, s.stage)) == -(-n // SSD_CHUNK_TOKENS)
-    small_la, small_ssd = _la_plan(BF16, 2, 4, 4 // g, 65), \
+    small_la, small_ssd = _la_plan(BF16, 2, 4, 4 // g, 65, d), \
         _ssd_plan(BF16, 2, g, 8, 65)
     for name in ("o", "g"):
         assert _written_once(small_la, name), name
     v_tiles = {a.name: a for a in small_la.accesses}["v"]
-    assert [v_tiles.tile((0, y, 0))[0].ranges[3] for y in (0, 1)] == \
-        [(0, 64), (64, 128)]
+    assert [v_tiles.tile((0, y, 0))[0].ranges[3] for y in range(parts)] == \
+        [(0, 64), (64, 128)][:parts]
     for name in ("dk", "dv"):
         assert _written_once(small_ssd, name), name
 
 
 def test_walk_plans_unchanged():
-    """f32 at D = 128 and bf16 at D = 64 keep la_fwd's token walk (D + 32
-    threads, 32 staged tokens), and so does gla_fwd (its gated walk, one
-    staged decay more per token), which in bf16 at D = 128 runs the gated
-    wgmma body (tests/test_torch_gated_sm90.py); f32 and the smoke dims
+    """f32 at D = 128, 64 and 32 keep la_fwd's token walk (D + 32 threads,
+    32 staged tokens), and so does gla_fwd (its gated walk, one staged
+    decay more per token) there and in bf16 at D = 64, where la_fwd runs
+    its chunked body; gla_fwd in bf16 at D = 128 runs the gated wgmma body
+    (tests/test_torch_gated_sm90.py); f32 and the smoke dims
     keep ssd_bwd_kv's walk (row and column tiles, 32 staged tokens).
     zamba2-7b's shapes: la_fwd's walk at D = 112 has 128 value threads
     (whole warps) and the normalizer warp, gla_fwd refuses 112, and
     ssd_bwd_kv walks (64, 64) with 128 row and 128 column threads."""
-    for dtype, d in ((F32, 128), (BF16, 64), (F32, 32)):
-        assert tkla.la_fwd_body(dtype, d) == "walk"
+    for dtype, d in ((F32, 128), (F32, 64), (BF16, 64), (F32, 32)):
+        # bf16 at D = 64: la_fwd's chunked body (the plan test above)
+        linear_walks = (dtype, d) != (BF16, 64)
+        assert tkla.la_fwd_body(dtype, d) == ("walk" if linear_walks
+                                              else "wgmma")
         assert tkla.la_fwd_body(dtype, d, "gla_fwd") == "walk"
         for n in (8192, 1000, 65, 1):
-            p = _la_plan(dtype, 2, 16, 4, n, d)
-            assert (p.grid, p.threads, p.stage) == ((32, 1, 1), d + 32,
-                                                    LA_STAGE_TOKENS)
-            assert p.smem == LA_STAGE_TOKENS * (3 * (d + 16) + d + 1) * 4
+            if linear_walks:
+                p = _la_plan(dtype, 2, 16, 4, n, d)
+                assert (p.grid, p.threads, p.stage) == ((32, 1, 1), d + 32,
+                                                        LA_STAGE_TOKENS)
+                assert p.smem == LA_STAGE_TOKENS * (3 * (d + 16) + d + 1) * 4
             q = _meta(2, 16, n, d, dtype=dtype)
             kv = _meta(2, 4, n, d, dtype=dtype)
             gp = tkgla.plan_gla_fwd(q, kv, kv, _meta(2, 4, n, dtype=F32),
@@ -291,15 +306,15 @@ def _rel(got, want):
     return float(np.abs(got - want).max()) / float(np.abs(want).max())
 
 
-def _la_inputs(rng, b, h, hkv, n):
+def _la_inputs(rng, b, h, hkv, n, d=D):
     """Unit q and k rows (as the model hands them over after l2
-    normalization) and normal v, bf16."""
+    normalization) and normal v of d columns, bf16."""
     def unit(*shape):
         x = rng.standard_normal(shape).astype(np.float32)
         return torch.from_numpy(x / np.linalg.norm(x, axis=-1,
                                                    keepdims=True)).to(BF16)
-    return unit(b, h, n, D), unit(b, hkv, n, D), torch.from_numpy(
-        rng.standard_normal((b, hkv, n, D)).astype(np.float32)).to(BF16)
+    return unit(b, h, n, d), unit(b, hkv, n, d), torch.from_numpy(
+        rng.standard_normal((b, hkv, n, d)).astype(np.float32)).to(BF16)
 
 
 def _ssd_inputs(rng, b, g, h, n, regime):
@@ -320,21 +335,22 @@ def _np(x):
     return jnp.asarray(x.float().numpy())
 
 
-def test_emulated_la_fwd_matches_jax_reference():
+@pytest.mark.parametrize("d", [64, 128])
+def test_emulated_la_fwd_matches_jax_reference(d):
     """la_fwd's rounding points keep o within one bf16 step and g within
-    1e-4 of the JAX package's chunked scan, at G = 1 and 2 with a ragged
-    last chunk (N = 300)."""
+    1e-4 of the JAX package's chunked scan, at D = 64 and 128, G = 1 and
+    2 with a ragged last chunk (N = 300)."""
     if jnp is None:
         pytest.skip("the JAX reference is not installed here")
     rng = np.random.default_rng(20)
     for hkv in (4, 2):
-        q, k, v = _la_inputs(rng, 2, 4, hkv, 300)
+        q, k, v = _la_inputs(rng, 2, 4, hkv, 300, d)
         o, g = _emulate_la_fwd(q, k, v, 1.0, 1.0)
         want_o, want_g, _ = _jax_la_fwd(_np(q), _np(k), _np(v), 1.0, 1.0,
                                         128)
         assert np.isfinite(o.float().numpy()).all()
-        assert _rel(o.float(), want_o) <= BF16_REL, hkv
-        assert _rel(g, want_g) <= SEQ_F32_REL, hkv
+        assert _rel(o.float(), want_o) <= BF16_REL, (d, hkv)
+        assert _rel(g, want_g) <= SEQ_F32_REL, (d, hkv)
 
 
 def test_emulated_ssd_bwd_kv_matches_jax_reference():
@@ -360,23 +376,24 @@ def test_emulated_ssd_bwd_kv_matches_jax_reference():
 
 @pytest.mark.gpu
 def test_cuda_chunked_bodies_match_plain():
-    """la_fwd (bf16, D = 128) and ssd_bwd_kv (bf16, (128, 64)) against
-    their plain versions at ragged N (1, 65, 300) with G = 1 and 2: o
-    within one bf16 step, g, the dk partials and dv within 1e-4; a second
-    launch gives bit-equal outputs."""
+    """la_fwd (bf16, D = 128 and 64) and ssd_bwd_kv (bf16, (128, 64))
+    against their plain versions at ragged N (1, 65, 300, 1000) with G =
+    1, 2 and 4: o within one bf16 step, g, the dk partials and dv within
+    1e-4; a second launch gives bit-equal outputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     dev = torch.device("cuda")
     rng = np.random.default_rng(22)
-    for hkv, n in ((4, 300), (2, 65), (4, 1)):
-        q, k, v = (x.to(dev) for x in _la_inputs(rng, 2, 4, hkv, n))
+    for hkv, n, d in ((4, 300, 128), (2, 65, 128), (4, 1, 128),
+                      (4, 300, 64), (1, 1000, 64), (2, 1, 64)):
+        q, k, v = (x.to(dev) for x in _la_inputs(rng, 2, 4, hkv, n, d))
         o, g = tkla.la_fwd_cuda(q, k, v, 1.0, 1.0)
         o2, g2 = tkla.la_fwd_cuda(q, k, v, 1.0, 1.0)
         torch.cuda.synchronize()
         want_o, want_g = tkla.la_fwd_torch(q, k, v, 1.0, 1.0)
         assert torch.equal(o, o2) and torch.equal(g, g2)
-        assert _rel(o.float().cpu(), want_o.float().cpu()) <= BF16_REL
-        assert _rel(g.cpu(), want_g.cpu()) <= SEQ_F32_REL
+        assert _rel(o.float().cpu(), want_o.float().cpu()) <= BF16_REL, d
+        assert _rel(g.cpu(), want_g.cpu()) <= SEQ_F32_REL, d
     for g_, h, n, regime in ((1, 8, 300, "init"), (2, 4, 65, "strong"),
                              (1, 4, 1, "init")):
         q, k, v, ld, om = (x.to(dev) for x in _ssd_inputs(rng, 2, g_, h, n,

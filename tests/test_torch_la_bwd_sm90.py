@@ -3,25 +3,28 @@
 on the CPU against the JAX package, and on the card both kernels against
 their plain versions.
 
-In bf16 at D = 128 `la_bwd_q` runs a forward chunked scan on the tensor
-cores, two blocks per (batch, query head), one per half of dq's columns;
-`la_bwd_kv` a reverse chunked scan, four blocks per (batch, KV head), for
-dk's two column halves and dv's two.  Every operand of their products
-that is not a bf16 input (Ω̂, the copies of the states, the score tiles)
-goes as a hi + lo pair of bf16 values.  f32 and D < 128 keep the token
-walk; `gla_bwd_kv` and `gla_bwd_q` in bf16 at D = 128 run the gated
+In bf16 at D = 64 and 128 `la_bwd_q` runs a forward chunked scan on the
+tensor cores, D / 64 blocks per (batch, query head), one per 64 of dq's
+columns; `la_bwd_kv` a reverse chunked scan, 2 D / 64 blocks per (batch,
+KV head), for dk's parts of 64 columns and dv's.  Every operand of their
+products that is not a bf16 input (Ω̂, the copies of the states, the
+score tiles) goes as a hi + lo pair of bf16 values.  f32 and the other D
+keep the token walk; `gla_bwd_kv` and `gla_bwd_q` in bf16 at D = 128
+(at D = 64 their walks) run the gated
 instances of the two bodies (tests/test_torch_gated_sm90.py,
 tests/test_torch_gla_q_decode_sm90.py).
 
-  * plan tests on meta tensors at N = 8192, 1000, 65 and 1, G = 1 and 4:
-    the bodies' geometry, shared memory within the H100's 232,448 bytes
-    (one block an SM), chunks that cover [0, N) exactly, each dq, dk and
+  * plan tests on meta tensors at N = 8192, 1000, 65 and 1, G = 1 and 4,
+    D = 64 and 128: the bodies' geometry, shared memory within the H100's
+    232,448 bytes (one block an SM at D = 128, two at 64), chunks that
+    cover [0, N) exactly, each dq, dk and
     dv element written by one block, and the walk's plans as they were;
     and the walks of all three LA entries at deepseek-v2-236b's (Dk, Dv)
     = (192, 128);
   * each body's arithmetic, emulated in f32 with the kernel's rounding
     points, against the JAX package's `la_bwd_chunked` at H = 4, N = 300
-    (a ragged last chunk), G = 1 and 2, for unit random q and k and for q
+    (a ragged last chunk), G = 1 and 2, D = 64 and 128, for unit random q
+    and k and for q
     and k that share a direction (as the l2-normalized keys of a trained
     model do: Σ k grows with t and the terms of [Ω̂, -h] cancel), within
     one bf16 step (2^-7 of the largest |value|), the limit `chip_smoke.py`
@@ -68,13 +71,27 @@ D = 128
 BF16_REL = 2.0 ** -7
 SM_SMEM = 233472   # an SM's shared memory; each block also holds 1 KB
 C = LA_CHUNK_TOKENS
-# csrc/la_bwd.cu's `bq::kSmem`: two chunks of k's half (64 x 64), v
-# (64 x 128) in bf16 and Ω̂ (64 x 128) in f32; Ω̂'s hi and lo bf16 tiles,
-# A's hi and lo copies (64 x 128 each); z twice, h, and 2 KB
-Q_SMEM = 2 * (8192 + 16384 + 32768) + 4 * 16384 + 512 + 256 + 2048
-# `bkv::kSmem`: two steps of a k or v tile, a q tile (bf16) and Ω̂ (f32);
-# Ω̂'s hi and lo tiles, U's hi and lo copies; the sums twice, h, and 2 KB
-KV_SMEM = 2 * (16384 + 16384 + 32768) + 4 * 16384 + 512 + 256 + 2048
+# csrc/la_bwd.cu's `bq::Layout<D, false>::kSmem`: two chunks of k's 64
+# columns (64 x 64), v (64 x D) in bf16 and Ω̂ (64 x D) in f32; Ω̂'s hi and
+# lo bf16 tiles, A's hi and lo copies (64 x D each); z twice, h, and 2 KB
+Q_SMEM = {d: 2 * (8192 + 128 * d + 256 * d) + 4 * 128 * d + 512 + 256 + 2048
+          for d in (64, 128)}
+# `bkv::Layout<D, false>::kSmem`: two steps of a k or v tile, a q tile
+# (bf16) and Ω̂ (f32), 64 x D each; Ω̂'s hi and lo tiles, U's hi and lo
+# copies; the sums twice, h, and 2 KB
+KV_SMEM = {d: 2 * (128 * d + 128 * d + 256 * d) + 4 * 128 * d + 512 + 256
+           + 2048 for d in (64, 128)}
+# the blocks an SM holds by that shared memory (each block also takes 1 KB)
+BLOCKS_PER_SM = {128: 1, 64: 2}
+# the dk and dv tiles of blocks y = 0, 1, .. of la_bwd_kv at N = 65: dk's
+# parts of 64 columns, then dv's; a block reads no rows of the other role
+KV_TILES = {
+    128: ([((0, 65), (0, 64)), ((0, 65), (64, 128)), ((0, 0), (0, 128)),
+           ((0, 0), (0, 128))],
+          [((0, 0), (0, 128)), ((0, 0), (0, 128)), ((0, 65), (0, 64)),
+           ((0, 65), (64, 128))]),
+    64: ([((0, 65), (0, 64)), ((0, 0), (0, 64))],
+         [((0, 0), (0, 64)), ((0, 65), (0, 64))])}
 
 
 def _meta(*shape, dtype=BF16):
@@ -98,53 +115,55 @@ def _written_once(launch, name):
     return bool((seen == 1).all())
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("g", [1, 4])
-def test_wgmma_plans_geometry_chunks_and_boxes(g):
+def test_wgmma_plans_geometry_chunks_and_boxes(g, d):
     """la_bwd_q in bf16 at D = 128: (B H, 2) blocks of one warpgroup,
     183,040 B; la_bwd_kv: (B Hkv, 4) blocks of one warpgroup, 199,424 B;
-    each one block an SM, the chunk as the C call's stage.  Chunks cover
-    [0, N) exactly; dq, dk and dv each have one writer, by column halves
-    (dk's from blocks y = 0, 1, dv's from y = 2, 3)."""
-    b, h, hkv = 2, 16, 16 // g
+    each one block an SM.  At D = 64: (B H, 1) and (B Hkv, 2) blocks (dk's
+    and dv's), 101,120 B each, two an SM.  The chunk is the C call's
+    stage.  Chunks cover [0, N) exactly; dq, dk and dv each have one
+    writer, by parts of 64 columns (dk's from blocks y < D / 64, dv's from
+    the rest)."""
+    b, h, hkv, parts = 2, 16, 16 // g, d // 64
     for entry in ("la_bwd_q", "la_bwd_kv"):
-        assert tkla.la_bwd_body(entry, BF16, D) == "wgmma"
+        assert tkla.la_bwd_body(entry, BF16, d) == "wgmma"
     for n in (8192, 1000, 65, 1):
-        pq, pkv = _plans(BF16, b, h, hkv, n)
-        assert (pq.grid, pq.threads, pq.smem) == ((b * h, 2, 1), 128, Q_SMEM)
-        assert (pkv.grid, pkv.threads, pkv.smem) == ((b * hkv, 4, 1), 128,
-                                                     KV_SMEM)
+        pq, pkv = _plans(BF16, b, h, hkv, n, d)
+        assert (pq.grid, pq.threads, pq.smem) == ((b * h, parts, 1), 128,
+                                                  Q_SMEM[d])
+        assert (pkv.grid, pkv.threads, pkv.smem) == (
+            (b * hkv, 2 * parts, 1), 128, KV_SMEM[d])
         for p in (pq, pkv):
-            assert p.smem <= plan.MAX_SMEM < 2 * (p.smem + 1024)
-            assert p.smem + 1024 <= SM_SMEM
+            assert p.smem <= plan.MAX_SMEM
+            assert SM_SMEM // (p.smem + 1024) == BLOCKS_PER_SM[d]
             assert p.stage == p.args[5] == p.plan_args[5] == C
             spans = [(t0, min(t0 + C, n)) for t0 in range(0, n, p.stage)]
             assert spans[0][0] == 0 and spans[-1][1] == n
             assert all(x[1] == y[0] for x, y in zip(spans, spans[1:]))
         assert pkv.grid[0] * pkv.grid[1] <= 132
-    small_q, small_kv = _plans(BF16, 2, 4, 4 // g, 65)
+    small_q, small_kv = _plans(BF16, 2, 4, 4 // g, 65, d)
     assert _written_once(small_q, "dq")
     for name in ("dk", "dv"):
         assert _written_once(small_kv, name), name
     tiles = {a.name: a for a in small_kv.accesses}
-    assert [tiles["dk"].tile((0, y, 0))[0].ranges[2:] for y in range(4)] == \
-        [((0, 65), (0, 64)), ((0, 65), (64, 128)), ((0, 0), (0, 128)),
-         ((0, 0), (0, 128))]
-    assert [tiles["dv"].tile((0, y, 0))[0].ranges[2:] for y in range(4)] == \
-        [((0, 0), (0, 128)), ((0, 0), (0, 128)), ((0, 65), (0, 64)),
-         ((0, 65), (64, 128))]
+    for name, want in zip(("dk", "dv"), KV_TILES[d]):
+        assert [tiles[name].tile((0, y, 0))[0].ranges[2:]
+                for y in range(2 * parts)] == want, name
 
 
 def test_walk_plans_unchanged():
-    """f32 at D = 128 and bf16 at D = 64 keep the token walk: one block
-    per (batch, query head) of D threads, or per (batch, KV head) of 2 D
-    threads, 32 staged tokens; so do gla_bwd_q and gla_bwd_kv in f32 and
-    at D = 64, which in bf16 at D = 128 run the gated wgmma bodies
+    """f32 at D = 128 and 64 keep the token walk: one block per (batch,
+    query head) of D threads, or per (batch, KV head) of 2 D threads, 32
+    staged tokens (bf16 at D = 64 runs the chunked bodies: the plan test
+    above); so do gla_bwd_q and gla_bwd_kv in f32 and, in bf16 too, at
+    D = 64, which in bf16 at D = 128 run the gated wgmma bodies
     (tests/test_torch_gated_sm90.py, tests/test_torch_gla_q_decode_sm90.py):
     gla_bwd_q then (B H, 2) blocks of one warpgroup, the chunk staged.
     zamba2-7b's D = 112 walks (the last warp of each role half full; its
     shuffles name the role's lanes): 112 and 224 threads; the gated
     entries refuse 112."""
-    for dtype, d in ((F32, 128), (BF16, 64), (F32, 32), (BF16, 112),
+    for dtype, d in ((F32, 128), (F32, 64), (F32, 32), (BF16, 112),
                      (F32, 112)):
         for entry in ("la_bwd_q", "la_bwd_kv"):
             assert tkla.la_bwd_body(entry, dtype, d) == "walk"
@@ -283,27 +302,27 @@ def _rel(got, want):
 
 
 @functools.lru_cache(maxsize=None)
-def _case(hkv, shared):
-    """Unit q and k rows (l2-normalized, as the model hands them over),
-    their noise plus `shared` times one common unit direction; normal v
-    and upstream grad; the plain forward's o and g, and from them the JAX
-    package's chunked backward and the port's Ω̂ and h.  B = 2, H = 4,
-    N = 300."""
+def _case(hkv, shared, d=D):
+    """Unit q and k rows of d columns (l2-normalized, as the model hands
+    them over), their noise plus `shared` times one common unit direction;
+    normal v and upstream grad; the plain forward's o and g, and from them
+    the JAX package's chunked backward and the port's Ω̂ and h.  B = 2,
+    H = 4, N = 300."""
     rng = np.random.default_rng(23 + hkv)
     b, h, n = 2, 4, 300
-    u = rng.standard_normal(D).astype(np.float32)
+    u = rng.standard_normal(d).astype(np.float32)
     u /= np.linalg.norm(u)
 
     def unit(*shape):
-        x = rng.standard_normal(shape).astype(np.float32) / np.sqrt(D) \
+        x = rng.standard_normal(shape).astype(np.float32) / np.sqrt(d) \
             + shared * u
         return x / np.linalg.norm(x, axis=-1, keepdims=True)
 
-    q = torch.from_numpy(unit(b, h, n, D)).to(BF16)
-    k = torch.from_numpy(unit(b, hkv, n, D)).to(BF16)
-    v = torch.from_numpy(rng.standard_normal((b, hkv, n, D)).astype(
+    q = torch.from_numpy(unit(b, h, n, d)).to(BF16)
+    k = torch.from_numpy(unit(b, hkv, n, d)).to(BF16)
+    v = torch.from_numpy(rng.standard_normal((b, hkv, n, d)).astype(
         np.float32)).to(BF16)
-    omega = rng.standard_normal((b, h, n, D)).astype(np.float32)
+    omega = rng.standard_normal((b, h, n, d)).astype(np.float32)
     o, g = tkla.la_fwd_torch(q, k, v, 1.0, 1.0)
     om, h_vec = tchunked.la_bwd_prep(o, g, torch.from_numpy(omega))
     jq, jk, jv, jo = (jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
@@ -319,43 +338,47 @@ def _case(hkv, shared):
 REGIMES = {"random": 0.0, "shared": 10.0}
 
 
-def test_emulated_la_bwd_q_matches_jax_reference():
+@pytest.mark.parametrize("d", [64, 128])
+def test_emulated_la_bwd_q_matches_jax_reference(d):
     """la_bwd_q's hi + lo operands keep dq within one bf16 step of the
-    JAX package's chunked backward at G = 1 and 2, for random and shared
-    q and k; with the lo halves dropped the shared regime misses it (dq
-    shrinks as the shared direction grows while the cancelling terms do
-    not: 3.3x and 7.7x the limit at G = 1 and 2 here, 3.4x on a single
-    head at N = 8192 in a CPU study)."""
+    JAX package's chunked backward at D = 64 and 128, G = 1 and 2, for
+    random and shared q and k; with the lo halves dropped the shared
+    regime misses it (dq shrinks as the shared direction grows while the
+    cancelling terms do not: at D = 128 3.3x and 7.7x the limit at G = 1
+    and 2 here, 3.4x on a single head at N = 8192 in a CPU study)."""
     if jnp is None:
         pytest.skip("the JAX reference is not installed here")
     for hkv in (4, 2):
         for regime, shared in REGIMES.items():
-            (q, k, v, om, h_vec), (want, _, _) = _case(hkv, shared)
+            (q, k, v, om, h_vec), (want, _, _) = _case(hkv, shared, d)
             got = _emulate_la_bwd_q(k, v, om, h_vec, 1.0)
             assert np.isfinite(got.float().numpy()).all()
-            assert _rel(got.float(), want) <= BF16_REL, (hkv, regime)
+            assert _rel(got.float(), want) <= BF16_REL, (d, hkv, regime)
             if regime == "shared":
                 hi_only = _emulate_la_bwd_q(k, v, om, h_vec, 1.0, lo=False)
-                assert _rel(hi_only.float(), want) > BF16_REL, hkv
+                assert _rel(hi_only.float(), want) > BF16_REL, (d, hkv)
 
 
-def test_emulated_la_bwd_kv_matches_jax_reference():
+@pytest.mark.parametrize("d", [64, 128])
+def test_emulated_la_bwd_kv_matches_jax_reference(d):
     """la_bwd_kv's hi + lo operands keep dk and dv within one bf16 step of
-    the JAX package's chunked backward at G = 1 and 2, for random and
-    shared q and k.  (With the lo halves dropped, dk and dv stay within
-    the limit on these inputs, at up to 0.7x of it; in a CPU study of
-    single heads at N = 300 one seed of a weaker shared direction reached
-    1.5x on dk, and at N = 8192 0.9x: the pairs keep the margin.)"""
+    the JAX package's chunked backward at D = 64 and 128, G = 1 and 2, for
+    random and shared q and k.  (With the lo halves dropped, dk and dv
+    stay within the limit on these inputs, at up to 0.7x of it; in a CPU
+    study of single heads at N = 300 one seed of a weaker shared
+    direction reached 1.5x on dk, and at N = 8192 0.9x: the pairs keep
+    the margin.)"""
     if jnp is None:
         pytest.skip("the JAX reference is not installed here")
     for hkv in (4, 2):
         for regime, shared in REGIMES.items():
-            (q, k, v, om, h_vec), (_, want_dk, want_dv) = _case(hkv, shared)
+            (q, k, v, om, h_vec), (_, want_dk, want_dv) = _case(hkv, shared,
+                                                                 d)
             dk, dv = _emulate_la_bwd_kv(q, k, v, om, h_vec, 1.0, 1.0)
             assert np.isfinite(dk.float().numpy()).all()
             assert np.isfinite(dv.float().numpy()).all()
-            assert _rel(dk.float(), want_dk) <= BF16_REL, (hkv, regime)
-            assert _rel(dv.float(), want_dv) <= BF16_REL, (hkv, regime)
+            assert _rel(dk.float(), want_dk) <= BF16_REL, (d, hkv, regime)
+            assert _rel(dv.float(), want_dv) <= BF16_REL, (d, hkv, regime)
 
 
 def test_walk_plans_at_mla_head_dims():
@@ -407,28 +430,30 @@ def test_walk_plans_at_mla_head_dims():
 
 @pytest.mark.gpu
 def test_cuda_la_bwd_bodies_match_plain():
-    """la_bwd_q and la_bwd_kv (bf16, D = 128) against their plain versions
-    at ragged N (65, 300, 1000) with G = 1 and 2, random and shared q and
-    k: dq, dk and dv within one bf16 step; a second launch gives bit-equal
-    outputs."""
+    """la_bwd_q and la_bwd_kv (bf16, D = 128 and 64) against their plain
+    versions at ragged N (65, 300, 1000) with G = 1, 2 and 4, random and
+    shared q and k: dq, dk and dv within one bf16 step; a second launch
+    gives bit-equal outputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(24)
-    for hkv, n, shared in ((4, 300, 0.0), (2, 65, 0.0), (4, 1000, 10.0),
-                           (2, 300, 10.0)):
-        u = torch.randn(D, generator=gen, device=dev)
+    for hkv, n, shared, d in ((4, 300, 0.0, 128), (2, 65, 0.0, 128),
+                              (4, 1000, 10.0, 128), (2, 300, 10.0, 128),
+                              (4, 300, 0.0, 64), (1, 1000, 0.0, 64),
+                              (2, 65, 10.0, 64), (4, 1000, 10.0, 64)):
+        u = torch.randn(d, generator=gen, device=dev)
         u = u / u.norm()
 
         def unit(*shape):
-            x = torch.randn(shape, generator=gen, device=dev) / D ** 0.5 \
+            x = torch.randn(shape, generator=gen, device=dev) / d ** 0.5 \
                 + shared * u
             return (x / x.norm(dim=-1, keepdim=True)).to(BF16)
 
-        q, k = unit(2, 4, n, D), unit(2, hkv, n, D)
-        v = torch.randn((2, hkv, n, D), generator=gen, device=dev).to(BF16)
-        omega = torch.randn((2, 4, n, D), generator=gen, device=dev)
+        q, k = unit(2, 4, n, d), unit(2, hkv, n, d)
+        v = torch.randn((2, hkv, n, d), generator=gen, device=dev).to(BF16)
+        omega = torch.randn((2, 4, n, d), generator=gen, device=dev)
         o, g = tkla.la_fwd_torch(q, k, v, 1.0, 1.0)
         om, h_vec = tchunked.la_bwd_prep(o, g, omega)
         got = (tkla.la_bwd_q_cuda(k, v, om, h_vec, 1.0),
@@ -439,6 +464,6 @@ def test_cuda_la_bwd_bodies_match_plain():
         want = (tkla.la_bwd_q_torch(k, v, om, h_vec, 1.0),
                 *tkla.la_bwd_kv_torch(q, k, v, om, h_vec, 1.0, 1.0))
         for name, x, y, w in zip(("dq", "dk", "dv"), got, again, want):
-            assert x.dtype == BF16 and torch.equal(x, y), (name, hkv, n)
+            assert x.dtype == BF16 and torch.equal(x, y), (name, hkv, n, d)
             assert _rel(x.float().cpu(), w.float().cpu()) <= BF16_REL, (
-                name, hkv, n, shared)
+                name, hkv, n, shared, d)
