@@ -205,6 +205,21 @@ fails the run by raising (no result line is printed then):
                ssd_bwd_q and ssd_bwd_kv 64 times each); step time,
                tokens/s, peak memory, and one more step under
                torch.profiler
+  5a. resume — right after phase 5's linear run: full-width pythia-1.4b
+               trained through the Trainer on a MemmapLM token file
+               written by ByteTokenizer from the repo's own text (the
+               paper's notes and the JAX package's sources; 2 x
+               8192 tokens a step, in a temporary directory with free
+               room for twice the state, else the run fails): run A 4
+               steps with an async checkpoint at step 2 (the state's
+               bytes, the host snapshot's and the writer's seconds);
+               run B from another init seed restores step 2 (its
+               seconds), fails once at step 3, rolls back to step 2 and
+               replays to step 4: its params, moments and step bit-equal
+               to A's by the manifest's sha256 of each leaf's host copy,
+               its step 2-3 losses A's (else A runs again and B may
+               differ by no more than that rerun); 48 / 24 / 24 la_fwd /
+               la_bwd_q / la_bwd_kv launches a step in both; peak memory
   5b. archs  — the six other architectures 3 steps each of 2 x 8192
                tokens at full width (chatglm3-6b 8 of 28 layers,
                granite-20b 3 of 52, zamba2-7b 2 of 13 groups, qwen2-vl-7b
@@ -278,8 +293,10 @@ import itertools
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -358,6 +375,11 @@ URGENT_PRIORITY, URGENT_PROMPT, URGENT_NEW, URGENT_AFTER = 5, 256, 16, 8
 KEEP_SLOTS, KEEP_PAGES = 4, 7
 # train path: pythia-1.4b at full width, the paper's §5.2 length
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8192, 4
+# phase 5a: run A's checkpoint step, run B's failure one step later; its
+# token file is text of the repo that no change edits (the JAX package is
+# the port's fixed reference), so every run trains on the same tokens
+RESUME_AT = 2
+RESUME_TEXTS = ("PAPER.md", "PAPERS.md", "SNIPPETS.md", "src/repro/**/*.py")
 # the other architectures (phases 4c and 5b), each at full width with its
 # preset backend (linear): served at full depth in bf16, 4 requests of 256
 # random prompt tokens, 16 new, greedy (granite-20b with bf16 params: its
@@ -2997,6 +3019,205 @@ def phase_train(torch, backend):
 
 
 # ---------------------------------------------------------------------------
+# 5a. checkpoint, resume and rollback
+# ---------------------------------------------------------------------------
+
+def _state_digests(trainer, ref=None):
+    """sha256 of the host copy of every leaf of the Trainer's checkpoint
+    tree, as the manifest hashes it (copies on this thread, hashes on the
+    store's IO_THREADS); and the host copies, or with `ref` (run A's
+    digests and host copies) each leaf's max |difference| from its ref
+    where the digests differ (0.0 where they agree)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.checkpoint import store
+    from repro_torch.tree import named_leaves
+
+    def compare(i, arr):
+        d = store.digest(arr)
+        if ref is None:
+            return d, arr
+        if d == ref[0][i]:
+            return d, 0.0
+        return d, float(abs(arr.astype("float64") - ref[1][i]).max())
+
+    with ThreadPoolExecutor(store.IO_THREADS) as ex:
+        futures = [ex.submit(compare, i, store.host_copy(x)[0])
+                   for i, (_, x) in enumerate(named_leaves(trainer._tree()))]
+        out = [f.result() for f in futures]
+    return [d for d, _ in out], [e for _, e in out]
+
+
+def phase_train_resume(torch, np, smi):
+    """Full-width pythia-1.4b (linear, f32 params, bf16 compute, remat) on
+    a MemmapLM token file of the repo's own text: run A trains 4 steps
+    with an async checkpoint at step 2 (written while steps 2-3 update
+    the state in place); run B, from another init seed, restores step 2,
+    fails once at step 3, rolls back to step 2 and replays to step 4.
+    B's params, moments and step must equal A's bit for bit (sha256 of
+    each leaf's host copy), its step 2-3 losses A's; if they do not, A
+    runs again and B may differ from A by no more than that rerun does."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import MemmapLM
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.models import model as mdl
+    from repro_torch.train.loop import Trainer
+    from repro_torch.tree import named_leaves
+
+    cfg = _config("linear")
+    layers = cfg.num_layers
+    per_step = {"la_fwd": 2 * layers, "la_bwd_q": layers,
+                "la_bwd_kv": layers}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_resume_"))
+    try:
+        tok = ByteTokenizer()
+        ids = []
+        for pattern in RESUME_TEXTS:
+            for path in sorted(ROOT.glob(pattern)):
+                ids += tok.encode(path.read_text(encoding="utf-8"),
+                                  eos=True)
+        np.asarray(ids, np.int32).tofile(tmp / "tokens.bin")
+        data = MemmapLM(str(tmp / "tokens.bin"), TRAIN_SEQ, TRAIN_BATCH)
+        tc = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=1,
+                         checkpoint_every=0,
+                         checkpoint_dir=str(tmp / "ckpt"))
+        record = {"arch": cfg.name, "tokens": len(ids),
+                  "save_step": RESUME_AT, "launches_per_step": per_step}
+
+        def trainer(seed):
+            torch.cuda.empty_cache()
+            return Trainer(cfg, tc, mdl.init_params(cfg, seed=seed,
+                                                    device="cuda"), data)
+
+        def run_a(save=True):
+            """Run A: its trainer, launches, snapshot and writer seconds
+            (None without the checkpoint)."""
+            a = trainer(0)
+            if "state_bytes" not in record:
+                record["state_bytes"] = sum(
+                    x.numel() * x.element_size()
+                    if isinstance(x, torch.Tensor) else 8
+                    for _, x in named_leaves(a._tree()))
+                disk = shutil.disk_usage(tmp)
+                record["disk_free_bytes"] = disk.free
+                log(f"[train resume] {len(ids)} tokens of {RESUME_TEXTS}; "
+                    f"state {record['state_bytes']} B; disk at {tmp}: free "
+                    f"{disk.free} of {disk.total} B ({smi})")
+                if disk.free < 2 * record["state_bytes"]:
+                    raise AssertionError(
+                        f"train resume: {disk.free} B free at {tmp}, fewer "
+                        f"than twice the state's {record['state_bytes']} B")
+            reset_launches()
+            if not save:
+                a.run(TRAIN_STEPS)
+                return a, read_launches(), None, None
+            a.run(RESUME_AT)
+            t0 = time.perf_counter()
+            a.save(blocking=False)
+            snapshot_s = time.perf_counter() - t0
+            pending = a._pending_save
+            a.run(TRAIN_STEPS - RESUME_AT)    # waits for the writer
+            return a, read_launches(), snapshot_s, pending.write_s
+
+        torch.cuda.reset_peak_memory_stats()
+        a, launches_a, snapshot_s, write_s = run_a()
+        expect_launches("train resume A", launches_a,
+                        {k: v * TRAIN_STEPS for k, v in per_step.items()})
+        losses_a = [h["loss"] for h in a.history]
+        digests_a, host_a = _state_digests(a)
+        paths = [p for p, _ in named_leaves(a._tree())]
+        log(f"[train resume A] losses {losses_a}; checkpoint at step "
+            f"{RESUME_AT}: host snapshot {snapshot_s!r} s, write + hash "
+            f"{write_s!r} s (a thread, beside steps {RESUME_AT}-"
+            f"{TRAIN_STEPS - 1}); launches {launches_a} ({smi})")
+        del a
+
+        b = trainer(1)
+        restore_s = []
+        try_restore = b.try_restore
+
+        def timed_restore():
+            t0 = time.perf_counter()
+            done = try_restore()
+            restore_s.append(time.perf_counter() - t0)
+            return done
+
+        b.try_restore = timed_restore
+        fired = []
+
+        def inject(step):
+            if step == RESUME_AT + 1 and not fired:
+                fired.append(step)
+                raise RuntimeError("injected failure")
+
+        reset_launches()
+        if not b.try_restore() or b.step_idx != RESUME_AT:
+            raise AssertionError(f"train resume B restored step "
+                                 f"{b.step_idx}, not {RESUME_AT}")
+        b.run(TRAIN_STEPS - b.step_idx, fail_injector=inject)
+        launches_b = read_launches()
+        steps_b = [h["step"] for h in b.history]
+        want = [RESUME_AT] + list(range(RESUME_AT, TRAIN_STEPS))
+        if fired != [RESUME_AT + 1] or steps_b != want:
+            raise AssertionError(f"train resume B: failure at {fired}, "
+                                 f"steps {steps_b} != {want}")
+        expect_launches("train resume B", launches_b,
+                        {k: v * len(want) for k, v in per_step.items()})
+        losses_b = [h["loss"] for h in b.history]
+        digests_b, diff_b = _state_digests(b, (digests_a, host_a))
+        step_b = b.opt_state.step
+        peak = torch.cuda.max_memory_allocated()
+        del b
+        equal = sum(x == y for x, y in zip(digests_b, digests_a))
+        # B's last run of each step against A's
+        loss_diff_b = max(abs(losses_b[-(TRAIN_STEPS - s)] - losses_a[s])
+                          for s in range(RESUME_AT, TRAIN_STEPS))
+        record.update({
+            "snapshot_s": snapshot_s, "write_hash_s": write_s,
+            "restore_s": restore_s, "max_memory_allocated_bytes": peak,
+            "losses_a": losses_a, "steps_b": steps_b, "losses_b": losses_b,
+            "leaves": len(digests_a), "leaves_bit_equal": equal,
+            "opt_step_b": step_b, "max_abs_diff_b": max(diff_b),
+            "max_loss_diff_b": loss_diff_b,
+            "launches_a": launches_a, "launches_b": launches_b})
+        log(f"[train resume B] restored step {RESUME_AT} in "
+            f"{restore_s[0]!r} s, failed at step {RESUME_AT + 1}, rolled "
+            f"back in {restore_s[1]!r} s; steps {steps_b}, losses "
+            f"{losses_b}; {equal} of {len(digests_a)} leaves bit-equal "
+            f"to A, AdamW step {step_b}; launches {launches_b}; peak "
+            f"memory {peak} B ({smi})")
+        if equal != len(digests_a) or step_b != TRAIN_STEPS or \
+                loss_diff_b != 0.0:
+            # not bit-equal: how far does A differ from itself?
+            a2 = run_a(save=False)[0]
+            digests_a2, diff_a2 = _state_digests(a2, (digests_a, host_a))
+            record.update({
+                "leaves_bit_equal_a_rerun": sum(
+                    x == y for x, y in zip(digests_a2, digests_a)),
+                "max_abs_diff_a_rerun": max(diff_a2),
+                "max_loss_diff_a_rerun": max(
+                    abs(h["loss"] - x) for h, x in zip(a2.history,
+                                                       losses_a)),
+                "differing_b": [p for p, d in zip(paths, diff_b) if d][:8],
+                "differing_a_rerun": [p for p, d in zip(paths, diff_a2)
+                                      if d][:8]})
+            del a2
+            log(f"[train resume] B is not bit-equal to A; A's rerun: "
+                f"{record} ({smi})")
+            if not (record["leaves_bit_equal_a_rerun"] <= equal and
+                    step_b == TRAIN_STEPS and
+                    record["max_abs_diff_b"] <=
+                    record["max_abs_diff_a_rerun"] and
+                    loss_diff_b <= record["max_loss_diff_a_rerun"]):
+                raise AssertionError(f"train resume: B differs from A by "
+                                     f"more than A's rerun: {record}")
+        record["card"] = smi
+        log(f"[train resume] {json.dumps(record)}")
+        return record, (launches_a, launches_b)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # 4c / 5b. the other architectures at full width
 # ---------------------------------------------------------------------------
 
@@ -4628,8 +4849,16 @@ def main() -> int:
     import numpy as np
     import torch
 
+    start = time.perf_counter()
+
+    def mark(label):
+        """Seconds since the start, to find what to cut when the script
+        nears its time limit."""
+        log(f"[time] {label}: {time.perf_counter() - start!r} s")
+
     name, smi = phase_device(torch)
     build_s, ptxas = phase_build()
+    mark("build")
     check, check_launches = phase_check(torch)
     kernel_errs = phase_kernel(torch)
     la_errs = phase_kernel_la(torch)
@@ -4637,6 +4866,7 @@ def main() -> int:
     paged_errs = phase_kernel_paged(torch)
     gla_errs = phase_kernel_gla(torch)
     ssd_errs = phase_kernel_ssd(torch)
+    mark("check and kernel")
     serve, serve_launches, tokens = phase_serve(torch, np, "linear")
     serve_sm, serve_sm_launches, tokens_sm = phase_serve(torch, np,
                                                          "softmax")
@@ -4650,22 +4880,30 @@ def main() -> int:
                     "softmax_paged": tokens_pg, "gla_paged": tokens_glp},
         smi)
     serve_m2, serve_m2_launches, _ = phase_serve(torch, np, "mamba2")
+    mark("serve")
     serve_archs = {arch: phase_arch_serve(torch, np, arch)
                    for arch in ARCHS + MOE_ARCHS}
     serve_archs[ENCDEC] = phase_encdec_serve(torch)
+    mark("serve archs")
     smoke_errs = {arch: phase_smoke_reference(torch, arch)
                   for arch in ("pythia-1.4b", "mamba2-2.7b", *ARCHS,
                                *MOE_ARCHS, ENCDEC)}
     torch.cuda.empty_cache()
+    mark("smoke")
     train, train_launches = phase_train(torch, "linear")
+    mark("train linear")
+    resume, resume_launches = phase_train_resume(torch, np, smi)
+    mark("train resume")
     train_sm, train_sm_launches = phase_train(torch, "softmax")
     train_gla, train_gla_launches = phase_train(torch, "gla")
     train_m2, train_m2_launches = phase_train(torch, "mamba2")
+    mark("train")
     every_arch = ARCHS + MOE_ARCHS + (ENCDEC,)
     train_archs = {arch: phase_arch_train(torch, arch)
                    for arch in every_arch}
     arch_launches = {arch: (serve_archs[arch][1], train_archs[arch][1])
                      for arch in every_arch}
+    mark("train archs")
     timing = {"la_decode_fused": phase_timing(torch, ptxas),
               **phase_timing_la(torch, ptxas),
               **phase_timing_softmax(torch, ptxas),
@@ -4674,12 +4912,14 @@ def main() -> int:
               **phase_timing_ssd(torch, ptxas),
               "oob_blocked_sum": phase_timing_fixture(torch)}
     timing_arch = phase_timing_arch(torch, ptxas, arch_launches)
+    mark("timing")
 
     # each kernel's launches summed over the main-path runs (every other
     # run left it at 0, expect_launches checked)
     runs = (serve_launches, serve_sm_launches, serve_pg_launches,
             serve_pgu_launches, serve_gla_launches, serve_glp_launches,
             *serve_pre_launches, serve_m2_launches, train_launches,
+            *resume_launches,
             train_sm_launches, train_gla_launches, train_m2_launches,
             *(x for pair in arch_launches.values() for x in pair))
     launches = {k: sum(r[k] for r in runs) for k in KERNELS}
@@ -4714,7 +4954,8 @@ def main() -> int:
                       "serve_gla": serve_gla, "serve_gla_paged": serve_glp,
                       "serve_preempt": serve_pre,
                       "serve_mamba2": serve_m2,
-                      "train": train, "train_softmax": train_sm,
+                      "train": train, "train_resume": resume,
+                      "train_softmax": train_sm,
                       "train_gla": train_gla, "train_mamba2": train_m2,
                       "serve_archs": {a: serve_archs[a][0]
                                       for a in every_arch},

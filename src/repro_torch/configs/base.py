@@ -204,8 +204,9 @@ class TrainConfig:
     beta2: float = 0.95
     grad_clip: float = 1.0
     microbatch: int = 0               # 0 = no gradient accumulation
-    # the reference's sharding, compression and checkpoint fields; the
-    # multi-GPU and checkpoint slices read them (ROADMAP.md queue 1)
+    # the reference's sharding and compression fields wait for the
+    # multi-GPU slice (ROADMAP.md queue 1 item 11); the Trainer reads the
+    # checkpoint fields
     zero1: bool = True
     grad_compression: str = "none"    # none | int8
     seed: int = 0

@@ -4,10 +4,16 @@
         --steps 50 --batch 8 --seq 128 [--full] [--device cuda]
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
         --device cpu --steps 5 --batch 2 --seq 32
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --steps 4 --checkpoint-dir ckpt; ... --steps 6 --resume
 
 Flag names follow `repro/launch/train.py` for the flags kept; the
-checkpoint (`--checkpoint-dir`, `--resume`) and autotune (`--autotune`,
-`--tune-cache`) flags wait for their slices (ROADMAP.md). `--arch` takes
+autotune flags (`--autotune`, `--tune-cache`) wait for their slice
+(ROADMAP.md). Checkpoints go to `--checkpoint-dir` (default
+`checkpoints`) every max(steps // 2, 1) steps, asynchronously, and a
+failed step rolls back to the newest one; `--resume` restores the newest
+before training and then trains up to `--steps` in all, as the
+reference does. `--arch` takes
 every id of `configs/registry.py` but whisper-large-v3, whose encoder
 frames SyntheticLM does not make (as in the reference;
 `repro_torch.launch.family_refusal`). Weights are random from the train
@@ -21,7 +27,8 @@ head dim 112 yet). The MoE family (moonshot-v1-16b-a3b,
 deepseek-v2-236b) adds its load-balancing loss to the objective.
 `--full` trains the full-width config instead of the smoke one;
 `--device` defaults to cuda and raises without a card. Prints one JSON
-record: first_loss, last_loss, steps, stragglers.
+record: first_loss, last_loss, steps (those this run trained),
+stragglers.
 """
 from __future__ import annotations
 
@@ -51,6 +58,8 @@ def main(argv=None):
                          "its decay-gated variant; softmax: the baseline)")
     ap.add_argument("--full", action="store_true",
                     help="full-width config instead of the smoke one")
+    ap.add_argument("--checkpoint-dir", default="checkpoints")
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda, or cpu for the plain path)")
     args = ap.parse_args(argv)
@@ -66,13 +75,17 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, attention_backend=args.backend)
     get_backend(cfg)  # fail fast on a bad --backend, naming the valid ones
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
-                     warmup_steps=max(args.steps // 10, 1))
+                     warmup_steps=max(args.steps // 10, 1),
+                     checkpoint_every=max(args.steps // 2, 1),
+                     checkpoint_dir=args.checkpoint_dir)
     params = mdl.init_params(cfg, seed=tc.seed, device=args.device)
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=tc.seed)
     if cfg.rope_kind == "mrope":
         data = StubBatches(cfg, data, device=args.device)
     trainer = Trainer(cfg, tc, params, data)
-    history = trainer.run(args.steps)
+    if args.resume:
+        trainer.try_restore()
+    history = trainer.run(args.steps - trainer.step_idx)
     record = {"first_loss": history[0]["loss"],
               "last_loss": history[-1]["loss"],
               "steps": len(history),

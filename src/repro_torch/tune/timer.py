@@ -1,4 +1,5 @@
-"""The port's one host clock (counterpart of `repro/tune/timer.py::now`).
+"""The port's host clocks (counterpart of `repro/tune/timer.py`'s `now`
+and `wallclock`).
 
 Host time only: it measures device work solely around code that has
 already synchronized with the device.
@@ -11,3 +12,9 @@ import time
 def now() -> float:
     """Monotonic seconds."""
     return time.perf_counter()
+
+
+def wallclock() -> float:
+    """Epoch seconds for metadata stamps (checkpoint manifests), NOT for
+    durations; use `now()` spans for those."""
+    return time.time()

@@ -484,7 +484,7 @@ def test_softmax_registry_and_cuda_on_cpu_raises():
         get_backend(dataclasses.replace(cfg, paging=PagingCfg()))
 
 
-def test_launchers_run_softmax_on_cpu():
+def test_launchers_run_softmax_on_cpu(tmp_path):
     rec = tlaunch_serve.main(["--device", "cpu", "--backend", "softmax",
                               "--requests", "3", "--max-new", "3",
                               "--slots", "2", "--prefill-chunk", "5"])
@@ -492,7 +492,7 @@ def test_launchers_run_softmax_on_cpu():
     assert rec["kernel"] == "torch"
     rec = tlaunch_train.main(["--device", "cpu", "--backend", "softmax",
                               "--steps", "2", "--batch", "2", "--seq",
-                              "16"])
+                              "16", "--checkpoint-dir", str(tmp_path)])
     assert rec["steps"] == 2 and math.isfinite(rec["last_loss"])
     rec = tlaunch_serve.main(["--device", "cpu", "--backend", "gla",
                               "--requests", "3", "--max-new", "3",

@@ -204,10 +204,12 @@ def test_trainer_loss_curve_tracks_jax(microbatch):
     np.testing.assert_allclose(got, want, rtol=CURVE_REL)
 
 
-def test_trainer_retries_a_failed_step_fresh():
+def test_trainer_retries_a_failed_step_fresh(tmp_path):
     _, cfg = _configs()
     params = tmdl.init_params(cfg, seed=0, device="cpu")
-    trainer = Trainer(cfg, TrainConfig(total_steps=3, warmup_steps=1),
+    # no checkpoint under its (empty) directory: the retry is fresh
+    trainer = Trainer(cfg, TrainConfig(total_steps=3, warmup_steps=1,
+                                       checkpoint_dir=str(tmp_path)),
                       params, SyntheticLM(cfg.vocab_size, N, 2, seed=0))
     failed = []
 
@@ -237,14 +239,16 @@ def test_nonfinite_loss_leaves_params_untouched():
     assert state.step == 0
 
 
-def test_launch_train_main_on_cpu(capsys):
+def test_launch_train_main_on_cpu(capsys, tmp_path):
     rec = tlaunch.main(["--device", "cpu", "--steps", "3", "--batch", "2",
-                        "--seq", "16"])
+                        "--seq", "16", "--checkpoint-dir",
+                        str(tmp_path / "a")])
     assert set(rec) == {"first_loss", "last_loss", "steps", "stragglers"}
     assert rec["steps"] == 3 and math.isfinite(rec["last_loss"])
     assert '"first_loss"' in capsys.readouterr().out
     rec = tlaunch.main(["--device", "cpu", "--backend", "gla", "--steps",
-                        "2", "--batch", "2", "--seq", "16"])
+                        "2", "--batch", "2", "--seq", "16",
+                        "--checkpoint-dir", str(tmp_path / "b")])
     assert rec["steps"] == 2 and math.isfinite(rec["last_loss"])
     with pytest.raises(KeyError, match="registered backends"):
         tlaunch.main(["--device", "cpu", "--backend", "bogus"])

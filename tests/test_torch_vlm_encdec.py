@@ -358,7 +358,7 @@ def _engine_run(pkg, cfg, params, script, **kw):
              for rid, r in recs.items() if r.preempt_events})
 
 
-def test_engine_vlm_tokens_snapshot_and_encdec_refusal(refs):
+def test_engine_vlm_tokens_snapshot_and_encdec_refusal(refs, tmp_path):
     """qwen2-vl smoke through both engines: three requests on two slots
     with prompts longer than a prefill window (text positions from each
     carry's rope_pos), then rid 1 at priority 5 evicting rid 0 from the
@@ -389,7 +389,8 @@ def test_engine_vlm_tokens_snapshot_and_encdec_refusal(refs):
     # the launchers: qwen2-vl trains on stub M-RoPE positions, whisper is
     # refused by both with the reason
     rec = launch_train.main(["--arch", VLM, "--device", "cpu", "--steps",
-                             "1", "--batch", "2", "--seq", "16"])
+                             "1", "--batch", "2", "--seq", "16",
+                             "--checkpoint-dir", str(tmp_path)])
     assert rec["steps"] == 1 and np.isfinite(rec["first_loss"])
     for launcher in (launch_train, launch_serve):
         with pytest.raises(SystemExit):
