@@ -93,17 +93,23 @@ fails the run by raising (no result line is printed then):
                partials, dk partials and dv; and the shapes of the other
                architectures, under the same limits: la_fwd, la_bwd_q and
                la_bwd_kv at GQA G = 8, 16 and 48 (the wgmma bodies, bf16
-               at D = 128), at D = 64 and 112 (the token walks, bf16
+               at D = 128; la_bwd_kv split over S = 8, 8 and 16 slices of
+               the group, summed in a fixed order, the N = 8192 cases
+               launched twice for bit-equal dk and dv), at D = 64 (the
+               wgmma bodies in bf16) and 112 (the token walks, bf16
                and f32, GQA at 112) and at deepseek-v2-236b's MLA heads,
                (Dk, Dv) = (192, 128), H = Hkv = 128 (the token walks,
                bf16 at N = 8192 and 1000, f32 at 1000), at qwen2-vl-7b's
-               G = 7 (the wgmma bodies, N = 8192 and 1000) and at
-               whisper's decoder (H = 20, D = 64, N = 448, the walks),
+               G = 7 (the wgmma bodies, N = 8192 and 1000; la_bwd_kv over
+               S = 4 slices of 1 or 2 heads) and at whisper's decoder
+               (H = 20, D = 64, N = 448), gla_bwd_kv split at G = 8,
                la_decode_fused at G = 7, G = 48, at D = 64 (whisper), 112
                and at (192, 128) with 128 heads (the stream, bf16 and f32
                with a zero normalizer), gla_decode_fused at G = 7, the
-               SSD kernels at zamba2-7b's (64, 64) (the token walks, bf16
-               and f32, both decay regimes, G = 4)
+               SSD kernels at zamba2-7b's (64, 64) (ssd_fwd's chunked
+               wgmma body in bf16, launched twice for bit-equal o, the
+               backward's token walks; bf16 and f32, both decay regimes,
+               G = 4)
   4. serve   — the Engine at full width pythia-1.4b in bf16, once with the
                paper's linear attention and once with the softmax
                baseline: 8 requests, 512-token prompts, prefill_chunk 256,
@@ -277,7 +283,10 @@ fails the run by raising (no result line is printed then):
                deepseek-v2's (128, 128, 192, 128) (whisper's at its train
                shape, B = 16, N = 448), la_decode_fused at each
                arch's serving shape by graph replays in turns with the
-               pythia shape's, the SSD kernels at (64, 64)
+               pythia shape's, the SSD kernels at (64, 64); la_bwd_kv's
+               records at G = 7, 8, 16 and 48 name its split (S slices),
+               ssd_fwd's at (64, 64) its chunked body's registers,
+               spills and blocks an SM
   7. result  — a JSON line with every measurement, the card's line, a
                `kernels` JSON line, then {"ok": true, "device": {...}}
                as the last line
@@ -917,12 +926,16 @@ def phase_kernel_la(torch):
     decoder, G = 4 at a ragged N) runs the chunked wgmma bodies of all
     three, every f32 case and every bf16 case at D = 112 (zamba2-7b) or
     (Dk, Dv) = (192, 128) (deepseek-v2-236b's MLA) the token walks (from
-    the launchers' C plan exports); the bf16 main cases at D = 128 and 64
+    the launchers' C plan exports); la_bwd_kv at G = 7, 8, 16 and 48
+    splits the group over S > 1 slices (`_kv_split`, from the C export;
+    each record names S), the bf16 N = 8192 ones launched twice for
+    bit-equal dk and dv; the bf16 main cases at D = 128 and 64
     launch each kernel twice for bit-equal o, g, dq, dk and dv; one bf16
     case at N = 8192 at each of the two has q and k that share a
     direction."""
     from repro_torch.kernels import linear_attention as la
-    from repro_torch.kernels.defaults import LA_WGMMA_HEAD_DIMS
+    from repro_torch.kernels.defaults import LA_BWD_KV_SPLIT_GROUP, \
+        LA_WGMMA_HEAD_DIMS
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     m = LA_SHAPE
@@ -959,9 +972,23 @@ def phase_kernel_la(torch):
         if set(bodies.values()) != {expect}:
             raise AssertionError(f"{label}: bodies {bodies}, not {expect}")
         log(f"  {label} bodies (C plan exports): {bodies}")
+        split = _kv_split(q, k, v, om_hat, h_vec)
+        log(f"  {label} la_bwd_kv split (C plan export): {split}")
+        if (split["slices"] > 1) != (expect == "wgmma"
+                                     and h // hkv >= LA_BWD_KV_SPLIT_GROUP):
+            raise AssertionError(f"{label}: la_bwd_kv split {split}")
         o_k, g_k = la.la_fwd_cuda(q, k, v, 1.0, 1.0)
         dq_k = la.la_bwd_q_cuda(k, v, om_hat, h_vec, 1.0)
         dk_k, dv_k = la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec, 1.0, 1.0)
+        if split["slices"] > 1 and n == LA_SHAPE["n"]:
+            again = la.la_bwd_kv_cuda(q, k, v, om_hat, h_vec, 1.0, 1.0)
+            torch.cuda.synchronize()
+            if not (torch.equal(dk_k, again[0])
+                    and torch.equal(dv_k, again[1])):
+                raise AssertionError(f"{label}: two split launches of "
+                                     f"la_bwd_kv give different dk or dv")
+            log(f"  {label} dk, dv: two split launches bit-equal ({split})")
+            del again
         if label in ("main_bf16", "d64_bf16"):
             again = (*la.la_fwd_cuda(q, k, v, 1.0, 1.0),
                      la.la_bwd_q_cuda(k, v, om_hat, h_vec, 1.0),
@@ -989,6 +1016,7 @@ def phase_kernel_la(torch):
             if t.dtype != dtype or not torch.isfinite(t).all():
                 raise AssertionError(f"{label} {name}: dtype {t.dtype} or "
                                      f"non-finite values")
+        e["la_bwd_kv_split"] = split
         errs[label] = e
         del q, k, v, om_hat, h_vec, o_k, g_k, dq_k, dk_k, dv_k, o_t, g_t, \
             dq_t, dk_t, dv_t
@@ -1391,7 +1419,8 @@ def phase_kernel_gla(torch):
     and gla_bwd_kv's chunked wgmma bodies, every f32 case their token
     walks (from the launchers' C plan exports); the bf16 main cases
     launch each kernel twice for bit-equal o, g, dq, dk and dV', and the
-    decode step's o, S and P."""
+    decode step's o, S and P; at G = 8 gla_bwd_kv splits the group over
+    slices (launched twice for bit-equal dk and dV')."""
     from repro_torch.core import gla as core_gla
     from repro_torch.kernels import decode_fused as df
     from repro_torch.kernels import gla
@@ -1470,7 +1499,9 @@ def phase_kernel_gla(torch):
             ("main_f32_strong", m["n"], m["hkv"], f32, "strong"),
             ("odd_n_bf16_strong", 1000, m["hkv"], bf16, "strong"),
             ("gqa_f32", 1000, 4, f32, "trained"),
-            ("gqa_bf16_strong", 1000, 4, bf16, "strong")):
+            ("gqa_bf16_strong", 1000, 4, bf16, "strong"),
+            # G = 8: gla_bwd_kv's body split over slices of the group
+            ("gqa8_split_bf16_strong", 1000, 2, bf16, "strong")):
         b, h, d = m["b"], m["h"], m["d"]
         q, k, v, ld, om_hat, h_vec = _gla_case(torch, gen, b, h, hkv, n, d,
                                                dtype, regime)
@@ -1488,6 +1519,19 @@ def phase_kernel_gla(torch):
         dq_k = gla.gla_bwd_q_cuda(k, v, ld, om_hat, h_vec, 1.0)
         dk_k, dva_k = gla.gla_bwd_kv_cuda(q, k, v, ld, om_hat, h_vec, 1.0,
                                           1.0)
+        split = _kv_split(q, k, v, om_hat, h_vec, ld)
+        if (split["slices"] > 1) != (label == "gqa8_split_bf16_strong"):
+            raise AssertionError(f"gla {label}: gla_bwd_kv split {split}")
+        if split["slices"] > 1:
+            again = gla.gla_bwd_kv_cuda(q, k, v, ld, om_hat, h_vec, 1.0, 1.0)
+            torch.cuda.synchronize()
+            if not (torch.equal(dk_k, again[0])
+                    and torch.equal(dva_k, again[1])):
+                raise AssertionError(f"gla {label}: two split launches of "
+                                     f"gla_bwd_kv give different dk or dV'")
+            log(f"  gla {label} dk, dV': two split launches bit-equal "
+                f"({split})")
+            del again
         if label == "main_bf16":
             again = (*gla.gla_fwd_cuda(q, k, v, ld, 1.0, 1.0),
                      gla.gla_bwd_q_cuda(k, v, ld, om_hat, h_vec, 1.0),
@@ -1656,6 +1700,23 @@ def _la_fwd_body(q, k, v):
                    la.plan_la_fwd(q, k, v, 1.0, 1.0))
 
 
+def _kv_split(q, k, v, om_hat, h_vec, ld=None):
+    """How la_bwd_kv (gla_bwd_kv with `ld`) spreads the query group over
+    blocks, from its launcher's C plan export: the slices S (grid z) and
+    the query heads of the largest slice; the slices' f32 partials are
+    summed in a fixed order by a second kernel, so the blocks form no
+    thread-block cluster (size 1)."""
+    from repro_torch.kernels import gla
+    from repro_torch.kernels import linear_attention as la
+    launch = (la.plan_la_bwd_kv(q, k, v, om_hat, h_vec, 1.0, 1.0)
+              if ld is None
+              else gla.plan_gla_bwd_kv(q, k, v, ld, om_hat, h_vec, 1.0, 1.0))
+    _, _, c_geo = _c_body("split", launch)
+    slices, group = c_geo[2], q.shape[1] // k.shape[1]
+    return {"slices": slices, "heads_per_slice": -(-group // slices),
+            "cluster": 1, "grid": list(c_geo[:3])}
+
+
 def _la_bwd_body(entry, q, k, v, om_hat, h_vec):
     """The body la_bwd_q or la_bwd_kv runs for these operands, held to
     its launcher's C export: "wgmma" or "walk"."""
@@ -1669,15 +1730,17 @@ def _la_bwd_body(entry, q, k, v, om_hat, h_vec):
 def phase_kernel_ssd(torch):
     """ssd_fwd, ssd_bwd_q and ssd_bwd_kv against their plain versions at
     mamba2-2.7b's training shapes, odd N and G > 1, and at zamba2-7b's
-    (H = 112, (Dk, Dv) = (64, 64): the token walks), bf16 and f32, under
-    both decay regimes: o, the f32 partials of dq and dk, dv, and after
-    the PyTorch epilogue (the group sums and dld, from each path's
-    partials and the same o) dq, dk, dv and dld; at log_decay = 0 the
-    forward against unnormalized causal linear attention, in f32 and
-    bf16.  Every bf16 case runs the chunked wgmma bodies of all three
-    kernels at (128, 64), every f32 case and (64, 64) the token walk (from
-    the launchers' C plan exports); the bf16 main case launches each twice
-    for bit-equal o, dq partials, dk partials and dv."""
+    (H = 112, (Dk, Dv) = (64, 64)), bf16 and f32, under both decay
+    regimes: o, the f32 partials of dq and dk, dv, and after the PyTorch
+    epilogue (the group sums and dld, from each path's partials and the
+    same o) dq, dk, dv and dld; at log_decay = 0 the forward against
+    unnormalized causal linear attention, in f32 and bf16.  Every bf16
+    case runs the chunked wgmma bodies of all three kernels at (128, 64)
+    and ssd_fwd's at (64, 64), every f32 case and the backward's bf16 at
+    (64, 64) the token walk (from the launchers' C plan exports); the
+    bf16 main case launches each twice for bit-equal o, dq partials, dk
+    partials and dv, and zamba2's bf16 case ssd_fwd twice for bit-equal
+    o."""
     from repro_torch.core import ssd as core_ssd
     from repro_torch.kernels import ssd
     gen = torch.Generator(device="cuda")
@@ -1696,7 +1759,8 @@ def phase_kernel_ssd(torch):
              (dk, dv)),
             ("groups_f32", 1000, 4, 16, f32, "init", (dk, dv)),
             ("groups_bf16_strong", 1000, 4, 16, bf16, "strong", (dk, dv)),
-            # zamba2-7b's Mamba-2 layers, (64, 64): the token walks
+            # zamba2-7b's Mamba-2 layers, (64, 64): ssd_fwd's chunked
+            # body in bf16, the backward's token walks
             ("zamba2_bf16", z["n"], z["g"], z["h"], bf16, "init",
              (z["dk"], z["dv"])),
             ("zamba2_f32_strong", z["n"], z["g"], z["h"], f32, "strong",
@@ -1711,17 +1775,18 @@ def phase_kernel_ssd(torch):
         rel = BF16_REL if dtype == bf16 else SEQ_F32_REL
         for entry in ("ssd_fwd", "ssd_bwd_q", "ssd_bwd_kv"):
             body, _, _ = _ssd_body(entry, q, k, v, ld, om)
-            if body != ("wgmma" if dtype == bf16 and dims == (dk, dv)
-                        else "walk"):
+            wgmma = dims == (dk, dv) or (entry == "ssd_fwd"
+                                         and dims == (z["dk"], z["dv"]))
+            if body != ("wgmma" if dtype == bf16 and wgmma else "walk"):
                 raise AssertionError(f"ssd {label}: {entry} runs the {body} "
                                      f"body")
         o_k = ssd.ssd_fwd_cuda(q, k, v, ld)
-        if label == "main_bf16":
+        if label in ("main_bf16", "zamba2_bf16"):
             again = ssd.ssd_fwd_cuda(q, k, v, ld)
             torch.cuda.synchronize()
             if not torch.equal(o_k, again):
-                raise AssertionError("ssd main_bf16: two launches of "
-                                     "ssd_fwd differ")
+                raise AssertionError(f"ssd {label}: two launches of "
+                                     f"ssd_fwd differ")
             log(f"  ssd {label} o: two launches bit-equal (wgmma body)")
             del again
         dq_pk = ssd.ssd_bwd_q_cuda(k, v, ld, om)
@@ -4572,12 +4637,17 @@ def _ssd_work(b, g, h, n, dk, dv, it):
 def _ssd_tc_flops(b, h, n, dk, dv):
     """The bf16 tensor-core flops of the three SSD kernels' chunked wgmma
     bodies at these shapes (phase_timing_ssd's docstring)."""
-    from repro_torch.kernels.defaults import SSD_CHUNK_TOKENS
+    from repro_torch.kernels.defaults import SSD_CHUNK_TOKENS, \
+        SSD_FWD_PAIR_STATE_DIMS
     c = SSD_CHUNK_TOKENS
     chunks = -(-n // c)
+    # ssd_fwd's q S, A v and state update twice where they take a hi + lo
+    # operand
+    x = 2 if (dk, dv) in SSD_FWD_PAIR_STATE_DIMS else 1
     return {
-        "ssd_fwd": b * h * chunks * (2 * c * dk * (c + dv)
-                                     + 2 * c * dv * (c + dk)),
+        "ssd_fwd": b * h * chunks * (2 * c * c * dk
+                                     + x * (2 * c * dk * dv + 2 * c * c * dv
+                                            + 2 * c * dv * dk)),
         "ssd_bwd_q": b * h * chunks * (2 * c * c * dv
                                        + 2 * (2 * c * dv * dk
                                               + 2 * c * c * dk
@@ -4630,7 +4700,7 @@ def phase_timing_ssd(torch, ptxas):
                        lambda: ssd.ssd_bwd_kv_cuda(q, k, v, ld, om)),
     }
     tc_flops = _ssd_tc_flops(b, h, n, dk, dv)
-    wgmma_fn = {"ssd_fwd": "sc::ssd_fwd_wgmma_kernel",
+    wgmma_fn = {"ssd_fwd": f"sc::ssd_fwd_wgmma_kernel<{dk}, false>",
                 "ssd_bwd_q": "sq::ssd_bwd_q_wgmma_kernel",
                 "ssd_bwd_kv": "sk::ssd_bwd_kv_wgmma_kernel"}
     bodies = {name: _ssd_body(name, q, k, v, ld, om) for name in wgmma_fn}
@@ -4680,8 +4750,12 @@ def phase_timing_arch(torch, ptxas, arch_launches):
     with the plain versions; la_decode_fused at each arch's serving shape
     (ARCH_SLOTS slots, bf16) by CUDA graph replays in turns with the
     pythia serving shape's (row 3), rotating over enough states to exceed
-    the 50 MB L2; the SSD kernels at zamba2-7b's (64, 64) (the token
-    walks).  Each bf16 case is bounded by the function, whatever body
+    the 50 MB L2; the SSD kernels at zamba2-7b's (64, 64) (ssd_fwd's
+    chunked body, the backward's token walks).  la_bwd_kv's records name
+    the split of the query group (S slices, the heads of the largest, no
+    cluster); ssd_fwd's its registers, spills and the blocks an SM
+    holds.
+    Each bf16 case is bounded by the function, whatever body
     runs it: bytes at 3.35 TB/s against the chunked bodies' bf16
     operations (`_la_tc_flops`, `_ssd_tc_flops`; where no chunked body
     runs, the chunked form's, `_la_chunk_flops`) at 989 TFLOP/s; the
@@ -4740,6 +4814,8 @@ def phase_timing_arch(torch, ptxas, arch_launches):
                 rec.update(ptxas=_ptxas_of(ptxas, lib, fn.format(d)),
                            blocks_per_sm_fit=_blocks_per_sm(
                                launch.threads, launch.smem, c_geo[5]))
+            if name == "la_bwd_kv":
+                rec["split"] = _kv_split(q, k, v, om_hat, h_vec)
             log(f"[timing arch] {name} {arch} (B={b} H={h} Hkv={hkv} N={n} "
                 f"Dk={d} Dv={dv or d} bf16, {body}): {rec}")
             out[f"{name}@{arch}"] = rec
@@ -4807,6 +4883,12 @@ def phase_timing_arch(torch, ptxas, arch_launches):
                "body": body, "threads": launch.threads,
                "smem_per_block": launch.smem, "grid": list(launch.grid),
                "c_plan": list(c_geo), "launches": train_l.get(name, 0)}
+        if body == "wgmma":
+            rec.update(ptxas=_ptxas_of(ptxas, "ssd",
+                                       f"sc::ssd_fwd_wgmma_kernel<{dk}, "),
+                       blocks_per_sm_fit=_blocks_per_sm(
+                           launch.threads, launch.smem, c_geo[5]),
+                       grid_blocks_per_sm=launch.grid[0] / SMS)
         log(f"[timing arch] {name} zamba2-7b ({body}): {rec}")
         out[f"{name}@zamba2-7b"] = rec
     del q, k, v, ld, om

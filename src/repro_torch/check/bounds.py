@@ -15,7 +15,9 @@ widths, and every plan is checked exhaustively:
               operand's extent.  Gathered operands (page tables, lengths,
               q_offset) reach the tiles as NUMPY arrays, so a walk off a
               table raises and is reported here.
-  REPRO-B002  the blocks' output tiles cover every output element.
+  REPRO-B002  the blocks' output tiles cover every output element (and
+              every element of a scratch operand: the partials a split
+              launch sums).
   REPRO-B003  a tile that crosses its extent (a partial tile) is declared
               masked: the kernel guards it.
   REPRO-B004  per-block resources fit the H100: dynamic shared memory
@@ -112,7 +114,7 @@ def _access_findings(launch: plan.Launch, access: plan.Access,
                      gathered: list) -> list[Finding]:
     """B001/B003 for one operand, and B002 coverage where it is written."""
     where = f"{launch.name}[{access.name}] @ {access.shape}"
-    written = access.role in ("out", "inout")
+    written = access.role in ("out", "inout", "scratch")
     covered = np.zeros(access.shape, bool) if written else None
     for blk in launch.blocks():
         try:
@@ -537,7 +539,8 @@ def card_findings(case: Case, launch: plan.Launch, device) -> list[Finding]:
             findings.append(Finding(
                 "REPRO-B001", f"{where}[{access.name}]",
                 "the guard band changed: a write outside the extent"))
-        if access.role == "out" and bool((g.view == SENTINEL).any()):
+        if access.role in ("out", "scratch") \
+                and bool((g.view == SENTINEL).any()):
             findings.append(Finding(
                 "REPRO-B002", f"{where}[{access.name}]",
                 f"{int((g.view == SENTINEL).sum())} of {g.view.numel()} "

@@ -26,8 +26,11 @@
 // token after p (the weight of query i on key p is Π_{m=p+1..i} γ_m).  g
 // runs over the G query heads of the KV head, so dk and dv land on the
 // unexpanded (B, Hkv, N, D) tensors with no atomics: the result is
-// deterministic.  The sums include the token itself, as the reference's
-// causal masks do.
+// deterministic.  U, dk and dv are linear in the query heads, so the
+// chunked body may split the sum over g into slices of the group, each
+// walked by its own block, and add the slices' f32 parts in a fixed order
+// (below).  The sums include the token itself, as the reference's causal
+// masks do.
 //
 // The gated dk/dV' kernel also writes the augmented column of
 // dV' = [dv, dv_1]: dv_1,p = -(b k_p · U_p[:Dk, Dv] + a U_p[Dk, Dv]) with
@@ -111,7 +114,25 @@
 //     blocks, 128 at B=2, Hkv=16, one wave on 132 SMs (199,424 B, one an
 //     SM); at D = 64 two, a dk and a dv block each holding all of U_qΩ
 //     (32 registers), 128 at B=2, Hkv=32 (101,120 B, two would fit);
-//   * the reverse walk goes over (chunk, query head of the group) steps
+//   * the split over the query group (grid z = S): a block walks G / S
+//     query heads' steps per chunk, so at G = 8, 16, 48 and 7 (qwen2.5-3b,
+//     chatglm3-6b, granite-20b, qwen2-vl-7b; B = 2) the unsplit grid had
+//     16, 16, 8 and 32 blocks on 132 SMs, each doing G heads' work.  From
+//     bkv::kSplitGroup = 7 heads the group is cut into S slices, slice s
+//     the heads [s G / S, (s + 1) G / S) (uneven where S does not divide
+//     G), S the smallest count keeping the largest slice's share with at
+//     most one block on each SM (S = 8, 8, 16, 4 there: 128 blocks).
+//     Each slice's block stores its f32 part of dk or dv (the values the
+//     unsplit block would round) into its rows of partials (B Hkv, S, N,
+//     D); a second kernel on the same grid adds the S parts of its rows in
+//     slice order and rounds once.  Not a thread-block cluster with a
+//     merge through distributed shared memory: granite's 16 slices exceed
+//     the portable cluster of 8, and 16 blocks of 199 KB would need 16
+//     free SMs of one GPC at a time; the partials cost S + 1 passes over
+//     f32 rows (268 MB each way at these shapes, ~0.1-0.2 ms) and no
+//     synchronisation between blocks.  No float atomics: bit-deterministic.
+//     Smaller groups and G = 1 keep S = 1, the unsplit launch and its bits;
+//   * the reverse walk goes over (chunk, query head of the slice) steps
 //     from the last chunk, loaded by TMA into a 2-stage ring: dk blocks
 //     v, their part of q and the f32 Ω̂; dv blocks k, q and their part of
 //     Ω̂.  U's readout runs at a chunk's first step, from the hi + lo
@@ -120,8 +141,8 @@
 //   * dk = b (v U_qΩ^T - u_h + T q) with T = v Ω̂^T - 1 h^T on i >= p;
 //     dv = b k U_qΩ + a u_Ω + A Ω̂ with A = a + b k q^T on i >= p.  u_h =
 //     Σ q h and u_Ω = Σ Ω̂ are f32 sums on the CUDA cores;
-//   * dk and dv are stored from registers; each element is written once:
-//     the result is bit-deterministic;
+//   * dk and dv (or a slice's f32 part) are stored from registers; each
+//     element is written once: the result is bit-deterministic;
 //   * gated (gla_bwd_kv): ssd.cu's sk carries the decay through the same
 //     reverse scan (decay.cuh): with cl the chunk's cumsum of log decays
 //     (base 2), the carried state's readout and sums take 2^(total -
@@ -234,23 +255,27 @@ __device__ __forceinline__ float bf16_at(const unsigned char* tile, int t,
 }
 
 // rows row0 and row0 + 8 of a warpgroup's m64n64 f32 accumulator d (the
-// 64 columns of D a block writes) as bf16 into rows t0 + row0 (+ 8) < n
-// of `out` (rows of kD values, starting at the part's first column), each
-// value f(i, column) of accumulator element i
-template <int kD, typename F>
-__device__ __forceinline__ void store_rows(bf16* out, int t0, int row0,
-                                           int n, F&& f) {
+// 64 columns of D a block writes) as bf16 (or, T = float, unrounded) into
+// rows t0 + row0 (+ 8) < n of `out` (rows of kD values, starting at the
+// part's first column), each value f(i, column) of accumulator element i
+template <int kD, typename T, typename F>
+__device__ __forceinline__ void store_rows(T* out, int t0, int row0, int n,
+                                           F&& f) {
   const int tq = threadIdx.x % 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = t0 + row0 + 8 * r;
     if (row >= n) continue;
-    bf16* dst = out + static_cast<size_t>(row) * kD + 2 * tq;
+    T* dst = out + static_cast<size_t>(row) * kD + 2 * tq;
 #pragma unroll
     for (int a = 0; a < kPart / 8; ++a) {
       const int i = 4 * a + 2 * r, col = 8 * a + 2 * tq;
-      *reinterpret_cast<uint32_t*>(dst + 8 * a) =
-          sm90::pack_bf16(f(i, col), f(i + 1, col + 1));
+      if constexpr (std::is_same<T, float>::value)
+        *reinterpret_cast<float2*>(dst + 8 * a) =
+            make_float2(f(i, col), f(i + 1, col + 1));
+      else
+        *reinterpret_cast<uint32_t*>(dst + 8 * a) =
+            sm90::pack_bf16(f(i, col), f(i + 1, col + 1));
     }
   }
 }
@@ -613,10 +638,27 @@ struct Layout {
   static constexpr size_t kSmem = kBars + kExtra;
 };
 
+// The split over the query group: a group of kSplitGroup or more query
+// heads (the registry's 7, 8, 16 and 48) is cut into S slices, slice s
+// the heads [s G / S, (s + 1) G / S), each walked by its own block (grid
+// z).  S is the smallest count that keeps the slices' largest share of
+// heads while bringing the grid to at most one block on each of kSms SMs;
+// smaller groups (and G = 1) keep S = 1, the unsplit launch.
+constexpr int kSplitGroup = 7;
+constexpr int kSms = 132;
+constexpr int kSumThreads = 512;  // threads of the slice sum's blocks
+inline int slice_count(int batch, int kv_heads, int group, int split) {
+  if (group < kSplitGroup) return 1;
+  const int fit = std::max(1, kSms / (batch * kv_heads * split));
+  const int per = (group + std::min(group, fit) - 1) / std::min(group, fit);
+  return (group + per - 1) / per;
+}
+
+
 // The reverse walk of one block: kDk, dk's columns 64 part.. (its U slice
 // U_qΩ[64 part.., :], 64 x D, out = dk); else dv's (U_qΩ^T[64 part.., :],
-// out = dv).  Steps s = j G + gi walk chunk chunks - 1 - j with the
-// group's query head gi.  Per step, with U (the f32 accumulator ut, an
+// out = dv).  Steps s = j G_s + gi walk chunk chunks - 1 - j with the
+// slice's query head gi (G_s = G unsplit).  Per step, with U (the f32 accumulator ut, an
 // m64nD), u_h or u_Ω over the later chunks:
 //   dk: first step of a chunk  acc = v U_qΩ^T        (SS; U's copies)
 //       T = v Ω̂^T - 1 h^T on i >= p, else 0           (SS, then f32)
@@ -643,6 +685,11 @@ struct Layout {
 //     Dv] + a U_p[Dk, Dv]): the row dot of the f32 A with h plus e_p (b k_p
 //     . u_h + a Σ h), u_h (over all of Dk) and Σ h f32 sums kept beside
 //     u_Ω.
+// Split (gridDim.z = S > 1): the block walks only its slice's query heads,
+// so its U_qΩ, u_h, u_Ω and acc are the slice's shares; each is linear in
+// the query heads, so the slices' f32 values, stored unrounded into their
+// rows of `partial` (B Hkv, S, N, kD or kD + 1), sum to dk or dv
+// (slice_sum_kernel).
 template <int kD, bool kDk, bool kGated, typename Out>
 __device__ __forceinline__ void walk(unsigned char* smem,
                                      const CUtensorMap* q_map,
@@ -650,7 +697,8 @@ __device__ __forceinline__ void walk(unsigned char* smem,
                                      const CUtensorMap* om_map,
                                      const float* __restrict__ ld,
                                      const float* __restrict__ hv,
-                                     Out* __restrict__ out, int part,
+                                     Out* __restrict__ out,
+                                     float* __restrict__ partial, int part,
                                      int heads, int kv_heads, int n, float a,
                                      float b) {
   using L = Layout<kD, kGated>;
@@ -669,11 +717,15 @@ __device__ __forceinline__ void walk(unsigned char* smem,
 
   const int bk = blockIdx.x;  // batch * kv_heads + KV head
   const int group = heads / kv_heads;
+  const int slices = gridDim.z, slice = blockIdx.z;
+  // the slice's query heads: g0 .. g0 + gs - 1 of the group
+  const int g0 = slice * group / slices;
+  const int gs = (slice + 1) * group / slices - g0;
   const int bi = bk / kv_heads;
   // query head hk * G + gi reads this KV head
-  const int q0 = bi * heads + (bk - bi * kv_heads) * group;
+  const int q0 = bi * heads + (bk - bi * kv_heads) * group + g0;
   const int chunks = (n + kChunk - 1) / kChunk;
-  const int steps = chunks * group;
+  const int steps = chunks * gs;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int tq = lane % 4;
@@ -686,7 +738,7 @@ __device__ __forceinline__ void walk(unsigned char* smem,
   };
   // the tiles of step s into its stage; rows past n arrive as zeros
   auto load_step = [&](int s) {
-    const int c = chunks - 1 - s / group, slice = q0 + s % group;
+    const int c = chunks - 1 - s / gs, head = q0 + s % gs;
     unsigned char* st = stage_of(s);
     uint64_t* bar = &full[s % kStages];
     sm90::bar_expect(bar, (kDk ? kD / 64 + 1 + kD / 32 : 2 * (kD / 64) + 2) *
@@ -697,28 +749,28 @@ __device__ __forceinline__ void walk(unsigned char* smem,
                         c * kChunk, bk);
     if (kDk) {
       sm90::tma_load_3d(st + L::kQ, q_map, bar, kPart * part, c * kChunk,
-                        slice);
+                        head);
 #pragma unroll
       for (int bx = 0; bx < kD / 32; ++bx)
         sm90::tma_load_3d(st + L::kOm + bx * kBox, om_map, bar, 32 * bx,
-                          c * kChunk, slice);
+                          c * kChunk, head);
     } else {
 #pragma unroll
       for (int bx = 0; bx < 2; ++bx) {
         if (bx < kD / 64)
           sm90::tma_load_3d(st + L::kQ + bx * kBox, q_map, bar, 64 * bx,
-                            c * kChunk, slice);
+                            c * kChunk, head);
         sm90::tma_load_3d(st + L::kOm + bx * kBox, om_map, bar,
-                          kPart * part + 32 * bx, c * kChunk, slice);
+                          kPart * part + 32 * bx, c * kChunk, head);
       }
     }
   };
   // dk (and gated dv): h of step s's token tid (0 past n and for tid >=
   // kChunk)
   auto load_h = [&](int s) {
-    const int t = (chunks - 1 - s / group) * kChunk + tid;
+    const int t = (chunks - 1 - s / gs) * kChunk + tid;
     return (kDk || kGated) && tid < kChunk && t < n
-               ? hv[static_cast<size_t>(q0 + s % group) * n + t]
+               ? hv[static_cast<size_t>(q0 + s % gs) * n + t]
                : 0.f;
   };
   // gated: lane l's two log decays of chunk c in base 2 (tokens 2l,
@@ -750,20 +802,23 @@ __device__ __forceinline__ void walk(unsigned char* smem,
                      // 2 tq (+ 1); dv: U_qΩ^T rows (Dv), columns (Dk)
 #pragma unroll
   for (int i = 0; i < kD / 2; ++i) ut[i] = 0.f;
-  float acc[32];  // dk or dv of this part, summed over the group
+  float acc[32];  // dk or dv of this part, summed over the slice
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   float h_next = load_h(0);
   out += static_cast<size_t>(bk) * n * kOutRow + kPart * part;
+  if (partial != nullptr)
+    partial += (static_cast<size_t>(bk) * slices + slice) * n * kOutRow +
+               kPart * part;
   // gated: the chunk's log decays (the next chunk's, loaded a chunk
-  // ahead), and the dv block's -dV'[kD] of its rows, summed over the group
+  // ahead), and the dv block's -dV'[kD] of its rows, summed over the slice
   [[maybe_unused]] float ld_cur[2] = {0.f, 0.f}, ld_next[2] = {0.f, 0.f};
   [[maybe_unused]] float xd[2] = {0.f, 0.f};
   if constexpr (kGated) load_ld(chunks - 1, ld_cur);
 
   for (int s = 0; s < steps; ++s) {
-    const int j = s / group;
-    const bool first = s - j * group == 0, last = s - j * group == group - 1;
+    const int j = s / gs;
+    const bool first = s - j * gs == 0, last = s - j * gs == gs - 1;
     const int t0 = (chunks - 1 - j) * kChunk;
     // every thread is done with step s - 1: its stage, Ω̂'s tiles and h
     // are free, U's copies and the sums are whole
@@ -1034,12 +1089,14 @@ __device__ __forceinline__ void walk(unsigned char* smem,
     sm90::pin(xl);
     if (last) {
       if constexpr (kGated && !kDk) {
-        // dV' rows from registers (rows of kD + 1 f32: 4-byte stores)
+        // dV' rows (or the slice's partial rows) from registers (rows of
+        // kD + 1 f32: 4-byte stores)
+        float* rows = partial != nullptr ? partial : out;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int row = t0 + row0 + 8 * r;
           if (row >= n) continue;
-          float* dst = out + static_cast<size_t>(row) * kOutRow + 2 * tq;
+          float* dst = rows + static_cast<size_t>(row) * kOutRow + 2 * tq;
 #pragma unroll
           for (int x = 0; x < kPart / 8; ++x) {
             dst[8 * x] = acc[4 * x + 2 * r];
@@ -1047,14 +1104,17 @@ __device__ __forceinline__ void walk(unsigned char* smem,
           }
           if (aug && tq == 0) dst[kD] = -xd[r];
         }
-      } else if (kDk) {
-        store_rows<kD>(out, t0, row0, n, [&](int i, int col) {
-          return kGated ? b * acc[i] : b * (acc[i] - s_cur[col]);
-        });
       } else {
-        store_rows<kD>(out, t0, row0, n, [&](int i, int col) {
-          return fmaf(a, s_cur[col], acc[i]);
-        });
+        auto value = [&](int i, int col) {
+          if constexpr (kDk)
+            return kGated ? b * acc[i] : b * (acc[i] - s_cur[col]);
+          else
+            return fmaf(a, s_cur[col], acc[i]);
+        };
+        if (partial != nullptr)
+          store_rows<kD>(partial, t0, row0, n, value);
+        else
+          store_rows<kD>(out, t0, row0, n, value);
       }
     }
     __syncwarp();
@@ -1081,6 +1141,9 @@ __device__ __forceinline__ void walk(unsigned char* smem,
   }
 }
 
+// dk_part and dv_part: the slices' f32 partials of dk and dv (or dV'),
+// (B Hkv, S, N, kD) and (B Hkv, S, N, kD or kD + 1); null where S = 1,
+// where the blocks store dk and dv themselves.
 template <int kD, bool kGated>
 __global__ void __launch_bounds__(kThreads, 1)
     la_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -1090,7 +1153,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                            const float* __restrict__ ld,
                            const float* __restrict__ hv,
                            bf16* __restrict__ dk, void* __restrict__ dv,
-                           int heads, int kv_heads, int n, float a, float b) {
+                           float* __restrict__ dk_part,
+                           float* __restrict__ dv_part, int heads,
+                           int kv_heads, int n, float a, float b) {
   // dv: bf16, or the gated dV' in f32
   using Dv = std::conditional_t<kGated, float, bf16>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -1098,11 +1163,67 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kParts = Layout<kD, kGated>::kParts;
   if (blockIdx.y < kParts)
     walk<kD, true, kGated>(smem, &q_map, &v_map, &om_map, ld, hv, dk,
-                           blockIdx.y, heads, kv_heads, n, a, b);
+                           dk_part, blockIdx.y, heads, kv_heads, n, a, b);
   else
     walk<kD, false, kGated>(smem, &q_map, &k_map, &om_map, ld, hv,
-                            static_cast<Dv*>(dv), blockIdx.y - kParts, heads,
-                            kv_heads, n, a, b);
+                            static_cast<Dv*>(dv), dv_part,
+                            blockIdx.y - kParts, heads, kv_heads, n, a, b);
+}
+
+// The fixed-order sum of the slices' f32 partials (B Hkv, S, N, kW) into
+// dk or dv (B Hkv, N, kW), one launch per role on the main kernel's grid,
+// y over the role's parts: block (x, y, z) takes rows [z N / S, (z + 1) N /
+// S) of part y's 64 columns (kAug: part 0 also column kW - 1, dV''s
+// augmented one) and adds slices 0 .. S - 1 in that order in f32, then
+// rounds once to Out.  No atomics: the result is bit-deterministic.
+// Memory-bound: S + 1 passes over the role's rows (float4 loads where a
+// row is a multiple of 4 floats).
+template <typename Out, int kW, bool kAug>
+__global__ void __launch_bounds__(kSumThreads)
+    slice_sum_kernel(const float* __restrict__ partial, Out* __restrict__ out,
+                     int n) {
+  const int slices = gridDim.z;
+  const int r0 = static_cast<int>(static_cast<long long>(blockIdx.z) * n /
+                                  slices);
+  const int r1 = static_cast<int>(
+      static_cast<long long>(blockIdx.z + 1) * n / slices);
+  const size_t cell = static_cast<size_t>(n) * kW;  // one slice's rows
+  const float* src = partial + static_cast<size_t>(blockIdx.x) * slices *
+                                   cell + kPart * blockIdx.y;
+  Out* dst = out + static_cast<size_t>(blockIdx.x) * cell + kPart * blockIdx.y;
+  if constexpr (kW % 4 == 0) {
+    static_assert(std::is_same<Out, bf16>::value, "bf16 rows of kW % 4 == 0");
+    constexpr int kQuads = kPart / 4;
+    for (int i = threadIdx.x; i < (r1 - r0) * kQuads; i += kSumThreads) {
+      const size_t off =
+          static_cast<size_t>(r0 + i / kQuads) * kW + 4 * (i % kQuads);
+      float4 sum = *reinterpret_cast<const float4*>(src + off);
+#pragma unroll 4
+      for (int s = 1; s < slices; ++s) {
+        const float4 x = *reinterpret_cast<const float4*>(src + s * cell + off);
+        sum.x += x.x;
+        sum.y += x.y;
+        sum.z += x.z;
+        sum.w += x.w;
+      }
+      *reinterpret_cast<uint2*>(dst + off) = make_uint2(
+          sm90::pack_bf16(sum.x, sum.y), sm90::pack_bf16(sum.z, sum.w));
+    }
+  } else {
+    const int cols = kPart + (kAug && blockIdx.y == 0 ? 1 : 0);
+    for (int i = threadIdx.x; i < (r1 - r0) * cols; i += kSumThreads) {
+      const int c = i % cols;
+      const size_t off = static_cast<size_t>(r0 + i / cols) * kW +
+                         (c < kPart ? c : kW - 1);
+      float sum = src[off];
+#pragma unroll 4
+      for (int s = 1; s < slices; ++s) sum += src[s * cell + off];
+      if constexpr (std::is_same<Out, bf16>::value)
+        dst[off] = __float2bfloat16_rn(sum);
+      else
+        dst[off] = sum;
+    }
+  }
 }
 
 }  // namespace bkv
@@ -1632,8 +1753,11 @@ cudaError_t with_launch_kv(int dtype, int dk, int dv, int batch, int heads,
           constexpr int D = decltype(dc)::value;
           using L = bkv::Layout<D, kGated>;
           return f(t, bkv::la_bwd_kv_wgmma_kernel<D, kGated>,
-                   plan::Geometry{dim3(batch * kv_heads, L::kSplit),
-                                  lbw::kThreads, L::kSmem, lbw::kChunk},
+                   plan::Geometry{
+                       dim3(batch * kv_heads, L::kSplit,
+                            bkv::slice_count(batch, kv_heads, group,
+                                             L::kSplit)),
+                       lbw::kThreads, L::kSmem, lbw::kChunk},
                    plan::Int<1>{});
         });
       }
@@ -1704,11 +1828,34 @@ int run_q(const void* k, const void* v, const void* ld, const void* om,
       }));
 }
 
+// The slices' sums into dk and dv (or dV') after a split launch of the
+// chunked body at head dim d with geometry geo.
+template <bool kGated>
+cudaError_t sum_slices(const plan::Geometry& geo, int d, int n,
+                       const float* dk_part, const float* dv_part, void* dk,
+                       void* dv, cudaStream_t st) {
+  return plan::with_chunked_dim<kGated>(d, [&](auto dc) {
+    constexpr int D = decltype(dc)::value;
+    using bf16 = __nv_bfloat16;
+    using TV = std::conditional_t<kGated, float, bf16>;
+    const plan::Geometry sum{dim3(geo.grid.x, geo.grid.y / 2, geo.grid.z),
+                             bkv::kSumThreads, 0, 0};
+    const cudaError_t err =
+        plan::launch(bkv::slice_sum_kernel<bf16, D, false>, sum, st, dk_part,
+                     static_cast<bf16*>(dk), n);
+    if (err != cudaSuccess) return err;
+    return plan::launch(bkv::slice_sum_kernel<TV, kGated ? D + 1 : D, kGated>,
+                        sum, st, dv_part, static_cast<TV*>(dv), n);
+  });
+}
+
+// dk_part, dv_part: the f32 partials of a split launch (plan.grid z > 1;
+// the wrapper sizes them from the same rule), unused otherwise.
 template <bool kGated>
 int run_kv(const void* q, const void* k, const void* v, const void* ld,
-           const void* om, const void* hv, void* dk, void* dv, int batch,
-           int heads, int kv_heads, int n, int d_k, int d_v, int stage,
-           float a, float b, int dtype, void* stream) {
+           const void* om, const void* hv, void* dk, void* dv, void* dk_part,
+           void* dv_part, int batch, int heads, int kv_heads, int n, int d_k,
+           int d_v, int stage, float a, float b, int dtype, void* stream) {
   if (bad_shape(batch, heads, kv_heads, n, stage))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
@@ -1734,11 +1881,18 @@ int run_kv(const void* q, const void* k, const void* v, const void* ld,
             err = sm90::map_rows_f32(&om_map, om, n, batch * heads,
                                      lbw::kChunk, d_v);
           if (err != cudaSuccess) return err;
-          return plan::launch(kernel, geo, st, q_map, k_map, v_map, om_map,
-                              static_cast<const float*>(ld),
-                              static_cast<const float*>(hv),
-                              static_cast<__nv_bfloat16*>(dk), dv, heads,
-                              kv_heads, n, a, b);
+          const bool split = geo.grid.z > 1;
+          if (split && (dk_part == nullptr || dv_part == nullptr))
+            return cudaErrorInvalidValue;
+          float* dkp = split ? static_cast<float*>(dk_part) : nullptr;
+          float* dvp = split ? static_cast<float*>(dv_part) : nullptr;
+          err = plan::launch(kernel, geo, st, q_map, k_map, v_map, om_map,
+                             static_cast<const float*>(ld),
+                             static_cast<const float*>(hv),
+                             static_cast<__nv_bfloat16*>(dk), dv, dkp, dvp,
+                             heads, kv_heads, n, a, b);
+          if (err != cudaSuccess || !split) return err;
+          return sum_slices<kGated>(geo, d_k, n, dkp, dvp, dk, dv, st);
         } else {
           return plan::launch(kernel, geo, st, static_cast<const T*>(q),
                               static_cast<const T*>(k),
@@ -1773,13 +1927,17 @@ extern "C" int la_bwd_q(const void* k, const void* v, const void* om,
                       dk, dv, stage, b, dtype, stream);
 }
 
+// dk_part, dv_part: the f32 partials (B, Hkv, S, N, Dk) and (B, Hkv, S,
+// N, Dv) of a chunked launch split into S > 1 slices of the query group
+// (grid z of la_bwd_plan); null otherwise.
 extern "C" int la_bwd_kv(const void* q, const void* k, const void* v,
                          const void* om, const void* hv, void* dk, void* dv,
-                         int batch, int heads, int kv_heads, int n, int d_k,
-                         int stage, float a, float b, int dtype, int d_v,
-                         void* stream) {
-  return run_kv<false>(q, k, v, nullptr, om, hv, dk, dv, batch, heads,
-                       kv_heads, n, d_k, d_v, stage, a, b, dtype, stream);
+                         void* dk_part, void* dv_part, int batch, int heads,
+                         int kv_heads, int n, int d_k, int stage, float a,
+                         float b, int dtype, int d_v, void* stream) {
+  return run_kv<false>(q, k, v, nullptr, om, hv, dk, dv, dk_part, dv_part,
+                       batch, heads, kv_heads, n, d_k, d_v, stage, a, b,
+                       dtype, stream);
 }
 
 // The gated dq: ld (B, Hkv, N) f32 is the per-token log decay.
@@ -1791,14 +1949,16 @@ extern "C" int gla_bwd_q(const void* k, const void* v, const void* ld,
                      stage, b, dtype, stream);
 }
 
-// The gated dk and dV': dva (B, Hkv, N, D+1) f32.
+// The gated dk and dV': dva (B, Hkv, N, D+1) f32; a split launch's
+// partials dk_part (B, Hkv, S, N, D) and dva_part (B, Hkv, S, N, D+1).
 extern "C" int gla_bwd_kv(const void* q, const void* k, const void* v,
                           const void* ld, const void* om, const void* hv,
-                          void* dk, void* dva, int batch, int heads,
-                          int kv_heads, int n, int d, int stage, float a,
-                          float b, int dtype, void* stream) {
-  return run_kv<true>(q, k, v, ld, om, hv, dk, dva, batch, heads, kv_heads,
-                      n, d, d, stage, a, b, dtype, stream);
+                          void* dk, void* dva, void* dk_part, void* dva_part,
+                          int batch, int heads, int kv_heads, int n, int d,
+                          int stage, float a, float b, int dtype,
+                          void* stream) {
+  return run_kv<true>(q, k, v, ld, om, hv, dk, dva, dk_part, dva_part, batch,
+                      heads, kv_heads, n, d, d, stage, a, b, dtype, stream);
 }
 
 // The geometry a call of `entry` ("la_bwd_q", "la_bwd_kv", "gla_bwd_q" or

@@ -40,8 +40,10 @@
 //
 // Two bodies of each kernel, chosen by the launcher from the dtype and
 // dims: the chunked wgmma bodies for bf16 at (128, 64) (mamba2-2.7b's
-// training instance), the token walk for f32 at every pair and bf16 at
-// (64, 64) and (16, 32).
+// training instance) and, for ssd_fwd, at (64, 64) too (zamba2-7b's
+// Mamba-2 layers; its body templated on Dk); the token walk for f32 at
+// every pair and bf16 at (16, 32), and for the backward's two kernels bf16
+// at (64, 64).
 //
 // What bounds them (estimates from the shapes; B=2, G=1, H=80, N=8192,
 // Dk=128, Dv=64): every kernel moves its bytes once, ssd_fwd ~0.35 GB
@@ -59,12 +61,19 @@
 // (0.303 ms), two thirds of them the f32 dq partials.  The chunked
 // ssd_bwd_kv body does seven products per chunk, five of them twice (a hi
 // and a lo operand), 225.5 GFLOP on the tensor cores (0.228 ms): bound by
-// its bytes, 1.36 GB (0.405 ms), half of them the f32 dk partials.
+// its bytes, 1.36 GB (0.405 ms), half of them the f32 dk partials.  At
+// zamba2-7b's (64, 64) (B=2, G=1, H=112, N=8192) ssd_fwd moves 0.48 GB
+// (0.144 ms); its body's seven products per chunk (q k^T once; q S, A v
+// and the state update each with a hi + lo operand) are 105.2 GFLOP
+// (0.106 ms): bound by its bytes.
 //
 // Design of the chunked body (namespace sc, the reference's chunked form,
 // src/repro/kernels/ssd.py:34-62): one warpgroup per (batch, head), 160
-// blocks of 108,544 B of shared memory, two to an SM, one wave on 132 SMs.
-//   * thread 0 loads each chunk's q, k (64 x 128) and v (64 x 64) by TMA
+// blocks of 108,544 B of shared memory, two to an SM, one wave on 132 SMs
+// (at (64, 64): 224 blocks at zamba2-7b's B=2, H=112, 83,968 B, two an
+// SM, one wave; S^T an m64n64 accumulator, q and k one box a row, and A,
+// w v and S's copy as hi + lo pairs, below).
+//   * thread 0 loads each chunk's q, k (64 x Dk) and v (64 x 64) by TMA
 //     into a 2-stage ring (sm90.cuh: 128-byte-swizzled boxes; rows past N
 //     arrive as zeros, so a ragged last chunk needs no padding in device
 //     memory); at G = 1 every head of a batch reads the same q and k,
@@ -77,10 +86,13 @@
 //     nothing overflows) in registers, rounded to bf16 as the register A
 //     of A v; o = exp(cl_i) q S + A v (v read MN-major); S^T =
 //     exp(cl_last) S^T + (w v)^T k (both MN-major, no transpose copy);
-//   * the state stays an f32 accumulator in registers (S^T, 64 x 128: 64
-//     registers a thread) for the whole walk; only operands are rounded to
-//     bf16 (A, w v and the readout's copy of S), as the flash kernels
-//     round P;
+//   * the state stays an f32 accumulator in registers (S^T, 64 x Dk: 64
+//     registers a thread at Dk = 128, 32 at 64) for the whole walk; only
+//     operands are rounded to bf16 (A, w v and the readout's copy of S),
+//     as the flash kernels round P; at (64, 64) each as a hi + lo pair,
+//     two products into one accumulator (~2^-17 relative), so that o
+//     keeps f32's bits to its final rounding: zamba2's step-0 train
+//     comparison reads o through the decays' cancelling grads;
 //   * o of a chunk is stored from registers while the state update runs;
 //     each o is written once (no atomics): the result is bit-deterministic.
 // Design of the chunked ssd_bwd_kv body (namespace sk, the reference's
@@ -182,28 +194,43 @@
 #include "sm90.cuh"
 
 // ---------------------------------------------------------------------------
-// the chunked wgmma body of ssd_fwd (bf16, Dk = 128, Dv = 64)
+// the chunked wgmma body of ssd_fwd (bf16, Dk = 128 or 64, Dv = 64)
 // ---------------------------------------------------------------------------
 
 namespace sc {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kDk = 128;
 constexpr int kDv = 64;
 constexpr int kChunk = 64;     // tokens of a chunk: the M of wgmma
 constexpr int kStages = 2;     // chunks of q, k and v in the TMA ring
 constexpr int kThreads = 128;  // one warpgroup
-constexpr size_t kQKBytes = static_cast<size_t>(kChunk) * kDk * 2;
-constexpr size_t kVBytes = static_cast<size_t>(kChunk) * kDv * 2;
-constexpr size_t kStageBytes = 2 * kQKBytes + kVBytes;  // q, k, v
-constexpr size_t kSBytes = static_cast<size_t>(kDv) * kDk * 2;  // bf16 S^T
 // dynamic shared memory beside the tiles: the barriers, and up to 1024
 // bytes of padding to the tiles' 1024-byte alignment
 constexpr size_t kExtra = 2048;
-// the ring, the (w v) tile, the bf16 copy of S^T, barriers and pad:
-// 108,544 B, so that two blocks share an SM
-constexpr size_t kSmem = kStages * kStageBytes + kVBytes + kSBytes + kExtra;
+
+// Whether the body takes (Dk, Dv): mamba2-2.7b's (128, 64) and zamba2-7b's
+// Mamba-2 layers' (64, 64).
+constexpr bool takes(int dk, int dv) {
+  return dv == kDv && (dk == 128 || dk == 64);
+}
+
+// At state width kDk (128 or 64): q and k are kDk / 64 boxes a row.  The
+// ring, the (w v) tile and the bf16 copy of S^T (Dv x kDk), each twice
+// (hi, lo) with kPairs, barriers and pad: 108,544 B at (128, single), so
+// that two blocks share an SM; 83,968 B at (64, pairs), two.
+template <int kDk, bool kPairs>
+struct Layout {
+  static constexpr size_t kQKBytes = static_cast<size_t>(kChunk) * kDk * 2;
+  static constexpr size_t kVBytes = static_cast<size_t>(kChunk) * kDv * 2;
+  static constexpr size_t kStageBytes = 2 * kQKBytes + kVBytes;  // q, k, v
+  static constexpr size_t kSBytes = static_cast<size_t>(kDv) * kDk * 2;
+  static constexpr size_t kCopies = kPairs ? 2 : 1;
+  static constexpr size_t kWv = kStages * kStageBytes;
+  static constexpr size_t kS = kWv + kCopies * kVBytes;
+  static constexpr size_t kBars = kS + kCopies * kSBytes;
+  static constexpr size_t kSmem = kBars + kExtra;
+};
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -218,8 +245,18 @@ constexpr float kLog2e = 1.4426950408889634f;
 //   S^T = exp(cl_last) S^T + (w o v)^T k, w_n = exp(cl_last - cl_n) <= 1
 //                                                  (wgmma, SS; both MN-major)
 // The bf16 copy of the new S^T goes back to shared memory for the next
-// chunk's readout; o goes as bf16 into the chunk's q tile, which the
-// next chunk stores by TMA.
+// chunk's readout; o goes as bf16 into the chunk's q tile (64 x Dv fits it
+// at either kDk), which the next chunk stores by TMA.  At kDk = 64 S^T is
+// an m64n64 accumulator (32 registers a thread) and every product's K over
+// Dk takes 4 steps of 16 where it took 8; each expression of kDk folds to
+// the kDk = 128 body's.  kPairs (zamba2-7b's (64, 64)): A, the readout's
+// copy of S^T and the (w v) tile go as hi + lo pairs of bf16 (sm90.cuh),
+// two products each where one rounding was, as la_fwd.cu's gated body
+// sends its operands: o then keeps ~16 bits before its own rounding, which
+// a step-0 train comparison reads through cancelling grads (the decays'
+// a_log and dt_bias of a 3-block zamba2 moved 1.9x its limit with single
+// roundings; mamba2-2.7b's 64 layers hold (128, 64)'s within 0.87).
+template <int kDk, bool kPairs>
 __global__ void __launch_bounds__(kThreads, 2)
     ssd_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                          const __grid_constant__ CUtensorMap k_map,
@@ -227,11 +264,16 @@ __global__ void __launch_bounds__(kThreads, 2)
                          const __grid_constant__ CUtensorMap o_map,
                          const float* __restrict__ ld, int heads,
                          int per_group, int n) {
+  using L = Layout<kDk, kPairs>;
+  constexpr size_t kQKBytes = L::kQKBytes, kVBytes = L::kVBytes;
+  constexpr size_t kStageBytes = L::kStageBytes, kSBytes = L::kSBytes;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = sm90::aligned_smem(smem_raw);
-  unsigned char* wv_sh = smem + kStages * kStageBytes;
-  unsigned char* s_sh = wv_sh + kVBytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(s_sh + kSBytes);
+  unsigned char* wv_sh = smem + L::kWv;  // (kPairs: then its lo tile)
+  unsigned char* s_sh = smem + L::kS;    // (kPairs: then its lo copy)
+  [[maybe_unused]] unsigned char* wv_lo = wv_sh + kVBytes;
+  [[maybe_unused]] unsigned char* s_lo = s_sh + kSBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
 
   const int bh = blockIdx.x;  // batch * heads + head
   const int bi = bh / heads;
@@ -250,11 +292,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     uint64_t* bar = &full[c % kStages];
     sm90::bar_expect(bar, kStageBytes);
 #pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      sm90::tma_load_3d(st + b * kQKBytes / 2, &q_map, bar, 64 * b,
+    for (int b = 0; b < kDk / 64; ++b) {
+      sm90::tma_load_3d(st + b * kQKBytes / (kDk / 64), &q_map, bar, 64 * b,
                         c * kChunk, qk_slice);
-      sm90::tma_load_3d(st + kQKBytes + b * kQKBytes / 2, &k_map, bar,
-                        64 * b, c * kChunk, qk_slice);
+      sm90::tma_load_3d(st + kQKBytes + b * kQKBytes / (kDk / 64), &k_map,
+                        bar, 64 * b, c * kChunk, qk_slice);
     }
     sm90::tma_load_3d(st + 2 * kQKBytes, &v_map, bar, 0, c * kChunk, bh);
   };
@@ -277,16 +319,18 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int s = 0; s < kStages; ++s) sm90::bar_init(&full[s], 1);
     sm90::bar_init_fence();
   }
-  // S_0 = 0: its bf16 copy too
-  for (int i = tid; i < static_cast<int>(kSBytes / 16); i += kThreads)
+  // S_0 = 0: its bf16 copy (copies) too
+  for (int i = tid; i < static_cast<int>(L::kCopies * kSBytes / 16);
+       i += kThreads)
     reinterpret_cast<uint4*>(s_sh)[i] = make_uint4(0, 0, 0, 0);
   sm90::fence_async_smem();
   __syncthreads();
   if (tid == 0) load_chunk(0);
 
-  float st[64];  // S^T: rows (Dv) 16 warp + g (+ 8), columns (Dk) 8 a + 2 tq
+  float st[kDk / 2];  // S^T: rows (Dv) 16 warp + g (+ 8), columns (Dk)
+                     // 8 a + 2 tq
 #pragma unroll
-  for (int i = 0; i < 64; ++i) st[i] = 0.f;
+  for (int i = 0; i < kDk / 2; ++i) st[i] = 0.f;
   float ld_cur[2];
   load_ld(0, ld_cur);
   const int row0 = 16 * warp + g;  // this thread's rows of a chunk: +0, +8
@@ -318,13 +362,20 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int kk = 0; kk < kDk / 16; ++kk)
       sm90::mma_ss_n64(acc, sm90::desc_k<kChunk>(q_t, kk),
                        sm90::desc_k<kDv>(s_t, kk), kk);
+    if constexpr (kPairs) {
+#pragma unroll
+      for (int kk = 0; kk < kDk / 16; ++kk)
+        sm90::mma_ss_n64(
+            acc, sm90::desc_k<kChunk>(q_t, kk),
+            sm90::desc_k<kDv>(reinterpret_cast<const bf16*>(s_lo), kk), 1);
+    }
     sm90::mma_commit();
 
     // behind the products: cl, the inclusive cumsum of the chunk's log
     // decays (cd::scan), and the (w v) tile of the state update
     const cd::Cumsum cl = cd::scan(ld_cur, lane);
-    cd::weighted_v<false, kThreads>(cl, stage + 2 * kQKBytes, wv_sh,
-                                    nullptr, tid);
+    cd::weighted_v<kPairs, kThreads>(cl, stage + 2 * kQKBytes, wv_sh,
+                                     kPairs ? wv_lo : nullptr, tid);
     float cl_col[16];  // cl of this thread's key columns
     cl.cols(tq, cl_col);
     const float cl_row[2] = {cl.at(row0), cl.at(row0 + 8)};
@@ -344,38 +395,56 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
 
     uint32_t pa[kChunk / 16][4];
+    [[maybe_unused]] uint32_t pl[kChunk / 16][4];
     cd::decay_mask<true>(sc, cl_row, cl_col, warp, tq, row0);
-    sm90::to_a<kChunk / 16>(pa, sc);
+    if constexpr (kPairs)
+      sm90::to_a_split<kChunk / 16>(pa, pl, sc);
+    else
+      sm90::to_a<kChunk / 16>(pa, sc);
     const float e_row[2] = {sm90::exp2_ftz(cl_row[0]),
                             sm90::exp2_ftz(cl_row[1])};
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] *= e_row[(i >> 1) & 1];
     const float e_total = sm90::exp2_ftz(cl.total);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) st[i] *= e_total;
+    for (int i = 0; i < kDk / 2; ++i) st[i] *= e_total;
     sm90::pin(acc);
     sm90::pin(st);
     sm90::pin(pa);
+    if constexpr (kPairs) sm90::pin(pl);
     sm90::mma_fence();
 #pragma unroll
     for (int kk = 0; kk < kChunk / 16; ++kk)
       sm90::mma_rs_n64(acc, pa[kk], sm90::desc_mn<kChunk>(v_t, kk), 1);
+    if constexpr (kPairs) {
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        sm90::mma_rs_n64(acc, pl[kk], sm90::desc_mn<kChunk>(v_t, kk), 1);
+    }
     sm90::mma_commit();
 #pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk)
-      sm90::mma_ss_n128<1, 1>(
-          st, sm90::desc_mn<kChunk>(reinterpret_cast<const bf16*>(wv_sh), kk),
-          sm90::desc_mn<kChunk>(k_t, kk), 1);
+    for (int x = 0; x < static_cast<int>(L::kCopies); ++x)
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        sm90::mma_ss<1, 1>(
+            st,
+            sm90::desc_mn<kChunk>(
+                reinterpret_cast<const bf16*>(x ? wv_lo : wv_sh), kk),
+            sm90::desc_mn<kChunk>(k_t, kk), 1);
     sm90::mma_commit();
 
     sm90::mma_wait<1>();  // o, while the state update runs
     sm90::pin(acc);
     sm90::pin(pa);
+    if constexpr (kPairs) sm90::pin(pl);
     sm90::store_tile<kDv / 8>(smem + (c % kStages) * kStageBytes, acc);
     sm90::mma_wait<0>();
     sm90::pin(st);
-    // the bf16 copy of S^T, the K-major B of the next readout
-    sm90::store_tile<kDk / 8>(s_sh, st);
+    // the bf16 copy (copies) of S^T, the K-major B of the next readout
+    if constexpr (kPairs)
+      sm90::store_tile_split<kDk / 8>(s_sh, s_lo, st);
+    else
+      sm90::store_tile<kDk / 8>(s_sh, st);
     sm90::fence_async_smem();
     ld_cur[0] = ld_next[0];
     ld_cur[1] = ld_next[1];
@@ -803,9 +872,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     load_vo(0);
   }
 
-  float st[64];  // S^T: rows (Dv) 16 warp + g (+ 8), columns (Dk) 8 a + 2 tq
+  float st[kDk / 2];  // S^T: rows (Dv) 16 warp + g (+ 8), columns (Dk)
+                     // 8 a + 2 tq
 #pragma unroll
-  for (int i = 0; i < 64; ++i) st[i] = 0.f;
+  for (int i = 0; i < kDk / 2; ++i) st[i] = 0.f;
   float ld_cur[2];
   load_ld(0, ld_cur);
   const int row0 = 16 * warp + g;  // this thread's rows of a chunk: +0, +8
@@ -875,7 +945,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int i = 0; i < 64; ++i) dqa[i] *= e_row[(i >> 1) & 1];
     const float e_total = sm90::exp2_ftz(cl.total);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) st[i] *= e_total;
+    for (int i = 0; i < kDk / 2; ++i) st[i] *= e_total;
     sm90::pin(dqa);
     sm90::pin(st);
     sm90::pin(wh);
@@ -1365,7 +1435,8 @@ auto kernel_of() {
 // The launch of one of the three kernels, shared by the launchers and
 // `ssd_plan`: f(Type<T>{}, kernel, geometry, Int<wgmma>{}) for the
 // instantiation a call with these arguments runs.  One block per (batch,
-// head).  The wgmma bodies (all three kernels in bf16 at (128, 64)) walk
+// head).  The wgmma bodies (all three kernels in bf16 at (128, 64),
+// ssd_fwd also at (64, 64)) walk
 // chunks of sc::kChunk = sq::kChunk = sk::kChunk tokens, which `stage`
 // must name;
 // the token walk stages `stage` tokens per iteration, shrunk to fit
@@ -1377,12 +1448,18 @@ cudaError_t with_launch(int dtype, int dk, int dv, int batch, int heads,
     using T = typename decltype(t)::type;
     if constexpr (K == Kind::kFwd &&
                   std::is_same<T, __nv_bfloat16>::value) {
-      if (dk == sc::kDk && dv == sc::kDv) {
+      if (sc::takes(dk, dv)) {
         if (stage != sc::kChunk) return cudaErrorInvalidValue;
-        return f(t, sc::ssd_fwd_wgmma_kernel,
-                 plan::Geometry{dim3(batch * heads), sc::kThreads, sc::kSmem,
-                                sc::kChunk},
-                 plan::Int<1>{});
+        // (64, 64) with hi + lo operands, (128, 64) single roundings
+        auto go = [&](auto dkc) {
+          constexpr int DK = decltype(dkc)::value;
+          constexpr bool kPairs = DK == 64;
+          return f(t, sc::ssd_fwd_wgmma_kernel<DK, kPairs>,
+                   plan::Geometry{dim3(batch * heads), sc::kThreads,
+                                  sc::Layout<DK, kPairs>::kSmem, sc::kChunk},
+                   plan::Int<1>{});
+        };
+        return dk == 64 ? go(plan::Int<64>{}) : go(plan::Int<128>{});
       }
     }
     if constexpr (K == Kind::kBwdQ &&
@@ -1491,10 +1568,11 @@ int run(const Args& a, int dk, int dv, int dtype) {
         } else if constexpr (decltype(body)::value == 1) {
           CUtensorMap q_map, k_map, v_map, o_map;
           cudaError_t err = sm90::map_rows(&q_map, q, a.n,
-                                           a.batch * a.groups, sc::kChunk);
+                                           a.batch * a.groups, sc::kChunk,
+                                           dk);
           if (err == cudaSuccess)
             err = sm90::map_rows(&k_map, k, a.n, a.batch * a.groups,
-                                 sc::kChunk);
+                                 sc::kChunk, dk);
           if (err == cudaSuccess)
             err = sm90::map_rows(&v_map, v, a.n, a.batch * a.heads,
                                  sc::kChunk, sc::kDv);
@@ -1525,7 +1603,8 @@ int run(const Args& a, int dk, int dv, int dtype) {
 // Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16
 // (of q, k, v, Ω and o).  Each returns the cudaError_t of its launch
 // (0 = success); the launch is asynchronous on `stream`.  All three in
-// bf16 at (Dk, Dv) = (128, 64) run their wgmma bodies: `stage` must be the
+// bf16 at (Dk, Dv) = (128, 64), and ssd_fwd at (64, 64), run their wgmma
+// bodies: `stage` must be the
 // chunk (64), and their TMA reads need q, k, v (and Ω) 16-byte aligned
 // (the wrapper checks it; a map that cannot be encoded is refused with
 // cudaErrorInvalidValue).

@@ -58,6 +58,22 @@ staging size, and no result depends on it.
     tiles) goes as a hi + lo pair of bf16 values, so dq, dk and dv stay
     within one bf16 step where q and k share a direction; the kernels are
     compiled for exactly this chunk and refuse any other.
+  * `LA_BWD_KV_SPLIT_GROUP`, `H100_SMS` — the split of `la_bwd_kv`'s (and
+    `gla_bwd_kv`'s) chunked body over the query group.  A block walks its
+    chunks once per query head of its group, so at G = 8, 16, 48 and 7
+    (qwen2.5-3b, chatglm3-6b, granite-20b, qwen2-vl-7b) the unsplit grid
+    had 16, 16, 8 and 32 blocks at B = 2, each doing G heads' steps.  From
+    `LA_BWD_KV_SPLIT_GROUP` query heads a KV head (7, the smallest group of
+    a registry model) the group is cut into S slices of consecutive heads,
+    slice s the heads [s G / S, (s + 1) G / S), each walked by a block of
+    its own (grid z): S is the smallest count that keeps the largest
+    slice's share, ⌈G / min(G, fit)⌉ heads, where fit is the blocks per
+    (batch, KV head, part) that leave the grid within one block on each of
+    `H100_SMS` SMs (S = 8, 8, 16 and 4 at the shapes above, 128 blocks
+    each).  Each slice stores its share of dk and dv unrounded in f32, and
+    a second kernel adds the slices in order and rounds once
+    (`linear_attention.kv_slices`).  Smaller groups (the tests' 2 and 4)
+    and G = 1 keep the unsplit launch and its bits.
   * `SSD_BWD_Q_WGMMA_STATE_DIMS`, `SSD_BWD_Q_K_RING` — `ssd_bwd_q`'s
     "wgmma" body (bf16 at (Dk, Dv) in `SSD_BWD_Q_WGMMA_STATE_DIMS`,
     mamba2-2.7b's training instance; chunks of `SSD_CHUNK_TOKENS`):
@@ -169,9 +185,16 @@ staging size, and no result depends on it.
     blocks share an SM.  The plain SSD scans (core/ssd.py) take
     `DEFAULT_SCAN_CHUNK`.
   * `SSD_CHUNK_TOKENS`, `SSD_CHUNK_RING` — the chunk of the three SSD
-    "wgmma" bodies and the ring depth of `ssd_fwd`'s "wgmma" body (bf16 at (Dk, Dv) in
-    `SSD_WGMMA_STATE_DIMS`, mamba2-2.7b's training instance; the dtype,
-    the dims and the entry pick the body, `ssd.ssd_body`).  A chunk is
+    "wgmma" bodies and the ring depth of `ssd_fwd`'s "wgmma" body (bf16 at
+    (Dk, Dv) in `SSD_WGMMA_STATE_DIMS`: mamba2-2.7b's training instance,
+    (128, 64), and zamba2-7b's Mamba-2 layers, (64, 64), where q and k
+    are one 64-column box a row, S^T an m64n64 accumulator and, at
+    (Dk, Dv) in `SSD_FWD_PAIR_STATE_DIMS`, A, w v and S's copy hi + lo
+    pairs of bf16, a block 83,968 B, two an SM; the dtype, the dims and
+    the entry pick the body, `ssd.ssd_body`).  The pairs keep o to f32's
+    bits before its rounding, which zamba2's step-0 train comparison
+    needs: it reads o through the decays' cancelling grads at 3 blocks,
+    where mamba2's 64 layers hold the single roundings (PERF.md).  A chunk is
     64 tokens, the M of Hopper's `wgmma`: its four products per chunk
     (q k^T, q S, A v and the state update) are m64nNk16 tiles, and its
     intra-chunk decay matrix is a 64 x 64 f32 accumulator, 32 registers
@@ -216,7 +239,8 @@ GLA_STAGE_TOKENS = 32
 SSD_STAGE_TOKENS = 32
 SSD_CHUNK_TOKENS = 64
 SSD_CHUNK_RING = 2
-SSD_WGMMA_STATE_DIMS = ((128, 64),)
+SSD_WGMMA_STATE_DIMS = ((128, 64), (64, 64))
+SSD_FWD_PAIR_STATE_DIMS = ((64, 64),)
 SSD_BWD_KV_WGMMA_STATE_DIMS = ((128, 64),)
 SSD_BWD_Q_WGMMA_STATE_DIMS = ((128, 64),)
 SSD_BWD_Q_K_RING = 2
@@ -230,6 +254,8 @@ GLA_WGMMA_HEAD_DIMS = (128,)
 GLA_BWD_Q_WGMMA_HEAD_DIMS = (128,)
 GLA_BWD_KV_WGMMA_HEAD_DIMS = (128,)
 LA_BWD_RING = 2
+LA_BWD_KV_SPLIT_GROUP = 7
+H100_SMS = 132
 FLASH_BLOCK_Q = {
     "wgmma": {"flash_fwd": 128, "flash_bwd_q": 128, "flash_bwd_kv": 64},
     "mma_sync": {"flash_fwd": 64, "flash_bwd_q": 64, "flash_bwd_kv": 64},

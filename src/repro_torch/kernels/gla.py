@@ -83,7 +83,7 @@ def _check_ld(log_decay, bsz, hkv, n) -> None:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_SYMBOLS = {"gla_fwd": [_P] * 6 + [_I] * 6 + [_F] * 2 + [_I, _P]}
 _BWD_SYMBOLS = {"gla_bwd_q": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
-                "gla_bwd_kv": [_P] * 8 + [_I] * 6 + [_F] * 2 + [_I, _P]}
+                "gla_bwd_kv": [_P] * 10 + [_I] * 6 + [_F] * 2 + [_I, _P]}
 
 
 def gla_fwd_cuda(q, k, v, log_decay, a: float, b: float):
@@ -153,10 +153,17 @@ def gla_bwd_kv_cuda(q, k, v, log_decay, om_hat, h_vec, a: float,
     lib = build.bind("la_bwd", _BWD_SYMBOLS)
     dk = torch.empty_like(k)
     dva = torch.empty((bsz, hkv, n, d + 1), dtype=F32, device=q.device)
+    dk_part, dva_part = _la.kv_partials(
+        _la.kv_slices("gla_bwd_kv", q.dtype, bsz, h, hkv, d), bsz, hkv, n, d,
+        d + 1, q.device)
     with torch.cuda.device(q.device):
         err = lib.gla_bwd_kv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              log_decay.data_ptr(), om_hat.data_ptr(),
                              h_vec.data_ptr(), dk.data_ptr(), dva.data_ptr(),
+                             dk_part.data_ptr() if dk_part is not None
+                             else None,
+                             dva_part.data_ptr() if dva_part is not None
+                             else None,
                              bsz, h, hkv, n, d,
                              _la.bwd_stage("gla_bwd_kv", q.dtype, d),
                              float(a), float(b), build.DTYPE_CODE[q.dtype],

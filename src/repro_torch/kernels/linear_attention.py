@@ -53,9 +53,9 @@ from repro_torch.core import chunked as _chunked
 from repro_torch.kernels import build, plan
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
     GLA_BWD_KV_WGMMA_HEAD_DIMS, GLA_BWD_Q_WGMMA_HEAD_DIMS, \
-    GLA_STAGE_TOKENS, GLA_WGMMA_HEAD_DIMS, LA_BWD_RING, \
-    LA_BWD_WGMMA_HEAD_DIMS, LA_CHUNK_RING, LA_CHUNK_TOKENS, LA_STAGE_TOKENS, \
-    LA_WGMMA_HEAD_DIMS, LA_WGMMA_PART
+    GLA_STAGE_TOKENS, GLA_WGMMA_HEAD_DIMS, H100_SMS, LA_BWD_KV_SPLIT_GROUP, \
+    LA_BWD_RING, LA_BWD_WGMMA_HEAD_DIMS, LA_CHUNK_RING, LA_CHUNK_TOKENS, \
+    LA_STAGE_TOKENS, LA_WGMMA_HEAD_DIMS, LA_WGMMA_PART
 
 F32 = torch.float32
 # head dims the kernels are instantiated for (a state row in registers):
@@ -104,6 +104,40 @@ def la_bwd_body(entry: str, dtype, d: int, dv=None) -> str:
     GLA_BWD_KV_WGMMA_HEAD_DIMS: the gated instances) or "walk"."""
     return ("wgmma" if dtype == torch.bfloat16 and dv in (None, d)
             and d in _BWD_WGMMA_HEAD_DIMS.get(entry, ()) else "walk")
+
+
+def kv_slices(entry: str, dtype, b: int, h: int, hkv: int, d: int,
+              dv=None) -> int:
+    """The slices S of the query group over which `la_bwd_kv` or
+    `gla_bwd_kv` (`entry`) spreads its chunked body's blocks (grid z;
+    csrc/la_bwd.cu `bkv::slice_count`): 1 for the walks and for groups of
+    fewer than LA_BWD_KV_SPLIT_GROUP query heads; otherwise the smallest S
+    that keeps the largest slice's share ⌈G / min(G, fit)⌉, fit being the
+    blocks per (batch, KV head, part) that keep the grid within one block
+    on each of H100_SMS SMs."""
+    group = h // hkv
+    if la_bwd_body(entry, dtype, d, dv) != "wgmma" \
+            or group < LA_BWD_KV_SPLIT_GROUP:
+        return 1
+    fit = min(group, max(1, H100_SMS // (b * hkv * 2 * wgmma_parts(d))))
+    per = -(-group // fit)
+    return -(-group // per)
+
+
+def slice_heads(group: int, slices: int, s: int) -> tuple:
+    """The query heads [lo, hi) of the group that slice s walks."""
+    return s * group // slices, (s + 1) * group // slices
+
+
+def kv_partials(slices: int, b: int, hkv: int, n: int, dk: int, dv: int,
+                device):
+    """The f32 partials of a split `la_bwd_kv` or `gla_bwd_kv` launch, dk's
+    (B, Hkv, S, N, Dk) and dv's (B, Hkv, S, N, dv: Dv, or D + 1 for the
+    gated dV'); (None, None) where S = 1."""
+    if slices == 1:
+        return None, None
+    return (torch.empty((b, hkv, slices, n, dk), dtype=F32, device=device),
+            torch.empty((b, hkv, slices, n, dv), dtype=F32, device=device))
 
 
 def _walk_stage(entry: str) -> int:
@@ -172,7 +206,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the linear entries take Dv after the dtype code
 _FWD_SYMBOLS = {"la_fwd": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_I, _I, _P]}
 _BWD_SYMBOLS = {"la_bwd_q": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
-                "la_bwd_kv": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_I, _I, _P]}
+                "la_bwd_kv": [_P] * 9 + [_I] * 6 + [_F] * 2 + [_I, _I, _P]}
 
 
 def la_fwd_cuda(q, k, v, a: float, b: float):
@@ -219,7 +253,8 @@ def la_bwd_q_cuda(k, v, om_hat, h_vec, b: float):
 
 def la_bwd_kv_cuda(q, k, v, om_hat, h_vec, a: float, b: float):
     """Launch `la_bwd_kv`: (dk (B, Hkv, N, Dk), dv (B, Hkv, N, Dv)), each
-    in its input's dtype."""
+    in its input's dtype; a launch split over the query group
+    (`kv_slices`) takes f32 partials allocated here."""
     build.check_tensors("la_bwd_kv", {"q": q, "k": k, "v": v,
                                       "om_hat": om_hat, "h": h_vec},
                         ("q", "k", "v"), ("om_hat", "h"))
@@ -231,10 +266,17 @@ def la_bwd_kv_cuda(q, k, v, om_hat, h_vec, a: float, b: float):
                          f"= {(bsz, h, n, d_v)}")
     lib = build.bind("la_bwd", _BWD_SYMBOLS)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dk_part, dv_part = kv_partials(
+        kv_slices("la_bwd_kv", q.dtype, bsz, h, hkv, d_k, d_v), bsz, hkv, n,
+        d_k, d_v, q.device)
     with torch.cuda.device(q.device):
         err = lib.la_bwd_kv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             om_hat.data_ptr(), h_vec.data_ptr(),
-                            dk.data_ptr(), dv.data_ptr(), bsz, h, hkv, n,
+                            dk.data_ptr(), dv.data_ptr(),
+                            dk_part.data_ptr() if dk_part is not None
+                            else None,
+                            dv_part.data_ptr() if dv_part is not None
+                            else None, bsz, h, hkv, n,
                             d_k, bwd_stage("la_bwd_kv", q.dtype, d_k, d_v),
                             float(a), float(b), build.DTYPE_CODE[q.dtype],
                             d_v,
@@ -474,11 +516,16 @@ def plan_bwd_kv(entry, q, k, v, log_decay, om_hat, h_vec, a, b,
     dk's columns part y from v, their part of q, Ω̂ and h; y >= P dv's part
     y - P from k, q and their part of Ω̂ (gated: dV''s columns of that
     part, from h too, and y = P also its column D), each walking the
-    group's chunks from the last."""
+    group's chunks from the last.  Split over the query group
+    (`kv_slices`, S > 1): block z walks only slice z's query heads and
+    stores its part of dk or dv unrounded into its slice's rows of the f32
+    partials ("scratch"); the slice sum, on the same grid, then writes rows
+    [z N / S, (z + 1) N / S) of that part from all S slices."""
     bsz, h, hkv, n, d, dv = _dims(q, k, v, head_dims(entry))
     group, gated = h // hkv, log_decay is not None
     code = plan.dtype_code(q.dtype)
     wgmma = la_bwd_body(entry, q.dtype, d, dv) == "wgmma"
+    slices = kv_slices(entry, q.dtype, bsz, h, hkv, d, dv)
     split_roles = not wgmma and d != dv
     if wgmma:
         stage_tokens = stage = LA_CHUNK_TOKENS
@@ -519,13 +566,55 @@ def plan_bwd_kv(entry, q, k, v, log_decay, om_hat, h_vec, a, b,
             roles, cols = part(blk)
             reads = role is None or (not wgmma and halved is None) \
                 or role in roles
-            ranges = [(bi, bi + 1), (hk * group, (hk + 1) * group)
+            lo, hi = slice_heads(group, slices, blk[2])
+            ranges = [(bi, bi + 1), (hk * group + lo, hk * group + hi)
                       if grouped else (hk, hk + 1),
                       (0, n) if reads else (0, 0)]
             if width is not None:
                 ranges.append(cols if cols is not None and halved in roles
                               else (0, width))
             return plan.box(*ranges)
+        return tile
+
+    def rows(blk):
+        """The rows of dk and dv the block's index writes: all of them,
+        or split, the slice sum's share [z N / S, (z + 1) N / S)."""
+        return blk[2] * n // slices, (blk[2] + 1) * n // slices
+
+    def output(role, width, aug=False):
+        """dk or dv (`aug`: the gated dV', width D + 1): the block's part
+        of the columns (the walk: all) over its rows, where `role` is its
+        own; dV''s first part also column D."""
+        def tile(blk):
+            bi, hk = divmod(blk[0], hkv)
+            roles, cols = part(blk)
+            mine = role in roles
+            head = ((bi, bi + 1), (hk, hk + 1),
+                    rows(blk) if mine else (0, 0))
+            tiles = plan.box(*head, cols if cols is not None
+                             and (mine or aug) else (0, width))
+            if aug and mine and cols is not None and cols[0] == 0:
+                tiles += plan.box(*head, (d, d + 1))
+            return tiles
+        return tile
+
+    def partial(role, width):
+        """A role's f32 partials (B, Hkv, S, N, width): the block writes
+        its part's columns of slice z's rows and the slice sum reads them
+        at its rows from every slice (gated dV': the first part also
+        column D)."""
+        def tile(blk):
+            bi, hk = divmod(blk[0], hkv)
+            roles, cols = part(blk)
+            if role not in roles:
+                return []
+            spans = [cols] + ([(d, d + 1)] if width == d + 1
+                              and cols[0] == 0 else [])
+            cell = ((bi, bi + 1), (hk, hk + 1))
+            return [t for c in spans
+                    for t in plan.box(*cell, (blk[2], blk[2] + 1), (0, n),
+                                      c)
+                    + plan.box(*cell, (0, slices), rows(blk), c)]
         return tile
 
     accesses = [
@@ -544,31 +633,26 @@ def plan_bwd_kv(entry, q, k, v, log_decay, om_hat, h_vec, a, b,
         plan.Access("h_vec", "in", (bsz, h, n), F32,
                     operand(True, None if gated else "dk", width=None)),
         plan.Access("dk", "out", plan.shape_of(k), q.dtype,
-                    operand(False, "dk", "dk"))]
-    if gated:   # dV' with its augmented column, f32
-        def dva_tile(blk):
-            """The walk's block writes whole rows; a wgmma dv block its
-            part's columns, the first part also column D."""
-            if not wgmma:
-                return operand(False, width=d + 1)(blk)
-            bi, hk = divmod(blk[0], hkv)
-            roles, cols = part(blk)
-            head = ((bi, bi + 1), (hk, hk + 1),
-                    (0, n) if "dv" in roles else (0, 0))
-            tiles = plan.box(*head, cols)
-            if "dv" in roles and cols[0] == 0:
-                tiles += plan.box(*head, (d, d + 1))
-            return tiles
-        accesses.append(plan.Access("dva", "out", (bsz, hkv, n, d + 1), F32,
-                                    dva_tile))
-    else:
-        accesses.append(plan.Access("dv", "out", plan.shape_of(v), q.dtype,
-                                    operand(False, "dv", "dv", width=dv)))
-    return plan.make(entry, "la_bwd", (bsz * hkv, split), threads, smem,
-                     accesses,
+                    output("dk", d))]
+    dv_name, dv_width = ("dva", d + 1) if gated else ("dv", dv)
+    accesses.append(plan.Access(dv_name, "out", (bsz, hkv, n, dv_width),
+                                F32 if gated else q.dtype,
+                                output("dv", dv_width, gated)))
+    pointers = [a.name for a in accesses] + [None, None]
+    if slices > 1:
+        accesses += [
+            plan.Access("dk_part", "scratch", (bsz, hkv, slices, n, d), F32,
+                        partial("dk", d)),
+            plan.Access(dv_name + "_part", "scratch",
+                        (bsz, hkv, slices, n, dv_width), F32,
+                        partial("dv", dv_width))]
+        pointers = [a.name for a in accesses]
+    return plan.make(entry, "la_bwd", (bsz * hkv, split, slices), threads,
+                     smem, accesses,
                      (bsz, h, hkv, n, d, stage_tokens, float(a), float(b),
                       code, *_dv_arg(gated, dv)), argtypes,
-                     (bsz, h, hkv, n, d, stage_tokens, code, dv), stage=stage)
+                     (bsz, h, hkv, n, d, stage_tokens, code, dv),
+                     pointers=pointers, stage=stage)
 
 
 def _dv_arg(gated: bool, dv: int) -> tuple:

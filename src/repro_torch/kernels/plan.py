@@ -11,8 +11,10 @@ a `Launch`:
     in one host function that its C export `<source>_plan` also reports
     (csrc/plan.cuh), and `repro_torch.check.bounds` holds the two equal on
     the card;
-  * one `Access` per pointer the entry takes: its role ("in", "out" or
-    "inout"), its extent and dtype as the kernel indexes it, and
+  * one `Access` per pointer the entry takes: its role ("in", "out",
+    "inout", or "scratch": f32 work space that the entry's first kernel
+    writes and its second reads, allocated by the wrapper), its extent and
+    dtype as the kernel indexes it, and
     `tile(block, *gathered) -> [Tile]`, the element ranges per dim that
     block (x, y, z) touches, each with a `masked` flag where the kernel
     guards the tail at the extent (it reads and writes nothing past it).
@@ -60,7 +62,7 @@ class Access:
     """One pointer of an entry: what each block touches through it."""
 
     name: str
-    role: str          # "in", "out" or "inout"
+    role: str          # "in", "out", "inout" or "scratch"
     shape: tuple       # the extent as the kernel indexes it
     dtype: torch.dtype
     tile: Callable     # tile((x, y, z), *gathered) -> list[Tile]

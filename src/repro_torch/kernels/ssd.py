@@ -28,12 +28,14 @@ contiguous CUDA tensors only and raise on anything else; nothing falls
 back to the plain version.
 
 Each kernel has two bodies, chosen by `ssd_body(entry, dtype, dk, dv)`:
-"wgmma" (bf16 at (Dk, Dv) = (128, 64), mamba2-2.7b's training instance:
-a chunked scan on the tensor cores, `ssd_fwd`'s and `ssd_bwd_q`'s in
-chunk order, `ssd_bwd_kv`'s in reverse, the backward's non-input
-operands as hi + lo bf16 pairs; fed by TMA, so q, k, v and Ω must be
-16-byte aligned, which the wrappers check) and "walk" (f32, and bf16 at
-(16, 32): the token walk).
+"wgmma" (bf16 at (Dk, Dv) = (128, 64), mamba2-2.7b's training instance,
+and for `ssd_fwd` also (64, 64), zamba2-7b's Mamba-2 layers, there with
+its non-input operands as hi + lo bf16 pairs: a chunked scan on the
+tensor cores, `ssd_fwd`'s and `ssd_bwd_q`'s in chunk order,
+`ssd_bwd_kv`'s in reverse, the backward's non-input operands as hi + lo
+bf16 pairs; fed by TMA, so q, k, v and Ω must be 16-byte aligned, which
+the wrappers check) and "walk" (f32, bf16 at (16, 32), and the backward's
+bf16 at (64, 64): the token walk).
 
 Beside each wrapper, `plan_<entry>` gives the entry's launch plan
 (kernels/plan.py) from the same arguments' shapes.
@@ -49,7 +51,7 @@ from repro_torch.kernels import build, plan
 from repro_torch.kernels.defaults import DEFAULT_SCAN_CHUNK, \
     SSD_BWD_KV_QO_RING, SSD_BWD_KV_WGMMA_STATE_DIMS, SSD_BWD_Q_K_RING, \
     SSD_BWD_Q_WGMMA_STATE_DIMS, SSD_CHUNK_RING, SSD_CHUNK_TOKENS, \
-    SSD_STAGE_TOKENS, SSD_WGMMA_STATE_DIMS
+    SSD_FWD_PAIR_STATE_DIMS, SSD_STAGE_TOKENS, SSD_WGMMA_STATE_DIMS
 
 F32 = torch.float32
 # (Dk, Dv) the kernels are instantiated for: mamba2-2.7b (state 128, head
@@ -226,9 +228,10 @@ _WGMMA_EXTRA = 2048
 
 def _wgmma_block(entry, dk, dv):
     """(threads, dynamic shared memory) of an entry's wgmma body block.
-    `ssd_fwd`, as csrc/ssd.cu's `sc::kSmem`: SSD_CHUNK_RING chunks of bf16
-    q, k (Dk wide) and v (Dv wide), the bf16 (w v) tile of a chunk, the
-    bf16 copy of S^T (Dv x Dk), and the barriers and pad.  `ssd_bwd_q`, as
+    `ssd_fwd`, as csrc/ssd.cu's `sc::Layout<Dk, pairs>::kSmem`:
+    SSD_CHUNK_RING chunks of bf16 q, k (Dk wide) and v (Dv wide), the bf16
+    (w v) tile of a chunk and the bf16 copy of S^T (Dv x Dk), each twice
+    (hi, lo) at SSD_FWD_PAIR_STATE_DIMS, and the barriers and pad.  `ssd_bwd_q`, as
     `sq::kSmem`: the hi and lo bf16 copies of S^T, SSD_BWD_Q_K_RING chunks
     of k, one of v and Ω, the hi and lo (w v) tiles, and the barriers and
     pad.  `ssd_bwd_kv`, as `sk::kSmem`: the hi and lo bf16 copies of U^T
@@ -244,8 +247,10 @@ def _wgmma_block(entry, dk, dv):
         return _WGMMA_THREADS, (2 * 2 * dv * dk + SSD_BWD_KV_QO_RING * pair
                                 + pair + _WGMMA_EXTRA)
     stage = 2 * (2 * c * dk + c * dv)
-    return _WGMMA_THREADS, (SSD_CHUNK_RING * stage + 2 * c * dv
-                            + 2 * dv * dk + _WGMMA_EXTRA)
+    copies = 2 if (dk, dv) in SSD_FWD_PAIR_STATE_DIMS else 1
+    return _WGMMA_THREADS, (SSD_CHUNK_RING * stage
+                            + copies * (2 * c * dv + 2 * dv * dk)
+                            + _WGMMA_EXTRA)
 
 
 def _block(entry, dk, dv):

@@ -254,12 +254,13 @@ def _emulate_la_bwd_q(k, v, om, h_vec, b, lo=True):
     return dq[:, :, :n].to(BF16)
 
 
-def _emulate_la_bwd_kv(q, k, v, om, h_vec, a, b, lo=True):
+def _emulate_la_bwd_kv(q, k, v, om, h_vec, a, b, lo=True, rounded=True):
     """la_bwd_kv's wgmma body in f32, chunks from the last, summed over
     the group: dk = b (v U^T - u_h + T q) with T = v Ω̂^T - 1 h^T on
     i >= p; dv = b k U + a u_Ω + A Ω̂ with A = a + b k q^T on i >= p; then
     U += q^T Ω̂, u_h += q^T h, u_Ω += Σ Ω̂.  Ω̂, U's copies, T and A go as
-    hi + lo pairs.  dk and dv in bf16."""
+    hi + lo pairs.  dk and dv in bf16 (`rounded` False: the f32 values
+    before that rounding, as a slice of a split launch stores them)."""
     bsz, h, n, d = q.shape
     hkv = k.shape[1]
     g = h // hkv
@@ -293,7 +294,8 @@ def _emulate_la_bwd_kv(q, k, v, om, h_vec, a, b, lo=True):
                     for p in _parts(oc, lo)).sum(2, keepdim=True)
         u_h = u_h + (qc * hc).sum((2, 3), keepdim=True)
         u_om = u_om + oc.sum((2, 3), keepdim=True)
-    return dk[:, :, :n].to(BF16), dv[:, :, :n].to(BF16)
+    dk, dv = dk[:, :, :n], dv[:, :, :n]
+    return (dk.to(BF16), dv.to(BF16)) if rounded else (dk, dv)
 
 
 def _rel(got, want):

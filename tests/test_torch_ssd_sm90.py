@@ -130,14 +130,17 @@ def test_wgmma_plan_boxes_cover_heads():
         assert (seen == 1).all()
 
 
-def _emulate_wgmma_body(q, k, v, log_decay, chunk=SSD_CHUNK_TOKENS):
+def _emulate_wgmma_body(q, k, v, log_decay, chunk=SSD_CHUNK_TOKENS,
+                        pairs=False):
     """The wgmma body's arithmetic in f32 on the CPU: per chunk of `chunk`
     tokens, with cl the inclusive cumsum of its log decays and S^T the
     f32 state, o = exp(cl_i) q S + A v with A = bf16((q k^T) o
     exp(cl_i - cl_j), j <= i) and S read from its bf16 copy, then S^T =
-    exp(cl_last) S^T + bf16(w v)^T k, w = exp(cl_last - cl); o in bf16."""
+    exp(cl_last) S^T + bf16(w v)^T k, w = exp(cl_last - cl); o in bf16.
+    With `pairs` each of those bf16 roundings is a hi + lo pair."""
     def bf(x):
-        return x.to(BF16).float()
+        hi = x.to(BF16).float()
+        return hi + (x - hi).to(BF16).float() if pairs else hi
 
     bsz, g, n, dk = q.shape
     h, dv = v.shape[1], v.shape[3]

@@ -8,10 +8,13 @@ Builds `ssd_fwd`, `ssd_bwd_q`, `ssd_bwd_kv`, `la_fwd`, `la_bwd_q`,
 `paged_attention` from this tree's `src/` and from each DIR given, runs
 each on the same inputs (made from a seed on the card): the SSD
 kernels at mamba2-2.7b's training shape (B=2, G=1, H=80, N=8192, Dk=128,
-Dv=64, a fresh layer's decays) and at N=1000, G=4, H=16 under the strong
-U[-5, 0] decays; the LA and GLA kernels at pythia-1.4b's (B=2, H=Hkv=16,
-N=8192, D=128; the trained gate's decays) and at N=1000, G=4 (the strong
-decays), in bf16 at D = 64 (the LA kernels' chunked bodies, the GLA
+Dv=64, a fresh layer's decays), at N=1000, G=4, H=16 under the strong
+U[-5, 0] decays and at zamba2-7b's (64, 64) (B=2, G=1, H=112, N=8192, a
+fresh layer's decays); the LA and GLA kernels at pythia-1.4b's (B=2,
+H=Hkv=16, N=8192, D=128; the trained gate's decays), at N=1000, G=4 (the
+strong decays) and at qwen2.5-3b's G = 8 (B=2, H=16, Hkv=2, N=8192, the
+strong decays: `la_bwd_kv` and `gla_bwd_kv` split over 8 slices of the
+group), in bf16 at D = 64 (the LA kernels' chunked bodies, the GLA
 kernels' token walks), their token walks in f32 at D = 128, and the LA
 kernels alone at D = 112 (bf16 with G = 4, f32); the
 recurrent decode steps at the serving shape (B=8,
@@ -26,10 +29,13 @@ partials and dv; o and g; dq; dk and dv or dV'; the recurrent decode
 steps' new S and P apart from their o) equal this tree's bit for bit,
 its largest difference, that difference over the other copy's largest
 |value|, and whether that is within one bf16 step (2^-7).  Against a
-copy from before the LA kernels' chunked bodies at D = 64 (which walked
-there), their bf16 D = 64 case is within one bf16 step and not bit-equal
-(another algorithm, rounding A and the state copies once a chunk); every
-other case of such a copy keeps its bits.
+copy from before the split of `la_bwd_kv` over the query group and
+`ssd_fwd`'s chunked body at (64, 64), the `la_bwd_kv` and `gla_bwd_kv`
+outputs of the G = 8 case (the slices' f32 partials added in order, then
+rounded once) and the `ssd_fwd` o of the (64, 64) case (the chunked body
+where the token walk ran) are within one bf16 step and not bit-equal;
+every other case keeps its bits: `la_bwd_kv` and `gla_bwd_kv` at G = 1
+and 4, `ssd_fwd` at (128, 64).
 
     python tools/bits_vs_parent.py DIR [DIR ...]
 
@@ -46,15 +52,19 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-CASES = {"main": (2, 1, 80, 8192, "init"), "n1000_g4": (2, 4, 16, 1000,
-                                                       "strong")}
+# the SSD kernels' cases: (B, G, H, N, decay regime, Dk); Dv = 64
+CASES = {"main": (2, 1, 80, 8192, "init", 128),
+         "n1000_g4": (2, 4, 16, 1000, "strong", 128),
+         "zamba2_64": (2, 1, 112, 8192, "init", 64)}
 # the LA and GLA kernels' cases: (B, H, Hkv, N, decay regime, D, dtype):
-# the wgmma bodies (bf16 at D = 128), the token walks in f32, bf16 at
+# the wgmma bodies (bf16 at D = 128; at G = 8 `la_bwd_kv` and
+# `gla_bwd_kv` split over the group), the token walks in f32, bf16 at
 # D = 64 (the LA kernels' wgmma bodies, the GLA kernels' walks), and the
 # walks at D = 112 (no regime: the LA kernels alone, the gated entries do
 # not take 112)
 LA_CASES = {"la_main": (2, 16, 16, 8192, "trained", 128, "bfloat16"),
             "la_n1000_g4": (2, 16, 4, 1000, "strong", 128, "bfloat16"),
+            "la_g8_split": (2, 16, 2, 8192, "strong", 128, "bfloat16"),
             "walk_f32": (2, 16, 16, 1000, "trained", 128, "float32"),
             "d64_bf16": (2, 16, 16, 1000, "strong", 64, "bfloat16"),
             "walk_d112_g4_bf16": (2, 16, 4, 1000, None, 112, "bfloat16"),
@@ -79,11 +89,11 @@ def dump(path):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(17)
     out = {}
-    for name, (b, g, h, n, regime) in CASES.items():
+    for name, (b, g, h, n, regime, dk_) in CASES.items():
         def bf16(*shape, scale=1.0):
             return (scale * torch.randn(shape, generator=gen,
                                         device="cuda")).bfloat16()
-        q, k = bf16(b, g, n, 128, scale=0.5), bf16(b, g, n, 128, scale=0.5)
+        q, k = bf16(b, g, n, dk_, scale=0.5), bf16(b, g, n, dk_, scale=0.5)
         v, om = bf16(b, h, n, 64), bf16(b, h, n, 64)
         x = torch.randn((b, h, n), generator=gen, device="cuda")
         ld = (-torch.nn.functional.softplus(x) if regime == "init"
